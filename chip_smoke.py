@@ -8,8 +8,9 @@ without printing a result:
 
 1. device — requires ``torch.cuda.is_available()``; prints the card's
    name and power limit as ``nvidia-smi`` reports them;
-2. build — compiles the grouped-accumulate kernel (K1) from
-   ``spark_tpu_torch/csrc/`` with ``nvcc`` for ``sm_90a``;
+2. build — compiles the grouped-accumulate kernel (K1) and the
+   all-to-all kernel (K2) from ``spark_tpu_torch/csrc/`` with ``nvcc`` for
+   ``sm_90a``, one ``nvcc`` per source, started together;
 3. kernel check — K1 against its plain PyTorch version on the card,
    bit-exact, at the main path's own inputs (captured from one warm-up
    run of the hash-agg query), at the edge shapes of the Pallas kernel's
@@ -23,10 +24,32 @@ without printing a result:
    oracle computed here (integers exact); K1's launch count must rise
    during the hash-agg query; each query's warm wall time is the median
    of 5 runs;
-5. a ``{"kernels": [...]}`` line, the card line, and as the last line
+5. mesh slice — the same session with ``spark.tpu.mesh.shards = 4`` (all
+   four shards on the card) runs the hash-agg lane, q3 with its
+   broadcast joins and q3 with ``spark.sql.autoBroadcastJoinThreshold =
+   0`` (both joins shuffled through the skew join), recording every K2
+   call's inputs; each result is held against the same numpy oracle;
+   K2's launch count must rise during each query; warm wall time (median
+   of 5) and a profile line for each;
+6. K2 check — K2 against its plain PyTorch version on the card,
+   bit-exact, at every exchange the three mesh queries made, at n = 2, 4
+   and 8 with bool planes and int32 run tables whose blocks are not
+   multiples of 16 bytes, at cap = 1, in the gather form and with 50
+   planes (a wide pointer table); then K2's time at the largest recorded
+   all-to-all (CUDA events, warm-up, median of 25; and 25 launches back
+   to back, which hides the wrapper's host work) beside its byte bound,
+   its plain version's time and the one-call
+   ``transpose(0, 1).contiguous()`` yardstick on the same bytes
+   pre-stacked (which the port never calls);
+7. a ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
-Data are made with numpy from fixed seeds.  The script imports neither
+Every profile line gives, beside the largest kernels, each hand-written
+kernel's own device time, its launches and its share of the run's
+device time.
+
+Query data are made with numpy from fixed seeds, the kernels' extra
+check inputs with seeded torch generators.  The script imports neither
 JAX nor the JAX package.
 """
 
@@ -64,6 +87,31 @@ def cuda_ms(fn, warmup=3, reps=25):
     return statistics.median(times)
 
 
+def cuda_ms_back_to_back(fn, warmup=3, reps=25):
+    """Device time per call over ``reps`` calls enqueued back to back
+    between one pair of CUDA events: the host's enqueue work overlaps the
+    device's, so this is the kernel's time without the wrapper's."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def zero_counts():
+    """Every kernel's launch count to 0, just before a main-path run."""
+    from spark_tpu_torch import cuda_a2a, cuda_agg
+    cuda_agg.LAUNCHES = 0
+    cuda_a2a.LAUNCHES = 0
+
+
 def wall_ms(fn, warmup=1, reps=5):
     """Median host wall time of a call that ends in a device sync."""
     import torch
@@ -96,11 +144,12 @@ def phase_device():
 
 
 def phase_build():
-    from spark_tpu_torch import cuda_agg
+    from spark_tpu_torch import cuda_a2a, cuda_agg, cuda_build
     t0 = time.perf_counter()
-    path = cuda_agg.build(verbose=True)
-    print(f"[build] {os.path.relpath(path)} in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    paths = cuda_build.build_all([cuda_agg.SOURCE, cuda_a2a.SOURCE],
+                                 verbose=True)
+    print(f"[build] {', '.join(os.path.relpath(p) for p in paths)} in "
+          f"{time.perf_counter() - t0:.2f} s (in parallel)", flush=True)
 
 
 def _random_inputs(n, B, P, n_active, seed, dead_rows=0):
@@ -242,7 +291,7 @@ def phase_slice(session, hash_df, hash_table, kernel_entry):
           f"to the card in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # the main path's run: counts zeroed just before, read just after
-    cuda_agg.LAUNCHES = 0
+    zero_counts()
     hash_rows = hash_df.collect()
     hash_launches = cuda_agg.LAUNCHES
     q3_rows = q3_df.collect()
@@ -272,12 +321,20 @@ def phase_slice(session, hash_df, hash_table, kernel_entry):
           f"(N={MAIN_N}, {MAIN_GROUPS} groups); q3 {q3_ms:.2f} ms", flush=True)
     profile_query("hash-agg", hash_df.collect)
     profile_query("q3", q3_df.collect)
+    return tables, q3_df
+
+
+#: the hand-written kernels by the name of their ``__global__`` function
+OWN_KERNELS = (("K1", "grouped_accumulate_kernel"),
+               ("K2", "all_to_all_kernel"))
 
 
 def profile_query(name, fn, top=6):
     """Where one warm run's time goes: device time summed over the kernels
     ``torch.profiler`` saw, against the run's wall time under the
-    profiler (which adds host overhead), and the largest kernels."""
+    profiler (which adds host overhead), each hand-written kernel's own
+    time, launches and share of the device time, and the largest
+    kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -298,12 +355,201 @@ def profile_query(name, fn, top=6):
             rows.append((us, e.count, e.key))
     device_ms = sum(us for us, _c, _k in rows) / 1e3
     rows.sort(reverse=True)
+    own = []
+    for kid, fn_name in OWN_KERNELS:
+        hits = [(us, c) for us, c, k in rows if fn_name in k]
+        ms = sum(us for us, _c in hits) / 1e3
+        share = ms / device_ms if device_ms else 0.0
+        own.append(f"{kid} {fn_name} x{sum(c for _u, c in hits)} "
+                   f"{ms:.4f} ms ({share:.2%} of device time)")
     tops = "; ".join(f"{k[:60]} x{c} {us / 1e3:.3f} ms"
                      for us, c, k in rows[:top])
     print(f"[profile] {name}: wall {wall:.2f} ms under the profiler, device "
           f"busy {device_ms:.3f} ms ({device_ms / wall:.1%}), "
-          f"{sum(c for _u, c, _k in rows)} kernel launches; top: {tops}",
+          f"{sum(c for _u, c, _k in rows)} kernel launches; "
+          f"{'; '.join(own)}; top: {tops}", flush=True)
+
+
+MESH_SHARDS = 4
+SHARDS_KEY = "spark.tpu.mesh.shards"
+THRESHOLD_KEY = "spark.sql.autoBroadcastJoinThreshold"
+
+
+def _mesh(session, shards, threshold=None):
+    session.conf.set(SHARDS_KEY, str(shards))
+    if threshold is None:
+        session.conf.unset(THRESHOLD_KEY)
+    else:
+        session.conf.set(THRESHOLD_KEY, str(threshold))
+
+
+def _a2a_bytes(planes, gather):
+    """Bytes one exchange moves: every (sender, receiver) block once."""
+    n = len(planes[0])
+    return sum(x.numel() * x.element_size() * (n if gather else 1)
+               for shards in planes for x in shards)
+
+
+def _a2a_desc(planes, gather):
+    n = len(planes[0])
+    kinds = ", ".join(f"{str(p[0].dtype).replace('torch.', '')}"
+                      f"{tuple(p[0].shape)}" for p in planes)
+    return f"n={n} {'gather ' if gather else ''}planes [{kinds}]"
+
+
+def _random_planes(n, specs, seed, gather=False):
+    """Planes on the card: ``specs`` is a list of (dtype, trailing shape);
+    each sender's plane is (n, *shape), or (*shape) in the gather form."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    planes = []
+    for dtype, shape in specs:
+        full = tuple(shape) if gather else (n,) + tuple(shape)
+        if dtype == torch.bool:
+            make = lambda: torch.rand(full, generator=g,  # noqa: E731
+                                      device="cuda") < 0.5
+        elif dtype.is_floating_point:
+            make = lambda: torch.randn(full, generator=g,  # noqa: E731
+                                       device="cuda", dtype=dtype)
+        else:
+            make = lambda: torch.randint(  # noqa: E731
+                -1000, 1000, full, generator=g, device="cuda", dtype=dtype)
+        planes.append([make() for _ in range(n)])
+    return planes
+
+
+def phase_k2_check(captured, launches):
+    """K2 against its plain version, bit-exact, at every recorded mesh
+    exchange and at edge shapes; timings at the largest recorded
+    all-to-all.  Returns the kernel's entry for the kernels line."""
+    import torch
+    from spark_tpu_torch import cuda_a2a
+
+    cases = [(f"{query} call {i}", planes, gather)
+             for i, (query, planes, gather) in enumerate(captured)]
+    i32, i64, f64, b8 = torch.int32, torch.int64, torch.float64, torch.bool
+    for n in (2, 4, 8):
+        specs = [(i64, (1000,)), (f64, (1000,)), (b8, (1000,)),
+                 (i32, (3 + n,))]
+        cases.append((f"n={n} int64/float64/bool cap=1000, int32 runs "
+                      f"{3 + n}", _random_planes(n, specs, 30 + n), False))
+        cases.append((f"n={n} cap=1", _random_planes(
+            n, [(i64, (1,)), (b8, (1,)), (i32, (1,))], 40 + n), False))
+    cases.append(("n=4 cap=2^20+3 (chunk tails)", _random_planes(
+        4, [(i64, ((1 << 20) + 3,)), (b8, ((1 << 20) + 3,))], 50), False))
+    cases.append(("n=4 gather int64/bool cap=37", _random_planes(
+        4, [(i64, (37,)), (b8, (37,)), (i32, ())], 51, gather=True), True))
+    cases.append(("n=8 50 planes (a 32 KB pointer table)", _random_planes(
+        8, [(i32, (9,))] * 25 + [(b8, (13,))] * 25, 52), False))
+    max_err = 0
+    for name, planes, gather in cases:
+        got = cuda_a2a.all_to_all(planes, gather)
+        want = cuda_a2a.all_to_all_plain(planes, gather)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            check(g.dtype == w.dtype and g.shape == w.shape,
+                  f"K2 output {g.dtype}{tuple(g.shape)} vs plain "
+                  f"{w.dtype}{tuple(w.shape)} at {name}")
+            if g.dtype != torch.bool and g.numel():
+                max_err = max(max_err, float((g.double() - w.double())
+                                             .abs().max()))
+            check(torch.equal(g, w), f"K2 differs from its plain version "
+                  f"at {name}")
+        print(f"[k2] {name}: bit-exact", flush=True)
+
+    query, planes, gather = max((c for c in captured if not c[2]),
+                                key=lambda c: _a2a_bytes(c[1], c[2]))
+    n = len(planes[0])
+    kernel_ms = cuda_ms(lambda: cuda_a2a.all_to_all(planes, gather))
+    plain_ms = cuda_ms(lambda: cuda_a2a.all_to_all_plain(planes, gather))
+    b2b_ms = cuda_ms_back_to_back(lambda: cuda_a2a.all_to_all(planes, gather))
+    # yardstick: the same bytes pre-stacked as one (n, n, bytes) tensor,
+    # moved by one library call
+    per_plane = [torch.stack(list(p)).view(torch.uint8).reshape(n, n, -1)
+                 for p in planes]
+    stacked = torch.cat(per_plane, dim=2)
+    want = torch.cat([o.view(torch.uint8).reshape(n, n, -1) for o in
+                      cuda_a2a.all_to_all_plain(planes, gather)], dim=2)
+    check(torch.equal(stacked.transpose(0, 1).contiguous(), want),
+          "transpose yardstick disagrees with the plain version")
+    library_ms = cuda_ms(lambda: stacked.transpose(0, 1).contiguous())
+    nbytes = 2 * _a2a_bytes(planes, gather)       # read once, write once
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[k2] all_to_all at the largest exchange ({query}), "
+          f"{_a2a_desc(planes, gather)}: "
+          f"{kernel_ms:.4f} ms (bound {bound_ms:.4f} ms by bytes, {nbytes} "
+          f"B at 3.35 TB/s); plain {plain_ms:.4f} ms; transpose "
+          f"{library_ms:.4f} ms; back to back {b2b_ms:.4f} ms per call",
           flush=True)
+    return {"name": "all_to_all", "route": "cuda",
+            "source": "spark_tpu_torch/csrc/all_to_all.cu",
+            "replaces": "spark_tpu/parallel/ici.py:352",
+            "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": library_ms}
+
+
+def phase_mesh(session, hash_df, hash_table, q3_df, tables):
+    """The mesh lane's three queries at 4 shards on the card.  Returns
+    every K2 call's inputs from their counted run, as (query, planes,
+    gather), and K2's launch count over that run."""
+    from spark_tpu_torch import cuda_a2a
+
+    want_hash = hash_agg_oracle(hash_table)
+    want_q3 = q3_oracle(tables)
+    runs = [("hash-agg", hash_df, None),
+            ("q3 broadcast joins", q3_df, None),
+            ("q3 shuffled joins", q3_df, 0)]
+
+    # record every K2 call's inputs for the kernel check (the spy only
+    # passes the call on: the count rises inside the wrapper it calls)
+    captured = []
+    launch = cuda_a2a.all_to_all
+    query = [None]
+
+    def spy(planes, gather=False):
+        captured.append((query[0], [list(p) for p in planes], gather))
+        return launch(planes, gather)
+
+    # the mesh lane's run: counts zeroed just before, read just after
+    counts = []
+    cuda_a2a.all_to_all = spy
+    try:
+        zero_counts()
+        for name, df, threshold in runs:
+            _mesh(session, MESH_SHARDS, threshold)
+            query[0] = name
+            before = cuda_a2a.LAUNCHES
+            rows = df.collect()
+            counts.append((name, df, rows, cuda_a2a.LAUNCHES - before))
+        launches = cuda_a2a.LAUNCHES
+    finally:
+        cuda_a2a.all_to_all = launch
+    for name, df, rows, count in counts:
+        check(count > 0, f"K2 was not launched during {name}")
+        if df is hash_df:
+            got = sorted((r["k"], r["s"], r["c"]) for r in rows)
+            check(got == want_hash, f"mesh {name} differs from the oracle")
+        else:
+            got = [tuple(r) for r in rows]
+            check(got == want_q3, f"mesh {name} differs from the oracle "
+                  f"(first rows {got[:2]} vs {want_q3[:2]})")
+        print(f"[mesh] {name} x{MESH_SHARDS} shards: {len(got)} rows equal "
+              f"to the oracle; K2 launches during the query: {count}",
+              flush=True)
+    for query_name, planes, gather in captured:
+        print(f"[k2]   {query_name}: {_a2a_desc(planes, gather)}: "
+              f"{_a2a_bytes(planes, gather)} B", flush=True)
+
+    for name, df, threshold in runs:
+        _mesh(session, MESH_SHARDS, threshold)
+        ms = wall_ms(df.collect)
+        print(f"[mesh] {name} x{MESH_SHARDS}: warm wall time, median of 5: "
+              f"{ms:.2f} ms", flush=True)
+        profile_query(f"mesh {name}", df.collect)
+    _mesh(session, 1)
+    return captured, launches
 
 
 def main() -> int:
@@ -331,10 +577,13 @@ def main() -> int:
     hash_table = hash_agg_table(MAIN_N, MAIN_GROUPS)
     hash_df = hash_agg_query(session, F, hash_table)
     entry = phase_kernel_check(session, hash_df)
-    phase_slice(session, hash_df, hash_table, entry)
+    tables, q3_df = phase_slice(session, hash_df, hash_table, entry)
+    captured, k2_launches = phase_mesh(session, hash_df, hash_table, q3_df,
+                                       tables)
+    k2_entry = phase_k2_check(captured, k2_launches)
     session.stop()
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [entry, k2_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

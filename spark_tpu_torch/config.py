@@ -2,7 +2,8 @@
 
 The ``ConfigEntry``/``Conf`` machinery of ``spark_tpu/config.py`` (the
 analog of ``SparkConf.scala`` + ``ConfigBuilder.scala`` + ``SQLConf.scala``)
-with the entries the single-device DataFrame path reads.  Key names are
+with the entries the single-device DataFrame path and the mesh lane read.
+Key names are
 the JAX package's, so one conf dict configures a session of either
 package; ``spark.torch.device`` is the port's own.
 """
@@ -162,10 +163,44 @@ JOIN_OUTPUT_MAX_ROWS = conf("spark.sql.join.maxOutputRows").doc(
 ).int(1 << 27)
 
 MESH_SHARDS = conf("spark.tpu.mesh.shards").doc(
-    "Number of mesh shards for distributed execution (0 = all local "
-    "devices).  The PyTorch engine executes on one device; the entry is "
-    "kept so one conf configures both packages."
+    "Number of mesh shards for distributed execution.  n > 1 runs every "
+    "query as n shards of one SPMD program (parallel/executor.py), every "
+    "exchange between shards one launch of the all-to-all kernel; all n "
+    "shards live on the session's device (spark.torch.device).  1 = the "
+    "single-device lane.  0 = all local devices, which is 1 here: the "
+    "engine spans one device, so the single-device lane stays the "
+    "default unless shards are asked for."
 ).int(0)
+
+AUTO_BROADCAST_JOIN_THRESHOLD = conf("spark.sql.autoBroadcastJoinThreshold").doc(
+    "Max estimated row count of a relation that will be broadcast for joins "
+    "on the mesh lane (the reference uses bytes; rows here because "
+    "columnar batches make row counts the natural stat)."
+).int(1 << 22)
+
+EXCHANGE_SKEW_FACTOR = conf("spark.sql.exchange.skewFactor").doc(
+    "Per-destination bucket capacity of an all-to-all exchange as a "
+    "multiple of the even split (capacity/num_shards); overflow is "
+    "detected at run time and retried with a grown factor."
+).float(4.0)
+
+ADAPTIVE_ENABLED = conf("spark.sql.adaptive.enabled").doc(
+    "Adaptive exchanges (ExchangeCoordinator analog, in-program): hash "
+    "exchanges route through a measured balanced fine-bucket→shard "
+    "assignment (coalescing + balancing), and shuffled joins split hot "
+    "keys (probe rows spread, build rows replicate)."
+).boolean(True)
+
+EXCHANGE_FINE_BUCKETS = conf("spark.tpu.exchange.fineBucketsPerShard").doc(
+    "Fine buckets PER SHARD for adaptive hash exchanges; their psum'd "
+    "counts drive the balanced bucket→shard assignment."
+).int(32)
+
+EXCHANGE_SPREAD_FRAC = conf("spark.tpu.exchange.spreadThreshold").doc(
+    "A fine bucket whose probe-side row count exceeds this fraction of "
+    "the per-shard even share is HOT in a shuffled join: its probe rows "
+    "spread round-robin and its build rows replicate to every shard."
+).float(0.5)
 
 CODEGEN_ENABLED = conf("spark.sql.codegen.wholeStage").doc(
     "Fuse operator pipelines into one compiled program (WholeStageCodegen "

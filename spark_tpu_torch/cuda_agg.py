@@ -9,21 +9,19 @@ kernel ``_kernel``): same function, exact, with uint8 planes (every value
 is in {0..255}; bf16 was only the TPU matrix unit's input type).
 
 On a CUDA tensor the wrapper launches ``csrc/grouped_accumulate.cu`` — built
-with ``nvcc`` at first use into ``build/kernels/`` and bound with ctypes —
-or raises; on a CPU tensor it runs the plain PyTorch version.  There is no
-fallback from one to the other.
+with ``nvcc`` at first use into ``build/kernels/`` and bound with ctypes
+(``cuda_build``) — or raises; on a CPU tensor it runs the plain PyTorch
+version.  There is no fallback from one to the other.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-from typing import Optional
 
 import torch
+
+from . import cuda_build
 
 #: bucket chunk width in which ``n_active`` is counted (the TPU kernel's BB)
 CHUNK = 512
@@ -32,13 +30,7 @@ CHUNK = 512
 #: reads it around the main path to show the path went through the kernel)
 LAUNCHES = 0
 
-_PKG = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_PKG, "csrc", "grouped_accumulate.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
-
-_LIB: Optional[ctypes.CDLL] = None
+SOURCE = os.path.join(cuda_build.CSRC, "grouped_accumulate.cu")
 
 
 def n_active_chunks(prod: torch.Tensor, B: int) -> torch.Tensor:
@@ -62,47 +54,12 @@ def grouped_accumulate_plain(bucket32: torch.Tensor, planes: torch.Tensor,
     return out.index_add_(0, idx, vals)
 
 
-def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        tag = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                             ).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libgrouped_accumulate_{tag}.so")
-
-
-def build(verbose: bool = False) -> str:
-    """Compile the kernel with nvcc unless this source is already built;
-    returns the shared library's path."""
-    out = library_path()
-    if os.path.exists(out):
-        return out
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the grouped-accumulate kernel "
-                           "builds only where the CUDA toolkit is installed")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, out)
-    return out
-
-
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(build())
-        fn = lib.spark_grouped_accumulate
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.spark_grouped_accumulate
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
 
 
 def grouped_accumulate(bucket32: torch.Tensor, planes: torch.Tensor,
@@ -137,7 +94,7 @@ def grouped_accumulate(bucket32: torch.Tensor, planes: torch.Tensor,
     out = torch.zeros((B, P), dtype=torch.int64, device=planes.device)
     if n == 0:
         return out
-    lib = _lib()
+    lib = cuda_build.load(SOURCE, _bind)
     with torch.cuda.device(planes.device):   # the launch uses the current card
         stream = torch.cuda.current_stream(planes.device).cuda_stream
         rc = lib.spark_grouped_accumulate(

@@ -395,10 +395,13 @@ def _sorted_grouped_aggregate(
 
 def _scatter_starts(sorted_data: torch.Tensor, seg_ids: torch.Tensor,
                     is_start: torch.Tensor, capacity: int) -> torch.Tensor:
-    """out[g] = sorted_data[first row of segment g]; non-start rows land in
-    a spill slot past the end that is sliced away."""
-    target = torch.where(is_start, seg_ids, capacity)
-    out = torch.zeros(capacity + 1, dtype=sorted_data.dtype,
+    """out[g] = sorted_data[first row of segment g]; each non-start row
+    lands in its own spill slot past the end, sliced away (one shared
+    spill slot would serialize their stores on the card)."""
+    n = sorted_data.shape[0]
+    target = torch.where(is_start, seg_ids,
+                         capacity + torch.arange(n, device=seg_ids.device))
+    out = torch.zeros(capacity + n, dtype=sorted_data.dtype,
                       device=sorted_data.device)
     return out.index_put_((target,), sorted_data)[:capacity]
 

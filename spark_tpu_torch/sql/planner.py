@@ -22,7 +22,7 @@ from ..expressions import AnalysisException
 from ..kernels import compact
 from .logical import (
     Aggregate, Distinct, Filter, Join, Limit, LocalRelation, LogicalPlan,
-    Project, RangeRelation, Sort, SubqueryAlias,
+    Project, RangeRelation, Sort, SubqueryAlias, Union,
 )
 from . import physical as P
 
@@ -126,6 +126,33 @@ def check_planned_join_capacities(pq: "PlannedQuery", session,
     for node, probe, out in _join_caps(pq):
         if out > cap:
             raise _fanout_error(where, out, node.factor, probe, cap)
+
+
+def _needs_local_fallback(plan: LogicalPlan) -> bool:
+    """Plans the mesh lane cannot shard: ArrayType columns at a leaf or
+    feeding an exchange-inducing operator (exchanges are 1-D)."""
+    from .. import types as T
+    found = []
+
+    def has_arrays(node: LogicalPlan) -> bool:
+        try:
+            return any(isinstance(f.dataType, T.ArrayType)
+                       for f in node.schema().fields)
+        except AnalysisException:
+            return False
+
+    def walk(node: LogicalPlan):
+        if not node.children and has_arrays(node):
+            found.append("array-leaf")
+        exchange_like = isinstance(node, (Aggregate, Distinct, Join, Union,
+                                          Sort))
+        for c in node.children:
+            if exchange_like and has_arrays(c):
+                found.append("array-into-exchange")
+            walk(c)
+
+    walk(plan)
+    return bool(found)
 
 
 class PlannedQuery:
@@ -269,14 +296,28 @@ class QueryExecution:
         return self._execute_inner()
 
     def _execute_inner(self) -> ColumnBatch:
-        # Left out of this slice, each with the slice that brings it:
+        # Left out here, each with the slice that brings it:
         # * the plan-analysis verifier (maybe_verify_plan) and the serving
         #   plan cache: the stage-cache slice;
-        # * the cross-process exchange (crossproc_execute) and the
-        #   distributed mesh executor — spark.tpu.mesh.shards is treated
-        #   as 1 here: the distributed slice;
-        # * the multi-batch and stage-DAG out-of-core runners: the
-        #   out-of-core slice.
+        # * the cross-process exchange (crossproc_execute): the
+        #   cross-process slice;
+        # * the multi-batch and stage-DAG out-of-core runners, alone and
+        #   under the mesh: the out-of-core slice.
+        n_shards = self.session.conf.get(C.MESH_SHARDS)
+        if n_shards == 0:
+            n_shards = 1          # "all local devices": the engine spans one
+        if n_shards > 1 and _needs_local_fallback(self.optimized):
+            _log.info("array plan: falling back to single-shard")
+            n_shards = 1
+        if n_shards > 1:
+            # the mesh lane: n shards of one SPMD program on the session's
+            # device, every exchange one all-to-all kernel launch
+            from ..parallel.executor import DistributedExecution
+            from ..parallel.mesh import get_mesh
+            mesh = get_mesh(n_shards, self.session.device)
+            return DistributedExecution(self.session, mesh).execute(
+                self.optimized)
+
         base_key = "local:" + self.planned.physical.key()
         adapted = self.session._adapted_factors.get(base_key) or {}
         factors, shrink = adapted.get("join"), adapted.get("shrink")
