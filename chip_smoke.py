@@ -10,20 +10,30 @@ without printing a result:
    name and power limit as ``nvidia-smi`` reports them;
 2. build — compiles the grouped-accumulate kernel (K1) and the
    all-to-all kernel (K2) from ``spark_tpu_torch/csrc/`` with ``nvcc`` for
-   ``sm_90a``, one ``nvcc`` per source, started together;
-3. kernel check — K1 against its plain PyTorch version on the card,
-   bit-exact, at the main path's own inputs (captured from one warm-up
-   run of the hash-agg query), at the edge shapes of the Pallas kernel's
-   tests, at N > 2^23 and at B = 10,000; then K1's time at the main-path
-   shape (CUDA events, warm-up, median of 25) beside its byte bound, its
-   plain version's time and the one-call ``index_add_`` yardstick
-   (which the port never calls);
+   ``sm_90a``, one ``nvcc`` per source, started together; prints
+   ``-Xptxas -v`` (registers, spills) and the atomics in K1's SASS;
+3. kernel check — K1's two entries against their plain PyTorch versions
+   on the card, bit-exact: the columns entry (the main path's) at the
+   hash-agg query's own plane specs (captured from one warm-up run), at
+   each value width with NULLs and dtype extremes (sums that wrap),
+   with dead-chunk rows, at N > 2^23 and at B = 10,000 with more planes
+   than one accumulator pass holds; the planes entry at the main path's
+   planes stacked, the edge shapes of the Pallas kernel's tests, dead
+   chunks, N > 2^23 and B = 10,000; both at N = 2^24 rows in one bucket
+   with every limb 255, also with the flush forced every 5,000 rows.
+   Then each entry's time at the main-path shape — per call (CUDA
+   events, the kernels line's ``ms``), back to back, the kernel alone
+   (``torch.profiler``) and the wrapper's host time per call — beside its
+   byte bound, its plain version's time and, for the planes entry, the
+   one-call ``index_add_`` yardstick (which the port never calls); and
+   the launch's grid, shared memory and cluster size;
 4. slice — a ``SparkSession`` on the default device (the card) runs the
    hash-agg lane (2^22 rows, 1,024 groups) and TPC-DS q3 at SF1 row
    counts through the DataFrame API; each result is held against a numpy
-   oracle computed here (integers exact); K1's launch count must rise
-   during the hash-agg query; each query's warm wall time is the median
-   of 5 runs;
+   oracle computed here (integers exact); the hash-agg query must make
+   exactly one K1 launch, through the columns entry, and no
+   ``aten::stack``; each query's warm wall time is the median of 5
+   runs;
 5. mesh slice — the same session with ``spark.tpu.mesh.shards = 4`` (all
    four shards on the card) runs the hash-agg lane, q3 with its
    broadcast joins and q3 with ``spark.sql.autoBroadcastJoinThreshold =
@@ -36,11 +46,12 @@ without printing a result:
    and 8 with bool planes and int32 run tables whose blocks are not
    multiples of 16 bytes, at cap = 1, in the gather form and with 50
    planes (a wide pointer table); then K2's time at the largest recorded
-   all-to-all (CUDA events, warm-up, median of 25; and 25 launches back
-   to back, which hides the wrapper's host work) beside its byte bound,
+   all-to-all (CUDA events, warm-up, median of 25; 25 launches back to
+   back, which hides the wrapper's host work; and the kernel alone under
+   ``torch.profiler``) beside its byte bound,
    its plain version's time and the one-call
    ``transpose(0, 1).contiguous()`` yardstick on the same bytes
-   pre-stacked (which the port never calls);
+   pre-stacked (which the port never calls), per call and back to back;
 7. a ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -105,10 +116,28 @@ def cuda_ms_back_to_back(fn, warmup=3, reps=25):
     return start.elapsed_time(end) / reps
 
 
+def host_ms(fn, warmup=3, reps=25):
+    """Median host time of one call from an idle device: the wrapper's
+    work up to its last enqueue, not the device's."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def zero_counts():
     """Every kernel's launch count to 0, just before a main-path run."""
     from spark_tpu_torch import cuda_a2a, cuda_agg
     cuda_agg.LAUNCHES = 0
+    for entry in cuda_agg.ENTRY_LAUNCHES:
+        cuda_agg.ENTRY_LAUNCHES[entry] = 0
     cuda_a2a.LAUNCHES = 0
 
 
@@ -150,6 +179,15 @@ def phase_build():
                                  verbose=True)
     print(f"[build] {', '.join(os.path.relpath(p) for p in paths)} in "
           f"{time.perf_counter() - t0:.2f} s (in parallel)", flush=True)
+    cuobjdump = os.path.join(os.path.dirname(cuda_build._nvcc()),
+                             "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", paths[0]], capture_output=True,
+                          text=True, timeout=120).stdout
+    atomics = {}
+    for tok in sass.replace(";", " ").split():
+        if tok.startswith(("ATOMS", "ATOMG", "RED")):
+            atomics[tok] = atomics.get(tok, 0) + 1
+    print(f"[build] K1 SASS atomics (instructions): {atomics}", flush=True)
 
 
 def _random_inputs(n, B, P, n_active, seed, dead_rows=0):
@@ -169,36 +207,158 @@ def _random_inputs(n, B, P, n_active, seed, dead_rows=0):
             torch.tensor([n_active], dtype=torch.int32, device=dev), B)
 
 
+#: value columns of the fused entry's checks: dtype name, as the grouped
+#: aggregate hands them over (a decimal is its int64 unscaled value)
+VALUE_KINDS = ("int8", "int16", "int32", "int64", "bool", "decimal")
+
+
+def _sum_planes(value, mask):
+    """The planes one Sum/Avg of ``value`` makes, as
+    ``kernels._mxu_grouped_aggregate`` describes them: limbs, then the
+    count of its non-NULL rows."""
+    from spark_tpu_torch import cuda_agg
+    n_limbs = value.element_size()
+    offset = -(1 << 63) if n_limbs == 8 else 1 << (8 * n_limbs - 1)
+    return [cuda_agg.Plane(mask, value, i, offset) for i in range(n_limbs)] \
+        + [cuda_agg.Plane(mask)]
+
+
+def _column_inputs(n, B, n_active, kinds, seed, nullable=True,
+                   dead_rows=0, bucket=None):
+    """Columns on the card and the planes of a grouped aggregate over
+    them: plane 0 counts live rows (a row mask), then per value column a
+    Count plane and the Sum planes.  Values hold each dtype's extremes, so
+    the limb sums recombine to wrapping int64 sums; ``dead_rows`` rows
+    sit in the chunk past n_active with nonzero planes."""
+    import torch
+    from spark_tpu_torch import cuda_agg
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = torch.device("cuda")
+    if bucket is None:
+        bucket = torch.randint(0, min(B, n_active * 512), (n,), generator=g,
+                               device=dev, dtype=torch.int32)
+        if dead_rows:
+            bucket[-dead_rows:] = torch.randint(
+                n_active * 512, B, (dead_rows,), generator=g, device=dev,
+                dtype=torch.int32)
+    live = torch.rand(n, generator=g, device=dev) < 0.9
+    planes = [cuda_agg.Plane(live)]
+    for kind in kinds:
+        if kind == "bool":
+            x = torch.rand(n, generator=g, device=dev) < 0.5
+        else:
+            dt = getattr(torch, "int64" if kind == "decimal" else kind)
+            info = torch.iinfo(dt)
+            lo, hi = (-10 ** 17, 10 ** 17) if kind == "decimal" else \
+                (info.min, info.max)
+            x = torch.randint(lo, hi, (n,), generator=g, device=dev, dtype=dt)
+            x[:4] = torch.tensor([info.min, info.max, info.max, -1], dtype=dt)
+        m = live
+        if nullable:
+            m = (live & (torch.rand(n, generator=g, device=dev) < 0.7)
+                 ).contiguous()
+        planes.append(cuda_agg.Plane(m))
+        planes.extend(_sum_planes(x, m))
+    return (bucket, planes,
+            torch.tensor([n_active], dtype=torch.int32, device=dev), B)
+
+
+def _stacked(planes, n):
+    """The (N, P) uint8 plane matrix of ``planes``, built in plain torch."""
+    import torch
+    from spark_tpu_torch import cuda_agg
+    return torch.stack([cuda_agg.plane_values(p, n, "cuda") for p in planes],
+                       dim=1).contiguous()
+
+
+def kernel_device_ms(fn, name, reps=20):
+    """Mean device time of the kernel named ``name`` over ``reps`` calls,
+    from ``torch.profiler`` (the kernel alone: no wrapper, no fill)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0)), e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and name in e.key]
+    us, count = sum(h[0] for h in hits), sum(h[1] for h in hits)
+    check(count == reps, f"profiler saw {count} launches of {name}, "
+          f"expected {reps}")
+    return us / count / 1e3
+
+
+def _check_cases(name, cases, fn, plain):
+    """Each case's kernel result against its plain version, bit-exact;
+    returns the largest absolute difference (0)."""
+    import torch
+    max_err = 0
+    for case, args in cases:
+        got = fn(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max()) if got.numel() else 0
+        max_err = max(max_err, err)
+        check(torch.equal(got, want), f"{name} differs from its plain "
+              f"version at {case} (max abs err {err})")
+        print(f"[kernel] {name} {case}: bit-exact", flush=True)
+    return max_err
+
+
+def _stress_cases(n):
+    """N rows in one bucket, every limb plane 255: the int32 lanes take
+    every row's 255 with no carry, the int64 sums exceed 2^32."""
+    import torch
+    from spark_tpu_torch import cuda_agg
+    dev = torch.device("cuda")
+    bucket = torch.full((n,), 7, dtype=torch.int32, device=dev)
+    na = torch.tensor([1], dtype=torch.int32, device=dev)
+    x = torch.full((n,), (1 << 63) - 1, dtype=torch.int64, device=dev)
+    planes = [cuda_agg.Plane()] + _sum_planes(x, None)
+    mat = torch.full((n, 10), 255, dtype=torch.uint8, device=dev)
+    return (bucket, mat, na, 512), (bucket, planes, na, 512)
+
+
 def phase_kernel_check(session, hash_df):
-    """K1 against its plain version, bit-exact; timings at the main path's
-    inputs.  Returns the kernel's entry for the kernels line (launches
-    filled in by the slice phase)."""
+    """K1's two entries against their plain versions, bit-exact; timings
+    at the main path's inputs.  Returns the entries for the kernels line
+    (launches filled in by the slice phase)."""
     import torch
     from spark_tpu_torch import cuda_agg
 
     # the main path's own inputs: one warm-up run of the hash-agg query
     captured = []
-    launch = cuda_agg.grouped_accumulate
+    launch = cuda_agg.grouped_accumulate_columns
 
     def spy(bucket32, planes, n_active, B):
-        captured.append((bucket32, planes, n_active, B))
+        captured.append((bucket32, list(planes), n_active, B))
         return launch(bucket32, planes, n_active, B)
 
-    cuda_agg.grouped_accumulate = spy
+    cuda_agg.grouped_accumulate_columns = spy
     try:
         hash_df.collect()
     finally:
-        cuda_agg.grouped_accumulate = launch
+        cuda_agg.grouped_accumulate_columns = launch
     check(len(captured) == 1, f"hash-agg query made {len(captured)} K1 "
           "calls, expected 1")
     main = captured[0]
-    n, P = main[1].shape
-    print(f"[kernel] main-path inputs: N={n} B={main[3]} P={P} "
-          f"n_active={int(main[2])}", flush=True)
-    check((n, main[3], P, int(main[2])) == (MAIN_N, 4096, 10, 2),
+    b, planes, na, B = main
+    n, P = b.shape[0], len(planes)
+    print(f"[kernel] main-path inputs: N={n} B={B} P={P} "
+          f"n_active={int(na)}; columns read: "
+          f"{', '.join(d for d, _ in _columns(planes).values()) or 'none'}",
+          flush=True)
+    check((n, B, P, int(na)) == (MAIN_N, 4096, 10, 2),
           "main-path K1 shape is not N=2^22, B=4096, P=10, n_active=2")
+    main_planes = (b, _stacked(planes, n), na, B)
 
-    cases = [("main path", main)]
+    # planes in: the one-to-one counterpart of the Pallas kernel
+    cases = [("main path (its planes, stacked)", main_planes)]
     for i, (cn, cb, cp) in enumerate([(1000, 512, 3), (4096, 4096, 11),
                                       (70, 100, 1), (2048, 1024, 24)]):
         cases.append((f"edge N={cn} B={cb} P={cp}",
@@ -209,41 +369,117 @@ def phase_kernel_check(session, hash_df):
                   _random_inputs((1 << 23) + 77, 1024, 3, 2, 21)))
     cases.append(("B=10000 N=100000 P=4",
                   _random_inputs(100_000, 10_000, 4, 20, 22)))
-    max_err = 0
-    for name, (b, p, na, B) in cases:
-        got = cuda_agg.grouped_accumulate(b, p, na, B)
-        want = cuda_agg.grouped_accumulate_plain(b, p, na, B)
-        torch.cuda.synchronize()
-        err = int((got - want).abs().max()) if got.numel() else 0
-        max_err = max(max_err, err)
-        check(torch.equal(got, want), f"K1 differs from its plain version "
-              f"at {name} (max abs err {err})")
-        print(f"[kernel] {name}: bit-exact", flush=True)
+    cases.append(("B=10000 N=100000 P=19 (several accumulator passes)",
+                  _random_inputs(100_000, 10_000, 19, 20, 23)))
+    stress_planes, stress_columns = _stress_cases(1 << 24)
+    cases.append(("N=2^24 in one bucket, planes 255", stress_planes))
+    planes_err = _check_cases("planes in", cases, cuda_agg.grouped_accumulate,
+                              cuda_agg.grouped_accumulate_plain)
 
-    b, p, na, B = main
-    kernel_ms = cuda_ms(lambda: cuda_agg.grouped_accumulate(b, p, na, B))
-    plain_ms = cuda_ms(lambda: cuda_agg.grouped_accumulate_plain(b, p, na, B))
-    # yardstick: one library call on the same inputs (every main-path row
-    # lies in a live chunk, so no masking is needed for the same result)
-    b64, p64 = b.long(), p.long()
-    out = torch.zeros((B, P), dtype=torch.int64, device=b.device)
-    check(torch.equal(out.index_add_(0, b64, p64),
-                      cuda_agg.grouped_accumulate_plain(b, p, na, B)),
-          "index_add_ yardstick disagrees with the plain version")
-    library_ms = cuda_ms(lambda: out.index_add_(0, b64, p64))
-    nbytes = n * (4 + P) + B * P * 8
+    # columns in: the fused entry the main path calls
+    cases = [("main path (its own specs)", main)]
+    for i, kind in enumerate(VALUE_KINDS):
+        cases.append((f"{kind} values, nullable", _column_inputs(
+            1 << 20, 2048, 2, [kind], 30 + i)))
+    cases.append(("int64 values, no NULLs", _column_inputs(
+        1 << 20, 2048, 2, ["int64"], 40, nullable=False)))
+    cases.append(("dead chunks N=3000 B=4096 n_active=1", _column_inputs(
+        3000, 4096, 1, ["int32"], 41, dead_rows=50)))
+    cases.append(("N>2^23 N=8388685 B=1024", _column_inputs(
+        (1 << 23) + 77, 1024, 2, ["int64", "int16"], 42)))
+    wide = _column_inputs(100_000, 10_000, 20, ["int64", "int64"], 43)
+    cases.append((f"B=10000 N=100000 P={len(wide[1])} (several accumulator "
+                  "passes)", wide))
+    cases.append(("N=2^24 in one bucket, limbs 255", stress_columns))
+    columns_err = _check_cases("columns in", cases,
+                               cuda_agg.grouped_accumulate_columns,
+                               cuda_agg.grouped_accumulate_columns_plain)
+
+    # exactness past ROWS_PER_FLUSH: the same stress with the flush every
+    # few tiles, so every CTA flushes and re-zeroes many times
+    rows_per_flush = cuda_agg.ROWS_PER_FLUSH
+    cuda_agg.ROWS_PER_FLUSH = 5000
+    try:
+        planes_err = max(planes_err, _check_cases(
+            "planes in", [("N=2^24 one bucket, flush every 5000 rows",
+                           stress_planes)],
+            cuda_agg.grouped_accumulate, cuda_agg.grouped_accumulate_plain))
+        columns_err = max(columns_err, _check_cases(
+            "columns in", [("N=2^24 one bucket, flush every 5000 rows",
+                            stress_columns)],
+            cuda_agg.grouped_accumulate_columns,
+            cuda_agg.grouped_accumulate_columns_plain))
+    finally:
+        cuda_agg.ROWS_PER_FLUSH = rows_per_flush
+    del stress_planes, stress_columns, wide, cases
+
+    entries = []
+    for name, fn, plain, args, err, row_width in (
+            ("grouped_accumulate", cuda_agg.grouped_accumulate,
+             cuda_agg.grouped_accumulate_plain, main_planes, planes_err, P),
+            ("grouped_accumulate_columns",
+             cuda_agg.grouped_accumulate_columns,
+             cuda_agg.grouped_accumulate_columns_plain, main, columns_err,
+             sum(b for _, b in _columns(planes).values()))):
+        entries.append(_time_k1(name, fn, plain, args, err, P, row_width))
+    return entries
+
+
+def _columns(planes):
+    """The distinct columns ``planes`` read: {key: (role and dtype, bytes
+    a row)}."""
+    seen = {}
+    for p in planes:
+        for role, t in (("mask", p.mask), ("value", p.value)):
+            if t is not None:
+                seen.setdefault((t.data_ptr(), t.dtype), (
+                    f"{role} {str(t.dtype).replace('torch.', '')}",
+                    t.element_size()))
+    return seen
+
+
+def _time_k1(name, fn, plain, args, max_err, P, row_width):
+    """One K1 entry's numbers at the main path's inputs: ``P`` planes from
+    ``row_width`` input bytes a row beside the bucket code."""
+    import torch
+    from spark_tpu_torch import cuda_agg
+    b, _planes, na, B = args
+    n = b.shape[0]
+    per_call = cuda_ms(lambda: fn(*args))
+    b2b = cuda_ms_back_to_back(lambda: fn(*args))
+    kernel = kernel_device_ms(lambda: fn(*args), "grouped_accumulate_kernel")
+    host = host_ms(lambda: fn(*args))
+    launch = cuda_agg.launch_shape(name == "grouped_accumulate_columns", n,
+                                   P, B, row_width)
+    plain_ms = cuda_ms(lambda: plain(*args))
+    library_ms = None
+    if name == "grouped_accumulate":
+        # yardstick: one library call on the same inputs (every main-path
+        # row lies in a live chunk, so no masking is needed)
+        b64, p64 = b.long(), args[1].long()
+        out = torch.zeros((B, p64.shape[1]), dtype=torch.int64,
+                          device=b.device)
+        check(torch.equal(out.index_add_(0, b64, p64), plain(*args)),
+              "index_add_ yardstick disagrees with the plain version")
+        library_ms = cuda_ms(lambda: out.index_add_(0, b64, p64))
+    nbytes = n * (4 + row_width) + B * P * 8
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"[kernel] grouped_accumulate at N={n} B={B} P={P}: "
-          f"{kernel_ms:.4f} ms (bound {bound_ms:.4f} ms by bytes, "
-          f"{nbytes} B at 3.35 TB/s); plain {plain_ms:.4f} ms; "
-          f"index_add_ {library_ms:.4f} ms", flush=True)
-    return {"name": "grouped_accumulate", "route": "cuda",
+    print(f"[kernel] {name} at the main path: {per_call:.4f} ms per call, "
+          f"{b2b:.4f} ms back to back (CUDA events: wrapper and output fill "
+          f"included); kernel alone {kernel:.4f} ms (profiler, "
+          f"{bound_ms / kernel:.1%} of the bound's rate); wrapper host time "
+          f"{host:.4f} ms per call; bound {bound_ms:.4f} ms by bytes "
+          f"({nbytes} B at 3.35 TB/s); plain {plain_ms:.4f} ms; index_add_ "
+          f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}; "
+          f"launch {launch}", flush=True)
+    return {"name": name, "route": "cuda",
             "source": "spark_tpu_torch/csrc/grouped_accumulate.cu",
             "replaces": "spark_tpu/pallas_agg.py:56",
-            "launches": None, "max_abs_err": max_err, "ms": kernel_ms,
-            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "launches": None, "max_abs_err": max_err, "ms": per_call,
+            "kernel_ms": per_call, "kernel_alone_ms": kernel,
+            "ms_back_to_back": b2b, "host_ms": host, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": library_ms}
+            "library_ms": library_ms, "launch": launch}
 
 
 def hash_agg_oracle(table):
@@ -277,7 +513,7 @@ def q3_oracle(tables):
     return [(y, bi, bn, c / 100.0) for (y, bi, bn), c in rows[:100]]
 
 
-def phase_slice(session, hash_df, hash_table, kernel_entry):
+def phase_slice(session, hash_df, hash_table, k1_entries):
     from spark_tpu_torch import cuda_agg
     from spark_tpu_torch import types as T
     from spark_tpu_torch.sql import functions as F
@@ -293,12 +529,15 @@ def phase_slice(session, hash_df, hash_table, kernel_entry):
     # the main path's run: counts zeroed just before, read just after
     zero_counts()
     hash_rows = hash_df.collect()
-    hash_launches = cuda_agg.LAUNCHES
+    hash_launches = dict(cuda_agg.ENTRY_LAUNCHES)
     q3_rows = q3_df.collect()
-    total_launches = cuda_agg.LAUNCHES
-    q3_launches = total_launches - hash_launches
-    check(hash_launches > 0, "K1 was not launched during the hash-agg query")
-    kernel_entry["launches"] = total_launches
+    q3_launches = cuda_agg.LAUNCHES - sum(hash_launches.values())
+    check(hash_launches == {"grouped_accumulate": 0,
+                            "grouped_accumulate_columns": 1},
+          f"hash-agg query's K1 launches {hash_launches}, expected exactly "
+          "one, through the columns entry")
+    for entry in k1_entries:
+        entry["launches"] = cuda_agg.ENTRY_LAUNCHES[entry["name"]]
 
     got = sorted((r["k"], r["s"], r["c"]) for r in hash_rows)
     check(got == hash_agg_oracle(hash_table),
@@ -319,9 +558,34 @@ def phase_slice(session, hash_df, hash_table, kernel_entry):
     q3_ms = wall_ms(q3_df.collect)
     print(f"[slice] warm wall time, median of 5: hash-agg {hash_ms:.2f} ms "
           f"(N={MAIN_N}, {MAIN_GROUPS} groups); q3 {q3_ms:.2f} ms", flush=True)
+    stacks = stacked_shapes(hash_df.collect)
+    check(not [s for s in stacks if any(t and t[0] == MAIN_N for t in s)],
+          f"hash-agg stacked {MAIN_N}-row planes: {stacks}")
+    print(f"[slice] hash-agg: no torch.stack of {MAIN_N}-row planes (every "
+          f"torch.stack's inputs: {stacks})", flush=True)
     profile_query("hash-agg", hash_df.collect)
     profile_query("q3", q3_df.collect)
     return tables, q3_df
+
+
+def stacked_shapes(fn):
+    """The input shapes of every ``torch.stack`` call one run of ``fn``
+    makes."""
+    import torch
+    seen = []
+    stack = torch.stack
+
+    def spy(tensors, *args, **kwargs):
+        tensors = list(tensors)
+        seen.append([tuple(t.shape) for t in tensors])
+        return stack(tensors, *args, **kwargs)
+
+    torch.stack = spy
+    try:
+        fn()
+    finally:
+        torch.stack = stack
+    return seen
 
 
 #: the hand-written kernels by the name of their ``__global__`` function
@@ -463,6 +727,8 @@ def phase_k2_check(captured, launches):
     kernel_ms = cuda_ms(lambda: cuda_a2a.all_to_all(planes, gather))
     plain_ms = cuda_ms(lambda: cuda_a2a.all_to_all_plain(planes, gather))
     b2b_ms = cuda_ms_back_to_back(lambda: cuda_a2a.all_to_all(planes, gather))
+    alone_ms = kernel_device_ms(lambda: cuda_a2a.all_to_all(planes, gather),
+                                "all_to_all_kernel", reps=5)
     # yardstick: the same bytes pre-stacked as one (n, n, bytes) tensor,
     # moved by one library call
     per_plane = [torch.stack(list(p)).view(torch.uint8).reshape(n, n, -1)
@@ -473,21 +739,26 @@ def phase_k2_check(captured, launches):
     check(torch.equal(stacked.transpose(0, 1).contiguous(), want),
           "transpose yardstick disagrees with the plain version")
     library_ms = cuda_ms(lambda: stacked.transpose(0, 1).contiguous())
+    library_b2b_ms = cuda_ms_back_to_back(
+        lambda: stacked.transpose(0, 1).contiguous())
     nbytes = 2 * _a2a_bytes(planes, gather)       # read once, write once
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     print(f"[k2] all_to_all at the largest exchange ({query}), "
           f"{_a2a_desc(planes, gather)}: "
           f"{kernel_ms:.4f} ms (bound {bound_ms:.4f} ms by bytes, {nbytes} "
           f"B at 3.35 TB/s); plain {plain_ms:.4f} ms; transpose "
-          f"{library_ms:.4f} ms; back to back {b2b_ms:.4f} ms per call",
-          flush=True)
+          f"{library_ms:.4f} ms; back to back {b2b_ms:.4f} ms per call, "
+          f"transpose back to back {library_b2b_ms:.4f} ms per call; "
+          f"kernel alone {alone_ms:.4f} ms (profiler)", flush=True)
     return {"name": "all_to_all", "route": "cuda",
             "source": "spark_tpu_torch/csrc/all_to_all.cu",
             "replaces": "spark_tpu/parallel/ici.py:352",
             "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
-            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "kernel_ms": kernel_ms, "kernel_alone_ms": alone_ms,
+            "ms_back_to_back": b2b_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": library_ms}
+            "library_ms": library_ms,
+            "library_ms_back_to_back": library_b2b_ms}
 
 
 def phase_mesh(session, hash_df, hash_table, q3_df, tables):
@@ -576,14 +847,14 @@ def main() -> int:
     check(session.device.type == "cuda", "default session is not on the card")
     hash_table = hash_agg_table(MAIN_N, MAIN_GROUPS)
     hash_df = hash_agg_query(session, F, hash_table)
-    entry = phase_kernel_check(session, hash_df)
-    tables, q3_df = phase_slice(session, hash_df, hash_table, entry)
+    k1_entries = phase_kernel_check(session, hash_df)
+    tables, q3_df = phase_slice(session, hash_df, hash_table, k1_entries)
     captured, k2_launches = phase_mesh(session, hash_df, hash_table, q3_df,
                                        tables)
     k2_entry = phase_k2_check(captured, k2_launches)
     session.stop()
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": [entry, k2_entry]}))
+    print(json.dumps({"kernels": k1_entries + [k2_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

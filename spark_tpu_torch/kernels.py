@@ -508,33 +508,33 @@ def _mxu_grouped_aggregate(batch, key_exprs, agg_slots, bucket_cap):
     bucket32 = torch.clamp(bucket, 0, B - 1)
 
     # ---- planes: 0 = live count; per Sum/Avg the value's limbs + its own
-    # count; per Count its count.  uint8, every value in {0..255} --------
-    planes: List[torch.Tensor] = [live.to(torch.uint8)]
+    # count; per Count its count.  Described, not built: the kernel makes
+    # each plane's byte from these columns as it reads them -------------
+    row_mask = batch.row_valid                 # None: every row is live
+    if row_mask is not None:
+        row_mask = row_mask.expand(capacity).contiguous()
+    planes: List[cuda_agg.Plane] = [cuda_agg.Plane(row_mask)]
     plane_info = []  # (func, kind, first_plane, offset, n_limbs)
     for func, _name in agg_slots:
         if isinstance(func, CountStar):
             plane_info.append((func, "countstar", None, 0, 0))
             continue
         v = ctx.broadcast(func.children[0].eval(ctx))
-        m = live if v.valid is None else (live & v.valid)
+        m = row_mask if v.valid is None else (live & v.valid).contiguous()
         if isinstance(func, Count):
             plane_info.append((func, "count", len(planes), 0, 0))
-            planes.append(m.to(torch.uint8))
+            planes.append(cuda_agg.Plane(m))
             continue
-        data = v.data.to(torch.int8) if v.data.dtype == torch.bool else v.data
-        n_limbs, offset = _limb_plan(data.dtype)
-        # wrapping int64: +2^63 flips the sign bit; narrower offsets do not
-        # overflow.  The 0xFF mask makes the arithmetic shift harmless.
-        x = data.to(torch.int64)
-        x = x ^ offset if n_limbs == 8 else x + offset
+        data = v.data.contiguous()
+        # bool sums as int8; +2^63 on int64 is a flip of the sign bit
+        n_limbs, offset = _limb_plan(
+            torch.int8 if data.dtype == torch.bool else data.dtype)
         plane_info.append((func, "sum", len(planes), offset, n_limbs))
-        for i in range(n_limbs):
-            limb = torch.where(m, (x >> (8 * i)) & 0xFF, 0)
-            planes.append(limb.to(torch.uint8))
-        planes.append(m.to(torch.uint8))
-    plane_mat = torch.stack(planes, dim=1)               # (N, P) uint8
+        planes.extend(cuda_agg.Plane(m, data, i, offset)
+                      for i in range(n_limbs))
+        planes.append(cuda_agg.Plane(m))
     n_active = cuda_agg.n_active_chunks(prod, B)
-    tot = cuda_agg.grouped_accumulate(bucket32, plane_mat, n_active, B)
+    tot = cuda_agg.grouped_accumulate_columns(bucket32, planes, n_active, B)
     live_count = tot[:, 0]
     grow = live_count > 0                                # real groups
 
