@@ -34,14 +34,25 @@ without printing a result:
    exactly one K1 launch, through the columns entry, and no
    ``aten::stack``; each query's warm wall time is the median of 5
    runs;
-5. mesh slice — the same session with ``spark.tpu.mesh.shards = 4`` (all
+5. SQL — the same session registers the hash-agg table and q3's tables
+   as temp views and runs through ``spark.sql`` the hash-agg query
+   (exactly one K1 launch, through the columns entry), q3's SQL text,
+   and the queries of ``testing.SQL_QUERIES`` over q3's tables: UNION
+   ALL, INTERSECT, EXCEPT, q3 with an IN subquery, a scalar and a
+   correlated EXISTS subquery, LIKE, and one UDF per lane (the row
+   lane's host copies reported); each result is held against its numpy
+   oracle (``spark_tpu_torch/testing.py``); the SQL hash-agg and q3
+   walls in turns with the DataFrame ones, each query's warm wall (with
+   and without decoding the rows) and profile line; then q3's SQL text
+   at ``spark.tpu.mesh.shards = 4``, where K2's launch count must rise;
+6. mesh slice — the same session with ``spark.tpu.mesh.shards = 4`` (all
    four shards on the card) runs the hash-agg lane, q3 with its
    broadcast joins and q3 with ``spark.sql.autoBroadcastJoinThreshold =
    0`` (both joins shuffled through the skew join), recording every K2
    call's inputs; each result is held against the same numpy oracle;
    K2's launch count must rise during each query; warm wall time (median
    of 5) and a profile line for each;
-6. K2 check — K2 against its plain PyTorch version on the card,
+7. K2 check — K2 against its plain PyTorch version on the card,
    bit-exact, at every exchange the three mesh queries made, at n = 2, 4
    and 8 with bool planes and int32 run tables whose blocks are not
    multiples of 16 bytes, at cap = 1, in the gather form and with 50
@@ -52,8 +63,9 @@ without printing a result:
    its plain version's time and the one-call
    ``transpose(0, 1).contiguous()`` yardstick on the same bytes
    pre-stacked (which the port never calls), per call and back to back;
-7. a ``{"kernels": [...]}`` line, the card line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+8. a ``{"kernels": [...]}`` line (each kernel's ``sql_launches``: its
+   launches in the SQL phase's counted run), the card line, and as the
+   last line ``{"ok": true, "device": {...}}``.
 
 Every profile line gives, beside the largest kernels, each hand-written
 kernel's own device time, its launches and its share of the run's
@@ -482,42 +494,12 @@ def _time_k1(name, fn, plain, args, max_err, P, row_width):
             "library_ms": library_ms, "launch": launch}
 
 
-def hash_agg_oracle(table):
-    import numpy as np
-    k, v = table["k"], table["v"]
-    groups = int(k.max()) + 1
-    counts = np.bincount(k, minlength=groups)
-    total = np.zeros(groups, np.int64)
-    np.add.at(total, k, v)
-    return sorted((int(g), int(total[g]), int(counts[g]))
-                  for g in range(groups) if counts[g] > 0)
-
-
-def q3_oracle(tables):
-    """q3 in numpy: the joins as lookups by surrogate key, exact cents."""
-    import numpy as np
-    ss, dd, it = tables["store_sales"], tables["date_dim"], tables["item"]
-    d_idx = ss["ss_sold_date_sk"] - dd["d_date_sk"][0]
-    i_idx = ss["ss_item_sk"] - 1
-    keep = (dd["d_moy"][d_idx] == 11) & (it["i_manufact_id"][i_idx] == 28)
-    cents = np.round(ss["ss_ext_sales_price"][keep] * 100).astype(np.int64)
-    year = dd["d_year"][d_idx[keep]]
-    brand_id = it["i_brand_id"][i_idx[keep]]
-    brand = it["i_brand"][i_idx[keep]]
-    groups = {}
-    for y, bi, bn, c in zip(year.tolist(), brand_id.tolist(), brand.tolist(),
-                            cents.tolist()):
-        groups[(y, bi, bn)] = groups.get((y, bi, bn), 0) + c
-    rows = sorted(groups.items(),
-                  key=lambda kv: (kv[0][0], -kv[1], kv[0][1], kv[0][2]))
-    return [(y, bi, bn, c / 100.0) for (y, bi, bn), c in rows[:100]]
-
-
 def phase_slice(session, hash_df, hash_table, k1_entries):
     from spark_tpu_torch import cuda_agg
     from spark_tpu_torch import types as T
     from spark_tpu_torch.sql import functions as F
-    from spark_tpu_torch.testing import q3_tables, q3_query
+    from spark_tpu_torch.testing import (hash_agg_oracle, q3_oracle,
+                                         q3_query, q3_tables)
 
     t0 = time.perf_counter()
     tables = q3_tables(Q3_ROWS["store_sales"], Q3_ROWS["item"],
@@ -632,6 +614,107 @@ def profile_query(name, fn, top=6):
           f"busy {device_ms:.3f} ms ({device_ms / wall:.1%}), "
           f"{sum(c for _u, c, _k in rows)} kernel launches; "
           f"{'; '.join(own)}; top: {tops}", flush=True)
+
+
+def phase_sql(session, hash_df, hash_table, q3_df, tables, k1_entries):
+    """``spark.sql`` on the card: the hash-agg query and q3 from SQL text,
+    and the set-operation, subquery, LIKE and UDF queries over q3's tables
+    (``testing.SQL_QUERIES``), each held against its numpy oracle; SQL
+    q3 again on the mesh lane.  Returns K2's launches in that mesh run."""
+    import torch
+    from spark_tpu_torch import cuda_a2a, cuda_agg
+    from spark_tpu_torch import types as T
+    from spark_tpu_torch.sql import udf
+    from spark_tpu_torch.testing import (HASH_AGG_SQL, Q3_SQL, SQL_QUERIES,
+                                         hash_agg_oracle, q3_oracle,
+                                         register_sql_tables,
+                                         register_sql_udfs)
+
+    t0 = time.perf_counter()
+    register_sql_tables(session, hash_table, tables, T)
+    register_sql_udfs(session, torch)
+    print(f"[sql] temp views hash_t, store_sales, date_dim, item registered "
+          f"(moved to the card) in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    queries = [("hash-agg", HASH_AGG_SQL,
+                lambda t: hash_agg_oracle(hash_table), False),
+               ("q3", Q3_SQL, q3_oracle, True)]
+    queries += [(name, sql, oracle, ordered)
+                for name, (sql, oracle, ordered) in SQL_QUERIES.items()]
+    frames = [(name, session.sql(sql)) for name, sql, _o, _d in queries]
+
+    # the SQL path's run: counts zeroed just before, read just after
+    results = []
+    zero_counts()
+    for name, df in frames:
+        before = (dict(cuda_agg.ENTRY_LAUNCHES), dict(udf.HOST_COPIES))
+        rows = df.collect()
+        results.append((rows, {k: v - before[0][k] for k, v in
+                               cuda_agg.ENTRY_LAUNCHES.items()},
+                        {k: v - before[1][k] for k, v in
+                         udf.HOST_COPIES.items()}))
+    for entry in k1_entries:
+        entry["sql_launches"] = cuda_agg.ENTRY_LAUNCHES[entry["name"]]
+
+    for (name, _sql, oracle, ordered), (rows, k1, copies) in \
+            zip(queries, results):
+        got = [tuple(r) for r in rows]
+        want = oracle(tables)
+        check(len(want) > 0, f"SQL {name}: the oracle selected no rows")
+        if not ordered:
+            got, want = sorted(got), sorted(want)
+        check(got == want, f"SQL {name} differs from its numpy oracle "
+              f"(first rows {got[:2]} vs {want[:2]})")
+        if name == "hash-agg":
+            check(k1 == {"grouped_accumulate": 0,
+                         "grouped_accumulate_columns": 1},
+                  f"SQL hash-agg's K1 launches {k1}, expected exactly one, "
+                  "through the columns entry")
+        extra = ""
+        if copies["to_host"] or copies["to_device"]:
+            extra = (f"; UDF row lane: {copies['to_host']} device->host "
+                     f"copy ({copies['to_host_bytes']} B), "
+                     f"{copies['to_device']} host->device copy "
+                     f"({copies['to_device_bytes']} B)")
+        print(f"[sql] {name}: {len(got)} rows equal to the oracle; K1 "
+              f"launches {k1}{extra}", flush=True)
+
+    # the SQL front end's host cost: SQL and DataFrame walls in turns
+    for name, df in (("hash-agg", hash_df), ("q3", q3_df)):
+        sql_df = dict(frames)[name]
+        walls = [wall_ms(df.collect), wall_ms(sql_df.collect),
+                 wall_ms(sql_df.collect), wall_ms(df.collect)]
+        print(f"[sql] {name} warm wall time, median of 5, in turns "
+              f"DataFrame, SQL, SQL, DataFrame: "
+              f"{', '.join(f'{w:.2f}' for w in walls)} ms", flush=True)
+    for name, df in frames:
+        # _execute: the same run up to the host batch, without turning
+        # its rows into Python objects
+        print(f"[sql] {name}: warm wall time, median of 5: "
+              f"{wall_ms(df.collect):.2f} ms ({wall_ms(df._execute):.2f} ms "
+              "without decoding the rows)", flush=True)
+        profile_query(f"sql {name}", df.collect)
+
+    # SQL q3 on the mesh lane
+    _mesh(session, MESH_SHARDS)
+    try:
+        zero_counts()
+        rows = session.sql(Q3_SQL).collect()
+        k2 = cuda_a2a.LAUNCHES
+        check(k2 > 0, "K2 was not launched during SQL q3 on the mesh lane")
+        got = [tuple(r) for r in rows]
+        check(got == q3_oracle(tables), f"mesh SQL q3 differs from the "
+              f"oracle (first rows {got[:2]})")
+        print(f"[sql] mesh q3 x{MESH_SHARDS} shards: {len(got)} rows equal "
+              f"to the oracle; K2 launches during the query: {k2}",
+              flush=True)
+        mesh_q3 = session.sql(Q3_SQL)
+        print(f"[sql] mesh q3 x{MESH_SHARDS}: warm wall time, median of 5: "
+              f"{wall_ms(mesh_q3.collect):.2f} ms", flush=True)
+        profile_query(f"sql mesh q3 x{MESH_SHARDS}", mesh_q3.collect)
+    finally:
+        _mesh(session, 1)
+    return k2
 
 
 MESH_SHARDS = 4
@@ -766,6 +849,7 @@ def phase_mesh(session, hash_df, hash_table, q3_df, tables):
     every K2 call's inputs from their counted run, as (query, planes,
     gather), and K2's launch count over that run."""
     from spark_tpu_torch import cuda_a2a
+    from spark_tpu_torch.testing import hash_agg_oracle, q3_oracle
 
     want_hash = hash_agg_oracle(hash_table)
     want_q3 = q3_oracle(tables)
@@ -849,9 +933,12 @@ def main() -> int:
     hash_df = hash_agg_query(session, F, hash_table)
     k1_entries = phase_kernel_check(session, hash_df)
     tables, q3_df = phase_slice(session, hash_df, hash_table, k1_entries)
+    k2_sql_launches = phase_sql(session, hash_df, hash_table, q3_df, tables,
+                                k1_entries)
     captured, k2_launches = phase_mesh(session, hash_df, hash_table, q3_df,
                                        tables)
     k2_entry = phase_k2_check(captured, k2_launches)
+    k2_entry["sql_launches"] = k2_sql_launches
     session.stop()
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": k1_entries + [k2_entry]}))

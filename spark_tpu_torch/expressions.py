@@ -15,6 +15,7 @@ declared result type, as the JAX package casts to ``np_dtype``.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -28,6 +29,7 @@ __all__ = [
     "Cast", "Add", "Sub", "Mul", "Div", "IntDiv", "Mod", "Neg", "EQ", "NE", "LT",
     "LE", "GT", "GE", "EqNullSafe", "And", "Or", "Not", "IsNull",
     "IsNotNull", "Coalesce", "If", "CaseWhen", "In", "Between", "Hash64",
+    "StringPredicate",
     "lit", "col", "AnalysisException",
 ]
 
@@ -440,6 +442,21 @@ def _comparison_operands(ctx: EvalContext, le: Expression, re_: Expression):
     return l, r, False
 
 
+def _as_type(data: torch.Tensor, src: T.DataType,
+             dst: T.DataType) -> torch.Tensor:
+    """``data`` of type ``src`` in the device representation of ``dst``.
+    A decimal is held as its value times 10**scale, so one that meets a
+    float, an integer or another scale is rescaled first (the JAX
+    package compares the held integers as they are: ROADMAP §3)."""
+    s_src = src.scale if isinstance(src, T.DecimalType) else None
+    s_dst = dst.scale if isinstance(dst, T.DecimalType) else None
+    if s_src == s_dst or isinstance(src, T.NullType):
+        return data.to(dst.torch_dtype)
+    if s_dst is None:                  # decimal -> float
+        return (data.to(torch.float64) / 10 ** s_src).to(dst.torch_dtype)
+    return data.to(torch.int64) * 10 ** (s_dst - (s_src or 0))
+
+
 class BinaryComparison(Expression):
     op_name = "?"
 
@@ -455,15 +472,19 @@ class BinaryComparison(Expression):
     def _compute(self, a, b):
         raise NotImplementedError
 
-    def eval(self, ctx: EvalContext) -> ExprValue:
+    def _operands(self, ctx: EvalContext):
+        """Both sides' values and their data in one comparable form: the
+        common type's device representation."""
         l, r, is_str = _comparison_operands(ctx, *self.children)
-        if not is_str:
-            ct = T.common_type(self.children[0].data_type(ctx.batch.schema),
-                               self.children[1].data_type(ctx.batch.schema))
-            tdt = (ct or T.float64).torch_dtype
-            a, b = l.data.to(tdt), r.data.to(tdt)
-        else:
-            a, b = l.data, r.data
+        if is_str:
+            return l, r, l.data, r.data
+        schema = ctx.batch.schema
+        lt_, rt = (c.data_type(schema) for c in self.children)
+        ct = T.common_type(lt_, rt) or T.float64
+        return l, r, _as_type(l.data, lt_, ct), _as_type(r.data, rt, ct)
+
+    def eval(self, ctx: EvalContext) -> ExprValue:
+        l, r, a, b = self._operands(ctx)
         return ExprValue(self._compute(a, b), and_valid(l.valid, r.valid))
 
     def __repr__(self):
@@ -506,10 +527,10 @@ class EqNullSafe(BinaryComparison):
     op_name = "<=>"
 
     def eval(self, ctx: EvalContext) -> ExprValue:
-        l, r, _ = _comparison_operands(ctx, *self.children)
+        l, r, a, b = self._operands(ctx)
         lv = l.valid if l.valid is not None else _true(l.data)
         rv = r.valid if r.valid is not None else _true(r.data)
-        eq = (l.data == r.data) & lv & rv
+        eq = (a == b) & lv & rv
         both_null = ~lv & ~rv
         return ExprValue(eq | both_null, None)
 
@@ -753,9 +774,13 @@ class In(Expression):
                                  v.valid)
             hit = member[v.data.long().clamp(0, len(v.dictionary) - 1)]
             return ExprValue((v.data >= 0) & hit, v.valid)
+        data = v.data
+        dt = self.children[0].data_type(ctx.batch.schema)
+        if isinstance(dt, T.DecimalType):
+            data = _as_type(data, dt, T.float64)
         acc = ctx.scalar(False, torch.bool)
         for val in self.values:
-            acc = acc | (v.data == val)
+            acc = acc | (data == val)
         return ExprValue(acc, v.valid)
 
     def __repr__(self):
@@ -776,6 +801,69 @@ class Between(Expression):
     def eval(self, ctx):
         c, lo, hi = self.children
         return And(GE(c, lo), LE(c, hi)).eval(ctx)
+
+
+def _dict_gather(ctx: EvalContext, table: np.ndarray,
+                 codes: torch.Tensor) -> torch.Tensor:
+    """``table[code]`` per row: the host-built per-word table goes to the
+    device in one copy and the rows gather from it (codes of NULL or dead
+    rows may be anything; they read some entry under their mask)."""
+    t = torch.as_tensor(table, device=ctx.device)
+    return t[codes.long().clamp(0, len(table) - 1)]
+
+
+class StringPredicate(Expression):
+    """LIKE / startswith / endswith / contains / rlike: host evaluates the
+    predicate over the dictionary, device gathers a boolean."""
+
+    def __init__(self, kind: str, child: Expression, pattern: str):
+        assert kind in ("like", "startswith", "endswith", "contains", "rlike")
+        self.kind = kind
+        self.children = (child,)
+        self.pattern = pattern
+
+    def data_type(self, schema):
+        return T.boolean
+
+    def _matcher(self) -> Callable[[str], bool]:
+        if self.kind == "like":
+            # translate SQL LIKE to regex (% -> .*, _ -> .)
+            out = []
+            i = 0
+            p = self.pattern
+            while i < len(p):
+                ch = p[i]
+                if ch == "\\" and i + 1 < len(p):
+                    out.append(re.escape(p[i + 1]))
+                    i += 2
+                    continue
+                if ch == "%":
+                    out.append(".*")
+                elif ch == "_":
+                    out.append(".")
+                else:
+                    out.append(re.escape(ch))
+                i += 1
+            rx = re.compile("^" + "".join(out) + "$", re.DOTALL)
+            return lambda s: rx.match(s) is not None
+        if self.kind == "rlike":
+            rx = re.compile(self.pattern)
+            return lambda s: rx.search(s) is not None
+        if self.kind == "startswith":
+            return lambda s: s.startswith(self.pattern)
+        if self.kind == "endswith":
+            return lambda s: s.endswith(self.pattern)
+        return lambda s: self.pattern in s
+
+    def eval(self, ctx):
+        v = self.children[0].eval(ctx)
+        m = self._matcher()
+        table = np.array([m(w) for w in v.dictionary], bool) \
+            if v.dictionary else np.zeros(1, bool)
+        return ExprValue(_dict_gather(ctx, table, v.data), v.valid)
+
+    def __repr__(self):
+        return f"({self.children[0]!r} {self.kind} {self.pattern!r})"
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from .. import config as C
+from ..aggregates import First
 from ..columnar import ColumnBatch, ColumnVector, pad_capacity
 from ..expressions import Col
 from ..kernels import compact
@@ -68,10 +69,13 @@ class DistributedPlanner(Planner):
             child = self._to_physical(node.child, leaves)
             if any(getattr(f, "is_collect", False)
                    or getattr(f, "is_percentile", False)
+                   or (not node.keys and isinstance(f, First))
                    for f, _n in node.aggs):
-                # no fixed-width mergeable partial form: gather rows to one
-                # shard and aggregate there; a keyless aggregate emits an
-                # always-valid row on EVERY shard, so mask it to shard 0
+                # no fixed-width mergeable partial form (first/last without
+                # keys: the global aggregate reduces buffers, it gathers no
+                # row): gather rows to one shard and aggregate there; a
+                # keyless aggregate emits an always-valid row on EVERY
+                # shard, so mask it to shard 0
                 agg = P.PAggregate(node.keys, node.aggs, D.DGatherOne(child))
                 return agg if node.keys else D.DKeepShardZero(agg)
             if not node.keys:
@@ -122,7 +126,14 @@ class DistributedPlanner(Planner):
                                  "cross")
             if build_small or raw.how == "cross":
                 # broadcast hash join: build side replicated to all shards
-                inner = PJoin(raw.children[0], D.DBroadcast(raw.children[1]),
+                build = D.DBroadcast(raw.children[1])
+                if node.how != "right" and _single_row(node.right):
+                    # a keyless aggregate (a scalar subquery) holds its one
+                    # row first of all shards' capacity: keep only that
+                    # slot, or every cross join multiplies its probe's
+                    # capacity by the shards' summed capacity
+                    build = P.PAggShrink(1, build)
+                inner = PJoin(raw.children[0], build,
                               raw.how, raw.key_pairs, raw.residual,
                               raw._schema, raw.factor)
             elif self.fine > 0:
@@ -159,6 +170,14 @@ class DistributedPlanner(Planner):
         return _JoinOutput(node.schema(), ls.names, rs.names,
                            left_base=0, right_base=len(ls.names),
                            using=node.using or [], how=node.how, child=inner)
+
+
+def _single_row(node: LogicalPlan) -> bool:
+    """At most one row by construction: a keyless aggregate under row-wise
+    nodes."""
+    while isinstance(node, (Project, SubqueryAlias, Filter)):
+        node = node.children[0]
+    return isinstance(node, Aggregate) and not node.keys
 
 
 def _estimate_rows(node: LogicalPlan) -> Optional[int]:

@@ -12,11 +12,15 @@ validation plus these structural rewrites:
   a two-level aggregation.
 * ``ResolveRelations``: table names → catalog plans.
 * join disambiguation, qualified-name resolution and ORDER BY references.
+* UDF resolution, the subquery rewrite (``subquery.py``), star expansion
+  and INTERSECT / EXCEPT as semi / anti joins, in the JAX package's order.
 * eager schema validation for early, readable AnalysisException errors.
 
-The subquery, window, UDF and parser hooks of the JAX package are not
+The window, grouping-set and explode hooks of the JAX package are not
 ported: ``_check_ported`` raises ``NotImplementedError`` naming the slice
-that brings each of them.
+that brings each plan node, and ``not_ported`` builds the parser's
+``AnalysisException`` for each function name and syntax a later slice
+brings.
 """
 
 from __future__ import annotations
@@ -24,28 +28,85 @@ from __future__ import annotations
 from typing import Dict, List, Sequence, Tuple
 
 from ..aggregates import AggregateFunction, Count, CountDistinct, CountStar, Sum
-from ..expressions import Alias, AnalysisException, Col, Expression
-from .logical import (Aggregate, Distinct, Filter, Join, Limit, LocalRelation,
-                      LogicalPlan, Project, RangeRelation, Sort, SortOrder,
-                      SubqueryAlias, UnresolvedRelation)
+from ..expressions import Alias, AnalysisException, And, Col, EQ, Expression
+from .logical import (Aggregate, Distinct, Except, Filter, Intersect, Join,
+                      Limit, LocalRelation, LogicalPlan, Project,
+                      RangeRelation, Sort, SortOrder, SubqueryAlias, Union,
+                      UnresolvedRelation)
+
+_BREADTH = "the TPC-DS breadth slice"
+_WINDOWS = "the window-function slice"
 
 #: logical nodes of the JAX package whose execution a later slice of the
 #: port brings, by class name, and that slice
 _NOT_PORTED = {
-    "Sample": "the TPC-DS breadth slice (rand/sample)",
-    "Union": "the SQL front-end slice (UNION and set operations)",
-    "Intersect": "the SQL front-end slice (UNION and set operations)",
-    "Except": "the SQL front-end slice (UNION and set operations)",
-    "WindowNode": "the window-function slice",
-    "Explode": "the TPC-DS breadth slice (array columns)",
-    "GroupingSets": "the SQL front-end slice (ROLLUP/CUBE)",
+    "Sample": f"{_BREADTH} (rand/sample)",
+    "WindowNode": _WINDOWS,
+    "Explode": f"{_BREADTH} (array columns)",
+    "GroupingSets": f"{_BREADTH} (ROLLUP/CUBE/grouping sets)",
     "FileRelation": "the scan slice (parquet/csv/json readers)",
     "FlatMapGroupsWithState": "the streaming slice",
 }
 
 _PORTED_NODES = (LocalRelation, RangeRelation, UnresolvedRelation, Project,
                  Filter, Aggregate, Sort, Limit, Join, Distinct,
-                 SubqueryAlias)
+                 SubqueryAlias, Union, Intersect, Except)
+
+
+def _names(names: str, where: str) -> Dict[str, str]:
+    return {n: where for n in names.split()}
+
+
+#: SQL function names the JAX package's parser registers whose expression
+#: a later slice of the port brings, and that slice
+NOT_PORTED_FUNCTIONS: Dict[str, str] = {
+    **_names("abs sqrt exp ln log log10 log2 floor ceil ceiling sin cos tan "
+             "asin acos atan sinh cosh tanh signum sign radians degrees "
+             "log1p expm1 cbrt rint power pow hypot atan2 nanvl round "
+             "greatest least isnan", f"{_BREADTH} (math functions)"),
+    **_names("upper ucase lower lcase trim ltrim rtrim reverse initcap "
+             "length char_length substring substr concat concat_ws "
+             "regexp_replace regexp_extract lpad rpad translate repeat "
+             "soundex md5 sha1 sha2 base64 unbase64 hex instr locate "
+             "levenshtein crc32", f"{_BREADTH} (string functions)"),
+    **_names("year month day dayofmonth dayofweek dayofyear quarter hour "
+             "minute second weekofyear date_add date_sub datediff "
+             "add_months months_between last_day next_day trunc "
+             "unix_timestamp from_unixtime", f"{_BREADTH} (date functions)"),
+    **_names("rand randn spark_partition_id", f"{_BREADTH} (rand/sample)"),
+    **_names("array split size cardinality element_at map named_struct "
+             "struct map_keys map_values map_from_arrays array_contains "
+             "array_max array_min sort_array array_distinct slice "
+             "array_position explode posexplode transform filter forall "
+             "aggregate zip_with", f"{_BREADTH} (array columns)"),
+    **_names("grouping grouping_id", f"{_BREADTH} (ROLLUP/CUBE/grouping sets)"),
+    **_names("collect_list collect_set median percentile_approx "
+             "approx_percentile stddev stddev_samp stddev_pop variance "
+             "var_samp var_pop", f"{_BREADTH} (statistical aggregates)"),
+    **_names("row_number rank dense_rank percent_rank cume_dist ntile lag "
+             "lead", _WINDOWS),
+    **_names("window window_end", "the streaming slice (event-time windows)"),
+}
+
+#: SQL syntax whose expression or plan node a later slice brings
+_NOT_PORTED_SYNTAX = {
+    "OVER": _WINDOWS,
+    "ROLLUP": f"{_BREADTH} (ROLLUP/CUBE/grouping sets)",
+    "CUBE": f"{_BREADTH} (ROLLUP/CUBE/grouping sets)",
+    "GROUPING SETS": f"{_BREADTH} (ROLLUP/CUBE/grouping sets)",
+    "||": f"{_BREADTH} (string functions)",
+    "exists": f"{_BREADTH} (array columns)",
+}
+
+
+def not_ported(construct: str) -> AnalysisException:
+    """The error for a function name or SQL syntax a later slice brings:
+    it names the construct and the slice, and is raised instead of any
+    partial result."""
+    where = NOT_PORTED_FUNCTIONS.get(construct) \
+        or _NOT_PORTED_SYNTAX[construct]
+    return AnalysisException(
+        f"{construct} is not ported yet: it comes with {where}")
 
 
 def fresh_name(prefix: str, basis: str, index: int) -> str:
@@ -200,10 +261,23 @@ class Analyzer:
     def analyze(self, plan: LogicalPlan) -> LogicalPlan:
         plan = self._resolve_relations(plan)
         self._check_ported(plan)
-        # the JAX package resolves UDF calls (_resolve_functions) and
-        # rewrites subqueries here: both come with the SQL front-end slice
+        plan = plan.transform_up(self._resolve_functions)
+        from .subquery import rewrite_subqueries
+
+        def resolve_sub(p: LogicalPlan) -> LogicalPlan:
+            # nested subquery plans need relation AND function resolution
+            # (they are invisible to the outer transform_up passes)
+            p = self._resolve_relations(p)
+            self._check_ported(p)
+            return p.transform_up(self._resolve_functions)
+
+        plan = rewrite_subqueries(plan, resolve_sub)
         plan = plan.transform_up(self._disambiguate_joins)
+        plan = plan.transform_up(self._expand_stars)
         plan = plan.transform_up(self._resolve_qualified)
+        # set-op replacement needs fully-resolved sides (stars expanded,
+        # qualified refs bound) to build the all-column join condition
+        plan = plan.transform_up(self._replace_set_ops)
         plan = plan.transform_up(self._rewrite_node)
         # explode / grouping-set / sliding-window rewrites: later slices
         self._validate(plan)
@@ -219,6 +293,37 @@ class Analyzer:
                 f"{_NOT_PORTED.get(name, 'a later slice')}")
         for c in plan.children:
             Analyzer._check_ported(c)
+
+    def _expand_stars(self, node: LogicalPlan) -> LogicalPlan:
+        """Expand `*` / `tbl.*` left by the parser over unresolved relations
+        (ResolveStar analog; runs after catalog resolution)."""
+        from .parser import _Star
+        if not isinstance(node, Project) \
+                or not any(isinstance(e, _Star) for e in node.exprs):
+            return node
+        child = node.children[0]
+        names = child.schema().names
+        new: List[Expression] = []
+        for e in node.exprs:
+            if not isinstance(e, _Star):
+                new.append(e)
+            elif e.qualifier is None:
+                new += [Col(n) for n in names]
+            else:
+                qmap = qualifier_map(child)
+                pref = e.qualifier + "."
+                # preserve child column order; a column belongs to the
+                # qualifier if its (possibly join-renamed) name carries the
+                # prefix literally, or a qualified alias maps to it
+                qualified_plain = {v for k, v in qmap.items()
+                                   if k.startswith(pref)}
+                hits = [n for n in names
+                        if n.startswith(pref) or n in qualified_plain]
+                if not hits:
+                    raise AnalysisException(
+                        f"cannot resolve {e.qualifier}.* among ({', '.join(names)})")
+                new += [Col(n) for n in hits]
+        return Project(new, child)
 
     def _disambiguate_joins(self, node: LogicalPlan) -> LogicalPlan:
         """When both join sides expose a same-named column, rename each side's
@@ -293,6 +398,52 @@ class Analyzer:
                 return SubqueryAlias(node.name, resolved)
             return node
         return plan.transform_up(fn)
+
+    def _resolve_functions(self, node: LogicalPlan) -> LogicalPlan:
+        """UnresolvedFunction -> registered UDF (FunctionRegistry lookup)."""
+        from .udf import PythonUDF, UnresolvedFunction
+        if not node.expressions():
+            return node
+
+        def fe(e: Expression) -> Expression:
+            e = e.map_children(fe)
+            if isinstance(e, UnresolvedFunction):
+                wrapper = None
+                if self.catalog is not None \
+                        and hasattr(self.catalog, "lookup_function"):
+                    wrapper = self.catalog.lookup_function(e.fn_name)
+                if wrapper is None:
+                    raise AnalysisException(
+                        f"undefined function: {e.fn_name}")
+                return PythonUDF(e.fn_name, wrapper.fn, wrapper.returnType,
+                                 list(e.children),
+                                 getattr(wrapper, "_vectorized", False))
+            return e
+
+        return node.map_expressions(fe)
+
+    def _replace_set_ops(self, node: LogicalPlan) -> LogicalPlan:
+        """INTERSECT -> Distinct(semi join); EXCEPT -> Distinct(anti join)
+        (`ReplaceIntersectWithSemiJoin` / `ReplaceExceptWithAntiJoin`).
+        The right side's columns are renamed fresh so the all-column
+        equality condition binds unambiguously."""
+        if not isinstance(node, (Intersect, Except)):
+            return node
+        left, right = node.children
+        ls, rs = left.schema(), right.schema()
+        if len(ls.names) != len(rs.names):
+            raise AnalysisException(
+                f"{node!r} requires same-arity sides: "
+                f"{len(ls.names)} vs {len(rs.names)}")
+        renamed = [f"__setop_{i}_{n}" for i, n in enumerate(rs.names)]
+        rproj = Project([Alias(Col(n), rn)
+                         for n, rn in zip(rs.names, renamed)], right)
+        cond = None
+        for ln, rn in zip(ls.names, renamed):
+            eq = EQ(Col(ln), Col(rn))
+            cond = eq if cond is None else And(cond, eq)
+        how = "left_semi" if isinstance(node, Intersect) else "left_anti"
+        return Distinct(Join(left, rproj, how, cond, None))
 
     def _rewrite_node(self, node: LogicalPlan) -> LogicalPlan:
         if isinstance(node, Aggregate):

@@ -1,6 +1,6 @@
 """User-facing Column API (the analog of ``sql/core/.../Column.scala`` /
 pyspark's ``Column``), a thin wrapper over the expression IR — the subset
-of ``spark_tpu/sql/column.py`` the DataFrame path of this slice needs."""
+of ``spark_tpu/sql/column.py`` whose expressions the port has."""
 
 from __future__ import annotations
 
@@ -8,7 +8,8 @@ from typing import Any, Union
 
 from .. import types as T
 from ..expressions import (Alias, Between, CaseWhen, Cast, EqNullSafe,
-                           Expression, In, IsNotNull, IsNull, _wrap)
+                           Expression, In, IsNotNull, IsNull, StringPredicate,
+                           _wrap)
 from ..logicalutils import sort_order
 
 __all__ = ["Column", "ColumnOrName"]
@@ -82,6 +83,22 @@ class Column:
 
     def isNotNull(self) -> "Column":
         return Column(IsNotNull(self._e))
+
+    # -- strings ----------------------------------------------------------
+    def like(self, pattern: str) -> "Column":
+        return Column(StringPredicate("like", self._e, pattern))
+
+    def rlike(self, pattern: str) -> "Column":
+        return Column(StringPredicate("rlike", self._e, pattern))
+
+    def startswith(self, prefix: str) -> "Column":
+        return Column(StringPredicate("startswith", self._e, prefix))
+
+    def endswith(self, suffix: str) -> "Column":
+        return Column(StringPredicate("endswith", self._e, suffix))
+
+    def contains(self, sub: str) -> "Column":
+        return Column(StringPredicate("contains", self._e, sub))
 
     # -- conditionals -----------------------------------------------------
     def when(self, condition: "Column", value) -> "Column":

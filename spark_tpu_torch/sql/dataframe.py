@@ -1,7 +1,7 @@
 """DataFrame: the user-facing lazy relational API.
 
 The subset of ``spark_tpu/sql/dataframe.py`` (the analog of
-``sql/core/.../Dataset.scala`` with pyspark's surface) this slice needs.
+``sql/core/.../Dataset.scala`` with pyspark's surface) the port has.
 A DataFrame is (session, logical plan); every method builds a new plan,
 and actions run it through QueryExecution on the session's device.
 """
@@ -106,12 +106,17 @@ class DataFrame:
                              build_aggregate([], exprs, self._plan))
         return DataFrame(self.session, L.Project(exprs, self._plan))
 
+    def selectExpr(self, *exprs: str) -> "DataFrame":
+        from .parser import parse_expression
+        return self.select(*[Column(parse_expression(e)) for e in exprs])
+
     def filter(self, condition: Union[Column, str]) -> "DataFrame":
         if isinstance(condition, str):
-            raise NotImplementedError(
-                "SQL-text predicates need the parser: it comes with the "
-                "SQL front-end slice; pass a Column")
-        return DataFrame(self.session, L.Filter(condition._e, self._plan))
+            from .parser import parse_expression
+            cond = parse_expression(condition)
+        else:
+            cond = condition._e
+        return DataFrame(self.session, L.Filter(cond, self._plan))
 
     where = filter
 
@@ -165,6 +170,15 @@ class DataFrame:
 
     def distinct(self) -> "DataFrame":
         return DataFrame(self.session, L.Distinct(self._plan))
+
+    def union(self, other: "DataFrame") -> "DataFrame":
+        return DataFrame(self.session, L.Union([self._plan, other._plan]))
+
+    unionAll = union
+
+    def unionByName(self, other: "DataFrame") -> "DataFrame":
+        reordered = other.select(*[Col(n) for n in self.schema.names])
+        return self.union(reordered)
 
     def join(self, other: "DataFrame",
              on: Union[str, List[str], Column, None] = None,

@@ -1,6 +1,6 @@
 """Built-in function surface (the analog of ``sql/core/.../functions.scala``
 and ``pyspark.sql.functions``): the subset of ``spark_tpu/sql/functions.py``
-the DataFrame path of this slice needs."""
+whose expressions the port has."""
 
 from __future__ import annotations
 
@@ -11,9 +11,9 @@ from .. import expressions as E
 from .column import Column, ColumnOrName
 
 __all__ = [
-    "col", "column", "lit", "when", "coalesce", "isnull", "sum", "count",
-    "avg", "mean", "min", "max", "first", "last", "countDistinct",
-    "sumDistinct", "asc", "desc",
+    "col", "column", "lit", "expr", "when", "coalesce", "isnull", "sum",
+    "count", "avg", "mean", "min", "max", "first", "last", "countDistinct",
+    "sumDistinct", "udf", "asc", "desc",
 ]
 
 
@@ -41,6 +41,11 @@ column = col
 
 def lit(v: Any) -> Column:
     return Column(E._wrap(v))
+
+
+def expr(sql_text: str) -> Column:
+    from .parser import parse_expression
+    return Column(parse_expression(sql_text))
 
 
 def when(condition: Column, value) -> Column:
@@ -97,6 +102,17 @@ def countDistinct(c) -> Column:
 
 def sumDistinct(c) -> Column:
     return Column(A.SumDistinct(_e(c)))
+
+
+def udf(f=None, returnType="double", vectorized: bool = False):
+    """Python UDF factory (`functions.udf`): a per-row function run on
+    the host over the live rows (the row lane), or `vectorized=True` for
+    a function of torch tensors on the session's device.  Usable
+    directly or as a decorator."""
+    from .udf import make_udf
+    if f is None:
+        return lambda fn: make_udf(fn, returnType, vectorized)
+    return make_udf(f, returnType, vectorized)
 
 
 # ---- sort orders ------------------------------------------------------------

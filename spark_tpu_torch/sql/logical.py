@@ -20,7 +20,7 @@ from ..expressions import AnalysisException, Expression
 __all__ = [
     "LogicalPlan", "LocalRelation", "RangeRelation", "Project", "Filter",
     "Aggregate", "Sort", "SortOrder", "Limit", "Join", "Union", "Distinct",
-    "SubqueryAlias", "UnresolvedRelation", "Sample",
+    "SubqueryAlias", "UnresolvedRelation", "Sample", "Intersect", "Except",
 ]
 
 
@@ -335,6 +335,35 @@ class Union(LogicalPlan):
 
     def __repr__(self):
         return f"Union({len(self.children)})"
+
+
+class Intersect(LogicalPlan):
+    """INTERSECT DISTINCT; analysis rewrites it to Distinct(left-semi join)
+    on all columns (`ReplaceIntersectWithSemiJoin` analog).  NULL rows
+    match only by plain equality here (no null-safe compare yet)."""
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan):
+        self.children = (left, right)
+
+    def schema(self) -> T.StructType:
+        return self.children[0].schema()
+
+    def __repr__(self):
+        return "Intersect"
+
+
+class Except(LogicalPlan):
+    """EXCEPT DISTINCT -> Distinct(left-anti join)
+    (`ReplaceExceptWithAntiJoin` analog)."""
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan):
+        self.children = (left, right)
+
+    def schema(self) -> T.StructType:
+        return self.children[0].schema()
+
+    def __repr__(self):
+        return "Except"
 
 
 class Distinct(LogicalPlan):

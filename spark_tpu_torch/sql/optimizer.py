@@ -2,10 +2,10 @@
 
 A copy of ``spark_tpu/sql/optimizer.py`` (the analog of
 ``catalyst/optimizer/Optimizer.scala``: batches of rewrite rules run to
-fixed point by a RuleExecutor) without what this slice cannot reach:
-the rules that read file statistics (this slice has no file scans), the
-complex-type simplifier (no map/struct types) and the union pushdown (no
-UNION).  Join reordering estimates cardinality from batch capacities.
+fixed point by a RuleExecutor) without what the port cannot reach yet:
+the rules that read file statistics and the file-column pruning (the
+port has no file scans) and the complex-type simplifier (no map/struct
+types).  Join reordering estimates cardinality from batch capacities.
 """
 
 from __future__ import annotations
@@ -14,10 +14,11 @@ from typing import Callable, Dict, List, Optional
 
 from ..aggregates import AggregateFunction
 from ..columnar import ColumnBatch
-from ..expressions import Alias, And, Col, EvalContext, Expression, Literal
+from ..expressions import (Alias, AnalysisException, And, Col, EvalContext,
+                           Expression, Literal)
 from .logical import (
     Aggregate, Filter, Join, Limit, LocalRelation, LogicalPlan, Project,
-    RangeRelation, Sort, SubqueryAlias,
+    RangeRelation, Sort, SubqueryAlias, Union,
 )
 
 MAX_ITERATIONS = 50
@@ -190,6 +191,26 @@ def push_filter_through_aggregate(node: LogicalPlan) -> LogicalPlan:
     return Filter(join_conjuncts(keep), new_agg) if keep else new_agg
 
 
+def push_filter_through_union(node: LogicalPlan) -> LogicalPlan:
+    """Union output names come from the FIRST branch; the pushed condition
+    must rebind to each branch's own column names positionally
+    (`PushProjectionThroughUnion`'s rewrite contract)."""
+    if isinstance(node, Filter) and isinstance(node.child, Union):
+        u = node.child
+        try:
+            out_names = u.schema().names
+        except AnalysisException:
+            return node
+        new_children = []
+        for c in u.children:
+            bnames = c.schema().names
+            m = {o: Col(b) for o, b in zip(out_names, bnames) if o != b}
+            cond = substitute(node.condition, m) if m else node.condition
+            new_children.append(Filter(cond, c))
+        return Union(new_children)
+    return node
+
+
 def push_filter_through_join(node: LogicalPlan) -> LogicalPlan:
     """Filter(Join) → push conjuncts referencing only one side below the join
     (a side only when it is not null-supplying)."""
@@ -252,6 +273,8 @@ def rows_estimate(node: LogicalPlan) -> int:
         return node.num_rows()
     if isinstance(node, Limit):
         return min(node.n, rows_estimate(node.children[0]))
+    if isinstance(node, Union):
+        return sum(rows_estimate(c) for c in node.children)
     if node.children:
         return max(rows_estimate(c) for c in node.children)
     return 1 << 10
@@ -441,6 +464,7 @@ class Optimizer:
                 push_filter_through_project,
                 push_filter_through_alias,
                 push_filter_through_aggregate,
+                push_filter_through_union,
                 push_filter_through_join,
                 reorder_joins,
                 push_filter_into_join,

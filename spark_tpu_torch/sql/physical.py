@@ -16,7 +16,8 @@ import torch
 
 from .. import types as T
 from ..aggregates import AggregateFunction
-from ..columnar import ColumnBatch, ColumnVector, pad_capacity
+from ..columnar import (ColumnBatch, ColumnVector, merge_dictionaries,
+                        pad_capacity)
 from ..expressions import EvalContext, Expression
 from ..kernels import (
     apply_filter, apply_limit, apply_project, distinct as k_distinct,
@@ -292,6 +293,64 @@ class PDistinct(PhysicalPlan):
         return "Distinct"
 
 
+class PUnion(PhysicalPlan):
+    """Concatenate children on the device, each at its full capacity with
+    its own row mask (so the output keeps every branch's rows in branch
+    order); string columns re-encode onto merged dictionaries: the host
+    merges the dictionaries into small remap tables, the device gathers."""
+
+    def __init__(self, children: Sequence[PhysicalPlan], schema: T.StructType):
+        self.children = tuple(children)
+        self._schema = schema
+
+    def schema(self):
+        return self._schema
+
+    def run(self, ctx):
+        batches = [c.run(ctx) for c in self.children]
+        capacity = sum(b.capacity for b in batches)
+        vectors: List[ColumnVector] = []
+        for i, f in enumerate(self._schema.fields):
+            vecs = [b.vectors[i] for b in batches]
+            dt = f.dataType
+            dictionary = None
+            if dt.is_string or isinstance(dt, T.BinaryType):
+                merged: tuple = ()
+                remaps: List[Any] = [None] * len(vecs)
+                for j, v in enumerate(vecs):
+                    merged, r_old, r_new = merge_dictionaries(
+                        merged, v.dictionary or ())
+                    for k in range(j):
+                        if remaps[k] is not None:
+                            remaps[k] = r_old[remaps[k]]
+                        elif len(r_old):
+                            remaps[k] = r_old
+                    remaps[j] = r_new
+                datas = []
+                for v, rm in zip(vecs, remaps):
+                    d = v.data
+                    if rm is not None and len(rm):
+                        table = torch.as_tensor(rm, device=ctx.device)
+                        d = table[d.long().clamp(0, len(rm) - 1)]
+                    datas.append(d.to(torch.int32))
+                data = torch.cat(datas)
+                dictionary = merged
+            else:
+                data = torch.cat([v.data.to(dt.torch_dtype) for v in vecs])
+            valid = None
+            if any(v.valid is not None for v in vecs):
+                valid = torch.cat([
+                    v.valid if v.valid is not None else
+                    torch.ones(b.capacity, dtype=torch.bool, device=ctx.device)
+                    for v, b in zip(vecs, batches)])
+            vectors.append(ColumnVector(data, dt, valid, dictionary))
+        rv = torch.cat([b.row_valid_or_true() for b in batches])
+        return ColumnBatch(list(self._schema.names), vectors, rv, capacity)
+
+    def __repr__(self):
+        return f"Union({len(self.children)})"
+
+
 class _NotYetPorted(PhysicalPlan):
     """An operator of the JAX package that a later slice of the port
     brings; planning it is fine, running it raises."""
@@ -305,10 +364,6 @@ class _NotYetPorted(PhysicalPlan):
         raise NotImplementedError(
             f"{type(self).__name__} is not ported yet: it comes with "
             f"{self.slice_name}")
-
-
-class PUnion(_NotYetPorted):
-    slice_name = "the SQL front-end slice (UNION and set operations)"
 
 
 class PSample(_NotYetPorted):

@@ -112,6 +112,8 @@ def _join_caps(pq: "PlannedQuery") -> List[tuple]:
                 out += build
             join_caps.append((node, probe, out))
             return out
+        if isinstance(node, P.PUnion):
+            return sum(ch) if ch else 1
         return max(ch) if ch else 1
 
     cap(pq.physical)
@@ -244,8 +246,11 @@ class Planner:
         if isinstance(node, Join):
             from .joins import plan_join
             return plan_join(self, node, leaves)
-        # file scans, windows, unions, samples, explode, stateful groups:
-        # later slices (the analyzer refuses them first)
+        if isinstance(node, Union):
+            return P.PUnion([self._to_physical(c, leaves)
+                             for c in node.children], node.schema())
+        # file scans, windows, samples, explode, stateful groups: later
+        # slices (the analyzer refuses them first)
         raise AnalysisException(f"no physical plan for {node!r}")
 
 

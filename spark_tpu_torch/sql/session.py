@@ -1,8 +1,9 @@
 """SparkSession: the entry point (``sql/SparkSession.scala:77`` analog).
 
-The subset of ``spark_tpu/sql/session.py`` this slice needs: the builder,
-the conf, a temp-view catalog, ``createDataFrame``, ``range`` and
-``stop``.  The session owns ONE torch device, named by
+The subset of ``spark_tpu/sql/session.py`` the port has: the builder,
+the conf, a temp-view and function catalog, ``createDataFrame``,
+``range``, ``sql`` with its commands, ``udf`` and ``stop``.  The session
+owns ONE torch device, named by
 ``spark.torch.device`` (default ``"cuda"``): every batch it creates lives
 there and every query runs there.  Asking for a card that is not there
 raises; the session never falls back to the CPU.
@@ -34,13 +35,31 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+#: where the persistent catalog (tables, databases, their statistics)
+#: comes from: it needs ``io.py``'s readers and writers
+PERSISTENT_SLICE = "the scan slice (io.py readers and writers)"
+
+
 class Catalog:
-    """Temp views (``SessionCatalog``'s temp-view half; persistent tables
-    and the function registry come with the SQL front-end slice)."""
+    """Temp views + functions (``SessionCatalog``'s session half; the
+    persistent tables and databases come with the scan slice)."""
 
     def __init__(self, session=None):
         self._session = session
         self._views: Dict[str, L.LogicalPlan] = {}
+        self._functions: Dict[str, Any] = {}
+
+    # -- functions ---------------------------------------------------------
+    def register_function(self, name: str, wrapper) -> None:
+        self._functions[name.lower()] = wrapper
+
+    def lookup_function(self, name: str):
+        return self._functions.get(name.lower())
+
+    def listFunctions(self) -> List[str]:
+        return sorted(self._functions)
+
+    # -- temp views ----------------------------------------------------------
 
     def register(self, name: str, plan: L.LogicalPlan) -> None:
         self._views[name.lower()] = plan
@@ -167,10 +186,84 @@ class SparkSession:
         batch = ColumnBatch.from_arrays(cols, schema=struct, device=self.device)
         return DataFrame(self, L.LocalRelation(batch))
 
+    @property
+    def udf(self):
+        """`spark.udf.register(name, fn, returnType)` (UDFRegistration)."""
+        from .udf import UDFRegistration
+        return UDFRegistration(self)
+
     def sql(self, query: str) -> DataFrame:
-        raise NotImplementedError(
-            "spark.sql needs the SQL parser: it comes with the SQL "
-            "front-end slice; use the DataFrame API")
+        from . import parser as P
+        st = P.parse_statement(query)
+        if not isinstance(st, P.Command):
+            return DataFrame(self, st)
+        return self._run_command(st)
+
+    def _run_command(self, cmd) -> DataFrame:
+        from . import parser as P
+
+        def string_df(cols: dict) -> DataFrame:
+            names = list(cols)
+            struct = T.StructType(
+                [T.StructField(n, T.string) for n in names])
+            vals = list(cols.values())
+            if vals and len(vals[0]) == 0:
+                return DataFrame(self, L.LocalRelation(
+                    ColumnBatch.empty(struct, device=self.device)))
+            return DataFrame(self, L.LocalRelation(ColumnBatch.from_arrays(
+                cols, schema=struct, device=self.device)))
+
+        if isinstance(cmd, (P.AnalyzeTableCommand, P.CreateTableCommand,
+                            P.InsertIntoCommand, P.DropTableCommand,
+                            P.CreateDatabaseCommand, P.DropDatabaseCommand,
+                            P.UseDatabaseCommand, P.ShowDatabasesCommand)):
+            if isinstance(cmd, P.DropTableCommand) \
+                    and self.catalog.drop(cmd.name):
+                return string_df({})   # a temp view shadows the table
+            what = type(cmd).__name__[:-len("Command")]
+            raise NotImplementedError(
+                f"{what} is not ported yet: persistent catalog tables come "
+                f"with {PERSISTENT_SLICE}")
+        if isinstance(cmd, P.CreateViewCommand):
+            if not cmd.replace and cmd.name.lower() in self.catalog._views:
+                raise AnalysisException(f"temp view {cmd.name} already exists")
+            self.catalog.register(cmd.name, cmd.query)
+            return string_df({})
+        if isinstance(cmd, P.DropViewCommand):
+            found = self.catalog.drop(cmd.name)
+            if not found and not cmd.if_exists:
+                raise AnalysisException(f"view not found: {cmd.name}")
+            return string_df({})
+        if isinstance(cmd, P.ShowTablesCommand):
+            names = self.catalog.listTables()
+            return string_df({"tableName": names,
+                              "isTemporary": ["true"] * len(names)})
+        if isinstance(cmd, P.DescribeCommand):
+            schema = DataFrame(self, self.catalog.lookup(cmd.name)).schema
+            names = [f.name for f in schema.fields]
+            dts = [f.dataType.simpleString() for f in schema.fields]
+            comments = [""] * len(schema.fields)
+            if cmd.extended:
+                # no view of the port is file-backed, so none carries
+                # ANALYZE TABLE statistics
+                names, dts = names + ["# rows"], dts + [""]
+                comments = comments + ["<not analyzed>"]
+            return string_df({"col_name": names, "data_type": dts,
+                              "comment": comments})
+        if isinstance(cmd, P.SetCommand):
+            if cmd.key is not None and cmd.value is not None:
+                self.conf.set(cmd.key, cmd.value)
+            key = cmd.key if cmd.key is not None else ""
+            value = str(self.conf.get(cmd.key, "<undefined>")) \
+                if cmd.key is not None else ""
+            return string_df({"key": [key], "value": [value]})
+        if isinstance(cmd, P.ExplainCommand):
+            from .planner import QueryExecution
+            qe = QueryExecution(self, cmd.query)
+            text = qe.explain_string() if cmd.extended else \
+                "== Physical Plan ==\n" + qe.planned.physical.tree_string()
+            return string_df({"plan": [text]})
+        raise AnalysisException(f"unsupported command {type(cmd).__name__}")
 
     def table(self, name: str) -> DataFrame:
         return DataFrame(self, L.UnresolvedRelation(name))

@@ -1,0 +1,513 @@
+"""Subquery expressions and their rewrite into joins (a port of
+``spark_tpu/sql/subquery.py``).
+
+The analog of the reference's `catalyst/.../optimizer/subquery.scala`
+(`RewritePredicateSubquery`, `RewriteCorrelatedScalarSubquery`): subquery
+expressions never execute as subqueries — analysis rewrites them into
+semi/anti/left/cross joins, which run like any other join.
+
+Supported shapes (WHERE / HAVING conjuncts):
+- `EXISTS (SELECT ... [WHERE corr])`      -> left_semi join
+- `NOT EXISTS (...)`                      -> left_anti join
+- `x IN (SELECT c ... [WHERE corr])`      -> left_semi join on x = c
+- `x NOT IN (...)`                        -> left_anti join (null-unaware:
+  the reference's NOT IN returns no rows when the subquery yields a NULL;
+  this engine treats NULL as non-matching — documented deviation, the
+  JAX package's own)
+- scalar `(SELECT agg(...) [WHERE corr])` nested anywhere in a conjunct ->
+  cross join (uncorrelated, exactly-one-row by construction) or left join
+  grouped by the correlation keys (correlated)
+
+Correlated conjuncts are detected by name resolution: a Filter conjunct
+inside the subquery whose references do not all resolve in that Filter's
+own scope is pulled up to the join level.
+"""
+
+from __future__ import annotations
+
+import itertools
+from typing import List, Tuple
+
+from ..expressions import (
+    AnalysisException, Alias, Col, EQ, Expression, Not,
+)
+from .. import types as T
+from .logical import (
+    Aggregate, Distinct, Filter, Join, LogicalPlan, Project, SubqueryAlias,
+)
+
+_fresh = itertools.count()
+
+
+def _fresh_name(base: str) -> str:
+    return f"__sq{next(_fresh)}_{base}"
+
+
+# ---------------------------------------------------------------------------
+# expression nodes
+# ---------------------------------------------------------------------------
+
+class SubqueryExpr(Expression):
+    """Base: holds an (unresolved) LogicalPlan; must be rewritten away."""
+
+    def __init__(self, plan: LogicalPlan):
+        self.plan = plan
+        self.children = ()
+
+    def with_plan(self, plan: LogicalPlan) -> "SubqueryExpr":
+        if isinstance(self, InSubquery):
+            return InSubquery(self.children[0], plan)
+        return type(self)(plan)
+
+    def eval(self, ctx):
+        raise AnalysisException(
+            f"unrewritten subquery expression {type(self).__name__}; "
+            "supported positions are WHERE/HAVING conjuncts")
+
+    def references(self):
+        return set()
+
+
+class ScalarSubquery(SubqueryExpr):
+    def data_type(self, schema):
+        return self.plan.schema().fields[0].dataType
+
+    def __repr__(self):
+        return "scalar-subquery(...)"
+
+
+class InSubquery(SubqueryExpr):
+    def __init__(self, value: Expression, plan: LogicalPlan):
+        self.plan = plan
+        self.children = (value,)
+
+    def map_children(self, fn):
+        out = InSubquery(fn(self.children[0]), self.plan)
+        return out
+
+    def data_type(self, schema):
+        return T.boolean
+
+    def references(self):
+        return self.children[0].references()
+
+    def __repr__(self):
+        return f"({self.children[0]!r} IN (subquery))"
+
+
+class ExistsSubquery(SubqueryExpr):
+    def data_type(self, schema):
+        return T.boolean
+
+    def __repr__(self):
+        return "exists(subquery)"
+
+
+def contains_subquery(e: Expression) -> bool:
+    if isinstance(e, SubqueryExpr):
+        return True
+    return any(contains_subquery(c) for c in e.children)
+
+
+# ---------------------------------------------------------------------------
+# correlation pull-up
+# ---------------------------------------------------------------------------
+
+def _visible_names(node: LogicalPlan) -> set:
+    from .analyzer import qualifier_map
+    names = set(node.schema().names)
+    try:
+        names |= set(qualifier_map(node).keys())
+    except AnalysisException:
+        pass
+    return names
+
+
+def _pull_correlated(sub: LogicalPlan
+                     ) -> Tuple[LogicalPlan, List[Tuple[Expression, set]]]:
+    """Remove correlated conjuncts from Filters inside `sub`.
+
+    Returns (rewritten sub, [(conjunct, inner-scope names at its site)]).
+    A conjunct is correlated when some reference does not resolve in its
+    Filter's own child scope."""
+    from .optimizer import join_conjuncts, split_conjuncts
+    pulled: List[Tuple[Expression, set]] = []
+
+    def fn(node: LogicalPlan) -> LogicalPlan:
+        if not isinstance(node, Filter):
+            return node
+        try:
+            inner = _visible_names(node.child)
+        except AnalysisException:
+            return node
+        keep, out = [], []
+        for c in split_conjuncts(node.condition):
+            refs = c.references()
+            if refs and not refs <= inner:
+                out.append((c, inner))
+            else:
+                keep.append(c)
+        if not out:
+            return node
+        pulled.extend(out)
+        return Filter(join_conjuncts(keep), node.child) if keep \
+            else node.child
+
+    return sub.transform_up(fn), pulled
+
+
+def _strip_alias(sub: LogicalPlan) -> LogicalPlan:
+    while isinstance(sub, SubqueryAlias):
+        sub = sub.children[0]
+    return sub
+
+
+# ---------------------------------------------------------------------------
+# per-shape rewrites
+# ---------------------------------------------------------------------------
+
+def _rewrite_exists(child: LogicalPlan, sub: LogicalPlan,
+                    negated: bool) -> LogicalPlan:
+    from .logical import Limit
+    sub = _strip_alias(sub)
+    # EXISTS ignores the select list entirely; dropping top projections
+    # (and the no-op LIMIT n>=1 idiom) exposes every inner column to the
+    # pulled-up join condition
+    while isinstance(sub, (Project, Distinct, SubqueryAlias, Limit)):
+        if isinstance(sub, Limit):
+            if sub.n < 1:
+                raise AnalysisException(
+                    "EXISTS (... LIMIT 0) is constant false; remove it")
+            sub = sub.children[0]
+            continue
+        sub = sub.children[0]
+    sub, pulled = _pull_correlated(sub)
+    if not pulled:
+        raise AnalysisException(
+            "uncorrelated EXISTS is not supported yet; use a LIMIT 1 join "
+            "or a scalar COUNT comparison")
+    from .optimizer import join_conjuncts
+    cond = join_conjuncts([c for c, _scope in pulled])
+    how = "left_anti" if negated else "left_semi"
+    return Join(child, sub, how, cond, None)
+
+
+def _rewrite_in(child: LogicalPlan, value: Expression, sub: LogicalPlan,
+                negated: bool) -> LogicalPlan:
+    sub = _strip_alias(sub)
+    had_distinct = isinstance(sub, Distinct)
+    if had_distinct:
+        sub = sub.children[0]   # semi join subsumes DISTINCT
+    if not isinstance(sub, Project) or len(sub.exprs) != 1:
+        raise AnalysisException(
+            "IN (subquery) requires a single-column subquery select list")
+    first = sub.exprs[0]
+    base = first.children[0] if isinstance(first, Alias) else first
+    inner_child, pulled = _pull_correlated(sub.children[0])
+    fresh = _fresh_name(first.name)
+    proj: List[Expression] = [Alias(base, fresh)]
+    # surface inner columns referenced by pulled correlation conjuncts
+    # under FRESH names (the projection resets the qualifier scope, so a
+    # qualified inner ref like u.w would no longer resolve above it)
+    try:
+        inner_scope = _visible_names(inner_child)
+    except AnalysisException:
+        inner_scope = set()
+    extra = set()
+    for c, _scope in pulled:
+        extra |= (c.references() & inner_scope)
+    remap = {}
+    for n in sorted(extra):
+        fn_ = _fresh_name(n.split(".")[-1])
+        remap[n] = fn_
+        proj.append(Alias(Col(n), fn_))
+
+    def subst(e: Expression) -> Expression:
+        if isinstance(e, Col) and e.name in remap:
+            return Col(remap[e.name])
+        return e.map_children(subst)
+
+    new_sub = Project(proj, inner_child)
+    from .optimizer import join_conjuncts
+    conds = [EQ(value, Col(fresh))] + [subst(c) for c, _s in pulled]
+    how = "left_anti" if negated else "left_semi"
+    return Join(child, new_sub, how, join_conjuncts(conds), None)
+
+
+def _rewrite_existence(child: LogicalPlan, value: Expression,
+                       sub: LogicalPlan) -> Tuple[LogicalPlan, Expression]:
+    """Uncorrelated `x IN (SELECT c ...)` anywhere in an expression →
+    left join on the DISTINCT value set + a match flag
+    (``ExistenceJoin`` in `RewritePredicateSubquery`).  NULL deviation as
+    for NOT IN: a NULL probe/set value reads as non-matching (false), not
+    NULL — documented in the module header."""
+    from ..expressions import Coalesce, Literal
+    sub = _strip_alias(sub)
+    if isinstance(sub, Distinct):
+        sub = sub.children[0]       # the Distinct below subsumes it
+    if not isinstance(sub, Project) or len(sub.exprs) != 1:
+        raise AnalysisException(
+            "IN (subquery) requires a single-column subquery select list")
+    first = sub.exprs[0]
+    base = first.children[0] if isinstance(first, Alias) else first
+    inner_child, pulled = _pull_correlated(sub.children[0])
+    if pulled:
+        raise AnalysisException(
+            "correlated IN subqueries are only supported as top-level "
+            "WHERE/HAVING conjuncts")
+    key = _fresh_name(first.name.split(".")[-1])
+    flag = _fresh_name("exists")
+    keyed = Distinct(Project([Alias(base, key)], inner_child))
+    flagged = Project([Col(key), Alias(Literal(True), flag)], keyed)
+    joined = Join(child, flagged, "left", EQ(value, Col(key)), None)
+    return joined, Coalesce(Col(flag), Literal(False))
+
+
+def _rewrite_exists_existence(child: LogicalPlan, sub: LogicalPlan
+                              ) -> Tuple[LogicalPlan, Expression]:
+    """Correlated EXISTS anywhere in an expression (q10/q35's
+    `EXISTS(..) OR EXISTS(..)`) → ExistenceJoin: left join the DISTINCT
+    correlation-key set with a match flag replacing the predicate."""
+    from ..expressions import Coalesce, Literal
+    from .logical import Limit
+    sub = _strip_alias(sub)
+    while isinstance(sub, (Project, Distinct, SubqueryAlias, Limit)):
+        if isinstance(sub, Limit) and sub.n < 1:
+            return child, Literal(False)
+        sub = sub.children[0]
+    sub, pulled = _pull_correlated(sub)
+    if not pulled:
+        raise AnalysisException(
+            "uncorrelated EXISTS under OR is not supported; lift it to a "
+            "scalar COUNT comparison")
+    keys: List[Expression] = []
+    on: List[Expression] = []
+    for c, scope in pulled:
+        if not isinstance(c, EQ):
+            raise AnalysisException(
+                f"EXISTS under OR supports only equality correlation, "
+                f"got {c!r}")
+        a, b = c.children
+        if a.references() <= scope:
+            inner, outer = a, b
+        elif b.references() <= scope:
+            inner, outer = b, a
+        else:
+            raise AnalysisException(
+                f"cannot split correlated predicate {c!r}")
+        fresh_k = _fresh_name(inner.name.split(".")[-1])
+        keys.append(Alias(inner, fresh_k))
+        on.append(EQ(outer, Col(fresh_k)))
+    flag = _fresh_name("exists")
+    keyed = Distinct(Project(keys, sub))
+    flagged = Project([Col(k.name) for k in keys]
+                      + [Alias(Literal(True), flag)], keyed)
+    from .optimizer import join_conjuncts
+    joined = Join(child, flagged, "left", join_conjuncts(on), None)
+    return joined, Coalesce(Col(flag), Literal(False))
+
+
+def _rewrite_scalar(child: LogicalPlan, sub: LogicalPlan
+                    ) -> Tuple[LogicalPlan, Expression]:
+    """Returns (new child with the join attached, replacement expression)."""
+    sub = _strip_alias(sub)
+    if not (isinstance(sub, Project) and len(sub.exprs) == 1
+            and isinstance(sub.children[0], Aggregate)
+            and not sub.children[0].keys):
+        # non-aggregate scalar subquery (`SELECT col FROM one_row_rel` —
+        # q58's week lookup, q23/q14's CTE-scalar reads): when
+        # UNCORRELATED, wrap in first() to make it a global aggregate.
+        # Deviation: a multi-row subquery yields an arbitrary row where
+        # the reference raises "more than one row returned" — the TPC-DS
+        # shapes are single-row by construction.
+        target = sub
+        while isinstance(target, (Distinct, SubqueryAlias)):
+            # a Distinct adds nothing under pick-any-row semantics
+            target = target.children[0]
+        ok = isinstance(target, Project) and len(target.exprs) == 1
+        pulled = []
+        if ok:
+            inner_child, pulled = _pull_correlated(target.children[0])
+        if ok and not pulled:
+            from ..aggregates import First
+            first = target.exprs[0]
+            base = first.children[0] if isinstance(first, Alias) else first
+            slot = _fresh_name(first.name.split(".")[-1])
+            sub = Project([Col(slot)],
+                          Aggregate([], [(First(base), slot)], inner_child))
+        else:
+            raise AnalysisException(
+                "scalar subqueries must be global aggregates "
+                "(SELECT agg(...) FROM ...) or uncorrelated single-column "
+                "queries; got: " + repr(sub))
+    agg: Aggregate = sub.children[0]
+    first = sub.exprs[0]
+    value_expr = first.children[0] if isinstance(first, Alias) else first
+    fresh_v = _fresh_name(first.name)
+
+    # COUNT over an empty set is 0, but the correlated left-join rewrite
+    # yields NULL for outer rows with no matching group — the classic
+    # COUNT bug (`RewriteCorrelatedScalarSubquery.scala` aggregates'
+    # default-value handling).  Handle the plain `(SELECT count(...) ...)`
+    # shape with coalesce(cnt, 0); reject count buried in arithmetic
+    # loudly rather than return wrong NULLs.
+    from ..aggregates import Count, CountStar
+    count_slots = {n for f, n in agg.aggs if isinstance(f, (Count, CountStar))}
+    is_plain_count = isinstance(value_expr, Col) \
+        and value_expr.name in count_slots
+
+    def _refs_count_slot(e: Expression) -> bool:
+        if isinstance(e, Col) and e.name in count_slots:
+            return True
+        return any(_refs_count_slot(c) for c in e.children)
+
+    agg_child, pulled = _pull_correlated(agg.child)
+    if pulled and not is_plain_count and _refs_count_slot(value_expr):
+        raise AnalysisException(
+            "correlated scalar subqueries may use count() only as the "
+            "whole select expression (empty groups must default to 0); "
+            "move arithmetic on the count outside the subquery")
+    if not pulled:
+        new_sub = Project([Alias(value_expr, fresh_v)],
+                          Aggregate([], agg.aggs, agg_child))
+        return Join(child, new_sub, "cross", None, None), Col(fresh_v)
+
+    # correlated: each pulled conjunct must be an equality inner = outer;
+    # the inner side becomes a grouping key, the outer side a join key
+    keys: List[Expression] = []
+    on: List[Expression] = []
+    proj: List[Expression] = [Alias(value_expr, fresh_v)]
+    for c, scope in pulled:
+        if not isinstance(c, EQ):
+            raise AnalysisException(
+                f"correlated scalar subquery supports only equality "
+                f"correlation, got {c!r}")
+        a, b = c.children
+        if a.references() <= scope:
+            inner, outer = a, b
+        elif b.references() <= scope:
+            inner, outer = b, a
+        else:
+            raise AnalysisException(
+                f"cannot split correlated predicate {c!r}")
+        fresh_k = _fresh_name(inner.name)
+        # alias the key INSIDE the aggregate: qualified inner refs (t2.g)
+        # resolve in the aggregate's scope, while everything above sees
+        # only the fresh name
+        keys.append(Alias(inner, fresh_k))
+        proj.append(Col(fresh_k))
+        on.append(EQ(outer, Col(fresh_k)))
+    from .optimizer import join_conjuncts
+    new_sub = Project(proj, Aggregate(keys, agg.aggs, agg_child))
+    # LEFT join: outer rows without a matching group see NULL, so any
+    # comparison against the scalar is false — SQL scalar semantics —
+    # except COUNT, which must read 0 for empty groups
+    ref: Expression = Col(fresh_v)
+    if is_plain_count:
+        from ..expressions import Coalesce, Literal
+        ref = Coalesce(ref, Literal(0))
+    return Join(child, new_sub, "left", join_conjuncts(on), None), ref
+
+
+# ---------------------------------------------------------------------------
+# the rewrite pass
+# ---------------------------------------------------------------------------
+
+def rewrite_subqueries(plan: LogicalPlan, resolve) -> LogicalPlan:
+    """Rewrite every subquery expression in Filter conditions.
+
+    `resolve` is called on each nested subquery plan first (catalog/view
+    resolution — nested plans are invisible to the analyzer's transform_up
+    because they live inside expressions), and the rewrite RECURSES into
+    each subquery plan so subqueries nested inside subqueries work."""
+    from .optimizer import join_conjuncts, split_conjuncts
+
+    def prep(p: LogicalPlan) -> LogicalPlan:
+        return rewrite_subqueries(resolve(p), resolve)
+
+    def rewrite_filter(node: LogicalPlan) -> LogicalPlan:
+        if not isinstance(node, Filter) \
+                or not contains_subquery(node.condition):
+            return node
+        child = node.child
+        out: List[Expression] = []
+        for conj in split_conjuncts(node.condition):
+            if not contains_subquery(conj):
+                out.append(conj)
+                continue
+            # EXISTS / IN at the top of the conjunct (possibly negated)
+            neg, inner = False, conj
+            if isinstance(inner, Not):
+                neg, inner = True, inner.children[0]
+            if isinstance(inner, ExistsSubquery):
+                child = _rewrite_exists(child, prep(inner.plan), neg)
+                continue
+            if isinstance(inner, InSubquery):
+                child = _rewrite_in(child, inner.children[0],
+                                    prep(inner.plan), neg)
+                continue
+            # subqueries nested anywhere in the conjunct: scalars join as
+            # 1-row/grouped relations; IN/EXISTS under OR become existence
+            # joins (ExistenceJoin in `RewritePredicateSubquery`): a left
+            # join against the distinct value set whose match flag replaces
+            # the predicate.  Only UNCORRELATED existence shapes nest —
+            # correlation pull-up under disjunction has no join form here.
+
+            def repl(e: Expression) -> Expression:
+                nonlocal child
+                if isinstance(e, ScalarSubquery):
+                    child, ref = _rewrite_scalar(child, prep(e.plan))
+                    return ref
+                if isinstance(e, InSubquery):
+                    child, ref = _rewrite_existence(
+                        child, e.children[0], prep(e.plan))
+                    return ref
+                if isinstance(e, ExistsSubquery):
+                    child, ref = _rewrite_exists_existence(
+                        child, prep(e.plan))
+                    return ref
+                if isinstance(e, SubqueryExpr):
+                    raise AnalysisException(
+                        f"{type(e).__name__} is only supported as a "
+                        "top-level WHERE/HAVING conjunct")
+                return e.map_children(repl)
+
+            out.append(repl(conj))
+        return Filter(join_conjuncts(out), child) if out else child
+
+    def rewrite_project(node: LogicalPlan) -> LogicalPlan:
+        """SELECT-position scalar subqueries (q9/q24-style `CASE WHEN
+        (SELECT avg(...)...) > x`): each ScalarSubquery in a projection
+        attaches its join to the child; the projection then references the
+        fresh scalar column.  Output schema is unchanged — Project emits
+        only its named expressions."""
+        if not isinstance(node, Project):
+            return node
+        if not any(contains_subquery(e) for e in node.exprs):
+            return node
+        child = node.children[0]
+        new_exprs: List[Expression] = []
+
+        def repl(e: Expression) -> Expression:
+            nonlocal child
+            if isinstance(e, ScalarSubquery):
+                child, ref = _rewrite_scalar(child, prep(e.plan))
+                return ref
+            if isinstance(e, SubqueryExpr):
+                raise AnalysisException(
+                    f"{type(e).__name__} is not supported in a SELECT "
+                    "list; only scalar subqueries are")
+            return e.map_children(repl)
+
+        for e in node.exprs:
+            new_exprs.append(repl(e))
+        import copy
+        new = copy.copy(node)     # keep Project subclasses (join renames)
+        new.exprs = new_exprs
+        new.children = (child,)
+        return new
+
+    def rewrite_node(node: LogicalPlan) -> LogicalPlan:
+        return rewrite_project(rewrite_filter(node))
+
+    return plan.transform_up(rewrite_node)

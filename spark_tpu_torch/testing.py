@@ -10,7 +10,10 @@ parts over into a batch of this package (``ColumnBatch.from_numpy_parts``).
 The main path's two queries live here too, as numpy tables made from a
 seed and as DataFrame programs written against an engine's
 ``functions``/``types`` modules, so tests run them on both engines and
-``chip_smoke.py`` runs them on the card.
+``chip_smoke.py`` runs them on the card; so do the SQL texts of the
+queries ``chip_smoke.py`` runs through ``spark.sql`` (q3's is TPC-DS
+q3's text as the JAX package's ``tpcds/queries.py`` writes it), each
+with a numpy oracle.
 """
 
 from __future__ import annotations
@@ -225,3 +228,183 @@ def assert_rows_equal(ref_rows: Sequence[Sequence[Any]],
                     (i, r, g)
             else:
                 assert x == y and type(x) is type(y), (i, r, g)
+
+
+# ---------------------------------------------------------------------------
+# numpy oracles of the main path's queries
+# ---------------------------------------------------------------------------
+
+def hash_agg_oracle(table):
+    k, v = table["k"], table["v"]
+    groups = int(k.max()) + 1
+    counts = np.bincount(k, minlength=groups)
+    total = np.zeros(groups, np.int64)
+    np.add.at(total, k, v)
+    return sorted((int(g), int(total[g]), int(counts[g]))
+                  for g in range(groups) if counts[g] > 0)
+
+
+def _cents(prices: np.ndarray) -> np.ndarray:
+    return np.round(prices * 100).astype(np.int64)
+
+
+def q3_oracle(tables):
+    """q3 in numpy: the joins as lookups by surrogate key, exact cents."""
+    ss, dd, it = tables["store_sales"], tables["date_dim"], tables["item"]
+    d_idx = ss["ss_sold_date_sk"] - dd["d_date_sk"][0]
+    i_idx = ss["ss_item_sk"] - 1
+    keep = (dd["d_moy"][d_idx] == 11) & (it["i_manufact_id"][i_idx] == 28)
+    cents = _cents(ss["ss_ext_sales_price"][keep])
+    year = dd["d_year"][d_idx[keep]]
+    brand_id = it["i_brand_id"][i_idx[keep]]
+    brand = it["i_brand"][i_idx[keep]]
+    groups = {}
+    for y, bi, bn, c in zip(year.tolist(), brand_id.tolist(), brand.tolist(),
+                            cents.tolist()):
+        groups[(y, bi, bn)] = groups.get((y, bi, bn), 0) + c
+    rows = sorted(groups.items(),
+                  key=lambda kv: (kv[0][0], -kv[1], kv[0][1], kv[0][2]))
+    return [(y, bi, bn, c / 100.0) for (y, bi, bn), c in rows[:100]]
+
+
+# ---------------------------------------------------------------------------
+# the same queries, and those over q3's tables, as SQL text
+# ---------------------------------------------------------------------------
+
+#: TPC-DS q3, character for character as ``spark_tpu/tpcds/queries.py``
+#: writes it
+Q3_SQL = """
+SELECT d_year, i_brand_id, i_brand, SUM(ss_ext_sales_price) AS sum_agg
+FROM date_dim, store_sales, item
+WHERE d_date_sk = ss_sold_date_sk AND ss_item_sk = i_item_sk
+  AND i_manufact_id = 28 AND d_moy = 11
+GROUP BY d_year, i_brand_id, i_brand
+ORDER BY d_year, sum_agg DESC, i_brand_id, i_brand
+LIMIT 100
+"""
+
+HASH_AGG_SQL = "SELECT k, SUM(v) AS s, COUNT(*) AS c FROM hash_t GROUP BY k"
+
+#: 2000-01-01, where the UNION ALL query splits store_sales
+SPLIT_DATE_SK = 2451545
+
+
+def register_sql_tables(session, hash_table, tables, T):
+    """The hash-agg table and q3's three tables as temp views of
+    ``session`` (``T``: the engine's types module)."""
+    session.createDataFrame(hash_table).createOrReplaceTempView("hash_t")
+    for name, cols in Q3_SCHEMAS.items():
+        schema = T.StructType([T.StructField(c, T.type_for_name(t))
+                               for c, t in cols])
+        session.createDataFrame(tables[name], schema=schema) \
+            .createOrReplaceTempView(name)
+
+
+def register_sql_udfs(session, vector_ops):
+    """The UDFs the SQL queries call, one per lane: ``brand_class`` is
+    vectorized over the engine's tensors (``vector_ops``: the array module
+    whose ``floor_divide`` and ``remainder`` it uses), ``manufact_band``
+    runs per row."""
+    session.udf.register(
+        "brand_class",
+        lambda b: vector_ops.remainder(vector_ops.floor_divide(b, 10000),
+                                       100),
+        "int", vectorized=True)
+    session.udf.register("manufact_band", lambda m: m // 10, "int")
+
+
+def _union_all_oracle(tables):
+    ss = tables["store_sales"]
+    n = len(tables["item"]["i_item_sk"]) + 1
+    counts = np.bincount(ss["ss_item_sk"], minlength=n)
+    cents = np.bincount(ss["ss_item_sk"],
+                        weights=_cents(ss["ss_ext_sales_price"]),
+                        minlength=n).astype(np.int64)
+    return [(int(i), int(cents[i]) / 100.0, int(counts[i]))
+            for i in np.nonzero(counts)[0]]
+
+
+def _brands(tables, low: bool):
+    """The brands of items made by manufacturers 1-50 (``low``) or
+    51-100."""
+    it = tables["item"]
+    pick = (it["i_manufact_id"] <= 50) == low
+    return set(it["i_brand"][pick].tolist())
+
+
+def _scalar_oracle(tables):
+    cents = _cents(tables["store_sales"]["ss_ext_sales_price"])
+    # price > avg(price)  <=>  cents * n > sum(cents), exactly
+    return [(int(np.count_nonzero(cents * len(cents) > cents.sum())),)]
+
+
+def _exists_oracle(tables):
+    ss, dd = tables["store_sales"], tables["date_dim"]
+    d_idx = ss["ss_sold_date_sk"] - dd["d_date_sk"][0]
+    nov = (dd["d_moy"][d_idx] == 11) & (dd["d_year"][d_idx] == 2000)
+    return [(int(i),) for i in np.unique(ss["ss_item_sk"][nov])]
+
+
+def _like_oracle(tables):
+    it = tables["item"]
+    out = {}
+    for b, m in zip(it["i_brand"].tolist(), it["i_manufact_id"].tolist()):
+        if b.startswith("brand#2") and b.endswith("5"):
+            c, s = out.get(b, (0, 0))
+            out[b] = (c + 1, s + m)
+    return [(b, c, s) for b, (c, s) in out.items()]
+
+
+def _grouped_count(values):
+    keys, counts = np.unique(values, return_counts=True)
+    return [(int(k), int(c)) for k, c in zip(keys, counts)]
+
+
+#: the SQL queries over q3's tables: name -> (text, numpy oracle of its
+#: rows, whether the rows come in a defined order)
+SQL_QUERIES = {
+    "union all": (
+        "SELECT ss_item_sk, SUM(ss_ext_sales_price) AS s, COUNT(*) AS c "
+        "FROM (SELECT ss_item_sk, ss_ext_sales_price FROM store_sales "
+        f"WHERE ss_sold_date_sk < {SPLIT_DATE_SK} UNION ALL "
+        "SELECT ss_item_sk, ss_ext_sales_price FROM store_sales "
+        f"WHERE ss_sold_date_sk >= {SPLIT_DATE_SK}) x GROUP BY ss_item_sk",
+        _union_all_oracle, False),
+    "intersect": (
+        "SELECT i_brand FROM item WHERE i_manufact_id <= 50 INTERSECT "
+        "SELECT i_brand FROM item WHERE i_manufact_id > 50",
+        lambda t: [(b,) for b in _brands(t, True) & _brands(t, False)],
+        False),
+    "except": (
+        "SELECT i_brand FROM item WHERE i_manufact_id <= 50 EXCEPT "
+        "SELECT i_brand FROM item WHERE i_manufact_id > 50",
+        lambda t: [(b,) for b in _brands(t, True) - _brands(t, False)],
+        False),
+    "q3 IN subquery": (
+        Q3_SQL.replace("AND i_manufact_id = 28",
+                       "AND ss_item_sk IN (SELECT i_item_sk FROM item "
+                       "WHERE i_manufact_id = 28)"),
+        q3_oracle, True),
+    "scalar subquery": (
+        "SELECT COUNT(*) AS n FROM store_sales WHERE ss_ext_sales_price > "
+        "(SELECT AVG(ss_ext_sales_price) FROM store_sales)",
+        _scalar_oracle, True),
+    "correlated EXISTS": (
+        "SELECT i_item_sk FROM item WHERE EXISTS (SELECT * FROM "
+        "store_sales, date_dim WHERE ss_sold_date_sk = d_date_sk "
+        "AND d_year = 2000 AND d_moy = 11 AND ss_item_sk = i_item_sk)",
+        _exists_oracle, False),
+    "LIKE": (
+        "SELECT i_brand, COUNT(*) AS c, SUM(i_manufact_id) AS m FROM item "
+        "WHERE i_brand LIKE 'brand#2%5' GROUP BY i_brand",
+        _like_oracle, False),
+    "UDF vectorized": (
+        "SELECT cls, COUNT(*) AS c FROM (SELECT brand_class(i_brand_id) "
+        "AS cls FROM item) x GROUP BY cls",
+        lambda t: _grouped_count(t["item"]["i_brand_id"] // 10000 % 100),
+        False),
+    "UDF row": (
+        "SELECT band, COUNT(*) AS c FROM (SELECT "
+        "manufact_band(i_manufact_id) AS band FROM item) x GROUP BY band",
+        lambda t: _grouped_count(t["item"]["i_manufact_id"] // 10), False),
+}
