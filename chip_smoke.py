@@ -29,11 +29,13 @@ without printing a result:
    the launch's grid, shared memory and cluster size;
 4. slice — a ``SparkSession`` on the default device (the card) runs the
    hash-agg lane (2^22 rows, 1,024 groups) and TPC-DS q3 at SF1 row
-   counts through the DataFrame API; each result is held against a numpy
-   oracle computed here (integers exact); the hash-agg query must make
-   exactly one K1 launch, through the columns entry, and no
-   ``aten::stack``; each query's warm wall time is the median of 5
-   runs;
+   counts through the DataFrame API, on the default lane: each query's
+   first run builds its stage-cache entry (an eager warm-up, then a CUDA
+   graph capture) and later runs replay the graph.  Each result is held
+   against a numpy oracle computed here (integers exact); the hash-agg
+   query's first run must call K1 twice through the columns entry (the
+   warm-up's launch and the captured one) and no ``aten::stack``; each
+   query's warm wall time is the median of 5 runs;
 5. SQL — the same session registers the hash-agg table and q3's tables
    as temp views and runs through ``spark.sql`` the hash-agg query
    (exactly one K1 launch, through the columns entry), q3's SQL text,
@@ -45,14 +47,27 @@ without printing a result:
    walls in turns with the DataFrame ones, each query's warm wall (with
    and without decoding the rows) and profile line; then q3's SQL text
    at ``spark.tpu.mesh.shards = 4``, where K2's launch count must rise;
-6. mesh slice — the same session with ``spark.tpu.mesh.shards = 4`` (all
+6. stage — the stage cache: hash-agg and q3, each from the DataFrame API
+   and from SQL text, as captured graphs.  Per query the build (warm-up
+   plus capture) timed apart from 5 warm replays; the result against its
+   oracle and bit for bit against the eager lane
+   (``spark.sql.codegen.wholeStage=false``) and the per-operator lane
+   (``spark.tpu.stage.fusion=false``); a profile of each lane (host
+   launch calls, device kernels, device-busy share; the hash-agg replay
+   must run K1 exactly once); the graph's pool bytes beside
+   ``_plan_reserve_bytes``; walls in turns eager, graph, graph, eager,
+   with and without the row decode.  Then one guard miss (the same
+   shape on keys too wide for the bucket table) and its re-capture, one
+   slotted-literal pair that shares an entry, and one
+   ``HBMOutOfMemoryError`` raised before dispatch;
+7. mesh slice — the same session with ``spark.tpu.mesh.shards = 4`` (all
    four shards on the card) runs the hash-agg lane, q3 with its
    broadcast joins and q3 with ``spark.sql.autoBroadcastJoinThreshold =
    0`` (both joins shuffled through the skew join), recording every K2
    call's inputs; each result is held against the same numpy oracle;
    K2's launch count must rise during each query; warm wall time (median
    of 5) and a profile line for each;
-7. K2 check — K2 against its plain PyTorch version on the card,
+8. K2 check — K2 against its plain PyTorch version on the card,
    bit-exact, at every exchange the three mesh queries made, at n = 2, 4
    and 8 with bool planes and int32 run tables whose blocks are not
    multiples of 16 bytes, at cap = 1, in the gather form and with 50
@@ -63,9 +78,12 @@ without printing a result:
    its plain version's time and the one-call
    ``transpose(0, 1).contiguous()`` yardstick on the same bytes
    pre-stacked (which the port never calls), per call and back to back;
-8. a ``{"kernels": [...]}`` line (each kernel's ``sql_launches``: its
-   launches in the SQL phase's counted run), the card line, and as the
-   last line ``{"ok": true, "device": {...}}``.
+9. a ``{"kernels": [...]}`` line (each kernel's ``sql_launches``: its
+   launches in the SQL phase's counted run; K1's ``captured_launches``:
+   those of its launches made while a graph was captured, and
+   ``replayed_launches``: its launches the profiler saw in one replay of
+   each hash-agg query), the card line, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Every profile line gives, beside the largest kernels, each hand-written
 kernel's own device time, its launches and its share of the run's
@@ -150,7 +168,15 @@ def zero_counts():
     cuda_agg.LAUNCHES = 0
     for entry in cuda_agg.ENTRY_LAUNCHES:
         cuda_agg.ENTRY_LAUNCHES[entry] = 0
+        cuda_agg.CAPTURED_LAUNCHES[entry] = 0
     cuda_a2a.LAUNCHES = 0
+
+
+def clear_stage_cache():
+    """Drop every captured graph, so the next run of each query builds
+    (warm-up and capture) its entry anew."""
+    from spark_tpu_torch.sql.stagecompile import stage_cache
+    stage_cache().clear()
 
 
 def wall_ms(fn, warmup=1, reps=5):
@@ -283,26 +309,41 @@ def _stacked(planes, n):
                        dim=1).contiguous()
 
 
-def kernel_device_ms(fn, name, reps=20):
+#: idle seconds kept inside each profiler window before the first launch
+#: and after the last kernel ends: kineto drops a device record whose
+#: span, on the host's clock, falls outside the window, so a kernel that
+#: ends just before the window closes can go missing
+PROFILE_PAD_S = 0.05
+
+
+def kernel_device_ms(fn, name, reps=20, attempts=3):
     """Mean device time of the kernel named ``name`` over ``reps`` calls,
-    from ``torch.profiler`` (the kernel alone: no wrapper, no fill)."""
+    from ``torch.profiler`` (the kernel alone: no wrapper, no fill).  A
+    profile that saw fewer than ``reps`` launches is taken again, at most
+    ``attempts`` times in all, and each short one is printed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = [(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0)), e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and name in e.key]
-    us, count = sum(h[0] for h in hits), sum(h[1] for h in hits)
-    check(count == reps, f"profiler saw {count} launches of {name}, "
-          f"expected {reps}")
-    return us / count / 1e3
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        hits = [(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0)), e.count)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and name in e.key]
+        us, count = sum(h[0] for h in hits), sum(h[1] for h in hits)
+        if count == reps:
+            return us / count / 1e3
+        print(f"[profile] attempt {attempt}: the profiler saw {count} "
+              f"launches of {name}, expected {reps}", flush=True)
+    check(False, f"profiler saw {count} launches of {name}, expected "
+          f"{reps}, in each of {attempts} profiles")
 
 
 def _check_cases(name, cases, fn, plain):
@@ -343,7 +384,9 @@ def phase_kernel_check(session, hash_df):
     import torch
     from spark_tpu_torch import cuda_agg
 
-    # the main path's own inputs: one warm-up run of the hash-agg query
+    # the main path's own inputs: the first run of the hash-agg query on
+    # the graph lane calls K1 twice, in its eager warm-up and in its
+    # capture; the warm-up's inputs hold data
     captured = []
     launch = cuda_agg.grouped_accumulate_columns
 
@@ -351,13 +394,18 @@ def phase_kernel_check(session, hash_df):
         captured.append((bucket32, list(planes), n_active, B))
         return launch(bucket32, planes, n_active, B)
 
+    clear_stage_cache()
+    zero_counts()
     cuda_agg.grouped_accumulate_columns = spy
     try:
         hash_df.collect()
     finally:
         cuda_agg.grouped_accumulate_columns = launch
-    check(len(captured) == 1, f"hash-agg query made {len(captured)} K1 "
-          "calls, expected 1")
+    check(len(captured) == 2 and cuda_agg.CAPTURED_LAUNCHES[
+        "grouped_accumulate_columns"] == 1,
+          f"hash-agg query's first run made {len(captured)} K1 calls "
+          f"({cuda_agg.CAPTURED_LAUNCHES} captured), expected 2: the "
+          "warm-up's and the capture's")
     main = captured[0]
     b, planes, na, B = main
     n, P = b.shape[0], len(planes)
@@ -508,18 +556,28 @@ def phase_slice(session, hash_df, hash_table, k1_entries):
     print(f"[slice] q3 tables at SF1 row counts {Q3_ROWS} made and moved "
           f"to the card in {time.perf_counter() - t0:.2f} s", flush=True)
 
-    # the main path's run: counts zeroed just before, read just after
+    # the main path's run: counts zeroed just before, read just after.
+    # On the graph lane each query's first run builds its entry: the
+    # wrapper launches K1 once in the eager warm-up and once more while
+    # the graph is captured (replays launch it without the wrapper; the
+    # [stage] phase counts those from the profiler)
+    clear_stage_cache()
     zero_counts()
     hash_rows = hash_df.collect()
     hash_launches = dict(cuda_agg.ENTRY_LAUNCHES)
+    hash_captured = dict(cuda_agg.CAPTURED_LAUNCHES)
     q3_rows = q3_df.collect()
     q3_launches = cuda_agg.LAUNCHES - sum(hash_launches.values())
     check(hash_launches == {"grouped_accumulate": 0,
-                            "grouped_accumulate_columns": 1},
-          f"hash-agg query's K1 launches {hash_launches}, expected exactly "
-          "one, through the columns entry")
+                            "grouped_accumulate_columns": 2}
+          and hash_captured["grouped_accumulate_columns"] == 1,
+          f"hash-agg query's K1 launches {hash_launches} ({hash_captured} "
+          "captured), expected two through the columns entry: one in the "
+          "warm-up, one captured")
     for entry in k1_entries:
         entry["launches"] = cuda_agg.ENTRY_LAUNCHES[entry["name"]]
+        entry["captured_launches"] = \
+            cuda_agg.CAPTURED_LAUNCHES[entry["name"]]
 
     got = sorted((r["k"], r["s"], r["c"]) for r in hash_rows)
     check(got == hash_agg_oracle(hash_table),
@@ -530,7 +588,8 @@ def phase_slice(session, hash_df, hash_table, k1_entries):
     check(got_q3 == want_q3, f"q3 result differs from the numpy oracle "
           f"(first rows {got_q3[:2]} vs {want_q3[:2]})")
     print(f"[slice] hash-agg: {len(got)} groups equal to the oracle; K1 "
-          f"launches during the query: {hash_launches} (MXU-form branch)",
+          f"wrapper launches during the query's first run: {hash_launches} "
+          f"(MXU-form branch; {hash_captured} of them captured)",
           flush=True)
     branch = "MXU-form (K1)" if q3_launches else "sort-based"
     print(f"[slice] q3: {len(got_q3)} rows equal to the oracle; K1 launches "
@@ -575,45 +634,66 @@ OWN_KERNELS = (("K1", "grouped_accumulate_kernel"),
                ("K2", "all_to_all_kernel"))
 
 
+#: CUDA runtime/driver calls that put work on a stream: a profile's host
+#: launch calls are its CPU-side events of these names
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cudaLaunchKernelEx", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch",
+                     "cudaMemcpyAsync", "cudaMemsetAsync", "cudaMemcpy",
+                     "cudaMemset")
+
+
 def profile_query(name, fn, top=6):
     """Where one warm run's time goes: device time summed over the kernels
     ``torch.profiler`` saw, against the run's wall time under the
-    profiler (which adds host overhead), each hand-written kernel's own
-    time, launches and share of the device time, and the largest
-    kernels."""
+    profiler (which adds host overhead), the host's launch calls, each
+    hand-written kernel's own time, launches and share of the device
+    time, and the largest kernels.  Returns those numbers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    rows = []
+        time.sleep(PROFILE_PAD_S)
+    rows, host_calls = [], {}
     for e in prof.key_averages():
-        # device kernels only: an aten op's row repeats its kernels' time
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            if e.key in HOST_LAUNCH_CALLS:
+                host_calls[e.key] = host_calls.get(e.key, 0) + e.count
             continue
+        # device kernels only: an aten op's row repeats its kernels' time
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0))
         if us > 0:
             rows.append((us, e.count, e.key))
     device_ms = sum(us for us, _c, _k in rows) / 1e3
     rows.sort(reverse=True)
-    own = []
+    own, own_txt = {}, []
     for kid, fn_name in OWN_KERNELS:
         hits = [(us, c) for us, c, k in rows if fn_name in k]
         ms = sum(us for us, _c in hits) / 1e3
+        count = sum(c for _u, c in hits)
         share = ms / device_ms if device_ms else 0.0
-        own.append(f"{kid} {fn_name} x{sum(c for _u, c in hits)} "
-                   f"{ms:.4f} ms ({share:.2%} of device time)")
+        own[kid] = (count, ms)
+        own_txt.append(f"{kid} {fn_name} x{count} {ms:.4f} ms ({share:.2%} "
+                       "of device time)")
     tops = "; ".join(f"{k[:60]} x{c} {us / 1e3:.3f} ms"
                      for us, c, k in rows[:top])
+    n_device = sum(c for _u, c, _k in rows)
+    n_host = sum(host_calls.values())
     print(f"[profile] {name}: wall {wall:.2f} ms under the profiler, device "
           f"busy {device_ms:.3f} ms ({device_ms / wall:.1%}), "
-          f"{sum(c for _u, c, _k in rows)} kernel launches; "
-          f"{'; '.join(own)}; top: {tops}", flush=True)
+          f"{n_device} device kernels and copies from {n_host} host launch "
+          f"calls {host_calls}; {'; '.join(own_txt)}; top: {tops}",
+          flush=True)
+    return {"wall_ms": wall, "device_ms": device_ms, "busy": device_ms / wall,
+            "device_ops": n_device, "host_launch_calls": n_host,
+            "host_calls": host_calls, "own": own}
 
 
 def phase_sql(session, hash_df, hash_table, q3_df, tables, k1_entries):
@@ -643,8 +723,10 @@ def phase_sql(session, hash_df, hash_table, q3_df, tables, k1_entries):
                 for name, (sql, oracle, ordered) in SQL_QUERIES.items()]
     frames = [(name, session.sql(sql)) for name, sql, _o, _d in queries]
 
-    # the SQL path's run: counts zeroed just before, read just after
+    # the SQL path's run: counts zeroed just before, read just after; each
+    # query builds its stage entry (K1: warm-up launch + captured launch)
     results = []
+    clear_stage_cache()
     zero_counts()
     for name, df in frames:
         before = (dict(cuda_agg.ENTRY_LAUNCHES), dict(udf.HOST_COPIES))
@@ -667,9 +749,9 @@ def phase_sql(session, hash_df, hash_table, q3_df, tables, k1_entries):
               f"(first rows {got[:2]} vs {want[:2]})")
         if name == "hash-agg":
             check(k1 == {"grouped_accumulate": 0,
-                         "grouped_accumulate_columns": 1},
-                  f"SQL hash-agg's K1 launches {k1}, expected exactly one, "
-                  "through the columns entry")
+                         "grouped_accumulate_columns": 2},
+                  f"SQL hash-agg's K1 launches {k1}, expected two through "
+                  "the columns entry: the warm-up's and the capture's")
         extra = ""
         if copies["to_host"] or copies["to_device"]:
             extra = (f"; UDF row lane: {copies['to_host']} device->host "
@@ -715,6 +797,224 @@ def phase_sql(session, hash_df, hash_table, q3_df, tables, k1_entries):
     finally:
         _mesh(session, 1)
     return k2
+
+
+LANES = {"eager": {"spark.sql.codegen.wholeStage": "false"},
+         "per-op": {"spark.tpu.stage.fusion": "false"},
+         "graph": {}}
+
+
+def _lane(session, lane):
+    """Select one of the single-device lanes for the session."""
+    for conf in LANES.values():
+        for key in conf:
+            session.conf.unset(key)
+    for key, value in LANES[lane].items():
+        session.conf.set(key, value)
+
+
+def _grouped_oracle(table, where=None):
+    """(k, sum(v), count) rows of ``table`` (``where``: a row mask), for
+    keys of any range."""
+    import numpy as np
+    k, v = table["k"], table["v"]
+    if where is not None:
+        k, v = k[where], v[where]
+    keys, inv = np.unique(k, return_inverse=True)
+    sums = np.zeros(len(keys), np.int64)
+    np.add.at(sums, inv, v)
+    counts = np.bincount(inv, minlength=len(keys))
+    return sorted(zip(keys.tolist(), sums.tolist(), counts.tolist()))
+
+
+def phase_stage(session, hash_df, hash_table, q3_df, tables):
+    """The stage cache on the card: hash-agg and q3, each from the
+    DataFrame API and from SQL text, as captured graphs.  Per query: the
+    build (warm-up plus capture) timed apart from 5 warm replays; the
+    result against its numpy oracle and bit for bit against the eager
+    and per-op lanes; each lane's profile (host launch calls, device
+    kernels, device-busy share; K1 once per hash-agg replay); the entry's
+    graph pool and static buffers beside ``_plan_reserve_bytes``; walls
+    in turns eager, graph, graph, eager, with and without the row
+    decode.  Then one guard miss and its re-capture, one slotted-literal
+    pair sharing an entry, and one ``HBMOutOfMemoryError`` raised before
+    dispatch.  Returns K1's replayed launches per hash-agg query."""
+    import numpy as np
+    import torch
+    from spark_tpu_torch import config as C
+    from spark_tpu_torch.memory import HBMOutOfMemoryError, MemoryManager
+    from spark_tpu_torch.sql import functions as F
+    from spark_tpu_torch.sql.planner import (QueryExecution,
+                                             _plan_reserve_bytes)
+    from spark_tpu_torch.sql import stagecompile as SC
+    from spark_tpu_torch.sql.stagecompile import stage_cache
+    from spark_tpu_torch.testing import (HASH_AGG_SQL, Q3_SQL,
+                                         assert_parts_equal, batch_parts,
+                                         hash_agg_query, q3_oracle)
+
+    cache = stage_cache()
+    hash_rows = _grouped_oracle(hash_table)
+    q3_want = q3_oracle(tables)
+    queries = [
+        ("hash-agg", hash_df, lambda rows: sorted(
+            (r["k"], r["s"], r["c"]) for r in rows) == hash_rows),
+        ("q3", q3_df, lambda rows: [tuple(r) for r in rows] == q3_want),
+        ("sql hash-agg", session.sql(HASH_AGG_SQL), lambda rows: sorted(
+            (r["k"], r["s"], r["c"]) for r in rows) == hash_rows),
+        ("sql q3", session.sql(Q3_SQL),
+         lambda rows: [tuple(r) for r in rows] == q3_want),
+    ]
+    k1_replays = {}
+    for name, df, correct in queries:
+        _lane(session, "graph")
+        clear_stage_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = df.collect()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        check(correct(rows), f"[stage] {name}: first run differs from the "
+              "numpy oracle")
+        build = cache.stats()
+        (entry,) = cache.entries()
+        replay_ms = wall_ms(df.collect, warmup=0, reps=5)
+        after = cache.stats()
+        check(correct(df.collect()), f"[stage] {name}: replay differs from "
+              "the numpy oracle")
+        check((build["builds"], build["variants"], after["builds"],
+               after["variants"], after["guard_misses"]) == (1, 1, 1, 1, 0),
+              f"[stage] {name}: replays built again: {after}")
+        variant = entry.variants[-1]
+        reserve = _plan_reserve_bytes(
+            QueryExecution(session, df._plan).planned)
+        print(f"[stage] {name}: build (warm-up + capture) "
+              f"{build['compile_ms']:.2f} ms of a first run of "
+              f"{first_ms:.2f} ms; 5 warm replays, median wall "
+              f"{replay_ms:.2f} ms; {entry.n_ops} operators in one graph; "
+              f"graph pool {variant.pool_bytes} B + static inputs "
+              f"{variant.static_bytes} B beside _plan_reserve_bytes "
+              f"{reserve} B; {variant.n_guards} guard flag(s); storage "
+              f"charged {session._memory.storage_used} B", flush=True)
+
+        # bit for bit against the eager and per-op lanes
+        parts = {}
+        for lane in ("graph", "eager", "per-op"):
+            _lane(session, lane)
+            parts[lane] = batch_parts(df._execute())
+        for lane in ("eager", "per-op"):
+            assert_parts_equal(parts["graph"], parts[lane])
+        print(f"[stage] {name}: graph lane bit-exact against the eager and "
+              f"per-op lanes ({len(parts['graph'].names)} columns, "
+              f"capacity {parts['graph'].capacity})", flush=True)
+
+        # each lane's launches and device-busy share
+        prof = {}
+        for lane in ("eager", "per-op", "graph"):
+            _lane(session, lane)
+            df.collect()                      # warm
+            prof[lane] = profile_query(f"stage {name} {lane}", df.collect)
+        if "hash-agg" in name:
+            count, ms = prof["graph"]["own"]["K1"]
+            check(count == 1, f"[stage] {name}: the profiler saw K1 x{count} "
+                  "in one replay, expected exactly one")
+            k1_replays[name] = count
+            print(f"[stage] {name}: one replay ran K1 x{count}, "
+                  f"{ms:.4f} ms on the device", flush=True)
+        print(f"[stage] {name}: host launch calls per query eager "
+              f"{prof['eager']['host_launch_calls']}, per-op "
+              f"{prof['per-op']['host_launch_calls']}, graph "
+              f"{prof['graph']['host_launch_calls']}; device-busy share "
+              f"eager {prof['eager']['busy']:.1%}, per-op "
+              f"{prof['per-op']['busy']:.1%}, graph "
+              f"{prof['graph']['busy']:.1%}", flush=True)
+
+        # the host's share of a replayed query: planning (analyze,
+        # optimize, plan) and the stage key, each per query
+        _lane(session, "graph")
+        pq = QueryExecution(session, df._plan).planned
+        plan_ms = host_ms(lambda: QueryExecution(session, df._plan).planned,
+                          warmup=1, reps=5)
+        key_ms = host_ms(lambda: (
+            SC.stage_fingerprint(pq.physical), SC.leaf_signature(pq.leaves),
+            SC._conf_component(session)), warmup=1, reps=5)
+        print(f"[stage] {name}: host time per query, median of 5: analyze + "
+              f"optimize + plan {plan_ms:.3f} ms, stage key {key_ms:.3f} ms",
+              flush=True)
+
+        # walls in turns
+        walls = []
+        for lane in ("eager", "graph", "graph", "eager"):
+            _lane(session, lane)
+            walls.append((wall_ms(df.collect), wall_ms(df._execute)))
+        print(f"[stage] {name}: warm wall, median of 5, in turns eager, "
+              f"graph, graph, eager: "
+              f"{', '.join(f'{a:.2f}' for a, _b in walls)} ms; without "
+              f"decoding the rows: "
+              f"{', '.join(f'{b:.2f}' for _a, b in walls)} ms", flush=True)
+    _lane(session, "graph")
+
+    # one guard miss and its re-capture: the same shape on keys whose
+    # range does not fit the bucket table
+    rng = np.random.default_rng(29)
+    wide = {"k": rng.choice(rng.integers(0, 10 ** 12, 5000), MAIN_N),
+            "v": rng.integers(0, 100, MAIN_N).astype(np.int64)}
+    wide_df = hash_agg_query(session, F, wide)
+    hash_df.collect()
+    before = cache.stats()
+    got = sorted((r["k"], r["s"], r["c"]) for r in wide_df.collect())
+    miss = cache.stats()
+    check(got == _grouped_oracle(wide), "[stage] guard-miss result differs "
+          "from the numpy oracle")
+    check((miss["builds"], miss["guard_misses"], miss["variants"]) ==
+          (before["builds"], before["guard_misses"] + 1,
+           before["variants"] + 1),
+          f"[stage] wide keys did not miss the guard: {before} -> {miss}")
+    again = sorted((r["k"], r["s"], r["c"]) for r in wide_df.collect())
+    check(again == got and cache.stats()["guard_misses"]
+          == miss["guard_misses"], "[stage] the re-captured variant did not "
+          "serve the wide keys")
+    print(f"[stage] guard miss: hash-agg on {len(got)} keys spread over "
+          f"10^12 (same shape) failed the recorded fits-the-bucket-table "
+          f"guard, re-ran eagerly (sorted form) and captured a second "
+          f"variant ({miss['compile_ms'] - before['compile_ms']:.2f} ms); "
+          "its replay serves the next run; results equal the oracle",
+          flush=True)
+
+    # one slotted-literal pair sharing an entry
+    text = "SELECT k, SUM(v) AS s, COUNT(*) AS c FROM hash_t WHERE v < {} " \
+        "GROUP BY k"
+    pair = []
+    for bound in (50, 80):
+        before = cache.stats()
+        rows = sorted((r["k"], r["s"], r["c"])
+                      for r in session.sql(text.format(bound)).collect())
+        pair.append(cache.stats()["builds"] - before["builds"])
+        check(rows == _grouped_oracle(hash_table, hash_table["v"] < bound),
+              f"[stage] v < {bound} differs from the numpy oracle")
+    check(pair == [1, 0], f"[stage] the literal pair built {pair} entries")
+    print("[stage] slotted literals: v < 50 built one entry, v < 80 "
+          "replayed it with the new value; both equal the oracle",
+          flush=True)
+
+    # one HBMOutOfMemoryError before dispatch
+    reserve = _plan_reserve_bytes(QueryExecution(session, hash_df._plan)
+                                  .planned)
+    saved = session._memory
+    session._memory = MemoryManager(
+        C.Conf({"spark.tpu.memory.hbmBudget": reserve // 2}), session.device)
+    before = cache.stats()["dispatches"]
+    try:
+        hash_df.collect()
+        check(False, "[stage] a half-size budget ran hash-agg")
+    except HBMOutOfMemoryError as e:
+        message = str(e)
+    finally:
+        session._memory = saved
+    check(cache.stats()["dispatches"] == before, "[stage] the refused query "
+          "was dispatched")
+    print(f"[stage] budget {reserve // 2} B: HBMOutOfMemoryError before "
+          f"dispatch: {message}", flush=True)
+    print(f"[stage] cache {cache.stats()}", flush=True)
+    return k1_replays
 
 
 MESH_SHARDS = 4
@@ -935,6 +1235,12 @@ def main() -> int:
     tables, q3_df = phase_slice(session, hash_df, hash_table, k1_entries)
     k2_sql_launches = phase_sql(session, hash_df, hash_table, q3_df, tables,
                                 k1_entries)
+    k1_replays = phase_stage(session, hash_df, hash_table, q3_df, tables)
+    for entry in k1_entries:
+        # the profiler's count of K1 in one replay of each hash-agg query
+        entry["replayed_launches"] = \
+            k1_replays if entry["name"] == "grouped_accumulate_columns" \
+            else {}
     captured, k2_launches = phase_mesh(session, hash_df, hash_table, q3_df,
                                        tables)
     k2_entry = phase_k2_check(captured, k2_launches)

@@ -5,8 +5,10 @@ grouped aggregate → sort → limit) on torch tensors, with the grouped
 accumulate written by hand in CUDA for Hopper (``spark_tpu_torch.cuda_agg``).
 
 * columnar batches of torch tensors on one device (``columnar``)
-* eager torch operators instead of one jitted XLA program (``kernels``,
-  ``sql.physical``, ``sql.joins``)
+* torch operators (``kernels``, ``sql.physical``, ``sql.joins``), each
+  planned query captured once as a CUDA graph and replayed from the
+  stage cache where the JAX package runs one jitted XLA program
+  (``sql.stagecompile``)
 * the same SQL front half (analyzer → optimizer → planner) as the JAX
   package, in ``spark_tpu_torch.sql``
 

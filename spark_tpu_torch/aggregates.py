@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from . import types as T
+from .capture import constant
 from .expressions import AnalysisException, EvalContext, Expression, ExprValue, and_valid
 
 __all__ = [
@@ -104,8 +105,7 @@ class AggregateFunction(Expression):
         return data, valid
 
     def _masked(self, data, valid, kind: str, dtype: torch.dtype) -> BufferSpec:
-        ident = torch.tensor(identity(kind, dtype), dtype=dtype,
-                             device=data.device)
+        ident = constant(identity(kind, dtype), data.device, dtype)
         return BufferSpec(torch.where(valid, data.to(dtype), ident), kind,
                           dtype)
 
@@ -274,7 +274,7 @@ class First(AggregateFunction):
     def make_buffers(self, ctx, contribute):
         valid = self._row_mask(ctx, contribute)
         idx = torch.arange(ctx.capacity, dtype=torch.int64, device=ctx.device)
-        big = torch.tensor(1 << 62, dtype=torch.int64, device=ctx.device)
+        big = constant(1 << 62, ctx.device, torch.int64)
         return [BufferSpec(torch.where(valid, idx, big), "min", torch.int64)]
 
     def finish(self, buffers):
@@ -293,7 +293,7 @@ class Last(First):
     def make_buffers(self, ctx, contribute):
         valid = self._row_mask(ctx, contribute)
         idx = torch.arange(ctx.capacity, dtype=torch.int64, device=ctx.device)
-        none = torch.tensor(-1, dtype=torch.int64, device=ctx.device)
+        none = constant(-1, ctx.device, torch.int64)
         return [BufferSpec(torch.where(valid, idx, none), "max", torch.int64)]
 
     def __repr__(self):

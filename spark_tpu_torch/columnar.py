@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from . import types as T
+from .capture import constant
 
 MIN_CAPACITY = 8
 
@@ -258,8 +259,7 @@ class ColumnBatch:
     def num_rows(self) -> torch.Tensor:
         """Number of live rows, as an int64 tensor on the batch's device."""
         if self.row_valid is None:
-            return torch.tensor(self.capacity, dtype=torch.int64,
-                                device=self.device)
+            return constant(self.capacity, self.device, torch.int64)
         return self.row_valid.sum(dtype=torch.int64)
 
     # -- movement ---------------------------------------------------------

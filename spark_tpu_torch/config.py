@@ -203,10 +203,25 @@ EXCHANGE_SPREAD_FRAC = conf("spark.tpu.exchange.spreadThreshold").doc(
 ).float(0.5)
 
 CODEGEN_ENABLED = conf("spark.sql.codegen.wholeStage").doc(
-    "Fuse operator pipelines into one compiled program (WholeStageCodegen "
-    "analog).  The PyTorch engine runs operators eagerly on the device; "
-    "the entry is kept so one conf configures both packages."
+    "Run each planned single-device query as one compiled program "
+    "(WholeStageCodegen analog): on a card, one CUDA graph captured once "
+    "and replayed from the process-local stage cache "
+    "(sql/stagecompile.py).  Off = the eager lane: every operator's "
+    "kernels launched one by one from the host."
 ).boolean(True)
+
+STAGE_FUSION = conf("spark.tpu.stage.fusion").doc(
+    "Whole-stage capture: every single-device query runs as ONE program "
+    "obtained from the process-local stage cache (sql/stagecompile.py), "
+    "a replayed CUDA graph on a card.  Off drops to per-operator "
+    "dispatch — one eager step per physical node, its flags read back "
+    "after each — the baseline the graph lane is measured against."
+).boolean(True)
+
+STAGE_CACHE_MAX_ENTRIES = conf("spark.tpu.stage.cacheMaxEntries").doc(
+    "Entry bound of the process-local stage cache (LRU beyond it).  The "
+    "cache is per PROCESS, not per session."
+).int(256)
 
 CASE_SENSITIVE = conf("spark.sql.caseSensitive").boolean(False)
 

@@ -59,6 +59,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
 #include <mutex>
 
 namespace cg = cooperative_groups;
@@ -402,8 +403,11 @@ grouped_accumulate_kernel(
 std::mutex g_launch_mutex;   // guards each instantiation's cached attributes
 
 // Size a launch: the tile, the accumulator, the dynamic shared memory and
-// the grid, into cfg (which points at attr) and g; sets the kernel's
-// attributes the first time a size is seen.
+// the grid, into cfg (which points at attr) and g.  The kernel's
+// attributes are set, and its occupancy asked for, only the first time a
+// shared-memory size is seen: a launch whose size was seen before makes
+// no such call, so one captured into a CUDA graph after an eager run of
+// the same launches makes none while the graph is being captured.
 template <class Loader>
 int plan(long long n, int P, int B, int row_width, long long rows_per_flush,
          cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg, Geometry* g) {
@@ -446,21 +450,23 @@ int plan(long long n, int P, int B, int row_width, long long rows_per_flush,
   int resident = 0;
   {
     std::lock_guard<std::mutex> lock(g_launch_mutex);
-    static long long cached_smem = -1;
-    static int cached_resident = 0;
-    if (smem != cached_smem) {
-      err = cudaFuncSetAttribute(kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
-      if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveClusters(&cached_resident, kernel, cfg);
-      if (err != cudaSuccess) {
-        cached_smem = -1;
-        return (int)err;
+    static long long opt_in_smem = -1;             // the attribute's value
+    static std::map<long long, int> resident_at;   // smem -> clusters
+    auto it = resident_at.find(smem);
+    if (it == resident_at.end()) {
+      // the opt-in only grows: a smaller launch stays within it
+      if (smem > opt_in_smem) {
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        opt_in_smem = smem;
       }
-      cached_smem = smem;
+      int clusters = 0;
+      err = cudaOccupancyMaxActiveClusters(&clusters, kernel, cfg);
+      if (err != cudaSuccess) return (int)err;
+      it = resident_at.emplace(smem, clusters).first;
     }
-    resident = cached_resident;
+    resident = it->second;
   }
   if (resident < 1) return (int)cudaErrorInvalidConfiguration;
 

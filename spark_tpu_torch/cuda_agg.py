@@ -35,9 +35,13 @@ CHUNK = 512
 
 #: kernel launches so far, both entries, and by entry (plain counts:
 #: ``chip_smoke.py`` zeroes them and reads them around the main path to
-#: show the path went through the kernel)
+#: show the path went through the kernel).  They count the wrapper's
+#: launch calls: one made while a CUDA graph is being captured counts
+#: here and in ``CAPTURED_LAUNCHES``; the graph's replays run the kernel
+#: without calling the wrapper, and a profiler counts those
 LAUNCHES = 0
 ENTRY_LAUNCHES = {"grouped_accumulate": 0, "grouped_accumulate_columns": 0}
+CAPTURED_LAUNCHES = {"grouped_accumulate": 0, "grouped_accumulate_columns": 0}
 
 #: rows one int32 accumulator lane may take before it is flushed:
 #: ⌊(2^31 − 1) / 255⌋, so a lane of 8-bit plane values stays exact
@@ -174,6 +178,8 @@ def _run(entry, fn, device, out, *args):
                            f"(out {tuple(out.shape)})")
     LAUNCHES += 1
     ENTRY_LAUNCHES[entry] += 1
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED_LAUNCHES[entry] += 1
     return out
 
 

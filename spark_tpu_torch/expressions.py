@@ -16,12 +16,14 @@ declared result type, as the JAX package casts to ``np_dtype``.
 from __future__ import annotations
 
 import re
+import threading
 from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import types as T
+from .capture import constant
 from .columnar import ColumnBatch
 
 __all__ = [
@@ -71,7 +73,9 @@ class EvalContext:
         return ExprValue(vec.data, vec.valid, vec.dictionary)
 
     def scalar(self, value, dtype: torch.dtype) -> torch.Tensor:
-        return torch.tensor(value, dtype=dtype, device=self.device)
+        """A 0-dim tensor of a host value: a constant of the stage run
+        (``capture.constant``), so a captured graph copies nothing."""
+        return constant(value, self.device, dtype)
 
     def broadcast(self, value: ExprValue) -> ExprValue:
         """Materialize scalars to full capacity (project output)."""
@@ -205,6 +209,23 @@ class Col(Expression):
         return self._name
 
 
+class _SlotBindings(threading.local):
+    """Per-thread Literal→parameter bindings of a stage run.
+
+    A stage entry (``sql/stagecompile.py``) runs ONE program per plan
+    SHAPE; literals in arithmetic/comparison positions read a device
+    scalar of the entry instead of their own value, and each dispatch
+    copies the new values into those scalars.  The binding is
+    thread-local and keyed by Literal object identity — never object
+    mutation — so a concurrent run of a plan that shares Literal objects
+    never sees another thread's scalars."""
+
+    map: Optional[dict] = None
+
+
+_slot_bindings = _SlotBindings()
+
+
 class Literal(Expression):
     def __init__(self, value: Any, dtype: Optional[T.DataType] = None):
         self.value = value
@@ -218,6 +239,13 @@ class Literal(Expression):
         return self.dtype
 
     def eval(self, ctx: EvalContext) -> ExprValue:
+        bindings = _slot_bindings.map
+        if bindings is not None:
+            bound = bindings.get(id(self))
+            if bound is not None:
+                # slotted parameter: the VALUE is the stage entry's device
+                # scalar, which each dispatch fills before the run
+                return ExprValue(bound, None)
         if self.value is None:
             return ExprValue(ctx.scalar(0, self.dtype.torch_dtype),
                              ctx.scalar(False, torch.bool))
@@ -431,10 +459,10 @@ def _comparison_operands(ctx: EvalContext, le: Expression, re_: Expression):
             _merged, ra, rb = merge_dictionaries(l.dictionary, r.dictionary)
             ldata, rdata = l.data, r.data
             if len(ra):
-                ldata = torch.as_tensor(ra, device=ctx.device)[
+                ldata = constant(ra, ctx.device)[
                     ldata.long().clamp(0, len(ra) - 1)]
             if len(rb):
-                rdata = torch.as_tensor(rb, device=ctx.device)[
+                rdata = constant(rb, ctx.device)[
                     rdata.long().clamp(0, len(rb) - 1)]
             return (ExprValue(ldata, l.valid, None),
                     ExprValue(rdata, r.valid, None), True)
@@ -650,9 +678,9 @@ def _align_value_dicts(ctx: EvalContext, vals):
         if v.dictionary is None:
             out.append(v)
             continue
-        remap = torch.as_tensor(
+        remap = constant(
             np.fromiter((lookup[w] for w in v.dictionary), np.int32,
-                        count=len(v.dictionary)), device=ctx.device)
+                        count=len(v.dictionary)), ctx.device)
         out.append(ExprValue(remap[v.data.long().clamp(min=0)], v.valid,
                              merged))
     return out, merged
@@ -766,9 +794,9 @@ class In(Expression):
     def eval(self, ctx):
         v = self.children[0].eval(ctx)
         if v.dictionary is not None:
-            member = torch.as_tensor(
+            member = constant(
                 np.array([w in set(self.values) for w in v.dictionary], bool),
-                device=ctx.device)
+                ctx.device)
             if not len(v.dictionary):
                 return ExprValue(torch.zeros_like(v.data, dtype=torch.bool),
                                  v.valid)
@@ -808,7 +836,7 @@ def _dict_gather(ctx: EvalContext, table: np.ndarray,
     """``table[code]`` per row: the host-built per-word table goes to the
     device in one copy and the rows gather from it (codes of NULL or dead
     rows may be anything; they read some entry under their mask)."""
-    t = torch.as_tensor(table, device=ctx.device)
+    t = constant(table, ctx.device)
     return t[codes.long().clamp(0, len(table) - 1)]
 
 
@@ -896,9 +924,8 @@ class Cast(Expression):
                         arr.append(fn(w)); ok.append(True)
                     except (ValueError, TypeError):
                         arr.append(default); ok.append(False)
-                return (torch.as_tensor(np.array(arr, to.np_dtype),
-                                        device=ctx.device),
-                        torch.as_tensor(np.array(ok, bool), device=ctx.device))
+                return (constant(np.array(arr, to.np_dtype), ctx.device),
+                        constant(np.array(ok, bool), ctx.device))
             if to.is_numeric:
                 if isinstance(to, T.DecimalType):
                     table, ok = parse(lambda w: int(round(float(w) * 10 ** to.scale)), 0)
@@ -1019,8 +1046,8 @@ class Hash64(Expression):
             if v.dictionary is not None:
                 # clip BOTH ends: NULL (-1) codes and out-of-dictionary
                 # sentinels must gather in bounds; both are masked downstream
-                table = torch.as_tensor(self._string_hash_table(v.dictionary),
-                                        device=ctx.device)
+                table = constant(self._string_hash_table(v.dictionary),
+                                 ctx.device)
                 h = table[v.data.long().clamp(0, max(len(v.dictionary) - 1, 0))]
             else:
                 bits = v.data

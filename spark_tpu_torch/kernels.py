@@ -21,6 +21,7 @@ import torch
 
 from . import cuda_agg
 from . import types as T
+from .capture import constant, decide
 from .aggregates import AggregateFunction, First, identity
 from .columnar import ColumnBatch, ColumnVector
 from .expressions import Col, EvalContext, Expression, ExprValue
@@ -109,8 +110,7 @@ def sort_key_transform(data: torch.Tensor, valid: Optional[torch.Tensor],
         rank_null = -1 if nulls_first else 1
         null_rank = torch.where(valid, 0, rank_null).to(torch.int8)
         ident = identity("min" if nulls_first else "max", key.dtype)
-        key = torch.where(valid, key, torch.tensor(ident, dtype=key.dtype,
-                                                   device=key.device))
+        key = torch.where(valid, key, constant(ident, key.device, key.dtype))
     return [null_rank, key]
 
 
@@ -281,8 +281,8 @@ def _segment_starts(sorted_cols: Sequence[torch.Tensor], live_s: torch.Tensor,
     for c in sorted_cols:
         shifted = torch.cat([c[:1], c[:-1]])
         change = change | (c != shifted)
-    if capacity:
-        change[0] = True
+    # a fill, not a store of a host value: no host-to-device copy
+    change[:1].fill_(True)
     return change & live_s
 
 
@@ -454,7 +454,7 @@ def _limb_plan(dtype: torch.dtype) -> Tuple[int, int]:
     [0, 2^(8·n_limbs)) so limbs are unsigned.  int64 takes the full width:
     its offset 2^63 is a flip of the sign bit, which in wrapping int64
     arithmetic is the value ``INT64_MIN``."""
-    nbytes = torch.tensor([], dtype=dtype).element_size()
+    nbytes = torch.empty(0, dtype=dtype).element_size()
     if nbytes == 8:
         return 8, _I64_MIN
     return nbytes, 1 << (nbytes * 8 - 1)
@@ -475,8 +475,8 @@ def _mxu_grouped_aggregate(batch, key_exprs, agg_slots, bucket_cap):
     key_dts = [k.data_type(schema) for k in key_exprs]
     codes = []          # per key: (code int32, radix int32, kmin int64, nullable)
     prod = torch.ones((), dtype=torch.float64, device=dev)  # overflow-safe fit check
-    i64_max = torch.tensor(_I64_MAX, dtype=torch.int64, device=dev)
-    i64_min = torch.tensor(_I64_MIN, dtype=torch.int64, device=dev)
+    i64_max = constant(_I64_MAX, dev, torch.int64)
+    i64_min = constant(_I64_MIN, dev, torch.int64)
     for v in key_vals:
         d64 = v.data.to(torch.int64)
         mask = live if v.valid is None else (live & v.valid)
@@ -502,7 +502,9 @@ def _mxu_grouped_aggregate(batch, key_exprs, agg_slots, bucket_cap):
     bucket = torch.zeros(capacity, dtype=torch.int32, device=dev)
     for code, r32, _, _ in codes:
         bucket = bucket * r32 + code   # wraps only when the ranges do not fit
-    if not bool(prod <= B):            # one host sync picks the form
+    # one host decision picks the form: a sync on the eager lane, a
+    # recorded answer guarded on the device under a stage capture
+    if not decide(prod <= B):
         return _sorted_fallback(batch, key_exprs, key_vals, key_dts,
                                 agg_slots, ctx)
     bucket32 = torch.clamp(bucket, 0, B - 1)

@@ -415,9 +415,12 @@ class Analyzer:
                 if wrapper is None:
                     raise AnalysisException(
                         f"undefined function: {e.fn_name}")
+                # the registration's uid: every analysis of the same text
+                # gives the same plan (and the same stage-cache key)
                 return PythonUDF(e.fn_name, wrapper.fn, wrapper.returnType,
                                  list(e.children),
-                                 getattr(wrapper, "_vectorized", False))
+                                 getattr(wrapper, "_vectorized", False),
+                                 getattr(wrapper, "uid", None))
             return e
 
         return node.map_expressions(fe)

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import types as T
+from ..capture import constant
 from ..columnar import ColumnBatch, ColumnVector, pad_capacity
 from ..expressions import (AnalysisException, Cast, Col, EQ, EvalContext,
                            Expression, ExprValue, Hash64, _u64, lsr64)
@@ -138,9 +139,9 @@ def _exact_encode_pair(pctx: EvalContext, bctx: EvalContext,
             words = [w if isinstance(w, str) else str(w) for w in v.dictionary]
             other = [w if isinstance(w, str) else str(w) for w in other_dict]
             pos = {w: i for i, w in enumerate(sorted(set(words) | set(other)))}
-            table = torch.as_tensor(
+            table = constant(
                 np.array([pos[w] for w in words] or [0], np.int64),
-                device=side_ctx.device)
+                side_ctx.device)
             codes = v.data.to(torch.int64).clamp(0, max(len(words) - 1, 0))
             return table[codes]
         if v.data.dtype.is_floating_point:
@@ -541,9 +542,9 @@ def _coalesce_vectors(a: ColumnVector, b: ColumnVector) -> ColumnVector:
         from ..columnar import merge_dictionaries
         merged, ra, rb = merge_dictionaries(a.dictionary or (), b.dictionary or ())
         dev = a.data.device
-        ad = torch.as_tensor(ra, device=dev)[a.data.long().clamp(min=0)] \
+        ad = constant(ra, dev)[a.data.long().clamp(min=0)] \
             if len(ra) else a.data
-        bd = torch.as_tensor(rb, device=dev)[b.data.long().clamp(min=0)] \
+        bd = constant(rb, dev)[b.data.long().clamp(min=0)] \
             if len(rb) else b.data
         data = torch.where(av, ad, bd).to(torch.int32)
         return ColumnVector(data, a.dtype, av | bv, merged)

@@ -15,6 +15,7 @@ from typing import Any, List, Sequence, Tuple
 import torch
 
 from .. import types as T
+from ..capture import constant
 from ..aggregates import AggregateFunction
 from ..columnar import (ColumnBatch, ColumnVector, merge_dictionaries,
                         pad_capacity)
@@ -330,7 +331,7 @@ class PUnion(PhysicalPlan):
                 for v, rm in zip(vecs, remaps):
                     d = v.data
                     if rm is not None and len(rm):
-                        table = torch.as_tensor(rm, device=ctx.device)
+                        table = constant(rm, ctx.device)
                         d = table[d.long().clamp(0, len(rm) - 1)]
                     datas.append(d.to(torch.int32))
                 data = torch.cat(datas)

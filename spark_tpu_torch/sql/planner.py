@@ -1,12 +1,16 @@
-"""Planner + executor: logical plan → physical plan → eager run on the device.
+"""Planner + executor: logical plan → physical plan → one run on the device.
 
 The local single-device lane of ``spark_tpu/sql/planner.py`` (the
 compressed analog of ``QueryExecution.scala:67-92``).  Where the JAX
-package jits the physical plan into one XLA program, here the plan runs
-eagerly, operator by operator, on the session's device; the adaptive
-join-factor / agg-capacity retry loop and its overflow accounting are the
-same.  Each flag is a device scalar; all of them come back to the host
-in one transfer after the plan has run.
+package jits the physical plan into one XLA program from its stage
+cache, here the plan runs as one CUDA graph captured once and replayed
+from the port's stage cache (``stagecompile.py``); the eager lane
+(``spark.sql.codegen.wholeStage=false``) and the per-operator baseline
+(``spark.tpu.stage.fusion=false``) stay beside it.  Before dispatch the
+plan's static bytes are reserved with the session's ``MemoryManager``.
+The adaptive join-factor / agg-capacity retry loop and its overflow
+accounting are the reference's.  Each flag is a device scalar; all of
+them come back to the host in one transfer after the plan has run.
 """
 
 from __future__ import annotations
@@ -14,9 +18,10 @@ from __future__ import annotations
 import logging
 from typing import Dict, List, Optional, Tuple
 
-import torch
+import numpy as np
 
 from .. import config as C
+from .. import types as T
 from ..columnar import ColumnBatch, ColumnVector, pad_capacity
 from ..expressions import AnalysisException
 from ..kernels import compact
@@ -81,16 +86,26 @@ def _slice_to_host(result: ColumnBatch, n: int) -> ColumnBatch:
     return ColumnBatch(result.names, vectors, rv, cap)
 
 
-def _join_caps(pq: "PlannedQuery") -> List[tuple]:
-    """``(PJoin, probe_rows, out_rows)`` for every join with an adaptive
-    (factor-sized) output buffer, from the plan's STATIC capacities: join
-    output capacity is ``pad_capacity(probe × factor)`` by construction
-    (joins.py)."""
+def _row_nbytes(schema: T.StructType) -> int:
+    """Device bytes per row of one materialized batch of this schema
+    (data + validity + row mask)."""
+    return 2 + sum(np.dtype(f.dataType.np_dtype).itemsize + 1
+                   for f in schema.fields)
+
+
+def _walk_plan_caps(pq: "PlannedQuery"):
+    """(root_cap, extra_bytes, join_caps) over the physical plan's STATIC
+    output capacities — exact arithmetic, not a heuristic: join output
+    capacity is ``pad_capacity(probe × factor)`` by construction
+    (joins.py).  ``join_caps`` lists ``(PJoin, probe_rows, out_rows)``
+    for every join with an adaptive (factor-sized) output buffer."""
     from .joins import PJoin
 
+    extra = 0
     join_caps: List[tuple] = []
 
     def cap(node: P.PhysicalPlan) -> int:
+        nonlocal extra
         if isinstance(node, P.PScan):
             return pq.leaves[node.index].capacity
         if isinstance(node, P.PRange):
@@ -104,20 +119,26 @@ def _join_caps(pq: "PlannedQuery") -> List[tuple]:
             probe = ch[0] if ch else 1
             build = ch[1] if len(ch) > 1 else 1
             if node.how == "cross" or not node.key_pairs:
-                return probe * build
-            if node.how in ("left_semi", "left_anti"):
+                # the all-pairs path takes ANY join without equi keys
+                out = probe * build
+            elif node.how in ("left_semi", "left_anti"):
                 return probe                     # probe-shaped, no buffer
-            out = pad_capacity(int(probe * max(node.factor, 0.1)))
-            if node.how == "full":
-                out += build
-            join_caps.append((node, probe, out))
+            else:
+                out = pad_capacity(int(probe * max(node.factor, 0.1)))
+                if node.how == "full":
+                    out += build
+                join_caps.append((node, probe, out))
+            extra += out * _row_nbytes(node.schema())
             return out
         if isinstance(node, P.PUnion):
-            return sum(ch) if ch else 1
+            out = sum(ch) if ch else 1
+            extra += out * _row_nbytes(node.schema())
+            return out
         return max(ch) if ch else 1
 
-    cap(pq.physical)
-    return join_caps
+    root_cap = cap(pq.physical)
+    extra += root_cap * _row_nbytes(pq.physical.schema())
+    return root_cap, extra, join_caps
 
 
 def check_planned_join_capacities(pq: "PlannedQuery", session,
@@ -125,9 +146,18 @@ def check_planned_join_capacities(pq: "PlannedQuery", session,
     """Fail any join whose STATIC output buffer exceeds
     ``spark.sql.join.maxOutputRows``, naming the join that owns it."""
     cap = session.conf.get(C.JOIN_OUTPUT_MAX_ROWS)
-    for node, probe, out in _join_caps(pq):
+    for node, probe, out in _walk_plan_caps(pq)[2]:
         if out > cap:
             raise _fanout_error(where, out, node.factor, probe, cap)
+
+
+def _plan_reserve_bytes(pq: "PlannedQuery") -> int:
+    """Upper-bound device bytes for one execution attempt: the leaf
+    working set (input + one fused intermediate) plus the STATIC output
+    buffers of every capacity-growing operator (``_walk_plan_caps``)."""
+    from ..memory import batch_nbytes
+    _root, extra, _joins = _walk_plan_caps(pq)
+    return 2 * sum(batch_nbytes(b) for b in pq.leaves) + extra
 
 
 def _needs_local_fallback(plan: LogicalPlan) -> bool:
@@ -302,12 +332,15 @@ class QueryExecution:
 
     def _execute_inner(self) -> ColumnBatch:
         # Left out here, each with the slice that brings it:
-        # * the plan-analysis verifier (maybe_verify_plan) and the serving
-        #   plan cache: the stage-cache slice;
+        # * the plan-analysis verifiers (maybe_verify_*) and the serving
+        #   plan cache: the serving slice;
+        # * run planes at the stage boundary (plan_leaves): with the
+        #   run-length vectors;
         # * the cross-process exchange (crossproc_execute): the
         #   cross-process slice;
         # * the multi-batch and stage-DAG out-of-core runners, alone and
-        #   under the mesh: the out-of-core slice.
+        #   under the mesh: the out-of-core slice;
+        # * the mesh lane under graphs: the mesh lane below stays eager.
         n_shards = self.session.conf.get(C.MESH_SHARDS)
         if n_shards == 0:
             n_shards = 1          # "all local devices": the engine spans one
@@ -336,7 +369,7 @@ class QueryExecution:
                 # only GROWTH in THIS execution is guarded — factors cached
                 # from a previous successful run already proved they fit
                 check_planned_join_capacities(pq, self.session)
-            result, ratio = self._run_planned_inner(pq)
+            result, ratio = self._run_planned(pq)
             if ratio <= 0.0:
                 if factors is not None or shrink is not None:
                     self.session._adapted_factors[base_key] = {
@@ -379,36 +412,127 @@ class QueryExecution:
                 "capacity %s", ratio * 100,
                 ["%.2f" % f if f else "-" for f in factors], shrink)
 
-    def _run_planned_inner(self, pq: PlannedQuery
-                           ) -> Tuple[ColumnBatch, float]:
+    def _run_planned(self, pq: PlannedQuery) -> Tuple[ColumnBatch, float]:
         """One execution attempt → (host result, worst overflow ratio).
 
-        The physical plan runs eagerly on the session's device (the JAX
-        package's jitted stage executable, with its stage cache and device
-        memory pre-flight, comes with the stage-cache slice)."""
+        Before dispatch the query's device working set is reserved with
+        the session's memory manager (UnifiedMemoryManager's
+        acquireExecutionMemory): captured graphs held as storage are
+        evicted to make room, and a query that cannot fit raises
+        ``HBMOutOfMemoryError`` naming itself instead of dying inside the
+        allocator.  The reservation counts the TRUE static output buffers
+        of capacity-growing operators (join/cross/union buffers) on top
+        of the leaf working set."""
+        mem = self.session._memory
+        owner = f"query:{id(self)}"
+        mem.acquire_execution(owner, _plan_reserve_bytes(pq))
+        try:
+            return self._run_planned_inner(pq)
+        finally:
+            mem.release_execution(owner)
+
+    def _run_planned_inner(self, pq: PlannedQuery
+                           ) -> Tuple[ColumnBatch, float]:
+        session = self.session
+        if not session.conf.get(C.CODEGEN_ENABLED):
+            return self._run_eager(pq)
+        from .udf import plan_has_slow_udf
+        if plan_has_slow_udf(self.optimized):
+            # the row lane copies its arguments to the host in the middle
+            # of the plan: no capture can hold that, so the whole query
+            # runs on the eager lane (the reference's stage break)
+            _log.info("row-lane Python UDF in the plan: running it on the "
+                      "eager lane")
+            return self._run_eager(pq)
+
+        from . import stagecompile as SC
+        device = session.device
+        leaves = [b.to_device(device) for b in pq.leaves]
+        if not session.conf.get(C.STAGE_FUSION):
+            # baseline mode: one eager step per physical operator, flags
+            # read back per op so adaptive retry still works, metrics
+            # dropped (debug lane)
+            c, n_rows, _nd, int_flags, caps, kinds = SC.run_per_op(
+                pq.physical, leaves, device)
+            self.metrics = {}
+            return _slice_to_host(c, n_rows), \
+                self._note_flags(int_flags, caps, kinds)
+
+        # the whole plan IS one stage: its captured programs live in the
+        # PROCESS-LOCAL stage cache, keyed on the structural fingerprint
+        # plus the leaf shape/dtype signature and the planning conf, with
+        # int/float/bool literals in arithmetic/comparison positions
+        # slotted out as the entry's device scalars
+        cache = SC.stage_cache(session)
+        skey, slots = SC.stage_fingerprint(pq.physical)
+        skey = (f"local|{skey}|{SC.leaf_signature(leaves)}"
+                f"|{SC._conf_component(session)}")
+
+        def make():
+            physical = pq.physical
+            entry_slots = slots          # entry owns THIS plan's literals
+
+            def run(leaves, params):
+                from .. import expressions as E
+                E._slot_bindings.map = {
+                    id(l): p for l, p in zip(entry_slots, params)}
+                try:
+                    ctx = P.ExecContext(device, list(leaves))
+                    out = compact(physical.run(ctx))
+                    meta = (list(ctx.flag_caps), list(ctx.flag_kinds),
+                            [(oid, lbl) for oid, lbl, _v in ctx.metrics])
+                    return out, [out.num_rows()] + list(ctx.flags) \
+                        + [v for _o, _l, v in ctx.metrics], meta
+                finally:
+                    E._slot_bindings.map = None
+
+            return run, SC.Stage(physical, [b.schema for b in leaves],
+                                 physical.schema(), skey)
+
+        entry = cache.get_or_build(skey, make,
+                                   n_ops=SC.count_ops(pq.physical),
+                                   session=session)
+
+        def finish(out, host, meta):
+            caps, kinds, metric_keys = meta
+            n_rows, int_flags = host[0], host[1:1 + len(caps)]
+            self.metrics = dict(zip(metric_keys, host[1 + len(caps):]))
+            return _slice_to_host(out, n_rows), \
+                self._note_flags(int_flags, caps, kinds)
+
+        return cache.dispatch(entry, leaves, SC.param_values(slots), finish,
+                              device, memory=session._memory)
+
+    def _run_eager(self, pq: PlannedQuery) -> Tuple[ColumnBatch, float]:
+        """The eager lane: every operator's kernels launched from the
+        host, the flags read back once at the end."""
+        from .stagecompile import _read_back
         device = self.session.device
         ctx = P.ExecContext(device, [b.to_device(device) for b in pq.leaves])
         out = compact(pq.physical.run(ctx))
         # ONE device → host transfer for the row count, every overflow
         # flag and every metric
-        scalars = [out.num_rows()] + list(ctx.flags) \
-            + [v for _o, _l, v in ctx.metrics]
-        host = torch.stack([s.reshape(()).to(torch.int64)
-                            for s in scalars]).cpu().tolist()
+        host = _read_back([out.num_rows()] + list(ctx.flags)
+                          + [v for _o, _l, v in ctx.metrics])
         n_rows, rest = host[0], host[1:]
         int_flags = rest[:len(ctx.flags)]
         metric_vals = rest[len(ctx.flags):]
-        ratio = _overflow_ratio(int_flags, ctx.flag_caps)
-        self._last_join_ratios = [
-            f / max(c, 1)
-            for f, c, k in zip(int_flags, ctx.flag_caps, ctx.flag_kinds)
-            if k == "join"]
-        self._last_shrink = [
-            (f, c) for f, c, k in zip(int_flags, ctx.flag_caps, ctx.flag_kinds)
-            if k == "shrink"]
         self.metrics = {(oid, lbl): v for (oid, lbl, _v), v
                         in zip(ctx.metrics, metric_vals)}
-        return _slice_to_host(out, n_rows), ratio
+        return _slice_to_host(out, n_rows), \
+            self._note_flags(int_flags, ctx.flag_caps, ctx.flag_kinds)
+
+    def _note_flags(self, int_flags: List[int], caps: List[int],
+                    kinds: List[str]) -> float:
+        """Keep the per-join and per-shrink overflows for the adaptive
+        retry; returns the worst overflow ratio."""
+        self._last_join_ratios = [
+            f / max(c, 1) for f, c, k in zip(int_flags, caps, kinds)
+            if k == "join"]
+        self._last_shrink = [
+            (f, c) for f, c, k in zip(int_flags, caps, kinds)
+            if k == "shrink"]
+        return _overflow_ratio(int_flags, caps)
 
     def explain_string(self) -> str:
         s = "== Analyzed Logical Plan ==\n" + self.analyzed.tree_string()

@@ -125,8 +125,22 @@ class SparkSession:
         # the pre-adaptation plan key — later executions of the same query
         # shape start at the factor that worked
         self._adapted_factors: Dict[str, Any] = {}
+        # device memory accounting: queries reserve their static bytes
+        # before dispatch; the stage cache's graphs are its storage, and
+        # pressure evicts the least recently used of them
+        from ..memory import MemoryManager
+        from .stagecompile import stage_cache
+        self._memory = MemoryManager(self.conf_obj, self.device)
+        self._memory.set_eviction_callback(
+            lambda nbytes: stage_cache().evict(self._memory, nbytes))
         # pyspark semantics: constructing a session makes it the active one
         SparkSession._active = self
+
+    @property
+    def memoryManager(self):
+        """Device execution/storage accounting (UnifiedMemoryManager
+        analog)."""
+        return self._memory
 
     @property
     def version(self) -> str:
@@ -252,6 +266,10 @@ class SparkSession:
                               "comment": comments})
         if isinstance(cmd, P.SetCommand):
             if cmd.key is not None and cmd.value is not None:
+                # a planning entry is part of every stage key
+                # (serving/plancache.py PLANNING_CONF_ENTRIES): entries
+                # built under the old value are unreachable from now on
+                # and age out of the LRU
                 self.conf.set(cmd.key, cmd.value)
             key = cmd.key if cmd.key is not None else ""
             value = str(self.conf.get(cmd.key, "<undefined>")) \

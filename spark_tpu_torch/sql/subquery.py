@@ -26,6 +26,7 @@ own scope is pulled up to the join level.
 from __future__ import annotations
 
 import itertools
+import threading
 from typing import List, Tuple
 
 from ..expressions import (
@@ -36,11 +37,18 @@ from .logical import (
     Aggregate, Distinct, Filter, Join, LogicalPlan, Project, SubqueryAlias,
 )
 
-_fresh = itertools.count()
+class _FreshNames(threading.local):
+    #: numbers the fresh names of ONE top-level rewrite from 0, so the
+    #: same query text analyzes to the same plan each time it runs (and
+    #: so to one stage-cache entry); nested rewrites share it
+    counter = None
+
+
+_fresh = _FreshNames()
 
 
 def _fresh_name(base: str) -> str:
-    return f"__sq{next(_fresh)}_{base}"
+    return f"__sq{next(_fresh.counter)}_{base}"
 
 
 # ---------------------------------------------------------------------------
@@ -414,6 +422,19 @@ def _rewrite_scalar(child: LogicalPlan, sub: LogicalPlan
 # ---------------------------------------------------------------------------
 
 def rewrite_subqueries(plan: LogicalPlan, resolve) -> LogicalPlan:
+    """Rewrite every subquery expression in Filter conditions (see
+    ``_rewrite_subqueries``); the top-level call numbers its fresh names
+    from 0."""
+    if _fresh.counter is not None:
+        return _rewrite_subqueries(plan, resolve)
+    _fresh.counter = itertools.count()
+    try:
+        return _rewrite_subqueries(plan, resolve)
+    finally:
+        _fresh.counter = None
+
+
+def _rewrite_subqueries(plan: LogicalPlan, resolve) -> LogicalPlan:
     """Rewrite every subquery expression in Filter conditions.
 
     `resolve` is called on each nested subquery plan first (catalog/view

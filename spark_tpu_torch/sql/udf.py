@@ -34,7 +34,7 @@ from ..expressions import (
 )
 
 __all__ = ["PythonUDF", "UnresolvedFunction", "UDFRegistration", "make_udf",
-           "HOST_COPIES"]
+           "HOST_COPIES", "plan_has_slow_udf"]
 
 _EPOCH_DATE = datetime.date(1970, 1, 1)
 _EPOCH_TS = datetime.datetime(1970, 1, 1)
@@ -101,6 +101,23 @@ def to_device_once(arrays: Sequence[np.ndarray], device) -> List[torch.Tensor]:
 
 
 _udf_uid = itertools.count()
+
+
+def plan_has_slow_udf(plan) -> bool:
+    """Any row-lane (non-vectorized) PythonUDF anywhere in a logical
+    plan's expressions?  Its lane copies to the host in the middle of the
+    plan, so such a plan runs on the eager lane, never captured (the
+    BatchEvalPythonExec stage-break analog, paid per query)."""
+    def expr_has(e: Expression) -> bool:
+        if isinstance(e, PythonUDF) and not e.vectorized:
+            return True
+        return any(expr_has(c) for c in e.children)
+
+    def walk(node) -> bool:
+        if any(expr_has(e) for e in node.expressions()):
+            return True
+        return any(walk(c) for c in node.children)
+    return walk(plan)
 
 
 def _check_ret_type(ret_type: T.DataType) -> None:
@@ -215,6 +232,7 @@ def make_udf(fn: Callable, returnType, vectorized: bool = False,
     wrapper.fn = fn
     wrapper.returnType = rt
     wrapper._vectorized = vectorized
+    wrapper.uid = uid
     return wrapper
 
 
