@@ -78,12 +78,33 @@ without printing a result:
    its plain version's time and the one-call
    ``transpose(0, 1).contiguous()`` yardstick on the same bytes
    pre-stacked (which the port never calls), per call and back to back;
-9. a ``{"kernels": [...]}`` line (each kernel's ``sql_launches``: its
-   launches in the SQL phase's counted run; K1's ``captured_launches``:
-   those of its launches made while a graph was captured, and
-   ``replayed_launches``: its launches the profiler saw in one replay of
-   each hash-agg query), the card line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+9. server — ``SQLServer`` on the card session, on an ephemeral port of
+   127.0.0.1, its root session holding the hash-agg table and q3's
+   tables at SF1 row counts as temp views (each server session sees the
+   same plans): four client threads, each on its own server session,
+   POST two rounds of the SQL phase's statements; every reply equals its
+   numpy oracle and every cacheable round-2 reply is a plan-cache hit;
+   per statement the HTTP walls of each round (p50, p90),
+   ``planningSkippedMs`` and the host launch calls of a hit; one client
+   alone, a miss's and five hits' HTTP walls; a hit in process in turns
+   with the stage cache alone; then a literal variant that builds
+   nothing, a SET of a planning conf that invalidates, a 429 over
+   ``maxConcurrentStatements``, a cancelled queued statement that never
+   runs, a mesh statement (K2's count rises, its repeat hits) and every
+   evicted graph's bytes back on the card;
+10. tpcds — the port's TPC-DS tables (``spark_tpu_torch/tpcds``, at
+    ``TPCDS_SF_ROWS``) in the root session and in sqlite (answering on
+    ``ORACLE_THREADS`` connections at once); each of the 66
+    ported texts POSTed twice, held against sqlite by the rule of
+    ``tests/test_tpcds.py``, each repeat a hit; the 33 others refused,
+    naming their construct and slice;
+11. a ``{"kernels": [...]}`` line (each kernel's ``sql_launches``: its
+   launches in the SQL phase's counted run; ``server_launches``: K1's
+   in the four clients' two rounds, K2's in the two mesh statements,
+   each counted from 0 just before that run; K1's ``captured_launches``: those of its
+   launches made while a graph was captured, and ``replayed_launches``:
+   its launches the profiler saw in one replay of each hash-agg query),
+   the card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Every profile line gives, beside the largest kernels, each hand-written
 kernel's own device time, its launches and its share of the run's
@@ -318,18 +339,27 @@ PROFILE_PAD_S = 0.05
 
 def kernel_device_ms(fn, name, reps=20, attempts=3):
     """Mean device time of the kernel named ``name`` over ``reps`` calls,
-    from ``torch.profiler`` (the kernel alone: no wrapper, no fill).  A
-    profile that saw fewer than ``reps`` launches is taken again, at most
-    ``attempts`` times in all, and each short one is printed."""
+    from ``torch.profiler`` (the kernel alone: no wrapper, no fill).  In
+    each profile the timed launches sit between two marker kernels (a
+    one-element fill), inside ``PROFILE_PAD_S`` of idle at both ends:
+    kineto has dropped the record at a window's edge (PERF.md §6), and
+    the markers take those places.  One profile must see all ``reps``
+    launches; a profile that saw fewer is printed with its device
+    records in order and taken again, at most ``attempts`` times in
+    all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    marker = torch.zeros(1, device="cuda")
     fn()
+    marker.fill_(1.0)
     torch.cuda.synchronize()
     for attempt in range(1, attempts + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             time.sleep(PROFILE_PAD_S)
+            marker.fill_(1.0)
             for _ in range(reps):
                 fn()
+            marker.fill_(1.0)
             torch.cuda.synchronize()
             time.sleep(PROFILE_PAD_S)
         hits = [(getattr(e, "self_device_time_total",
@@ -340,8 +370,15 @@ def kernel_device_ms(fn, name, reps=20, attempts=3):
         us, count = sum(h[0] for h in hits), sum(h[1] for h in hits)
         if count == reps:
             return us / count / 1e3
+        records = sorted((e.time_range.start, e.name) for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA)
+        seq = "".join("K" if name in n else "m" if "FillFunctor" in n
+                      else "?" for _t, n in records)
         print(f"[profile] attempt {attempt}: the profiler saw {count} "
-              f"launches of {name}, expected {reps}", flush=True)
+              f"launches of {name}, expected {reps}; device records in "
+              f"order (K the kernel, m a marker): {seq}; others "
+              f"{sorted({n[:80] for _t, n in records if name not in n and 'FillFunctor' not in n})}",
+              flush=True)
     check(False, f"profiler saw {count} launches of {name}, expected "
           f"{reps}, in each of {attempts} profiles")
 
@@ -799,6 +836,33 @@ def phase_sql(session, hash_df, hash_table, q3_df, tables, k1_entries):
     return k2
 
 
+def host_split(session, plan):
+    """Median host ms of each step before a replay: analysis,
+    optimization, planning (each on the previous step's output) and the
+    stage key."""
+    from spark_tpu_torch.sql.planner import QueryExecution, stage_key
+    qe = QueryExecution(session, plan)
+    analyzed, optimized, planned = qe.analyzed, qe.optimized, qe.planned
+
+    def step(**done):
+        def run():
+            q = QueryExecution(session, plan)
+            for k, v in done.items():
+                setattr(q, k, v)
+            return q
+        return run
+
+    return {
+        "analyze": host_ms(lambda: step()().analyzed, warmup=1, reps=5),
+        "optimize": host_ms(lambda: step(_analyzed=analyzed)().optimized,
+                            warmup=1, reps=5),
+        "plan": host_ms(lambda: step(_optimized=optimized)().planned,
+                        warmup=1, reps=5),
+        "stage key": host_ms(lambda: stage_key(session, planned),
+                             warmup=1, reps=5),
+    }
+
+
 LANES = {"eager": {"spark.sql.codegen.wholeStage": "false"},
          "per-op": {"spark.tpu.stage.fusion": "false"},
          "graph": {}}
@@ -846,7 +910,6 @@ def phase_stage(session, hash_df, hash_table, q3_df, tables):
     from spark_tpu_torch.sql import functions as F
     from spark_tpu_torch.sql.planner import (QueryExecution,
                                              _plan_reserve_bytes)
-    from spark_tpu_torch.sql import stagecompile as SC
     from spark_tpu_torch.sql.stagecompile import stage_cache
     from spark_tpu_torch.testing import (HASH_AGG_SQL, Q3_SQL,
                                          assert_parts_equal, batch_parts,
@@ -884,6 +947,8 @@ def phase_stage(session, hash_df, hash_table, q3_df, tables):
                after["variants"], after["guard_misses"]) == (1, 1, 1, 1, 0),
               f"[stage] {name}: replays built again: {after}")
         variant = entry.variants[-1]
+        check(variant.pool_bytes > 0, f"[stage] {name}: no segment of the "
+              "graph's private pool in the allocator's snapshot")
         reserve = _plan_reserve_bytes(
             QueryExecution(session, df._plan).planned)
         print(f"[stage] {name}: build (warm-up + capture) "
@@ -927,18 +992,17 @@ def phase_stage(session, hash_df, hash_table, q3_df, tables):
               f"{prof['per-op']['busy']:.1%}, graph "
               f"{prof['graph']['busy']:.1%}", flush=True)
 
-        # the host's share of a replayed query: planning (analyze,
-        # optimize, plan) and the stage key, each per query
+        # the host's share of a replayed query: analysis, optimization,
+        # planning and the stage key, each per query.  A serving plan-cache
+        # hit skips the last two (its fingerprint is taken after the
+        # optimizer)
         _lane(session, "graph")
-        pq = QueryExecution(session, df._plan).planned
-        plan_ms = host_ms(lambda: QueryExecution(session, df._plan).planned,
-                          warmup=1, reps=5)
-        key_ms = host_ms(lambda: (
-            SC.stage_fingerprint(pq.physical), SC.leaf_signature(pq.leaves),
-            SC._conf_component(session)), warmup=1, reps=5)
-        print(f"[stage] {name}: host time per query, median of 5: analyze + "
-              f"optimize + plan {plan_ms:.3f} ms, stage key {key_ms:.3f} ms",
-              flush=True)
+        split = host_split(session, df._plan)
+        print(f"[stage] {name}: host time per query, median of 5: analyze "
+              f"{split['analyze']:.3f} ms, optimize {split['optimize']:.3f} "
+              f"ms, plan {split['plan']:.3f} ms (analyze + optimize + plan "
+              f"{split['analyze'] + split['optimize'] + split['plan']:.3f} "
+              f"ms), stage key {split['stage key']:.3f} ms", flush=True)
 
         # walls in turns
         walls = []
@@ -1207,6 +1271,555 @@ def phase_mesh(session, hash_df, hash_table, q3_df, tables):
     return captured, launches
 
 
+# ---------------------------------------------------------------------------
+# [server] and [tpcds]: the SQL server on the card
+# ---------------------------------------------------------------------------
+
+SERVER_CLIENTS = 4
+
+#: rows of store_sales in the [tpcds] phase (the other tables scale off
+#: it, as in ``spark_tpu_torch/tpcds/datagen.py``): the largest scale
+#: ``tools/tpcds_scale.py`` showed to keep the whole script within about
+#: three minutes on the card (the tests' scale is 20,000)
+TPCDS_SF_ROWS = 50_000
+
+#: sqlite connections the [tpcds] oracle runs its texts on at once
+ORACLE_THREADS = 4
+
+#: the TPC-DS texts the port runs from SQL (a copy of
+#: ``tests/test_torch_parser.py``'s list: this script imports no test)
+PORTED_QUERIES = (
+    "q3 q7 q13 q21 q25 q26 q28 q29 q31 q34 q37 q40 q42 q43 q46 q48 q50 q52 "
+    "q55 q59 q61 q64 q65 q68 q72 q73 q82 q84 q88 q90 q93 q96 q97 "
+    "q1 q4 q6 q9 q10 q11 q14 q16 q23 q30 q32 q33 q35 q38 q41 q45 q54 q56 "
+    "q58 q60 q66 q69 q71 q74 q75 q76 q81 q83 q87 q91 q92 q94 q95").split()
+
+#: the other 33: the construct each reaches first, and the slice's word
+EXCLUDED_QUERIES = {
+    **{q: ("OVER", "window") for q in
+       "q12 q20 q47 q51 q53 q57 q63 q89 q98".split()},
+    **{q: ("rank", "window") for q in "q44 q49 q67".split()},
+    **{q: ("ROLLUP", "grouping sets") for q in "q5 q18 q22 q77 q80".split()},
+    **{q: ("grouping", "grouping sets") for q in "q27 q36 q70 q86".split()},
+    **{q: ("substr", "string functions") for q in
+       "q8 q15 q19 q62 q79 q85 q99".split()},
+    **{q: ("round", "math functions") for q in "q2 q78".split()},
+    **{q: ("stddev_samp", "statistical aggregates") for q in
+       "q17 q39".split()},
+    "q24": ("upper", "string functions"),
+}
+
+
+def _http(port, path, method="GET", body=None):
+    """(HTTP status, JSON reply, wall ms) of one request to the server on
+    127.0.0.1."""
+    import urllib.error
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=data, method=method)
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=900) as r:
+            status, raw = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, raw = e.code, e.read()
+    return status, json.loads(raw), (time.perf_counter() - t0) * 1e3
+
+
+def _wait_for(cond, what, timeout_s=30.0):
+    """Poll ``cond`` until it holds; fail after ``timeout_s``."""
+    end = time.monotonic() + timeout_s
+    while not cond():
+        check(time.monotonic() < end, f"[server] timed out waiting for "
+              f"{what}")
+        time.sleep(0.01)
+
+
+def _json_rows(rows):
+    """Oracle rows in the server's JSON form."""
+    from spark_tpu_torch.server import _json_safe
+    return [[_json_safe(v) for v in r] for r in rows]
+
+
+def _pct(values, q):
+    import numpy as np
+    return float(np.percentile(np.asarray(values, dtype=np.float64), q))
+
+
+def _share_root(session, server_session):
+    """The root session's temp views and UDFs in a server session: the
+    same plans and function objects, so statements over them share plan
+    fingerprints across sessions (the stand-in for persistent tables,
+    which come with the scan slice)."""
+    for name in session.catalog.listTables():
+        server_session.catalog.register(name, session.catalog.lookup(name))
+    for name in session.catalog.listFunctions():
+        server_session.catalog.register_function(
+            name, session.catalog.lookup_function(name))
+
+
+def phase_server(session, hash_table, tables, k1_entries, k2_entry, card):
+    """``SQLServer`` on the card session, on an ephemeral port of
+    127.0.0.1: four client threads, each on its own server session, POST
+    two rounds of the SQL phase's statements; then a literal variant,
+    one SET of a planning conf, one statement over
+    ``maxConcurrentStatements``, one cancelled queued statement, one
+    mesh statement and an evicted graph's pool back on the card.
+    Returns the server, for the [tpcds] phase."""
+    import threading
+
+    import torch
+    from spark_tpu_torch import config as C
+    from spark_tpu_torch import cuda_a2a, cuda_agg
+    from spark_tpu_torch.server import SQLServer
+    from spark_tpu_torch.sql.stagecompile import stage_cache
+    from spark_tpu_torch.testing import (HASH_AGG_SQL, Q3_SQL, SQL_QUERIES,
+                                         hash_agg_oracle, q3_oracle)
+
+    srv = SQLServer(session, host="127.0.0.1", port=0,
+                    workers=SERVER_CLIENTS).start()
+    port = srv.port
+    print(f"[server] SQLServer on http://127.0.0.1:{port} ({session.device},"
+          f" {SERVER_CLIENTS} workers)", flush=True)
+    queries = [("hash-agg", HASH_AGG_SQL,
+                lambda t: hash_agg_oracle(hash_table), False),
+               ("q3", Q3_SQL, q3_oracle, True)]
+    queries += [(name, sql, oracle, ordered)
+                for name, (sql, oracle, ordered) in SQL_QUERIES.items()]
+    want = {name: _json_rows(oracle(tables))
+            for name, _s, oracle, _o in queries}
+    ordered = {name: o for name, _s, _f, o in queries}
+    #: the row-lane UDF statement runs on the eager lane: nothing cached
+    uncacheable = {"UDF row"}
+
+    def equal(name, rows):
+        if ordered[name]:
+            return rows == want[name]
+        return sorted(rows, key=repr) == sorted(want[name], key=repr)
+
+    sids = []
+    for _ in range(SERVER_CLIENTS):
+        status, body, _ms = _http(port, "/session", "POST")
+        check(status == 200, f"[server] POST /session: {status} {body}")
+        sids.append(body["sessionId"])
+        _share_root(session, srv._sessions[body["sessionId"]].session)
+
+    # the main path's run: counts zeroed just before, read just after
+    clear_stage_cache()
+    zero_counts()
+    replies = {(c, r): {} for c in range(SERVER_CLIENTS) for r in (1, 2)}
+    barrier = threading.Barrier(SERVER_CLIENTS)
+    errors = []
+
+    def client(c):
+        try:
+            for rnd in (1, 2):
+                barrier.wait()
+                for name, sql, _o, _d in queries:
+                    replies[(c, rnd)][name] = _http(
+                        port, "/sql", "POST",
+                        {"query": sql, "session": sids[c]})
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVER_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    rounds_s = time.perf_counter() - t0
+    check(not errors, f"[server] client threads failed: {errors}")
+    k1_server = dict(cuda_agg.ENTRY_LAUNCHES)
+    for (c, rnd), by_name in replies.items():
+        for name, (status, body, _ms) in by_name.items():
+            check(status == 200, f"[server] client {c} round {rnd} {name}: "
+                  f"HTTP {status} {str(body)[:300]}")
+            check(equal(name, body["rows"]), f"[server] client {c} round "
+                  f"{rnd} {name}: rows differ from the numpy oracle (first "
+                  f"{body['rows'][:2]} vs {want[name][:2]})")
+            if rnd == 2 and name not in uncacheable:
+                check(body["cacheHit"] is True, f"[server] client {c} "
+                      f"round 2 {name}: not a plan-cache hit")
+    check(k1_server["grouped_accumulate_columns"] > 0,
+          f"[server] K1 was not launched through /sql: {k1_server}")
+    for entry in k1_entries:
+        entry["server_launches"] = k1_server[entry["name"]]
+    print(f"[server] {SERVER_CLIENTS} clients x 2 rounds x {len(queries)} "
+          f"statements in {rounds_s:.2f} s: every reply equal to its numpy "
+          f"oracle; every round-2 reply a plan-cache hit (but "
+          f"{', '.join(sorted(uncacheable))}: the row-lane UDF runs "
+          f"eager, uncacheable); K1 wrapper launches through /sql "
+          f"{k1_server}; captures and pool releases waited for one "
+          f"another {stage_cache().stats()['capture_waits']} times",
+          flush=True)
+    for name, sql, _o, _d in queries:
+        walls = {rnd: [replies[(c, rnd)][name][2]
+                       for c in range(SERVER_CLIENTS)] for rnd in (1, 2)}
+        hits1 = sum(replies[(c, 1)][name][1]["cacheHit"]
+                    for c in range(SERVER_CLIENTS))
+        skipped = [replies[(c, 2)][name][1]["planningSkippedMs"]
+                   for c in range(SERVER_CLIENTS)]
+        server_ms = [replies[(c, 2)][name][1]["durationMs"]
+                     for c in range(SERVER_CLIENTS)]
+        print(f"[server] {name}: {len(want[name])} rows; HTTP wall round 1 "
+              f"p50 {_pct(walls[1], 50):.2f} ms p90 {_pct(walls[1], 90):.2f}"
+              f" ms ({hits1} of {SERVER_CLIENTS} hits: another session had "
+              f"built it); round 2 p50 {_pct(walls[2], 50):.2f} ms p90 "
+              f"{_pct(walls[2], 90):.2f} ms (durationMs p50 "
+              f"{_pct(server_ms, 50):.2f}); planningSkippedMs p50 "
+              f"{_pct(skipped, 50):.1f}", flush=True)
+    # where a hit's time goes, once per statement: the same call the
+    # server makes, in this thread, through a server session
+    ss = srv._sessions[sids[0]].session
+    for name, sql, _o, _d in queries:
+        ss.sql(sql).collect()
+        prof = profile_query(f"server {name} (plan-cache hit)",
+                             lambda: ss.sql(sql).collect())
+        check(name in uncacheable or ss._last_plan_cache_info["hit"],
+              f"[server] {name}: the profiled run was not a hit")
+        print(f"[server] {name}: host launch calls on the graph lane "
+              f"{prof['host_launch_calls']} (plan-cache hit)", flush=True)
+    # one client alone: a statement's miss (plan, build) and its hits
+    for name, sql in (("hash-agg", HASH_AGG_SQL), ("q3", Q3_SQL)):
+        srv._plan_cache.invalidate_all()
+        clear_stage_cache()
+        runs = [_http(port, "/sql", "POST", {"query": sql, "session": sids[0]})
+                for _ in range(6)]
+        check([r[1]["cacheHit"] for r in runs] == [False] + [True] * 5,
+              f"[server] {name} alone: hits {[r[1]['cacheHit'] for r in runs]}")
+        hits = [r[2] for r in runs[1:]]
+        print(f"[server] {name}, one client alone: HTTP wall of the miss "
+              f"(plan, warm-up, capture) {runs[0][2]:.2f} ms, of 5 hits p50 "
+              f"{_pct(hits, 50):.2f} ms p90 {_pct(hits, 90):.2f} ms "
+              f"(durationMs p50 {_pct([r[1]['durationMs'] for r in runs[1:]], 50):.2f})",
+              flush=True)
+
+    # what a hit saves on the host: the same statement in turns without
+    # the plan cache (the stage cache alone) and through it
+    from spark_tpu_torch.serving.plancache import fingerprint
+    from spark_tpu_torch.sql.planner import QueryExecution
+    plain = session.newSession()
+    _share_root(session, plain)
+    for name, sql in (("hash-agg", HASH_AGG_SQL), ("q3", Q3_SQL)):
+        walls = [wall_ms(lambda: s_.sql(sql).collect())
+                 for s_ in (plain, ss, ss, plain)]
+        check(ss._last_plan_cache_info["hit"], f"[server] {name}: the "
+              "in-process run through the server session was not a hit")
+        optimized = QueryExecution(ss, ss.sql(sql)._plan).optimized
+        fp_ms = host_ms(lambda: fingerprint(ss, optimized), warmup=1,
+                        reps=5)
+        print(f"[server] {name}: in-process warm wall with the decode, "
+              f"median of 5, in turns stage cache alone, plan-cache hit, "
+              f"hit, stage cache alone: "
+              f"{', '.join(f'{w:.2f}' for w in walls)} ms; the hit's "
+              f"fingerprint {fp_ms:.3f} ms of host time", flush=True)
+    status, st, _ms = _http(port, "/status")
+    check(status == 200, f"[server] GET /status: {status}")
+    print(f"[server] /status planCache {st['planCache']}; stageCache "
+          f"{st['stageCache']}; serving gauges {st['metrics']['serving']}",
+          flush=True)
+
+    # one literal variant: v < 50 builds (once, in whichever session came
+    # first), v < 80 builds no new entry
+    text = ("SELECT k, SUM(v) AS s, COUNT(*) AS c FROM hash_t WHERE v < {} "
+            "GROUP BY k")
+    variant = {}
+    for bound in (50, 80):
+        before = (srv._plan_cache.stats(), stage_cache().stats())
+        got = [_http(port, "/sql", "POST",
+                     {"query": text.format(bound), "session": sid})
+               for sid in sids]
+        after = (srv._plan_cache.stats(), stage_cache().stats())
+        oracle = _json_rows(_grouped_oracle(hash_table,
+                                            hash_table["v"] < bound))
+        for status, body, _ms in got:
+            check(status == 200 and sorted(body["rows"]) == oracle,
+                  f"[server] v < {bound}: differs from the numpy oracle")
+        variant[bound] = (after[0]["entries"] - before[0]["entries"],
+                          after[1]["builds"] - before[1]["builds"],
+                          sum(b["cacheHit"] for _s, b, _m in got))
+    check(variant[80] == (0, 0, SERVER_CLIENTS),
+          f"[server] the literal variant v < 80 built: {variant}")
+    print(f"[server] literal variant: v < 50 new plan entries, stage builds,"
+          f" hits {variant[50]}; v < 80 {variant[80]} (no new entry, every "
+          "session a hit); both equal to the oracle", flush=True)
+
+    # one SET of a planning conf: invalidates, and the next run misses
+    before = srv._plan_cache.stats()["invalidations"]
+    status, body, _ms = _http(port, "/sql", "POST", {
+        "query": "SET spark.sql.join.outputCapacityFactor=1.5",
+        "session": sids[0]})
+    check(status == 200, f"[server] SET: {status} {body}")
+    invalidated = srv._plan_cache.stats()["invalidations"] - before
+    status, body, _ms = _http(port, "/sql", "POST",
+                              {"query": Q3_SQL, "session": sids[0]})
+    check(invalidated > 0 and status == 200 and body["cacheHit"] is False
+          and body["rows"] == want["q3"],
+          f"[server] SET did not invalidate ({invalidated}) or q3 after it "
+          f"hit / differs: {str(body)[:300]}")
+    _http(port, "/sql", "POST", {
+        "query": "SET spark.sql.join.outputCapacityFactor=1.0",
+        "session": sids[0]})
+    print(f"[server] SET spark.sql.join.outputCapacityFactor=1.5: "
+          f"{invalidated} entries invalidated; q3 after it missed and "
+          "equals the oracle", flush=True)
+
+    # one statement over maxConcurrentStatements: 429 naming the limit
+    session.conf.set(C.SERVER_MAX_CONCURRENT_STATEMENTS.key, "1")
+    wedged = srv._sessions[sids[1]]
+    wedged.lock.acquire()
+    held = {}
+    try:
+        th = threading.Thread(target=lambda: held.update(r=_http(
+            port, "/sql", "POST", {"query": "SELECT 1 AS one",
+                                   "session": sids[1]})))
+        th.start()
+        _wait_for(lambda: srv._admission.stats()["active"] == 1,
+                  "the wedged statement's admission")
+        status, body, _ms = _http(port, "/sql", "POST", {
+            "query": "SELECT 2 AS two", "session": sids[2]})
+    finally:
+        wedged.lock.release()
+    th.join()
+    session.conf.unset(C.SERVER_MAX_CONCURRENT_STATEMENTS.key)
+    check(status == 429 and body.get("limit") == "maxConcurrentStatements",
+          f"[server] over the cap: {status} {body}")
+    check(held["r"][0] == 200 and held["r"][1]["rows"] == [[1]],
+          f"[server] the admitted statement: {held}")
+    print(f"[server] over maxConcurrentStatements=1: HTTP {status} "
+          f"{body['error']}", flush=True)
+
+    # one cancelled queued statement never runs
+    wedged = srv._sessions[sids[3]]
+    runs_before = wedged.session._query_count
+    codes = {}
+    wedged.lock.acquire()
+    try:
+        head = threading.Thread(target=lambda: codes.update(head=_http(
+            port, "/sql", "POST", {"query": "SELECT 3 AS three",
+                                   "session": sids[3], "id": "smoke-head"})))
+        head.start()
+        # queued, then taken by the session's drainer (``draining`` is
+        # set as the head is queued), which waits on the wedged lock
+        _wait_for(lambda: "smoke-head" in srv._statements
+                  and wedged.draining and not any(
+                      item[0].id == "smoke-head"
+                      for item in list(wedged.queue)),
+                  "the head statement on the session's worker")
+        tail = threading.Thread(target=lambda: codes.update(tail=_http(
+            port, "/sql", "POST", {"query": Q3_SQL, "session": sids[3],
+                                   "id": "smoke-tail"})))
+        tail.start()
+        _wait_for(lambda: any(item[0].id == "smoke-tail"
+                              for item in list(wedged.queue)),
+                  "the tail statement in the session's queue")
+        status, body, _ms = _http(port, "/cancel", "POST",
+                                  {"id": "smoke-tail"})
+        tail.join()
+    finally:
+        wedged.lock.release()
+    head.join()
+    ran = wedged.session._query_count - runs_before
+    _s, stmt, _ms = _http(port, "/statement/smoke-tail")
+    check(status == 200 and body["status"] == "cancelled"
+          and codes["tail"][0] == 499 and codes["head"][0] == 200
+          and ran == 1 and stmt["status"] == "cancelled",
+          f"[server] queued cancel: {body}, tail {codes.get('tail')}, "
+          f"statements run {ran}")
+    print(f"[server] a queued statement cancelled: HTTP "
+          f"{codes['tail'][0]}, status {stmt['status']}; the session ran "
+          f"{ran} statement (the head)", flush=True)
+
+    # one mesh statement: K2 launches, and its repeat is a hit
+    sid = sids[0]
+    _http(port, "/sql", "POST", {"query": f"SET {SHARDS_KEY}={MESH_SHARDS}",
+                                 "session": sid})
+    mesh = []
+    # the mesh statements' run: counts zeroed just before, read just after
+    zero_counts()
+    for _ in range(2):
+        before = cuda_a2a.LAUNCHES
+        status, body, ms = _http(port, "/sql", "POST",
+                                 {"query": Q3_SQL, "session": sid})
+        mesh.append((status, body, cuda_a2a.LAUNCHES - before, ms))
+    k2_entry["server_launches"] = cuda_a2a.LAUNCHES
+    _http(port, "/sql", "POST", {"query": f"SET {SHARDS_KEY}=1",
+                                 "session": sid})
+    for status, body, k2, _ms in mesh:
+        check(status == 200 and body["rows"] == want["q3"] and k2 > 0,
+              f"[server] mesh q3: HTTP {status}, K2 launches {k2}, rows "
+              f"{str(body)[:200]}")
+    check(mesh[1][1]["cacheHit"] is True, "[server] the mesh repeat was "
+          "not a hit")
+    print(f"[server] mesh q3 x{MESH_SHARDS}: K2 launches {mesh[0][2]} then "
+          f"{mesh[1][2]}; HTTP wall {mesh[0][3]:.2f} then {mesh[1][3]:.2f} ms;"
+          f" the repeat a plan-cache hit through run_staged; rows equal the "
+          "oracle", flush=True)
+
+    # an evicted graph's pool goes back to the card
+    torch.cuda.synchronize()
+    held_bytes = stage_cache().stats()["graph_bytes"]
+    pool_bytes = sum(v.pool_bytes for e in stage_cache().entries()
+                     for v in e.variants)
+    free0, total = torch.cuda.mem_get_info()
+    reserved0 = torch.cuda.memory_reserved()
+    # each entry is evicted through the memory manager it is charged to
+    # (the eviction callback's path); sessions charge their own
+    managers = {id(e.charged_to): e.charged_to
+                for e in stage_cache().entries() if e.charged_to is not None}
+    evicted = sum(stage_cache().evict(m, 1 << 62)
+                  for m in managers.values())
+    free1, _t = torch.cuda.mem_get_info()
+    reserved1 = torch.cuda.memory_reserved()
+    # the private pools' segments hold nothing else: all of them go back.
+    # A static input buffer may share a segment with a live tensor, so
+    # the card need not get every one of those bytes back
+    check(len(stage_cache()) == 0 and free1 - free0 >= pool_bytes,
+          f"[server] eviction returned {free1 - free0} B of the graph "
+          f"pools' {pool_bytes} B; {len(stage_cache())} entries left")
+    again = torch.empty(pool_bytes, dtype=torch.uint8, device="cuda")
+    again.fill_(1)
+    torch.cuda.synchronize()
+    free2, _t = torch.cuda.mem_get_info()
+    del again
+    print(f"[server] evicted every stage entry ({evicted} B charged: graph "
+          f"pools {pool_bytes} B + static inputs {held_bytes - pool_bytes} "
+          f"B): card free memory {free0} -> {free1} B (+{free1 - free0}), "
+          f"reserved {reserved0} -> {reserved1} B; a {pool_bytes} B tensor "
+          f"then allocated (card free {free2} B of {total} B) | {card}",
+          flush=True)
+    return srv
+
+
+def _tpcds_compare(got, exp):
+    """The rule of ``tests/test_tpcds.py``: rows sorted NULL-stably,
+    floats within rel_tol = abs_tol = 1e-6, everything else equal, each
+    side normalized by ``oracle.norm_value`` after ``_json_safe``."""
+    import math
+    from spark_tpu_torch.server import _json_safe
+    from spark_tpu_torch.tpcds.oracle import norm_value, row_key
+    got = sorted((tuple(norm_value(v) for v in r) for r in got),
+                 key=row_key)
+    exp = sorted((tuple(norm_value(_json_safe(v)) for v in r) for r in exp),
+                 key=row_key)
+    if len(got) != len(exp):
+        return f"{len(got)} rows != oracle {len(exp)}"
+    for i, (g, e) in enumerate(zip(got, exp)):
+        if len(g) != len(e):
+            return f"row {i}: arity {len(g)} != {len(e)}"
+        for j, (a, b) in enumerate(zip(g, e)):
+            if isinstance(a, float) and isinstance(b, float):
+                ok = math.isclose(a, b, rel_tol=1e-6, abs_tol=1e-6)
+            else:
+                ok = a == b
+            if not ok:
+                return f"row {i} col {j}: {a!r} != {b!r}"
+    return None
+
+
+def _sqlite_answers(tables, texts, threads=ORACLE_THREADS):
+    """sqlite's rows for each of ``texts`` ({name: SQL}): one database
+    loaded from ``tables``, copied into ``threads`` connections, the
+    texts run on them in parallel (sqlite lets go of the GIL while a
+    statement runs).  Returns ({name: rows}, seconds to load)."""
+    import queue
+    import sqlite3
+    from concurrent.futures import ThreadPoolExecutor
+
+    from spark_tpu_torch.tpcds.oracle import load_sqlite, sqlite_text
+    t0 = time.perf_counter()
+    src = sqlite3.connect(":memory:")
+    load_sqlite(src, tables)
+    free = queue.Queue()
+    for _ in range(threads):
+        con = sqlite3.connect(":memory:", check_same_thread=False)
+        src.backup(con)
+        free.put(con)
+    src.close()
+    load_s = time.perf_counter() - t0
+
+    def run(name):
+        con = free.get()
+        try:
+            return name, con.execute(sqlite_text(texts[name])).fetchall()
+        finally:
+            free.put(con)
+
+    with ThreadPoolExecutor(threads) as pool:
+        out = dict(pool.map(run, texts))
+    while not free.empty():
+        free.get().close()
+    return out, load_s
+
+
+def phase_tpcds(session, srv, sf_rows=TPCDS_SF_ROWS):
+    """The port's TPC-DS tables (its own ``datagen``) in the server's root
+    session and in sqlite; each ported text POSTed twice and held
+    against sqlite, each repeat a plan-cache hit; each other text
+    refused naming its construct and slice.  Returns the phase's
+    seconds by part."""
+    from spark_tpu_torch.tpcds import QUERIES, generate
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    tables = generate(sf_rows)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name, cols in tables.items():
+        session.createDataFrame(cols).createOrReplaceTempView(name)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    answers, sqlite_load_s = _sqlite_answers(
+        tables, {q: QUERIES[q] for q in PORTED_QUERIES})
+    oracle_s = time.perf_counter() - t0
+    print(f"[tpcds] sf_rows {sf_rows}: {len(tables)} tables made in "
+          f"{gen_s:.2f} s, moved to the card in {load_s:.2f} s; sqlite "
+          f"loaded in {sqlite_load_s:.2f} s and answered the "
+          f"{len(PORTED_QUERIES)} texts in {oracle_s - sqlite_load_s:.2f} s "
+          f"on {ORACLE_THREADS} threads", flush=True)
+    first, repeat = [], []
+    t0 = time.perf_counter()
+    for q in PORTED_QUERIES:
+        got = [_http(srv.port, "/sql", "POST", {"query": QUERIES[q]})
+               for _ in range(2)]
+        for status, body, _ms in got:
+            check(status == 200, f"[tpcds] {q}: HTTP {status} "
+                  f"{str(body)[:300]}")
+        check(len(answers[q]) > 0, f"[tpcds] {q}: the oracle returned no "
+              "rows")
+        for status, body, _ms in got:
+            why = _tpcds_compare(body["rows"], answers[q])
+            check(why is None, f"[tpcds] {q} differs from sqlite: {why}")
+        check(got[1][1]["cacheHit"] is True,
+              f"[tpcds] {q}: the repeat was not a plan-cache hit")
+        first.append(got[0][2])
+        repeat.append(got[1][2])
+    server_s = time.perf_counter() - t0
+    print(f"[tpcds] {len(PORTED_QUERIES)} ported texts, each POSTed twice "
+          f"in {server_s:.2f} s: all equal to sqlite, every repeat a "
+          f"plan-cache hit; HTTP wall first p50 {_pct(first, 50):.2f} ms "
+          f"p90 {_pct(first, 90):.2f} ms, repeat p50 {_pct(repeat, 50):.2f} "
+          f"ms p90 {_pct(repeat, 90):.2f} ms", flush=True)
+    for q, (construct, slice_word) in EXCLUDED_QUERIES.items():
+        status, body, _ms = _http(srv.port, "/sql", "POST",
+                                  {"query": QUERIES[q]})
+        error = body.get("error", "")
+        check(status == 400 and construct.lower() in error.lower()
+              and slice_word in error,
+              f"[tpcds] {q}: HTTP {status} {error[:300]}, expected a "
+              f"refusal naming {construct} and the {slice_word} slice")
+    print(f"[tpcds] {len(EXCLUDED_QUERIES)} other texts refused, each "
+          "naming its construct and slice", flush=True)
+    print(f"[tpcds] /status planCache {srv._plan_cache.stats()}", flush=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[tpcds] phase {phase_s:.2f} s at sf_rows {sf_rows}", flush=True)
+    return {"generate": gen_s, "to card": load_s, "oracle": oracle_s,
+            "server": server_s, "phase": phase_s}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1245,6 +1858,12 @@ def main() -> int:
                                        tables)
     k2_entry = phase_k2_check(captured, k2_launches)
     k2_entry["sql_launches"] = k2_sql_launches
+    srv = phase_server(session, hash_table, tables, k1_entries, k2_entry,
+                       card)
+    try:
+        phase_tpcds(session, srv)
+    finally:
+        srv.stop()
     session.stop()
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": k1_entries + [k2_entry]}))

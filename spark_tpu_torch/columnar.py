@@ -116,38 +116,91 @@ class ColumnVector:
     def to_pylist(self, row_valid: Optional[torch.Tensor] = None) -> List[Any]:
         """Decode to Python objects (None for NULL); for collect()."""
         data = self.data.cpu().numpy()
-        valid = np.ones(len(data), bool) if self.valid is None \
-            else self.valid.cpu().numpy()
-        if row_valid is not None:
-            sel = row_valid.cpu().numpy()
-            data, valid = data[sel], valid[sel]
-        out: List[Any] = []
-        dt = self.dtype
-        for i in range(len(data)):
-            if not valid[i]:
-                out.append(None)
-            elif dt.is_string or isinstance(dt, T.BinaryType):
-                code = int(data[i])
-                out.append(self.dictionary[code] if (self.dictionary is not None and 0 <= code < len(self.dictionary)) else None)
-            elif isinstance(dt, T.BooleanType):
-                out.append(bool(data[i]))
-            elif isinstance(dt, T.DecimalType):
-                out.append(float(data[i]) / (10 ** dt.scale))
-            elif isinstance(dt, T.DateType):
-                out.append(np.datetime64(int(data[i]), "D").astype("datetime64[D]").item())
-            elif isinstance(dt, T.TimestampType):
-                out.append(np.datetime64(int(data[i]), "us").item())
-            elif dt.is_fractional:
-                out.append(float(data[i]))
-            else:
-                out.append(int(data[i]))
-        return out
+        valid = None if self.valid is None else self.valid.cpu().numpy()
+        sel = None if row_valid is None else row_valid.cpu().numpy()
+        return decode_column(data, valid, sel, self.dtype, self.dictionary)
+
+
+def decode_column(data: np.ndarray, valid: Optional[np.ndarray],
+                  row_valid: Optional[np.ndarray], dt: T.DataType,
+                  dictionary: Optional[Tuple[str, ...]]) -> List[Any]:
+    """One host column as Python objects, by column with numpy: the
+    values and Python types ``spark_tpu/columnar.py``'s per-element loop
+    gives (``int``, ``float``, ``bool``, ``str``, ``datetime.date``,
+    ``datetime.datetime``; None for NULL), in one pass per column.  A
+    decimal keeps that loop's two roundings, ``float(unscaled) /
+    10**scale``, so it is bit-equal."""
+    if row_valid is not None:
+        data = data[row_valid]
+        valid = None if valid is None else valid[row_valid]
+    if dt.is_string or isinstance(dt, T.BinaryType):
+        words = np.empty(len(dictionary or ()) + 1, dtype=object)
+        words[:-1] = dictionary or ()          # last slot: None
+        codes = data.astype(np.int64)
+        codes = np.where((codes >= 0) & (codes < len(words) - 1), codes,
+                         len(words) - 1)
+        values = words[codes]
+    elif isinstance(dt, T.BooleanType):
+        values = data.astype(bool)
+    elif isinstance(dt, T.DecimalType):
+        values = data.astype(np.float64) / np.float64(10 ** dt.scale)
+    elif isinstance(dt, T.DateType):
+        values = data.astype(np.int64).astype("datetime64[D]")
+    elif isinstance(dt, T.TimestampType):
+        values = data.astype(np.int64).astype("datetime64[us]")
+    else:
+        values = data               # ints and floats: tolist() gives Python's
+    out = values.tolist()
+    if valid is not None:
+        for i in np.flatnonzero(~valid).tolist():
+            out[i] = None
+    return out
+
+
+def _byte_view(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.uint8)
+
+
+def pack_to_host(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Host copies of device ``tensors`` (1-D) in ONE device → host
+    transfer: their bytes gathered into one staging buffer on the device
+    (one concatenation, each part padded to 8 bytes so every host view
+    stays aligned), one ``non_blocking`` copy into pinned host memory,
+    one stream synchronize, then typed views sliced back out.
+
+    Each call owns its pinned buffer (from PyTorch's caching host
+    allocator) and the views keep it alive, so concurrent calls never
+    share one; the buffer goes back to the allocator with the last view.
+    Call it where the device tensors still hold what is wanted (a stage
+    entry's static outputs: under the entry's lock).  CPU tensors come
+    back as they are."""
+    if not tensors or tensors[0].device.type == "cpu":
+        return list(tensors)
+    parts, spans = [], []
+    offset = 0
+    for t in tensors:
+        b = _byte_view(t)
+        parts.append(b)
+        n = b.numel()
+        spans.append((offset, n, t.dtype, t.shape))
+        pad = -n % 8
+        if pad:
+            parts.append(torch.empty(pad, dtype=torch.uint8,
+                                     device=b.device))
+        offset += n + pad
+    staging = torch.cat(parts) if len(parts) > 1 else parts[0]
+    host = torch.empty(staging.numel(), dtype=torch.uint8, pin_memory=True)
+    host.copy_(staging, non_blocking=True)
+    torch.cuda.current_stream(staging.device).synchronize()
+    return [host[o:o + n].view(dt).view(shape) for o, n, dt, shape in spans]
 
 
 class ColumnBatch:
     """A fixed-capacity batch of columns plus a row-existence mask."""
 
-    __slots__ = ("names", "vectors", "row_valid", "capacity")
+    # _cache_uid: identity for plan cache keys (``sql/logical._batch_uid``),
+    # assigned on first use — ``id()`` could be recycled after GC
+    __slots__ = ("names", "vectors", "row_valid", "capacity", "_cache_uid")
 
     def __init__(self, names: Sequence[str], vectors: Sequence[ColumnVector],
                  row_valid: Optional[torch.Tensor], capacity: int):
@@ -271,14 +324,41 @@ class ColumnBatch:
         return self.to_device("cpu")
 
     # -- output -----------------------------------------------------------
+    def decoded_columns(self) -> Tuple[List[List[Any]], int]:
+        """Every column's live values as Python objects, and the number of
+        live rows: the batch comes to the host in one transfer
+        (``packed_host``), then each column is decoded by column
+        (``decode_column``)."""
+        host = self.packed_host()
+        rv = None if host.row_valid is None else host.row_valid.numpy()
+        cols = [decode_column(v.data.numpy(),
+                              None if v.valid is None else v.valid.numpy(),
+                              rv, v.dtype, v.dictionary)
+                for v in host.vectors]
+        return cols, (host.capacity if rv is None else int(rv.sum()))
+
     def to_pylist(self) -> List[tuple]:
         """Rows as tuples (collect() decode path)."""
-        rv = self.row_valid
-        cols = [v.to_pylist(rv) for v in self.vectors]
-        if not cols:
-            n = int(rv.sum()) if rv is not None else self.capacity
-            return [() for _ in range(n)]
-        return list(zip(*cols))
+        cols, n = self.decoded_columns()
+        return list(zip(*cols)) if cols else [() for _ in range(n)]
+
+    def packed_host(self, rows: Optional[int] = None) -> "ColumnBatch":
+        """The first ``rows`` rows (all, by default) of this batch on the
+        host, every column, mask and ``row_valid`` in one transfer."""
+        cap = self.capacity if rows is None else rows
+        tensors = []
+        for v in self.vectors:
+            tensors.append(v.data[:cap])
+            if v.valid is not None:
+                tensors.append(v.valid[:cap])
+        if self.row_valid is not None:
+            tensors.append(self.row_valid[:cap])
+        it = iter(pack_to_host(tensors))
+        vectors = [ColumnVector(next(it), v.dtype,
+                                None if v.valid is None else next(it),
+                                v.dictionary) for v in self.vectors]
+        rv = None if self.row_valid is None else next(it)
+        return ColumnBatch(self.names, vectors, rv, cap)
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"ColumnBatch({self.schema.simpleString()}, capacity={self.capacity})"

@@ -101,6 +101,9 @@ class Conf:
     def __init__(self, overrides: Optional[Dict[str, Any]] = None):
         self._overrides: Dict[str, Any] = dict(overrides or {})
 
+    def clone(self) -> "Conf":
+        return Conf(self._overrides)
+
     def set(self, key_or_entry, value: Any) -> "Conf":
         key = key_or_entry.key if isinstance(key_or_entry, ConfigEntry) else key_or_entry
         self._overrides[key] = value
@@ -229,3 +232,56 @@ METRICS_ENABLED = conf("spark.sql.metrics.enabled").doc(
     "Record per-operator output row counts (SQLMetrics analog). Adds one "
     "fetched scalar per operator to every query; off by default."
 ).boolean(False)
+
+
+# ---------------------------------------------------------------------------
+# The SQL server (server.py, serving/): the JAX package's entries and
+# defaults
+# ---------------------------------------------------------------------------
+
+SERVER_MAX_CONCURRENT_STATEMENTS = conf(
+    "spark.tpu.server.maxConcurrentStatements").doc(
+    "Global cap on statements admitted and not yet finished (queued + "
+    "running) across ALL server sessions.  Over the cap, POST /sql fails "
+    "fast with a structured 429 + Retry-After instead of queueing "
+    "unboundedly.  0 = unlimited."
+).int(0)
+
+SERVER_MAX_QUEUED_PER_SESSION = conf(
+    "spark.tpu.server.maxQueuedPerSession").doc(
+    "Cap on statements waiting on ONE server session's FIFO (running + "
+    "queued).  A client hammering a single busy session gets 429s once "
+    "its backlog is this deep.  0 = unlimited."
+).int(64)
+
+SERVER_STATEMENT_TIMEOUT = conf("spark.tpu.server.statementTimeout").doc(
+    "Per-statement deadline in SECONDS, riding the cooperative cancel "
+    "machinery: a statement still queued past its deadline is dropped, a "
+    "running one is cancelled at its next cancellation checkpoint "
+    "(before planning, between eager operators, before a graph "
+    "replay).  0 = no deadline."
+).float(0.0)
+
+SERVER_SESSION_TIMEOUT = conf("spark.tpu.server.sessionTimeout").doc(
+    "Idle server-session TTL in SECONDS: sessions with no activity for "
+    "this long are closed by the reaper.  0 = sessions never expire."
+).float(3600.0)
+
+SERVER_PLAN_CACHE_ENABLED = conf("spark.tpu.server.planCache.enabled").doc(
+    "Cross-session plan cache of the SQL server: optimized logical plans "
+    "are fingerprinted (literals slotted out) and each fingerprint keeps "
+    "its physical plan and its stage-cache entry (the captured CUDA "
+    "graph), shared across ALL server sessions."
+).boolean(True)
+
+SERVER_PLAN_CACHE_MAX_ENTRIES = conf(
+    "spark.tpu.server.planCache.maxEntries").doc(
+    "Entry bound of the serving plan cache (LRU beyond it)."
+).int(256)
+
+SERVER_PLAN_CACHE_MAX_BYTES = conf("spark.tpu.server.planCache.maxBytes").doc(
+    "Byte bound of the serving plan cache: an entry's host plan (a fixed "
+    "estimate per entry); its graph's device bytes are charged to the "
+    "memory manager by the stage cache."
+).int(256 << 20)
+

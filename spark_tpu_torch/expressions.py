@@ -321,11 +321,20 @@ class BinaryArithmetic(Expression):
     def _compute(self, a, b):
         raise NotImplementedError
 
-    def eval(self, ctx: EvalContext) -> ExprValue:
+    def _operands(self, ctx: EvalContext):
+        """Both sides' values and their data in the result type's device
+        representation: a decimal operand is rescaled to the result's
+        scale (or to its value, for a double result), as ``_as_type``
+        does for comparisons (the JAX package adds the held integers as
+        they are: ROADMAP §3)."""
         l, r = (c.eval(ctx) for c in self.children)
-        dt = self.data_type(ctx.batch.schema).torch_dtype
-        a = l.data.to(dt)
-        b = r.data.to(dt)
+        schema = ctx.batch.schema
+        lt_, rt = (c.data_type(schema) for c in self.children)
+        dt = self.data_type(schema)
+        return l, r, dt, _as_type(l.data, lt_, dt), _as_type(r.data, rt, dt)
+
+    def eval(self, ctx: EvalContext) -> ExprValue:
+        l, r, _dt, a, b = self._operands(ctx)
         return ExprValue(self._compute(a, b), and_valid(l.valid, r.valid))
 
     def __repr__(self) -> str:
@@ -343,7 +352,31 @@ class Sub(BinaryArithmetic):
 
 
 class Mul(BinaryArithmetic):
+    """A decimal times a decimal keeps both scales (Spark's
+    ``DecimalPrecision``: scale s1 + s2), so the held integers multiply
+    as they are; a decimal times an integer keeps the decimal's scale."""
+
     op_name = "*"
+
+    def data_type(self, schema):
+        lt_, rt = (c.data_type(schema) for c in self.children)
+        if isinstance(lt_, T.DecimalType) and isinstance(rt, T.DecimalType):
+            return T.DecimalType(
+                min(lt_.precision + rt.precision + 1,
+                    T.DecimalType.MAX_PRECISION), lt_.scale + rt.scale)
+        return super().data_type(schema)
+
+    def _operands(self, ctx: EvalContext):
+        l, r = (c.eval(ctx) for c in self.children)
+        schema = ctx.batch.schema
+        lt_, rt = (c.data_type(schema) for c in self.children)
+        dt = self.data_type(schema)
+        if isinstance(dt, T.DecimalType):
+            # the product of the held integers already carries the
+            # result's scale: no operand is rescaled
+            return l, r, dt, l.data.to(torch.int64), r.data.to(torch.int64)
+        return l, r, dt, _as_type(l.data, lt_, dt), _as_type(r.data, rt, dt)
+
     def _compute(self, a, b): return a * b
 
 
@@ -354,18 +387,16 @@ class Div(BinaryArithmetic):
 
     def data_type(self, schema):
         dt = super().data_type(schema)
-        return dt if dt.is_fractional else T.float64
+        # a quotient with a decimal operand is a double of the operands'
+        # values (the JAX package divides the held integers and keeps
+        # the decimal type: ROADMAP §3)
+        return dt if dt.is_fractional and not isinstance(
+            dt, T.DecimalType) else T.float64
 
     def eval(self, ctx: EvalContext) -> ExprValue:
-        l, r = (c.eval(ctx) for c in self.children)
-        dt = self.data_type(ctx.batch.schema).torch_dtype
+        l, r, _dt, a, b = self._operands(ctx)
         zero = r.data == 0
-        a = l.data.to(dt)
-        b = _safe_divisor(r.data, zero).to(dt)
-        if not dt.is_floating_point:
-            # decimal operands are unscaled int64: numpy divides them in
-            # float64, torch would pick float32 — widen before dividing
-            a, b = a.to(torch.float64), b.to(torch.float64)
+        b = _safe_divisor(b, zero)
         valid = and_valid(and_valid(l.valid, r.valid), ~zero)
         return ExprValue(a / b, valid)
 
@@ -391,12 +422,10 @@ class Mod(BinaryArithmetic):
     op_name = "%"
 
     def eval(self, ctx: EvalContext) -> ExprValue:
-        l, r = (c.eval(ctx) for c in self.children)
-        dt = self.data_type(ctx.batch.schema)
+        l, r, dt, a, b = self._operands(ctx)
         tdt = dt.torch_dtype
         zero = r.data == 0
-        a = l.data.to(tdt)
-        b = _safe_divisor(r.data, zero).to(tdt)
+        b = _safe_divisor(b, zero)
         valid = and_valid(and_valid(l.valid, r.valid), ~zero)
         # Spark % keeps the sign of the dividend (Java semantics), i.e. fmod
         if dt.is_fractional and tdt.is_floating_point:

@@ -207,7 +207,7 @@ class DataFrame:
 
     def collect(self) -> List[Row]:
         batch = self._execute()
-        return [Row(r, batch.names) for r in batch.to_pylist()]
+        return Row._many(batch.to_pylist(), batch.names)
 
     def count(self) -> int:
         agg = L.Aggregate([], [(CountStar(), "count")], self._plan)

@@ -10,6 +10,7 @@ and automatic uniquification at join time.
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable, List, Optional, Sequence, Tuple
 
 from .. import types as T
@@ -71,6 +72,19 @@ class LogicalPlan:
 
     def __repr__(self):  # pragma: no cover
         return type(self).__name__
+
+
+_cache_uids = itertools.count(1)
+
+
+def _batch_uid(batch) -> int:
+    """Monotonic uid attached to a batch on first use — identity that can
+    never be recycled the way ``id()`` can after garbage collection (a
+    replaced temp view's new batch never takes the old one's uid)."""
+    uid = getattr(batch, "_cache_uid", None)
+    if uid is None:
+        uid = batch._cache_uid = next(_cache_uids)
+    return uid
 
 
 class LocalRelation(LogicalPlan):

@@ -10,6 +10,8 @@ the device where they are gathered.
 
 from __future__ import annotations
 
+import functools
+
 from typing import Any, List, Sequence, Tuple
 
 import torch
@@ -42,6 +44,9 @@ class ExecContext:
         # per-operator metrics (SQLMetrics.scala:34 analog): row counts
         # keyed by (op_id, label), fetched with the result
         self.metrics: List[Tuple[int, str, Array]] = []
+        #: called after each operator's run (the eager lane's statement
+        #: cancellation checkpoint); None inside a captured stage
+        self.checkpoint = None
 
     def add_flag(self, value: Array, kind: str, cap: int) -> None:
         self.flags.append(value)
@@ -52,10 +57,26 @@ class ExecContext:
         self.metrics.append((op_id, label, value))
 
 
+def _checkpointed(run):
+    @functools.wraps(run)
+    def wrapped(self, ctx):
+        out = run(self, ctx)
+        checkpoint = getattr(ctx, "checkpoint", None)
+        if checkpoint is not None:
+            checkpoint()
+        return out
+    return wrapped
+
+
 class PhysicalPlan:
     children: Tuple["PhysicalPlan", ...] = ()
     #: stable preorder position, assigned by the planner
     op_id: int = 0
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        if "run" in cls.__dict__:
+            cls.run = _checkpointed(cls.__dict__["run"])
 
     def schema(self) -> T.StructType:
         raise NotImplementedError

@@ -16,13 +16,14 @@ them come back to the host in one transfer after the plan has run.
 from __future__ import annotations
 
 import logging
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from .. import config as C
 from .. import types as T
-from ..columnar import ColumnBatch, ColumnVector, pad_capacity
+from ..columnar import ColumnBatch, pad_capacity
 from ..expressions import AnalysisException
 from ..kernels import compact
 from .logical import (
@@ -74,16 +75,9 @@ def _overflow_ratio(flags: List[int], caps: List[int]) -> float:
 def _slice_to_host(result: ColumnBatch, n: int) -> ColumnBatch:
     """Transfer only the live prefix of a COMPACTED device batch to host:
     collect() of a few rows from a padded million-row batch must not ship
-    the padding over PCIe."""
-    cap = min(pad_capacity(max(n, 1)), result.capacity)
-    if cap == result.capacity:
-        return result.to_host()
-    vectors = [ColumnVector(v.data[:cap].cpu(), v.dtype,
-                            None if v.valid is None else v.valid[:cap].cpu(),
-                            v.dictionary)
-               for v in result.vectors]
-    rv = None if result.row_valid is None else result.row_valid[:cap].cpu()
-    return ColumnBatch(result.names, vectors, rv, cap)
+    the padding over PCIe.  Every column, mask and ``row_valid`` comes
+    over in ONE packed copy (``ColumnBatch.packed_host``)."""
+    return result.packed_host(min(pad_capacity(max(n, 1)), result.capacity))
 
 
 def _row_nbytes(schema: T.StructType) -> int:
@@ -185,6 +179,46 @@ def _needs_local_fallback(plan: LogicalPlan) -> bool:
 
     walk(plan)
     return bool(found)
+
+
+def stage_key(session, pq: "PlannedQuery") -> Tuple[str, list]:
+    """(stage-cache key, slotted Literal objects) of one planned query:
+    the slot-aware physical fingerprint, the leaves' shape/dtype
+    signature and the planning conf."""
+    from . import stagecompile as SC
+    skey, slots = SC.stage_fingerprint(pq.physical)
+    return (f"local|{skey}|{SC.leaf_signature(pq.leaves)}"
+            f"|{SC._conf_component(session)}"), slots
+
+
+def stage_maker(pq: "PlannedQuery", slots, device, skey: str):
+    """The builder of ``pq``'s stage-cache entry: a step that runs the
+    physical plan once with ``slots`` bound to the entry's parameter
+    scalars, and its ``Stage`` record."""
+    from . import stagecompile as SC
+
+    def make():
+        physical = pq.physical
+        entry_slots = slots          # entry owns THIS plan's literals
+
+        def run(leaves, params):
+            from .. import expressions as E
+            E._slot_bindings.map = {
+                id(l): p for l, p in zip(entry_slots, params)}
+            try:
+                ctx = P.ExecContext(device, list(leaves))
+                out = compact(physical.run(ctx))
+                meta = (list(ctx.flag_caps), list(ctx.flag_kinds),
+                        [(oid, lbl) for oid, lbl, _v in ctx.metrics])
+                return out, [out.num_rows()] + list(ctx.flags) \
+                    + [v for _o, _l, v in ctx.metrics], meta
+            finally:
+                E._slot_bindings.map = None
+
+        return run, SC.Stage(physical, [b.schema for b in pq.leaves],
+                             physical.schema(), skey)
+
+    return make
 
 
 class PlannedQuery:
@@ -328,20 +362,34 @@ class QueryExecution:
         triggers an automatic replan with a factor sized from the MEASURED
         overflow, instead of erroring."""
         self.session._last_qe = self      # metrics/explain introspection
+        self.session._query_count += 1
         return self._execute_inner()
+
+    def _staged(self, kind: str, thunk):
+        """Route one mesh-lane execution through the serving plan
+        cache's statement-level bookkeeping: a repeat — from ANY server
+        session — reports ``cacheHit``.  Without an attached plan cache
+        this is the thunk."""
+        plan_cache = self.session._plan_cache
+        if plan_cache is None:
+            return thunk()
+        return plan_cache.run_staged(self, kind, thunk)
 
     def _execute_inner(self) -> ColumnBatch:
         # Left out here, each with the slice that brings it:
-        # * the plan-analysis verifiers (maybe_verify_*) and the serving
-        #   plan cache: the serving slice;
+        # * the plan-analysis verifiers (maybe_verify_*): the analysis
+        #   slice;
         # * run planes at the stage boundary (plan_leaves): with the
         #   run-length vectors;
         # * the cross-process exchange (crossproc_execute): the
         #   cross-process slice;
         # * the multi-batch and stage-DAG out-of-core runners, alone and
-        #   under the mesh: the out-of-core slice;
+        #   under the mesh (and their plan-cache kinds): the out-of-core
+        #   slice;
         # * the mesh lane under graphs: the mesh lane below stays eager.
-        n_shards = self.session.conf.get(C.MESH_SHARDS)
+        session = self.session
+        session.raise_if_cancelled()      # checkpoint: before planning
+        n_shards = session.conf.get(C.MESH_SHARDS)
         if n_shards == 0:
             n_shards = 1          # "all local devices": the engine spans one
         if n_shards > 1 and _needs_local_fallback(self.optimized):
@@ -352,9 +400,22 @@ class QueryExecution:
             # device, every exchange one all-to-all kernel launch
             from ..parallel.executor import DistributedExecution
             from ..parallel.mesh import get_mesh
-            mesh = get_mesh(n_shards, self.session.device)
-            return DistributedExecution(self.session, mesh).execute(
-                self.optimized)
+            mesh = get_mesh(n_shards, session.device)
+            return self._staged(
+                "dist", lambda: DistributedExecution(session, mesh).execute(
+                    self.optimized))
+
+        # serving plan cache (serving/plancache.py): attached to server
+        # sessions, shared across all of them.  A usable entry skips the
+        # planner and the stage key; None falls through to the normal
+        # adaptive path (uncacheable plan, overflow, a lane that captures
+        # nothing)
+        plan_cache = session._plan_cache
+        t0 = time.perf_counter()
+        if plan_cache is not None:
+            cached_out = plan_cache.try_execute(self)
+            if cached_out is not None:
+                return cached_out
 
         base_key = "local:" + self.planned.physical.key()
         adapted = self.session._adapted_factors.get(base_key) or {}
@@ -374,6 +435,9 @@ class QueryExecution:
                 if factors is not None or shrink is not None:
                     self.session._adapted_factors[base_key] = {
                         "join": factors, "shrink": shrink}
+                    if plan_cache is not None:
+                        plan_cache.adopt(
+                            self, pq, (time.perf_counter() - t0) * 1e3)
                 return result
             if attempt == self.MAX_ADAPT:
                 raise RuntimeError(
@@ -447,13 +511,12 @@ class QueryExecution:
 
         from . import stagecompile as SC
         device = session.device
-        leaves = [b.to_device(device) for b in pq.leaves]
         if not session.conf.get(C.STAGE_FUSION):
             # baseline mode: one eager step per physical operator, flags
             # read back per op so adaptive retry still works, metrics
             # dropped (debug lane)
             c, n_rows, _nd, int_flags, caps, kinds = SC.run_per_op(
-                pq.physical, leaves, device)
+                pq.physical, pq.leaves, device)
             self.metrics = {}
             return _slice_to_host(c, n_rows), \
                 self._note_flags(int_flags, caps, kinds)
@@ -463,35 +526,24 @@ class QueryExecution:
         # plus the leaf shape/dtype signature and the planning conf, with
         # int/float/bool literals in arithmetic/comparison positions
         # slotted out as the entry's device scalars
+        skey, slots = stage_key(session, pq)
+        return self._dispatch_stage(pq, skey,
+                                    stage_maker(pq, slots, device, skey),
+                                    SC.count_ops(pq.physical),
+                                    SC.param_values(slots))
+
+    def _dispatch_stage(self, pq: PlannedQuery, skey: str, make, n_ops: int,
+                        params) -> Tuple[ColumnBatch, float]:
+        """One run of ``pq`` through its stage-cache entry (built by
+        ``make`` on a miss) with the slotted literal values ``params``.
+        The statement's cancellation is checked before the graph is
+        replayed; a replay itself runs to its end once launched."""
+        from . import stagecompile as SC
+        session = self.session
+        device = session.device
         cache = SC.stage_cache(session)
-        skey, slots = SC.stage_fingerprint(pq.physical)
-        skey = (f"local|{skey}|{SC.leaf_signature(leaves)}"
-                f"|{SC._conf_component(session)}")
-
-        def make():
-            physical = pq.physical
-            entry_slots = slots          # entry owns THIS plan's literals
-
-            def run(leaves, params):
-                from .. import expressions as E
-                E._slot_bindings.map = {
-                    id(l): p for l, p in zip(entry_slots, params)}
-                try:
-                    ctx = P.ExecContext(device, list(leaves))
-                    out = compact(physical.run(ctx))
-                    meta = (list(ctx.flag_caps), list(ctx.flag_kinds),
-                            [(oid, lbl) for oid, lbl, _v in ctx.metrics])
-                    return out, [out.num_rows()] + list(ctx.flags) \
-                        + [v for _o, _l, v in ctx.metrics], meta
-                finally:
-                    E._slot_bindings.map = None
-
-            return run, SC.Stage(physical, [b.schema for b in leaves],
-                                 physical.schema(), skey)
-
-        entry = cache.get_or_build(skey, make,
-                                   n_ops=SC.count_ops(pq.physical),
-                                   session=session)
+        entry = cache.get_or_build(skey, make, n_ops=n_ops, session=session)
+        leaves = [b.to_device(device) for b in pq.leaves]
 
         def finish(out, host, meta):
             caps, kinds, metric_keys = meta
@@ -500,8 +552,9 @@ class QueryExecution:
             return _slice_to_host(out, n_rows), \
                 self._note_flags(int_flags, caps, kinds)
 
-        return cache.dispatch(entry, leaves, SC.param_values(slots), finish,
-                              device, memory=session._memory)
+        session.raise_if_cancelled()      # checkpoint: before the replay
+        return cache.dispatch(entry, leaves, params, finish, device,
+                              memory=session._memory)
 
     def _run_eager(self, pq: PlannedQuery) -> Tuple[ColumnBatch, float]:
         """The eager lane: every operator's kernels launched from the
@@ -509,6 +562,8 @@ class QueryExecution:
         from .stagecompile import _read_back
         device = self.session.device
         ctx = P.ExecContext(device, [b.to_device(device) for b in pq.leaves])
+        # checkpoint: after each operator, before the next one runs
+        ctx.checkpoint = self.session.raise_if_cancelled
         out = compact(pq.physical.run(ctx))
         # ONE device → host transfer for the row count, every overflow
         # flag and every metric

@@ -23,6 +23,12 @@ from . import logical as L
 from .dataframe import DataFrame
 
 
+class QueryCancelled(Exception):
+    """Raised at a cancellation checkpoint after
+    ``session.cancelAllQueries()`` — the cooperative analog of the
+    reference's ``SparkContext.cancelJobGroup`` task interruption."""
+
+
 def resolve_device(name: str) -> torch.device:
     """The session's device; a CUDA device that is not there raises."""
     device = torch.device(name)
@@ -133,6 +139,16 @@ class SparkSession:
         self._memory = MemoryManager(self.conf_obj, self.device)
         self._memory.set_eviction_callback(
             lambda nbytes: stage_cache().evict(self._memory, nbytes))
+        self._query_count = 0
+        self._cancel_requested = False
+        # the serving plan cache (serving/plancache.py), attached by the
+        # SQL server to every session it serves; None elsewhere
+        self._plan_cache = None
+        self._last_plan_cache_info = None
+        from ..metrics import MetricsSystem, default_sources
+        self._metrics_system = MetricsSystem(self.conf_obj)
+        for src in default_sources(self):
+            self._metrics_system.register_source(src)
         # pyspark semantics: constructing a session makes it the active one
         SparkSession._active = self
 
@@ -141,6 +157,45 @@ class SparkSession:
         """Device execution/storage accounting (UnifiedMemoryManager
         analog)."""
         return self._memory
+
+    @property
+    def metricsSystem(self):
+        """Process-gauge sources (``metrics/MetricsSystem.scala``
+        analog); ``snapshots()`` reads them on demand."""
+        return self._metrics_system
+
+    # -- cooperative statement cancellation (cancelJobGroup analog) ------
+    #
+    # A launched kernel or a replayed CUDA graph runs to its end, like a
+    # running Spark task; cancellation lands between units of work: before
+    # planning, after each operator of the eager lane, and before a
+    # graph's replay (QueryExecution).
+    def cancelAllQueries(self) -> None:
+        self._cancel_requested = True
+
+    def clear_cancel(self) -> None:
+        self._cancel_requested = False
+
+    def raise_if_cancelled(self) -> None:
+        if self._cancel_requested:
+            raise QueryCancelled("query cancelled by user request")
+
+    def newSession(self) -> "SparkSession":
+        """A sibling session: same conf VALUES and device, but isolated
+        temp views, conf object, learned factors and cancellation state
+        (``SparkSession.scala:236 newSession``).  The stage cache is per
+        process, so siblings share its captured graphs."""
+        return SparkSession(self.conf_obj.clone())
+
+    def _invalidate_plan_cache(self, conf_key: str, old: Any,
+                               new: Any) -> None:
+        """Serving plan-cache hook: a SET of a planning-relevant conf
+        evicts entries built under this session's old value.  No-op
+        outside a serving deployment.  (The JAX package also evicts by
+        table path on catalog commands; the port's persistent tables
+        come with the scan slice.)"""
+        if self._plan_cache is not None:
+            self._plan_cache.invalidate_conf(conf_key, old, new)
 
     @property
     def version(self) -> str:
@@ -266,11 +321,15 @@ class SparkSession:
                               "comment": comments})
         if isinstance(cmd, P.SetCommand):
             if cmd.key is not None and cmd.value is not None:
-                # a planning entry is part of every stage key
-                # (serving/plancache.py PLANNING_CONF_ENTRIES): entries
-                # built under the old value are unreachable from now on
-                # and age out of the LRU
+                # a planning entry is part of every stage key and plan
+                # fingerprint (serving/plancache.py PLANNING_CONF_ENTRIES):
+                # the plan cache evicts entries built under the old value;
+                # stage entries are unreachable and age out of the LRU
+                old = self.conf.get(cmd.key, None)
                 self.conf.set(cmd.key, cmd.value)
+                new = self.conf.get(cmd.key, None)
+                if new != old:
+                    self._invalidate_plan_cache(cmd.key, old, new)
             key = cmd.key if cmd.key is not None else ""
             value = str(self.conf.get(cmd.key, "<undefined>")) \
                 if cmd.key is not None else ""

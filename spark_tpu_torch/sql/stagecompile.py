@@ -45,7 +45,9 @@ nothing falls back to the eager lane.
 Each graph's private pool stays allocated between queries; its bytes
 (with the static input buffers) are charged to the session's
 ``MemoryManager`` as storage under ``stage:<key>``, and its eviction
-callback drops the least recently used entries.
+callback drops the least recently used entries.  A dropped entry's
+graphs, pools and static buffers go back to the card
+(``_release``).
 
 ``run_per_op`` is the measured BASELINE (``spark.tpu.stage.fusion=
 false``): one eager step per operator, its flags read back after each.
@@ -349,13 +351,13 @@ class _CachedStage:
         v.static_bytes = sum(t.numel() * t.element_size() for t in v.static)
         graph = torch.cuda.CUDAGraph()
         pool = torch.cuda.graph_pool_handle()
-        with torch.cuda.graph(graph, pool=pool,
-                              capture_error_mode="thread_local"):
-            reserved = torch.cuda.memory_reserved(device)
-            out, scalars, meta, ng = self._run(static_leaves, v.params,
-                                               record, True)
-            vec = _stack(scalars)
-        v.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        with _capture_turn():
+            with torch.cuda.graph(graph, pool=pool,
+                                  capture_error_mode="thread_local"):
+                out, scalars, meta, ng = self._run(static_leaves, v.params,
+                                                   record, True)
+                vec = _stack(scalars)
+        v.pool_bytes = _pool_bytes(device, pool)
         v.graph, v.out, v.scalars, v.n_guards, v.meta = \
             graph, out, vec, ng, meta
         return v, result
@@ -363,6 +365,20 @@ class _CachedStage:
     def _add(self, v: _Variant) -> None:
         self.variants.append(v)
         del self.variants[:-MAX_VARIANTS]
+
+
+def _pool_bytes(device, pool) -> int:
+    """Bytes the caching allocator holds in graph pool ``pool`` on
+    ``device``: its segments, read from the allocator's snapshot (the
+    change of ``memory_reserved`` across a capture would also count what
+    other threads allocate meanwhile)."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    want = tuple(pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if seg["device"] == index
+               and tuple(seg.get("segment_pool_id", ())) == want)
 
 
 def _clone_batch(b):
@@ -524,6 +540,7 @@ class StageCache:
                 "variants": self.variants,
                 "guard_misses": self.guard_misses,
                 "graph_bytes": sum(e.nbytes for e in self._entries.values()),
+                "capture_waits": CAPTURE_WAITS,
             }
 
     def entries(self) -> List[_CachedStage]:
@@ -547,13 +564,48 @@ class StageCache:
             return len(self._entries)
 
 
+#: one capture at a time, and no pool returned to the card during one:
+#: the caching allocator asserts that no capture is underway (on any
+#: thread) when it frees its cached blocks, and ``empty_cache`` does
+#: that.  Replays and eager work of other threads go on during a
+#: capture (``capture_error_mode="thread_local"``).
+_CAPTURE_LOCK = threading.Lock()
+#: times a capture or a pool release waited for the other (or for
+#: another capture)
+CAPTURE_WAITS = 0
+
+
+class _capture_turn:
+    """Hold ``_CAPTURE_LOCK``, counting a wait in ``CAPTURE_WAITS``."""
+
+    def __enter__(self):
+        global CAPTURE_WAITS
+        if not _CAPTURE_LOCK.acquire(blocking=False):
+            _CAPTURE_LOCK.acquire()
+            CAPTURE_WAITS += 1            # counted under the lock
+
+    def __exit__(self, *exc):
+        _CAPTURE_LOCK.release()
+
+
 def _release(entries) -> None:
-    """Release dropped entries' storage charges (outside the cache lock:
-    the memory manager's lock is taken before the cache's)."""
+    """Release dropped entries (outside the cache lock: the memory
+    manager's lock is taken before the cache's): their storage charges,
+    and their graphs with the private pools and static buffers, which go
+    back to the card (``torch.cuda.empty_cache``) so a long-running
+    server gets the bytes back.  A replay in flight finishes first (the
+    entry's lock)."""
+    freed = False
     for entry in entries:
         mem, entry.charged_to = entry.charged_to, None
         if mem is not None:
             mem.release_storage(entry.storage_key)
+        with entry._lock:
+            freed |= any(v.graph is not None for v in entry.variants)
+            entry.variants = []
+    if freed:
+        with _capture_turn():
+            torch.cuda.empty_cache()
 
 
 #: THE process-local cache

@@ -105,8 +105,6 @@ def _projection(E, T):
         E.Alias(E.IntDiv(E.Col("i"), E.Col("j")), "intdiv"),
         E.Alias(E.Mod(E.Col("i"), E.Col("j")), "mod"),
         E.Alias(E.Mod(E.Col("f"), E.Literal(3.0)), "fmod"),
-        E.Alias(E.Div(E.Col("d"), E.Col("d")), "ddiv"),
-        E.Alias(E.Add(E.Col("d"), E.Col("i")), "dadd"),
         E.Alias(E.Cast(E.Col("f"), T.int64), "f_long"),
         E.Alias(E.Cast(E.Col("f"), T.int32), "f_int"),
         E.Alias(E.Cast(E.Col("d"), T.float64), "d_double"),
@@ -133,6 +131,49 @@ def test_project(lane):
     r = RK.apply_project(xp, rb, _projection(RE, RT))
     g = TK.apply_project(got, _projection(TE, TE.T))
     assert_parts_equal(_parts(r), _parts(g), rtol=FLOAT_RTOL)
+
+
+def _decimal_arithmetic(E):
+    """The decimal columns ``_projection`` held against the reference
+    until the port rescaled decimal operands (ROADMAP §3)."""
+    return [E.Alias(E.Div(E.Col("d"), E.Col("d")), "ddiv"),
+            E.Alias(E.Add(E.Col("d"), E.Col("i")), "dadd")]
+
+
+@pytest.mark.parametrize("lane", LANES)
+def test_decimal_arithmetic_oracle(lane):
+    """``d + i`` (a decimal(12,2) plus a bigint) and ``d / d`` against
+    Python's ``decimal`` on every live row.  The reference adds the held
+    integer (value × 100) to ``i`` as it is and divides the held
+    integers into a column still typed decimal, so it differs."""
+    import decimal
+    ref, got = _pair(2)
+    xp, rb = _lane(lane, ref)
+    g = _parts(TK.apply_project(got, _decimal_arithmetic(TE)))
+    r = _parts(RK.apply_project(xp, rb, _decimal_arithmetic(RE)))
+    assert g.type_strings == ["double", "decimal(12,2)"]
+    src = _parts(got)
+    d_raw, d_ok = src.datas[5], src.valids[5]
+    i_raw, i_ok = src.datas[0], src.valids[0]
+    live = np.asarray(src.row_valid)
+    div_ok = live & d_ok & (d_raw != 0)
+    add_ok = live & d_ok & i_ok
+    assert div_ok.sum() > 100 and add_ok.sum() > 100
+    for k in np.flatnonzero(live):
+        dk = decimal.Decimal(int(d_raw[k])).scaleb(-2)
+        assert bool(g.valids[0][k]) == bool(div_ok[k])
+        assert bool(g.valids[1][k]) == bool(add_ok[k])
+        if div_ok[k]:
+            assert g.datas[0][k] == float(dk / dk) == 1.0
+        if add_ok[k]:
+            want = dk + int(i_raw[k])
+            assert g.datas[1][k] == int(want.scaleb(2))
+    # the reference still keeps d / d in a decimal column and adds i to
+    # the held integer
+    assert r.type_strings == ["decimal(12,2)", "decimal(12,2)"]
+    k = int(np.flatnonzero(add_ok & (i_raw != 0))[0])
+    assert int(r.datas[1][k]) == int(d_raw[k]) + int(i_raw[k]) \
+        != int(g.datas[1][k])
 
 
 @pytest.mark.parametrize("lane", LANES)

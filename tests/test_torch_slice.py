@@ -152,12 +152,17 @@ def _port_files():
     return out
 
 
+#: what the port may not import: JAX, the JAX package, and pandas (the
+#: machine with the card has none; the port's TPC-DS tables are numpy)
+FORBIDDEN = ("jax", "jaxlib", "spark_tpu", "pandas")
+
+
 def test_port_never_imports_jax_or_the_jax_package():
     bad = []
     for path in _port_files():
         for name in _imports(path):
             top = name.split(".")[0]
-            if top in ("jax", "jaxlib", "spark_tpu"):
+            if top in FORBIDDEN:
                 bad.append((os.path.relpath(path, REPO), name))
     assert not bad, bad
 
@@ -168,7 +173,7 @@ def test_importing_the_port_loads_neither():
             " 'spark_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in"
-            " ('jax', 'jaxlib', 'spark_tpu')]\n"
+            f" {FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

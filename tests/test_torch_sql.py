@@ -532,3 +532,49 @@ def test_decimal_comparison_rescales(spark, tspark):
     finally:
         spark.catalog.dropTempView("dec")
         tspark.catalog.dropTempView("dec")
+
+
+def test_decimal_arithmetic_rescales(spark, tspark):
+    """Decimal arithmetic against Python's ``decimal``: the port rescales
+    each operand to the result type (``p + 1.5``, ``p + q``), keeps both
+    scales in a product (``p * q``) and divides values (``p / 2``).  The
+    reference adds, multiplies and divides the held integers (value ×
+    10**scale) as they are (ROADMAP §3), so its first row differs."""
+    import decimal
+    D = decimal.Decimal
+    p_vals, q_vals = ["1.25", "100.5", "3.0"], ["1.3", "2.0", "0.5"]
+    data = {"p": np.array([float(x) for x in p_vals]),
+            "q": np.array([float(x) for x in q_vals])}
+
+    def frame(s, T):
+        st = T.StructType([T.StructField("p", T.DecimalType(7, 2)),
+                           T.StructField("q", T.DecimalType(7, 1))])
+        s.createDataFrame(data, schema=st).createOrReplaceTempView("decar")
+
+    frame(spark, RT)
+    frame(tspark, TT)
+    oracle = {
+        "p + 1.5": lambda p, q: p + D("1.5"),
+        "p + q": lambda p, q: p + q,
+        "p * q": lambda p, q: p * q,
+        "p / 2": lambda p, q: p / 2,
+        "p - q": lambda p, q: p - q,
+        "p * 2": lambda p, q: p * 2,
+        "p % 2": lambda p, q: p % 2,
+    }
+    reference_first = {"p + 1.5": 126.5, "p + q": 1.38, "p * q": 16.25,
+                       "p / 2": 0.62}
+    try:
+        for expr, fn in oracle.items():
+            sql = f"SELECT {expr} AS x FROM decar"
+            got = [r[0] for r in tspark.sql(sql).collect()]
+            want = [float(fn(D(p), D(q))) for p, q in zip(p_vals, q_vals)]
+            assert got == want, (expr, got, want)
+        assert [tspark.sql(f"SELECT {e} AS x FROM decar").collect()[0][0]
+                for e in reference_first] == [2.75, 2.55, 1.625, 0.625]
+        for expr, old in reference_first.items():
+            ref = spark.sql(f"SELECT {expr} AS x FROM decar").collect()
+            assert ref[0][0] == old, (expr, ref[0][0])
+    finally:
+        spark.catalog.dropTempView("decar")
+        tspark.catalog.dropTempView("decar")

@@ -371,3 +371,43 @@ def test_replay_makes_no_host_sync_or_copy(tspark, monkeypatch, name):
     assert after["dispatches"] == before["dispatches"] + 1
     assert (after["variants"], after["guard_misses"]) == \
         (before["variants"], before["guard_misses"])
+
+
+@pytest.mark.parametrize("name", ["hash-agg", "q3"] + _sql_cases())
+def test_plan_cache_hit_makes_no_host_sync_or_copy(tspark, monkeypatch,
+                                                   name):
+    """The same trap on a serving plan-cache HIT: the second run of each
+    statement skips the planner and the stage key, goes straight to the
+    stage entry with its slotted literal values as parameters, and its
+    replay touches no host value of a tensor and builds no tensor from
+    host values."""
+    from spark_tpu_torch.serving.plancache import PlanCache
+    from spark_tpu_torch.testing import (SQL_QUERIES, register_sql_tables,
+                                         register_sql_udfs)
+    monkeypatch.setattr(TK, "MXU_AGG_ENABLED", True)
+    tables = q3_tables(n_sales=5000, n_items=3000, n_dates=3000)
+    hash_table = hash_agg_table(2048, 40)
+    session = tspark.newSession()
+    register_sql_tables(session, hash_table, tables, TT)
+    register_sql_udfs(session, torch)
+    session._plan_cache = plans = PlanCache(session.conf_obj)
+    if name == "hash-agg":
+        df = hash_agg_query(session, TF, hash_table)
+    elif name == "q3":
+        df = q3_query(session, TF, TT, tables)
+    else:
+        df = session.sql(SQL_QUERIES[name][0])
+    want = df.collect()
+    assert plans.stats()["misses"] == 1 and plans.stats()["entries"] == 1
+    cache = TSC.stage_cache()
+    before = cache.stats()
+    _trap_host_syncs(monkeypatch)
+    got = df.collect()
+    monkeypatch.undo()
+    after = cache.stats()
+    assert_rows_equal(want, got)
+    assert session._last_plan_cache_info["hit"] is True
+    assert plans.stats()["hits"] == 1
+    assert after["dispatches"] == before["dispatches"] + 1
+    assert (after["variants"], after["guard_misses"]) == \
+        (before["variants"], before["guard_misses"])
