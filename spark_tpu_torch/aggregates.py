@@ -20,7 +20,8 @@ from .expressions import AnalysisException, EvalContext, Expression, ExprValue, 
 __all__ = [
     "AggregateFunction", "BufferSpec", "Sum", "Count", "CountStar", "Avg",
     "Min", "Max", "First", "Last", "CountDistinct", "SumDistinct",
-    "is_aggregate", "IDENTITY",
+    "VarianceBase", "VarSamp", "VarPop", "StddevSamp", "StddevPop",
+    "PercentileApprox", "is_aggregate", "IDENTITY",
 ]
 
 
@@ -298,6 +299,106 @@ class Last(First):
 
     def __repr__(self):
         return f"last({self.children[0]!r})"
+
+
+class VarianceBase(AggregateFunction):
+    """var/stddev from (count, sum, sum of squares) buffers, which merge as
+    plain sums (the reference's ``CentralMomentAgg.scala`` keeps Welford
+    moments, which do not).  A decimal input counts by its value."""
+
+    ddof = 1
+
+    def data_type(self, schema):
+        return T.float64
+
+    def num_buffers(self):
+        return 3
+
+    def make_buffers(self, ctx, contribute):
+        data, valid = self._input(ctx, contribute)
+        src = self.children[0].data_type(ctx.batch.schema)
+        f = data.to(torch.float64)
+        if isinstance(src, T.DecimalType):
+            f = f / (10 ** src.scale)
+        return [BufferSpec(valid.to(torch.int64), "sum", torch.int64),
+                self._masked(f, valid, "sum", torch.float64),
+                self._masked(f * f, valid, "sum", torch.float64)]
+
+    def _variance(self, buffers):
+        n, s, s2 = buffers
+        nf = n.to(torch.float64)
+        safe_n = torch.where(n > self.ddof, nf, 1.0)
+        mean = s / torch.where(n > 0, nf, 1.0)
+        var = torch.clamp(s2 - nf * mean * mean, min=0.0) \
+            / torch.clamp(safe_n - self.ddof, min=1.0)
+        return var, n > self.ddof
+
+    def finish(self, buffers):
+        var, valid = self._variance(buffers)
+        return ExprValue(var, valid)
+
+
+class VarSamp(VarianceBase):
+    ddof = 1
+
+    def __repr__(self):
+        return f"var_samp({self.children[0]!r})"
+
+
+class VarPop(VarianceBase):
+    ddof = 0
+
+    def __repr__(self):
+        return f"var_pop({self.children[0]!r})"
+
+
+class StddevSamp(VarianceBase):
+    ddof = 1
+
+    def finish(self, buffers):
+        var, valid = self._variance(buffers)
+        return ExprValue(torch.sqrt(var), valid)
+
+    def __repr__(self):
+        return f"stddev_samp({self.children[0]!r})"
+
+
+class StddevPop(StddevSamp):
+    ddof = 0
+
+    def __repr__(self):
+        return f"stddev_pop({self.children[0]!r})"
+
+
+class PercentileApprox(AggregateFunction):
+    """percentile_approx(x, p), computed EXACTLY: the nearest-rank value at
+    floor(p * (n - 1)) of each group's sorted non-null values (what the
+    reference's sketch answers at accuracy 1).  It has no buffers: the
+    sort-based aggregate computes it (``kernels._percentile_groups``),
+    and the mesh lane gathers its input to one shard."""
+
+    is_percentile = True
+
+    def __init__(self, child, percentage: float):
+        super().__init__(child)
+        if not (0.0 <= float(percentage) <= 1.0):
+            raise AnalysisException(
+                f"percentile must be in [0, 1], got {percentage}")
+        self.percentage = float(percentage)
+
+    def data_type(self, schema):
+        return self.children[0].data_type(schema)
+
+    def num_buffers(self):
+        return 0
+
+    def make_buffers(self, ctx, contribute):
+        raise AnalysisException(
+            "percentile_approx only runs on the sort-based aggregation "
+            "path")
+
+    def __repr__(self):
+        return f"percentile_approx({self.children[0]!r}, {self.percentage})"
 
 
 class CountDistinct(Count):

@@ -31,7 +31,10 @@ __all__ = [
     "Cast", "Add", "Sub", "Mul", "Div", "IntDiv", "Mod", "Neg", "EQ", "NE", "LT",
     "LE", "GT", "GE", "EqNullSafe", "And", "Or", "Not", "IsNull",
     "IsNotNull", "Coalesce", "If", "CaseWhen", "In", "Between", "Hash64",
-    "StringPredicate",
+    "StringPredicate", "Pow", "UnaryMath", "RoundExpr", "IsNaN", "Greatest",
+    "Least", "BinaryMath", "StringTransform", "Substring", "StringLength",
+    "Concat", "ParamStringTransform", "StringToInt", "ExtractDatePart",
+    "DateArith", "NextDay", "TruncDate", "UnixTimestamp", "GroupingCall",
     "lit", "col", "AnalysisException",
 ]
 
@@ -1093,3 +1096,799 @@ class Hash64(Expression):
 
     def __repr__(self):
         return f"hash64({', '.join(map(repr, self.children))})"
+
+
+# ---------------------------------------------------------------------------
+# Expression breadth: math (mathExpressions.scala), strings
+# (stringExpressions.scala), dates (datetimeExpressions.scala) and the
+# grouping-set marker, as in ``spark_tpu/expressions.py``.  String
+# functions rewrite the dictionary on the host and gather codes on the
+# device; every host-built table is a ``capture.constant``.
+# ---------------------------------------------------------------------------
+
+def _div_exact(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` for a host float ``c``, IEEE-divided on every device: CUDA
+    turns a division by a host scalar into a multiplication by its
+    reciprocal, whose last bit can differ from numpy's quotient (round
+    gave 49.160000000000004 for 49.16 on an H100)."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def _as_float64(ctx: EvalContext, v: ExprValue, e: Expression) -> torch.Tensor:
+    """``v`` (the value of ``e``) as float64 values: a decimal is its value,
+    not its held integer (the JAX package converts the held integer:
+    ROADMAP §3)."""
+    return _as_type(v.data, e.data_type(ctx.batch.schema), T.float64)
+
+
+class Pow(BinaryArithmetic):
+    op_name = "pow"
+
+    def data_type(self, schema):
+        return T.float64
+
+    def _compute(self, a, b):
+        return torch.pow(a, b)
+
+
+class UnaryMath(Expression):
+    """sqrt/exp/log/sin/... — float64 elementwise functions; a domain error
+    (log of <= 0, sqrt of < 0) is NULL."""
+
+    FNS = {
+        "sqrt": (lambda x: torch.sqrt(torch.clamp(x, min=0.0)), lambda x: x >= 0),
+        "exp": (torch.exp, None),
+        "ln": (lambda x: torch.log(torch.where(x > 0, x, 1.0)), lambda x: x > 0),
+        "log10": (lambda x: torch.log10(torch.where(x > 0, x, 1.0)),
+                  lambda x: x > 0),
+        "log2": (lambda x: torch.log2(torch.where(x > 0, x, 1.0)),
+                 lambda x: x > 0),
+        "sin": (torch.sin, None),
+        "cos": (torch.cos, None),
+        "tan": (torch.tan, None),
+        "asin": (lambda x: torch.asin(torch.clamp(x, -1, 1)),
+                 lambda x: torch.abs(x) <= 1),
+        "acos": (lambda x: torch.acos(torch.clamp(x, -1, 1)),
+                 lambda x: torch.abs(x) <= 1),
+        "atan": (torch.atan, None),
+        "sinh": (torch.sinh, None),
+        "cosh": (torch.cosh, None),
+        "tanh": (torch.tanh, None),
+        "floor": (torch.floor, None),
+        "ceil": (torch.ceil, None),
+        "radians": (lambda x: x * (np.pi / 180.0), None),
+        "degrees": (lambda x: x * (180.0 / np.pi), None),
+        "log1p": (lambda x: torch.log1p(torch.where(x > -1, x, 0.0)),
+                  lambda x: x > -1),
+        "expm1": (torch.expm1, None),
+        "cbrt": (lambda x: torch.sign(x) * torch.abs(x) ** (1.0 / 3.0), None),
+        "rint": (torch.round, None),
+        "abs": (None, None),
+        "sign": (None, None),
+    }
+
+    def __init__(self, fn: str, child: Expression):
+        assert fn in self.FNS, fn
+        self.fn = fn
+        self.children = (child,)
+
+    def data_type(self, schema):
+        if self.fn in ("floor", "ceil"):
+            return T.int64
+        if self.fn in ("abs", "sign"):
+            return self.children[0].data_type(schema)
+        return T.float64
+
+    def eval(self, ctx):
+        v = self.children[0].eval(ctx)
+        if self.fn == "abs":
+            return ExprValue(torch.abs(v.data), v.valid)
+        if self.fn == "sign":
+            dt = self.children[0].data_type(ctx.batch.schema)
+            out = torch.sign(v.data)
+            if out.dtype.is_floating_point:
+                # torch gives sign(NaN) = 0; numpy, Spark: NaN
+                out = torch.where(torch.isnan(v.data), v.data, out)
+            if isinstance(dt, T.DecimalType):
+                out = out * 10 ** dt.scale        # the value ±1, held scaled
+            return ExprValue(out, v.valid)
+        x = _as_float64(ctx, v, self.children[0])
+        fn, domain = self.FNS[self.fn]
+        out = fn(x)
+        valid = v.valid
+        if domain is not None:
+            valid = and_valid(valid, domain(x))
+        if self.fn in ("floor", "ceil"):
+            out = out.to(torch.int64)
+        return ExprValue(out, valid)
+
+    def __repr__(self):
+        return f"{self.fn}({self.children[0]!r})"
+
+
+class RoundExpr(Expression):
+    """round(x, d), HALF_UP.  A double rounds by the JAX package's formula
+    (``floor(|x| * 10^d + 0.5) / 10^d * sign(x)``), so the bits match it.  A
+    decimal(p, s) with d < s becomes decimal(p, d), rounded HALF_UP on
+    its held integer, as Spark rounds it (the JAX package returns any
+    non-float unchanged: ROADMAP §3).  Integers pass through."""
+
+    def __init__(self, child: Expression, scale: int = 0):
+        self.children = (child,)
+        self.scale = scale
+
+    def data_type(self, schema):
+        dt = self.children[0].data_type(schema)
+        if isinstance(dt, T.DecimalType) and 0 <= self.scale < dt.scale:
+            return T.DecimalType(dt.precision, self.scale)
+        return dt if dt.is_numeric else T.float64
+
+    def eval(self, ctx):
+        v = self.children[0].eval(ctx)
+        src = self.children[0].data_type(ctx.batch.schema)
+        out_dt = self.data_type(ctx.batch.schema)
+        if isinstance(src, T.DecimalType) and out_dt != src:
+            step = 10 ** (src.scale - self.scale)
+            held = v.data.to(torch.int64)
+            mag = (torch.abs(held) + step // 2) // step
+            return ExprValue(torch.sign(held) * mag, v.valid)
+        if not v.data.dtype.is_floating_point:
+            return v
+        factor = 10.0 ** self.scale
+        out = _div_exact(torch.floor(torch.abs(v.data) * factor + 0.5),
+                         factor) * torch.sign(v.data)
+        return ExprValue(out, v.valid)
+
+    def __repr__(self):
+        return f"round({self.children[0]!r}, {self.scale})"
+
+
+class IsNaN(Expression):
+    def __init__(self, child):
+        self.children = (child,)
+
+    def data_type(self, schema):
+        return T.boolean
+
+    def eval(self, ctx):
+        v = self.children[0].eval(ctx)
+        if not v.data.dtype.is_floating_point:
+            return ExprValue(ctx.scalar(False, torch.bool), None)
+        return ExprValue(torch.isnan(v.data), None)
+
+    def __repr__(self):
+        return f"isnan({self.children[0]!r})"
+
+
+class Greatest(Expression):
+    """greatest(a, b, ...): NULL when any input is NULL (as the JAX package
+    does it); operands meet in their promoted type."""
+
+    _op = staticmethod(torch.maximum)
+
+    def __init__(self, *children):
+        self.children = tuple(children)
+
+    def data_type(self, schema):
+        out = self.children[0].data_type(schema)
+        for c in self.children[1:]:
+            out = T.numeric_promote(out, c.data_type(schema))
+        return out
+
+    def eval(self, ctx):
+        schema = ctx.batch.schema
+        dt = self.data_type(schema)
+        out, valid = None, None
+        for i, c in enumerate(self.children):
+            v = c.eval(ctx)
+            d = _as_type(v.data, c.data_type(schema), dt)
+            out = d if out is None else self._op(out, d)
+            valid = v.valid if i == 0 else and_valid(valid, v.valid)
+        return ExprValue(out, valid)
+
+    def __repr__(self):
+        return f"{type(self).__name__.lower()}" \
+               f"({', '.join(map(repr, self.children))})"
+
+
+class Least(Greatest):
+    _op = staticmethod(torch.minimum)
+
+
+class BinaryMath(Expression):
+    """hypot/atan2/nanvl — float64 elementwise binaries."""
+
+    FNS = {
+        "hypot": torch.hypot,
+        "atan2": torch.atan2,
+        "nanvl": lambda a, b: torch.where(torch.isnan(a), b, a),
+    }
+
+    def __init__(self, fn: str, left: Expression, right: Expression):
+        assert fn in self.FNS, fn
+        self.fn = fn
+        self.children = (left, right)
+
+    def data_type(self, schema):
+        return T.float64
+
+    def eval(self, ctx):
+        a = ctx.broadcast(self.children[0].eval(ctx))
+        b = ctx.broadcast(self.children[1].eval(ctx))
+        out = self.FNS[self.fn](_as_float64(ctx, a, self.children[0]),
+                                _as_float64(ctx, b, self.children[1]))
+        return ExprValue(out, and_valid(a.valid, b.valid))
+
+    def __repr__(self):
+        return f"{self.fn}({self.children[0]!r}, {self.children[1]!r})"
+
+
+# ---- strings: the host rewrites the dictionary, the device gathers codes --
+
+def _rewrite_dictionary(ctx: EvalContext, v: ExprValue, fn,
+                        empty: Tuple[str, ...] = ("",)) -> ExprValue:
+    """The contract of every string→string transform: each word through
+    ``fn`` on the host, the results re-sorted into a new dictionary (so
+    comparisons by code stay order-correct), and a per-code remap table
+    gathered on the device.  An empty dictionary becomes ``empty``."""
+    transformed = [fn(w) for w in (v.dictionary or ())]
+    new_dict = tuple(sorted(set(transformed))) or empty
+    pos = {w: i for i, w in enumerate(new_dict)}
+    remap = np.array([pos[w] for w in transformed], np.int32) \
+        if transformed else np.zeros(1, np.int32)
+    return ExprValue(_dict_gather(ctx, remap, v.data), v.valid, new_dict)
+
+
+def _string_input(e: "Expression", schema, what: str) -> None:
+    ct = e.data_type(schema)
+    if not ct.is_string:
+        raise AnalysisException(f"{what} expects string, got {ct}")
+
+
+class StringTransform(Expression):
+    """upper/lower/trim/reverse/initcap."""
+
+    FNS = {
+        "upper": str.upper,
+        "lower": str.lower,
+        "trim": str.strip,
+        "ltrim": str.lstrip,
+        "rtrim": str.rstrip,
+        "reverse": lambda s: s[::-1],
+        "initcap": lambda s: s.title(),
+    }
+
+    def __init__(self, fn: str, child: Expression):
+        assert fn in self.FNS
+        self.fn = fn
+        self.children = (child,)
+
+    def data_type(self, schema):
+        _string_input(self.children[0], schema, self.fn)
+        return T.string
+
+    def eval(self, ctx):
+        return _rewrite_dictionary(ctx, self.children[0].eval(ctx),
+                                   self.FNS[self.fn])
+
+    def __repr__(self):
+        return f"{self.fn}({self.children[0]!r})"
+
+
+class Substring(Expression):
+    """substring(s, pos, len) with literal pos/len (1-based; a negative pos
+    counts from the end)."""
+
+    def __init__(self, child: Expression, pos: int, length: int):
+        self.children = (child,)
+        self.pos = pos
+        self.length = length
+
+    def data_type(self, schema):
+        return T.string
+
+    def _cut(self, w: str) -> str:
+        start = self.pos - 1 if self.pos > 0 else self.pos
+        s = w[start:] if start >= 0 else w[len(w) + start:]
+        return s[:self.length]
+
+    def eval(self, ctx):
+        # an empty dictionary stays empty (the JAX package's rule here)
+        return _rewrite_dictionary(ctx, self.children[0].eval(ctx),
+                                   self._cut, empty=())
+
+    def __repr__(self):
+        return f"substring({self.children[0]!r}, {self.pos}, {self.length})"
+
+
+class StringLength(Expression):
+    def __init__(self, child):
+        self.children = (child,)
+
+    def data_type(self, schema):
+        return T.int32
+
+    def eval(self, ctx):
+        v = self.children[0].eval(ctx)
+        lens = np.array([len(w) for w in v.dictionary], np.int32) \
+            if v.dictionary else np.zeros(1, np.int32)
+        return ExprValue(_dict_gather(ctx, lens, v.data), v.valid)
+
+    def __repr__(self):
+        return f"length({self.children[0]!r})"
+
+
+class Concat(Expression):
+    """concat of string columns and literals.  The output dictionary is the
+    cross product of the inputs' dictionaries, re-sorted; a product above
+    ``MAX_DICT`` words is refused."""
+
+    MAX_DICT = 1 << 20
+
+    def __init__(self, *children):
+        self.children = tuple(children)
+
+    def data_type(self, schema):
+        return T.string
+
+    def eval(self, ctx):
+        vals = [c.eval(ctx) for c in self.children]
+        dicts = [v.dictionary if v.dictionary is not None else ("",)
+                 for v in vals]
+        size = 1
+        for d in dicts:
+            size *= max(len(d), 1)
+        if size > self.MAX_DICT:
+            raise AnalysisException(
+                f"concat dictionary blowup ({size}); use host path")
+        # pairwise fold: two dictionary-coded values at a time, through one
+        # flattened (left code, right code) table
+        cur, cur_dict = vals[0], dicts[0]
+        for v, d in zip(vals[1:], dicts[1:]):
+            new_dict = tuple(sorted({a + b for a in cur_dict for b in d}))
+            pos = {w: i for i, w in enumerate(new_dict)}
+            remap = np.array([pos[a + b] for a in cur_dict for b in d],
+                             np.int32)
+            width = max(len(d), 1)
+            if not remap.size:
+                remap, width = np.zeros(1, np.int32), 1
+            left = cur.data.long().clamp(min=0)
+            right = v.data.long().clamp(0, width - 1)
+            code = _dict_gather(ctx, remap, left * width + right)
+            cur = ExprValue(code, and_valid(cur.valid, v.valid), new_dict)
+            cur_dict = new_dict
+        return cur
+
+    def __repr__(self):
+        return f"concat({', '.join(map(repr, self.children))})"
+
+
+def _soundex(word: str) -> str:
+    codes = {"b": "1", "f": "1", "p": "1", "v": "1",
+             "c": "2", "g": "2", "j": "2", "k": "2", "q": "2", "s": "2",
+             "x": "2", "z": "2", "d": "3", "t": "3", "l": "4",
+             "m": "5", "n": "5", "r": "6"}
+    w = "".join(c for c in word.upper() if c.isalpha())
+    if not w:
+        return word
+    out = [w[0]]
+    prev = codes.get(w[0].lower(), "")
+    for c in w[1:]:
+        code = codes.get(c.lower(), "")
+        if code and code != prev:
+            out.append(code)
+        if c.lower() not in ("h", "w"):
+            prev = code
+    return (out[0] + "".join(out[1:]) + "000")[:4]
+
+
+class ParamStringTransform(Expression):
+    """String→string transforms with literal parameters (regexp_replace,
+    lpad, translate, md5, ...), under the dictionary-rewrite contract."""
+
+    @staticmethod
+    def _make(kind, params):
+        import base64 as b64
+        import hashlib
+        if kind == "regexp_replace":
+            pat, repl = params
+            rx = re.compile(pat)
+            return lambda s: rx.sub(repl, s)
+        if kind == "regexp_extract":
+            pat, idx = params
+            rx = re.compile(pat)
+
+            def ex(s):
+                m = rx.search(s)
+                return m.group(idx) if m else ""
+            return ex
+        if kind == "lpad":
+            n, pad = params
+            return lambda s: s.rjust(n, pad)[:n] if pad else s[:n]
+        if kind == "rpad":
+            n, pad = params
+            return lambda s: s.ljust(n, pad)[:n] if pad else s[:n]
+        if kind == "translate":
+            frm, to = params
+            table = str.maketrans(frm[:len(to)], to[:len(frm)],
+                                  frm[len(to):])
+            return lambda s: s.translate(table)
+        if kind == "repeat":
+            (n,) = params
+            return lambda s: s * n
+        if kind == "soundex":
+            return _soundex
+        if kind == "md5":
+            return lambda s: hashlib.md5(s.encode()).hexdigest()
+        if kind == "sha1":
+            return lambda s: hashlib.sha1(s.encode()).hexdigest()
+        if kind == "sha2":
+            (bits,) = params
+            return lambda s: hashlib.new(f"sha{bits}", s.encode()).hexdigest()
+        if kind == "base64":
+            return lambda s: b64.b64encode(s.encode()).decode()
+        if kind == "unbase64":
+            return lambda s: b64.b64decode(s.encode()).decode("utf-8",
+                                                              "replace")
+        if kind == "hex":
+            return lambda s: s.encode().hex().upper()
+        raise AnalysisException(f"unknown string transform {kind}")
+
+    def __init__(self, kind: str, child: Expression, params: tuple = ()):
+        self.kind = kind
+        self.params = tuple(params)
+        self._fn = self._make(kind, self.params)
+        self.children = (child,)
+
+    def data_type(self, schema):
+        _string_input(self.children[0], schema, self.kind)
+        return T.string
+
+    def eval(self, ctx):
+        return _rewrite_dictionary(ctx, self.children[0].eval(ctx), self._fn)
+
+    def __repr__(self):
+        return f"{self.kind}({self.children[0]!r}, {self.params})"
+
+
+class StringToInt(Expression):
+    """String→int64 through a host-computed per-word table (instr, locate,
+    levenshtein against a literal, crc32)."""
+
+    @staticmethod
+    def _make(kind, params):
+        import zlib
+        if kind == "instr":
+            (sub,) = params
+            return lambda s: s.find(sub) + 1
+        if kind == "locate":
+            sub, start = params
+            return lambda s: s.find(sub, max(start - 1, 0)) + 1
+        if kind == "levenshtein":
+            (other,) = params
+
+            def lev(s):
+                a, b = s, other
+                if len(a) < len(b):
+                    a, b = b, a
+                prev = list(range(len(b) + 1))
+                for i, ca in enumerate(a, 1):
+                    cur = [i]
+                    for j, cb in enumerate(b, 1):
+                        cur.append(min(prev[j] + 1, cur[j - 1] + 1,
+                                       prev[j - 1] + (ca != cb)))
+                    prev = cur
+                return prev[-1]
+            return lev
+        if kind == "crc32":
+            return lambda s: zlib.crc32(s.encode()) & 0xFFFFFFFF
+        raise AnalysisException(f"unknown string→int transform {kind}")
+
+    def __init__(self, kind: str, child: Expression, params: tuple = ()):
+        self.kind = kind
+        self.params = tuple(params)
+        self._fn = self._make(kind, self.params)
+        self.children = (child,)
+
+    def data_type(self, schema):
+        _string_input(self.children[0], schema, self.kind)
+        return T.int64
+
+    def eval(self, ctx):
+        v = self.children[0].eval(ctx)
+        table = np.array([self._fn(w) for w in (v.dictionary or ())] or [0],
+                         np.int64)
+        return ExprValue(_dict_gather(ctx, table, v.data), v.valid)
+
+    def __repr__(self):
+        return f"{self.kind}({self.children[0]!r}, {self.params})"
+
+
+# ---- dates: integer calendar arithmetic (Hinnant's civil algorithms) -----
+
+_US_PER_DAY = 86_400_000_000
+
+
+def _civil_ymd_vec(days: torch.Tensor):
+    """(y, m, d) int64 tensors from day numbers (civil_from_days)."""
+    z = days + 719_468
+    era = z // 146_097
+    doe = z - era * 146_097
+    yoe = (doe - doe // 1460 + doe // 36_524 - doe // 146_096) // 365
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)
+    mp = (5 * doy + 2) // 153
+    d = doy - (153 * mp + 2) // 5 + 1
+    m = torch.where(mp < 10, mp + 3, mp - 9)
+    y = torch.where(m <= 2, y + 1, y)
+    return y, m, d
+
+
+def _days_from_civil(y: torch.Tensor, m: int, d: int) -> torch.Tensor:
+    """Day numbers of years ``y`` at a fixed month and day."""
+    y = y - (1 if m <= 2 else 0)
+    era = y // 400
+    yoe = y - era * 400
+    mp = (m + 9) % 12
+    doy = (153 * mp + 2) // 5 + d - 1
+    doe = yoe * 365 + yoe // 4 - yoe // 100 + doy
+    return era * 146_097 + doe - 719_468
+
+
+def _days_from_civil_vec(y, m, d):
+    """Day numbers from (y, m, d) int64 tensors (days_from_civil)."""
+    y = torch.where(m <= 2, y - 1, y)
+    era = y // 400
+    yoe = y - era * 400
+    mp = torch.where(m > 2, m - 3, m + 9)
+    doy = (153 * mp + 2) // 5 + d - 1
+    doe = yoe * 365 + yoe // 4 - yoe // 100 + doy
+    return era * 146_097 + doe - 719_468
+
+
+_MONTH_DAYS = np.array([31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31],
+                       np.int64)
+
+
+def _month_len_vec(ctx: EvalContext, y, m):
+    leap = ((y % 4 == 0) & (y % 100 != 0)) | (y % 400 == 0)
+    base = constant(_MONTH_DAYS, ctx.device)[torch.clamp(m - 1, 0, 11)]
+    return torch.where((m == 2) & leap, 29, base)
+
+
+def _as_days(v: ExprValue, dt: T.DataType) -> torch.Tensor:
+    if isinstance(dt, T.TimestampType):
+        return v.data.to(torch.int64) // _US_PER_DAY
+    if isinstance(dt, T.DateType) or dt.is_integral:
+        return v.data.to(torch.int64)
+    raise AnalysisException(f"expected a date/timestamp, got {dt}")
+
+
+class ExtractDatePart(Expression):
+    """year/month/day/... of a date (days) or timestamp (microseconds)."""
+
+    PARTS = ("year", "month", "day", "dayofweek", "dayofyear", "quarter",
+             "hour", "minute", "second", "weekofyear")
+
+    def __init__(self, part: str, child: Expression):
+        assert part in self.PARTS, part
+        self.part = part
+        self.children = (child,)
+
+    def data_type(self, schema):
+        return T.int32
+
+    def eval(self, ctx):
+        v = self.children[0].eval(ctx)
+        src = self.children[0].data_type(ctx.batch.schema)
+        if isinstance(src, T.TimestampType):
+            days = v.data.to(torch.int64) // _US_PER_DAY
+            micros = v.data.to(torch.int64) - days * _US_PER_DAY
+        elif isinstance(src, T.DateType):
+            days = v.data.to(torch.int64)
+            micros = torch.zeros_like(days)
+        else:
+            raise AnalysisException(f"cannot extract {self.part} from {src}")
+        part = self.part
+        if part == "hour":
+            out = micros // 3_600_000_000
+        elif part == "minute":
+            out = (micros // 60_000_000) % 60
+        elif part == "second":
+            out = (micros // 1_000_000) % 60
+        elif part == "dayofweek":
+            out = (days + 4) % 7 + 1            # 1 = Sunday; 1970-01-01 a Thursday
+        elif part == "weekofyear":
+            # ISO week: the week of the Thursday of this one
+            thursday = days - (days + 3) % 7 + 3
+            iso_year, _m, _d = _civil_ymd_vec(thursday)
+            jan4 = _days_from_civil(iso_year, 1, 4)
+            week1_mon = jan4 - (jan4 + 3) % 7
+            out = (days - week1_mon) // 7 + 1
+        else:
+            y, m, d = _civil_ymd_vec(days)
+            if part == "year":
+                out = y
+            elif part == "month":
+                out = m
+            elif part == "day":
+                out = d
+            elif part == "quarter":
+                out = (m - 1) // 3 + 1
+            else:                               # dayofyear
+                out = days - _days_from_civil(y, 1, 1) + 1
+        return ExprValue(out.to(torch.int32), v.valid)
+
+    def __repr__(self):
+        return f"{self.part}({self.children[0]!r})"
+
+
+class DateArith(Expression):
+    """date_add/date_sub/datediff/add_months/months_between/last_day."""
+
+    KINDS = ("date_add", "date_sub", "datediff", "add_months",
+             "months_between", "last_day")
+
+    def __init__(self, kind: str, *children: Expression):
+        assert kind in self.KINDS, kind
+        self.kind = kind
+        self.children = tuple(children)
+
+    def data_type(self, schema):
+        if self.kind == "datediff":
+            return T.int32
+        if self.kind == "months_between":
+            return T.float64
+        return T.date
+
+    def eval(self, ctx):
+        schema = ctx.batch.schema
+        a = ctx.broadcast(self.children[0].eval(ctx))
+        da = _as_days(a, self.children[0].data_type(schema))
+        if self.kind == "last_day":
+            y, m, _d = _civil_ymd_vec(da)
+            out = _days_from_civil_vec(y, m, _month_len_vec(ctx, y, m))
+            return ExprValue(out.to(torch.int32), a.valid)
+        b = ctx.broadcast(self.children[1].eval(ctx))
+        valid = and_valid(a.valid, b.valid)
+        if self.kind in ("date_add", "date_sub"):
+            n = b.data.to(torch.int64)
+            out = da + (n if self.kind == "date_add" else -n)
+            return ExprValue(out.to(torch.int32), valid)
+        db = None if self.kind == "add_months" else \
+            _as_days(b, self.children[1].data_type(schema))
+        if self.kind == "datediff":
+            return ExprValue((da - db).to(torch.int32), valid)
+        y, m, d = _civil_ymd_vec(da)
+        if self.kind == "add_months":
+            total = (y * 12 + (m - 1)) + b.data.to(torch.int64)
+            ny = total // 12
+            nm = total - ny * 12 + 1
+            nd = torch.minimum(d, _month_len_vec(ctx, ny, nm))
+            out = _days_from_civil_vec(ny, nm, nd)
+            return ExprValue(out.to(torch.int32), valid)
+        # months_between: whole months when the days of month match or both
+        # are month ends, else the day difference / 31, to 8 digits
+        y2, m2, d2 = _civil_ymd_vec(db)
+        whole = ((y - y2) * 12 + (m - m2)).to(torch.float64)
+        last1 = d == _month_len_vec(ctx, y, m)
+        last2 = d2 == _month_len_vec(ctx, y2, m2)
+        frac = _div_exact((d - d2).to(torch.float64), 31.0)
+        out = torch.where((d == d2) | (last1 & last2), whole, whole + frac)
+        return ExprValue(_div_exact(torch.round(out * 1e8), 1e8), valid)
+
+    def __repr__(self):
+        return f"{self.kind}({', '.join(map(repr, self.children))})"
+
+
+class NextDay(Expression):
+    """next_day(date, 'Mon'): the first later date on that weekday."""
+
+    DOW = {"sun": 0, "mon": 1, "tue": 2, "wed": 3, "thu": 4, "fri": 5,
+           "sat": 6}
+
+    def __init__(self, child: Expression, day_name: str):
+        key = str(day_name).strip().lower()[:3]
+        if key not in self.DOW:
+            raise AnalysisException(f"unknown weekday {day_name!r}")
+        self.day_name = key
+        self.children = (child,)
+
+    def data_type(self, schema):
+        return T.date
+
+    def eval(self, ctx):
+        v = ctx.broadcast(self.children[0].eval(ctx))
+        days = _as_days(v, self.children[0].data_type(ctx.batch.schema))
+        cur = (days + 4) % 7                    # 0 = Sunday
+        delta = (self.DOW[self.day_name] - cur + 7) % 7
+        delta = torch.where(delta == 0, 7, delta)
+        return ExprValue((days + delta).to(torch.int32), v.valid)
+
+    def __repr__(self):
+        return f"next_day({self.children[0]!r}, {self.day_name!r})"
+
+
+class TruncDate(Expression):
+    """trunc(date, 'year'|'month'|'week'|'quarter') -> date."""
+
+    def __init__(self, child: Expression, fmt: str):
+        key = str(fmt).strip().lower()
+        key = {"yy": "year", "yyyy": "year", "mm": "month",
+               "mon": "month"}.get(key, key)
+        if key not in ("year", "month", "week", "quarter"):
+            raise AnalysisException(f"unknown trunc unit {fmt!r}")
+        self.fmt = key
+        self.children = (child,)
+
+    def data_type(self, schema):
+        return T.date
+
+    def eval(self, ctx):
+        v = ctx.broadcast(self.children[0].eval(ctx))
+        days = _as_days(v, self.children[0].data_type(ctx.batch.schema))
+        if self.fmt == "week":                  # weeks start on Monday
+            out = days - (days + 3) % 7
+        else:
+            y, m, _d = _civil_ymd_vec(days)
+            if self.fmt == "year":
+                m = torch.ones_like(m)
+            elif self.fmt == "quarter":
+                m = ((m - 1) // 3) * 3 + 1
+            out = _days_from_civil_vec(y, m, torch.ones_like(days))
+        return ExprValue(out.to(torch.int32), v.valid)
+
+    def __repr__(self):
+        return f"trunc({self.children[0]!r}, {self.fmt!r})"
+
+
+class UnixTimestamp(Expression):
+    """unix_timestamp(ts) -> seconds since the epoch (int64);
+    ``inverse=True`` is from_unixtime, giving a TIMESTAMP (the JAX
+    package's deviation: Spark formats a string)."""
+
+    def __init__(self, child: Expression, inverse: bool = False):
+        self.inverse = inverse
+        self.children = (child,)
+
+    def data_type(self, schema):
+        return T.timestamp if self.inverse else T.int64
+
+    def eval(self, ctx):
+        v = ctx.broadcast(self.children[0].eval(ctx))
+        dt = self.children[0].data_type(ctx.batch.schema)
+        data = v.data.to(torch.int64)
+        if self.inverse:
+            return ExprValue(data * 1_000_000, v.valid)
+        if isinstance(dt, T.DateType):
+            return ExprValue(data * 86_400, v.valid)
+        return ExprValue(data // 1_000_000, v.valid)
+
+    def __repr__(self):
+        op = "from_unixtime" if self.inverse else "unix_timestamp"
+        return f"{op}({self.children[0]!r})"
+
+
+class GroupingCall(Expression):
+    """grouping(col) / grouping_id() under GROUP BY ROLLUP/CUBE/GROUPING
+    SETS: the analyzer's grouping-set rewrite replaces it with a literal
+    per branch."""
+
+    def __init__(self, child: Optional[Expression]):
+        self.children = (child,) if child is not None else ()
+
+    @property
+    def name(self):
+        return "grouping_id()" if not self.children \
+            else f"grouping({self.children[0].name})"
+
+    def data_type(self, schema):
+        return T.int64 if not self.children else T.int32
+
+    def eval(self, ctx):
+        raise AnalysisException(
+            "grouping()/grouping_id() are only valid with GROUP BY "
+            "ROLLUP/CUBE/GROUPING SETS")
+
+    def __repr__(self):
+        return self.name

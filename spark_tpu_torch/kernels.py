@@ -216,6 +216,13 @@ def segment_reduce(data: torch.Tensor, seg_ids: torch.Tensor,
     data = data.contiguous()
     if kind == "sum":
         out = torch.zeros(num_segments, dtype=data.dtype, device=data.device)
+        if data.dtype.is_floating_point:
+            # a float sum whose bits depend only on the segment's values in
+            # their order, never on where the segment lies or on the timing
+            # of atomics (index_add_ on a card): two groups of the same
+            # rows sum to the same double, as in a sequential engine (a
+            # ROLLUP level and its only child must tie: TPC-DS q67's rank)
+            return out.index_put_((seg_ids,), data, accumulate=True)
         return out.index_add_(0, seg_ids, data)
     out = torch.full((num_segments,), identity(kind, data.dtype),
                      dtype=data.dtype, device=data.device)
@@ -356,7 +363,21 @@ def _sorted_grouped_aggregate(
         out_vectors.append(ColumnVector(kdata.to(dt.torch_dtype), dt, kvalid,
                                         v.dictionary))
 
+    # every percentile slot over one child shares ONE value sort
+    pct_results = {}
+    by_child = {}
+    for f, n in agg_slots:
+        if getattr(f, "is_percentile", False):
+            by_child.setdefault(repr(f.children[0]), []).append((f, n))
+    for group in by_child.values():
+        pct_results.update(_percentile_groups(ctx, group, sort_cols, live,
+                                              capacity))
+
     for func, name in agg_slots:
+        if name in pct_results:
+            out_names.append(name)
+            out_vectors.append(pct_results[name])
+            continue
         specs = func.make_buffers(ctx, live)
         if perm is None:
             reduced = [_global_reduce(s.data, s.kind, capacity) for s in specs]
@@ -391,6 +412,53 @@ def _sorted_grouped_aggregate(
         for v in out_vectors
     ]
     return ColumnBatch(out_names, out_vectors, None, 1)
+
+
+def _percentile_groups(ctx: EvalContext, slots, sort_cols: Sequence[Array],
+                       live: torch.Tensor, capacity: int) -> dict:
+    """Exact nearest-rank percentiles per group for every slot over one
+    child, from ONE value sort: re-sort by (group keys, value) so each
+    group's values are in order, then take the row whose position among
+    its group's non-null values is floor(p * (n_valid - 1)).  Returns
+    {slot name: ColumnVector}."""
+    func = slots[0][0]
+    v = ctx.broadcast(func.children[0].eval(ctx))
+    vdata = v.data.to(torch.int8) if v.data.dtype == torch.bool else v.data
+    dev = vdata.device
+    keep = live if v.valid is None else (live & v.valid)
+    # NULL and dead values sort to the end of their group
+    ident = constant(identity("max", vdata.dtype), dev, vdata.dtype)
+    vkey = torch.where(keep, vdata, ident)
+    vnull = (~keep).to(torch.int8)
+    perm = multi_key_argsort(list(sort_cols) + [vnull, vkey], capacity)
+    live_s, keep_s = live[perm], keep[perm]
+    is_start = _segment_starts([c[perm] for c in sort_cols], live_s, capacity)
+    seg_ids = torch.cumsum(is_start.to(torch.int64), 0) - 1
+    # dead rows sort last: each to its own slot past the groups (as in
+    # _sorted_grouped_aggregate), never a live group's
+    seg_ids = torch.where(live_s, seg_ids,
+                          torch.arange(capacity, device=dev))
+    keep64 = keep_s.to(torch.int64)
+    n_valid = segment_reduce(keep64, seg_ids, capacity, "sum")
+    ck = torch.cumsum(keep64, 0)
+    far = constant(1 << 62, dev, torch.int64)
+    seg_base = segment_reduce(torch.where(keep_s, ck - 1, far), seg_ids,
+                              capacity, "min")
+    pos = ck - 1 - seg_base[seg_ids]
+    got = n_valid > 0
+    vdata_s = vdata[perm]
+    out = {}
+    for f, name in slots:
+        target = torch.floor(f.percentage * (n_valid - 1).to(torch.float64)
+                             ).to(torch.int64)
+        win = keep_s & (pos == target[seg_ids])
+        # a max over exactly one winner is the gather; empty groups NULL
+        red = segment_reduce(torch.where(win, vdata_s, ident), seg_ids,
+                             capacity, "max")
+        dt = f.data_type(ctx.batch.schema)
+        out[name] = ColumnVector(red.to(dt.torch_dtype), dt, got,
+                                 v.dictionary)
+    return out
 
 
 def _scatter_starts(sorted_data: torch.Tensor, seg_ids: torch.Tensor,

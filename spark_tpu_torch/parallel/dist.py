@@ -28,7 +28,7 @@ import torch
 
 from .. import types as T
 from ..aggregates import (AggregateFunction, Avg, Count, CountStar, First,
-                          Max, Min, Sum, identity)
+                          Max, Min, Sum, VarianceBase, identity)
 from ..columnar import ColumnBatch, ColumnVector, pad_capacity
 from ..expressions import AnalysisException, Cast, Col, EvalContext, \
     Expression, Hash64
@@ -655,6 +655,8 @@ class DFinalAggregate(DNode):
             return ["min", "sum"]
         if isinstance(func, Max):
             return ["max", "sum"]
+        if isinstance(func, VarianceBase):
+            return ["sum", "sum", "sum"]
         raise NotImplementedError(f"distributed merge for {func!r}")
 
     def __repr__(self):

@@ -25,6 +25,7 @@ from ..sql.joins import PJoin, _JoinOutput, plan_join_raw
 from ..sql.logical import (Aggregate, Distinct, Filter, Join, Limit,
                            LocalRelation, LogicalPlan, Project,
                            RangeRelation, Sample, Sort, SubqueryAlias)
+from ..sql.window import WindowNode
 from ..sql.planner import (ADAPT_MAX_RETRIES, Planner, _slice_to_host,
                            check_planned_join_capacities,
                            grow_capacity_factor)
@@ -106,9 +107,26 @@ class DistributedPlanner(Planner):
             return D.DLimit(node.n, self._to_physical(node.child, leaves))
         if isinstance(node, Join):
             return self._plan_dist_join(node, leaves)
-        # windows raise here as on the single-device lane (the window slice
-        # brings them, with their exchange)
+        if isinstance(node, WindowNode):
+            return self._plan_dist_window(node, leaves)
         return super()._to_physical(node, leaves)
+
+    def _plan_dist_window(self, node: WindowNode, leaves) -> P.PhysicalPlan:
+        """A window needs every row of a partition on one shard
+        (``WindowExec.requiredChildDistribution``: clustered on partitionBy,
+        one partition when it is empty): a hash exchange by the partition
+        keys (one K2 launch), or a gather to one shard, then the
+        single-device window operator on each shard.  The analyzer makes
+        one WindowNode per window spec, so one exchange serves all its
+        window expressions."""
+        child = self._to_physical(node.child, leaves)
+        pb = node.wexprs[0][0].spec.partition_by
+        if pb:
+            exchanged = D.DExchangeHash(list(pb), self.n_shards, self.skew,
+                                        child, fine_buckets=self.fine)
+        else:
+            exchanged = D.DGatherOne(child)
+        return P.PWindow(node.wexprs, exchanged)
 
     def _plan_dist_join(self, node: Join, leaves) -> P.PhysicalPlan:
         n = self.n_shards

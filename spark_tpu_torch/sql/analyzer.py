@@ -14,43 +14,51 @@ validation plus these structural rewrites:
 * join disambiguation, qualified-name resolution and ORDER BY references.
 * UDF resolution, the subquery rewrite (``subquery.py``), star expansion
   and INTERSECT / EXCEPT as semi / anti joins, in the JAX package's order.
+* ``ExtractWindowExpressions``: window expressions leave the select list
+  for one ``WindowNode`` per window spec (a window over an aggregate reads
+  the aggregate's slot).
+* grouping sets: ROLLUP / CUBE / GROUPING SETS become a UNION ALL of one
+  Aggregate per set, with typed NULLs for the absent keys and
+  ``grouping()`` / ``grouping_id()`` as literals per branch.
 * eager schema validation for early, readable AnalysisException errors.
 
-The window, grouping-set and explode hooks of the JAX package are not
-ported: ``_check_ported`` raises ``NotImplementedError`` naming the slice
-that brings each plan node, and ``not_ported`` builds the parser's
+The explode and sliding-window hooks of the JAX package are not ported:
+``_check_ported`` raises ``NotImplementedError`` naming the slice that
+brings each plan node, and ``not_ported`` builds the parser's
 ``AnalysisException`` for each function name and syntax a later slice
 brings.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 from ..aggregates import AggregateFunction, Count, CountDistinct, CountStar, Sum
-from ..expressions import Alias, AnalysisException, And, Col, EQ, Expression
-from .logical import (Aggregate, Distinct, Except, Filter, Intersect, Join,
-                      Limit, LocalRelation, LogicalPlan, Project,
-                      RangeRelation, Sort, SortOrder, SubqueryAlias, Union,
-                      UnresolvedRelation)
+from ..expressions import (Alias, AnalysisException, And, Col, EQ,
+                           Expression, GroupingCall, Literal)
+from .logical import (Aggregate, Distinct, Except, Filter, GroupingSets,
+                      Intersect, Join, Limit, LocalRelation, LogicalPlan,
+                      Project, RangeRelation, Sort, SortOrder, SubqueryAlias,
+                      Union, UnresolvedRelation)
+from .window import WindowExpression, WindowNode, WindowSpec, contains_window
 
 _BREADTH = "the TPC-DS breadth slice"
-_WINDOWS = "the window-function slice"
+_SAMPLE = f"{_BREADTH} (rand/sample)"
+_ARRAYS = f"{_BREADTH} (array columns)"
 
 #: logical nodes of the JAX package whose execution a later slice of the
 #: port brings, by class name, and that slice
 _NOT_PORTED = {
-    "Sample": f"{_BREADTH} (rand/sample)",
-    "WindowNode": _WINDOWS,
-    "Explode": f"{_BREADTH} (array columns)",
-    "GroupingSets": f"{_BREADTH} (ROLLUP/CUBE/grouping sets)",
+    "Sample": _SAMPLE,
+    "Explode": _ARRAYS,
     "FileRelation": "the scan slice (parquet/csv/json readers)",
     "FlatMapGroupsWithState": "the streaming slice",
 }
 
 _PORTED_NODES = (LocalRelation, RangeRelation, UnresolvedRelation, Project,
                  Filter, Aggregate, Sort, Limit, Join, Distinct,
-                 SubqueryAlias, Union, Intersect, Except)
+                 SubqueryAlias, Union, Intersect, Except, WindowNode,
+                 GroupingSets)
 
 
 def _names(names: str, where: str) -> Dict[str, str]:
@@ -60,42 +68,21 @@ def _names(names: str, where: str) -> Dict[str, str]:
 #: SQL function names the JAX package's parser registers whose expression
 #: a later slice of the port brings, and that slice
 NOT_PORTED_FUNCTIONS: Dict[str, str] = {
-    **_names("abs sqrt exp ln log log10 log2 floor ceil ceiling sin cos tan "
-             "asin acos atan sinh cosh tanh signum sign radians degrees "
-             "log1p expm1 cbrt rint power pow hypot atan2 nanvl round "
-             "greatest least isnan", f"{_BREADTH} (math functions)"),
-    **_names("upper ucase lower lcase trim ltrim rtrim reverse initcap "
-             "length char_length substring substr concat concat_ws "
-             "regexp_replace regexp_extract lpad rpad translate repeat "
-             "soundex md5 sha1 sha2 base64 unbase64 hex instr locate "
-             "levenshtein crc32", f"{_BREADTH} (string functions)"),
-    **_names("year month day dayofmonth dayofweek dayofyear quarter hour "
-             "minute second weekofyear date_add date_sub datediff "
-             "add_months months_between last_day next_day trunc "
-             "unix_timestamp from_unixtime", f"{_BREADTH} (date functions)"),
-    **_names("rand randn spark_partition_id", f"{_BREADTH} (rand/sample)"),
+    **_names("rand randn spark_partition_id", _SAMPLE),
     **_names("array split size cardinality element_at map named_struct "
              "struct map_keys map_values map_from_arrays array_contains "
              "array_max array_min sort_array array_distinct slice "
              "array_position explode posexplode transform filter forall "
-             "aggregate zip_with", f"{_BREADTH} (array columns)"),
-    **_names("grouping grouping_id", f"{_BREADTH} (ROLLUP/CUBE/grouping sets)"),
-    **_names("collect_list collect_set median percentile_approx "
-             "approx_percentile stddev stddev_samp stddev_pop variance "
-             "var_samp var_pop", f"{_BREADTH} (statistical aggregates)"),
-    **_names("row_number rank dense_rank percent_rank cume_dist ntile lag "
-             "lead", _WINDOWS),
+             "aggregate zip_with", _ARRAYS),
+    # they produce array columns, which the port's batches do not hold yet
+    **_names("collect_list collect_set",
+             f"{_BREADTH} (statistical aggregates)"),
     **_names("window window_end", "the streaming slice (event-time windows)"),
 }
 
 #: SQL syntax whose expression or plan node a later slice brings
 _NOT_PORTED_SYNTAX = {
-    "OVER": _WINDOWS,
-    "ROLLUP": f"{_BREADTH} (ROLLUP/CUBE/grouping sets)",
-    "CUBE": f"{_BREADTH} (ROLLUP/CUBE/grouping sets)",
-    "GROUPING SETS": f"{_BREADTH} (ROLLUP/CUBE/grouping sets)",
-    "||": f"{_BREADTH} (string functions)",
-    "exists": f"{_BREADTH} (array columns)",
+    "exists": _ARRAYS,
 }
 
 
@@ -127,6 +114,17 @@ def split_aggregate_expr(e: Expression, slots: List[Tuple[AggregateFunction, str
         name = fresh_name("agg", repr(e), len(slots))
         slots.append((e, name))
         return Col(name)
+    if isinstance(e, WindowExpression):
+        # a window over aggregates (SUM(SUM(x)) OVER ...): the window
+        # function's ARGUMENTS become aggregate slots like any other
+        # post-aggregate expression; the window computes over the
+        # aggregated rows.  PARTITION / ORDER reference grouping keys
+        f2 = e.func.map_children(lambda c: split_aggregate_expr(c, slots))
+        p2 = [split_aggregate_expr(p, slots) for p in e.spec.partition_by]
+        o2 = [type(o)(split_aggregate_expr(o.child, slots), o.ascending,
+                      o.nulls_first) for o in e.spec.order_by]
+        return WindowExpression(
+            f2, WindowSpec(p2, o2, e.spec.frame, e.spec.frame_type))
     return e.map_children(lambda c: split_aggregate_expr(c, slots))
 
 
@@ -279,9 +277,77 @@ class Analyzer:
         # qualified refs bound) to build the all-column join condition
         plan = plan.transform_up(self._replace_set_ops)
         plan = plan.transform_up(self._rewrite_node)
-        # explode / grouping-set / sliding-window rewrites: later slices
+        plan = plan.transform_up(self._rewrite_grouping_sets)
+        # explode / sliding-window rewrites: later slices
         self._validate(plan)
         return plan
+
+    @staticmethod
+    def _rewrite_grouping_sets(node: LogicalPlan) -> LogicalPlan:
+        """GroupingSets → UNION ALL of one Aggregate per grouping set:
+        absent keys project as typed NULLs, grouping()/grouping_id() calls
+        become per-branch literals (the reference's Expand, unrolled)."""
+        if not isinstance(node, GroupingSets):
+            return node
+        child_schema = node.children[0].schema()
+        key_reprs = [repr(k) for k in node.keys]
+        key_dts = [k.data_type(child_schema) for k in node.keys]
+        want = [e.name for e in node.select_list]
+        branches = []
+        for s_idx in node.sets:
+            present = set(s_idx)
+            # grouping_id bitmask: bit i set when key i is aggregated away
+            gid = 0
+            for i in range(len(node.keys)):
+                if i not in present:
+                    gid |= 1 << (len(node.keys) - 1 - i)
+
+            def subst(e: Expression) -> Expression:
+                if isinstance(e, GroupingCall):
+                    if not e.children:
+                        return Literal(gid)
+                    r = repr(e.children[0])
+                    if r not in key_reprs:
+                        raise AnalysisException(
+                            f"grouping() argument {e.children[0]!r} is not "
+                            "a grouping key")
+                    return Literal(0 if key_reprs.index(r) in present else 1)
+                if isinstance(e, AggregateFunction):
+                    # aggregate ARGUMENTS see the child's rows: only the
+                    # grouping OUTPUT columns become NULL
+                    return e
+                r = repr(e)
+                if r in key_reprs and key_reprs.index(r) not in present:
+                    return Literal(None, key_dts[key_reprs.index(r)])
+                return e.map_children(subst)
+
+            sel = []
+            for e in node.select_list:
+                if isinstance(e, Alias):
+                    sel.append(Alias(subst(e.children[0]), e.name))
+                else:
+                    ne = subst(e)
+                    sel.append(ne if ne.name == e.name else Alias(ne, e.name))
+            keys_subset = [node.keys[i] for i in s_idx]
+            branch = build_aggregate(keys_subset, sel, node.children[0])
+            # the aggregate also outputs its keys; keep ONLY the select list
+            if branch.schema().names != want:
+                branch = Project([Col(n) for n in want], branch)
+            if node.having is not None:
+                hv = subst(node.having)
+                slots: List[Tuple[AggregateFunction, str]] = []
+                resid = split_aggregate_expr(hv, slots)
+                if slots:
+                    # HAVING with aggregates: aggregate again per branch
+                    # with the extra slots, filter, project the select list
+                    sel_h = sel + [Alias(f, n) for f, n in slots]
+                    b2 = build_aggregate(keys_subset, sel_h, node.children[0])
+                    branch = Project([Col(n) for n in want],
+                                     Filter(resid, b2))
+                else:
+                    branch = Filter(hv, branch)
+            branches.append(branch)
+        return branches[0] if len(branches) == 1 else Union(branches)
 
     @staticmethod
     def _check_ported(plan: LogicalPlan) -> None:
@@ -406,6 +472,9 @@ class Analyzer:
             return node
 
         def fe(e: Expression) -> Expression:
+            if isinstance(e, WindowExpression):
+                # the window function lives in .func, not .children
+                return e.map_parts(fe)
             e = e.map_children(fe)
             if isinstance(e, UnresolvedFunction):
                 wrapper = None
@@ -453,8 +522,44 @@ class Analyzer:
             return rewrite_distinct_aggregates(node)
         if isinstance(node, Sort):
             return self._resolve_sort_references(node)
-        # window-expression extraction: the window-function slice
+        if isinstance(node, Project):
+            return self._extract_window_expressions(node)
         return node
+
+    @staticmethod
+    def _extract_window_expressions(node: Project) -> LogicalPlan:
+        """ExtractWindowExpressions: pull `f(...) OVER spec` out of the
+        select list into WindowNode operators (one per distinct spec),
+        leaving Col references behind."""
+        if not any(contains_window(e) for e in node.exprs):
+            return node
+        found: List[Tuple[WindowExpression, str]] = []
+
+        def repl(e: Expression) -> Expression:
+            if isinstance(e, WindowExpression):
+                for we, n in found:
+                    if repr(we) == repr(e):
+                        return Col(n)
+                name = fresh_name("win", repr(e), len(found))
+                found.append((e, name))
+                return Col(name)
+            return e.map_children(repl)
+
+        new_exprs = []
+        for e in node.exprs:
+            r = repl(e)
+            # a bare window expression keeps its pretty name
+            if isinstance(r, Col) and not isinstance(e, Alias):
+                r = Alias(r, e.name) if r.name != e.name else r
+            new_exprs.append(r)
+
+        child = node.children[0]
+        by_spec: Dict[Any, List[Tuple[WindowExpression, str]]] = {}
+        for we, n in found:
+            by_spec.setdefault(we.spec._key(), []).append((we, n))
+        for group in by_spec.values():
+            child = WindowNode(group, child)
+        return type(node)(new_exprs, child)
 
     def _resolve_sort_references(self, node: Sort) -> LogicalPlan:
         """ORDER BY may reference input columns dropped by the SELECT list

@@ -1,6 +1,7 @@
 """User-facing Column API (the analog of ``sql/core/.../Column.scala`` /
 pyspark's ``Column``), a thin wrapper over the expression IR — the subset
-of ``spark_tpu/sql/column.py`` whose expressions the port has."""
+of ``spark_tpu/sql/column.py`` whose expressions the port has (not yet:
+``getField`` / ``getItem``, which come with complex types)."""
 
 from __future__ import annotations
 
@@ -8,8 +9,8 @@ from typing import Any, Union
 
 from .. import types as T
 from ..expressions import (Alias, Between, CaseWhen, Cast, EqNullSafe,
-                           Expression, In, IsNotNull, IsNull, StringPredicate,
-                           _wrap)
+                           Expression, In, IsNaN, IsNotNull, IsNull,
+                           StringPredicate, Substring, _wrap)
 from ..logicalutils import sort_order
 
 __all__ = ["Column", "ColumnOrName"]
@@ -84,6 +85,9 @@ class Column:
     def isNotNull(self) -> "Column":
         return Column(IsNotNull(self._e))
 
+    def isNaN(self) -> "Column":
+        return Column(IsNaN(self._e))
+
     # -- strings ----------------------------------------------------------
     def like(self, pattern: str) -> "Column":
         return Column(StringPredicate("like", self._e, pattern))
@@ -99,6 +103,9 @@ class Column:
 
     def contains(self, sub: str) -> "Column":
         return Column(StringPredicate("contains", self._e, sub))
+
+    def substr(self, start: int, length: int) -> "Column":
+        return Column(Substring(self._e, start, length))
 
     # -- conditionals -----------------------------------------------------
     def when(self, condition: "Column", value) -> "Column":
@@ -116,9 +123,14 @@ class Column:
 
     # -- window -----------------------------------------------------------
     def over(self, window) -> "Column":
-        raise NotImplementedError(
-            "window functions are not ported yet: they come with the "
-            "window-function slice")
+        from ..aggregates import AggregateFunction
+        from .window import WindowExpression, WindowFunction
+        e = self._e
+        if isinstance(e, Alias):
+            inner = e.children[0]
+            if isinstance(inner, (AggregateFunction, WindowFunction)):
+                return Column(Alias(WindowExpression(inner, window), e.name))
+        return Column(WindowExpression(e, window))
 
     # -- sort orders ------------------------------------------------------
     def asc(self):

@@ -427,3 +427,50 @@ class SubqueryAlias(LogicalPlan):
 
     def __repr__(self):
         return f"SubqueryAlias {self.alias}"
+
+
+class GroupingSets(LogicalPlan):
+    """GROUP BY ROLLUP/CUBE/GROUPING SETS — carried from the parser to the
+    analyzer, which rewrites it into a UNION ALL of one Aggregate per
+    grouping set with typed NULL literals for the absent keys (the
+    reference's `Expand`-based plan re-shaped for static columnar
+    execution: N fused aggregations beat one 3x-expanded scatter here).
+    ``sets`` holds index tuples into ``keys``; ``grouping()`` calls in the
+    select list resolve to per-branch literals."""
+
+    def __init__(self, select_list: List[Expression], keys: List[Expression],
+                 sets: List[Tuple[int, ...]], having: Optional[Expression],
+                 child: LogicalPlan):
+        self.select_list = list(select_list)
+        self.keys = list(keys)
+        self.sets = [tuple(s) for s in sets]
+        self.having = having
+        self.children = (child,)
+
+    @property
+    def child(self):
+        return self.children[0]
+
+    def expressions(self):
+        return list(self.select_list) + list(self.keys) + (
+            [self.having] if self.having is not None else [])
+
+    def map_expressions(self, fn):
+        return GroupingSets([fn(e) for e in self.select_list],
+                            [fn(k) for k in self.keys], self.sets,
+                            None if self.having is None
+                            else fn(self.having), self.children[0])
+
+    def schema(self) -> T.StructType:
+        # representative schema: every key present (the full grouping
+        # set), fields in SELECT-LIST order — exactly what the rewrite's
+        # per-branch Project emits (set-op branches compare arity/order
+        # against this before the rewrite runs)
+        from .analyzer import build_aggregate
+        rep = build_aggregate(self.keys, self.select_list, self.children[0])
+        rs = rep.schema()
+        by_name = {f.name: f for f in rs.fields}
+        return T.StructType([by_name[e.name] for e in self.select_list])
+
+    def __repr__(self):
+        return f"GroupingSets[{len(self.sets)} sets over {self.keys!r}]"

@@ -16,6 +16,8 @@ exercises:
   BETWEEN, CASE WHEN, CAST(e AS type), function calls (incl. DISTINCT
   aggregates), scalar / IN / EXISTS subqueries, qualified names, ``*``,
   literals.
+* GROUP BY ROLLUP / CUBE / GROUPING SETS, window functions with
+  ``OVER (PARTITION BY .. ORDER BY .. [ROWS BETWEEN ..])``, ``||``.
 * statements: CREATE [OR REPLACE] TEMP VIEW, DROP VIEW/TABLE, SHOW TABLES,
   DESCRIBE, EXPLAIN, SET, and the persistent-catalog commands (CREATE
   TABLE, INSERT, databases, ANALYZE TABLE), which parse here and are
@@ -23,9 +25,8 @@ exercises:
 
 The grammar is the JAX package's, token for token.  The function tables
 register only the expressions this package has; a name whose expression
-a later slice brings (``analyzer.NOT_PORTED_FUNCTIONS``), an ``OVER``
-clause, a lambda, ``||`` and ROLLUP / CUBE / GROUPING SETS raise
-``AnalysisException`` naming the construct and that slice.
+a later slice brings (``analyzer.NOT_PORTED_FUNCTIONS``) and a lambda
+raise ``AnalysisException`` naming the construct and that slice.
 """
 
 from __future__ import annotations
@@ -36,10 +37,16 @@ from typing import Any, List, Optional, Sequence, Tuple
 from .. import aggregates as A
 from .. import types as T
 from ..expressions import (Add, Alias, AnalysisException, And, Between,
-                           CaseWhen, Cast, Coalesce, Col, Div, EQ, Expression,
-                           GE, GT, Hash64, If, In, IsNotNull, IsNull, LE, LT,
-                           Literal, Mod, Mul, NE, Neg, Not, Or, StringPredicate,
-                           Sub)
+                           BinaryMath, CaseWhen, Cast, Coalesce, Col, Concat,
+                           DateArith, Div, EQ, Expression, ExtractDatePart,
+                           GE, GT, Greatest, GroupingCall, Hash64, If, In,
+                           IsNaN, IsNotNull, IsNull, LE, LT, Least, Literal,
+                           Mod, Mul, NE, Neg, NextDay, Not, Or,
+                           ParamStringTransform, Pow, RoundExpr,
+                           StringLength, StringPredicate, StringToInt,
+                           StringTransform, Sub, Substring, TruncDate,
+                           UnaryMath, UnixTimestamp)
+from . import window as W
 from .analyzer import NOT_PORTED_FUNCTIONS, not_ported
 from .logical import (
     Aggregate, Distinct, Except, Filter, Intersect, Join, Limit, LogicalPlan,
@@ -144,6 +151,56 @@ def _one(args, name):
     return args[0]
 
 
+def _fn_unary(name):
+    return lambda args: UnaryMath(name, _one(args, name))
+
+
+def _fn_stransform(name):
+    return lambda args: StringTransform(name, _one(args, name))
+
+
+def _fn_dpart(part):
+    return lambda args: ExtractDatePart(part, _one(args, part))
+
+
+def _litval(e, name):
+    """The value of a literal argument (a negated literal folds)."""
+    if isinstance(e, Neg) and isinstance(e.children[0], Literal):
+        return -e.children[0].value
+    if not isinstance(e, Literal):
+        raise ParseException(f"{name} expects a literal argument")
+    return e.value
+
+
+def _substring(args):
+    if len(args) != 3:
+        raise ParseException("substring expects (str, pos, len)")
+    s, pos, ln = args
+    if not isinstance(pos, Literal) or not isinstance(ln, Literal):
+        raise ParseException("substring pos/len must be literals")
+    return Substring(s, int(pos.value), int(ln.value))
+
+
+def _concat_ws(args):
+    if not args or not isinstance(args[0], Literal):
+        raise ParseException("concat_ws expects a literal separator")
+    sep = str(args[0].value)
+    parts: List[Expression] = []
+    for i, c in enumerate(args[1:]):
+        if i:
+            parts.append(Literal(sep))
+        parts.append(c)
+    return Concat(*parts)
+
+
+def _round(args):
+    if len(args) == 1:
+        return RoundExpr(args[0], 0)
+    if len(args) == 2 and isinstance(args[1], Literal):
+        return RoundExpr(args[0], int(args[1].value))
+    raise ParseException("round expects (expr[, literal scale])")
+
+
 def _nullif(args):
     if len(args) != 2:
         raise ParseException("nullif expects 2 arguments")
@@ -193,6 +250,92 @@ SCALAR_FUNCTIONS = {
     "bigint": lambda a: Cast(_one(a, "bigint"), T.int64),
     "string": lambda a: Cast(_one(a, "string"), T.string),
     "boolean": lambda a: Cast(_one(a, "boolean"), T.boolean),
+    # math
+    "abs": _fn_unary("abs"), "sqrt": _fn_unary("sqrt"), "exp": _fn_unary("exp"),
+    "ln": _fn_unary("ln"), "log": _fn_unary("ln"), "log10": _fn_unary("log10"),
+    "log2": _fn_unary("log2"), "floor": _fn_unary("floor"),
+    "ceil": _fn_unary("ceil"), "ceiling": _fn_unary("ceil"),
+    "sin": _fn_unary("sin"), "cos": _fn_unary("cos"), "tan": _fn_unary("tan"),
+    "asin": _fn_unary("asin"), "acos": _fn_unary("acos"),
+    "atan": _fn_unary("atan"), "sinh": _fn_unary("sinh"),
+    "cosh": _fn_unary("cosh"), "tanh": _fn_unary("tanh"),
+    "signum": _fn_unary("sign"), "sign": _fn_unary("sign"),
+    "radians": _fn_unary("radians"), "degrees": _fn_unary("degrees"),
+    "log1p": _fn_unary("log1p"), "expm1": _fn_unary("expm1"),
+    "cbrt": _fn_unary("cbrt"), "rint": _fn_unary("rint"),
+    "isnan": lambda a: IsNaN(_one(a, "isnan")),
+    "greatest": lambda a: Greatest(*a),
+    "least": lambda a: Least(*a),
+    "power": lambda a: Pow(a[0], a[1]),
+    "pow": lambda a: Pow(a[0], a[1]),
+    "round": _round,
+    "hypot": lambda a: BinaryMath("hypot", a[0], a[1]),
+    "atan2": lambda a: BinaryMath("atan2", a[0], a[1]),
+    "nanvl": lambda a: BinaryMath("nanvl", a[0], a[1]),
+    # strings
+    "upper": _fn_stransform("upper"), "ucase": _fn_stransform("upper"),
+    "lower": _fn_stransform("lower"), "lcase": _fn_stransform("lower"),
+    "trim": _fn_stransform("trim"), "ltrim": _fn_stransform("ltrim"),
+    "rtrim": _fn_stransform("rtrim"), "reverse": _fn_stransform("reverse"),
+    "initcap": _fn_stransform("initcap"),
+    "length": lambda a: StringLength(_one(a, "length")),
+    "char_length": lambda a: StringLength(_one(a, "char_length")),
+    "substring": _substring, "substr": _substring,
+    "concat": lambda a: Concat(*a),
+    "concat_ws": _concat_ws,
+    "regexp_replace": lambda a: ParamStringTransform(
+        "regexp_replace", a[0], (_litval(a[1], "regexp_replace"),
+                                 _litval(a[2], "regexp_replace"))),
+    "regexp_extract": lambda a: ParamStringTransform(
+        "regexp_extract", a[0],
+        (_litval(a[1], "regexp_extract"),
+         int(_litval(a[2], "regexp_extract")) if len(a) > 2 else 1)),
+    "lpad": lambda a: ParamStringTransform(
+        "lpad", a[0], (int(_litval(a[1], "lpad")),
+                       _litval(a[2], "lpad") if len(a) > 2 else " ")),
+    "rpad": lambda a: ParamStringTransform(
+        "rpad", a[0], (int(_litval(a[1], "rpad")),
+                       _litval(a[2], "rpad") if len(a) > 2 else " ")),
+    "translate": lambda a: ParamStringTransform(
+        "translate", a[0], (_litval(a[1], "translate"),
+                            _litval(a[2], "translate"))),
+    "repeat": lambda a: ParamStringTransform(
+        "repeat", a[0], (int(_litval(a[1], "repeat")),)),
+    "soundex": lambda a: ParamStringTransform("soundex", a[0]),
+    "md5": lambda a: ParamStringTransform("md5", a[0]),
+    "sha1": lambda a: ParamStringTransform("sha1", a[0]),
+    "sha2": lambda a: ParamStringTransform(
+        "sha2", a[0], (int(_litval(a[1], "sha2")) if len(a) > 1 else 256,)),
+    "base64": lambda a: ParamStringTransform("base64", a[0]),
+    "unbase64": lambda a: ParamStringTransform("unbase64", a[0]),
+    "hex": lambda a: ParamStringTransform("hex", a[0]),
+    "instr": lambda a: StringToInt("instr", a[0], (_litval(a[1], "instr"),)),
+    "locate": lambda a: StringToInt(
+        "locate", a[1], (_litval(a[0], "locate"),
+                         int(_litval(a[2], "locate")) if len(a) > 2 else 1)),
+    "levenshtein": lambda a: StringToInt(
+        "levenshtein", a[0], (_litval(a[1], "levenshtein"),)),
+    "crc32": lambda a: StringToInt("crc32", a[0]),
+    # dates
+    "year": _fn_dpart("year"), "month": _fn_dpart("month"),
+    "day": _fn_dpart("day"), "dayofmonth": _fn_dpart("day"),
+    "dayofweek": _fn_dpart("dayofweek"), "dayofyear": _fn_dpart("dayofyear"),
+    "quarter": _fn_dpart("quarter"), "hour": _fn_dpart("hour"),
+    "minute": _fn_dpart("minute"), "second": _fn_dpart("second"),
+    "weekofyear": _fn_dpart("weekofyear"),
+    "date_add": lambda a: DateArith("date_add", a[0], a[1]),
+    "date_sub": lambda a: DateArith("date_sub", a[0], a[1]),
+    "datediff": lambda a: DateArith("datediff", a[0], a[1]),
+    "add_months": lambda a: DateArith("add_months", a[0], a[1]),
+    "months_between": lambda a: DateArith("months_between", a[0], a[1]),
+    "last_day": lambda a: DateArith("last_day", a[0]),
+    "next_day": lambda a: NextDay(a[0], _litval(a[1], "next_day")),
+    "trunc": lambda a: TruncDate(a[0], _litval(a[1], "trunc")),
+    "unix_timestamp": lambda a: UnixTimestamp(a[0]),
+    "from_unixtime": lambda a: UnixTimestamp(a[0], inverse=True),
+    # grouping sets
+    "grouping": lambda a: GroupingCall(_one(a, "grouping")),
+    "grouping_id": lambda a: GroupingCall(None),
 }
 
 AGG_FUNCTIONS = {
@@ -205,6 +348,37 @@ AGG_FUNCTIONS = {
     "first_value": lambda e: A.First(e),
     "last": lambda e: A.Last(e),
     "last_value": lambda e: A.Last(e),
+    "median": lambda e: A.PercentileApprox(e, 0.5),
+    "stddev": lambda e: A.StddevSamp(e),
+    "stddev_samp": lambda e: A.StddevSamp(e),
+    "stddev_pop": lambda e: A.StddevPop(e),
+    "variance": lambda e: A.VarSamp(e),
+    "var_samp": lambda e: A.VarSamp(e),
+    "var_pop": lambda e: A.VarPop(e),
+}
+
+
+def _win0(cls):
+    return lambda a: cls()
+
+
+def _lag_lead(cls):
+    def f(a):
+        off = int(a[1].value) if len(a) > 1 else 1
+        default = a[2].value if len(a) > 2 else None
+        return cls(a[0], off, default)
+    return f
+
+
+WINDOW_FUNCTIONS = {
+    "row_number": _win0(W.RowNumber),
+    "rank": _win0(W.Rank),
+    "dense_rank": _win0(W.DenseRank),
+    "percent_rank": _win0(W.PercentRank),
+    "cume_dist": _win0(W.CumeDist),
+    "ntile": lambda a: W.NTile(int(a[0].value)),
+    "lag": _lag_lead(W.Lag),
+    "lead": _lag_lead(W.Lead),
 }
 
 
@@ -675,13 +849,22 @@ class Parser:
             plan = Filter(self.expr(), plan)
 
         group_keys: Optional[List[Expression]] = None
+        grouping_sets = None            # list of index tuples into keys
         if self.accept_kw("GROUP"):
             self.expect_kw("BY")
-            group_keys = self._grouping_spec()
+            group_keys, grouping_sets = self._grouping_spec()
 
         having = None
         if self.accept_kw("HAVING"):
             having = self.expr()
+
+        if grouping_sets is not None:
+            from .logical import GroupingSets
+            plan = GroupingSets(list(select_list), group_keys,
+                                grouping_sets, having, plan)
+            if distinct:
+                plan = Distinct(plan)
+            return plan
 
         plan = self._finish_select(select_list, plan, group_keys, having)
         if distinct:
@@ -690,22 +873,59 @@ class Parser:
         # applies to the whole set operation, not the last SELECT branch)
         return plan
 
-    def _grouping_spec(self) -> List[Expression]:
-        """GROUP BY keys.  ROLLUP(..) / CUBE(..) / GROUPING SETS((..)..)
-        raise: grouping sets come with a later slice."""
+    def _grouping_spec(self):
+        """GROUP BY keys | ROLLUP(..) | CUBE(..) | GROUPING SETS((..)..).
+        Returns (keys, sets): sets None for plain grouping."""
         t = self.peek()
         word = t.value.upper() if t.kind == "IDENT" else None
         if word in ("ROLLUP", "CUBE"):
-            raise not_ported(word)
-        if word == "GROUPING" and self.peek(1).kind == "IDENT" \
-                and self.peek(1).value.upper() == "SETS":
-            raise not_ported("GROUPING SETS")
+            self.next()
+            self.expect_op("(")
+            keys = [self.expr()]
+            while self.accept_op(","):
+                keys.append(self.expr())
+            self.expect_op(")")
+            n = len(keys)
+            if word == "ROLLUP":
+                sets = [tuple(range(n - i)) for i in range(n + 1)]
+            else:
+                sets = [tuple(j for j in range(n) if (m >> j) & 1)
+                        for m in range((1 << n) - 1, -1, -1)]
+            return keys, sets
+        if word == "GROUPING":
+            self.next()
+            nxt = self.next()
+            if not (nxt.kind == "IDENT" and nxt.value.upper() == "SETS"):
+                raise ParseException("expected SETS after GROUPING")
+            self.expect_op("(")
+            keys: List[Expression] = []
+            key_pos = {}
+            sets = []
+            while True:
+                self.expect_op("(")
+                cur = []
+                if not self.accept_op(")"):
+                    while True:
+                        e = self.expr()
+                        r = repr(e)
+                        if r not in key_pos:
+                            key_pos[r] = len(keys)
+                            keys.append(e)
+                        cur.append(key_pos[r])
+                        if not self.accept_op(","):
+                            break
+                    self.expect_op(")")
+                sets.append(tuple(cur))
+                if not self.accept_op(","):
+                    break
+            self.expect_op(")")
+            return keys, sets
         group_keys = []
         while True:
             group_keys.append(self.expr())
             if not self.accept_op(","):
                 break
-        return group_keys
+        return group_keys, None
 
     def _order_limit(self, plan: LogicalPlan, allow: bool) -> LogicalPlan:
         if allow and (self.at_kw("ORDER") or self.at_kw("SORT")):
@@ -995,8 +1215,8 @@ class Parser:
                 e = Add(e, self._multiplicative())
             elif self.accept_op("-"):
                 e = Sub(e, self._multiplicative())
-            elif self.at_op("||"):
-                raise not_ported("||")
+            elif self.accept_op("||"):
+                e = Concat(e, self._multiplicative())
             else:
                 return e
 
@@ -1159,12 +1379,22 @@ class Parser:
             out = A.CountDistinct(args[0])
         elif lname in ("sum",) and distinct:
             out = A.SumDistinct(_one(args, "sum"))
+        elif lname in ("percentile_approx", "approx_percentile"):
+            if distinct:
+                raise ParseException(f"DISTINCT not supported for {lname}")
+            if len(args) not in (2, 3):
+                raise ParseException(
+                    "percentile_approx expects (col, percentage[, accuracy])")
+            out = A.PercentileApprox(
+                args[0], float(_litval(args[1], "percentile_approx")))
         elif lname in AGG_FUNCTIONS:
             if distinct:
                 raise ParseException(f"DISTINCT not supported for {lname}")
             out = AGG_FUNCTIONS[lname](_one(args, lname))
         elif lname in SCALAR_FUNCTIONS:
             out = SCALAR_FUNCTIONS[lname](args)
+        elif lname in WINDOW_FUNCTIONS:
+            out = WINDOW_FUNCTIONS[lname](args)
         else:
             # maybe a registered UDF: defer to analysis (FunctionRegistry
             # lookup happens with the session catalog in scope)
@@ -1177,8 +1407,77 @@ class Parser:
         # OVER ( [PARTITION BY ...] [ORDER BY ...] [ROWS BETWEEN ...] )
         t = self.peek()
         if t.kind == "IDENT" and t.value.upper() == "OVER":
-            raise not_ported("OVER")
+            self.next()
+            out = self._over_clause(out)
         return out
+
+    def _over_clause(self, func: Expression) -> Expression:
+        self.expect_op("(")
+        spec = W.WindowSpec()
+        t = self.peek()
+        if t.kind == "IDENT" and t.value.upper() == "PARTITION":
+            self.next()
+            self.expect_kw("BY")
+            parts = [self.expr()]
+            while self.accept_op(","):
+                parts.append(self.expr())
+            spec = W.WindowSpec(parts, spec.order_by, spec.frame,
+                                spec.frame_type)
+        if self.accept_kw("ORDER"):
+            self.expect_kw("BY")
+            orders = []
+            while True:
+                e = self.expr()
+                asc = True
+                if self.accept_kw("ASC"):
+                    asc = True
+                elif self.accept_kw("DESC"):
+                    asc = False
+                nulls_first = None
+                if self.accept_kw("NULLS"):
+                    if self.accept_kw("FIRST"):
+                        nulls_first = True
+                    else:
+                        self.expect_kw("LAST")
+                        nulls_first = False
+                orders.append(SortOrder(e, asc, nulls_first))
+                if not self.accept_op(","):
+                    break
+            spec = W.WindowSpec(spec.partition_by, orders, spec.frame,
+                                spec.frame_type)
+        t = self.peek()
+        if t.kind == "IDENT" and t.value.upper() in ("ROWS", "RANGE"):
+            kind = self.next().value.lower()
+            self.expect_kw("BETWEEN")
+            lo = self._frame_bound()
+            self.expect_kw("AND")
+            hi = self._frame_bound()
+            if kind == "rows":
+                spec = spec.rowsBetween(
+                    lo if lo is not None else W.Window.unboundedPreceding,
+                    hi if hi is not None else W.Window.unboundedFollowing)
+        self.expect_op(")")
+        return W.WindowExpression(func, spec)
+
+    def _frame_bound(self) -> Optional[int]:
+        t = self.peek()
+        if t.kind == "IDENT" and t.value.upper() == "UNBOUNDED":
+            self.next()
+            t2 = self.next()
+            if t2.value.upper() == "PRECEDING":
+                return W.Window.unboundedPreceding
+            return W.Window.unboundedFollowing
+        if t.kind == "IDENT" and t.value.upper() == "CURRENT":
+            self.next()
+            self.next()    # ROW
+            return 0
+        if t.kind == "NUMBER":
+            n = int(self.next().value)
+            t2 = self.next()
+            if t2.value.upper() == "PRECEDING":
+                return -n
+            return n
+        raise ParseException(f"bad frame bound at {t.pos}: {t.value!r}")
 
 
 # ---------------------------------------------------------------------------

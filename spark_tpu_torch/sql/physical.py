@@ -392,8 +392,31 @@ class PSample(_NotYetPorted):
     slice_name = "the TPC-DS breadth slice (rand/sample)"
 
 
-class PWindow(_NotYetPorted):
-    slice_name = "the window-function slice"
+class PWindow(PhysicalPlan):
+    """Window operator: one sort per spec and vectorized prefix scans
+    (``execution/window/WindowExec.scala`` analog, without per-group
+    loops)."""
+
+    def __init__(self, wexprs, child: PhysicalPlan):
+        self.wexprs = list(wexprs)     # [(WindowExpression, out_name)]
+        self.children = (child,)
+
+    def schema(self):
+        cs = self.children[0].schema()
+        fields = list(cs.fields)
+        for we, name in self.wexprs:
+            fields.append(T.StructField(name, we.data_type(cs), True))
+        return T.StructType(fields)
+
+    def run(self, ctx):
+        from .window import compute_windows
+        batch = self.children[0].run(ctx)
+        spec = self.wexprs[0][0].spec
+        funcs = [(we.func, name) for we, name in self.wexprs]
+        return compute_windows(batch, spec, funcs)
+
+    def __repr__(self):
+        return f"Window [{', '.join(n for _, n in self.wexprs)}]"
 
 
 class PExplode(_NotYetPorted):

@@ -158,6 +158,7 @@ def _needs_local_fallback(plan: LogicalPlan) -> bool:
     """Plans the mesh lane cannot shard: ArrayType columns at a leaf or
     feeding an exchange-inducing operator (exchanges are 1-D)."""
     from .. import types as T
+    from .window import WindowNode
     found = []
 
     def has_arrays(node: LogicalPlan) -> bool:
@@ -171,7 +172,7 @@ def _needs_local_fallback(plan: LogicalPlan) -> bool:
         if not node.children and has_arrays(node):
             found.append("array-leaf")
         exchange_like = isinstance(node, (Aggregate, Distinct, Join, Union,
-                                          Sort))
+                                          Sort, WindowNode))
         for c in node.children:
             if exchange_like and has_arrays(c):
                 found.append("array-into-exchange")
@@ -313,8 +314,12 @@ class Planner:
         if isinstance(node, Union):
             return P.PUnion([self._to_physical(c, leaves)
                              for c in node.children], node.schema())
-        # file scans, windows, samples, explode, stateful groups: later
-        # slices (the analyzer refuses them first)
+        from .window import WindowNode
+        if isinstance(node, WindowNode):
+            return P.PWindow(node.wexprs,
+                             self._to_physical(node.child, leaves))
+        # file scans, samples, explode, stateful groups: later slices (the
+        # analyzer refuses them first)
         raise AnalysisException(f"no physical plan for {node!r}")
 
 

@@ -108,9 +108,13 @@ def plan_has_slow_udf(plan) -> bool:
     plan's expressions?  Its lane copies to the host in the middle of the
     plan, so such a plan runs on the eager lane, never captured (the
     BatchEvalPythonExec stage-break analog, paid per query)."""
+    from .window import WindowExpression
+
     def expr_has(e: Expression) -> bool:
         if isinstance(e, PythonUDF) and not e.vectorized:
             return True
+        if isinstance(e, WindowExpression):
+            return any(expr_has(s) for s in e.sub_expressions())
         return any(expr_has(c) for c in e.children)
 
     def walk(node) -> bool:

@@ -248,8 +248,9 @@ def _cents(prices: np.ndarray) -> np.ndarray:
     return np.round(prices * 100).astype(np.int64)
 
 
-def q3_oracle(tables):
-    """q3 in numpy: the joins as lookups by surrogate key, exact cents."""
+def _q3_groups(tables):
+    """q3's join and filter in numpy (the joins as lookups by surrogate
+    key), grouped: {(d_year, i_brand_id, i_brand): exact cents}."""
     ss, dd, it = tables["store_sales"], tables["date_dim"], tables["item"]
     d_idx = ss["ss_sold_date_sk"] - dd["d_date_sk"][0]
     i_idx = ss["ss_item_sk"] - 1
@@ -262,6 +263,12 @@ def q3_oracle(tables):
     for y, bi, bn, c in zip(year.tolist(), brand_id.tolist(), brand.tolist(),
                             cents.tolist()):
         groups[(y, bi, bn)] = groups.get((y, bi, bn), 0) + c
+    return groups
+
+
+def q3_oracle(tables):
+    """q3 in numpy, exact cents."""
+    groups = _q3_groups(tables)
     rows = sorted(groups.items(),
                   key=lambda kv: (kv[0][0], -kv[1], kv[0][1], kv[0][2]))
     return [(y, bi, bn, c / 100.0) for (y, bi, bn), c in rows[:100]]
@@ -408,3 +415,140 @@ SQL_QUERIES = {
         "manufact_band(i_manufact_id) AS band FROM item) x GROUP BY band",
         lambda t: _grouped_count(t["item"]["i_manufact_id"] // 10), False),
 }
+
+
+# ---------------------------------------------------------------------------
+# expression and aggregate breadth, grouping sets and windows over the main
+# path's tables, as SQL text, each with a numpy oracle
+# ---------------------------------------------------------------------------
+
+_Q3_FROM = """
+FROM date_dim, store_sales, item
+WHERE d_date_sk = ss_sold_date_sk AND ss_item_sk = i_item_sk
+  AND i_manufact_id = 28 AND d_moy = 11
+"""
+
+
+def _sum_by(groups, key):
+    out = {}
+    for k, c in groups.items():
+        out[key(k)] = out.get(key(k), 0) + c
+    return out
+
+
+def _rollup_oracle(tables):
+    """ROLLUP(d_year, i_brand_id): the (year, brand) sums, the year
+    subtotals and the grand total, ordered by grouping id, year, brand."""
+    groups = _q3_groups(tables)
+    rows = [(y, b, c, 0) for (y, b), c in
+            _sum_by(groups, lambda k: (k[0], k[1])).items()]
+    rows += [(y, None, c, 1) for y, c in
+             _sum_by(groups, lambda k: k[0]).items()]
+    rows.append((None, None, sum(groups.values()), 3))
+    rows.sort(key=lambda r: (r[3], r[0] or 0, r[1] or 0))
+    return [(y, b, c / 100.0, g) for y, b, c, g in rows]
+
+
+def _window_oracle(tables):
+    """Revenue per (brand, year) with the brand's total, the rank of the
+    revenue within its year (ties share the lowest rank) and the brand's
+    revenue of its previous year present, ordered by year, rank, brand."""
+    rev = _sum_by(_q3_groups(tables), lambda k: (k[1], k[0]))
+    brand_total = _sum_by(rev, lambda k: k[0])
+    by_year = {}
+    for (b, y), c in rev.items():
+        by_year.setdefault(y, []).append(c)
+    prev, last = {}, {}
+    for b, y in sorted(rev):
+        prev[(b, y)] = last.get(b)
+        last[b] = rev[(b, y)]
+    rows = []
+    for (b, y), c in rev.items():
+        rank = 1 + sum(1 for other in by_year[y] if other > c)
+        p = prev[(b, y)]
+        rows.append((b, y, c / 100.0, brand_total[b] / 100.0, rank,
+                     None if p is None else p / 100.0))
+    rows.sort(key=lambda r: (r[1], r[4], r[0]))
+    return rows
+
+
+def _string_keys_oracle(tables):
+    """q3 grouped by (year, upper(brand), substr(brand, 1, 7)), its order
+    and limit."""
+    groups = _sum_by(_q3_groups(tables),
+                     lambda k: (k[0], k[2].upper(), k[2][:7]))
+    rows = sorted(groups.items(),
+                  key=lambda kv: (kv[0][0], -kv[1], kv[0][1], kv[0][2]))
+    return [(y, u, s7, c / 100.0) for (y, u, s7), c in rows[:100]]
+
+
+def _round_half_up(x: np.ndarray, digits: int) -> np.ndarray:
+    """The engines' HALF_UP rounding of doubles, formula for formula."""
+    f = 10.0 ** digits
+    return np.floor(np.abs(x) * f + 0.5) / f * np.sign(x)
+
+
+def _stats_oracle(table):
+    """Per key of the hash-agg table: stddev_samp(v), var_pop(v) and
+    round(avg(v), 2), ordered by key."""
+    k, v = table["k"], table["v"].astype(np.float64)
+    keys, inv = np.unique(k, return_inverse=True)
+    n = np.bincount(inv).astype(np.float64)
+    s = np.bincount(inv, weights=v)
+    mean = s / n
+    dev2 = np.bincount(inv, weights=(v - mean[inv]) ** 2)
+    sd = np.sqrt(dev2 / (n - 1))
+    vp = dev2 / n
+    av = _round_half_up(mean, 2)
+    return [(int(a), float(b), float(c), float(d))
+            for a, b, c, d in zip(keys, sd, vp, av)]
+
+
+#: the breadth queries: name -> (text, numpy oracle of its rows (over q3's
+#: tables and the hash-agg table), the columns compared within a relative
+#: tolerance (the others exactly), that tolerance)
+BREADTH_QUERIES = {
+    "rollup": (
+        "SELECT d_year, i_brand_id, SUM(ss_ext_sales_price) AS sum_agg, "
+        "grouping_id() AS gid" + _Q3_FROM +
+        "GROUP BY ROLLUP(d_year, i_brand_id) ORDER BY gid, d_year, "
+        "i_brand_id",
+        lambda tables, hash_table: _rollup_oracle(tables), (), 0.0),
+    "window": (
+        "SELECT i_brand_id, d_year, SUM(ss_ext_sales_price) AS rev, "
+        "SUM(SUM(ss_ext_sales_price)) OVER (PARTITION BY i_brand_id) "
+        "AS brand_rev, RANK() OVER (PARTITION BY d_year ORDER BY "
+        "SUM(ss_ext_sales_price) DESC) AS rnk, LAG(SUM(ss_ext_sales_price)) "
+        "OVER (PARTITION BY i_brand_id ORDER BY d_year) AS prev_rev"
+        + _Q3_FROM + "GROUP BY i_brand_id, d_year ORDER BY d_year, rnk, "
+        "i_brand_id",
+        lambda tables, hash_table: _window_oracle(tables), (), 0.0),
+    "string keys": (
+        "SELECT d_year, UPPER(i_brand) AS ubrand, SUBSTR(i_brand, 1, 7) "
+        "AS brand7, SUM(ss_ext_sales_price) AS sum_agg" + _Q3_FROM +
+        "GROUP BY d_year, UPPER(i_brand), SUBSTR(i_brand, 1, 7) "
+        "ORDER BY d_year, sum_agg DESC, ubrand, brand7 LIMIT 100",
+        lambda tables, hash_table: _string_keys_oracle(tables), (), 0.0),
+    "statistics": (
+        "SELECT k, STDDEV_SAMP(v) AS sd, VAR_POP(v) AS vp, "
+        "ROUND(AVG(v), 2) AS av FROM hash_t GROUP BY k ORDER BY k",
+        lambda tables, hash_table: _stats_oracle(hash_table), (1, 2), 1e-9),
+}
+
+
+def breadth_rows_match(got, want, approx_cols=(), rtol=0.0) -> bool:
+    """``got`` equals ``want`` row for row: the columns in ``approx_cols``
+    within ``rtol`` (relative), every other value exactly."""
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        if len(g) != len(w):
+            return False
+        for j, (a, b) in enumerate(zip(g, w)):
+            if j in approx_cols:
+                if not (a is not None and b is not None
+                        and abs(a - b) <= rtol * max(abs(a), abs(b))):
+                    return False
+            elif a != b or type(a) is not type(b):
+                return False
+    return True

@@ -1,9 +1,10 @@
-"""The port's SQL parser against ``spark_tpu.sql.parser``: for every TPC-DS
-text the port runs, and for the statement and error cases of
+"""The port's SQL parser against ``spark_tpu.sql.parser``: for all 99
+TPC-DS texts, and for the statement and error cases of
 ``tests/test_sql_parser.py``, both parsers must build structurally equal
 plans — node classes, node reprs, expression reprs, sort directions and
 nulls order, recursing into subquery plans.  Each construct a later slice
-brings raises ``AnalysisException`` naming itself and that slice.
+brings (rand, collect_list, array functions, event-time windows) raises
+``AnalysisException`` naming itself and that slice.
 """
 
 import pytest
@@ -13,8 +14,9 @@ from spark_tpu.tpcds.queries import QUERIES
 from spark_tpu_torch.expressions import AnalysisException
 from spark_tpu_torch.sql import parser as TP
 
-#: the TPC-DS queries the port runs from SQL text
-PORTED_QUERIES = (
+#: the TPC-DS queries the port ran from SQL text before expression
+#: breadth, grouping sets and windows (``tests/test_torch_tpcds.py``)
+BASE_QUERIES = (
     # the parser alone
     "q3 q7 q13 q21 q25 q26 q28 q29 q31 q34 q37 q40 q42 q43 q46 q48 q50 q52 "
     "q55 q59 q61 q64 q65 q68 q72 q73 q82 q84 q88 q90 q93 q96 q97 "
@@ -22,31 +24,29 @@ PORTED_QUERIES = (
     "q1 q4 q6 q9 q10 q11 q14 q16 q23 q30 q32 q33 q35 q38 q41 q45 q54 q56 "
     "q58 q60 q66 q69 q71 q74 q75 q76 q81 q83 q87 q91 q92 q94 q95").split()
 
-_WINDOWS = "the window-function slice"
-_GSETS = "the TPC-DS breadth slice (ROLLUP/CUBE/grouping sets)"
-_STRINGS = "the TPC-DS breadth slice (string functions)"
-_MATH = "the TPC-DS breadth slice (math functions)"
-_STATS = "the TPC-DS breadth slice (statistical aggregates)"
+#: the texts that need window functions, grouping sets and expression or
+#: aggregate breadth (``tests/test_torch_tpcds_breadth.py``)
+BREADTH_QUERIES = (
+    # OVER / rank
+    "q12 q20 q44 q47 q49 q51 q53 q57 q63 q67 q89 q98 "
+    # ROLLUP / grouping
+    "q5 q18 q22 q27 q36 q70 q77 q80 q86 "
+    # substr, round, stddev_samp, upper
+    "q8 q15 q19 q62 q79 q85 q99 q2 q78 q17 q39 q24").split()
 
-#: the other TPC-DS queries: the first construct each reaches that a later
-#: slice brings, and that slice
-EXCLUDED_QUERIES = {
-    **{q: ("OVER", _WINDOWS) for q in
-       "q12 q20 q47 q51 q53 q57 q63 q89 q98".split()},
-    **{q: ("rank", _WINDOWS) for q in "q44 q49 q67".split()},
-    **{q: ("ROLLUP", _GSETS) for q in "q5 q18 q22 q77 q80".split()},
-    **{q: ("grouping", _GSETS) for q in "q27 q36 q70 q86".split()},
-    **{q: ("substr", _STRINGS) for q in
-       "q8 q15 q19 q62 q79 q85 q99".split()},
-    **{q: ("round", _MATH) for q in "q2 q78".split()},
-    **{q: ("stddev_samp", _STATS) for q in "q17 q39".split()},
-    "q24": ("upper", _STRINGS),
-}
+#: the TPC-DS queries the port runs from SQL text: all of them
+PORTED_QUERIES = BASE_QUERIES + BREADTH_QUERIES
+
+#: TPC-DS queries whose text reaches a construct a later slice brings
+EXCLUDED_QUERIES: dict = {}
+
+_STATS = "the TPC-DS breadth slice (statistical aggregates)"
 
 
 def test_query_lists_cover_tpcds():
-    assert len(PORTED_QUERIES) == 66 and len(EXCLUDED_QUERIES) == 33
-    assert sorted(PORTED_QUERIES + list(EXCLUDED_QUERIES)) == sorted(QUERIES)
+    assert len(BASE_QUERIES) == 66 and len(BREADTH_QUERIES) == 33
+    assert len(PORTED_QUERIES) == 99 and not EXCLUDED_QUERIES
+    assert sorted(PORTED_QUERIES) == sorted(QUERIES)
 
 
 def _subquery_plans(e):
@@ -87,15 +87,6 @@ def test_tpcds_text_parses_like_reference(qname):
     assert signature(TP.parse_query(sql)) == signature(RP.parse_query(sql))
 
 
-@pytest.mark.parametrize("qname", sorted(EXCLUDED_QUERIES))
-def test_excluded_tpcds_text_names_construct_and_slice(qname):
-    construct, where = EXCLUDED_QUERIES[qname]
-    with pytest.raises(AnalysisException) as ei:
-        TP.parse_query(QUERIES[qname])
-    assert str(ei.value) == \
-        f"{construct} is not ported yet: it comes with {where}"
-
-
 @pytest.mark.parametrize("text", [
     "1 + 2 * 3",
     "a > 1 AND b <= 2 OR NOT c = 3",
@@ -123,6 +114,39 @@ def test_excluded_tpcds_text_names_construct_and_slice(qname):
     "1.5e3 + 2d + 7L + .5",
     "`odd name` + t.k",
     "'it''s' ",
+    # expression breadth
+    "a || b || 'x'",
+    "round(v / 3, 2) + round(w) + abs(x) + sqrt(y) + pow(y, 2)",
+    "greatest(a, b, 1) - least(a, 2) + ceil(v) + floor(w) + signum(v)",
+    "isnan(v) OR hypot(a, b) > atan2(a, b)",
+    "upper(s) = lower(t) AND trim(s) = initcap(t)",
+    "substr(s, 1, 5) = substring(s, 3, 2) AND length(s) > 1",
+    "concat(s, '-', t) = concat_ws('/', s, t)",
+    "regexp_replace(s, '[0-9]+', '#') = lpad(s, 5, '*')",
+    "instr(s, 'ab') + locate('b', s, 2) + levenshtein(s, 'kitten')",
+    "year(d) * 10000 + month(d) * 100 + dayofmonth(d) + quarter(d)",
+    "date_add(d, 30) > date_sub(d, -3) AND datediff(d, e) < 7",
+    "add_months(d, 2) = last_day(d) OR next_day(d, 'Mon') = trunc(d, 'MM')",
+    "months_between(d, e) + unix_timestamp(ts)",
+    "grouping(a) + grouping_id()",
+    "stddev_samp(v) + var_pop(v) + variance(w) + stddev_pop(w) + stddev(x)",
+    "percentile_approx(v, 0.25) + median(v)",
+    # window functions
+    "sum(x) OVER (PARTITION BY k)",
+    "row_number() OVER (ORDER BY k)",
+    "rank() OVER (PARTITION BY a, b ORDER BY v DESC NULLS LAST, w)",
+    "dense_rank() OVER (ORDER BY v) + ntile(4) OVER (ORDER BY v)",
+    "percent_rank() OVER (PARTITION BY a ORDER BY v) "
+    "+ cume_dist() OVER (PARTITION BY a ORDER BY v)",
+    "lag(v, 2, 0) OVER (PARTITION BY a ORDER BY d) "
+    "- lead(v) OVER (PARTITION BY a ORDER BY d)",
+    "avg(v) OVER (PARTITION BY a ORDER BY d ROWS BETWEEN 2 PRECEDING "
+    "AND CURRENT ROW)",
+    "sum(v) OVER (ORDER BY d ROWS BETWEEN UNBOUNDED PRECEDING AND "
+    "UNBOUNDED FOLLOWING)",
+    "max(v) OVER (PARTITION BY a ORDER BY d RANGE BETWEEN UNBOUNDED "
+    "PRECEDING AND CURRENT ROW)",
+    "SUM(SUM(v)) OVER (PARTITION BY a) * 100",
 ])
 def test_expression_parses_like_reference(text):
     r, t = RP.parse_expression(text), TP.parse_expression(text)
@@ -167,6 +191,16 @@ def test_expression_parses_like_reference(text):
     "SELECT a, (SELECT SUM(b) FROM t2) AS s FROM t1",
     "SELECT k FROM db.t AS x",
     "SELECT first, last FROM t",
+    # grouping sets
+    "SELECT a, SUM(v) FROM t GROUP BY ROLLUP(a, b)",
+    "SELECT a, b, SUM(v), grouping_id() AS g FROM t GROUP BY CUBE(a, b) "
+    "HAVING SUM(v) > 1",
+    "SELECT a, SUM(v) FROM t GROUP BY GROUPING SETS ((a), ())",
+    "SELECT DISTINCT a, grouping(a) AS ga FROM t GROUP BY ROLLUP(a)",
+    # windows in a query
+    "SELECT k, v, rank() OVER (PARTITION BY k ORDER BY v) AS r FROM t",
+    "SELECT k, SUM(v) AS s, rank() OVER (ORDER BY SUM(v) DESC) r FROM t "
+    "GROUP BY k",
 ])
 def test_query_parses_like_reference(text):
     assert signature(TP.parse_query(text)) == signature(RP.parse_query(text))
@@ -220,15 +254,18 @@ def test_parse_errors_like_reference(text, kind):
 
 
 @pytest.mark.parametrize("text,construct,where", [
-    ("a || b", "||", _STRINGS),
     ("exists(arr, x -> x > 1)", "exists", "the TPC-DS breadth slice "
      "(array columns)"),
     ("transform(arr, x -> x + 1)", "transform", "the TPC-DS breadth slice "
      "(array columns)"),
-    ("sum(x) OVER (PARTITION BY k)", "OVER", _WINDOWS),
-    ("row_number()", "row_number", _WINDOWS),
-    ("year(d)", "year", "the TPC-DS breadth slice (date functions)"),
     ("rand(7)", "rand", "the TPC-DS breadth slice (rand/sample)"),
+    ("randn()", "randn", "the TPC-DS breadth slice (rand/sample)"),
+    ("spark_partition_id()", "spark_partition_id",
+     "the TPC-DS breadth slice (rand/sample)"),
+    ("collect_set(x)", "collect_set", _STATS),
+    ("array(a, b)", "array", "the TPC-DS breadth slice (array columns)"),
+    ("window_end(ts, '5 minutes')", "window_end",
+     "the streaming slice (event-time windows)"),
     ("collect_list(x)", "collect_list", _STATS),
     ("window(ts, '5 minutes')", "window",
      "the streaming slice (event-time windows)"),
@@ -241,17 +278,6 @@ def test_unported_expression_names_construct_and_slice(text, construct,
         f"{construct} is not ported yet: it comes with {where}"
 
 
-@pytest.mark.parametrize("grouping,construct", [
-    ("ROLLUP(a, b)", "ROLLUP"), ("CUBE(a)", "CUBE"),
-    ("GROUPING SETS ((a), ())", "GROUPING SETS"),
-])
-def test_grouping_sets_name_construct_and_slice(grouping, construct):
-    with pytest.raises(AnalysisException) as ei:
-        TP.parse_query(f"SELECT a, SUM(v) FROM t GROUP BY {grouping}")
-    assert str(ei.value) == \
-        f"{construct} is not ported yet: it comes with {_GSETS}"
-
-
 def test_every_reference_function_is_registered_or_named():
     """Each function name the reference parser registers is either
     registered here or raises naming its slice — none falls through to
@@ -262,7 +288,9 @@ def test_every_reference_function_is_registered_or_named():
         | {"count", "approx_count_distinct", "percentile_approx",
            "approx_percentile"}
     ported = set(TP.SCALAR_FUNCTIONS) | set(TP.AGG_FUNCTIONS) \
-        | {"count", "approx_count_distinct"}
+        | set(TP.WINDOW_FUNCTIONS) \
+        | {"count", "approx_count_distinct", "percentile_approx",
+           "approx_percentile"}
     assert not ported & set(NOT_PORTED_FUNCTIONS)
     assert ref <= ported | set(NOT_PORTED_FUNCTIONS), \
         sorted(ref - ported - set(NOT_PORTED_FUNCTIONS))
