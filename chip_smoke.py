@@ -95,7 +95,25 @@ without printing a result:
    its plain version's time and the one-call
    ``transpose(0, 1).contiguous()`` yardstick on the same bytes
    pre-stacked (which the port never calls), per call and back to back;
-10. server — ``SQLServer`` on the card session, on an ephemeral port of
+10. complex — arrays, maps and structs at SF1 row counts
+   (``testing.basket_tables``: store_sales as ~240,000 tickets of 8-16
+   line items, 18,000 items; ``spark.tpu.collect.maxArrayLen`` = 16, the
+   largest basket): the texts of ``testing.COMPLEX_QUERIES`` — baskets
+   (``collect_list`` / ``collect_set`` per ticket with size,
+   ``sort_array(...)[0]``, ``element_at``, ``array_contains``,
+   ``array_distinct``, ``slice``, ``array_max``), explode back to rows
+   (``posexplode`` and a dynamic ``element_at``, joined to item, count
+   and sum by ``i_manufact_id``), the higher-order functions with a map
+   and a struct — and ``sample`` / ``rand`` / ``randn`` /
+   ``monotonically_increasing_id`` over store_sales, each through the
+   graph lane against its numpy oracle (rand and the ids bit for bit,
+   randn within rtol 1e-12) and bit for bit against the eager lane; per
+   text the build, the warm walls with and without the decode, the graph
+   pool beside ``_plan_reserve_bytes`` and a profile line; K1's launches
+   in the phase's run.  Then the baskets text (without its ORDER BY) and
+   ``spark_partition_id()`` at 4 shards: K2's launches rise, the rows
+   equal the one-device run, every partition id is in 0..3;
+11. server — ``SQLServer`` on the card session, on an ephemeral port of
    127.0.0.1, its root session holding the hash-agg table and q3's
    tables at SF1 row counts as temp views (each server session sees the
    same plans): four client threads, each on its own server session,
@@ -109,7 +127,7 @@ without printing a result:
    ``maxConcurrentStatements``, a cancelled queued statement that never
    runs, a mesh statement (K2's count rises, its repeat hits) and every
    evicted graph's bytes back on the card;
-11. tpcds — the port's TPC-DS tables (``spark_tpu_torch/tpcds``, at
+12. tpcds — the port's TPC-DS tables (``spark_tpu_torch/tpcds``, at
     ``TPCDS_SF_ROWS``) in the root session and in sqlite (answering on
     ``ORACLE_THREADS`` connections at once, ``ORACLE_OVERRIDES`` for
     the texts sqlite cannot run as written); each of the 99 texts
@@ -117,11 +135,14 @@ without printing a result:
     ``tests/test_tpcds.py``; each repeat a plan-cache hit but for the 13
     texts whose plans hold a window (``WINDOW_QUERIES``), which the
     plan cache counts uncacheable, as the reference's does — the phase
-    checks that count;
-12. a ``{"kernels": [...]}`` line (each kernel's ``sql_launches``: its
+    checks that count; then the baskets text POSTed once over the
+    basket tables, every list of the reply equal to the oracle;
+13. a ``{"kernels": [...]}`` line (each kernel's ``sql_launches``: its
    launches in the SQL phase's counted run; ``breadth_launches``: K1's in
    the breadth phase's graph-lane run, K2's in its window text at 4
-   shards; ``server_launches``: K1's in the four clients' two rounds,
+   shards; ``complex_launches``: K1's in the complex phase's graph-lane
+   run of its five texts, K2's in its two queries at 4 shards;
+   ``server_launches``: K1's in the four clients' two rounds,
    K2's in the two mesh statements, each counted from 0 just before that
    run; K1's ``captured_launches``: those of its launches made while a
    graph was captured, and ``replayed_launches``: its launches the
@@ -1380,6 +1401,247 @@ def phase_mesh(session, hash_df, hash_table, q3_df, tables):
 
 
 # ---------------------------------------------------------------------------
+# [complex]: arrays, maps and structs, explode, rand / sample
+# ---------------------------------------------------------------------------
+
+#: spark.tpu.collect.maxArrayLen of the phase: the largest basket (16
+#: line items), so no array truncates
+COMPLEX_MAX_LEN = 16
+#: spark.sql.agg.outputCapacity of the phase: room for SF1's ~240,000
+#: tickets in one aggregate output (the default 65,536 would take one
+#: adaptive retry per first run)
+COMPLEX_AGG_ROWS = 1 << 18
+
+
+def _complex_session(session, tables):
+    """A session of its own (the SQL phase's store_sales and item stay
+    q3's) over the basket tables, at the phase's array width."""
+    from spark_tpu_torch import types as T
+    from spark_tpu_torch.testing import register_basket_tables
+    cs = session.newSession()
+    cs.conf.set("spark.tpu.collect.maxArrayLen", str(COMPLEX_MAX_LEN))
+    cs.conf.set("spark.sql.agg.outputCapacity", str(COMPLEX_AGG_ROWS))
+    register_basket_tables(cs, tables, T)
+    return cs
+
+
+def _sample_offset(session, df):
+    """The row offset of the plan's sample operator (its op id << 33)."""
+    from spark_tpu_torch.sql import physical as P
+    from spark_tpu_torch.sql.planner import QueryExecution
+    node = QueryExecution(session, df._plan).planned.physical
+    while not isinstance(node, P.PSample):
+        node = node.children[0]
+    return node.row_offset
+
+
+def phase_complex(session, k1_entries, k2_entry):
+    """Arrays on the card at SF1 row counts (``testing.basket_tables``:
+    store_sales as ~240,000 tickets of 8-16 line items, 18,000 items):
+    the three texts of ``testing.COMPLEX_QUERIES`` (collect per ticket
+    with the array functions; explode back to rows, joined to item and
+    aggregated; the higher-order functions, a map and a struct) and the
+    sampling text (``sample``, ``rand``, ``randn``,
+    ``monotonically_increasing_id`` over store_sales), each on the graph
+    lane against its numpy oracle and bit for bit against the eager lane;
+    per text the build, the warm walls with and without the decode, the
+    graph pool beside ``_plan_reserve_bytes`` and a profile line.  Then
+    the baskets text at 4 shards (K2's gather; the rows equal the
+    one-device run) and ``spark_partition_id()`` at 4 shards.  Returns
+    (tables, the baskets oracle) for the HTTP run after [tpcds]."""
+    import numpy as np
+    import torch
+    from spark_tpu_torch import cuda_a2a, cuda_agg
+    from spark_tpu_torch.sql import functions as F
+    from spark_tpu_torch.sql.planner import (QueryExecution,
+                                             _plan_reserve_bytes)
+    from spark_tpu_torch.sql.stagecompile import stage_cache
+    from spark_tpu_torch.testing import (
+        COMPLEX_QUERIES, SAMPLE_FRACTION, SAMPLE_SEED, assert_parts_equal,
+        basket_tables, batch_parts, complex_mismatch, rand_oracle,
+        randn_oracle, result_columns, sample_oracle, unordered)
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    tables = basket_tables()
+    cs = _complex_session(session, tables)
+    n = len(tables["store_sales"]["ss_ticket_number"])
+    n_tickets = len(np.unique(tables["store_sales"]["ss_ticket_number"]))
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = {name: oracle(tables, COMPLEX_MAX_LEN)
+            for name, (_sql, oracle) in COMPLEX_QUERIES.items()}
+    oracle_s = time.perf_counter() - t0
+    print(f"[complex] store_sales {n} rows in {n_tickets} tickets, item "
+          f"{len(tables['item']['i_item_sk'])} rows, made and moved to the "
+          f"card in {setup_s:.2f} s; numpy oracles {oracle_s:.2f} s; "
+          f"maxArrayLen {COMPLEX_MAX_LEN}", flush=True)
+    ss = cs.table("store_sales")
+    frames = {name: cs.sql(sql) for name, (sql, _o) in
+              COMPLEX_QUERIES.items()}
+    frames["sample"] = ss.sample(SAMPLE_FRACTION, seed=SAMPLE_SEED).agg(
+        F.count("*").alias("n"), F.sum("ss_ticket_number").alias("t"))
+    frames["rand and ids"] = ss.select(
+        F.rand(SAMPLE_SEED).alias("r"), F.randn(SAMPLE_SEED).alias("g"),
+        F.monotonically_increasing_id().alias("id"))
+    offset = _sample_offset(cs, frames["sample"])
+    n_kept, t_sum = sample_oracle(tables, offset)
+    want["sample"] = {"n": np.array([n_kept], np.int64),
+                      "t": np.array([t_sum], np.int64)}
+    ids_offset = 1 << 33                    # the projection is operator 1
+    want["rand and ids"] = {
+        "r": rand_oracle(n, SAMPLE_SEED, ids_offset),
+        "g": randn_oracle(n, SAMPLE_SEED, ids_offset),
+        "id": np.arange(n, dtype=np.int64) + ids_offset}
+    rtol = {"rand and ids": 1e-12}
+
+    # the complex path's run: counts zeroed just before, read just after;
+    # each text builds its stage entry (warm-up, then the capture)
+    cache = stage_cache()
+    _lane(cs, "graph")
+    zero_counts()
+    graph, builds, pools = {}, {}, {}
+    for name, df in frames.items():
+        clear_stage_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph[name] = batch_parts(df._execute())
+        builds[name] = (cache.stats()["compile_ms"],
+                        (time.perf_counter() - t0) * 1e3)
+        (entry,) = cache.entries()
+        pools[name] = (entry.variants[-1].pool_bytes,
+                       _plan_reserve_bytes(
+                           QueryExecution(cs, df._plan).planned))
+    k1_run = dict(cuda_agg.ENTRY_LAUNCHES)
+    for entry in k1_entries:
+        entry["complex_launches"] = k1_run[entry["name"]]
+    for name, df in frames.items():
+        got = graph[name]
+        if name == "rand and ids":
+            cols = result_columns(got)
+            check(np.array_equal(cols["r"], want[name]["r"])
+                  and np.array_equal(cols["id"], want[name]["id"]),
+                  "[complex] rand(7) / monotonically_increasing_id() differ "
+                  "from the numpy formula")
+            check(np.allclose(cols["g"], want[name]["g"], rtol=1e-12,
+                              atol=1e-15), "[complex] randn(7) differs from "
+                  "the numpy formula beyond rtol 1e-12")
+        else:
+            why = complex_mismatch(got, want[name])
+            check(why is None, f"[complex] {name} differs from its numpy "
+                  f"oracle: {why}")
+        _lane(cs, "eager")
+        eager = batch_parts(df._execute())
+        _lane(cs, "graph")
+        assert_parts_equal(got, eager, rtol=rtol.get(name, 0.0))
+        pool, reserve = pools[name]
+        n_rows = got.capacity if got.row_valid is None \
+            else int(got.row_valid.sum())
+        # 2.88M rows of Python objects: the decode is host work of seconds
+        decoded = df.collect if n_rows < 1_000_000 else None
+        with_decode = f"{wall_ms(decoded):.2f} ms" if decoded \
+            else f"not measured ({n_rows} rows)"
+        print(f"[complex] {name}: {n_rows} rows equal to "
+              f"the oracle ({'randn within rtol 1e-12, ' if name in rtol else ''}"
+              f"the rest exactly), graph lane bit-exact against the eager "
+              f"lane; build (warm-up + capture) {builds[name][0]:.2f} ms of "
+              f"a first run of {builds[name][1]:.2f} ms; graph pool {pool} B "
+              f"beside _plan_reserve_bytes {reserve} B; warm wall, median of "
+              f"5: {with_decode} ({wall_ms(df._execute):.2f} ms without "
+              "decoding the rows)", flush=True)
+        profile_query(f"complex {name}", decoded or df._execute)
+    branch = "MXU-form (K1)" if k1_run["grouped_accumulate_columns"] \
+        else "sort-based"
+    print(f"[complex] K1 launches in the graph-lane run of the five texts "
+          f"(counted from 0 just before, read just after): {k1_run} "
+          f"(explode's aggregate by i_manufact_id: the {branch} form); "
+          f"stage cache {cache.stats()}", flush=True)
+
+    # the baskets text and spark_partition_id() on the mesh lane
+    base = batch_parts(cs.sql(unordered(COMPLEX_QUERIES["baskets"][0]))
+                       ._execute())
+    _mesh(cs, MESH_SHARDS)
+    try:
+        zero_counts()
+        mesh_df = cs.sql(unordered(COMPLEX_QUERIES["baskets"][0]))
+        four = batch_parts(mesh_df._execute())
+        parts_df = ss.select(F.spark_partition_id().alias("p")) \
+            .groupBy("p").count()
+        pid = sorted(tuple(r) for r in parts_df.collect())
+        k2 = cuda_a2a.LAUNCHES
+        k2_entry["complex_launches"] = k2
+        check(k2 > 0, "[complex] K2 was not launched on the mesh lane")
+        why = complex_mismatch(four, want["baskets"])
+        check(why is None, f"[complex] baskets at {MESH_SHARDS} shards "
+              f"differs from its oracle: {why}")
+        assert_parts_equal(base, four)
+        # every value in 0..3; the rows split in contiguous slices of the
+        # padded capacity, so a shard may hold padding only (at 2,880,404
+        # rows in 2^22 slots, shard 3)
+        check(set(p for p, _c in pid) <= set(range(MESH_SHARDS))
+              and len(pid) > 1 and sum(c for _p, c in pid) == n,
+              f"[complex] spark_partition_id() at {MESH_SHARDS} shards: "
+              f"{pid}")
+        print(f"[complex] baskets x{MESH_SHARDS} shards: {n_tickets} rows "
+              f"equal to the oracle and to the one-device run; "
+              f"spark_partition_id() x{MESH_SHARDS}: rows per partition "
+              f"{pid}; K2 launches in the two queries (counted from 0 just "
+              f"before): {k2}; baskets warm wall, median of 5: "
+              f"{wall_ms(mesh_df._execute):.2f} ms without the decode",
+              flush=True)
+        profile_query(f"complex baskets x{MESH_SHARDS}", mesh_df._execute)
+    finally:
+        _mesh(cs, 1)
+    # the phase's graphs are charged to its own session's memory manager:
+    # drop them before the server's sessions reserve theirs
+    clear_stage_cache()
+    print(f"[complex] phase {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+    return tables, want["baskets"]
+
+
+def _plane_lists(plane, sent):
+    """An oracle's 2-D column as the server's JSON lists: each row's
+    elements that are not the sentinel."""
+    import numpy as np
+    live = plane != sent
+    flat = plane[live].tolist()
+    ends = np.cumsum(live.sum(axis=1)).tolist()
+    return [flat[a:b] for a, b in zip([0] + ends[:-1], ends)]
+
+
+def phase_complex_http(session, srv, tables, want):
+    """The baskets text POSTed once to the server, over the basket tables
+    in its root session: the reply's columns and lists equal the oracle."""
+    import numpy as np
+    from spark_tpu_torch import types as T
+    from spark_tpu_torch.testing import (COMPLEX_QUERIES,
+                                         register_basket_tables)
+    t0 = time.perf_counter()
+    session.conf.set("spark.tpu.collect.maxArrayLen", str(COMPLEX_MAX_LEN))
+    session.conf.set("spark.sql.agg.outputCapacity", str(COMPLEX_AGG_ROWS))
+    register_basket_tables(session, tables, T)
+    status, body, ms = _http(srv.port, "/sql", "POST",
+                             {"query": COMPLEX_QUERIES["baskets"][0]})
+    check(status == 200, f"[complex] POST of baskets: {status} "
+          f"{str(body)[:300]}")
+    check(body["columns"] == list(want), f"[complex] POST columns "
+          f"{body['columns']}")
+    cols = list(zip(*body["rows"]))
+    for j, (name, w) in enumerate(want.items()):
+        if w.ndim == 2:
+            sent = np.iinfo(w.dtype).min
+            ok = list(cols[j]) == _plane_lists(w, sent)
+        else:
+            ok = list(cols[j]) == w.tolist()
+        check(ok, f"[complex] POST column {name} differs from the oracle")
+    print(f"[complex] baskets over HTTP: {len(body['rows'])} rows whose "
+          f"columns and lists equal the oracle; HTTP wall {ms:.2f} ms "
+          f"(server {body['durationMs']} ms); the step "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # [server] and [tpcds]: the SQL server on the card
 # ---------------------------------------------------------------------------
 
@@ -1952,10 +2214,13 @@ def main() -> int:
     k2_entry = phase_k2_check(captured, k2_launches)
     k2_entry["sql_launches"] = k2_sql_launches
     k2_entry["breadth_launches"] = k2_breadth_launches
+    basket_tables, baskets_want = phase_complex(session, k1_entries,
+                                                k2_entry)
     srv = phase_server(session, hash_table, tables, k1_entries, k2_entry,
                        card)
     try:
         phase_tpcds(session, srv)
+        phase_complex_http(session, srv, basket_tables, baskets_want)
     finally:
         srv.stop()
     session.stop()

@@ -8,7 +8,7 @@ partial/final split of ``AggUtils.scala``).
 
 from __future__ import annotations
 
-from typing import Any, List, NamedTuple, Tuple
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,7 +21,8 @@ __all__ = [
     "AggregateFunction", "BufferSpec", "Sum", "Count", "CountStar", "Avg",
     "Min", "Max", "First", "Last", "CountDistinct", "SumDistinct",
     "VarianceBase", "VarSamp", "VarPop", "StddevSamp", "StddevPop",
-    "PercentileApprox", "is_aggregate", "IDENTITY",
+    "PercentileApprox", "CollectList", "CollectSet", "is_aggregate",
+    "IDENTITY",
 ]
 
 
@@ -399,6 +400,52 @@ class PercentileApprox(AggregateFunction):
 
     def __repr__(self):
         return f"percentile_approx({self.children[0]!r}, {self.percentage})"
+
+
+class CollectList(AggregateFunction):
+    """collect_list(x): each group's non-null values as an array, in the
+    group sort's order (stable, so in row order).  The arrays are
+    ``max_len`` wide (``spark.tpu.collect.maxArrayLen``, which the planner
+    binds when it plans the query); a longer group truncates.  It has no
+    buffers: the sort-based aggregate computes it
+    (``kernels._collect_into_arrays``), and the mesh lane gathers its
+    input to one shard."""
+
+    is_collect = True
+    distinct_elements = False
+
+    def __init__(self, child, max_len: Optional[int] = None):
+        super().__init__(child)
+        self.max_len = max_len
+
+    def with_max_len(self, max_len: int) -> "CollectList":
+        return type(self)(self.children[0], int(max_len))
+
+    def map_children(self, fn):
+        return type(self)(fn(self.children[0]), self.max_len)
+
+    def data_type(self, schema):
+        return T.ArrayType(self.children[0].data_type(schema))
+
+    def num_buffers(self):
+        return 0
+
+    def make_buffers(self, ctx, contribute):
+        raise AnalysisException(
+            "collect_list/collect_set only run on the sort-based "
+            "aggregation path")
+
+    def __repr__(self):
+        return f"collect_list({self.children[0]!r})"
+
+
+class CollectSet(CollectList):
+    """collect_set(x): each group's distinct non-null values as an array."""
+
+    distinct_elements = True
+
+    def __repr__(self):
+        return f"collect_set({self.children[0]!r})"
 
 
 class CountDistinct(Count):

@@ -10,7 +10,10 @@ held in torch tensors on one device:
   are separate boolean masks (Arrow-style validity);
 * strings/binary are int32 dictionary codes into a host-side,
   lexicographically sorted dictionary (a tuple of words), so every device
-  op on strings is an integer op.
+  op on strings is an integer op;
+* an array column is ONE ``(capacity, max_len)`` tensor of the element
+  dtype, each row's elements first and trailing slots holding the
+  element sentinel (``types.ArrayType``); it pads by rows only.
 
 Filtering does NOT compact (it ANDs ``row_valid``); ``compact`` is an
 explicit operator.  ``ColumnBatch.from_numpy_parts`` builds a batch from
@@ -19,6 +22,7 @@ plain numpy parts, which is how batches of the JAX package cross over.
 
 from __future__ import annotations
 
+import gc
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -133,6 +137,47 @@ def decode_column(data: np.ndarray, valid: Optional[np.ndarray],
     if row_valid is not None:
         data = data[row_valid]
         valid = None if valid is None else valid[row_valid]
+    if isinstance(dt, T.ArrayType):
+        out = _decode_arrays(data, dt, dictionary)
+    else:
+        out = _decode_flat(data, dt, dictionary)
+    if valid is not None:
+        for i in np.flatnonzero(~valid).tolist():
+            out[i] = None
+    return out
+
+
+def _decode_arrays(data: np.ndarray, dt: "T.ArrayType",
+                   dictionary: Optional[Tuple[str, ...]]) -> List[Any]:
+    """Rows of a ``(rows, max_len)`` array plane as Python lists of their
+    live elements (those that are not the element sentinel), with the
+    element values ``decode_column`` gives a flat column."""
+    et = dt.element_type
+    if data.ndim == 1:                         # a 0-wide plane
+        return [[] for _ in range(len(data))]
+    if et.is_fractional:
+        live = ~np.isnan(data.astype(np.float64))
+    elif et.is_string:
+        live = data >= 0
+    else:
+        live = data != dt.element_sentinel()
+    flat = _decode_flat(data[live], et, dictionary)
+    ends = np.cumsum(live.sum(axis=1)).tolist()
+    starts = [0] + ends[:-1]
+    # a list per row and nothing that can form a cycle: the cyclic
+    # collector, which a run of new lists sets off again and again, would
+    # take most of the time
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        return [flat[a:b] for a, b in zip(starts, ends)]
+    finally:
+        if enabled:
+            gc.enable()
+
+
+def _decode_flat(data: np.ndarray, dt: T.DataType,
+                 dictionary: Optional[Tuple[str, ...]]) -> List[Any]:
     if dt.is_string or isinstance(dt, T.BinaryType):
         words = np.empty(len(dictionary or ()) + 1, dtype=object)
         words[:-1] = dictionary or ()          # last slot: None
@@ -150,15 +195,12 @@ def decode_column(data: np.ndarray, valid: Optional[np.ndarray],
         values = data.astype(np.int64).astype("datetime64[us]")
     else:
         values = data               # ints and floats: tolist() gives Python's
-    out = values.tolist()
-    if valid is not None:
-        for i in np.flatnonzero(~valid).tolist():
-            out[i] = None
-    return out
+    return values.tolist()
 
 
 def _byte_view(t: torch.Tensor) -> torch.Tensor:
-    return t.contiguous().view(torch.uint8)
+    """The bytes of ``t`` as one 1-D uint8 tensor (an array plane's too)."""
+    return t.contiguous().view(torch.uint8).reshape(-1)
 
 
 def pack_to_host(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -271,6 +313,12 @@ class ColumnBatch:
               device="cpu") -> "ColumnBatch":
         vectors = []
         for f in schema.fields:
+            if isinstance(f.dataType, T.ArrayType):
+                arr = torch.full((capacity, 1),
+                                 f.dataType.element_sentinel().item(),
+                                 dtype=f.dataType.torch_dtype, device=device)
+                vectors.append(ColumnVector(arr, f.dataType, None, None))
+                continue
             arr = torch.zeros(capacity, dtype=f.dataType.torch_dtype,
                               device=device)
             d = () if (f.dataType.is_string or isinstance(f.dataType, T.BinaryType)) else None
@@ -372,9 +420,20 @@ def _ingest_column(raw: Any, cap: int, dtype: Optional[T.DataType]
     dictionary: Optional[Tuple[str, ...]] = None
     valid: Optional[np.ndarray] = None
 
-    if isinstance(raw, np.ndarray) and raw.ndim != 1:
-        raise NotImplementedError(
-            "array (2-D) columns come with the TPC-DS breadth slice")
+    if isinstance(raw, np.ndarray) and raw.ndim == 2:
+        # a fixed-width array column (ML feature vectors): every slot live
+        dt = dtype if isinstance(dtype, T.ArrayType) \
+            else T.ArrayType(T.float64)
+        data = raw.astype(dt.element_type.np_dtype)
+        if len(data) < cap:
+            pad = np.full((cap - len(data),) + data.shape[1:],
+                          dt.element_sentinel(), data.dtype)
+            data = np.concatenate([data, pad])
+        return np.ascontiguousarray(data), dt, None, None
+    if not isinstance(raw, np.ndarray) and len(raw) and isinstance(
+            next((v for v in raw if v is not None), None),
+            (list, tuple, np.ndarray)):
+        return _ingest_lists(raw, cap, dtype)
     if isinstance(raw, np.ndarray) and raw.dtype.kind not in ("O", "U", "S"):
         if raw.dtype.kind == "M":  # datetime64
             if isinstance(dtype, T.DateType):
@@ -401,9 +460,6 @@ def _ingest_column(raw: Any, cap: int, dtype: Optional[T.DataType]
             data = raw.astype(dt.np_dtype)
     else:
         values = list(raw)
-        if any(isinstance(v, (list, tuple, np.ndarray)) for v in values):
-            raise NotImplementedError(
-                "array columns come with the TPC-DS breadth slice")
         nulls = np.fromiter((v is None or (isinstance(v, float) and np.isnan(v)) for v in values),
                             dtype=bool, count=len(values))
         sample = next((v for v in values if v is not None), None)
@@ -448,3 +504,35 @@ def _ingest_column(raw: Any, cap: int, dtype: Optional[T.DataType]
         if valid is not None:
             valid = np.concatenate([valid, np.zeros(cap - len(valid), bool)])
     return np.ascontiguousarray(data), dt, valid, dictionary
+
+
+def _ingest_lists(raw: Sequence[Any], cap: int, dtype: Optional[T.DataType]
+                  ) -> Tuple[np.ndarray, T.DataType, Optional[np.ndarray],
+                             None]:
+    """A column of Python lists (None = a NULL array) as a
+    ``(cap, max_len)`` plane: ragged tails, None elements and padding rows
+    hold the element sentinel, as ``spark_tpu/columnar.py`` ingests them.
+    Elements are int64 when every one is an integer, else float64."""
+    values = [[] if v is None else list(v) for v in raw]
+    width = max((len(v) for v in values), default=1) or 1
+    nulls = np.fromiter((v is None for v in raw), bool, count=len(values))
+    if isinstance(dtype, T.ArrayType):
+        dt = dtype
+    else:
+        all_int = all(isinstance(x, (int, np.integer))
+                      and not isinstance(x, bool)
+                      for v in values for x in v if x is not None)
+        dt = T.ArrayType(T.int64 if all_int and any(len(v) for v in values)
+                         else T.float64)
+    et = dt.element_type
+    sent = np.nan if et.is_fractional else dt.element_sentinel()
+    mat = np.full((cap, width), sent, et.np_dtype)
+    for i, v in enumerate(values):
+        for j, x in enumerate(v):
+            if x is not None and not (isinstance(x, float) and np.isnan(x)):
+                mat[i, j] = x
+    valid = None
+    if nulls.any():
+        valid = np.zeros(cap, bool)
+        valid[:len(values)] = ~nulls
+    return mat, dt, valid, None

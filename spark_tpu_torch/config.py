@@ -285,3 +285,9 @@ SERVER_PLAN_CACHE_MAX_BYTES = conf("spark.tpu.server.planCache.maxBytes").doc(
     "memory manager by the stage cache."
 ).int(256 << 20)
 
+
+COLLECT_MAX_LEN = conf("spark.tpu.collect.maxArrayLen").doc(
+    "Static element capacity of collect_list/collect_set output arrays; "
+    "larger groups truncate (static shapes need a bound).  Read when a "
+    "query is planned, so it is part of the plan and of its stage key."
+).int(128)

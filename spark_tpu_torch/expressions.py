@@ -35,6 +35,13 @@ __all__ = [
     "Least", "BinaryMath", "StringTransform", "Substring", "StringLength",
     "Concat", "ParamStringTransform", "StringToInt", "ExtractDatePart",
     "DateArith", "NextDay", "TruncDate", "UnixTimestamp", "GroupingCall",
+    "RowIndex", "Rand", "Randn", "SparkPartitionId", "MakeArray", "SplitStr",
+    "ArraySize", "ElementAt", "ArrayReduce", "SortArray", "ArrayDistinct",
+    "ArraySlice", "ArrayPosition", "LambdaVar", "ArrayTransform",
+    "ArrayFilterFn", "ArrayExists", "ArrayAggregate", "ZipWith",
+    "ArrayContains", "ExplodeMarker", "CreateStruct", "GetField",
+    "CreateMap", "MapFromArrays", "MapKeys", "MapValues", "MapGet",
+    "GetItem", "ArrayGather",
     "lit", "col", "AnalysisException",
 ]
 
@@ -63,13 +70,19 @@ def and_valid(a: Optional[torch.Tensor], b: Optional[torch.Tensor]
 
 class EvalContext:
     """Evaluation environment: a ColumnBatch and the device it lives on.
-    (The JAX package's ``row_offset``, which decorrelates rand and row ids
-    across operators, comes with those expressions.)"""
 
-    def __init__(self, batch: ColumnBatch):
+    ``row_offset`` decorrelates RowIndex/Rand across operators and shards
+    (the upper-bits analog of MonotonicallyIncreasingID's partition id):
+    a host int, a constant of the plan, never read from the device.
+    ``lambda_bindings`` maps a bound lambda variable's name to the value
+    its higher-order function gave it."""
+
+    def __init__(self, batch: ColumnBatch, row_offset: int = 0):
         self.batch = batch
         self.device = batch.device
         self.capacity = batch.capacity
+        self.row_offset = row_offset
+        self.lambda_bindings: dict = {}
 
     def col(self, name: str) -> ExprValue:
         vec = self.batch.column(name)
@@ -1892,3 +1905,1207 @@ class GroupingCall(Expression):
 
     def __repr__(self):
         return self.name
+
+
+# ---------------------------------------------------------------------------
+# Row ids and random draws (``expressions/MonotonicallyIncreasingID.scala``,
+# ``randomExpressions.scala``): functions of the row's position, made
+# bit-identical to ``spark_tpu.expressions`` (its uint64 arithmetic is
+# wrapping int64 arithmetic here, its shifts logical shifts)
+# ---------------------------------------------------------------------------
+
+class RowIndex(Expression):
+    """Global row id: the batch-local index plus the context's offset
+    (``monotonically_increasing_id``; the operator's id and, on the mesh
+    lane, the shard sit in the offset's upper bits)."""
+
+    def data_type(self, schema):
+        return T.int64
+
+    def eval(self, ctx):
+        idx = torch.arange(ctx.capacity, dtype=torch.int64,
+                           device=ctx.device)
+        return ExprValue(idx + ctx.row_offset, None)
+
+    def __repr__(self):
+        return "monotonically_increasing_id()"
+
+
+class Rand(Expression):
+    """Deterministic per-row uniform [0, 1): a hash of the row id and the
+    seed, so the draws are reproducible and the same on every lane
+    (unlike Spark's per-partition XORShiftRandom)."""
+
+    def __init__(self, seed: int = 0):
+        self.seed = seed
+
+    def data_type(self, schema):
+        return T.float64
+
+    def _draw(self, ctx, seed: int) -> torch.Tensor:
+        idx = torch.arange(ctx.capacity, dtype=torch.int64,
+                           device=ctx.device) + ctx.row_offset
+        seed_mix = _u64((seed * 2654435761 + 1) & 0xFFFFFFFFFFFFFFFF)
+        mixed = Hash64._mix(idx * _u64(0x9E3779B97F4A7C15) + seed_mix)
+        return lsr64(mixed, 11).to(torch.float64) * (1.0 / (1 << 53))
+
+    def eval(self, ctx):
+        return ExprValue(self._draw(ctx, self.seed), None)
+
+    def __repr__(self):
+        return f"rand({self.seed})"
+
+
+class Randn(Rand):
+    """Standard-normal draws: Box-Muller over two Rand streams."""
+
+    def eval(self, ctx):
+        u1 = self._draw(ctx, self.seed).clamp(min=1e-12)
+        u2 = self._draw(ctx, self.seed + 0x5DEECE66D)
+        out = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * np.pi * u2)
+        return ExprValue(out, None)
+
+    def __repr__(self):
+        return f"randn({self.seed})"
+
+
+class SparkPartitionId(Expression):
+    """spark_partition_id(): the mesh shard, carried in the row offset's
+    bits from 48 up (0 on the single-device lane)."""
+
+    children = ()
+
+    def data_type(self, schema):
+        return T.int32
+
+    @property
+    def name(self):
+        return "SPARK_PARTITION_ID()"
+
+    def eval(self, ctx):
+        return ExprValue(ctx.scalar(ctx.row_offset >> 48, torch.int32), None)
+
+    def __repr__(self):
+        return "spark_partition_id()"
+
+
+# ---------------------------------------------------------------------------
+# Arrays (``complexTypeCreator.scala``, ``collectionOperations.scala``,
+# ``higherOrderFunctions.scala``).  Layout: ``types.ArrayType`` — a
+# (capacity, max_len) plane of the element dtype, each row's elements
+# first, trailing slots holding the element sentinel.  Sorts along the
+# last axis are stable, as the JAX package's are.
+# ---------------------------------------------------------------------------
+
+def _array_elem_mask(dt: "T.ArrayType", data: torch.Tensor) -> torch.Tensor:
+    if dt.element_type.is_fractional:
+        return ~torch.isnan(data)
+    return data != dt.element_sentinel().item()
+
+
+def _sentinel(dt: "T.ArrayType"):
+    return dt.element_sentinel().item()
+
+
+def _pack_front(data: torch.Tensor, keep: torch.Tensor, sent
+                ) -> torch.Tensor:
+    """The kept elements of each row first, in their order; the other
+    slots hold the sentinel (one stable sort of the drop flags)."""
+    order = torch.sort((~keep).to(torch.int8), dim=-1, stable=True).indices
+    data = torch.take_along_dim(data, order, dim=-1)
+    kept = torch.take_along_dim(keep, order, dim=-1)
+    return torch.where(kept, data, sent)
+
+
+def _array_type(e: Expression, schema, what: str) -> "T.ArrayType":
+    ct = e.data_type(schema)
+    if not isinstance(ct, T.ArrayType):
+        raise AnalysisException(f"{what} expects an array, got {ct}")
+    return ct
+
+
+def _extremes(et: T.DataType):
+    if et.is_fractional:
+        return float("-inf"), float("inf")
+    info = np.iinfo(et.np_dtype)
+    return int(info.min), int(info.max)
+
+
+class MakeArray(Expression):
+    """array(e1, e2, ...): a fixed-width array from scalar expressions.
+    String elements re-code onto one merged dictionary (host remap tables,
+    ``capture.constant``s); a NULL element is dropped and the live ones
+    packed to the front (the JAX package's deviation: the layout holds no
+    NULL element)."""
+
+    def __init__(self, *children: Expression):
+        if not children:
+            raise AnalysisException("array() needs at least one element")
+        self.children = tuple(children)
+
+    def map_children(self, fn):
+        return MakeArray(*[fn(c) for c in self.children])
+
+    @property
+    def name(self):
+        return f"array({', '.join(c.name for c in self.children)})"
+
+    def data_type(self, schema):
+        et = self.children[0].data_type(schema)
+        for c in self.children[1:]:
+            ct = c.data_type(schema)
+            et = T.numeric_promote(et, ct) if et != ct else et
+        return T.ArrayType(et)
+
+    def eval(self, ctx):
+        from .columnar import merge_dictionaries
+        dt = self.data_type(ctx.batch.schema)
+        et = dt.element_type
+        vals = [ctx.broadcast(c.eval(ctx)) for c in self.children]
+        sent = _sentinel(dt)
+        out_dict = None
+        if et.is_string:
+            merged = vals[0].dictionary or ("",)
+            remaps = [np.arange(len(merged), dtype=np.int32)]
+            for v in vals[1:]:
+                merged, ra, rb = merge_dictionaries(merged,
+                                                    v.dictionary or ("",))
+                remaps = [ra[r] for r in remaps] + [rb]
+            vals = [ExprValue(constant(r, ctx.device)[
+                        v.data.long().clamp(0, len(r) - 1)], v.valid, merged)
+                    for v, r in zip(vals, remaps)]
+            out_dict = merged
+        cols, masks = [], []
+        for v in vals:
+            d = v.data.to(et.torch_dtype)
+            if v.valid is not None:
+                d = torch.where(v.valid, d, sent)
+            masks.append(v.valid)
+            cols.append(d)
+        data = torch.stack(cols, dim=-1)
+        if any(m is not None for m in masks):
+            mask = torch.stack([m if m is not None else
+                                torch.ones_like(cols[0], dtype=torch.bool)
+                                for m in masks], dim=-1)
+            data = _pack_front(data, mask, sent)
+        return ExprValue(data, None, out_dict)
+
+    def __repr__(self):
+        return f"array({', '.join(map(repr, self.children))})"
+
+
+class SplitStr(Expression):
+    """split(str, regex[, limit]) -> array<string>: the dictionary is split
+    on the host, the device gathers each row's element codes from a
+    (dictionary size, max parts) table (a ``capture.constant``)."""
+
+    def __init__(self, child: Expression, pattern: str, limit: int = -1):
+        self.pattern = pattern
+        self.limit = limit
+        self.children = (child,)
+
+    def map_children(self, fn):
+        return SplitStr(fn(self.children[0]), self.pattern, self.limit)
+
+    @property
+    def name(self):
+        return f"split({self.children[0].name}, {self.pattern!r})"
+
+    def data_type(self, schema):
+        ct = self.children[0].data_type(schema)
+        if not ct.is_string:
+            raise AnalysisException(f"split expects string, got {ct}")
+        return T.ArrayType(T.string)
+
+    def split_table(self, dictionary) -> Tuple[np.ndarray, Tuple[str, ...]]:
+        """(code table, element dictionary) of one input dictionary."""
+        rx = re.compile(self.pattern)
+        # re.split maxsplit: 0 = unlimited; Spark's limit <= 0 splits fully
+        maxsplit = 0 if self.limit <= 0 else self.limit - 1
+        parts_per_word = [rx.split(w, maxsplit)
+                          for w in (dictionary or ("",))]
+        elem_dict = tuple(sorted({p for parts in parts_per_word
+                                  for p in parts}))
+        pos = {w: i for i, w in enumerate(elem_dict)}
+        width = max(max((len(p) for p in parts_per_word), default=1), 1)
+        table = np.full((len(parts_per_word), width), -1, np.int32)
+        for i, parts in enumerate(parts_per_word):
+            for j, p in enumerate(parts):
+                table[i, j] = pos[p]
+        return table, elem_dict
+
+    def eval(self, ctx):
+        v = self.children[0].eval(ctx)
+        table, elem_dict = self.split_table(v.dictionary)
+        codes = v.data.long().clamp(0, table.shape[0] - 1)
+        return ExprValue(constant(table, ctx.device)[codes], v.valid,
+                         elem_dict)
+
+    def __repr__(self):
+        return f"split({self.children[0]!r}, {self.pattern!r})"
+
+
+class ArraySize(Expression):
+    """size(arr): the element count (0 for an empty array; a NULL row
+    follows the row's mask)."""
+
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    def data_type(self, schema):
+        ct = self.children[0].data_type(schema)
+        if isinstance(ct, T.MapType):
+            return T.int32        # size(map): rewritten to its keys plane
+        if not isinstance(ct, T.ArrayType):
+            raise AnalysisException(f"size expects an array, got {ct}")
+        return T.int32
+
+    def eval(self, ctx):
+        dt = self.children[0].data_type(ctx.batch.schema)
+        v = self.children[0].eval(ctx)
+        mask = _array_elem_mask(dt, v.data)
+        return ExprValue(mask.sum(dim=-1, dtype=torch.int32), v.valid)
+
+    def __repr__(self):
+        return f"size({self.children[0]!r})"
+
+
+def _gather_1based_plane(dt, v: ExprValue, idx, capacity: int,
+                         out_dtype: torch.dtype, device):
+    """The 1-based array-plane gather (negative counts from the end; 0 or
+    out of bounds is NULL), shared by ElementAt (a static index) and
+    ArrayGather (an index per row).  Returns (data, ok mask)."""
+    width = v.data.shape[-1]
+    if width == 0:
+        return (torch.zeros(capacity, dtype=out_dtype, device=device),
+                torch.zeros(capacity, dtype=torch.bool, device=device))
+    lengths = _array_elem_mask(dt, v.data).sum(dim=-1)
+    if isinstance(idx, int):
+        eff = lengths + idx if idx < 0 else torch.full_like(lengths, idx - 1)
+        ok = (eff >= 0) & (eff < lengths)
+    else:
+        eff = torch.where(idx > 0, idx - 1, lengths + idx)
+        ok = (idx != 0) & (eff >= 0) & (eff < lengths)
+    gathered = torch.take_along_dim(
+        v.data, eff.clamp(0, width - 1)[..., None], dim=-1)[..., 0]
+    return gathered, ok
+
+
+class ElementAt(Expression):
+    """element_at(arr, i): 1-based; negative counts from the end; out of
+    bounds is NULL (Spark's non-ANSI behavior)."""
+
+    def __init__(self, child: Expression, index: int):
+        if index == 0:
+            raise AnalysisException("element_at index is 1-based; got 0")
+        self.index = int(index)
+        self.children = (child,)
+
+    def map_children(self, fn):
+        return ElementAt(fn(self.children[0]), self.index)
+
+    @property
+    def name(self):
+        return f"element_at({self.children[0].name}, {self.index})"
+
+    def data_type(self, schema):
+        ct = self.children[0].data_type(schema)
+        if isinstance(ct, T.MapType):
+            return ct.value_type  # element_at(map, k): rewritten to MapGet
+        if not isinstance(ct, T.ArrayType):
+            raise AnalysisException(f"element_at expects an array, got {ct}")
+        return ct.element_type
+
+    def eval(self, ctx):
+        dt = self.children[0].data_type(ctx.batch.schema)
+        v = self.children[0].eval(ctx)
+        out_dt = self.data_type(ctx.batch.schema).torch_dtype
+        gathered, ok = _gather_1based_plane(dt, v, self.index, ctx.capacity,
+                                            out_dt, ctx.device)
+        return ExprValue(gathered, and_valid(v.valid, ok), v.dictionary)
+
+    def __repr__(self):
+        return f"element_at({self.children[0]!r}, {self.index})"
+
+
+class ArrayReduce(Expression):
+    """array_max / array_min: a sentinel-aware reduction over the plane."""
+
+    def __init__(self, child: Expression, op: str):
+        self.children = (child,)
+        self.op = op                      # "max" | "min"
+
+    def map_children(self, fn):
+        return ArrayReduce(fn(self.children[0]), self.op)
+
+    @property
+    def name(self):
+        return f"array_{self.op}({self.children[0].name})"
+
+    def data_type(self, schema):
+        return _array_type(self.children[0], schema,
+                           f"array_{self.op}").element_type
+
+    def eval(self, ctx):
+        dt = self.children[0].data_type(ctx.batch.schema)
+        v = self.children[0].eval(ctx)
+        mask = _array_elem_mask(dt, v.data)
+        lo, hi = _extremes(dt.element_type)
+        filled = torch.where(mask, v.data, lo if self.op == "max" else hi)
+        out = torch.amax(filled, dim=-1) if self.op == "max" \
+            else torch.amin(filled, dim=-1)
+        return ExprValue(out, and_valid(v.valid, mask.any(dim=-1)),
+                         v.dictionary)
+
+    def __repr__(self):
+        return f"array_{self.op}({self.children[0]!r})"
+
+
+class SortArray(Expression):
+    """sort_array(arr[, asc]): a stable sort of each row's elements, the
+    dead slots a trailing sentinel block in either direction."""
+
+    def __init__(self, child: Expression, asc: bool = True):
+        self.children = (child,)
+        self.asc = bool(asc)
+
+    def map_children(self, fn):
+        return SortArray(fn(self.children[0]), self.asc)
+
+    @property
+    def name(self):
+        return f"sort_array({self.children[0].name}, {self.asc})"
+
+    def data_type(self, schema):
+        return _array_type(self.children[0], schema, "sort_array")
+
+    def eval(self, ctx):
+        dt = self.children[0].data_type(ctx.batch.schema)
+        v = self.children[0].eval(ctx)
+        mask = _array_elem_mask(dt, v.data)
+        # codes sort as words (sorted dictionaries).  Ascending: dead slots
+        # carry the largest value and sink; descending: the smallest, sort
+        # ascending, then flip the row (no negation, which would overflow)
+        lo, hi = _extremes(dt.element_type)
+        order = torch.sort(torch.where(mask, v.data, hi if self.asc else lo),
+                           dim=-1, stable=True).indices
+        if not self.asc:
+            order = torch.flip(order, dims=(-1,))
+        data = torch.take_along_dim(v.data, order, dim=-1)
+        smask = torch.take_along_dim(mask, order, dim=-1)
+        return ExprValue(torch.where(smask, data, _sentinel(dt)), v.valid,
+                         v.dictionary)
+
+    def __repr__(self):
+        return f"sort_array({self.children[0]!r}, asc={self.asc})"
+
+
+class ArrayDistinct(Expression):
+    """array_distinct(arr): the first occurrence of each element, in order,
+    packed to the front."""
+
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    @property
+    def name(self):
+        return f"array_distinct({self.children[0].name})"
+
+    def data_type(self, schema):
+        return _array_type(self.children[0], schema, "array_distinct")
+
+    def eval(self, ctx):
+        dt = self.children[0].data_type(ctx.batch.schema)
+        v = self.children[0].eval(ctx)
+        mask = _array_elem_mask(dt, v.data)
+        # element j survives iff no earlier equal live element exists: one
+        # (L, L) comparison plane per row, L small and static
+        width = v.data.shape[-1]
+        eq = v.data[..., :, None] == v.data[..., None, :]
+        earlier = torch.ones((width, width), dtype=torch.bool,
+                             device=ctx.device).tril(diagonal=-1)
+        dup = (eq & earlier & mask[..., None, :]
+               & mask[..., :, None]).any(dim=-1)
+        data = _pack_front(v.data, mask & ~dup, _sentinel(dt))
+        return ExprValue(data, v.valid, v.dictionary)
+
+    def __repr__(self):
+        return f"array_distinct({self.children[0]!r})"
+
+
+class ArraySlice(Expression):
+    """slice(arr, start, length): 1-based, a negative start counts from the
+    end."""
+
+    def __init__(self, child: Expression, start: int, length: int):
+        if start == 0:
+            raise AnalysisException("slice start is 1-based; got 0")
+        if length < 0:
+            raise AnalysisException("slice length must be >= 0")
+        self.children = (child,)
+        self.start = int(start)
+        self.length = int(length)
+
+    def map_children(self, fn):
+        return ArraySlice(fn(self.children[0]), self.start, self.length)
+
+    @property
+    def name(self):
+        return f"slice({self.children[0].name}, {self.start}, {self.length})"
+
+    def data_type(self, schema):
+        return _array_type(self.children[0], schema, "slice")
+
+    def eval(self, ctx):
+        dt = self.children[0].data_type(ctx.batch.schema)
+        v = self.children[0].eval(ctx)
+        lengths = _array_elem_mask(dt, v.data).sum(dim=-1)
+        width = v.data.shape[-1]
+        eff = lengths + self.start if self.start < 0 \
+            else torch.full_like(lengths, self.start - 1)
+        # Spark: a negative start before element 0 gives the EMPTY array,
+        # and the live elements land on the output's prefix
+        valid_start = (eff >= 0) & (eff < lengths)
+        pos = torch.arange(width, dtype=torch.int64, device=ctx.device)
+        idx = eff[..., None] + pos
+        in_range = valid_start[..., None] & (pos < self.length) \
+            & (idx < lengths[..., None])
+        gathered = torch.take_along_dim(v.data, idx.clamp(0, width - 1),
+                                        dim=-1)
+        return ExprValue(torch.where(in_range, gathered, _sentinel(dt)),
+                         v.valid, v.dictionary)
+
+    def __repr__(self):
+        return f"slice({self.children[0]!r}, {self.start}, {self.length})"
+
+
+class ArrayPosition(Expression):
+    """array_position(arr, value): the 1-based first index, 0 when absent."""
+
+    def __init__(self, child: Expression, value: Any):
+        self.children = (child,)
+        self.value = value
+
+    def map_children(self, fn):
+        return ArrayPosition(fn(self.children[0]), self.value)
+
+    @property
+    def name(self):
+        return f"array_position({self.children[0].name}, {self.value!r})"
+
+    def data_type(self, schema):
+        _array_type(self.children[0], schema, "array_position")
+        return T.int64
+
+    def eval(self, ctx):
+        dt = self.children[0].data_type(ctx.batch.schema)
+        v = self.children[0].eval(ctx)
+        mask = _array_elem_mask(dt, v.data)
+        if dt.element_type.is_string:
+            if v.dictionary is None or self.value not in v.dictionary:
+                hit = torch.zeros_like(mask)
+            else:
+                hit = v.data == v.dictionary.index(self.value)
+        else:
+            hit = v.data == np.asarray(self.value).astype(
+                dt.element_type.np_dtype).item()
+        hit = hit & mask
+        width = v.data.shape[-1]
+        pos = torch.arange(width, dtype=torch.int64, device=ctx.device)
+        first = torch.where(hit, pos, width).amin(dim=-1) \
+            if width else torch.zeros(ctx.capacity, dtype=torch.int64,
+                                      device=ctx.device)
+        return ExprValue(torch.where(first < width, first + 1, 0), v.valid)
+
+    def __repr__(self):
+        return f"array_position({self.children[0]!r}, {self.value!r})"
+
+
+class LambdaVar(Expression):
+    """A lambda variable bound by a higher-order function to the ELEMENT
+    PLANE (``NamedLambdaVariable``): an elementwise body is a plain
+    vectorized program over the (capacity, max_len) plane.  ``dtype`` is
+    bound by the enclosing function at type resolution.  The analyzer
+    renames every variable of a plan ``source#k``, k its position in the
+    plan, so two runs of one text key the same stage."""
+
+    _counter = [0]
+
+    def __init__(self, name: str = "x", uid: Optional[int] = None):
+        self.children = ()
+        if uid is None:
+            LambdaVar._counter[0] += 1
+            uid = LambdaVar._counter[0]
+        self._name = f"{name}#{uid}"
+        self.dtype: Optional[T.DataType] = None
+        self.dictionary = None
+
+    @property
+    def source(self) -> str:
+        return self._name.split("#")[0]
+
+    @property
+    def name(self):
+        return self._name
+
+    def references(self) -> set:
+        return set()                   # bound, not a column reference
+
+    def data_type(self, schema):
+        if self.dtype is None:
+            raise AnalysisException(
+                f"lambda variable {self._name} used outside its "
+                "higher-order function")
+        return self.dtype
+
+    def eval(self, ctx):
+        bound = ctx.lambda_bindings.get(self._name)
+        if bound is None:
+            raise AnalysisException(
+                f"lambda variable {self._name} evaluated without a binding")
+        return bound
+
+    def __repr__(self):
+        return self.source
+
+
+def _check_lambda_body(*bodies) -> None:
+    for body in bodies:
+        if body is not None and body.references():
+            raise AnalysisException(
+                "lambda body may reference only its lambda variables and "
+                "literals in this engine (vectorized element-plane "
+                f"evaluation); found column refs {sorted(body.references())}")
+
+
+def _sub_context(ctx, bindings: dict) -> EvalContext:
+    sub = EvalContext(ctx.batch, ctx.row_offset)
+    sub.lambda_bindings = {**ctx.lambda_bindings, **bindings}
+    return sub
+
+
+class _HigherOrder(Expression):
+    """Bind the element plane to the variable, evaluate the body over it.
+    ``LAMBDA_VARS`` / ``LAMBDA_BODIES`` name the fields the analyzer's
+    lambda resolution renames and substitutes."""
+
+    LAMBDA_VARS = ("var",)
+    LAMBDA_BODIES = ("body",)
+
+    def __init__(self, child: Expression, var: LambdaVar, body: Expression):
+        self.children = (child,)
+        self.var = var
+        self.body = body
+        _check_lambda_body(body)
+
+    def map_children(self, fn):
+        return type(self)(fn(self.children[0]), self.var, self.body)
+
+    def _array_type(self, schema) -> "T.ArrayType":
+        ct = _array_type(self.children[0], schema, type(self).__name__)
+        self.var.dtype = ct.element_type
+        return ct
+
+    def _plane(self, ctx):
+        """(body value over the plane, element mask, array value)."""
+        dt = self._array_type(ctx.batch.schema)
+        v = self.children[0].eval(ctx)
+        mask = _array_elem_mask(dt, v.data)
+        sub = _sub_context(ctx, {self.var.name: ExprValue(v.data, None,
+                                                          v.dictionary)})
+        return self.body.eval(sub), mask, v
+
+    def _kind(self) -> str:
+        return type(self).__name__
+
+    def __repr__(self):
+        return (f"{self._kind()}({self.children[0]!r}, {self.var!r} -> "
+                f"{self.body!r})")
+
+    @property
+    def name(self):
+        return (f"{self._kind()}({self.children[0].name}, {self.var!r} -> "
+                f"{self.body.name})")
+
+
+def _element_result_type(et: T.DataType, what: str) -> T.DataType:
+    if et.is_string:
+        raise AnalysisException(
+            f"{what} to string elements is not supported yet")
+    return T.int32 if isinstance(et, T.BooleanType) else et
+
+
+class ArrayTransform(_HigherOrder):
+    """transform(arr, x -> expr): an elementwise map over the plane."""
+
+    def _kind(self):
+        return "transform"
+
+    def data_type(self, schema):
+        self._array_type(schema)
+        return T.ArrayType(_element_result_type(self.body.data_type(schema),
+                                                "transform"))
+
+    def eval(self, ctx):
+        out, mask, v = self._plane(ctx)
+        odt = self.data_type(ctx.batch.schema)
+        data = out.data.to(odt.element_type.torch_dtype)
+        ok = mask if out.valid is None else (mask & out.valid)
+        return ExprValue(torch.where(ok, data, _sentinel(odt)), v.valid)
+
+
+def _predicate(out: ExprValue) -> torch.Tensor:
+    pred = out.data.to(torch.bool)
+    return pred if out.valid is None else pred & out.valid
+
+
+class ArrayFilterFn(_HigherOrder):
+    """filter(arr, x -> pred): the matching elements packed to the front,
+    in their order."""
+
+    def _kind(self):
+        return "filter"
+
+    def data_type(self, schema):
+        ct = self._array_type(schema)
+        bt = self.body.data_type(schema)
+        if not isinstance(bt, T.BooleanType):
+            raise AnalysisException(
+                f"filter lambda must return boolean, got {bt} "
+                f"({self.body!r})")
+        return ct
+
+    def eval(self, ctx):
+        out, mask, v = self._plane(ctx)
+        dt = self.children[0].data_type(ctx.batch.schema)
+        keep = mask & _predicate(out)
+        return ExprValue(_pack_front(v.data, keep, _sentinel(dt)), v.valid,
+                         v.dictionary)
+
+
+class ArrayExists(_HigherOrder):
+    """exists(arr, x -> pred) / forall(arr, x -> pred)."""
+
+    def __init__(self, child, var, body, require_all: bool = False):
+        super().__init__(child, var, body)
+        self.require_all = require_all
+
+    def map_children(self, fn):
+        return ArrayExists(fn(self.children[0]), self.var, self.body,
+                           self.require_all)
+
+    def _kind(self):
+        return "forall" if self.require_all else "exists"
+
+    def data_type(self, schema):
+        self._array_type(schema)
+        bt = self.body.data_type(schema)
+        if not isinstance(bt, T.BooleanType):
+            raise AnalysisException(
+                f"{self._kind()} lambda must return boolean, got {bt} "
+                f"({self.body!r})")
+        return T.boolean
+
+    def eval(self, ctx):
+        out, mask, v = self._plane(ctx)
+        pred = _predicate(out)
+        if self.require_all:
+            res = torch.all(pred | ~mask, dim=-1)
+        else:
+            res = torch.any(pred & mask, dim=-1)
+        return ExprValue(res, v.valid)
+
+
+class ArrayAggregate(Expression):
+    """aggregate(arr, init, (acc, x) -> merge[, acc -> finish]): a fold
+    over the plane, unrolled over the static max_len (one masked select
+    per slot, no data-dependent loop)."""
+
+    LAMBDA_VARS = ("acc_var", "x_var", "finish_var")
+    LAMBDA_BODIES = ("merge", "finish")
+
+    def __init__(self, child: Expression, init: Expression,
+                 acc_var: LambdaVar, x_var: LambdaVar, merge: Expression,
+                 finish_var: Optional[LambdaVar] = None,
+                 finish: Optional[Expression] = None):
+        self.children = (child, init)
+        self.acc_var = acc_var
+        self.x_var = x_var
+        self.merge = merge
+        self.finish_var = finish_var
+        self.finish = finish
+        _check_lambda_body(merge, finish)
+
+    def map_children(self, fn):
+        return ArrayAggregate(fn(self.children[0]), fn(self.children[1]),
+                              self.acc_var, self.x_var, self.merge,
+                              self.finish_var, self.finish)
+
+    @property
+    def name(self):
+        return f"aggregate({self.children[0].name})"
+
+    def _bind_types(self, schema):
+        ct = _array_type(self.children[0], schema, "aggregate")
+        self.x_var.dtype = ct.element_type
+        self.acc_var.dtype = self.children[1].data_type(schema)
+        return ct
+
+    def data_type(self, schema):
+        self._bind_types(schema)
+        if self.acc_var.dtype.is_string:
+            raise AnalysisException(
+                "aggregate with a string accumulator is not supported "
+                "yet (dictionary state cannot thread through the fold)")
+        mt = self.merge.data_type(schema)
+        if mt.is_string:
+            raise AnalysisException(
+                "aggregate merge producing strings is not supported yet")
+        if self.finish is not None:
+            self.finish_var.dtype = mt
+            return self.finish.data_type(schema)
+        return mt
+
+    def eval(self, ctx):
+        dt = self._bind_types(ctx.batch.schema)
+        v = self.children[0].eval(ctx)
+        mask = _array_elem_mask(dt, v.data)
+        init = ctx.broadcast(self.children[1].eval(ctx))
+        acc_data, acc_valid = init.data, init.valid
+        for i in range(v.data.shape[-1]):
+            sub = _sub_context(ctx, {
+                self.acc_var.name: ExprValue(acc_data, acc_valid),
+                self.x_var.name: ExprValue(v.data[..., i], None,
+                                           v.dictionary)})
+            merged = sub.broadcast(self.merge.eval(sub))
+            live = mask[..., i]
+            acc_data = torch.where(live, merged.data, acc_data)
+            if merged.valid is not None or acc_valid is not None:
+                mv = merged.valid if merged.valid is not None \
+                    else torch.ones_like(live)
+                av = acc_valid if acc_valid is not None \
+                    else torch.ones_like(live)
+                acc_valid = torch.where(live, mv, av)
+        out = ExprValue(acc_data, and_valid(v.valid, acc_valid))
+        if self.finish is not None:
+            self.finish_var.dtype = self.merge.data_type(ctx.batch.schema)
+            sub = _sub_context(ctx, {self.finish_var.name: out})
+            fin = sub.broadcast(self.finish.eval(sub))
+            out = ExprValue(fin.data, and_valid(out.valid, fin.valid))
+        return out
+
+    def __repr__(self):
+        fin = f", {self.finish_var!r} -> {self.finish!r}" \
+            if self.finish is not None else ""
+        return (f"aggregate({self.children[0]!r}, {self.children[1]!r}, "
+                f"({self.acc_var!r}, {self.x_var!r}) -> "
+                f"{self.merge!r}{fin})")
+
+
+class ZipWith(Expression):
+    """zip_with(a, b, (x, y) -> expr): an elementwise combine of two
+    arrays; the shorter side's missing tail enters the lambda as NULL."""
+
+    LAMBDA_VARS = ("x_var", "y_var")
+    LAMBDA_BODIES = ("body",)
+
+    def __init__(self, left: Expression, right: Expression,
+                 x_var: LambdaVar, y_var: LambdaVar, body: Expression):
+        self.children = (left, right)
+        self.x_var = x_var
+        self.y_var = y_var
+        self.body = body
+        _check_lambda_body(body)
+
+    def map_children(self, fn):
+        return ZipWith(fn(self.children[0]), fn(self.children[1]),
+                       self.x_var, self.y_var, self.body)
+
+    @property
+    def name(self):
+        return f"zip_with({self.children[0].name}, {self.children[1].name})"
+
+    def _bind_types(self, schema):
+        lt = self.children[0].data_type(schema)
+        rt = self.children[1].data_type(schema)
+        if not isinstance(lt, T.ArrayType) or not isinstance(rt, T.ArrayType):
+            raise AnalysisException(
+                f"zip_with expects two arrays, got {lt} and {rt}")
+        self.x_var.dtype = lt.element_type
+        self.y_var.dtype = rt.element_type
+        return lt, rt
+
+    def data_type(self, schema):
+        self._bind_types(schema)
+        return T.ArrayType(_element_result_type(self.body.data_type(schema),
+                                                "zip_with"))
+
+    def eval(self, ctx):
+        lt, rt = self._bind_types(ctx.batch.schema)
+        a = self.children[0].eval(ctx)
+        b = self.children[1].eval(ctx)
+        am = _array_elem_mask(lt, a.data)
+        bm = _array_elem_mask(rt, b.data)
+        w = max(a.data.shape[-1], b.data.shape[-1])
+
+        def widen(data, mask):
+            extra = w - data.shape[-1]
+            if not extra:
+                return data, mask
+            return (torch.nn.functional.pad(data, (0, extra), value=0),
+                    torch.nn.functional.pad(mask, (0, extra), value=False))
+
+        ad, am = widen(a.data, am)
+        bd, bm = widen(b.data, bm)
+        sub = _sub_context(ctx, {
+            self.x_var.name: ExprValue(ad, am, a.dictionary),
+            self.y_var.name: ExprValue(bd, bm, b.dictionary)})
+        out = self.body.eval(sub)
+        odt = self.data_type(ctx.batch.schema)
+        live = am | bm
+        ok = live if out.valid is None else (live & out.valid)
+        data = torch.where(ok, out.data.to(odt.element_type.torch_dtype),
+                           _sentinel(odt))
+        return ExprValue(data, and_valid(a.valid, b.valid))
+
+    def __repr__(self):
+        return (f"zip_with({self.children[0]!r}, {self.children[1]!r}, "
+                f"({self.x_var!r}, {self.y_var!r}) -> {self.body!r})")
+
+
+class ArrayContains(Expression):
+    """array_contains(arr, literal)."""
+
+    def __init__(self, child: Expression, value: Any):
+        self.value = value
+        self.children = (child,)
+
+    def map_children(self, fn):
+        return ArrayContains(fn(self.children[0]), self.value)
+
+    @property
+    def name(self):
+        return f"array_contains({self.children[0].name}, {self.value!r})"
+
+    def data_type(self, schema):
+        _array_type(self.children[0], schema, "array_contains")
+        return T.boolean
+
+    def eval(self, ctx):
+        dt = self.children[0].data_type(ctx.batch.schema)
+        v = self.children[0].eval(ctx)
+        mask = _array_elem_mask(dt, v.data)
+        none = torch.zeros(ctx.capacity, dtype=torch.bool, device=ctx.device)
+        if dt.element_type.is_string:
+            words = v.dictionary or ()
+            if self.value not in words:
+                return ExprValue(none, v.valid)
+            target = words.index(self.value)
+        else:
+            ed = np.dtype(dt.element_type.np_dtype)
+            if np.issubdtype(ed, np.integer) and \
+                    float(self.value) != int(self.value):
+                # 1.5 never equals an integer element; a cast would
+                # truncate it into a false positive
+                return ExprValue(none, v.valid)
+            target = np.asarray(self.value, ed).item()
+        return ExprValue(((v.data == target) & mask).any(dim=-1), v.valid)
+
+    def __repr__(self):
+        return f"array_contains({self.children[0]!r}, {self.value!r})"
+
+
+class ExplodeMarker(Expression):
+    """explode()/posexplode() in a select list; the analyzer rewrites the
+    Project holding it into the Explode operator."""
+
+    def __init__(self, child: Expression, with_pos: bool = False):
+        self.with_pos = with_pos
+        self.children = (child,)
+
+    def map_children(self, fn):
+        return ExplodeMarker(fn(self.children[0]), self.with_pos)
+
+    @property
+    def name(self):
+        return "col" if not self.with_pos else "posexplode"
+
+    def data_type(self, schema):
+        return _array_type(self.children[0], schema, "explode").element_type
+
+    def eval(self, ctx):
+        raise AnalysisException(
+            "explode() is only supported as a top-level select expression")
+
+    def __repr__(self):
+        return f"explode({self.children[0]!r})"
+
+
+# ---------------------------------------------------------------------------
+# Structs and maps: object-layer values, as in the JAX package.  The
+# optimizer's ``simplify_complex_ops`` rewrites every consumer into flat
+# array/scalar expressions, so none holds a device plane of its own; a
+# collected map or struct is built on the host from its flat planes.
+# ---------------------------------------------------------------------------
+
+_COMPLEX_EVAL_HINT = (
+    " survived to execution: complex values are consumed via "
+    "getField/map_keys/map_values/element_at/size (rewritten to flat "
+    "columns by the optimizer) or collected at the top level.  A map/"
+    "struct flowing through an operator that is neither is unsupported."
+)
+
+
+class _ObjectLayer(Expression):
+    """A struct/map value: typed, never evaluated."""
+
+    def eval(self, ctx):
+        raise AnalysisException(f"{self!r}" + _COMPLEX_EVAL_HINT)
+
+
+class CreateStruct(_ObjectLayer):
+    """struct(...) / named_struct(...) — ``complexTypeCreator.scala``."""
+
+    def __init__(self, field_names, *children: Expression):
+        if not children or len(field_names) != len(children):
+            raise AnalysisException("struct() needs one name per field")
+        self.field_names = tuple(field_names)
+        self.children = tuple(children)
+
+    def map_children(self, fn):
+        return CreateStruct(self.field_names,
+                            *[fn(c) for c in self.children])
+
+    @property
+    def name(self):
+        return f"struct({', '.join(c.name for c in self.children)})"
+
+    def data_type(self, schema):
+        return T.StructType([T.StructField(n, c.data_type(schema))
+                             for n, c in zip(self.field_names,
+                                             self.children)])
+
+    def __repr__(self):
+        parts = [f"{n}={c!r}" for n, c in zip(self.field_names,
+                                              self.children)]
+        return f"named_struct({', '.join(parts)})"
+
+
+class GetField(_ObjectLayer):
+    """struct.field — ``GetStructField``."""
+
+    def __init__(self, child: Expression, field: str):
+        self.children = (child,)
+        self.field = field
+
+    def map_children(self, fn):
+        return GetField(fn(self.children[0]), self.field)
+
+    @property
+    def name(self):
+        return self.field
+
+    def data_type(self, schema):
+        ct = self.children[0].data_type(schema)
+        if not isinstance(ct, T.StructType):
+            raise AnalysisException(f"getField expects a struct, got {ct}")
+        for f in ct.fields:
+            if f.name == self.field:
+                return f.dataType
+        raise AnalysisException(f"no field {self.field!r} in {ct.names}")
+
+    def __repr__(self):
+        return f"{self.children[0]!r}.{self.field}"
+
+
+class CreateMap(_ObjectLayer):
+    """map(k1, v1, k2, v2, ...) — ``CreateMap``."""
+
+    def __init__(self, *children: Expression):
+        if not children or len(children) % 2:
+            raise AnalysisException(
+                "map() needs an even, positive number of arguments "
+                "(alternating keys and values)")
+        self.children = tuple(children)
+
+    def map_children(self, fn):
+        return CreateMap(*[fn(c) for c in self.children])
+
+    @property
+    def keys(self):
+        return self.children[0::2]
+
+    @property
+    def values(self):
+        return self.children[1::2]
+
+    @property
+    def name(self):
+        return f"map({', '.join(c.name for c in self.children)})"
+
+    def _common(self, exprs, schema, what):
+        dt = exprs[0].data_type(schema)
+        for e in exprs[1:]:
+            nxt = T.common_type(dt, e.data_type(schema))
+            if nxt is None:
+                raise AnalysisException(
+                    f"map {what} types are incompatible: {dt} vs "
+                    f"{e.data_type(schema)}")
+            dt = nxt
+        return dt
+
+    def data_type(self, schema):
+        return T.MapType(self._common(self.keys, schema, "key"),
+                         self._common(self.values, schema, "value"))
+
+    def __repr__(self):
+        return f"map({', '.join(repr(c) for c in self.children)})"
+
+
+class MapFromArrays(_ObjectLayer):
+    """map_from_arrays(keys_array, values_array)."""
+
+    def __init__(self, keys: Expression, values: Expression):
+        self.children = (keys, values)
+
+    def map_children(self, fn):
+        return MapFromArrays(fn(self.children[0]), fn(self.children[1]))
+
+    @property
+    def name(self):
+        return (f"map_from_arrays({self.children[0].name}, "
+                f"{self.children[1].name})")
+
+    def data_type(self, schema):
+        kt = self.children[0].data_type(schema)
+        vt = self.children[1].data_type(schema)
+        if not isinstance(kt, T.ArrayType) or not isinstance(vt, T.ArrayType):
+            raise AnalysisException(
+                f"map_from_arrays expects two arrays, got {kt}, {vt}")
+        return T.MapType(kt.element_type, vt.element_type)
+
+    def __repr__(self):
+        return (f"map_from_arrays({self.children[0]!r}, "
+                f"{self.children[1]!r})")
+
+
+class _MapExtract(_ObjectLayer):
+    """The shape of map_keys / map_values."""
+
+    WHICH = "keys"
+
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    def map_children(self, fn):
+        return type(self)(fn(self.children[0]))
+
+    @property
+    def name(self):
+        return f"map_{self.WHICH}({self.children[0].name})"
+
+    def data_type(self, schema):
+        ct = self.children[0].data_type(schema)
+        if not isinstance(ct, T.MapType):
+            raise AnalysisException(
+                f"map_{self.WHICH} expects a map, got {ct}")
+        return T.ArrayType(ct.key_type if self.WHICH == "keys"
+                           else ct.value_type)
+
+    def __repr__(self):
+        return f"map_{self.WHICH}({self.children[0]!r})"
+
+
+class MapKeys(_MapExtract):
+    WHICH = "keys"
+
+
+class MapValues(_MapExtract):
+    WHICH = "values"
+
+
+class MapGet(_ObjectLayer):
+    """map[key] / element_at(map, key) — GetMapValue: NULL when absent."""
+
+    def __init__(self, child: Expression, key: Expression):
+        self.children = (child, key)
+
+    def map_children(self, fn):
+        return MapGet(fn(self.children[0]), fn(self.children[1]))
+
+    @property
+    def name(self):
+        return f"element_at({self.children[0].name}, {self.children[1].name})"
+
+    def data_type(self, schema):
+        ct = self.children[0].data_type(schema)
+        if isinstance(ct, T.ArrayType):
+            return ct.element_type    # element_at(arr, expr): ArrayGather
+        if not isinstance(ct, T.MapType):
+            raise AnalysisException(f"element_at on {ct} needs a map")
+        return ct.value_type
+
+    def __repr__(self):
+        return f"element_at({self.children[0]!r}, {self.children[1]!r})"
+
+
+class GetItem(_ObjectLayer):
+    """Column.getItem(key) / ``c[key]``: a 0-based position for arrays, a
+    key for maps, a field name for structs — resolved by the optimizer
+    once the child's type is known."""
+
+    def __init__(self, child: Expression, key):
+        self.children = (child,)
+        self.key = key
+
+    def map_children(self, fn):
+        return GetItem(fn(self.children[0]), self.key)
+
+    @property
+    def name(self):
+        return f"{self.children[0].name}[{self.key!r}]"
+
+    def data_type(self, schema):
+        ct = self.children[0].data_type(schema)
+        if isinstance(ct, T.ArrayType):
+            return ct.element_type
+        if isinstance(ct, T.MapType):
+            return ct.value_type
+        if isinstance(ct, T.StructType) and isinstance(self.key, str):
+            return GetField(self.children[0], self.key).data_type(schema)
+        raise AnalysisException(f"getItem on {ct} is not supported")
+
+    def __repr__(self):
+        return f"{self.children[0]!r}[{self.key!r}]"
+
+
+class ArrayGather(Expression):
+    """The 1-based gather at a per-row position (0 or out of bounds is
+    NULL): what ``MapGet(map_from_arrays(k, v), x)`` rewrites into."""
+
+    def __init__(self, arr: Expression, pos: Expression):
+        self.children = (arr, pos)
+
+    def map_children(self, fn):
+        return ArrayGather(fn(self.children[0]), fn(self.children[1]))
+
+    @property
+    def name(self):
+        return f"element_at({self.children[0].name}, {self.children[1].name})"
+
+    def data_type(self, schema):
+        return _array_type(self.children[0], schema,
+                           "array gather").element_type
+
+    def eval(self, ctx):
+        dt = self.children[0].data_type(ctx.batch.schema)
+        v = self.children[0].eval(ctx)
+        p = ctx.broadcast(self.children[1].eval(ctx))
+        out_dt = self.data_type(ctx.batch.schema).torch_dtype
+        gathered, ok = _gather_1based_plane(
+            dt, v, p.data.to(torch.int64), ctx.capacity, out_dt, ctx.device)
+        return ExprValue(gathered, and_valid(and_valid(v.valid, p.valid), ok),
+                         v.dictionary)
+
+    def __repr__(self):
+        return f"array_gather({self.children[0]!r}, {self.children[1]!r})"

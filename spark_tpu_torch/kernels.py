@@ -155,8 +155,9 @@ def compact(batch: ColumnBatch) -> ColumnBatch:
 # row-mask operators
 # ---------------------------------------------------------------------------
 
-def apply_filter(batch: ColumnBatch, pred: Expression) -> ColumnBatch:
-    ctx = EvalContext(batch)
+def apply_filter(batch: ColumnBatch, pred: Expression,
+                 row_offset: int = 0) -> ColumnBatch:
+    ctx = EvalContext(batch, row_offset)
     v = pred.eval(ctx)
     keep = v.data
     if v.valid is not None:
@@ -165,9 +166,9 @@ def apply_filter(batch: ColumnBatch, pred: Expression) -> ColumnBatch:
     return ColumnBatch(batch.names, batch.vectors, rv, batch.capacity)
 
 
-def apply_project(batch: ColumnBatch, exprs: Sequence[Expression]
-                  ) -> ColumnBatch:
-    ctx = EvalContext(batch)
+def apply_project(batch: ColumnBatch, exprs: Sequence[Expression],
+                  row_offset: int = 0) -> ColumnBatch:
+    ctx = EvalContext(batch, row_offset)
     names, vectors = [], []
     schema = batch.schema
     for e in exprs:
@@ -378,6 +379,12 @@ def _sorted_grouped_aggregate(
             out_names.append(name)
             out_vectors.append(pct_results[name])
             continue
+        if getattr(func, "is_collect", False):
+            out_names.append(name)
+            out_vectors.append(_collect_into_arrays(
+                ctx, func, perm, sort_cols, seg_ids, is_start, live,
+                capacity))
+            continue
         specs = func.make_buffers(ctx, live)
         if perm is None:
             reduced = [_global_reduce(s.data, s.kind, capacity) for s in specs]
@@ -459,6 +466,64 @@ def _percentile_groups(ctx: EvalContext, slots, sort_cols: Sequence[Array],
         out[name] = ColumnVector(red.to(dt.torch_dtype), dt, got,
                                  v.dictionary)
     return out
+
+
+def _collect_into_arrays(ctx: EvalContext, func, perm, sort_cols,
+                         seg_ids: torch.Tensor, is_start, live: torch.Tensor,
+                         capacity: int) -> ColumnVector:
+    """collect_list / collect_set inside the sort-based grouped aggregate:
+    each group's kept values (non-null; for a set, the first of each run
+    of equal values) scattered into a ``(groups, max_len)`` plane — the
+    group's slot is the row, the value's position among its group's kept
+    values the column.  Every other value (dead, NULL, a duplicate, past
+    ``max_len``) goes to a spill slot of its own past the plane, so every
+    store has its own address and the kept slots are deterministic."""
+    from . import config as C
+    dt = func.data_type(ctx.batch.schema)
+    et = dt.element_type
+    lmax = func.max_len or C.COLLECT_MAX_LEN.default
+    dev = ctx.device
+    v = ctx.broadcast(func.children[0].eval(ctx))
+    rows = torch.arange(capacity, dtype=torch.int64, device=dev)
+    if perm is None:                     # one global group, in row order
+        perm, live_s = rows, live
+    else:
+        live_s = live[perm]
+    if func.distinct_elements:
+        # sort the values inside their groups so equal values are adjacent
+        # and the first of each run stands for the run
+        vdata = v.data.to(torch.int8) if v.data.dtype == torch.bool \
+            else v.data
+        vnull = torch.zeros(capacity, dtype=torch.int8, device=dev) \
+            if v.valid is None else (~v.valid).to(torch.int8)
+        perm = multi_key_argsort(list(sort_cols) + [vnull, vdata], capacity)
+        live_s = live[perm]
+        if is_start is not None:
+            is_start = _segment_starts([c[perm] for c in sort_cols], live_s,
+                                       capacity)
+            seg_ids = torch.cumsum(is_start.to(torch.int64), 0) - 1
+            seg_ids = torch.where(live_s, seg_ids, rows)
+    value_s = v.data[perm]
+    keep = live_s if v.valid is None else live_s & v.valid[perm]
+    if func.distinct_elements:
+        prev_v = torch.cat([value_s[:1], value_s[:-1]])
+        prev_seg = torch.cat([seg_ids[:1] - 1, seg_ids[:-1]])
+        keep = keep & ((value_s != prev_v) | (seg_ids != prev_seg))
+    # position among the kept rows of the same group
+    ck = torch.cumsum(keep.to(torch.int64), 0)
+    far = constant(1 << 62, dev, torch.int64)
+    seg_base = segment_reduce(torch.where(keep, ck - 1, far), seg_ids,
+                              capacity, "min")
+    pos = ck - 1 - seg_base[seg_ids]
+    ok = keep & (pos >= 0) & (pos < lmax)
+    target = torch.where(ok, seg_ids * lmax + pos.clamp(0, lmax - 1),
+                         capacity * lmax + rows)
+    out = torch.full((capacity * lmax + capacity,),
+                     dt.element_sentinel().item(), dtype=et.torch_dtype,
+                     device=dev)
+    out.index_put_((target,), value_s.to(et.torch_dtype))
+    return ColumnVector(out[:capacity * lmax].view(capacity, lmax), dt, None,
+                        v.dictionary)
 
 
 def _scatter_starts(sorted_data: torch.Tensor, seg_ids: torch.Tensor,

@@ -53,7 +53,8 @@ def batch_nbytes(batch: ColumnBatch) -> int:
     """Device bytes of a dense batch: data, validity masks, row mask."""
     total = 0
     for v in batch.vectors:
-        total += np.dtype(v.dtype.np_dtype).itemsize * batch.capacity
+        # an array column is a (capacity, max_len) plane
+        total += np.dtype(v.dtype.np_dtype).itemsize * int(v.data.numel())
         if v.valid is not None:
             total += batch.capacity
     if batch.row_valid is not None:

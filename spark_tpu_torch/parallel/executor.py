@@ -76,9 +76,14 @@ class DistributedPlanner(Planner):
                 # keys: the global aggregate reduces buffers, it gathers no
                 # row): gather rows to one shard and aggregate there; a
                 # keyless aggregate emits an always-valid row on EVERY
-                # shard, so mask it to shard 0
-                agg = P.PAggregate(node.keys, node.aggs, D.DGatherOne(child))
-                return agg if node.keys else D.DKeepShardZero(agg)
+                # shard, so mask it to shard 0.  A keyed one keeps the
+                # gathered capacity (n times a shard's): shrink it as the
+                # local lane does, or every array plane above it is that
+                # long
+                agg = P.PAggregate(node.keys, self.bind_collect(node.aggs),
+                                   D.DGatherOne(child))
+                return self._shrunk(agg) if node.keys \
+                    else D.DKeepShardZero(agg)
             if not node.keys:
                 return D.DGlobalAggregate(node.aggs, child)
             partial_agg = D.DPartialAggregate(node.keys, node.aggs, child)
@@ -330,7 +335,8 @@ def _join_shards(outs: List[ColumnBatch]) -> ColumnBatch:
     vectors = []
     for j, v in enumerate(first.vectors):
         parts = [o.vectors[j] for o in outs]
-        data = torch.cat([p.data.expand(o.capacity)
+        # an array column is (capacity, max_len): rows join, width stays
+        data = torch.cat([p.data.expand(o.capacity, *p.data.shape[1:])
                           for p, o in zip(parts, outs)])
         valid = None
         if any(p.valid is not None for p in parts):

@@ -116,26 +116,47 @@ def _json_safe(v: Any):
     return str(v)
 
 
-def _json_rows(batch) -> list:
+def _json_rows(batch, spec=None) -> list:
     """A result batch's rows in their JSON form, decoded by column
     (``ColumnBatch.decoded_columns``): the values ``[[_json_safe(v) for
     v in row] for row in df.collect()]`` gives (the JAX package's reply),
     without building a ``Row`` per row.  Only fractional columns can
     hold NaN or infinities, and only dates and timestamps become
-    strings."""
+    strings.  An array is a JSON list; with the assembly ``spec`` of
+    ``DataFrame._flatten_complex``, a map is a JSON object and a struct
+    a list of its fields."""
     import numpy as np
 
     from . import types as T
     cols, n = batch.decoded_columns()
     for v, vals in zip(batch.vectors, cols):
-        if isinstance(v.dtype, (T.DateType, T.TimestampType)):
+        dt = v.dtype
+        if isinstance(dt, (T.DateType, T.TimestampType)):
             vals[:] = [None if x is None else str(x) for x in vals]
-        elif v.dtype.is_fractional:
+        elif isinstance(dt, T.ArrayType) and not (
+                dt.element_type.is_integral or dt.element_type.is_string):
+            vals[:] = [None if x is None else _json_safe(x) for x in vals]
+        elif dt.is_fractional:
             # None becomes NaN here, and ``_json_safe(None)`` is None
             bad = ~np.isfinite(np.array(vals, dtype=np.float64))
             for i in np.flatnonzero(bad).tolist():
                 vals[i] = _json_safe(vals[i])
-    return [list(r) for r in zip(*cols)] if cols else [[] for _ in range(n)]
+    rows = [list(r) for r in zip(*cols)] if cols else [[] for _ in range(n)]
+    if spec is None:
+        return rows
+    from .sql.dataframe import DataFrame
+    return [[_json_value(x) for x in r]
+            for r in DataFrame._assemble_rows(rows, spec)]
+
+
+def _json_value(v: Any):
+    """A collected map as a JSON object (keys as JSON strings), a struct
+    as the list of its fields."""
+    if isinstance(v, dict):
+        return {str(k): _json_value(x) for k, x in v.items()}
+    if isinstance(v, tuple):
+        return [_json_value(x) for x in v]
+    return v
 
 
 class _ServerSession:
@@ -363,8 +384,10 @@ class SQLServer:
                     t0 = time.time()
                     ss.session._last_plan_cache_info = None
                     df = ss.session.sql(stmt.query)
-                    columns = list(df.schema.names)
-                    rows = _json_rows(df._execute())
+                    schema = df.schema
+                    columns = list(schema.names)
+                    flat, spec = df._flatten_complex(schema)
+                    rows = _json_rows(flat._execute(), spec)
                     info = getattr(ss.session,
                                    "_last_plan_cache_info", None) or {}
                     return {"columns": columns, "rows": rows,

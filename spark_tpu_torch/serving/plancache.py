@@ -101,7 +101,7 @@ PLANNING_CONF_ENTRIES = (
     C.CODEGEN_ENABLED, C.MESH_SHARDS, C.AUTO_BROADCAST_JOIN_THRESHOLD,
     C.JOIN_OUTPUT_FACTOR, C.AGG_OUTPUT_ROWS, C.JOIN_OUTPUT_MAX_ROWS,
     C.CASE_SENSITIVE, C.ADAPTIVE_ENABLED, C.METRICS_ENABLED,
-    C.EXCHANGE_SKEW_FACTOR,
+    C.EXCHANGE_SKEW_FACTOR, C.COLLECT_MAX_LEN,
     # whole-stage fusion toggles the fused-vs-per-op execution shape
     C.STAGE_FUSION,
 )
@@ -141,10 +141,12 @@ def _ser_expr(e: E.Expression, slots: List[E.Literal],
         return f"lit[{e.value!r}:{e.dtype.simpleString()}]"
     child_ok = isinstance(e, _SLOT_PARENTS)
     fields = []
-    if isinstance(e, (E.Col, E.Alias)):
+    if isinstance(e, (E.Col, E.Alias, E.LambdaVar)):
         # the identity of these nodes lives in a PRIVATE field the vars()
         # walk below skips — without it `sum(a)` and `sum(b)` serialize
-        # identically and two different plans share one stage entry
+        # identically and two different plans share one stage entry (a
+        # lambda variable's name is its position in the plan: the
+        # analyzer's lambda resolution)
         fields.append(f"name={e.name!r}")
     for name in sorted(vars(e)):
         if name == "children" or name.startswith("_"):

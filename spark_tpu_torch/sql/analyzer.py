@@ -20,45 +20,46 @@ validation plus these structural rewrites:
 * grouping sets: ROLLUP / CUBE / GROUPING SETS become a UNION ALL of one
   Aggregate per set, with typed NULLs for the absent keys and
   ``grouping()`` / ``grouping_id()`` as literals per branch.
+* explode / posexplode: a Project holding one becomes the ``Explode``
+  operator (shared by SQL text and the DataFrame API).
+* lambda variables: every higher-order function's variables are renamed
+  ``source#k``, k their position in the plan, and bound in its bodies, so
+  a plan's names (and its stage key) are the same on every run of a text.
+* ``s.field`` on a struct column becomes ``GetField``.
 * eager schema validation for early, readable AnalysisException errors.
 
-The explode and sliding-window hooks of the JAX package are not ported:
+The sliding-window hook of the JAX package is not ported:
 ``_check_ported`` raises ``NotImplementedError`` naming the slice that
 brings each plan node, and ``not_ported`` builds the parser's
-``AnalysisException`` for each function name and syntax a later slice
-brings.
+``AnalysisException`` for each function name a later slice brings.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from ..aggregates import AggregateFunction, Count, CountDistinct, CountStar, Sum
 from ..expressions import (Alias, AnalysisException, And, Col, EQ,
                            Expression, GroupingCall, Literal)
-from .logical import (Aggregate, Distinct, Except, Filter, GroupingSets,
-                      Intersect, Join, Limit, LocalRelation, LogicalPlan,
-                      Project, RangeRelation, Sort, SortOrder, SubqueryAlias,
-                      Union, UnresolvedRelation)
+from .logical import (Aggregate, Distinct, Except, Explode, Filter,
+                      GroupingSets, Intersect, Join, Limit, LocalRelation,
+                      LogicalPlan, Project, RangeRelation, Sample, Sort,
+                      SortOrder, SubqueryAlias, Union, UnresolvedRelation)
 from .window import WindowExpression, WindowNode, WindowSpec, contains_window
 
-_BREADTH = "the TPC-DS breadth slice"
-_SAMPLE = f"{_BREADTH} (rand/sample)"
-_ARRAYS = f"{_BREADTH} (array columns)"
+_STREAMING = "the streaming slice"
 
 #: logical nodes of the JAX package whose execution a later slice of the
 #: port brings, by class name, and that slice
 _NOT_PORTED = {
-    "Sample": _SAMPLE,
-    "Explode": _ARRAYS,
     "FileRelation": "the scan slice (parquet/csv/json readers)",
-    "FlatMapGroupsWithState": "the streaming slice",
+    "FlatMapGroupsWithState": _STREAMING,
 }
 
 _PORTED_NODES = (LocalRelation, RangeRelation, UnresolvedRelation, Project,
                  Filter, Aggregate, Sort, Limit, Join, Distinct,
                  SubqueryAlias, Union, Intersect, Except, WindowNode,
-                 GroupingSets)
+                 GroupingSets, Sample, Explode)
 
 
 def _names(names: str, where: str) -> Dict[str, str]:
@@ -68,32 +69,81 @@ def _names(names: str, where: str) -> Dict[str, str]:
 #: SQL function names the JAX package's parser registers whose expression
 #: a later slice of the port brings, and that slice
 NOT_PORTED_FUNCTIONS: Dict[str, str] = {
-    **_names("rand randn spark_partition_id", _SAMPLE),
-    **_names("array split size cardinality element_at map named_struct "
-             "struct map_keys map_values map_from_arrays array_contains "
-             "array_max array_min sort_array array_distinct slice "
-             "array_position explode posexplode transform filter forall "
-             "aggregate zip_with", _ARRAYS),
-    # they produce array columns, which the port's batches do not hold yet
-    **_names("collect_list collect_set",
-             f"{_BREADTH} (statistical aggregates)"),
-    **_names("window window_end", "the streaming slice (event-time windows)"),
-}
-
-#: SQL syntax whose expression or plan node a later slice brings
-_NOT_PORTED_SYNTAX = {
-    "exists": _ARRAYS,
+    **_names("window window_end", f"{_STREAMING} (event-time windows)"),
 }
 
 
 def not_ported(construct: str) -> AnalysisException:
-    """The error for a function name or SQL syntax a later slice brings:
-    it names the construct and the slice, and is raised instead of any
-    partial result."""
-    where = NOT_PORTED_FUNCTIONS.get(construct) \
-        or _NOT_PORTED_SYNTAX[construct]
+    """The error for a function name a later slice brings: it names the
+    construct and the slice, and is raised instead of any partial
+    result."""
     return AnalysisException(
-        f"{construct} is not ported yet: it comes with {where}")
+        f"{construct} is not ported yet: it comes with "
+        f"{NOT_PORTED_FUNCTIONS[construct]}")
+
+
+def _cols(e: Expression):
+    if isinstance(e, Col):
+        yield e.name
+    for c in e.children:
+        yield from _cols(c)
+
+
+def _constructs(plan: LogicalPlan) -> set:
+    """Which of a dotted column name ("dotted"), an explode ("explode") and
+    a higher-order function ("lambda") the plan's expressions hold."""
+    from ..expressions import ExplodeMarker
+    found: set = set()
+
+    def walk(e: Expression) -> None:
+        if isinstance(e, Col):
+            if "." in e.name:
+                found.add("dotted")
+        elif isinstance(e, ExplodeMarker):
+            found.add("explode")
+        elif getattr(e, "LAMBDA_VARS", ()):
+            found.add("lambda")
+        for c in e.children:
+            walk(c)
+
+    def visit(node: LogicalPlan) -> None:
+        for e in node.expressions():
+            walk(e)
+        for c in node.children:
+            visit(c)
+
+    visit(plan)
+    return found
+
+
+def resolve_lambdas(e: Expression, counter: List[int],
+                    env: Optional[Dict[str, Expression]] = None
+                    ) -> Expression:
+    """``e`` with every higher-order function's lambda variables renamed
+    ``source#k`` (k from ``counter``, in the order met) and bound in its
+    bodies: names that are deterministic and unique in the plan."""
+    from ..expressions import LambdaVar
+    env = env or {}
+    if isinstance(e, LambdaVar):
+        return env.get(e.name, e)
+    e = e.map_children(lambda c: resolve_lambdas(c, counter, env))
+    fields = getattr(e, "LAMBDA_VARS", ())
+    if not fields:
+        return e
+    import copy
+    new = copy.copy(e)
+    inner = dict(env)
+    for f in fields:
+        var = getattr(e, f)
+        if var is not None:
+            counter[0] += 1
+            inner[var.name] = LambdaVar(var.source, uid=counter[0])
+            setattr(new, f, inner[var.name])
+    for f in e.LAMBDA_BODIES:
+        body = getattr(e, f)
+        if body is not None:
+            setattr(new, f, resolve_lambdas(body, counter, inner))
+    return new
 
 
 def fresh_name(prefix: str, basis: str, index: int) -> str:
@@ -273,14 +323,53 @@ class Analyzer:
         plan = plan.transform_up(self._disambiguate_joins)
         plan = plan.transform_up(self._expand_stars)
         plan = plan.transform_up(self._resolve_qualified)
+        # the complex-type passes run only on plans that hold what they
+        # rewrite: a pass copies every node, and most plans hold none
+        found = _constructs(plan)
+        if "dotted" in found:
+            plan = plan.transform_up(self._resolve_struct_fields)
         # set-op replacement needs fully-resolved sides (stars expanded,
         # qualified refs bound) to build the all-column join condition
         plan = plan.transform_up(self._replace_set_ops)
         plan = plan.transform_up(self._rewrite_node)
+        if "explode" in found:
+            plan = plan.transform_up(self._rewrite_explode)
         plan = plan.transform_up(self._rewrite_grouping_sets)
-        # explode / sliding-window rewrites: later slices
+        # the sliding-window rewrite: the streaming slice
+        if "lambda" in found:
+            counter = [0]
+            plan = plan.transform_up(
+                lambda n: n.map_expressions(
+                    lambda e: resolve_lambdas(e, counter)))
         self._validate(plan)
         return plan
+
+    @staticmethod
+    def _rewrite_explode(node: LogicalPlan) -> LogicalPlan:
+        """A Project holding explode()/posexplode() → the Explode operator
+        (shared by SQL text and the DataFrame API)."""
+        from ..expressions import ExplodeMarker
+        if not isinstance(node, Project):
+            return node
+
+        def marker(e):
+            base = e.children[0] if isinstance(e, Alias) else e
+            return base if isinstance(base, ExplodeMarker) else None
+
+        markers = [e for e in node.exprs if marker(e) is not None]
+        if not markers:
+            return node
+        if len(markers) != 1:
+            raise AnalysisException(
+                "only one explode() per select is supported")
+        m = markers[0]
+        mk = marker(m)
+        out_name = m.name if isinstance(m, Alias) else "col"
+        pre = [e for e in node.exprs if marker(e) is None]
+        # the select-list position (by identity: == builds an EQ node)
+        insert_at = next(i for i, e in enumerate(node.exprs) if e is m)
+        return Explode(pre, mk.children[0], out_name, mk.with_pos, "pos",
+                       node.children[0], insert_at=insert_at)
 
     @staticmethod
     def _rewrite_grouping_sets(node: LogicalPlan) -> LogicalPlan:
@@ -445,6 +534,37 @@ class Analyzer:
         def rewrite(e: Expression) -> Expression:
             if isinstance(e, Col) and e.name not in plain and e.name in qmap:
                 return Col(qmap[e.name])
+            if isinstance(e, AggregateFunction) or e.children:
+                return e.map_children(rewrite)
+            return e
+
+        return node.map_expressions(rewrite)
+
+    @staticmethod
+    def _resolve_struct_fields(node: LogicalPlan) -> LogicalPlan:
+        """``s.field`` where ``s`` is a struct column (and ``s.field`` no
+        column of its own) → ``GetField(s, field)``, nested fields left to
+        right."""
+        from .. import types as T
+        from ..expressions import GetField
+        if len(node.children) != 1 or not any(
+                "." in c for e in node.expressions() for c in _cols(e)):
+            return node
+        try:
+            schema = node.children[0].schema()
+        except AnalysisException:
+            return node
+        names = set(schema.names)
+
+        def rewrite(e: Expression) -> Expression:
+            if isinstance(e, Col) and e.name not in names and "." in e.name:
+                head, *fields = e.name.split(".")
+                if head in names and isinstance(schema[head].dataType,
+                                                T.StructType):
+                    out: Expression = Col(head)
+                    for f in fields:
+                        out = GetField(out, f)
+                    return out
             if isinstance(e, AggregateFunction) or e.children:
                 return e.map_children(rewrite)
             return e

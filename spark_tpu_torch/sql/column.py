@@ -1,7 +1,6 @@
 """User-facing Column API (the analog of ``sql/core/.../Column.scala`` /
 pyspark's ``Column``), a thin wrapper over the expression IR — the subset
-of ``spark_tpu/sql/column.py`` whose expressions the port has (not yet:
-``getField`` / ``getItem``, which come with complex types)."""
+of ``spark_tpu/sql/column.py``."""
 
 from __future__ import annotations
 
@@ -27,6 +26,18 @@ class Column:
 
     def __init__(self, expr: Expression):
         self._e = expr
+
+    # -- complex-type extractors -----------------------------------------
+    def getField(self, name: str) -> "Column":
+        from ..expressions import GetField
+        return Column(GetField(self._e, name))
+
+    def getItem(self, key) -> "Column":
+        from ..expressions import GetItem
+        return Column(GetItem(self._e, key))
+
+    def __getitem__(self, key) -> "Column":
+        return self.getItem(key)
 
     # -- naming -----------------------------------------------------------
     def alias(self, name: str) -> "Column":

@@ -91,6 +91,13 @@ class DataFrame:
                 exprs += [Col(n) for n in self.schema.names]
             else:
                 exprs.append(_to_expr(c))
+        # explode()/posexplode() flows through a plain Project: the
+        # analyzer's _rewrite_explode makes it the Explode operator (one
+        # rewrite shared with the SQL path)
+        from ..expressions import ExplodeMarker
+        if any(isinstance(e.children[0] if isinstance(e, Alias) else e,
+                          ExplodeMarker) for e in exprs):
+            return DataFrame(self.session, L.Project(exprs, self._plan))
         # select with aggregates and no grouping is a global aggregation
         # (Dataset.select's ungrouped-agg path)
         from .analyzer import build_aggregate, contains_aggregate
@@ -171,6 +178,21 @@ class DataFrame:
     def distinct(self) -> "DataFrame":
         return DataFrame(self.session, L.Distinct(self._plan))
 
+    def dropDuplicates(self, subset: Optional[List[str]] = None
+                       ) -> "DataFrame":
+        if not subset:
+            return self.distinct()
+        # the first row per subset key: group by the subset, first() the
+        # other columns
+        from ..aggregates import First
+        names = self.schema.names
+        aggs = [(First(Col(n)), n) for n in names if n not in subset]
+        agg_plan = L.Aggregate([Col(n) for n in subset], aggs, self._plan)
+        return DataFrame(self.session,
+                         L.Project([Col(n) for n in names], agg_plan))
+
+    drop_duplicates = dropDuplicates
+
     def union(self, other: "DataFrame") -> "DataFrame":
         return DataFrame(self.session, L.Union([self._plan, other._plan]))
 
@@ -200,14 +222,113 @@ class DataFrame:
         return DataFrame(self.session,
                          L.Join(self._plan, other._plan, "cross", None, None))
 
+    def sample(self, fraction: float, seed: int = 0) -> "DataFrame":
+        return DataFrame(self.session, L.Sample(fraction, seed, self._plan))
+
+    def dropna(self, how: str = "any", subset: Optional[List[str]] = None
+               ) -> "DataFrame":
+        from ..expressions import And, IsNotNull, Or
+        preds = [IsNotNull(Col(n)) for n in (subset or self.schema.names)]
+        join = And if how == "any" else Or
+        cond = preds[0]
+        for p in preds[1:]:
+            cond = join(cond, p)
+        return DataFrame(self.session, L.Filter(cond, self._plan))
+
+    na = property(lambda self: _NAFunctions(self))
+
+    def fillna(self, value: Any, subset: Optional[List[str]] = None
+               ) -> "DataFrame":
+        from ..expressions import Coalesce
+        names = subset or self.schema.names
+        exprs: List[Expression] = []
+        for f in self.schema.fields:
+            if f.name in names and _fill_compatible(f.dataType, value):
+                exprs.append(Alias(Coalesce(Col(f.name), Literal(value)),
+                                   f.name))
+            else:
+                exprs.append(Col(f.name))
+        return DataFrame(self.session, L.Project(exprs, self._plan))
+
     # -- actions ----------------------------------------------------------
     def _execute(self) -> ColumnBatch:
         from .planner import QueryExecution
         return QueryExecution(self.session, self._plan).execute()
 
+    # -- map / struct output ----------------------------------------------
+    def _flatten_complex(self, schema: Optional[T.StructType] = None):
+        """(flat DataFrame, assembly spec or None).  A top-level map or
+        struct column holds no device plane (the object-layer contract):
+        it runs as its flat columns — a map as its keys and values arrays,
+        a struct as a column per field — and the spec rebuilds Python
+        dicts and Rows per row after the decode."""
+        schema = schema or self.schema
+        if not any(isinstance(f.dataType, (T.MapType, T.StructType))
+                   for f in schema.fields):
+            return self, None
+        from ..expressions import GetField, MapKeys, MapValues
+        exprs: List[Expression] = []
+
+        def flatten(expr, dtype, prefix, name):
+            if isinstance(dtype, T.MapType):
+                if isinstance(dtype.key_type, (T.MapType, T.StructType)) \
+                        or isinstance(dtype.value_type,
+                                      (T.MapType, T.StructType)):
+                    raise AnalysisException(
+                        "maps with map/struct keys or values cannot be "
+                        "collected (they have no plane layout)")
+                ki, vi = len(exprs), len(exprs) + 1
+                exprs.append(Alias(MapKeys(expr), f"{prefix}__mkeys"))
+                exprs.append(Alias(MapValues(expr), f"{prefix}__mvals"))
+                return ("map", ki, vi, name)
+            if isinstance(dtype, T.StructType):
+                subs = [flatten(GetField(expr, sf.name), sf.dataType,
+                                f"{prefix}__{sf.name}", sf.name)
+                        for sf in dtype.fields]
+                return ("struct", subs, name)
+            exprs.append(Alias(expr, f"{prefix}__v"))
+            return ("plain", len(exprs) - 1, name)
+
+        spec = []
+        for f in schema.fields:
+            if isinstance(f.dataType, (T.MapType, T.StructType)):
+                spec.append(flatten(Col(f.name), f.dataType, f"__{f.name}",
+                                    f.name))
+            else:
+                spec.append(("plain", len(exprs), f.name))
+                exprs.append(Col(f.name))
+        return DataFrame(self.session, L.Project(exprs, self._plan)), spec
+
+    @staticmethod
+    def _assemble_rows(rows, spec) -> List[Row]:
+        def build(sp, r):
+            if sp[0] == "plain":
+                return r[sp[1]]
+            if sp[0] == "map":
+                ks, vs = r[sp[1]], r[sp[2]]
+                if ks is None:
+                    return None
+                # reversed, so the FIRST of duplicate keys wins, as
+                # element_at's scan does
+                return dict(zip(reversed(ks), reversed(vs or [])))
+            return Row([build(sub, r) for sub in sp[1]],
+                       [sub[-1] for sub in sp[1]])
+
+        names = [sp[-1] for sp in spec]
+        return Row._many(([build(sp, r) for sp in spec] for r in rows),
+                         names)
+
     def collect(self) -> List[Row]:
-        batch = self._execute()
-        return Row._many(batch.to_pylist(), batch.names)
+        from .planner import QueryExecution
+        qe = QueryExecution(self.session, self._plan)
+        flat, spec = self._flatten_complex(qe.analyzed.schema())
+        if spec is None:
+            batch = qe.execute()      # the analysis above is reused
+            return Row._many(batch.to_pylist(), batch.names)
+        return self._assemble_rows(flat._execute().to_pylist(), spec)
+
+    def toLocalIterator(self):
+        return iter(self.collect())
 
     def count(self) -> int:
         agg = L.Aggregate([], [(CountStar(), "count")], self._plan)
@@ -227,9 +348,14 @@ class DataFrame:
         return self.limit(n).collect()
 
     def show(self, n: int = 20, truncate: bool = True) -> None:
-        batch = self.limit(n)._execute()
-        names = batch.names
-        rows = batch.to_pylist()
+        flat, spec = self.limit(n)._flatten_complex()
+        batch = flat._execute()
+        if spec is None:
+            names, rows = batch.names, batch.to_pylist()
+        else:
+            names = [sp[-1] for sp in spec]
+            rows = [list(r) for r in
+                    self._assemble_rows(batch.to_pylist(), spec)]
         cells = [[_fmt(v, truncate) for v in r] for r in rows]
         widths = [max([len(nm)] + [len(c[i]) for c in cells])
                   for i, nm in enumerate(names)]
@@ -261,6 +387,29 @@ def _fmt(v, truncate) -> str:
     if truncate and len(s) > 20:
         s = s[:17] + "..."
     return s
+
+
+def _fill_compatible(dt: T.DataType, value: Any) -> bool:
+    if isinstance(value, bool):
+        return isinstance(dt, T.BooleanType)
+    if isinstance(value, (int, float)):
+        return dt.is_numeric
+    if isinstance(value, str):
+        return dt.is_string
+    return False
+
+
+class _NAFunctions:
+    """``df.na``: drop and fill."""
+
+    def __init__(self, df: DataFrame):
+        self._df = df
+
+    def drop(self, how: str = "any", subset=None) -> DataFrame:
+        return self._df.dropna(how, subset)
+
+    def fill(self, value, subset=None) -> DataFrame:
+        return self._df.fillna(value, subset)
 
 
 class GroupedData:

@@ -1,7 +1,6 @@
 """Built-in function surface (the analog of ``sql/core/.../functions.scala``
 and ``pyspark.sql.functions``): the subset of ``spark_tpu/sql/functions.py``
-whose expressions the port has (not yet: rand, the array, map and struct
-functions, collect_list / collect_set and the event-time windows)."""
+whose expressions the port has (not yet: the event-time windows)."""
 
 from __future__ import annotations
 
@@ -475,3 +474,199 @@ def asc(name: str):
 
 def desc(name: str):
     return col(name).desc()
+
+
+# ---- hashing, approximate counts, file names --------------------------------
+
+def hash(*cols) -> Column:  # noqa: A001
+    return Column(E.Hash64(*[_e(c) for c in cols]))
+
+
+xxhash64 = hash
+
+
+def approx_count_distinct(c, rsd: float = 0.05) -> Column:
+    """Answered exactly (the two-level distinct expansion meets any
+    ``rsd``)."""
+    return Column(A.CountDistinct(_e(c)))
+
+
+def input_file_name() -> Column:
+    """'' as in the reference when no file is attached to the task: every
+    batch of the port is in memory."""
+    return Column(E.Alias(E.Literal(""), "input_file_name()"))
+
+
+# ---- random draws and row ids -----------------------------------------------
+
+def rand(seed: int = 0) -> Column:
+    return Column(E.Rand(seed))
+
+
+def randn(seed: int = 0) -> Column:
+    return Column(E.Randn(seed))
+
+
+def monotonically_increasing_id() -> Column:
+    return Column(E.RowIndex())
+
+
+def spark_partition_id() -> Column:
+    return Column(E.SparkPartitionId())
+
+
+# ---- arrays, structs and maps -----------------------------------------------
+
+def array(*cols) -> Column:
+    return Column(E.MakeArray(*[_e(c) for c in cols]))
+
+
+def split(c, pattern: str, limit: int = -1) -> Column:
+    return Column(E.SplitStr(_e(c), pattern, limit))
+
+
+def size(c) -> Column:
+    return Column(E.ArraySize(_e(c)))
+
+
+def element_at(c, index) -> Column:
+    """A 1-based array index (a nonzero int) or a map key (anything
+    else); the optimizer's complex-type rewrite dispatches the map case."""
+    if isinstance(index, int) and not isinstance(index, bool) and index != 0:
+        return Column(E.ElementAt(_e(c), index))
+    return Column(E.MapGet(_e(c), _e(index) if isinstance(index, Column)
+                           else E.Literal(index)))
+
+
+def array_contains(c, value: Any) -> Column:
+    return Column(E.ArrayContains(_e(c), value))
+
+
+def array_max(c) -> Column:
+    return Column(E.ArrayReduce(_e(c), "max"))
+
+
+def array_min(c) -> Column:
+    return Column(E.ArrayReduce(_e(c), "min"))
+
+
+def sort_array(c, asc: bool = True) -> Column:
+    return Column(E.SortArray(_e(c), asc))
+
+
+def array_distinct(c) -> Column:
+    return Column(E.ArrayDistinct(_e(c)))
+
+
+def slice(c, start: int, length: int) -> Column:  # noqa: A001
+    return Column(E.ArraySlice(_e(c), start, length))
+
+
+def array_position(c, value: Any) -> Column:
+    return Column(E.ArrayPosition(_e(c), value))
+
+
+def explode(c) -> Column:
+    return Column(E.ExplodeMarker(_e(c)))
+
+
+def posexplode(c) -> Column:
+    return Column(E.ExplodeMarker(_e(c), with_pos=True))
+
+
+def _lambda(f, *names) -> tuple:
+    """(lambda variables, body) from a Python function of Columns (the
+    DataFrame half of higherOrderFunctions.scala)."""
+    variables = [E.LambdaVar(n) for n in names]
+    out = f(*[Column(v) for v in variables])
+    if not isinstance(out, Column):
+        raise E.AnalysisException(
+            "a higher-order function's lambda must return a Column")
+    return variables, out._e
+
+
+def transform(c, f) -> Column:
+    """transform(arr, x -> expr): evaluated over the whole element plane."""
+    (var,), body = _lambda(f, "x")
+    return Column(E.ArrayTransform(_e(c), var, body))
+
+
+def filter(c, f) -> Column:  # noqa: A001
+    (var,), body = _lambda(f, "x")
+    return Column(E.ArrayFilterFn(_e(c), var, body))
+
+
+def exists(c, f) -> Column:
+    (var,), body = _lambda(f, "x")
+    return Column(E.ArrayExists(_e(c), var, body))
+
+
+def forall(c, f) -> Column:
+    (var,), body = _lambda(f, "x")
+    return Column(E.ArrayExists(_e(c), var, body, require_all=True))
+
+
+def aggregate(c, initialValue, merge, finish=None) -> Column:
+    """aggregate(arr, init, (acc, x) -> merge[, acc -> finish])."""
+    (acc, x), merged = _lambda(merge, "acc", "x")
+    fvar = fbody = None
+    if finish is not None:
+        (fvar,), fbody = _lambda(finish, "acc")
+    return Column(E.ArrayAggregate(_e(c), _ev(initialValue), acc, x, merged,
+                                   fvar, fbody))
+
+
+def zip_with(a, b, f) -> Column:
+    (x, y), body = _lambda(f, "x", "y")
+    return Column(E.ZipWith(_e(a), _e(b), x, y, body))
+
+
+def struct(*cols) -> Column:
+    exprs = [_e(c) for c in cols]
+    names = [getattr(e, "name", None) or f"col{i + 1}"
+             for i, e in enumerate(exprs)]
+    return Column(E.CreateStruct(names, *exprs))
+
+
+def named_struct(*name_col_pairs) -> Column:
+    if len(name_col_pairs) % 2:
+        raise ValueError("named_struct needs alternating name, column")
+    names = [str(n) for n in name_col_pairs[0::2]]
+    return Column(E.CreateStruct(names,
+                                 *[_e(c) for c in name_col_pairs[1::2]]))
+
+
+def create_map(*cols) -> Column:
+    return Column(E.CreateMap(*[_e(c) for c in cols]))
+
+
+def map_from_arrays(keys, values) -> Column:
+    return Column(E.MapFromArrays(_e(keys), _e(values)))
+
+
+def map_keys(c) -> Column:
+    return Column(E.MapKeys(_e(c)))
+
+
+def map_values(c) -> Column:
+    return Column(E.MapValues(_e(c)))
+
+
+def collect_list(c) -> Column:
+    return Column(A.CollectList(_e(c)))
+
+
+def collect_set(c) -> Column:
+    return Column(A.CollectSet(_e(c)))
+
+
+__all__ += [
+    "hash", "xxhash64", "approx_count_distinct", "input_file_name", "rand",
+    "randn", "monotonically_increasing_id", "spark_partition_id", "array",
+    "split", "size", "element_at", "array_contains", "array_max",
+    "array_min", "sort_array", "array_distinct", "slice", "array_position",
+    "explode", "posexplode", "transform", "filter", "exists", "forall",
+    "aggregate", "zip_with", "struct", "named_struct", "create_map",
+    "map_from_arrays", "map_keys", "map_values", "collect_list",
+    "collect_set",
+]

@@ -22,6 +22,7 @@ __all__ = [
     "LogicalPlan", "LocalRelation", "RangeRelation", "Project", "Filter",
     "Aggregate", "Sort", "SortOrder", "Limit", "Join", "Union", "Distinct",
     "SubqueryAlias", "UnresolvedRelation", "Sample", "Intersect", "Except",
+    "Explode",
 ]
 
 
@@ -427,6 +428,55 @@ class SubqueryAlias(LogicalPlan):
 
     def __repr__(self):
         return f"SubqueryAlias {self.alias}"
+
+
+class Explode(LogicalPlan):
+    """Row-generating projection: ``SELECT pre..., explode(arr) AS out``
+    (``GenerateExec`` for explode/posexplode).  Its capacity is the
+    child's times the array's width, dead element slots masked: row
+    generation with static shapes."""
+
+    def __init__(self, pre_exprs: List[Expression], array_expr: Expression,
+                 out_name: str, with_pos: bool, pos_name: str,
+                 child: LogicalPlan, insert_at: Optional[int] = None):
+        self.pre_exprs = list(pre_exprs)
+        self.array_expr = array_expr
+        self.out_name = out_name
+        self.with_pos = with_pos
+        self.pos_name = pos_name
+        self.insert_at = len(self.pre_exprs) if insert_at is None \
+            else int(insert_at)
+        self.children = (child,)
+
+    @property
+    def child(self):
+        return self.children[0]
+
+    def expressions(self):
+        return list(self.pre_exprs) + [self.array_expr]
+
+    def map_expressions(self, fn):
+        return Explode([fn(e) for e in self.pre_exprs], fn(self.array_expr),
+                       self.out_name, self.with_pos, self.pos_name,
+                       self.children[0], insert_at=self.insert_at)
+
+    def schema(self) -> T.StructType:
+        cs = self.children[0].schema()
+        gen = []
+        if self.with_pos:
+            gen.append(T.StructField(self.pos_name, T.int32, False))
+        at = self.array_expr.data_type(cs)
+        if not isinstance(at, T.ArrayType):
+            raise AnalysisException(f"explode expects an array, got {at}")
+        gen.append(T.StructField(self.out_name, at.element_type))
+        fields = [T.StructField(e.name, e.data_type(cs))
+                  for e in self.pre_exprs]
+        i = min(self.insert_at, len(fields))
+        return T.StructType(fields[:i] + gen + fields[i:])
+
+    def __repr__(self):
+        return (f"Explode[{self.array_expr!r} AS {self.out_name}"
+                f"{' WITH pos' if self.with_pos else ''}]")
 
 
 class GroupingSets(LogicalPlan):

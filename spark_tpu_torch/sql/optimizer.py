@@ -4,8 +4,8 @@ A copy of ``spark_tpu/sql/optimizer.py`` (the analog of
 ``catalyst/optimizer/Optimizer.scala``: batches of rewrite rules run to
 fixed point by a RuleExecutor) without what the port cannot reach yet:
 the rules that read file statistics and the file-column pruning (the
-port has no file scans) and the complex-type simplifier (no map/struct
-types).  Join reordering estimates cardinality from batch capacities.
+port has no file scans; the reference's only Sample case is in that
+pruning).  Join reordering estimates cardinality from batch capacities.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from typing import Callable, Dict, List, Optional
 from ..aggregates import AggregateFunction
 from ..columnar import ColumnBatch
 from ..expressions import (Alias, AnalysisException, And, Col, EvalContext,
-                           Expression, Literal)
+                           Expression, Literal, Rand, RowIndex)
 from .logical import (
     Aggregate, Filter, Join, Limit, LocalRelation, LogicalPlan, Project,
     RangeRelation, Sort, SubqueryAlias, Union,
@@ -25,9 +25,12 @@ MAX_ITERATIONS = 50
 
 
 def is_deterministic(e: Expression) -> bool:
-    """No nondeterministic expression (rand, monotonically_increasing_id)
-    is ported yet, so every expression of this slice is deterministic."""
-    return True
+    """False for rand/randn and monotonically_increasing_id: their value
+    is a function of the row's position in its operator, so no rule may
+    move them past another operator or copy them."""
+    if isinstance(e, (Rand, RowIndex)):
+        return False
+    return all(is_deterministic(c) for c in e.children)
 
 
 def substitute(e: Expression, mapping: Dict[str, Expression]) -> Expression:
@@ -55,6 +58,138 @@ def _alias_map(p: Project) -> Optional[Dict[str, Expression]]:
 # ---------------------------------------------------------------------------
 # rules — each: LogicalPlan -> LogicalPlan (identity when not applicable)
 # ---------------------------------------------------------------------------
+
+def simplify_complex_ops(node: LogicalPlan) -> LogicalPlan:
+    """Rewrite map/struct consumers over their creators into flat array/
+    scalar expressions (``SimplifyExtractValueOps`` over
+    ``complexTypeExtractors.scala``), once collapse_projects has put
+    extractor and creator in one expression tree:
+
+    * ``getField(struct(...), f)``        → the field expression
+    * ``map_keys/values(map(...))``       → ``array(...)`` of that side
+    * ``map_keys/values(map_from_arrays)``→ the plane array
+    * ``element_at(map(...), k)``         → a first-match If chain
+    * ``element_at(map_from_arrays, lit)``→ a plane gather by array_position
+    * ``size(map)``                       → the size of the keys plane
+    * ``arr[i]`` (GetItem)                → ``element_at(arr, i + 1)``
+
+    Complex values never hold a device plane: whatever survives these
+    rewrites raises at eval, as in the JAX package."""
+    from .. import types as T
+    from ..expressions import (
+        ArrayGather, ArrayPosition, ArraySize, CreateMap, CreateStruct,
+        ElementAt, GetField, GetItem, If, MakeArray, MapFromArrays, MapGet,
+        MapKeys, MapValues,
+    )
+
+
+    # the child schema is computed only when a complex-type candidate is
+    # met — computing it for every node is quadratic in the plan
+    _unset = object()
+    state = {"schema": _unset}
+
+    def get_schema():
+        if state["schema"] is _unset:
+            state["schema"] = None
+            if len(node.children) == 1:
+                try:
+                    state["schema"] = node.children[0].schema()
+                except Exception:
+                    pass
+        return state["schema"]
+
+    def dtype_of(e):
+        schema = get_schema()
+        if schema is None:
+            return None
+        try:
+            return e.data_type(schema)
+        except Exception:
+            return None
+
+    def creator(x):
+        """The creator behind Alias wrapping."""
+        while isinstance(x, Alias):
+            x = x.children[0]
+        return x
+
+    def rw(e):
+        e = e.map_children(rw)
+        if isinstance(e, (MapKeys, MapValues)):
+            c = creator(e.children[0])
+            if isinstance(c, CreateMap):
+                parts = c.keys if e.WHICH == "keys" else c.values
+                return MakeArray(*parts)
+            if isinstance(c, MapFromArrays):
+                return c.children[0 if e.WHICH == "keys" else 1]
+        if isinstance(e, GetField) \
+                and isinstance(creator(e.children[0]), CreateStruct):
+            st = creator(e.children[0])
+            if e.field in st.field_names:
+                return st.children[st.field_names.index(e.field)]
+        if isinstance(e, GetItem):
+            ct = dtype_of(e.children[0])
+            if isinstance(ct, T.ArrayType):         # 0-based position
+                if isinstance(e.key, int):
+                    if e.key < 0:
+                        # GetArrayItem: a negative ordinal is NULL (only
+                        # element_at counts from the end)
+                        return Literal(None, ct.element_type)
+                    return ElementAt(e.children[0], e.key + 1)
+            elif isinstance(ct, T.MapType):
+                return rw(MapGet(e.children[0], Literal(e.key)))
+            elif isinstance(ct, T.StructType) and isinstance(e.key, str):
+                return rw(GetField(e.children[0], e.key))
+        if isinstance(e, MapGet):
+            m, k = e.children
+            if isinstance(dtype_of(m), T.ArrayType):
+                # dynamic element_at(arr, expr): the 1-based gather
+                return ArrayGather(m, k)
+            m = creator(m)
+            if isinstance(m, CreateMap):
+                vt = dtype_of(m)
+                if not isinstance(vt, T.MapType):
+                    try:
+                        vt = m.data_type(None)  # literal-only maps
+                    except Exception:
+                        return e
+                    if not isinstance(vt, T.MapType):
+                        return e
+                out = Literal(None, vt.value_type)
+                # GetMapValue scans pairs in order, the first match wins:
+                # build the chain inside out so pair 1 ends outermost
+                for kk, vv in reversed(list(zip(m.keys, m.values))):
+                    out = If(kk == k, vv, out)
+                return out
+            if isinstance(m, MapFromArrays) and isinstance(k, Literal):
+                ka, va = m.children
+                return ArrayGather(va, ArrayPosition(ka, k.value))
+        if isinstance(e, ArraySize) \
+                and isinstance(dtype_of(e.children[0]), T.MapType):
+            return rw(ArraySize(MapKeys(e.children[0])))
+        if isinstance(e, ElementAt) \
+                and isinstance(dtype_of(e.children[0]), T.MapType):
+            return rw(MapGet(e.children[0], Literal(e.index)))
+        return e
+
+    return node.map_expressions(rw)
+
+
+def _has_extractors(plan: LogicalPlan) -> bool:
+    """Whether any expression of the plan is one simplify_complex_ops
+    rewrites.  No other rule makes one, so a plan without any needs the
+    rule on no pass."""
+    from ..expressions import (ArraySize, ElementAt, GetField, GetItem,
+                               MapGet, MapKeys, MapValues)
+    kinds = (GetField, GetItem, MapGet, MapKeys, MapValues, ArraySize,
+             ElementAt)
+
+    def has(e: Expression) -> bool:
+        return isinstance(e, kinds) or any(has(c) for c in e.children)
+
+    return any(has(e) for e in plan.expressions()) \
+        or any(_has_extractors(c) for c in plan.children)
+
 
 def eliminate_subquery_aliases(node: LogicalPlan) -> LogicalPlan:
     """Drop SubqueryAlias after analysis (``EliminateSubqueryAliases``)."""
@@ -473,16 +608,21 @@ class Optimizer:
                 push_project_through_sort,
                 prune_project_under_aggregate,
                 collapse_projects,
+                simplify_complex_ops,
                 push_limit,
             ]),
         ]
 
     def optimize(self, plan: LogicalPlan) -> LogicalPlan:
+        # a pass of a rule copies every node: skip the complex-type rule
+        # on the plans (most) that hold nothing it rewrites
+        skip = () if _has_extractors(plan) else (simplify_complex_ops,)
         for batch in self.batches:
             iterations = 1 if batch.once else MAX_ITERATIONS
+            rules = [r for r in batch.rules if r not in skip]
             for _ in range(iterations):
                 new_plan = plan
-                for rule in batch.rules:
+                for rule in rules:
                     new_plan = new_plan.transform_up(rule)
                 if _plans_equal(new_plan, plan):
                     plan = new_plan

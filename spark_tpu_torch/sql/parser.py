@@ -23,10 +23,16 @@ exercises:
   TABLE, INSERT, databases, ANALYZE TABLE), which parse here and are
   refused by the session.
 
-The grammar is the JAX package's, token for token.  The function tables
-register only the expressions this package has; a name whose expression
-a later slice brings (``analyzer.NOT_PORTED_FUNCTIONS``) and a lambda
-raise ``AnalysisException`` naming the construct and that slice.
+* higher-order functions with lambdas, ``x -> ...`` and
+  ``(acc, x) -> ...``; the array, map and struct functions.
+
+The grammar is the JAX package's, token for token, with two postfix
+operators it lacks: ``e[key]`` (``GetItem``: a 0-based array position, a
+map key or a struct field) and ``e.field`` after a call or a subscript
+(``GetField``; ``s.field`` on a struct column resolves in the analyzer).
+A name whose expression a later slice brings
+(``analyzer.NOT_PORTED_FUNCTIONS``: the event-time windows) raises
+``AnalysisException`` naming the construct and that slice.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import re
 from typing import Any, List, Optional, Sequence, Tuple
 
 from .. import aggregates as A
+from .. import expressions as E
 from .. import types as T
 from ..expressions import (Add, Alias, AnalysisException, And, Between,
                            BinaryMath, CaseWhen, Cast, Coalesce, Col, Concat,
@@ -75,7 +82,7 @@ _TOKEN_RE = re.compile(r"""
   | (?P<string>'(?:[^'\\]|\\.|'')*'|"(?:[^"\\]|\\.)*")
   | (?P<bq>`[^`]*`)
   | (?P<ident>[A-Za-z_][A-Za-z_0-9]*)
-  | (?P<op><=>|<>|!=|<=|>=|==|->|\|\||[=<>+\-*/%(),.])
+  | (?P<op><=>|<>|!=|<=|>=|==|->|\|\||[=<>+\-*/%(),.\[\]])
 """, re.VERBOSE)
 
 KEYWORDS = {
@@ -336,9 +343,99 @@ SCALAR_FUNCTIONS = {
     # grouping sets
     "grouping": lambda a: GroupingCall(_one(a, "grouping")),
     "grouping_id": lambda a: GroupingCall(None),
+    # random draws and partition ids
+    "rand": lambda a: E.Rand(int(a[0].value) if a else 42),
+    "randn": lambda a: E.Randn(int(a[0].value) if a else 42),
+    "spark_partition_id": lambda a: E.SparkPartitionId(),
 }
 
+
+def _array_reduce(args, op):
+    return E.ArrayReduce(_one(args, f"array_{op}"), op)
+
+
+def _sort_array(args):
+    if len(args) == 1:
+        return E.SortArray(args[0], True)
+    if len(args) == 2 and isinstance(args[1], Literal):
+        return E.SortArray(args[0], bool(args[1].value))
+    raise ParseException("sort_array expects (arr[, asc literal])")
+
+
+def _array_slice(args):
+    if len(args) != 3 or not all(isinstance(a, Literal) for a in args[1:]):
+        raise ParseException("slice expects (arr, start literal, "
+                             "length literal)")
+    return E.ArraySlice(args[0], int(args[1].value), int(args[2].value))
+
+
+def _array_position(args):
+    if len(args) != 2:
+        raise ParseException("array_position expects (arr, value)")
+    return E.ArrayPosition(args[0], _litval(args[1], "array_position"))
+
+
+def _element_at(a):
+    if len(a) != 2:
+        raise ParseException("element_at expects (col, index_or_key)")
+    try:
+        v = _litval(a[1], "element_at")   # folds e.g. unary minus
+    except Exception:
+        v = None
+    if isinstance(v, int) and not isinstance(v, bool) and v != 0:
+        return E.ElementAt(a[0], int(v))
+    return E.MapGet(a[0], a[1])   # a map key (int 0 too) or a dynamic index
+
+
+def _struct(a):
+    names = [getattr(e, "name", None) or f"col{i + 1}"
+             for i, e in enumerate(a)]
+    return E.CreateStruct(names, *a)
+
+
+def _named_struct(a):
+    if len(a) % 2:
+        raise ParseException("named_struct expects alternating name, value")
+    names = [str(_litval(e, "named_struct")) for e in a[0::2]]
+    return E.CreateStruct(names, *a[1::2])
+
+
+def _map_from_arrays(a):
+    if len(a) != 2:
+        raise ParseException("map_from_arrays expects (keys, values)")
+    return E.MapFromArrays(a[0], a[1])
+
+
+SCALAR_FUNCTIONS.update({
+    "array": lambda a: E.MakeArray(*a),
+    "split": lambda a: E.SplitStr(a[0], _litval(a[1], "split"),
+                                  int(_litval(a[2], "split"))
+                                  if len(a) > 2 else -1),
+    "size": lambda a: E.ArraySize(_one(a, "size")),
+    "cardinality": lambda a: E.ArraySize(_one(a, "cardinality")),
+    "element_at": _element_at,
+    "map": lambda a: E.CreateMap(*a),
+    "named_struct": _named_struct,
+    "struct": _struct,
+    "map_keys": lambda a: E.MapKeys(_one(a, "map_keys")),
+    "map_values": lambda a: E.MapValues(_one(a, "map_values")),
+    "map_from_arrays": _map_from_arrays,
+    "array_contains": lambda a: E.ArrayContains(
+        a[0], _litval(a[1], "array_contains")),
+    "array_max": lambda a: _array_reduce(a, "max"),
+    "array_min": lambda a: _array_reduce(a, "min"),
+    "sort_array": _sort_array,
+    "array_distinct": lambda a: E.ArrayDistinct(_one(a, "array_distinct")),
+    "slice": _array_slice,
+    "array_position": _array_position,
+    "explode": lambda a: E.ExplodeMarker(_one(a, "explode")),
+    "posexplode": lambda a: E.ExplodeMarker(_one(a, "posexplode"),
+                                            with_pos=True),
+})
+
 AGG_FUNCTIONS = {
+    "collect_list": lambda e: A.CollectList(e),
+    "collect_set": lambda e: A.CollectSet(e),
     "sum": lambda e: A.Sum(e),
     "avg": lambda e: A.Avg(e),
     "mean": lambda e: A.Avg(e),
@@ -1237,7 +1334,22 @@ class Parser:
             return Neg(self._unary())
         if self.accept_op("+"):
             return self._unary()
-        return self._primary()
+        return self._postfix(self._primary())
+
+    def _postfix(self, e: Expression) -> Expression:
+        """``e[key]`` and, after a call or a subscript, ``e.field``."""
+        while True:
+            if self.accept_op("["):
+                key = _litval(self.expr(), "subscript")
+                self.expect_op("]")
+                e = E.GetItem(e, key)
+            elif not isinstance(e, (Col, Literal, _Star)) \
+                    and self.at_op(".") \
+                    and self.peek(1).kind in ("IDENT", "KW"):
+                self.next()
+                e = E.GetField(e, self.ident())
+            else:
+                return e
 
     def _primary(self) -> Expression:
         t = self.peek()
@@ -1281,7 +1393,13 @@ class Parser:
                 self.expect_op(")")
                 return ExistsSubquery(sub)
             # exists(arr, x -> pred): the higher-order array function
-            raise not_ported("exists")
+            # (SubqueryExpression and higherOrderFunctions disambiguate
+            # the same way in the reference grammar)
+            arr = self.expr()
+            self.expect_op(",")
+            var, body = self._lambda_arg()
+            self.expect_op(")")
+            return E.ArrayExists(arr, var, body)
         if self.accept_op("("):
             if self.at_kw("SELECT") or self.at_kw("WITH"):
                 from .subquery import ScalarSubquery
@@ -1344,14 +1462,91 @@ class Parser:
             raise ParseException("CASE requires at least one WHEN branch")
         return CaseWhen(branches, otherwise)
 
+    # `exists` is a KEYWORD (the subquery predicate) and reaches the
+    # higher-order path through the EXISTS branch of _primary, never here
+    _HOF_NAMES = frozenset({"transform", "filter", "forall",
+                            "aggregate", "zip_with"})
+
+    def _lambda_arg(self, n_vars: int = 1):
+        """`x -> expr` or `(a, b) -> expr` (the lambda syntax of
+        higherOrderFunctions.scala)."""
+        names = []
+        if self.accept_op("("):
+            while True:
+                t = self.peek()
+                if t.kind != "IDENT":
+                    raise ParseException(
+                        f"expected lambda variable, got {t.value!r}")
+                self.next()
+                names.append(t.value)
+                if not self.accept_op(","):
+                    break
+            self.expect_op(")")
+        else:
+            t = self.peek()
+            if t.kind != "IDENT":
+                raise ParseException(
+                    f"expected lambda variable, got {t.value!r}")
+            self.next()
+            names.append(t.value)
+        if len(names) != n_vars:
+            raise ParseException(
+                f"lambda expects {n_vars} variable(s), got {names}")
+        if len({nm.lower() for nm in names}) != len(names):
+            raise ParseException(
+                f"duplicate lambda variable names {names}")
+        self.expect_op("->")
+        variables = [E.LambdaVar(nm) for nm in names]
+        by_name = {nm.lower(): v for nm, v in zip(names, variables)}
+        # the body names the variables by their source names: parse it,
+        # then substitute Col(name) -> the bound LambdaVar
+        body = self.expr()
+
+        def sub(e):
+            if isinstance(e, Col) and e.name.lower() in by_name:
+                return by_name[e.name.lower()]
+            return e.map_children(sub)
+
+        body = sub(body)
+        if n_vars == 1:
+            return variables[0], body
+        return variables, body
+
+    def _higher_order_call(self, lname: str) -> Expression:
+        arr = self.expr()
+        self.expect_op(",")
+        if lname == "aggregate":
+            init = self.expr()
+            self.expect_op(",")
+            (acc, x), merge = self._lambda_arg(2)
+            fvar = fbody = None
+            if self.accept_op(","):
+                fvar, fbody = self._lambda_arg(1)
+            self.expect_op(")")
+            return E.ArrayAggregate(arr, init, acc, x, merge, fvar, fbody)
+        if lname == "zip_with":
+            other = self.expr()
+            self.expect_op(",")
+            (x, y), body = self._lambda_arg(2)
+            self.expect_op(")")
+            return E.ZipWith(arr, other, x, y, body)
+        var, body = self._lambda_arg()
+        self.expect_op(")")
+        if lname == "transform":
+            return E.ArrayTransform(arr, var, body)
+        if lname == "filter":
+            return E.ArrayFilterFn(arr, var, body)
+        return E.ArrayExists(arr, var, body, require_all=(lname == "forall"))
+
     def _function_call(self, name: str) -> Expression:
         self.expect_op("(")
         lname = name.lower()
         # a name whose expression a later slice brings raises before its
-        # arguments are parsed (the higher-order array functions among
-        # them take lambdas, `x -> ...`, which this grammar lacks)
+        # arguments are parsed
         if lname in NOT_PORTED_FUNCTIONS:
             raise not_ported(lname)
+        if lname in self._HOF_NAMES:
+            return self._higher_order_call(lname)
         distinct = False
         args: List[Expression] = []
         if not self.accept_op(")"):

@@ -70,8 +70,20 @@ def _checkpointed(run):
 
 class PhysicalPlan:
     children: Tuple["PhysicalPlan", ...] = ()
-    #: stable preorder position, assigned by the planner
+    #: stable preorder position, assigned by the planner; shifted into the
+    #: upper bits of RowIndex/Rand offsets so the positional expressions
+    #: of two operators draw apart (MonotonicallyIncreasingID's
+    #: partition-id trick, applied to operator identity)
     op_id: int = 0
+
+    @property
+    def row_offset(self) -> int:
+        return self.op_id << 33
+
+    def offset_in(self, ctx: "ExecContext") -> int:
+        """The operator's offset plus the shard's (``shard << 48`` on the
+        mesh lane): a host int, a constant of the plan."""
+        return self.row_offset + getattr(ctx, "shard_offset", 0)
 
     def __init_subclass__(cls, **kwargs):
         super().__init_subclass__(**kwargs)
@@ -177,7 +189,7 @@ class PProject(PhysicalPlan):
 
     def run(self, ctx):
         batch = self.children[0].run(ctx)
-        out = apply_project(batch, self.exprs)
+        out = apply_project(batch, self.exprs, self.offset_in(ctx))
         out.names = [e.name for e in self.exprs]
         return out
 
@@ -194,7 +206,8 @@ class PFilter(PhysicalPlan):
         return self.children[0].schema()
 
     def run(self, ctx):
-        return apply_filter(self.children[0].run(ctx), self.cond)
+        return apply_filter(self.children[0].run(ctx), self.cond,
+                            self.offset_in(ctx))
 
     def __repr__(self):
         return f"Filter ({self.cond!r})"
@@ -373,23 +386,26 @@ class PUnion(PhysicalPlan):
         return f"Union({len(self.children)})"
 
 
-class _NotYetPorted(PhysicalPlan):
-    """An operator of the JAX package that a later slice of the port
-    brings; planning it is fine, running it raises."""
+class PSample(PhysicalPlan):
+    """sample(fraction, seed): keep the rows whose ``rand(seed)`` draw is
+    below ``fraction`` (a filter: the row mask only)."""
 
-    slice_name = "a later slice"
+    def __init__(self, fraction: float, seed: int, child: PhysicalPlan):
+        self.fraction = fraction
+        self.seed = seed
+        self.children = (child,)
 
-    def __init__(self, *children: PhysicalPlan):
-        self.children = tuple(children)
+    def schema(self):
+        return self.children[0].schema()
 
     def run(self, ctx):
-        raise NotImplementedError(
-            f"{type(self).__name__} is not ported yet: it comes with "
-            f"{self.slice_name}")
+        from ..expressions import LT, Literal, Rand
+        cond = LT(Rand(self.seed), Literal(float(self.fraction)))
+        return apply_filter(self.children[0].run(ctx), cond,
+                            self.offset_in(ctx))
 
-
-class PSample(_NotYetPorted):
-    slice_name = "the TPC-DS breadth slice (rand/sample)"
+    def __repr__(self):
+        return f"Sample({self.fraction}, seed={self.seed})"
 
 
 class PWindow(PhysicalPlan):
@@ -419,5 +435,78 @@ class PWindow(PhysicalPlan):
         return f"Window [{', '.join(n for _, n in self.wexprs)}]"
 
 
-class PExplode(_NotYetPorted):
-    slice_name = "the TPC-DS breadth slice (array columns)"
+class PExplode(PhysicalPlan):
+    """Static row generation: a ``(capacity, L)`` array flattens to
+    ``capacity * L`` rows, the other select expressions repeat each row L
+    times, and the dead element slots join the row mask."""
+
+    def __init__(self, pre_exprs, array_expr, out_name, with_pos, pos_name,
+                 child, insert_at=None):
+        self.pre_exprs = list(pre_exprs)
+        self.array_expr = array_expr
+        self.out_name = out_name
+        self.with_pos = with_pos
+        self.pos_name = pos_name
+        self.insert_at = len(self.pre_exprs) if insert_at is None \
+            else int(insert_at)
+        self.children = (child,)
+
+    def schema(self):
+        cs = self.children[0].schema()
+        gen = []
+        if self.with_pos:
+            gen.append(T.StructField(self.pos_name, T.int32, False))
+        at = self.array_expr.data_type(cs)
+        gen.append(T.StructField(self.out_name, at.element_type))
+        fields = [T.StructField(e.name, e.data_type(cs))
+                  for e in self.pre_exprs]
+        i = min(self.insert_at, len(fields))
+        return T.StructType(fields[:i] + gen + fields[i:])
+
+    def run(self, ctx):
+        from ..expressions import _array_elem_mask
+        batch = self.children[0].run(ctx)
+        ectx = EvalContext(batch, self.offset_in(ctx))
+        cap = batch.capacity
+        at = self.array_expr.data_type(batch.schema)
+        av = self.array_expr.eval(ectx)
+        data = av.data
+        if data.dim() == 1:
+            # an array literal: one row's elements, the same for every row
+            data = data.expand(cap, data.shape[0])
+        width = int(data.shape[-1])
+        emask = _array_elem_mask(at, data)                # (cap, L)
+        pre_cols = []
+        for e in self.pre_exprs:
+            v = ectx.broadcast(e.eval(ectx))
+            dt = e.data_type(batch.schema)
+            d = torch.repeat_interleave(v.data.to(dt.torch_dtype), width,
+                                        dim=0)
+            valid = None if v.valid is None \
+                else torch.repeat_interleave(v.valid, width)
+            pre_cols.append((e.name, ColumnVector(d, dt, valid,
+                                                  v.dictionary)))
+        gen_cols = []
+        if self.with_pos:
+            pos = torch.arange(width, dtype=torch.int32,
+                               device=ctx.device).repeat(cap)
+            gen_cols.append((self.pos_name,
+                             ColumnVector(pos, T.int32, None, None)))
+        gen_cols.append((self.out_name,
+                         ColumnVector(data.reshape(cap * width),
+                                      at.element_type, None,
+                                      av.dictionary)))
+        i = min(self.insert_at, len(pre_cols))
+        ordered = pre_cols[:i] + gen_cols + pre_cols[i:]
+        rv = batch.row_valid_or_true()
+        if av.valid is not None:
+            rv = rv & av.valid
+        out_rv = torch.repeat_interleave(rv, width) & emask.reshape(-1)
+        return ColumnBatch([n for n, _v in ordered],
+                           [v for _n, v in ordered], out_rv, cap * width)
+
+    def __repr__(self):
+        pos = f" POS {self.pos_name}" if self.with_pos else ""
+        pre = ", ".join(repr(e) for e in self.pre_exprs)
+        return (f"Explode[{pre} | {self.array_expr!r} AS "
+                f"{self.out_name}{pos} @{self.insert_at}]")

@@ -27,8 +27,8 @@ from ..columnar import ColumnBatch, pad_capacity
 from ..expressions import AnalysisException
 from ..kernels import compact
 from .logical import (
-    Aggregate, Distinct, Filter, Join, Limit, LocalRelation, LogicalPlan,
-    Project, RangeRelation, Sort, SubqueryAlias, Union,
+    Aggregate, Distinct, Explode, Filter, Join, Limit, LocalRelation,
+    LogicalPlan, Project, RangeRelation, Sample, Sort, SubqueryAlias, Union,
 )
 from . import physical as P
 
@@ -80,11 +80,67 @@ def _slice_to_host(result: ColumnBatch, n: int) -> ColumnBatch:
     return result.packed_host(min(pad_capacity(max(n, 1)), result.capacity))
 
 
-def _row_nbytes(schema: T.StructType) -> int:
+def _row_nbytes(schema: T.StructType, width: int = 1) -> int:
     """Device bytes per row of one materialized batch of this schema
-    (data + validity + row mask)."""
-    return 2 + sum(np.dtype(f.dataType.np_dtype).itemsize + 1
-                   for f in schema.fields)
+    (data + validity + row mask); an array column counts ``width``
+    elements."""
+    return 2 + sum(np.dtype(f.dataType.np_dtype).itemsize
+                   * (width if isinstance(f.dataType, T.ArrayType) else 1)
+                   + 1 for f in schema.fields)
+
+
+def _plan_exprs(obj):
+    """Every expression a physical node's fields hold, lambda bodies
+    included."""
+    from ..expressions import Expression
+    if isinstance(obj, Expression):
+        yield obj
+        for c in obj.children:
+            yield from _plan_exprs(c)
+        for f in getattr(obj, "LAMBDA_BODIES", ()):
+            yield from _plan_exprs(getattr(obj, f))
+    elif isinstance(obj, (list, tuple)):
+        for x in obj:
+            yield from _plan_exprs(x)
+
+
+def _array_width_bound(pq: "PlannedQuery") -> int:
+    """An upper bound of every array plane's width in the plan: array
+    operators keep or narrow their input's width, so the widest source
+    bounds them all — a 2-D leaf, a collect's ``max_len``, an array()
+    call, an array literal or a split() of a leaf dictionary."""
+    from ..aggregates import CollectList
+    from ..expressions import Literal, MakeArray, SplitStr
+    width = max([1] + [int(v.data.shape[1]) for b in pq.leaves
+                       for v in b.vectors if v.data.dim() == 2])
+    splits = []
+
+    def walk(node):
+        nonlocal width
+        for name, val in vars(node).items():
+            if name == "children":
+                continue
+            for e in _plan_exprs(val):
+                if isinstance(e, CollectList):
+                    width = max(width, e.max_len or 1)
+                elif isinstance(e, MakeArray):
+                    width = max(width, len(e.children))
+                elif isinstance(e, Literal) and isinstance(e.value,
+                                                           (list, tuple)):
+                    width = max(width, len(e.value))
+                elif isinstance(e, SplitStr):
+                    splits.append(e)
+        for c in node.children:
+            walk(c)
+
+    walk(pq.physical)
+    for e in splits:
+        for b in pq.leaves:
+            for v in b.vectors:
+                if v.dictionary is not None:
+                    width = max(width,
+                                e.split_table(v.dictionary)[0].shape[1])
+    return width
 
 
 def _walk_plan_caps(pq: "PlannedQuery"):
@@ -92,11 +148,26 @@ def _walk_plan_caps(pq: "PlannedQuery"):
     output capacities — exact arithmetic, not a heuristic: join output
     capacity is ``pad_capacity(probe × factor)`` by construction
     (joins.py).  ``join_caps`` lists ``(PJoin, probe_rows, out_rows)``
-    for every join with an adaptive (factor-sized) output buffer."""
+    for every join with an adaptive (factor-sized) output buffer.  Array
+    planes count ``_array_width_bound`` elements a row: an explode's
+    output holds its child's capacity times that many rows, and a
+    collect aggregate scatters into a plane that wide."""
     from .joins import PJoin
 
     extra = 0
     join_caps: List[tuple] = []
+    widths: List[int] = []
+
+    def width() -> int:
+        # walked only for a plan that holds arrays (most hold none)
+        if not widths:
+            widths.append(_array_width_bound(pq))
+        return widths[0]
+
+    def row_nbytes(schema: T.StructType) -> int:
+        if any(isinstance(f.dataType, T.ArrayType) for f in schema.fields):
+            return _row_nbytes(schema, width())
+        return _row_nbytes(schema)
 
     def cap(node: P.PhysicalPlan) -> int:
         nonlocal extra
@@ -105,6 +176,16 @@ def _walk_plan_caps(pq: "PlannedQuery"):
         if isinstance(node, P.PRange):
             return node.capacity
         ch = [cap(c) for c in node.children]
+        if isinstance(node, P.PExplode):
+            out = (ch[0] if ch else 1) * width()
+            extra += out * row_nbytes(node.schema())
+            return out
+        if isinstance(node, P.PAggregate):
+            for f, _n in node.slots:
+                if getattr(f, "is_collect", False):
+                    # the scatter plane: a max_len row per input row, and
+                    # a spill slot per input row
+                    extra += (ch[0] if ch else 1) * (f.max_len + 1) * 8
         if isinstance(node, P.PAggregate) and not node.keys:
             return 1            # global aggregate: capacity-1 output
         if isinstance(node, P.PAggShrink):
@@ -122,16 +203,16 @@ def _walk_plan_caps(pq: "PlannedQuery"):
                 if node.how == "full":
                     out += build
                 join_caps.append((node, probe, out))
-            extra += out * _row_nbytes(node.schema())
+            extra += out * row_nbytes(node.schema())
             return out
         if isinstance(node, P.PUnion):
             out = sum(ch) if ch else 1
-            extra += out * _row_nbytes(node.schema())
+            extra += out * row_nbytes(node.schema())
             return out
         return max(ch) if ch else 1
 
     root_cap = cap(pq.physical)
-    extra += root_cap * _row_nbytes(pq.physical.schema())
+    extra += root_cap * row_nbytes(pq.physical.schema())
     return root_cap, extra, join_caps
 
 
@@ -241,6 +322,14 @@ class Planner:
         self.agg_shrink_override = agg_shrink_override
         self._join_seq = 0
 
+    def bind_collect(self, aggs):
+        """The aggregate slots with each collect bound to the session's
+        ``spark.tpu.collect.maxArrayLen``: the arrays' width is a constant
+        of the plan, so of its stage key."""
+        width = self.session.conf.get(C.COLLECT_MAX_LEN)
+        return [(f.with_max_len(width) if getattr(f, "is_collect", False)
+                 else f, n) for f, n in aggs]
+
     def _shrunk(self, agg: P.PhysicalPlan) -> P.PhysicalPlan:
         rows = self.agg_shrink_override
         if rows is None:
@@ -297,7 +386,7 @@ class Planner:
         if isinstance(node, Filter):
             return P.PFilter(node.condition, self._to_physical(node.child, leaves))
         if isinstance(node, Aggregate):
-            agg = P.PAggregate(node.keys, node.aggs,
+            agg = P.PAggregate(node.keys, self.bind_collect(node.aggs),
                                self._to_physical(node.child, leaves))
             return self._shrunk(agg) if node.keys else agg
         if isinstance(node, Sort):
@@ -318,8 +407,16 @@ class Planner:
         if isinstance(node, WindowNode):
             return P.PWindow(node.wexprs,
                              self._to_physical(node.child, leaves))
-        # file scans, samples, explode, stateful groups: later slices (the
-        # analyzer refuses them first)
+        if isinstance(node, Sample):
+            return P.PSample(node.fraction, node.seed,
+                             self._to_physical(node.child, leaves))
+        if isinstance(node, Explode):
+            return P.PExplode(node.pre_exprs, node.array_expr, node.out_name,
+                              node.with_pos, node.pos_name,
+                              self._to_physical(node.child, leaves),
+                              insert_at=node.insert_at)
+        # file scans and stateful groups: later slices (the analyzer
+        # refuses them first)
         raise AnalysisException(f"no physical plan for {node!r}")
 
 

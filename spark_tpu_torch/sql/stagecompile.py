@@ -93,8 +93,15 @@ def leaf_signature(leaves) -> str:
     the key ``PhysicalPlan.key()`` cannot see (capacities and vector
     dtypes decide the program's shapes)."""
     return "x".join(
-        f"{b.capacity}[{','.join(str(v.dtype) for v in b.vectors)}]"
+        f"{b.capacity}[{','.join(_vector_sig(v) for v in b.vectors)}]"
         for b in leaves)
+
+
+def _vector_sig(v) -> str:
+    """A vector's dtype; an array plane's with its width (``/L``)."""
+    if v.data.dim() == 2:
+        return f"{v.dtype}/{v.data.shape[1]}"
+    return str(v.dtype)
 
 
 def leaf_aux(leaves) -> tuple:

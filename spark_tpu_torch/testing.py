@@ -552,3 +552,292 @@ def breadth_rows_match(got, want, approx_cols=(), rtol=0.0) -> bool:
             elif a != b or type(a) is not type(b):
                 return False
     return True
+
+
+# ---------------------------------------------------------------------------
+# arrays over market baskets: store_sales tickets of 8-16 line items (as
+# dsdgen's store_sales makes them), collected per ticket, exploded back to
+# rows, and the sampling expressions
+# ---------------------------------------------------------------------------
+
+#: SF1 store_sales rows and item rows (TPC-DS)
+BASKET_SALES_ROWS = 2_880_404
+BASKET_ITEMS = 18_000
+#: line items per ticket, uniform (dsdgen's store_sales)
+BASKET_SIZES = (8, 16)
+
+BASKET_SCHEMAS = {
+    "store_sales": [("ss_ticket_number", "bigint"), ("ss_item_sk", "bigint"),
+                    ("ss_quantity", "int"),
+                    ("ss_sales_price", "decimal(7,2)")],
+    "item": [("i_item_sk", "bigint"), ("i_manufact_id", "int")],
+}
+
+
+def basket_tables(n_sales: int = BASKET_SALES_ROWS,
+                  n_items: int = BASKET_ITEMS, seed: int = 11):
+    """store_sales as tickets of 8-16 line items (uniform; the last
+    ticket takes what remains of ``n_sales``), the items of a ticket
+    distinct, drawn from ``n_items``; quantities 1-100, prices in cents
+    (decimal(7,2)) as floats; the rows shuffled, so a ticket's rows lie
+    apart and ``collect_list`` keeps their row order.  ``item`` with
+    ``i_manufact_id`` in 1-100 (q3's)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = BASKET_SIZES
+    sizes = rng.integers(lo, hi + 1, n_sales // lo + 1)
+    ends = np.cumsum(sizes)
+    n_tickets = int(np.searchsorted(ends, n_sales)) + 1
+    sizes = sizes[:n_tickets].copy()
+    sizes[-1] -= int(ends[n_tickets - 1]) - n_sales
+    ticket = np.repeat(np.arange(1, n_tickets + 1, dtype=np.int64), sizes)
+    line = np.arange(n_sales) - np.repeat(ends[:n_tickets] - sizes, sizes)
+    # distinct within a ticket: a random start and a random stride with
+    # stride * 15 < n_items
+    start = rng.integers(0, n_items, n_tickets)
+    stride = rng.integers(1, max(n_items // hi, 2), n_tickets)
+    item = (np.repeat(start, sizes) + line * np.repeat(stride, sizes)) \
+        % n_items + 1
+    perm = rng.permutation(n_sales)
+    return {
+        "store_sales": {
+            "ss_ticket_number": ticket[perm],
+            "ss_item_sk": item[perm].astype(np.int64),
+            "ss_quantity": rng.integers(1, 101, n_sales).astype(np.int32),
+            "ss_sales_price":
+                rng.integers(0, 20_000, n_sales).astype(np.int64) / 100.0,
+        },
+        "item": {
+            "i_item_sk": np.arange(1, n_items + 1, dtype=np.int64),
+            "i_manufact_id":
+                rng.integers(1, 101, n_items).astype(np.int32),
+        },
+    }
+
+
+def register_basket_tables(session, tables, T):
+    for name, cols in BASKET_SCHEMAS.items():
+        schema = T.StructType([T.StructField(c, T.type_for_name(t))
+                               for c, t in cols])
+        session.createDataFrame(tables[name], schema=schema) \
+            .createOrReplaceTempView(name)
+
+
+_I64_SENT = np.iinfo(np.int64).min
+_I32_SENT = np.iinfo(np.int32).min
+
+_BASKETS = ("(SELECT ss_ticket_number, collect_list(ss_item_sk) AS items, "
+            "collect_list(ss_quantity) AS qtys, "
+            "collect_set(ss_quantity) AS qty_set, COUNT(*) AS n "
+            "FROM store_sales GROUP BY ss_ticket_number) b")
+
+
+def _planes(tables, width):
+    """Per ticket (ascending), its items and quantities in row order as
+    ``(tickets, width)`` planes with trailing sentinels, its ticket
+    numbers and line counts."""
+    ss = tables["store_sales"]
+    order = np.argsort(ss["ss_ticket_number"], kind="stable")
+    t = ss["ss_ticket_number"][order]
+    tickets, first, counts = np.unique(t, return_index=True,
+                                       return_counts=True)
+    pos = np.arange(len(t)) - np.repeat(first, counts)
+    keep = pos < width
+    rows = np.repeat(np.arange(len(tickets)), counts)[keep]
+    items = np.full((len(tickets), width), _I64_SENT, np.int64)
+    qtys = np.full((len(tickets), width), _I32_SENT, np.int32)
+    items[rows, pos[keep]] = ss["ss_item_sk"][order][keep]
+    qtys[rows, pos[keep]] = ss["ss_quantity"][order][keep]
+    return tickets, counts, items, qtys
+
+
+def _live(plane, sent):
+    return plane != sent
+
+
+def _pack(plane, keep, sent):
+    """Each row's kept elements first, in order; sentinels after."""
+    order = np.argsort(~keep, axis=1, kind="stable")
+    out = np.take_along_axis(plane, order, axis=1)
+    return np.where(np.take_along_axis(keep, order, axis=1), out, sent)
+
+
+def _first_of_equal(plane, live):
+    """Element j is the first live element of its row with its value."""
+    eq = plane[:, :, None] == plane[:, None, :]
+    earlier = np.tril(np.ones(eq.shape[1:], bool), k=-1)
+    return live & ~(eq & earlier & live[:, None, :]
+                    & live[:, :, None]).any(axis=2)
+
+
+def _baskets_oracle(tables, width):
+    tickets, counts, items, qtys = _planes(tables, width)
+    il, ql = _live(items, _I64_SENT), _live(qtys, _I32_SENT)
+    n_items = il.sum(axis=1)
+    sorted_items = np.sort(np.where(il, items, np.iinfo(np.int64).max),
+                           axis=1)
+    last = np.take_along_axis(items, (n_items - 1)[:, None], axis=1)[:, 0]
+    qty_set = np.sort(np.where(_first_of_equal(qtys, ql), qtys,
+                               np.iinfo(np.int32).max), axis=1)
+    qty_set = np.where(qty_set == np.iinfo(np.int32).max, _I32_SENT, qty_set)
+    cols = np.arange(width)
+    in_slice = (cols >= 1) & (cols < 4)
+    items_2_4 = _pack(items, il & in_slice[None, :], _I64_SENT)
+    return {
+        "ss_ticket_number": tickets,
+        "n_items": n_items.astype(np.int32),
+        "min_item": sorted_items[:, 0],
+        "last_item": last,
+        "has_42": (items == 42).any(axis=1),
+        "qty_distinct": _pack(qtys, _first_of_equal(qtys, ql), _I32_SENT),
+        "items_2_4": items_2_4,
+        "max_qty": np.where(ql, qtys, np.iinfo(np.int32).min).max(axis=1),
+        "qty_set": qty_set,
+        "n": counts.astype(np.int64),
+    }
+
+
+def _explode_oracle(tables, width):
+    """count(*) and sum(quantity) per i_manufact_id over store_sales ⋈
+    item: exploding each ticket's items (with their quantities) gives back
+    the rows of store_sales while no ticket is longer than ``width``."""
+    ss, it = tables["store_sales"], tables["item"]
+    tickets, counts, items, qtys = _planes(tables, width)
+    live = _live(items, _I64_SENT)
+    manufact = np.zeros(int(it["i_item_sk"].max()) + 1, np.int64)
+    manufact[it["i_item_sk"]] = it["i_manufact_id"]
+    m = manufact[items[live]]
+    ids = np.unique(m)
+    n = np.bincount(m, minlength=ids.max() + 1)[ids]
+    q = np.bincount(m, weights=qtys[live].astype(np.int64),
+                    minlength=ids.max() + 1)[ids].astype(np.int64)
+    return {"i_manufact_id": ids.astype(np.int32), "n": n.astype(np.int64),
+            "qty": q}
+
+
+def _hof_oracle(tables, width):
+    tickets, counts, items, qtys = _planes(tables, width)
+    il, ql = _live(items, _I64_SENT), _live(qtys, _I32_SENT)
+    pos42 = np.where(il & (items == 42), np.arange(width)[None, :],
+                     width).min(axis=1)
+    found = pos42 < width
+    return {
+        "ss_ticket_number": tickets,
+        "items_mod": np.where(il, items % 100, _I64_SENT),
+        "big_items": _pack(items, il & (items > 9000), _I64_SENT),
+        "has_big_qty": (ql & (qtys > 90)).any(axis=1),
+        "qty_sum": np.where(ql, qtys, 0).sum(axis=1).astype(np.int32),
+        "qty_of_42": (np.take_along_axis(
+            qtys, np.minimum(pos42, width - 1)[:, None], axis=1)[:, 0],
+            found),
+        "n_items": il.sum(axis=1).astype(np.int32),
+    }
+
+
+#: the complex-type texts: name -> (SQL text over ``store_sales`` and
+#: ``item`` of ``basket_tables``, numpy oracle of its columns given the
+#: tables and ``spark.tpu.collect.maxArrayLen``).  An oracle column is an
+#: array of the live rows' values (2-D for an array column, its trailing
+#: slots the element sentinel), or (values, validity).
+COMPLEX_QUERIES = {
+    "baskets": (
+        "SELECT ss_ticket_number, size(items) AS n_items, "
+        "sort_array(items)[0] AS min_item, element_at(items, -1) AS "
+        "last_item, array_contains(items, 42) AS has_42, "
+        "array_distinct(qtys) AS qty_distinct, slice(items, 2, 3) AS "
+        "items_2_4, array_max(qtys) AS max_qty, qty_set, n FROM "
+        + _BASKETS + " ORDER BY ss_ticket_number",
+        _baskets_oracle),
+    "explode": (
+        "SELECT i_manufact_id, COUNT(*) AS n, SUM(qty) AS qty FROM "
+        "(SELECT item, element_at(qtys, pos + 1) AS qty FROM "
+        "(SELECT qtys, posexplode(items) AS item FROM " + _BASKETS +
+        ") e) x JOIN item ON item = i_item_sk GROUP BY i_manufact_id "
+        "ORDER BY i_manufact_id",
+        _explode_oracle),
+    "higher-order": (
+        "SELECT ss_ticket_number, transform(items, x -> x % 100) AS "
+        "items_mod, filter(items, x -> x > 9000) AS big_items, "
+        "exists(qtys, x -> x > 90) AS has_big_qty, "
+        "aggregate(qtys, 0L, (acc, x) -> acc + x) AS qty_sum, "
+        "element_at(map_from_arrays(items, qtys), 42) AS qty_of_42, "
+        "named_struct('n', size(items), 'first', items[0]).n AS n_items "
+        "FROM " + _BASKETS + " ORDER BY ss_ticket_number",
+        _hof_oracle),
+}
+
+def unordered(sql: str) -> str:
+    """A complex-type text without its final ORDER BY: the form the mesh
+    lane runs sharded (a sort of array columns would exchange 2-D planes,
+    which it leaves to one device)."""
+    return sql[:sql.rindex(" ORDER BY ")]
+
+
+#: ``DataFrame.sample``'s fraction and seed, and the seed of the rand /
+#: randn columns, in the sampling text
+SAMPLE_FRACTION, SAMPLE_SEED = 0.01, 7
+
+
+def rand_oracle(n: int, seed: int, offset: int) -> np.ndarray:
+    """``rand(seed)`` of rows 0..n-1 at row offset ``offset``: the uint64
+    formula of ``spark_tpu.expressions.Rand`` in numpy."""
+    idx = np.arange(n, dtype=np.int64).astype(np.uint64) + np.uint64(offset)
+    x = idx * np.uint64(0x9E3779B97F4A7C15) \
+        + np.uint64((seed * 2654435761 + 1) & 0xFFFFFFFFFFFFFFFF)
+    for c in (0xFF51AFD7ED558CCD, 0xC4CEB9FE1A85EC53, None):
+        x = x ^ (x >> np.uint64(33))
+        if c is not None:
+            x = x * np.uint64(c)
+    return (x >> np.uint64(11)).astype(np.float64) * (1.0 / (1 << 53))
+
+
+def randn_oracle(n: int, seed: int, offset: int) -> np.ndarray:
+    u1 = np.maximum(rand_oracle(n, seed, offset), 1e-12)
+    u2 = rand_oracle(n, seed + 0x5DEECE66D, offset)
+    return np.sqrt(-2.0 * np.log(u1)) * np.cos(2.0 * np.pi * u2)
+
+
+def sample_oracle(tables, offset: int):
+    """(rows, sum of ticket numbers) that ``sample(SAMPLE_FRACTION,
+    SAMPLE_SEED)`` keeps of store_sales at row offset ``offset``."""
+    t = tables["store_sales"]["ss_ticket_number"]
+    keep = rand_oracle(len(t), SAMPLE_SEED, offset) < SAMPLE_FRACTION
+    return int(keep.sum()), int(t[keep].sum())
+
+
+def result_columns(parts: BatchParts) -> dict:
+    """The live rows of a result batch, by column: values (with the
+    validity beside them where a column has one)."""
+    live = _full(parts.row_valid, parts.capacity)
+    out = {}
+    for name, d, v in zip(parts.names, parts.datas, parts.valids):
+        d = np.asarray(d)[live]
+        out[name] = d if v is None else (d, np.asarray(v)[live])
+    return out
+
+
+def complex_mismatch(parts: BatchParts, want: dict, rtol: float = 0.0):
+    """None when the result holds exactly ``want``'s columns (floats
+    within ``rtol``; a NULL slot's value is not compared), else the first
+    difference."""
+    got = result_columns(parts)
+    if list(got) != list(want):
+        return f"columns {list(got)} != {list(want)}"
+    for name, w in want.items():
+        g = got[name]
+        gd, gv = g if isinstance(g, tuple) else (g, None)
+        wd, wv = w if isinstance(w, tuple) else (w, None)
+        wv = np.ones(len(wd), bool) if wv is None else wv
+        gv = np.ones(len(gd), bool) if gv is None else gv
+        if gd.shape != wd.shape:
+            return f"{name}: shape {gd.shape} != {wd.shape}"
+        if not np.array_equal(gv, wv):
+            return f"{name}: validity differs at rows " \
+                f"{np.flatnonzero(gv != wv)[:5].tolist()}"
+        a, b = gd[gv], wd[wv]
+        same = np.isclose(a, b, rtol=rtol, atol=0.0, equal_nan=True) \
+            if a.dtype.kind == "f" else a == b
+        if not np.all(same):
+            bad = np.flatnonzero(~same.reshape(len(a), -1).all(axis=1))[:3]
+            return f"{name}: rows {bad.tolist()} got {a[bad].tolist()} " \
+                f"want {b[bad].tolist()}"
+    return None

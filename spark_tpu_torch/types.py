@@ -405,6 +405,8 @@ _BY_NAME = {
 def type_for_name(name: str) -> DataType:
     """Parse a simple type name (``CatalystSqlParser.parseDataType`` analog)."""
     key = name.strip().lower()
+    if key.startswith("array<") and key.endswith(">"):
+        return ArrayType(type_for_name(key[len("array<"):-1]))
     if key.startswith("decimal(") and key.endswith(")"):
         p, s = key[len("decimal("):-1].split(",")
         return DecimalType(int(p), int(s))

@@ -3,8 +3,8 @@ TPC-DS texts, and for the statement and error cases of
 ``tests/test_sql_parser.py``, both parsers must build structurally equal
 plans — node classes, node reprs, expression reprs, sort directions and
 nulls order, recursing into subquery plans.  Each construct a later slice
-brings (rand, collect_list, array functions, event-time windows) raises
-``AnalysisException`` naming itself and that slice.
+brings (the event-time windows) raises ``AnalysisException`` naming
+itself and that slice.
 """
 
 import pytest
@@ -39,9 +39,6 @@ PORTED_QUERIES = BASE_QUERIES + BREADTH_QUERIES
 
 #: TPC-DS queries whose text reaches a construct a later slice brings
 EXCLUDED_QUERIES: dict = {}
-
-_STATS = "the TPC-DS breadth slice (statistical aggregates)"
-
 
 def test_query_lists_cover_tpcds():
     assert len(BASE_QUERIES) == 66 and len(BREADTH_QUERIES) == 33
@@ -147,6 +144,15 @@ def test_tpcds_text_parses_like_reference(qname):
     "max(v) OVER (PARTITION BY a ORDER BY d RANGE BETWEEN UNBOUNDED "
     "PRECEDING AND CURRENT ROW)",
     "SUM(SUM(v)) OVER (PARTITION BY a) * 100",
+    # random draws, higher-order functions, arrays and collects
+    "exists(arr, x -> x > 1)",
+    "transform(arr, x -> x + 1)",
+    "rand(7)",
+    "randn()",
+    "spark_partition_id()",
+    "collect_set(x)",
+    "array(a, b)",
+    "collect_list(x)",
 ])
 def test_expression_parses_like_reference(text):
     r, t = RP.parse_expression(text), TP.parse_expression(text)
@@ -254,19 +260,8 @@ def test_parse_errors_like_reference(text, kind):
 
 
 @pytest.mark.parametrize("text,construct,where", [
-    ("exists(arr, x -> x > 1)", "exists", "the TPC-DS breadth slice "
-     "(array columns)"),
-    ("transform(arr, x -> x + 1)", "transform", "the TPC-DS breadth slice "
-     "(array columns)"),
-    ("rand(7)", "rand", "the TPC-DS breadth slice (rand/sample)"),
-    ("randn()", "randn", "the TPC-DS breadth slice (rand/sample)"),
-    ("spark_partition_id()", "spark_partition_id",
-     "the TPC-DS breadth slice (rand/sample)"),
-    ("collect_set(x)", "collect_set", _STATS),
-    ("array(a, b)", "array", "the TPC-DS breadth slice (array columns)"),
     ("window_end(ts, '5 minutes')", "window_end",
      "the streaming slice (event-time windows)"),
-    ("collect_list(x)", "collect_list", _STATS),
     ("window(ts, '5 minutes')", "window",
      "the streaming slice (event-time windows)"),
 ])
@@ -288,7 +283,7 @@ def test_every_reference_function_is_registered_or_named():
         | {"count", "approx_count_distinct", "percentile_approx",
            "approx_percentile"}
     ported = set(TP.SCALAR_FUNCTIONS) | set(TP.AGG_FUNCTIONS) \
-        | set(TP.WINDOW_FUNCTIONS) \
+        | set(TP.WINDOW_FUNCTIONS) | set(TP.Parser._HOF_NAMES) \
         | {"count", "approx_count_distinct", "percentile_approx",
            "approx_percentile"}
     assert not ported & set(NOT_PORTED_FUNCTIONS)
