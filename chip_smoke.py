@@ -137,14 +137,45 @@ without printing a result:
     plan cache counts uncacheable, as the reference's does — the phase
     checks that count; then the baskets text POSTed once over the
     basket tables, every list of the reply equal to the oracle;
-13. a ``{"kernels": [...]}`` line (each kernel's ``sql_launches``: its
+13. scan — files in and out (``spark_tpu_torch/io.py``), under a
+    temporary directory deleted at the end: the port's writers put
+    hash-agg's table (2^22 rows) and store_sales (SF1's 2,880,404 rows,
+    sorted by ``ss_sold_date_sk``, row groups of 2^18) as parquet,
+    date_dim as CSV with a header and item as a catalog table
+    (``saveAsTable``), each write timed; at the default
+    ``spark.tpu.scan.maxBatchRows`` hash-agg over the parquet file must
+    raise ``NotImplementedError`` naming the out-of-core slice, then the
+    limit is 2^23.  On the graph lane: (a) hash-agg's SQL text over the
+    parquet file (K1: 2 launches in its first run, warm-up and capture, 1
+    per replay; K1 held against its plain version on (a)'s own inputs),
+    (b) q3's TPC-DS text over the three file-backed tables, (c) a count
+    and sum over one twelfth of store_sales' dates (row groups skipped by
+    their footer statistics), each equal to the in-memory run of the same
+    tables exactly, with its cold wall (the first run: decode, copy to
+    the card, warm-up and capture), warm wall (median of 5, a relation
+    cache hit), host decode ms, bytes copied to the card per run and that
+    copy's ms beside its bound over the host link, device time, host
+    launch calls and ``SCAN_STATS``; the relation cache's pinned bytes;
+    (d) ANALYZE TABLE item FOR ALL COLUMNS, DESCRIBE EXTENDED and q3 again
+    (join order before and after); (e) INSERT INTO item, after which the
+    row count grows, q3's stage key changes and its answer equals the
+    in-memory run over the grown table.  (a) at 4 shards (K2 launches
+    1, rows equal).  A SQL server over the file-backed tables: q3 POSTed
+    twice (the second a plan-cache hit whose leaves were re-read), a
+    second client's INSERT, a third POST showing the new rows, the
+    invalidation count.  Then the 13 texts of
+    ``tests/test_tpcds_filebacked.py``'s ``SMOKE`` over the [tpcds]
+    phase's tables with their fact tables as parquet (3 part files each,
+    default limit), each equal to sqlite by the [tpcds] rule;
+14. a ``{"kernels": [...]}`` line (each kernel's ``sql_launches``: its
    launches in the SQL phase's counted run; ``breadth_launches``: K1's in
    the breadth phase's graph-lane run, K2's in its window text at 4
    shards; ``complex_launches``: K1's in the complex phase's graph-lane
    run of its five texts, K2's in its two queries at 4 shards;
    ``server_launches``: K1's in the four clients' two rounds,
-   K2's in the two mesh statements, each counted from 0 just before that
-   run; K1's ``captured_launches``: those of its launches made while a
+   K2's in the two mesh statements; ``scan_launches``: K1's in the
+   [scan] phase's first run of (a), K2's in (a) at 4 shards; each counted
+   from 0 just before that run; K1's ``captured_launches``: those of its launches made while a
    graph was captured, and ``replayed_launches``: its launches the
    profiler saw in one replay of each hash-agg query),
    the card line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -1701,10 +1732,10 @@ def _pct(values, q):
 
 
 def _share_root(session, server_session):
-    """The root session's temp views and UDFs in a server session: the
+    """The root session's temp views (and its persistent tables, as
+    views of their file relations) and UDFs in a server session: the
     same plans and function objects, so statements over them share plan
-    fingerprints across sessions (the stand-in for persistent tables,
-    which come with the scan slice)."""
+    fingerprints across sessions."""
     for name in session.catalog.listTables():
         server_session.catalog.register(name, session.catalog.lookup(name))
     for name in session.catalog.listFunctions():
@@ -2170,7 +2201,405 @@ def phase_tpcds(session, srv, sf_rows=TPCDS_SF_ROWS):
     phase_s = time.perf_counter() - t_phase
     print(f"[tpcds] phase {phase_s:.2f} s at sf_rows {sf_rows}", flush=True)
     return {"generate": gen_s, "to card": load_s, "oracle": oracle_s,
-            "server": server_s, "phase": phase_s}
+            "server": server_s, "phase": phase_s, "tables": tables,
+            "answers": answers}
+
+
+#: the H100 SXM's host link, PCIe Gen5 x16, one direction (NVIDIA's data
+#: sheet gives 128 GB/s for both directions together)
+PCIE_BYTES_PER_S = 64e9
+#: the scan limit the [scan] phase reads its SF1 tables under: above
+#: store_sales' 2,880,404 rows and hash-agg's 2^22, so each file relation
+#: is one batch in both packages (``spark.tpu.scan.maxBatchRows``)
+SCAN_LIMIT = 1 << 23
+SCAN_LIMIT_KEY = "spark.tpu.scan.maxBatchRows"
+#: (c): one twelfth of store_sales' 1,827 sale days (1998-01-02 ..
+#: 2002-12-31), in a date-clustered file
+PRUNED_LO, PRUNED_HI = 2450816 + 760, 2450816 + 760 + 151
+PRUNED_SQL = ("SELECT count(*) AS n, sum(ss_ext_sales_price) AS s FROM "
+              f"store_sales WHERE ss_sold_date_sk BETWEEN {PRUNED_LO} AND "
+              f"{PRUNED_HI}")
+#: the file-backed TPC-DS subset: ``SMOKE`` of tests/test_tpcds_filebacked.py
+FILEBACKED_TEXTS = ("q3 q7 q17 q19 q23 q25 q42 q52 q55 q68 q79 q96 "
+                    "q98").split()
+#: INSERTs into the catalog table ``item`` ((e), then [server]): a copy of
+#: each manufacturer-28 item under another brand, so q3's answer changes
+ITEM_INSERT = ("INSERT INTO item SELECT i_item_sk, CAST(i_brand_id + {d} AS "
+               "INT), concat(i_brand, '{tag}'), i_manufact_id FROM item "
+               "WHERE i_manufact_id = 28 AND i_brand_id < 6000000")
+
+
+def _grown_item(item, inserts):
+    """q3's ``item`` after ``ITEM_INSERT`` with each (d, tag), in numpy:
+    the table every INSERT reads is the one the earlier INSERTs made."""
+    import numpy as np
+    cols = {k: np.asarray(v) for k, v in item.items()}
+    for d, tag in inserts:
+        sel = (cols["i_manufact_id"] == 28) & (cols["i_brand_id"] < 6000000)
+        new = {"i_item_sk": cols["i_item_sk"][sel],
+               "i_brand_id": (cols["i_brand_id"][sel] + d).astype(np.int32),
+               "i_brand": np.char.add(cols["i_brand"][sel].astype(str), tag),
+               "i_manufact_id": cols["i_manufact_id"][sel]}
+        cols = {k: np.concatenate([cols[k], new[k]]) for k in cols}
+    return cols
+
+
+def _in_memory(session, hash_table, tables, item=None):
+    """A sibling session holding the hash-agg table and q3's tables (with
+    ``item`` in place of q3's own when given) as in-memory temp views on
+    the card: the runs the file-backed ones are held against."""
+    from spark_tpu_torch import types as T
+    from spark_tpu_torch.testing import register_sql_tables
+    mem = session.newSession()
+    if item is not None:
+        tables = dict(tables, item=item)
+    register_sql_tables(mem, hash_table, tables, T)
+    return mem
+
+
+def _join_order(session, sql):
+    """The base relations of ``sql``'s optimized plan in left-deep join
+    order: a file by its directory's name, a temp view's batch as
+    ``memory``."""
+    from spark_tpu_torch.sql import logical as L
+    from spark_tpu_torch.sql.planner import QueryExecution
+    order = []
+
+    def walk(n):
+        if isinstance(n, L.FileRelation):
+            order.append(os.path.basename(n.paths[0].rstrip("/")))
+        elif isinstance(n, L.LocalRelation):
+            order.append("memory")
+        for c in n.children:
+            walk(c)
+
+    walk(QueryExecution(session, session.sql(sql)._plan).optimized)
+    return order
+
+
+def _file_leaves(session, df):
+    """The file leaves (pinned host batches) one run of ``df`` copies to
+    the card, from a planning of it (a relation-cache hit)."""
+    from spark_tpu_torch.sql.planner import QueryExecution
+    return [b for b in QueryExecution(session, df._plan).planned.leaves
+            if b.source is not None]
+
+
+def _copy_numbers(leaves):
+    """(bytes, ms, bound ms, pinned) of the leaves' copy to the card: the
+    ``non_blocking`` copies of every tensor into device buffers, CUDA
+    events, median of 25."""
+    import torch
+    from spark_tpu_torch.memory import batch_nbytes
+    from spark_tpu_torch.sql.stagecompile import _leaf_tensors
+    src = _leaf_tensors(leaves)
+    dst = [torch.empty_like(t, device="cuda") for t in src]
+
+    def copy():
+        for d, t in zip(dst, src):
+            d.copy_(t, non_blocking=True)
+    nbytes = sum(batch_nbytes(b) for b in leaves)
+    ms = cuda_ms(copy)
+    return nbytes, ms, nbytes / PCIE_BYTES_PER_S * 1e3, \
+        all(b.is_pinned() for b in leaves)
+
+
+def phase_scan(session, hash_table, tables, k1_entries, k2_entry, tpcds):
+    """Files in and out on the card (see the module's docstring, 13):
+    the SF1 tables written by the port's own writers into a temporary
+    directory (deleted at the end), read back through parquet, CSV and a
+    catalog table, and each answer held against the in-memory run of the
+    same tables exactly; the out-of-core boundary; ANALYZE and INSERT on
+    the catalog table; the mesh lane; the SQL server over the files; the
+    file-backed TPC-DS subset against sqlite."""
+    import shutil
+    import tempfile
+
+    import torch
+    from spark_tpu_torch import cuda_a2a, cuda_agg
+    from spark_tpu_torch import io as tio
+    from spark_tpu_torch import types as T
+    from spark_tpu_torch.server import SQLServer
+    from spark_tpu_torch.sql.planner import QueryExecution, stage_key
+    from spark_tpu_torch.testing import (HASH_AGG_SQL, Q3_SQL,
+                                         hash_agg_oracle, read_scan_tables,
+                                         write_scan_tables)
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_scan_")
+    try:
+        # 1. the writes, through the port's DataFrameWriter
+        scan = session.newSession()
+        scan.conf.set("spark.sql.warehouse.dir", os.path.join(root, "wh"))
+        write_ms = write_scan_tables(scan, hash_table, tables, T, root)
+        read_scan_tables(scan, root)
+        print(f"[scan] written under a temporary directory: hash_t "
+              f"{MAIN_N} rows parquet {write_ms['hash_t']:.1f} ms, "
+              f"store_sales {Q3_ROWS['store_sales']} rows parquet (sorted by "
+              f"ss_sold_date_sk, row groups of 2^18) "
+              f"{write_ms['store_sales']:.1f} ms, date_dim "
+              f"{Q3_ROWS['date_dim']} rows CSV {write_ms['date_dim']:.1f} ms,"
+              f" item {Q3_ROWS['item']} rows saveAsTable "
+              f"{write_ms['item']:.1f} ms", flush=True)
+
+        # 2. the out-of-core boundary, then the SF1 limit
+        try:
+            scan.sql(HASH_AGG_SQL).collect()
+            raised = None
+        except NotImplementedError as e:
+            raised = str(e)
+        check(raised is not None and "out-of-core slice" in raised,
+              f"hash-agg over {MAIN_N} parquet rows at the default "
+              f"{SCAN_LIMIT_KEY} did not raise NotImplementedError naming "
+              f"the out-of-core slice ({raised})")
+        scan.conf.set(SCAN_LIMIT_KEY, str(SCAN_LIMIT))
+        print(f"[scan] default {SCAN_LIMIT_KEY}=2^20: hash-agg raised "
+              f"NotImplementedError ({raised[:140]}...); {SCAN_LIMIT_KEY} "
+              f"set to {SCAN_LIMIT} (2^23): each file relation is one batch",
+              flush=True)
+
+        # 3-4. (a)-(c) on the graph lane, against the in-memory runs
+        m = _in_memory(session, hash_table, tables)
+        mem = {"a": sorted(tuple(r) for r in m.sql(HASH_AGG_SQL).collect()),
+               "b": [tuple(r) for r in m.sql(Q3_SQL).collect()],
+               "c": [tuple(r) for r in m.sql(PRUNED_SQL).collect()]}
+        check(mem["a"] == [tuple(x) for x in hash_agg_oracle(hash_table)],
+              "in-memory hash-agg differs from its oracle")
+        texts = {"a": ("hash-agg", HASH_AGG_SQL), "b": ("q3", Q3_SQL),
+                 "c": ("row-group-pruned", PRUNED_SQL)}
+        captured = []
+        launch = cuda_agg.grouped_accumulate_columns
+
+        def spy(bucket32, planes, n_active, B):
+            captured.append((bucket32, list(planes), n_active, B))
+            return launch(bucket32, planes, n_active, B)
+
+        k1_scan = {}
+        numbers = {}
+        # each text reads its own files or columns: its first run decodes
+        tio.clear_relation_cache()
+        for key, (name, sql) in texts.items():
+            df = scan.sql(sql)
+            tio.reset_scan_stats()
+            zero_counts()
+            if key == "a":
+                cuda_agg.grouped_accumulate_columns = spy
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                rows = df.collect()
+                torch.cuda.synchronize()
+            finally:
+                cuda_agg.grouped_accumulate_columns = launch
+            cold = (time.perf_counter() - t0) * 1e3
+            stats = dict(tio.SCAN_STATS)
+            if key == "a":
+                k1_scan = dict(cuda_agg.ENTRY_LAUNCHES)
+            got = [tuple(r) for r in rows]
+            if key == "a":
+                got = sorted(got)
+            check(got == mem[key], f"[scan] ({key}) {name} over files differs"
+                  f" from the in-memory run (first rows {got[:2]} vs "
+                  f"{mem[key][:2]})")
+            warm = wall_ms(df.collect)
+            mem_df = m.sql(sql)
+            turns = [wall_ms(mem_df.collect), wall_ms(df.collect),
+                     wall_ms(df.collect), wall_ms(mem_df.collect)]
+            split = host_split(scan, df._plan)
+            leaves = _file_leaves(scan, df)
+            nbytes, copy_ms, bound_ms, pinned = _copy_numbers(leaves)
+            prof = profile_query(f"scan ({key}) {name}", df.collect)
+            numbers[key] = (cold, warm, stats, prof)
+            print(f"[scan] ({key}) {name}: {len(got)} rows equal to the "
+                  f"in-memory run; cold wall (first run after the write: "
+                  f"decode, copy, warm-up and capture) {cold:.2f} ms, warm "
+                  f"wall {warm:.2f} ms (median of 5, relation-cache hit); "
+                  f"host decode {stats['decode_ms']:.2f} ms; copied to the "
+                  f"card per run {nbytes} B from "
+                  f"{'pinned' if pinned else 'PAGEABLE'} memory in "
+                  f"{copy_ms:.4f} ms (bound "
+                  f"{bound_ms:.4f} ms at 64 GB/s, {bound_ms / copy_ms:.1%}); "
+                  f"device {prof['device_ms']:.3f} ms from "
+                  f"{prof['host_launch_calls']} host launch calls; "
+                  f"SCAN_STATS files {stats['files']}, columns read "
+                  f"{stats['columns_read']}, row groups {stats['row_groups']}"
+                  f", skipped {stats['row_groups_skipped']}, rows "
+                  f"{stats['rows']}", flush=True)
+            print(f"[scan] ({key}) warm walls in turns in-memory, files, "
+                  f"files, in-memory: "
+                  f"{', '.join(f'{w:.2f}' for w in turns)} ms; host ms over "
+                  f"the files: "
+                  f"{', '.join(f'{k} {v:.3f}' for k, v in split.items())}",
+                  flush=True)
+            check(pinned, f"[scan] ({key}) a file leaf is not pinned")
+            if key == "a":
+                check(k1_scan == {"grouped_accumulate": 0,
+                                  "grouped_accumulate_columns": 2},
+                      f"[scan] (a) K1 launches {k1_scan} on the first run, "
+                      "expected 2 through the columns entry")
+                check(prof["own"]["K1"][0] == 1,
+                      f"[scan] (a) K1 x{prof['own']['K1'][0]} in a replay, "
+                      "expected 1")
+                print(f"[scan] (a) K1 launches: {k1_scan} on the first run "
+                      f"(warm-up and capture), x{prof['own']['K1'][0]} per "
+                      "replay (profiler)", flush=True)
+            if key == "c":
+                check(stats["row_groups_skipped"] > 0,
+                      "[scan] (c) skipped no row group")
+        del m, mem_df
+        for entry in k1_entries:
+            entry["scan_launches"] = k1_scan[entry["name"]]
+        check(len(captured) == 2, f"[scan] (a) made {len(captured)} K1 "
+              "calls through the columns entry, expected 2")
+        if captured:
+            err = _check_cases("columns in", [("[scan] (a)'s own inputs",
+                                               captured[0])],
+                               cuda_agg.grouped_accumulate_columns,
+                               cuda_agg.grouped_accumulate_columns_plain)
+            print(f"[scan] K1 on (a)'s inputs equal to its plain version "
+                  f"(max abs err {err})", flush=True)
+        del captured
+        n_batches, pinned_bytes = tio.relation_cache_bytes()
+        print(f"[scan] the relation cache holds {n_batches} host batches, "
+              f"{pinned_bytes} B of pinned memory", flush=True)
+
+        # (d) ANALYZE TABLE ... FOR COLUMNS, DESCRIBE EXTENDED, q3 again
+        before = _join_order(scan, Q3_SQL)
+        out = scan.sql("ANALYZE TABLE item COMPUTE STATISTICS FOR ALL "
+                       "COLUMNS").collect()
+        check(out[0]["persisted"] == "true", f"[scan] (d) ANALYZE: {out}")
+        desc = [tuple(r) for r in
+                scan.sql("DESCRIBE EXTENDED item").collect()]
+        check(desc[-1] == ("# rows", "", str(Q3_ROWS["item"])),
+              f"[scan] (d) DESCRIBE EXTENDED: {desc}")
+        got = [tuple(r) for r in scan.sql(Q3_SQL).collect()]
+        check(got == mem["b"], "[scan] (d) q3 after ANALYZE differs")
+        after = _join_order(scan, Q3_SQL)
+        print(f"[scan] (d) ANALYZE TABLE item: {out[0]['rows']} rows, "
+              f"{out[0]['columns_analyzed']} columns; DESCRIBE EXTENDED "
+              f"{desc}; q3 equal to the in-memory run; join order before "
+              f"{before}, after {after}", flush=True)
+
+        # (e) INSERT INTO the catalog table, q3 again
+        q3_df = scan.sql(Q3_SQL)
+        key0 = stage_key(scan, QueryExecution(scan, q3_df._plan).planned)[0]
+        n0 = scan.sql("SELECT count(*) FROM item").collect()[0][0]
+        scan.sql(ITEM_INSERT.format(d=1, tag="-b"))
+        n1 = scan.sql("SELECT count(*) FROM item").collect()[0][0]
+        key1 = stage_key(scan, QueryExecution(scan, q3_df._plan).planned)[0]
+        got = [tuple(r) for r in scan.sql(Q3_SQL).collect()]
+        want = [tuple(r) for r in _in_memory(
+            session, hash_table, tables,
+            _grown_item(tables["item"], [(1, "-b")])).sql(Q3_SQL).collect()]
+        check(n1 > n0 and key1 != key0 and got == want and got != mem["b"],
+              f"[scan] (e) INSERT: rows {n0} -> {n1}, stage key changed "
+              f"{key1 != key0}, q3 equal to the in-memory run over the grown "
+              f"table {got == want} (and unlike the first answer "
+              f"{got != mem['b']})")
+        print(f"[scan] (e) INSERT INTO item: {n0} -> {n1} rows; the stage "
+              f"key changed; q3 ({len(got)} rows) equal to the in-memory run "
+              "over the grown table", flush=True)
+
+        # 5. (a) on the mesh lane
+        _mesh(scan, MESH_SHARDS)
+        try:
+            zero_counts()
+            rows = sorted(tuple(r) for r in scan.sql(HASH_AGG_SQL).collect())
+            k2 = cuda_a2a.LAUNCHES
+        finally:
+            _mesh(scan, 1)
+        check(k2 == 1 and rows == mem["a"],
+              f"[scan] (a) x{MESH_SHARDS} shards: K2 launches {k2}, rows "
+              f"equal {rows == mem['a']}")
+        k2_entry["scan_launches"] = k2
+        print(f"[scan] (a) at {MESH_SHARDS} shards: K2 launches {k2}; rows "
+              "equal to the single-device run", flush=True)
+
+        # 6. the SQL server over the file-backed tables
+        srv = SQLServer(scan, host="127.0.0.1", port=0, workers=2).start()
+        try:
+            sids = []
+            for _ in range(2):
+                status, body, _ms = _http(srv.port, "/session", "POST")
+                check(status == 200, f"[scan] POST /session: {status}")
+                sids.append(body["sessionId"])
+                _share_root(scan, srv._sessions[body["sessionId"]].session)
+            post = {"query": Q3_SQL, "session": sids[0]}
+            replies = [_http(srv.port, "/sql", "POST", post)]
+            hits0 = tio.SCAN_STATS["cache_hits"]
+            replies.append(_http(srv.port, "/sql", "POST", post))
+            reread = tio.SCAN_STATS["cache_hits"] - hits0
+            inv0 = srv._plan_cache.stats()["invalidations"]
+            status, body, _ms = _http(srv.port, "/sql", "POST", {
+                "query": ITEM_INSERT.format(d=2, tag="-c"),
+                "session": sids[1]})
+            check(status == 200, f"[scan] INSERT over HTTP: {status} {body}")
+            inv = srv._plan_cache.stats()["invalidations"] - inv0
+            replies.append(_http(srv.port, "/sql", "POST", post))
+        finally:
+            srv.stop()
+        want3 = _json_rows(_in_memory(
+            session, hash_table, tables,
+            _grown_item(tables["item"], [(1, "-b"), (2, "-c")]))
+            .sql(Q3_SQL).collect())
+        for status, body, _ms in replies:
+            check(status == 200, f"[scan] q3 over HTTP: {status}")
+        check(replies[0][1]["rows"] == replies[1][1]["rows"]
+              == _json_rows(got) and not replies[0][1]["cacheHit"]
+              and replies[1][1]["cacheHit"] and reread > 0,
+              "[scan] the second POST of q3 is not a hit that re-read its "
+              "leaves through the relation cache with the same rows")
+        check(inv > 0 and replies[2][1]["rows"] == want3,
+              f"[scan] the third POST after the other client's INSERT: "
+              f"{inv} invalidations, rows equal to the in-memory run over "
+              f"the grown table {replies[2][1]['rows'] == want3}")
+        print(f"[scan] server: q3 POSTed twice (second a plan-cache hit, "
+              f"{reread} leaves re-read through the relation cache), a "
+              f"second client's INSERT INTO item invalidated {inv} entries, "
+              f"the third POST shows the new rows (equal to the in-memory "
+              f"run); HTTP walls {', '.join(f'{r[2]:.2f}' for r in replies)}"
+              " ms", flush=True)
+        tio.clear_relation_cache()
+
+        # 7. the file-backed TPC-DS subset at the [tpcds] phase's sf_rows
+        from spark_tpu_torch.tpcds import QUERIES
+        from spark_tpu_torch.tpcds.oracle import FACT_TABLES
+        t0 = time.perf_counter()
+        fb = session.newSession()
+        fb.conf.unset(SCAN_LIMIT_KEY)      # the default: below it, one batch
+        for name, cols in tpcds["tables"].items():
+            # the [tpcds] phase's tables (the root session's views of them
+            # have been replaced since by [complex]'s)
+            full = fb.createDataFrame(cols)
+            if name not in FACT_TABLES:
+                full.createOrReplaceTempView(name)
+                continue
+            d = os.path.join(root, "tpcds", name)
+            n = len(next(iter(cols.values())))
+            step = -(-n // 3)
+            for i in range(3):
+                part = {c: v[i * step:(i + 1) * step]
+                        for c, v in cols.items()}
+                fb.createDataFrame(part, schema=full.schema).write \
+                    .mode("append").parquet(d)
+            fb.read.parquet(d).createOrReplaceTempView(name)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for q in FILEBACKED_TEXTS:
+            rows = [tuple(r) for r in fb.sql(QUERIES[q]).collect()]
+            check(len(tpcds["answers"][q]) > 0, f"[scan] {q}: no oracle rows")
+            why = _tpcds_compare(_json_rows(rows), tpcds["answers"][q])
+            check(why is None, f"[scan] file-backed {q} differs from "
+                  f"sqlite: {why}")
+        print(f"[scan] file-backed TPC-DS: {len(FILEBACKED_TEXTS)} texts "
+              f"over parquet fact tables (3 part files each, sf_rows "
+              f"{TPCDS_SF_ROWS}, written in {write_s:.2f} s) equal to sqlite "
+              f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        tio.clear_relation_cache()
+    print(f"[scan] phase {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return numbers
 
 
 def main() -> int:
@@ -2219,10 +2648,11 @@ def main() -> int:
     srv = phase_server(session, hash_table, tables, k1_entries, k2_entry,
                        card)
     try:
-        phase_tpcds(session, srv)
+        tpcds = phase_tpcds(session, srv)
         phase_complex_http(session, srv, basket_tables, baskets_want)
     finally:
         srv.stop()
+    phase_scan(session, hash_table, tables, k1_entries, k2_entry, tpcds)
     session.stop()
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": k1_entries + [k2_entry]}))

@@ -70,8 +70,9 @@ def merge_dictionaries(
     return merged, remap_a, remap_b
 
 
-def _move(t: Optional[torch.Tensor], device) -> Optional[torch.Tensor]:
-    return None if t is None else t.to(device)
+def _move(t: Optional[torch.Tensor], device,
+          non_blocking: bool = False) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(device, non_blocking=non_blocking)
 
 
 class ColumnVector:
@@ -110,9 +111,11 @@ class ColumnVector:
                           device=self.data.device)
 
     # ---- movement ------------------------------------------------------
-    def to_device(self, device) -> "ColumnVector":
-        return ColumnVector(self.data.to(device), self.dtype,
-                            _move(self.valid, device), self.dictionary)
+    def to_device(self, device, non_blocking: bool = False) -> "ColumnVector":
+        return ColumnVector(self.data.to(device, non_blocking=non_blocking),
+                            self.dtype,
+                            _move(self.valid, device, non_blocking),
+                            self.dictionary)
 
     def to_host(self) -> "ColumnVector":
         return self.to_device("cpu")
@@ -241,17 +244,23 @@ class ColumnBatch:
     """A fixed-capacity batch of columns plus a row-existence mask."""
 
     # _cache_uid: identity for plan cache keys (``sql/logical._batch_uid``),
-    # assigned on first use — ``id()`` could be recycled after GC
-    __slots__ = ("names", "vectors", "row_valid", "capacity", "_cache_uid")
+    # assigned on first use — ``id()`` could be recycled after GC.
+    # source: None for an in-memory batch; for a batch decoded from files
+    # (``io._load_batch``) the token of its files and their stat, which the
+    # stage key carries (``stagecompile.leaf_signature``)
+    __slots__ = ("names", "vectors", "row_valid", "capacity", "_cache_uid",
+                 "source")
 
     def __init__(self, names: Sequence[str], vectors: Sequence[ColumnVector],
-                 row_valid: Optional[torch.Tensor], capacity: int):
+                 row_valid: Optional[torch.Tensor], capacity: int,
+                 source: Optional[str] = None):
         if len(names) != len(vectors):
             raise ValueError(f"{len(names)} names for {len(vectors)} columns")
         self.names = list(names)
         self.vectors = list(vectors)
         self.row_valid = row_valid
         self.capacity = capacity
+        self.source = source
 
     # -- constructors -----------------------------------------------------
     @staticmethod
@@ -364,12 +373,31 @@ class ColumnBatch:
         return self.row_valid.sum(dtype=torch.int64)
 
     # -- movement ---------------------------------------------------------
-    def to_device(self, device) -> "ColumnBatch":
-        return ColumnBatch(self.names, [v.to_device(device) for v in self.vectors],
-                           _move(self.row_valid, device), self.capacity)
+    def to_device(self, device, non_blocking: bool = False) -> "ColumnBatch":
+        """This batch on ``device``; from pinned host memory with
+        ``non_blocking`` the copies are queued on the current stream."""
+        return ColumnBatch(
+            self.names,
+            [v.to_device(device, non_blocking) for v in self.vectors],
+            _move(self.row_valid, device, non_blocking), self.capacity)
 
     def to_host(self) -> "ColumnBatch":
         return self.to_device("cpu")
+
+    def pinned(self) -> "ColumnBatch":
+        """This host batch in page-locked memory, so that its copy to the
+        card is one ``non_blocking`` copy per tensor (a file batch on a
+        ``cuda`` session)."""
+        def pin(t):
+            return None if t is None else t.pin_memory()
+        return ColumnBatch(
+            self.names,
+            [ColumnVector(pin(v.data), v.dtype, pin(v.valid), v.dictionary)
+             for v in self.vectors],
+            pin(self.row_valid), self.capacity, self.source)
+
+    def is_pinned(self) -> bool:
+        return bool(self.vectors) and self.vectors[0].data.is_pinned()
 
     # -- output -----------------------------------------------------------
     def decoded_columns(self) -> Tuple[List[List[Any]], int]:
@@ -412,6 +440,26 @@ class ColumnBatch:
         return f"ColumnBatch({self.schema.simpleString()}, capacity={self.capacity})"
 
 
+class PrebuiltColumn:
+    """An already-decoded column (data array + engine type + validity, and
+    the sorted dictionary of a string column's codes): the file readers
+    hand these to ``from_arrays`` so that no column round-trips through
+    Python objects (``spark_tpu/columnar.py`` ``PrebuiltColumn``)."""
+
+    __slots__ = ("data", "dtype", "valid", "dictionary")
+
+    def __init__(self, data: np.ndarray, dtype: T.DataType,
+                 valid: Optional[np.ndarray],
+                 dictionary: Optional[Tuple[str, ...]] = None):
+        self.data = data
+        self.dtype = dtype
+        self.valid = valid
+        self.dictionary = dictionary
+
+    def __len__(self):
+        return len(self.data)
+
+
 def _ingest_column(raw: Any, cap: int, dtype: Optional[T.DataType]
                    ) -> Tuple[np.ndarray, T.DataType, Optional[np.ndarray],
                               Optional[Tuple[str, ...]]]:
@@ -419,6 +467,18 @@ def _ingest_column(raw: Any, cap: int, dtype: Optional[T.DataType]
     validity or None, dictionary or None), as the JAX package ingests it."""
     dictionary: Optional[Tuple[str, ...]] = None
     valid: Optional[np.ndarray] = None
+
+    if isinstance(raw, PrebuiltColumn):
+        data, valid = raw.data, raw.valid
+        if not data.flags.writeable:        # a view of arrow's buffers
+            data = data.copy()
+        if len(data) < cap:
+            data = np.concatenate([data, np.zeros(cap - len(data),
+                                                  data.dtype)])
+            if valid is not None:
+                valid = np.concatenate([valid, np.zeros(cap - len(raw),
+                                                        bool)])
+        return np.ascontiguousarray(data), raw.dtype, valid, raw.dictionary
 
     if isinstance(raw, np.ndarray) and raw.ndim == 2:
         # a fixed-width array column (ML feature vectors): every slot live

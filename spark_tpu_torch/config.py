@@ -291,3 +291,32 @@ COLLECT_MAX_LEN = conf("spark.tpu.collect.maxArrayLen").doc(
     "larger groups truncate (static shapes need a bound).  Read when a "
     "query is planned, so it is part of the plan and of its stage key."
 ).int(128)
+
+
+# ---------------------------------------------------------------------------
+# File scans and the persistent catalog (io.py, sql/session.py Catalog)
+# ---------------------------------------------------------------------------
+
+MULTIBATCH_ENABLED = conf("spark.tpu.multibatch.enabled").doc(
+    "Stream file scans larger than spark.tpu.scan.maxBatchRows through "
+    "the out-of-core runners instead of one eager device batch.  Those "
+    "runners are not ported: while this is true, a query over such a "
+    "file raises NotImplementedError naming the out-of-core slice; false "
+    "reads every file relation as one batch."
+).boolean(True)
+
+SCAN_MAX_BATCH_ROWS = conf("spark.tpu.scan.maxBatchRows").doc(
+    "Row count per streamed scan batch; file relations above this row "
+    "count take the out-of-core path instead of one eager device batch."
+).int(1 << 20)
+
+STAGES_ENABLED = conf("spark.tpu.stages.enabled").doc(
+    "Run multi-relation plans over oversized file relations through the "
+    "streamed stage DAG (grace joins + broadcast-fused streams) instead "
+    "of one eager device batch (the out-of-core slice)."
+).boolean(True)
+
+WAREHOUSE_DIR = conf("spark.sql.warehouse.dir").doc(
+    "Root directory for persistent (non-temp) tables and databases "
+    "(CREATE TABLE ... USING, saveAsTable)."
+).string("spark-warehouse")

@@ -22,8 +22,8 @@ from ..expressions import Col
 from ..kernels import compact
 from ..sql import physical as P
 from ..sql.joins import PJoin, _JoinOutput, plan_join_raw
-from ..sql.logical import (Aggregate, Distinct, Filter, Join, Limit,
-                           LocalRelation, LogicalPlan, Project,
+from ..sql.logical import (Aggregate, Distinct, FileRelation, Filter, Join,
+                           Limit, LocalRelation, LogicalPlan, Project,
                            RangeRelation, Sample, Sort, SubqueryAlias)
 from ..sql.window import WindowNode
 from ..sql.planner import (ADAPT_MAX_RETRIES, Planner, _slice_to_host,
@@ -208,6 +208,12 @@ def _estimate_rows(node: LogicalPlan) -> Optional[int]:
         return node.batch.capacity
     if isinstance(node, RangeRelation):
         return node.num_rows()
+    if isinstance(node, FileRelation):
+        # datasource statistics (SparkStrategies.scala:116): a small
+        # parquet dimension takes the broadcast path, not a shuffle —
+        # parquet answers from its footers without loading data
+        from ..io import file_row_count
+        return file_row_count(node)
     if isinstance(node, (Project, SubqueryAlias, Filter, Sample)):
         return _estimate_rows(node.children[0])
     if isinstance(node, Limit):

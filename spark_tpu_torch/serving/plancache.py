@@ -12,9 +12,10 @@ This module provides it:
 
 * ``fingerprint(session, plan)`` — a stable string key over the
   OPTIMIZED logical plan: node structure, every non-child field,
-  expression trees, leaf identities (LocalRelation batch uids) and the
-  planning-relevant conf values.  Literals in arithmetic/comparison
-  positions are SLOTTED OUT — replaced by typed ``?i`` markers — so
+  expression trees, leaf identities (LocalRelation batch uids; a
+  FileRelation's format, paths, options, pruned columns and pushed
+  filters) and the planning-relevant conf values.  Literals in
+  arithmetic/comparison positions are SLOTTED OUT — replaced by typed ``?i`` markers — so
   ``WHERE v < 10`` and ``WHERE v < 20`` share one entry; their values
   ride into the captured program as the stage entry's device scalars
   (``expressions._slot_bindings``), never baked constants.  Anything the
@@ -39,9 +40,13 @@ Safety properties:
   analysis and optimization.
 * SET of a planning conf evicts entries built under the old value
   (``invalidate_conf``); the fingerprint's conf component is the
-  correctness backstop for sessions the hook cannot see.  The port has
-  no file-backed tables yet, so no catalog command invalidates by path;
-  ``invalidate_paths`` keeps the reference's contract for them.
+  correctness backstop for sessions the hook cannot see.  A catalog
+  command or a write evicts the entries that read the path it mutated
+  (``invalidate_paths``), from any session.
+* a file leaf is re-read on every hit, through the relation cache
+  (``io._load_batch``): an answer is never staler than the files, and a
+  changed file keys a new stage entry (its stage key signs the files'
+  stat).
 * a cached physical plan's static output capacities may not fit another
   literal variant's data: overflow flags are checked exactly like the
   normal path, and an overflowing fingerprint is POISONED (excluded
@@ -56,6 +61,7 @@ from __future__ import annotations
 
 import collections
 import itertools
+import os
 import threading
 import time
 import weakref
@@ -102,6 +108,8 @@ PLANNING_CONF_ENTRIES = (
     C.JOIN_OUTPUT_FACTOR, C.AGG_OUTPUT_ROWS, C.JOIN_OUTPUT_MAX_ROWS,
     C.CASE_SENSITIVE, C.ADAPTIVE_ENABLED, C.METRICS_ENABLED,
     C.EXCHANGE_SKEW_FACTOR, C.COLLECT_MAX_LEN,
+    # the out-of-core boundary, and where catalog tables resolve to
+    C.SCAN_MAX_BATCH_ROWS, C.MULTIBATCH_ENABLED, C.WAREHOUSE_DIR,
     # whole-stage fusion toggles the fused-vs-per-op execution shape
     C.STAGE_FUSION,
 )
@@ -225,20 +233,27 @@ def fingerprint(session, plan) -> Optional[PlanFingerprint]:
 
 
 class _Entry:
-    """One cached plan: the physical plan and its leaves, the key of its
-    stage-cache entry with the step that builds it, and where each of
-    the stage's parameters comes from."""
+    """One cached plan: the physical plan and where its leaves come from,
+    the key of its stage-cache entry with the step that builds it, and
+    where each of the stage's parameters comes from."""
 
-    __slots__ = ("key", "physical", "recipes", "leaf_schemas", "skey",
-                 "make", "n_ops", "param_src", "reserve_bytes", "paths",
-                 "conf_snapshot", "nbytes", "planning_ms", "hits")
+    __slots__ = ("key", "physical", "recipes", "leaves", "leaf_schemas",
+                 "body", "pslots", "skey", "make", "n_ops", "param_src",
+                 "reserve_bytes", "paths", "conf_snapshot", "nbytes",
+                 "planning_ms", "hits")
 
-    def __init__(self, key: str, physical, recipes, skey, make, n_ops,
+    def __init__(self, key: str, pq, body: str, pslots, skey, make, n_ops,
                  param_src, reserve_bytes, conf_snapshot, nbytes):
         self.key = key
-        self.physical = physical
-        self.recipes = recipes          # leaf batches, in planner order
-        self.leaf_schemas = [b.schema.simpleString() for b in recipes]
+        self.physical = pq.physical
+        #: per leaf, in planner order: ("local", LocalRelation) or
+        #: ("file", FileRelation), re-read through the relation cache on
+        #: every hit (an answer is never staler than the files)
+        self.recipes = list(pq.leaf_recipes)
+        self.leaves = list(pq.leaves)   # the leaves the entry was built on
+        self.leaf_schemas = [b.schema.simpleString() for b in pq.leaves]
+        self.body = body                # the physical plan's fingerprint
+        self.pslots = pslots            # its slotted literals
         self.skey = skey                # the stage-cache entry's key
         self.make = make                # builds that entry's step
         self.n_ops = n_ops
@@ -246,7 +261,9 @@ class _Entry:
         # None for a literal the plan itself fixes, its value, its dtype)
         self.param_src = param_src
         self.reserve_bytes = reserve_bytes
-        self.paths: List[str] = []      # no file leaves in the port yet
+        self.paths: List[str] = [os.path.abspath(p)
+                                 for kind, node in self.recipes
+                                 if kind == "file" for p in node.paths]
         self.conf_snapshot = conf_snapshot
         self.nbytes = nbytes
         self.planning_ms = 0.0
@@ -396,9 +413,8 @@ class PlanCache:
     # -- invalidation --------------------------------------------------
     def invalidate_paths(self, path: str) -> int:
         """Evict every entry reading under/above ``path`` (a table or
-        database directory a DDL/DML just mutated).  The port's leaves
-        are in memory until the scan slice, so no entry has paths yet."""
-        import os
+        database directory a DDL/DML or a write just mutated), whichever
+        session built it."""
         p = os.path.abspath(path)
 
         def overlaps(entry):
@@ -525,10 +541,12 @@ class PlanCache:
         sc = stage_cache(session)
         ms0 = sc.stats()["compile_ms"]
         out = thunk()                    # exceptions propagate unrecorded
+        paths = [os.path.abspath(p) for rel in _file_relations(qe.optimized)
+                 for p in rel.paths]
         conf_snapshot = {e.key: session.conf.get(e)
                          for e in PLANNING_CONF_ENTRIES}
         planning_ms = round(max(sc.stats()["compile_ms"] - ms0, 0.0), 1)
-        entry = _StageEntry(key, kind, [], conf_snapshot, planning_ms)
+        entry = _StageEntry(key, kind, paths, conf_snapshot, planning_ms)
         max_entries = int(self._conf.get(C.SERVER_PLAN_CACHE_MAX_ENTRIES))
         with self._lock:
             self.stage_misses += 1
@@ -574,20 +592,25 @@ class PlanCache:
     def _new_entry(self, qe, fp: PlanFingerprint, pq) -> Optional[_Entry]:
         """The entry of ``pq`` under ``fp``, or None (counted) when it
         cannot be cached."""
-        from ..sql.planner import (_plan_reserve_bytes, stage_key,
+        from ..sql.planner import (_plan_reserve_bytes, compose_stage_key,
                                    stage_maker)
-        from ..sql.stagecompile import count_ops
+        from ..sql.stagecompile import count_ops, stage_fingerprint
 
-        # the planner's leaves must be the plan's own in-memory batches,
-        # which the fingerprint names by uid
+        # the planner's in-memory leaves must be the plan's own batches,
+        # which the fingerprint names by uid; file leaves are named by
+        # their relation's fields
         named = {id(r.batch) for r in _leaf_relations(qe.optimized)}
-        skey, pslots = stage_key(qe.session, pq)
+        body, pslots = stage_fingerprint(pq.physical)
+        skey = compose_stage_key(qe.session, body, pq.leaves)
         # every slotted literal of the statement must be a parameter of
         # the stage, or a variant would replay this one's value
         where = {id(lit): i for i, lit in enumerate(fp.slots)}
         param_src = [(where.get(id(l)), l.value, l.dtype.np_dtype)
                      for l in pslots]
-        if any(id(b) not in named for b in pq.leaves) or \
+        recipes = pq.leaf_recipes
+        if recipes is None or len(recipes) != len(pq.leaves) or any(
+                kind == "local" and id(node.batch) not in named
+                for kind, node in recipes) or \
                 {i for i, _v, _d in param_src} - {None} \
                 != set(range(len(fp.slots))):
             with self._lock:
@@ -595,17 +618,37 @@ class PlanCache:
             return None
         conf_snapshot = {e.key: qe.session.conf.get(e)
                          for e in PLANNING_CONF_ENTRIES}
-        return _Entry(fp.key, pq.physical, list(pq.leaves), skey,
+        return _Entry(fp.key, pq, body, pslots, skey,
                       stage_maker(pq, pslots, qe.session.device, skey),
                       count_ops(pq.physical), param_src,
                       _plan_reserve_bytes(pq), conf_snapshot,
                       _ENTRY_OVERHEAD_BYTES)
 
+    @staticmethod
+    def _materialize(recipe, session):
+        kind, node = recipe
+        if kind == "local":
+            return node.batch
+        from ..io import read_file_relation
+        return read_file_relation(node, session)
+
     def _run_entry(self, qe, entry: _Entry,
                    fp: PlanFingerprint) -> Optional[Any]:
-        from ..sql.planner import PlannedQuery
+        from ..sql.planner import (PlannedQuery, _plan_reserve_bytes,
+                                   compose_stage_key, stage_maker)
         session = qe.session
-        leaves = entry.recipes
+        skey, make, reserve = entry.skey, entry.make, entry.reserve_bytes
+        if entry.paths:
+            # file leaves are read again (a relation-cache hit while the
+            # files are unchanged); a changed file keys a new stage entry
+            leaves = [self._materialize(r, session) for r in entry.recipes]
+            if any(a is not b for a, b in zip(leaves, entry.leaves)):
+                pq = PlannedQuery(entry.physical, leaves, entry.recipes)
+                skey = compose_stage_key(session, entry.body, leaves)
+                make = stage_maker(pq, entry.pslots, session.device, skey)
+                reserve = _plan_reserve_bytes(pq)
+        else:
+            leaves = entry.leaves
         for batch, want in zip(leaves, entry.leaf_schemas):
             if batch.schema.simpleString() != want:
                 raise _StaleEntry(
@@ -613,11 +656,11 @@ class PlanCache:
                     f" != {want}")
         mem = session._memory
         owner = f"query:{id(qe)}"
-        mem.acquire_execution(owner, entry.reserve_bytes)
+        mem.acquire_execution(owner, reserve)
         try:
             result, ratio = qe._dispatch_stage(
-                PlannedQuery(entry.physical, leaves), entry.skey,
-                entry.make, entry.n_ops, entry.params(fp))
+                PlannedQuery(entry.physical, leaves), skey, make,
+                entry.n_ops, entry.params(fp))
         finally:
             mem.release_execution(owner)
         return None if ratio > 0.0 else result
@@ -641,16 +684,26 @@ class PlanCache:
         }
 
 
-def _leaf_relations(plan) -> list:
-    """The LocalRelation leaves of an optimized plan."""
-    from ..sql import logical as L
+def _relations(plan, cls) -> list:
     out = []
 
     def walk(node):
-        if isinstance(node, L.LocalRelation):
+        if isinstance(node, cls):
             out.append(node)
         for c in node.children:
             walk(c)
 
     walk(plan)
     return out
+
+
+def _leaf_relations(plan) -> list:
+    """The LocalRelation leaves of an optimized plan."""
+    from ..sql import logical as L
+    return _relations(plan, L.LocalRelation)
+
+
+def _file_relations(plan) -> list:
+    """The FileRelation leaves of an optimized plan."""
+    from ..sql import logical as L
+    return _relations(plan, L.FileRelation)

@@ -41,10 +41,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 from ..aggregates import AggregateFunction, Count, CountDistinct, CountStar, Sum
 from ..expressions import (Alias, AnalysisException, And, Col, EQ,
                            Expression, GroupingCall, Literal)
-from .logical import (Aggregate, Distinct, Except, Explode, Filter,
-                      GroupingSets, Intersect, Join, Limit, LocalRelation,
-                      LogicalPlan, Project, RangeRelation, Sample, Sort,
-                      SortOrder, SubqueryAlias, Union, UnresolvedRelation)
+from .logical import (Aggregate, Distinct, Except, Explode, FileRelation,
+                      Filter, GroupingSets, Intersect, Join, Limit,
+                      LocalRelation, LogicalPlan, Project, RangeRelation,
+                      Sample, Sort, SortOrder, SubqueryAlias, Union,
+                      UnresolvedRelation)
 from .window import WindowExpression, WindowNode, WindowSpec, contains_window
 
 _STREAMING = "the streaming slice"
@@ -52,14 +53,13 @@ _STREAMING = "the streaming slice"
 #: logical nodes of the JAX package whose execution a later slice of the
 #: port brings, by class name, and that slice
 _NOT_PORTED = {
-    "FileRelation": "the scan slice (parquet/csv/json readers)",
     "FlatMapGroupsWithState": _STREAMING,
 }
 
-_PORTED_NODES = (LocalRelation, RangeRelation, UnresolvedRelation, Project,
-                 Filter, Aggregate, Sort, Limit, Join, Distinct,
-                 SubqueryAlias, Union, Intersect, Except, WindowNode,
-                 GroupingSets, Sample, Explode)
+_PORTED_NODES = (LocalRelation, RangeRelation, FileRelation,
+                 UnresolvedRelation, Project, Filter, Aggregate, Sort, Limit,
+                 Join, Distinct, SubqueryAlias, Union, Intersect, Except,
+                 WindowNode, GroupingSets, Sample, Explode)
 
 
 def _names(names: str, where: str) -> Dict[str, str]:

@@ -330,6 +330,17 @@ class DataFrame:
     def toLocalIterator(self):
         return iter(self.collect())
 
+    def toPandas(self):
+        """The result as a pandas DataFrame (maps as dicts, structs as
+        Rows), built from the decoded rows as the JAX package builds it."""
+        from ..io import rows_to_pandas
+        flat, spec = self._flatten_complex()
+        if spec is None:
+            batch = flat._execute()
+            return rows_to_pandas(batch.to_pylist(), batch.names)
+        rows = self._assemble_rows(flat._execute().to_pylist(), spec)
+        return rows_to_pandas(rows, [s[-1] for s in spec])
+
     def count(self) -> int:
         agg = L.Aggregate([], [(CountStar(), "count")], self._plan)
         from .planner import QueryExecution
@@ -366,6 +377,11 @@ class DataFrame:
         for c in cells:
             print("|" + "|".join(f" {v:<{w}} " for v, w in zip(c, widths)) + "|")
         print(sep)
+
+    @property
+    def write(self):
+        from ..io import DataFrameWriter
+        return DataFrameWriter(self)
 
     def createOrReplaceTempView(self, name: str) -> None:
         self.session.catalog.register(name, self._plan)

@@ -21,8 +21,8 @@ from ..expressions import AnalysisException, Expression
 __all__ = [
     "LogicalPlan", "LocalRelation", "RangeRelation", "Project", "Filter",
     "Aggregate", "Sort", "SortOrder", "Limit", "Join", "Union", "Distinct",
-    "SubqueryAlias", "UnresolvedRelation", "Sample", "Intersect", "Except",
-    "Explode",
+    "SubqueryAlias", "UnresolvedRelation", "FileRelation", "Sample",
+    "Intersect", "Except", "Explode",
 ]
 
 
@@ -120,6 +120,44 @@ class RangeRelation(LogicalPlan):
 
     def __repr__(self):
         return f"Range({self.start}, {self.end}, {self.step})"
+
+
+class FileRelation(LogicalPlan):
+    """A file-backed relation (parquet/csv/json/text/orc); ``io.py`` reads
+    it into one host batch when the query is planned.
+
+    ``columns`` (set by the optimizer's column pruning — the
+    ``ColumnPruning``/``FileSourceStrategy`` analog) restricts the read to
+    a subset of fields; ``pushed_filters`` are advisory ``(col, op,
+    value)`` conjuncts that SKIP parquet row groups by footer min/max
+    stats (``ParquetFilters.scala`` role) — the exact Filter stays in the
+    plan."""
+
+    def __init__(self, fmt: str, paths: List[str], schema: T.StructType,
+                 options: Optional[dict] = None,
+                 columns: Optional[List[str]] = None,
+                 pushed_filters: Optional[List[tuple]] = None):
+        self.fmt = fmt
+        self.paths = paths
+        self._schema = schema
+        self.options = options or {}
+        self.columns = columns
+        self.pushed_filters = pushed_filters
+
+    def schema(self) -> T.StructType:
+        if self.columns is not None:
+            keep = set(self.columns)
+            return T.StructType([f for f in self._schema.fields
+                                 if f.name in keep])
+        return self._schema
+
+    def __repr__(self):
+        s = f"FileRelation[{self.fmt}] {self.paths}"
+        if self.columns is not None:
+            s += f" cols={self.columns}"
+        if self.pushed_filters:
+            s += f" pushed={self.pushed_filters}"
+        return s
 
 
 class UnresolvedRelation(LogicalPlan):

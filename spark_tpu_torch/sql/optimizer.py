@@ -2,23 +2,25 @@
 
 A copy of ``spark_tpu/sql/optimizer.py`` (the analog of
 ``catalyst/optimizer/Optimizer.scala``: batches of rewrite rules run to
-fixed point by a RuleExecutor) without what the port cannot reach yet:
-the rules that read file statistics and the file-column pruning (the
-port has no file scans; the reference's only Sample case is in that
-pruning).  Join reordering estimates cardinality from batch capacities.
+fixed point by a RuleExecutor), with the file rules: column pruning into
+file scans, advisory row-group filters, and join ordering from file
+statistics (parquet footers, ANALYZE TABLE results, sampled NDVs).
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
+
 from ..aggregates import AggregateFunction
 from ..columnar import ColumnBatch
-from ..expressions import (Alias, AnalysisException, And, Col, EvalContext,
-                           Expression, Literal, Rand, RowIndex)
+from ..expressions import (GE, LE, Alias, AnalysisException, And, Between,
+                           Col, EvalContext, Expression, Literal, Rand,
+                           RowIndex)
 from .logical import (
-    Aggregate, Filter, Join, Limit, LocalRelation, LogicalPlan, Project,
-    RangeRelation, Sort, SubqueryAlias, Union,
+    Aggregate, Distinct, FileRelation, Filter, Join, Limit, LocalRelation,
+    LogicalPlan, Project, RangeRelation, Sample, Sort, SubqueryAlias, Union,
 )
 
 MAX_ITERATIONS = 50
@@ -390,6 +392,13 @@ def _collect_cross_inner(node: LogicalPlan, rels: List[LogicalPlan],
         conds.extend(split_conjuncts(node.condition))
         _collect_cross_inner(node.children[0], rels, conds)
         return
+    if isinstance(node, Filter) and isinstance(_unaliased(node.children[0]),
+                                               FileRelation):
+        # hoisted so that footer-stat selectivity feeds the ordering; the
+        # conjunct re-attaches at this relation's join (or on top)
+        conds.extend(split_conjuncts(node.condition))
+        rels.append(node.children[0])
+        return
     if isinstance(node, Join) and node.how in ("inner", "cross") \
             and not node.using:
         if node.on is not None:
@@ -400,19 +409,99 @@ def _collect_cross_inner(node: LogicalPlan, rels: List[LogicalPlan],
         rels.append(node)
 
 
+def _unaliased(node: LogicalPlan) -> LogicalPlan:
+    while isinstance(node, SubqueryAlias):
+        node = node.children[0]
+    return node
+
+
 def rows_estimate(node: LogicalPlan) -> int:
-    """Crude cardinality upper bound for join ordering (capacity-based)."""
+    """Crude cardinality upper bound for join ordering: batch capacities,
+    and for files their row counts (parquet footers) shrunk by the
+    selectivity of filters directly over them."""
     if isinstance(node, LocalRelation):
         return node.batch.capacity
     if isinstance(node, RangeRelation):
         return node.num_rows()
+    if isinstance(node, FileRelation):
+        est = node.__dict__.get("_est_rows")
+        if est is None:
+            from ..io import file_row_count
+            try:
+                est = file_row_count(node) or (1 << 20)
+            except AnalysisException:
+                est = 1 << 20
+            node.__dict__["_est_rows"] = est
+        return est
     if isinstance(node, Limit):
         return min(node.n, rows_estimate(node.children[0]))
     if isinstance(node, Union):
         return sum(rows_estimate(c) for c in node.children)
+    if isinstance(node, Filter):
+        est = rows_estimate(node.children[0])
+        base = _unaliased(node.children[0])
+        if isinstance(base, FileRelation):
+            sel = filter_selectivity(split_conjuncts(node.condition), base)
+            return max(int(est * sel), 1)
+        return est
     if node.children:
         return max(rows_estimate(c) for c in node.children)
     return 1 << 10
+
+
+def filter_selectivity(conjuncts: List[Expression], rel) -> float:
+    """Combined selectivity of filter conjuncts over a file relation, from
+    the column statistics (parquet footer min/max/null counts, or ANALYZE
+    TABLE results; ``FilterEstimation.scala`` role).  Unknown shapes give
+    1.0: estimates only shrink where the statistics justify it."""
+    from ..io import file_column_stats
+    stats = file_column_stats(rel)
+    if not stats:
+        return 1.0
+    flip = {"EQ": "EQ", "LT": "GT", "LE": "GE", "GT": "LT", "GE": "LE"}
+
+    def one(c: Expression) -> float:
+        op = type(c).__name__
+        if op not in flip:
+            return 1.0
+        l, r = c.children
+        if isinstance(l, Col) and isinstance(r, Literal):
+            col, lit = l, r
+        elif isinstance(r, Col) and isinstance(l, Literal):
+            col, lit, op = r, l, flip[op]
+        else:
+            return 1.0
+        st = stats.get(col.name)
+        if st is None or st["min"] is None or lit.value is None:
+            return 1.0
+        lo, hi, total = st["min"], st["max"], max(st["total"], 1)
+        nn = max(1.0 - st["null_count"] / total, 0.0)
+        v = lit.value
+        if isinstance(lo, (int, float)) and isinstance(v, (int, float)) \
+                and not isinstance(v, bool):
+            if v < lo or v > hi:
+                return 1.0 / total if op == "EQ" else \
+                    (nn if (op in ("GT", "GE")) == (v < lo) else
+                     1.0 / total)
+            if op == "EQ":
+                # integral domains: uniform 1/(hi-lo+1); fractional: the
+                # reference's default 1/ndv with an unknown ndv
+                width = (hi - lo + 1) if isinstance(lo, int) else 0
+                return nn / width if width > 1 else \
+                    (nn if width == 1 else 0.1 * nn)
+            span = float(hi) - float(lo)
+            if span <= 0:
+                return nn
+            frac = min(max((float(v) - float(lo)) / span, 0.0), 1.0)
+            return nn * (frac if op in ("LT", "LE") else 1.0 - frac)
+        if isinstance(lo, str) and isinstance(v, str) and op == "EQ":
+            return 0.1 * nn if lo <= v <= hi else 1.0 / total
+        return 1.0
+
+    sel = 1.0
+    for c in conjuncts:
+        sel *= one(c)
+    return max(sel, 1e-4)
 
 
 def reorder_joins(node: LogicalPlan) -> LogicalPlan:
@@ -420,7 +509,8 @@ def reorder_joins(node: LogicalPlan) -> LogicalPlan:
     (`ReorderJoin` in `optimizer/joins.scala`).  Greedy: start from the
     largest relation (the probe side of every join in the left-deep tree),
     repeatedly attach the connected relation with the smallest estimated
-    output; attach every conjunct that closes over the new schema."""
+    output (file statistics where the relation is a file); attach every
+    conjunct that closes over the new schema."""
     if not (isinstance(node, Filter) and isinstance(node.child, Join)):
         return node
     j = node.child
@@ -436,8 +526,29 @@ def reorder_joins(node: LogicalPlan) -> LogicalPlan:
         return node
     schemas = [set(r.schema().names) for r in rels]
 
+    # the base relation becomes the probe side of every join of the
+    # left-deep tree: the largest relation AFTER its own filter conjuncts
+    # (footer-stat selectivity; CostBasedJoinReorder's stats-driven pick)
     def effective_rows(i: int) -> float:
-        return float(rows_estimate(rels[i]))
+        est = float(rows_estimate(rels[i]))
+        base_rel = _unaliased(rels[i])
+        if isinstance(base_rel, FileRelation):
+            mine = [c_ for c_ in conds if c_.references() <= schemas[i]]
+            if mine:
+                est *= filter_selectivity(mine, base_rel)
+        return est
+
+    def key_ndv(i: int, key_col: str) -> float:
+        """NDV of a candidate's join-key column (sampled parquet stats or
+        ANALYZE results); else the relation's row estimate (a PK
+        assumption)."""
+        base_rel = _unaliased(rels[i])
+        if isinstance(base_rel, FileRelation):
+            from ..io import file_column_ndv
+            ndv = file_column_ndv(base_rel, [key_col]).get(key_col)
+            if ndv:
+                return ndv
+        return max(float(rows_estimate(rels[i])), 1.0)
 
     base = max(range(len(rels)), key=effective_rows)
     joined = rels[base]
@@ -458,9 +569,14 @@ def reorder_joins(node: LogicalPlan) -> LogicalPlan:
             ]
             if not connecting:
                 continue
-            # |L||R| / ndv(key) with no column statistics: the key NDV is
-            # the candidate's row estimate (a PK assumption), leaving |L|
-            est_out = cur_rows
+            # the textbook equi-join cardinality |L||R| / max(ndv(keys)):
+            # on a star schema the dimensions attach most selective first
+            cand_rows = max(effective_rows(idx), 1.0)
+            ndv = 1.0
+            for c_ in connecting:
+                for col in (c_.references() & cand_cols):
+                    ndv = max(ndv, key_ndv(idx, col))
+            est_out = cur_rows * cand_rows / ndv
             if best is None or est_out < best[0]:
                 best = (est_out, idx)
         if best is not None:
@@ -579,6 +695,188 @@ def constant_folding(node: LogicalPlan) -> LogicalPlan:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# file-scan pruning (ColumnPruning + FileSourceStrategy/ParquetFilters role)
+# ---------------------------------------------------------------------------
+
+def _expr_refs(exprs) -> set:
+    out: set = set()
+    for e in exprs:
+        if e is not None:
+            out |= e.references()
+    return out
+
+
+def prune_file_columns(plan: LogicalPlan) -> LogicalPlan:
+    """Top-down required-column propagation; file relations read only the
+    columns the plan consumes (``FileSourceStrategy.scala``'s pruned
+    schema)."""
+    from .window import WindowNode
+
+    def narrowest(fields) -> str:
+        def width(f):
+            if f.dataType.is_string:
+                return 1 << 16
+            return np.dtype(f.dataType.np_dtype).itemsize
+        return min(fields, key=width).name
+
+    def walk(node: LogicalPlan, required):
+        if isinstance(node, FileRelation):
+            if required is None:
+                return node
+            names = node.schema().names
+            keep = [n for n in names if n in required]
+            if not keep:
+                # count(*)-style plans: one narrow column still carries
+                # the row count
+                keep = [narrowest(node.schema().fields)]
+            if len(keep) == len(names):
+                return node
+            return FileRelation(node.fmt, node.paths, node._schema,
+                                node.options, columns=keep,
+                                pushed_filters=node.pushed_filters)
+        if isinstance(node, Project):
+            child = walk(node.child, _expr_refs(node.exprs))
+            return Project(node.exprs, child) \
+                if child is not node.child else node
+        if isinstance(node, Filter):
+            req = None if required is None \
+                else (required | node.condition.references())
+            child = walk(node.child, req)
+            return Filter(node.condition, child) \
+                if child is not node.child else node
+        if isinstance(node, Aggregate):
+            req = _expr_refs(node.keys) | _expr_refs(
+                c for f, _n in node.aggs for c in f.children)
+            child = walk(node.child, req)
+            return Aggregate(node.keys, node.aggs, child) \
+                if child is not node.child else node
+        if isinstance(node, Sort):
+            req = None if required is None \
+                else (required | _expr_refs(o.child for o in node.orders))
+            child = walk(node.child, req)
+            return Sort(node.orders, child, node.is_global) \
+                if child is not node.child else node
+        if isinstance(node, Limit):
+            child = walk(node.child, required)
+            return Limit(node.n, child) if child is not node.child else node
+        if isinstance(node, Distinct):
+            child = walk(node.child, required)
+            return Distinct(child) if child is not node.child else node
+        if isinstance(node, Sample):
+            child = walk(node.children[0], required)
+            return Sample(node.fraction, node.seed, child) \
+                if child is not node.children[0] else node
+        if isinstance(node, SubqueryAlias):
+            child = walk(node.children[0], required)
+            return SubqueryAlias(node.alias, child) \
+                if child is not node.children[0] else node
+        if isinstance(node, WindowNode):
+            # a WindowExpression's references live in sub_expressions()
+            wrefs: set = set()
+            for we, _n in node.wexprs:
+                for sub in we.sub_expressions():
+                    wrefs |= sub.references()
+            req = None if required is None else (required | wrefs)
+            child = walk(node.children[0], req)
+            return WindowNode(node.wexprs, child) \
+                if child is not node.children[0] else node
+        if isinstance(node, Join):
+            on_refs = node.on.references() if node.on is not None else set()
+            using = set(node.using or [])
+            lnames = set(node.left.schema().names)
+            rnames = set(node.right.schema().names)
+            if required is None:
+                lreq = rreq = None
+            else:
+                lreq = (required & lnames) | (on_refs & lnames) | using
+                rreq = (required & rnames) | (on_refs & rnames) | using
+            left = walk(node.left, lreq)
+            right = walk(node.right, rreq)
+            if left is not node.left or right is not node.right:
+                return Join(left, right, node.how, node.on, node.using)
+            return node
+        if isinstance(node, Union):
+            if required is None:
+                kids = [walk(c, None) for c in node.children]
+            else:
+                names = node.schema().names
+                idx = [i for i, n in enumerate(names) if n in required]
+                kids = []
+                for c in node.children:
+                    cn = c.schema().names
+                    kids.append(walk(c, frozenset(cn[i] for i in idx)))
+            if any(k is not c for k, c in zip(kids, node.children)):
+                return Union(kids)
+            return node
+        # any other shape: everything below is required
+        new_children = tuple(walk(c, None) for c in node.children)
+        if any(nk is not c for nk, c in zip(new_children, node.children)):
+            import copy
+            clone = copy.copy(node)
+            clone.children = new_children
+            return clone
+        return node
+
+    return walk(plan, None)
+
+
+#: comparison classes the row-group skipper understands, with the flipped
+#: operator for ``literal op col`` forms
+_PUSH_OPS = {"EQ": "==", "LT": "<", "LE": "<=", "GT": ">", "GE": ">="}
+_FLIP = {"==": "==", "<": ">", "<=": ">=", ">": "<", ">=": "<="}
+
+
+def push_scan_filters(node: LogicalPlan) -> LogicalPlan:
+    """A Filter directly over a parquet FileRelation: its ``col op
+    literal`` conjuncts on integer and string columns become ADVISORY
+    row-group skip predicates (``ParquetFilters.scala`` role).  The exact
+    Filter stays in the plan, so pushdown only drops rows that provably
+    cannot match."""
+    if not (isinstance(node, Filter) and isinstance(node.child, FileRelation)
+            and node.child.fmt == "parquet"
+            and node.child.pushed_filters is None):
+        return node
+    rel = node.child
+    file_fields = {f.name: f.dataType for f in rel._schema.fields}
+    pushed = []
+    conjuncts = []
+    for c in split_conjuncts(node.condition):
+        if isinstance(c, Between):
+            # ``col BETWEEN lo AND hi`` is ``col >= lo AND col <= hi``, as
+            # Spark's optimizer rewrites it before pushdown (the JAX
+            # package pushes no BETWEEN)
+            e, lo, hi = c.children
+            conjuncts += [GE(e, lo), LE(e, hi)]
+        else:
+            conjuncts.append(c)
+    for c in conjuncts:
+        op = _PUSH_OPS.get(type(c).__name__)
+        if op is None:
+            continue
+        l, r = c.children
+        if isinstance(l, Col) and isinstance(r, Literal):
+            col, lit = l, r
+        elif isinstance(r, Col) and isinstance(l, Literal):
+            col, lit, op = r, l, _FLIP[op]
+        else:
+            continue
+        dt = file_fields.get(col.name)
+        if dt is None or lit.value is None:
+            continue
+        if dt.is_string and isinstance(lit.value, str):
+            pushed.append((col.name, op, str(lit.value)))
+        elif dt.is_numeric and not dt.is_fractional \
+                and isinstance(lit.value, (int, np.integer)) \
+                and not isinstance(lit.value, bool):
+            pushed.append((col.name, op, int(lit.value)))
+    if not pushed:
+        return node
+    return Filter(node.condition,
+                  FileRelation(rel.fmt, rel.paths, rel._schema, rel.options,
+                               columns=rel.columns, pushed_filters=pushed))
+
+
 class Batch:
     def __init__(self, name: str, rules: List[Callable], once: bool = False):
         self.name = name
@@ -628,9 +926,17 @@ class Optimizer:
                     plan = new_plan
                     break
                 plan = new_plan
-        # file-scan pruning (prune_file_columns, push_scan_filters) comes
-        # with the scan slice
+        if _has_files(plan):
+            # file-scan pruning runs once, after operator pushdown has
+            # parked filters directly above their scans
+            plan = prune_file_columns(plan)
+            plan = plan.transform_up(push_scan_filters)
         return plan
+
+
+def _has_files(plan: LogicalPlan) -> bool:
+    return isinstance(plan, FileRelation) \
+        or any(_has_files(c) for c in plan.children)
 
 
 def _plans_equal(a: LogicalPlan, b: LogicalPlan) -> bool:

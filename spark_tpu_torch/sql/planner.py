@@ -27,8 +27,9 @@ from ..columnar import ColumnBatch, pad_capacity
 from ..expressions import AnalysisException
 from ..kernels import compact
 from .logical import (
-    Aggregate, Distinct, Explode, Filter, Join, Limit, LocalRelation,
-    LogicalPlan, Project, RangeRelation, Sample, Sort, SubqueryAlias, Union,
+    Aggregate, Distinct, Explode, FileRelation, Filter, Join, Limit,
+    LocalRelation, LogicalPlan, Project, RangeRelation, Sample, Sort,
+    SubqueryAlias, Union,
 )
 from . import physical as P
 
@@ -228,11 +229,53 @@ def check_planned_join_capacities(pq: "PlannedQuery", session,
 
 def _plan_reserve_bytes(pq: "PlannedQuery") -> int:
     """Upper-bound device bytes for one execution attempt: the leaf
-    working set (input + one fused intermediate) plus the STATIC output
-    buffers of every capacity-growing operator (``_walk_plan_caps``)."""
+    working set (input + one fused intermediate), the device copy of
+    every file leaf (a host batch, not resident before the query as an
+    in-memory leaf is), plus the STATIC output buffers of every
+    capacity-growing operator (``_walk_plan_caps``)."""
     from ..memory import batch_nbytes
     _root, extra, _joins = _walk_plan_caps(pq)
-    return 2 * sum(batch_nbytes(b) for b in pq.leaves) + extra
+    return sum((3 if b.source is not None else 2) * batch_nbytes(b)
+               for b in pq.leaves) + extra
+
+
+#: the slice that brings the streamed runners for oversized file scans
+OUT_OF_CORE_SLICE = ("the out-of-core slice (sql/multibatch.py, "
+                     "sql/stages.py, io.scan_file_batches; ROADMAP item 8)")
+
+
+def check_out_of_core(session, plan: LogicalPlan) -> None:
+    """Raise where the JAX package leaves the eager path for its
+    out-of-core runners (``planner.py:597-611``): while
+    ``spark.tpu.multibatch.enabled`` is true, a file relation of more than
+    ``spark.tpu.scan.maxBatchRows`` rows is streamed through the stage
+    DAG (any plan, with ``spark.tpu.stages.enabled``) or the multi-batch
+    runner (a chain of one-child operators down to the file).  Those
+    runners are not ported, and such a file is never read as one device
+    batch instead."""
+    if not session.conf.get(C.MULTIBATCH_ENABLED):
+        return
+    batch_rows = session.conf.get(C.SCAN_MAX_BATCH_ROWS)
+    stages = session.conf.get(C.STAGES_ENABLED)
+
+    def walk(node: LogicalPlan, linear: bool) -> None:
+        if isinstance(node, FileRelation):
+            from ..io import file_row_count
+            n = file_row_count(node)
+            if n is not None and n > batch_rows and (stages or linear):
+                raise NotImplementedError(
+                    f"{node!r} holds {n:,} rows, more than "
+                    f"{C.SCAN_MAX_BATCH_ROWS.key}={batch_rows:,}: a scan "
+                    "that large streams through the out-of-core runners, "
+                    f"which are not ported yet: they come with "
+                    f"{OUT_OF_CORE_SLICE}.  Set {C.SCAN_MAX_BATCH_ROWS.key} "
+                    f"above the file's rows (or "
+                    f"{C.MULTIBATCH_ENABLED.key}=false) to read it as one "
+                    "batch")
+        for c in node.children:
+            walk(c, linear and len(node.children) == 1)
+
+    walk(plan, True)
 
 
 def _needs_local_fallback(plan: LogicalPlan) -> bool:
@@ -268,9 +311,15 @@ def stage_key(session, pq: "PlannedQuery") -> Tuple[str, list]:
     the slot-aware physical fingerprint, the leaves' shape/dtype
     signature and the planning conf."""
     from . import stagecompile as SC
-    skey, slots = SC.stage_fingerprint(pq.physical)
-    return (f"local|{skey}|{SC.leaf_signature(pq.leaves)}"
-            f"|{SC._conf_component(session)}"), slots
+    body, slots = SC.stage_fingerprint(pq.physical)
+    return compose_stage_key(session, body, pq.leaves), slots
+
+
+def compose_stage_key(session, body: str, leaves) -> str:
+    """The stage key of a physical fingerprint ``body`` over ``leaves``."""
+    from . import stagecompile as SC
+    return (f"local|{body}|{SC.leaf_signature(leaves)}"
+            f"|{SC._conf_component(session)}")
 
 
 def stage_maker(pq: "PlannedQuery", slots, device, skey: str):
@@ -304,9 +353,15 @@ def stage_maker(pq: "PlannedQuery", slots, device, skey: str):
 
 
 class PlannedQuery:
-    def __init__(self, physical: P.PhysicalPlan, leaves: List[ColumnBatch]):
+    def __init__(self, physical: P.PhysicalPlan, leaves: List[ColumnBatch],
+                 leaf_recipes=None):
         self.physical = physical
         self.leaves = leaves
+        #: how each leaf batch was obtained, in PScan index order:
+        #: ("local", LocalRelation) | ("file", FileRelation) — the serving
+        #: plan cache re-reads file leaves on a hit (an answer is never
+        #: staler than the files); None where no planner made the leaves
+        self.leaf_recipes = leaf_recipes
 
 
 class Planner:
@@ -321,6 +376,7 @@ class Planner:
         #: None | int rows: adaptively grown keyed-agg output capacity
         self.agg_shrink_override = agg_shrink_override
         self._join_seq = 0
+        self._leaf_recipes: list = []
 
     def bind_collect(self, aggs):
         """The aggregate slots with each collect bound to the session's
@@ -352,12 +408,13 @@ class Planner:
 
     def plan(self, logical: LogicalPlan) -> PlannedQuery:
         self._join_seq = 0            # positional factors restart per plan
+        self._leaf_recipes = []
         leaves: List[ColumnBatch] = []
         phys = self._to_physical(logical, leaves)
         self._assign_op_ids(phys, [1])
         if self.session.conf.get(C.METRICS_ENABLED):
             phys = self._wrap_metrics(phys)
-        return PlannedQuery(phys, leaves)
+        return PlannedQuery(phys, leaves, self._leaf_recipes)
 
     def _wrap_metrics(self, node: P.PhysicalPlan) -> P.PhysicalPlan:
         node.children = tuple(self._wrap_metrics(c) for c in node.children)
@@ -369,16 +426,26 @@ class Planner:
         for c in node.children:
             self._assign_op_ids(c, counter)
 
-    def _scan(self, batch: ColumnBatch, leaves: List[ColumnBatch]) -> P.PScan:
+    def _scan(self, batch: ColumnBatch, leaves: List[ColumnBatch],
+              source=None) -> P.PScan:
         leaves.append(batch)
+        self._leaf_recipes.append(
+            ("file" if isinstance(source, FileRelation) else "local",
+             source))
         return P.PScan(len(leaves) - 1, batch.schema)
 
     def _to_physical(self, node: LogicalPlan, leaves) -> P.PhysicalPlan:
         if isinstance(node, LocalRelation):
-            return self._scan(node.batch, leaves)
+            return self._scan(node.batch, leaves, node)
         if isinstance(node, RangeRelation):
             return P.PRange(node.start, node.end, node.step, node.name,
                             node.num_rows())
+        if isinstance(node, FileRelation):
+            # one host batch per relation (pinned on a card session),
+            # copied to the device per run and never kept there
+            from ..io import read_file_relation
+            return self._scan(read_file_relation(node, self.session),
+                              leaves, node)
         if isinstance(node, SubqueryAlias):
             return self._to_physical(node.child, leaves)
         if isinstance(node, Project):
@@ -415,8 +482,7 @@ class Planner:
                               node.with_pos, node.pos_name,
                               self._to_physical(node.child, leaves),
                               insert_at=node.insert_at)
-        # file scans and stateful groups: later slices (the analyzer
-        # refuses them first)
+        # stateful groups: a later slice (the analyzer refuses them first)
         raise AnalysisException(f"no physical plan for {node!r}")
 
 
@@ -487,10 +553,12 @@ class QueryExecution:
         #   cross-process slice;
         # * the multi-batch and stage-DAG out-of-core runners, alone and
         #   under the mesh (and their plan-cache kinds): the out-of-core
-        #   slice;
+        #   slice, where check_out_of_core raises;
         # * the mesh lane under graphs: the mesh lane below stays eager.
         session = self.session
         session.raise_if_cancelled()      # checkpoint: before planning
+        # the out-of-core routing point: oversized file scans raise
+        check_out_of_core(session, self.optimized)
         n_shards = session.conf.get(C.MESH_SHARDS)
         if n_shards == 0:
             n_shards = 1          # "all local devices": the engine spans one
@@ -645,7 +713,11 @@ class QueryExecution:
         device = session.device
         cache = SC.stage_cache(session)
         entry = cache.get_or_build(skey, make, n_ops=n_ops, session=session)
-        leaves = [b.to_device(device) for b in pq.leaves]
+        # a pinned host leaf (a file batch) goes to the card by the
+        # entry's own copies into its static buffers
+        leaves = [b if device.type == "cuda" and b.device.type == "cpu"
+                  and b.is_pinned() else b.to_device(device)
+                  for b in pq.leaves]
 
         def finish(out, host, meta):
             caps, kinds, metric_keys = meta

@@ -1,8 +1,10 @@
 """SparkSession: the entry point (``sql/SparkSession.scala:77`` analog).
 
 The subset of ``spark_tpu/sql/session.py`` the port has: the builder,
-the conf, a temp-view and function catalog, ``createDataFrame``,
-``range``, ``sql`` with its commands, ``udf`` and ``stop``.  The session
+the conf, the catalog (temp views, functions, and the persistent
+databases and tables under ``spark.sql.warehouse.dir``), ``read``,
+``createDataFrame``, ``range``, ``sql`` with its DDL and DML commands,
+``udf`` and ``stop``.  The session
 owns ONE torch device, named by
 ``spark.torch.device`` (default ``"cuda"``): every batch it creates lives
 there and every query runs there.  Asking for a card that is not there
@@ -11,6 +13,10 @@ raises; the session never falls back to the CPU.
 
 from __future__ import annotations
 
+import glob as _glob
+import json
+import os
+import shutil
 from typing import Any, Dict, List, Optional, Union
 
 import torch
@@ -41,19 +47,19 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-#: where the persistent catalog (tables, databases, their statistics)
-#: comes from: it needs ``io.py``'s readers and writers
-PERSISTENT_SLICE = "the scan slice (io.py readers and writers)"
-
-
 class Catalog:
-    """Temp views + functions (``SessionCatalog``'s session half; the
-    persistent tables and databases come with the scan slice)."""
+    """Temp views + functions + PERSISTENT databases and tables
+    (``SessionCatalog`` + ``InMemoryCatalog``): the filesystem IS the
+    external catalog — ``<warehouse>/<db>.db/<table>/`` holds the data
+    files and a ``_meta.json`` (format, schema, options, ANALYZE
+    statistics), so there is no separate metastore to run.  Sessions that
+    share a warehouse share its tables."""
 
     def __init__(self, session=None):
         self._session = session
         self._views: Dict[str, L.LogicalPlan] = {}
         self._functions: Dict[str, Any] = {}
+        self.current_database = "default"
 
     # -- functions ---------------------------------------------------------
     def register_function(self, name: str, wrapper) -> None:
@@ -75,14 +81,189 @@ class Catalog:
 
     dropTempView = drop
 
+    # -- persistent layer ---------------------------------------------------
+    def _warehouse(self) -> str:
+        if self._session is not None:
+            return self._session.conf.get(C.WAREHOUSE_DIR)
+        return C.WAREHOUSE_DIR.default
+
+    def _db_dir(self, db: str) -> str:
+        wh = self._warehouse()
+        return wh if db == "default" else os.path.join(wh, f"{db}.db")
+
+    def _split(self, name: str):
+        parts = name.split(".")
+        if len(parts) == 2:
+            return parts[0].lower(), parts[1].lower()
+        return self.current_database, parts[0].lower()
+
+    def table_path(self, name: str) -> str:
+        db, tbl = self._split(name)
+        return os.path.join(self._db_dir(db), tbl)
+
+    def create_database(self, name: str, if_not_exists: bool = False) -> None:
+        if name.lower() == "default":
+            if if_not_exists:
+                return
+            raise AnalysisException("database default already exists")
+        d = self._db_dir(name.lower())
+        if os.path.isdir(d):
+            if if_not_exists:
+                return
+            raise AnalysisException(f"database {name} already exists")
+        os.makedirs(d, exist_ok=True)
+
+    def drop_database(self, name: str, if_exists: bool = False) -> None:
+        if name.lower() == "default":
+            raise AnalysisException("cannot drop the default database")
+        d = self._db_dir(name.lower())
+        if not os.path.isdir(d):
+            if if_exists:
+                return
+            raise AnalysisException(f"database not found: {name}")
+        shutil.rmtree(d)
+
+    def list_databases(self) -> List[str]:
+        wh = self._warehouse()
+        out = ["default"]
+        if os.path.isdir(wh):
+            out += sorted(f[:-3] for f in os.listdir(wh)
+                          if f.endswith(".db")
+                          and os.path.isdir(os.path.join(wh, f)))
+        return out
+
+    listDatabases = list_databases
+
+    def setCurrentDatabase(self, name: str) -> None:
+        if name.lower() not in self.list_databases():
+            raise AnalysisException(f"database not found: {name}")
+        self.current_database = name.lower()
+
+    @staticmethod
+    def _write_meta(path: str, meta: dict) -> None:
+        with open(os.path.join(path, "_meta.json"), "w") as f:
+            json.dump(meta, f, default=str)
+
+    @staticmethod
+    def _read_meta(path: str) -> Optional[dict]:
+        meta_p = os.path.join(path, "_meta.json")
+        if not os.path.isfile(meta_p):
+            return None
+        with open(meta_p) as f:
+            return json.load(f)
+
+    def save_table(self, name: str, df, fmt: str = "parquet",
+                   mode: str = "error", options: Optional[dict] = None,
+                   partition_by: Optional[List[str]] = None) -> None:
+        """CTAS / saveAsTable: write the data files and ``_meta.json``."""
+        from ..io import DataFrameWriter
+        path = self.table_path(name)
+        w = DataFrameWriter(df).format(fmt).mode(mode)
+        if partition_by:
+            w = w.partitionBy(*partition_by)
+        for k, v in (options or {}).items():
+            w = w.option(k, v)
+        w.save(path)
+        self._write_meta(path, {
+            "format": fmt, "options": options or {},
+            "schema": [[f.name, f.dataType.simpleString()]
+                       for f in df.schema.fields]})
+
+    def save_table_stats(self, name: str, stats: dict) -> bool:
+        """Persist ANALYZE TABLE results into the table's ``_meta.json``;
+        False when ``name`` is not a persistent table (a temp view keeps
+        session-only statistics)."""
+        path = self.table_path(name)
+        meta = self._read_meta(path)
+        if meta is None:
+            return False
+        meta["stats"] = stats
+        self._write_meta(path, meta)
+        return True
+
+    def create_empty_table(self, name: str, schema: T.StructType,
+                           fmt: str = "parquet") -> None:
+        path = self.table_path(name)
+        if os.path.isdir(path):
+            raise AnalysisException(f"table {name} already exists")
+        os.makedirs(path)
+        self._write_meta(path, {
+            "format": fmt, "options": {},
+            "schema": [[f.name, f.dataType.simpleString()]
+                       for f in schema.fields]})
+
+    def drop_table(self, name: str, if_exists: bool = False) -> None:
+        path = self.table_path(name)
+        if not os.path.isdir(path):
+            if if_exists:
+                return
+            raise AnalysisException(f"table not found: {name}")
+        shutil.rmtree(path)
+
+    def _persistent_plan(self, name: str) -> Optional[L.LogicalPlan]:
+        path = self.table_path(name)
+        meta = self._read_meta(path)
+        if meta is None:
+            return None
+        schema = T.StructType([
+            T.StructField(n, T.type_for_name(t)) for n, t in meta["schema"]])
+        pats = {"parquet": "*.parquet", "csv": "*.csv", "json": "*.json",
+                "text": "*.txt"}
+        fmt = meta["format"]
+        has_data = [p for p in _glob.glob(
+            os.path.join(path, "**", pats.get(fmt, "*")), recursive=True)
+            if not os.path.basename(p).startswith(("_", "."))]
+        if not has_data:
+            device = "cpu" if self._session is None else self._session.device
+            return L.LocalRelation(ColumnBatch.empty(schema, device=device))
+        rel = L.FileRelation(fmt, [path], schema,
+                             dict(meta.get("options") or {}))
+        if meta.get("stats"):
+            # ANALYZE results persisted with the table are re-registered
+            # ONLY while the files are unchanged since ANALYZE (the stats
+            # carry the files+stat key they were gathered under)
+            from .. import io as tio
+            if meta["stats"].get("key") == tio.stats_key_token(rel):
+                tio.register_analyzed_stats(rel, meta["stats"])
+        return rel
+
+    # -- unified lookup -----------------------------------------------------
     def lookup(self, name: str) -> L.LogicalPlan:
         key = name.lower()
         if key in self._views:
             return self._views[key]
+        plan = self._persistent_plan(name)
+        if plan is not None:
+            return plan
+        plan = self._file_format_plan(name)
+        if plan is not None:
+            return plan
         raise AnalysisException(f"Table or view not found: {name}")
 
+    def _file_format_plan(self, name: str) -> Optional[L.LogicalPlan]:
+        """``SELECT * FROM parquet.`/path``` — a file queried directly by
+        its format-qualified path (``rules/ResolveSQLOnFile.scala:44``
+        analog).  The parser delivers the identifier as
+        ``<format>.<path>``."""
+        fmt, dot, path = name.partition(".")
+        fmt = fmt.lower()
+        if not dot or fmt not in ("parquet", "orc", "csv", "json", "text"):
+            return None
+        if not os.path.exists(path):
+            return None
+        from ..io import DataFrameReader
+        return DataFrameReader(self._session).format(fmt).load(path)._plan
+
+    def list_persistent_tables(self, db: Optional[str] = None) -> List[str]:
+        d = self._db_dir((db or self.current_database).lower())
+        if not os.path.isdir(d):
+            return []
+        return sorted(
+            t for t in os.listdir(d)
+            if os.path.isfile(os.path.join(d, t, "_meta.json")))
+
     def listTables(self) -> List[str]:
-        return sorted(self._views)
+        return sorted(set(self._views) | set(self.list_persistent_tables()))
 
 
 class Builder:
@@ -187,15 +368,21 @@ class SparkSession:
         process, so siblings share its captured graphs."""
         return SparkSession(self.conf_obj.clone())
 
-    def _invalidate_plan_cache(self, conf_key: str, old: Any,
-                               new: Any) -> None:
-        """Serving plan-cache hook: a SET of a planning-relevant conf
-        evicts entries built under this session's old value.  No-op
-        outside a serving deployment.  (The JAX package also evicts by
-        table path on catalog commands; the port's persistent tables
-        come with the scan slice.)"""
-        if self._plan_cache is not None:
-            self._plan_cache.invalidate_conf(conf_key, old, new)
+    def _invalidate_plan_cache(self, path: Optional[str] = None,
+                               conf_key: Optional[str] = None,
+                               old: Any = None, new: Any = None) -> None:
+        """Serving plan-cache hook: catalog mutations and file writes evict
+        the entries that read the mutated table or database path, from
+        every session; a SET of a planning-relevant conf evicts entries
+        built under this session's old value.  No-op outside a serving
+        deployment."""
+        cache = self._plan_cache
+        if cache is None:
+            return
+        if path is not None:
+            cache.invalidate_paths(path)
+        if conf_key is not None:
+            cache.invalidate_conf(conf_key, old, new)
 
     @property
     def version(self) -> str:
@@ -268,6 +455,134 @@ class SparkSession:
             return DataFrame(self, st)
         return self._run_command(st)
 
+    @staticmethod
+    def _unwrap_aliases(node):
+        while isinstance(node, L.SubqueryAlias):
+            node = node.children[0]
+        return node
+
+    def _analyze_table(self, cmd, string_df) -> DataFrame:
+        """ANALYZE TABLE … COMPUTE STATISTICS [FOR COLUMNS …]: the row
+        count and per-column min/max/null_count/NDV gathered through the
+        engine's own scan, registered for the optimizer and persisted with
+        catalog tables (``AnalyzeTableCommand`` / ``AnalyzeColumnCommand``
+        analog)."""
+        from .. import io as tio
+        from . import functions as F
+        df = self.table(cmd.name)
+        node = self._unwrap_aliases(self.catalog.lookup(cmd.name))
+        if not isinstance(node, L.FileRelation):
+            raise AnalysisException(
+                f"ANALYZE TABLE {cmd.name}: only file-backed tables and "
+                "views carry statistics (views over computed plans "
+                "re-derive them at query time)")
+        rows = df.count()
+        stats: dict = {"rows": int(rows), "columns": {},
+                       "key": tio.stats_key_token(node)}
+        if cmd.columns is None:
+            # a rows-only refresh keeps earlier column statistics
+            prev = tio.analyzed_stats(node)
+            if prev:
+                stats["columns"] = prev.get("columns", {})
+        else:
+            names = [f.name for f in node.schema().fields]
+            selected = names if cmd.columns == [] else list(cmd.columns)
+            aggs = []
+            for c in selected:
+                if c not in names:
+                    raise AnalysisException(
+                        f"ANALYZE TABLE: no such column {c!r}")
+                aggs += [F.min(c).alias(f"__mn_{c}"),
+                         F.max(c).alias(f"__mx_{c}"),
+                         F.count(c).alias(f"__ct_{c}")]
+            row = df.agg(*aggs).collect()[0]
+            # NDV per column: one aggregate carries one distinct column
+            ndvs = {c: float(df.agg(F.approx_count_distinct(c).alias("nd"))
+                             .collect()[0]["nd"]) for c in selected}
+
+            def plain(v):
+                # only JSON-native values survive a persist and reload
+                # unchanged in type
+                v = v.item() if hasattr(v, "item") else v
+                return v if isinstance(v, (int, float, str, bool)) \
+                    or v is None else None
+
+            for c in selected:
+                stats["columns"][c] = {
+                    "min": plain(row[f"__mn_{c}"]),
+                    "max": plain(row[f"__mx_{c}"]),
+                    "null_count": int(rows) - int(row[f"__ct_{c}"]),
+                    "total": int(rows),
+                    "ndv": ndvs[c],
+                }
+        tio.register_analyzed_stats(node, stats)
+        # persisted only where the name resolves to the persistent table:
+        # a temp view shadowing a table must not plant its statistics there
+        persisted = False
+        if cmd.name.lower() not in self.catalog._views:
+            persisted = self.catalog.save_table_stats(cmd.name, stats)
+        return string_df({
+            "table": [cmd.name],
+            "rows": [str(rows)],
+            "columns_analyzed": [str(len(stats["columns"]))],
+            "persisted": [str(persisted).lower()],
+        })
+
+    def _insert_into(self, cmd) -> None:
+        """INSERT [OVERWRITE] INTO a catalog table.  The query runs
+        BEFORE the table directory is touched (``INSERT OVERWRITE t SELECT
+        ... FROM t`` reads the old data; a failing query destroys
+        nothing); columns bind by POSITION against the table schema."""
+        from ..io import DataFrameWriter
+        path = self.catalog.table_path(cmd.name)
+        meta = self.catalog._read_meta(path)
+        if meta is None:
+            raise AnalysisException(f"table not found: {cmd.name}")
+        src = DataFrame(self, cmd.query)
+        table_schema = [n for n, _t in meta["schema"]]
+        if len(src.schema.names) != len(table_schema):
+            raise AnalysisException(
+                f"INSERT into {cmd.name}: query produces "
+                f"{len(src.schema.names)} columns, table has "
+                f"{len(table_schema)}")
+        batch = src._execute()
+        batch = ColumnBatch(list(table_schema), batch.vectors,
+                            batch.row_valid, batch.capacity)
+        DataFrameWriter(src).format(meta["format"]) \
+            .mode("overwrite" if cmd.overwrite else "append") \
+            ._write(path, batch)
+        if cmd.overwrite:
+            # overwrite cleared the directory, the metadata with it
+            self.catalog._write_meta(path, meta)
+        self._invalidate_plan_cache(path=path)
+
+    def _describe(self, cmd) -> dict:
+        """DESCRIBE [EXTENDED]: the schema, and with EXTENDED the ANALYZE
+        TABLE statistics where registered (``DescribeTableCommand``)."""
+        from .. import io as tio
+        plan = self.catalog.lookup(cmd.name)
+        schema = DataFrame(self, plan).schema
+        names = [f.name for f in schema.fields]
+        dts = [f.dataType.simpleString() for f in schema.fields]
+        if not cmd.extended:
+            return {"col_name": names, "data_type": dts,
+                    "comment": [""] * len(names)}
+        node = self._unwrap_aliases(plan)
+        st = tio.analyzed_stats(node) \
+            if isinstance(node, L.FileRelation) else None
+        cols = st.get("columns", {}) if st else {}
+
+        def fmt_stats(name):
+            rec = cols.get(name)
+            if not rec:
+                return ""
+            return (f"min={rec.get('min')} max={rec.get('max')} "
+                    f"nulls={rec.get('null_count')} ndv={rec.get('ndv')}")
+
+        return {"col_name": names + ["# rows"], "data_type": dts + [""],
+                "comment": [fmt_stats(n) for n in names]
+                + [str(st["rows"]) if st else "<not analyzed>"]}
+
     def _run_command(self, cmd) -> DataFrame:
         from . import parser as P
 
@@ -282,17 +597,12 @@ class SparkSession:
             return DataFrame(self, L.LocalRelation(ColumnBatch.from_arrays(
                 cols, schema=struct, device=self.device)))
 
-        if isinstance(cmd, (P.AnalyzeTableCommand, P.CreateTableCommand,
-                            P.InsertIntoCommand, P.DropTableCommand,
-                            P.CreateDatabaseCommand, P.DropDatabaseCommand,
-                            P.UseDatabaseCommand, P.ShowDatabasesCommand)):
-            if isinstance(cmd, P.DropTableCommand) \
-                    and self.catalog.drop(cmd.name):
-                return string_df({})   # a temp view shadows the table
-            what = type(cmd).__name__[:-len("Command")]
-            raise NotImplementedError(
-                f"{what} is not ported yet: persistent catalog tables come "
-                f"with {PERSISTENT_SLICE}")
+        if isinstance(cmd, P.AnalyzeTableCommand):
+            out = self._analyze_table(cmd, string_df)
+            # fresh statistics change what the planner would build (join
+            # order, broadcast sides): entries over the table are stale
+            self._invalidate_plan_cache(path=self.catalog.table_path(cmd.name))
+            return out
         if isinstance(cmd, P.CreateViewCommand):
             if not cmd.replace and cmd.name.lower() in self.catalog._views:
                 raise AnalysisException(f"temp view {cmd.name} already exists")
@@ -303,22 +613,55 @@ class SparkSession:
             if not found and not cmd.if_exists:
                 raise AnalysisException(f"view not found: {cmd.name}")
             return string_df({})
+        if isinstance(cmd, P.DropTableCommand):
+            # a temp view may shadow a table of the same name (Spark drops
+            # the view first)
+            if self.catalog.drop(cmd.name):
+                return string_df({})
+            self.catalog.drop_table(cmd.name, cmd.if_exists)
+            self._invalidate_plan_cache(path=self.catalog.table_path(cmd.name))
+            return string_df({})
+        if isinstance(cmd, P.CreateDatabaseCommand):
+            self.catalog.create_database(cmd.name, cmd.if_not_exists)
+            return string_df({})
+        if isinstance(cmd, P.DropDatabaseCommand):
+            db_dir = self.catalog._db_dir(cmd.name.lower())
+            self.catalog.drop_database(cmd.name, cmd.if_exists)
+            self._invalidate_plan_cache(path=db_dir)
+            return string_df({})
+        if isinstance(cmd, P.UseDatabaseCommand):
+            self.catalog.setCurrentDatabase(cmd.name)
+            return string_df({})
+        if isinstance(cmd, P.ShowDatabasesCommand):
+            return string_df({"namespace": self.catalog.list_databases()})
+        if isinstance(cmd, P.CreateTableCommand):
+            if os.path.isdir(self.catalog.table_path(cmd.name)):
+                if cmd.if_not_exists:
+                    return string_df({})
+                if not cmd.replace:
+                    raise AnalysisException(f"table {cmd.name} already exists")
+                self.catalog.drop_table(cmd.name)
+            if cmd.query is not None:
+                self.catalog.save_table(cmd.name, DataFrame(self, cmd.query),
+                                        cmd.fmt)
+            else:
+                schema = T.StructType([T.StructField(n, T.type_for_name(t))
+                                       for n, t in cmd.columns])
+                self.catalog.create_empty_table(cmd.name, schema, cmd.fmt)
+            self._invalidate_plan_cache(path=self.catalog.table_path(cmd.name))
+            return string_df({})
+        if isinstance(cmd, P.InsertIntoCommand):
+            self._insert_into(cmd)
+            return string_df({})
         if isinstance(cmd, P.ShowTablesCommand):
+            persistent = set(self.catalog.list_persistent_tables())
             names = self.catalog.listTables()
-            return string_df({"tableName": names,
-                              "isTemporary": ["true"] * len(names)})
+            return string_df({
+                "tableName": names,
+                "isTemporary": ["false" if n in persistent else "true"
+                                for n in names]})
         if isinstance(cmd, P.DescribeCommand):
-            schema = DataFrame(self, self.catalog.lookup(cmd.name)).schema
-            names = [f.name for f in schema.fields]
-            dts = [f.dataType.simpleString() for f in schema.fields]
-            comments = [""] * len(schema.fields)
-            if cmd.extended:
-                # no view of the port is file-backed, so none carries
-                # ANALYZE TABLE statistics
-                names, dts = names + ["# rows"], dts + [""]
-                comments = comments + ["<not analyzed>"]
-            return string_df({"col_name": names, "data_type": dts,
-                              "comment": comments})
+            return string_df(self._describe(cmd))
         if isinstance(cmd, P.SetCommand):
             if cmd.key is not None and cmd.value is not None:
                 # a planning entry is part of every stage key and plan
@@ -329,7 +672,8 @@ class SparkSession:
                 self.conf.set(cmd.key, cmd.value)
                 new = self.conf.get(cmd.key, None)
                 if new != old:
-                    self._invalidate_plan_cache(cmd.key, old, new)
+                    self._invalidate_plan_cache(conf_key=cmd.key, old=old,
+                                                new=new)
             key = cmd.key if cmd.key is not None else ""
             value = str(self.conf.get(cmd.key, "<undefined>")) \
                 if cmd.key is not None else ""
@@ -344,3 +688,8 @@ class SparkSession:
 
     def table(self, name: str) -> DataFrame:
         return DataFrame(self, L.UnresolvedRelation(name))
+
+    @property
+    def read(self):
+        from ..io import DataFrameReader
+        return DataFrameReader(self)

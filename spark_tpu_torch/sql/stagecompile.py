@@ -91,9 +91,13 @@ def count_ops(physical) -> int:
 def leaf_signature(leaves) -> str:
     """Batch-shape/dtype signature of a stage's input leaves: the part of
     the key ``PhysicalPlan.key()`` cannot see (capacities and vector
-    dtypes decide the program's shapes)."""
+    dtypes decide the program's shapes).  A file leaf also signs with the
+    token of its files and their stat (``ColumnBatch.source``): a text
+    over unchanged files keeps its key, and after a file changes the next
+    run gets a new one."""
     return "x".join(
         f"{b.capacity}[{','.join(_vector_sig(v) for v in b.vectors)}]"
+        + ("" if b.source is None else f"@{b.source}")
         for b in leaves)
 
 
@@ -313,7 +317,10 @@ class _CachedStage:
 
     # -- a card: warm-up, capture, replay --------------------------------
     def dispatch_graph(self, leaves, params, finish, device):
-        """(result, build ms or None when a replay served)."""
+        """(result, build ms or None when a replay served).  A leaf is a
+        batch on the card or a pinned host batch (a file leaf): either is
+        copied into the graph's static buffers, outside the capture, by
+        ``non_blocking`` copies on the current stream."""
         aux = leaf_aux(leaves)
         v = self.variant_for(aux)
         if v is not None:
@@ -327,6 +334,7 @@ class _CachedStage:
                 return finish(v.out, host[:n], v.meta), None
             self.guard_misses += 1
         t0 = time.perf_counter()
+        leaves = [b.to_device(device, non_blocking=True) for b in leaves]
         v, result = self._build_variant(aux, leaves, params, finish, device)
         self._add(v)
         return result, (time.perf_counter() - t0) * 1e3

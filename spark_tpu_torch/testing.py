@@ -307,6 +307,62 @@ def register_sql_tables(session, hash_table, tables, T):
             .createOrReplaceTempView(name)
 
 
+#: the file layout of the scan tables (``write_scan_tables``)
+SCAN_ROW_GROUP_ROWS = 1 << 18
+
+
+def write_scan_tables(session, hash_table, tables, T, root: str,
+                      row_group_rows: int = SCAN_ROW_GROUP_ROWS) -> dict:
+    """Write the hash-agg table and q3's three tables through the port's
+    own writers, as a warehouse keeps them: ``hash_t`` and
+    ``store_sales`` as parquet (store_sales sorted by ``ss_sold_date_sk``,
+    a date-clustered fact table, in row groups of ``row_group_rows``),
+    ``date_dim`` as CSV with a header, and ``item`` as a catalog table
+    (``saveAsTable``, under ``session``'s warehouse).  Returns each
+    write's milliseconds."""
+    import os
+    import time
+    schemas = {name: T.StructType([T.StructField(c, T.type_for_name(t))
+                                   for c, t in cols])
+               for name, cols in Q3_SCHEMAS.items()}
+    order = np.argsort(tables["store_sales"]["ss_sold_date_sk"],
+                       kind="stable")
+    sales = {c: v[order] for c, v in tables["store_sales"].items()}
+    ms = {}
+
+    def timed(name, write):
+        t0 = time.perf_counter()
+        write()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+
+    timed("hash_t", lambda: session.createDataFrame(hash_table).write
+          .option("rowGroupSize", row_group_rows)
+          .parquet(os.path.join(root, "hash_t")))
+    timed("store_sales", lambda: session.createDataFrame(
+        sales, schema=schemas["store_sales"]).write
+        .option("rowGroupSize", row_group_rows)
+        .parquet(os.path.join(root, "store_sales")))
+    timed("date_dim", lambda: session.createDataFrame(
+        tables["date_dim"], schema=schemas["date_dim"]).write
+        .option("header", True).csv(os.path.join(root, "date_dim")))
+    timed("item", lambda: session.createDataFrame(
+        tables["item"], schema=schemas["item"]).write.saveAsTable("item"))
+    return ms
+
+
+def read_scan_tables(session, root: str) -> None:
+    """``write_scan_tables``' files as ``session``'s tables: ``hash_t``,
+    ``store_sales`` and ``date_dim`` as temp views over the files;
+    ``item`` resolves through the catalog (the session's warehouse)."""
+    import os
+    session.read.parquet(os.path.join(root, "hash_t")) \
+        .createOrReplaceTempView("hash_t")
+    session.read.parquet(os.path.join(root, "store_sales")) \
+        .createOrReplaceTempView("store_sales")
+    session.read.csv(os.path.join(root, "date_dim"), header=True,
+                     inferSchema=True).createOrReplaceTempView("date_dim")
+
+
 def register_sql_udfs(session, vector_ops):
     """The UDFs the SQL queries call, one per lane: ``brand_class`` is
     vectorized over the engine's tensors (``vector_ops``: the array module

@@ -716,15 +716,15 @@ def test_reserve_counts_array_planes_and_exploded_rows(baskets):
 
 
 def test_only_the_streaming_and_scan_constructs_stay_refused(tspark):
-    """What this slice brings is no longer refused: the function names
-    left are the event-time windows, the plan nodes the file scan and the
-    stateful groups; Sample and Explode plan to real operators."""
+    """What the array slice and the scan slice brought is no longer
+    refused: the function names left are the event-time windows, the plan
+    node the stateful groups (file scans came with the scan slice); Sample
+    and Explode plan to real operators."""
     from spark_tpu_torch.sql import analyzer as TA
     from spark_tpu_torch.sql import physical as P
     from spark_tpu_torch.sql.planner import QueryExecution
     assert sorted(TA.NOT_PORTED_FUNCTIONS) == ["window", "window_end"]
-    assert sorted(TA._NOT_PORTED) == ["FileRelation",
-                                      "FlatMapGroupsWithState"]
+    assert sorted(TA._NOT_PORTED) == ["FlatMapGroupsWithState"]
     _r, tdf = _frames_port(tspark)
     lists = tdf.groupBy("k").agg(TF.collect_list("v").alias("l"))
     for df, op in ((tdf.sample(0.5, 1), P.PSample),

@@ -342,3 +342,104 @@ def test_concurrent_sessions_share_entries(tsession):
     assert st["entries"] == 3, st        # the two literal variants share
     assert st["misses"] == 3 and st["uncacheable"] == 0, st
     assert st["hits"] + st["misses"] == n_threads * reps * len(texts), st
+
+
+# ---------------------------------------------------------------------------
+# file leaves: catalog tables and files written through the API
+# ---------------------------------------------------------------------------
+
+Q_TABLE = ("SELECT k % 5 AS g, sum(v) AS sv FROM pcinv_t "
+           "WHERE v < 120 GROUP BY k % 5 ORDER BY g")
+
+
+def _warehouse_root(root, tmp_path, name):
+    s = root.newSession()
+    s.conf.set("spark.sql.warehouse.dir", str(tmp_path / name))
+    return s
+
+
+def test_insert_from_another_session_invalidates(spark, tsession, tmp_path):
+    """The reference's case (``tests/test_serving.py``): two sessions
+    share an entry over a catalog table (a parquet file leaf); the
+    second's hit re-reads the file through the relation cache; an INSERT
+    from the second session evicts the entry, and the next run sees the
+    new rows, equal to a fresh session's; DROP TABLE makes the text
+    fail.  Both packages, same outcomes."""
+    outcomes = []
+    for root, cls, name in ((spark, RPlanCache, "rwh"),
+                            (tsession, PlanCache, "twh")):
+        root = _warehouse_root(root, tmp_path, name)
+        s1, cache = _attached(root, cls)
+        s2 = root.newSession()
+        s2._plan_cache = cache
+        s1.sql("CREATE TABLE pcinv_t USING parquet AS "
+               "SELECT id AS k, id * 3 AS v FROM range(50)")
+        a1, a2 = _rows(s1.sql(Q_TABLE)), _rows(s2.sql(Q_TABLE))
+        assert a1 == a2 and cache.stats()["hits"] == 1
+        s2.sql("INSERT INTO pcinv_t SELECT id AS k, id AS v FROM range(5)")
+        assert cache.stats()["invalidations"] >= 1
+        a3 = _rows(s1.sql(Q_TABLE))
+        assert a3 == _rows(root.newSession().sql(Q_TABLE)) and a3 != a1
+        s1.sql("DROP TABLE pcinv_t")
+        with pytest.raises(Exception):
+            s1.sql(Q_TABLE).collect()
+        outcomes.append((a1, a3))
+    assert outcomes[0] == outcomes[1]
+
+
+def test_dataframe_write_invalidates(spark, tsession, tmp_path):
+    """A DataFrame-API overwrite of a path evicts the entries whose file
+    leaves read it (the reference's regression case), in both
+    packages."""
+    q = "SELECT k % 4 AS g, sum(v) AS sv FROM pcw GROUP BY k % 4 ORDER BY g"
+    outcomes = []
+    for root, cls, name in ((spark, RPlanCache, "r.parquet"),
+                            (tsession, PlanCache, "t.parquet")):
+        s, cache = _attached(root, cls)
+        path = str(tmp_path / name)
+        s.sql("SELECT id AS k, id * 3 AS v FROM range(40)") \
+            .write.parquet(path)
+        s.read.parquet(path).createOrReplaceTempView("pcw")
+        a1 = _rows(s.sql(q))
+        assert _rows(s.sql(q)) == a1 and cache.stats()["hits"] == 1
+        before = cache.stats()["invalidations"]
+        s.sql("SELECT id AS k, id AS v FROM range(60)") \
+            .write.mode("overwrite").parquet(path)
+        assert cache.stats()["invalidations"] > before
+        a2 = _rows(s.sql(q))
+        assert a2 != a1
+        outcomes.append((a1, a2))
+    assert outcomes[0] == outcomes[1]
+
+
+def test_file_leaf_hit_rereads_the_files(tsession, tmp_path):
+    """A hit over a file leaf reads the files again through the relation
+    cache: while they are unchanged it gets the same batch and the same
+    stage entry; a file rewritten behind the catalog's back (no hook
+    fires) is read anew on the next hit, which keys a new stage entry —
+    the answer is never staler than the files."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from spark_tpu_torch import io as tio
+    path = str(tmp_path / "f.parquet")
+    pq.write_table(pa.table({"k": np.arange(30, dtype=np.int64),
+                             "v": np.arange(30, dtype=np.int64)}), path)
+    s, cache = _attached(tsession, PlanCache)
+    q = f"SELECT k % 3 AS g, sum(v) AS sv FROM parquet.`{path}` " \
+        "GROUP BY k % 3 ORDER BY g"
+    stages = stage_cache()
+    a1 = _rows(s.sql(q))
+    builds = stages.stats()["builds"]
+    hits0 = tio.SCAN_STATS["cache_hits"]
+    assert _rows(s.sql(q)) == a1
+    assert cache.stats()["hits"] == 1
+    assert stages.stats()["builds"] == builds          # same stage entry
+    assert tio.SCAN_STATS["cache_hits"] > hits0        # same batch
+    pq.write_table(pa.table({"k": np.arange(31, dtype=np.int64),
+                             "v": np.arange(31, dtype=np.int64) * 2}), path)
+    a3 = _rows(s.sql(q))
+    assert cache.stats()["hits"] == 2
+    assert stages.stats()["builds"] == builds + 1      # a new stage key
+    want = [(g, int(sum(2 * k for k in range(31) if k % 3 == g)))
+            for g in range(3)]
+    assert a3 == want

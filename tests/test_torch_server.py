@@ -581,3 +581,40 @@ def test_json_rows_equal_json_safe_of_collect():
             want = [[TS._json_safe(v) for v in r] for r in got.to_pylist()]
             have = TS._json_rows(got)
             assert json.dumps(have) == json.dumps(want), kind
+
+
+def test_ddl_and_insert_over_http_evict_other_sessions(impl, tmp_path):
+    """DDL and DML over HTTP, through the session: one client creates a
+    catalog table and POSTs a query over it twice (the second a plan-cache
+    hit whose file leaf was re-read), a second client's session INSERTs
+    INTO the table, and the first client's third POST shows the new rows;
+    the invalidation count rises.  Both servers, equal replies."""
+    impl.root.conf.set("spark.sql.warehouse.dir", str(tmp_path / "wh"))
+    srv = impl.srv.SQLServer(impl.root, port=0).start()
+    try:
+        _, s1 = _req(srv, "/session", "POST")
+        _, s2 = _req(srv, "/session", "POST")
+        a, b = s1["sessionId"], s2["sessionId"]
+        _sql(srv, "CREATE TABLE ht USING parquet AS "
+                  "SELECT id % 7 AS k, id AS v FROM range(70)", a)
+        q = "SELECT k, sum(v) AS s, count(*) AS c FROM ht GROUP BY k " \
+            "ORDER BY k"
+        first, again = _sql(srv, q, a), _sql(srv, q, a)
+        assert first["cacheHit"] is False and again["cacheHit"] is True
+        assert again["rows"] == first["rows"] == [
+            [k, sum(range(k, 70, 7)), 10] for k in range(7)]
+        _, st = _req(srv, "/status")
+        before = st["planCache"]["invalidations"]
+        _sql(srv, "INSERT INTO ht SELECT 0, 1000 FROM range(3)", b)
+        _, st = _req(srv, "/status")
+        assert st["planCache"]["invalidations"] > before
+        third = _sql(srv, q, a)
+        assert third["rows"][0] == [0, sum(range(0, 70, 7)) + 3000, 13]
+        assert third["rows"][1:] == first["rows"][1:]
+        shown = _sql(srv, "SHOW TABLES", b)
+        assert ["ht", "false"] in shown["rows"]
+        _sql(srv, "DROP TABLE ht", b)
+        assert _sql(srv, "SHOW TABLES", a)["rows"] == [] or \
+            ["ht", "false"] not in _sql(srv, "SHOW TABLES", a)["rows"]
+    finally:
+        srv.stop()

@@ -336,22 +336,36 @@ def _sql_cases():
     return [name for name in SQL_QUERIES if name != "UDF row"]
 
 
-@pytest.mark.parametrize("name", ["hash-agg", "hash-agg wide keys", "q3"]
+@pytest.mark.parametrize("name", ["hash-agg", "hash-agg wide keys", "q3",
+                                  "hash-agg file", "q3 file"]
                          + _sql_cases())
-def test_replay_makes_no_host_sync_or_copy(tspark, monkeypatch, name):
+def test_replay_makes_no_host_sync_or_copy(tspark, monkeypatch, tmp_path,
+                                           name):
     """The queries ``chip_smoke.py`` runs through the graph lane (hash-agg
     also on keys too wide for the bucket table, the sorted form; q3's
-    brand ids take it too): the second run replays the first one's
-    record and must touch no host value of a tensor and build no tensor
-    from host values."""
-    from spark_tpu_torch.testing import (SQL_QUERIES, register_sql_tables,
-                                         register_sql_udfs)
+    brand ids take it too; hash-agg and q3's TPC-DS text over file leaves,
+    the ``[scan]`` phase's tables): the second run replays the first
+    one's record and must touch no host value of a tensor and build no
+    tensor from host values."""
+    from spark_tpu_torch.testing import (HASH_AGG_SQL, Q3_SQL, SQL_QUERIES,
+                                         read_scan_tables,
+                                         register_sql_tables,
+                                         register_sql_udfs,
+                                         write_scan_tables)
     monkeypatch.setattr(TK, "MXU_AGG_ENABLED", True)
     tables = q3_tables(n_sales=5000, n_items=3000, n_dates=3000)
     hash_table = hash_agg_table(2048, 40)
     register_sql_tables(tspark, hash_table, tables, TT)
     register_sql_udfs(tspark, torch)
-    if name == "hash-agg":
+    if name.endswith(" file"):
+        session = tspark.newSession()
+        session.conf.set("spark.sql.warehouse.dir", str(tmp_path / "wh"))
+        write_scan_tables(session, hash_table, tables, TT, str(tmp_path),
+                          row_group_rows=1024)
+        read_scan_tables(session, str(tmp_path))
+        df = session.sql(HASH_AGG_SQL if name.startswith("hash")
+                         else Q3_SQL)
+    elif name == "hash-agg":
         df = hash_agg_query(tspark, TF, hash_table)
     elif name == "hash-agg wide keys":
         df = hash_agg_query(tspark, TF, {
@@ -411,3 +425,44 @@ def test_plan_cache_hit_makes_no_host_sync_or_copy(tspark, monkeypatch,
     assert after["dispatches"] == before["dispatches"] + 1
     assert (after["variants"], after["guard_misses"]) == \
         (before["variants"], before["guard_misses"])
+
+
+def test_file_leaf_stage_key_follows_the_files(tspark, tmp_path):
+    """Two runs of one text over unchanged files share one stage key (the
+    relation cache returns the same batch, with its dictionaries); after
+    a file changes the next run gets a new key, and the answer is the new
+    file's.  ``_plan_reserve_bytes`` counts the file leaf's device copy
+    on top of the working set an in-memory leaf of the same batch
+    takes."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from spark_tpu_torch.memory import batch_nbytes
+    from spark_tpu_torch.sql.planner import (PlannedQuery,
+                                             _plan_reserve_bytes, stage_key)
+    path = str(tmp_path / "f.parquet")
+    words = np.array(["x", "y", "z"])
+    pq.write_table(pa.table({"k": words[np.arange(40) % 3],
+                             "v": np.arange(40, dtype=np.int64)}), path)
+    q = f"SELECT k, sum(v) AS s FROM parquet.`{path}` GROUP BY k ORDER BY k"
+
+    def key():
+        qe = TQE(tspark, tspark.sql(q)._plan)
+        return stage_key(tspark, qe.planned)[0], qe.planned
+
+    k1, pq1 = key()
+    k2, pq2 = key()
+    assert k1 == k2 and pq1.leaves[0] is pq2.leaves[0]
+    leaf = pq1.leaves[0]
+    assert leaf.source is not None and f"@{leaf.source}" in k1
+    in_memory = PlannedQuery(pq1.physical, [TSC._clone_batch(leaf)])
+    assert _plan_reserve_bytes(pq1) - _plan_reserve_bytes(in_memory) \
+        == batch_nbytes(leaf)
+    assert [tuple(r) for r in tspark.sql(q).collect()] == \
+        [("x", sum(range(0, 40, 3))), ("y", sum(range(1, 40, 3))),
+         ("z", sum(range(2, 40, 3)))]
+    pq.write_table(pa.table({"k": words[np.arange(41) % 2],
+                             "v": np.arange(41, dtype=np.int64)}), path)
+    k3, _pq3 = key()
+    assert k3 != k1
+    assert [tuple(r) for r in tspark.sql(q).collect()] == \
+        [("x", sum(range(0, 41, 2))), ("y", sum(range(1, 41, 2)))]
