@@ -440,6 +440,144 @@ class ColumnBatch:
         return f"ColumnBatch({self.schema.simpleString()}, capacity={self.capacity})"
 
 
+# ---------------------------------------------------------------------------
+# host batch reshaping of the out-of-core runners
+# ---------------------------------------------------------------------------
+
+def pad_to_capacity(batch: ColumnBatch, cap: int) -> ColumnBatch:
+    """Grow a HOST batch to a larger static capacity: streamed scans pad
+    every batch to ONE capacity so the per-batch step is one stage entry
+    (``spark_tpu/columnar.py`` ``pad_to_capacity``).  Padding rows hold
+    zeros, are dead and carry no validity."""
+    if cap < batch.capacity:
+        raise ValueError(f"cannot shrink batch {batch.capacity} -> {cap}")
+    if cap == batch.capacity:
+        return batch
+    pad = cap - batch.capacity
+
+    def grow(t: torch.Tensor, fill=0) -> torch.Tensor:
+        tail = torch.full((pad,) + tuple(t.shape[1:]), fill, dtype=t.dtype)
+        return torch.cat([t, tail])
+
+    vectors = []
+    for v in batch.vectors:
+        fill = v.dtype.element_sentinel().item() \
+            if isinstance(v.dtype, T.ArrayType) else 0
+        vectors.append(ColumnVector(
+            grow(v.data, fill), v.dtype,
+            None if v.valid is None else grow(v.valid, False),
+            v.dictionary))
+    rv = torch.zeros(cap, dtype=torch.bool)
+    rv[:batch.capacity] = batch.row_valid_or_true()
+    return ColumnBatch(list(batch.names), vectors, rv, cap)
+
+
+def normalize_valids(batch: ColumnBatch) -> ColumnBatch:
+    """Every implicit (None) validity mask and the row mask made explicit
+    (``spark_tpu/columnar.py`` ``normalize_valids``): which masks a batch
+    carries is part of a stage variant's ``leaf_aux``, so two scan
+    batches that differ only in "this column held a null" must not be
+    two variants of the per-batch step."""
+    ones = None
+
+    def true():
+        nonlocal ones
+        if ones is None:
+            ones = torch.ones(batch.capacity, dtype=torch.bool,
+                              device=batch.device)
+        return ones
+
+    vectors = [v if v.valid is not None else
+               ColumnVector(v.data, v.dtype, true(), v.dictionary)
+               for v in batch.vectors]
+    rv = batch.row_valid if batch.row_valid is not None else true()
+    return ColumnBatch(list(batch.names), vectors, rv, batch.capacity,
+                       batch.source)
+
+
+def slice_rows(batch: ColumnBatch, start: int, stop: int) -> ColumnBatch:
+    """Rows ``[start, stop)`` of a host batch, padded to their capacity
+    (``spark_tpu/io.py`` ``_slice_rows``)."""
+    vectors = [ColumnVector(v.data[start:stop], v.dtype,
+                            None if v.valid is None else v.valid[start:stop],
+                            v.dictionary) for v in batch.vectors]
+    rv = None if batch.row_valid is None else batch.row_valid[start:stop]
+    out = ColumnBatch(list(batch.names), vectors, rv, stop - start)
+    return pad_to_capacity(out, pad_capacity(stop - start))
+
+
+def live_prefix(batch: ColumnBatch) -> ColumnBatch:
+    """Exactly the live rows of a COMPACTED host batch (capacity = row
+    count, no row mask)."""
+    n = int(batch.num_rows())
+    if n == batch.capacity and batch.row_valid is None:
+        return batch
+    vectors = [ColumnVector(v.data[:n], v.dtype,
+                            None if v.valid is None else v.valid[:n],
+                            v.dictionary) for v in batch.vectors]
+    return ColumnBatch(list(batch.names), vectors, None, n)
+
+
+def remap_codes(codes: torch.Tensor, table) -> torch.Tensor:
+    """Dictionary codes gathered into a merged code space through a
+    monotone ``table[old] -> new``; sentinel-preserving as in the
+    reference (``kernels.remap_codes``): codes at or above ``len(table)``
+    (a min buffer's INT32_MAX identity) become INT32_MAX and negative
+    codes (NULL, a max buffer's identity) pass through."""
+    n = len(table)
+    if not n:
+        return codes
+    t = torch.as_tensor(np.asarray(table), dtype=codes.dtype,
+                        device=codes.device)
+    gathered = t[codes.clamp(0, n - 1).long()]
+    hi = torch.tensor(np.iinfo(np.int32).max, dtype=codes.dtype,
+                      device=codes.device)
+    out = torch.where(codes >= n, hi, gathered)
+    return torch.where(codes < 0, codes, out)
+
+
+def union_all(batches: Sequence[ColumnBatch]) -> ColumnBatch:
+    """Concatenate host batches (capacity = sum), string columns
+    re-encoded onto a merged dictionary (``spark_tpu/kernels.py``
+    ``union_all``; identical dictionaries skip the remap)."""
+    assert batches
+    names = batches[0].names
+    capacity = sum(b.capacity for b in batches)
+    vectors: List[ColumnVector] = []
+    for ci in range(len(names)):
+        vecs = [b.vectors[ci] for b in batches]
+        dtype = vecs[0].dtype
+        dicts = [v.dictionary for v in vecs]
+        if dtype.is_string or isinstance(dtype, T.BinaryType):
+            if len({d or () for d in dicts}) == 1:
+                data = torch.cat([v.data for v in vecs])
+                dictionary = dicts[0] or ()
+            else:
+                merged = dicts[0] or ()
+                remaps: List[Any] = [None] * len(vecs)
+                for i in range(1, len(vecs)):
+                    merged, ra, rb = merge_dictionaries(merged,
+                                                        dicts[i] or ())
+                    for j in range(i):
+                        remaps[j] = ra if remaps[j] is None else ra[remaps[j]]
+                    remaps[i] = rb
+                data = torch.cat([remap_codes(v.data, rm) if rm is not None
+                                  else v.data for v, rm in zip(vecs, remaps)])
+                dictionary = merged
+        else:
+            data = torch.cat([v.data.to(vecs[0].data.dtype) for v in vecs])
+            dictionary = None
+        valid = None
+        if any(v.valid is not None for v in vecs):
+            valid = torch.cat([
+                v.valid if v.valid is not None
+                else torch.ones(b.capacity, dtype=torch.bool)
+                for v, b in zip(vecs, batches)])
+        vectors.append(ColumnVector(data, dtype, valid, dictionary))
+    rv = torch.cat([b.row_valid_or_true() for b in batches])
+    return ColumnBatch(names, vectors, rv, capacity)
+
+
 class PrebuiltColumn:
     """An already-decoded column (data array + engine type + validity, and
     the sorted dictionary of a string column's codes): the file readers

@@ -299,10 +299,12 @@ COLLECT_MAX_LEN = conf("spark.tpu.collect.maxArrayLen").doc(
 
 MULTIBATCH_ENABLED = conf("spark.tpu.multibatch.enabled").doc(
     "Stream file scans larger than spark.tpu.scan.maxBatchRows through "
-    "the out-of-core runners instead of one eager device batch.  Those "
-    "runners are not ported: while this is true, a query over such a "
-    "file raises NotImplementedError naming the out-of-core slice; false "
-    "reads every file relation as one batch."
+    "the out-of-core runners instead of one eager device batch: a chain "
+    "of one-child operators over one file runs through the multi-batch "
+    "runner (sql/multibatch.py), any other plan through the stage DAG "
+    "(sql/stages.py).  The card holds one padded batch and its partial "
+    "result at a time; host RAM, then disk, hold the rest.  False reads "
+    "every file relation as one batch."
 ).boolean(True)
 
 SCAN_MAX_BATCH_ROWS = conf("spark.tpu.scan.maxBatchRows").doc(
@@ -312,9 +314,81 @@ SCAN_MAX_BATCH_ROWS = conf("spark.tpu.scan.maxBatchRows").doc(
 
 STAGES_ENABLED = conf("spark.tpu.stages.enabled").doc(
     "Run multi-relation plans over oversized file relations through the "
-    "streamed stage DAG (grace joins + broadcast-fused streams) instead "
-    "of one eager device batch (the out-of-core slice)."
+    "streamed stage DAG (grace hash joins, broadcast joins fused into "
+    "the per-batch step, the cross-batch mergers as breakers) instead of "
+    "one eager device batch."
 ).boolean(True)
+
+SCAN_PREFETCH_BATCHES = conf("spark.tpu.scan.prefetchBatches").doc(
+    "How many scan batches a background thread decodes ahead of the "
+    "per-batch step.  0 disables the thread (a synchronous scan); -1 = "
+    "auto: 2 on a cuda session, 0 when the step itself runs on the host "
+    "CPU (where the decode thread would compete for the same cores)."
+).int(-1)
+
+SPILL_MEMORY_ROWS = conf("spark.tpu.spill.hostMemoryRows").doc(
+    "Host-RAM row budget for multi-batch intermediates (sorted runs, "
+    "concatenated spine output, grace buckets); beyond it, runs spill to "
+    "disk under spark.tpu.spill.dir."
+).int(1 << 24)
+
+SPILL_DIR = conf("spark.tpu.spill.dir").doc(
+    "Directory for spilled intermediate runs; empty = a directory per "
+    "process under the system's temporary directory."
+).string("")
+
+AGG_FOLD_ROWS = conf("spark.tpu.multibatch.aggFoldRows").doc(
+    "Accumulated partial-aggregate rows that trigger an intermediate "
+    "buffer-merge fold during a multi-batch aggregation."
+).int(1 << 18)
+
+MULTIBATCH_CKPT = conf("spark.tpu.multibatch.checkpointDir").doc(
+    "Directory for multi-batch run checkpoints (merger state + scan "
+    "cursor); empty = no checkpointing.  A rerun of the same query over "
+    "unchanged files resumes at the last checkpointed batch."
+).string("")
+
+MULTIBATCH_CKPT_INTERVAL = conf(
+    "spark.tpu.multibatch.checkpointInterval").doc(
+    "Scan batches between checkpoints when checkpointDir is set."
+).int(32)
+
+GRACE_AGG_BUCKETS = conf("spark.tpu.graceAgg.buckets").doc(
+    "Key-hash spill buckets for grace hash aggregation (collect_list/"
+    "collect_set/percentile over a streamed scan); each bucket is "
+    "aggregated on the host at the end."
+).int(32)
+
+GRACE_MAX_BUCKETS = conf("spark.tpu.join.graceMaxBuckets").doc(
+    "Upper bound on grace-hash-join partition count per join; skewed "
+    "buckets beyond batch capacity re-partition recursively with a salted "
+    "hash, then fall back to a chunked probe/build loop."
+).int(1024)
+
+SHUFFLE_WIRE_CODEC = conf("spark.tpu.shuffle.wire.codec").doc(
+    "Per-column byte codec of the framed columnar wire format (the "
+    "SpilledRuns spill files): one of codec.CODECS ('none', 'zlib', "
+    "'lzma', 'bz2').  Applied per column buffer above "
+    "compressThreshold, kept only when it shrinks the buffer."
+).string("zlib")
+
+SHUFFLE_WIRE_COMPRESS_THRESHOLD = conf(
+    "spark.tpu.shuffle.wire.compressThreshold").doc(
+    "Column buffers at or above this many bytes are candidates for wire "
+    "compression; smaller ones skip the codec call."
+).check(lambda v: v >= 0).int(1 << 20)
+
+SHUFFLE_WIRE_RUN_CODES = conf("spark.tpu.shuffle.wire.runCodes").doc(
+    "Run-length/delta encode eligible wire columns (a per-column "
+    "sampled-benefit probe).  The port decodes run-coded columns to "
+    "dense vectors."
+).boolean(True)
+
+SHUFFLE_SPILL_THRESHOLD = conf("spark.tpu.shuffle.spillThresholdBytes").doc(
+    "Raw bytes of sorted or concatenated runs held in host RAM before "
+    "they spill to disk, beside spark.tpu.spill.hostMemoryRows.  0 = the "
+    "row budget alone."
+).check(lambda v: v >= 0).int(0)
 
 WAREHOUSE_DIR = conf("spark.sql.warehouse.dir").doc(
     "Root directory for persistent (non-temp) tables and databases "

@@ -28,9 +28,17 @@ discovery, ``FileFormatWriter.scala``), re-based on Arrow as there:
 pyarrow is the host decoder, as in the JAX package, and is imported only
 inside this module's functions: ``import spark_tpu_torch`` needs none of
 it, and a read without it raises ``ImportError`` naming the package.
-Streamed (multi-batch) scans, their prefetch pipeline and the global
-string dictionaries come with the out-of-core slice; the jdbc source
-with the serving slice's jdbc module.
+
+A file relation above ``spark.tpu.scan.maxBatchRows`` rows is never one
+batch: the out-of-core runners stream it (``scan_file_batches``).
+Parquet streams record batches straight off the files, keeping column
+pruning and row-group skipping; the other formats slice one uncached
+host table.  Every streamed batch is re-encoded onto the relation's
+global string dictionaries (``scan_string_dictionaries``), padded to
+one capacity and decoded ``prefetch_iter``'s depth ahead of the step on
+a background thread; on a ``cuda`` session it lands in a ring of pinned
+host batches (``PinnedRing``) that is reused, never in the relation
+cache.  The jdbc source comes with the serving slice's jdbc module.
 """
 
 from __future__ import annotations
@@ -47,12 +55,15 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from . import types as T
-from .columnar import ColumnBatch, PrebuiltColumn
+from .columnar import (ColumnBatch, ColumnVector, PrebuiltColumn,
+                       slice_rows)
 from .expressions import AnalysisException
 from .sql import logical as L
 
 __all__ = ["DataFrameReader", "DataFrameWriter", "read_file_relation",
-           "file_row_count", "SCAN_STATS"]
+           "file_row_count", "SCAN_STATS", "scan_file_batches",
+           "prefetch_iter", "scan_prefetch_depth",
+           "scan_string_dictionaries", "reencode_strings", "PinnedRing"]
 
 #: where the jdbc source comes from
 JDBC_NOT_PORTED = ("the jdbc source is not ported yet: it comes with "
@@ -308,7 +319,8 @@ def _stat_token(files: List[str]) -> tuple:
 #: and relation-cache hits; reset freely
 SCAN_STATS = {"files": 0, "row_groups": 0, "row_groups_skipped": 0,
               "rows": 0, "columns_read": 0, "decode_ms": 0.0,
-              "cache_hits": 0}
+              "cache_hits": 0, "batches": 0, "rows_streamed": 0,
+              "bytes_to_device": 0}
 
 
 def reset_scan_stats() -> None:
@@ -560,10 +572,26 @@ def _load_batch(fmt: str, raw_paths, options: Dict[str, str],
     if batch is not None:
         SCAN_STATS["cache_hits"] += 1
         return batch
+    t0 = time.perf_counter()
+    batch = _decode_files(fmt, files, raw_paths, options, columns, pushed)
+    batch.source = hashlib.sha1(repr(key).encode()).hexdigest()[:16]
+    if pin:
+        batch = batch.pinned()
+    SCAN_STATS["decode_ms"] += (time.perf_counter() - t0) * 1e3
+    with _relation_lock:
+        _relation_cache[key] = batch
+        while len(_relation_cache) > RELATION_CACHE_MAX:
+            _relation_cache.popitem(last=False)
+    return batch
+
+
+def _decode_files(fmt: str, files: List[str], raw_paths,
+                  options: Dict[str, str], columns=None, pushed=None
+                  ) -> ColumnBatch:
+    """One host batch of ``files`` (uncached, unpinned)."""
     base_reader = _READERS.get(fmt)
     if base_reader is None:
         raise AnalysisException(f"unsupported format: {fmt}")
-    t0 = time.perf_counter()
     if fmt == "parquet":
         def reader(paths, opts):
             return _read_parquet(paths, opts, columns=columns, pushed=pushed)
@@ -597,16 +625,7 @@ def _load_batch(fmt: str, raw_paths, options: Dict[str, str],
         extra = {k: _infer_partition_column(v) for k, v in cols.items()}
     else:
         table = reader(files, options)
-    batch = _table_to_batch(table, extra)
-    batch.source = hashlib.sha1(repr(key).encode()).hexdigest()[:16]
-    if pin:
-        batch = batch.pinned()
-    SCAN_STATS["decode_ms"] += (time.perf_counter() - t0) * 1e3
-    with _relation_lock:
-        _relation_cache[key] = batch
-        while len(_relation_cache) > RELATION_CACHE_MAX:
-            _relation_cache.popitem(last=False)
-    return batch
+    return _table_to_batch(table, extra)
 
 
 def read_file_relation(rel: L.FileRelation, session) -> ColumnBatch:
@@ -641,10 +660,294 @@ def file_row_count(rel: L.FileRelation) -> Optional[int]:
         if st and st.get("rows") is not None:
             n = int(st["rows"])
         else:
-            batch = _load_batch(rel.fmt, rel.paths, rel.options)
+            # counted from an uncached decode: the relation cache would
+            # hold the whole file, which may be one that streams
+            batch = _decode_files(rel.fmt, files, rel.paths, rel.options)
             n = int(batch.num_rows())
     _ROW_COUNT_CACHE[key] = n
     return n
+
+
+# ---------------------------------------------------------------------------
+# streamed scans (the out-of-core runners' source)
+# ---------------------------------------------------------------------------
+
+def scan_file_batches(rel: L.FileRelation, batch_rows: int):
+    """Host batches of at most ``batch_rows`` rows each, in scan order.
+
+    Parquet streams record batches straight off the files (bounded host
+    memory), keeping column pruning and row-group skipping; the other
+    formats slice one host table, decoded once and never kept in the
+    relation cache.  Partition-directory columns are appended per
+    file."""
+    if rel.fmt == "jdbc":
+        raise NotImplementedError(JDBC_NOT_PORTED)
+    columns = rel.columns
+    pushed = rel.pushed_filters
+    files = _resolve_paths(rel.paths)
+    base = _base_dir(rel.paths)
+    if rel.fmt == "parquet":
+        pa = _pyarrow()
+        yielded = False
+        for f in files:
+            pvals = _partition_values(f, base)
+            if columns is not None:
+                pvals = {k: v for k, v in pvals.items() if k in columns}
+            pf, present, keep = _open_pruned(f, columns, pushed)
+            if keep == []:
+                continue
+            kw = {} if keep is None else {"row_groups": keep}
+            it = pf.iter_batches(batch_size=batch_rows, columns=present,
+                                 **kw)
+            while True:
+                t0 = time.perf_counter()
+                rb = next(it, None)
+                if rb is None:
+                    break
+                table = pa.Table.from_batches([rb])
+                SCAN_STATS["rows"] += table.num_rows
+                extra = {k: _infer_partition_column([v] * table.num_rows)
+                         for k, v in pvals.items()} or None
+                batch = _table_to_batch(table, extra)
+                SCAN_STATS["decode_ms"] += (time.perf_counter() - t0) * 1e3
+                SCAN_STATS["batches"] += 1
+                SCAN_STATS["rows_streamed"] += table.num_rows
+                yielded = True
+                yield batch
+        if not yielded:
+            # every row group was skipped: one empty batch, so that the
+            # runners still see the (pruned) schema
+            yield ColumnBatch.empty(rel.schema())
+        return
+    t0 = time.perf_counter()
+    whole = _decode_files(rel.fmt, files, rel.paths, rel.options,
+                          columns=columns)
+    SCAN_STATS["decode_ms"] += (time.perf_counter() - t0) * 1e3
+    n = int(whole.num_rows())
+    for start in range(0, max(n, 1), batch_rows):
+        stop = min(start + batch_rows, n)
+        SCAN_STATS["batches"] += 1
+        SCAN_STATS["rows_streamed"] += stop - start
+        yield slice_rows(whole, start, stop)
+
+
+def scan_prefetch_depth(session) -> int:
+    """``spark.tpu.scan.prefetchBatches``; -1 (auto) is 2 when the step
+    runs on a card (the session's device is ``cuda``) and 0 when it runs
+    on the host CPU, whose cores the decode thread would share."""
+    from . import config as C
+    d = session.conf.get(C.SCAN_PREFETCH_BATCHES)
+    if d >= 0:
+        return d
+    return 2 if session.device.type == "cuda" else 0
+
+
+def prefetch_iter(inner, prep=None, depth: int = 2):
+    """Iterate ``inner`` through a bounded background thread that pulls
+    items and applies ``prep`` (decode, string re-encode, pad, the copy
+    into a pinned ring slot) up to ``depth`` items ahead of the consumer,
+    so the host work of batch N+1 overlaps the step of batch N (the
+    reference's ``prefetch_iter``).  ``depth <= 0`` iterates in the
+    caller's thread.  A worker exception re-raises at the consumer;
+    leaving the loop early stops the worker and closes ``inner``."""
+    if depth <= 0:
+        for item in inner:
+            yield prep(item) if prep is not None else item
+        return
+    import queue as _qmod
+
+    q: "_qmod.Queue" = _qmod.Queue(maxsize=depth)
+    stop = threading.Event()
+
+    def _put(msg) -> None:
+        while not stop.is_set():
+            try:
+                q.put(msg, timeout=0.2)
+                return
+            except _qmod.Full:
+                continue
+
+    def worker() -> None:
+        try:
+            try:
+                for item in inner:
+                    out = prep(item) if prep is not None else item
+                    _put(("item", out))
+                    if stop.is_set():
+                        return
+            finally:
+                close = getattr(inner, "close", None)
+                if close is not None:
+                    close()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            _put(("raise", e))
+        else:
+            _put(("end", None))
+
+    th = threading.Thread(target=worker, daemon=True, name="scan-prefetch")
+    th.start()
+    try:
+        while True:
+            kind, payload = q.get()
+            if kind == "item":
+                yield payload
+            elif kind == "raise":
+                raise payload
+            else:
+                return
+    finally:
+        stop.set()
+        try:                       # unblock a worker stuck on a full queue
+            while True:
+                q.get_nowait()
+        except _qmod.Empty:
+            pass
+        th.join(timeout=5)
+
+
+def scan_string_dictionaries(rel: L.FileRelation,
+                             batch_rows: int) -> Dict[str, tuple]:
+    """The GLOBAL sorted dictionary of every string column of a file
+    relation, from one pre-pass that reads only those columns: every
+    streamed batch is re-encoded onto them, so the per-batch step keeps
+    one variant and code order stays word order across batches."""
+    schema = rel.schema()
+    str_cols = [f.name for f in schema.fields if f.dataType.is_string]
+    if not str_cols:
+        return {}
+    uniques: Dict[str, set] = {c: set() for c in str_cols}
+    files = _resolve_paths(rel.paths)
+    if rel.fmt == "parquet":
+        import pyarrow.compute as pc
+        import pyarrow.parquet as pq
+        for f in files:
+            pf = pq.ParquetFile(f)
+            present = [c for c in str_cols if c in pf.schema_arrow.names]
+            if not present:
+                continue
+            for rb in pf.iter_batches(batch_size=batch_rows, columns=present):
+                for c in present:
+                    col = rb.column(rb.schema.get_field_index(c))
+                    uniques[c].update(v for v in pc.unique(col).to_pylist()
+                                      if v is not None)
+    else:
+        whole = _decode_files(rel.fmt, files, rel.paths, rel.options)
+        for c in str_cols:
+            if c in whole.names:
+                vec = whole.column(c)
+                if vec.dictionary:
+                    uniques[c].update(vec.dictionary)
+    base = _base_dir(rel.paths)
+    for f in files:
+        for k, v in _partition_values(f, base).items():
+            if k in uniques:
+                uniques[k].add(v)
+    return {c: tuple(sorted(s)) for c, s in uniques.items()}
+
+
+def reencode_strings(batch: ColumnBatch,
+                     fixed_dicts: Dict[str, tuple]) -> ColumnBatch:
+    """Per-batch string codes remapped onto fixed global dictionaries
+    (both sorted: the remap table is one searchsorted); NULL codes stay
+    -1."""
+    if not fixed_dicts:
+        return batch
+    import torch
+    vectors = []
+    for name, v in zip(batch.names, batch.vectors):
+        target = fixed_dicts.get(name)
+        if target is None or v.dictionary is None or \
+                tuple(v.dictionary) == tuple(target):
+            vectors.append(v)
+            continue
+        tarr = np.asarray(target, dtype=object)
+        local = np.asarray(v.dictionary, dtype=object)
+        codes = v.data.numpy().astype(np.int64)
+        if len(local):
+            remap = np.searchsorted(tarr, local).astype(np.int32)
+            new = remap[np.clip(codes, 0, len(local) - 1)]
+        else:
+            new = np.zeros(len(codes), np.int32)
+        new = np.where(codes < 0, -1, new).astype(np.int32)
+        vectors.append(ColumnVector(torch.from_numpy(new), v.dtype, v.valid,
+                                    tuple(target)))
+    return ColumnBatch(list(batch.names), vectors, batch.row_valid,
+                       batch.capacity)
+
+
+class PinnedRing:
+    """A ring of pinned host batches, one streamed batch each, reused in
+    turn: the decode thread copies a prepared batch into a free slot,
+    the consumer's ``non_blocking`` copies read it on the card's stream,
+    and ``release`` records an event behind them; a slot is written
+    again only after that event has fired.  Slots are allocated on first
+    use (PyTorch's caching host allocator keeps the pinned blocks for
+    the next scan) and never pinned per batch."""
+
+    def __init__(self, n_slots: int):
+        self.n = max(1, n_slots)
+        self._bufs: List[Optional[List[Any]]] = [None] * self.n
+        self._free = [threading.Event() for _ in range(self.n)]
+        for e in self._free:
+            e.set()
+        self._events: List[Any] = [None] * self.n
+        self._next = 0
+        self._closed = False
+
+    def fill(self, batch: ColumnBatch) -> Tuple[ColumnBatch, int]:
+        """``batch`` copied into the next slot: (the slot's batch, slot)."""
+        import torch
+        i = self._next
+        self._next = (i + 1) % self.n
+        while not self._free[i].wait(0.2):
+            if self._closed:
+                raise RuntimeError("pinned scan ring closed")
+        self._free[i].clear()
+        if self._events[i] is not None:
+            self._events[i].synchronize()
+        src = _batch_tensors(batch)
+        bufs = self._bufs[i]
+        if bufs is None or [(b.shape, b.dtype) for b in bufs] != \
+                [(t.shape, t.dtype) for t in src]:
+            bufs = self._bufs[i] = [
+                torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in src]
+        for dst, t in zip(bufs, src):
+            dst.copy_(t)
+        return _with_tensors(batch, bufs), i
+
+    def release(self, i: int) -> None:
+        """The consumer has queued its copies of slot ``i``."""
+        import torch
+        ev = torch.cuda.Event()
+        ev.record()
+        self._events[i] = ev
+        self._free[i].set()
+
+    def close(self) -> None:
+        self._closed = True
+        for e in self._free:
+            e.set()
+
+
+def _batch_tensors(batch: ColumnBatch) -> List[Any]:
+    out = []
+    for v in batch.vectors:
+        out.append(v.data)
+        if v.valid is not None:
+            out.append(v.valid)
+    if batch.row_valid is not None:
+        out.append(batch.row_valid)
+    return out
+
+
+def _with_tensors(batch: ColumnBatch, tensors) -> ColumnBatch:
+    it = iter(tensors)
+    vectors = [ColumnVector(next(it), v.dtype,
+                            None if v.valid is None else next(it),
+                            v.dictionary) for v in batch.vectors]
+    rv = None if batch.row_valid is None else next(it)
+    return ColumnBatch(list(batch.names), vectors, rv, batch.capacity)
 
 
 # ---------------------------------------------------------------------------

@@ -664,6 +664,81 @@ class DFinalAggregate(DNode):
                 f"aggs=[{', '.join(n for _, n in self.slots)}]")
 
 
+class DMergePartial(DNode):
+    """Merge partial-aggregate states into a MERGED PARTIAL (not finished)
+    batch: re-groups by keys and reduces every buffer with its own kind,
+    under the partial's buffer names and schema (mode=PartialMerge of
+    ``AggUtils.scala``; ``spark_tpu/parallel/dist.py`` ``DMergePartial``).
+
+    The multi-batch runner's cross-batch fold: fold(partials) is itself a
+    valid partial, so folds chain without finishing, and first/last
+    value-carry triples merge by the ``_first_last_reduce`` the final
+    stage uses."""
+
+    def __init__(self, keys, slots, partial: DPartialAggregate, child):
+        self.keys = list(keys)
+        self.slots = list(slots)
+        self.partial = partial
+        self.children = (child,)
+
+    def schema(self):
+        return self.partial.schema()
+
+    def run(self, ctx):
+        batch = self.children[0].run(ctx)
+        ectx = EvalContext(batch)
+        live = batch.row_valid_or_true().expand(batch.capacity)
+        capacity = batch.capacity
+        dev = batch.device
+
+        key_vals = [ectx.broadcast(Col(k.name).eval(ectx)) for k in self.keys]
+        perm, seg_ids, is_start, num_groups = _group_by_keys(
+            key_vals, live, capacity)
+        cs_child = self.partial.children[0].schema()
+        names, vectors = _emit_group_keys(
+            self.keys, [k.data_type(cs_child) for k in self.keys],
+            key_vals, perm, seg_ids, is_start, capacity)
+
+        for i, (func, _n) in enumerate(self.slots):
+            bnames = self.partial.buffer_names(i, func)
+            if isinstance(func, First):
+                is_last = getattr(func, "ARGREDUCE", "first") == "last"
+                dead_rank = _dead_rank(is_last)
+                val_col = batch.column(bnames[1])
+                rank_m = torch.where(live, batch.column(bnames[0]).data,
+                                     dead_rank)
+                validplane = batch.column(bnames[2]).data != 0
+                r_s, v_s, vp_s = _sorted(perm, rank_m, val_col.data,
+                                         validplane)
+                r_red, v_red, valid_red = _first_last_reduce(
+                    r_s, dead_rank, v_s, vp_s, seg_ids, is_last,
+                    capacity, global_mode=perm is None)
+                names += bnames
+                vectors.append(ColumnVector(r_red, T.int64, None, None))
+                vectors.append(ColumnVector(v_red.to(val_col.data.dtype),
+                                            val_col.dtype, None,
+                                            val_col.dictionary))
+                vectors.append(ColumnVector(valid_red.to(torch.int8),
+                                            T.int8, None, None))
+                continue
+            for j, kind in enumerate(DFinalAggregate._buffer_kinds(func)):
+                col = batch.column(bnames[j])
+                ident = torch.tensor(identity(kind, col.data.dtype),
+                                     dtype=col.data.dtype, device=dev)
+                masked = torch.where(live, col.data, ident)
+                names.append(bnames[j])
+                vectors.append(ColumnVector(
+                    _reduce_buf(masked, perm, seg_ids, capacity, kind),
+                    col.dtype, None, col.dictionary))
+        return ColumnBatch(names, vectors,
+                           _group_rows(self.keys, num_groups, capacity, dev),
+                           capacity)
+
+    def __repr__(self):
+        return (f"MergePartial keys=[{', '.join(map(repr, self.keys))}] "
+                f"aggs=[{', '.join(n for _, n in self.slots)}]")
+
+
 class DGlobalAggregate(DNode):
     """No-key aggregation: partial buffers per shard → psum → finish."""
 

@@ -504,13 +504,16 @@ class PlanCache:
         return out
 
     def run_staged(self, qe, kind: str, thunk) -> Any:
-        """The cache hook for MESH-LANE statements (``kind`` ``dist``;
-        the out-of-core kinds ``multibatch`` and ``stages`` come with
-        their slice).  Execution always goes through ``thunk``; what is
-        cached cross-session is the statement-level ``_StageEntry``.  A
-        hit reports ``cacheHit``/``planningSkippedMs`` to the server;
-        literals in slot positions share one entry by the same
-        fingerprint slotting as the local path."""
+        """The cache hook for statements of the MESH LANE (``kind``
+        ``dist``) and of the OUT-OF-CORE runners (``multibatch``,
+        ``stages``), which stream, fork and shard: there is no single
+        program to store.  Execution always goes through ``thunk`` — the
+        per-batch steps live in the process stage cache, keyed by their
+        fingerprints — and what is cached cross-session is the
+        statement-level ``_StageEntry``.  A hit reports
+        ``cacheHit``/``planningSkippedMs`` to the server; literals in
+        slot positions share one entry by the same fingerprint slotting
+        as the local path."""
         session = qe.session
         info = {"hit": False, "skippedMs": 0.0}
         session._last_plan_cache_info = info
@@ -528,6 +531,10 @@ class PlanCache:
                 self._stage_entries.move_to_end(key)
         if entry is not None:
             out = thunk()
+            # sub-plans the thunk ran eagerly (a stage DAG's broadcast
+            # sides, grace bucket joins) reported on their own: the
+            # statement's report is this one
+            session._last_plan_cache_info = info
             with self._lock:
                 self.stage_hits += 1
             entry.hits += 1
@@ -541,6 +548,7 @@ class PlanCache:
         sc = stage_cache(session)
         ms0 = sc.stats()["compile_ms"]
         out = thunk()                    # exceptions propagate unrecorded
+        session._last_plan_cache_info = info
         paths = [os.path.abspath(p) for rel in _file_relations(qe.optimized)
                  for p in rel.paths]
         conf_snapshot = {e.key: session.conf.get(e)

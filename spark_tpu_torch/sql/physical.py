@@ -47,6 +47,9 @@ class ExecContext:
         #: called after each operator's run (the eager lane's statement
         #: cancellation checkpoint); None inside a captured stage
         self.checkpoint = None
+        #: high bits of first/last row ranks (``dist.DPartialAggregate``):
+        #: 0 on one device, ``shard << 48`` in a mesh shard
+        self.shard_offset = 0
 
     def add_flag(self, value: Array, kind: str, cap: int) -> None:
         self.flags.append(value)

@@ -56,8 +56,26 @@ def _fanout_error(where: str, est_rows: float, factor: float,
         f"{where} output needs ~{est_rows:,.0f} rows of static capacity "
         f"(factor {factor:.2f}x over {probe_rows:,} probe rows; > "
         f"{C.JOIN_OUTPUT_MAX_ROWS.key}={cap}): the join fans out too "
-        "much for eager in-memory execution.  Reduce the hot-key fanout "
-        "or raise the cap explicitly")
+        "much for eager in-memory execution.  Route it out-of-core "
+        f"(file-backed inputs larger than {C.SCAN_MAX_BATCH_ROWS.key} "
+        "stream through the grace-join stage runner), reduce the "
+        "hot-key fanout, or raise the cap explicitly")
+
+
+def check_factor_cap(factor: float, probe_rows: int, session,
+                     where: str = "join") -> None:
+    """Fanout guard where a join's probe capacity is known directly (the
+    streamed step passes each join's OWN static probe base): an output
+    buffer beyond ``spark.sql.join.maxOutputRows`` rows raises the typed
+    ``JoinFanoutError`` — which the stage DAG's ``_Builder`` catches to
+    re-route a join through the grace spill path — instead of exhausting
+    memory.
+    The bound is absolute rows: a large factor on a small batch is
+    fine."""
+    cap = session.conf.get(C.JOIN_OUTPUT_MAX_ROWS)
+    est = factor * max(probe_rows, 1)
+    if est > cap:
+        raise _fanout_error(where, est, factor, probe_rows, cap)
 
 
 def _overflow_ratio(flags: List[int], caps: List[int]) -> float:
@@ -239,43 +257,10 @@ def _plan_reserve_bytes(pq: "PlannedQuery") -> int:
                for b in pq.leaves) + extra
 
 
-#: the slice that brings the streamed runners for oversized file scans
-OUT_OF_CORE_SLICE = ("the out-of-core slice (sql/multibatch.py, "
-                     "sql/stages.py, io.scan_file_batches; ROADMAP item 8)")
-
-
-def check_out_of_core(session, plan: LogicalPlan) -> None:
-    """Raise where the JAX package leaves the eager path for its
-    out-of-core runners (``planner.py:597-611``): while
-    ``spark.tpu.multibatch.enabled`` is true, a file relation of more than
-    ``spark.tpu.scan.maxBatchRows`` rows is streamed through the stage
-    DAG (any plan, with ``spark.tpu.stages.enabled``) or the multi-batch
-    runner (a chain of one-child operators down to the file).  Those
-    runners are not ported, and such a file is never read as one device
-    batch instead."""
-    if not session.conf.get(C.MULTIBATCH_ENABLED):
-        return
-    batch_rows = session.conf.get(C.SCAN_MAX_BATCH_ROWS)
-    stages = session.conf.get(C.STAGES_ENABLED)
-
-    def walk(node: LogicalPlan, linear: bool) -> None:
-        if isinstance(node, FileRelation):
-            from ..io import file_row_count
-            n = file_row_count(node)
-            if n is not None and n > batch_rows and (stages or linear):
-                raise NotImplementedError(
-                    f"{node!r} holds {n:,} rows, more than "
-                    f"{C.SCAN_MAX_BATCH_ROWS.key}={batch_rows:,}: a scan "
-                    "that large streams through the out-of-core runners, "
-                    f"which are not ported yet: they come with "
-                    f"{OUT_OF_CORE_SLICE}.  Set {C.SCAN_MAX_BATCH_ROWS.key} "
-                    f"above the file's rows (or "
-                    f"{C.MULTIBATCH_ENABLED.key}=false) to read it as one "
-                    "batch")
-        for c in node.children:
-            walk(c, linear and len(node.children) == 1)
-
-    walk(plan, True)
+def _reads_files(plan: LogicalPlan) -> bool:
+    """Whether any leaf of ``plan`` is a file relation."""
+    return isinstance(plan, FileRelation) or any(
+        _reads_files(c) for c in plan.children)
 
 
 def _needs_local_fallback(plan: LogicalPlan) -> bool:
@@ -368,13 +353,17 @@ class Planner:
     """Logical → physical (``SparkPlanner.strategies`` analog)."""
 
     def __init__(self, session, join_factor_override=None,
-                 agg_shrink_override=None):
+                 agg_shrink_override=None, shrink_aggs: bool = True):
         #: None | float (every join) | list (per join construction index —
         #: chained joins must not COMPOUND one overflowing join's growth)
         self.session = session
         self.join_factor_override = join_factor_override
         #: None | int rows: adaptively grown keyed-agg output capacity
         self.agg_shrink_override = agg_shrink_override
+        #: False where a plan runs WITHOUT its flags being read (the
+        #: out-of-core runners' host folds): the shrink's overflow flag is
+        #: its only escape hatch, so such plans must not shrink
+        self.shrink_aggs = shrink_aggs
         self._join_seq = 0
         self._leaf_recipes: list = []
 
@@ -387,6 +376,8 @@ class Planner:
                  else f, n) for f, n in aggs]
 
     def _shrunk(self, agg: P.PhysicalPlan) -> P.PhysicalPlan:
+        if not self.shrink_aggs:
+            return agg
         rows = self.agg_shrink_override
         if rows is None:
             rows = self.session.conf.get(C.AGG_OUTPUT_ROWS)
@@ -534,14 +525,41 @@ class QueryExecution:
         return self._execute_inner()
 
     def _staged(self, kind: str, thunk):
-        """Route one mesh-lane execution through the serving plan
-        cache's statement-level bookkeeping: a repeat — from ANY server
-        session — reports ``cacheHit``.  Without an attached plan cache
-        this is the thunk."""
+        """Route one mesh-lane (``dist``) or out-of-core (``multibatch``,
+        ``stages``) execution through the serving plan cache's
+        statement-level bookkeeping: a repeat — from ANY server session —
+        reports ``cacheHit``.  Without an attached plan cache this is the
+        thunk."""
         plan_cache = self.session._plan_cache
         if plan_cache is None:
             return thunk()
         return plan_cache.run_staged(self, kind, thunk)
+
+    def _out_of_core(self, mesh=None) -> Optional[ColumnBatch]:
+        """The out-of-core path: a file scan larger than one batch streams
+        through the multi-batch runner (a one-child chain) or the stage
+        DAG (plans with joins), never as one batch.  With a ``mesh`` the
+        per-batch steps split over its shards, and the grace bucket joins
+        come back through the mesh lane.  None when no relation exceeds a
+        batch, or when the stage DAG cannot stream the plan (the caller's
+        eager path runs it); a plan that reads no file skips the file
+        stats."""
+        if not _reads_files(self.optimized):
+            return None
+        from .multibatch import plan_multibatch
+        mb = plan_multibatch(self.session, self.optimized, mesh=mesh)
+        if mb is not None:
+            return self._staged("multibatch", mb.execute)
+        from .stages import NotStreamable, plan_stages
+        st = plan_stages(self.session, self.optimized, mesh=mesh)
+        if st is None:
+            return None
+        try:
+            return self._staged("stages", st.execute)
+        except NotStreamable as e:
+            _log.warning("stage runner fallback to %s eager: %s",
+                         "local" if mesh is None else "distributed", e)
+            return None
 
     def _execute_inner(self) -> ColumnBatch:
         # Left out here, each with the slice that brings it:
@@ -551,14 +569,9 @@ class QueryExecution:
         #   run-length vectors;
         # * the cross-process exchange (crossproc_execute): the
         #   cross-process slice;
-        # * the multi-batch and stage-DAG out-of-core runners, alone and
-        #   under the mesh (and their plan-cache kinds): the out-of-core
-        #   slice, where check_out_of_core raises;
         # * the mesh lane under graphs: the mesh lane below stays eager.
         session = self.session
         session.raise_if_cancelled()      # checkpoint: before planning
-        # the out-of-core routing point: oversized file scans raise
-        check_out_of_core(session, self.optimized)
         n_shards = session.conf.get(C.MESH_SHARDS)
         if n_shards == 0:
             n_shards = 1          # "all local devices": the engine spans one
@@ -571,9 +584,16 @@ class QueryExecution:
             from ..parallel.executor import DistributedExecution
             from ..parallel.mesh import get_mesh
             mesh = get_mesh(n_shards, session.device)
+            out = self._out_of_core(mesh)
+            if out is not None:
+                return out
             return self._staged(
                 "dist", lambda: DistributedExecution(session, mesh).execute(
                     self.optimized))
+
+        out = self._out_of_core()
+        if out is not None:
+            return out
 
         # serving plan cache (serving/plancache.py): attached to server
         # sessions, shared across all of them.  A usable entry skips the

@@ -217,6 +217,67 @@ def _stack(scalars: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.stack([s.reshape(()).to(torch.int64) for s in scalars])
 
 
+#: packed read-backs of streamed steps (``ship_rows``): one per batch
+PACKED_READS = 0
+#: second reads of a streamed step whose live rows exceeded ``ship_rows``
+PACKED_REREADS = 0
+#: host ms in those read-backs, from the copy's call to its return (on a
+#: card this holds the wait for the step's kernels to finish)
+READBACK_MS = 0.0
+
+
+class _StreamStep(threading.local):
+    """Set while a streamed step is dispatched (``ship_rows``) and while
+    its one read-back runs: what the CPU tests trap host reads by."""
+    active = False
+    reading = False
+
+
+STREAM_STEP = _StreamStep()
+
+
+def _read_result(out, vec: torch.Tensor, ship_rows: Optional[int]):
+    """(result batch, host ints) of one run: ``out`` with the scalars read
+    back in one transfer (``ship_rows`` None: the caller reads ``out``
+    itself), or — a streamed step — the scalars and the first
+    ``ship_rows`` rows of every column of ``out`` in ONE packed copy
+    (``columnar.pack_to_host``).  When more rows are live than shipped,
+    a second copy brings the rest (``PACKED_REREADS``)."""
+    global PACKED_READS, PACKED_REREADS, READBACK_MS
+    if ship_rows is None:
+        return out, vec.cpu().tolist()
+    from ..columnar import ColumnBatch, ColumnVector, pack_to_host, \
+        pad_capacity
+    STREAM_STEP.reading = True
+    t0 = time.perf_counter()
+    try:
+        rows = min(ship_rows, out.capacity)
+        parts = [vec]
+        for v in out.vectors:
+            parts.append(v.data[:rows])
+            if v.valid is not None:
+                parts.append(v.valid[:rows])
+        if out.row_valid is not None:
+            parts.append(out.row_valid[:rows])
+        host = pack_to_host(parts)
+        PACKED_READS += 1
+        ints = host[0].tolist()
+        if ints[0] > rows:
+            PACKED_REREADS += 1
+            rows = min(pad_capacity(ints[0]), out.capacity)
+            full = out.packed_host(rows)
+            return full, ints
+        it = iter(host[1:])
+        vectors = [ColumnVector(next(it), v.dtype,
+                                None if v.valid is None else next(it),
+                                v.dictionary) for v in out.vectors]
+        rv = None if out.row_valid is None else next(it)
+        return ColumnBatch(out.names, vectors, rv, rows), ints
+    finally:
+        STREAM_STEP.reading = False
+        READBACK_MS += (time.perf_counter() - t0) * 1e3
+
+
 class _Variant:
     """One recorded run of an entry: its record (decisions, constants),
     the host metadata of its result and, on a card, its captured graph
@@ -295,7 +356,8 @@ class _CachedStage:
         return out, list(scalars) + run.guards, meta, len(run.guards)
 
     # -- the CPU: the same record and replay, eagerly -------------------
-    def dispatch_eager(self, leaves, params, finish, device):
+    def dispatch_eager(self, leaves, params, finish, device,
+                       ship_rows=None):
         """(result, build ms or None when an existing variant served)."""
         aux = leaf_aux(leaves)
         ptensors = [torch.as_tensor(p, device=device) for p in params]
@@ -303,20 +365,21 @@ class _CachedStage:
         if v is not None:
             out, scalars, meta, ng = self._run(leaves, ptensors, v.record,
                                                True)
-            host = _read_back(scalars)
+            res, host = _read_result(out, _stack(scalars), ship_rows)
             if all(host[len(host) - ng:]):
-                return finish(out, host[:len(host) - ng], meta), None
+                return finish(res, host[:len(host) - ng], meta), None
             self.guard_misses += 1
         t0 = time.perf_counter()
         record = StageRecord()
         out, scalars, meta, _ng = self._run(leaves, ptensors, record, False)
-        host = _read_back(scalars)
+        res, host = _read_result(out, _stack(scalars), ship_rows)
         self._add(_Variant(aux, record, meta))
-        result = finish(out, host, meta)
+        result = finish(res, host, meta)
         return result, (time.perf_counter() - t0) * 1e3
 
     # -- a card: warm-up, capture, replay --------------------------------
-    def dispatch_graph(self, leaves, params, finish, device):
+    def dispatch_graph(self, leaves, params, finish, device,
+                       ship_rows=None):
         """(result, build ms or None when a replay served).  A leaf is a
         batch on the card or a pinned host batch (a file leaf): either is
         copied into the graph's static buffers, outside the capture, by
@@ -328,14 +391,15 @@ class _CachedStage:
                 dst.copy_(src, non_blocking=True)
             self._set_params(v, params)
             v.graph.replay()
-            host = v.scalars.cpu().tolist()
+            res, host = _read_result(v.out, v.scalars, ship_rows)
             n = len(host) - v.n_guards
             if all(host[n:]):
-                return finish(v.out, host[:n], v.meta), None
+                return finish(res, host[:n], v.meta), None
             self.guard_misses += 1
         t0 = time.perf_counter()
         leaves = [b.to_device(device, non_blocking=True) for b in leaves]
-        v, result = self._build_variant(aux, leaves, params, finish, device)
+        v, result = self._build_variant(aux, leaves, params, finish, device,
+                                        ship_rows)
         self._add(v)
         return result, (time.perf_counter() - t0) * 1e3
 
@@ -345,7 +409,8 @@ class _CachedStage:
             pin.fill_(p.item())
             dev.copy_(pin, non_blocking=True)
 
-    def _build_variant(self, aux, leaves, params, finish, device):
+    def _build_variant(self, aux, leaves, params, finish, device,
+                       ship_rows=None):
         record = StageRecord()
         v = _Variant(aux, record, None)
         # the entry's parameter scalars, filled from pinned host tensors:
@@ -358,8 +423,9 @@ class _CachedStage:
         # 1. the eager warm-up: records decisions and constants, loads
         #    the kernels and makes their first-call settings
         out, scalars, meta, _ng = self._run(leaves, v.params, record, False)
-        result = finish(out, _read_back(scalars), meta)
-        del out, scalars
+        res, host = _read_result(out, _stack(scalars), ship_rows)
+        result = finish(res, host, meta)
+        del out, scalars, res
         # 2. the capture, over the entry's own copies of the leaves
         static_leaves = [_clone_batch(b) for b in leaves]
         v.static = _leaf_tensors(static_leaves)
@@ -469,13 +535,19 @@ class StageCache:
             return entry
 
     def dispatch(self, entry: _CachedStage, leaves, params,
-                 finish: Callable, device, memory=None):
+                 finish: Callable, device, memory=None,
+                 ship_rows: Optional[int] = None):
         """Run one entry on ``leaves`` (batches on ``device``)
         with the slotted literal values ``params``; ``finish(batch,
         host_ints, meta)`` turns the device result into the caller's
         result while the entry's buffers still hold it.  The first run
         of each variant is timed as the entry's build cost (warm-up plus
-        capture on a card)."""
+        capture on a card).
+
+        With ``ship_rows`` (a streamed step of the out-of-core runners)
+        ``finish`` gets the HOST batch instead: the result's first
+        ``ship_rows`` rows, read back with the flags in one packed copy
+        (``_read_result``)."""
         with self._lock:
             self.dispatches += 1
             entry.in_use += 1
@@ -485,7 +557,12 @@ class StageCache:
                 on_card = torch.device(device).type == "cuda"
                 run = entry.dispatch_graph if on_card else \
                     entry.dispatch_eager
-                result, ms = run(leaves, params, finish, device)
+                STREAM_STEP.active = ship_rows is not None
+                try:
+                    result, ms = run(leaves, params, finish, device,
+                                     ship_rows)
+                finally:
+                    STREAM_STEP.active = False
                 built = ms is not None
                 nbytes = entry.nbytes
             with self._lock:

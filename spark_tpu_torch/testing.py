@@ -897,3 +897,215 @@ def complex_mismatch(parts: BatchParts, want: dict, rtol: float = 0.0):
             return f"{name}: rows {bad.tolist()} got {a[bad].tolist()} " \
                 f"want {b[bad].tolist()}"
     return None
+
+
+# ---------------------------------------------------------------------------
+# out-of-core: TPC-DS row counts, as files (chip_smoke.py's [ooc] phase)
+# ---------------------------------------------------------------------------
+
+#: TPC-DS row counts at scale factors 10 and 1 (dsdgen): the tables of
+#: the out-of-core texts, and the customers and items they draw from
+OOC_SF10 = {"store_sales": 28_800_991, "store_returns": 2_875_432,
+            "date_dim": 73_049, "item": 102_000, "reason": 45,
+            "customer": 500_000}
+OOC_SF1 = {"store_sales": 2_880_404, "store_returns": 287_514,
+           "date_dim": 73_049, "item": 18_000, "reason": 35,
+           "customer": 100_000}
+
+OOC_SCHEMAS = {
+    "store_sales": [("ss_sold_date_sk", "bigint"), ("ss_item_sk", "bigint"),
+                    ("ss_customer_sk", "bigint"),
+                    ("ss_ticket_number", "bigint"), ("ss_quantity", "int"),
+                    ("ss_sales_price", "double"),
+                    ("ss_ext_sales_price", "decimal(7,2)")],
+    "store_returns": [("sr_item_sk", "bigint"), ("sr_ticket_number", "bigint"),
+                      ("sr_reason_sk", "bigint"),
+                      ("sr_return_quantity", "int")],
+    "reason": [("r_reason_sk", "bigint"), ("r_reason_id", "string"),
+               ("r_reason_desc", "string")],
+    "date_dim": Q3_SCHEMAS["date_dim"],
+    "item": Q3_SCHEMAS["item"],
+}
+
+#: the reason TPC-DS q93 selects (``tpcds/queries.py`` q93)
+Q93_REASON = 2
+
+#: (d): the top-k text over store_sales, and the same without its LIMIT
+OOC_TOPK_SQL = ("SELECT ss_ticket_number, ss_item_sk, ss_ext_sales_price "
+                "FROM store_sales ORDER BY ss_ext_sales_price DESC, "
+                "ss_ticket_number, ss_item_sk LIMIT 1000")
+OOC_SORT_SQL = OOC_TOPK_SQL.rsplit(" LIMIT", 1)[0]
+
+
+def ooc_tables(rows: dict, seed: int = 17):
+    """store_sales, store_returns, date_dim, item and reason at the row
+    counts ``rows`` (``OOC_SF10``, ``OOC_SF1``): store_sales as tickets of
+    8-16 distinct line items (as ``basket_tables`` shapes them), each
+    ticket one customer and one day of 1998-2002, in ticket order as
+    dsdgen writes them; quantities 1-100, prices 0.00-200.00 in cents
+    (``ss_sales_price`` a double, ``ss_ext_sales_price`` = quantity x
+    price as decimal(7,2)); store_returns drawn without replacement from
+    store_sales' rows (its ``(item, ticket)`` pairs), the reason from
+    ``rows["reason"]``, the returned quantity at most the sale's; q3's
+    date_dim and item (``q3_tables``).  Returns ``(tables, sale_rows)``:
+    ``sale_rows[i]`` is the store_sales row return ``i`` came from."""
+    rng = np.random.default_rng(seed)
+    n, n_items = rows["store_sales"], rows["item"]
+    lo, hi = BASKET_SIZES
+    sizes = rng.integers(lo, hi + 1, n // lo + 1)
+    ends = np.cumsum(sizes)
+    n_tickets = int(np.searchsorted(ends, n)) + 1
+    sizes = sizes[:n_tickets].copy()
+    sizes[-1] -= int(ends[n_tickets - 1]) - n
+    ticket = np.repeat(np.arange(1, n_tickets + 1, dtype=np.int64), sizes)
+    line = np.arange(n) - np.repeat(ends[:n_tickets] - sizes, sizes)
+    start = rng.integers(0, n_items, n_tickets)
+    stride = rng.integers(1, max(n_items // hi, 2), n_tickets)
+    item = (np.repeat(start, sizes) + line * np.repeat(stride, sizes)) \
+        % n_items + 1
+    lo_sk, hi_sk = _SALES_SK
+    date = np.repeat(rng.integers(lo_sk, hi_sk + 1, n_tickets), sizes)
+    cust = np.repeat(rng.integers(1, rows["customer"] + 1, n_tickets), sizes)
+    qty = rng.integers(1, 101, n).astype(np.int32)
+    price_c = rng.integers(0, 20_001, n).astype(np.int64)
+    ext_c = qty.astype(np.int64) * price_c
+    n_ret = rows["store_returns"]
+    sale_rows = np.sort(rng.choice(n, n_ret, replace=False))
+    q3 = q3_tables(0, n_items, rows["date_dim"], seed=seed)
+    n_reason = rows["reason"]
+    tables = {
+        "store_sales": {
+            "ss_sold_date_sk": date.astype(np.int64),
+            "ss_item_sk": item.astype(np.int64),
+            "ss_customer_sk": cust.astype(np.int64),
+            "ss_ticket_number": ticket,
+            "ss_quantity": qty,
+            "ss_sales_price": price_c / 100.0,
+            "ss_ext_sales_price": ext_c / 100.0,
+        },
+        "store_returns": {
+            "sr_item_sk": item[sale_rows].astype(np.int64),
+            "sr_ticket_number": ticket[sale_rows],
+            "sr_reason_sk": rng.integers(1, n_reason + 1,
+                                         n_ret).astype(np.int64),
+            "sr_return_quantity":
+                rng.integers(1, qty[sale_rows].astype(np.int64) + 1)
+                .astype(np.int32),
+        },
+        "reason": {
+            "r_reason_sk": np.arange(1, n_reason + 1, dtype=np.int64),
+            "r_reason_id": np.array([f"AAAAAAAA{i:08d}"
+                                     for i in range(1, n_reason + 1)]),
+            "r_reason_desc": np.array([f"reason {i}"
+                                       for i in range(1, n_reason + 1)]),
+        },
+        "date_dim": q3["date_dim"],
+        "item": q3["item"],
+    }
+    return tables, sale_rows
+
+
+def write_ooc_tables(session, tables, T, root: str,
+                     row_group_rows: int = 1 << 20) -> dict:
+    """The out-of-core tables through the port's own writers: store_sales,
+    store_returns and reason as parquet (row groups of
+    ``row_group_rows``), date_dim as CSV with a header, item as a catalog
+    table under ``session``'s warehouse.  Returns each write's ms."""
+    import os
+    import time
+    ms = {}
+    for name in ("store_sales", "store_returns", "reason", "date_dim",
+                 "item"):
+        schema = T.StructType([T.StructField(c, T.type_for_name(t))
+                               for c, t in OOC_SCHEMAS[name]])
+        t0 = time.perf_counter()
+        w = session.createDataFrame(tables[name], schema=schema).write
+        if name == "date_dim":
+            w.option("header", True).csv(os.path.join(root, name))
+        elif name == "item":
+            w.saveAsTable("item")
+        else:
+            w.option("rowGroupSize", row_group_rows) \
+                .parquet(os.path.join(root, name))
+        ms[name] = (time.perf_counter() - t0) * 1e3
+    return ms
+
+
+def read_ooc_tables(session, root: str) -> None:
+    """``write_ooc_tables``' files as ``session``'s tables (item through
+    the catalog)."""
+    import os
+    for name in ("store_sales", "store_returns", "reason"):
+        session.read.parquet(os.path.join(root, name)) \
+            .createOrReplaceTempView(name)
+    session.read.csv(os.path.join(root, "date_dim"), header=True,
+                     inferSchema=True).createOrReplaceTempView("date_dim")
+
+
+def q93_oracle(tables, sale_rows, reason: int = Q93_REASON):
+    """TPC-DS q93 in numpy over ``ooc_tables``: the returns of
+    ``reason`` (its WHERE makes the left join an inner one), each with the
+    sale it came from; per customer the exact cents of (quantity -
+    returned) x price; the 100 smallest sums, ties by customer.  Rows
+    ``(customer, cents)``."""
+    ss, sr = tables["store_sales"], tables["store_returns"]
+    keep = sr["sr_reason_sk"] == reason
+    rows = sale_rows[keep]
+    price_c = np.round(ss["ss_sales_price"][rows] * 100).astype(np.int64)
+    act = (ss["ss_quantity"][rows].astype(np.int64)
+           - sr["sr_return_quantity"][keep].astype(np.int64)) * price_c
+    cust, inv = np.unique(ss["ss_customer_sk"][rows], return_inverse=True)
+    sums = np.zeros(len(cust), np.int64)
+    np.add.at(sums, inv, act)
+    order = np.lexsort((cust, sums))[:100]
+    return [(int(cust[i]), int(sums[i])) for i in order]
+
+
+def topk_oracle(tables, k: int = 1000):
+    """``OOC_TOPK_SQL`` in numpy: (ticket, item, ext cents) of the ``k``
+    rows with the largest ext price, ties by ticket then item."""
+    ss = tables["store_sales"]
+    ext = np.round(ss["ss_ext_sales_price"] * 100).astype(np.int64)
+    thr = np.partition(ext, len(ext) - k)[len(ext) - k]
+    cand = np.flatnonzero(ext >= thr)
+    order = cand[np.lexsort((ss["ss_item_sk"][cand],
+                             ss["ss_ticket_number"][cand], -ext[cand]))][:k]
+    return np.stack([ss["ss_ticket_number"][order], ss["ss_item_sk"][order],
+                     ext[order]], axis=1)
+
+
+def _mix64(x: np.ndarray) -> np.ndarray:
+    x = x.astype(np.uint64)
+    x ^= x >> np.uint64(30)
+    x *= np.uint64(0xBF58476D1CE4E5B9)
+    x ^= x >> np.uint64(27)
+    x *= np.uint64(0x94D049BB133111EB)
+    return x ^ (x >> np.uint64(31))
+
+
+def sorted_run_mismatch(tables, ticket, item, ext_c):
+    """Why a full ``OOC_SORT_SQL`` result is not the sort of store_sales
+    (None when it is): every row once — the (ticket, item) pairs are
+    unique, so their count and two sums of a 64-bit mix of the pair, one
+    wrapping and one xor'ed, must match the table's — and each row at or
+    after its predecessor in (ext DESC, ticket, item) order."""
+    ss = tables["store_sales"]
+    if len(ticket) != len(ss["ss_ticket_number"]):
+        return f"{len(ticket)} rows, the table has " \
+               f"{len(ss['ss_ticket_number'])}"
+    with np.errstate(over="ignore"):
+        want = _mix64(ss["ss_ticket_number"] * (1 << 20) + ss["ss_item_sk"])
+        got = _mix64(np.asarray(ticket) * (1 << 20) + np.asarray(item))
+    if want.sum() != got.sum() or np.bitwise_xor.reduce(want) \
+            != np.bitwise_xor.reduce(got):
+        return "the rows are not the table's rows"
+    e, t, i = -np.asarray(ext_c), np.asarray(ticket), np.asarray(item)
+    later = (e[1:] > e[:-1]) | ((e[1:] == e[:-1]) & (
+        (t[1:] > t[:-1]) | ((t[1:] == t[:-1]) & (i[1:] > i[:-1]))))
+    bad = np.flatnonzero(~later)
+    if len(bad):
+        return f"row {int(bad[0]) + 1} sorts before row {int(bad[0])}"
+    ext = np.round(ss["ss_ext_sales_price"] * 100).astype(np.int64)
+    if int(np.asarray(ext_c).sum()) != int(ext.sum()):
+        return "the ext prices are not the table's"
+    return None

@@ -36,15 +36,16 @@ from spark_tpu_torch.testing import assert_parts_equal, batch_parts
 
 @pytest.fixture()
 def wh(spark, tmp_path):
-    """(reference session, port session), each on a warehouse of its own."""
-    old = spark.conf.get(RC.WAREHOUSE_DIR)
-    spark.conf.set(RC.WAREHOUSE_DIR.key, str(tmp_path / "rwh"))
+    """(reference session, port session), each on a warehouse of its own.
+    The reference side is a sibling of the shared conftest session, so no
+    temp view another test file left there (a ``t`` of its own) hides a
+    table of these cases."""
+    r = spark.newSession()
+    r.conf.set(RC.WAREHOUSE_DIR.key, str(tmp_path / "rwh"))
     t = TSession(TC.Conf({"spark.torch.device": "cpu",
                           "spark.sql.warehouse.dir": str(tmp_path / "twh")}))
-    yield spark, t
+    yield r, t
     t.stop()
-    spark.catalog.current_database = "default"
-    spark.conf.set(RC.WAREHOUSE_DIR.key, old)
 
 
 def both(wh, sql):

@@ -1,6 +1,6 @@
 """File scans and writers of the port (``spark_tpu_torch/io.py``) against
-``spark_tpu/io.py``: the counterparts of ``tests/test_io.py`` (without
-the ``prefetch_iter`` tests, which come with the out-of-core slice),
+``spark_tpu/io.py``: the counterparts of ``tests/test_io.py`` (the
+``prefetch_iter`` tests with the streamed scan's, at the end),
 ``tests/test_orc.py`` and ``tests/test_scan_prune.py`` (without the
 streamed row-group case).
 
@@ -8,8 +8,9 @@ Both packages read the SAME files, written from numpy data made from a
 seed, and the results are compared as batches: data under the validity
 masks, the masks, ``row_valid``, decoded dictionaries and row order
 (``testing.assert_parts_equal``; floats bit for bit unless a tolerance is
-stated).  Also: the out-of-core boundary, and three faults of the
-reference's readers, each held with both outcomes.
+stated).  Also: the out-of-core boundary (the streamed runners against
+the reference's), and three faults of the reference's readers, each held
+with both outcomes.
 """
 
 import os
@@ -546,13 +547,15 @@ def test_filter_selectivity_shrinks_estimates(spark, tspark, wide):
                                   "multibatch_off", "limit_raised",
                                   "mesh"])
 def test_out_of_core_boundary(spark, tspark, tmp_path, case):
-    """A file above ``spark.tpu.scan.maxBatchRows`` is where the reference
-    leaves the eager path for its out-of-core runners: the port raises
-    ``NotImplementedError`` naming the out-of-core slice there, and never
-    reads such a file as one batch.  With ``spark.tpu.multibatch.enabled``
-    false, or the limit above the file, both packages read one batch and
-    agree; a join with ``spark.tpu.stages.enabled`` false is eager in the
-    reference too (the multi-batch runner takes one-child chains)."""
+    """A file above ``spark.tpu.scan.maxBatchRows`` is where both packages
+    leave the eager path for their out-of-core runners: a one-child chain
+    streams through the multi-batch runner (``linear``; at 2 shards,
+    ``mesh``), a join through the stage DAG (``join``), and the answers
+    agree.  With ``spark.tpu.multibatch.enabled`` false, or the limit
+    above the file, both packages read one batch and agree; a join with
+    ``spark.tpu.stages.enabled`` false is eager in both (the multi-batch
+    runner takes one-child chains)."""
+    from spark_tpu_torch.sql import multibatch as TMB
     p = str(tmp_path / "big.parquet")
     n = 3000
     rng = np.random.default_rng(1)
@@ -581,23 +584,26 @@ def test_out_of_core_boundary(spark, tspark, tmp_path, case):
             return df.groupBy("k").agg(F.sum("w").alias("s")).orderBy("k")
         return df.groupBy("k").agg(F.sum("v").alias("s")).orderBy("k")
 
-    if case in ("linear", "join", "mesh"):
-        with pytest.raises(NotImplementedError,
-                           match="out-of-core slice") as err:
-            q(s, TF).collect()
-        assert "3,000 rows" in str(err.value)
-        return
+    TMB.reset_stream_stats()
+    streamed = case in ("linear", "join", "mesh")
     old = {k: spark.conf.get(k, None) for k in conf}
     for k, v in conf.items():
         spark.conf.set(k, v)
     try:
-        same(q(spark, RF), q(s, TF))
+        if streamed:
+            # the merged result's capacity is each runner's own: rows
+            from spark_tpu_torch.testing import assert_rows_equal
+            assert_rows_equal(q(spark, RF).collect(), q(s, TF).collect())
+        else:
+            same(q(spark, RF), q(s, TF))
     finally:
         for k, v in old.items():
             if v is None:
                 spark.conf.unset(k)
             else:
                 spark.conf.set(k, v)
+    # three batches of at most 1,000 rows each went through a step
+    assert (TMB.STREAM_STATS["batches"] == 3) == streamed
 
 
 def test_between_bounds_skip_row_groups(spark, tspark, wide):
@@ -702,3 +708,117 @@ def test_to_pandas_matches_reference(spark, tspark, tmp_path, shape):
     assert [tuple(r) if r is not None else None for r in frames[1]["s"]] \
         == [tuple(r) if r is not None else None for r in frames[0]["s"]]
     pd.testing.assert_series_equal(frames[0]["a"], frames[1]["a"])
+
+
+# ---------------------------------------------------------------------------
+# the streamed scan: prefetch_iter (tests/test_io.py's cases, both
+# packages), scan_file_batches and the global string dictionaries
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(params=["port", "reference"])
+def prefetch_iter(request):
+    return tio.prefetch_iter if request.param == "port" \
+        else rio.prefetch_iter
+
+
+def test_prefetch_iter_order_prep_and_depth_zero(prefetch_iter):
+    assert list(prefetch_iter(iter(range(50)), lambda x: x * 2, depth=3)) \
+        == [x * 2 for x in range(50)]
+    seen = []
+
+    def gen():
+        for i in range(5):
+            seen.append(i)
+            yield i
+
+    it = prefetch_iter(gen(), None, depth=0)
+    assert next(it) == 0
+    assert seen == [0]              # synchronous: nothing read ahead
+    assert list(it) == [1, 2, 3, 4]
+
+
+def test_prefetch_iter_exceptions_propagate(prefetch_iter):
+    def gen():
+        yield 1
+        raise ValueError("boom")
+
+    it = prefetch_iter(gen(), None, depth=2)
+    assert next(it) == 1
+    with pytest.raises(ValueError, match="boom"):
+        list(it)
+
+    def bad(x):
+        if x == 3:
+            raise RuntimeError("prep failed")
+        return x
+
+    with pytest.raises(RuntimeError, match="prep failed"):
+        list(prefetch_iter(iter(range(10)), bad, depth=2))
+
+
+def test_prefetch_iter_early_break_closes_inner(prefetch_iter):
+    import time
+    closed = []
+
+    def gen():
+        try:
+            for i in range(10_000):
+                yield i
+        finally:
+            closed.append(True)
+
+    it = prefetch_iter(gen(), None, depth=2)
+    for x in it:
+        if x >= 3:
+            break
+    it.close()
+    deadline = time.time() + 5
+    while not closed and time.time() < deadline:
+        time.sleep(0.05)
+    assert closed == [True]
+
+
+@pytest.mark.parametrize("fmt", ["parquet", "partitioned", "csv"])
+def test_scan_file_batches_match_the_reference(spark, tspark, tmp_path, fmt):
+    """The streamed scan's batches — sliced by ``maxBatchRows``, pruned
+    columns and pushed row-group filters kept, each re-encoded onto the
+    relation's global sorted dictionaries — equal the reference's,
+    batch for batch."""
+    n = 1000
+    rng = np.random.default_rng(8)
+    data = {"id": np.arange(n, dtype=np.int64),
+            "grp": list(rng.choice(["kiwi", "fig", "plum", "date"], n)),
+            "x": rng.normal(0.0, 1.0, n),
+            "part": list(np.where(np.arange(n) < 600, "a", "b"))}
+    p = str(tmp_path / "t")
+    w = tspark.createDataFrame(data).write
+    if fmt == "csv":
+        w.option("header", True).csv(p)
+        reads = (spark.read.csv(p, header=True, inferSchema=True),
+                 tspark.read.csv(p, header=True, inferSchema=True))
+    else:
+        (w.partitionBy("part") if fmt == "partitioned" else w) \
+            .option("rowGroupSize", 128).parquet(p)
+        reads = (spark.read.parquet(p).filter(RF.col("id") >= 300)
+                 .select("grp", "id", "x"),
+                 tspark.read.parquet(p).filter(TF.col("id") >= 300)
+                 .select("grp", "id", "x"))
+    from spark_tpu.sql.planner import QueryExecution as RQE
+
+    def rel(qe):
+        node = qe.optimized
+        while node.children:
+            node = node.children[0]
+        return node
+    rrel = rel(RQE(spark, reads[0]._plan))
+    trel = rel(QueryExecution(tspark, reads[1]._plan))
+    rd = rio.scan_string_dictionaries(rrel, 256)
+    td = tio.scan_string_dictionaries(trel, 256)
+    assert rd == td and td
+    ref = [rio.reencode_strings(b, rd)
+           for b in rio.scan_file_batches(rrel, 256)]
+    got = [tio.reencode_strings(b, td)
+           for b in tio.scan_file_batches(trel, 256)]
+    assert len(ref) == len(got) > 1
+    for r, g in zip(ref, got):
+        assert_parts_equal(batch_parts(r), batch_parts(g))

@@ -6,9 +6,15 @@ parquet (3 part files each, ``generate(SF_ROWS)``'s data), through
 Each answer is held against the sqlite oracle by the rule of
 ``tests/test_tpcds.py`` (floats ``rel_tol = abs_tol = 1e-6``) and against
 ``spark_tpu`` reading the same files at its default settings: at
-20,000 rows every fact table is below ``spark.tpu.scan.maxBatchRows``, so
-both packages read each file relation as one batch, and the scans go
-through column pruning and row-group pushdown.
+20,000 rows every fact table is below the default
+``spark.tpu.scan.maxBatchRows`` (2^20), so both packages read each file
+relation as one batch, through column pruning and row-group pushdown.
+``test_filebacked_streamed`` sets the limit to 2,048 rows, below every
+fact table: q3 streams through broadcast joins fused into the per-batch
+step, q93 through a grace hash join (store_sales and store_returns both
+exceed a batch) and q71 through a streamed UNION ALL of three fact
+tables (then grace-joined with time_dim, itself above 2,048 rows) —
+the stage DAG — each against sqlite.
 """
 
 import math
@@ -93,3 +99,23 @@ def test_filebacked_query(fb, qname):
     _compare(got, exp, qname, "sqlite")
     _compare(got, [tuple(r) for r in spark.sql(sql).collect()], qname,
              "spark_tpu")
+
+
+@pytest.mark.parametrize("qname", ["q3", "q93", "q71"])
+def test_filebacked_streamed(fb, qname):
+    from spark_tpu_torch.sql import multibatch as TMB
+    spark, tspark, con = fb
+    sql = QUERIES[qname]
+    tspark.conf.set("spark.tpu.scan.maxBatchRows", "2048")
+    try:
+        TMB.reset_stream_stats()
+        got = [tuple(r) for r in tspark.sql(sql).collect()]
+    finally:
+        tspark.conf.unset("spark.tpu.scan.maxBatchRows")
+    assert TMB.STREAM_STATS["batches"] >= 20_000 // 2048
+    if qname == "q93":
+        assert TMB.STREAM_STATS["grace_joins"] == 1
+    exp = con.execute(_sqlite_text(ORACLE_OVERRIDES.get(qname, sql))) \
+        .fetchall()
+    assert exp, f"{qname}: oracle returned no rows"
+    _compare(got, exp, qname, "sqlite")
