@@ -394,3 +394,8 @@ WAREHOUSE_DIR = conf("spark.sql.warehouse.dir").doc(
     "Root directory for persistent (non-temp) tables and databases "
     "(CREATE TABLE ... USING, saveAsTable)."
 ).string("spark-warehouse")
+
+CHECKPOINT_DIR = conf("spark.tpu.checkpoint.dir").doc(
+    "Directory of DataFrame.checkpoint's parquet files; empty = "
+    "<spark.sql.warehouse.dir>/_checkpoints."
+).string("")

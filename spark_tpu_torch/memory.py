@@ -1,8 +1,10 @@
-"""Device memory accounting: the device half of ``spark_tpu/memory.py``.
+"""Device memory accounting and the cache of materialized relations.
 
-The reference splits a fixed heap between EXECUTION (a query's working
-memory) and STORAGE (cached blocks), with storage evictable down to a
-protected floor — ``UnifiedMemoryManager.scala:47``.  Here the accounted
+The device half of ``spark_tpu/memory.py``.  The reference splits a fixed
+heap between EXECUTION (a query's working memory) and STORAGE (cached
+blocks), with storage evictable down to a protected floor —
+``UnifiedMemoryManager.scala:47`` — and tracks cached relations in
+``CacheManager.scala`` / ``InMemoryRelation.scala``.  Here the accounted
 resource is the card's memory:
 
 - the budget is ``spark.tpu.memory.hbmBudget`` when set, else the card's
@@ -12,23 +14,49 @@ resource is the card's memory:
   (``planner._plan_reserve_bytes``), so a query that cannot fit fails
   with ``HBMOutOfMemoryError`` naming itself instead of dying inside the
   allocator;
-- STORAGE holds what outlives a query.  In this slice that is the stage
-  cache's captured graphs: each graph's private memory pool stays
-  allocated between replays and is charged under ``stage:<key>``; the
-  eviction callback drops the least recently used graphs.  Cached
-  relations (``df.cache``) come with the cache slice.
+- STORAGE has two tenants.  The stage cache's captured graphs: each
+  graph's private memory pool stays allocated between replays and is
+  charged under ``stage:<key>``.  Cached relations (``df.cache``,
+  ``DeviceCacheManager``): a DEVICE entry's batch is charged under
+  ``cache:<key>``.  Under pressure a cached relation demotes DEVICE ->
+  HOST_COMPRESSED (columnar RLE / dictionary / byte-codec blocks,
+  ``codec.py``) and is promoted back on its next use; a graph is
+  dropped.
+
+**One eviction rule for both tenants.**  The memory manager has one
+eviction callback; the session sets it to ``evict_lru`` over both
+tenants.  Every use of a graph (a stage-cache hit, build or dispatch)
+and of a cached relation (``put``, ``get``) takes a tick of one shared
+clock (``tick``); eviction takes the holder of the OLDEST tick first,
+whichever tenant it belongs to, until the bytes asked for are free.  A
+hot relation outlives a cold graph, and a hot graph a cold relation.  A
+graph that a query is running is never taken.
+
+**Lock order.**  The cache manager shares the memory manager's lock (an
+``RLock``; the callback runs under it), and the stage cache's own lock
+is always taken after it: the stage cache releases dropped entries
+outside its lock (``stagecompile._release``).
+
+On a ``cuda`` session a HOST entry and a decompressed host copy live in
+pinned memory, so a query over an entry that stays on the host reaches a
+captured graph by ``non_blocking`` copies, as a file leaf does.  Every
+batch served under one entry carries the entry's ``_cache_uid``, through
+demotion, decompression and promotion, so plans over it keep their stage
+key and plan-cache fingerprint.
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from . import codec as codec_mod
 from . import config as C
-from .columnar import ColumnBatch
+from .columnar import ColumnBatch, ColumnVector
 
 HBM_BUDGET = C.conf("spark.tpu.memory.hbmBudget").doc(
     "Device memory budget in bytes for execution+storage accounting; 0 = "
@@ -38,10 +66,15 @@ HBM_BUDGET = C.conf("spark.tpu.memory.hbmBudget").doc(
 
 STORAGE_FRACTION = C.conf("spark.tpu.memory.storageFraction").doc(
     "Fraction of the device memory budget protected for storage (the "
-    "stage cache's graph pools) before execution reservations may force "
-    "eviction (UnifiedMemoryManager's spark.memory.storageFraction "
-    "analog)."
+    "stage cache's graph pools and cached relations) before execution "
+    "reservations may force eviction (UnifiedMemoryManager's "
+    "spark.memory.storageFraction analog)."
 ).float(0.3)
+
+CACHE_CODEC = C.conf("spark.tpu.cache.codec").doc(
+    "Byte codec for HOST_COMPRESSED cache blocks: one of codec.CODECS "
+    "(zlib/lzma/bz2 always; lz4/zstd when their wheels are present)."
+).string("zlib")
 
 
 class HBMOutOfMemoryError(MemoryError):
@@ -145,3 +178,222 @@ class MemoryManager:
     def release_storage(self, key: str) -> None:
         with self._lock:
             self._storage.pop(key, None)
+
+
+# ---------------------------------------------------------------------------
+# one LRU over the storage tenants
+# ---------------------------------------------------------------------------
+
+_TICKS = itertools.count(1)
+
+
+def tick() -> int:
+    """The shared clock of storage use: a later use, a larger tick."""
+    return next(_TICKS)
+
+
+def evict_lru(memory: MemoryManager, nbytes: int, tenants: Sequence) -> int:
+    """Release at least ``nbytes`` of ``memory``'s storage, oldest use
+    first across ``tenants`` (the eviction callback of a session).  Each
+    tenant's ``eviction_candidates(memory)`` gives ``(last tick, evict)``
+    pairs, ``evict()`` the bytes it released.  Returns the bytes
+    released."""
+    candidates = []
+    for tenant in tenants:
+        candidates.extend(tenant.eviction_candidates(memory))
+    candidates.sort(key=lambda c: c[0])
+    freed = 0
+    for _last, evict in candidates:
+        if freed >= nbytes:
+            break
+        freed += evict()
+    return freed
+
+
+# ---------------------------------------------------------------------------
+# storage levels & cached entries
+# ---------------------------------------------------------------------------
+
+class StorageLevel:
+    DEVICE = "DEVICE"                      # on the card (MEMORY_ONLY)
+    HOST = "HOST"                          # host tensors (MEMORY_AND_DISK)
+    HOST_COMPRESSED = "HOST_COMPRESSED"    # codec blocks (compressed cache)
+
+
+LEVELS = (StorageLevel.DEVICE, StorageLevel.HOST,
+          StorageLevel.HOST_COMPRESSED)
+
+
+class _Entry:
+    __slots__ = ("key", "level", "requested", "batch", "blocks", "nbytes",
+                 "last_used", "uid")
+
+    def __init__(self, key, level, requested, batch, nbytes, uid):
+        self.key = key
+        self.level = level
+        self.requested = requested
+        self.batch = batch            # device or host ColumnBatch
+        self.blocks = None            # HOST_COMPRESSED payload
+        self.nbytes = nbytes
+        self.last_used = tick()
+        self.uid = uid                # stable plan-key identity (see get)
+
+    @property
+    def storage_key(self) -> str:
+        return f"cache:{self.key}"
+
+
+def _compress_batch(batch: ColumnBatch, codec_name: str):
+    """The batch as codec blocks, read to the host in one packed copy."""
+    host = batch.packed_host()
+    cols = []
+    for v in host.vectors:
+        enc = codec_mod.encode_column(v.data.numpy(), codec_name)
+        validity = (None if v.valid is None
+                    else np.packbits(v.valid.numpy()))
+        cols.append((enc, validity, v.dtype, v.dictionary))
+    rv = (None if host.row_valid is None
+          else np.packbits(host.row_valid.numpy()))
+    return (host.names, cols, rv, host.capacity)
+
+
+def _decompress_batch(blocks) -> ColumnBatch:
+    names, cols, rv, capacity = blocks
+
+    def bits(packed):
+        return None if packed is None else torch.from_numpy(
+            np.unpackbits(packed)[:capacity].astype(bool))
+    vectors = [ColumnVector(torch.from_numpy(codec_mod.decode_column(enc)),
+                            dt, bits(validity), dictionary)
+               for enc, validity, dt, dictionary in cols]
+    return ColumnBatch(names, vectors, bits(rv), capacity)
+
+
+def _blocks_nbytes(blocks) -> int:
+    return sum(c[0].nbytes for c in blocks[1])
+
+
+class DeviceCacheManager:
+    """Plan-keyed cached relations with demotion and LRU eviction
+    (``CacheManager.scala`` analog).  A session holds one
+    (``session.cacheManager``); its entries are a storage tenant of the
+    session's ``MemoryManager`` beside the stage cache's graphs."""
+
+    def __init__(self, memory: MemoryManager, conf, device=None):
+        self._memory = memory
+        self._conf = conf
+        self._device = torch.device(device if device is not None else "cpu")
+        self._entries: Dict[str, _Entry] = {}
+        # ONE lock with the memory manager: eviction runs under it, and a
+        # second lock here would order-invert (put -> try_acquire_storage
+        # vs acquire_execution -> evict)
+        self._lock = memory._lock
+
+    def _host(self, batch: ColumnBatch) -> ColumnBatch:
+        """``batch`` on the host; in pinned memory on a card session."""
+        host = batch.to_host()
+        if self._device.type == "cuda" and not host.is_pinned():
+            host = host.pinned()
+        return host
+
+    # -- public -------------------------------------------------------------
+    def put(self, key: str, batch: ColumnBatch,
+            level: str = StorageLevel.DEVICE) -> None:
+        if level not in LEVELS:
+            raise ValueError(
+                f"unknown storage level {level!r}; expected one of "
+                f"StorageLevel.DEVICE/HOST/HOST_COMPRESSED")
+        from .sql.logical import _batch_uid
+        with self._lock:
+            self.remove(key)
+            entry = _Entry(key, level, level, None, batch_nbytes(batch),
+                           _batch_uid(batch))
+            if level == StorageLevel.DEVICE:
+                if self._memory.try_acquire_storage(entry.storage_key,
+                                                    entry.nbytes):
+                    entry.batch = batch.to_device(self._device)
+                else:                      # no room: demote on entry
+                    entry.level = StorageLevel.HOST
+                    entry.batch = self._host(batch)
+            elif level == StorageLevel.HOST:
+                entry.batch = self._host(batch)
+            else:
+                entry.blocks = _compress_batch(
+                    batch, self._conf.get(CACHE_CODEC))
+                entry.nbytes = _blocks_nbytes(entry.blocks)
+            self._entries[key] = entry
+
+    def get(self, key: str) -> Optional[ColumnBatch]:
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is None:
+                return None
+            entry.last_used = tick()
+            if entry.batch is None:       # decompress ONCE; keep the
+                entry.batch = self._host(  # host copy
+                    _decompress_batch(entry.blocks))
+            batch = entry.batch
+            # promote back toward the requested level — both decompressed
+            # blocks and entries put on the host because the card was full
+            if entry.level != StorageLevel.DEVICE \
+                    and entry.requested == StorageLevel.DEVICE \
+                    and self._memory.try_acquire_storage(
+                        entry.storage_key, batch_nbytes(batch)):
+                entry.batch = batch = batch.to_device(self._device)
+                entry.blocks = None
+                entry.level = StorageLevel.DEVICE
+                entry.nbytes = batch_nbytes(batch)
+            # every object served under this key carries the SAME uid, so
+            # plan keys over a cached batch (cache-on-cache, stage keys,
+            # plan-cache fingerprints) stay stable across demote /
+            # decompress / promote
+            batch._cache_uid = entry.uid
+            return batch
+
+    def level(self, key: str) -> Optional[str]:
+        with self._lock:
+            entry = self._entries.get(key)
+            return None if entry is None else entry.level
+
+    def remove(self, key: str) -> bool:
+        with self._lock:
+            entry = self._entries.pop(key, None)
+            if entry is None:
+                return False
+            if entry.level == StorageLevel.DEVICE:
+                self._memory.release_storage(entry.storage_key)
+            return True
+
+    def clear(self) -> None:
+        with self._lock:
+            for key in list(self._entries):
+                self.remove(key)
+
+    def entries(self) -> List[dict]:
+        with self._lock:
+            return [{"key": e.key, "level": e.level, "nbytes": e.nbytes,
+                     "uid": e.uid} for e in self._entries.values()]
+
+    # -- eviction (a storage tenant of ``evict_lru``) -------------------------
+    def eviction_candidates(self, memory: MemoryManager) -> list:
+        if memory is not self._memory:
+            return []
+        with self._lock:
+            return [(e.last_used, lambda e=e: self._demote(e))
+                    for e in self._entries.values()
+                    if e.level == StorageLevel.DEVICE]
+
+    def _demote(self, entry: _Entry) -> int:
+        """DEVICE -> HOST_COMPRESSED; returns the device bytes freed."""
+        with self._lock:
+            if self._entries.get(entry.key) is not entry \
+                    or entry.level != StorageLevel.DEVICE:
+                return 0
+            entry.blocks = _compress_batch(entry.batch,
+                                           self._conf.get(CACHE_CODEC))
+            entry.batch = None            # get() decompresses and promotes
+            entry.level = StorageLevel.HOST_COMPRESSED
+            freed = self._memory.storage_held(entry.storage_key)
+            self._memory.release_storage(entry.storage_key)
+            entry.nbytes = _blocks_nbytes(entry.blocks)
+            return freed

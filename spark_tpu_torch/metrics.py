@@ -46,9 +46,9 @@ class MetricsSystem:
 
 
 def default_sources(session) -> List[Source]:
-    """The built-in process gauges the port has: device memory, queries
-    executed and the process stage cache."""
-    mem = session._memory
+    """The built-in process gauges the port has: device memory, cached
+    relations, queries executed and the process stage cache."""
+    mem, cache = session._memory, session._cache
     from .sql.stagecompile import metrics_source as _stage_gauges
     return [
         Source("memory", {
@@ -56,6 +56,11 @@ def default_sources(session) -> List[Source]:
             "execution_used_bytes": lambda: mem.execution_used,
             "storage_used_bytes": lambda: mem.storage_used,
             "free_bytes": lambda: mem.free,
+        }),
+        Source("cache", {
+            "entries": lambda: len(cache.entries()),
+            "device_entries": lambda: sum(
+                1 for e in cache.entries() if e["level"] == "DEVICE"),
         }),
         Source("queries", {
             "executed": lambda: session._query_count,

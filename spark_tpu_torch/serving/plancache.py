@@ -246,11 +246,16 @@ class _Entry:
                  param_src, reserve_bytes, conf_snapshot, nbytes):
         self.key = key
         self.physical = pq.physical
-        #: per leaf, in planner order: ("local", LocalRelation) or
+        #: per leaf, in planner order: ("local", LocalRelation),
         #: ("file", FileRelation), re-read through the relation cache on
-        #: every hit (an answer is never staler than the files)
+        #: every hit (an answer is never staler than the files), or
+        #: ("cached", CachedRelation), read from the session's cache
+        #: manager on every hit (the entry as it is now)
         self.recipes = list(pq.leaf_recipes)
-        self.leaves = list(pq.leaves)   # the leaves the entry was built on
+        # the leaves the entry was built on; a cached relation's is not
+        # kept (a demoted entry's old device batch must be let go)
+        self.leaves = [None if kind == "cached" else b
+                       for (kind, _n), b in zip(self.recipes, pq.leaves)]
         self.leaf_schemas = [b.schema.simpleString() for b in pq.leaves]
         self.body = body                # the physical plan's fingerprint
         self.pslots = pslots            # its slotted literals
@@ -617,7 +622,8 @@ class PlanCache:
                      for l in pslots]
         recipes = pq.leaf_recipes
         if recipes is None or len(recipes) != len(pq.leaves) or any(
-                kind == "local" and id(node.batch) not in named
+                kind == "opaque" or kind in ("local", "cached")
+                and id(node.batch) not in named
                 for kind, node in recipes) or \
                 {i for i, _v, _d in param_src} - {None} \
                 != set(range(len(fp.slots))):
@@ -637,6 +643,12 @@ class PlanCache:
         kind, node = recipe
         if kind == "local":
             return node.batch
+        if kind == "cached":
+            batch = session._cache.get(node.cache_key)
+            if batch is None:
+                raise _StaleEntry(f"cached relation {node.cache_key[:60]}"
+                                  " was unpersisted")
+            return batch
         from ..io import read_file_relation
         return read_file_relation(node, session)
 
@@ -646,9 +658,10 @@ class PlanCache:
                                    compose_stage_key, stage_maker)
         session = qe.session
         skey, make, reserve = entry.skey, entry.make, entry.reserve_bytes
-        if entry.paths:
+        if entry.paths or any(b is None for b in entry.leaves):
             # file leaves are read again (a relation-cache hit while the
-            # files are unchanged); a changed file keys a new stage entry
+            # files are unchanged; a changed file keys a new stage entry),
+            # and cached relations from the cache manager
             leaves = [self._materialize(r, session) for r in entry.recipes]
             if any(a is not b for a, b in zip(leaves, entry.leaves)):
                 pq = PlannedQuery(entry.physical, leaves, entry.recipes)

@@ -42,10 +42,10 @@ from ..aggregates import AggregateFunction, Count, CountDistinct, CountStar, Sum
 from ..expressions import (Alias, AnalysisException, And, Col, EQ,
                            Expression, GroupingCall, Literal)
 from .logical import (Aggregate, Distinct, Except, Explode, FileRelation,
-                      Filter, GroupingSets, Intersect, Join, Limit,
-                      LocalRelation, LogicalPlan, Project, RangeRelation,
-                      Sample, Sort, SortOrder, SubqueryAlias, Union,
-                      UnresolvedRelation)
+                      Filter, GroupingSets, Intersect, Join, LazyCheckpoint,
+                      Limit, LocalRelation, LogicalPlan, Project,
+                      RangeRelation, Sample, Sort, SortOrder, SubqueryAlias,
+                      Union, UnresolvedRelation)
 from .window import WindowExpression, WindowNode, WindowSpec, contains_window
 
 _STREAMING = "the streaming slice"
@@ -59,7 +59,7 @@ _NOT_PORTED = {
 _PORTED_NODES = (LocalRelation, RangeRelation, FileRelation,
                  UnresolvedRelation, Project, Filter, Aggregate, Sort, Limit,
                  Join, Distinct, SubqueryAlias, Union, Intersect, Except,
-                 WindowNode, GroupingSets, Sample, Explode)
+                 WindowNode, GroupingSets, Sample, Explode, LazyCheckpoint)
 
 
 def _names(names: str, where: str) -> Dict[str, str]:

@@ -36,6 +36,7 @@ class DataFrame:
     def __init__(self, session, plan: L.LogicalPlan):
         self.session = session
         self._plan = plan
+        self._cached: Optional[str] = None   # the cache manager's key
 
     # -- metadata ---------------------------------------------------------
     @property
@@ -64,7 +65,8 @@ class DataFrame:
         from .planner import QueryExecution
         qe = QueryExecution(self.session, self._plan)
         print(qe.explain_string() if extended else
-              "== Physical Plan ==\n" + qe.planned.physical.tree_string())
+              "== Physical Plan ==\n"
+              + qe.planned_preview().physical.tree_string())
 
     def __getitem__(self, item) -> Column:
         if isinstance(item, str):
@@ -250,8 +252,75 @@ class DataFrame:
                 exprs.append(Col(f.name))
         return DataFrame(self.session, L.Project(exprs, self._plan))
 
+    # -- persistence --------------------------------------------------------
+    def checkpoint(self, eager: bool = True) -> "DataFrame":
+        """Truncate lineage by materializing to reliable storage
+        (``Dataset.checkpoint``): parquet under ``spark.tpu.checkpoint.dir``
+        (by default ``<warehouse>/_checkpoints``); the result reads back
+        from the files.  ``eager=False`` defers the write to the first
+        action (the lazy-checkpoint contract)."""
+        import os
+        import uuid
+
+        from .. import config as C
+        base = self.session.conf.get(C.CHECKPOINT_DIR) or os.path.join(
+            self.session.conf.get(C.WAREHOUSE_DIR), "_checkpoints")
+        path = os.path.join(base, uuid.uuid4().hex[:12])
+        if eager:
+            self.write.parquet(path)
+            return self.session.read.parquet(path)
+        return DataFrame(self.session, L.LazyCheckpoint(self._plan, path))
+
+    def localCheckpoint(self, eager: bool = True) -> "DataFrame":
+        return self.checkpoint(eager)
+
+    def cache(self, level: Optional[str] = None) -> "DataFrame":
+        """Materialize and register in the session's cache manager
+        (``CacheManager.cacheQuery``); other queries containing this exact
+        subtree read the cached batch instead of recomputing.  ``level`` is
+        a ``memory.StorageLevel`` (default DEVICE; demotes under device
+        memory pressure).  Caching a relation that is cached already
+        keeps its one entry, moved to ``level`` when one is given."""
+        from ..memory import StorageLevel
+        from .planner import QueryExecution
+        # key on the SUBSTITUTED analyzed plan: substitution runs bottom
+        # up, so a cache-on-cache plan must be keyed the way other
+        # queries' rewritten trees will look
+        qe = QueryExecution(self.session, self._plan)
+        plan = qe.analyzed
+        if isinstance(plan, L.CachedRelation):
+            key = plan.cache_key
+            if level is not None:     # the same uid: plan keys hold
+                self.session._cache.put(key, plan.batch, level)
+        else:
+            key = L.plan_cache_key(plan)
+            self.session._cache.put(key, qe.execute(),
+                                    level or StorageLevel.DEVICE)
+        self._cached = key
+        return self
+
+    def persist(self, level: Optional[str] = None) -> "DataFrame":
+        return self.cache(level)
+
+    def unpersist(self) -> "DataFrame":
+        if self._cached is not None:
+            self.session._cache.remove(self._cached)
+            self._cached = None
+        return self
+
+    def _cache_hit(self) -> Optional[ColumnBatch]:
+        """This DataFrame's cached batch on the host (one packed copy from
+        a DEVICE entry), or None."""
+        if self._cached is None:
+            return None
+        hit = self.session._cache.get(self._cached)
+        return None if hit is None else hit.packed_host()
+
     # -- actions ----------------------------------------------------------
     def _execute(self) -> ColumnBatch:
+        hit = self._cache_hit()
+        if hit is not None:
+            return hit
         from .planner import QueryExecution
         return QueryExecution(self.session, self._plan).execute()
 
@@ -323,7 +392,9 @@ class DataFrame:
         qe = QueryExecution(self.session, self._plan)
         flat, spec = self._flatten_complex(qe.analyzed.schema())
         if spec is None:
-            batch = qe.execute()      # the analysis above is reused
+            batch = self._cache_hit()
+            if batch is None:
+                batch = qe.execute()  # the analysis above is reused
             return Row._many(batch.to_pylist(), batch.names)
         return self._assemble_rows(flat._execute().to_pylist(), spec)
 

@@ -22,7 +22,8 @@ __all__ = [
     "LogicalPlan", "LocalRelation", "RangeRelation", "Project", "Filter",
     "Aggregate", "Sort", "SortOrder", "Limit", "Join", "Union", "Distinct",
     "SubqueryAlias", "UnresolvedRelation", "FileRelation", "Sample",
-    "Intersect", "Except", "Explode",
+    "Intersect", "Except", "Explode", "CachedRelation", "LazyCheckpoint",
+    "plan_cache_key",
 ]
 
 
@@ -99,6 +100,55 @@ class LocalRelation(LogicalPlan):
 
     def __repr__(self):
         return f"LocalRelation {self.batch.schema.simpleString()}"
+
+
+def plan_cache_key(node: "LogicalPlan", _memo: Optional[dict] = None) -> str:
+    """Stable fingerprint of a logical subtree for cached-relation lookup
+    (``CacheManager.lookupCachedData`` plan matching).  Reprs alone are NOT
+    trusted — several are elided for humans (Aggregate shows output names,
+    not functions) — so the key serializes every non-child field of the
+    node plus its expressions.  Identity-carrying fields never use raw
+    ``repr``/``id`` (recyclable addresses): LocalRelation keys on a
+    monotonic batch uid and callables on a uid attached the same way.
+    Pass one ``_memo`` dict across many calls over a shared tree to stay
+    O(n)."""
+    if _memo is not None:
+        hit = _memo.get(id(node))
+        if hit is not None:
+            return hit
+    if isinstance(node, LocalRelation):
+        key = f"LocalRelation#{_batch_uid(node.batch)}"
+    else:
+        fields = []
+        for name in sorted(vars(node)):
+            if name in ("children", "child") or name.startswith("_"):
+                continue
+            v = vars(node)[name]
+            if isinstance(v, LogicalPlan) or (
+                    isinstance(v, (list, tuple)) and v
+                    and isinstance(v[0], LogicalPlan)):
+                continue
+            if callable(v) and not isinstance(v, type):
+                fields.append(f"{name}=fn#{_batch_uid(v)}")
+            else:
+                fields.append(f"{name}={v!r}")
+        inner = ",".join(plan_cache_key(c, _memo) for c in node.children)
+        key = f"{type(node).__name__}[{';'.join(fields)}]({inner})"
+    if _memo is not None:
+        _memo[id(node)] = key
+    return key
+
+
+class CachedRelation(LocalRelation):
+    """A subtree that ``DataFrame.cache()`` materialized, substituted by
+    ``QueryExecution.analyzed`` (``InMemoryRelation`` analog): the batch
+    the session's cache manager served, and the entry's key, under which
+    the serving plan cache reads the entry again on a hit (the batch may
+    have been demoted and promoted since)."""
+
+    def __init__(self, batch: ColumnBatch, cache_key: str):
+        super().__init__(batch)
+        self.cache_key = cache_key
 
 
 class RangeRelation(LogicalPlan):
@@ -562,3 +612,26 @@ class GroupingSets(LogicalPlan):
 
     def __repr__(self):
         return f"GroupingSets[{len(self.sets)} sets over {self.keys!r}]"
+
+
+class LazyCheckpoint(LogicalPlan):
+    """checkpoint(eager=False): materializes the child to parquet on the
+    FIRST execution touching this node (a plan-level memo — derived
+    DataFrames share it), then scans the files."""
+
+    def __init__(self, child: LogicalPlan, path: str):
+        self.path = path
+        # shared mutable box: analyzer/optimizer rewrites shallow-copy
+        # nodes, and every copy must see the one materialization
+        self.state = {"done": False}
+        self.children = (child,)
+
+    @property
+    def child(self):
+        return self.children[0]
+
+    def schema(self) -> T.StructType:
+        return self.children[0].schema()
+
+    def __repr__(self):
+        return f"LazyCheckpoint[{self.path}]"

@@ -27,9 +27,9 @@ from ..columnar import ColumnBatch, pad_capacity
 from ..expressions import AnalysisException
 from ..kernels import compact
 from .logical import (
-    Aggregate, Distinct, Explode, FileRelation, Filter, Join, Limit,
-    LocalRelation, LogicalPlan, Project, RangeRelation, Sample, Sort,
-    SubqueryAlias, Union,
+    Aggregate, CachedRelation, Distinct, Explode, FileRelation, Filter, Join,
+    LazyCheckpoint, Limit, LocalRelation, LogicalPlan, Project,
+    RangeRelation, Sample, Sort, SubqueryAlias, Union, plan_cache_key,
 )
 from . import physical as P
 
@@ -248,13 +248,25 @@ def check_planned_join_capacities(pq: "PlannedQuery", session,
 def _plan_reserve_bytes(pq: "PlannedQuery") -> int:
     """Upper-bound device bytes for one execution attempt: the leaf
     working set (input + one fused intermediate), the device copy of
-    every file leaf (a host batch, not resident before the query as an
-    in-memory leaf is), plus the STATIC output buffers of every
-    capacity-growing operator (``_walk_plan_caps``)."""
+    every host leaf (a file batch or a cached relation held on the host:
+    not resident before the query as an in-memory leaf is), plus the
+    STATIC output buffers of every capacity-growing operator
+    (``_walk_plan_caps``).  A cached relation on the card counts its
+    intermediate only: its input is charged as storage already."""
     from ..memory import batch_nbytes
     _root, extra, _joins = _walk_plan_caps(pq)
-    return sum((3 if b.source is not None else 2) * batch_nbytes(b)
-               for b in pq.leaves) + extra
+    kinds = [k for k, _n in pq.leaf_recipes] if pq.leaf_recipes \
+        else [None] * len(pq.leaves)
+    total = extra
+    for b, kind in zip(pq.leaves, kinds):
+        if kind == "cached" and b.device.type == "cuda":
+            copies = 1
+        elif b.source is not None or kind == "cached" and b.is_pinned():
+            copies = 3
+        else:
+            copies = 2
+        total += copies * batch_nbytes(b)
+    return total
 
 
 def _reads_files(plan: LogicalPlan) -> bool:
@@ -343,9 +355,12 @@ class PlannedQuery:
         self.physical = physical
         self.leaves = leaves
         #: how each leaf batch was obtained, in PScan index order:
-        #: ("local", LocalRelation) | ("file", FileRelation) — the serving
+        #: ("local", LocalRelation) | ("file", FileRelation) |
+        #: ("cached", CachedRelation) | ("opaque", None) — the serving
         #: plan cache re-reads file leaves on a hit (an answer is never
-        #: staler than the files); None where no planner made the leaves
+        #: staler than the files) and cached relations (the entry as it
+        #: is now), and caches no plan with an opaque leaf (a lazy
+        #: checkpoint's files); None where no planner made the leaves
         self.leaf_recipes = leaf_recipes
 
 
@@ -353,7 +368,8 @@ class Planner:
     """Logical → physical (``SparkPlanner.strategies`` analog)."""
 
     def __init__(self, session, join_factor_override=None,
-                 agg_shrink_override=None, shrink_aggs: bool = True):
+                 agg_shrink_override=None, shrink_aggs: bool = True,
+                 for_execution: bool = True):
         #: None | float (every join) | list (per join construction index —
         #: chained joins must not COMPOUND one overflowing join's growth)
         self.session = session
@@ -364,6 +380,8 @@ class Planner:
         #: out-of-core runners' host folds): the shrink's overflow flag is
         #: its only escape hatch, so such plans must not shrink
         self.shrink_aggs = shrink_aggs
+        #: False for explain: a lazy checkpoint is shown, not written
+        self.for_execution = for_execution
         self._join_seq = 0
         self._leaf_recipes: list = []
 
@@ -420,9 +438,10 @@ class Planner:
     def _scan(self, batch: ColumnBatch, leaves: List[ColumnBatch],
               source=None) -> P.PScan:
         leaves.append(batch)
-        self._leaf_recipes.append(
-            ("file" if isinstance(source, FileRelation) else "local",
-             source))
+        kind = "opaque" if source is None else \
+            "file" if isinstance(source, FileRelation) else \
+            "cached" if isinstance(source, CachedRelation) else "local"
+        self._leaf_recipes.append((kind, source))
         return P.PScan(len(leaves) - 1, batch.schema)
 
     def _to_physical(self, node: LogicalPlan, leaves) -> P.PhysicalPlan:
@@ -473,8 +492,26 @@ class Planner:
                               node.with_pos, node.pos_name,
                               self._to_physical(node.child, leaves),
                               insert_at=node.insert_at)
+        if isinstance(node, LazyCheckpoint):
+            return self._checkpoint(node, leaves)
         # stateful groups: a later slice (the analyzer refuses them first)
         raise AnalysisException(f"no physical plan for {node!r}")
+
+    def _checkpoint(self, node: LazyCheckpoint, leaves) -> P.PhysicalPlan:
+        """The first execution over a lazy checkpoint writes its child to
+        parquet; every execution then scans the files.  Explain writes
+        nothing and shows the child's plan."""
+        if not node.state["done"]:
+            if not self.for_execution:
+                return self._to_physical(node.child, leaves)
+            from .dataframe import DataFrame
+            DataFrame(self.session, node.child).write.parquet(node.path)
+            node.state["done"] = True
+        from ..io import read_file_relation
+        rel = self.session.read.parquet(node.path)._plan
+        # opaque to the plan cache: the node's done-state would churn
+        # fingerprints, and the materialization must run
+        return self._scan(read_file_relation(rel, self.session), leaves)
 
 
 class QueryExecution:
@@ -494,8 +531,29 @@ class QueryExecution:
     def analyzed(self) -> LogicalPlan:
         if self._analyzed is None:
             from .analyzer import Analyzer
-            self._analyzed = Analyzer(self.session.catalog).analyze(self.logical)
+            plan = Analyzer(self.session.catalog).analyze(self.logical)
+            self._analyzed = self._use_cached_data(plan)
         return self._analyzed
+
+    def _use_cached_data(self, plan: LogicalPlan) -> LogicalPlan:
+        """Replace subtrees a ``DataFrame.cache()`` materialized with the
+        cached batches (``CacheManager.useCachedData`` on the analyzed
+        plan), bottom up.  A plan over a cached file scan then reads no
+        file, so the out-of-core routing (``_reads_files``) passes it
+        by."""
+        cache = self.session._cache
+        if not cache.entries():
+            return plan
+        memo: dict = {}               # one memo across the walk: O(n) keys
+
+        def sub(node: LogicalPlan) -> LogicalPlan:
+            if isinstance(node, LocalRelation):
+                return node           # never probe: not substitutable
+            key = plan_cache_key(node, memo)
+            hit = cache.get(key)      # get() bumps the LRU
+            return node if hit is None else CachedRelation(hit, key)
+
+        return plan.transform_up(sub)
 
     @property
     def optimized(self) -> LogicalPlan:
@@ -509,6 +567,11 @@ class QueryExecution:
         if self._planned is None:
             self._planned = Planner(self.session).plan(self.optimized)
         return self._planned
+
+    def planned_preview(self) -> PlannedQuery:
+        """The plan for explain: lazy checkpoints are NOT written."""
+        return Planner(self.session, for_execution=False) \
+            .plan(self.optimized)
 
     # ------------------------------------------------------------------
     MAX_ADAPT = ADAPT_MAX_RETRIES
@@ -786,5 +849,6 @@ class QueryExecution:
     def explain_string(self) -> str:
         s = "== Analyzed Logical Plan ==\n" + self.analyzed.tree_string()
         s += "== Optimized Logical Plan ==\n" + self.optimized.tree_string()
-        s += "== Physical Plan ==\n" + self.planned.physical.tree_string()
+        s += "== Physical Plan ==\n" + \
+            self.planned_preview().physical.tree_string()
         return s

@@ -313,13 +313,17 @@ class SparkSession:
         # shape start at the factor that worked
         self._adapted_factors: Dict[str, Any] = {}
         # device memory accounting: queries reserve their static bytes
-        # before dispatch; the stage cache's graphs are its storage, and
-        # pressure evicts the least recently used of them
-        from ..memory import MemoryManager
+        # before dispatch; the stage cache's graphs and the cached
+        # relations are its storage, and pressure takes the least
+        # recently used of either first (memory.evict_lru)
+        from ..memory import DeviceCacheManager, MemoryManager, evict_lru
         from .stagecompile import stage_cache
         self._memory = MemoryManager(self.conf_obj, self.device)
+        self._cache = DeviceCacheManager(self._memory, self.conf_obj,
+                                         self.device)
         self._memory.set_eviction_callback(
-            lambda nbytes: stage_cache().evict(self._memory, nbytes))
+            lambda nbytes: evict_lru(self._memory, nbytes,
+                                     (stage_cache(), self._cache)))
         self._query_count = 0
         self._cancel_requested = False
         # the serving plan cache (serving/plancache.py), attached by the
@@ -338,6 +342,11 @@ class SparkSession:
         """Device execution/storage accounting (UnifiedMemoryManager
         analog)."""
         return self._memory
+
+    @property
+    def cacheManager(self):
+        """Cached relations of ``df.cache()`` (CacheManager analog)."""
+        return self._cache
 
     @property
     def metricsSystem(self):
@@ -393,6 +402,7 @@ class SparkSession:
         if SparkSession._active is self:
             SparkSession._active = None
         self._adapted_factors.clear()
+        self._cache.clear()           # releases the entries' device charges
 
     # ------------------------------------------------------------------
     def range(self, start: int, end: Optional[int] = None, step: int = 1
@@ -682,7 +692,8 @@ class SparkSession:
             from .planner import QueryExecution
             qe = QueryExecution(self, cmd.query)
             text = qe.explain_string() if cmd.extended else \
-                "== Physical Plan ==\n" + qe.planned.physical.tree_string()
+                "== Physical Plan ==\n" + \
+                qe.planned_preview().physical.tree_string()
             return string_df({"plan": [text]})
         raise AnalysisException(f"unsupported command {type(cmd).__name__}")
 

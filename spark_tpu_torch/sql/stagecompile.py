@@ -44,9 +44,11 @@ nothing falls back to the eager lane.
 
 Each graph's private pool stays allocated between queries; its bytes
 (with the static input buffers) are charged to the session's
-``MemoryManager`` as storage under ``stage:<key>``, and its eviction
-callback drops the least recently used entries.  A dropped entry's
-graphs, pools and static buffers go back to the card
+``MemoryManager`` as storage under ``stage:<key>``.  The session's
+eviction callback (``memory.evict_lru``) takes the least recently used
+storage first, graphs and cached relations alike: each use of an entry
+takes a tick of the memory module's clock (``last_used``).  A dropped
+entry's graphs, pools and static buffers go back to the card
 (``_release``).
 
 ``run_per_op`` is the measured BASELINE (``spark.tpu.stage.fusion=
@@ -66,6 +68,7 @@ import torch
 
 from .. import config as C
 from ..capture import StageRecord, stage_run
+from ..memory import evict_lru, tick
 
 __all__ = [
     "Stage", "StageCache", "stage_cache", "stage_fingerprint",
@@ -316,7 +319,7 @@ class _CachedStage:
 
     __slots__ = ("key", "fn", "aux", "n_ops", "compile_ms", "hits",
                  "variants", "guard_misses", "in_use", "charged_to",
-                 "_lock")
+                 "last_used", "_lock")
 
     def __init__(self, key: str, fn, aux, n_ops: int):
         self.key = key
@@ -330,6 +333,8 @@ class _CachedStage:
         self.in_use = 0
         #: the MemoryManager this entry's graph bytes are charged to
         self.charged_to = None
+        #: the storage clock's tick of the last use (``memory.tick``)
+        self.last_used = tick()
         self._lock = threading.Lock()
 
     @property
@@ -510,6 +515,7 @@ class StageCache:
                 self._entries.move_to_end(key)
                 self.hits += 1
                 entry.hits += 1
+                entry.last_used = tick()
                 return entry
             build_lock = self._building.setdefault(key, threading.Lock())
         with build_lock:
@@ -519,6 +525,7 @@ class StageCache:
                     self._entries.move_to_end(key)
                     self.hits += 1
                     entry.hits += 1
+                    entry.last_used = tick()
                     return entry
             fn, aux = make_fn()
             entry = _CachedStage(key, fn, aux, n_ops)
@@ -551,6 +558,7 @@ class StageCache:
         with self._lock:
             self.dispatches += 1
             entry.in_use += 1
+            entry.last_used = tick()
         try:
             with entry._lock:
                 n_variants, misses = len(entry.variants), entry.guard_misses
@@ -603,18 +611,26 @@ class StageCache:
 
     def evict(self, memory, nbytes: int) -> int:
         """Drop least recently used entries charged to ``memory`` that no
-        query is running, until ``nbytes`` are released (the memory
-        manager's eviction callback).  Returns the bytes released."""
-        victims, freed = [], 0
+        query is running, until ``nbytes`` are released.  Returns the
+        bytes released.  (A session evicts through ``memory.evict_lru``
+        over this cache and its cached relations.)"""
+        return evict_lru(memory, nbytes, (self,))
+
+    def eviction_candidates(self, memory) -> list:
+        """``(last tick, evict)`` of each entry charged to ``memory`` that
+        no query is running (a storage tenant of ``memory.evict_lru``)."""
         with self._lock:
-            for key, entry in list(self._entries.items()):
-                if freed >= nbytes:
-                    break
-                if entry.charged_to is not memory or entry.in_use:
-                    continue
-                freed += memory.storage_held(entry.storage_key)
-                victims.append(self._entries.pop(key))
-        _release(victims)
+            return [(e.last_used, lambda e=e: self._evict_one(memory, e))
+                    for e in self._entries.values()
+                    if e.charged_to is memory and not e.in_use]
+
+    def _evict_one(self, memory, entry: _CachedStage) -> int:
+        with self._lock:
+            if self._entries.get(entry.key) is not entry or entry.in_use:
+                return 0
+            del self._entries[entry.key]
+        freed = memory.storage_held(entry.storage_key)
+        _release([entry])
         return freed
 
     # -- introspection -------------------------------------------------

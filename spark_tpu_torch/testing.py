@@ -14,15 +14,27 @@ seed and as DataFrame programs written against an engine's
 queries ``chip_smoke.py`` runs through ``spark.sql`` (q3's is TPC-DS
 q3's text as the JAX package's ``tpcds/queries.py`` writes it), each
 with a numpy oracle.
+
+Under pytest-xdist (several worker processes on one host) importing this
+module gives each worker one intra-op torch thread: with a thread per
+core in every worker, the workers' OpenMP regions wait on each other's
+descheduled threads, and the CPU tests' many small ops run up to ~100x
+slower (TPC-DS q4 at 20,000 rows: 142 s under 6 workers on 8 cores, 1.3 s
+alone).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .columnar import ColumnBatch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 
 class BatchParts(NamedTuple):

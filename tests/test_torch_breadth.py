@@ -412,7 +412,7 @@ def breadth_tables(tspark):
     from spark_tpu_torch import types as TT
     from spark_tpu_torch.testing import (hash_agg_table, q3_tables,
                                          register_sql_tables)
-    tables = q3_tables(n_sales=20_000, n_items=3000, n_dates=3000)
+    tables = q3_tables(n_sales=8_000, n_items=3000, n_dates=3000)
     hash_table = hash_agg_table(4096, 64)
     session = tspark.newSession()
     register_sql_tables(session, hash_table, tables, TT)

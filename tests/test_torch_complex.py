@@ -54,6 +54,18 @@ def tspark():
     s.stop()
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _drop_reference_views(spark):
+    """The temp views this file registers on the conftest's shared
+    reference session are dropped at its end: a worker runs other files
+    on that session after this one, and a view ``t`` shadows their
+    tables of that name (tests/test_catalog.py's ``db1.t``)."""
+    before = set(spark.catalog._views)
+    yield
+    for name in set(spark.catalog._views) - before:
+        spark.catalog.dropTempView(name)
+
+
 def _pair(seed=5, n=100, cap=128):
     """A reference batch holding array planes and the port's batch of the
     same bits."""
