@@ -220,7 +220,38 @@ without printing a result:
     explain), q3 over each equal to its oracle; (f) a ``BloomFilter``
     and a ``CountMinSketch`` over SF1's ``ss_item_sk`` through the C++
     library, bit-exact against their numpy plain versions, with times;
-16. a ``{"kernels": [...]}`` line (each kernel's ``sql_launches``: its
+16. crossproc — cross-process SQL over the host shuffle
+    (``parallel/crossproc.py``, ``parallel/hostshuffle.py``): two worker
+    processes started here on the one card (``python -m
+    spark_tpu_torch.testing crossproc-worker <pid> 2 <dir> card``), each a
+    ``cuda`` session with ``enableHostShuffle`` on one temporary
+    directory and ``spark.tpu.memory.hbmBudget`` at its share of the free
+    device memory, holding contiguous halves of hash-agg's table (2^22
+    rows), SF1 store_sales (q3's) and [ooc]'s SF1 store_sales and
+    store_returns, with date_dim, item and a second copy of hash_t whole
+    in both: the texts of ``testing.CARD_TEXTS`` — (a) hash-agg on the
+    fast path, (b) q3 with its dimensions replicated (fast path), (b2) q3
+    with item partitioned (broadcast lane), (c) q93's join of
+    store_sales and store_returns on the hash lane, on the range lane
+    (its two-column key packed into one), with 1 MiB spill thresholds
+    (spilled sides) and with ``spark.tpu.memory.hostBudget`` at 4 MiB and
+    64 grace buckets as well (grace buckets in both reducers), (d) DISTINCT over a window (generic path), (e) hash-agg
+    over the replicated copy (generic path, K1's columns entry).  Each
+    text a cold run and a warm run under the profiler (the card's
+    activity alone); each answer
+    equal to this process's single-process answer over the whole tables
+    (floats within 1e-9, unordered texts as multisets) and each lane's
+    counter fired in every worker's warm run;
+    per worker the warm wall split into
+    local runs, bucketing on the card, read-back, write, commit and
+    barrier waits, fetch and decode, and merge, with blocks and bytes
+    written, the ledger's peak and the card's busy share; every K1
+    launch in the workers counted where the kernel starts
+    (``cuda_agg.ENTRY_LAUNCHES``) and, outside a capture, bit-exact
+    against its plain version on its own inputs, its graph replays
+    counted in the warm runs' profiles, (e)'s in each worker; K2
+    launches 0;
+17. a ``{"kernels": [...]}`` line (each kernel's ``sql_launches``: its
    launches in the SQL phase's counted run; ``breadth_launches``: K1's in
    the breadth phase's graph-lane run, K2's in its window text at 4
    shards; ``complex_launches``: K1's in the complex phase's graph-lane
@@ -232,7 +263,11 @@ without printing a result:
    runs launch none: their partial aggregate is the sort-based one),
    K2's in (c) at 4 shards; ``cache_launches``: K1's in [cache] (a)'s
    first hash-agg run over the cached hash_t, K2's in its run at 4
-   shards; each counted from 0 just before that run; K1's ``captured_launches``: those of its launches made while a
+   shards; ``crossproc_launches``: K1's in the [crossproc] workers (each
+   entry's own count, from 0 before each worker's battery), K2's there
+   (0), and ``crossproc_replayed_launches``: their graph replays that the
+   profiles of the workers' warm runs saw; each counted from 0 just
+   before that run; K1's ``captured_launches``: those of its launches made while a
    graph was captured, and ``replayed_launches``: its launches the
    profiler saw in one replay of each hash-agg query),
    the card line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -3480,6 +3515,203 @@ def phase_cache(session, hash_table, tables, k1_entries, k2_entry, ooc,
     print(f"[cache] phase {time.perf_counter() - t_phase:.2f} s", flush=True)
 
 
+#: the [crossproc] phase: worker processes on the card and the exchange
+#: timeout they run under
+CROSSPROC_WORKERS = 2
+CROSSPROC_TIMEOUT_S = 120.0
+#: the workers' answers without an ORDER BY: compared as multisets
+CROSSPROC_UNORDERED = ("a", "e")
+
+
+def _rows_match(got, want, rtol=1e-9):
+    """Result rows equal: floats within ``rtol``, everything else
+    exactly."""
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        if len(g) != len(w):
+            return False
+        for a, b in zip(g, w):
+            if isinstance(a, float) or isinstance(b, float):
+                if a is None or b is None or abs(a - b) > \
+                        rtol * max(abs(a), abs(b)) + 1e-12:
+                    return False
+            elif a != b:
+                return False
+    return True
+
+
+def _start_crossproc_workers(root, n):
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    procs = []
+    for pid in range(n):
+        log = open(os.path.join(root, f"log-p{pid}.txt"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "spark_tpu_torch.testing",
+             "crossproc-worker", str(pid), str(n), root, "card",
+             str(CROSSPROC_TIMEOUT_S), "cuda"],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=here), log))
+    return procs
+
+
+def phase_crossproc(session, k1_entries, k2_entry):
+    """Cross-process SQL on the card (see the module's docstring, 16):
+    two worker processes, each a ``cuda`` session with
+    ``enableHostShuffle`` on one temporary directory, run
+    ``testing.CARD_TEXTS`` over their shares of SF1 tables while this
+    process answers the same texts over the whole tables; every answer
+    must equal that one, every lane's counter must fire, and every K1
+    launch in the workers must equal its plain version."""
+    import torch
+    from spark_tpu_torch import types as T
+    from spark_tpu_torch.testing import (CARD_TEXTS, OOC_SF1,
+                                         jsonable_rows,
+                                         register_card_tables)
+
+    t_phase = time.perf_counter()
+    n = CROSSPROC_WORKERS
+    root = tempfile.mkdtemp(prefix="chip_smoke_crossproc_")
+    procs = []
+    try:
+        free, _total = torch.cuda.mem_get_info()
+        # each worker's device memory budget is its share of what is free
+        # (the default, the card's whole memory, would let both claim it)
+        budget = int(free * 0.8) // n
+        spec = {"hash_rows": MAIN_N, "hash_groups": MAIN_GROUPS,
+                "q3": Q3_ROWS, "ooc": OOC_SF1, "ooc_seed": 19,
+                "conf": {"spark.tpu.memory.hbmBudget": str(budget)}}
+        with open(os.path.join(root, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        t0 = time.perf_counter()
+        procs = _start_crossproc_workers(root, n)
+        # the single-process answers, on this process's card session,
+        # while the workers run
+        one = session.newSession()
+        register_card_tables(one, T, spec)
+        want = {key: jsonable_rows(tuple(r) for r in one.sql(sql).collect())
+                for key, _what, sql, _lane, _confs in CARD_TEXTS}
+        one.stop()
+        answers_s = time.perf_counter() - t0
+        deadline = time.monotonic() + 900
+        for p, _log in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        workers_s = time.perf_counter() - t0
+        results = []
+        for pid, (p, log) in enumerate(procs):
+            log.close()
+            with open(os.path.join(root, f"log-p{pid}.txt")) as f:
+                text = f.read()
+            check(p.returncode == 0, f"[crossproc] worker {pid} exited "
+                  f"{p.returncode}:\n{text[-4000:]}")
+            with open(os.path.join(root, f"result-p{pid}.json")) as f:
+                results.append(json.load(f))
+        setup = ", ".join(f"{r['setup_ms']:.0f}" for r in results)
+        print(f"[crossproc] {n} worker processes on the card (device "
+              f"memory budget {budget} B each), {len(CARD_TEXTS)} texts "
+              f"x 2 runs (cold, warm under the profiler): workers done in "
+              f"{workers_s:.2f} s (setup {setup} ms); the single-process "
+              f"answers took {answers_s:.2f} s beside them", flush=True)
+        for key, what, _sql, lane, _confs in CARD_TEXTS:
+            qs = [r["queries"][key] for r in results]
+            exp = want[key]
+            for pid, q in enumerate(qs):
+                got = q["rows"]
+                if key in CROSSPROC_UNORDERED:
+                    got, exp_cmp = sorted(got), sorted(exp)
+                else:
+                    exp_cmp = exp
+                check(_rows_match(got, exp_cmp), f"[crossproc] ({key}) "
+                      f"worker {pid}'s {len(got)} rows differ from the "
+                      f"single-process answer ({len(exp)} rows)")
+                check(q["warm_delta"].get(lane, 0) > 0, f"[crossproc] "
+                      f"({key}) worker {pid}: the {lane} counter did not "
+                      f"fire ({q['warm_delta']})")
+                if key == "c_spill":
+                    check(q["warm_delta"].get("spill_events", 0) > 0,
+                          f"[crossproc] ({key}) worker {pid} spilled "
+                          "nothing")
+                check(all(v >= 0 for v in q["replayed"].values()),
+                      f"[crossproc] ({key}) worker {pid}: the profile saw "
+                      f"fewer kernels than the wrappers launched "
+                      f"({q['replayed']}, {q['k1_launches']})")
+                if key == "e":
+                    # the local run's first pass launches K1 (warm-up and
+                    # capture), the warm run replays it
+                    check(q["k1_launches"]["grouped_accumulate_columns"]
+                          > 0 and q["profiled"]["k1"] > 0,
+                          f"[crossproc] (e) worker {pid}: K1 launched "
+                          f"{q['k1_launches']}, in the warm profile "
+                          f"{q['profiled']}")
+            walls = [q["wall_ms"] for q in qs]
+            lanes = ", ".join(str(q["warm_delta"][lane]) for q in qs)
+            print(f"[crossproc] ({key}) {what}: {len(exp)} rows, equal in "
+                  f"every worker and to the single-process answer; lane "
+                  f"{lane} {lanes} by worker; warm wall {max(walls):.2f} "
+                  f"ms (cold {max(q['cold_ms'] for q in qs):.2f} ms)",
+                  flush=True)
+            for pid, q in enumerate(qs):
+                sp = q["split"]
+                busy = "not measured" if q["busy_ms"] is None \
+                    else f"{q['busy_ms']:.3f} ms of the wall " \
+                         f"({q['busy_ms'] / q['wall_ms']:.1%})"
+                print(f"[crossproc]   worker {pid}: wall "
+                      f"{q['wall_ms']:.2f} ms = local runs "
+                      f"{sp['local_ms']:.2f}, bucketing on the card "
+                      f"{sp['bucket_ms']:.3f} (device), read-back "
+                      f"{sp['readback_ms']:.2f} ({int(sp['bytes_readback'])}"
+                      f" B), write {sp['encode_ms'] + sp['write_ms']:.2f} "
+                      f"(encode {sp['encode_ms']:.2f}, on the writer "
+                      f"thread), commit wait {sp['commit_wait_ms']:.2f}, "
+                      f"barrier wait {sp['barrier_ms']:.2f}, fetch and "
+                      f"decode {sp['fetch_ms']:.2f} (decode "
+                      f"{sp['decode_ms']:.2f}), merge {sp['merge_ms']:.2f}; "
+                      f"{q['warm_delta'].get('blocks_written', 0)} blocks, "
+                      f"{q['warm_delta'].get('bytes_written', 0)} B written"
+                      f", {q['warm_delta'].get('spill_bytes', 0)} B "
+                      f"spilled; ledger peak {q['peak_host_bytes']} B; "
+                      f"card busy {busy}", flush=True)
+        k1 = [r["queries"]["_k1"] for r in results]
+        k1_launches = {e: sum(x["launches"][e] for x in k1)
+                       for e in k1[0]["launches"]}
+        k1_captured = sum(sum(x["captured"].values()) for x in k1)
+        texts = [q for r in results for key, q in r["queries"].items()
+                 if not key.startswith("_")]
+        replayed = {kid: sum(q["replayed"].get(kid, 0) for q in texts)
+                    for kid in ("k1", "k2")}
+        k2_calls = sum(q["k2_launches"] for q in texts)
+        check(k1_launches["grouped_accumulate_columns"] > 0,
+              "[crossproc] no K1 launch in the workers")
+        check(all(x["equal"] for x in k1) and sum(x["checked"] for x in k1),
+              f"[crossproc] K1 differs from its plain version in a worker "
+              f"({k1})")
+        print(f"[crossproc] K1 in the workers (cuda_agg.ENTRY_LAUNCHES, "
+              f"from 0 before each battery): {k1_launches} "
+              f"({k1_captured} while a graph was captured), "
+              f"{sum(x['checked'] for x in k1)} held against the plain "
+              f"version on their own inputs: bit-exact (max abs err "
+              f"{max(x['max_abs_err'] for x in k1)}); graph replays of K1 "
+              f"in the warm runs' profiles: {replayed['k1']}; K2: "
+              f"{k2_calls} launches, {replayed['k2']} replayed (no mesh in "
+              "a worker)", flush=True)
+        for entry in k1_entries:
+            entry["crossproc_launches"] = k1_launches[entry["name"]]
+            entry["crossproc_replayed_launches"] = replayed["k1"] \
+                if entry["name"] == "grouped_accumulate_columns" else 0
+        k2_entry["crossproc_launches"] = k2_calls
+        k2_entry["crossproc_replayed_launches"] = replayed["k2"]
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[crossproc] phase {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3538,6 +3770,7 @@ def main() -> int:
                     root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    phase_crossproc(session, k1_entries, k2_entry)
     session.stop()
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": k1_entries + [k2_entry]}))

@@ -386,9 +386,145 @@ SHUFFLE_WIRE_RUN_CODES = conf("spark.tpu.shuffle.wire.runCodes").doc(
 
 SHUFFLE_SPILL_THRESHOLD = conf("spark.tpu.shuffle.spillThresholdBytes").doc(
     "Raw bytes of sorted or concatenated runs held in host RAM before "
-    "they spill to disk, beside spark.tpu.spill.hostMemoryRows.  0 = the "
-    "row budget alone."
+    "they spill to disk, beside spark.tpu.spill.hostMemoryRows; and, on "
+    "the cross-process exchange, the raw bytes of one side's bucketed map "
+    "output at or above which its partition slices spill to disk as wire "
+    "frames that receivers are served from directly (fetched blocks at "
+    "or above it land in run files too).  0 = the row budget alone, and "
+    "an exchange spills only when the host ledger "
+    "(spark.tpu.memory.hostBudget) cannot reserve a side."
 ).check(lambda v: v >= 0).int(0)
+
+# -- the cross-process host shuffle (parallel/hostshuffle.py) --------------
+
+SHUFFLE_WIRE_DICT_CODES = conf("spark.tpu.shuffle.wire.dictCodes").doc(
+    "Ship each dictionary ONCE per (exchange, sender) in a framed sidecar "
+    "and stamp blocks with an 8-byte fingerprint instead of repeating the "
+    "word list in every block header.  Off = per-block inline "
+    "dictionaries (always decodable)."
+).boolean(True)
+
+SHUFFLE_IO_MAX_RETRIES = conf("spark.tpu.shuffle.io.maxRetries").doc(
+    "Re-read attempts for a missing/partial host-shuffle block before it "
+    "is declared lost (spark.shuffle.io.maxRetries analog)."
+).check(lambda v: v >= 0).int(3)
+
+SHUFFLE_IO_RETRY_WAIT_MS = conf("spark.tpu.shuffle.io.retryWaitMs").doc(
+    "Base wait between block re-read attempts; it grows exponentially per "
+    "attempt with deterministic per-block jitter "
+    "(spark.shuffle.io.retryWait analog)."
+).check(lambda v: v >= 0).int(100)
+
+SHUFFLE_IO_ATTEMPT_TIMEOUT_MS = conf(
+    "spark.tpu.shuffle.io.attemptTimeoutMs").doc(
+    "Cap on a SINGLE block retry cycle (backoff + re-read): the backoff "
+    "never sleeps longer than this."
+).check(lambda v: v > 0).int(2000)
+
+SHUFFLE_IO_ASYNC_WRITE = conf("spark.tpu.shuffle.io.asyncWrite").doc(
+    "Stage shuffle blocks through a background writer thread so encoding "
+    "and disk writes overlap the caller's next step; commit() drains the "
+    "queue before publishing the manifest.  Off = every put() writes "
+    "synchronously."
+).boolean(True)
+
+SHUFFLE_IO_FETCH_THREADS = conf("spark.tpu.shuffle.io.fetchThreads").doc(
+    "Concurrent block fetch+decode workers per exchange read (file reads "
+    "and zlib release the interpreter lock).  1 = serial reads."
+).check(lambda v: v >= 1).int(4)
+
+SHUFFLE_IO_MAX_INFLIGHT = conf("spark.tpu.shuffle.io.maxInFlightBytes").doc(
+    "Bound on the encoded bytes the fetch pool may hold in flight at once "
+    "(spark.reducer.maxSizeInFlight analog); a single larger block still "
+    "proceeds alone.  0 = unbounded."
+).check(lambda v: v >= 0).int(64 << 20)
+
+SHUFFLE_FETCH_RETRY_ENABLED = conf(
+    "spark.tpu.shuffle.fetchRetryEnabled").doc(
+    "Allow one re-barrier and re-read of an exchange after a lost block "
+    "(a peer that committed before dying left its blocks on the shared "
+    "filesystem).  Off = every lost block fails the query at once with "
+    "ExchangeFetchFailed."
+).boolean(True)
+
+SHUFFLE_BLACKLIST_ENABLED = conf("spark.tpu.shuffle.blacklistEnabled").doc(
+    "Exclude heartbeat-confirmed-dead peers from exchange barriers and "
+    "remember them for the rest of the query (HealthTracker analog)."
+).boolean(True)
+
+SHUFFLE_RANGE_SAMPLE_SIZE = conf("spark.tpu.shuffle.rangeSampleSize").doc(
+    "Per-process, per-side number of join-key sample points published in "
+    "the range exchange's sample round."
+).check(lambda v: v >= 8).int(256)
+
+SHUFFLE_TARGET_PARTITION_BYTES = conf(
+    "spark.tpu.shuffle.targetPartitionBytes").doc(
+    "Advisory reduce-partition size for cross-process shuffles "
+    "(spark.sql.adaptive.advisoryPartitionSizeInBytes analog): adjacent "
+    "fine partitions below it coalesce into one reducer.  0 = static "
+    "contiguous assignment."
+).check(lambda v: v >= 0).int(1 << 22)
+
+SHUFFLE_FINE_PARTITIONS = conf("spark.tpu.shuffle.finePartitionsPerProc").doc(
+    "Fine hash partitions PER PROCESS for cross-process shuffled joins; "
+    "the manifest-driven coordinator coalesces them into at most "
+    "n_processes contiguous reducer ranges."
+).check(lambda v: v >= 1).int(8)
+
+SHUFFLE_ICI_ENABLED = conf("spark.tpu.shuffle.ici.enabled").doc(
+    "The cross-process device exchange tier.  Not ported yet: with it on "
+    "and spark.tpu.shuffle.ici.tierOverride placing this process in a "
+    "domain with peers, a cross-process exchange raises; the auto probe "
+    "yields singleton domains and the host tier."
+).boolean(False)
+
+SHUFFLE_ICI_TIER_OVERRIDE = conf("spark.tpu.shuffle.ici.tierOverride").doc(
+    "Manual device-domain map: pipe-separated comma groups of process ids "
+    "('0,1|2,3').  Empty = probe (singleton domains)."
+).string("")
+
+CROSSPROC_DEDUP_REPLICATED = conf("spark.tpu.crossproc.dedupReplicated").doc(
+    "On the cross-process generic path, collapse leaf relations that are "
+    "byte-identical across processes to ONE copy (replicated tables need "
+    "no annotation).  Off = union semantics."
+).boolean(True)
+
+CROSSPROC_SHUFFLED_JOIN = conf("spark.tpu.crossproc.shuffledJoin").doc(
+    "Cross-process shuffled hash join: an equi-join whose two sides BOTH "
+    "hold partitioned leaves co-partitions both sides by join-key hash "
+    "and joins each disjoint key range locally.  Off = gather."
+).boolean(True)
+
+CROSSPROC_SORT_MERGE_JOIN = conf("spark.tpu.crossproc.sortMergeJoin").doc(
+    "Cross-process range-partitioned sort-merge join: eligible "
+    "equi-joins agree on cut points through a sample round, exchange "
+    "rows by key range as sorted runs, split skewed spans across "
+    "reducers, and merge-join each span.  Off = hash or gather."
+).boolean(True)
+
+CROSSPROC_AUTO_BROADCAST = conf(
+    "spark.tpu.crossproc.autoBroadcastThreshold").doc(
+    "Cross-process broadcast join threshold in bytes: a partitioned join "
+    "side whose global size is at most this AND under the other side's "
+    "per-process share is gathered everywhere, and no co-partitioning "
+    "exchange runs.  0 = never broadcast."
+).check(lambda v: v >= 0).int(1 << 20)
+
+CROSSPROC_ADAPTIVE_REPLAN = conf(
+    "spark.tpu.crossproc.adaptiveReplan").doc(
+    "Re-decide a hash/range join strategy at its stats barrier from the "
+    "OBSERVED per-side totals (demotion to broadcast only), and record "
+    "them in the session's StatsFeedback for later plan-time decisions.  "
+    "Needs a positive autoBroadcastThreshold."
+).boolean(True)
+
+CROSSPROC_GRACE_BUCKETS = conf("spark.tpu.crossproc.graceBuckets").doc(
+    "Grace-partition fan-out for the distributed join lanes' degraded "
+    "mode: a reducer that cannot reserve its drained shard re-buckets "
+    "both sides by join-key hash into this many spill files and joins "
+    "bucket by bucket.  0 = post-exchange pressure stays a bounded "
+    "HostMemoryError."
+).check(lambda v: v >= 0).int(32)
 
 WAREHOUSE_DIR = conf("spark.sql.warehouse.dir").doc(
     "Root directory for persistent (non-temp) tables and databases "

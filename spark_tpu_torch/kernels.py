@@ -10,7 +10,11 @@ aggregation, radix sort and iterator-chain operators):
   (bucket codes + 8-bit limb planes + one grouped accumulate), whose
   accumulate is the hand-written CUDA kernel ``cuda_agg.grouped_accumulate``;
 * every kernel is a function of tensors on the batch's device; shapes
-  depend on capacities, never on data.
+  depend on capacities, never on data;
+* the cross-process exchange's map side buckets rows by destination on
+  the card (``range_bucket``, ``partition_bucket``) and reads the live
+  rows back in one packed copy (``partition_host_slices``); receivers
+  are carved out of the host batch as views (``host_slice``).
 """
 
 from __future__ import annotations
@@ -765,3 +769,109 @@ def _assemble(key_exprs, key_vals, key_dts, agg_slots, ctx, schema, datas,
 def distinct(batch: ColumnBatch) -> ColumnBatch:
     """Deduplicate live rows (group by all columns)."""
     return grouped_aggregate(batch, [Col(n) for n in batch.names], [])
+
+
+# ---------------------------------------------------------------------------
+# cross-process exchange bucketing (parallel/crossproc.py)
+# ---------------------------------------------------------------------------
+
+def unsigned_mod(h: torch.Tensor, n: int) -> torch.Tensor:
+    """``h`` read as uint64, modulo ``n`` (int64 result): the JAX
+    package's ``h.astype(np.uint64) % np.uint64(n)`` in int64 arithmetic.
+    A negative ``h`` stands for ``h + 2**64``, whose residue is
+    ``(h mod n + 2**64 mod n) mod n``."""
+    r = torch.remainder(h, n)
+    wrap = (1 << 64) % n
+    if wrap:
+        r = torch.where(h < 0, torch.remainder(r + wrap, n), r)
+    return r
+
+
+def range_bucket(keys: torch.Tensor, cuts: torch.Tensor) -> torch.Tensor:
+    """Span id of each orderable int64 key against shared cut points
+    (``spark_tpu/kernels.py`` ``range_bucket``): the number of cuts <= the
+    key (``side="right"``), so every duplicate of a value lands in ONE
+    span on every process.  int32, the ``part_ids`` of
+    ``partition_bucket``."""
+    cuts = torch.as_tensor(cuts, dtype=torch.int64, device=keys.device)
+    if not cuts.numel():
+        return torch.zeros(keys.shape[0], dtype=torch.int32,
+                           device=keys.device)
+    return searchsorted(cuts, keys, side="right").to(torch.int32)
+
+
+def partition_bucket(batch: ColumnBatch, part_ids: torch.Tensor,
+                     n_parts: int,
+                     tie_keys: Optional[Sequence[torch.Tensor]] = None,
+                     ) -> Tuple[ColumnBatch, torch.Tensor, torch.Tensor]:
+    """Rows grouped by partition id in ONE stable sort
+    (``spark_tpu/kernels.py`` ``partition_bucket``).  Dead rows take the
+    virtual partition ``n_parts``, so live rows group contiguously by
+    destination with the padding at the tail; ``tie_keys`` order the rows
+    WITHIN each bucket (the range exchange's sorted runs).  Returns
+    ``(bucketed, offsets, counts)`` (int32): partition ``p`` is
+    ``bucketed[offsets[p]:offsets[p] + counts[p]]``."""
+    live = batch.row_valid_or_true()
+    pid = torch.where(live, part_ids.to(torch.int32),
+                      torch.full((), n_parts, dtype=torch.int32,
+                                 device=live.device))
+    perm = multi_key_argsort([pid] + list(tie_keys or []), batch.capacity)
+    bucketed = take_batch(batch, perm)
+    # a scatter-add, not bincount: bincount on a card reads the maximum
+    # back to size its output
+    counts = torch.zeros(n_parts + 1, dtype=torch.int32, device=pid.device) \
+        .index_add_(0, pid.long(), torch.ones_like(pid))[:n_parts]
+    offsets = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    return bucketed, offsets, counts
+
+
+def partition_host_slices(batch: ColumnBatch, part_ids: torch.Tensor,
+                          n_parts: int,
+                          tie_keys: Optional[Sequence[torch.Tensor]] = None,
+                          ) -> Tuple[ColumnBatch, "np.ndarray", "np.ndarray"]:
+    """``partition_bucket``, then ``bucketed_to_host``: the bucketed live
+    rows on the host with their int32 ``(offsets, counts)``.  Any CONTIGUOUS
+    range of partitions is one contiguous slice of the host batch
+    (``host_slice``), which is what lets the exchange coordinator give a
+    receiver several fine partitions without re-bucketing."""
+    bucketed, _offsets, counts = partition_bucket(batch, part_ids, n_parts,
+                                                  tie_keys)
+    return bucketed_to_host(bucketed, counts)
+
+
+def bucketed_to_host(bucketed: ColumnBatch, counts: torch.Tensor
+                     ) -> Tuple[ColumnBatch, "np.ndarray", "np.ndarray"]:
+    """The live rows of a bucketed batch on the host, with host int32
+    ``(offsets, counts)``: the counts first (a few bytes), then every
+    column's live prefix in ONE packed copy (``columnar.pack_to_host``) —
+    the dead tail never leaves the device.  The host batch has no row
+    mask: all its rows are live."""
+    import numpy as np
+    from .columnar import pack_to_host
+    cnt = counts.cpu().numpy().astype(np.int32)
+    n_live = int(cnt.sum(dtype=np.int64))
+    tensors = []
+    for v in bucketed.vectors:
+        tensors.append(v.data[:n_live])
+        if v.valid is not None:
+            tensors.append(v.valid[:n_live])
+    it = iter(pack_to_host(tensors))
+    vectors = [ColumnVector(next(it), v.dtype,
+                            None if v.valid is None else next(it),
+                            v.dictionary) for v in bucketed.vectors]
+    host = ColumnBatch(bucketed.names, vectors, None, n_live)
+    off = (np.cumsum(cnt, dtype=np.int64) - cnt).astype(np.int32)
+    return host, off, cnt
+
+
+def host_slice(batch: ColumnBatch, start: int, count: int) -> ColumnBatch:
+    """Rows ``[start, start + count)`` of a host batch as views sharing
+    the parent's buffers, with no row mask: the rows are live
+    (``partition_bucket`` put them there).  ``spark_tpu/kernels.py``
+    ``slice_rows``; unlike ``columnar.slice_rows`` it never pads."""
+    vectors = [ColumnVector(v.data[start:start + count], v.dtype,
+                            None if v.valid is None
+                            else v.valid[start:start + count],
+                            v.dictionary)
+               for v in batch.vectors]
+    return ColumnBatch(list(batch.names), vectors, None, count)

@@ -43,11 +43,21 @@ captured graph by ``non_blocking`` copies, as a file leaf does.  Every
 batch served under one entry carries the entry's ``_cache_uid``, through
 demotion, decompression and promotion, so plans over it keep their stage
 key and plan-cache fingerprint.
+
+**Host memory.**  ``HostMemoryLedger`` is the host twin of the execution
+pool for the cross-process shuffle (``parallel/hostshuffle.py``,
+``parallel/crossproc.py``): owner-keyed reservations of host bytes —
+bucketed map output (read back into a pinned staging buffer on a card,
+which the map side's reservation covers), fetched blocks, drained
+shards — under ``spark.tpu.memory.hostBudget``.  It has no eviction:
+a reserver that cannot fit spills (``try_reserve`` is False) or fails
+structured (``reserve`` raises ``HostMemoryError``).
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 import threading
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -77,9 +87,51 @@ CACHE_CODEC = C.conf("spark.tpu.cache.codec").doc(
 ).string("zlib")
 
 
+HOST_BUDGET = C.conf("spark.tpu.memory.hostBudget").doc(
+    "Host-RAM budget in bytes for the shuffle path's exchange staging "
+    "(bucketed map output, fetched blocks, drained shards); 0 = the "
+    "machine's physical RAM (psutil, else os.sysconf; 16 GiB when "
+    "unknown).  Sides that cannot reserve spill to disk instead of "
+    "growing unbounded."
+).check(lambda v: v >= 0).int(0)
+
+
 class HBMOutOfMemoryError(MemoryError):
     """Execution reservation cannot fit even after evicting all unpinned
     storage (SparkOutOfMemoryError analog)."""
+
+
+class HostMemoryError(MemoryError):
+    """Host-RAM staging can proceed NEITHER in memory nor via spill (a
+    disk error, or the ledger exhausted by concurrent reservers): the
+    query fails bounded with the reserver and exchange named, never with
+    partial results."""
+
+    def __init__(self, owner: str, requested: int, budget: int,
+                 holders: Optional[Dict[str, int]] = None,
+                 exchange: str = "", detail: str = ""):
+        self.owner = owner
+        self.requested = requested
+        self.budget = budget
+        self.holders = dict(holders or {})
+        self.exchange = exchange
+        self.detail = detail
+        held = sum(self.holders.values())
+        msg = (f"{owner}: cannot stage {requested} B"
+               f"{' for exchange ' + exchange if exchange else ''} "
+               f"(host budget {budget} B, held {held} B by "
+               f"{len(self.holders)} reserver(s))")
+        if detail:
+            msg += f": {detail}"
+        super().__init__(msg)
+
+
+class HostMemoryPressure(HostMemoryError):
+    """A ledger reservation failed where a DEGRADED mode can still finish
+    the query (a distributed join's drained post-exchange shard, which the
+    grace path re-buckets to disk and joins piecewise).  The raiser leaves
+    the underlying state intact and re-consumable; a caller with no grace
+    path treats it as its ``HostMemoryError`` base."""
 
 
 def batch_nbytes(batch: ColumnBatch) -> int:
@@ -397,3 +449,109 @@ class DeviceCacheManager:
             self._memory.release_storage(entry.storage_key)
             entry.nbytes = _blocks_nbytes(entry.blocks)
             return freed
+
+
+# ---------------------------------------------------------------------------
+# the host memory ledger (cross-process exchange staging)
+# ---------------------------------------------------------------------------
+
+def discover_host_budget() -> int:
+    """Physical host RAM in bytes: psutil when it is installed, else
+    ``os.sysconf``, else 16 GiB."""
+    try:
+        import psutil
+        return int(psutil.virtual_memory().total)
+    except Exception:
+        pass
+    try:
+        return int(os.sysconf("SC_PAGE_SIZE")) * int(os.sysconf("SC_PHYS_PAGES"))
+    except (AttributeError, OSError, ValueError):
+        return 16 << 30
+
+
+class HostMemoryLedger:
+    """Owner-keyed host-RAM reservations for the shuffle staging path
+    (``spark_tpu/memory.py`` ``HostMemoryLedger``).
+
+    Over-budget reservers either spill (``try_reserve`` returns False) or
+    fail structured (``reserve`` raises ``HostMemoryError``).  ``peak`` is
+    the high-water mark of accounted bytes (the ``peak_host_bytes``
+    gauge)."""
+
+    def __init__(self, conf=None, budget: Optional[int] = None):
+        #: a budget given here is fixed; else ``budget`` follows the conf
+        self._fixed = None if budget is None else int(budget)
+        self._conf = conf
+        self._discovered: Optional[int] = None
+        self._lock = threading.Lock()
+        self._held: Dict[str, int] = {}
+        self.peak = 0
+
+    @property
+    def budget(self) -> int:
+        """The given budget, else ``spark.tpu.memory.hostBudget`` as the
+        conf holds it now (0 = the host's RAM).  The reference reads the
+        conf once, when the ledger is built (ROADMAP §3)."""
+        if self._fixed is not None:
+            return self._fixed
+        fixed = self._conf.get(HOST_BUDGET) if self._conf is not None else 0
+        if fixed:
+            return int(fixed)
+        if self._discovered is None:
+            self._discovered = discover_host_budget()
+        return self._discovered
+
+    @property
+    def used(self) -> int:
+        with self._lock:
+            return sum(self._held.values())
+
+    @property
+    def free(self) -> int:
+        return self.budget - self.used
+
+    def held(self, owner: str) -> int:
+        with self._lock:
+            return self._held.get(owner, 0)
+
+    def owners(self) -> List[str]:
+        with self._lock:
+            return list(self._held)
+
+    def try_reserve(self, owner: str, nbytes: int) -> bool:
+        nbytes = int(nbytes)
+        with self._lock:
+            used = sum(self._held.values())
+            if used + nbytes > self.budget:
+                return False
+            self._held[owner] = self._held.get(owner, 0) + nbytes
+            self.peak = max(self.peak, used + nbytes)
+            return True
+
+    def reserve(self, owner: str, nbytes: int, exchange: str = "") -> None:
+        if not self.try_reserve(owner, nbytes):
+            with self._lock:
+                holders = dict(self._held)
+            raise HostMemoryError(owner, int(nbytes), self.budget,
+                                  holders=holders, exchange=exchange)
+
+    def release(self, owner: str, nbytes: Optional[int] = None) -> None:
+        with self._lock:
+            if nbytes is None:
+                self._held.pop(owner, None)
+                return
+            left = self._held.get(owner, 0) - int(nbytes)
+            if left > 0:
+                self._held[owner] = left
+            else:
+                self._held.pop(owner, None)
+
+    def release_prefix(self, prefix: str) -> int:
+        """Drop every reservation whose owner starts with ``prefix`` (the
+        query-exit safety net against leaks on error paths); returns the
+        bytes freed."""
+        freed = 0
+        with self._lock:
+            for owner in [o for o in self._held if o.startswith(prefix)]:
+                freed += self._held.pop(owner)
+        return freed

@@ -17,10 +17,15 @@ The port of the local face of ``spark_tpu/parallel/ici.py``:
   table included: the TPU kernel's data planes and the ``lax.all_to_all``
   of its run table become one launch.
 
-The cross-process ``device_exchange`` comes with the cross-process slice
-(``crossproc.py``, ``hostshuffle.py``); until then no multi-process device
-world exists, so the auto path of ``probe_topology`` yields singleton
-domains, as the JAX package does in one process.
+The cross-process lanes (``crossproc.py`` over ``hostshuffle.py``) run
+every exchange between processes on the host tier: blocks written to a
+shared directory.  The cross-process ``device_exchange`` (``_ici_tier``
+and the tiered exchanges of the JAX package's ``crossproc.py``) comes
+with the device-tier slice, after the recovery slice (epochs, lost-leaf
+adoption, the block service); until then the auto path of
+``probe_topology`` yields singleton domains, as the JAX package does in
+one process, and a tier override that puts peers in one domain makes a
+cross-process exchange raise (``crossproc._check_device_tier``).
 """
 
 from __future__ import annotations

@@ -122,6 +122,95 @@ def _orderable_f64(x: torch.Tensor) -> torch.Tensor:
     return torch.where(bits < 0, bits ^ torch.iinfo(torch.int64).max, bits)
 
 
+# NULL/dead sentinel of the RANGE routing key: only determinism matters
+# (a genuine INT64_MIN key sharing its span is harmless — spans never
+# decide matches, the local exact join does)
+_RANGE_NULL = torch.iinfo(torch.int64).min
+
+
+def range_encode_key(ctx: EvalContext, expr: Expression,
+                     as_float: bool = False):
+    """``(enc, ok)`` of ``range_encode_key_ex`` (the dictionary dropped),
+    or None."""
+    r = range_encode_key_ex(ctx, expr, as_float)
+    return None if r is None else r[:2]
+
+
+def range_encode_key_ex(ctx: EvalContext, expr: Expression,
+                        as_float: bool = False):
+    """Monotone int64 image of one join-key column for the cross-process
+    range exchange (``spark_tpu/sql/joins.py`` ``range_encode_key_ex``),
+    or None when the type has none.
+
+    Integers and booleans pass through; floats take ``_orderable_f64``,
+    the image ``_exact_encode_pair`` searches on, so span routing and the
+    local merge join agree on every value (``as_float`` sends an integer
+    side of a mixed pair through float64 too).  Dictionary strings encode
+    as their codes, monotone in the words (dictionaries are sorted) but
+    comparable across processes only after the caller maps shared cut
+    WORDS into each code space.  NULL keys and dead rows take
+    ``_RANGE_NULL`` (span 0 everywhere).
+
+    Returns ``(enc, ok, dictionary)``: keys, the live-and-non-null mask,
+    and the column's dictionary (None for non-strings)."""
+    v = ctx.broadcast(expr.eval(ctx))
+    ok = ctx.batch.row_valid_or_true()
+    if v.valid is not None:
+        ok = ok & v.valid.expand(ctx.capacity)
+    null = torch.full((), _RANGE_NULL, dtype=torch.int64, device=ok.device)
+    if v.dictionary is not None:
+        ok = ok & (v.data >= 0)            # the NULL code (-1)
+        return torch.where(ok, v.data.to(torch.int64), null), ok, \
+            v.dictionary
+    dt = v.data.dtype
+    if as_float or dt.is_floating_point:
+        enc = _orderable_f64(v.data.to(torch.float64))
+    elif not dt.is_complex:             # integers and booleans
+        enc = v.data.to(torch.int64)
+    else:
+        return None
+    return torch.where(ok, enc, null), ok, None
+
+
+def range_key_spec(node: Join, left_schema: T.StructType,
+                   right_schema: T.StructType):
+    """Eligibility of the range-partitioned merge join: exactly ONE
+    equi-key pair of orderable types on both sides — numeric, or string
+    against string (cut points travel as words).  Returns ``(l_expr,
+    r_expr, l_as_float, r_as_float, is_string)`` or None.  Right and full
+    joins are out: a skew split replicates the build span, which would
+    null-extend build rows more than once."""
+    if node.how not in ("inner", "left", "left_semi", "left_anti"):
+        return None
+    keys = equi_join_keys(node)
+    if len(keys) != 1:
+        return None
+    l, r = keys[0]
+
+    def _kind(e, schema):
+        try:
+            dt = e.data_type(schema)
+        except Exception:
+            return None
+        if isinstance(dt, T.BooleanType) or dt.is_integral:
+            return "int"
+        if dt.is_fractional:
+            return "float"
+        if dt.is_string:
+            return "str"
+        return None                        # dates, binary, complex types
+
+    lk = _kind(l, left_schema)
+    rk = _kind(r, right_schema)
+    if lk is None or rk is None:
+        return None
+    if (lk == "str") != (rk == "str"):
+        return None                        # str never coerces to numeric
+    mixed = lk != rk
+    return (l, r, mixed and lk == "int", mixed and rk == "int",
+            lk == "str")
+
+
 def _exact_encode_pair(pctx: EvalContext, bctx: EvalContext,
                        l: Expression, r: Expression):
     """Exact int64 encodings of one equi-key pair, value-comparable across
@@ -201,6 +290,10 @@ def _join_keys(ctx: EvalContext, exprs: Sequence[Expression],
 
 
 class PJoin(P.PhysicalPlan):
+    #: the build side already arrives (null_flag, key)-sorted: PMergeJoin
+    #: skips the build sort (the merge-join contract)
+    presorted_build = False
+
     def __init__(self, left: P.PhysicalPlan, right: P.PhysicalPlan, how: str,
                  key_pairs: Sequence[Tuple[Expression, Expression]],
                  residual: Optional[Expression],
@@ -243,7 +336,13 @@ class PJoin(P.PhysicalPlan):
             # lexicographic (flag, key) sort puts valid keys first sorted
             # by value; null/dead rows sink into an INT64_MAX-keyed suffix
             b_flag = torch.where(b_ok, 0, 1).to(torch.int8)
-            perm = multi_key_argsort([b_flag, b_enc], build.capacity)
+            if self.presorted_build:
+                # the range exchange delivered the build merged into
+                # (flag, key) order: the identity permutation, no sort
+                perm = torch.arange(build.capacity, dtype=torch.int64,
+                                    device=dev)
+            else:
+                perm = multi_key_argsort([b_flag, b_enc], build.capacity)
             ba_s = torch.where(b_flag[perm] == 0, b_enc[perm], _DEAD_BUILD)
             pa = p_enc
             p_ok = probe_live if p_val is None else (probe_live & p_val)
@@ -421,6 +520,23 @@ class PJoin(P.PhysicalPlan):
         return f"HashJoin {self.how} keys=[{ks}] residual={self.residual!r} f={self.factor}"
 
 
+class PMergeJoin(PJoin):
+    """Merge join over a pre-sorted build side (``spark_tpu/sql/joins.py``
+    ``PMergeJoin``, SortMergeJoinExec's streaming-merge role): the
+    cross-process range exchange ships key-sorted runs and the receiver
+    k-way-merges them (``native/merge.py``), so the build sort of every
+    ``PJoin`` is already done.  Probe rows binary-search the merged build
+    directly; expansion, exact verification and existence are
+    ``PJoin``'s."""
+
+    presorted_build = True
+
+    def __repr__(self):
+        ks = ", ".join(f"{l!r}={r!r}" for l, r in self.key_pairs)
+        return (f"MergeJoin {self.how} keys=[{ks}] "
+                f"residual={self.residual!r} f={self.factor}")
+
+
 def plan_join(planner, node: Join, leaves) -> P.PhysicalPlan:
     ls, rs = node.left.schema(), node.right.schema()
 
@@ -476,8 +592,9 @@ def plan_join_raw(planner, node: Join, leaves) -> P.PhysicalPlan:
             raise AnalysisException(f"{node.how} join requires equi-join keys")
         return PJoin(left_p, right_p, "cross", [], residual, raw_schema, 1.0)
 
-    return PJoin(left_p, right_p, node.how, key_pairs, residual, raw_schema,
-                 planner.next_join_factor())
+    cls = PMergeJoin if getattr(node, "_presorted_build", False) else PJoin
+    return cls(left_p, right_p, node.how, key_pairs, residual, raw_schema,
+               planner.next_join_factor())
 
 
 class _JoinOutput(P.PhysicalPlan):

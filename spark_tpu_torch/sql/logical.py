@@ -353,6 +353,11 @@ class Limit(LogicalPlan):
 class Join(LogicalPlan):
     JOIN_TYPES = ("inner", "left", "right", "full", "left_semi", "left_anti", "cross")
 
+    #: planner hint: the build (right) side arrives key-sorted from the
+    #: cross-process range exchange, and the physical planner picks the
+    #: merge join that skips the build sort (set by ``crossproc``)
+    _presorted_build = False
+
     def __init__(self, left: LogicalPlan, right: LogicalPlan,
                  how: str, on: Optional[Expression] = None,
                  using: Optional[List[str]] = None):
@@ -380,8 +385,10 @@ class Join(LogicalPlan):
         return [self.on] if self.on is not None else []
 
     def map_expressions(self, fn):
-        return Join(self.children[0], self.children[1], self.how,
-                    fn(self.on) if self.on is not None else None, self.using)
+        out = Join(self.children[0], self.children[1], self.how,
+                   fn(self.on) if self.on is not None else None, self.using)
+        out._presorted_build = self._presorted_build
+        return out
 
     def schema(self) -> T.StructType:
         ls, rs = self.left.schema(), self.right.schema()

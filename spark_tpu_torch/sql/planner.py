@@ -23,7 +23,7 @@ import numpy as np
 
 from .. import config as C
 from .. import types as T
-from ..columnar import ColumnBatch, pad_capacity
+from ..columnar import ColumnBatch, ColumnVector, pad_capacity
 from ..expressions import AnalysisException
 from ..kernels import compact
 from .logical import (
@@ -526,6 +526,9 @@ class QueryExecution:
         #: per-operator metrics of the last execution:
         #: {(op_id, operator label): output row count}
         self.metrics: Dict[Tuple[int, str], int] = {}
+        #: leave the result on the device (the cross-process lanes bucket
+        #: a local result there before their one read-back)
+        self.keep_on_device = False
 
     @property
     def analyzed(self) -> LogicalPlan:
@@ -630,11 +633,22 @@ class QueryExecution:
         #   slice;
         # * run planes at the stage boundary (plan_leaves): with the
         #   run-length vectors;
-        # * the cross-process exchange (crossproc_execute): the
-        #   cross-process slice;
         # * the mesh lane under graphs: the mesh lane below stays eager.
+        # The cross-process exchange (``crossproc_execute``) runs the host
+        # shuffle's lanes; a lost peer raises ``ExchangeFetchFailed``
+        # until the recovery slice brings epochs and re-execution, and
+        # exchanges stay on the host tier until the device-tier slice.
         session = self.session
         session.raise_if_cancelled()      # checkpoint: before planning
+        svc = session._crossproc_svc
+        if svc is not None:
+            # a registered host shuffle makes the exchange a planner
+            # decision (ShuffleExchangeExec placement role): every local
+            # run inside grounds out with the service cleared
+            from ..parallel.crossproc import crossproc_execute
+            return self._staged(
+                "crossproc",
+                lambda: crossproc_execute(session, self.optimized, svc))
         n_shards = session.conf.get(C.MESH_SHARDS)
         if n_shards == 0:
             n_shards = 1          # "all local devices": the engine spans one
@@ -771,7 +785,7 @@ class QueryExecution:
             c, n_rows, _nd, int_flags, caps, kinds = SC.run_per_op(
                 pq.physical, pq.leaves, device)
             self.metrics = {}
-            return _slice_to_host(c, n_rows), \
+            return self._result(c, n_rows), \
                 self._note_flags(int_flags, caps, kinds)
 
         # the whole plan IS one stage: its captured programs live in the
@@ -806,7 +820,7 @@ class QueryExecution:
             caps, kinds, metric_keys = meta
             n_rows, int_flags = host[0], host[1:1 + len(caps)]
             self.metrics = dict(zip(metric_keys, host[1 + len(caps):]))
-            return _slice_to_host(out, n_rows), \
+            return self._result(out, n_rows), \
                 self._note_flags(int_flags, caps, kinds)
 
         session.raise_if_cancelled()      # checkpoint: before the replay
@@ -831,8 +845,24 @@ class QueryExecution:
         metric_vals = rest[len(ctx.flags):]
         self.metrics = {(oid, lbl): v for (oid, lbl, _v), v
                         in zip(ctx.metrics, metric_vals)}
-        return _slice_to_host(out, n_rows), \
+        return self._result(out, n_rows), \
             self._note_flags(int_flags, ctx.flag_caps, ctx.flag_kinds)
+
+    def _result(self, out: ColumnBatch, n: int) -> ColumnBatch:
+        """The live prefix of a compacted result: on the host in one
+        packed copy, or with ``keep_on_device`` cloned on the device (a
+        stage entry's static outputs belong to its next replay)."""
+        if not self.keep_on_device or out.device.type == "cpu":
+            return _slice_to_host(out, n)
+        rows = min(pad_capacity(max(n, 1)), out.capacity)
+
+        def head(t):
+            return None if t is None else t[:rows].clone()
+        return ColumnBatch(out.names, [ColumnVector(head(v.data), v.dtype,
+                                                    head(v.valid),
+                                                    v.dictionary)
+                                       for v in out.vectors],
+                           head(out.row_valid), rows)
 
     def _note_flags(self, int_flags: List[int], caps: List[int],
                     kinds: List[str]) -> float:

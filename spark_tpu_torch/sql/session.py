@@ -330,6 +330,10 @@ class SparkSession:
         # SQL server to every session it serves; None elsewhere
         self._plan_cache = None
         self._last_plan_cache_info = None
+        # the cross-process host shuffle (enableHostShuffle) and its host
+        # memory ledger, kept across re-enables
+        self._crossproc_svc = None
+        self._host_ledger = None
         from ..metrics import MetricsSystem, default_sources
         self._metrics_system = MetricsSystem(self.conf_obj)
         for src in default_sources(self):
@@ -376,6 +380,63 @@ class SparkSession:
         (``SparkSession.scala:236 newSession``).  The stage cache is per
         process, so siblings share its captured graphs."""
         return SparkSession(self.conf_obj.clone())
+
+    def enableHostShuffle(self, root: str, process_id: Optional[int] = None,
+                          n_processes: Optional[int] = None,
+                          timeout_s: float = 120.0, heartbeat=None):
+        """Register the cross-process host shuffle on this session: from
+        now on every query plans its cross-process exchange through a
+        ``HostShuffleService`` rooted at ``root``, a directory every
+        process mounts (``spark_tpu/sql/session.py`` ``enableHostShuffle``;
+        ``ExternalShuffleBlockResolver.java:57``'s registration).  Each
+        process's leaves are its partitions; byte-identical leaves are
+        replicated.
+
+        ``process_id`` and ``n_processes`` default to the launcher's
+        environment contract (``parallel.cluster.init_cluster``:
+        ``SPARK_TPU_PROCESS_ID``, ``SPARK_TPU_NUM_PROCESSES``); with
+        neither given nor in the environment the call raises.
+        ``heartbeat`` (a ``parallel.cluster.HeartbeatMonitor``) turns
+        confirmed-dead peers into barrier exclusions.  The session keeps
+        ONE ``HostMemoryLedger`` across re-enables, and the service's
+        counters register as the ``shuffle`` metrics source."""
+        import os
+        from ..memory import HostMemoryLedger
+        from ..parallel import cluster
+        from ..parallel.hostshuffle import HostShuffleService
+        if process_id is None or n_processes is None:
+            if not os.environ.get(cluster.ENV_NUM_PROCESSES) \
+                    or not os.environ.get(cluster.ENV_PROCESS_ID):
+                raise ValueError(
+                    "enableHostShuffle needs process_id and n_processes, "
+                    f"or {cluster.ENV_PROCESS_ID} and "
+                    f"{cluster.ENV_NUM_PROCESSES} in the environment")
+            info = cluster.init_cluster()
+            process_id = info.process_index if process_id is None \
+                else process_id
+            n_processes = info.process_count if n_processes is None \
+                else n_processes
+        if self._host_ledger is None:
+            self._host_ledger = HostMemoryLedger(self.conf_obj)
+        self._crossproc_svc = HostShuffleService(
+            root, process_id=process_id, n_processes=n_processes,
+            timeout_s=timeout_s, conf=self.conf_obj, heartbeat=heartbeat,
+            ledger=self._host_ledger)
+        ms = self.metricsSystem
+        ms._sources = [src for src in ms._sources if src.name != "shuffle"]
+        ms.register_source(self._crossproc_svc.metrics_source())
+        return self._crossproc_svc
+
+    def disableHostShuffle(self) -> None:
+        self._crossproc_svc = None
+
+    @property
+    def statsFeedback(self):
+        """The session's adaptive-execution ``StatsFeedback``: per-side
+        cardinalities the cross-process replanner observed at exchange
+        stats barriers, consulted by later join decisions."""
+        from ..parallel.crossproc import _session_feedback
+        return _session_feedback(self)
 
     def _invalidate_plan_cache(self, path: Optional[str] = None,
                                conf_key: Optional[str] = None,

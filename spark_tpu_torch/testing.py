@@ -25,8 +25,11 @@ alone).
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
+import sys
+import time
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -1121,3 +1124,555 @@ def sorted_run_mismatch(tables, ticket, item, ext_c):
     if int(np.asarray(ext_c).sum()) != int(ext.sum()):
         return "the ext prices are not the table's"
     return None
+
+
+# ---------------------------------------------------------------------------
+# the cross-process worker (``python -m spark_tpu_torch.testing
+# crossproc-worker <pid> <n> <root> <mode> [timeout_s] [device]``)
+# ---------------------------------------------------------------------------
+
+#: (name, SQL text, the execution-shape counter each join mode bumps) —
+#: the JAX package's ``tests/shuffled_join_worker.py`` battery: inner /
+#: left / semi joins of two partitioned leaves, with and without a keyed
+#: aggregate above, a hot key (~40% of fact rows) the range planner must
+#: split, string keys, and string min/max over disjoint dictionaries
+CROSSPROC_QUERIES = [
+    ("inner-agg",
+     "SELECT sk, count(*) AS c, sum(bonus) AS sb FROM fact "
+     "JOIN fact2 ON sk = k2 GROUP BY sk ORDER BY sk",
+     {"range": "range_merge_joins", "hash": "shuffled_joins"}),
+    ("inner-rows",
+     "SELECT sk, price, bonus FROM fact JOIN fact2 ON sk = k2 "
+     "WHERE bonus > 40 ORDER BY sk, price, bonus",
+     {"range": "range_merge_joins", "hash": "shuffled_joins"}),
+    ("left-agg",
+     "SELECT sk, count(bonus) AS cb, count(*) AS c FROM fact "
+     "LEFT JOIN fact2 ON sk = k2 GROUP BY sk ORDER BY sk",
+     {"range": "range_merge_joins", "hash": "shuffled_joins"}),
+    ("string-key-agg",
+     "SELECT g, count(*) AS c, sum(bonus) AS sb FROM fact "
+     "JOIN fact2 ON g = g2 GROUP BY g ORDER BY g",
+     {"range": "range_merge_joins", "hash": "shuffled_joins"}),
+    ("string-minmax-fast",
+     "SELECT sk2, min(t) AS tlo, max(t) AS thi, count(*) AS c FROM tags "
+     "GROUP BY sk2 ORDER BY sk2",
+     {"range": "fast_path_aggs", "hash": "fast_path_aggs",
+      "gather": "fast_path_aggs"}),
+    ("semi-rows",
+     "SELECT sk, price FROM fact LEFT SEMI JOIN fact2 ON sk = k2 "
+     "ORDER BY sk, price",
+     {"range": "range_merge_joins", "hash": "shuffled_joins"}),
+    ("semi-replicated-fast",
+     "SELECT sk, count(*) AS c FROM fact LEFT SEMI JOIN dim ON sk = d_sk "
+     "GROUP BY sk ORDER BY sk",
+     {"range": "fast_path_aggs", "hash": "fast_path_aggs",
+      "gather": "fast_path_aggs"}),
+]
+
+#: join mode → (sortMergeJoin, shuffledJoin)
+CROSSPROC_MODES = [("range", "true", "true"),
+                   ("hash", "false", "true"),
+                   ("gather", "false", "false")]
+
+#: the execution-shape counters no other join mode may bump
+CROSSPROC_JOIN_COUNTERS = ("range_merge_joins", "shuffled_joins",
+                           "broadcast_joins")
+
+#: keyed aggregates ABOVE a join of plain sides: raw rows ride the join
+#: exchange, so the capped ledger's pressure lands on the reducer's drain
+CROSSPROC_GRACE_QUERIES = [
+    ("grace-inner",
+     "SELECT sk, count(*) AS c, sum(bonus) AS sb "
+     "FROM (SELECT sk FROM fact) f "
+     "JOIN (SELECT k2, bonus FROM fact2) f2 ON sk = k2 "
+     "GROUP BY sk ORDER BY sk"),
+    ("grace-left",
+     "SELECT sk, count(bonus) AS cb, count(*) AS c "
+     "FROM (SELECT sk FROM fact) f "
+     "LEFT JOIN (SELECT k2, bonus FROM fact2) f2 ON sk = k2 "
+     "GROUP BY sk ORDER BY sk"),
+    ("grace-semi",
+     "SELECT sk, count(*) AS c FROM (SELECT sk FROM fact) f "
+     "LEFT SEMI JOIN (SELECT k2 FROM fact2) f2 ON sk = k2 "
+     "GROUP BY sk ORDER BY sk"),
+    ("grace-string",
+     "SELECT g, count(*) AS c, sum(bonus) AS sb "
+     "FROM (SELECT g FROM fact) f "
+     "JOIN (SELECT g2, bonus FROM fact2) f2 ON g = g2 "
+     "GROUP BY g ORDER BY g"),
+]
+
+
+def crossproc_tables(pid: Optional[int] = None, n: int = 1) -> dict:
+    """The battery's tables (the JAX package worker's, from seed 7):
+    process ``pid`` of ``n`` keeps a strided 1/n slice of the three fact
+    tables, so every process sees every key range; ``dim`` is whole in
+    every process (replicated).  ``pid`` None: the whole tables."""
+    rng = np.random.default_rng(7)
+    N, M = 900, 600
+    f_sk = rng.integers(0, 40, N).astype(np.int64)
+    f_sk[rng.random(N) < 0.4] = 8
+    f_price = rng.integers(1, 200, N).astype(np.int64)
+    f_g = np.array(["ash", "oak", "fir", "elm"])[f_sk % 4]
+    k2 = (rng.integers(0, 20, M) * 2).astype(np.int64)
+    b2 = rng.integers(1, 100, M).astype(np.int64)
+    g2 = np.array(["ash", "oak", "fir", "pine"])[k2 % 4]
+    d_sk = np.arange(0, 40, 3, dtype=np.int64)
+    d_year = (1998 + d_sk % 5).astype(np.int64)
+    t_words = np.array([f"row{i:04d}" for i in range(N)])
+    mine = slice(None) if pid is None else slice(pid, None, n)
+    return {
+        "fact": {"sk": f_sk[mine], "price": f_price[mine], "g": f_g[mine]},
+        "fact2": {"k2": k2[mine], "bonus": b2[mine], "g2": g2[mine]},
+        "tags": {"sk2": f_sk[mine], "t": t_words[mine]},
+        "dim": {"d_sk": d_sk, "year": d_year},
+    }
+
+
+def _json_rows(rows) -> list:
+    return [[v.item() if hasattr(v, "item") else v for v in r] for r in rows]
+
+
+def _crossproc_battery(xs, svc, mode: str) -> dict:
+    """The worker's run of one battery; returns what the parent holds
+    against the JAX package: rows per (query, join mode) and the counter
+    deltas of each run."""
+    from . import config as C
+
+    def set_mode(m):
+        for name, smj, sh in CROSSPROC_MODES:
+            if name == m:
+                xs.conf.set(C.CROSSPROC_SORT_MERGE_JOIN.key, smj)
+                xs.conf.set(C.CROSSPROC_SHUFFLED_JOIN.key, sh)
+                return
+        raise ValueError(m)
+
+    def run(sql, m):
+        set_mode(m)
+        before = dict(svc.counters)
+        rows = _json_rows(tuple(r) for r in xs.sql(sql).collect())
+        delta = {k: svc.counters[k] - before[k] for k in svc.counters
+                 if svc.counters[k] != before[k]}
+        return {"rows": rows, "delta": delta}
+
+    out: Dict[str, Any] = {}
+    if mode in ("parity", "spill"):
+        for name, sql, _want in CROSSPROC_QUERIES:
+            out[name] = {m: run(sql, m) for m, _s, _h in CROSSPROC_MODES}
+        return out
+    # grace: both distributed lanes, then the elastic narrowing (a huge
+    # target), then the salted re-split (one grace bucket) at both targets
+    for name, sql in CROSSPROC_GRACE_QUERIES:
+        out[name] = {m: run(sql, m) for m in ("range", "hash")}
+    name, sql = CROSSPROC_GRACE_QUERIES[0]
+    xs.conf.set(C.SHUFFLE_TARGET_PARTITION_BYTES.key, str(1 << 20))
+    out["elastic"] = {m: run(sql, m) for m in ("range", "hash")}
+    xs.conf.set(C.CROSSPROC_GRACE_BUCKETS.key, "1")
+    out["resplit"] = {}
+    for tgt in ("2048", str(1 << 20)):
+        xs.conf.set(C.SHUFFLE_TARGET_PARTITION_BYTES.key, tgt)
+        out["resplit"][tgt] = run(sql, "hash")
+    xs.conf.unset(C.CROSSPROC_GRACE_BUCKETS.key)
+    return out
+
+
+def crossproc_worker(argv: Sequence[str]) -> int:
+    """One process of a cross-process run over ``crossproc_tables``.
+
+    argv: ``<pid> <n> <root> <mode> [timeout_s] [device]``.  Modes:
+    ``parity`` (the battery in every join mode), ``spill`` (the same
+    with a 1 KiB spill threshold and a 32 MiB host budget), ``grace``
+    (a 7 KiB budget: the reducers' drains grace-degrade), ``kill``
+    (one hash join; process 1 stops before committing its first join
+    exchange and waits to be killed, the others must fail structured)
+    and ``card`` (``CARD_TEXTS`` over the tables of
+    ``<root>/spec.json``, with K1 held against its plain version).
+    The answers, counters and gauges go to ``<root>/result-p<pid>.json``;
+    the worker prints one line."""
+    from . import config as C
+    from .memory import HOST_BUDGET
+    from .parallel.cluster import HeartbeatMonitor, default_host_name
+    from .parallel.hostshuffle import ExchangeFetchFailed
+    from .sql.session import SparkSession
+
+    pid, n, root, mode = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    timeout_s = float(argv[4]) if len(argv) > 4 else 60.0
+    device = argv[5] if len(argv) > 5 else "cpu"
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("crossproc worker: no CUDA device")
+    if device == "cpu":
+        # several workers share the host's cores: one intra-op thread each
+        torch.set_num_threads(1)
+    xs = SparkSession.builder.config("spark.torch.device", device) \
+        .getOrCreate()
+    xs.conf.set(C.MESH_SHARDS.key, "1")
+    spec = None
+    if mode == "card":
+        with open(os.path.join(root, "spec.json")) as f:
+            spec = json.load(f)
+        for k, v in spec.get("conf", {}).items():
+            xs.conf.set(k, v)
+    if mode == "spill":
+        xs.conf.set(C.SHUFFLE_SPILL_THRESHOLD.key, "1024")
+        xs.conf.set(HOST_BUDGET.key, str(32 << 20))
+    elif mode == "grace":
+        xs.conf.set(C.SHUFFLE_SPILL_THRESHOLD.key, "1024")
+        xs.conf.set(HOST_BUDGET.key, str(7 << 10))
+    heartbeat = None
+    if mode == "kill":
+        hconf = C.Conf()
+        hconf.set("spark.tpu.cluster.heartbeatIntervalMs", "100")
+        hconf.set("spark.tpu.cluster.heartbeatTimeoutMs", "1500")
+        heartbeat = HeartbeatMonitor(os.path.join(root, "beats"),
+                                     host_id=default_host_name(pid),
+                                     conf=hconf)
+        heartbeat.start()
+    svc = xs.enableHostShuffle(os.path.join(root, "shuffle"), pid, n,
+                               timeout_s=timeout_s, heartbeat=heartbeat)
+    svc.poll_s = 0.005          # one host: poll the markers often
+    result: Dict[str, Any] = {"pid": pid, "mode": mode}
+    if mode == "card":
+        from . import types as T
+        t0 = time.perf_counter()
+        register_card_tables(xs, T, spec, pid, n)
+        result["setup_ms"] = (time.perf_counter() - t0) * 1e3
+        result["queries"] = _card_battery(xs, svc)
+        return _finish_worker(result, svc, root, pid, mode, heartbeat)
+    # a small advisory target keeps every process reducing on these tiny
+    # tables; the broadcast threshold off pins each join mode's lane; 32
+    # fine partitions sharpen the hot key's skew detection
+    xs.conf.set(C.SHUFFLE_TARGET_PARTITION_BYTES.key, "2048")
+    xs.conf.set(C.CROSSPROC_AUTO_BROADCAST.key, "0")
+    xs.conf.set(C.SHUFFLE_FINE_PARTITIONS.key, "32")
+    for name, cols in crossproc_tables(pid, n).items():
+        xs.createDataFrame(cols).createOrReplaceTempView(name)
+    if mode == "kill":
+        xs.conf.set(C.CROSSPROC_SORT_MERGE_JOIN.key, "false")
+        if pid == 1:
+            commit = svc.commit
+
+            def stall(exchange, extra=None):
+                if exchange.endswith("-jL"):
+                    with open(os.path.join(root, "p1-at-barrier"), "w"):
+                        pass
+                    time.sleep(3600)
+                commit(exchange, extra)
+            svc.commit = stall
+        t0 = time.monotonic()
+        try:
+            xs.sql(CROSSPROC_QUERIES[0][1]).collect()
+            result["outcome"] = "finished"
+        except (ExchangeFetchFailed, TimeoutError) as e:
+            result.update(outcome=type(e).__name__,
+                          elapsed_s=time.monotonic() - t0,
+                          lost_hosts=list(getattr(e, "lost_hosts", [])))
+    else:
+        result["queries"] = _crossproc_battery(xs, svc, mode)
+    return _finish_worker(result, svc, root, pid, mode, heartbeat)
+
+
+def _finish_worker(result, svc, root: str, pid: int, mode: str,
+                   heartbeat) -> int:
+    result["counters"] = dict(svc.counters)
+    result["gauges"] = svc.metrics_source().snapshot()
+    path = os.path.join(root, f"result-p{pid}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(result, f)
+    os.replace(path + ".tmp", path)
+    if heartbeat is not None:
+        heartbeat.stop()
+    print(f"[p{pid}] {mode} done", flush=True)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# the card battery (``chip_smoke.py``'s [crossproc] phase): the worker's
+# ``card`` mode over SF1 tables made from ``<root>/spec.json``
+# ---------------------------------------------------------------------------
+
+#: q93 with its reason join folded into ``sr_reason_sk = 2`` (reason's
+#: keys are unique, so the rows are q93's), over [ooc]'s tables as
+#: ``ss93`` / ``sr93``: store_sales LEFT JOIN store_returns on (item,
+#: ticket) is the join the exchange lanes co-partition
+Q93_JOIN_SQL = """
+SELECT ss_customer_sk, SUM(act_sales) AS sumsales
+FROM (SELECT ss_customer_sk,
+             CASE WHEN sr_return_quantity IS NOT NULL
+                  THEN (ss_quantity - sr_return_quantity) * ss_sales_price
+                  ELSE ss_quantity * ss_sales_price END AS act_sales
+      FROM ss93 LEFT OUTER JOIN sr93
+           ON (sr_item_sk = ss_item_sk AND sr_ticket_number = ss_ticket_number)
+      WHERE sr_reason_sk = 2) t
+GROUP BY ss_customer_sk
+ORDER BY sumsales, ss_customer_sk
+LIMIT 100
+"""
+
+#: the same join on ONE int64 key, (ticket, item) packed as ticket *
+#: 10^6 + item (items < 10^6): the range lane takes a single orderable key
+Q93_PACKED_SQL = Q93_JOIN_SQL.replace(
+    "ON (sr_item_sk = ss_item_sk AND sr_ticket_number = ss_ticket_number)",
+    "ON (sr_ticket_number * 1000000 + sr_item_sk "
+    "= ss_ticket_number * 1000000 + ss_item_sk)")
+
+#: a generic-path text: DISTINCT over a window of q3's join
+GENERIC_SQL = """
+SELECT DISTINCT d_year, i_brand_id,
+       dense_rank() OVER (PARTITION BY d_year ORDER BY i_brand_id) AS r
+FROM store_sales JOIN date_dim ON ss_sold_date_sk = d_date_sk
+     JOIN item ON ss_item_sk = i_item_sk
+WHERE d_moy = 11 AND i_manufact_id = 28
+ORDER BY d_year, i_brand_id
+"""
+
+#: the grace text's host ledger cap and fan-out: the cap is below each
+#: process's drained reducer share (process 0 holds ~10 MB of q93's
+#: sides, process 1 ~150 MB: ``plan_reducers``' skew, ROADMAP §3), so
+#: both reducers grace; 64 buckets keep process 1's buckets under the cap
+CARD_GRACE_CONF = {"spark.tpu.memory.hostBudget": str(4 << 20),
+                   "spark.tpu.crossproc.graceBuckets": "64"}
+
+#: (key, what it shows, text, lane counter, conf overrides) of the card
+#: battery; ``hash_t`` / ``store_sales`` / ``item_p`` / ``ss93`` / ``sr93``
+#: are each process's contiguous share, ``hash_r`` / ``date_dim`` /
+#: ``item`` whole in every process.
+CARD_TEXTS = [
+    ("a", "hash-agg, fast path", HASH_AGG_SQL, "fast_path_aggs", {}),
+    ("b", "q3, dimensions replicated (fast path)", Q3_SQL,
+     "fast_path_aggs", {}),
+    ("b2", "q3, item partitioned (broadcast lane)",
+     Q3_SQL.replace("FROM date_dim, store_sales, item",
+                    "FROM date_dim, store_sales, item_p item"),
+     "broadcast_joins", {}),
+    ("c_hash", "q93's join, hash lane", Q93_JOIN_SQL, "shuffled_joins",
+     {"spark.tpu.crossproc.sortMergeJoin": "false",
+      "spark.tpu.crossproc.autoBroadcastThreshold": "0"}),
+    ("c_range", "q93's join on its packed key, range lane", Q93_PACKED_SQL,
+     "range_merge_joins",
+     {"spark.tpu.crossproc.autoBroadcastThreshold": "0"}),
+    ("c_spill", "q93's join, hash lane, sides spilled", Q93_JOIN_SQL,
+     "shuffled_joins",
+     {"spark.tpu.crossproc.sortMergeJoin": "false",
+      "spark.tpu.crossproc.autoBroadcastThreshold": "0",
+      "spark.tpu.shuffle.spillThresholdBytes": str(1 << 20)}),
+    ("c_grace", "q93's join, hash lane, spilled, ledger capped (grace)",
+     Q93_JOIN_SQL, "grace_buckets_used",
+     {"spark.tpu.crossproc.sortMergeJoin": "false",
+      "spark.tpu.crossproc.autoBroadcastThreshold": "0",
+      "spark.tpu.shuffle.spillThresholdBytes": str(1 << 20),
+      **CARD_GRACE_CONF}),
+    ("d", "DISTINCT over a window, generic path", GENERIC_SQL,
+     "generic_gathers", {}),
+    ("e", "hash-agg over replicated hash_r, generic path (K1)",
+     HASH_AGG_SQL.replace("hash_t", "hash_r"), "generic_gathers", {}),
+]
+
+
+def card_tables(spec: dict):
+    """The card battery's whole tables from ``spec``'s row counts and
+    seeds: hash-agg's table, q3's three tables, and [ooc]'s store_sales
+    and store_returns (``ooc_tables``)."""
+    hash_table = hash_agg_table(spec["hash_rows"], spec["hash_groups"])
+    q3 = q3_tables(spec["q3"]["store_sales"], spec["q3"]["item"],
+                   spec["q3"]["date_dim"])
+    ooc, _sale_rows = ooc_tables(spec["ooc"], seed=spec["ooc_seed"])
+    return hash_table, q3, ooc
+
+
+def register_card_tables(session, T, spec: dict, pid: Optional[int] = None,
+                         n: int = 1) -> None:
+    """The card battery's views on ``session``: process ``pid`` of ``n``
+    holds the contiguous ``pid``-th share of the partitioned tables;
+    ``pid`` None registers every table whole (the single-process
+    answer)."""
+    hash_table, q3, ooc = card_tables(spec)
+
+    def share(cols):
+        if pid is None:
+            return cols
+        rows = len(next(iter(cols.values())))
+        lo, hi = pid * rows // n, (pid + 1) * rows // n
+        return {k: v[lo:hi] for k, v in cols.items()}
+
+    def view(name, cols, schema_cols):
+        st = T.StructType([T.StructField(c, T.type_for_name(t))
+                           for c, t in schema_cols])
+        session.createDataFrame(cols, schema=st) \
+            .createOrReplaceTempView(name)
+
+    session.createDataFrame(share(hash_table)) \
+        .createOrReplaceTempView("hash_t")
+    session.createDataFrame(hash_table).createOrReplaceTempView("hash_r")
+    view("store_sales", share(q3["store_sales"]), Q3_SCHEMAS["store_sales"])
+    view("date_dim", q3["date_dim"], Q3_SCHEMAS["date_dim"])
+    view("item", q3["item"], Q3_SCHEMAS["item"])
+    view("item_p", share(q3["item"]), Q3_SCHEMAS["item"])
+    view("ss93", share(ooc["store_sales"]), OOC_SCHEMAS["store_sales"])
+    view("sr93", share(ooc["store_returns"]), OOC_SCHEMAS["store_returns"])
+
+
+def jsonable_rows(rows) -> list:
+    """Result rows as JSON values: decimals as strings, dates ISO."""
+    import datetime
+    import decimal
+
+    def conv(v):
+        if hasattr(v, "item"):
+            v = v.item()
+        if isinstance(v, decimal.Decimal):
+            return str(v)
+        if isinstance(v, (datetime.date, datetime.datetime)):
+            return v.isoformat()
+        return v
+    return [[conv(v) for v in r] for r in rows]
+
+
+class _K1Compare:
+    """A spy on ``cuda_agg.grouped_accumulate_columns`` that holds each
+    call made outside a graph capture against its plain version on the
+    same inputs (a captured launch's output exists only at replay; its
+    warm-up twin ran just before it, on the same data).  It counts no
+    launch: ``cuda_agg.ENTRY_LAUNCHES`` does, where the kernel starts."""
+
+    def __init__(self):
+        from . import cuda_agg
+        self.mod = cuda_agg
+        self.launch = cuda_agg.grouped_accumulate_columns
+        self.checked = 0
+        self.max_abs_err = 0
+        self.equal = True
+
+    def __call__(self, bucket32, planes, n_active, B):
+        out = self.launch(bucket32, planes, n_active, B)
+        if bucket32.is_cuda and torch.cuda.is_current_stream_capturing():
+            return out
+        want = self.mod.grouped_accumulate_columns_plain(bucket32, planes,
+                                                         n_active, B)
+        err = int((out - want).abs().max()) if out.numel() else 0
+        self.max_abs_err = max(self.max_abs_err, err)
+        self.equal = self.equal and bool(torch.equal(out, want))
+        self.checked += 1
+        return out
+
+    def __enter__(self):
+        self.mod.grouped_accumulate_columns = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.grouped_accumulate_columns = self.launch
+
+
+#: the hand-written kernels by the name of their ``__global__`` function
+_OWN_KERNELS = {"k1": "grouped_accumulate_kernel", "k2": "all_to_all_kernel"}
+
+
+def _timed_run(fn, profiled: bool
+               ) -> Tuple[Any, float, Optional[float], Dict[str, int]]:
+    """(result, wall ms, device-busy ms, {k1, k2: kernels the card ran})
+    of one run; with ``profiled`` the run is under ``torch.profiler``
+    recording the card alone (kernels and copies, graph replays
+    included), else, or when it saw no device activity, the busy ms is
+    None and the kernel counts are empty."""
+    if not profiled:
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3, None, {}
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0)) for e in events)
+    ran = {kid: sum(e.count for e in events if name in e.key)
+           for kid, name in _OWN_KERNELS.items()}
+    return out, wall, (us / 1e3 if us > 0 else None), ran
+
+
+def _card_battery(xs, svc) -> dict:
+    """Each card text: a cold run, then one warm run — on a card under
+    the profiler — whose wall, split and busy share are reported.  K1's
+    and K2's wrapper launches are counted from 0 just before the
+    battery (``cuda_agg.ENTRY_LAUNCHES``, ``cuda_a2a.LAUNCHES``); the
+    warm run's kernels, graph replays included, come from its
+    profile."""
+    from . import cuda_a2a, cuda_agg
+    from .parallel import crossproc as X
+    out: Dict[str, Any] = {}
+    timer_keys = ("encode_s", "write_s", "decode_s", "fetch_s",
+                  "commit_wait_s", "barrier_s")
+    for entry in cuda_agg.ENTRY_LAUNCHES:
+        cuda_agg.ENTRY_LAUNCHES[entry] = 0
+        cuda_agg.CAPTURED_LAUNCHES[entry] = 0
+    cuda_a2a.LAUNCHES = 0
+    with _K1Compare() as k1:
+        for key, _what, sql, lane, confs in CARD_TEXTS:
+            for k, v in confs.items():
+                xs.conf.set(k, v)
+            try:
+                before = dict(svc.counters)
+                k1_before = dict(cuda_agg.ENTRY_LAUNCHES)
+                a2a_before = cuda_a2a.LAUNCHES
+                t0 = time.perf_counter()
+                xs.sql(sql).collect()
+                cold_ms = (time.perf_counter() - t0) * 1e3
+                X.reset_stats()
+                timers0 = dict(svc.timers)
+                warm_before = dict(svc.counters)
+                k1_warm = sum(cuda_agg.ENTRY_LAUNCHES.values())
+                a2a_warm = cuda_a2a.LAUNCHES
+                svc.ledger.peak = svc.ledger.used
+                rows, wall_ms, busy_ms, ran = _timed_run(
+                    lambda: xs.sql(sql).collect(), xs.device.type == "cuda")
+                split = {k: float(v) for k, v in X.STATS.items()}
+                split.update({k[:-2] + "_ms":
+                              (svc.timers[k] - timers0[k]) * 1e3
+                              for k in timer_keys})
+                warm = {k: svc.counters[k] - warm_before[k]
+                        for k in svc.counters
+                        if svc.counters[k] != warm_before[k]}
+                peak = svc.ledger.peak
+            finally:
+                for k in confs:
+                    xs.conf.unset(k)
+            warm_eager = {
+                "k1": sum(cuda_agg.ENTRY_LAUNCHES.values()) - k1_warm,
+                "k2": cuda_a2a.LAUNCHES - a2a_warm}
+            out[key] = {
+                "rows": jsonable_rows(tuple(r) for r in rows),
+                "lane": lane,
+                "delta": {k: svc.counters[k] - before[k]
+                          for k in svc.counters
+                          if svc.counters[k] != before[k]},
+                "warm_delta": warm, "cold_ms": cold_ms,
+                "wall_ms": wall_ms, "split": split, "peak_host_bytes": peak,
+                "busy_ms": busy_ms,
+                "k1_launches": {e: cuda_agg.ENTRY_LAUNCHES[e] - k1_before[e]
+                                for e in k1_before},
+                "k2_launches": cuda_a2a.LAUNCHES - a2a_before,
+                # kernels the warm run's profile saw, and those beyond
+                # the wrapper launches it made: the graph replays
+                "profiled": ran,
+                "replayed": {kid: ran[kid] - warm_eager[kid] for kid in ran},
+            }
+    out["_k1"] = {"launches": dict(cuda_agg.ENTRY_LAUNCHES),
+                  "captured": dict(cuda_agg.CAPTURED_LAUNCHES),
+                  "checked": k1.checked, "max_abs_err": k1.max_abs_err,
+                  "equal": k1.equal}
+    return out
+
+
+def _main(argv: Sequence[str]) -> int:
+    if argv and argv[0] == "crossproc-worker":
+        return crossproc_worker(argv[1:])
+    print("usage: python -m spark_tpu_torch.testing crossproc-worker "
+          "<pid> <n> <root> <mode> [timeout_s] [device]", file=sys.stderr)
+    return 2
+
+
+if __name__ == "__main__":
+    sys.exit(_main(sys.argv[1:]))
