@@ -251,7 +251,37 @@ without printing a result:
     against its plain version on its own inputs, its graph replays
     counted in the warm runs' profiles, (e)'s in each worker; K2
     launches 0;
-17. a ``{"kernels": [...]}`` line (each kernel's ``sql_launches``: its
+17. recovery — four scenarios, each two worker processes on the card
+    (``python -m spark_tpu_torch.testing recovery-worker <pid> 2 <dir>
+    card-<x>``, ``spark.tpu.memory.hbmBudget`` a share of the free
+    memory, the heartbeat a deployment runs with: a beat each second,
+    dead after 10 s) that write their contiguous halves to parquet and
+    read them back, run the text twice without a fault (cold, warm),
+    then with a ``FaultInjector`` plan killing process 1: (a) q93's join
+    on the hash lane, process 1 dead after its put — process 0 agrees on
+    the loss, re-reads the dead half's files and re-executes in epoch 1;
+    (b) the same with ``maxStageRetries=0`` — a bounded
+    ``ExchangeFetchFailed`` naming host-1; (c) the block service on, no
+    budget, process 1's right-side block lost and process 1 dead after
+    its last seal — adopted from the store with zero re-execution; (d)
+    hash-agg over a UNION ALL of two partitioned file sets (the generic
+    lane), process 1 dead after its put of the second — K1 launches in
+    the re-executed epoch, its eager launch bit-exact.  Each equal to the
+    single-process answer, with detection (from the victim's death to
+    the failure), the agreement round, the re-read and the re-executed
+    epoch, the faulted wall beside the no-fault warm wall, graphs
+    captured, and the ledger back at 0 B;
+18. pool — hash_t and q3's SF1 tables as catalog tables under a
+    warehouse; a server without the pool answers hash-agg and q3 over
+    HTTP (cold, warm: the local runs); then a server with
+    ``spark.tpu.server.pool.enabled`` (1 to 2 workers, each ``python -m
+    spark_tpu_torch.serving.pool --worker`` a ``cuda`` session with its
+    share of the card, K1 held against its plain version in the worker)
+    offloads both, every reply served by a worker and equal to the local
+    run; four client threads grow the pool to 2, idle rounds reap one
+    through hysteresis, its block-service lease handed to the
+    supervisor; spawn-to-ready, offloaded and local walls, counters;
+19. a ``{"kernels": [...]}`` line (each kernel's ``sql_launches``: its
    launches in the SQL phase's counted run; ``breadth_launches``: K1's in
    the breadth phase's graph-lane run, K2's in its window text at 4
    shards; ``complex_launches``: K1's in the complex phase's graph-lane
@@ -266,7 +296,10 @@ without printing a result:
    shards; ``crossproc_launches``: K1's in the [crossproc] workers (each
    entry's own count, from 0 before each worker's battery), K2's there
    (0), and ``crossproc_replayed_launches``: their graph replays that the
-   profiles of the workers' warm runs saw; each counted from 0 just
+   profiles of the workers' warm runs saw; ``recovery_launches``: K1's
+   in the survivors' faulted statements of [recovery] (each from 0 just
+   before it), K2's there (0); ``pool_launches``: K1's in the pool
+   workers (from their start), K2's (0); each counted from 0 just
    before that run; K1's ``captured_launches``: those of its launches made while a
    graph was captured, and ``replayed_launches``: its launches the
    profiler saw in one replay of each hash-agg query),
@@ -3712,6 +3745,361 @@ def phase_crossproc(session, k1_entries, k2_entry):
           flush=True)
 
 
+#: [recovery]: the exchange timeout of the workers, and the heartbeat a
+#: deployment runs with (the conf's defaults, as Spark's
+#: spark.executor.heartbeatInterval beside a 10 s network timeout): the
+#: detection of a dead peer is the timeout
+RECOVERY_TIMEOUT_S = 120.0
+RECOVERY_HEARTBEAT = {"spark.tpu.cluster.heartbeatIntervalMs": "1000",
+                      "spark.tpu.cluster.heartbeatTimeoutMs": "10000"}
+
+
+def _recovery_scenarios():
+    """(key, worker mode, what, process 1's fault plan, process 0's
+    verdict) of [recovery].  The workers run the text twice without a
+    fault first, so the faulted statement is ``xq000003``."""
+    from spark_tpu_torch.parallel.faults import FaultPlan as P
+    return [
+        ("a", "card-a", "q93's join on the hash lane, process 1 dies after "
+         "its put in the join's left exchange",
+         lambda: P().die_after_put("xq000003-jL"), "OK"),
+        ("b", "card-b", "the same with spark.tpu.recovery.maxStageRetries=0",
+         lambda: P().die_after_put("xq000003-jL"), "FAILED"),
+        ("c", "card-c", "q93's join with the block service on and no retry "
+         "budget: process 1's right-side block to process 0 is lost, and "
+         "process 1 dies after sealing its last registration",
+         lambda: P().drop(exchange="xq000003-jR", receiver=0)
+         .die_after_manifest("xq000003-gather"), "OK"),
+        ("d", "card-d", "hash-agg over a UNION ALL of two partitioned file "
+         "sets (generic lane), process 1 dies after its put of the second "
+         "set", lambda: P().die_after_put("xq000003-leaf1"), "OK"),
+    ]
+
+
+def phase_recovery(session, k1_entries, k2_entry):
+    """Lineage recovery on the card (see the module's docstring, 17): for
+    each scenario two ``cuda`` workers write their contiguous halves of
+    the tables to parquet and read them back, run the text without a
+    fault (cold, warm), then with process 1 killed at the planned point;
+    process 0 must land the single-process answer (or, without a retry
+    budget, fail bounded naming host-1), its ledger back to zero, and in
+    (d) K1 must launch in the re-executed epoch, bit-exact."""
+    import threading
+
+    import torch
+    from spark_tpu_torch import types as T
+    from spark_tpu_torch.testing import (
+        OOC_SF1, _card_recovery_views, _scenario, check_scenario,
+        jsonable_rows, run_scenario)
+
+    t_phase = time.perf_counter()
+    free, _total = torch.cuda.mem_get_info()
+    budget = int(free * 0.8) // 2
+    spec = {"hash_rows": MAIN_N, "hash_groups": MAIN_GROUPS,
+            "ooc": OOC_SF1, "ooc_seed": 19, "heartbeat": RECOVERY_HEARTBEAT,
+            "conf": {"spark.tpu.memory.hbmBudget": str(budget)}}
+    print(f"[recovery] 2 worker processes per scenario on the card (device "
+          f"memory budget {budget} B each), exchange timeout "
+          f"{RECOVERY_TIMEOUT_S:.0f} s, heartbeat every "
+          f"{int(RECOVERY_HEARTBEAT['spark.tpu.cluster.heartbeatIntervalMs'])}"
+          f" ms, a peer dead after "
+          f"{int(RECOVERY_HEARTBEAT['spark.tpu.cluster.heartbeatTimeoutMs'])}"
+          f" ms of silence", flush=True)
+    want = {}
+    k1_sum = {e["name"]: 0 for e in k1_entries}
+    k2_sum = 0
+    for key, mode, what, plan, verdict in _recovery_scenarios():
+        root = tempfile.mkdtemp(prefix=f"chip_smoke_recovery_{key}_")
+        try:
+            with open(os.path.join(root, "spec.json"), "w") as f:
+                json.dump(spec, f)
+            sc = _scenario(key, "recovery-worker", mode, 2,
+                           RECOVERY_TIMEOUT_S, {1: plan},
+                           {0: verdict, 1: "DIED"})
+            box = {}
+            runner = threading.Thread(target=lambda: box.update(
+                out=run_scenario(sc, root, "cuda", deadline_s=600)))
+            runner.start()
+            text_key = "union" if mode == "card-d" else "q93"
+            if text_key not in want:
+                # the single-process answer, on this process's card
+                # session, while the workers run
+                one = session.newSession()
+                text, _ms = _card_recovery_views(one, T, spec, mode, root,
+                                                 None, 2)
+                want[text_key] = jsonable_rows(
+                    tuple(r) for r in one.sql(text).collect())
+                one.stop()
+            runner.join()
+            results, elapsed = box["out"]
+            bad = check_scenario(sc, results, elapsed)
+            check(not bad, f"[recovery] ({key}) {bad}: "
+                  + " | ".join(out[-3000:] for _rc, out in results.values()))
+            with open(os.path.join(root, "result-p0.json")) as f:
+                r = json.load(f)
+            with open(os.path.join(root, "died-p1")) as f:
+                died_at = float(f.read())
+            rec = r["recovery"]
+            detect = ((rec["failed_at"] - died_at) * 1e3
+                      if rec["failed_at"] else None)
+            check(r["ledger_used"] == 0, f"[recovery] ({key}) the ledger "
+                  f"holds {r['ledger_used']} B after the statement")
+            if verdict == "FAILED":
+                check(r["outcome"] == "ExchangeFetchFailed"
+                      and r["lost_hosts"] == ["host-1"]
+                      and r["elapsed_s"] < 2 * RECOVERY_TIMEOUT_S
+                      and r["counters"]["stage_retries"] == 0,
+                      f"[recovery] ({key}) not a bounded failure naming "
+                      f"host-1: {r}")
+                print(f"[recovery] ({key}) {what}: failed bounded with "
+                      f"{r['outcome']} naming {r['lost_hosts']} after "
+                      f"{r['elapsed_s'] * 1e3:.1f} ms of the statement "
+                      f"(bound {2 * RECOVERY_TIMEOUT_S:.0f} s); detection "
+                      f"{detect:.1f} ms after the death; stage_retries 0; "
+                      f"no-fault warm wall {r['warm_ms']:.2f} ms (cold "
+                      f"{r['cold_ms']:.2f}); ledger 0 B after", flush=True)
+                continue
+            check(_rows_match(r["rows"], want[text_key]),
+                  f"[recovery] ({key}) process 0's {len(r['rows'])} rows "
+                  f"differ from the single-process answer "
+                  f"({len(want[text_key])} rows)")
+            c = r["counters"]
+            if mode == "card-c":
+                check(c["stage_retries"] == 0 and r["gauges"]["epoch"] == 0
+                      and c["blocks_adopted"] >= 1,
+                      f"[recovery] ({key}) not adopted with zero "
+                      f"re-execution: {c}")
+                split = (f"no recovery epoch: {c['blocks_adopted']} block(s)"
+                         f" adopted from the block service "
+                         f"({c['blockserver_fallback_reads']} fallback "
+                         f"read(s)), stage_retries 0, epoch 0")
+            else:
+                check(c["stage_retries"] == 1 and r["gauges"]["epoch"] == 1
+                      and rec["epochs"] == 1,
+                      f"[recovery] ({key}) no recovery epoch: {c}")
+                split = (f"detection {detect:.1f} ms after the death (the "
+                         f"failure {rec['fail_ms']:.1f} ms into the "
+                         f"statement), recovery round "
+                         f"{rec['round_ms']:.2f} ms, lost leaves re-read "
+                         f"{rec['adopt_ms']:.2f} ms, re-executed epoch "
+                         f"{rec['rerun_ms']:.2f} ms; stage_retries "
+                         f"{c['stage_retries']}, recovered_partitions "
+                         f"{c['recovered_partitions']}, epoch "
+                         f"{r['gauges']['epoch']}")
+            print(f"[recovery] ({key}) {what}: {len(r['rows'])} rows equal "
+                  f"to the single-process answer; {split}; faulted wall "
+                  f"{r['wall_ms']:.2f} ms beside the no-fault warm wall "
+                  f"{r['warm_ms']:.2f} ms (cold {r['cold_ms']:.2f}); graphs "
+                  f"captured in the faulted statement {r['graph_builds']} "
+                  f"({r['stage_builds']} new stage entries); ledger "
+                  f"0 B after; parquet written in {r['write_ms']:.0f} ms",
+                  flush=True)
+            k1 = r["k1"]
+            for e in k1_sum:
+                k1_sum[e] += k1["launches"][e]
+            k2_sum += r["k2_launches"]
+            check(k1["equal"], f"[recovery] ({key}) K1 differs from its "
+                  f"plain version: {k1}")
+            if mode == "card-d":
+                check(k1["launches"]["grouped_accumulate_columns"] > 0
+                      and k1["checked"] > 0,
+                      f"[recovery] (d) K1 did not launch in the "
+                      f"re-executed epoch: {k1}")
+                print(f"[recovery] (d) K1 in process 0's re-executed epoch "
+                      f"(cuda_agg.ENTRY_LAUNCHES from 0 before the faulted "
+                      f"statement): {k1['launches']} ({k1['captured']} while "
+                      f"a graph was captured); {k1['checked']} eager "
+                      f"launch(es) held against the plain version on their "
+                      f"own inputs: bit-exact (max abs err "
+                      f"{k1['max_abs_err']})", flush=True)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    check(k1_sum["grouped_accumulate_columns"] > 0,
+          "[recovery] no K1 launch in the survivors")
+    for entry in k1_entries:
+        entry["recovery_launches"] = k1_sum[entry["name"]]
+    k2_entry["recovery_launches"] = k2_sum
+    print(f"[recovery] K1 launches in the survivors' faulted statements: "
+          f"{k1_sum}; K2: {k2_sum} (no mesh in a worker)", flush=True)
+    print(f"[recovery] phase {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+
+
+#: [pool]: four client threads in the burst
+POOL_CLIENTS = 4
+
+
+def phase_pool(session, hash_table, tables, k1_entries, k2_entry):
+    """The elastic worker pool on the card (see the module's docstring,
+    18): hash_t and q3's tables as catalog tables under a warehouse; a
+    server without the pool answers hash-agg and q3 (the local runs);
+    then a server with the pool (1 to 2 workers, each a ``cuda`` session
+    with its share of the card) offloads both, and every offloaded
+    statement must come back from a worker, equal to the local run, with
+    K1 launched in the worker bit-exact; a burst of four clients grows
+    the pool to 2 and idle rounds reap one, its lease handed over."""
+    import threading
+
+    from spark_tpu_torch import types as T
+    from spark_tpu_torch.parallel.blockserver import BlockStore
+    from spark_tpu_torch.server import SQLServer
+    from spark_tpu_torch.serving.pool import KERNEL_CHECK_ENV
+    from spark_tpu_torch.testing import HASH_AGG_SQL, Q3_SCHEMAS, Q3_SQL
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_pool_")
+    srv = None
+    try:
+        s = session.newSession()
+        s.conf.set("spark.sql.warehouse.dir", os.path.join(root, "wh"))
+        s.conf.set(SCAN_LIMIT_KEY, str(1 << 23))    # one batch per table
+        t0 = time.perf_counter()
+        s.createDataFrame(hash_table).write.saveAsTable("hash_t")
+        for name, cols in Q3_SCHEMAS.items():
+            st = T.StructType([T.StructField(c, T.type_for_name(t))
+                               for c, t in cols])
+            s.createDataFrame(tables[name], schema=st).write \
+                .saveAsTable(name)
+        write_ms = (time.perf_counter() - t0) * 1e3
+        texts = {"hash-agg": HASH_AGG_SQL, "q3": Q3_SQL}
+        unordered = {"hash-agg"}
+
+        def rows_of(key, rows):
+            return sorted(rows) if key in unordered else rows
+
+        # the local runs: the server's own session, no pool
+        srv = SQLServer(s, port=0).start()
+        local = {}
+        for key, sql in texts.items():
+            walls = []
+            for _ in range(2):
+                st, out, ms = _http(srv.port, "/sql", "POST",
+                                    {"query": sql})
+                check(st == 200 and not out.get("pooled"),
+                      f"[pool] local {key}: {st} {str(out)[:300]}")
+                walls.append(ms)
+            local[key] = (out["rows"], walls)
+        srv.stop()
+        srv = None
+
+        s.conf.set("spark.tpu.blockserver.enabled", "true")
+        s.enableHostShuffle(os.path.join(root, "shuffle"), 0, 1)
+        for k, v in (("enabled", "true"), ("minWorkers", "1"),
+                     ("maxWorkers", "2"), ("statementsPerWorker", "2"),
+                     ("scaleDownRounds", "3"), ("cooldownSeconds", "1.0"),
+                     ("pollSeconds", "0.25")):
+            s.conf.set(f"spark.tpu.server.pool.{k}", v)
+        os.environ[KERNEL_CHECK_ENV] = "1"
+        t_start = time.perf_counter()
+        srv = SQLServer(s, port=0).start()
+        sup = srv._pool_supervisor
+        _wait_for(lambda: sup.stats()["readyMs"].get("0") is not None,
+                  "[pool] the first worker's session", timeout_s=120)
+        first_ready_s = time.perf_counter() - t_start
+        kernels = {}
+        served = 0
+
+        def offload(key):
+            nonlocal served
+            st, out, ms = _http(srv.port, "/sql", "POST",
+                                {"query": texts[key]})
+            check(st == 200, f"[pool] {key}: {st} {str(out)[:300]}")
+            check(out.get("pooled") is True,
+                  f"[pool] {key} was expected to be served by a pool "
+                  f"worker and ran locally: {str(out)[:300]}")
+            check(_rows_match(rows_of(key, out["rows"]),
+                              rows_of(key, local[key][0])),
+                  f"[pool] {key}: the worker's {len(out['rows'])} rows "
+                  f"differ from the local run's")
+            kernels[out["poolWorker"]] = out["kernels"]
+            served += 1
+            return ms
+
+        pooled = {key: [offload(key) for _ in range(2)] for key in texts}
+        k1 = kernels[0]
+        check(k1["launches"]["grouped_accumulate_columns"] > 0
+              and k1["checked"] > 0 and k1["equal"],
+              f"[pool] K1 in the worker: {k1}")
+        for key in texts:
+            lw, pw = local[key][1], pooled[key]
+            print(f"[pool] {key}: offloaded over HTTP {pw[0]:.2f} ms cold, "
+                  f"{pw[1]:.2f} ms warm, beside the server's own session "
+                  f"{lw[0]:.2f} ms cold, {lw[1]:.2f} ms warm; "
+                  f"{len(local[key][0])} rows equal to the local run, "
+                  f"served by worker 0", flush=True)
+        print(f"[pool] K1 in worker 0 (its cuda_agg.ENTRY_LAUNCHES): "
+              f"{k1['launches']} ({k1['captured']} while a graph was "
+              f"captured); {k1['checked']} eager launch(es) held against "
+              f"the plain version: bit-exact (max abs err "
+              f"{k1['max_abs_err']})", flush=True)
+
+        # the burst: four clients until the pool holds two workers
+        stop = threading.Event()
+        errors = []
+
+        def client():
+            n = 0
+            while n < 3 or not stop.is_set():
+                try:
+                    offload("hash-agg")
+                except BaseException as e:   # noqa: BLE001 — reported
+                    errors.append(e)
+                    return
+                n += 1
+        threads = [threading.Thread(target=client)
+                   for _ in range(POOL_CLIENTS)]
+        t_burst = time.perf_counter()
+        for t in threads:
+            t.start()
+        try:
+            _wait_for(lambda: sup.live == 2 or errors,
+                      "[pool] the burst to grow the pool to 2", 120)
+            _wait_for(lambda: sup.stats()["readyMs"].get("1") is not None
+                      or errors, "[pool] the second worker", 120)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join()
+        check(not errors, f"[pool] burst: {errors[:1]}")
+        grow_s = time.perf_counter() - t_burst
+        t_idle = time.perf_counter()
+        _wait_for(lambda: sup.live == 1 and sup.counters["workers_reaped"],
+                  "[pool] idle rounds to reap a worker", 60)
+        reap_s = time.perf_counter() - t_idle
+        store = BlockStore(os.path.join(root, "shuffle"), s.conf_obj)
+        check(store.lease_fresh("pool-1", time.time())
+              and store._heir_of("pool-1") == sup.owner,
+              "[pool] the reaped worker's lease was not handed over")
+        stats = sup.stats()
+        c = stats["counters"]
+        check(c["pool_statements_served"] == served
+              and c["offload_fallbacks"] == 0,
+              f"[pool] statements the pool was sent: {served}, served by "
+              f"a worker: {c['pool_statements_served']} ({c})")
+        print(f"[pool] spawn to ready (session on the card): "
+              f"{stats['readyMs']} ms by worker; the server's start to "
+              f"worker 0 ready {first_ready_s * 1e3:.1f} ms; a burst of "
+              f"{POOL_CLIENTS} clients grew the pool to 2 in "
+              f"{grow_s * 1e3:.1f} ms and idle rounds reaped one "
+              f"{reap_s * 1e3:.1f} ms after it ended, its lease handed to "
+              f"{sup.owner}; counters {c}; last decision "
+              f"{stats['lastDecision']}; tables written in "
+              f"{write_ms:.0f} ms", flush=True)
+        for entry in k1_entries:
+            entry["pool_launches"] = sum(k["launches"][entry["name"]]
+                                         for k in kernels.values())
+        k2_entry["pool_launches"] = 0
+        srv.stop()
+        srv = None
+        check(sup.live == 0, "[pool] workers left after the server stopped")
+    finally:
+        os.environ.pop(KERNEL_CHECK_ENV, None)
+        if srv is not None:
+            srv.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[pool] phase {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3771,6 +4159,8 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     phase_crossproc(session, k1_entries, k2_entry)
+    phase_recovery(session, k1_entries, k2_entry)
+    phase_pool(session, hash_table, tables, k1_entries, k2_entry)
     session.stop()
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": k1_entries + [k2_entry]}))

@@ -254,6 +254,14 @@ SERVER_MAX_QUEUED_PER_SESSION = conf(
     "its backlog is this deep.  0 = unlimited."
 ).int(64)
 
+SERVER_MIN_HOST_HEADROOM = conf(
+    "spark.tpu.server.admission.minHostHeadroomBytes").doc(
+    "Host-memory-aware admission: when the session has a HostMemoryLedger "
+    "(enableHostShuffle) and its free budget is below this many bytes, new "
+    "statements are rejected with 429 until pressure clears (the floor "
+    "doubles once a session has degraded into grace joins).  0 = off."
+).int(0)
+
 SERVER_STATEMENT_TIMEOUT = conf("spark.tpu.server.statementTimeout").doc(
     "Per-statement deadline in SECONDS, riding the cooperative cancel "
     "machinery: a statement still queued past its deadline is dropped, a "
@@ -285,6 +293,60 @@ SERVER_PLAN_CACHE_MAX_BYTES = conf("spark.tpu.server.planCache.maxBytes").doc(
     "memory manager by the stage cache."
 ).int(256 << 20)
 
+
+# -- the elastic worker pool (serving/pool.py) ------------------------------
+
+SERVER_POOL_ENABLED = conf("spark.tpu.server.pool.enabled").doc(
+    "Elastic worker pool: the SQL server runs a supervisor that derives "
+    "a target pool size from the admission demand signal and reconciles "
+    "it by starting real worker processes, each a session on the card "
+    "(the dynamic-allocation analog).  Scale-down stops a worker's "
+    "heartbeat and hands its block-service lease to the supervisor, "
+    "never a drain barrier.  Off by default."
+).boolean(False)
+
+SERVER_POOL_MIN_WORKERS = conf("spark.tpu.server.pool.minWorkers").doc(
+    "Floor of the elastic pool (0 = the pool may drain completely when "
+    "idle)."
+).check(lambda v: v >= 0).int(0)
+
+SERVER_POOL_MAX_WORKERS = conf("spark.tpu.server.pool.maxWorkers").doc(
+    "Ceiling of the elastic pool: never more live workers than this."
+).check(lambda v: v >= 1).int(4)
+
+SERVER_POOL_STATEMENTS_PER_WORKER = conf(
+    "spark.tpu.server.pool.statementsPerWorker").doc(
+    "Demand divisor of the pool policy: target = ceil((running + queued "
+    "+ recently rejected) / this), clamped to [minWorkers, maxWorkers]."
+).check(lambda v: v >= 1).int(2)
+
+SERVER_POOL_SCALE_DOWN_ROUNDS = conf(
+    "spark.tpu.server.pool.scaleDownRounds").doc(
+    "Hysteresis: demand must sit below the pool size for this many "
+    "CONSECUTIVE evaluations before the policy scales down."
+).check(lambda v: v >= 1).int(3)
+
+SERVER_POOL_COOLDOWN = conf("spark.tpu.server.pool.cooldownSeconds").doc(
+    "Minimum seconds between pool resizes (up or down)."
+).check(lambda v: v >= 0).float(2.0)
+
+SERVER_POOL_POLL = conf("spark.tpu.server.pool.pollSeconds").doc(
+    "Period of the supervisor's reconcile loop (demand sample, policy, "
+    "spawn or reap)."
+).check(lambda v: v > 0).float(0.25)
+
+SERVER_POOL_HEADROOM = conf(
+    "spark.tpu.server.pool.minHostHeadroomBytes").doc(
+    "Host-memory clamp on scale-up: with free host budget below this, "
+    "the policy never raises the target above the live count.  0 = off."
+).check(lambda v: v >= 0).int(0)
+
+SERVER_POOL_OFFLOAD = conf("spark.tpu.server.pool.offload").doc(
+    "Route eligible admitted statements (SELECTs, no session temp views) "
+    "to pool workers through the filesystem spool.  A miss (no live "
+    "worker, timeout, worker error) runs the statement on the server's "
+    "own session, on the same card."
+).boolean(True)
 
 COLLECT_MAX_LEN = conf("spark.tpu.collect.maxArrayLen").doc(
     "Static element capacity of collect_list/collect_set output arrays; "
@@ -451,6 +513,41 @@ SHUFFLE_BLACKLIST_ENABLED = conf("spark.tpu.shuffle.blacklistEnabled").doc(
     "Exclude heartbeat-confirmed-dead peers from exchange barriers and "
     "remember them for the rest of the query (HealthTracker analog)."
 ).boolean(True)
+
+RECOVERY_MAX_STAGE_RETRIES = conf("spark.tpu.recovery.maxStageRetries").doc(
+    "Lineage recovery budget per statement (the DAGScheduler resubmit "
+    "analog): when a cross-process exchange loses a peer past its block "
+    "retries, the survivors agree on the loss in an epoch-tagged "
+    "{xid}-recover round, re-plan ownership over the live set, re-read "
+    "the lost partitions from their leaf recipes and re-execute the "
+    "statement under a fresh epoch, up to this many times before the "
+    "structured ExchangeFetchFailed propagates.  0 = every exhausted "
+    "fetch aborts the statement, bounded.  Read at each statement, so a "
+    "SET after enableHostShuffle holds."
+).check(lambda v: v >= 0).int(1)
+
+BLOCKSERVER_ENABLED = conf("spark.tpu.blockserver.enabled").doc(
+    "Block service (the external-shuffle-service analog): the shuffle "
+    "service hard-links every committed block, spill frame and dictionary "
+    "sidecar into <root>/_blockstore/ and seals a per-sender registration "
+    "record at commit.  A survivor whose peer died after registering "
+    "ADOPTS that output (zero map re-execution); while the service is "
+    "down the client degrades to peer-direct reads and lineage "
+    "recovery.  Read when the service is built."
+).boolean(False)
+
+BLOCKSERVER_ORPHAN_TTL = conf("spark.tpu.blockserver.orphanTtlSeconds").doc(
+    "TTL of the orphaned-block reaper: an exchange whose every owner lease "
+    "has been silent this long (and whose files are as stale) is "
+    "reclaimed, as are raw exchange dirs under swept shuffle roots.  "
+    "Registered state dirs are reclaimed only after an explicit release "
+    "plus this TTL."
+).check(lambda v: v >= 0).int(3600)
+
+BLOCKSERVER_GC_INTERVAL = conf("spark.tpu.blockserver.gcIntervalSeconds").doc(
+    "Period of the block-service reaper thread the SQL server runs while "
+    "started.  0 = reaper disabled."
+).check(lambda v: v >= 0).int(60)
 
 SHUFFLE_RANGE_SAMPLE_SIZE = conf("spark.tpu.shuffle.rangeSampleSize").doc(
     "Per-process, per-side number of join-key sample points published in "

@@ -51,10 +51,18 @@ hash into spill files and join bucket by bucket on the card (each pair a
 pinned ``LocalRelation``, so it reaches a captured graph by
 ``non_blocking`` copies).
 
-Failures raise as in the JAX package with
-``spark.tpu.recovery.maxStageRetries=0``: a lost peer is a structured
-``ExchangeFetchFailed`` (after one refetch), bounded in time.  The
-recovery epochs and the cross-process device tier are later slices;
+Failures: a lost peer surfaces as a structured ``ExchangeFetchFailed``
+(after one refetch), bounded in time.  Up to
+``spark.tpu.recovery.maxStageRetries`` times per statement the survivors
+then agree on the loss (``HostShuffleService.recover_round``), re-read
+the dead peer's partitioned leaves from the file recipes it published in
+the digest round, and re-execute the statement under a fresh epoch
+(``{xid}e<epoch>`` exchange ids, so the dead epoch's blocks are never
+read).  A loss that lineage cannot cover (in-memory leaves, a peer lost
+before its recipes were published, a diverged agreement) aborts with
+``recoverable=False``.  With the block service on, a sealed dead
+sender's output is adopted at the barrier before any loss surfaces.
+The cross-process device tier is a later slice:
 ``spark.tpu.shuffle.ici.enabled`` with a tier override that names peers
 raises instead of quietly running the host tier.
 
@@ -89,7 +97,8 @@ from .hostshuffle import ExchangeFetchFailed, FetchSink, HostShuffleService
 __all__ = ["host_exchange_group_agg", "crossproc_execute",
            "choose_join_strategy", "adaptive_join_decision",
            "observed_side_stats", "elastic_reducer_width", "StatsFeedback",
-           "ExchangeFetchFailed", "STATS", "reset_stats"]
+           "ExchangeFetchFailed", "STATS", "reset_stats", "RECOVERY_STATS",
+           "reset_recovery_stats"]
 
 #: this process's time split, milliseconds: ``local_ms`` in local runs
 #: (engine and read-back of their results), ``bucket_ms`` the device time
@@ -505,7 +514,10 @@ def _leaf_partition_flags(session, node, svc: HostShuffleService,
          col(nbytes)], None, len(digests))
     received = svc.exchange(
         xid, {r: [probe] for r in range(svc.n)},
-        extra={"recipes": _harvest_leaf_recipes(node), "epoch": 0})
+        extra={"recipes": _harvest_leaf_recipes(node),
+               "epoch": svc.epoch})
+    # setdefault keeps the statement's FIRST (pre-loss) recipes through
+    # its epochs; ``begin_statement`` clears them between statements
     for s in range(svc.n):
         man = svc.read_manifest(xid, s)
         if man is not None and isinstance(man.get("recipes"), list):
@@ -1115,7 +1127,7 @@ def decision_inputs(svc: HostShuffleService, frozen: str, cuts=None,
     manifest."""
     d: Dict[str, object] = {
         "frozen": frozen,
-        "epoch": 0,
+        "epoch": int(svc.epoch),
         "live": [int(p) for p in svc.live_pids()],
         "adopt": sorted(int(p) for p in svc.recovered_pids),
     }
@@ -1797,8 +1809,10 @@ def _require_recoverable(svc: HostShuffleService, flags: List[bool]
                          ) -> None:
     """Post-loss admissibility of a statement: with agreed-lost peers, a
     PARTITIONED statement is answerable only if every lost pid published
-    a file recipe for every partitioned leaf.  Replicated-only statements
-    always pass.  (No loss is agreed before the recovery slice.)"""
+    a file recipe for every partitioned leaf.  Checks recipes only,
+    never the local leaf's type (an adopter's leaf is a
+    ``LocalRelation`` after a re-execution).  Replicated-only statements
+    always pass."""
     if not svc.recovered_pids or not any(flags):
         return
     for p in sorted(svc.recovered_pids):
@@ -1815,20 +1829,169 @@ def _require_recoverable(svc: HostShuffleService, flags: List[bool]
                     f"{p} left no file recipe for its partition")
 
 
+#: this process's recovery time split, milliseconds, of the statements
+#: that lost a peer: ``fail_ms`` from the epoch's start to the structured
+#: failure (detection, the refetch included), ``round_ms`` the agreement
+#: round and the ledger release, ``adopt_ms`` re-reading the lost leaves,
+#: ``rerun_ms`` the re-executed epoch; ``epochs`` counts them and
+#: ``failed_at`` is the wall clock (``time.time()``) of the last failure
+RECOVERY_STATS: Dict[str, float] = {}
+
+
+def reset_recovery_stats() -> None:
+    RECOVERY_STATS.clear()
+    RECOVERY_STATS.update(fail_ms=0.0, round_ms=0.0, adopt_ms=0.0,
+                          rerun_ms=0.0, epochs=0, failed_at=0.0)
+
+
+reset_recovery_stats()
+
+
+def _recover_epoch(svc: HostShuffleService, xid: str, epoch: int,
+                   err: ExchangeFetchFailed) -> None:
+    """One agreed recovery step after a lost exchange: map the failure's
+    lost hosts (and locally blacklisted peers) to pids, run the
+    ``{xid}-recover`` agreement round, and drop every host reservation
+    the dead epoch staged so the re-execution starts from a clean
+    ledger."""
+    lost_now = set()
+    world = {svc.host_name(p) for p in range(svc.n)}
+    for p in range(svc.n):
+        if p == svc.pid or p in svc.recovered_pids:
+            continue
+        if svc.host_name(p) in err.lost_hosts or p in svc.blacklist:
+            lost_now.add(p)
+    # hosts OUTSIDE the exchange world (a reaped pool-* tenant) are
+    # counted and dropped: letting them into the agreement would diverge
+    # the lost set across survivors whose views of the wider world differ
+    foreign = set(err.lost_hosts) - world
+    if foreign:
+        with svc._lock:
+            fresh = foreign - svc._foreign_seen
+            svc._foreign_seen |= fresh
+            svc.counters["foreign_hosts_ignored"] += len(fresh)
+    svc.recover_round(xid, epoch, lost_now)
+    # the aborted epoch's reservations (map staging, fetch sinks) must
+    # not shrink the re-execution's budget: released now, not at exit
+    svc.ledger.release_prefix(f"shuffle:{xid}")
+    # survivors never delete a dead peer's registered blocks: they expire
+    # its LEASE (safe after agreement) and the reaper's clock runs
+    if svc.blockclient is not None:
+        for p in sorted(svc.recovered_pids):
+            svc.blockclient.expire_owner(svc.host_name(p))
+    with svc._lock:
+        svc.counters["stage_retries"] += 1
+        svc.counters["recovered_partitions"] += max(
+            1, len(err.lost_blocks))
+
+
+def _adopt_lost_leaves(session, optimized, svc: HostShuffleService):
+    """The statement's plan for re-execution over the live set: for every
+    PARTITIONED leaf (the epoch-0 flags), the survivor ``recovery_adopt``
+    assigns a lost pid re-reads that pid's partition from its published
+    file recipe and unions it into its own leaf.  Always starts from the
+    PRISTINE optimized plan, so adoption composes across epochs.  Raises
+    a non-recoverable structured failure when lineage cannot cover the
+    loss: no recipes (the peer died before the digest round), a lost
+    partition held only in process memory, or an own leaf with no file
+    template to re-read through."""
+    if not svc.recovered_pids:
+        return optimized
+    from ..io import read_file_relation
+    from ..sql import logical as L
+    flags = svc.last_leaf_flags
+    if flags is None:
+        raise _unrecoverable(
+            "recovery", [svc.host_name(p)
+                         for p in sorted(svc.recovered_pids)],
+            "peer lost before the statement's leaf recipes were "
+            "published — no lineage to re-execute its map stage from")
+    if not any(flags):
+        return optimized            # replicated only: nothing to adopt
+    _require_recoverable(svc, flags)
+    leaves: List = []
+
+    def collect(nd):
+        for c in nd.children:
+            collect(c)
+        if isinstance(nd, (L.LocalRelation, L.FileRelation)):
+            leaves.append(nd)
+
+    collect(optimized)
+    mine = [p for p in sorted(svc.recovered_pids)
+            if svc.recovery_adopt.get(p) == svc.pid]
+    if not mine:
+        return optimized            # another survivor adopts the loss
+    plan = optimized
+    for i, partitioned in enumerate(flags):
+        if not partitioned or i >= len(leaves):
+            continue
+        leaf = leaves[i]
+        if not isinstance(leaf, L.FileRelation):
+            raise _unrecoverable(
+                "recovery", [svc.host_name(p) for p in mine],
+                f"adopter's leaf {i} is in-memory while the lost "
+                "partition is a file — no template to re-read the "
+                "recipe through")
+        parts = [_host(read_file_relation(leaf, session))]
+        for p in mine:
+            ghost = copy.copy(leaf)
+            ghost.paths = list(svc.leaf_recipes[p][i]["paths"])
+            parts.append(_host(read_file_relation(ghost, session)))
+        plan = _replace_node(plan, leaf,
+                             _leaf_relation(session, _concat(parts)))
+    return plan
+
+
 def crossproc_execute(session, optimized, svc: HostShuffleService
                       ) -> ColumnBatch:
     """Execute one optimized plan across processes; every process
-    returns the SAME complete result (the collect() contract).  A lost
-    peer raises the structured ``ExchangeFetchFailed`` (there are no
-    recovery epochs yet: ``maxStageRetries=0``).  Every host reservation
-    the statement staged is released on the way out."""
+    returns the SAME complete result (the collect() contract).
+
+    A structured ``ExchangeFetchFailed`` is recovered up to
+    ``spark.tpu.recovery.maxStageRetries`` times (read at each
+    statement): the survivors agree on the loss, adopt the dead peer's
+    partitioned leaves from its recipes, and re-execute the whole
+    statement under ``{xid}e<epoch>`` exchange ids.  A failure carrying
+    ``recoverable=False`` aborts at once; with the budget at 0 every
+    loss aborts.  Every host reservation the statement staged, in any
+    epoch, is released on the way out."""
     seq = getattr(session, "_crossproc_seq", 0) + 1
     session._crossproc_seq = seq
     xid = f"xq{seq:06d}"
     svc.begin_statement()
+    budget = svc.max_stage_retries
+    plan = optimized
+    epoch = 0
     try:
-        return _crossproc_execute(session, optimized, svc, xid)
+        while True:
+            run_xid = xid if epoch == 0 else f"{xid}e{epoch}"
+            t0 = time.perf_counter()
+            try:
+                out = _crossproc_execute(session, plan, svc, run_xid)
+                if epoch:
+                    RECOVERY_STATS["rerun_ms"] += \
+                        (time.perf_counter() - t0) * 1e3
+                return out
+            except ExchangeFetchFailed as err:
+                RECOVERY_STATS["failed_at"] = time.time()
+                if epoch >= budget or not getattr(err, "recoverable", True):
+                    raise
+                t1 = time.perf_counter()
+                RECOVERY_STATS["fail_ms"] += (t1 - t0) * 1e3
+                epoch += 1
+                # agreement and adoption raise non-recoverable errors of
+                # their own: recovery never retries itself
+                _recover_epoch(svc, xid, epoch, err)
+                t2 = time.perf_counter()
+                plan = _adopt_lost_leaves(session, optimized, svc)
+                RECOVERY_STATS["round_ms"] += (t2 - t1) * 1e3
+                RECOVERY_STATS["adopt_ms"] += \
+                    (time.perf_counter() - t2) * 1e3
+                RECOVERY_STATS["epochs"] += 1
     finally:
+        # epoch-suffixed owners share the shuffle:<xid> prefix, so one
+        # release pairs with every epoch
         svc.ledger.release_prefix(f"shuffle:{xid}")
 
 
@@ -1927,11 +2090,20 @@ def _crossproc_execute(session, optimized, svc: HostShuffleService,
     leaf_cache: List[ColumnBatch] = []
     leaf_sizes: List[int] = []
     flags: Optional[List[bool]] = None
-    if maybe_fast or join is not None:
+    if maybe_fast or join is not None or svc.recovered_pids:
         # one digest exchange classifies every leaf and carries per-leaf
-        # global byte sizes; the generic fallback reuses the batches
+        # global byte sizes; the generic fallback reuses the batches.
+        # After a loss it runs for every statement: a partitioned one
+        # cannot know the lost pid's rows (abort structured), a
+        # replicated-only one can proceed
         flags = _leaf_partition_flags(session, node, svc, f"{xid}-digest",
                                       leaf_cache, leaf_sizes)
+    if flags is not None:
+        if svc.last_leaf_flags is None:
+            # the statement's epoch-0 classification: adoption keys off
+            # THESE flags (the adopter's leaf is a LocalRelation on a
+            # re-run)
+            svc.last_leaf_flags = list(flags)
         _require_recoverable(svc, flags)
 
     # fast path: EXACTLY one partitioned leaf (all-replicated would make

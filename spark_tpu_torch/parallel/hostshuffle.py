@@ -40,10 +40,18 @@ short block is a detected fault, not silence.
   ``refetch`` re-barrier makes it ≤ 2×).  A live but silent straggler
   fails the barrier with ``TimeoutError``.
 
-Left out until the recovery slice: the block service (``blockclient``)
-and the recovery round (``recover_round``, epochs, leaf-recipe
-adoption); until then no loss is ever agreed, and ``live_pids`` is every
-process.
+- Recovery: ``recover_round`` is the ``{xid}-recover<epoch>`` agreement
+  round the survivors of a loss run (``crossproc_execute``'s epochs);
+  its agreed-lost pids leave ``live_pids`` for the rest of the session,
+  and their blocks are never fetched again.  Its manifests are the JAX
+  package's byte for byte, so a world mixing both packages agrees on one
+  lost set.
+- Block service (``spark.tpu.blockserver.enabled``, ``blockserver.py``):
+  every published block and sidecar is staged into the store at write
+  time and the sender's manifest sealed before its marker; a barrier-
+  excluded sender that sealed is ADOPTED whole, and a block lost after
+  its retries is restored from the store once more, before any loss is
+  reported.
 """
 
 from __future__ import annotations
@@ -510,6 +518,18 @@ class HostShuffleService:
             "grace_salted_resplits": 0,
             "reducers_planned": 0, "reducers_observed": 0,
             "reducers_elastic": 0,
+            # lineage recovery: agreement rounds, statements that re-ran
+            # under a fresh epoch, partitions re-executed
+            "recovery_rounds": 0, "stage_retries": 0,
+            "recovered_partitions": 0,
+            # the block service: outputs registered at commit, dead
+            # peers' outputs adopted (whole manifests at the barrier,
+            # single blocks after a failed read), reads served from the
+            # store, degraded calls while it was down, reaper reclaims
+            "blocks_registered": 0, "manifests_registered": 0,
+            "manifests_adopted": 0, "blocks_adopted": 0,
+            "blockserver_fallback_reads": 0, "blockserver_unavailable": 0,
+            "orphaned_blocks_reclaimed": 0,
         }
         #: reduce-partition byte sizes of the last reducer plan
         self.last_partition_bytes: Optional[List[int]] = None
@@ -521,13 +541,27 @@ class HostShuffleService:
         self.timers: Dict[str, float] = {
             "encode_s": 0.0, "write_s": 0.0, "decode_s": 0.0,
             "fetch_s": 0.0, "commit_wait_s": 0.0, "barrier_s": 0.0,
+            "recovery_s": 0.0,
         }
-        #: the statement's leaf recipes from its digest round, sender →
-        #: list (the lineage the recovery slice re-reads a lost leaf from)
-        self.leaf_recipes: Dict[int, list] = {}
-        #: pids every survivor agreed are lost: empty until the recovery
-        #: slice brings the agreement round
+        #: pids every survivor AGREED are lost (a ``{xid}-recover``
+        #: round).  Unlike ``blacklist`` (local suspicion) this is shared
+        #: planning state: it persists across statements, and every live
+        #: planning decision derives from it identically on all peers
         self.recovered_pids: set = set()
+        #: the current recovery epoch: re-executed exchanges run under
+        #: ids suffixed ``e<epoch>``, so the dead epoch's stale blocks
+        #: live in other directories and are never read
+        self.epoch = 0
+        #: the statement's leaf recipes from its digest round, sender →
+        #: list of {"kind": "file"|"local", ...}: a file recipe lets a
+        #: survivor re-read a dead peer's partition
+        self.leaf_recipes: Dict[int, list] = {}
+        #: the partitioned-leaf flags of the statement's first digest
+        #: round (which leaves need adoption on re-execution)
+        self.last_leaf_flags: Optional[List[bool]] = None
+        #: lost pid → adopting live pid, derived from ``recovered_pids``
+        #: after each agreed round
+        self.recovery_adopt: Dict[int, int] = {}
         self._lock = threading.Lock()
         if ledger is None:
             from ..memory import HostMemoryLedger
@@ -561,6 +595,23 @@ class HostShuffleService:
         self._drained = threading.Condition(self._lock)
         self._write_errors: List[BaseException] = []
         os.makedirs(root, exist_ok=True)
+        #: the degrading client of the block service (``blockserver.py``)
+        #: that keeps committed output past a worker's death; None when
+        #: the service is off
+        self.blockclient = None
+        if conf.get(C.BLOCKSERVER_ENABLED):
+            from .blockserver import BlockServiceClient, BlockStore
+            self.blockclient = BlockServiceClient(
+                BlockStore(root, conf=conf),
+                owner=self.host_name(self.pid),
+                on_event=self._count_blockserver_event)
+
+    @property
+    def max_stage_retries(self) -> int:
+        """The statement's recovery budget, read LIVE from the conf (the
+        reference reads it once, when the service is built: ROADMAP
+        §3)."""
+        return int(self._conf.get(C.RECOVERY_MAX_STAGE_RETRIES))
 
     @property
     def grace_buckets(self) -> int:
@@ -588,6 +639,11 @@ class HostShuffleService:
     def _count_backpressure(self) -> None:
         with self._lock:
             self.counters["fetch_backpressure_waits"] += 1
+
+    def _count_blockserver_event(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            if name in self.counters:
+                self.counters[name] += n
 
     def bump(self, name: str, n: int = 1) -> None:
         """Add ``n`` to a counter under the service lock."""
@@ -665,6 +721,7 @@ class HostShuffleService:
         buf, stats = self._encode(exchange, batches)
         t1 = time.perf_counter()
         self._publish(path, buf)
+        self._stage(exchange, path)
         t2 = time.perf_counter()
         with self._lock:
             self._staged.setdefault(exchange, {})[receiver] = len(buf)
@@ -677,6 +734,14 @@ class HostShuffleService:
             self.timers["write_s"] += t2 - t1
             for k, v in stats.items():
                 self.counters[k] += v
+
+    def _stage(self, exchange: str, path: str) -> None:
+        """Block-service custody of a just-published file: a hard link,
+        taken before any fault can unlink the exchange-dir name; sealed
+        at commit."""
+        if self.blockclient is not None:
+            self.blockclient.stage_block(exchange, os.path.basename(path),
+                                         path)
 
     def _writer_loop(self) -> None:
         while True:
@@ -748,10 +813,20 @@ class HostShuffleService:
             # the dictionary sidecar, published BEFORE the manifest that
             # names its size (the order data blocks rely on too)
             blob = wire.encode_dict_table(refs)
-            self._publish(self._dict_path(exchange, self.pid), blob)
+            dpath = self._dict_path(exchange, self.pid)
+            self._publish(dpath, blob)
+            self._stage(exchange, dpath)
             man["dict_bytes"] = len(blob)
             with self._lock:
                 self.counters["bytes_written"] += len(blob)
+        # the registration commit point: the block service seals this
+        # sender's manifest BEFORE the exchange marker goes live, so a
+        # sender that dies in the gap is adoptable by any survivor
+        if self.blockclient is not None \
+                and self.blockclient.seal(exchange, self.pid, man):
+            with self._lock:
+                self.counters["manifests_registered"] += 1
+                self.counters["blocks_registered"] += len(staged)
         path = self._done(exchange, self.pid)
         tmp = f"{path}.tmp.{os.getpid()}"
         with open(tmp, "w") as f:
@@ -841,6 +916,7 @@ class HostShuffleService:
         t0 = time.perf_counter()
         buf = self._read_parts(spill_path, parts)
         self._publish(path, buf)
+        self._stage(exchange, path)
         with self._lock:
             self._staged.setdefault(exchange, {})[receiver] = len(buf)
             self.counters["blocks_written"] += 1
@@ -1130,9 +1206,14 @@ class HostShuffleService:
             self.blacklist[pid] = reason
             self.counters["peers_blacklisted"] += 1
 
+    # -- lineage recovery ------------------------------------------------
     def begin_statement(self) -> None:
-        """Reset the per-statement state (the leaf recipes)."""
+        """Reset the per-statement recovery state.  ``recovered_pids`` and
+        ``epoch`` survive: an agreed-dead peer stays dead for every later
+        statement of the session."""
         self.leaf_recipes = {}
+        self.last_leaf_flags = None
+        self.recovery_adopt = {}
 
     def live_pids(self) -> List[int]:
         """The process ids every planning decision runs over: all but the
@@ -1143,6 +1224,61 @@ class HostShuffleService:
     def group_owner(self, g: int) -> int:
         """Owner of hash-reducer group ``g``: the g-th live process."""
         return self.live_pids()[g]
+
+    def recover_round(self, xid: str, epoch: int, lost_now: set) -> None:
+        """The ``{xid}-recover<epoch>`` agreement round: every survivor
+        publishes the loss it observed, barriers, and derives the SAME
+        lost-pid union (the decentralized stand-in for the DAGScheduler's one
+        view of a FetchFailedException).
+
+        Raises a non-recoverable ``ExchangeFetchFailed`` when agreement
+        is impossible: a peer that neither took part nor was named lost
+        (it died DURING the round: divergence), or this process declared
+        lost by the others (it must abort, not re-execute as a ghost)."""
+        t0 = self._clock()
+        for p in sorted(lost_now):
+            self._blacklist_peer(p, f"recovery round {xid!r} epoch {epoch}")
+        rid = f"{xid}-recover{epoch}"
+        self.publish_manifest(
+            rid, {"epoch": epoch, "lost": sorted(int(p) for p in lost_now)})
+        mans, _nbytes = self.gather_manifests(rid, strict=True)
+        agreed: set = set()
+        max_epoch = epoch
+        for man in mans.values():
+            agreed.update(int(p) for p in man.get("lost", []))
+            max_epoch = max(max_epoch, int(man.get("epoch", epoch)))
+        stray = (set(range(self.n)) - set(mans) - agreed
+                 - self.recovered_pids)
+        if stray:
+            err = ExchangeFetchFailed(
+                rid, [self.host_name(p) for p in sorted(stray)], [],
+                elapsed_s=self._clock() - t0,
+                detail="recovery round diverged: peers "
+                       f"{sorted(stray)} neither participated nor were "
+                       "named lost — no consistent live set exists")
+            err.recoverable = False
+            raise err
+        if self.pid in agreed:
+            err = ExchangeFetchFailed(
+                rid, [self.host_name(self.pid)], [],
+                elapsed_s=self._clock() - t0,
+                detail="this process was declared lost by its peers; "
+                       "aborting instead of re-executing as a ghost")
+            err.recoverable = False
+            raise err
+        with self._lock:
+            self.recovered_pids |= agreed
+            self.epoch = max(self.epoch, max_epoch)
+            self.counters["recovery_rounds"] += 1
+            self.timers["recovery_s"] += self._clock() - t0
+        for p in sorted(agreed):
+            self._blacklist_peer(p, f"agreed lost in {rid!r}")
+        # deterministic adoption: lost pids round-robin over the live set,
+        # from agreed state only, so identical on every peer
+        live = self.live_pids()
+        self.recovery_adopt = {
+            p: live[i % len(live)]
+            for i, p in enumerate(sorted(self.recovered_pids))}
 
     def _pool(self, n_tasks: int) -> ThreadPoolExecutor:
         return ThreadPoolExecutor(
@@ -1203,6 +1339,60 @@ class HostShuffleService:
                 out.extend(batches)
         return out
 
+    # -- block-service adoption ------------------------------------------
+    def _adopt_manifests(self, exchange: str, excluded: set) -> None:
+        """A barrier-excluded sender that SEALED its registration before
+        dying has its whole output re-registered into the live exchange
+        (blocks, sidecar, then the marker, the order readers rely on), so
+        the statement proceeds with ZERO map re-execution.  Removes the
+        adopted senders from ``excluded`` in place."""
+        if self.blockclient is None or not excluded:
+            return
+        for s in sorted(excluded):
+            if s == self.pid or s in self.recovered_pids:
+                continue
+            adopted = self.blockclient.adopt(exchange, s,
+                                             self._dir(exchange))
+            if adopted is None:
+                continue
+            excluded.discard(s)
+            with self._lock:
+                self.counters["manifests_adopted"] += 1
+                self.counters["blocks_adopted"] += int(
+                    adopted.get("restored", 0))
+
+    def _adopt_block(self, exchange: str, item, results, sink,
+                     deadline: Optional[float]) -> bool:
+        """The last read after the peer-direct retries are spent: restore
+        the one lost block (and, if missing, the sender's sidecar) from
+        the block service and read it once more.  True only when the
+        restored block decoded."""
+        if self.blockclient is None:
+            return False
+        s, path, size, _host = item
+        if not self.blockclient.restore_block(
+                exchange, os.path.basename(path), path, expect_size=size):
+            return False
+        dpath = self._dict_path(exchange, s)
+        if not os.path.exists(dpath):
+            self.blockclient.restore_block(
+                exchange, os.path.basename(dpath), dpath)
+        try:
+            batches = self._reader.read(
+                path, expect_size=size, deadline=deadline,
+                decode=lambda d: self._decode_with_dicts(
+                    exchange, s, d, deadline))
+        except (BlockFetchError, OSError):
+            return False
+        if sink is not None:
+            sink.add(s, batches)
+            batches = []
+        results[s] = batches
+        with self._lock:
+            self.counters["blocks_adopted"] += 1
+            self.counters["blockserver_fallback_reads"] += 1
+        return True
+
     def _fetch_remote(self, exchange: str, t0: float,
                       sink=None) -> List[ColumnBatch]:
         """One bounded fetch attempt: barrier, then manifest-driven reads
@@ -1213,12 +1403,18 @@ class HostShuffleService:
         then empty)."""
         deadline = self._clock() + self.timeout_s
         excluded = set(self.barrier(exchange, deadline=deadline))
+        self._adopt_manifests(exchange, excluded)
         lost_hosts: List[str] = []
         lost_blocks: List[str] = []
         #: (sender, path, manifested size, host name)
         work: List[Tuple[int, str, Optional[int], str]] = []
         for s in range(self.n):
             if s == self.pid:
+                continue
+            if s in self.recovered_pids:
+                # agreed lost: its partitions went to survivors, so there
+                # is nothing to fetch, and it is NOT a loss (counting it
+                # would fail every re-execution again)
                 continue
             path = self._part(exchange, s, self.pid)
             if s in excluded:
@@ -1268,6 +1464,9 @@ class HostShuffleService:
                     except BlockFetchError as e:
                         if "retry budget exhausted" in e.reason:
                             self.bump("retry_budget_exhausted")
+                        if self._adopt_block(exchange, item, results,
+                                             sink, deadline):
+                            continue
                         lost_hosts.append(item[3])
                         lost_blocks.append(os.path.basename(item[1]))
             with self._lock:
@@ -1475,6 +1674,22 @@ class HostShuffleService:
             self.host_name(p) for p in sorted(self.blacklist)) or ""
         gauges["peak_host_bytes"] = lambda: int(self.ledger.peak)
         gauges["host_budget_bytes"] = lambda: int(self.ledger.budget)
+        # lineage recovery: the epoch (0 = nothing ever lost) and the time
+        # spent in agreement rounds
+        gauges["epoch"] = lambda: int(self.epoch)
+        gauges["recovery_ms"] = lambda: round(
+            self.timers["recovery_s"] * 1000.0, 1)
+        gauges["recovered_peers"] = lambda: ",".join(
+            self.host_name(p) for p in sorted(self.recovered_pids)) or ""
+        # the block service, and the reaper's lifetime reclaim total kept
+        # in the store itself (the same from every process on the root)
+        if self.blockclient is not None:
+            store = self.blockclient.store
+            gauges["blockserver_enabled"] = lambda: 1
+            gauges["orphaned_blocks_reclaimed"] = (
+                lambda: int(store.reclaimed_total()))
+        else:
+            gauges["blockserver_enabled"] = lambda: 0
         return Source("shuffle", gauges)
 
     def cleanup(self, exchange: str) -> None:
@@ -1490,6 +1705,10 @@ class HostShuffleService:
             self._raw_exchanges.discard(exchange)
             for key in [k for k in self._dict_tables if k[0] == exchange]:
                 del self._dict_tables[key]
+        if self.blockclient is not None:
+            # every peer is past this exchange (cleanup runs after its
+            # barrier): the store drops its copies without the TTL
+            self.blockclient.release_exchange(exchange)
         try:
             for name in os.listdir(d):
                 try:

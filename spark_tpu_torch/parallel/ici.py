@@ -21,8 +21,7 @@ The cross-process lanes (``crossproc.py`` over ``hostshuffle.py``) run
 every exchange between processes on the host tier: blocks written to a
 shared directory.  The cross-process ``device_exchange`` (``_ici_tier``
 and the tiered exchanges of the JAX package's ``crossproc.py``) comes
-with the device-tier slice, after the recovery slice (epochs, lost-leaf
-adoption, the block service); until then the auto path of
+with the device-tier slice (ROADMAP item 10.2); until then the auto path of
 ``probe_topology`` yields singleton domains, as the JAX package does in
 one process, and a tier override that puts peers in one domain makes a
 cross-process exchange raise (``crossproc._check_device_tier``).

@@ -29,7 +29,18 @@ Multi-tenancy guards (serving/ package):
   (responses carry ``cacheHit`` / ``planningSkippedMs``);
 * per-statement deadlines (``spark.tpu.server.statementTimeout``) ride
   the cooperative-cancel machinery, and idle sessions are reaped after
-  ``spark.tpu.server.sessionTimeout`` seconds.
+  ``spark.tpu.server.sessionTimeout`` seconds;
+* a statement whose cross-process exchange lost a peer past its
+  in-query recovery budget (``ExchangeFetchFailed``) is re-admitted ONCE,
+  transparently, over the surviving live set (``statement_readmits``);
+* when the root session's host shuffle runs the block service, the
+  server runs its orphan reaper (``parallel/blockserver.BlockServer``)
+  while started;
+* with ``spark.tpu.server.pool.enabled`` an elastic worker pool
+  (``serving/pool.py``) grows and shrinks with the admission demand, and
+  eligible SELECTs are offloaded to its workers (each a session on the
+  card; replies carry ``pooled`` / ``poolWorker``).  A pool miss runs
+  the statement on the server's own session, on the same card.
 
     python -m spark_tpu_torch.server --port 8123 --workers 4 &
     curl -d 'SELECT 1 AS x' localhost:8123/sql
@@ -54,12 +65,8 @@ via --token or SPARK_TPU_SERVER_TOKEN):
                                 counters, plan-cache and stage-cache
                                 stats, the metrics sources
 
-Left out, each refusing with the reference's error shape and naming the
-slice that brings it: ``/stream`` and standing queries (streaming), the
-elastic worker pool (``spark.tpu.server.pool.enabled``, which has no
-conf entry in the port: the serving slice's pool).  The cross-process parts — ``StatsFeedback``, the
-block-service reaper, the re-admit after a lost exchange — have nothing
-to serve until the cross-process slice.
+Left out, refusing with the reference's error shape and naming the
+slice that brings it: ``/stream`` and standing queries (streaming).
 """
 
 from __future__ import annotations
@@ -85,8 +92,6 @@ __all__ = ["SQLServer"]
 #: what the port does not serve yet, by the slice that brings it
 STREAMS_NOT_PORTED = ("NotImplementedError: standing queries (/stream) are "
                       "not ported yet: they come with the streaming slice")
-POOL_KEY = "spark.tpu.server.pool.enabled"
-POOL_SLICE = "the serving slice's elastic worker pool (serving/pool.py)"
 
 
 _SQL_LITERALS = re.compile(r"'(?:[^']|'')*'|\b\d+(?:\.\d+)?\b")
@@ -212,16 +217,56 @@ class SQLServer:
         self._thread: Optional[threading.Thread] = None
         # -- multi-tenant serving core: shared across ALL sessions -------
         self._admission = AdmissionController(
-            session.conf_obj, queued_supplier=self._queued_total)
+            session.conf_obj,
+            lambda: getattr(session, "_host_ledger", None),
+            grace_supplier=self._grace_total,
+            blockstore_supplier=lambda: getattr(
+                getattr(getattr(session, "_crossproc_svc", None),
+                        "blockclient", None), "store", None),
+            queued_supplier=self._queued_total)
         self._plan_cache: Optional[PlanCache] = None
         if session.conf_obj.get(C.SERVER_PLAN_CACHE_ENABLED):
             self._plan_cache = PlanCache(session.conf_obj)
         # the default session executes through the shared cache too
         session._plan_cache = self._plan_cache
         self._sessions_expired = 0
+        self._statement_readmits = 0     # transparent recovery re-admits
         self._reaper_stop = threading.Event()
         self._reaper: Optional[threading.Thread] = None
+        # the block-service reaper, run while the server is started when
+        # the root session's host shuffle has a block service
+        self._blockserver = None
+        # the elastic worker pool, started with the server when
+        # spark.tpu.server.pool.enabled
+        self._pool_supervisor = None
         self._register_metrics()
+
+    @staticmethod
+    def _grace_stats(session) -> Dict[str, int]:
+        """One session's grace-mode activity, read off its host-shuffle
+        counters (empty without host shuffle or grace)."""
+        svc = getattr(session, "_crossproc_svc", None)
+        counters = getattr(svc, "counters", None) if svc is not None \
+            else None
+        if not counters:
+            return {}
+        out = {k: int(counters.get(k, 0))
+               for k in ("grace_buckets_used", "grace_spill_bytes",
+                         "grace_salted_resplits", "reducers_elastic")}
+        return out if any(out.values()) else {}
+
+    def _grace_total(self) -> int:
+        """Grace degradations across every session: admission's learned
+        signal that running near the headroom floor now costs
+        spill-speed joins."""
+        try:
+            with self._reg_lock:
+                sessions = [ss.session for ss in self._sessions.values()]
+            sessions.append(self.session)
+            return sum(self._grace_stats(s).get("grace_buckets_used", 0)
+                       for s in sessions)
+        except Exception:
+            return 0
 
     def _queued_total(self) -> int:
         """Total statements waiting on session FIFOs tier-wide — the
@@ -241,11 +286,28 @@ class SQLServer:
             gauges.update(self._plan_cache.metrics_source())
         gauges["sessions_open"] = lambda: len(self._sessions)
         gauges["sessions_expired"] = lambda: self._sessions_expired
+        gauges["statement_readmits"] = lambda: self._statement_readmits
+        gauges["blockserver_attached"] = (
+            lambda: int(self._blockserver is not None))
+        gauges["blockserver_gc_runs"] = lambda: (
+            self._blockserver.gc_runs if self._blockserver else 0)
         ms = self.session.metricsSystem
         # re-registering (e.g. a second SQLServer on the same session)
-        # replaces rather than duplicates the source
-        ms._sources = [s for s in ms._sources if s.name != "serving"]
+        # replaces rather than duplicates the sources
+        ms._sources = [s for s in ms._sources
+                       if s.name not in ("serving", "pool")]
         ms.register_source(Source("serving", gauges))
+
+        def pool_counter(name):
+            def get():
+                sup = self._pool_supervisor
+                return sup.counters.get(name, 0) if sup else 0
+            return get
+
+        ms.register_source(Source("pool", {k: pool_counter(k) for k in (
+            "workers_spawned", "workers_reaped", "pool_target",
+            "pool_live", "scale_decisions", "spawn_failures",
+            "pool_statements_served", "offload_fallbacks")}))
 
     # -- session registry ------------------------------------------------
     def _open_session(self) -> str:
@@ -308,6 +370,8 @@ class SQLServer:
     # -- statement execution ---------------------------------------------
     def _run_sql(self, text: str, sid: Optional[str],
                  stmt_id: Optional[str]) -> dict:
+        from .parallel.hostshuffle import ExchangeFetchFailed
+
         ss = self._resolve(sid)          # unknown session → 404, nothing
         cost_key = _cost_key(text)
         # admission BEFORE registration: a rejected statement leaves no
@@ -320,16 +384,49 @@ class SQLServer:
         self._admission.admit(depth, cost_key=cost_key)
         admit_t = time.time()
         try:
-            return self._run_admitted(ss, text, sid, stmt_id)
+            try:
+                return self._run_admitted(ss, text, sid, stmt_id)
+            except ExchangeFetchFailed:
+                # a worker died and the in-query recovery spent its
+                # budget (or was off): the exchange plane already agreed
+                # the loss or blacklisted the peer, so ONE transparent
+                # re-admit runs the statement over the survivors.  A
+                # second fetch failure surfaces to the client.
+                with self._reg_lock:
+                    self._statement_readmits += 1
+                return self._run_admitted(ss, text, sid, stmt_id)
         finally:
             # release feeds the EWMAs behind Retry-After with end-to-end
             # (queue + execute) latency — what a retrying client sees
             self._admission.release(time.time() - admit_t,
                                     cost_key=cost_key)
 
+    def _offloadable(self, ss: _ServerSession, text: str) -> bool:
+        """Pool-eligible statements: plain SELECTs over persistent
+        tables only (a session temp view lives in this process, a worker
+        cannot see it; anything else may change catalog state the
+        session expects to observe)."""
+        if self._pool_supervisor is None:
+            return False
+        if not ss.session.conf_obj.get(C.SERVER_POOL_OFFLOAD):
+            return False
+        if ss.session.catalog._views:
+            return False
+        return text.strip().lower().startswith("select")
+
     def _run_admitted(self, ss: _ServerSession, text: str,
                       sid: Optional[str], stmt_id: Optional[str]) -> dict:
         from .sql.session import QueryCancelled
+
+        if self._offloadable(ss, text):
+            # a miss (no live worker, timeout, worker error) returns None
+            # and the statement runs in this session's FIFO, on the card
+            out = self._pool_supervisor.execute(text)
+            if out is not None:
+                out.setdefault("statementId",
+                               stmt_id or uuid.uuid4().hex[:16])
+                ss.last_used = time.time()
+                return out
 
         stmt = _Statement(stmt_id or uuid.uuid4().hex[:16], sid or "", text)
         with self._reg_lock:
@@ -524,6 +621,13 @@ class SQLServer:
         }
         if self._plan_cache is not None:
             out["planCache"] = self._plan_cache.stats()
+        grace = self._grace_stats(self.session)
+        if grace:
+            out["graceActivity"] = grace
+        if self._blockserver is not None:
+            out["blockStore"] = self._blockserver.stats()
+        if self._pool_supervisor is not None:
+            out["poolActivity"] = self._pool_supervisor.stats()
         from .sql.stagecompile import stage_cache
         out["stageCache"] = stage_cache().stats()
         return out
@@ -656,11 +760,6 @@ class SQLServer:
 
     # -- lifecycle -------------------------------------------------------
     def start(self) -> "SQLServer":
-        if str(self.session.conf_obj.get(POOL_KEY, "false")
-               ).strip().lower() == "true":
-            raise NotImplementedError(
-                f"{POOL_KEY}=true: the elastic worker pool is not ported "
-                f"yet; it comes with {POOL_SLICE}")
         self._httpd = ThreadingHTTPServer((self.host, self.port),
                                           self._make_handler())
         self.port = self._httpd.server_address[1]     # resolve port 0
@@ -673,6 +772,27 @@ class SQLServer:
             target=self._reap_loop, daemon=True,
             name=f"sql-server-reaper-{self.port}")
         self._reaper.start()
+        conf = self.session.conf_obj
+        bc = getattr(getattr(self.session, "_crossproc_svc", None),
+                     "blockclient", None)
+        if bc is not None and self._blockserver is None:
+            from .parallel.blockserver import BlockServer
+            self._blockserver = BlockServer(
+                bc.store, roots=(bc.store.root,),
+                interval_s=float(conf.get(C.BLOCKSERVER_GC_INTERVAL)))
+            self._blockserver.start()
+        if conf.get(C.SERVER_POOL_ENABLED) and self._pool_supervisor is None:
+            from .serving.pool import WorkerPoolSupervisor
+            svc = getattr(self.session, "_crossproc_svc", None)
+            warehouse = os.path.abspath(conf.get(C.WAREHOUSE_DIR))
+            pool_root = os.path.join(
+                getattr(svc, "root", None) or warehouse + "-ctl", "_pool")
+            self._pool_supervisor = WorkerPoolSupervisor(
+                pool_root, conf,
+                demand_supplier=self._admission.demand_signal,
+                warehouse=warehouse,
+                blockstore_root=bc.store.root if bc is not None else None)
+            self._pool_supervisor.start()
         return self
 
     def stop(self) -> None:
@@ -680,6 +800,12 @@ class SQLServer:
         if self._reaper is not None:
             self._reaper.join(timeout=2.0)
             self._reaper = None
+        if self._pool_supervisor is not None:
+            self._pool_supervisor.stop()
+            self._pool_supervisor = None
+        if self._blockserver is not None:
+            self._blockserver.stop()
+            self._blockserver = None
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -694,7 +820,8 @@ class SQLServer:
             ss.session._plan_cache = None
         self.session._plan_cache = None
         ms = self.session.metricsSystem
-        ms._sources = [s for s in ms._sources if s.name != "serving"]
+        ms._sources = [s for s in ms._sources
+                       if s.name not in ("serving", "pool")]
 
 
 def main(argv=None) -> int:

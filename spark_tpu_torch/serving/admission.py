@@ -9,19 +9,23 @@ REJECTED immediately with a structured ``AdmissionRejected`` naming the
 exhausted limit — never parked in an unbounded queue, never deadlocked
 on a session lock, never partially executed.
 
-Two limits, both read live from the server session's conf (so SET
+Three limits, all read live from the server session's conf (so SET
 tunes a running server):
 
 * ``spark.tpu.server.maxConcurrentStatements`` — global cap on admitted
   and unfinished statements across all sessions;
 * ``spark.tpu.server.maxQueuedPerSession`` — cap on one session's FIFO
-  depth (running + queued), bounding a single hot client.
+  depth (running + queued), bounding a single hot client;
+* ``spark.tpu.server.admission.minHostHeadroomBytes`` — when the session
+  carries a ``memory.HostMemoryLedger`` (``enableHostShuffle``),
+  statements are rejected while its free budget is below the floor; the
+  floor doubles once a session has degraded into grace joins.
 
 The card's memory is guarded by the memory pre-flight of every query
-(``memory.MemoryManager``), not here.  The reference's host-headroom
-limit (it reads a host memory ledger), its standing-query cap and the
-demand signal its elastic pool reads come with the slices that bring
-those parts.
+(``memory.MemoryManager``), not here.  ``demand_signal`` snapshots the
+demand as a ``DemandSignal``, the elastic pool's one input
+(``serving/pool.py``).  The JAX package's standing-query cap waits for
+the streaming slice.
 
 The Retry-After hint is PER QUERY SHAPE when history exists: releases
 tagged with a ``cost_key`` (the server derives one per normalized
@@ -35,11 +39,36 @@ answer, not a constant."""
 from __future__ import annotations
 
 import threading
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 from .. import config as C
 
-__all__ = ["AdmissionController", "AdmissionRejected"]
+__all__ = ["AdmissionController", "AdmissionRejected", "DemandSignal"]
+
+
+class DemandSignal(NamedTuple):
+    """One snapshot of serving demand, everything the elastic pool's
+    policy reads.  ``running`` is admitted and unfinished statements,
+    ``queued`` the FIFO depth behind them, ``rejected_recent`` the
+    rejections since the previous snapshot, ``cost_ewma_s`` the recent
+    statement duration and ``backlog_s`` its product with the demand.
+    ``host_free`` is the host ledger's free budget (-1 = no ledger) and
+    ``standing`` the long-lived streaming tenants (0 until streaming is
+    ported)."""
+
+    running: int = 0
+    queued: int = 0
+    rejected_recent: int = 0
+    cost_ewma_s: float = 0.0
+    backlog_s: float = 0.0
+    host_free: int = -1
+    standing: int = 0
+
+    @property
+    def demand(self) -> int:
+        """Statements wanting service now: running + queued + what the
+        caps just turned away."""
+        return self.running + self.queued + self.rejected_recent
 
 
 class AdmissionRejected(RuntimeError):
@@ -64,8 +93,17 @@ class AdmissionRejected(RuntimeError):
 
 class AdmissionController:
     def __init__(self, conf,
+                 ledger_supplier: Optional[Callable[[], Any]] = None,
+                 grace_supplier: Optional[Callable[[], int]] = None,
+                 blockstore_supplier: Optional[Callable[[], Any]] = None,
                  queued_supplier: Optional[Callable[[], int]] = None):
         self._conf = conf
+        self._ledger = ledger_supplier or (lambda: None)
+        self._grace = grace_supplier or (lambda: 0)
+        # the block service's store (or None): only observed, so one
+        # /status shows disk ownership beside the admission counters
+        self._blockstore = blockstore_supplier or (lambda: None)
+        self._signal_rejected_mark = 0     # rejected at last demand_signal
         # total FIFO depth across server sessions, read OUTSIDE the
         # admission lock (the server's supplier takes its own
         # registration lock; admission->registration is the established
@@ -83,6 +121,11 @@ class AdmissionController:
     #: per-shape table bound — a serving process must not leak one entry
     #: per distinct literal-normalized statement forever
     MAX_SHAPES = 1024
+
+    #: once a session has degraded into grace joins, the headroom floor
+    #: is scaled by this: grace keeps queries correct under pressure but
+    #: at spill speed, so the server sheds earlier
+    GRACE_HEADROOM_FACTOR = 2.0
 
     # -- policy --------------------------------------------------------
     def admit(self, session_queue_depth: int,
@@ -102,9 +145,25 @@ class AdmissionController:
             if qcap > 0 and session_queue_depth >= qcap:
                 self._reject("maxQueuedPerSession",
                              session_queue_depth, qcap, cost_key)
+            self._check_headroom_locked(cost_key)
             self.active += 1
             self.admitted += 1
             self.peak_active = max(self.peak_active, self.active)
+
+    def _check_headroom_locked(self, cost_key: Optional[str]) -> None:
+        floor = int(self._conf.get(C.SERVER_MIN_HOST_HEADROOM))
+        if floor <= 0:
+            return
+        try:
+            degraded = int(self._grace() or 0)
+        except Exception:
+            degraded = 0
+        if degraded > 0:
+            floor = int(floor * self.GRACE_HEADROOM_FACTOR)
+        ledger = self._ledger()
+        if ledger is not None and ledger.free < floor:
+            self._reject("hostMemoryHeadroom", int(ledger.free), floor,
+                         cost_key)
 
     def _reject(self, limit: str, observed, cap,
                 cost_key: Optional[str] = None) -> None:
@@ -142,8 +201,42 @@ class AdmissionController:
             est = self._ewma_s
         return max(1.0, est * max(1, self.active))
 
+    # -- the demand signal (the elastic pool's input) -------------------
+    def demand_signal(self) -> DemandSignal:
+        """Snapshot serving demand.  Suppliers with locks of their own
+        (queued depth, host ledger) are read OUTSIDE the admission lock;
+        ``rejected_recent`` is the rejections since the previous call, so
+        a burst is reported once."""
+        try:
+            queued = int(self._queued() or 0)
+        except Exception:
+            queued = 0
+        host_free = -1
+        try:
+            ledger = self._ledger()
+            if ledger is not None:
+                host_free = int(ledger.free)
+        except Exception:
+            pass
+        with self._lock:
+            rejected_recent = self.rejected - self._signal_rejected_mark
+            self._signal_rejected_mark = self.rejected
+            running = self.active
+            ewma = self._ewma_s
+        demand = running + queued + rejected_recent
+        return DemandSignal(
+            running=running, queued=queued,
+            rejected_recent=rejected_recent,
+            cost_ewma_s=ewma, backlog_s=ewma * demand,
+            host_free=host_free, standing=0)
+
     # -- introspection -------------------------------------------------
     def stats(self) -> Dict[str, Any]:
+        store = None
+        try:
+            store = self._blockstore()
+        except Exception:
+            pass
         try:
             queued = int(self._queued() or 0)
         except Exception:
@@ -155,12 +248,19 @@ class AdmissionController:
                 "rejectedBy": dict(self.rejected_by),
                 "avgStatementMs": round(self._ewma_s * 1000, 1),
                 "costShapes": len(self._shape_ewma_s),
+                "graceDegraded": int(self._grace() or 0),
+                # a NON-consuming view of the demand signal (the delta
+                # mark belongs to demand_signal's caller, the pool)
                 "demand": {
                     "running": self.active, "queued": queued,
+                    "rejectedSinceSignal":
+                        self.rejected - self._signal_rejected_mark,
                     "backlogSeconds": round(
                         self._ewma_s * (self.active + queued), 3),
                 },
             }
+        if store is not None:
+            out["blockStore"] = store.stats()
         return out
 
     def metrics_source(self) -> Dict[str, Callable[[], Any]]:

@@ -635,9 +635,9 @@ class QueryExecution:
         #   run-length vectors;
         # * the mesh lane under graphs: the mesh lane below stays eager.
         # The cross-process exchange (``crossproc_execute``) runs the host
-        # shuffle's lanes; a lost peer raises ``ExchangeFetchFailed``
-        # until the recovery slice brings epochs and re-execution, and
-        # exchanges stay on the host tier until the device-tier slice.
+        # shuffle's lanes, recovering a lost peer in epochs up to
+        # spark.tpu.recovery.maxStageRetries; exchanges stay on the host
+        # tier until the device-tier slice.
         session = self.session
         session.raise_if_cancelled()      # checkpoint: before planning
         svc = session._crossproc_svc

@@ -1666,10 +1666,688 @@ def _card_battery(xs, svc) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# recovery: the JAX package's ``tests/recovery_worker.py`` modes, and the
+# card scenarios of ``chip_smoke.py``'s [recovery] phase
+# ---------------------------------------------------------------------------
+
+#: the recovery battery's text (the JAX package worker's)
+RECOVERY_SQL = ("SELECT sk, count(*) AS c, sum(bonus) AS sb FROM fact "
+                "JOIN fact2 ON sk = k2 GROUP BY sk ORDER BY sk")
+
+#: the generic-lane keyed aggregate of scenario (d): a UNION ALL of two
+#: partitioned file sets (the fast path needs exactly one partitioned
+#: leaf), so every process gathers both and runs the aggregate, K1,
+#: locally
+RECOVERY_UNION_SQL = ("SELECT k, SUM(v) AS s, COUNT(*) AS c FROM "
+                      "(SELECT k, v FROM hash_a UNION ALL "
+                      "SELECT k, v FROM hash_b) u GROUP BY k ORDER BY k")
+
+#: the hash lane of the join modes: no broadcast, no range lane
+_HASH_LANE = {"spark.tpu.shuffle.targetPartitionBytes": "2048",
+              "spark.tpu.crossproc.autoBroadcastThreshold": "0",
+              "spark.tpu.crossproc.sortMergeJoin": "false",
+              "spark.tpu.crossproc.shuffledJoin": "true"}
+
+#: mode → conf pairs of the recovery worker's session (the JAX package
+#: worker's settings).  ``card-*`` are the card scenarios: (a) recover,
+#: (b) no retry budget, (c) the block service with no retry budget, (d)
+#: the generic lane.
+RECOVERY_MODES = {
+    "recover": dict(_HASH_LANE),
+    "norecover": dict(_HASH_LANE, **{
+        "spark.tpu.recovery.maxStageRetries": "0"}),
+    # a host budget below every reducer's drained share: the survivor is
+    # mid-grace when the loss surfaces, and grace-degrades again on the
+    # re-execution over the whole data
+    "grace-recover": dict(_HASH_LANE, **{
+        "spark.tpu.shuffle.targetPartitionBytes": "14336",
+        "spark.tpu.shuffle.spillThresholdBytes": "1024",
+        "spark.tpu.memory.hostBudget": str(4 << 10)}),
+    "bs-zero": dict(_HASH_LANE, **{
+        "spark.tpu.blockserver.enabled": "true",
+        "spark.tpu.recovery.maxStageRetries": "0"}),
+    "bs-adopt": dict(_HASH_LANE, **{"spark.tpu.blockserver.enabled": "true"}),
+    "bs-recover": dict(_HASH_LANE, **{
+        "spark.tpu.blockserver.enabled": "true"}),
+    "bs-unavail": dict(_HASH_LANE, **{
+        "spark.tpu.blockserver.enabled": "true"}),
+    "card-a": {"spark.tpu.crossproc.sortMergeJoin": "false",
+               "spark.tpu.crossproc.autoBroadcastThreshold": "0"},
+    "card-b": {"spark.tpu.crossproc.sortMergeJoin": "false",
+               "spark.tpu.crossproc.autoBroadcastThreshold": "0",
+               "spark.tpu.recovery.maxStageRetries": "0"},
+    "card-c": {"spark.tpu.crossproc.sortMergeJoin": "false",
+               "spark.tpu.crossproc.autoBroadcastThreshold": "0",
+               "spark.tpu.blockserver.enabled": "true",
+               "spark.tpu.recovery.maxStageRetries": "0"},
+    "card-d": {},
+}
+
+
+def recovery_tables(mode: str, pid: Optional[int] = None,
+                    n: int = 1) -> dict:
+    """The recovery battery's tables (the JAX package worker's, seed 7):
+    process ``pid`` of ``n`` holds a strided 1/n slice; ``pid`` None the
+    whole tables.  ``grace-recover`` widens keys and rows so every
+    reducer's drained share of each side overflows its budget."""
+    rng = np.random.default_rng(7)
+    N, M = 900, 600
+    f_sk = rng.integers(0, 40, N).astype(np.int64)
+    f_price = rng.integers(1, 200, N).astype(np.int64)
+    k2 = (rng.integers(0, 20, M) * 2).astype(np.int64)
+    b2 = rng.integers(1, 100, M).astype(np.int64)
+    if mode == "grace-recover":
+        N, M = 1500, 1000
+        f_sk = rng.integers(0, 200, N).astype(np.int64)
+        f_price = rng.integers(1, 200, N).astype(np.int64)
+        k2 = (rng.integers(0, 100, M) * 2).astype(np.int64)
+        b2 = rng.integers(1, 100, M).astype(np.int64)
+    mine = slice(None) if pid is None else slice(pid, None, n)
+    return {"fact": {"sk": f_sk[mine], "price": f_price[mine]},
+            "fact2": {"k2": k2[mine], "bonus": b2[mine]}}
+
+
+def recovery_oracle(mode: str) -> list:
+    """numpy's answer to ``RECOVERY_SQL`` over the whole tables."""
+    t = recovery_tables(mode)
+    sk, k2, bonus = t["fact"]["sk"], t["fact2"]["k2"], t["fact2"]["bonus"]
+    out = []
+    for key in np.unique(sk):
+        m = int((k2 == key).sum())
+        if m:
+            c = int((sk == key).sum())
+            out.append([int(key), c * m,
+                        c * int(bonus[k2 == key].sum())])
+    return out
+
+
+def _card_recovery_views(session, T, spec: dict, mode: str, root: str,
+                         pid: Optional[int], n: int) -> Tuple[str, float]:
+    """Scenario ``mode``'s tables on ``session`` and its text: process
+    ``pid`` writes its contiguous share to parquet under ``root`` and
+    reads it back (every leaf a file with a recipe); ``pid`` None
+    registers the whole tables in memory (the single-process answer).
+    Returns (text, ms spent writing)."""
+    def share(cols, lo_frac=0.0, hi_frac=1.0):
+        rows = len(next(iter(cols.values())))
+        if pid is not None:
+            lo_frac, hi_frac = ((pid + lo_frac) / n, (pid + hi_frac) / n)
+        lo, hi = int(lo_frac * rows), int(hi_frac * rows)
+        return {k: v[lo:hi] for k, v in cols.items()}
+
+    if mode == "card-d":
+        hash_table = hash_agg_table(spec["hash_rows"], spec["hash_groups"])
+        # each process's share split in two file sets: a UNION ALL of two
+        # partitioned leaves
+        views = {"hash_a": (share(hash_table, 0.0, 0.5), None),
+                 "hash_b": (share(hash_table, 0.5, 1.0), None)}
+        text = RECOVERY_UNION_SQL
+    else:
+        ooc, _sale_rows = ooc_tables(spec["ooc"], seed=spec["ooc_seed"])
+        views = {"ss93": (share(ooc["store_sales"]),
+                          OOC_SCHEMAS["store_sales"]),
+                 "sr93": (share(ooc["store_returns"]),
+                          OOC_SCHEMAS["store_returns"])}
+        text = Q93_JOIN_SQL
+    t0 = time.perf_counter()
+    for name, (cols, schema_cols) in views.items():
+        st = None if schema_cols is None else T.StructType(
+            [T.StructField(c, T.type_for_name(t)) for c, t in schema_cols])
+        df = session.createDataFrame(cols, schema=st)
+        if pid is None:
+            df.createOrReplaceTempView(name)
+            continue
+        path = os.path.join(root, "leaves", f"{name}-p{pid}")
+        df.write.parquet(path)
+        session.read.parquet(path).createOrReplaceTempView(name)
+    return text, (time.perf_counter() - t0) * 1e3
+
+
+def recovery_worker(argv: Sequence[str]) -> int:
+    """One process of a recovery scenario.
+
+    argv: ``<pid> <n> <root> <mode> [timeout_s] [device]``, modes as in
+    ``RECOVERY_MODES``.  Each process writes its share of the tables to
+    parquet under ``<root>/leaves`` and reads it back, so every leaf is a
+    file whose recipe the digest round publishes.  A ``FaultInjector``
+    armed from ``SPARK_TPU_FAULT_PLAN`` kills the victim (exit 43); a
+    heartbeat turns its silence into a blacklist exclusion.  The
+    ``card-*`` modes read ``<root>/spec.json`` (``card_tables``' sizes),
+    run the text twice without a fault first (cold, then warm: the
+    no-fault wall), so their plans name ``xq000003``.
+
+    Prints ``[p<pid>] OK <rows> retries=.. recovered=.. epoch=..
+    grace=.. adopted=..`` after the mode's counter checks, ``[p<pid>]
+    FAILED <elapsed> <lost hosts>`` on a structured failure, or
+    ``[p<pid>] PARTIAL`` (exit 1) when the rows differ from this
+    package's single-process answer; writes ``<root>/result-p<pid>.json``."""
+    from . import config as C
+    from . import types as T
+    from .parallel import crossproc as X
+    from .parallel.cluster import HeartbeatMonitor, default_host_name
+    from .parallel.faults import FaultInjector
+    from .parallel.hostshuffle import ExchangeFetchFailed
+    from .sql.session import SparkSession
+    from .sql.stagecompile import stage_cache
+
+    pid, n, root, mode = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    timeout_s = float(argv[4]) if len(argv) > 4 else 20.0
+    device = argv[5] if len(argv) > 5 else "cpu"
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("recovery worker: no CUDA device")
+    if device == "cpu":
+        torch.set_num_threads(1)    # the workers share the host's cores
+    card = mode.startswith("card-")
+    base = SparkSession.builder.config("spark.torch.device", device) \
+        .getOrCreate()
+    base.conf.set(C.MESH_SHARDS.key, "1")
+    result: Dict[str, Any] = {"pid": pid, "mode": mode}
+    one = base.newSession()
+    xs = base.newSession()
+    if card:
+        with open(os.path.join(root, "spec.json")) as f:
+            spec = json.load(f)
+        text, _ms = _card_recovery_views(one, T, spec, mode, root, None, n)
+        text, result["write_ms"] = _card_recovery_views(
+            xs, T, spec, mode, root, pid, n)
+        hb_conf = spec.get("heartbeat", {})
+        for k, v in spec.get("conf", {}).items():
+            xs.conf.set(k, v)
+    else:
+        text = RECOVERY_SQL
+        for name, cols in recovery_tables(mode).items():
+            one.createDataFrame(cols).createOrReplaceTempView(name)
+        for name, cols in recovery_tables(mode, pid, n).items():
+            path = os.path.join(root, "leaves", f"{name}-p{pid}")
+            xs.createDataFrame(cols).write.parquet(path)
+            xs.read.parquet(path).createOrReplaceTempView(name)
+        # fast detection: the victim's silence becomes a blacklist
+        # exclusion well inside one exchange deadline
+        hb_conf = {"spark.tpu.cluster.heartbeatIntervalMs": "100",
+                   "spark.tpu.cluster.heartbeatTimeoutMs": "1500"}
+    exp = jsonable_rows(tuple(r) for r in one.sql(text).collect())
+    for k, v in dict(RECOVERY_MODES[mode], **hb_conf).items():
+        xs.conf.set(k, v)
+    hb = HeartbeatMonitor(os.path.join(root, "beats"),
+                          host_id=default_host_name(pid), conf=xs.conf_obj)
+    hb.start()
+    svc = xs.enableHostShuffle(os.path.join(root, "shuffle"), pid, n,
+                               timeout_s=timeout_s, heartbeat=hb)
+    svc.poll_s = 0.005          # one host: poll the markers often
+    injector = FaultInjector()
+    died_at = os.path.join(root, f"died-p{pid}")
+
+    def die(code):
+        with open(died_at, "w") as f:
+            f.write(repr(time.time()))
+        os._exit(code)
+    injector.die = die
+    injector.attach(svc)
+    if card:
+        from . import cuda_a2a, cuda_agg
+        for run in ("cold_ms", "warm_ms"):
+            t0 = time.perf_counter()
+            xs.sql(text).collect()
+            result[run] = (time.perf_counter() - t0) * 1e3
+        for entry in cuda_agg.ENTRY_LAUNCHES:
+            cuda_agg.ENTRY_LAUNCHES[entry] = 0
+            cuda_agg.CAPTURED_LAUNCHES[entry] = 0
+        cuda_a2a.LAUNCHES = 0
+    X.reset_recovery_stats()
+    stage0 = stage_cache().stats()
+    before = dict(svc.counters)
+    t0 = time.perf_counter()
+    wall0 = time.time()
+    try:
+        with _K1Compare() as k1:
+            got = jsonable_rows(tuple(r) for r in xs.sql(text).collect())
+    except (ExchangeFetchFailed, TimeoutError) as e:
+        lost = sorted(getattr(e, "lost_hosts", []) or [])
+        elapsed = time.perf_counter() - t0
+        result.update(outcome=type(e).__name__, elapsed_s=elapsed,
+                      lost_hosts=lost, counters=dict(svc.counters),
+                      recovery=dict(X.RECOVERY_STATS),
+                      ledger_used=int(svc.ledger.used))
+        _write_result(root, pid, result)
+        print(f"[p{pid}] FAILED {elapsed:.2f} {lost}", flush=True)
+        hb.stop()
+        return 0
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    c = svc.counters
+    gauges = svc.metrics_source().snapshot()
+    result.update(
+        outcome="ok", rows=got, expected=exp, wall_ms=wall_ms,
+        wall_start=wall0, counters=dict(c), gauges=gauges,
+        delta={k: c[k] - before[k] for k in c if c[k] != before[k]},
+        recovery=dict(X.RECOVERY_STATS),
+        # graphs captured (a new stage entry's first, or a variant's)
+        # and new stage entries, in the faulted statement
+        graph_builds=stage_cache().stats()["variants"] - stage0["variants"],
+        stage_builds=stage_cache().stats()["builds"] - stage0["builds"],
+        ledger_used=int(svc.ledger.used))
+    if card:
+        from . import cuda_a2a, cuda_agg
+        result["k1"] = {"launches": dict(cuda_agg.ENTRY_LAUNCHES),
+                        "captured": dict(cuda_agg.CAPTURED_LAUNCHES),
+                        "checked": k1.checked, "equal": k1.equal,
+                        "max_abs_err": k1.max_abs_err}
+        result["k2_launches"] = cuda_a2a.LAUNCHES
+    _write_result(root, pid, result)
+    hb.stop()
+    if not _rows_equal(got, exp):
+        print(f"[p{pid}] PARTIAL got={len(got)} exp={len(exp)}", flush=True)
+        return 1
+    problem = _recovery_mode_problem(mode, c, gauges)
+    if problem:
+        print(f"[p{pid}] CHECK {problem}: {dict(c)}", flush=True)
+        return 1
+    print(f"[p{pid}] OK {len(got)} retries={c['stage_retries']} "
+          f"recovered={c['recovered_partitions']} epoch={gauges['epoch']} "
+          f"grace={c['grace_buckets_used']} "
+          f"adopted={c['manifests_adopted']}m/{c['blocks_adopted']}b "
+          f"fallback={c['blockserver_fallback_reads']} "
+          f"unavail={c['blockserver_unavailable']}", flush=True)
+    return 0
+
+
+def _rows_equal(got, exp, rtol: float = 1e-9) -> bool:
+    """Rows equal: floats within ``rtol``, everything else exactly."""
+    if len(got) != len(exp):
+        return False
+    for g, w in zip(got, exp):
+        for a, b in zip(g, w):
+            if isinstance(a, float) or isinstance(b, float):
+                if a is None or b is None \
+                        or abs(a - b) > rtol * max(abs(a), abs(b)) + 1e-12:
+                    return False
+            elif a != b:
+                return False
+    return True
+
+
+def _recovery_mode_problem(mode: str, c: dict, g: dict) -> str:
+    """What a finished survivor's counters break of its mode's contract
+    (the JAX package worker's assertions), or ''."""
+    want = {
+        "recover": c["stage_retries"] >= 1 and c["recovered_partitions"] > 0
+        and g["epoch"] >= 1,
+        "grace-recover": c["stage_retries"] >= 1 and g["epoch"] >= 1
+        and c["grace_buckets_used"] > 0 and c["grace_spill_bytes"] > 0
+        and 0 < g["peak_host_bytes"] <= g["host_budget_bytes"],
+        "bs-zero": c["stage_retries"] == 0 and g["epoch"] == 0
+        and c["blocks_adopted"] >= 1
+        and c["blockserver_fallback_reads"] >= 1,
+        "bs-adopt": c["manifests_adopted"] >= 1 and c["stage_retries"] >= 1,
+        "bs-recover": c["manifests_adopted"] == 0
+        and c["stage_retries"] >= 1,
+        "bs-unavail": c["blockserver_unavailable"] >= 1
+        and c["blocks_adopted"] == 0 and c["stage_retries"] >= 1,
+        "norecover": c["stage_retries"] == 0,
+        "card-a": c["stage_retries"] >= 1 and g["epoch"] >= 1,
+        "card-b": c["stage_retries"] == 0,
+        "card-c": c["stage_retries"] == 0 and g["epoch"] == 0
+        and c["blocks_adopted"] >= 1,
+        "card-d": c["stage_retries"] >= 1 and g["epoch"] >= 1,
+    }
+    return "" if want[mode] else f"mode {mode} contract"
+
+
+def _write_result(root: str, pid: int, result: dict) -> None:
+    path = os.path.join(root, f"result-p{pid}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(result, f)
+    os.replace(path + ".tmp", path)
+
+
+# ---------------------------------------------------------------------------
+# the elastic pool: the JAX package's ``tests/pool_worker.py`` modes
+# ---------------------------------------------------------------------------
+
+POOL_TABLE_ROWS = [[1, "a", 10], [2, "b", 20], [3, "c", 30]]
+POOL_SQL = "SELECT id, name, v FROM pool_t ORDER BY id"
+
+
+def _pool_reap(pid: int, n: int, root: str, timeout_s: float,
+               device: str) -> int:
+    """Mode ``reap``: the ``bs-zero`` join where process 1 is
+    cooperatively REAPED the moment its last manifest (``-gather``)
+    lands: it stops beating (its beat goes stale, as a dead one would),
+    hands its block-service lease to the pool supervisor's identity and
+    releases its own, prints OK and leaves.  Process 0 must land the
+    single-process answer from block-service custody alone (retry budget
+    0), with the reaped worker's lease still fresh through the heir."""
+    from . import config as C
+    from .parallel.cluster import HeartbeatMonitor, default_host_name
+    from .parallel.faults import FaultInjector
+    from .parallel.hostshuffle import ExchangeFetchFailed
+    from .serving.pool import SUPERVISOR_OWNER
+    from .sql.session import SparkSession
+
+    base = SparkSession.builder.config("spark.torch.device", device) \
+        .getOrCreate()
+    base.conf.set(C.MESH_SHARDS.key, "1")
+    one, xs = base.newSession(), base.newSession()
+    for name, cols in recovery_tables("bs-zero").items():
+        one.createDataFrame(cols).createOrReplaceTempView(name)
+    for name, cols in recovery_tables("bs-zero", pid, n).items():
+        path = os.path.join(root, "leaves", f"{name}-p{pid}")
+        xs.createDataFrame(cols).write.parquet(path)
+        xs.read.parquet(path).createOrReplaceTempView(name)
+    exp = _json_rows(tuple(r) for r in one.sql(RECOVERY_SQL).collect())
+    for k, v in RECOVERY_MODES["bs-zero"].items():
+        xs.conf.set(k, v)
+    xs.conf.set("spark.tpu.cluster.heartbeatIntervalMs", "100")
+    xs.conf.set("spark.tpu.cluster.heartbeatTimeoutMs", "1500")
+    hb = HeartbeatMonitor(os.path.join(root, "beats"),
+                          host_id=default_host_name(pid), conf=xs.conf_obj)
+    hb.start()
+    svc = xs.enableHostShuffle(os.path.join(root, "shuffle"), pid, n,
+                               timeout_s=timeout_s, heartbeat=hb)
+    svc.poll_s = 0.005
+    FaultInjector().attach(svc)      # the drop rule, from the environment
+    store = svc.blockclient.store
+    if pid == 1:
+        orig_commit, orig_publish = svc.commit, svc.publish_manifest
+
+        def maybe_reap(exchange):
+            if not exchange.endswith("-gather"):
+                return
+            hb.stop()                    # the beat file stays: it goes stale
+            store.handoff_lease(default_host_name(pid), SUPERVISOR_OWNER)
+            store.release_lease(default_host_name(pid))
+            print(f"[p{pid}] OK reaped at {exchange} "
+                  f"lease->{SUPERVISOR_OWNER}", flush=True)
+            os._exit(0)
+
+        def commit(exchange, extra=None):
+            orig_commit(exchange, extra=extra)
+            maybe_reap(exchange)
+
+        def publish_manifest(exchange, payload=None):
+            out = orig_publish(exchange, payload)
+            maybe_reap(exchange)
+            return out
+        svc.commit, svc.publish_manifest = commit, publish_manifest
+    t0 = time.perf_counter()
+    try:
+        got = _json_rows(tuple(r) for r in xs.sql(RECOVERY_SQL).collect())
+    except (ExchangeFetchFailed, TimeoutError) as e:
+        print(f"[p{pid}] FAILED {time.perf_counter() - t0:.2f} "
+              f"{sorted(getattr(e, 'lost_hosts', []) or [])}", flush=True)
+        return 1
+    hb.stop()
+    c = svc.counters
+    _write_result(root, pid, {"pid": pid, "rows": got, "counters": dict(c)})
+    if not _rows_equal(got, exp):
+        print(f"[p{pid}] PARTIAL got={len(got)} exp={len(exp)}", flush=True)
+        return 1
+    fresh = store.lease_fresh(default_host_name(1), time.time())
+    if c["stage_retries"] or svc.epoch or not c["blocks_adopted"] \
+            or not c["blockserver_fallback_reads"] or not fresh:
+        print(f"[p{pid}] CHECK reap contract (heir lease fresh: {fresh}): "
+              f"{dict(c)}", flush=True)
+        return 1
+    print(f"[p{pid}] OK {len(got)} retries=0 "
+          f"adopted={c['blocks_adopted']}b "
+          f"fallback={c['blockserver_fallback_reads']} heir-lease=fresh",
+          flush=True)
+    return 0
+
+
+def _pool_spawn_fail(pid: int, root: str, timeout_s: float,
+                     device: str) -> int:
+    """Mode ``spawn-fail``: a real ``WorkerPoolSupervisor`` whose exec
+    seam is armed from ``SPARK_TPU_FAULT_PLAN``
+    (``spawn_exec_error(after_spawns=1)``).  Demand wants 2 workers; the
+    second exec raises; the pool settles at 1, counts ``spawn_failures``
+    on every retry tick, the one worker serves a spooled statement, and
+    idle demand then reaps it through hysteresis."""
+    from . import config as C
+    from .parallel.faults import FaultInjector
+    from .serving.admission import DemandSignal
+    from .serving.pool import WorkerPoolSupervisor
+    from .sql.session import SparkSession
+
+    deadline = time.monotonic() + 3 * timeout_s
+    wh = os.path.join(root, "warehouse")
+    session = SparkSession.builder.config("spark.torch.device", device) \
+        .config("spark.sql.warehouse.dir", wh).getOrCreate()
+    session.conf.set("spark.sql.warehouse.dir", wh)
+    session.createDataFrame(
+        [tuple(r) for r in POOL_TABLE_ROWS], ["id", "name", "v"]) \
+        .write.saveAsTable("pool_t")
+    conf = session.conf_obj
+    for k, v in ((C.SERVER_POOL_MAX_WORKERS, "4"),
+                 (C.SERVER_POOL_STATEMENTS_PER_WORKER, "2"),
+                 (C.SERVER_POOL_SCALE_DOWN_ROUNDS, "2"),
+                 (C.SERVER_POOL_COOLDOWN, "0.0"),
+                 (C.SERVER_POOL_POLL, "0.1")):
+        conf.set(k.key, v)
+    demand = [DemandSignal(queued=4)]       # wants ceil(4 / 2) = 2
+    sup = WorkerPoolSupervisor(os.path.join(root, "_pool"), conf,
+                               lambda: demand[0], warehouse=wh)
+    sup.start(reconcile=False)
+    FaultInjector().attach_pool(sup)
+    try:
+        d = sup.tick()
+        ok = (d.action == "up" and d.target == 2
+              and sup.counters["spawn_failures"] >= 1 and sup.live == 1)
+        sup.tick()
+        ok = ok and sup.counters["spawn_failures"] >= 2 and sup.live == 1
+        served = None
+        while served is None and time.monotonic() < deadline:
+            served = sup.execute(POOL_SQL, timeout_s=timeout_s)
+        if served is None or served["rows"] != POOL_TABLE_ROWS \
+                or served.get("pooled") is not True:
+            print(f"[p{pid}] FAILED the pool never served ({served})",
+                  flush=True)
+            return 1
+        demand[0] = DemandSignal()           # idle: hysteresis, then reap
+        while sup.live > 0 and time.monotonic() < deadline:
+            sup.tick()
+            time.sleep(0.05)
+        c = dict(sup.counters)
+        ok = ok and sup.live == 0 and c["workers_reaped"] >= 1
+    finally:
+        sup.stop()
+    if not ok:
+        print(f"[p{pid}] CHECK spawn-fail contract: {c}", flush=True)
+        return 1
+    print(f"[p{pid}] OK spawn_failures={c['spawn_failures']} "
+          f"spawned={c['workers_spawned']} reaped={c['workers_reaped']} "
+          f"served={c['pool_statements_served']}", flush=True)
+    return 0
+
+
+def pool_worker(argv: Sequence[str]) -> int:
+    """argv: ``<pid> <n> <root> <mode> [timeout_s] [device]``; modes
+    ``reap`` (2 processes) and ``spawn-fail`` (1)."""
+    pid, n, root, mode = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    timeout_s = float(argv[4]) if len(argv) > 4 else 20.0
+    device = argv[5] if len(argv) > 5 else "cpu"
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("pool worker: no CUDA device")
+    if device == "cpu":
+        torch.set_num_threads(1)
+    if mode == "reap":
+        return _pool_reap(pid, n, root, timeout_s, device)
+    if mode == "spawn-fail":
+        return _pool_spawn_fail(pid, root, timeout_s, device)
+    raise ValueError(f"pool worker mode {mode!r}")
+
+
+# ---------------------------------------------------------------------------
+# the chaos scenarios (the JAX package's ``tests/chaos_matrix.py`` rows
+# that reach ported modules)
+# ---------------------------------------------------------------------------
+
+def _scenario(name, worker, mode, n, timeout_s, plans, expect):
+    return {"name": name, "worker": worker, "mode": mode, "n": n,
+            "timeout_s": timeout_s, "plans": plans, "expect": expect}
+
+
+def chaos_scenarios() -> List[dict]:
+    """name, worker entry, mode, process count, exchange timeout, victim
+    pid → FaultPlan builder, and the verdict per pid: ``OK`` (the
+    single-process answer), ``FAILED`` (structured and bounded) or
+    ``DIED`` (exit 43, the planned kill)."""
+    from .parallel.faults import FaultPlan as P
+    return [
+        _scenario("mid-fetch-kill", "recovery-worker", "recover", 2, 20.0,
+                  {1: lambda: P().die_after_put("xq000001-jL")},
+                  {0: "OK", 1: "DIED"}),
+        _scenario("mid-fetch-kill-noretry", "recovery-worker", "norecover",
+                  2, 8.0, {1: lambda: P().die_after_put("xq000001-jL")},
+                  {0: "FAILED", 1: "DIED"}),
+        _scenario("grace-kill", "recovery-worker", "grace-recover", 2, 20.0,
+                  {1: lambda: P().die_after_manifest("xq000001-jR")},
+                  {0: "OK", 1: "DIED"}),
+        _scenario("blockserver-adopt-zero-rerun", "recovery-worker",
+                  "bs-zero", 2, 20.0,
+                  {1: lambda: P().drop(exchange="xq000001-jR", receiver=0)
+                   .die_after_manifest("xq000001-gather")},
+                  {0: "OK", 1: "DIED"}),
+        _scenario("grace-kill-3proc", "recovery-worker", "grace-recover", 3,
+                  20.0, {2: lambda: P().die_after_manifest("xq000001-jR")},
+                  {0: "OK", 1: "OK", 2: "DIED"}),
+        # p2 dies mid-fetch, p1 publishes its recovery manifest and dies:
+        # the round agrees, but epoch 1 loses p1 past the budget
+        _scenario("recovery-round-kill", "recovery-worker", "recover", 3,
+                  12.0,
+                  {2: lambda: P().die_after_put("xq000001-jL"),
+                   1: lambda: P().die_after_manifest("xq000001-recover1")},
+                  {0: "FAILED", 1: "DIED", 2: "DIED"}),
+        _scenario("map-staging-kill", "recovery-worker", "recover", 2, 12.0,
+                  {1: lambda: P().die_after_manifest("xq000001-digest")},
+                  {0: "OK", 1: "DIED"}),
+        _scenario("post-publish-sizes-kill", "recovery-worker", "recover",
+                  2, 12.0,
+                  {1: lambda: P().die_after_manifest("xq000001-plan")},
+                  {0: "OK", 1: "DIED"}),
+        _scenario("block-dropped-alive-peer", "recovery-worker", "recover",
+                  2, 6.0,
+                  {1: lambda: P().drop(exchange="xq000001-jL", receiver=0)},
+                  {0: "OK", 1: "FAILED"}),
+        _scenario("slow-peer-heals", "recovery-worker", "norecover", 2, 8.0,
+                  {1: lambda: P().delay(0.3, exchange="xq000001-jL")},
+                  {0: "OK", 1: "OK"}),
+        _scenario("commit-skipped", "recovery-worker", "norecover", 2, 5.0,
+                  {1: lambda: P().skip_commit(exchange="xq000001-jL")},
+                  {0: "FAILED", 1: "FAILED"}),
+        _scenario("blockserver-adopt-sealed-manifest", "recovery-worker",
+                  "bs-adopt", 2, 20.0,
+                  {1: lambda: P().die_during_register("xq000001-jR",
+                                                      after_seal=True)},
+                  {0: "OK", 1: "DIED"}),
+        _scenario("blockserver-die-mid-register", "recovery-worker",
+                  "bs-recover", 2, 20.0,
+                  {1: lambda: P().die_during_register("xq000001-jR")},
+                  {0: "OK", 1: "DIED"}),
+        _scenario("blockserver-unavailable-fallback", "recovery-worker",
+                  "bs-unavail", 2, 20.0,
+                  {0: lambda: P().blockserver_unavailable(),
+                   1: lambda: P().drop(exchange="xq000001-jR", receiver=0)
+                   .die_after_manifest("xq000001-jR")},
+                  {0: "OK", 1: "DIED"}),
+        _scenario("pool-reap-mid-fetch", "pool-worker", "reap", 2, 20.0,
+                  {1: lambda: P().drop(exchange="xq000001-jR",
+                                       receiver=0)},
+                  {0: "OK", 1: "OK"}),
+        _scenario("pool-spawn-exec-error", "pool-worker", "spawn-fail", 1,
+                  20.0, {0: lambda: P().spawn_exec_error(after_spawns=1)},
+                  {0: "OK"}),
+    ]
+
+
+def chaos_scenario(name: str) -> dict:
+    for sc in chaos_scenarios():
+        if sc["name"] == name:
+            return sc
+    raise KeyError(name)
+
+
+def run_scenario(sc: dict, root: str, device: str = "cpu",
+                 deadline_s: Optional[float] = None):
+    """Start the scenario's processes on ``root`` (output to files: an
+    unread pipe blocks a worker at its next barrier), wait for them, kill
+    any left over, and return ``({pid: (exit code, output)}, elapsed
+    s)``."""
+    import subprocess
+    from .parallel.faults import FAULT_PLAN_ENV
+    os.makedirs(root, exist_ok=True)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    base_env = dict(os.environ)
+    base_env["PYTHONPATH"] = repo + os.pathsep + base_env.get("PYTHONPATH",
+                                                              "")
+    base_env.pop(FAULT_PLAN_ENV, None)
+    procs = {}
+    t0 = time.monotonic()
+    for pid in range(sc["n"]):
+        env = dict(base_env)
+        build = sc["plans"].get(pid)
+        if build is not None:
+            env[FAULT_PLAN_ENV] = build().to_env()
+        log = open(os.path.join(root, f"log-p{pid}.txt"), "w")
+        procs[pid] = (subprocess.Popen(
+            [sys.executable, "-m", "spark_tpu_torch.testing", sc["worker"],
+             str(pid), str(sc["n"]), root, sc["mode"],
+             str(sc["timeout_s"]), device],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=repo), log)
+    if deadline_s is None:
+        deadline_s = 60 + 6 * sc["timeout_s"]
+    t_end = time.monotonic() + deadline_s
+    results = {}
+    try:
+        for pid, (p, _log) in procs.items():
+            try:
+                p.wait(timeout=max(1.0, t_end - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for pid, (p, log) in procs.items():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+            with open(os.path.join(root, f"log-p{pid}.txt")) as f:
+                results[pid] = (p.returncode, f.read())
+    return results, time.monotonic() - t0
+
+
+def check_scenario(sc: dict, results, elapsed: float) -> List[str]:
+    """The verdict: what broke the scenario's contract (empty = pass).
+    Every faulted run recovers to the single-process answer or aborts
+    structured within ``3 x timeout + slack``; ``PARTIAL`` never
+    appears."""
+    bad = []
+    bound = 3 * sc["timeout_s"] + 30
+    if elapsed >= bound:
+        bad.append(f"elapsed {elapsed:.1f}s >= bound {bound:.1f}s")
+    for pid, want in sc["expect"].items():
+        rc, out = results[pid]
+        lines = [ln for ln in out.splitlines() if f"[p{pid}]" in ln]
+        last = lines[-1] if lines else ""
+        if "PARTIAL" in out:
+            bad.append(f"p{pid}: PARTIAL result surfaced")
+        if want == "DIED":
+            if rc != 43:
+                bad.append(f"p{pid}: rc {rc} != 43 (planned kill)")
+        elif rc != 0:
+            bad.append(f"p{pid}: rc {rc} != 0 ({last!r})")
+        elif f"[p{pid}] {want}" not in last:
+            bad.append(f"p{pid}: expected {want}, got {last!r}")
+    return bad
+
+
 def _main(argv: Sequence[str]) -> int:
-    if argv and argv[0] == "crossproc-worker":
-        return crossproc_worker(argv[1:])
-    print("usage: python -m spark_tpu_torch.testing crossproc-worker "
+    workers = {"crossproc-worker": crossproc_worker,
+               "recovery-worker": recovery_worker,
+               "pool-worker": pool_worker}
+    if argv and argv[0] in workers:
+        return workers[argv[0]](argv[1:])
+    print("usage: python -m spark_tpu_torch.testing "
+          "{crossproc-worker|recovery-worker|pool-worker} "
           "<pid> <n> <root> <mode> [timeout_s] [device]", file=sys.stderr)
     return 2
 

@@ -109,19 +109,23 @@ def test_ledger_budget_from_conf_and_discovery():
 
 
 @pytest.mark.parametrize("key", ["spark.tpu.memory.hostBudget",
-                                 "spark.tpu.shuffle.spillThresholdBytes"])
+                                 "spark.tpu.shuffle.spillThresholdBytes",
+                                 "spark.tpu.recovery.maxStageRetries"])
 def test_conf_set_after_enable_reference_fault(tmp_path, key):
-    """A session's host budget or spill threshold SET after
-    ``enableHostShuffle``: the JAX package read both once, when its
+    """A session's host budget, spill threshold or recovery budget SET
+    after ``enableHostShuffle``: the JAX package read each once, when its
     service and ledger were built, so the SET is silently ignored (the
     service's ``grace_buckets`` reads its conf live); the port reads
-    both live.  ROADMAP §3."""
+    them live.  ROADMAP §3."""
     from spark_tpu import config as RC
     from spark_tpu.parallel.hostshuffle import HostShuffleService as RSvc
 
     def read(svc):
-        return svc.ledger.budget if key.endswith("hostBudget") \
-            else svc.spill_threshold
+        if key.endswith("hostBudget"):
+            return svc.ledger.budget
+        if key.endswith("maxStageRetries"):
+            return svc.max_stage_retries
+        return svc.spill_threshold
 
     tconf, rconf = C.Conf().set(key, "4096"), RC.Conf().set(key, "4096")
     t = HostShuffleService(str(tmp_path / "t"), 0, 1, conf=tconf)
@@ -135,6 +139,8 @@ def test_conf_set_after_enable_reference_fault(tmp_path, key):
     tconf.unset(key)
     if key.endswith("hostBudget"):
         assert read(t) == discover_host_budget()
+    elif key.endswith("maxStageRetries"):
+        assert read(t) == 1
     else:
         assert read(t) == 0
 

@@ -546,7 +546,7 @@ def test_bearer_token_is_required(impl):
 # what the port leaves out refuses by name
 # ---------------------------------------------------------------------------
 
-def test_streams_and_pool_refuse_naming_their_slice():
+def test_streams_and_pool_refuse_naming_their_slice(tmp_path):
     root = TSession(TC.Conf({"spark.torch.device": "cpu"}))
     srv = TS.SQLServer(root, port=0).start()
     try:
@@ -558,9 +558,18 @@ def test_streams_and_pool_refuse_naming_their_slice():
             assert "streaming slice" in json.loads(ei.value.read())["error"]
     finally:
         srv.stop()
+    # the elastic pool is ported: the server starts its supervisor (no
+    # demand, so no worker) and stops it with the server
     root.conf.set("spark.tpu.server.pool.enabled", "true")
-    with pytest.raises(NotImplementedError, match="worker pool"):
-        TS.SQLServer(root, port=0).start()
+    root.conf.set("spark.sql.warehouse.dir", str(tmp_path / "wh"))
+    srv = TS.SQLServer(root, port=0).start()
+    try:
+        _code, st = _req(srv, "/status")
+        assert st["poolActivity"]["live"] == 0
+        assert srv._pool_supervisor is not None
+    finally:
+        srv.stop()
+    assert srv._pool_supervisor is None
 
 
 def test_server_without_a_card_raises(monkeypatch):

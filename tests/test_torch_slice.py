@@ -206,3 +206,41 @@ def test_importing_the_port_loads_neither():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("entry", ["pool", "recovery"])
+def test_worker_entries_load_neither(tmp_path, entry):
+    """The processes this package starts by itself, run as they are
+    started: a pool worker (``python -m spark_tpu_torch.serving.pool
+    --worker``, here told to retire at once) and a one-process recovery
+    worker.  Neither may load jax or the JAX package."""
+    import json as _json
+    root = tmp_path / "root"
+    os.makedirs(root / "reap")
+    if entry == "pool":
+        (root / "config.json").write_text(_json.dumps(
+            {"conf": {"spark.torch.device": "cpu"}, "poll_s": 0.05}))
+        (root / "reap" / "0").write_text("reap")
+        mod, argv = "spark_tpu_torch.serving.pool", [
+            "--worker", str(root), "0"]
+    else:
+        mod, argv = "spark_tpu_torch.testing", [
+            "recovery-worker", "0", "1", str(root), "norecover", "20", "cpu"]
+    code = ("import runpy, sys, json\n"
+            f"sys.argv = [{mod!r}] + {argv!r}\n"
+            "rc = None\n"
+            "try:\n"
+            f"    runpy.run_module({mod!r}, run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    rc = e.code\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in"
+            f" {FORBIDDEN!r}]\n"
+            "print('RESULT', json.dumps({'rc': rc, 'bad': bad}))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("SPARK_TPU_FAULT_PLAN", None)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT")]
+    assert line, (proc.stdout[-2000:], proc.stderr[-2000:])
+    got = _json.loads(line[-1].split(" ", 1)[1])
+    assert got == {"rc": 0, "bad": []}, (got, proc.stdout[-2000:])
