@@ -251,7 +251,23 @@ without printing a result:
     against its plain version on its own inputs, its graph replays
     counted in the warm runs' profiles, (e)'s in each worker; K2
     launches 0;
-17. recovery — four scenarios, each two worker processes on the card
+17. ici — the cross-process device tier: two ``cuda`` workers as in
+    16 (``crossproc-worker <pid> 2 <dir> ici-card``) with
+    ``spark.tpu.shuffle.ici.enabled`` by the auto probe (both on one
+    card: one domain) run q93's join on the hash lane, the range lane
+    and spilled, and q3 (string sides: the host tier): each cold with
+    every cross-process K2 pull held bit-exact against its plain version
+    over the bytes each sender packed (``ici.CHECK_ENV``), then warm in
+    turns device, host, host, device tier; c_hash once with
+    ``tierOverride`` 0,1; c_hash and c_range on the host tier with run
+    codes (run-coded columns on the wire, lazy to the receiving stage,
+    the run counters the JAX package moves); ``ici_unavailable`` in
+    worker 1 (its fold-back counted there only).  Every answer equal to
+    the single-process answer; per device run the split pack, sidecar,
+    pull (CUDA events) and unpack with the bytes pulled beside their
+    bound; then process 1 of a recovery pair dies at the copy point and
+    process 0 recovers in an epoch, its ledger at 0 B;
+18. recovery — four scenarios, each two worker processes on the card
     (``python -m spark_tpu_torch.testing recovery-worker <pid> 2 <dir>
     card-<x>``, ``spark.tpu.memory.hbmBudget`` a share of the free
     memory, the heartbeat a deployment runs with: a beat each second,
@@ -271,7 +287,7 @@ without printing a result:
     the failure), the agreement round, the re-read and the re-executed
     epoch, the faulted wall beside the no-fault warm wall, graphs
     captured, and the ledger back at 0 B;
-18. pool — hash_t and q3's SF1 tables as catalog tables under a
+19. pool — hash_t and q3's SF1 tables as catalog tables under a
     warehouse; a server without the pool answers hash-agg and q3 over
     HTTP (cold, warm: the local runs); then a server with
     ``spark.tpu.server.pool.enabled`` (1 to 2 workers, each ``python -m
@@ -281,7 +297,7 @@ without printing a result:
     run; four client threads grow the pool to 2, idle rounds reap one
     through hysteresis, its block-service lease handed to the
     supervisor; spawn-to-ready, offloaded and local walls, counters;
-19. a ``{"kernels": [...]}`` line (each kernel's ``sql_launches``: its
+20. a ``{"kernels": [...]}`` line (each kernel's ``sql_launches``: its
    launches in the SQL phase's counted run; ``breadth_launches``: K1's in
    the breadth phase's graph-lane run, K2's in its window text at 4
    shards; ``complex_launches``: K1's in the complex phase's graph-lane
@@ -296,7 +312,10 @@ without printing a result:
    shards; ``crossproc_launches``: K1's in the [crossproc] workers (each
    entry's own count, from 0 before each worker's battery), K2's there
    (0), and ``crossproc_replayed_launches``: their graph replays that the
-   profiles of the workers' warm runs saw; ``recovery_launches``: K1's
+   profiles of the workers' warm runs saw; K2's ``ici_launches``: its
+   cross-process pulls in the [ici] workers (from 0 before each
+   battery), with ``ici_pull_ms`` / ``ici_pull_bound_ms`` of the largest
+   warm pull; ``recovery_launches``: K1's
    in the survivors' faulted statements of [recovery] (each from 0 just
    before it), K2's there (0); ``pool_launches``: K1's in the pool
    workers (from their start), K2's (0); each counted from 0 just
@@ -3745,6 +3764,303 @@ def phase_crossproc(session, k1_entries, k2_entry):
           flush=True)
 
 
+#: [ici]: the device tier's workers and their exchange timeout, and the
+#: heartbeat of its recovery scenario (a dead peer found within ~3 s)
+ICI_WORKERS = 2
+ICI_TIMEOUT_S = 120.0
+ICI_HEARTBEAT = {"spark.tpu.cluster.heartbeatIntervalMs": "500",
+                 "spark.tpu.cluster.heartbeatTimeoutMs": "3000"}
+
+
+def _start_ici_workers(root, n):
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    procs = []
+    for pid in range(n):
+        log = open(os.path.join(root, f"log-p{pid}.txt"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "spark_tpu_torch.testing",
+             "crossproc-worker", str(pid), str(n), root, "ici-card",
+             str(ICI_TIMEOUT_S), "cuda"],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=here), log))
+    return procs
+
+
+def _ici_recovery(session, spec, want_q93):
+    """[ici]'s fault scenario: two ``cuda`` workers (recovery-worker mode
+    ``card-ici``: q93's hash lane over parquet halves, the device tier by
+    the auto probe) run the text twice, then process 1 dies at the device
+    tier's copy point of the faulted statement's left exchange; process 0
+    must recover in an epoch to the single-process answer, its ledger at
+    0 B."""
+    import threading
+    from spark_tpu_torch.parallel.faults import FaultPlan as P
+    from spark_tpu_torch.testing import _scenario, check_scenario, \
+        run_scenario
+    root = tempfile.mkdtemp(prefix="chip_smoke_ici_recover_")
+    try:
+        with open(os.path.join(root, "spec.json"), "w") as f:
+            json.dump(dict(spec, heartbeat=ICI_HEARTBEAT), f)
+        sc = _scenario("ici-die", "recovery-worker", "card-ici", 2,
+                       ICI_TIMEOUT_S,
+                       {1: lambda: P().die_mid_device_copy("xq000003-jL")},
+                       {0: "OK", 1: "DIED"})
+        box = {}
+        runner = threading.Thread(target=lambda: box.update(
+            out=run_scenario(sc, root, "cuda", deadline_s=600)))
+        runner.start()
+        runner.join()
+        results, elapsed = box["out"]
+        bad = check_scenario(sc, results, elapsed)
+        check(not bad, f"[ici] (recovery) {bad}: " + " | ".join(
+            out[-3000:] for _rc, out in results.values()))
+        check("dying mid device copy in 'xq000003-jL'" in results[1][1],
+              "[ici] (recovery) process 1 did not die at the copy point")
+        with open(os.path.join(root, "result-p0.json")) as f:
+            r = json.load(f)
+        with open(os.path.join(root, "died-p1")) as f:
+            died_at = float(f.read())
+        rec, c = r["recovery"], r["counters"]
+        check(_rows_match(r["rows"], want_q93), f"[ici] (recovery) process "
+              f"0's {len(r['rows'])} rows differ from the single-process "
+              f"answer ({len(want_q93)} rows)")
+        check(r["ledger_used"] == 0, f"[ici] (recovery) the ledger holds "
+              f"{r['ledger_used']} B after the statement")
+        check(c["stage_retries"] == 1 and r["gauges"]["epoch"] == 1,
+              f"[ici] (recovery) no recovery epoch: {c}")
+        detect = ((rec["failed_at"] - died_at) * 1e3
+                  if rec["failed_at"] else float("nan"))
+        print(f"[ici] (recovery) q93's hash lane on the device tier, "
+              f"process 1 dies at the copy point of its left exchange "
+              f"(spans packed, no arena or sidecar written): process 0 "
+              f"sees the death at the commit barrier {detect:.1f} ms after "
+              f"it (heartbeat "
+              f"{ICI_HEARTBEAT['spark.tpu.cluster.heartbeatTimeoutMs']} ms)"
+              f", recovery round {rec['round_ms']:.2f} ms, re-read "
+              f"{rec['adopt_ms']:.2f} ms, re-executed epoch "
+              f"{rec['rerun_ms']:.2f} ms; {len(r['rows'])} rows equal to the"
+              f" single-process answer; faulted wall {r['wall_ms']:.2f} ms "
+              f"beside the warm {r['warm_ms']:.2f} ms; ledger 0 B after",
+              flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_ici(session, k2_entry):
+    """The cross-process device tier on the card (see the module's
+    docstring, 17): two ``cuda`` workers share the card as in
+    [crossproc] and run ``testing._ici_card_battery``; every answer must
+    equal this process's single-process answer, q93's join sides take
+    the device tier (K2 pulls across processes, each held bit-exact
+    against its plain version), q3's string sides stay on the host tier,
+    run codes fire on the host tier, a one-sided ``ici_unavailable``
+    folds back in worker 1 only, and a death at the copy point is
+    recovered."""
+    import torch
+    from spark_tpu_torch import types as T
+    from spark_tpu_torch.testing import (CARD_TEXTS, ICI_CARD_KEYS,
+                                         ICI_RUN_COUNTERS, OOC_SF1,
+                                         jsonable_rows,
+                                         register_card_tables)
+
+    t_phase = time.perf_counter()
+    n = ICI_WORKERS
+    root = tempfile.mkdtemp(prefix="chip_smoke_ici_")
+    procs = []
+    texts = {k: (what, sql, lane) for k, what, sql, lane, _c in CARD_TEXTS
+             if k in ICI_CARD_KEYS}
+    try:
+        free, _total = torch.cuda.mem_get_info()
+        budget = int(free * 0.8) // n
+        spec = {"hash_rows": MAIN_N, "hash_groups": MAIN_GROUPS,
+                "q3": Q3_ROWS, "ooc": OOC_SF1, "ooc_seed": 19,
+                "conf": {"spark.tpu.memory.hbmBudget": str(budget)}}
+        with open(os.path.join(root, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        t0 = time.perf_counter()
+        procs = _start_ici_workers(root, n)
+        one = session.newSession()
+        register_card_tables(one, T, spec)
+        want = {k: jsonable_rows(tuple(r) for r in one.sql(sql).collect())
+                for k, (_w, sql, _l) in texts.items()}
+        one.stop()
+        deadline = time.monotonic() + 900
+        for p, _log in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        workers_s = time.perf_counter() - t0
+        results = []
+        for pid, (p, log) in enumerate(procs):
+            log.close()
+            with open(os.path.join(root, f"log-p{pid}.txt")) as f:
+                text = f.read()
+            check(p.returncode == 0, f"[ici] worker {pid} exited "
+                  f"{p.returncode}:\n{text[-4000:]}")
+            with open(os.path.join(root, f"result-p{pid}.json")) as f:
+                results.append(json.load(f))
+        print(f"[ici] {n} worker processes on the card (device memory "
+              f"budget {budget} B each), spark.tpu.shuffle.ici.enabled by "
+              f"the auto probe (both on one card: one domain): workers done "
+              f"in {workers_s:.2f} s", flush=True)
+        qs = [r["queries"] for r in results]
+        for pid, r in enumerate(results):
+            check(r["counters"]["tier_split_peers"] == 1, f"[ici] worker "
+                  f"{pid}: tier_split_peers {r['counters']['tier_split_peers']}")
+        pulls_bytes, pulls_ms = [], []
+        for key, (what, _sql, lane) in texts.items():
+            device_side = key != "b"
+            for pid, q in enumerate(qs):
+                runs = [q[key]["cold"]] + q[key]["warm"]
+                for i, run in enumerate(runs):
+                    check(_rows_match(run["rows"], want[key]),
+                          f"[ici] ({key}) worker {pid} run {i} "
+                          f"({'device' if run['tier'] else 'host'} tier): "
+                          f"{len(run['rows'])} rows differ from the "
+                          f"single-process answer ({len(want[key])})")
+                    d = run["delta"]
+                    check(d.get(lane, 0) > 0, f"[ici] ({key}) worker {pid}"
+                          f" run {i}: the {lane} counter did not fire ({d})")
+                    check(d.get("dcn_fallback_exchanges", 0) == 0,
+                          f"[ici] ({key}) worker {pid} run {i}: a fold-back "
+                          f"with no fault injected ({d})")
+                    if run["tier"] and device_side:
+                        check(d.get("ici_exchanges", 0) >= 2
+                              and d.get("ici_pulls", 0) >= 1
+                              and run["pull_launches"] >= 1,
+                              f"[ici] ({key}) worker {pid} run {i}: the "
+                              f"join sides did not take the device tier "
+                              f"({d}, {run['pull_launches']} pulls)")
+                    else:
+                        check(d.get("ici_exchanges", 0) == 0
+                              and run["pull_launches"] == 0,
+                              f"[ici] ({key}) worker {pid} run {i}: device "
+                              f"tier used where the host tier was due ({d})")
+            dev = [q[key]["warm"][j] for q in qs for j in (0, 3)]
+            host = [q[key]["warm"][j] for q in qs for j in (1, 2)]
+
+            def wall(rs):
+                return max(r["wall_ms"] for r in rs)
+            line = (f"[ici] ({key}) {what}: {len(want[key])} rows, equal in "
+                    f"every run of every worker and to the single-process "
+                    f"answer; warm wall (the slower worker, in turns "
+                    f"device, host, host, device) device tier "
+                    f"{qs[0][key]['warm'][0]['wall_ms']:.2f}/"
+                    f"{qs[1][key]['warm'][0]['wall_ms']:.2f}, "
+                    f"{qs[0][key]['warm'][3]['wall_ms']:.2f}/"
+                    f"{qs[1][key]['warm'][3]['wall_ms']:.2f} ms, host tier "
+                    f"{qs[0][key]['warm'][1]['wall_ms']:.2f}/"
+                    f"{qs[1][key]['warm'][1]['wall_ms']:.2f}, "
+                    f"{qs[0][key]['warm'][2]['wall_ms']:.2f}/"
+                    f"{qs[1][key]['warm'][2]['wall_ms']:.2f} ms (max device "
+                    f"{wall(dev):.2f}, max host {wall(host):.2f})")
+            if not device_side:
+                line += ("; its string sides stay on the host tier "
+                         "(ici_exchanges 0, no fold-back)")
+            print(line, flush=True)
+            if not device_side:
+                continue
+            for pid, q in enumerate(qs):
+                for j in (0, 3):
+                    sp = q[key]["warm"][j]["split"]
+                    nbytes = int(sp["bytes_pulled"])
+                    bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+                    pulls_bytes.append(nbytes)
+                    pulls_ms.append(sp["pull_ms"])
+                    print(f"[ici]   worker {pid} device run {j}: pack "
+                          f"{sp['pack_ms']:.2f} ms (host pack, copy to the "
+                          f"arena, stream sync), sidecar "
+                          f"{sp['sidecar_ms']:.3f}, pull {sp['pull_ms']:.4f} "
+                          f"ms on the card (CUDA events, {int(sp['pulls'])} "
+                          f"launch(es), {nbytes} B; bound {bound:.4f} ms: "
+                          f"each byte read and written once at 3.35 TB/s), "
+                          f"unpack {sp['unpack_ms']:.2f} ms", flush=True)
+        for pid, q in enumerate(qs):
+            ov = q["override"]
+            check(_rows_match(ov["rows"], want["c_hash"])
+                  and ov["delta"].get("ici_exchanges", 0) >= 2
+                  and ov["delta"].get("dcn_fallback_exchanges", 0) == 0,
+                  f"[ici] (override) worker {pid}: {ov['delta']}")
+        print(f"[ici] (override) c_hash with tierOverride 0,1: equal, "
+              f"{qs[0]['override']['delta'].get('ici_exchanges', 0)} device"
+              f" sides per worker, wall "
+              f"{max(q['override']['wall_ms'] for q in qs):.2f} ms",
+              flush=True)
+        for key in ("c_hash", "c_range"):
+            rc = [q["runcodes"][key] for q in qs]
+            for pid, run in enumerate(rc):
+                check(_rows_match(run["rows"], want[key]), f"[ici] (runs) "
+                      f"({key}) worker {pid}: rows differ")
+            enc = [run["delta"].get("rle_columns_encoded", 0) for run in rc]
+            # every host-tier run of the text (run codes are on by
+            # default): the stage's graph is captured at the first, and a
+            # plane expands inside a stage at its warm-up and capture only
+            host_runs = rc + [q[key]["warm"][j] for q in qs for j in (1, 2)]
+            moved = {c: sum(run["runs"][c] for run in host_runs)
+                     for c in rc[0]["runs"]}
+            check(sum(enc) > 0, f"[ici] (runs) ({key}): no run- or "
+                  f"delta-coded column on the wire ({enc})")
+            if key == "c_range":
+                # presorted spans: the probe shard's runs reach the join's
+                # stage as planes, which the join expands inside it (the
+                # counters tests/test_torch_runs.py holds to the JAX
+                # package's on this text's shape)
+                for c in ICI_RUN_COUNTERS:
+                    check(moved[c] > 0, f"[ici] (runs) ({key}): {c} did "
+                          f"not move ({moved})")
+            print(f"[ici] (runs) ({key}) host tier, "
+                  f"spark.tpu.shuffle.wire.runCodes=true: equal; "
+                  f"rle_columns_encoded (run or delta) {enc} by worker, "
+                  f"run_bytes_saved "
+                  f"{[run['delta'].get('run_bytes_saved', 0) for run in rc]}"
+                  f"; run counters over both workers and all host-tier runs "
+                  f"{moved}; wall {max(r['wall_ms'] for r in rc):.2f} ms",
+                  flush=True)
+        un = [q["unavailable"] for q in qs]
+        for pid, run in enumerate(un):
+            check(_rows_match(run["rows"], want["c_hash"]),
+                  f"[ici] (fault) worker {pid}: rows differ")
+            check(run["delta"].get("dcn_fallback_exchanges", 0)
+                  == (1 if pid == 1 else 0), f"[ici] (fault) worker {pid}: "
+                  f"dcn_fallback_exchanges {run['delta']}")
+        print(f"[ici] (fault) ici_unavailable in worker 1 on c_hash's first "
+              f"device attempt: equal in both; dcn_fallback_exchanges "
+              f"{[r['delta'].get('dcn_fallback_exchanges', 0) for r in un]} "
+              f"by worker, ici_exchanges "
+              f"{[r['delta'].get('ici_exchanges', 0) for r in un]}; wall "
+              f"{max(r['wall_ms'] for r in un):.2f} ms", flush=True)
+        chk = [q["_check"] for q in qs]
+        launches = sum(q["_pull_launches"] for q in qs)
+        check(all(c["equal"] for c in chk) and sum(c["checked"] for c in chk)
+              > 0 and not any(c.get("missing") for c in chk),
+              f"[ici] K2's cross-process pulls differ from their plain "
+              f"version ({chk})")
+        check(launches > 0, "[ici] no cross-process K2 launch")
+        max_err = max(c["max_abs_err"] for c in chk)
+        print(f"[ici] K2 across processes (cuda_a2a.PULL_LAUNCHES, from 0 "
+              f"before each battery): {launches} launches in the two "
+              f"workers; {sum(c['checked'] for c in chk)} pulls of the cold "
+              f"runs held against the plain version over the bytes each "
+              f"sender packed: bit-exact (max abs err {max_err})",
+              flush=True)
+        k2_entry["ici_launches"] = launches
+        k2_entry["ici_max_abs_err"] = max_err
+        if pulls_bytes:
+            i = max(range(len(pulls_bytes)), key=lambda j: pulls_bytes[j])
+            k2_entry["ici_pull_bytes"] = pulls_bytes[i]
+            k2_entry["ici_pull_ms"] = pulls_ms[i]
+            k2_entry["ici_pull_bound_ms"] = \
+                2 * pulls_bytes[i] / HBM_BYTES_PER_S * 1e3
+        _ici_recovery(session, spec, want["c_hash"])
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[ici] phase {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+
 #: [recovery]: the exchange timeout of the workers, and the heartbeat a
 #: deployment runs with (the conf's defaults, as Spark's
 #: spark.executor.heartbeatInterval beside a 10 s network timeout): the
@@ -3777,7 +4093,7 @@ def _recovery_scenarios():
 
 
 def phase_recovery(session, k1_entries, k2_entry):
-    """Lineage recovery on the card (see the module's docstring, 17): for
+    """Lineage recovery on the card (see the module's docstring, 18): for
     each scenario two ``cuda`` workers write their contiguous halves of
     the tables to parquet and read them back, run the text without a
     fault (cold, warm), then with process 1 killed at the planned point;
@@ -3931,7 +4247,7 @@ POOL_CLIENTS = 4
 
 def phase_pool(session, hash_table, tables, k1_entries, k2_entry):
     """The elastic worker pool on the card (see the module's docstring,
-    18): hash_t and q3's tables as catalog tables under a warehouse; a
+    19): hash_t and q3's tables as catalog tables under a warehouse; a
     server without the pool answers hash-agg and q3 (the local runs);
     then a server with the pool (1 to 2 workers, each a ``cuda`` session
     with its share of the card) offloads both, and every offloaded
@@ -4159,6 +4475,7 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     phase_crossproc(session, k1_entries, k2_entry)
+    phase_ici(session, k2_entry)
     phase_recovery(session, k1_entries, k2_entry)
     phase_pool(session, hash_table, tables, k1_entries, k2_entry)
     session.stop()

@@ -42,6 +42,82 @@ def pad_capacity(n: int) -> int:
     return c
 
 
+# ---------------------------------------------------------------------------
+# run vectors: process-wide counters (gauge consumers diff against a base)
+# ---------------------------------------------------------------------------
+
+#: run-coded values expanded to dense host tensors (``RunColumnVector``'s
+#: first ``.data``); columns that stay run-coded through the taught
+#: operators never show up here
+_RUNS_MATERIALIZED = 0
+#: rows whose operator work was done once per run instead of per row
+_RUN_AWARE_OP_ROWS = 0
+#: run planes at the stage boundary (``PlaneColumnVector``): stage
+#: dispatches with at least one plane leaf, the dense rows those planes
+#: stood for, run vectors whose run table was too large for a plane
+#: (materialized dense at the boundary instead), and expansions of a plane
+#: inside a stage by an operator that reads ``.data``
+_RUN_PLANE_STAGES = 0
+_RUN_PLANE_ROWS = 0
+_RUN_PLANE_OVERFLOWS = 0
+_RUN_PLANE_EXPANSIONS = 0
+
+
+def runs_materialized() -> int:
+    return _RUNS_MATERIALIZED
+
+
+def run_aware_op_rows() -> int:
+    return _RUN_AWARE_OP_ROWS
+
+
+def bump_run_aware(n: int) -> None:
+    """Credit ``n`` rows to the run-aware operator counter."""
+    global _RUN_AWARE_OP_ROWS
+    _RUN_AWARE_OP_ROWS += int(n)
+
+
+def run_plane_stages() -> int:
+    return _RUN_PLANE_STAGES
+
+
+def run_plane_rows() -> int:
+    return _RUN_PLANE_ROWS
+
+
+def run_plane_overflows() -> int:
+    return _RUN_PLANE_OVERFLOWS
+
+
+def run_plane_expansions() -> int:
+    return _RUN_PLANE_EXPANSIONS
+
+
+def bump_plane_stage() -> None:
+    global _RUN_PLANE_STAGES
+    _RUN_PLANE_STAGES += 1
+
+
+def bump_plane_rows(n: int) -> None:
+    global _RUN_PLANE_ROWS
+    _RUN_PLANE_ROWS += int(n)
+
+
+def bump_plane_overflow() -> None:
+    global _RUN_PLANE_OVERFLOWS
+    _RUN_PLANE_OVERFLOWS += 1
+
+
+def run_counters() -> Dict[str, int]:
+    """Every run counter by its gauge name."""
+    return {"runs_materialized": _RUNS_MATERIALIZED,
+            "run_aware_op_rows": _RUN_AWARE_OP_ROWS,
+            "run_plane_stages": _RUN_PLANE_STAGES,
+            "run_plane_rows": _RUN_PLANE_ROWS,
+            "run_plane_overflows": _RUN_PLANE_OVERFLOWS,
+            "run_plane_expansions": _RUN_PLANE_EXPANSIONS}
+
+
 def encode_strings(values: Sequence[Optional[str]]) -> Tuple[np.ndarray, Tuple[str, ...]]:
     """Dictionary-encode strings: codes into a SORTED dictionary.
 
@@ -97,6 +173,13 @@ class ColumnVector:
     @property
     def capacity(self) -> int:
         return int(self.data.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    def is_pinned(self) -> bool:
+        return self.data.is_pinned()
 
     def with_data(self, data: torch.Tensor,
                   valid: Union[torch.Tensor, None, type(...)] = ...) -> "ColumnVector":
@@ -240,6 +323,236 @@ def pack_to_host(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return [host[o:o + n].view(dt).view(shape) for o, n, dt, shape in spans]
 
 
+def _host_tensor(x, dtype=None) -> torch.Tensor:
+    t = x if isinstance(x, torch.Tensor) \
+        else torch.from_numpy(np.array(x, copy=True))
+    return t if dtype is None else t.to(dtype)
+
+
+class RunColumnVector(ColumnVector):
+    """A run-length coded column: ``(run_values, run_lengths)`` standing
+    for a dense tensor of ``sum(run_lengths)`` rows (``spark_tpu/
+    columnar.py`` ``RunColumnVector``).
+
+    The dense form is built on the first ``.data`` access (counted in
+    ``runs_materialized``); run-aware operators read ``run_values`` /
+    ``run_lengths`` and never pay for it.  Validity, dtype and dictionary
+    behave as a dense vector's, so an operator that was not taught about
+    runs simply materializes.  The run table lives on the host; moving the
+    vector to a card expands it there (one ``repeat_interleave`` of a
+    known length, not counted: it is no host inflation)."""
+
+    __slots__ = ("run_values", "run_lengths", "_n", "_dense")
+
+    def __init__(self, run_values, run_lengths, dtype: T.DataType,
+                 valid: Optional[torch.Tensor] = None,
+                 dictionary: Optional[Tuple[str, ...]] = None):
+        self.run_values = _host_tensor(run_values)
+        self.run_lengths = _host_tensor(run_lengths, torch.int64)
+        self._n = int(self.run_lengths.sum())
+        self._dense = None
+        self.dtype = dtype
+        self.valid = valid
+        self.dictionary = dictionary
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return (f"RunColumnVector({self.dtype!r}, n={self._n}, "
+                f"runs={len(self.run_values)}, "
+                f"materialized={self._dense is not None})")
+
+    @property
+    def is_materialized(self) -> bool:
+        return self._dense is not None
+
+    @property
+    def data(self) -> torch.Tensor:
+        # shadows the parent's ``data`` slot: the expansion happens once
+        if self._dense is None:
+            global _RUNS_MATERIALIZED
+            _RUNS_MATERIALIZED += self._n
+            self._dense = torch.repeat_interleave(
+                self.run_values, self.run_lengths, output_size=self._n)
+        return self._dense
+
+    @property
+    def capacity(self) -> int:
+        return self._n
+
+    @property
+    def device(self) -> torch.device:
+        return self.run_values.device
+
+    def is_pinned(self) -> bool:
+        return False
+
+    def valid_or_true(self) -> torch.Tensor:
+        if self.valid is not None:
+            return self.valid
+        return torch.ones(self._n, dtype=torch.bool)
+
+    def to_host(self) -> ColumnVector:
+        return self
+
+    def to_device(self, device, non_blocking: bool = False) -> ColumnVector:
+        if torch.device(device).type == "cpu":
+            return self
+        return self.dense_on(device)
+
+    def dense_on(self, device) -> ColumnVector:
+        """This column dense on ``device``, the host counter untouched:
+        the boundary of a stage, as the JAX package's ``to_device``."""
+        if self._dense is not None:
+            data = self._dense.to(device)
+        else:
+            data = torch.repeat_interleave(
+                self.run_values.to(device), self.run_lengths.to(device),
+                output_size=self._n)
+        return ColumnVector(data, self.dtype, _move(self.valid, device),
+                            self.dictionary)
+
+    def with_run_values(self, run_values,
+                        dictionary: Union[Tuple[str, ...], None,
+                                          type(...)] = ...
+                        ) -> "RunColumnVector":
+        """The same runs over new values (a dictionary-code remap stays
+        run-coded)."""
+        d = self.dictionary if dictionary is ... else dictionary
+        return RunColumnVector(run_values, self.run_lengths, self.dtype,
+                               self.valid, d)
+
+
+def unmaterialized_runs(v: ColumnVector) -> Optional[RunColumnVector]:
+    """``v`` if it is a run vector whose dense form was never built, else
+    None."""
+    if isinstance(v, RunColumnVector) and not v.is_materialized:
+        return v
+    return None
+
+
+class PlaneColumnVector(ColumnVector):
+    """The fixed-capacity stage form of a run table (``spark_tpu/
+    columnar.py`` ``PlaneColumnVector``).
+
+    ``plane_values`` (run values zero-padded to ``plane_capacity``, a
+    ``pad_capacity`` bucket of the run count) and ``plane_lengths`` (int64
+    run lengths, zero-padded) are its tensors; ``capacity`` is the dense
+    row count they stand for.  Real runs are exactly the ``lengths > 0``
+    prefix.  The taught kernels (segmented filter, keyless count/sum/min/
+    max, bare-column project) read the plane; any other operator that asks
+    for ``.data`` gets one memoized expansion by ``kernels.run_expand``
+    (counted in ``run_plane_expansions``), whose shapes are fixed, so a
+    captured graph can hold it."""
+
+    __slots__ = ("plane_values", "plane_lengths", "n_runs", "_capacity",
+                 "_dense")
+
+    def __init__(self, plane_values: torch.Tensor,
+                 plane_lengths: torch.Tensor, dtype: T.DataType,
+                 capacity: int, valid: Optional[torch.Tensor] = None,
+                 dictionary: Optional[Tuple[str, ...]] = None,
+                 n_runs: Optional[int] = None):
+        self.plane_values = plane_values
+        self.plane_lengths = plane_lengths
+        self.n_runs = None if n_runs is None else int(n_runs)
+        self._capacity = int(capacity)
+        self._dense = None
+        self.dtype = dtype
+        self.valid = valid
+        self.dictionary = dictionary
+
+    @classmethod
+    def from_runs(cls, rv: RunColumnVector,
+                  plane_cap: int) -> "PlaneColumnVector":
+        """A host run table padded into a plane of ``plane_cap`` slots."""
+        nr = len(rv.run_values)
+        values = torch.zeros(plane_cap, dtype=rv.run_values.dtype)
+        values[:nr] = rv.run_values
+        lengths = torch.zeros(plane_cap, dtype=torch.int64)
+        lengths[:nr] = rv.run_lengths
+        return cls(values, lengths, rv.dtype, rv.capacity, rv.valid,
+                   rv.dictionary, n_runs=nr)
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return (f"PlaneColumnVector({self.dtype!r}, capacity="
+                f"{self._capacity}, plane={self.plane_capacity}, runs="
+                f"{self.n_runs}, expanded={self._dense is not None})")
+
+    @property
+    def plane_capacity(self) -> int:
+        return int(self.plane_values.shape[0])
+
+    @property
+    def is_expanded(self) -> bool:
+        return self._dense is not None
+
+    @property
+    def capacity(self) -> int:
+        return self._capacity
+
+    @property
+    def device(self) -> torch.device:
+        return self.plane_values.device
+
+    def is_pinned(self) -> bool:
+        return self.plane_values.is_pinned()
+
+    @property
+    def data(self) -> torch.Tensor:
+        # shadows the parent's ``data`` slot: an operator that was not
+        # taught about planes gets one memoized expansion
+        if self._dense is None:
+            global _RUN_PLANE_EXPANSIONS
+            _RUN_PLANE_EXPANSIONS += 1
+            from .kernels import run_expand
+            self._dense = run_expand(self.plane_values, self.plane_lengths,
+                                     self._capacity)
+        return self._dense
+
+    def valid_or_true(self) -> torch.Tensor:
+        if self.valid is not None:
+            return self.valid
+        return torch.ones(self._capacity, dtype=torch.bool,
+                          device=self.plane_values.device)
+
+    def to_device(self, device, non_blocking: bool = False) -> ColumnVector:
+        return PlaneColumnVector(
+            self.plane_values.to(device, non_blocking=non_blocking),
+            self.plane_lengths.to(device, non_blocking=non_blocking),
+            self.dtype, self._capacity,
+            _move(self.valid, device, non_blocking), self.dictionary,
+            n_runs=self.n_runs)
+
+    def to_host(self) -> ColumnVector:
+        # leaving the stage: a dense host vector (the memoized expansion)
+        return ColumnVector(self.data.cpu(), self.dtype,
+                            _move(self.valid, "cpu"), self.dictionary)
+
+    def clone(self) -> "PlaneColumnVector":
+        return PlaneColumnVector(
+            self.plane_values.clone(), self.plane_lengths.clone(),
+            self.dtype, self._capacity,
+            None if self.valid is None else self.valid.clone(),
+            self.dictionary, n_runs=self.n_runs)
+
+
+def unexpanded_plane(v: ColumnVector) -> Optional[PlaneColumnVector]:
+    """``v`` if it is a run plane whose dense form was never asked for,
+    else None."""
+    if isinstance(v, PlaneColumnVector) and v._dense is None:
+        return v
+    return None
+
+
+def dense_runs(batch: "ColumnBatch", device) -> "ColumnBatch":
+    """``batch`` with every run vector dense on ``device`` (uncounted, as
+    at a stage boundary) and every other vector moved there."""
+    return ColumnBatch(
+        batch.names,
+        [v.dense_on(device) if isinstance(v, RunColumnVector)
+         else v.to_device(device) for v in batch.vectors],
+        _move(batch.row_valid, device), batch.capacity, batch.source)
+
+
 class ColumnBatch:
     """A fixed-capacity batch of columns plus a row-existence mask."""
 
@@ -349,7 +662,7 @@ class ColumnBatch:
         if self.row_valid is not None:
             return self.row_valid.device
         if self.vectors:
-            return self.vectors[0].data.device
+            return self.vectors[0].device
         return torch.device("cpu")
 
     def column(self, name: str) -> ColumnVector:
@@ -387,17 +700,21 @@ class ColumnBatch:
     def pinned(self) -> "ColumnBatch":
         """This host batch in page-locked memory, so that its copy to the
         card is one ``non_blocking`` copy per tensor (a file batch on a
-        ``cuda`` session)."""
+        ``cuda`` session).  A lazy run vector stays as it is: pinning it
+        would expand it, and it enters a stage as a plane or dense
+        (``stagecompile.plan_leaves``)."""
         def pin(t):
             return None if t is None else t.pin_memory()
         return ColumnBatch(
             self.names,
-            [ColumnVector(pin(v.data), v.dtype, pin(v.valid), v.dictionary)
+            [v if isinstance(v, RunColumnVector)
+             else ColumnVector(pin(v.data), v.dtype, pin(v.valid),
+                               v.dictionary)
              for v in self.vectors],
             pin(self.row_valid), self.capacity, self.source)
 
     def is_pinned(self) -> bool:
-        return bool(self.vectors) and self.vectors[0].data.is_pinned()
+        return bool(self.vectors) and self.vectors[0].is_pinned()
 
     # -- output -----------------------------------------------------------
     def decoded_columns(self) -> Tuple[List[List[Any]], int]:
@@ -536,6 +853,49 @@ def remap_codes(codes: torch.Tensor, table) -> torch.Tensor:
     return torch.where(codes < 0, codes, out)
 
 
+def _rle(data: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run values and int64 lengths of a 1-D host tensor."""
+    n = int(data.shape[0])
+    if n == 0:
+        return data[:0], torch.zeros(0, dtype=torch.int64)
+    change = torch.nonzero(data[1:] != data[:-1]).reshape(-1) + 1
+    starts = torch.cat([torch.zeros(1, dtype=torch.int64), change])
+    ends = torch.cat([change, torch.tensor([n], dtype=torch.int64)])
+    return data[starts], ends - starts
+
+
+def _union_runs(vecs, batches, dtype, dicts) -> Optional[RunColumnVector]:
+    """One column of ``union_all`` kept run-coded (``spark_tpu/
+    kernels.py`` ``union_all``): when a piece is still an unmaterialized
+    run vector, none has NULLs and all share one code space, the run
+    tables are concatenated (equal values across a seam are two runs,
+    still a valid table).  A dense sibling (the reducer's own share, which
+    never crossed the wire) is run-coded here if that halves it at least;
+    otherwise None: the dense concatenation."""
+    runs = [unmaterialized_runs(v) for v in vecs]
+    if not any(r is not None for r in runs) \
+            or len({d or () for d in dicts}) != 1:
+        return None
+    for r, v, b in zip(runs, vecs, batches):
+        if (r is None and v.valid is not None) or (
+                r is not None and (r.valid is not None
+                                   or r.capacity != b.capacity)):
+            return None
+    tables = []
+    for r, v, b in zip(runs, vecs, batches):
+        if r is not None:
+            tables.append((r.run_values.to(dtype.torch_dtype),
+                           r.run_lengths))
+            continue
+        vals, lens = _rle(v.data.to(dtype.torch_dtype))
+        if len(vals) * 2 > b.capacity:
+            return None
+        tables.append((vals, lens))
+    return RunColumnVector(torch.cat([t[0] for t in tables]),
+                           torch.cat([t[1] for t in tables]), dtype, None,
+                           dicts[0])
+
+
 def union_all(batches: Sequence[ColumnBatch]) -> ColumnBatch:
     """Concatenate host batches (capacity = sum), string columns
     re-encoded onto a merged dictionary (``spark_tpu/kernels.py``
@@ -548,6 +908,10 @@ def union_all(batches: Sequence[ColumnBatch]) -> ColumnBatch:
         vecs = [b.vectors[ci] for b in batches]
         dtype = vecs[0].dtype
         dicts = [v.dictionary for v in vecs]
+        runs = _union_runs(vecs, batches, dtype, dicts)
+        if runs is not None:
+            vectors.append(runs)
+            continue
         if dtype.is_string or isinstance(dtype, T.BinaryType):
             if len({d or () for d in dicts}) == 1:
                 data = torch.cat([v.data for v in vecs])

@@ -221,6 +221,18 @@ STAGE_FUSION = conf("spark.tpu.stage.fusion").doc(
     "after each — the baseline the graph lane is measured against."
 ).boolean(True)
 
+STAGE_RUN_PLANES = conf("spark.tpu.stage.runPlanes").doc(
+    "Run planes at the stage boundary: an eligible lazy run column (no "
+    "NULLs, run table at most half the dense capacity after pow-2 "
+    "padding) enters the stage as a fixed-capacity (run_values, "
+    "run_lengths) plane instead of materializing dense.  Taught kernels "
+    "(segmented filter, keyless count/sum/min/max, bare-column project) "
+    "work at run granularity; every other operator expands the plane "
+    "inside the stage by a cumulative-sum and searchsorted gather "
+    "(counted in run_plane_expansions).  Off = every run column "
+    "materializes dense at the boundary."
+).boolean(True)
+
 STAGE_CACHE_MAX_ENTRIES = conf("spark.tpu.stage.cacheMaxEntries").doc(
     "Entry bound of the process-local stage cache (LRU beyond it).  The "
     "cache is per PROCESS, not per session."
@@ -442,8 +454,10 @@ SHUFFLE_WIRE_COMPRESS_THRESHOLD = conf(
 
 SHUFFLE_WIRE_RUN_CODES = conf("spark.tpu.shuffle.wire.runCodes").doc(
     "Run-length/delta encode eligible wire columns (a per-column "
-    "sampled-benefit probe).  The port decodes run-coded columns to "
-    "dense vectors."
+    "sampled-benefit probe); a still-lazy run column ships its run "
+    "table.  Receivers keep run-coded columns lazy (columnar."
+    "RunColumnVector) into the receiving stage, where they enter as "
+    "run planes (spark.tpu.stage.runPlanes)."
 ).boolean(True)
 
 SHUFFLE_SPILL_THRESHOLD = conf("spark.tpu.shuffle.spillThresholdBytes").doc(
@@ -569,15 +583,29 @@ SHUFFLE_FINE_PARTITIONS = conf("spark.tpu.shuffle.finePartitionsPerProc").doc(
 ).check(lambda v: v >= 1).int(8)
 
 SHUFFLE_ICI_ENABLED = conf("spark.tpu.shuffle.ici.enabled").doc(
-    "The cross-process device exchange tier.  Not ported yet: with it on "
-    "and spark.tpu.shuffle.ici.tierOverride placing this process in a "
-    "domain with peers, a cross-process exchange raises; the auto probe "
-    "yields singleton domains and the host tier."
+    "The cross-process device exchange tier: a join side's spans bound "
+    "for peers in this process's device domain are packed into a device "
+    "arena and each receiver pulls them with one launch of kernel K2 "
+    "(CUDA IPC on a card; a shared-memory file under the shuffle root "
+    "on the CPU), instead of riding wire blocks through the shuffle "
+    "directory.  Each sender's choice rides its own arena sidecar and "
+    "commit manifest; every control round (plan manifests, adaptive "
+    "stats, recovery agreement) stays on the host tier, and an injected "
+    "fault, a pack overflow or a lost peer folds that sender's spans "
+    "back onto the host tier, counted (dcn_fallback_exchanges)."
 ).boolean(False)
+
+SHUFFLE_ICI_MIN_BYTES = conf("spark.tpu.shuffle.ici.minBytes").doc(
+    "Smallest AGREED side byte total (summed over the gathered plan-"
+    "round manifests, so every process derives the same verdict) that "
+    "takes the device tier; smaller sides stay on the host tier."
+).check(lambda v: v >= 0).int(1 << 16)
 
 SHUFFLE_ICI_TIER_OVERRIDE = conf("spark.tpu.shuffle.ici.tierOverride").doc(
     "Manual device-domain map: pipe-separated comma groups of process ids "
-    "('0,1|2,3').  Empty = probe (singleton domains)."
+    "('0,1|2,3').  Empty = probe: live processes grouped by the card "
+    "they run on (its UUID, published by every process at "
+    "enableHostShuffle); on the CPU every process is its own domain."
 ).string("")
 
 CROSSPROC_DEDUP_REPLICATED = conf("spark.tpu.crossproc.dedupReplicated").doc(

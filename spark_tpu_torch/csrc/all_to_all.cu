@@ -34,7 +34,23 @@
 // ordered on the caller's stream after every op that produced the send
 // buffers and before every op that reads the outputs, which is that fence.
 //
-// Table layout (int64), P planes, n participants:
+// Across processes (the device tier of the cross-process exchange,
+// spark_tpu/parallel/ici.py `device_exchange`): each sender packs its
+// planes into an arena allocated here with cudaMalloc and exported with
+// cudaIpcGetMemHandle; each receiver maps its peers' arenas
+// (cudaIpcOpenMemHandle) and PULLS its own blocks with one launch of the
+// same kernel, with n_dst = 1: the table's source pointers point at the
+// receiver's slot inside each sender's arena, and dst[k][0][s] is what
+// sender s packed for it.  Two processes on one card are time-sliced
+// contexts and stream order does not cross them, so the order is kept
+// on the host: a sender synchronizes its stream after packing and
+// publishes its sidecar before its commit marker; a receiver launches
+// only after the commit barrier and synchronizes before it commits the
+// next exchange (the arenas are double-buffered by exchange).  No
+// device-side barrier: it would spin through context switches and hang
+// on a dead peer.
+//
+// Table layout (int64), P planes, n participants (n_src senders):
 //   [0, P*n)           source pointer of (plane k, sender s) at k*n + s
 //   [P*n, P*n+P)       destination pointer of plane k
 //   next P             block bytes of plane k
@@ -57,8 +73,11 @@ struct Table {
   long long v[kMaxEntries];
 };
 
+// n senders and n_dst receivers: the local exchange has n_dst = n, a
+// cross-process pull n_dst = 1
 __global__ void __launch_bounds__(kThreads)
-all_to_all_kernel(const __grid_constant__ Table table, int P, int n) {
+all_to_all_kernel(const __grid_constant__ Table table, int P, int n,
+                  int n_dst) {
   const long long* src_ptr = table.v;
   const long long* dst_ptr = src_ptr + (long long)P * n;
   const long long* block_bytes = dst_ptr + P;
@@ -74,8 +93,8 @@ all_to_all_kernel(const __grid_constant__ Table table, int P, int n) {
   const long long local = item - first[k];
   const long long blk = local / per;
   const long long c = local - blk * per;
-  const long long s = blk / n;
-  const long long d = blk - s * n;
+  const long long s = blk / n_dst;
+  const long long d = blk - s * n_dst;
   const long long off = c * kChunk;
   const long long len = bb - off < kChunk ? bb - off : kChunk;
 
@@ -120,6 +139,83 @@ extern "C" int spark_all_to_all(const long long* host_table, int entries,
   Table table;
   memcpy(table.v, host_table, sizeof(long long) * entries);
   all_to_all_kernel<<<(unsigned)total, kThreads, 0,
-                      reinterpret_cast<cudaStream_t>(stream)>>>(table, P, n);
+                      reinterpret_cast<cudaStream_t>(stream)>>>(table, P, n,
+                                                                n);
   return (int)cudaGetLastError();
+}
+
+// The cross-process pull: the same table with n = n_src senders and
+// first[] counting n_src * ceil(block bytes / kChunk) items per plane;
+// dst[k] is (1, n_src, block) and source pointers may point into arenas
+// mapped from other processes.
+extern "C" int spark_a2a_pull(const long long* host_table, int entries,
+                              int P, int n_src, long long total,
+                              void* stream) {
+  if (P <= 0 || n_src <= 0 || total <= 0) return 0;
+  if (entries != P * n_src + 4 * P + 1 || entries > kMaxEntries ||
+      total > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  Table table;
+  memcpy(table.v, host_table, sizeof(long long) * entries);
+  all_to_all_kernel<<<(unsigned)total, kThreads, 0,
+                      reinterpret_cast<cudaStream_t>(stream)>>>(table, P,
+                                                                n_src, 1);
+  return (int)cudaGetLastError();
+}
+
+// ---- the arena and its IPC handle -----------------------------------------
+// The arena is one cudaMalloc allocation: an IPC handle names a whole
+// allocation, never a tensor inside a block of PyTorch's caching
+// allocator.  Each call first makes `device` current in this library's
+// runtime.
+
+extern "C" int spark_ipc_handle_bytes() {
+  return (int)sizeof(cudaIpcMemHandle_t);
+}
+
+extern "C" int spark_ipc_alloc(int device, long long bytes, void** ptr) {
+  int rc = (int)cudaSetDevice(device);
+  if (rc != 0) return rc;
+  return (int)cudaMalloc(ptr, (size_t)bytes);
+}
+
+extern "C" int spark_ipc_free(int device, void* ptr) {
+  int rc = (int)cudaSetDevice(device);
+  if (rc != 0) return rc;
+  return (int)cudaFree(ptr);
+}
+
+extern "C" int spark_ipc_get_handle(int device, void* ptr,
+                                    unsigned char* out) {
+  int rc = (int)cudaSetDevice(device);
+  if (rc != 0) return rc;
+  cudaIpcMemHandle_t h;
+  rc = (int)cudaIpcGetMemHandle(&h, ptr);
+  if (rc == 0) memcpy(out, &h, sizeof(h));
+  return rc;
+}
+
+extern "C" int spark_ipc_open(int device, const unsigned char* in,
+                              void** ptr) {
+  int rc = (int)cudaSetDevice(device);
+  if (rc != 0) return rc;
+  cudaIpcMemHandle_t h;
+  memcpy(&h, in, sizeof(h));
+  return (int)cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+}
+
+extern "C" int spark_ipc_close(int device, void* ptr) {
+  int rc = (int)cudaSetDevice(device);
+  if (rc != 0) return rc;
+  return (int)cudaIpcCloseMemHandle(ptr);
+}
+
+// host → arena bytes, queued on `stream` (CUDA stages a pageable source
+// before the call returns; the caller synchronizes before publishing)
+extern "C" int spark_ipc_copy(int device, void* dst, const void* src,
+                              long long bytes, void* stream) {
+  int rc = (int)cudaSetDevice(device);
+  if (rc != 0) return rc;
+  return (int)cudaMemcpyAsync(dst, src, (size_t)bytes, cudaMemcpyDefault,
+                              reinterpret_cast<cudaStream_t>(stream));
 }

@@ -27,8 +27,10 @@ from . import cuda_agg
 from . import types as T
 from .capture import constant, decide
 from .aggregates import AggregateFunction, First, identity
-from .columnar import ColumnBatch, ColumnVector
-from .expressions import Col, EvalContext, Expression, ExprValue
+from .columnar import (ColumnBatch, ColumnVector, PlaneColumnVector,
+                       bump_run_aware, unexpanded_plane, unmaterialized_runs)
+from .expressions import (Col, EvalContext, Expression, ExprValue, Rand,
+                          RowIndex, SparkPartitionId)
 
 Array = Any
 
@@ -156,11 +158,133 @@ def compact(batch: ColumnBatch) -> ColumnBatch:
 
 
 # ---------------------------------------------------------------------------
+# run tables (``columnar.RunColumnVector`` / ``PlaneColumnVector``)
+# ---------------------------------------------------------------------------
+
+def rle_expand(run_values: torch.Tensor, run_lengths: torch.Tensor
+               ) -> torch.Tensor:
+    """A run table expanded to its dense tensor.  Its length is read from
+    the lengths, so this is for host tables; inside a stage use
+    ``run_expand``, whose length is the plane's capacity."""
+    n = int(run_lengths.sum())
+    return torch.repeat_interleave(run_values, run_lengths.to(torch.int64),
+                                   output_size=n)
+
+
+def run_row_ids(plane_lengths: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Row → run-slot map of a fixed-capacity run plane: the inclusive
+    cumulative sum of the zero-padded lengths gives the run ends, and each
+    row position is searched right of its end; zero-length (padding)
+    slots repeat an end, which the right-side search skips, so every row
+    lands on a real run.  Shapes depend on the capacity alone: no sync,
+    capturable."""
+    lengths = plane_lengths.to(torch.int64)
+    ends = torch.cumsum(lengths, 0)
+    rows = torch.arange(capacity, dtype=torch.int64, device=lengths.device)
+    ids = torch.searchsorted(ends, rows, right=True)
+    # rows past sum(lengths) (no well-formed plane has them) clamp into
+    # range rather than index out of bounds
+    return ids.clamp_(0, max(int(plane_lengths.shape[0]) - 1, 0))
+
+
+def run_expand(plane_values: torch.Tensor, plane_lengths: torch.Tensor,
+               capacity: int) -> torch.Tensor:
+    """A run plane expanded to its ``capacity`` dense rows by a gather
+    through ``run_row_ids``."""
+    return plane_values[run_row_ids(plane_lengths, capacity)]
+
+
+#: expressions whose value depends on the row's POSITION: a run head
+#: cannot stand for its run under them
+_POSITIONAL_EXPRS = (Rand, RowIndex, SparkPartitionId)
+
+
+def _single_ref_run_pred(batch: ColumnBatch, pred: Expression, find):
+    """The (name, run vector) a run-granularity filter may evaluate
+    ``pred`` over: exactly one referenced column, an untouched run form
+    (``find``) with no NULLs covering the batch, and no positional
+    expression; else None."""
+    refs = pred.references()
+    if len(refs) != 1:
+        return None
+    name = next(iter(refs))
+    if name not in batch.names:
+        return None
+    rv = find(batch.column(name))
+    if rv is None or rv.valid is not None or rv.capacity != batch.capacity:
+        return None
+    stack = [pred]
+    while stack:
+        e = stack.pop()
+        if isinstance(e, _POSITIONAL_EXPRS):
+            return None
+        stack.extend(e.children)
+    return name, rv
+
+
+def _head_keep(name: str, vec: ColumnVector, n: int,
+               pred: Expression) -> torch.Tensor:
+    """``pred`` evaluated once per run head: a boolean per run slot."""
+    head = ColumnBatch([name], [vec], None, n)
+    v = pred.eval(EvalContext(head))
+    keep = torch.broadcast_to(v.data, (n,))
+    if v.valid is not None:
+        keep = keep & torch.broadcast_to(v.valid, (n,))
+    return keep.to(torch.bool)
+
+
+def _run_aware_filter(batch: ColumnBatch,
+                      pred: Expression) -> Optional[ColumnBatch]:
+    """A filter over a host run vector: the predicate once per run head,
+    the keep mask repeated by run length (``spark_tpu/kernels.py``
+    ``_run_aware_filter``).  None falls back to the dense path."""
+    found = _single_ref_run_pred(batch, pred, unmaterialized_runs)
+    if found is None:
+        return None
+    name, rv = found
+    n_runs = int(rv.run_values.shape[0])
+    keep = _head_keep(name, ColumnVector(rv.run_values, rv.dtype, None,
+                                         rv.dictionary), n_runs, pred)
+    keep = torch.repeat_interleave(keep, rv.run_lengths,
+                                   output_size=rv.capacity)
+    bump_run_aware(batch.capacity)
+    out_rv = batch.row_valid_or_true() & keep
+    return ColumnBatch(batch.names, batch.vectors, out_rv, batch.capacity)
+
+
+def _plane_filter(batch: ColumnBatch,
+                  pred: Expression) -> Optional[ColumnBatch]:
+    """The stage form of ``_run_aware_filter`` over a run plane: the
+    predicate once per plane slot, only the boolean keep mask expanded
+    through ``run_row_ids``; the data column never expands
+    (``spark_tpu/kernels.py`` ``_plane_filter``)."""
+    found = _single_ref_run_pred(batch, pred, unexpanded_plane)
+    if found is None:
+        return None
+    name, pv = found
+    keep = _head_keep(name, ColumnVector(pv.plane_values, pv.dtype, None,
+                                         pv.dictionary),
+                      pv.plane_capacity, pred)
+    keep_rows = keep[run_row_ids(pv.plane_lengths, batch.capacity)]
+    out_rv = batch.row_valid_or_true() & keep_rows
+    return ColumnBatch(batch.names, batch.vectors, out_rv, batch.capacity)
+
+
+# ---------------------------------------------------------------------------
 # row-mask operators
 # ---------------------------------------------------------------------------
 
 def apply_filter(batch: ColumnBatch, pred: Expression,
                  row_offset: int = 0) -> ColumnBatch:
+    if row_offset == 0:
+        out = _run_aware_filter(batch, pred)
+        if out is not None:
+            return out
+    # no row_offset gate: the offset feeds positional expressions only,
+    # which _plane_filter refuses
+    out = _plane_filter(batch, pred)
+    if out is not None:
+        return out
     ctx = EvalContext(batch, row_offset)
     v = pred.eval(ctx)
     keep = v.data
@@ -176,6 +300,16 @@ def apply_project(batch: ColumnBatch, exprs: Sequence[Expression],
     names, vectors = [], []
     schema = batch.schema
     for e in exprs:
+        if isinstance(e, Col) and e._name in batch.names:
+            # a bare column keeps its run form (plane or host run table):
+            # evaluating it would expand it
+            src = batch.column(e._name)
+            if (unexpanded_plane(src) is not None
+                    or unmaterialized_runs(src) is not None) \
+                    and src.dtype.np_dtype == e.data_type(schema).np_dtype:
+                names.append(e.name)
+                vectors.append(src)
+                continue
         v = ctx.broadcast(e.eval(ctx))
         dt = e.data_type(schema)
         names.append(e.name)
@@ -271,7 +405,140 @@ def grouped_aggregate(
             and _mxu_applicable(batch.schema, key_exprs, agg_slots):
         return _mxu_grouped_aggregate(batch, key_exprs, agg_slots,
                                       bucket_cap)
+    if not key_exprs:
+        out = _run_aware_global_aggregate(batch, agg_slots)
+        if out is None:
+            out = _plane_global_aggregate(batch, agg_slots)
+        if out is not None:
+            return out
     return _sorted_grouped_aggregate(batch, key_exprs, agg_slots)
+
+
+def _run_slots(batch: ColumnBatch, agg_slots, kinds, find, int_sums: bool):
+    """Per slot ``(func, name, run form or None)`` when every slot is a
+    non-distinct count(*) or one of ``kinds`` over a bare column whose
+    vector is a run form (``find``) with no NULLs covering the batch, sums
+    over integers only (integer products and sums wrap alike; float
+    addition does not associate); else None."""
+    from .aggregates import CountStar, Sum
+    plans = []
+    for func, name in agg_slots:
+        if getattr(func, "is_distinct", False):
+            return None
+        if isinstance(func, CountStar):
+            plans.append((func, name, None))
+            continue
+        if type(func) not in kinds:
+            return None
+        child = func.children[0]
+        if not isinstance(child, Col) or child._name not in batch.names:
+            return None
+        rv = find(batch.column(child._name))
+        if rv is None or rv.valid is not None \
+                or rv.capacity != batch.capacity:
+            return None
+        if int_sums and isinstance(func, Sum) \
+                and rv.dtype.torch_dtype.is_floating_point:
+            return None
+        plans.append((func, name, rv))
+    if all(rv is None for _f, _n, rv in plans):
+        return None           # nothing run-coded: nothing to claim
+    return plans
+
+
+def _run_aware_global_aggregate(batch: ColumnBatch, agg_slots
+                                ) -> Optional[ColumnBatch]:
+    """Keyless count/sum over host run vectors without expansion: a run
+    contributes ``value x length`` in one multiply (``spark_tpu/
+    kernels.py`` ``_run_aware_global_aggregate``).  Only over a fully live
+    batch; None falls back to the general path."""
+    from .aggregates import Count, CountStar, Sum
+    if batch.row_valid is not None or batch.capacity == 0 or not agg_slots:
+        return None
+    plans = _run_slots(batch, agg_slots, (Count, Sum), unmaterialized_runs,
+                       True)
+    if plans is None:
+        return None
+    cap = batch.capacity
+    schema = batch.schema
+    names: List[str] = []
+    vectors: List[ColumnVector] = []
+    for func, name, rv in plans:
+        dt = func.data_type(schema)
+        tdt = dt.torch_dtype
+        if rv is None or isinstance(func, (CountStar, Count)):
+            # no NULLs and no dead rows: the count is the capacity
+            out = ColumnVector(torch.full((1,), cap, dtype=tdt), dt, None,
+                               None)
+        else:
+            total = (rv.run_values.to(tdt) * rv.run_lengths.to(tdt)).sum(
+                dtype=tdt)
+            out = ColumnVector(total.reshape(1), dt,
+                               torch.ones(1, dtype=torch.bool), None)
+        names.append(name)
+        vectors.append(out)
+    bump_run_aware(cap)
+    return ColumnBatch(names, vectors, None, 1)
+
+
+def _plane_global_aggregate(batch: ColumnBatch, agg_slots
+                            ) -> Optional[ColumnBatch]:
+    """The stage form over run planes, with min/max and a row mask:
+    count/sum reduce ``plane values x live rows per run`` (one
+    ``segment_reduce`` of the row mask over ``run_row_ids``), min/max
+    reduce the run values under a per-run any-live mask; no arithmetic on
+    expanded rows (``spark_tpu/kernels.py`` ``_plane_global_aggregate``).
+    None falls back (the plane then expands, counted)."""
+    from .aggregates import Count, CountStar, Max, Min, Sum
+    if batch.capacity == 0 or not agg_slots:
+        return None
+    plans = _run_slots(batch, agg_slots, (Count, Sum, Min, Max),
+                       unexpanded_plane, True)
+    if plans is None:
+        return None
+    cap = batch.capacity
+    dev = batch.device
+    live = batch.row_valid      # row masks are dense, never planes
+    n_live = torch.full((1,), cap, dtype=torch.int64, device=dev) \
+        if live is None else live.sum(dtype=torch.int64).reshape(1)
+    counts: dict = {}
+
+    def run_live_counts(pv: PlaneColumnVector) -> torch.Tensor:
+        """Live rows per run slot (zero on padding slots)."""
+        if id(pv) not in counts:
+            if live is None:
+                c = pv.plane_lengths.to(torch.int64)
+            else:
+                ids = run_row_ids(pv.plane_lengths, cap)
+                c = segment_reduce(live.to(torch.int64), ids,
+                                   pv.plane_capacity, "sum")
+            counts[id(pv)] = c
+        return counts[id(pv)]
+
+    schema = batch.schema
+    names: List[str] = []
+    vectors: List[ColumnVector] = []
+    for func, name, pv in plans:
+        dt = func.data_type(schema)
+        tdt = dt.torch_dtype
+        if pv is None or isinstance(func, (CountStar, Count)):
+            out = ColumnVector(n_live.to(tdt), dt, None, None)
+        elif isinstance(func, Sum):
+            total = (pv.plane_values.to(tdt)
+                     * run_live_counts(pv).to(tdt)).sum(dtype=tdt)
+            out = ColumnVector(total.reshape(1), dt, n_live > 0, None)
+        else:                                   # min / max
+            red = torch.int8 if tdt == torch.bool else tdt
+            ident = identity(func.kind, red)
+            buf = torch.where(run_live_counts(pv) > 0,
+                              pv.plane_values.to(red),
+                              torch.full((), ident, dtype=red, device=dev))
+            val = buf.min() if func.kind == "min" else buf.max()
+            out = ColumnVector(val.reshape(1).to(tdt), dt, n_live > 0,
+                               pv.dictionary)
+        names.append(name)
+        vectors.append(out)
+    return ColumnBatch(names, vectors, None, 1)
 
 
 def _pad_to_one_row(batch: ColumnBatch) -> ColumnBatch:

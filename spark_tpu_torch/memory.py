@@ -135,11 +135,24 @@ class HostMemoryPressure(HostMemoryError):
 
 
 def batch_nbytes(batch: ColumnBatch) -> int:
-    """Device bytes of a dense batch: data, validity masks, row mask."""
+    """Bytes a batch holds: data, validity masks, row mask.  A lazy run
+    vector charges its run table (values and int64 lengths), a run plane
+    its two plane tensors, not the rows they stand for."""
+    from .columnar import unexpanded_plane, unmaterialized_runs
     total = 0
     for v in batch.vectors:
-        # an array column is a (capacity, max_len) plane
-        total += np.dtype(v.dtype.np_dtype).itemsize * int(v.data.numel())
+        runs = unmaterialized_runs(v)
+        plane = unexpanded_plane(v)
+        if runs is not None:
+            total += (runs.run_values.numel() * runs.run_values.element_size()
+                      + runs.run_lengths.numel() * 8)
+        elif plane is not None:
+            total += plane.plane_capacity * (
+                plane.plane_values.element_size() + 8)
+        else:
+            # an array column is a (capacity, max_len) plane
+            total += np.dtype(v.dtype.np_dtype).itemsize * int(
+                v.data.numel())
         if v.valid is not None:
             total += batch.capacity
     if batch.row_valid is not None:

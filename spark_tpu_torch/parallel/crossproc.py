@@ -62,9 +62,10 @@ read).  A loss that lineage cannot cover (in-memory leaves, a peer lost
 before its recipes were published, a diverged agreement) aborts with
 ``recoverable=False``.  With the block service on, a sealed dead
 sender's output is adopted at the barrier before any loss surfaces.
-The cross-process device tier is a later slice:
-``spark.tpu.shuffle.ici.enabled`` with a tier override that names peers
-raises instead of quietly running the host tier.
+With ``spark.tpu.shuffle.ici.enabled`` the hash and range lanes put the
+device tier in front of the host exchange (``_tiered_exchange_with_
+refetch``): spans for processes on the same card go through the
+sender's device arena and are pulled by kernel K2 (``ici.py``).
 
 ``STATS`` accumulates this process's time split (local runs, bucketing
 on the card, read-backs, host merges) for the chip script.
@@ -88,7 +89,8 @@ from .. import config as C
 from .. import kernels as K
 from .. import types as T
 from .. import wire
-from ..columnar import ColumnBatch, ColumnVector, live_prefix, union_all
+from ..columnar import (ColumnBatch, ColumnVector, live_prefix, union_all,
+                        unmaterialized_runs)
 from ..expressions import Col, EvalContext, Hash64, Literal
 from ..memory import HostMemoryError, HostMemoryPressure
 from ..sql import physical as P
@@ -242,6 +244,18 @@ def _batch_digest(batch: ColumnBatch) -> int:
     b = batch.to_host()
     h.update(pickle.dumps(list(b.names)))
     for v in b.vectors:
+        rv = unmaterialized_runs(v)
+        if rv is not None:
+            # a run-coded column digests its run TABLE: the wire's run
+            # coding is content-deterministic, and the probe charges no
+            # materialization for rows no operator touched
+            h.update(b"runs:")
+            h.update(np.ascontiguousarray(rv.run_values.numpy()).tobytes())
+            h.update(np.ascontiguousarray(rv.run_lengths.numpy()).tobytes())
+            h.update(b"|" if v.valid is None else
+                     np.ascontiguousarray(v.valid.numpy()).tobytes())
+            h.update(pickle.dumps(v.dictionary))
+            continue
         h.update(b"dense:")
         h.update(np.ascontiguousarray(v.data.numpy()).tobytes())
         h.update(b"|" if v.valid is None else
@@ -585,50 +599,130 @@ def _gather_leaf_relations(session, plan, svc: HostShuffleService,
 
 def _exchange_with_refetch(svc: HostShuffleService, xid: str,
                            routed: Dict[int, List[ColumnBatch]],
-                           sink=None) -> List[ColumnBatch]:
+                           sink=None, extra=None, pull=None
+                           ) -> List[ColumnBatch]:
     """One exchange hop with the loss policy: on a structured fetch
     failure, ONE refetch after a re-barrier; a second loss propagates
     within the 2×-deadline bound.  A ``FetchSink`` keeps retries
-    idempotent (a sender's delivery is replaced)."""
+    idempotent (a sender's delivery is replaced).  ``extra`` rides the
+    commit manifest; ``pull`` is the device tier's receiver half."""
     try:
-        return svc.exchange(xid, routed, sink=sink)
+        return svc.exchange(xid, routed, sink=sink, extra=extra, pull=pull)
     except ExchangeFetchFailed:
         if not svc.refetch_enabled:
             raise
-        return svc.refetch(xid, routed, sink=sink)
+        return svc.refetch(xid, routed, sink=sink, pull=pull)
 
 
 def _exchange_spilled_with_refetch(svc: HostShuffleService, xid: str,
                                    spill_path: str, routed: Dict[int, list],
                                    meta: Dict[int, Tuple[int, int]],
-                                   sink=None) -> List[ColumnBatch]:
+                                   sink=None, extra=None, pull=None
+                                   ) -> List[ColumnBatch]:
     """``_exchange_with_refetch`` for a side whose map output lives in a
     spill file."""
     try:
         return svc.exchange_spilled(xid, spill_path, routed, meta,
-                                    sink=sink)
+                                    sink=sink, extra=extra, pull=pull)
     except ExchangeFetchFailed:
         if not svc.refetch_enabled:
             raise
-        return svc.refetch_spilled(xid, spill_path, routed, sink=sink)
+        return svc.refetch_spilled(xid, spill_path, routed, sink=sink,
+                                   pull=pull)
 
 
-def _check_device_tier(session, svc: HostShuffleService) -> None:
-    """The cross-process device tier (``ici.device_exchange``) is not
-    ported: with it enabled and a tier override that puts this process in
-    a domain with peers, raise rather than quietly run the host tier.
-    The auto probe yields singleton domains, which is the host tier."""
-    if not session.conf.get(C.SHUFFLE_ICI_ENABLED):
-        return
+def _ici_tier(session, svc: HostShuffleService):
+    """The device-tier confs and the agreed tier split for this exchange
+    plan: ``(tier, min_bytes)``, ``tier`` None when the tier is off or
+    leaves this process without domain peers.  On the auto path the
+    domains are the cards the processes published at
+    ``enableHostShuffle`` (every CPU process is its own).  The split's
+    fingerprint rides ``decision_inputs`` into the plan round."""
     from . import ici
-    tier = ici.probe_topology(session.conf.get(C.SHUFFLE_ICI_TIER_OVERRIDE),
-                              svc.pid, svc.n, svc.live_pids())
-    if tier.peers():
-        raise NotImplementedError(
-            f"{C.SHUFFLE_ICI_ENABLED.key} with peers {tier.peers()} in "
-            "this process's device domain: the cross-process device tier "
-            "comes with a later slice (ROADMAP item 10); unset "
-            f"{C.SHUFFLE_ICI_TIER_OVERRIDE.key} or disable the tier")
+    if not session.conf.get(C.SHUFFLE_ICI_ENABLED):
+        return None, 0
+    override = session.conf.get(C.SHUFFLE_ICI_TIER_OVERRIDE)
+    live = svc.live_pids()
+    uuids = None if override else ici.card_uuids(svc, live)
+    tier = ici.probe_topology(override, svc.pid, svc.n, live, uuids)
+    with svc._lock:
+        svc.counters["tier_split_peers"] = len(tier.peers())
+    return (tier if tier.peers() else None), \
+        int(session.conf.get(C.SHUFFLE_ICI_MIN_BYTES))
+
+
+def _fold_back(svc: HostShuffleService) -> None:
+    with svc._lock:
+        svc.counters["dcn_fallback_exchanges"] += 1
+
+
+def _tiered_exchange_with_refetch(svc: HostShuffleService, session, plan,
+                                  xid: str,
+                                  routed: Dict[int, List[ColumnBatch]],
+                                  sink, template) -> List[ColumnBatch]:
+    """``_exchange_with_refetch`` with the device tier in front: when the
+    agreed ``plan`` is active, this process's spans for its domain peers
+    go through its device arena (``ici.device_publish``) and leave the
+    host routing; the rest, and the commit barrier every peer meets, ride
+    the host tier.  Whatever this process did, it pulls the spans its
+    peers published for it (``ici.device_pull``) into the sink, keyed by
+    sender, where they merge in the canonical own-first, sorted-sender
+    order.  A structured device-tier failure here (an injected fault, a
+    pack overflow) folds THIS sender's spans back onto the host tier,
+    counted; its receivers read them there."""
+    from . import ici
+    if plan is None or not plan.active \
+            or not ici.schema_eligible(template):
+        return _exchange_with_refetch(svc, xid, routed, sink=sink)
+    dev = {r: bs for r, bs in routed.items()
+           if r != svc.pid and plan.tier.same_domain(r)}
+
+    def pull(sink):
+        ici.device_pull(svc, session, plan, xid, template, sink)
+    try:
+        extra = ici.device_publish(svc, session, plan, xid, dev, template)
+    except ici.IciUnavailable:
+        _fold_back(svc)
+        return _exchange_with_refetch(svc, xid, routed, sink=sink,
+                                      pull=pull)
+    host_routed = {r: bs for r, bs in routed.items() if r not in dev}
+    return _exchange_with_refetch(svc, xid, host_routed, sink=sink,
+                                  extra=extra, pull=pull)
+
+
+def _tiered_exchange_spilled_with_refetch(svc: HostShuffleService, session,
+                                          plan, xid: str, spill_path: str,
+                                          routed: Dict[int, list],
+                                          meta: Dict[int, Tuple[int, int]],
+                                          sink, template
+                                          ) -> List[ColumnBatch]:
+    """The spilled-side face of ``_tiered_exchange_with_refetch``: the
+    spans for domain peers decode from the spill file (one batch per
+    frame, so the run boundaries survive) and go through the arena;
+    every other span ships as spill-file byte spans untouched."""
+    from . import ici
+    if plan is None or not plan.active \
+            or not ici.schema_eligible(template):
+        return _exchange_spilled_with_refetch(svc, xid, spill_path,
+                                              routed, meta, sink=sink)
+
+    def pull(sink):
+        ici.device_pull(svc, session, plan, xid, template, sink)
+    dev: Dict[int, List[ColumnBatch]] = {}
+    try:
+        for r in sorted(routed):
+            if r != svc.pid and plan.tier.same_domain(r):
+                dev[r] = svc.decode_spilled(xid, spill_path, routed[r])
+        extra = ici.device_publish(svc, session, plan, xid, dev, template)
+    except ici.IciUnavailable:
+        _fold_back(svc)
+        return _exchange_spilled_with_refetch(svc, xid, spill_path, routed,
+                                              meta, sink=sink, pull=pull)
+    host_routed = {r: parts for r, parts in routed.items() if r not in dev}
+    host_meta = {r: m for r, m in meta.items() if r not in dev}
+    return _exchange_spilled_with_refetch(svc, xid, spill_path, host_routed,
+                                          host_meta, sink=sink, extra=extra,
+                                          pull=pull)
 
 
 def _exchange_spill_dir(session, xid: str) -> str:
@@ -786,9 +880,10 @@ def _shuffled_join_shards(session, join, key_pairs,
        range is one slice), staged in RAM or spilled under the ledger.
     Dictionary keys hash their WORDS, so equal keys meet however the code
     spaces differ; the exchange then unifies the code spaces."""
+    from . import ici
     n_fine = svc.n * session.conf.get(C.SHUFFLE_FINE_PARTITIONS)
     target = session.conf.get(C.SHUFFLE_TARGET_PARTITION_BYTES)
-    _check_device_tier(session, svc)
+    tier, ici_min_bytes = _ici_tier(session, svc)
     sdir = _exchange_spill_dir(session, xid)
     try:
         pending = []
@@ -827,8 +922,8 @@ def _shuffled_join_shards(session, join, key_pairs,
         # its manifests carry each side's observed totals
         svc.publish_sizes(f"{xid}-plan", sizes,
                           extra={"sides": side_obs,
-                                 "dtrace": {"c": decision_inputs(svc,
-                                                                 "hash")}})
+                                 "dtrace": {"c": decision_inputs(
+                                     svc, "hash", tier=tier)}})
         totals, mans = svc.gather_sizes_ex(f"{xid}-plan", n_fine)
         decision = _adaptive_redecide(join, svc, xid, adaptive, "hash",
                                       mans)
@@ -838,6 +933,11 @@ def _shuffled_join_shards(session, join, key_pairs,
             return left, right, decision
         width = _elastic_width(svc, mans, target)
         bounds = svc.plan_reducers(totals, target, n_max=width)
+        # device-tier activation per side, from the AGREED manifest totals
+        # only; max_runs covers a spilled side, whose receiver range
+        # decodes to one run per non-empty fine partition
+        ici_plans = {k: ici.plan_side(tier, mans, k, ici_min_bytes,
+                                      max_runs=n_fine) for k in ("l", "r")}
 
         sides: List[_StagedSide] = []
         for tag, (_local, bucketed, off, cnt, raw) in zip(("jL", "jR"),
@@ -859,6 +959,7 @@ def _shuffled_join_shards(session, join, key_pairs,
                 # exchange delivery-only for the grace pass to stream
                 sink.defer_drain = grace_from is not None
                 exch = f"{xid}-{tag}"
+                plan = ici_plans["l" if i == 0 else "r"]
                 try:
                     if side.kind == "mem":
                         routed: Dict[int, List[ColumnBatch]] = {}
@@ -869,8 +970,9 @@ def _shuffled_join_shards(session, join, key_pairs,
                                 routed[svc.group_owner(g)] = [K.host_slice(
                                     side.bucketed, int(side.off[lo]),
                                     n_rows)]
-                        received = _exchange_with_refetch(svc, exch, routed,
-                                                          sink=sink)
+                        received = _tiered_exchange_with_refetch(
+                            svc, session, plan, exch, routed, sink,
+                            side.dead)
                     else:
                         # a reducer's contiguous fine range is one
                         # contiguous byte span of the spill file
@@ -885,9 +987,9 @@ def _shuffled_join_shards(session, join, key_pairs,
                                                         length)]
                                 meta[owner] = (int(side.raw[lo:hi].sum()),
                                                int(side.rows[lo:hi].sum()))
-                        received = _exchange_spilled_with_refetch(
-                            svc, exch, side.path, parts_routed, meta,
-                            sink=sink)
+                        received = _tiered_exchange_spilled_with_refetch(
+                            svc, session, plan, exch, side.path,
+                            parts_routed, meta, sink, side.dead)
                 except HostMemoryPressure:
                     # every block landed; only the DRAIN failed, with the
                     # sink intact: grace takes over
@@ -1119,12 +1221,12 @@ def _elastic_width(svc: HostShuffleService, mans: Dict[int, dict],
 
 
 def decision_inputs(svc: HostShuffleService, frozen: str, cuts=None,
-                    est_splits=None) -> Dict[str, object]:
+                    est_splits=None, tier=None) -> Dict[str, object]:
     """The replicated pre-round decision components: the frozen plan-time
-    strategy, the epoch, the live set, the agreed-lost set and (range
-    lane) the cut points and the sample-estimated skew splits.  Every
-    process must derive this dict identically; it rides the plan round's
-    manifest."""
+    strategy, the epoch, the live set, the agreed-lost set, (range lane)
+    the cut points and the sample-estimated skew splits, and the device
+    tier's split.  Every process must derive this dict identically; it
+    rides the plan round's manifest."""
     d: Dict[str, object] = {
         "frozen": frozen,
         "epoch": int(svc.epoch),
@@ -1135,6 +1237,8 @@ def decision_inputs(svc: HostShuffleService, frozen: str, cuts=None,
         d["cuts"] = [str(c) for c in cuts]
     if est_splits is not None:
         d["splits"] = sorted(int(p) for p in est_splits)
+    if tier is not None:
+        d["tier"] = tier.fingerprint()
     return d
 
 
@@ -1337,9 +1441,10 @@ def _grace_spill_buckets(svc: HostShuffleService, xid: str, sdir: str,
     return out
 
 
-def _read_run_file(path: str) -> List[ColumnBatch]:
+def _read_run_file(path: str, keep_runs: bool = False
+                   ) -> List[ColumnBatch]:
     with open(path, "rb") as f:
-        return wire.decode_frames(f.read())
+        return wire.decode_frames(f.read(), keep_runs=keep_runs)
 
 
 def _grace_join_bucket(session, join, svc: HostShuffleService, xid: str,
@@ -1382,7 +1487,7 @@ def _grace_join_bucket(session, join, svc: HostShuffleService, xid: str,
             if meta is None:
                 subs.append({})
                 continue
-            frames = _read_run_file(meta[0])
+            frames = _read_run_file(meta[0], keep_runs=svc.run_codes)
             os.remove(meta[0])
             subs.append(_grace_spill_buckets(
                 svc, xid, sdir, f"d{depth + 1}-b{bucket:04d}-s{i}",
@@ -1402,7 +1507,8 @@ def _grace_join_bucket(session, join, svc: HostShuffleService, xid: str,
                 side_b = _one_dead_row(dead)
             else:
                 side_b = _timed_merge(lambda m=meta: _concat(
-                    svc.unify_code_space(_read_run_file(m[0]))))
+                    svc.unify_code_space(_read_run_file(
+                        m[0], keep_runs=svc.run_codes))))
             if finisher is not None:
                 side_b = finisher(side_b)
             assembled.append(side_b)
@@ -1579,7 +1685,8 @@ def _range_merge_join_shards(session, join, spec,
     n_fine = svc.n * session.conf.get(C.SHUFFLE_FINE_PARTITIONS)
     target = session.conf.get(C.SHUFFLE_TARGET_PARTITION_BYTES)
     sample_k = session.conf.get(C.SHUFFLE_RANGE_SAMPLE_SIZE)
-    _check_device_tier(session, svc)
+    from . import ici
+    tier, ici_min_bytes = _ici_tier(session, svc)
 
     # 1. local runs + monotone key images (string keys: local codes,
     # monotone in the words; the sample round exchanges WORDS)
@@ -1647,7 +1754,7 @@ def _range_merge_join_shards(session, join, spec,
             if est_span_w is not None else set()
         dt_in = decision_inputs(svc, "range",
                                 cuts=svc.last_range_cutpoints,
-                                est_splits=est_split)
+                                est_splits=est_split, tier=tier)
         svc.publish_sizes(f"{xid}-plan", sizes,
                           extra={"sides": side_obs, "dtrace": {"c": dt_in}})
         totals, mans = svc.gather_sizes_ex(f"{xid}-plan", 2 * n_spans)
@@ -1666,6 +1773,11 @@ def _range_merge_join_shards(session, join, spec,
             svc.bump("post_sample_skew_splits", sum(
                 1 for p in range(n_spans)
                 if len(owners[p]) > 1 and p not in est_split))
+        # device-tier activation per side (agreed inputs only); every span
+        # is a presorted run and ships as one, so a receiver gets at most
+        # one run per span
+        ici_plans = {k: ici.plan_side(tier, mans, k, ici_min_bytes,
+                                      max_runs=n_spans) for k in ("l", "r")}
 
         # 4a. probe side: a split span's sorted slice chops into
         # contiguous sub-runs, one per owner; build side: each span slice
@@ -1742,16 +1854,18 @@ def _range_merge_join_shards(session, join, spec,
                                  exch, sdir)
                 sinks.append(sink)
                 sink.defer_drain = grace_from is not None
+                plan = ici_plans["r" if is_build else "l"]
                 try:
                     if side.kind == "mem":
-                        received = _exchange_with_refetch(
-                            svc, exch, route(side, is_build), sink=sink)
+                        received = _tiered_exchange_with_refetch(
+                            svc, session, plan, exch, route(side, is_build),
+                            sink, side.dead)
                     else:
                         parts_routed, meta = route_spilled(side, exch,
                                                            is_build)
-                        received = _exchange_spilled_with_refetch(
-                            svc, exch, side.path, parts_routed, meta,
-                            sink=sink)
+                        received = _tiered_exchange_spilled_with_refetch(
+                            svc, session, plan, exch, side.path,
+                            parts_routed, meta, sink, side.dead)
                 except HostMemoryPressure:
                     if not svc.grace_buckets:
                         raise

@@ -34,6 +34,15 @@ side; rules fire when a matching block or marker is published:
 - ``spawn_exec_error``  the pool supervisor's exec seam raises
                 ``OSError(ENOEXEC)`` after ``after_spawns`` good spawns
                 (``attach_pool``).
+- ``ici_unavailable``  the device tier (``ici.device_publish``) raises
+                ``IciUnavailable`` at its attempt point for the addressed
+                exchange: this sender's spans fold back onto the host
+                tier (``dcn_fallback_exchanges``), byte-identical, and
+                its receivers read them there.
+- ``die_mid_device_copy``  the PROCESS exits hard at the device tier's
+                copy point: spans packed, arena and sidecar not yet
+                written.  Peers see the death at the host commit barrier
+                and take the refetch → recovery ladder.
 
 The JAX package's other kinds fire on modules the port does not have
 yet; a plan naming one raises, naming the slice that brings it, rather
@@ -59,7 +68,7 @@ FAULT_PLAN_ENV = "SPARK_TPU_FAULT_PLAN"
 _KINDS = ("drop", "truncate", "corrupt", "delay", "skip_commit",
           "die_after_put", "die_after_manifest", "disk_full",
           "die_during_register", "blockserver_unavailable",
-          "spawn_exec_error")
+          "spawn_exec_error", "ici_unavailable", "die_mid_device_copy")
 
 #: the JAX package's kinds whose fault points are in modules still to
 #: port, by the ROADMAP item that brings them
@@ -67,8 +76,6 @@ WAITING_KINDS = {
     "skew_decision": "item 11's runtime verifiers (analysis/)",
     "torn_checkpoint": "item 12, streaming",
     "die_after_state_commit": "item 12, streaming",
-    "ici_unavailable": "item 10.2, the cross-process device tier",
-    "die_mid_device_copy": "item 10.2, the cross-process device tier",
 }
 
 _BLOCK_KINDS = ("drop", "truncate", "corrupt", "delay")
@@ -189,6 +196,18 @@ class FaultPlan:
         ``heal_after_s`` restores it on a daemon timer."""
         return self._add("blockserver_unavailable", None, None, False,
                          heal_after_s=heal_after_s)
+
+    def ici_unavailable(self, exchange: Optional[str] = None,
+                        once: bool = True) -> "FaultPlan":
+        """The device tier raises ``IciUnavailable`` at its attempt point
+        for the addressed exchange (None = every attempt)."""
+        return self._add("ici_unavailable", exchange, None, once)
+
+    def die_mid_device_copy(self, exchange: Optional[str] = None
+                            ) -> "FaultPlan":
+        """Exit hard at the device tier's copy point: spans packed, the
+        arena and its sidecar not written."""
+        return self._add("die_mid_device_copy", exchange, None, True)
 
     def spawn_exec_error(self, after_spawns: int = 0,
                          once: bool = False) -> "FaultPlan":
@@ -338,6 +357,26 @@ class FaultInjector:
             die_after_manifest(exchange)
             return n
 
+        def ici_fault(exchange, point):
+            # consulted by ici.device_publish at its fault points:
+            # "attempt" (before any device work) and "copy" (spans
+            # packed, arena and sidecar not written)
+            for rule in rules:
+                if rule.kind == "ici_unavailable" and point == "attempt" \
+                        and rule.matches(exchange, None):
+                    rule.fired += 1
+                    self.injected.append(f"ici_unavailable:{exchange}")
+                    from .ici import IciUnavailable
+                    raise IciUnavailable(
+                        f"injected: device tier unavailable for "
+                        f"{exchange!r}")
+                if rule.kind == "die_mid_device_copy" and point == "copy" \
+                        and rule.matches(exchange, None):
+                    rule.fired += 1
+                    self._die(f"die_mid_device_copy:{exchange}",
+                              f"dying mid device copy in {exchange!r}")
+
+        svc._ici_fault = ici_fault
         svc.put = put
         svc.commit = commit
         if orig_publish is not None:

@@ -14,6 +14,13 @@ Protocol per exchange id::
     <root>/<exchange>/s<sender>-r<receiver>.part   one framed wire block
     <root>/<exchange>/s<sender>.dict               dictionary sidecar
     <root>/<exchange>/s<sender>.done               sender's commit marker
+    <root>/<exchange>/s<sender>.ici                device-tier arena sidecar
+
+The last is written only by a sender that shipped its spans for domain
+peers through its device arena (``ici.device_publish``), before its
+commit marker, whose manifest then names its size (``"ici"``); receivers
+pull those spans after the barrier (``ici.device_pull``, the ``pull``
+hook of ``exchange``).
 
 Block payloads are the columnar wire format of ``wire.py``, byte for
 byte the JAX package's: a block either package writes decodes in the
@@ -69,7 +76,9 @@ import numpy as np
 
 from .. import config as C
 from .. import wire
-from ..columnar import ColumnBatch, ColumnVector, remap_codes
+from .. import columnar as _col
+from ..columnar import (ColumnBatch, ColumnVector, remap_codes,
+                        unmaterialized_runs)
 
 __all__ = ["HostShuffleService", "RetryingBlockReader", "BlockFetchError",
            "ExchangeFetchFailed", "FetchSink"]
@@ -116,14 +125,16 @@ def _jitter(seed: str, attempt: int) -> float:
 
 
 def _decode_block(data: bytes,
-                  dict_table: Optional[Dict[str, tuple]] = None
-                  ) -> List[ColumnBatch]:
+                  dict_table: Optional[Dict[str, tuple]] = None,
+                  keep_runs: bool = False) -> List[ColumnBatch]:
     """A block's batches.  A block may hold SEVERAL back-to-back frames
     (map-side spill spans copied straight from a spill file); all of them
-    decode.  ``dict_table`` resolves fingerprint-only dictionaries.  Only
-    wire frames are blocks here: the JAX package's pickled pre-wire
-    blocks fail as ``WireFormatError``."""
-    return wire.decode_frames(data, dict_table=dict_table)
+    decode.  ``dict_table`` resolves fingerprint-only dictionaries;
+    ``keep_runs`` leaves run-coded columns lazy (``RunColumnVector``) for
+    the receiving stage.  Only wire frames are blocks here: the JAX
+    package's pickled pre-wire blocks fail as ``WireFormatError``."""
+    return wire.decode_frames(data, dict_table=dict_table,
+                              keep_runs=keep_runs)
 
 
 def _live_rows(batch: ColumnBatch) -> int:
@@ -291,7 +302,8 @@ class FetchSink:
                                    "grace pass")
                     drained += int(raw)
                     out.extend(wire.decode_frames(
-                        self._read_span(path, start, length)))
+                        self._read_span(path, start, length),
+                        keep_runs=self.svc.run_codes))
         return out
 
     def pop_entries(self):
@@ -313,7 +325,8 @@ class FetchSink:
                     continue
                 _kind, start, length, _raw = entry
                 yield from wire.decode_frames(
-                    self._read_span(path, start, length))
+                    self._read_span(path, start, length),
+                    keep_runs=self.svc.run_codes)
             if path is not None:
                 try:
                     os.remove(path)
@@ -530,7 +543,22 @@ class HostShuffleService:
             "manifests_adopted": 0, "blocks_adopted": 0,
             "blockserver_fallback_reads": 0, "blockserver_unavailable": 0,
             "orphaned_blocks_reclaimed": 0,
+            # run-coded execution: rows served by run-aware operators and
+            # run values expanded dense (slots kept for /status; the
+            # gauges of the same names read the process-wide counters)
+            "run_aware_op_rows": 0, "runs_materialized": 0,
+            # the device tier (``ici.py``): sides whose spans this process
+            # shipped through its device arena and the raw bytes packed,
+            # tiered exchanges that folded back onto the host tier, the
+            # intra-domain peers of the last tier split, and the pulls
+            # this process made with kernel K2 and the bytes they moved
+            "ici_exchanges": 0, "ici_bytes_moved": 0,
+            "dcn_fallback_exchanges": 0, "tier_split_peers": 0,
+            "ici_pulls": 0, "ici_bytes_pulled": 0,
         }
+        #: the process-wide run counters at the service's birth: its run
+        #: gauges report its own lifetime
+        self._run_base = _col.run_counters()
         #: reduce-partition byte sizes of the last reducer plan
         self.last_partition_bytes: Optional[List[int]] = None
         #: cut points of the last range exchange (int64 images or words)
@@ -1308,10 +1336,10 @@ class HostShuffleService:
         with self._lock:
             table = self._dict_tables.get((exchange, sender))
         try:
-            return _decode_block(data, table)
+            return _decode_block(data, table, keep_runs=self.run_codes)
         except wire.DictFingerprintError:
             table = self._load_dict_table(exchange, sender, deadline)
-            return _decode_block(data, table)
+            return _decode_block(data, table, keep_runs=self.run_codes)
 
     def collect(self, exchange: str,
                 receiver: Optional[int] = None) -> List[ColumnBatch]:
@@ -1527,6 +1555,15 @@ class HostShuffleService:
                     rm = np.asarray([pos[w] for w in v.dictionary],
                                     np.int32)
                     remaps[key] = rm
+                runs = unmaterialized_runs(v)
+                if runs is not None:
+                    # a dictionary+run coded column: the RUN VALUES are
+                    # remapped (monotone), the runs stay as they are
+                    vectors[i] = runs.with_run_values(
+                        remap_codes(runs.run_values, rm), dictionary=merged)
+                    n_remapped += int(runs.capacity)
+                    changed = True
+                    continue
                 vectors[i] = ColumnVector(remap_codes(v.data, rm), v.dtype,
                                           v.valid, merged)
                 n_remapped += int(v.data.shape[0])
@@ -1538,20 +1575,27 @@ class HostShuffleService:
         return out
 
     def _gather(self, exchange: str, own: List[ColumnBatch], t0: float,
-                sink=None) -> List[ColumnBatch]:
+                sink=None, pull=None) -> List[ColumnBatch]:
         """The read tail of every exchange shape: fetch remote blocks
         (optionally into a ``FetchSink``), then unify code spaces over
-        own-first, sorted-sender batches."""
+        own-first, sorted-sender batches.  ``pull(sink)`` (the device
+        tier's receiver half, ``ici.device_pull``) runs after the commit
+        barrier and the host fetch, and lands its deliveries in the sink
+        by sender."""
         if sink is not None:
             sink.add(-1, own)           # own partition sorts first
             self._fetch_remote(exchange, t0, sink=sink)
+            if pull is not None:
+                pull(sink)
             return self.unify_code_space(sink.drain())
+        if pull is not None:
+            raise ValueError("a device-tier pull lands in a FetchSink")
         remote = self._fetch_remote(exchange, t0)
         return self.unify_code_space(own + remote)
 
     def exchange(self, exchange: str,
                  per_receiver: Dict[int, Sequence[ColumnBatch]],
-                 sink=None, extra: Optional[dict] = None
+                 sink=None, extra: Optional[dict] = None, pull=None
                  ) -> List[ColumnBatch]:
         """One full all-to-all hop: publish, commit, barrier, collect.
         Exchange ids are SINGLE-USE; the caller cleans the directory up
@@ -1570,12 +1614,13 @@ class HostShuffleService:
             if r != self.pid:      # the own partition never touches disk
                 self.put(exchange, r, batches)
         self.commit(exchange, extra=extra)
-        return self._gather(exchange, own, t0, sink=sink)
+        return self._gather(exchange, own, t0, sink=sink, pull=pull)
 
     def exchange_spilled(self, exchange: str, spill_path: str,
                          routed: Dict[int, list],
                          meta: Dict[int, Tuple[int, int]],
-                         sink=None) -> List[ColumnBatch]:
+                         sink=None, extra: Optional[dict] = None,
+                         pull=None) -> List[ColumnBatch]:
         """``exchange`` for a side whose map output lives in a spill
         file: each receiver's block is byte-span parts of ``spill_path``
         (``spill_map_partitions``) published by ``put_frames``.
@@ -1595,8 +1640,8 @@ class HostShuffleService:
             if r != self.pid:
                 raw, rows = meta.get(r, (0, 0))
                 self.put_frames(exchange, r, parts, spill_path, raw, rows)
-        self.commit(exchange)
-        return self._gather(exchange, own, t0, sink=sink)
+        self.commit(exchange, extra=extra)
+        return self._gather(exchange, own, t0, sink=sink, pull=pull)
 
     def decode_spilled(self, exchange: str, spill_path: Optional[str],
                        parts) -> List[ColumnBatch]:
@@ -1605,7 +1650,8 @@ class HostShuffleService:
         with self._lock:
             table = dict(self._dict_refs.get(exchange) or {}) or None
         return wire.decode_frames(self._read_parts(spill_path, parts),
-                                  dict_table=table)
+                                  dict_table=table,
+                                  keep_runs=self.run_codes)
 
     def _decode_spilled_own(self, exchange: str, spill_path: str,
                             routed: Dict[int, list]) -> List[ColumnBatch]:
@@ -1616,7 +1662,7 @@ class HostShuffleService:
 
     def refetch(self, exchange: str,
                 per_receiver: Optional[Dict[int, Sequence[ColumnBatch]]]
-                = None, sink=None) -> List[ColumnBatch]:
+                = None, sink=None, pull=None) -> List[ColumnBatch]:
         """ONE more fetch attempt after an ``ExchangeFetchFailed``: a
         fresh barrier and read under a fresh ``timeout_s`` deadline (so
         exchange + refetch ≤ 2× the bound).  A peer that committed before
@@ -1627,11 +1673,12 @@ class HostShuffleService:
                 f"{C.SHUFFLE_FETCH_RETRY_ENABLED.key}")
         self.bump("refetches")
         own = self._own(per_receiver or {})
-        return self._gather(exchange, own, self._clock(), sink=sink)
+        return self._gather(exchange, own, self._clock(), sink=sink,
+                            pull=pull)
 
     def refetch_spilled(self, exchange: str, spill_path: str,
                         routed: Dict[int, list],
-                        sink=None) -> List[ColumnBatch]:
+                        sink=None, pull=None) -> List[ColumnBatch]:
         """``refetch`` for a spilled map side."""
         if not self.refetch_enabled:
             raise ExchangeFetchFailed(
@@ -1639,7 +1686,8 @@ class HostShuffleService:
                 f"{C.SHUFFLE_FETCH_RETRY_ENABLED.key}")
         self.bump("refetches")
         own = self._decode_spilled_own(exchange, spill_path, routed)
-        return self._gather(exchange, own, self._clock(), sink=sink)
+        return self._gather(exchange, own, self._clock(), sink=sink,
+                            pull=pull)
 
     # -- observability ---------------------------------------------------
     def metrics_source(self):
@@ -1669,6 +1717,11 @@ class HostShuffleService:
         gauges["range_cutpoints"] = lambda: (
             len(self.last_range_cutpoints)
             if self.last_range_cutpoints is not None else 0)
+        # run-coded execution and run planes at the stage boundary over
+        # the service's lifetime (the process-wide counters, diffed)
+        for name in self._run_base:
+            gauges[name] = (lambda name=name: _col.run_counters()[name]
+                            - self._run_base[name])
         gauges["blacklisted_peers"] = lambda: len(self.blacklist)
         gauges["blacklist"] = lambda: ",".join(
             self.host_name(p) for p in sorted(self.blacklist)) or ""

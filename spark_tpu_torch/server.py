@@ -255,6 +255,42 @@ class SQLServer:
                          "grace_salted_resplits", "reducers_elastic")}
         return out if any(out.values()) else {}
 
+    @staticmethod
+    def _ici_stats(session) -> Dict[str, int]:
+        """One session's device-tier activity (sides shipped through the
+        device arena, raw bytes packed, fold-backs onto the host tier, the
+        agreed intra-domain peer count, K2 pulls and their bytes); empty
+        without host shuffle or when the tier never engaged."""
+        svc = getattr(session, "_crossproc_svc", None)
+        counters = getattr(svc, "counters", None) if svc is not None \
+            else None
+        if not counters:
+            return {}
+        out = {k: int(counters.get(k, 0))
+               for k in ("ici_exchanges", "ici_bytes_moved",
+                         "dcn_fallback_exchanges", "tier_split_peers",
+                         "ici_pulls", "ici_bytes_pulled")}
+        return out if any(out.values()) else {}
+
+    @staticmethod
+    def _run_stats(session) -> Dict[str, int]:
+        """One session's run-coded execution: columns shipped run-coded,
+        wire bytes saved, and the process-wide run counters diffed
+        against the service's birth; empty without host shuffle or when
+        nothing moved."""
+        svc = getattr(session, "_crossproc_svc", None)
+        counters = getattr(svc, "counters", None) if svc is not None \
+            else None
+        if not counters:
+            return {}
+        from . import columnar as _col
+        out = {k: int(counters.get(k, 0))
+               for k in ("rle_columns_encoded", "run_bytes_saved")}
+        base = getattr(svc, "_run_base", {})
+        for k, v in _col.run_counters().items():
+            out[k] = max(0, v - int(base.get(k, 0)))
+        return out if any(out.values()) else {}
+
     def _grace_total(self) -> int:
         """Grace degradations across every session: admission's learned
         signal that running near the headroom floor now costs
@@ -621,9 +657,12 @@ class SQLServer:
         }
         if self._plan_cache is not None:
             out["planCache"] = self._plan_cache.stats()
-        grace = self._grace_stats(self.session)
-        if grace:
-            out["graceActivity"] = grace
+        for key, stats in (("graceActivity", self._grace_stats),
+                           ("iciActivity", self._ici_stats),
+                           ("runActivity", self._run_stats)):
+            got = stats(self.session)
+            if got:
+                out[key] = got
         if self._blockserver is not None:
             out["blockStore"] = self._blockserver.stats()
         if self._pool_supervisor is not None:

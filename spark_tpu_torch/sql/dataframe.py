@@ -177,6 +177,17 @@ class DataFrame:
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(self.session, L.Limit(n, self._plan))
 
+    def repartition(self, num: int, *cols) -> "DataFrame":
+        """A logical no-op, as in the JAX package: one process runs a plan
+        as one stage, and the mesh lane and the cross-process exchange
+        choose their own partitioning (``spark.tpu.mesh.shards``, the
+        exchange's reducer plan)."""
+        return self
+
+    def coalesce(self, num: int) -> "DataFrame":
+        """A logical no-op (see ``repartition``)."""
+        return self
+
     def distinct(self) -> "DataFrame":
         return DataFrame(self.session, L.Distinct(self._plan))
 

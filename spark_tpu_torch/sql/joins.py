@@ -30,10 +30,12 @@ import torch
 
 from .. import types as T
 from ..capture import constant
-from ..columnar import ColumnBatch, ColumnVector, pad_capacity
+from ..columnar import (ColumnBatch, ColumnVector, bump_run_aware,
+                        pad_capacity, unmaterialized_runs)
 from ..expressions import (AnalysisException, Cast, Col, EQ, EvalContext,
                            Expression, ExprValue, Hash64, _u64, lsr64)
-from ..kernels import apply_filter, multi_key_argsort, searchsorted, take_batch
+from ..kernels import (_POSITIONAL_EXPRS, apply_filter, multi_key_argsort,
+                       searchsorted, take_batch)
 from .logical import Join
 from . import physical as P
 
@@ -326,12 +328,24 @@ class PJoin(P.PhysicalPlan):
         probe_live = probe.row_valid_or_true()
         build_live = build.row_valid_or_true()
 
-        # exact int64 encodings per key pair (None → hashB verification)
-        encs = [_exact_encode_pair(pctx, bctx, l, r) for l, r in self.key_pairs]
+        # exact int64 encodings per key pair (None → hashB verification).
+        # A single probe key riding a host run vector encodes once per
+        # run of equal keys and is expanded after the search
+        run_rid = None
+        encs = None
+        if len(self.key_pairs) == 1:
+            rh = self._run_head_encode(probe, bctx)
+            if rh is not None:
+                encs, run_rid = rh
+        if encs is None:
+            encs = [_exact_encode_pair(pctx, bctx, l, r)
+                    for l, r in self.key_pairs]
 
         if len(encs) == 1 and encs[0] is not None:
             # EXACT search path: sort/search the encoded value itself
             p_enc, p_val, b_enc, b_val = encs[0]
+            if run_rid is not None and p_val is not None:
+                p_val = p_val[run_rid]       # head-sized → row-sized
             b_ok = build_live if b_val is None else (build_live & b_val)
             # lexicographic (flag, key) sort puts valid keys first sorted
             # by value; null/dead rows sink into an INT64_MAX-keyed suffix
@@ -370,6 +384,13 @@ class PJoin(P.PhysicalPlan):
 
         lo = searchsorted(ba_s, pa, side="left")
         hi = searchsorted(ba_s, pa, side="right")
+        if run_rid is not None:
+            # every row of a run shares its key: the per-run search
+            # results gathered to rows are dense execution's
+            lo, hi = lo[run_rid], hi[run_rid]
+            pe0, pv0, be0, bv0 = encs[0]
+            encs[0] = (pe0[run_rid],
+                       None if pv0 is None else pv0[run_rid], be0, bv0)
         counts = torch.where(p_ok, hi - lo, 0)
         matched_hash = counts > 0
 
@@ -470,6 +491,43 @@ class PJoin(P.PhysicalPlan):
         return out
 
     # ------------------------------------------------------------------
+    def _run_head_encode(self, probe: ColumnBatch, bctx: EvalContext):
+        """The single probe key encoded once per run when it rides an
+        unmaterialized host run vector (``spark_tpu/sql/joins.py``
+        ``_run_head_encode``): ``(encs, run_rid)``, head-sized encodings
+        and the row → run map that expands them, or None.  Every row of a
+        run shares its key, so the encoding and both search bounds are
+        constant within the run."""
+        l, r = self.key_pairs[0]
+        refs = l.references()
+        if len(refs) != 1:
+            return None
+        name = next(iter(refs))
+        if name not in probe.names:
+            return None
+        rv = unmaterialized_runs(probe.vectors[probe.names.index(name)])
+        if rv is None or rv.valid is not None \
+                or rv.capacity != probe.capacity:
+            return None
+        stack: List[Expression] = [l]
+        while stack:
+            e = stack.pop()
+            if isinstance(e, _POSITIONAL_EXPRS):
+                return None          # the key depends on the row position
+            stack.extend(e.children)
+        n_runs = int(rv.run_values.shape[0])
+        head = ColumnBatch([name], [ColumnVector(rv.run_values, rv.dtype,
+                                                 None, rv.dictionary)],
+                           None, n_runs)
+        enc0 = _exact_encode_pair(EvalContext(head), bctx, l, r)
+        if enc0 is None:
+            return None
+        run_rid = torch.repeat_interleave(
+            torch.arange(n_runs, dtype=torch.int64), rv.run_lengths,
+            output_size=rv.capacity)
+        bump_run_aware(probe.capacity)
+        return [enc0], run_rid
+
     def _append_unmatched_build(self, inner_out: ColumnBatch,
                                 build_s: ColumnBatch, unmatched):
         """FULL OUTER: append build rows with no VERIFIED match,

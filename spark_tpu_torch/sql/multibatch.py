@@ -249,7 +249,7 @@ class SpilledRuns:
         for path in self._disk:
             with open(path, "rb") as f:
                 data = f.read()
-            runs.extend(wire.decode_batches(data))
+            runs.extend(wire.decode_batches(data, keep_runs=self.run_codes))
             os.remove(path)
         runs.extend(self._mem)
         self._disk = []
@@ -646,9 +646,17 @@ class StreamedStep:
     def __init__(self, session, phys: P.PhysicalPlan, leaves, key_prefix: str,
                  skip_compact: bool, mesh=None):
         from . import stagecompile as SC
+        from ..columnar import dense_runs
         self.session = session
         self.mesh = mesh
         self.device = session.device
+        # the extra leaves (broadcast build sides) take the run-plane
+        # decision on the single-device lane; the mesh lane splits or
+        # replicates leaves by rows, which a plane cannot follow
+        if mesh is None:
+            leaves = [leaves[0]] + SC.plan_leaves(session, leaves[1:])
+        else:
+            leaves = [dense_runs(b, "cpu") for b in leaves]
         skey, slots = SC.stage_fingerprint(phys)
         self.key = (f"{key_prefix}|{skey}|{SC.leaf_signature(leaves)}"
                     f"|{SC._conf_component(session)}")

@@ -23,7 +23,7 @@ import numpy as np
 
 from .. import config as C
 from .. import types as T
-from ..columnar import ColumnBatch, ColumnVector, pad_capacity
+from ..columnar import ColumnBatch, ColumnVector, dense_runs, pad_capacity
 from ..expressions import AnalysisException
 from ..kernels import compact
 from .logical import (
@@ -303,13 +303,16 @@ def _needs_local_fallback(plan: LogicalPlan) -> bool:
     return bool(found)
 
 
-def stage_key(session, pq: "PlannedQuery") -> Tuple[str, list]:
+def stage_key(session, pq: "PlannedQuery", leaves=None
+              ) -> Tuple[str, list]:
     """(stage-cache key, slotted Literal objects) of one planned query:
     the slot-aware physical fingerprint, the leaves' shape/dtype
-    signature and the planning conf."""
+    signature (``leaves``, default ``pq.leaves``) and the planning
+    conf."""
     from . import stagecompile as SC
     body, slots = SC.stage_fingerprint(pq.physical)
-    return compose_stage_key(session, body, pq.leaves), slots
+    return compose_stage_key(session, body,
+                             pq.leaves if leaves is None else leaves), slots
 
 
 def compose_stage_key(session, body: str, leaves) -> str:
@@ -631,13 +634,12 @@ class QueryExecution:
         # Left out here, each with the slice that brings it:
         # * the plan-analysis verifiers (maybe_verify_*): the analysis
         #   slice;
-        # * run planes at the stage boundary (plan_leaves): with the
-        #   run-length vectors;
         # * the mesh lane under graphs: the mesh lane below stays eager.
         # The cross-process exchange (``crossproc_execute``) runs the host
         # shuffle's lanes, recovering a lost peer in epochs up to
         # spark.tpu.recovery.maxStageRetries; exchanges stay on the host
-        # tier until the device-tier slice.
+        # tier or, with spark.tpu.shuffle.ici.enabled, between processes on
+        # one card through the device tier.
         session = self.session
         session.raise_if_cancelled()      # checkpoint: before planning
         svc = session._crossproc_svc
@@ -793,14 +795,18 @@ class QueryExecution:
         # plus the leaf shape/dtype signature and the planning conf, with
         # int/float/bool literals in arithmetic/comparison positions
         # slotted out as the entry's device scalars
-        skey, slots = stage_key(session, pq)
+        # lazy run columns enter the stage as run planes or dense: the
+        # plane markers of leaf_signature re-key the stage (a run count
+        # past its bucket captures anew, never replays a stale graph)
+        leaves = SC.plan_leaves(session, pq.leaves)
+        skey, slots = stage_key(session, pq, leaves)
         return self._dispatch_stage(pq, skey,
                                     stage_maker(pq, slots, device, skey),
                                     SC.count_ops(pq.physical),
-                                    SC.param_values(slots))
+                                    SC.param_values(slots), leaves)
 
     def _dispatch_stage(self, pq: PlannedQuery, skey: str, make, n_ops: int,
-                        params) -> Tuple[ColumnBatch, float]:
+                        params, leaves=None) -> Tuple[ColumnBatch, float]:
         """One run of ``pq`` through its stage-cache entry (built by
         ``make`` on a miss) with the slotted literal values ``params``.
         The statement's cancellation is checked before the graph is
@@ -811,10 +817,11 @@ class QueryExecution:
         cache = SC.stage_cache(session)
         entry = cache.get_or_build(skey, make, n_ops=n_ops, session=session)
         # a pinned host leaf (a file batch) goes to the card by the
-        # entry's own copies into its static buffers
+        # entry's own copies into its static buffers; a run vector that
+        # did not become a plane enters dense (the key signs it so)
         leaves = [b if device.type == "cuda" and b.device.type == "cpu"
-                  and b.is_pinned() else b.to_device(device)
-                  for b in pq.leaves]
+                  and b.is_pinned() else dense_runs(b, device)
+                  for b in (pq.leaves if leaves is None else leaves)]
 
         def finish(out, host, meta):
             caps, kinds, metric_keys = meta

@@ -422,6 +422,10 @@ class SparkSession:
             root, process_id=process_id, n_processes=n_processes,
             timeout_s=timeout_s, conf=self.conf_obj, heartbeat=heartbeat,
             ledger=self._host_ledger)
+        # the card this process runs on, where every process reads the
+        # same facts: the device tier's auto probe groups by it
+        from ..parallel.ici import publish_device
+        publish_device(self._crossproc_svc, self.device)
         ms = self.metricsSystem
         ms._sources = [src for src in ms._sources if src.name != "shuffle"]
         ms.register_source(self._crossproc_svc.metrics_source())

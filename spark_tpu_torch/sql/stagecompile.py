@@ -73,7 +73,7 @@ from ..memory import evict_lru, tick
 __all__ = [
     "Stage", "StageCache", "stage_cache", "stage_fingerprint",
     "leaf_signature", "leaf_aux", "count_ops", "metrics_source",
-    "run_per_op",
+    "run_per_op", "plan_leaves",
 ]
 
 _log = logging.getLogger("spark_tpu_torch.stagecompile")
@@ -97,7 +97,12 @@ def leaf_signature(leaves) -> str:
     dtypes decide the program's shapes).  A file leaf also signs with the
     token of its files and their stat (``ColumnBatch.source``): a text
     over unchanged files keeps its key, and after a file changes the next
-    run gets a new one."""
+    run gets a new one.
+
+    A run plane signs as ``dtype~r{plane_capacity}``: the plane capacity
+    is a ``pad_capacity`` bucket of the run count, so a run count past
+    the bucket re-keys the stage and captures a graph for the larger
+    plane instead of replaying one built for other shapes."""
     return "x".join(
         f"{b.capacity}[{','.join(_vector_sig(v) for v in b.vectors)}]"
         + ("" if b.source is None else f"@{b.source}")
@@ -105,7 +110,14 @@ def leaf_signature(leaves) -> str:
 
 
 def _vector_sig(v) -> str:
-    """A vector's dtype; an array plane's with its width (``/L``)."""
+    """A vector's dtype; a run plane's with its plane capacity
+    (``~r{cap}``); an array plane's with its width (``/L``)."""
+    from ..columnar import unexpanded_plane, unmaterialized_runs
+    p = unexpanded_plane(v)
+    if p is not None:
+        return f"{v.dtype}~r{p.plane_capacity}"
+    if unmaterialized_runs(v) is not None:
+        return str(v.dtype)           # run tables are 1-D
     if v.data.dim() == 2:
         return f"{v.dtype}/{v.data.shape[1]}"
     return str(v.dtype)
@@ -123,11 +135,16 @@ def leaf_aux(leaves) -> tuple:
 
 
 def _leaf_tensors(leaves) -> List[torch.Tensor]:
-    """Every tensor of the leaves, in ``leaf_aux`` order."""
+    """Every tensor of the leaves, in ``leaf_aux`` order (a run plane's
+    values and lengths where a dense vector has its data)."""
+    from ..columnar import PlaneColumnVector
     out = []
     for b in leaves:
         for v in b.vectors:
-            out.append(v.data)
+            if isinstance(v, PlaneColumnVector):
+                out += [v.plane_values, v.plane_lengths]
+            else:
+                out.append(v.data)
             if v.valid is not None:
                 out.append(v.valid)
         if b.row_valid is not None:
@@ -468,12 +485,13 @@ def _pool_bytes(device, pool) -> int:
 
 
 def _clone_batch(b):
-    from ..columnar import ColumnBatch, ColumnVector
+    from ..columnar import ColumnBatch, ColumnVector, PlaneColumnVector
     return ColumnBatch(
         b.names,
-        [ColumnVector(v.data.clone(), v.dtype,
-                      None if v.valid is None else v.valid.clone(),
-                      v.dictionary) for v in b.vectors],
+        [v.clone() if isinstance(v, PlaneColumnVector)
+         else ColumnVector(v.data.clone(), v.dtype,
+                           None if v.valid is None else v.valid.clone(),
+                           v.dictionary) for v in b.vectors],
         None if b.row_valid is None else b.row_valid.clone(), b.capacity)
 
 
@@ -734,6 +752,7 @@ def metrics_source() -> Dict[str, Callable]:
     """Gauges for a 'compile' metrics source: resolved per read, so a
     source registered before the first build still reports live
     numbers."""
+    from .. import columnar as _col
     def g(key, default=0):
         def read():
             return stage_cache().stats().get(key, default)
@@ -746,7 +765,63 @@ def metrics_source() -> Dict[str, Callable]:
         "stage_dispatches": g("dispatches"),
         "stages_fused": g("stages_fused"),
         "ops_per_stage": g("ops_per_stage", 0.0),
+        # run planes at the stage boundary: how often a stage ran over
+        # compressed leaves, and both fallback counters
+        "run_plane_stages": _col.run_plane_stages,
+        "run_plane_rows": _col.run_plane_rows,
+        "run_plane_overflows": _col.run_plane_overflows,
+        "run_plane_expansions": _col.run_plane_expansions,
     }
+
+
+# ---------------------------------------------------------------------------
+# run planes at the stage boundary
+# ---------------------------------------------------------------------------
+
+def plan_leaves(session, leaves, device=None):
+    """How each lazy run column of a stage's leaves enters the stage
+    (``spark_tpu/sql/stagecompile.py`` ``plan_leaves``): as a fixed-
+    capacity run PLANE, or dense.
+
+    A plane is taken only where it compresses: the padded plane at most
+    half the dense capacity (``pad_capacity(n_runs) * 2 <= capacity``).
+    A run vector that fails bumps ``run_plane_overflows`` and enters
+    dense, as does every run vector with the conf off.  Called BEFORE the
+    stage key: a plane changes ``leaf_signature``, so plane-shaped inputs
+    never meet a graph captured for dense ones or for another plane
+    size.  Returns the leaves with every run vector a plane or dense
+    (on ``device`` when one is given, else on the host)."""
+    from ..columnar import (ColumnBatch, PlaneColumnVector, RunColumnVector,
+                            bump_plane_overflow, bump_plane_rows,
+                            bump_plane_stage, pad_capacity,
+                            unmaterialized_runs)
+    on = session is not None and session.conf.get(C.STAGE_RUN_PLANES)
+    dev = torch.device(device) if device is not None else torch.device("cpu")
+    out, any_planes = [], False
+    for b in leaves:
+        vecs = None
+        for i, v in enumerate(b.vectors):
+            if not isinstance(v, RunColumnVector):
+                continue
+            if vecs is None:
+                vecs = list(b.vectors)
+            rv = unmaterialized_runs(v)
+            if on and rv is not None and rv.valid is None \
+                    and rv.capacity == b.capacity:
+                plane_cap = pad_capacity(len(rv.run_values))
+                if plane_cap * 2 <= b.capacity:
+                    vecs[i] = PlaneColumnVector.from_runs(rv, plane_cap)
+                    bump_plane_rows(b.capacity)
+                    any_planes = True
+                    continue
+                bump_plane_overflow()
+            vecs[i] = v.dense_on(dev)
+        out.append(b if vecs is None
+                   else ColumnBatch(b.names, vecs, b.row_valid, b.capacity,
+                                    b.source))
+    if any_planes:
+        bump_plane_stage()
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1203,6 +1203,36 @@ CROSSPROC_GRACE_QUERIES = [
 ]
 
 
+#: dictionary-free sides (projected to integer columns): the shape the
+#: device tier takes (the JAX package worker's ``ICI_QUERIES``); the
+#: unprojected battery keeps its string sides on the host tier
+ICI_QUERIES = [
+    ("ici-inner-agg",
+     "SELECT sk, count(*) AS c, sum(bonus) AS sb "
+     "FROM (SELECT sk FROM fact) f "
+     "JOIN (SELECT k2, bonus FROM fact2) f2 ON sk = k2 "
+     "GROUP BY sk ORDER BY sk"),
+    ("ici-inner-rows",
+     "SELECT sk, price, bonus FROM (SELECT sk, price FROM fact) f "
+     "JOIN (SELECT k2, bonus FROM fact2) f2 ON sk = k2 "
+     "WHERE bonus > 40 ORDER BY sk, price, bonus"),
+    ("ici-left-agg",
+     "SELECT sk, count(bonus) AS cb, count(*) AS c "
+     "FROM (SELECT sk FROM fact) f "
+     "LEFT JOIN (SELECT k2, bonus FROM fact2) f2 ON sk = k2 "
+     "GROUP BY sk ORDER BY sk"),
+]
+
+
+def ici_confs(n: int) -> Dict[str, str]:
+    """The device tier armed with every pid in one domain and no byte
+    floor (the JAX package worker's ``ici`` mode)."""
+    return {"spark.tpu.shuffle.ici.enabled": "true",
+            "spark.tpu.shuffle.ici.minBytes": "0",
+            "spark.tpu.shuffle.ici.tierOverride":
+                ",".join(str(p) for p in range(n))}
+
+
 def crossproc_tables(pid: Optional[int] = None, n: int = 1) -> dict:
     """The battery's tables (the JAX package worker's, from seed 7):
     process ``pid`` of ``n`` keeps a strided 1/n slice of the three fact
@@ -1256,9 +1286,13 @@ def _crossproc_battery(xs, svc, mode: str) -> dict:
         return {"rows": rows, "delta": delta}
 
     out: Dict[str, Any] = {}
-    if mode in ("parity", "spill"):
+    if mode in ("parity", "spill", "ici"):
         for name, sql, _want in CROSSPROC_QUERIES:
             out[name] = {m: run(sql, m) for m, _s, _h in CROSSPROC_MODES}
+        if mode == "ici":
+            # dictionary-free sides: the device tier on both join lanes
+            for name, sql in ICI_QUERIES:
+                out[name] = {m: run(sql, m) for m in ("range", "hash")}
         return out
     # grace: both distributed lanes, then the elastic narrowing (a huge
     # target), then the salted re-split (one grace bucket) at both targets
@@ -1281,12 +1315,15 @@ def crossproc_worker(argv: Sequence[str]) -> int:
 
     argv: ``<pid> <n> <root> <mode> [timeout_s] [device]``.  Modes:
     ``parity`` (the battery in every join mode), ``spill`` (the same
-    with a 1 KiB spill threshold and a 32 MiB host budget), ``grace``
+    with a 1 KiB spill threshold and a 32 MiB host budget), ``ici`` (the
+    battery with the device tier armed, every pid in one domain, then
+    ``ICI_QUERIES`` on the range and hash lanes), ``grace``
     (a 7 KiB budget: the reducers' drains grace-degrade), ``kill``
     (one hash join; process 1 stops before committing its first join
     exchange and waits to be killed, the others must fail structured)
-    and ``card`` (``CARD_TEXTS`` over the tables of
-    ``<root>/spec.json``, with K1 held against its plain version).
+    ``card`` (``CARD_TEXTS`` over the tables of ``<root>/spec.json``,
+    with K1 held against its plain version) and ``ici-card`` (the device
+    tier's texts over the same tables, ``_ici_card_battery``).
     The answers, counters and gauges go to ``<root>/result-p<pid>.json``;
     the worker prints one line."""
     from . import config as C
@@ -1307,7 +1344,7 @@ def crossproc_worker(argv: Sequence[str]) -> int:
         .getOrCreate()
     xs.conf.set(C.MESH_SHARDS.key, "1")
     spec = None
-    if mode == "card":
+    if mode in ("card", "ici-card"):
         with open(os.path.join(root, "spec.json")) as f:
             spec = json.load(f)
         for k, v in spec.get("conf", {}).items():
@@ -1315,6 +1352,9 @@ def crossproc_worker(argv: Sequence[str]) -> int:
     if mode == "spill":
         xs.conf.set(C.SHUFFLE_SPILL_THRESHOLD.key, "1024")
         xs.conf.set(HOST_BUDGET.key, str(32 << 20))
+    elif mode == "ici":
+        for k, v in ici_confs(n).items():
+            xs.conf.set(k, v)
     elif mode == "grace":
         xs.conf.set(C.SHUFFLE_SPILL_THRESHOLD.key, "1024")
         xs.conf.set(HOST_BUDGET.key, str(7 << 10))
@@ -1331,12 +1371,13 @@ def crossproc_worker(argv: Sequence[str]) -> int:
                                timeout_s=timeout_s, heartbeat=heartbeat)
     svc.poll_s = 0.005          # one host: poll the markers often
     result: Dict[str, Any] = {"pid": pid, "mode": mode}
-    if mode == "card":
+    if mode in ("card", "ici-card"):
         from . import types as T
         t0 = time.perf_counter()
         register_card_tables(xs, T, spec, pid, n)
         result["setup_ms"] = (time.perf_counter() - t0) * 1e3
-        result["queries"] = _card_battery(xs, svc)
+        result["queries"] = _card_battery(xs, svc) if mode == "card" \
+            else _ici_card_battery(xs, svc, pid)
         return _finish_worker(result, svc, root, pid, mode, heartbeat)
     # a small advisory target keeps every process reducing on these tiny
     # tables; the broadcast threshold off pins each join mode's lane; 32
@@ -1667,6 +1708,90 @@ def _card_battery(xs, svc) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the device tier on the card (``chip_smoke.py``'s [ici] phase): the
+# worker's ``ici-card`` mode over the tables of ``<root>/spec.json``
+# ---------------------------------------------------------------------------
+
+#: the [ici] texts (keys of ``CARD_TEXTS``): q93's join on the hash, range
+#: and spilled faces take the device tier; q3's fast path (string sides)
+#: keeps the host tier
+ICI_CARD_KEYS = ("c_hash", "c_range", "c_spill", "b")
+
+#: the run counters the JAX package moves on q93's join over run-coded
+#: shards (``tests/test_torch_runs.py`` holds the port to the same set):
+#: the shards enter the receiving stage as run planes, which the join
+#: expands inside the stage
+ICI_RUN_COUNTERS = ("run_plane_stages", "run_plane_rows",
+                    "run_plane_expansions")
+
+
+def _ici_card_battery(xs, svc, pid: int) -> dict:
+    """[ici]'s runs in one worker (see ``chip_smoke.py``): each text cold
+    on the device tier with every pull held against its plain version
+    (``ici.CHECK_ENV``), then warm in turns (device, host, host, device);
+    c_hash once with ``tierOverride`` 0,1; c_hash and c_range on the host
+    tier with run codes; last, in process 1 only, ``ici_unavailable`` on
+    c_hash's first device attempt.  K2's pull launches count from 0 just
+    before the battery (``cuda_a2a.PULL_LAUNCHES``)."""
+    from . import columnar as _col
+    from . import cuda_a2a
+    from .parallel import ici
+    from .parallel.faults import FaultInjector, FaultPlan
+    texts = {k: (sql, lane, confs) for k, _w, sql, lane, confs in CARD_TEXTS
+             if k in ICI_CARD_KEYS}
+    tier_key = "spark.tpu.shuffle.ici.enabled"
+
+    def run(key, tier: bool, extra=None, check=False):
+        sql, lane, confs = texts[key]
+        confs = dict(confs, **(extra or {}))
+        confs[tier_key] = "true" if tier else "false"
+        for k, v in confs.items():
+            xs.conf.set(k, v)
+        if check:
+            os.environ[ici.CHECK_ENV] = "1"
+        try:
+            before = dict(svc.counters)
+            stats0 = dict(ici.STATS)
+            runs0 = _col.run_counters()
+            pulls0 = cuda_a2a.PULL_LAUNCHES
+            t0 = time.perf_counter()
+            rows = xs.sql(sql).collect()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            os.environ.pop(ici.CHECK_ENV, None)
+            for k in confs:
+                xs.conf.unset(k)
+        runs1 = _col.run_counters()
+        return {"rows": jsonable_rows(tuple(r) for r in rows),
+                "lane": lane, "tier": tier, "wall_ms": wall_ms,
+                "delta": {k: svc.counters[k] - before[k]
+                          for k in svc.counters
+                          if svc.counters[k] != before[k]},
+                "split": {k: ici.STATS[k] - stats0[k] for k in ici.STATS},
+                "runs": {k: runs1[k] - runs0[k] for k in runs1},
+                "pull_launches": cuda_a2a.PULL_LAUNCHES - pulls0}
+
+    cuda_a2a.PULL_LAUNCHES = 0
+    ici.reset_stats()
+    out: Dict[str, Any] = {}
+    for key in ICI_CARD_KEYS:
+        out[key] = {"cold": run(key, True, check=True)}
+    for key in ICI_CARD_KEYS:
+        out[key]["warm"] = [run(key, t) for t in (True, False, False, True)]
+    out["override"] = run("c_hash", True, extra={
+        "spark.tpu.shuffle.ici.tierOverride": "0,1"})
+    out["runcodes"] = {key: run(key, False, extra={
+        "spark.tpu.shuffle.wire.runCodes": "true"})
+        for key in ("c_hash", "c_range")}
+    out["_check"] = dict(ici.CHECK)
+    out["_pull_launches"] = cuda_a2a.PULL_LAUNCHES
+    if pid == 1:
+        FaultInjector(FaultPlan().ici_unavailable()).attach(svc)
+    out["unavailable"] = run("c_hash", True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # recovery: the JAX package's ``tests/recovery_worker.py`` modes, and the
 # card scenarios of ``chip_smoke.py``'s [recovery] phase
 # ---------------------------------------------------------------------------
@@ -1722,6 +1847,14 @@ RECOVERY_MODES = {
                "spark.tpu.blockserver.enabled": "true",
                "spark.tpu.recovery.maxStageRetries": "0"},
     "card-d": {},
+    # the device tier on (ici-recover: every pid of two in one domain;
+    # card-ici: the auto probe, both on one card): a peer that dies at
+    # its copy point, or is refused the tier, is survived
+    "ici-recover": dict(_HASH_LANE, **ici_confs(2)),
+    "ici-unavail": dict(_HASH_LANE, **ici_confs(2)),
+    "card-ici": {"spark.tpu.crossproc.sortMergeJoin": "false",
+                 "spark.tpu.crossproc.autoBroadcastThreshold": "0",
+                 "spark.tpu.shuffle.ici.enabled": "true"},
 }
 
 
@@ -1989,6 +2122,9 @@ def _recovery_mode_problem(mode: str, c: dict, g: dict) -> str:
         "card-c": c["stage_retries"] == 0 and g["epoch"] == 0
         and c["blocks_adopted"] >= 1,
         "card-d": c["stage_retries"] >= 1 and g["epoch"] >= 1,
+        "ici-recover": c["stage_retries"] >= 1 and g["epoch"] >= 1,
+        "ici-unavail": c["stage_retries"] == 0 and g["epoch"] == 0,
+        "card-ici": c["stage_retries"] >= 1 and g["epoch"] >= 1,
     }
     return "" if want[mode] else f"mode {mode} contract"
 
@@ -2260,8 +2396,26 @@ def chaos_scenarios() -> List[dict]:
     ]
 
 
+def ici_scenarios() -> List[dict]:
+    """The device tier's fault scenarios (two processes, one domain by
+    override): process 1 refused the tier on its first join exchange
+    (its spans fold back onto the host tier, both answer), and process 1
+    dying at the device tier's copy point (recovered in an epoch)."""
+    from .parallel.faults import FaultPlan as P
+    return [
+        _scenario("ici-unavailable-one-sided", "recovery-worker",
+                  "ici-unavail", 2, 20.0,
+                  {1: lambda: P().ici_unavailable("xq000001-jL")},
+                  {0: "OK", 1: "OK"}),
+        _scenario("ici-die-mid-device-copy", "recovery-worker",
+                  "ici-recover", 2, 20.0,
+                  {1: lambda: P().die_mid_device_copy("xq000001-jL")},
+                  {0: "OK", 1: "DIED"}),
+    ]
+
+
 def chaos_scenario(name: str) -> dict:
-    for sc in chaos_scenarios():
+    for sc in chaos_scenarios() + ici_scenarios():
         if sc["name"] == name:
             return sc
     raise KeyError(name)

@@ -42,7 +42,8 @@ import torch
 from . import codec as _codec
 from . import config as C
 from . import types as T
-from .columnar import ColumnBatch, ColumnVector
+from .columnar import (ColumnBatch, ColumnVector, RunColumnVector,
+                       unexpanded_plane, unmaterialized_runs)
 
 __all__ = [
     "MAGIC", "WIRE_VERSION", "WireFormatError", "ChecksumError",
@@ -239,12 +240,27 @@ def _decode_bitmask(payload: memoryview, entry: dict, n: int) -> np.ndarray:
 # encode
 # ---------------------------------------------------------------------------
 
+def _data_nbytes(v: ColumnVector) -> int:
+    """Payload bytes of one column's data as it would ship: a still-lazy
+    run vector's run table (never inflated to be measured), else the
+    dense tensor's bytes."""
+    r = unmaterialized_runs(v)
+    if r is not None:
+        return (r.run_values.numel() * r.run_values.element_size()
+                + r.run_lengths.numel() * 8)
+    p = unexpanded_plane(v)
+    if p is not None:
+        return p.capacity * p.plane_values.element_size()
+    return v.data.numel() * v.data.element_size()
+
+
 def raw_nbytes(batches: Sequence[ColumnBatch]) -> int:
-    """Uncompressed payload size of ``batches`` (arithmetic only)."""
+    """Uncompressed payload size of ``batches`` (arithmetic only); run
+    vectors count their run tables, not the inflated width."""
     total = 0
     for b in batches:
         for v in b.vectors:
-            total += v.data.numel() * v.data.element_size()
+            total += _data_nbytes(v)
             if v.valid is not None:
                 total += (b.capacity + 7) // 8
         if b.row_valid is not None:
@@ -260,7 +276,10 @@ def payload_nbytes(batches: Sequence[ColumnBatch]) -> int:
             words = v.dictionary
             if not words:
                 continue
-            codes = _np(v.data.cpu()).ravel()
+            r = unmaterialized_runs(v)
+            # run values cover exactly the codes present: no inflation
+            codes = _np((r.run_values if r is not None
+                         else v.data).cpu()).ravel()
             codes = codes[(codes >= 0) & (codes < len(words))]
             for c in np.unique(codes):
                 total += len(words[int(c)])
@@ -340,8 +359,28 @@ def encode_batches(batches: Sequence[ColumnBatch], *,
         for v in b.vectors:
             enc_meta = None
             data_entry = None
-            data = _np(v.data)
-            if run_codes and data.ndim == 1 and data.dtype.kind in "iub" \
+            runs = unmaterialized_runs(v) if run_codes else None
+            if runs is not None:
+                rvals = _np(runs.run_values)
+                rlens = _np(runs.run_lengths).astype(np.int64)
+                dense = runs.capacity * rvals.dtype.itemsize
+                if rvals.ndim == 1 and rvals.nbytes + rlens.nbytes < dense:
+                    # already a run table, and the smaller form: it ships
+                    # as it is, never inflated
+                    data_entry = w.add(np.ascontiguousarray(rvals).tobytes())
+                    enc_meta = {"k": "rle", "nr": int(len(rvals)),
+                                "lens": w.add(np.ascontiguousarray(
+                                    rlens).tobytes())}
+                    _bump(stats, "rle_columns_encoded", 1)
+                    _bump(stats, "run_bytes_saved",
+                          dense - rvals.nbytes - rlens.nbytes)
+            if data_entry is not None:
+                np_str, shape = rvals.dtype.str, [int(runs.capacity)]
+            else:
+                data = _np(v.data)
+                np_str, shape = data.dtype.str, list(data.shape)
+            if data_entry is None and run_codes and data.ndim == 1 \
+                    and data.dtype.kind in "iub" \
                     and len(data) >= _MIN_RUN_ROWS:
                 choice = _choose_run_encoding(data, run_hint)
                 if choice is not None and choice[0] == "rle":
@@ -365,8 +404,8 @@ def encode_batches(batches: Sequence[ColumnBatch], *,
                 data_entry = w.add(np.ascontiguousarray(data).tobytes())
             cm = {
                 "dtype": v.dtype.simpleString(),
-                "np": data.dtype.str,
-                "shape": list(data.shape),
+                "np": np_str,
+                "shape": shape,
                 "dict": _dict_to_header(v.dictionary),
                 "data": data_entry,
                 "valid": None if v.valid is None else w.add(_packbits(v.valid)),
@@ -463,12 +502,14 @@ def frame_length(buf) -> int:
     return PREFIX_LEN + hlen + plen
 
 
-def _decode_run_column(payload: memoryview, cm: dict) -> np.ndarray:
-    """The dense data of one ``enc``-tagged column; the run or delta
-    table is validated against the declared row count, so a malformed
-    frame fails as ``WireFormatError``.  A run-coded column decodes to a
-    dense vector here: lazy run vectors, which keep the run table
-    through run-aware operators, come with the next slice."""
+def _decode_run_column(payload: memoryview, cm: dict, dt, valid, d,
+                       keep_runs: bool) -> ColumnVector:
+    """One ``enc``-tagged column; the run or delta table is validated
+    against the declared row count, so a malformed frame fails as
+    ``WireFormatError``.  With ``keep_runs`` a run-coded column stays a
+    lazy ``RunColumnVector`` (``spark_tpu/wire.py`` ``_decode_run_column``)
+    so run-aware operators never pay the expansion; a delta column always
+    expands (it has no runs to keep)."""
     enc = cm["enc"]
     kind = enc.get("k")
     n = int(cm["shape"][0])
@@ -486,7 +527,8 @@ def _decode_run_column(payload: memoryview, cm: dict) -> np.ndarray:
     except ValueError as e:
         raise WireFormatError(f"malformed {kind} column buffers: {e}")
     if kind == "delta":
-        return delta_decode(int(enc["base"]), diffs, np_dt, n)
+        return ColumnVector(_tensor(delta_decode(int(enc["base"]), diffs,
+                                                 np_dt, n)), dt, valid, d)
     if len(rlens) and int(rlens.min()) < 0:
         raise WireFormatError("malformed run table: negative run length")
     total = int(rlens.sum())
@@ -494,7 +536,9 @@ def _decode_run_column(payload: memoryview, cm: dict) -> np.ndarray:
         raise WireFormatError(
             f"malformed run table: lengths sum to {total}, header "
             f"declares {n} rows")
-    return np.repeat(rvals, rlens)
+    if keep_runs:
+        return RunColumnVector(_tensor(rvals), _tensor(rlens), dt, valid, d)
+    return ColumnVector(_tensor(np.repeat(rvals, rlens)), dt, valid, d)
 
 
 def _tensor(arr: np.ndarray) -> torch.Tensor:
@@ -502,11 +546,12 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True))
 
 
-def decode_batches(buf, dict_table: Optional[Dict[str, Tuple]] = None
-                   ) -> List[ColumnBatch]:
+def decode_batches(buf, dict_table: Optional[Dict[str, Tuple]] = None,
+                   keep_runs: bool = False) -> List[ColumnBatch]:
     """One framed block back into host ``ColumnBatch`` objects.  A column
     holding only a ``"dfp"`` fingerprint resolves through ``dict_table``
-    (``DictFingerprintError`` when it is missing)."""
+    (``DictFingerprintError`` when it is missing); with ``keep_runs`` a
+    run-coded column decodes to a lazy ``RunColumnVector``."""
     header, payload = _split_frame(buf)
     out: List[ColumnBatch] = []
     for meta in header["batches"]:
@@ -528,10 +573,11 @@ def decode_batches(buf, dict_table: Optional[Dict[str, Tuple]] = None
             valid = None if cm["valid"] is None else torch.from_numpy(
                 _decode_bitmask(payload, cm["valid"], cap))
             if cm.get("enc") is not None:
-                data = _decode_run_column(payload, cm)
-            else:
-                data = _decode_array(payload, cm["data"], np.dtype(cm["np"]),
-                                     cm["shape"])
+                vectors.append(_decode_run_column(payload, cm, dt, valid, d,
+                                                  keep_runs))
+                continue
+            data = _decode_array(payload, cm["data"], np.dtype(cm["np"]),
+                                 cm["shape"])
             vectors.append(ColumnVector(_tensor(data), dt, valid, d))
         rv = None if meta["row_valid"] is None else torch.from_numpy(
             _decode_bitmask(payload, meta["row_valid"], cap))
@@ -539,15 +585,16 @@ def decode_batches(buf, dict_table: Optional[Dict[str, Tuple]] = None
     return out
 
 
-def decode_frames(buf, dict_table: Optional[Dict[str, Tuple]] = None
-                  ) -> List[ColumnBatch]:
+def decode_frames(buf, dict_table: Optional[Dict[str, Tuple]] = None,
+                  keep_runs: bool = False) -> List[ColumnBatch]:
     """Every frame of a buffer of back-to-back wire blocks, in order."""
     mv = memoryview(buf)
     out: List[ColumnBatch] = []
     off = 0
     while off < len(mv) or off == 0:
         ln = frame_length(mv[off:])
-        out.extend(decode_batches(mv[off:], dict_table=dict_table))
+        out.extend(decode_batches(mv[off:], dict_table=dict_table,
+                                  keep_runs=keep_runs))
         off += ln
         if off >= len(mv):
             break

@@ -178,16 +178,34 @@ def uncached(tspark, tables):
     return _answers(TF, _subtree(TF, ss, it), dd)
 
 
+def _keys(session):
+    return {e["key"] for e in session.cacheManager.entries()}
+
+
+def _added(session, before):
+    """The entries of ``session``'s cache manager whose keys are not in
+    ``before``: what one test put.  The reference's ``spark`` fixture is
+    shared by every test file of a worker, and other files leave entries
+    there (``tests/test_dataframe.py`` ``test_cache``)."""
+    return [e for e in session.cacheManager.entries()
+            if e["key"] not in before]
+
+
 @pytest.mark.parametrize("level", LEVELS)
 def test_cached_subtree_answers_like_reference(spark, tspark, tables,
                                                uncached, level):
+    _check_cached_subtree(spark, tspark, tables, uncached, level)
+
+
+def _check_cached_subtree(spark, tspark, tables, uncached, level):
+    rbefore, tbefore = _keys(spark), _keys(tspark)
     ref_frames = _frames(spark, RT, tables)
     rsub = _subtree(RF, ref_frames[0], ref_frames[2]).cache(level)
     ss, dd, it = _frames(tspark, TT, tables)
     tsub = _subtree(TF, ss, it).cache(level)
     try:
-        assert [e["level"] for e in tspark.cacheManager.entries()] == \
-            [e["level"] for e in spark.cacheManager.entries()] == [level]
+        assert [e["level"] for e in _added(tspark, tbefore)] == \
+            [e["level"] for e in _added(spark, rbefore)] == [level]
         # the subtree is substituted in every query over it
         plan = TQE(tspark, _queries(TF, tsub, dd)["join"]._plan).analyzed
         assert "CachedRelation" in {type(n).__name__
@@ -302,13 +320,18 @@ def test_second_cache_reference_fault(spark, tspark, tables):
     """The reference keys a second ``cache()`` of a cached relation on
     the substituted plan, ``LocalRelation#uid``, and holds a second copy;
     the port keeps its one entry (ROADMAP §3)."""
+    _check_second_cache(spark, tspark, tables)
+
+
+def _check_second_cache(spark, tspark, tables):
     counts = []
     for session, F, T in ((spark, RF, RT), (tspark, TF, TT)):
+        before = _keys(session)
         ss, _dd, it = _frames(session, T, tables)
         sub = _subtree(F, ss, it).cache()
         first = sub._cached
         sub.cache()
-        counts.append(len(session.cacheManager.entries()))
+        counts.append(len(_added(session, before)))
         session.cacheManager.remove(first)
         sub.unpersist()
     assert counts == [2, 1]
@@ -317,13 +340,18 @@ def test_second_cache_reference_fault(spark, tspark, tables):
 def test_cache_on_cache_keyed_like_reference(spark, tspark, tables):
     """A cache over a cached subtree is keyed on the substituted plan:
     its key names the inner entry by uid, not the inner subtree."""
+    _check_cache_on_cache(spark, tspark, tables)
+
+
+def _check_cache_on_cache(spark, tspark, tables):
     keys = []
     for session, F, T in ((spark, RF, RT), (tspark, TF, TT)):
+        before = _keys(session)
         ss, _dd, it = _frames(session, T, tables)
         inner = _subtree(F, ss, it).cache()
         outer = inner.select("ss_item_sk", "i_brand").cache()
         try:
-            entries = session.cacheManager.entries()
+            entries = _added(session, before)
             inner_key = [e["key"] for e in entries
                          if e["key"] != outer._cached][0]
             assert outer._cached.count("LocalRelation#") == 1
@@ -334,6 +362,23 @@ def test_cache_on_cache_keyed_like_reference(spark, tspark, tables):
             outer.unpersist()
             inner.unpersist()
     assert keys == ["Project", "Project"]
+
+
+def test_checks_hold_beside_a_leftover_reference_entry(spark, tspark,
+                                                        tables, uncached):
+    """Another file's ``cache()`` on the shared reference session (as
+    ``tests/test_dataframe.py`` leaves one) changes none of the checks
+    above: each reads only the entries it added."""
+    left = spark.range(7).select((RF.col("id") * 3).alias("x")).cache()
+    try:
+        assert left._cached in _keys(spark)
+        for level in LEVELS:
+            _check_cached_subtree(spark, tspark, tables, uncached, level)
+        _check_second_cache(spark, tspark, tables)
+        _check_cache_on_cache(spark, tspark, tables)
+        assert left._cached in _keys(spark)
+    finally:
+        left.unpersist()
 
 
 # -- the port only -----------------------------------------------------------

@@ -418,13 +418,21 @@ def test_enable_host_shuffle_reads_the_launcher_contract(tmp_path,
 
 
 def test_device_tier_with_peers_raises(xs, tmp_path):
+    """Before the device tier was ported, a tier override naming peers
+    raised here.  Now it yields the agreed split (no raise), and the auto
+    probe over CPU processes yields singletons: the host tier."""
+    from spark_tpu_torch.parallel import ici
     from spark_tpu_torch.parallel.hostshuffle import HostShuffleService
-    svc = HostShuffleService(str(tmp_path / "t"), 0, 2, timeout_s=5)
+    root = str(tmp_path / "t")
+    svc = HostShuffleService(root, 0, 2, timeout_s=5)
+    for p in (0, 1):
+        ici.publish_device(HostShuffleService(root, p, 2), "cpu")
     xs.conf.set("spark.tpu.shuffle.ici.enabled", "true")
-    TX._check_device_tier(xs, svc)                  # auto probe: singletons
+    assert TX._ici_tier(xs, svc)[0] is None         # auto probe: singletons
     xs.conf.set("spark.tpu.shuffle.ici.tierOverride", "0,1")
-    with pytest.raises(NotImplementedError, match="device tier"):
-        TX._check_device_tier(xs, svc)
+    tier, min_bytes = TX._ici_tier(xs, svc)
+    assert tier.peers() == [1] and min_bytes == 1 << 16
+    assert svc.counters["tier_split_peers"] == 1
     xs.conf.unset("spark.tpu.shuffle.ici.tierOverride")
     xs.conf.unset("spark.tpu.shuffle.ici.enabled")
 

@@ -16,6 +16,9 @@ The CUDA kernel itself is held against the same plain version on the
 card by ``chip_smoke.py``.
 """
 
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -298,3 +301,245 @@ CONTROL = ([("probe", a) for a in PROBES]
                          ids=[f"{k}-{i}" for i, (k, _a) in enumerate(CONTROL)])
 def test_control_plane_matches_reference(case):
     assert _plan(tici, case) == _plan(rici, case)
+
+
+# ---------------------------------------------------------------------------
+# across processes: the auto probe, the tier split, the arena and its
+# sidecar, the one-sided fold-back, the fault kinds (the exchange itself
+# runs in real processes in tests/test_torch_ici_procs.py)
+# ---------------------------------------------------------------------------
+
+from spark_tpu import config as RC  # noqa: E402
+from spark_tpu.parallel import crossproc as rxp  # noqa: E402
+from spark_tpu.parallel import faults as rfaults  # noqa: E402
+from spark_tpu.parallel.hostshuffle import \
+    HostShuffleService as RService  # noqa: E402
+from spark_tpu_torch import config as TC  # noqa: E402
+from spark_tpu_torch.parallel import crossproc as txp  # noqa: E402
+from spark_tpu_torch.parallel import faults as tfaults  # noqa: E402
+from spark_tpu_torch.parallel.hostshuffle import (  # noqa: E402
+    FetchSink, HostShuffleService as TService)
+
+
+class _Session:
+    """What ``_ici_tier`` and the tier read of a session: its conf (and,
+    for the port, its device and memory manager)."""
+
+    def __init__(self, conf, device="cpu"):
+        self.conf = conf
+        self.device = torch.device(device)
+        self._memory = None
+
+
+def _tier_confs(**kw):
+    return {"spark.tpu.shuffle.ici.enabled": "true",
+            "spark.tpu.shuffle.ici.minBytes": "0", **kw}
+
+
+def test_auto_probe_cpu_processes_are_singletons(tmp_path):
+    """On a CPU session every process publishes ``cpu:<pid>``: the auto
+    probe gives singleton domains, as the JAX package's one-process CPU
+    world does; processes that publish one card form one domain."""
+    svcs = [TService(str(tmp_path), p, 3) for p in range(3)]
+    for s in svcs:
+        tici.publish_device(s, "cpu")
+    uuids = tici.card_uuids(svcs[0], [0, 1, 2])
+    assert uuids == {0: "cpu:0", 1: "cpu:1", 2: "cpu:2"}
+    got = tici.probe_topology("", 1, 3, [0, 1, 2], uuids)
+    want = rici.probe_topology("", 1, 3, [0, 1, 2])
+    assert got.domains == want.domains == ((0,), (1,), (2,))
+    assert got.fingerprint() == want.fingerprint()
+    cards = {0: "cuda:GPU-a", 1: "cuda:GPU-b", 2: "cuda:GPU-a"}
+    assert tici.probe_topology("", 0, 3, [0, 1, 2], cards).domains == \
+        ((0, 2), (1,))
+    # a pid that is not live is dropped from its card's domain
+    assert tici.probe_topology("", 0, 3, [0, 1], cards).domains == \
+        ((0,), (1,))
+
+
+@pytest.mark.parametrize("override,peers", [("", 0), ("0,1", 1),
+                                            ("0|1", 0)])
+def test_ici_tier_and_fingerprint_match_reference(tmp_path, override,
+                                                  peers):
+    confs = _tier_confs(**{"spark.tpu.shuffle.ici.tierOverride": override})
+    tsvc = TService(str(tmp_path / "t"), 0, 2)
+    for p in (0, 1):
+        tici.publish_device(TService(str(tmp_path / "t"), p, 2), "cpu")
+    rsvc = RService(str(tmp_path / "r"), 0, 2)
+    ttier, tmin = txp._ici_tier(_Session(TC.Conf(confs)), tsvc)
+    rtier, rmin = rxp._ici_tier(_Session(RC.Conf(confs)), rsvc)
+    assert tmin == rmin == 0
+    assert (ttier is None) == (rtier is None) == (peers == 0)
+    assert tsvc.counters["tier_split_peers"] == \
+        rsvc.counters["tier_split_peers"] == peers
+    td = txp.decision_inputs(tsvc, "hash", tier=ttier)
+    rd = rxp.decision_inputs(rsvc, "hash", tier=rtier)
+    assert td == rd
+    if peers:
+        assert td["tier"] == ["0,1"]
+    # the tier off: no split at all
+    off = {"spark.tpu.shuffle.ici.enabled": "false"}
+    assert txp._ici_tier(_Session(TC.Conf(off)), tsvc) == \
+        rxp._ici_tier(_Session(RC.Conf(off)), rsvc) == (None, 0)
+
+
+def _pair(tmp_path):
+    """Two services on one root and each one's agreed side plan."""
+    svcs = [TService(str(tmp_path), p, 2, timeout_s=10.0) for p in (0, 1)]
+    for s in svcs:
+        s.poll_s = 0.002
+    mans = {0: {"sides": {"l": [4096, 40]}}, 1: {"sides": {"l": [4096, 40]}}}
+    return svcs, [tici.plan_side(tici.probe_topology("0,1", p, 2, [0, 1]),
+                                 mans, "l", 0, max_runs=3) for p in (0, 1)]
+
+
+def _outbox(seed, receiver, runs=2):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(runs):
+        m = int(rng.integers(1, 9))
+        _rb, tb = _both_batches(rng.integers(-99, 99, m),
+                                (rng.random(m) < 0.7) if m % 2 else None)
+        out.append(tb)
+    return {receiver: out}
+
+
+def test_sidecar_round_trip_and_double_buffer(tmp_path):
+    """Process 1 packs its spans for process 0 into its shared-memory
+    arena and publishes the sidecar; process 0's pull, after process 1's
+    commit, lands the same runs in its sink (values, masks, run
+    boundaries).  Three publishes use the arena's two slots in turn."""
+    (s0, s1), (plan0, plan1) = _pair(tmp_path)
+    _rtpl, tpl = _both_batches([0])
+    slots = []
+    for i in range(3):
+        xid = f"x{i}"
+        ob = _outbox(i, 0)
+        extra = tici.device_publish(s1, _Session(None), plan1, xid, ob, tpl)
+        slots.append(json.load(open(tici._sidecar_path(s1, xid, 1)))["slot"])
+        s1.commit(xid, extra=extra)
+        sink = FetchSink(s0, f"o{i}", xid, str(tmp_path))
+        tici.device_pull(s0, _Session(None), plan0, xid, tpl, sink)
+        got = sink.drain()
+        sink.close()
+        want = ob[0]
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert torch.equal(g.vectors[0].data, w.vectors[0].data)
+            assert (g.vectors[0].valid is None) == \
+                (w.vectors[0].valid is None or bool(w.vectors[0].valid.all()))
+            if g.vectors[0].valid is not None:
+                assert torch.equal(g.vectors[0].valid, w.vectors[0].valid)
+    assert slots == [0, 1, 0]
+    assert s1.counters["ici_exchanges"] == 3 and s0.counters["ici_pulls"] == 3
+    # a peer's own slot is never pulled, and a commit without a sidecar
+    # (the host tier) leaves nothing to pull
+    s1.commit("y")
+    sink = FetchSink(s0, "o", "y", str(tmp_path))
+    tici.device_pull(s0, _Session(None), plan0, "y", tpl, sink)
+    assert sink.drain() == []
+
+
+def test_pack_overflow_folds_back_one_sided(tmp_path):
+    """Both processes run ``_tiered_exchange_with_refetch`` at once;
+    process 1's spans overflow the agreed pack capacity, so it folds them
+    back onto the host tier (counted there alone) while process 0 ships
+    through its arena.  Each receives exactly what the host tier would
+    deliver."""
+    import threading
+    (s0, s1), plans = _pair(tmp_path)
+    _rtpl, tpl = _both_batches([0])
+    big = {0: [_both_batches(np.arange(100))[1]]}      # > cap_rows (64)
+    small = {1: [_both_batches(np.arange(5))[1]]}
+    out = {}
+
+    def run(svc, routed):
+        sink = FetchSink(svc, "owner", "xq-jL", str(tmp_path))
+        out[svc.pid] = txp._tiered_exchange_with_refetch(
+            svc, _Session(None), plans[svc.pid], "xq-jL", routed, sink, tpl)
+    ts = [threading.Thread(target=run, args=a)
+          for a in ((s0, small), (s1, big))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    assert [b.vectors[0].data.tolist() for b in out[0]] == \
+        [list(range(100))]
+    assert [b.vectors[0].data.tolist() for b in out[1]] == [list(range(5))]
+    assert s1.counters["dcn_fallback_exchanges"] == 1
+    assert s0.counters["dcn_fallback_exchanges"] == 0
+    assert s0.counters["ici_exchanges"] == 1 and s1.counters["ici_pulls"] == 1
+
+
+def test_device_tier_fault_kinds_parse_in_both_packages():
+    """``ici_unavailable`` and ``die_mid_device_copy`` are armed kinds
+    now: a plan either package writes parses in the other, and the port
+    no longer lists them as waiting."""
+    assert "ici_unavailable" not in tfaults.WAITING_KINDS
+    assert "die_mid_device_copy" not in tfaults.WAITING_KINDS
+    tplan = tfaults.FaultPlan().ici_unavailable("xq000001-jL") \
+        .die_mid_device_copy("xq000002-jR")
+    rplan = rfaults.FaultPlan().ici_unavailable("xq000001-jL") \
+        .die_mid_device_copy("xq000002-jR")
+    env = {tfaults.FAULT_PLAN_ENV: rplan.to_env()}
+    got = tfaults.FaultPlan.from_env(env)
+    back = rfaults.FaultPlan.from_env({rfaults.FAULT_PLAN_ENV:
+                                       tplan.to_env()})
+    assert [r.to_dict() for r in got.rules] == \
+        [r.to_dict() for r in tplan.rules]
+    assert [(r.kind, r.exchange, r.once) for r in back.rules] == \
+        [(r.kind, r.exchange, r.once) for r in rplan.rules]
+
+
+def test_injected_unavailable_and_death_fire_at_their_points(tmp_path):
+    """The injector's hooks: ``ici_unavailable`` raises at the attempt
+    point, ``die_mid_device_copy`` dies at the copy point (after the
+    pack, before any arena or sidecar)."""
+    (s0, _s1), (plan, _p1) = _pair(tmp_path)
+    _rtpl, tpl = _both_batches([0])
+    inj = tfaults.FaultInjector(tfaults.FaultPlan().ici_unavailable("a"))
+    inj.attach(s0)
+    with pytest.raises(tici.IciUnavailable):
+        tici.device_publish(s0, _Session(None), plan, "a", _outbox(1, 1),
+                            tpl)
+    died = []
+    inj = tfaults.FaultInjector(tfaults.FaultPlan().die_mid_device_copy("b"))
+
+    def die(code):
+        died.append(code)
+        raise SystemExit(code)
+    inj.die = die
+    inj.attach(s0)
+    with pytest.raises(SystemExit):
+        tici.device_publish(s0, _Session(None), plan, "b", _outbox(2, 1),
+                            tpl)
+    assert died == [43]
+    assert not os.path.exists(tici._sidecar_path(s0, "b", 0))
+    assert inj.injected == ["die_mid_device_copy:b"]
+
+
+def test_repartition_and_coalesce_answer_like_reference(spark):
+    """``repartition`` and ``coalesce`` are logical no-ops in both
+    packages: the grouped answers over them equal the reference's."""
+    from spark_tpu.sql import functions as RF
+    from spark_tpu_torch.sql import functions as TF
+    from spark_tpu_torch.sql.session import SparkSession as TSession
+    rng = np.random.default_rng(21)
+    data = {"k": rng.integers(0, 9, 500).astype(np.int64),
+            "v": rng.integers(0, 1000, 500).astype(np.int64)}
+    ts = TSession(TC.Conf({"spark.torch.device": "cpu"}))
+    try:
+        answers = []
+        for sess, F in ((spark, RF), (ts, TF)):
+            df = sess.createDataFrame(data)
+            rows = []
+            for part in (df.repartition(4), df.repartition(3, "k"),
+                         df.coalesce(1)):
+                rows.append(sorted(tuple(int(x) for x in r) for r in
+                                   part.groupBy("k").agg(
+                                       F.sum("v").alias("s"),
+                                       F.count("*").alias("c")).collect()))
+            answers.append(rows)
+        assert answers[0] == answers[1]
+    finally:
+        ts.stop()

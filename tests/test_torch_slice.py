@@ -208,12 +208,13 @@ def test_importing_the_port_loads_neither():
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("entry", ["pool", "recovery"])
+@pytest.mark.parametrize("entry", ["pool", "recovery", "ici"])
 def test_worker_entries_load_neither(tmp_path, entry):
     """The processes this package starts by itself, run as they are
     started: a pool worker (``python -m spark_tpu_torch.serving.pool
-    --worker``, here told to retire at once) and a one-process recovery
-    worker.  Neither may load jax or the JAX package."""
+    --worker``, here told to retire at once), a one-process recovery
+    worker, and one with the device tier armed (its arena, sidecar and
+    pull modules loaded).  None may load jax or the JAX package."""
     import json as _json
     root = tmp_path / "root"
     os.makedirs(root / "reap")
@@ -224,8 +225,9 @@ def test_worker_entries_load_neither(tmp_path, entry):
         mod, argv = "spark_tpu_torch.serving.pool", [
             "--worker", str(root), "0"]
     else:
+        mode = "norecover" if entry == "recovery" else "ici-unavail"
         mod, argv = "spark_tpu_torch.testing", [
-            "recovery-worker", "0", "1", str(root), "norecover", "20", "cpu"]
+            "recovery-worker", "0", "1", str(root), mode, "20", "cpu"]
     code = ("import runpy, sys, json\n"
             f"sys.argv = [{mod!r}] + {argv!r}\n"
             "rc = None\n"
