@@ -265,8 +265,13 @@ without printing a result:
     worker 1 (its fold-back counted there only).  Every answer equal to
     the single-process answer; per device run the split pack, sidecar,
     pull (CUDA events) and unpack with the bytes pulled beside their
-    bound; then process 1 of a recovery pair dies at the copy point and
-    process 0 recovers in an epoch, its ledger at 0 B;
+    bound; then K2's pull with the peer process IDLE (``testing
+    arena-peer`` holds an arena and runs nothing) at the battery's
+    largest pull and at 64 MiB, beside the library call that computes
+    the same pull (``torch.Tensor.copy_`` per plane from a tensor over
+    the IPC-mapped arena), both equal to the peer's bytes; then process 1
+    of a recovery pair dies at the copy point and process 0 recovers in
+    an epoch, its ledger at 0 B;
 18. recovery — four scenarios, each two worker processes on the card
     (``python -m spark_tpu_torch.testing recovery-worker <pid> 2 <dir>
     card-<x>``, ``spark.tpu.memory.hbmBudget`` a share of the free
@@ -297,7 +302,34 @@ without printing a result:
     run; four client threads grow the pool to 2, idle rounds reap one
     through hysteresis, its block-service lease handed to the
     supervisor; spawn-to-ready, offloaded and local walls, counters;
-20. a ``{"kernels": [...]}`` line (each kernel's ``sql_launches``: its
+20. stream — Structured Streaming on the Yahoo Streaming Benchmark's
+    shape at full width: 8 parquet files of 2^20 ad events (user_id,
+    page_id, ad_id, ad_type, event_type, event_time, ip_address; the ids
+    int64, not UUID strings), written by the port's writer, 100
+    campaigns of 10 ads; ``FileStreamSource`` with maxFilesPerTrigger 1,
+    one file appearing before each trigger.  (a) views joined to the ad
+    table, counted per campaign per 10 s window under a 10 s watermark,
+    update mode; (b) the same in append mode (each window once); (c)
+    dropDuplicates(user_id, event_time) under a 20 s watermark (~2 M
+    keys of state, its bytes flat from trigger 2 on); (d) views ⋈ clicks on (ad_id, user_id), 2^16 events
+    a side a trigger, the watermark on the views; (e) per-user session
+    counts by flatMapGroupsWithState with an event-time timeout, 2^14
+    events of 1,000 users (host-bound); each trigger against its numpy
+    oracle (``spark_tpu_torch/testing.py``), (a) with 0 stage rebuilds
+    from trigger 2; per trigger the decode, the copy to the card, the
+    query below the stateful operator, the state merge (device ms), the
+    sink and commit, the wall, events/s and the card's busy share (a
+    profile of the trigger).  (f) (a) with a checkpoint and a json sink:
+    a fault-free lifetime here, then ``stream-worker`` processes on the
+    card, one killed by ``die_after_state_commit`` at trigger 3, the
+    restart resuming (time to recover: from its start to its first
+    commit), its last commit entry torn and replayed; the sink equal to
+    the fault-free one byte for byte.  (g) foreachBatch hash-agg over
+    each micro-batch: K1 once per trigger in the stage cache, its eager
+    launch bit-exact.  (h) ``POST /stream`` of (a) as a spec (watermark
+    + SQL), ``GET /stream/<id>`` per trigger against the oracle, a second
+    POST over ``maxStandingQueries`` refused, ``DELETE``;
+21. a ``{"kernels": [...]}`` line (each kernel's ``sql_launches``: its
    launches in the SQL phase's counted run; ``breadth_launches``: K1's in
    the breadth phase's graph-lane run, K2's in its window text at 4
    shards; ``complex_launches``: K1's in the complex phase's graph-lane
@@ -318,7 +350,14 @@ without printing a result:
    warm pull; ``recovery_launches``: K1's
    in the survivors' faulted statements of [recovery] (each from 0 just
    before it), K2's there (0); ``pool_launches``: K1's in the pool
-   workers (from their start), K2's (0); each counted from 0 just
+   workers (from their start), K2's (0); ``stream_launches``: K1's
+   wrapper launches in [stream] (g) (warm-up and capture), with
+   ``stream_replayed_launches`` its launches that the replays of (g)'s
+   stage graph carried (``cuda_agg.REPLAYED_LAUNCHES``), K2's (0: no
+   exchange on one card); K2's
+   ``ici_pull_idle_ms`` / ``ici_pull_library_ms`` (the idle-peer pull
+   and its ``copy_`` yardstick at the battery's largest bytes); each
+   counted from 0 just
    before that run; K1's ``captured_launches``: those of its launches made while a
    graph was captured, and ``replayed_launches``: its launches the
    profiler saw in one replay of each hash-agg query),
@@ -335,6 +374,7 @@ JAX nor the JAX package.
 
 import contextlib
 import io
+import itertools
 import json
 import os
 import shutil
@@ -3787,6 +3827,122 @@ def _start_ici_workers(root, n):
     return procs
 
 
+#: [ici]'s idle-peer pull: the planes of one pull, and a second, large
+#: size beside the battery's largest pull
+ICI_IDLE_PLANES = 6
+ICI_IDLE_BIG_BYTES = 64 << 20
+
+
+class _DevicePointer:
+    """Bytes at a device address, as ``torch.as_tensor`` takes them
+    (``__cuda_array_interface__``): a tensor over a peer's IPC-mapped
+    arena without a copy."""
+
+    def __init__(self, ptr, nbytes):
+        self.__cuda_array_interface__ = {
+            "shape": (nbytes,), "typestr": "|u1", "data": (ptr, False),
+            "version": 3}
+
+
+def _ici_idle_pull(k2_entry, sizes):
+    """K2's cross-process pull with the peer process IDLE (it holds its
+    arena and runs nothing: ``testing arena-peer``), beside the library
+    call that computes the same pull, one ``torch.Tensor.copy_`` per
+    plane from a tensor over the peer's IPC-mapped arena into the
+    receiver's buffer; both on the same bytes, timed by CUDA events per
+    call, both equal to the peer's bytes."""
+    import numpy as np
+    import torch
+    from spark_tpu_torch import cuda_a2a
+    dev = torch.device("cuda")
+    align = 8 * ICI_IDLE_PLANES
+    sizes = [max(align, -(-n // align) * align) for n in sizes]
+    root = tempfile.mkdtemp(prefix="chip_smoke_arena_")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__)) \
+        + os.pathsep + env.get("PYTHONPATH", "")
+    log = open(os.path.join(root, "peer.txt"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "spark_tpu_torch.testing", "arena-peer",
+         root, str(max(sizes))], env=env, stdout=log,
+        stderr=subprocess.STDOUT)
+    base = None
+    try:
+        _wait_for(lambda: os.path.exists(os.path.join(root, "arena.json"))
+                  or proc.poll() is not None, "[ici] the arena peer", 120)
+        check(proc.poll() is None, "[ici] the arena peer exited: "
+              + open(os.path.join(root, "peer.txt")).read()[-2000:])
+        with open(os.path.join(root, "arena.json")) as f:
+            base = cuda_a2a.open_handle(dev, json.load(f)["handle"])
+        full = (np.arange(max(sizes), dtype=np.int64) * 2654435761
+                % 251).astype(np.uint8)
+        rows = []
+        for nbytes in sizes:
+            width = nbytes // ICI_IDLE_PLANES // 8
+            sources = [[base + k * width * 8]
+                       for k in range(ICI_IDLE_PLANES)]
+            outs = [torch.empty((1, width), dtype=torch.int64, device=dev)
+                    for _ in range(ICI_IDLE_PLANES)]
+            views = [torch.as_tensor(_DevicePointer(p[0], width * 8),
+                                     device=dev).view(torch.int64)
+                     for p in sources]
+            want = torch.from_numpy(full[:ICI_IDLE_PLANES * width * 8]
+                                    .view(np.int64).copy())
+
+            def pulled():
+                return torch.cat([o[0].cpu() for o in outs])
+
+            def pull():
+                cuda_a2a.pull(sources, outs)
+
+            def library():
+                for o, v in zip(outs, views):
+                    o[0].copy_(v)
+
+            pull()
+            torch.cuda.synchronize()
+            check(torch.equal(pulled(), want),
+                  f"[ici] the idle-peer pull of {nbytes} B differs from the "
+                  f"peer's bytes")
+            for o in outs:
+                o.zero_()
+            library()
+            torch.cuda.synchronize()
+            check(torch.equal(pulled(), want),
+                  f"[ici] the copy_ pull of {nbytes} B differs")
+            pull_ms, lib_ms = cuda_ms(pull), cuda_ms(library)
+            pull2_ms = cuda_ms(pull)
+            bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+            rows.append((nbytes, min(pull_ms, pull2_ms), lib_ms, bound))
+            print(f"[ici] idle-peer pull of {nbytes:,} B ({ICI_IDLE_PLANES} "
+                  f"planes, 1 sender): cuda_a2a.pull {pull_ms:.4f} / "
+                  f"{pull2_ms:.4f} ms (two rounds, CUDA events per call), "
+                  f"the library call (torch.Tensor.copy_ per plane from "
+                  f"the IPC-mapped arena) {lib_ms:.4f} ms, byte bound "
+                  f"{bound:.4f} ms; both equal to the peer's bytes",
+                  flush=True)
+        n0, p0, l0, b0 = rows[0]
+        k2_entry["ici_pull_idle_ms"] = p0
+        k2_entry["ici_pull_idle_bytes"] = n0
+        k2_entry["ici_pull_library_ms"] = l0
+        k2_entry["ici_pull_library_call"] = \
+            "torch.Tensor.copy_ per plane from the IPC-mapped arena"
+        k2_entry["ici_pull_idle_large"] = {
+            "bytes": rows[-1][0], "ms": rows[-1][1],
+            "library_ms": rows[-1][2], "bound_ms": rows[-1][3]}
+    finally:
+        if base is not None:
+            cuda_a2a.close_handle(dev, base)
+        open(os.path.join(root, "done"), "w").close()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _ici_recovery(session, spec, want_q93):
     """[ici]'s fault scenario: two ``cuda`` workers (recovery-worker mode
     ``card-ici``: q93's hash lane over parquet halves, the device tier by
@@ -4050,6 +4206,7 @@ def phase_ici(session, k2_entry):
             k2_entry["ici_pull_ms"] = pulls_ms[i]
             k2_entry["ici_pull_bound_ms"] = \
                 2 * pulls_bytes[i] / HBM_BYTES_PER_S * 1e3
+            _ici_idle_pull(k2_entry, [pulls_bytes[i], ICI_IDLE_BIG_BYTES])
         _ici_recovery(session, spec, want["c_hash"])
     finally:
         for p, log in procs:
@@ -4322,7 +4479,9 @@ def phase_pool(session, hash_table, tables, k1_entries, k2_entry):
             check(st == 200, f"[pool] {key}: {st} {str(out)[:300]}")
             check(out.get("pooled") is True,
                   f"[pool] {key} was expected to be served by a pool "
-                  f"worker and ran locally: {str(out)[:300]}")
+                  f"worker and ran locally (the pool's reason: "
+                  f"{srv._pool_supervisor.stats().get('lastFallback')}): "
+                  f"{str(out)[:300]}")
             check(_rows_match(rows_of(key, out["rows"]),
                               rows_of(key, local[key][0])),
                   f"[pool] {key}: the worker's {len(out['rows'])} rows "
@@ -4399,7 +4558,8 @@ def phase_pool(session, hash_table, tables, k1_entries, k2_entry):
               f"{grow_s * 1e3:.1f} ms and idle rounds reaped one "
               f"{reap_s * 1e3:.1f} ms after it ended, its lease handed to "
               f"{sup.owner}; counters {c}; last decision "
-              f"{stats['lastDecision']}; tables written in "
+              f"{stats['lastDecision']}; reaps that waited for a claimed "
+              f"statement {stats.get('reapClaimWaits', 0)}; tables written in "
               f"{write_ms:.0f} ms", flush=True)
         for entry in k1_entries:
             entry["pool_launches"] = sum(k["launches"][entry["name"]]
@@ -4414,6 +4574,502 @@ def phase_pool(session, hash_table, tables, k1_entries, k2_entry):
             srv.stop()
         shutil.rmtree(root, ignore_errors=True)
     print(f"[pool] phase {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+
+#: [stream]: the Yahoo Streaming Benchmark's shape at full width (100
+#: campaigns of 10 ads, 2^20 events a file, one file a trigger), the
+#: stream-stream join's and the session scenario's sizes, and the dedup
+#: watermark that keeps about two triggers of keys in its state
+STREAM_EVENTS = 1 << 20
+STREAM_TRIGGERS = 8
+STREAM_JOIN_EVENTS = 1 << 16
+STREAM_JOIN_TRIGGERS = 4
+STREAM_SESSION_EVENTS = 1 << 14
+STREAM_SESSION_USERS = 1000
+STREAM_SESSION_TRIGGERS = 4
+STREAM_DEDUP_DELAY_S = 20
+STREAM_JOIN_DELAY_S = 10
+#: the device of (f)'s worker processes
+STREAM_WORKER_DEVICE = "cuda"
+
+
+def _k1_runs():
+    """K1's runs on the card so far, counted on the host: the wrapper's
+    eager launches (not those made while a graph was captured, which run
+    nothing) and the launches that the stage cache's graph replays
+    carry."""
+    from spark_tpu_torch import cuda_agg
+    return sum(cuda_agg.ENTRY_LAUNCHES[e] - cuda_agg.CAPTURED_LAUNCHES[e]
+               + cuda_agg.REPLAYED_LAUNCHES[e]
+               for e in cuda_agg.ENTRY_LAUNCHES)
+
+
+def _stream_step(tag):
+    """A trigger step for ``testing``'s scenario runners: each trigger
+    under ``profile_query`` (the card's activity only), numbered, as the
+    trigger's wall under the profiler, the card's busy share, K1's runs
+    counted on the host (``_k1_runs``) and the launches of K1 that the
+    profiler saw."""
+    n = itertools.count(1)
+
+    def step(fn):
+        k0 = _k1_runs()
+        p = profile_query(f"[stream] {tag} trigger {next(n)}", fn,
+                          cpu=False)
+        return {"wall_ms": p["wall_ms"], "busy_share": p["busy"],
+                "k1_runs": _k1_runs() - k0, "k1_seen": p["own"]["K1"][0]}
+    return step
+
+
+def _trigger_line(tag, i, rec, events, extra=""):
+    t = rec["timings"]
+    wall = t["wall_ms"]
+    print(f"[stream] {tag} trigger {i + 1}: decode {t['source_ms']:.2f} ms; "
+          f"to the card {t['h2d_bytes'] / 2**20:.1f} MiB in "
+          f"{t['h2d_ms']:.3f} ms; below the stateful operator "
+          f"{t['below_ms']:.2f} ms; state merge {t['merge_ms']:.3f} ms "
+          f"(device); sink {t.get('sink_ms', 0.0):.2f} ms; commit "
+          f"{t.get('commit_ms', 0.0) + t.get('state_commit_ms', 0.0):.2f} "
+          f"ms; trigger wall {wall:.2f} ms ({events / (wall / 1e3):,.0f} "
+          f"events/s); card busy {rec.get('busy_share', 0.0):.1%} "
+          f"(under the profiler, {rec.get('wall_ms', 0.0):.2f} ms); "
+          f"rebuilds {rec['progress']['stageRebuilds']}{extra}", flush=True)
+
+
+def _stage_links(staged, watch):
+    os.makedirs(watch, exist_ok=True)
+    return [os.path.join(staged, f"f{t}") for t in range(STREAM_TRIGGERS)]
+
+
+def _stream_recovery(session, root, files, counts_want):
+    """(f): scenario (a) with a checkpoint and a json file sink: a
+    lifetime without a fault in this process (the oracle of the sink's
+    bytes), then ``stream-worker`` processes on the card: one that
+    ``die_after_state_commit`` kills at trigger 3, and a restart that
+    resumes from the checkpoint, has its last commit entry torn
+    (``torn_checkpoint``) and, in a second lifetime in the same process,
+    replays that batch."""
+    import glob
+    from spark_tpu_torch.parallel.faults import FAULT_PLAN_ENV, FaultPlan
+    from spark_tpu_torch.testing import stream_lifetime
+    in_dir = os.path.join(root, "in")
+    os.makedirs(in_dir, exist_ok=True)
+    for f in files:
+        os.symlink(f, os.path.join(in_dir, os.path.basename(f)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__)) \
+        + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop(FAULT_PLAN_ENV, None)
+
+    def start(tag, plan=None, restart=False):
+        e = dict(env)
+        if plan is not None:
+            e[FAULT_PLAN_ENV] = plan.to_env()
+        out = os.path.join(root, f"out-{tag}")
+        ckpt = os.path.join(root, f"ckpt-{tag}")
+        if tag == "restart":
+            out, ckpt = os.path.join(root, "out-fault"), \
+                os.path.join(root, "ckpt-fault")
+        argv = [sys.executable, "-m", "spark_tpu_torch.testing",
+                "stream-worker", root, "yahoo", ckpt, out,
+                STREAM_WORKER_DEVICE]
+        if restart:
+            argv.append("restart")
+        log = open(os.path.join(root, f"log-{tag}.txt"), "w")
+        return (subprocess.Popen(argv, env=e, stdout=log,
+                                 stderr=subprocess.STDOUT),
+                log, time.time(), out, tag)
+
+    def finish(started):
+        p, log, t0, out, tag = started
+        try:
+            rc = p.wait(timeout=600)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        text = open(os.path.join(root, f"log-{tag}.txt")).read()
+        res = None
+        if os.path.exists(out + ".result.json"):
+            with open(out + ".result.json") as f:
+                res = json.load(f)
+        return rc, text, res, t0, out
+
+    def sink(out):
+        return {os.path.basename(p): open(p, "rb").read()
+                for p in sorted(glob.glob(os.path.join(out, "part-*")))}
+
+    t_f = time.perf_counter()
+    # the victim starts first: its process comes up while the fault-free
+    # lifetime runs here
+    victim = start("fault",
+                   FaultPlan().die_after_state_commit(after_entries=2))
+    clean_out = os.path.join(root, "out-clean")
+    stream_lifetime(session, "yahoo", in_dir,
+                    os.path.join(root, "ckpt-clean"), clean_out)
+    want_files = sink(clean_out)
+    check(len(want_files) == STREAM_TRIGGERS,
+          f"[stream] (f) {len(want_files)} sink files")
+    # the fault-free sink holds (a)'s update rows, trigger by trigger
+    for i in range(STREAM_TRIGGERS):
+        rows = [json.loads(line) for line in
+                want_files[f"part-{i:05d}.json"].decode().splitlines()
+                if line.strip()]
+        check(len(rows) == len(counts_want[i]["emit"]),
+              f"[stream] (f) trigger {i + 1}: {len(rows)} sink rows, the "
+              f"oracle {len(counts_want[i]['emit'])}")
+    rc, log, _res, _t0, _ = finish(victim)
+    check(rc == 43 and "dying after state commit at batch 2" in log,
+          f"[stream] (f) the worker did not die after batch 2's state "
+          f"commit (rc {rc}): {log[-2000:]}")
+    # the restart replays batch 2, commits 2..7, tears the last commit
+    # entry; its second lifetime replays that batch
+    rc, log, res, t_restart, out = finish(start(
+        "restart", FaultPlan().torn_checkpoint(
+            keep_bytes=9, after_entries=STREAM_TRIGGERS - 3),
+        restart=True))
+    check(rc == 0 and res is not None,
+          f"[stream] (f) the restarted worker failed: {log[-2000:]}")
+    first, second = res["lifetimes"]
+    check(first["metrics"]["replayed_batches"] == 1
+          and res["injected"] == [f"torn_checkpoint:{STREAM_TRIGGERS - 1}"]
+          and second["metrics"]["replayed_batches"] == 1
+          and second["metrics"]["batches_committed"] == 1,
+          f"[stream] (f) replays: {first['metrics']} / "
+          f"{second['metrics']} / {res['injected']}")
+    got = sink(out)
+    check(got == want_files,
+          f"[stream] (f) the sink after the kill differs from the "
+          f"fault-free one: {sorted(got)} vs {sorted(want_files)}")
+    recover_s = first["first_commit_unix"] - t_restart
+    print(f"[stream] (f) recovery on the card (stream-worker processes): "
+          f"killed after batch 2's state commit (exit 43), the restart's "
+          f"first new commit {recover_s:.3f} s after the restart began "
+          f"(process start, imports and session included; its own "
+          f"first-commit wall from entering main "
+          f"{first['first_commit_unix'] - res['start_unix']:.3f} s); "
+          f"batch 2 replayed, the torn commit of batch "
+          f"{STREAM_TRIGGERS - 1} read as uncommitted and replayed; "
+          f"{len(got)} sink files equal to the fault-free run byte for "
+          f"byte; phase part {time.perf_counter() - t_f:.1f} s", flush=True)
+    return recover_s
+
+
+def _stream_server(session, files, ads, counts_want, root):
+    """(h): ``POST /stream`` of (a)'s query as a spec (watermark + SQL
+    over the stream's view, the ads table a view of the server's
+    session), ``GET /stream/<id>`` after each trigger, a second POST over
+    ``maxStandingQueries`` = 1 refused naming the limit, ``DELETE``."""
+    import datetime
+    from spark_tpu_torch.server import SQLServer
+    from spark_tpu_torch.testing import YAHOO_STREAM_SCHEMA
+    s = session.newSession()
+    s.conf.set("spark.tpu.server.maxStandingQueries", "1")
+    s.createDataFrame(ads).createOrReplaceTempView("ads")
+    watch = os.path.join(root, "h-in")
+    os.makedirs(watch)
+    text = ("SELECT window(event_time, '10 seconds') AS w, campaign_id, "
+            "COUNT(*) AS n FROM events JOIN ads ON events.ad_id = "
+            "ads.ad_id WHERE event_type = 'view' GROUP BY "
+            "window(event_time, '10 seconds'), campaign_id")
+    spec = {"source": {"format": "parquet", "path": watch,
+                       "schema": YAHOO_STREAM_SCHEMA,
+                       "options": {"maxFilesPerTrigger": "1"}},
+            "watermark": {"column": "event_time", "delay": "10 seconds"},
+            "view": "events", "sql": text, "mode": "update",
+            "sink": {"format": "json", "path": os.path.join(root, "h-out")},
+            "checkpoint": os.path.join(root, "h-ckpt"), "interval": 0.05}
+    srv = SQLServer(s, port=0).start()
+    try:
+        st, out, _ms = _http(srv.port, "/stream", "POST", spec)
+        check(st == 200, f"[stream] (h) POST /stream: {st} {out}")
+        sid = out["streamId"]
+        polls = []
+        for i, f in enumerate(files):
+            os.symlink(f, os.path.join(watch, os.path.basename(f)))
+            t0 = time.perf_counter()
+            while True:
+                st, got, _ms = _http(srv.port, f"/stream/{sid}")
+                check(st == 200 and "error" not in got,
+                      f"[stream] (h) GET /stream: {st} {got}")
+                if got["metrics"]["batches_committed"] >= i + 1:
+                    break
+                check(time.perf_counter() - t0 < 120,
+                      f"[stream] (h) trigger {i + 1} never committed")
+                time.sleep(0.02)
+            polls.append((time.perf_counter() - t0) * 1e3)
+            part = os.path.join(root, "h-out", f"part-{i:05d}.json")
+            rows = {}
+            for line in open(part):
+                if line.strip():
+                    r = json.loads(line)
+                    w = datetime.datetime.fromisoformat(str(r["w"]))
+                    us = int((w - datetime.datetime(1970, 1, 1))
+                             .total_seconds() * 1e6)
+                    rows[(us, int(r["campaign_id"]))] = int(r["n"])
+            check(rows == counts_want[i]["emit"],
+                  f"[stream] (h) trigger {i + 1}: the sink's "
+                  f"{len(rows)} rows differ from the oracle's")
+        st, out, _ms = _http(srv.port, "/stream", "POST", spec)
+        check(st == 429 and out.get("limit") == "maxStandingQueries",
+              f"[stream] (h) a second standing query over the cap: "
+              f"{st} {out}")
+        st, done, _ms = _http(srv.port, f"/stream/{sid}", "DELETE")
+        check(st == 200 and done["batchesCommitted"] == len(files),
+              f"[stream] (h) DELETE: {st} {done}")
+        print(f"[stream] (h) the server: POST /stream of (a) as a spec, "
+              f"{len(files)} triggers each equal to the oracle, GET after "
+              f"each ({statistics.median(polls):.1f} ms median from the "
+              f"file's arrival to the commit seen over HTTP), a second "
+              f"POST refused 429 naming maxStandingQueries, DELETE after "
+              f"{done['batchesCommitted']} commits", flush=True)
+    finally:
+        srv.stop()
+
+
+def phase_stream(session, k1_entries, k2_entry):
+    """[stream]: Structured Streaming on the card, scenarios (a)–(h) on
+    the Yahoo Streaming Benchmark's shape (see the module docstring)."""
+    import numpy as np
+    import torch
+    from spark_tpu_torch import cuda_a2a, cuda_agg
+    from spark_tpu_torch import testing as TT
+    from spark_tpu_torch.sql import functions as F
+    from spark_tpu_torch.sql.stagecompile import stage_cache
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_stream_")
+    try:
+        s = session.newSession()
+        s.conf.set("spark.sql.warehouse.dir", os.path.join(root, "wh"))
+        t0 = time.perf_counter()
+        staged = os.path.join(root, "staged")
+        feeds = []
+        files = TT.yahoo_write(s, staged, STREAM_EVENTS, STREAM_TRIGGERS,
+                               feeds=feeds)
+        ads = TT.yahoo_ads()
+        # the ad table of (f)'s worker processes, beside their input
+        s.createDataFrame(ads).write.parquet(os.path.join(root, "f", "ads"))
+        ads_df = s.createDataFrame(ads)
+        print(f"[stream] {STREAM_TRIGGERS} files of {STREAM_EVENTS:,} ad "
+              f"events written by the port's parquet writer in "
+              f"{time.perf_counter() - t0:.1f} s (user_id, page_id and "
+              f"ip_address int64, not UUID strings)", flush=True)
+        zero_counts()
+        a2a0 = cuda_a2a.LAUNCHES + cuda_a2a.PULL_LAUNCHES
+
+        # (a) update mode, (b) append mode
+        results = {}
+        for tag, mode in (("(a)", "update"), ("(b)", "append")):
+            want = TT.yahoo_counts_oracle(feeds, ads, mode)
+            got = TT.stream_counts(s, F, os.path.join(root, f"in-{mode}"),
+                                   files, ads_df, mode,
+                                   step=_stream_step(tag))
+            for i, (g, w) in enumerate(zip(got, want)):
+                check(g["emit"] == w["emit"],
+                      f"[stream] {tag} trigger {i + 1}: {len(g['emit'])} "
+                      f"rows, the oracle {len(w['emit'])}; equal "
+                      f"{g['emit'] == w['emit']}")
+                check(g["metrics"]["state_rows"] == w["state_groups"],
+                      f"[stream] {tag} trigger {i + 1}: state groups "
+                      f"{g['metrics']['state_rows']} vs "
+                      f"{w['state_groups']}")
+                _trigger_line(tag, i, g, STREAM_EVENTS,
+                              f"; {len(g['emit'])} rows equal to the "
+                              f"oracle; state groups "
+                              f"{g['metrics']['state_rows']}")
+            if mode == "update":
+                check(all(g["progress"]["stageRebuilds"] == 0
+                          for g in got[1:]),
+                      f"[stream] (a) stage rebuilds from trigger 2 on: "
+                      f"{[g['progress']['stageRebuilds'] for g in got]}")
+            else:
+                keys = [k for g in got for k in g["emit"]]
+                check(len(keys) == len(set(keys)) and keys,
+                      "[stream] (b) a window was emitted twice")
+            results[mode] = (got, want)
+
+        # (c) dedup under the watermark
+        want = TT.yahoo_dedup_oracle(feeds, STREAM_DEDUP_DELAY_S)
+        got = TT.stream_dedup(s, os.path.join(root, "in-dedup"), files,
+                              STREAM_DEDUP_DELAY_S,
+                              step=_stream_step("(c)"))
+        evicted = 0
+        for i, (g, w) in enumerate(zip(got, want)):
+            evicted += w["evicted"]
+            check(np.array_equal(g["emit"], w["emit"]),
+                  f"[stream] (c) trigger {i + 1}: {len(g['emit'])} keys, "
+                  f"the oracle {len(w['emit'])}")
+            check(g["metrics"]["state_rows"] == w["state_rows"]
+                  and g["evicted"] == evicted,
+                  f"[stream] (c) trigger {i + 1}: state rows "
+                  f"{g['metrics']['state_rows']} vs {w['state_rows']}, "
+                  f"evicted {g['evicted']} vs {evicted}")
+            _trigger_line("(c)", i, g, STREAM_EVENTS,
+                          f"; {len(g['emit']):,} new keys equal to the "
+                          f"oracle; state {g['metrics']['state_rows']:,} "
+                          f"rows, {g['metrics']['state_bytes'] / 2**20:.1f} "
+                          f"MiB; evicted so far {g['evicted']:,}")
+
+        # the state holds its live keys at their own capacity: with the
+        # live keys flat from trigger 2 on, so are its bytes
+        state_mib = [g["metrics"]["state_bytes"] / 2**20 for g in got]
+        check(all(b == state_mib[1] for b in state_mib[1:]),
+              f"[stream] (c) state bytes grow with the triggers: "
+              f"{state_mib} MiB")
+        print(f"[stream] (c) state {state_mib} MiB by trigger: flat from "
+              f"trigger 2 on", flush=True)
+
+        # (d) stream-stream join
+        vdirs, cdirs, sides = TT.write_join_sides(
+            s, os.path.join(root, "join"), STREAM_JOIN_EVENTS,
+            STREAM_JOIN_TRIGGERS)
+        want = TT.stream_join_oracle(sides, STREAM_JOIN_DELAY_S)
+        got = TT.stream_join(s, F, os.path.join(root, "join-watch"), vdirs,
+                             cdirs, STREAM_JOIN_DELAY_S,
+                             step=_stream_step("(d)"))
+        for i, (g, w) in enumerate(zip(got, want)):
+            check(np.array_equal(g["emit"], w["rows"])
+                  and g["view_buffer"] == w["view_buffer"]
+                  and g["click_buffer"] == w["click_buffer"],
+                  f"[stream] (d) trigger {i + 1}: {len(g['emit'])} rows vs "
+                  f"{len(w['rows'])}, buffers {g['view_buffer']}/"
+                  f"{g['click_buffer']} vs {w['view_buffer']}/"
+                  f"{w['click_buffer']}")
+            _trigger_line("(d)", i, g, 2 * STREAM_JOIN_EVENTS,
+                          f"; {len(g['emit']):,} joined rows equal to the "
+                          f"oracle; buffers {g['view_buffer']:,} views, "
+                          f"{g['click_buffer']:,} clicks")
+
+        # (e) flatMapGroupsWithState: host-bound by design
+        feeds_e = TT.session_events(STREAM_SESSION_EVENTS,
+                                    STREAM_SESSION_TRIGGERS,
+                                    STREAM_SESSION_USERS)
+        got = TT.stream_sessions(s, feeds_e, step=_stream_step("(e)"))
+        want = TT.session_oracle(feeds_e)
+        for i, (g, w) in enumerate(zip(got, want)):
+            check(g["emit"] == w, f"[stream] (e) trigger {i + 1}: "
+                  f"{len(g['emit'])} rows vs {len(w)}")
+            t = g["timings"]
+            print(f"[stream] (e) trigger {i + 1}: {len(w)} session rows "
+                  f"equal to the oracle ({sum(c for *_x, c in w)} closed); "
+                  f"the user function's host time {t['fmgws_host_ms']:.2f} "
+                  f"ms of a {t['wall_ms']:.2f} ms trigger; card busy "
+                  f"{g['busy_share']:.1%}; {g['states']} open sessions",
+                  flush=True)
+
+        # (f) recovery in worker processes
+        recover_s = _stream_recovery(s, os.path.join(root, "f"), files,
+                                     results["update"][1])
+
+        # (g) foreachBatch: hash-agg over each micro-batch, K1 in the
+        # stage cache
+        table_rows = []
+
+        def hash_agg(bdf, _bid):
+            out = bdf.groupBy("ad_id").agg(F.sum("page_id").alias("s"),
+                                           F.count("*").alias("c"))
+            table_rows.append(TT._host_columns(out._execute()))
+
+        gin = os.path.join(root, "in-g")
+        os.makedirs(gin)
+        q = (TT.yahoo_stream(s, gin).writeStream.foreachBatch(hash_agg)
+             .trigger(once=True).start())
+        for entry in cuda_agg.ENTRY_LAUNCHES:
+            cuda_agg.ENTRY_LAUNCHES[entry] = 0
+            cuda_agg.CAPTURED_LAUNCHES[entry] = 0
+            cuda_agg.REPLAYED_LAUNCHES[entry] = 0
+        cache = stage_cache()
+        # held, so that no new variant takes the id of a dropped one
+        old_variants = [v for e in cache.entries() for v in e.variants]
+        old_ids = {id(v) for v in old_variants}
+        recs = []
+        with TT._K1Compare() as k1:
+            recs = TT._drive(q, files, gin, [], _stream_step("(g)"))
+        q.stop()
+        for i, (feed, rows) in enumerate(zip(feeds, table_rows)):
+            cnt = np.bincount(feed["ad_id"], minlength=1000)
+            tot = np.zeros(1000, np.int64)
+            np.add.at(tot, feed["ad_id"], feed["page_id"])
+            order = np.argsort(rows["ad_id"])
+            check(np.array_equal(rows["ad_id"][order],
+                                 np.nonzero(cnt)[0])
+                  and np.array_equal(rows["c"][order], cnt[cnt > 0])
+                  and np.array_equal(rows["s"][order], tot[cnt > 0]),
+                  f"[stream] (g) trigger {i + 1}: hash-agg differs from "
+                  f"numpy")
+        ran = [r["k1_runs"] for r in recs]
+        seen = [r["k1_seen"] for r in recs]
+        wrapper = dict(cuda_agg.ENTRY_LAUNCHES)
+        replayed = dict(cuda_agg.REPLAYED_LAUNCHES)
+        check(k1.checked > 0 and k1.equal,
+              f"[stream] (g) K1's eager launch vs its plain version: "
+              f"checked {k1.checked}, equal {k1.equal}")
+        check(ran == [1] * len(files),
+              f"[stream] (g) K1 ran {ran} times per trigger (its eager "
+              f"launches and the launches its stage graphs' replays "
+              f"carry), not once per trigger; wrapper launches {wrapper}, "
+              f"replayed {replayed}")
+        check(wrapper["grouped_accumulate_columns"] > 0,
+              f"[stream] (g) K1's wrapper never launched: {wrapper}")
+        # the card's own record that (g)'s graph runs K1: one profile of
+        # 8 replays of that graph alone.  A profile can miss device
+        # records, those at its start most of all (PERF.md §7), so it
+        # must see K1 at least once, and the per-trigger count is the
+        # host's above
+        graphs = [v for e in cache.entries() for v in e.variants
+                  if id(v) not in old_ids and v.k1_launches]
+        check(len(graphs) == 1 and sum(graphs[0].k1_launches.values())
+              == 1, f"[stream] (g) built {len(graphs)} stage graphs that "
+              f"hold K1 ({[g.k1_launches for g in graphs]}), expected one "
+              f"with one launch")
+        lone = profile_query(
+            "[stream] (g) 8 replays of its stage graph alone",
+            lambda: [graphs[0].graph.replay() for _ in range(8)],
+            cpu=False)
+        graph_k1_seen, graph_k1_ms = lone["own"]["K1"]
+        check(graph_k1_seen >= 1,
+              f"[stream] (g) a profile of 8 replays of its stage graph "
+              f"saw no launch of K1")
+        print(f"[stream] (g) foreachBatch hash-agg (groupBy(ad_id)."
+              f"agg(sum(page_id), count(*))) over each of "
+              f"{len(files)} micro-batches, equal to numpy: K1 ran "
+              f"{ran} times per trigger on the card (the eager warm-up, "
+              f"then one launch in each replay of the trigger's stage "
+              f"graph: {replayed} replayed); the per-trigger profiles "
+              f"saw {seen}; a profile of 8 replays of that graph alone "
+              f"saw K1 {graph_k1_seen} times, "
+              f"{graph_k1_ms / graph_k1_seen:.4f} ms each; its wrapper "
+              f"launched {wrapper} (cuda_agg.ENTRY_LAUNCHES from 0 "
+              f"before (g)); {k1.checked} eager launch(es) held against "
+              f"the plain version: bit-exact (max abs err "
+              f"{k1.max_abs_err}); trigger walls "
+              f"{[round(r['timings']['wall_ms'], 1) for r in recs]} ms",
+              flush=True)
+        for entry in k1_entries:
+            entry["stream_launches"] = wrapper[entry["name"]]
+            entry["stream_replayed_launches"] = replayed[entry["name"]]
+        a2a = cuda_a2a.LAUNCHES + cuda_a2a.PULL_LAUNCHES - a2a0
+        check(a2a == 0, f"[stream] K2 launched {a2a} times")
+        k2_entry["stream_launches"] = a2a
+
+        # (h) the server
+        _stream_server(s, files, ads, results["update"][1], root)
+        upd = results["update"][0]
+        walls = [g["timings"]["wall_ms"] for g in upd[1:]]
+        print(f"[stream] (a) sustained: median trigger wall "
+              f"{statistics.median(walls):.2f} ms over triggers 2..8, "
+              f"{STREAM_EVENTS / (statistics.median(walls) / 1e3):,.0f} "
+              f"events/s; K2 launched 0 times in [stream] (no exchange on "
+              f"one card); time to recover {recover_s:.3f} s", flush=True)
+        print(f"[stream] peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[stream] phase {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
 
 
 def main() -> int:
@@ -4478,6 +5134,7 @@ def main() -> int:
     phase_ici(session, k2_entry)
     phase_recovery(session, k1_entries, k2_entry)
     phase_pool(session, hash_table, tables, k1_entries, k2_entry)
+    phase_stream(session, k1_entries, k2_entry)
     session.stop()
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": k1_entries + [k2_entry]}))

@@ -22,7 +22,7 @@ __all__ = [
     "Min", "Max", "First", "Last", "CountDistinct", "SumDistinct",
     "VarianceBase", "VarSamp", "VarPop", "StddevSamp", "StddevPop",
     "PercentileApprox", "CollectList", "CollectSet", "is_aggregate",
-    "IDENTITY",
+    "IDENTITY", "MERGE_BY_KIND",
 ]
 
 
@@ -464,6 +464,11 @@ class SumDistinct(Sum):
 
     def __repr__(self):
         return f"sum(DISTINCT {self.children[0]!r})"
+
+
+#: merge function per buffer reduction kind: streaming state merges fold
+#: partial buffer columns with these
+MERGE_BY_KIND = {"sum": Sum, "min": Min, "max": Max}
 
 
 def is_aggregate(e: Expression) -> bool:

@@ -762,10 +762,11 @@ class ColumnBatch:
 # ---------------------------------------------------------------------------
 
 def pad_to_capacity(batch: ColumnBatch, cap: int) -> ColumnBatch:
-    """Grow a HOST batch to a larger static capacity: streamed scans pad
-    every batch to ONE capacity so the per-batch step is one stage entry
-    (``spark_tpu/columnar.py`` ``pad_to_capacity``).  Padding rows hold
-    zeros, are dead and carry no validity."""
+    """Grow a batch to a larger static capacity, on the device it lies
+    on: streamed scans and micro-batches pad every batch to ONE capacity
+    so the per-batch step is one stage entry (``spark_tpu/columnar.py``
+    ``pad_to_capacity``).  Padding rows hold zeros, are dead and carry no
+    validity."""
     if cap < batch.capacity:
         raise ValueError(f"cannot shrink batch {batch.capacity} -> {cap}")
     if cap == batch.capacity:
@@ -773,7 +774,8 @@ def pad_to_capacity(batch: ColumnBatch, cap: int) -> ColumnBatch:
     pad = cap - batch.capacity
 
     def grow(t: torch.Tensor, fill=0) -> torch.Tensor:
-        tail = torch.full((pad,) + tuple(t.shape[1:]), fill, dtype=t.dtype)
+        tail = torch.full((pad,) + tuple(t.shape[1:]), fill, dtype=t.dtype,
+                          device=t.device)
         return torch.cat([t, tail])
 
     vectors = []
@@ -784,7 +786,7 @@ def pad_to_capacity(batch: ColumnBatch, cap: int) -> ColumnBatch:
             grow(v.data, fill), v.dtype,
             None if v.valid is None else grow(v.valid, False),
             v.dictionary))
-    rv = torch.zeros(cap, dtype=torch.bool)
+    rv = torch.zeros(cap, dtype=torch.bool, device=batch.device)
     rv[:batch.capacity] = batch.row_valid_or_true()
     return ColumnBatch(list(batch.names), vectors, rv, cap)
 
@@ -897,7 +899,7 @@ def _union_runs(vecs, batches, dtype, dicts) -> Optional[RunColumnVector]:
 
 
 def union_all(batches: Sequence[ColumnBatch]) -> ColumnBatch:
-    """Concatenate host batches (capacity = sum), string columns
+    """Concatenate batches of one device (capacity = sum), string columns
     re-encoded onto a merged dictionary (``spark_tpu/kernels.py``
     ``union_all``; identical dictionaries skip the remap)."""
     assert batches
@@ -935,7 +937,8 @@ def union_all(batches: Sequence[ColumnBatch]) -> ColumnBatch:
         if any(v.valid is not None for v in vecs):
             valid = torch.cat([
                 v.valid if v.valid is not None
-                else torch.ones(b.capacity, dtype=torch.bool)
+                else torch.ones(b.capacity, dtype=torch.bool,
+                                device=v.data.device)
                 for v, b in zip(vecs, batches)])
         vectors.append(ColumnVector(data, dtype, valid, dictionary))
     rv = torch.cat([b.row_valid_or_true() for b in batches])

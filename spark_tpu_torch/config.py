@@ -282,6 +282,16 @@ SERVER_STATEMENT_TIMEOUT = conf("spark.tpu.server.statementTimeout").doc(
     "replay).  0 = no deadline."
 ).float(0.0)
 
+SERVER_MAX_STANDING_QUERIES = conf(
+    "spark.tpu.server.maxStandingQueries").doc(
+    "Cap on STANDING (streaming) queries registered across all server "
+    "sessions.  A standing query is a long-lived tenant: it holds its "
+    "admission slot from registration until stop, and each of its "
+    "micro-batches passes a non-blocking headroom gate (deferred batches "
+    "retry at the trigger interval).  Over the cap, POST /stream fails "
+    "fast with 429 + Retry-After.  0 = unlimited."
+).int(16)
+
 SERVER_SESSION_TIMEOUT = conf("spark.tpu.server.sessionTimeout").doc(
     "Idle server-session TTL in SECONDS: sessions with no activity for "
     "this long are closed by the reaper.  0 = sessions never expire."

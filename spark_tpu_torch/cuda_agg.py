@@ -38,10 +38,12 @@ CHUNK = 512
 #: show the path went through the kernel).  They count the wrapper's
 #: launch calls: one made while a CUDA graph is being captured counts
 #: here and in ``CAPTURED_LAUNCHES``; the graph's replays run the kernel
-#: without calling the wrapper, and a profiler counts those
+#: without calling the wrapper: the stage cache adds each replayed
+#: graph's captured launches to ``REPLAYED_LAUNCHES``
 LAUNCHES = 0
 ENTRY_LAUNCHES = {"grouped_accumulate": 0, "grouped_accumulate_columns": 0}
 CAPTURED_LAUNCHES = {"grouped_accumulate": 0, "grouped_accumulate_columns": 0}
+REPLAYED_LAUNCHES = {"grouped_accumulate": 0, "grouped_accumulate_columns": 0}
 
 #: rows one int32 accumulator lane may take before it is flushed:
 #: ⌊(2^31 − 1) / 255⌋, so a lane of 8-bit plane values stays exact

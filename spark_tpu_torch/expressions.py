@@ -1677,6 +1677,92 @@ def _as_days(v: ExprValue, dt: T.DataType) -> torch.Tensor:
     raise AnalysisException(f"expected a date/timestamp, got {dt}")
 
 
+def parse_duration(text) -> int:
+    """'10 seconds' / '5 minutes' / '1 hour' / '2 days' -> microseconds
+    (fixed-length units only: months and years are not fixed durations)."""
+    if isinstance(text, (int, float)):
+        return int(text)
+    parts = str(text).strip().lower().split()
+    if len(parts) != 2:
+        raise AnalysisException(
+            f"cannot parse duration {text!r}: expected '<n> <unit>'")
+    try:
+        n = float(parts[0])
+    except ValueError:
+        raise AnalysisException(f"cannot parse duration {text!r}")
+    unit = parts[1].rstrip("s")
+    scale = {"microsecond": 1, "millisecond": 1_000, "second": 1_000_000,
+             "minute": 60_000_000, "hour": 3_600_000_000,
+             "day": 86_400_000_000, "week": 7 * 86_400_000_000}.get(unit)
+    if scale is None:
+        raise AnalysisException(f"unknown duration unit {parts[1]!r}")
+    return int(n * scale)
+
+
+class TimeWindow(Expression):
+    """Tumbling event-time bucket (``TimeWindow.scala``): start =
+    floor(ts / duration) * duration; ``field`` picks start or end.  A
+    sliding window (slide < duration) is expanded below its aggregate by
+    the analyzer and cannot be evaluated as a plain expression."""
+
+    def __init__(self, child: Expression, duration_us: int,
+                 slide_us: Optional[int] = None, field: str = "start"):
+        if int(duration_us) <= 0:
+            raise AnalysisException(
+                f"window duration must be positive, got {duration_us}us")
+        slide = int(slide_us) if slide_us is not None else int(duration_us)
+        if slide <= 0 or int(duration_us) % slide != 0:
+            raise AnalysisException(
+                "window slide must be positive and divide the duration "
+                f"evenly; got duration={duration_us}us slide={slide}us")
+        if int(duration_us) // slide > 512:
+            raise AnalysisException(
+                f"window duration/slide ratio {duration_us // slide} "
+                "exceeds the supported maximum of 512 windows per event")
+        assert field in ("start", "end"), field
+        self.duration_us = int(duration_us)
+        self.slide_us = slide
+        self.field = field
+        self.children = (child,)
+
+    @property
+    def is_sliding(self) -> bool:
+        return self.slide_us != self.duration_us
+
+    def map_children(self, fn):
+        return TimeWindow(fn(self.children[0]), self.duration_us,
+                          self.slide_us, self.field)
+
+    @property
+    def name(self):
+        return "window" if self.field == "start" else "window_end"
+
+    def data_type(self, schema):
+        src = self.children[0].data_type(schema)
+        if not (isinstance(src, T.TimestampType) or src.is_integral):
+            raise AnalysisException(
+                f"window() needs a timestamp/integral column, got {src}")
+        return T.timestamp
+
+    def eval(self, ctx):
+        if self.is_sliding:
+            raise AnalysisException(
+                "sliding window() must be a grouping key (the analyzer "
+                "expands events into their windows); it cannot be "
+                "evaluated as a plain expression")
+        v = self.children[0].eval(ctx)
+        d = self.duration_us
+        start = torch.div(v.data.to(torch.int64), d,
+                          rounding_mode="floor") * d
+        out = start if self.field == "start" else start + d
+        return ExprValue(out, v.valid)
+
+    def __repr__(self):
+        return (f"window({self.children[0]!r}, {self.duration_us}us"
+                + (f", slide={self.slide_us}us" if self.is_sliding else "")
+                + f").{self.field}")
+
+
 class ExtractDatePart(Expression):
     """year/month/day/... of a date (days) or timestamp (microseconds)."""
 

@@ -1285,9 +1285,13 @@ class DataFrameWriter:
             if os.path.exists(path) else 0
         return os.path.join(path, f"part-{existing:05d}{ext}")
 
-    def _write_table(self, table, path: str, ext: str) -> None:
+    def _write_table(self, table, path: str, ext: str,
+                     out: Optional[str] = None) -> None:
         os.makedirs(path, exist_ok=True)
-        out = self._next_part(path, ext)
+        if out is None:
+            # batch writes take the next free part slot; a streaming sink
+            # names its deterministic target (a replay overwrites it)
+            out = self._next_part(path, ext)
         if self._fmt == "parquet":
             import pyarrow.parquet as pq
             kw = {}

@@ -47,7 +47,8 @@ class MetricsSystem:
 
 def default_sources(session) -> List[Source]:
     """The built-in process gauges the port has: device memory, cached
-    relations, queries executed and the process stage cache."""
+    relations, queries executed, the process stage cache and the
+    session's standing queries."""
     mem, cache = session._memory, session._cache
     from .sql.stagecompile import metrics_source as _stage_gauges
     return [
@@ -68,4 +69,31 @@ def default_sources(session) -> List[Source]:
         # whole-stage capture: the process stage cache (build cost, hit
         # ratio, fusion width — CodegenMetrics analog)
         Source("compile", _stage_gauges()),
+        Source("streaming", _streaming_gauges(session)),
     ]
+
+
+def _streaming_gauges(session) -> Dict[str, Callable[[], Any]]:
+    """Standing-query health, summed over the session's registered
+    executions (``session._stream_execs``, read per sample): commits and
+    replays, stage rebuilds, state residency and spill, the watermark
+    and the rows evicted past it."""
+    def execs():
+        return list(getattr(session, "_stream_execs", None) or [])
+
+    def total(key):
+        return lambda: sum(int(ex.metrics.get(key, 0)) for ex in execs())
+
+    gauges: Dict[str, Callable[[], Any]] = {
+        "standing_queries": lambda: len(execs())}
+    for key in ("batches_committed", "replayed_batches",
+                "stage_rebuilds_last", "state_bytes", "state_rows",
+                "spill_bytes", "spill_events", "evicted_rows"):
+        gauges[key] = total(key)
+    gauges["watermark_us"] = lambda: max(
+        [int(ex.metrics.get("watermark_us", 0)) for ex in execs()] or [0])
+    gauges["admission_deferred"] = total("admission_deferred")
+    gauges["state_versions_spilled"] = lambda: sum(
+        int(ex._fmgws_provider.versions_spilled)
+        for ex in execs() if ex._fmgws_provider is not None)
+    return gauges

@@ -43,6 +43,12 @@ side; rules fire when a matching block or marker is published:
                 copy point: spans packed, arena and sidecar not yet
                 written.  Peers see the death at the host commit barrier
                 and take the refetch → recovery ladder.
+- ``torn_checkpoint``  a streaming commit entry is cut to ``keep_bytes``
+                right after its rename (``attach_stream``); with ``die``
+                the process then exits hard.  The checksum makes the
+                entry read as uncommitted and the batch replays.
+- ``die_after_state_commit``  the PROCESS exits hard between a
+                micro-batch's state commit and its sink write.
 
 The JAX package's other kinds fire on modules the port does not have
 yet; a plan naming one raises, naming the slice that brings it, rather
@@ -68,14 +74,13 @@ FAULT_PLAN_ENV = "SPARK_TPU_FAULT_PLAN"
 _KINDS = ("drop", "truncate", "corrupt", "delay", "skip_commit",
           "die_after_put", "die_after_manifest", "disk_full",
           "die_during_register", "blockserver_unavailable",
-          "spawn_exec_error", "ici_unavailable", "die_mid_device_copy")
+          "spawn_exec_error", "ici_unavailable", "die_mid_device_copy",
+          "torn_checkpoint", "die_after_state_commit")
 
 #: the JAX package's kinds whose fault points are in modules still to
 #: port, by the ROADMAP item that brings them
 WAITING_KINDS = {
     "skew_decision": "item 11's runtime verifiers (analysis/)",
-    "torn_checkpoint": "item 12, streaming",
-    "die_after_state_commit": "item 12, streaming",
 }
 
 _BLOCK_KINDS = ("drop", "truncate", "corrupt", "delay")
@@ -208,6 +213,27 @@ class FaultPlan:
         """Exit hard at the device tier's copy point: spans packed, the
         arena and its sidecar not written."""
         return self._add("die_mid_device_copy", exchange, None, True)
+
+    def torn_checkpoint(self, keep_bytes: int = 16, after_entries: int = 0,
+                        once: bool = True, die: bool = False) -> "FaultPlan":
+        """Tear a streaming checkpoint COMMIT entry: after the micro-batch
+        engine writes commit entry number ``after_entries`` (0 = the very
+        first), the just-renamed file is cut to ``keep_bytes`` bytes.
+        ``die=True`` also exits the process hard right after tearing (the
+        mid-commit kill point); the entry's checksum must make the tear
+        read as UNCOMMITTED either way."""
+        return self._add("torn_checkpoint", None, None, once,
+                         keep_bytes=keep_bytes, after_bytes=after_entries,
+                         side="die" if die else "r")
+
+    def die_after_state_commit(self, after_entries: int = 0
+                               ) -> "FaultPlan":
+        """Exit hard BETWEEN the state-version commit and the sink write
+        of streaming micro-batch number ``after_entries``: recovery must
+        replay the batch and the idempotent sink must swallow the
+        re-emission."""
+        return self._add("die_after_state_commit", None, None, once=True,
+                         after_bytes=after_entries)
 
     def spawn_exec_error(self, after_spawns: int = 0,
                          once: bool = False) -> "FaultPlan":
@@ -435,4 +461,62 @@ class FaultInjector:
             return pr
 
         supervisor._popen = popen
+        return self
+
+    def attach_stream(self, execution) -> "FaultInjector":
+        """Arms a ``StreamExecution``'s exactly-once commit protocol.
+
+        - ``torn_checkpoint``: after commit entry number ``after_entries``
+          lands atomically, the entry file is cut to ``keep_bytes`` in
+          place; with ``die=True`` the process then exits hard.
+        - ``die_after_state_commit``: the process exits between the
+          durable state commit and the sink write of batch number
+          ``after_entries`` (``execution._post_state_commit_hook``).
+
+        Kills go through ``self.die``."""
+        log = execution.commit_log
+        orig_add = log.add
+        commits_seen = [0]
+
+        def add(batch_id, payload):
+            orig_add(batch_id, payload)
+            n = commits_seen[0]
+            commits_seen[0] += 1
+            path = os.path.join(log.path, str(batch_id))
+            for rule in self.plan.rules:
+                if rule.kind == "torn_checkpoint" \
+                        and rule.matches("", None) \
+                        and n >= rule.after_bytes:
+                    rule.fired += 1
+                    with open(path, "rb") as f:
+                        body = f.read()
+                    with open(path, "wb") as f:
+                        f.write(body[: rule.keep_bytes])
+                    self.injected.append(f"torn_checkpoint:{batch_id}")
+                    if rule.side == "die":
+                        print(f"[faults] dying mid-commit at batch "
+                              f"{batch_id}", flush=True)
+                        self.die(43)
+
+        log.add = add
+
+        hooks_seen = [0]
+        prev_hook = execution._post_state_commit_hook
+
+        def hook(batch_id):
+            if prev_hook is not None:
+                prev_hook(batch_id)
+            n = hooks_seen[0]
+            hooks_seen[0] += 1
+            for rule in self.plan.rules:
+                if rule.kind == "die_after_state_commit" \
+                        and rule.matches("", None) \
+                        and n >= rule.after_bytes:
+                    rule.fired += 1
+                    self._die(f"die_after_state_commit:{batch_id}",
+                              f"dying after state commit at batch "
+                              f"{batch_id}")
+
+        if any(r.kind == "die_after_state_commit" for r in self.plan.rules):
+            execution._post_state_commit_hook = hook
         return self

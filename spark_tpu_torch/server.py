@@ -60,13 +60,29 @@ via --token or SPARK_TPU_SERVER_TOKEN):
                                 cancel; queued statements are removed
                                 from their session FIFO immediately
     GET    /statement/<id>      statement status (running/done/...)
+    POST   /stream              register a STANDING incremental query:
+                                {"session", "source": {"format", "path",
+                                "schema"?, "options"?}, "watermark"?:
+                                {"column", "delay"}, "sql"?, "view"?,
+                                "select"?, "sink": {"format", "path"},
+                                "mode"?, "checkpoint"?, "interval"?} →
+                                {"streamId"}; with "sql" the stream is
+                                the temp view "view" (default "stream")
+                                of the session and the query is that
+                                text over it.  The query is an admission
+                                tenant (429 + Retry-After over
+                                maxStandingQueries / headroom) and its
+                                session is never idle-reaped while it
+                                lives
+    GET    /stream/<id>         standing-query status: batch id, commit/
+                                replay/spill/watermark metrics, last
+                                progress, the last trigger's time split,
+                                deferral Retry-After
+    DELETE /stream/<id>         stop a standing query, release its slot
     GET    /status              version, sessions, statements, per-
-                                session queue depths, admission
-                                counters, plan-cache and stage-cache
-                                stats, the metrics sources
-
-Left out, refusing with the reference's error shape and naming the
-slice that brings it: ``/stream`` and standing queries (streaming).
+                                session queue depths, standing queries,
+                                admission counters, plan-cache and
+                                stage-cache stats, the metrics sources
 """
 
 from __future__ import annotations
@@ -88,11 +104,6 @@ from .metrics import Source
 from .serving import AdmissionController, AdmissionRejected, PlanCache
 
 __all__ = ["SQLServer"]
-
-#: what the port does not serve yet, by the slice that brings it
-STREAMS_NOT_PORTED = ("NotImplementedError: standing queries (/stream) are "
-                      "not ported yet: they come with the streaming slice")
-
 
 _SQL_LITERALS = re.compile(r"'(?:[^']|'')*'|\b\d+(?:\.\d+)?\b")
 _SQL_WS = re.compile(r"\s+")
@@ -185,6 +196,10 @@ class _ServerSession:
         # while other sessions starve
         self.queue: collections.deque = collections.deque()
         self.draining = False
+        # standing (streaming) queries registered on this session, keyed
+        # by stream id: a session carrying one is ALWAYS live for the
+        # idle reaper, however long since its last statement
+        self.streams: Dict[str, Any] = {}
 
 
 class _Statement:
@@ -230,6 +245,7 @@ class SQLServer:
         # the default session executes through the shared cache too
         session._plan_cache = self._plan_cache
         self._sessions_expired = 0
+        self._stream_retry: Dict[str, float] = {}  # last deferral hints
         self._statement_readmits = 0     # transparent recovery re-admits
         self._reaper_stop = threading.Event()
         self._reaper: Optional[threading.Thread] = None
@@ -353,6 +369,10 @@ class SQLServer:
                     f"session limit {self.max_sessions} reached")
             sess = self.session.newSession()
             sess._plan_cache = self._plan_cache   # shared plan cache
+            # one standing-query registry across the whole tier
+            if getattr(self.session, "_stream_execs", None) is None:
+                self.session._stream_execs = []
+            sess._stream_execs = self.session._stream_execs
             sid = uuid.uuid4().hex[:16]
             self._sessions[sid] = _ServerSession(sess)
         return sid
@@ -362,9 +382,22 @@ class SQLServer:
             ss = self._sessions.pop(sid, None)
         if ss is None:
             return False
+        self._release_session_streams(ss)
         ss.session.cancelAllQueries()
         ss.session._plan_cache = None
         return True
+
+    def _release_session_streams(self, ss: _ServerSession) -> None:
+        """Stop a departing session's standing queries and give their
+        admission slots back: closing a session must not leak tenancy."""
+        for stream_id, q in list(ss.streams.items()):
+            try:
+                q.stop()
+            except Exception:  # noqa: BLE001 — teardown is best-effort
+                pass
+            self._stream_retry.pop(stream_id, None)
+            self._admission.unregister_stream()
+        ss.streams.clear()
 
     def _resolve(self, sid: Optional[str]) -> _ServerSession:
         if not sid:
@@ -377,7 +410,10 @@ class SQLServer:
     def _expire_idle_sessions(self, now: Optional[float] = None) -> int:
         """Evict sessions idle longer than spark.tpu.server.sessionTimeout
         seconds.  Sessions with queued or running work are never touched —
-        eviction must not lose admitted statements.  Returns the count."""
+        eviction must not lose admitted statements — and neither are
+        sessions carrying a registered STANDING query: a stream triggers
+        between client requests, so last_used says nothing about its
+        liveness.  Returns the count."""
         ttl = float(self.session.conf_obj.get(C.SERVER_SESSION_TIMEOUT))
         if ttl <= 0:
             return 0
@@ -387,6 +423,7 @@ class SQLServer:
             victims = [(sid, ss) for sid, ss in self._sessions.items()
                        if not ss.queue and not ss.draining
                        and ss.running_stmt is None
+                       and not ss.streams
                        and now - ss.last_used > ttl]
             for sid, _ss in victims:
                 self._sessions.pop(sid, None)
@@ -402,6 +439,111 @@ class SQLServer:
                 self._expire_idle_sessions()
             except Exception:   # noqa: BLE001 — the reaper must survive
                 pass
+
+    # -- standing queries -------------------------------------------------
+    def _start_stream(self, payload: Dict[str, Any]) -> dict:
+        """Register a standing incremental query on a server session: an
+        admission TENANT (``register_stream`` takes a slot held until
+        DELETE /stream/<id>), each micro-batch then passing the batch
+        gate; a deferred batch leaves no WAL entry."""
+        from .sql.dataframe import DataFrame
+        from .sql.planner import QueryExecution
+        ss = self._resolve(payload.get("session"))
+        src = payload.get("source") or {}
+        sink = payload.get("sink") or {}
+        if not src.get("path") or not sink.get("path"):
+            raise ValueError("stream spec needs source.path and sink.path")
+        # the slot is taken BEFORE anything starts: a rejected standing
+        # query leaves no thread, no checkpoint dir, no registry entry
+        self._admission.register_stream()
+        try:
+            reader = ss.session.readStream.format(
+                src.get("format", "json"))
+            if src.get("schema"):
+                reader = reader.schema(src["schema"])
+            for k, v in (src.get("options") or {}).items():
+                reader = reader.option(k, v)
+            df = reader.load(src.get("path"))
+            wm = payload.get("watermark")
+            if wm:
+                df = df.withWatermark(wm["column"], wm["delay"])
+            if payload.get("sql"):
+                df.createOrReplaceTempView(payload.get("view", "stream"))
+                text = ss.session.sql(payload["sql"])
+                df = DataFrame(ss.session,
+                               QueryExecution(ss.session,
+                                              text._plan).analyzed)
+            if payload.get("select"):
+                df = df.select(*payload["select"])
+            w = (df.writeStream.format(sink.get("format", "json"))
+                 .outputMode(payload.get("mode", "append")))
+            if payload.get("checkpoint"):
+                w = w.option("checkpointLocation", payload["checkpoint"])
+            w = w.trigger(
+                processingTime=f"{float(payload.get('interval', 0.5))} "
+                               "seconds")
+            q = w.start(sink.get("path"))
+        except Exception:
+            self._admission.unregister_stream()
+            raise
+        return self.adopt_stream(payload.get("session"), q)
+
+    def adopt_stream(self, sid: Optional[str], q) -> dict:
+        """Wire a started StreamingQuery into the serving tier: the batch
+        admission gate and the session's stream registry (reaper
+        protection).  The caller owns the admission slot."""
+        ss = self._resolve(sid)
+        ex = q._ex
+        key = f"stream:{ex.id[:8]}"
+
+        def gate() -> bool:
+            try:
+                self._admission.admit_stream_batch(cost_key=key)
+                self._stream_retry.pop(ex.id, None)
+                return True
+            except AdmissionRejected as e:
+                self._stream_retry[ex.id] = e.retry_after_s
+                return False
+
+        ex._batch_admit = gate
+        with self._reg_lock:
+            ss.streams[ex.id] = q
+        ss.last_used = time.time()
+        return {"streamId": ex.id, "name": ex.name}
+
+    def _find_stream(self, stream_id: str):
+        with self._reg_lock:
+            pool = [self._default] + list(self._sessions.values())
+            for ss in pool:
+                if stream_id in ss.streams:
+                    return ss, ss.streams[stream_id]
+        raise KeyError(f"no such stream {stream_id!r}")
+
+    def _stream_status(self, stream_id: str) -> dict:
+        _ss, q = self._find_stream(stream_id)
+        ex = q._ex
+        out = {"streamId": ex.id, "name": ex.name, "active": q.isActive,
+               "batchId": ex.batch_id, "metrics": dict(ex.metrics),
+               "lastProgress": q.lastProgress,
+               "timings": dict(ex.timings)}
+        if ex.exception is not None:
+            out["error"] = \
+                f"{type(ex.exception).__name__}: {ex.exception}"[:2000]
+        retry = self._stream_retry.get(ex.id)
+        if retry is not None:
+            out["retryAfterSeconds"] = round(retry, 1)
+        return out
+
+    def _stop_stream(self, stream_id: str) -> dict:
+        ss, q = self._find_stream(stream_id)
+        q.stop()
+        with self._reg_lock:
+            ss.streams.pop(stream_id, None)
+        self._stream_retry.pop(stream_id, None)
+        self._admission.unregister_stream()
+        ss.last_used = time.time()
+        return {"stopped": stream_id,
+                "batchesCommitted": q._ex.metrics["batches_committed"]}
 
     # -- statement execution ---------------------------------------------
     def _run_sql(self, text: str, sid: Optional[str],
@@ -644,6 +786,10 @@ class SQLServer:
             queues = {sid: {"queued": len(ss.queue),
                             "running": ss.running_stmt is not None}
                       for sid, ss in self._sessions.items()}
+            streams = {stream_id: {"session": sid, "active": q.isActive}
+                       for sid, ss in [("default", self._default),
+                                       *self._sessions.items()]
+                       for stream_id, q in ss.streams.items()}
         out = {
             "version": self.session.version,
             "device": str(self.session.device),
@@ -652,6 +798,7 @@ class SQLServer:
             "sessionsExpired": self._sessions_expired,
             "activeStatements": stmts,
             "sessionQueues": queues,
+            "standingQueries": streams,
             "admission": self._admission.stats(),
             "metrics": self.session.metricsSystem.snapshots(),
         }
@@ -690,9 +837,6 @@ class SQLServer:
                 self.end_headers()
                 self.wfile.write(body)
 
-            def _not_ported(self):
-                self._reply(400, {"error": STREAMS_NOT_PORTED})
-
             def _authed(self) -> bool:
                 if server.token is None:
                     return True
@@ -720,7 +864,11 @@ class SQLServer:
                             "statementId": stmt.id, "status": stmt.status,
                             "submitted": stmt.submitted})
                 elif path.startswith("/stream/"):
-                    self._not_ported()
+                    try:
+                        self._reply(200, server._stream_status(
+                            path.rsplit("/", 1)[1]))
+                    except KeyError as e:
+                        self._reply(404, {"error": str(e)})
                 else:
                     self._reply(404, {"error": f"no route {self.path}"})
 
@@ -735,7 +883,11 @@ class SQLServer:
                     else:
                         self._reply(404, {"error": f"no session {sid!r}"})
                 elif path.startswith("/stream/"):
-                    self._not_ported()
+                    try:
+                        self._reply(200, server._stop_stream(
+                            path.rsplit("/", 1)[1]))
+                    except KeyError as e:
+                        self._reply(404, {"error": str(e)})
                 else:
                     self._reply(404, {"error": f"no route {self.path}"})
 
@@ -758,7 +910,17 @@ class SQLServer:
                         self._reply(429, {"error": str(e)})
                     return
                 if path == "/stream":
-                    self._not_ported()
+                    try:
+                        self._reply(200, server._start_stream(payload))
+                    except AdmissionRejected as e:
+                        self._reply(429, e.to_json(), headers={
+                            "Retry-After": str(max(1, int(
+                                e.retry_after_s + 0.999)))})
+                    except KeyError as e:
+                        self._reply(404, {"error": str(e)})
+                    except Exception as e:  # noqa: BLE001 — to client
+                        self._reply(400, {
+                            "error": f"{type(e).__name__}: {e}"[:2000]})
                     return
                 if path == "/cancel":
                     sid = payload.get("id") or \
@@ -855,6 +1017,8 @@ class SQLServer:
         self._pool.shutdown(wait=False, cancel_futures=True)
         with self._reg_lock:
             sessions = list(self._sessions.values())
+        for ss in [self._default] + sessions:
+            self._release_session_streams(ss)
         for ss in sessions:
             ss.session._plan_cache = None
         self.session._plan_cache = None

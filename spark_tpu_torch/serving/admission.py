@@ -24,8 +24,11 @@ tunes a running server):
 The card's memory is guarded by the memory pre-flight of every query
 (``memory.MemoryManager``), not here.  ``demand_signal`` snapshots the
 demand as a ``DemandSignal``, the elastic pool's one input
-(``serving/pool.py``).  The JAX package's standing-query cap waits for
-the streaming slice.
+(``serving/pool.py``).  Standing (streaming) queries are long-lived
+tenants: ``register_stream`` takes a slot under
+``spark.tpu.server.maxStandingQueries`` and the headroom floor, held
+until ``unregister_stream``, and each micro-batch passes the
+non-raising-for-the-caller gate ``admit_stream_batch``.
 
 The Retry-After hint is PER QUERY SHAPE when history exists: releases
 tagged with a ``cost_key`` (the server derives one per normalized
@@ -53,8 +56,7 @@ class DemandSignal(NamedTuple):
     rejections since the previous snapshot, ``cost_ewma_s`` the recent
     statement duration and ``backlog_s`` its product with the demand.
     ``host_free`` is the host ledger's free budget (-1 = no ledger) and
-    ``standing`` the long-lived streaming tenants (0 until streaming is
-    ported)."""
+    ``standing`` the registered standing (streaming) queries."""
 
     running: int = 0
     queued: int = 0
@@ -117,6 +119,13 @@ class AdmissionController:
         self.rejected_by: Dict[str, int] = {}
         self._ewma_s = 0.05            # recent statement duration estimate
         self._shape_ewma_s: Dict[str, float] = {}   # per-cost-key estimate
+        # standing (streaming) queries: long-lived tenants holding a slot
+        # from register until unregister, with a per-micro-batch gate
+        self.standing = 0
+        self.peak_standing = 0
+        self.streams_admitted = 0
+        self.stream_batches = 0
+        self.stream_batches_deferred = 0
 
     #: per-shape table bound — a serving process must not leak one entry
     #: per distinct literal-normalized statement forever
@@ -201,6 +210,38 @@ class AdmissionController:
             est = self._ewma_s
         return max(1.0, est * max(1, self.active))
 
+    # -- standing (streaming) queries ------------------------------------
+    def register_stream(self) -> None:
+        """Admit one STANDING query, which holds its slot until
+        ``unregister_stream``, or raise ``AdmissionRejected``: counts
+        against ``spark.tpu.server.maxStandingQueries`` and the
+        (grace-scaled) host-headroom floor."""
+        with self._lock:
+            cap = int(self._conf.get(C.SERVER_MAX_STANDING_QUERIES))
+            if cap > 0 and self.standing >= cap:
+                self._reject("maxStandingQueries", self.standing, cap)
+            self._check_headroom_locked(None)
+            self.standing += 1
+            self.streams_admitted += 1
+            self.peak_standing = max(self.peak_standing, self.standing)
+
+    def unregister_stream(self) -> None:
+        with self._lock:
+            self.standing = max(0, self.standing - 1)
+
+    def admit_stream_batch(self, cost_key: Optional[str] = None) -> None:
+        """Per-micro-batch gate of a registered standing query: raises
+        ``AdmissionRejected`` (with a shape-aware Retry-After) under host
+        memory pressure; the caller defers the batch, which leaves no WAL
+        entry and no state change."""
+        with self._lock:
+            self.stream_batches += 1
+            try:
+                self._check_headroom_locked(cost_key)
+            except AdmissionRejected:
+                self.stream_batches_deferred += 1
+                raise
+
     # -- the demand signal (the elastic pool's input) -------------------
     def demand_signal(self) -> DemandSignal:
         """Snapshot serving demand.  Suppliers with locks of their own
@@ -223,12 +264,13 @@ class AdmissionController:
             self._signal_rejected_mark = self.rejected
             running = self.active
             ewma = self._ewma_s
+            standing = self.standing
         demand = running + queued + rejected_recent
         return DemandSignal(
             running=running, queued=queued,
             rejected_recent=rejected_recent,
             cost_ewma_s=ewma, backlog_s=ewma * demand,
-            host_free=host_free, standing=0)
+            host_free=host_free, standing=standing)
 
     # -- introspection -------------------------------------------------
     def stats(self) -> Dict[str, Any]:
@@ -249,6 +291,10 @@ class AdmissionController:
                 "avgStatementMs": round(self._ewma_s * 1000, 1),
                 "costShapes": len(self._shape_ewma_s),
                 "graceDegraded": int(self._grace() or 0),
+                "standingQueries": self.standing,
+                "peakStandingQueries": self.peak_standing,
+                "streamBatches": self.stream_batches,
+                "streamBatchesDeferred": self.stream_batches_deferred,
                 # a NON-consuming view of the demand signal (the delta
                 # mark belongs to demand_signal's caller, the pool)
                 "demand": {
@@ -269,4 +315,7 @@ class AdmissionController:
             "admission_rejected": lambda: self.stats()["rejected"],
             "admission_active": lambda: self.stats()["active"],
             "admission_peak_active": lambda: self.stats()["peakActive"],
+            "admission_standing_queries": lambda: self.standing,
+            "admission_stream_batches_deferred":
+                lambda: self.stream_batches_deferred,
         }

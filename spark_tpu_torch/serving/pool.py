@@ -24,8 +24,11 @@ requests, with hysteresis on the way down); the block service
   and never serves on the CPU.
 
 * Scale-down is "stop heartbeating and hand off the lease", never a
-  drain barrier: the supervisor writes a reap marker, the worker retires
-  its beat and exits, and the supervisor inherits its lease
+  drain barrier: the supervisor writes a reap marker, the worker finishes
+  the statements it has claimed, retires its beat and exits (the
+  supervisor waits out a claimed statement before its grace, where the
+  JAX package's ends the worker two seconds after the marker, whatever
+  it runs), and the supervisor inherits its lease
   (``BlockStore.handoff_lease``) before releasing the original, so the
   worker's sealed output stays adoptable.
 
@@ -64,6 +67,10 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 
 #: the share of the card's free memory the workers split between them
 HBM_SHARE = 0.5
+
+#: seconds a spooled statement waits for a worker's answer before the
+#: server runs it itself; a reap waits as long for a claimed statement
+OFFLOAD_TIMEOUT_S = 60.0
 
 #: set in a worker's environment, it holds every K1 launch outside a
 #: graph capture against the kernel's plain version and reports its K1
@@ -263,6 +270,9 @@ class WorkerPoolSupervisor:
             "scale_decisions": 0, "spawn_failures": 0,
             "pool_statements_served": 0, "offload_fallbacks": 0,
         }
+        self.last_fallback: Optional[str] = None
+        #: reaps that waited for a statement their worker had claimed
+        self.reap_claim_waits = 0
 
     # -- lifecycle -----------------------------------------------------
     def _worker_conf(self) -> Dict[str, Any]:
@@ -445,8 +455,7 @@ class WorkerPoolSupervisor:
         lease release.  No drain barrier: in-flight sealed output stays
         adoptable through the heir lease."""
         with self._lock:
-            pr = self._workers.pop(wid, None)
-            log = self._logs.pop(wid, None)
+            pr = self._workers.get(wid)
         if pr is None:
             return
         marker = os.path.join(self.root, "reap", str(wid))
@@ -455,6 +464,21 @@ class WorkerPoolSupervisor:
                 f.write("reap")
         except OSError:
             pass
+        # the worker reads its marker only between statements: one it has
+        # claimed runs to its end (bounded by the offload timeout) before
+        # the grace starts, the worker still counted live for the client
+        # waiting on it, or that client would wait out the timeout and
+        # then run the statement again in the server
+        deadline = time.time() + OFFLOAD_TIMEOUT_S
+        waited = False
+        while pr.poll() is None and self._holds_claim(wid) \
+                and time.time() < deadline:
+            waited = True
+            time.sleep(0.02)
+        self.reap_claim_waits += waited
+        with self._lock:
+            self._workers.pop(wid, None)
+            log = self._logs.pop(wid, None)
         deadline = time.time() + max(2.0, 8 * self.poll_s)
         while pr.poll() is None and time.time() < deadline:
             time.sleep(0.02)
@@ -483,14 +507,22 @@ class WorkerPoolSupervisor:
             pass
         self.counters["workers_reaped"] += 1
 
+    def _holds_claim(self, wid: int) -> bool:
+        """Whether worker ``wid`` holds a claimed, unanswered statement."""
+        try:
+            names = os.listdir(os.path.join(self.root, "spool"))
+        except OSError:
+            return False
+        return any(n.endswith(f".claim{wid}") for n in names)
+
     # -- statement offload ---------------------------------------------
     def execute(self, sql: str,
-                timeout_s: float = 60.0) -> Optional[dict]:
+                timeout_s: float = OFFLOAD_TIMEOUT_S) -> Optional[dict]:
         """Offer one statement to the pool through the spool; returns the
         server-shaped result dict, or None when no worker answered in
         time or the worker failed (the caller then runs it itself)."""
         if self.live <= 0:
-            self.counters["offload_fallbacks"] += 1
+            self._fallback("no live worker")
             return None
         with self._lock:
             sid = self._next_stmt
@@ -501,14 +533,17 @@ class WorkerPoolSupervisor:
         deadline = time.time() + timeout_s
         try:
             while time.time() < deadline:
+                # sampled before the read: a worker answers before it
+                # leaves the live set, so its last answer is not missed
+                gone = self.live <= 0
                 rec = _read_json(result_path)
                 if rec is not None:
                     if rec.get("ok"):
                         self.counters["pool_statements_served"] += 1
                         return rec["result"]
-                    self.counters["offload_fallbacks"] += 1
+                    self._fallback(f"worker error: {rec.get('error')}")
                     return None
-                if self.live <= 0:
+                if gone:
                     break           # every worker died while we waited
                 time.sleep(0.01)
             # withdraw the offer if nobody claimed it (a claimed SELECT may
@@ -517,7 +552,9 @@ class WorkerPoolSupervisor:
                 os.remove(base + ".json")
             except OSError:
                 pass
-            self.counters["offload_fallbacks"] += 1
+            self._fallback("no worker answered within "
+                           f"{timeout_s:.0f} s" if self.live > 0
+                           else "every worker died while it waited")
             return None
         finally:
             try:
@@ -526,6 +563,12 @@ class WorkerPoolSupervisor:
                 pass
 
     # -- observability -------------------------------------------------
+    def _fallback(self, why: str) -> None:
+        """Count a statement the pool hands back to the server, and keep
+        why (``stats()["lastFallback"]``)."""
+        self.counters["offload_fallbacks"] += 1
+        self.last_fallback = why[:2000]
+
     def stats(self) -> Dict[str, Any]:
         self._collect_ready()
         d = self._last_decision
@@ -538,6 +581,10 @@ class WorkerPoolSupervisor:
         if d is not None:
             out["lastDecision"] = {"target": d.target, "action": d.action,
                                    "reason": d.reason}
+        if self.last_fallback is not None:
+            out["lastFallback"] = self.last_fallback
+        if self.reap_claim_waits:
+            out["reapClaimWaits"] = self.reap_claim_waits
         return out
 
 

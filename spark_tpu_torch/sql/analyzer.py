@@ -28,10 +28,14 @@ validation plus these structural rewrites:
 * ``s.field`` on a struct column becomes ``GetField``.
 * eager schema validation for early, readable AnalysisException errors.
 
-The sliding-window hook of the JAX package is not ported:
-``_check_ported`` raises ``NotImplementedError`` naming the slice that
-brings each plan node, and ``not_ported`` builds the parser's
-``AnalysisException`` for each function name a later slice brings.
+* sliding ``window()`` grouping keys expand each event into its
+  duration/slide windows below the aggregate (``TimeWindowing``'s
+  Expand).
+
+``_check_ported`` raises ``NotImplementedError`` for a plan node no
+slice of the port executes, and ``not_ported`` builds the parser's
+``AnalysisException`` for a function name a later slice would bring
+(none is left: ``NOT_PORTED_FUNCTIONS`` is empty).
 """
 
 from __future__ import annotations
@@ -41,36 +45,28 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 from ..aggregates import AggregateFunction, Count, CountDistinct, CountStar, Sum
 from ..expressions import (Alias, AnalysisException, And, Col, EQ,
                            Expression, GroupingCall, Literal)
-from .logical import (Aggregate, Distinct, Except, Explode, FileRelation,
-                      Filter, GroupingSets, Intersect, Join, LazyCheckpoint,
-                      Limit, LocalRelation, LogicalPlan, Project,
-                      RangeRelation, Sample, Sort, SortOrder, SubqueryAlias,
-                      Union, UnresolvedRelation)
+from .logical import (Aggregate, Distinct, EventTimeWatermark, Except,
+                      Explode, FileRelation, Filter, FlatMapGroupsWithState,
+                      GroupingSets, Intersect, Join, LazyCheckpoint, Limit,
+                      LocalRelation, LogicalPlan, Project, RangeRelation,
+                      Sample, Sort, SortOrder, SubqueryAlias, Union,
+                      UnresolvedRelation)
 from .window import WindowExpression, WindowNode, WindowSpec, contains_window
 
-_STREAMING = "the streaming slice"
-
 #: logical nodes of the JAX package whose execution a later slice of the
-#: port brings, by class name, and that slice
-_NOT_PORTED = {
-    "FlatMapGroupsWithState": _STREAMING,
-}
+#: port brings, by class name, and that slice (none is left)
+_NOT_PORTED: Dict[str, str] = {}
 
 _PORTED_NODES = (LocalRelation, RangeRelation, FileRelation,
                  UnresolvedRelation, Project, Filter, Aggregate, Sort, Limit,
                  Join, Distinct, SubqueryAlias, Union, Intersect, Except,
-                 WindowNode, GroupingSets, Sample, Explode, LazyCheckpoint)
-
-
-def _names(names: str, where: str) -> Dict[str, str]:
-    return {n: where for n in names.split()}
+                 WindowNode, GroupingSets, Sample, Explode, LazyCheckpoint,
+                 FlatMapGroupsWithState, EventTimeWatermark)
 
 
 #: SQL function names the JAX package's parser registers whose expression
-#: a later slice of the port brings, and that slice
-NOT_PORTED_FUNCTIONS: Dict[str, str] = {
-    **_names("window window_end", f"{_STREAMING} (event-time windows)"),
-}
+#: a later slice of the port brings, and that slice (none is left)
+NOT_PORTED_FUNCTIONS: Dict[str, str] = {}
 
 
 def not_ported(construct: str) -> AnalysisException:
@@ -335,7 +331,7 @@ class Analyzer:
         if "explode" in found:
             plan = plan.transform_up(self._rewrite_explode)
         plan = plan.transform_up(self._rewrite_grouping_sets)
-        # the sliding-window rewrite: the streaming slice
+        plan = plan.transform_up(self._rewrite_sliding_window)
         if "lambda" in found:
             counter = [0]
             plan = plan.transform_up(
@@ -343,6 +339,55 @@ class Analyzer:
                     lambda e: resolve_lambdas(e, counter)))
         self._validate(plan)
         return plan
+
+    @staticmethod
+    def _rewrite_sliding_window(node: LogicalPlan) -> LogicalPlan:
+        """Sliding window() grouping keys (slide < duration) expand each
+        event into its duration/slide windows BELOW the aggregate (the
+        reference's Expand in TimeWindowing): a static expansion factor
+        r = duration // slide."""
+        from .. import types as T
+        from ..expressions import Add, Cast, MakeArray, Sub, TimeWindow
+        if not isinstance(node, Aggregate):
+            return node
+
+        def base(k):
+            return k.children[0] if isinstance(k, Alias) else k
+
+        sliding = [k for k in node.keys
+                   if isinstance(base(k), TimeWindow)
+                   and base(k).is_sliding]
+        if not sliding:
+            return node
+        specs = {(base(k).duration_us, base(k).slide_us,
+                  repr(base(k).children[0])) for k in sliding}
+        if len(specs) > 1:
+            raise AnalysisException(
+                "one sliding window spec per aggregation is supported")
+        tw = base(sliding[0])
+        d, s_us = tw.duration_us, tw.slide_us
+        r = d // s_us
+        ts = tw.children[0]
+        # i-th containing window start = floor(ts / slide) * slide - i*slide
+        last = Cast(TimeWindow(ts, s_us), T.int64)
+        starts = [Sub(last, Literal(i * s_us)) for i in range(r)]
+        tmp = "__win_start"
+        child = node.children[0]
+        pre = [Col(n) for n in child.schema().names]
+        expansion = Explode(pre, MakeArray(*starts), tmp, False, "pos",
+                            child, insert_at=len(pre))
+        new_keys = []
+        for k in node.keys:
+            b = base(k)
+            if isinstance(b, TimeWindow) and b.is_sliding:
+                if b.field == "start":
+                    e = Cast(Col(tmp), T.timestamp)
+                else:
+                    e = Cast(Add(Col(tmp), Literal(d)), T.timestamp)
+                new_keys.append(Alias(e, k.name))
+            else:
+                new_keys.append(k)
+        return Aggregate(new_keys, node.aggs, expansion)
 
     @staticmethod
     def _rewrite_explode(node: LogicalPlan) -> LogicalPlan:
@@ -441,7 +486,8 @@ class Analyzer:
     @staticmethod
     def _check_ported(plan: LogicalPlan) -> None:
         """Refuse plan nodes whose operators a later slice brings."""
-        if not isinstance(plan, _PORTED_NODES):
+        from ..streaming.core import StreamingRelation
+        if not isinstance(plan, _PORTED_NODES + (StreamingRelation,)):
             name = type(plan).__name__
             raise NotImplementedError(
                 f"{name} is not ported yet: it comes with "

@@ -188,6 +188,20 @@ class DataFrame:
         """A logical no-op (see ``repartition``)."""
         return self
 
+    def withWatermark(self, eventTime: str, delayThreshold: str) -> "DataFrame":
+        """Event-time watermark (``Dataset.withWatermark``); no-op in batch."""
+        from ..expressions import parse_duration
+        if eventTime not in self.schema.names:
+            raise AnalysisException(
+                f"watermark column {eventTime!r} not found among "
+                f"{self.schema.names}")
+        delay = parse_duration(delayThreshold)
+        if delay < 0:
+            raise AnalysisException(
+                f"watermark delay must be >= 0, got {delayThreshold!r}")
+        return DataFrame(self.session, L.EventTimeWatermark(
+            eventTime, delay, self._plan))
+
     def distinct(self) -> "DataFrame":
         return DataFrame(self.session, L.Distinct(self._plan))
 
@@ -465,6 +479,20 @@ class DataFrame:
         from ..io import DataFrameWriter
         return DataFrameWriter(self)
 
+    @property
+    def writeStream(self):
+        from ..streaming.api import DataStreamWriter
+        return DataStreamWriter(self)
+
+    @property
+    def isStreaming(self) -> bool:
+        from ..streaming.core import StreamingRelation
+
+        def walk(n) -> bool:
+            return isinstance(n, StreamingRelation) \
+                or any(walk(c) for c in n.children)
+        return walk(self._plan)
+
     def createOrReplaceTempView(self, name: str) -> None:
         self.session.catalog.register(name, self._plan)
 
@@ -530,6 +558,36 @@ class GroupedData:
             exprs.append(Alias(c._e if isinstance(c, Column) else c, out_name))
         plan = build_aggregate(self._keys, exprs, self._df._plan)
         return DataFrame(self._df.session, plan)
+
+    def flatMapGroupsWithState(self, func, outputStructType,
+                               outputMode: str = "append",
+                               timeoutConf: str = "NoTimeout") -> DataFrame:
+        """Arbitrary stateful per-group processing (pyspark's
+        ``applyInPandasWithState`` shape).  ``func(key_tuple, rows,
+        state)`` returns output tuples.  On a stream ``state`` persists
+        across micro-batches and, with ``EventTimeTimeout``, times out by
+        watermark; in batch mode each group sees one fresh state."""
+        if timeoutConf not in ("NoTimeout", "EventTimeTimeout"):
+            raise AnalysisException(
+                f"unsupported timeoutConf {timeoutConf!r}; processing-time "
+                "timeouts do not replay deterministically — use "
+                "EventTimeTimeout")
+        if outputMode not in ("append", "update"):
+            raise AnalysisException(
+                "flatMapGroupsWithState supports append/update output modes")
+        key_names = []
+        for k in self._keys:
+            base = k.children[0] if isinstance(k, Alias) else k
+            if not isinstance(base, Col):
+                raise AnalysisException(
+                    "flatMapGroupsWithState grouping keys must be plain "
+                    "columns")
+            key_names.append(k.name)
+        return DataFrame(self._df.session, L.FlatMapGroupsWithState(
+            func, key_names, outputStructType, outputMode, timeoutConf,
+            self._df._plan))
+
+    applyInPandasWithState = flatMapGroupsWithState
 
     def count(self) -> DataFrame:
         return self.agg(Column(Alias(CountStar(), "count")))

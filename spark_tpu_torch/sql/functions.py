@@ -415,6 +415,22 @@ def last(c, ignorenulls: bool = True) -> Column:
     return Column(A.Last(_e(c), ignorenulls))
 
 
+def window(c, windowDuration: str, slideDuration=None) -> Column:
+    """Event-time bucket; evaluates to the window START timestamp (the
+    struct-free flattening of the reference's window().start).  A slide
+    shorter than the duration makes a sliding window (grouping key only)."""
+    from ..expressions import TimeWindow, parse_duration
+    slide = parse_duration(slideDuration) if slideDuration else None
+    return Column(TimeWindow(_e(c), parse_duration(windowDuration), slide))
+
+
+def window_end(c, windowDuration: str) -> Column:
+    """END timestamp of the tumbling window containing c."""
+    from ..expressions import TimeWindow, parse_duration
+    return Column(TimeWindow(_e(c), parse_duration(windowDuration),
+                             None, "end"))
+
+
 def countDistinct(c) -> Column:
     return Column(A.CountDistinct(_e(c)))
 

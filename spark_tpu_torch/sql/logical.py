@@ -23,7 +23,7 @@ __all__ = [
     "Aggregate", "Sort", "SortOrder", "Limit", "Join", "Union", "Distinct",
     "SubqueryAlias", "UnresolvedRelation", "FileRelation", "Sample",
     "Intersect", "Except", "Explode", "CachedRelation", "LazyCheckpoint",
-    "plan_cache_key",
+    "FlatMapGroupsWithState", "EventTimeWatermark", "plan_cache_key",
 ]
 
 
@@ -408,6 +408,55 @@ class Join(LogicalPlan):
 
     def __repr__(self):
         return f"Join {self.how} on={self.on!r} using={self.using}"
+
+
+class FlatMapGroupsWithState(LogicalPlan):
+    """Arbitrary stateful per-group processing
+    (``FlatMapGroupsWithStateExec.scala``).  ``func(key, rows, state)``
+    yields output tuples matching ``out_schema``; in batch mode every
+    group sees a fresh empty state."""
+
+    def __init__(self, func, key_names: List[str], out_schema: T.StructType,
+                 output_mode: str, timeout_conf: str, child: LogicalPlan):
+        self.func = func
+        self.key_names = list(key_names)
+        self.out_schema = out_schema
+        self.output_mode = output_mode
+        self.timeout_conf = timeout_conf
+        self.children = (child,)
+
+    @property
+    def child(self):
+        return self.children[0]
+
+    def schema(self) -> T.StructType:
+        return self.out_schema
+
+    def __repr__(self):
+        return (f"FlatMapGroupsWithState[{self.key_names}] "
+                f"{self.out_schema.simpleString()} mode={self.output_mode}")
+
+
+class EventTimeWatermark(LogicalPlan):
+    """withWatermark(col, delay): the event-time lateness bound
+    (``EventTimeWatermarkExec.scala``).  A no-op in batch execution; the
+    streaming engine uses it to drop late rows, finalize append-mode
+    groups and evict state."""
+
+    def __init__(self, col_name: str, delay_us: int, child: LogicalPlan):
+        self.col_name = col_name
+        self.delay_us = delay_us
+        self.children = (child,)
+
+    @property
+    def child(self):
+        return self.children[0]
+
+    def schema(self) -> T.StructType:
+        return self.child.schema()
+
+    def __repr__(self):
+        return f"EventTimeWatermark {self.col_name} -{self.delay_us}us"
 
 
 class Union(LogicalPlan):

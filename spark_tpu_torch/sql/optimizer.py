@@ -711,6 +711,7 @@ def prune_file_columns(plan: LogicalPlan) -> LogicalPlan:
     """Top-down required-column propagation; file relations read only the
     columns the plan consumes (``FileSourceStrategy.scala``'s pruned
     schema)."""
+    from .logical import EventTimeWatermark
     from .window import WindowNode
 
     def narrowest(fields) -> str:
@@ -771,6 +772,12 @@ def prune_file_columns(plan: LogicalPlan) -> LogicalPlan:
             child = walk(node.children[0], required)
             return SubqueryAlias(node.alias, child) \
                 if child is not node.children[0] else node
+        if isinstance(node, EventTimeWatermark):
+            child = walk(node.children[0], required)
+            if child is not node.children[0]:
+                return EventTimeWatermark(node.col_name, node.delay_us,
+                                          child)
+            return node
         if isinstance(node, WindowNode):
             # a WindowExpression's references live in sub_expressions()
             wrefs: set = set()

@@ -31,8 +31,8 @@ operators it lacks: ``e[key]`` (``GetItem``: a 0-based array position, a
 map key or a struct field) and ``e.field`` after a call or a subscript
 (``GetField``; ``s.field`` on a struct column resolves in the analyzer).
 A name whose expression a later slice brings
-(``analyzer.NOT_PORTED_FUNCTIONS``: the event-time windows) raises
-``AnalysisException`` naming the construct and that slice.
+(``analyzer.NOT_PORTED_FUNCTIONS``, empty since the event-time windows
+came) raises ``AnalysisException`` naming the construct and that slice.
 """
 
 from __future__ import annotations
@@ -227,6 +227,17 @@ def _if_fn(args):
     return If(*args)
 
 
+def _time_window(args, field):
+    from ..expressions import TimeWindow, parse_duration
+    if len(args) not in (2, 3) \
+            or any(not isinstance(a, Literal) for a in args[1:]):
+        raise ParseException(
+            "window expects (timeColumn, 'duration literal'"
+            "[, 'slide literal'])")
+    slide = parse_duration(args[2].value) if len(args) > 2 else None
+    return TimeWindow(args[0], parse_duration(args[1].value), slide, field)
+
+
 def _count(args, distinct):
     if len(args) != 1:
         raise ParseException("count expects 1 argument")
@@ -244,6 +255,8 @@ SCALAR_FUNCTIONS = {
     "nvl": lambda a: Coalesce(*a),
     "ifnull": lambda a: Coalesce(*a),
     "nullif": _nullif, "nvl2": _nvl2, "if": _if_fn,
+    "window": lambda a: _time_window(a, "start"),
+    "window_end": lambda a: _time_window(a, "end"),
     "isnull": lambda a: IsNull(_one(a, "isnull")),
     "isnotnull": lambda a: IsNotNull(_one(a, "isnotnull")),
     "pmod": lambda a: Mod(Add(Mod(a[0], a[1]), a[1]), a[1]),

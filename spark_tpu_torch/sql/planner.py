@@ -27,8 +27,9 @@ from ..columnar import ColumnBatch, ColumnVector, dense_runs, pad_capacity
 from ..expressions import AnalysisException
 from ..kernels import compact
 from .logical import (
-    Aggregate, CachedRelation, Distinct, Explode, FileRelation, Filter, Join,
-    LazyCheckpoint, Limit, LocalRelation, LogicalPlan, Project,
+    Aggregate, CachedRelation, Distinct, EventTimeWatermark, Explode,
+    FileRelation, Filter, FlatMapGroupsWithState, Join, LazyCheckpoint,
+    Limit, LocalRelation, LogicalPlan, Project,
     RangeRelation, Sample, Sort, SubqueryAlias, Union, plan_cache_key,
 )
 from . import physical as P
@@ -461,6 +462,19 @@ class Planner:
                               leaves, node)
         if isinstance(node, SubqueryAlias):
             return self._to_physical(node.child, leaves)
+        if isinstance(node, FlatMapGroupsWithState):
+            # host-side user function: the child sub-plan runs as its own
+            # query, the function runs per group with a fresh batch-mode
+            # state, and the result enters THIS plan as a scanned leaf
+            # (FlatMapGroupsWithStateExec batch semantics)
+            from ..streaming.groupstate import run_flat_map_groups
+            child = QueryExecution(self.session, node.child).execute()
+            out, _states, _ch, _rm = run_flat_map_groups(
+                node.func, node.key_names, child, node.out_schema, {},
+                watermark_us=None, timeout_conf=node.timeout_conf)
+            return self._scan(out, leaves)
+        if isinstance(node, EventTimeWatermark):
+            return self._to_physical(node.children[0], leaves)  # batch no-op
         if isinstance(node, Project):
             return P.PProject(node.exprs, self._to_physical(node.child, leaves))
         if isinstance(node, Filter):
@@ -497,7 +511,6 @@ class Planner:
                               insert_at=node.insert_at)
         if isinstance(node, LazyCheckpoint):
             return self._checkpoint(node, leaves)
-        # stateful groups: a later slice (the analyzer refuses them first)
         raise AnalysisException(f"no physical plan for {node!r}")
 
     def _checkpoint(self, node: LazyCheckpoint, leaves) -> P.PhysicalPlan:

@@ -35,6 +35,23 @@ class QueryCancelled(Exception):
     reference's ``SparkContext.cancelJobGroup`` task interruption."""
 
 
+def _pandas_columns(df) -> dict:
+    """A pandas DataFrame's columns as numpy arrays, object and nullable
+    extension columns as lists with None for NA (the reference's
+    ``ColumnBatch.from_pandas``)."""
+    data = {}
+    for name in df.columns:
+        s = df[name]
+        if s.dtype == object or str(s.dtype) in ("string", "str") \
+                or str(s.dtype).startswith(("Int", "Float", "boolean")):
+            na = s.isna().to_numpy()
+            data[str(name)] = [None if na[i] else v
+                               for i, v in enumerate(s.tolist())]
+        else:
+            data[str(name)] = s.to_numpy()
+    return data
+
+
 def resolve_device(name: str) -> torch.device:
     """The session's device; a CUDA device that is not there raises."""
     device = torch.device(name)
@@ -478,9 +495,10 @@ class SparkSession:
 
     def createDataFrame(self, data, schema: Union[None, List[str], T.StructType] = None,
                         ) -> DataFrame:
-        """Rows (list of tuples/dicts/Rows) or a dict of columns (numpy
-        arrays or lists) → DataFrame whose batch lives on the session's
-        device (``SparkSession.createDataFrame`` analog)."""
+        """Rows (list of tuples/dicts/Rows), a pandas DataFrame or a dict
+        of columns (numpy arrays or lists) → DataFrame whose batch lives
+        on the session's device (``SparkSession.createDataFrame``
+        analog)."""
         struct: Optional[T.StructType] = None
         names: Optional[List[str]] = None
         if isinstance(schema, T.StructType):
@@ -489,6 +507,8 @@ class SparkSession:
         elif isinstance(schema, (list, tuple)):
             names = list(schema)
 
+        if hasattr(data, "columns") and hasattr(data, "dtypes"):
+            data = _pandas_columns(data)
         if isinstance(data, dict):
             batch = ColumnBatch.from_arrays(data, schema=struct,
                                             device=self.device)
@@ -769,3 +789,13 @@ class SparkSession:
     def read(self):
         from ..io import DataFrameReader
         return DataFrameReader(self)
+
+    @property
+    def readStream(self):
+        from ..streaming.api import DataStreamReader
+        return DataStreamReader(self)
+
+    @property
+    def streams(self):
+        from ..streaming.api import StreamingQueryManager
+        return StreamingQueryManager.get(self)

@@ -67,6 +67,7 @@ import numpy as np
 import torch
 
 from .. import config as C
+from .. import cuda_agg
 from ..capture import StageRecord, stage_run
 from ..memory import evict_lru, tick
 
@@ -305,7 +306,7 @@ class _Variant:
 
     __slots__ = ("aux", "record", "meta", "graph", "static", "params",
                  "pinned", "out", "scalars", "n_guards", "pool_bytes",
-                 "static_bytes")
+                 "static_bytes", "k1_launches")
 
     def __init__(self, aux, record: StageRecord, meta):
         self.aux = aux
@@ -320,6 +321,9 @@ class _Variant:
         self.n_guards = 0
         self.pool_bytes = 0
         self.static_bytes = 0
+        #: K1 launches captured into ``graph``, by entry: each replay
+        #: runs them again
+        self.k1_launches: Dict[str, int] = {}
 
     @property
     def nbytes(self) -> int:
@@ -413,6 +417,8 @@ class _CachedStage:
                 dst.copy_(src, non_blocking=True)
             self._set_params(v, params)
             v.graph.replay()
+            for entry, n in v.k1_launches.items():
+                cuda_agg.REPLAYED_LAUNCHES[entry] += n
             res, host = _read_result(v.out, v.scalars, ship_rows)
             n = len(host) - v.n_guards
             if all(host[n:]):
@@ -455,11 +461,15 @@ class _CachedStage:
         graph = torch.cuda.CUDAGraph()
         pool = torch.cuda.graph_pool_handle()
         with _capture_turn():
+            k1_before = dict(cuda_agg.CAPTURED_LAUNCHES)
             with torch.cuda.graph(graph, pool=pool,
                                   capture_error_mode="thread_local"):
                 out, scalars, meta, ng = self._run(static_leaves, v.params,
                                                    record, True)
                 vec = _stack(scalars)
+            v.k1_launches = {e: n - k1_before[e] for e, n in
+                             cuda_agg.CAPTURED_LAUNCHES.items()
+                             if n > k1_before[e]}
         v.pool_bytes = _pool_bytes(device, pool)
         v.graph, v.out, v.scalars, v.n_guards, v.meta = \
             graph, out, vec, ng, meta

@@ -2231,18 +2231,53 @@ def _pool_reap(pid: int, n: int, root: str, timeout_s: float,
     return 0
 
 
-def _pool_spawn_fail(pid: int, root: str, timeout_s: float,
-                     device: str) -> int:
-    """Mode ``spawn-fail``: a real ``WorkerPoolSupervisor`` whose exec
-    seam is armed from ``SPARK_TPU_FAULT_PLAN``
-    (``spawn_exec_error(after_spawns=1)``).  Demand wants 2 workers; the
-    second exec raises; the pool settles at 1, counts ``spawn_failures``
-    on every retry tick, the one worker serves a spooled statement, and
-    idle demand then reaps it through hysteresis."""
+def _pool_supervisor(session, root: str, wh: str, demand):
     from . import config as C
-    from .parallel.faults import FaultInjector
-    from .serving.admission import DemandSignal
     from .serving.pool import WorkerPoolSupervisor
+    conf = session.conf_obj
+    for k, v in ((C.SERVER_POOL_MAX_WORKERS, "4"),
+                 (C.SERVER_POOL_STATEMENTS_PER_WORKER, "2"),
+                 (C.SERVER_POOL_SCALE_DOWN_ROUNDS, "2"),
+                 (C.SERVER_POOL_COOLDOWN, "0.0"),
+                 (C.SERVER_POOL_POLL, "0.1")):
+        conf.set(k.key, v)
+    sup = WorkerPoolSupervisor(os.path.join(root, "_pool"), conf,
+                               lambda: demand[0], warehouse=wh)
+    sup.start(reconcile=False)
+    return sup
+
+
+#: the JAX package's chaos feeds: one parquet file each, one micro-batch
+#: each (maxFilesPerTrigger 1), in the same order in every lifetime
+STREAM_FEEDS = [
+    [(1, "a", 1), (9, "b", 2)],
+    [(20, "a", 4), (21, "b", 1)],
+    [(35, "c", 8), (35, "c", 8)],
+    [(50, "a", 3), (51, "d", 9)],
+]
+
+
+def write_stream_feed(session, in_dir: str, i: int) -> None:
+    """Feed ``i`` of ``STREAM_FEEDS`` as the parquet file ``in_dir/f<i>``
+    (timestamps in seconds)."""
+    rows = STREAM_FEEDS[i]
+    session.createDataFrame({
+        "ts": np.array([r[0] * 1_000_000 for r in rows], "datetime64[us]"),
+        "k": [r[1] for r in rows],
+        "v": np.array([r[2] for r in rows], np.int64),
+    }).write.parquet(os.path.join(in_dir, f"f{i}"))
+
+
+def _pool_scaleup(pid: int, root: str, timeout_s: float,
+                  device: str) -> int:
+    """Mode ``scaleup``: the pool grows while a windowed aggregate
+    stands, and the stream does not see it.  Two micro-batches with the
+    pool empty; a burst makes the supervisor spawn a real worker, which
+    proves itself by serving a statement; two more micro-batches; the
+    sink must equal an uninterrupted no-pool lifetime's byte for byte,
+    and idle demand then reaps the worker."""
+    import glob
+    from .serving.admission import DemandSignal
     from .sql.session import SparkSession
 
     deadline = time.monotonic() + 3 * timeout_s
@@ -2253,17 +2288,81 @@ def _pool_spawn_fail(pid: int, root: str, timeout_s: float,
     session.createDataFrame(
         [tuple(r) for r in POOL_TABLE_ROWS], ["id", "name", "v"]) \
         .write.saveAsTable("pool_t")
-    conf = session.conf_obj
-    for k, v in ((C.SERVER_POOL_MAX_WORKERS, "4"),
-                 (C.SERVER_POOL_STATEMENTS_PER_WORKER, "2"),
-                 (C.SERVER_POOL_SCALE_DOWN_ROUNDS, "2"),
-                 (C.SERVER_POOL_COOLDOWN, "0.0"),
-                 (C.SERVER_POOL_POLL, "0.1")):
-        conf.set(k.key, v)
+    in_dir = os.path.join(root, "in")
+    os.makedirs(in_dir, exist_ok=True)
+
+    def sink(out):
+        return {os.path.basename(p): open(p, "rb").read()
+                for p in sorted(glob.glob(os.path.join(out, "part-*")))}
+
+    ckpt, out = os.path.join(root, "ckpt"), os.path.join(root, "out")
+    write_stream_feed(session, in_dir, 0)
+    write_stream_feed(session, in_dir, 1)
+    stream_lifetime(session, "wagg", in_dir, ckpt, out)
+    demand = [DemandSignal(queued=2)]
+    sup = _pool_supervisor(session, root, wh, demand)
+    try:
+        d = sup.tick()
+        served = None
+        while served is None and time.monotonic() < deadline:
+            served = sup.execute(POOL_SQL, timeout_s=timeout_s)
+        if d.action != "up" or served is None \
+                or served["rows"] != POOL_TABLE_ROWS \
+                or served.get("pooled") is not True:
+            print(f"[p{pid}] FAILED the pool did not grow and serve "
+                  f"({d}, {served})", flush=True)
+            return 1
+        write_stream_feed(session, in_dir, 2)
+        write_stream_feed(session, in_dir, 3)
+        ex = stream_lifetime(session, "wagg", in_dir, ckpt, out)
+        got = sink(out)
+        stream_lifetime(session, "wagg", in_dir,
+                        os.path.join(root, "oracle_ckpt"),
+                        os.path.join(root, "oracle_out"))
+        exp = sink(os.path.join(root, "oracle_out"))
+        if got != exp or not exp:
+            print(f"[p{pid}] PARTIAL got={sorted(got)} exp={sorted(exp)}",
+                  flush=True)
+            return 1
+        demand[0] = DemandSignal()
+        while sup.live > 0 and time.monotonic() < deadline:
+            sup.tick()
+            time.sleep(0.05)
+        c = dict(sup.counters)
+    finally:
+        sup.stop()
+    if sup.live or not c["workers_reaped"]:
+        print(f"[p{pid}] CHECK scaleup contract: {c}", flush=True)
+        return 1
+    print(f"[p{pid}] OK {len(got)} spawned={c['workers_spawned']} "
+          f"reaped={c['workers_reaped']} "
+          f"served={c['pool_statements_served']} "
+          f"rebuilds={ex.progress[-1]['stageRebuilds']}", flush=True)
+    return 0
+
+
+def _pool_spawn_fail(pid: int, root: str, timeout_s: float,
+                     device: str) -> int:
+    """Mode ``spawn-fail``: a real ``WorkerPoolSupervisor`` whose exec
+    seam is armed from ``SPARK_TPU_FAULT_PLAN``
+    (``spawn_exec_error(after_spawns=1)``).  Demand wants 2 workers; the
+    second exec raises; the pool settles at 1, counts ``spawn_failures``
+    on every retry tick, the one worker serves a spooled statement, and
+    idle demand then reaps it through hysteresis."""
+    from .parallel.faults import FaultInjector
+    from .serving.admission import DemandSignal
+    from .sql.session import SparkSession
+
+    deadline = time.monotonic() + 3 * timeout_s
+    wh = os.path.join(root, "warehouse")
+    session = SparkSession.builder.config("spark.torch.device", device) \
+        .config("spark.sql.warehouse.dir", wh).getOrCreate()
+    session.conf.set("spark.sql.warehouse.dir", wh)
+    session.createDataFrame(
+        [tuple(r) for r in POOL_TABLE_ROWS], ["id", "name", "v"]) \
+        .write.saveAsTable("pool_t")
     demand = [DemandSignal(queued=4)]       # wants ceil(4 / 2) = 2
-    sup = WorkerPoolSupervisor(os.path.join(root, "_pool"), conf,
-                               lambda: demand[0], warehouse=wh)
-    sup.start(reconcile=False)
+    sup = _pool_supervisor(session, root, wh, demand)
     FaultInjector().attach_pool(sup)
     try:
         d = sup.tick()
@@ -2298,7 +2397,7 @@ def _pool_spawn_fail(pid: int, root: str, timeout_s: float,
 
 def pool_worker(argv: Sequence[str]) -> int:
     """argv: ``<pid> <n> <root> <mode> [timeout_s] [device]``; modes
-    ``reap`` (2 processes) and ``spawn-fail`` (1)."""
+    ``reap`` (2 processes), ``spawn-fail`` and ``scaleup`` (1)."""
     pid, n, root, mode = int(argv[0]), int(argv[1]), argv[2], argv[3]
     timeout_s = float(argv[4]) if len(argv) > 4 else 20.0
     device = argv[5] if len(argv) > 5 else "cpu"
@@ -2310,6 +2409,8 @@ def pool_worker(argv: Sequence[str]) -> int:
         return _pool_reap(pid, n, root, timeout_s, device)
     if mode == "spawn-fail":
         return _pool_spawn_fail(pid, root, timeout_s, device)
+    if mode == "scaleup":
+        return _pool_scaleup(pid, root, timeout_s, device)
     raise ValueError(f"pool worker mode {mode!r}")
 
 
@@ -2393,6 +2494,10 @@ def chaos_scenarios() -> List[dict]:
         _scenario("pool-spawn-exec-error", "pool-worker", "spawn-fail", 1,
                   20.0, {0: lambda: P().spawn_exec_error(after_spawns=1)},
                   {0: "OK"}),
+        # the pool grows while a windowed aggregate stands; the stream's
+        # sink stays byte-identical to a no-pool lifetime's
+        _scenario("pool-scaleup-midstream", "pool-worker", "scaleup", 1,
+                  60.0, {}, {0: "OK"}),
     ]
 
 
@@ -2494,15 +2599,703 @@ def check_scenario(sc: dict, results, elapsed: float) -> List[str]:
     return bad
 
 
+# ---------------------------------------------------------------------------
+# streaming: the Yahoo Streaming Benchmark's shape, its oracles, the worker
+# ---------------------------------------------------------------------------
+
+#: the public ``yahoo/streaming-benchmarks`` configuration: 100 campaigns
+#: of 10 ads, three event types, event-time windows of 10 s per campaign
+YAHOO_CAMPAIGNS = 100
+YAHOO_ADS_PER_CAMPAIGN = 10
+YAHOO_EVENT_TYPES = ("view", "click", "purchase")
+YAHOO_AD_TYPES = ("banner", "modal", "sponsored-search", "mail", "mobile")
+YAHOO_WINDOW_S = 10
+YAHOO_WATERMARK_S = 10
+#: event time a trigger's file covers, and how late its events may be
+YAHOO_TRIGGER_S = 10
+YAHOO_LATE_S = 2
+_US = 1_000_000
+
+
+def yahoo_ads(seed: int = 0) -> Dict[str, np.ndarray]:
+    """The static ad → campaign table (1,000 ads)."""
+    n = YAHOO_CAMPAIGNS * YAHOO_ADS_PER_CAMPAIGN
+    rng = np.random.default_rng(seed)
+    return {"ad_id": np.arange(n, dtype=np.int64),
+            "campaign_id": (rng.permutation(n) // YAHOO_ADS_PER_CAMPAIGN)
+            .astype(np.int64)}
+
+
+def _yahoo_base(n: int, trigger: int, seed: int) -> Dict[str, np.ndarray]:
+    rng = np.random.default_rng(seed * 1000 + trigger)
+    lo = (trigger * YAHOO_TRIGGER_S - YAHOO_LATE_S) * _US
+    span = (YAHOO_TRIGGER_S + YAHOO_LATE_S) * _US
+    ad = rng.integers(0, YAHOO_CAMPAIGNS * YAHOO_ADS_PER_CAMPAIGN, n)
+    return {
+        "user_id": rng.integers(0, 1 << 20, n).astype(np.int64),
+        "page_id": rng.integers(0, 1 << 20, n).astype(np.int64),
+        "ad_id": ad.astype(np.int64),
+        "ad_type": np.asarray(YAHOO_AD_TYPES)[ad % len(YAHOO_AD_TYPES)],
+        "event_type": np.asarray(YAHOO_EVENT_TYPES)[
+            rng.integers(0, len(YAHOO_EVENT_TYPES), n)],
+        # millisecond event times, so keys repeat as a real feed's do
+        "event_time": (lo + rng.integers(0, span // 1000, n) * 1000)
+        .astype(np.int64),
+        "ip_address": rng.integers(0, 1 << 32, n).astype(np.int64),
+    }
+
+
+def yahoo_events(n: int, trigger: int, seed: int = 0
+                 ) -> Dict[str, np.ndarray]:
+    """One trigger's ad events (``event_time`` in int64 microseconds):
+    10 s of event time from ``trigger * 10 s`` with up to 2 s of
+    lateness; 1/32 of the rows repeat an earlier row's (user_id,
+    event_time) of the same trigger and 1/64 one of the previous
+    trigger's (duplicates for the dedup scenario)."""
+    ev = _yahoo_base(n, trigger, seed)
+    rng = np.random.default_rng(seed * 1000 + trigger + 500)
+    dup = rng.choice(n, n // 32, replace=False)
+    src = rng.integers(0, n, n // 32)
+    for col in ("user_id", "event_time"):
+        ev[col][dup] = ev[col][src]
+    if trigger > 0:
+        prev = _yahoo_base(n, trigger - 1, seed)
+        rows = rng.choice(n, n // 64, replace=False)
+        take = rng.integers(0, n, n // 64)
+        for col in ("user_id", "event_time"):
+            ev[col][rows] = prev[col][take]
+    return ev
+
+
+def yahoo_write(session, root: str, n: int, triggers: int,
+                seed: int = 0, feeds: Optional[list] = None) -> List[str]:
+    """Each trigger's events written by the port's writer as one parquet
+    directory ``root/f<t>``; returns them in trigger order (and appends
+    each trigger's numpy events to ``feeds``)."""
+    from . import types as T
+    from .columnar import PrebuiltColumn
+    out = []
+    for t in range(triggers):
+        ev = yahoo_events(n, t, seed)
+        if feeds is not None:
+            feeds.append(ev)
+        cols = {}
+        for name, data in ev.items():
+            if data.dtype.kind == "U":
+                # dictionary-coded as the engine holds strings: the sorted
+                # values and each row's code (no Python object per row)
+                dic = np.unique(data)
+                cols[name] = PrebuiltColumn(
+                    np.searchsorted(dic, data).astype(np.int32), T.string,
+                    None, tuple(dic.tolist()))
+            else:
+                cols[name] = PrebuiltColumn(
+                    data, T.timestamp if name == "event_time" else T.int64,
+                    None)
+        path = os.path.join(root, f"f{t}")
+        session.createDataFrame(cols).write.parquet(path)
+        out.append(path)
+    return out
+
+
+YAHOO_STREAM_SCHEMA = (
+    "user_id long, page_id long, ad_id long, ad_type string, "
+    "event_type string, event_time timestamp, ip_address long")
+
+
+def yahoo_stream(session, in_dir: str):
+    """The events directory as a stream, one file per trigger."""
+    return (session.readStream.format("parquet")
+            .schema(YAHOO_STREAM_SCHEMA)
+            .option("maxFilesPerTrigger", 1).load(in_dir))
+
+
+def yahoo_campaign_counts(session, F, events, ads_df):
+    """Scenario (a)/(b): views joined to the ad table, counted per
+    campaign per 10 s tumbling window under a 10 s watermark."""
+    return (events.withWatermark("event_time", f"{YAHOO_WATERMARK_S} seconds")
+            .filter(F.col("event_type") == "view")
+            .join(ads_df, "ad_id")
+            .groupBy(F.window("event_time", f"{YAHOO_WINDOW_S} seconds")
+                     .alias("w"), "campaign_id")
+            .agg(F.count("*").alias("n")))
+
+
+def _yahoo_window_keys(feed, campaign_of):
+    views = feed["event_type"] == "view"
+    w = (feed["event_time"] // (YAHOO_WINDOW_S * _US)) * YAHOO_WINDOW_S * _US
+    return views, w, campaign_of[feed["ad_id"]]
+
+
+def yahoo_counts_oracle(feeds, ads, mode: str) -> List[dict]:
+    """Per trigger, the rows scenario (a) (``update``: every group this
+    trigger touched, with its count so far) or (b) (``append``: the
+    windows the advanced watermark finalized) must emit, as
+    {(window start us, campaign): count}; and the groups the state
+    holds after the trigger."""
+    campaign_of = np.empty(len(ads["ad_id"]), np.int64)
+    campaign_of[ads["ad_id"]] = ads["campaign_id"]
+    wm = None
+    state: Dict[tuple, int] = {}
+    out = []
+    dur = YAHOO_WINDOW_S * _US
+    for feed in feeds:
+        views, w, camp = _yahoo_window_keys(feed, campaign_of)
+        keep = views.copy()
+        if wm is not None:
+            keep &= (w + dur) > wm           # not late: its window is open
+        keys, counts = np.unique(np.stack([w[keep], camp[keep]]), axis=1,
+                                 return_counts=True) \
+            if keep.any() else (np.zeros((2, 0), np.int64), [])
+        touched = []
+        for (ws, c), k in zip(keys.T.tolist(), list(counts)):
+            state[(ws, c)] = state.get((ws, c), 0) + int(k)
+            touched.append((ws, c))
+        mx = int(feed["event_time"].max())
+        cand = mx - YAHOO_WATERMARK_S * _US
+        if wm is None or cand > wm:
+            wm = cand
+        final = {k: v for k, v in state.items() if k[0] + dur <= wm}
+        if mode == "update":
+            emit = {k: state[k] for k in touched}
+        else:
+            emit = final
+        for k in final:
+            del state[k]
+        out.append({"emit": emit, "state_groups": len(state),
+                    "evicted": len(final), "watermark": wm})
+    return out
+
+
+def yahoo_dedup_keys(user_id: np.ndarray, event_time_us: np.ndarray
+                     ) -> np.ndarray:
+    """One int64 per (user_id, event_time) key of scenario (c)."""
+    return user_id.astype(np.int64) * (1 << 32) \
+        + (event_time_us // 1000 + (1 << 20))
+
+
+def yahoo_dedup_oracle(feeds, delay_s: int) -> List[dict]:
+    """Per trigger, scenario (c)'s dropDuplicates(["user_id",
+    "event_time"]) under a ``delay_s`` watermark: the (user_id,
+    event_time) keys emitted (sorted, packed as user * 2^32 + the event
+    time in ms + 2^20), the keys the state holds and those evicted."""
+    wm = None
+    state = np.zeros(0, np.int64)
+    state_t = np.zeros(0, np.int64)
+    out = []
+    for feed in feeds:
+        t = feed["event_time"]
+        key = yahoo_dedup_keys(feed["user_id"], t)
+        keep = np.ones(len(t), bool) if wm is None else t >= wm
+        k = key[keep]
+        tk = t[keep]
+        uniq, first = np.unique(k, return_index=True)
+        new = ~np.isin(uniq, state)
+        emitted = uniq[new]
+        state = np.concatenate([state, emitted])
+        state_t = np.concatenate([state_t, tk[first[new]]])
+        cand = int(t.max()) - delay_s * _US
+        if wm is None or cand > wm:
+            wm = cand
+        live = state_t >= wm
+        evicted = int((~live).sum())
+        state, state_t = state[live], state_t[live]
+        out.append({"emit": np.sort(emitted), "state_rows": len(state),
+                    "evicted": evicted, "watermark": wm})
+    return out
+
+
+def stream_join_sides(n: int, trigger: int, seed: int = 0
+                      ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """One trigger's views and clicks for scenario (d): ``n`` of each
+    over 2^14 users and 1,000 ads; half of the clicks follow a view of
+    the same (user, ad) of this trigger or the last one, 0–5 s later."""
+    def views_of(t):
+        rng = np.random.default_rng(seed * 1000 + 700 + t)
+        lo = (t * YAHOO_TRIGGER_S - YAHOO_LATE_S) * _US
+        return {"user_id": rng.integers(0, 1 << 14, n).astype(np.int64),
+                "ad_id": rng.integers(0, 1000, n).astype(np.int64),
+                "view_time": (lo + rng.integers(
+                    0, (YAHOO_TRIGGER_S + YAHOO_LATE_S) * 1000, n) * 1000)
+                .astype(np.int64)}
+    views = views_of(trigger)
+    pool = views if trigger == 0 else {
+        k: np.concatenate([v, views_of(trigger - 1)[k]])
+        for k, v in views.items()}
+    rng = np.random.default_rng(seed * 1000 + 900 + trigger)
+    half = n // 2
+    pick = rng.integers(0, len(pool["user_id"]), half)
+    lo = trigger * YAHOO_TRIGGER_S * _US
+    clicks = {
+        "c_user_id": np.concatenate([
+            pool["user_id"][pick],
+            rng.integers(0, 1 << 14, n - half)]).astype(np.int64),
+        "c_ad_id": np.concatenate([
+            pool["ad_id"][pick],
+            rng.integers(0, 1000, n - half)]).astype(np.int64),
+        "click_time": np.concatenate([
+            pool["view_time"][pick] + rng.integers(0, 5000, half) * 1000,
+            lo + rng.integers(0, YAHOO_TRIGGER_S * 1000, n - half) * 1000])
+        .astype(np.int64)}
+    return views, clicks
+
+
+def _pairs(a_key, b_key):
+    """Index pairs (i, j) with a_key[i] == b_key[j]."""
+    order = np.argsort(b_key, kind="stable")
+    sb = b_key[order]
+    lo = np.searchsorted(sb, a_key, "left")
+    hi = np.searchsorted(sb, a_key, "right")
+    cnt = hi - lo
+    ai = np.repeat(np.arange(len(a_key)), cnt)
+    starts = np.repeat(lo, cnt)
+    offs = np.arange(cnt.sum()) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+    return ai, order[starts + offs]
+
+
+def stream_join_oracle(sides, delay_s: int) -> List[dict]:
+    """Per trigger, scenario (d)'s inner join of views and clicks on
+    (ad_id, user_id) with the watermark on the views: the joined rows as
+    sorted (view_time, click_time, user, ad) tuples packed in an int64
+    array of shape (m, 4), and the views the buffer keeps.  Each trigger
+    emits ΔV ⋈ (C ∪ ΔC) ∪ V ⋈ ΔC against the buffered past rows; views
+    older than the advanced watermark leave their buffer after the join;
+    clicks never leave (the watermark is on the views)."""
+    def key(u, a):
+        return u * 1000 + a
+    vbuf = {k: np.zeros(0, np.int64) for k in ("user_id", "ad_id",
+                                               "view_time")}
+    cbuf = {k: np.zeros(0, np.int64) for k in ("c_user_id", "c_ad_id",
+                                               "click_time")}
+    wm = None
+    mx = None
+    out = []
+    for views, clicks in sides:
+        call = {k: np.concatenate([cbuf[k], clicks[k]]) for k in cbuf}
+        rows = []
+        for v, c in ((views, call), (vbuf, clicks)):
+            i, j = _pairs(key(v["user_id"], v["ad_id"]),
+                          key(c["c_user_id"], c["c_ad_id"]))
+            rows.append(np.stack([v["view_time"][i], c["click_time"][j],
+                                  v["user_id"][i], v["ad_id"][i]], 1))
+        joined = np.concatenate(rows)
+        joined = joined[np.lexsort(joined.T[::-1])]
+        m = int(views["view_time"].max())
+        mx = m if mx is None else max(mx, m)
+        cand = mx - delay_s * _US
+        if wm is None or cand > wm:
+            wm = cand
+        vall = {k: np.concatenate([vbuf[k], views[k]]) for k in vbuf}
+        keep = vall["view_time"] >= wm
+        vbuf = {k: x[keep] for k, x in vall.items()}
+        cbuf = call
+        out.append({"rows": joined, "view_buffer": int(keep.sum()),
+                    "click_buffer": len(cbuf["c_user_id"]),
+                    "watermark": wm})
+    return out
+
+
+#: scenario (e): per-user session counts over 2^14 events of 1,000 users
+#: in four triggers, a session closing 12 s of event time after its last
+#: event, under a 2 s watermark
+SESSION_GAP_S = 12
+SESSION_WATERMARK_S = 2
+
+
+def session_events(n: int, triggers: int, users: int, seed: int = 0):
+    """Per trigger, (user, event time us) rows: the users of trigger t
+    are a sliding window of ``users`` * 2/5 ids, so earlier users go
+    quiet and their sessions time out."""
+    width = users * 2 // 5
+    step = (users - width) // max(triggers - 1, 1)
+    rng = np.random.default_rng(seed + 31)
+    out = []
+    for t in range(triggers):
+        u = rng.integers(t * step, t * step + width, n // triggers)
+        et = (t * YAHOO_TRIGGER_S * 1000
+              + rng.integers(0, YAHOO_TRIGGER_S * 1000, len(u))) * 1000
+        out.append(list(zip(u.tolist(), et.tolist())))
+    return out
+
+
+def session_fn(key, rows, state):
+    """The user function of scenario (e): the running event count of a
+    user's session, closed (and emitted with ``closed``) once the
+    watermark passes ``SESSION_GAP_S`` after its last event."""
+    if state.hasTimedOut:
+        n = state.get()
+        state.remove()
+        return [(key[0], n, True)]
+    n = (state.getOption() or 0) + len(rows)
+    state.update(n)
+    state.setTimeoutTimestamp(max(r["et"] for r in rows)
+                              + SESSION_GAP_S * _US)
+    return [(key[0], n, False)]
+
+
+def session_oracle(feeds) -> List[list]:
+    """Per trigger, the sorted (user, count, closed) rows of scenario
+    (e), by plain dictionaries: each user seen in the trigger emits its
+    running count; a user absent from it whose last event is more than
+    the gap behind the advanced watermark emits its closed count and
+    leaves."""
+    state: Dict[int, Tuple[int, int]] = {}      # user -> (count, timeout)
+    mx = None
+    wm = None
+    out = []
+    for rows in feeds:
+        m = max(e for _u, e in rows)
+        mx = m if mx is None else max(mx, m)
+        cand = mx - SESSION_WATERMARK_S * _US
+        wm = cand if wm is None or cand > wm else wm
+        seen: Dict[int, List[int]] = {}
+        for u, e in rows:
+            seen.setdefault(u, []).append(e)
+        emit = []
+        before = dict(state)
+        for u, es in seen.items():
+            n = before.get(u, (0, None))[0] + len(es)
+            state[u] = (n, max(es) + SESSION_GAP_S * _US)
+            emit.append((u, n, False))
+        for u, (n, to) in before.items():
+            if u not in seen and to < wm:
+                emit.append((u, n, True))
+                del state[u]
+        out.append(sorted(emit))
+    return out
+
+
+def _host_columns(batch) -> Dict[str, np.ndarray]:
+    """A host result batch's live rows as numpy columns (codes decoded
+    for strings)."""
+    host = batch.packed_host()
+    rv = None if host.row_valid is None else host.row_valid.numpy()
+    out = {}
+    for name, v in zip(host.names, host.vectors):
+        data = v.data.numpy()
+        if v.dictionary is not None:
+            data = np.asarray(v.dictionary, object)[
+                np.clip(data, 0, max(len(v.dictionary) - 1, 0))] \
+                if len(v.dictionary) else data.astype(object)
+        out[name] = data if rv is None else data[rv]
+    return out
+
+
+def _drive(q, files, in_dir, captured, step):
+    """One trigger per file: the file's directory appears in ``in_dir``
+    (a symlink), ``q.processAllAvailable()`` runs it (through ``step``,
+    which may time or profile it and returns a dict of what it
+    measured); returns per trigger the captured sink output, the
+    engine's time split, its progress entry and metrics."""
+    out = []
+    for f in files:
+        os.symlink(f, os.path.join(in_dir, os.path.basename(f)))
+        n0 = len(captured)
+        measured = (step or (lambda fn: (fn(), {})[1]))(q.processAllAvailable)
+        ex = q._ex
+        out.append({"emit": captured[n0] if len(captured) > n0 else None,
+                    "timings": dict(ex.timings),
+                    "progress": dict(ex.progress[-1]),
+                    "metrics": dict(ex.metrics), **measured})
+    return out
+
+
+def stream_counts(session, F, in_dir: str, files: Sequence[str], ads_df,
+                  mode: str, step=None) -> List[dict]:
+    """Scenario (a) (``update``) or (b) (``append``) through readStream
+    and a foreachBatch sink, one trigger per file; each trigger's
+    ``emit`` is {(window start us, campaign): count}."""
+    captured: List[dict] = []
+
+    def sink(bdf, _bid):
+        c = _host_columns(bdf._plan.batch)
+        captured.append({(int(w), int(k)): int(n) for w, k, n in
+                         zip(c["w"], c["campaign_id"], c["n"])})
+
+    os.makedirs(in_dir, exist_ok=True)
+    q = (yahoo_campaign_counts(session, F, yahoo_stream(session, in_dir),
+                               ads_df)
+         .writeStream.foreachBatch(sink).outputMode(mode)
+         .trigger(once=True).start())
+    try:
+        return _drive(q, files, in_dir, captured, step)
+    finally:
+        q.stop()
+
+
+def stream_dedup(session, in_dir: str, files: Sequence[str], delay_s: int,
+                 step=None) -> List[dict]:
+    """Scenario (c): dropDuplicates(["user_id", "event_time"]) under a
+    ``delay_s`` watermark; each trigger's ``emit`` is the sorted key
+    array of the rows it let through (``yahoo_dedup_keys``)."""
+    captured: List[np.ndarray] = []
+
+    def sink(bdf, _bid):
+        c = _host_columns(bdf._plan.batch)
+        captured.append(np.sort(yahoo_dedup_keys(
+            c["user_id"].astype(np.int64),
+            c["event_time"].astype(np.int64))))
+
+    os.makedirs(in_dir, exist_ok=True)
+    q = (yahoo_stream(session, in_dir)
+         .withWatermark("event_time", f"{delay_s} seconds")
+         .dropDuplicates(["user_id", "event_time"])
+         .writeStream.foreachBatch(sink).outputMode("append")
+         .trigger(once=True).start())
+    try:
+        out = _drive(q, files, in_dir, captured, step)
+        for rec in out:
+            rec["evicted"] = rec["metrics"]["evicted_rows"]
+        return out
+    finally:
+        q.stop()
+
+
+def write_join_sides(session, root: str, n: int, triggers: int,
+                     seed: int = 0):
+    """Scenario (d)'s views and clicks, one parquet directory per side
+    per trigger (``root/views/v<t>``, ``root/clicks/c<t>``); returns
+    (view dirs, click dirs, the numpy sides)."""
+    vdirs, cdirs, sides = [], [], []
+    for t in range(triggers):
+        views, clicks = stream_join_sides(n, t, seed)
+        sides.append((views, clicks))
+        v = dict(views)
+        v["view_time"] = views["view_time"].astype("datetime64[us]")
+        c = dict(clicks)
+        c["click_time"] = clicks["click_time"].astype("datetime64[us]")
+        vdirs.append(os.path.join(root, "views", f"v{t}"))
+        cdirs.append(os.path.join(root, "clicks", f"c{t}"))
+        session.createDataFrame(v).write.parquet(vdirs[-1])
+        session.createDataFrame(c).write.parquet(cdirs[-1])
+    return vdirs, cdirs, sides
+
+
+def stream_join(session, F, watch: str, vdirs, cdirs, delay_s: int,
+                step=None) -> List[dict]:
+    """Scenario (d): views ⋈ clicks on (ad_id, user_id), the watermark
+    on the views, one trigger per pair of files; each trigger's
+    ``emit`` is the sorted (view_time, click_time, user, ad) rows."""
+    captured: List[np.ndarray] = []
+
+    def sink(bdf, _bid):
+        c = _host_columns(bdf._plan.batch)
+        rows = np.stack([c["view_time"].astype(np.int64),
+                         c["click_time"].astype(np.int64),
+                         c["user_id"].astype(np.int64),
+                         c["ad_id"].astype(np.int64)], 1) \
+            if len(c["user_id"]) else np.zeros((0, 4), np.int64)
+        captured.append(rows[np.lexsort(rows.T[::-1])])
+
+    vin, cin = os.path.join(watch, "v"), os.path.join(watch, "c")
+    os.makedirs(vin, exist_ok=True)
+    os.makedirs(cin, exist_ok=True)
+
+    def side(path, schema):
+        return (session.readStream.format("parquet").schema(schema)
+                .option("maxFilesPerTrigger", 1).load(path))
+    views = side(vin, "user_id long, ad_id long, view_time timestamp") \
+        .withWatermark("view_time", f"{delay_s} seconds")
+    clicks = side(cin, "c_user_id long, c_ad_id long, click_time timestamp")
+    q = (views.join(clicks, (F.col("ad_id") == F.col("c_ad_id"))
+                    & (F.col("user_id") == F.col("c_user_id")))
+         .writeStream.foreachBatch(sink).outputMode("append")
+         .trigger(once=True).start())
+    out = []
+    try:
+        for vd, cd in zip(vdirs, cdirs):
+            os.symlink(cd, os.path.join(cin, os.path.basename(cd)))
+            out += _drive(q, [vd], vin, captured, step)
+            bufs = q._ex._ss_buf
+            out[-1]["view_buffer"] = int(bufs[0].num_rows())
+            out[-1]["click_buffer"] = int(bufs[1].num_rows())
+        return out
+    finally:
+        q.stop()
+
+
+def stream_sessions(session, feeds, step=None) -> List[dict]:
+    """Scenario (e): ``session_fn`` by flatMapGroupsWithState with an
+    event-time timeout over a MemoryStream of (user, et) rows, one
+    trigger per feed; each trigger's ``emit`` is its sorted rows, and
+    ``fmgws_host_ms`` the user function's host time."""
+    from . import types as T
+    from .streaming.core import MemoryStream
+    captured: List[list] = []
+
+    def sink(bdf, _bid):
+        captured.append(sorted(tuple(r) for r in bdf._plan.batch
+                               .to_pylist()))
+
+    src = MemoryStream(T.StructType([T.StructField("user", T.int64),
+                                     T.StructField("et", T.int64)]),
+                       session)
+    out_schema = T.StructType([T.StructField("user", T.int64),
+                               T.StructField("events", T.int64),
+                               T.StructField("closed", T.boolean)])
+    q = (src.toDF(session).withWatermark("et",
+                                         f"{SESSION_WATERMARK_S} seconds")
+         .groupBy("user").flatMapGroupsWithState(
+             session_fn, out_schema, timeoutConf="EventTimeTimeout")
+         .writeStream.foreachBatch(sink).outputMode("append")
+         .trigger(once=True).start())
+    out = []
+    try:
+        for rows in feeds:
+            src.addData(rows)
+            n0 = len(captured)
+            measured = (step or (lambda fn: (fn(), {})[1]))(
+                q.processAllAvailable)
+            ex = q._ex
+            out.append({"emit": captured[n0], "timings": dict(ex.timings),
+                        "progress": dict(ex.progress[-1]),
+                        "states": len(ex._fmgws_states), **measured})
+        return out
+    finally:
+        q.stop()
+
+
+def stream_shape(session, shape: str, in_dir: str):
+    """(plan, output mode) of a worker's standing query: ``wagg`` the
+    JAX package's chaos battery shape (a windowed sum under a 5 s
+    watermark over (ts, k, v) parquet files), ``yahoo`` scenario (a)
+    over ``in_dir`` with the ad table at ``in_dir``/../ads."""
+    from . import types as T
+    from .sql import functions as F
+    if shape == "wagg":
+        schema = T.StructType([T.StructField("ts", T.timestamp),
+                               T.StructField("k", T.string),
+                               T.StructField("v", T.int64)])
+        df = (session.readStream.format("parquet").schema(schema)
+              .option("maxFilesPerTrigger", 1).load(in_dir))
+        df = (df.withWatermark("ts", "5 seconds")
+              .groupBy(F.window("ts", "10 seconds").alias("w"))
+              .agg(F.sum("v").alias("s")))
+        return df._plan, "append"
+    if shape == "yahoo":
+        ads = session.read.parquet(
+            os.path.join(os.path.dirname(in_dir), "ads"))
+        df = yahoo_campaign_counts(session, F, yahoo_stream(session, in_dir),
+                                   ads)
+        return df._plan, "update"
+    raise ValueError(f"stream shape {shape!r}")
+
+
+def stream_lifetime(session, shape: str, in_dir: str, ckpt: str, out: str,
+                    arm=None):
+    """One process lifetime of a standing query: a fresh execution over
+    the checkpoint ``ckpt`` writing a json file sink at ``out``, drained
+    of every available file; ``arm(execution)`` first (a fault plan)."""
+    from .streaming.core import FileSink, StreamExecution
+    plan, mode = stream_shape(session, shape, in_dir)
+    ex = StreamExecution(session, plan, FileSink("json", out, {}), mode,
+                         ckpt, 0.1, None)
+    first = []
+    orig = ex.commit_log.add
+
+    def add(batch_id, payload):
+        orig(batch_id, payload)
+        if not first:
+            first.append(time.time())
+    ex.commit_log.add = add
+    if arm is not None:
+        arm(ex)
+    ex.first_commit = first
+    try:
+        ex.process_all_available()
+    finally:
+        regs = getattr(session, "_stream_execs", [])
+        if ex in regs:
+            regs.remove(ex)
+    return ex
+
+
+def stream_worker(argv: Sequence[str]) -> int:
+    """argv: ``<root> <shape> <ckpt> <out> <device> [restart]``.  One
+    lifetime of the standing query ``stream_shape(shape)`` over
+    ``<root>/in`` with the fault plan of ``SPARK_TPU_FAULT_PLAN`` armed
+    (``FaultInjector.attach_stream``; a planned death exits 43).  With
+    ``restart`` a second lifetime follows in the same process over the
+    same checkpoint (a torn commit entry replays there).  Writes
+    ``<out>.result.json``: each lifetime's progress, metrics, replayed
+    batches and the wall-clock time of its first commit."""
+    t_start = time.time()
+    if len(argv) < 5 or argv[4] not in ("cuda", "cpu"):
+        raise ValueError("stream worker: argv is <root> <shape> <ckpt> "
+                         "<out> <device> [restart], the device cuda or "
+                         f"cpu; got {list(argv)}")
+    root, shape, ckpt, out, device = argv[:5]
+    restart = len(argv) > 5 and argv[5] == "restart"
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("stream worker: no CUDA device")
+    if device == "cpu":
+        torch.set_num_threads(1)
+    from .parallel.faults import FaultInjector
+    from .sql.session import SparkSession
+    session = SparkSession.builder.config("spark.torch.device", device) \
+        .config("spark.sql.warehouse.dir", os.path.join(root, "wh")) \
+        .getOrCreate()
+    injector = FaultInjector()
+    lives = []
+    for life in range(2 if restart else 1):
+        ex = stream_lifetime(
+            session, shape, os.path.join(root, "in"), ckpt, out,
+            arm=injector.attach_stream if life == 0 else None)
+        lives.append({
+            "progress": ex.progress, "metrics": dict(ex.metrics),
+            "first_commit_unix": ex.first_commit[0] if ex.first_commit
+            else None, "timings": dict(ex.timings)})
+    res = {"start_unix": t_start, "lifetimes": lives,
+           "injected": list(injector.injected)}
+    with open(out + ".result.json.tmp", "w") as f:
+        json.dump(res, f, default=str)
+    os.replace(out + ".result.json.tmp", out + ".result.json")
+    print(f"[stream] OK {shape} lifetimes={len(lives)} "
+          f"injected={injector.injected}", flush=True)
+    return 0
+
+
+def arena_peer(argv: Sequence[str]) -> int:
+    """argv: ``<root> <nbytes>``.  A process that allocates one arena of
+    ``nbytes`` on the card (``cuda_a2a.Arena``), fills it with a byte
+    pattern, publishes its IPC handle as ``<root>/arena.json`` and then
+    stays idle (no kernel of its own) until ``<root>/done`` appears: the
+    peer of an idle-peer pull measurement."""
+    from . import cuda_a2a
+    root, nbytes = argv[0], int(argv[1])
+    arena = cuda_a2a.Arena(torch.device("cuda"), nbytes)
+    pattern = (np.arange(nbytes, dtype=np.int64) * 2654435761 % 251) \
+        .astype(np.uint8)
+    arena.write(0, pattern)
+    torch.cuda.synchronize()
+    tmp = os.path.join(root, "arena.json.tmp")
+    with open(tmp, "w") as f:
+        json.dump({"handle": arena.handle, "nbytes": nbytes}, f)
+    os.replace(tmp, os.path.join(root, "arena.json"))
+    deadline = time.monotonic() + 300
+    while not os.path.exists(os.path.join(root, "done")) \
+            and time.monotonic() < deadline:
+        time.sleep(0.02)
+    arena.free()
+    return 0
+
+
 def _main(argv: Sequence[str]) -> int:
     workers = {"crossproc-worker": crossproc_worker,
                "recovery-worker": recovery_worker,
-               "pool-worker": pool_worker}
+               "pool-worker": pool_worker,
+               "stream-worker": stream_worker,
+               "arena-peer": arena_peer}
     if argv and argv[0] in workers:
         return workers[argv[0]](argv[1:])
     print("usage: python -m spark_tpu_torch.testing "
           "{crossproc-worker|recovery-worker|pool-worker} "
-          "<pid> <n> <root> <mode> [timeout_s] [device]", file=sys.stderr)
+          "<pid> <n> <root> <mode> [timeout_s] [device]\n"
+          "       python -m spark_tpu_torch.testing stream-worker "
+          "<root> <shape> <ckpt> <out> <device> [restart]\n"
+          "       python -m spark_tpu_torch.testing arena-peer "
+          "<root> <nbytes>",
+          file=sys.stderr)
     return 2
 
 

@@ -202,6 +202,69 @@ def test_pool_execute_with_no_workers_falls_back(tmp_path):
     assert sup.counters["offload_fallbacks"] == 1
 
 
+#: a stand-in pool worker: claims spooled statements as the real one does,
+#: answers each after 3 s, and reads its reap marker between statements
+_SLOW_WORKER = r"""
+import json, os, sys, time
+root, wid = sys.argv[1], sys.argv[2]
+spool = os.path.join(root, "spool")
+while not os.path.exists(os.path.join(root, "reap", wid)):
+    for n in sorted(os.listdir(spool)):
+        if not n.endswith(".json") or ".claim" in n \
+                or n.endswith(".result.json"):
+            continue
+        src = os.path.join(spool, n)
+        os.rename(src, src + ".claim" + wid)
+        time.sleep(3.0)
+        res = src[:-len(".json")] + ".result.json"
+        with open(res + ".tmp", "w") as f:
+            json.dump({"ok": True, "result": {"rows": [[1]]}}, f)
+        os.replace(res + ".tmp", res)
+        os.remove(src + ".claim" + wid)
+    time.sleep(0.02)
+"""
+
+
+def _reap_mid_statement(P, conf, root):
+    """A worker is reaped while it runs a statement it has claimed:
+    what the waiting client gets back, and how the worker ended."""
+    import subprocess
+    import sys
+    import threading
+    for sub in ("spool", "reap"):
+        os.makedirs(os.path.join(root, sub))
+    sup = P.WorkerPoolSupervisor(root, conf, lambda: None)
+    pr = subprocess.Popen([sys.executable, "-c", _SLOW_WORKER, root, "3"])
+    sup._workers[3] = pr
+    got = []
+    client = threading.Thread(
+        target=lambda: got.append(sup.execute("SELECT 1", timeout_s=8.0)))
+    client.start()
+    spool = os.path.join(root, "spool")
+    deadline = time.monotonic() + 30
+    while not any(n.endswith(".claim3") for n in os.listdir(spool)) \
+            and time.monotonic() < deadline:
+        time.sleep(0.01)
+    sup._reap(3)
+    client.join()
+    pr.wait(timeout=10)
+    return (got[0], pr.returncode, sup.counters["offload_fallbacks"],
+            sup.stats().get("reapClaimWaits", 0))
+
+
+def test_reap_lets_a_claimed_statement_finish(tmp_path):
+    """A reference fault repaired in the port (ROADMAP §3): the JAX
+    package's ``_reap`` ends a worker two seconds after its marker, in
+    the middle of a statement it claimed, so the client waits out the
+    offload timeout and falls back; the port's reap waits for the
+    claimed statement, the worker answers and exits by its marker."""
+    pairs = {"spark.tpu.server.pool.pollSeconds": "0.1"}
+    ref = _reap_mid_statement(RP, RC.Conf(pairs), str(tmp_path / "ref"))
+    port = _reap_mid_statement(TP, TC.Conf(pairs), str(tmp_path / "port"))
+    assert ref[0] is None and ref[1] != 0 and ref[2] == 1, ref
+    assert port == ({"rows": [[1]]}, 0, 0, 1), port
+
+
 # ---------------------------------------------------------------------------
 # real worker processes on the CPU
 # ---------------------------------------------------------------------------
@@ -260,13 +323,15 @@ def test_pool_spawns_serves_and_reaps_real_workers(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["pool-spawn-exec-error",
-                                  "pool-reap-mid-fetch"])
+                                  "pool-reap-mid-fetch",
+                                  "pool-scaleup-midstream"])
 def test_pool_chaos_scenario(tmp_path, name):
     """``spawn-fail``: the second exec raises, the pool settles below its
     target and the one worker still serves.  ``reap``: a worker reaped
     mid-fetch hands its lease over, and the survivor adopts its sealed
     output with zero re-execution, the reaped lease fresh through the
-    heir."""
+    heir.  ``scaleup``: the pool grows under a standing windowed
+    aggregate and the stream's sink stays byte-identical."""
     sc = chaos_scenario(name)
     results, elapsed = run_scenario(sc, str(tmp_path / "run"))
     bad = check_scenario(sc, results, elapsed)
@@ -277,6 +342,10 @@ def test_pool_chaos_scenario(tmp_path, name):
         assert "retries=0" in out0 and "heir-lease=fresh" in out0, out0
         assert "reaped at xq000001-gather" in results[1][1]
         assert f"lease->{TP.SUPERVISOR_OWNER}" in results[1][1]
+    elif name == "pool-scaleup-midstream":
+        # 4 sink files equal to the no-pool lifetime's, a worker spawned,
+        # served one statement and was reaped
+        assert "OK 4 spawned=1 reaped=1 served=1" in out0, out0
     else:
         assert "spawn_failures=" in out0 and "served=1" in out0, out0
 

@@ -547,15 +547,23 @@ def test_bearer_token_is_required(impl):
 # ---------------------------------------------------------------------------
 
 def test_streams_and_pool_refuse_naming_their_slice(tmp_path):
+    # standing queries are ported (the streaming slice): a spec without
+    # source and sink paths is refused as the JAX package refuses it,
+    # and an unknown stream id is a 404 (tests/test_torch_stream_server.py
+    # drives the endpoints)
     root = TSession(TC.Conf({"spark.torch.device": "cpu"}))
     srv = TS.SQLServer(root, port=0).start()
     try:
-        for method, path in (("POST", "/stream"), ("GET", "/stream/x"),
-                             ("DELETE", "/stream/x")):
+        for method, path, code in (("POST", "/stream", 400),
+                                   ("GET", "/stream/x", 404),
+                                   ("DELETE", "/stream/x", 404)):
             with pytest.raises(urllib.error.HTTPError) as ei:
                 _req(srv, path, method, "{}" if method == "POST" else None)
-            assert ei.value.code == 400
-            assert "streaming slice" in json.loads(ei.value.read())["error"]
+            assert ei.value.code == code
+            err = json.loads(ei.value.read())["error"]
+            assert ("source.path and sink.path" in err) if code == 400 \
+                else ("no such stream" in err)
+        assert srv._admission.standing == 0
     finally:
         srv.stop()
     # the elastic pool is ported: the server starts its supervisor (no

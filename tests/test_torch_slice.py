@@ -179,6 +179,16 @@ def _module_level_imports(path):
     return list(walk(tree))
 
 
+def test_the_guard_walks_the_streaming_package():
+    """The streaming engine is part of what the guard reads: every module
+    of ``spark_tpu_torch/streaming/``."""
+    files = {os.path.relpath(p, REPO) for p in _port_files()}
+    want = {f"spark_tpu_torch/streaming/{m}.py" for m in (
+        "__init__", "api", "core", "dstream", "groupstate", "kafka",
+        "state")}
+    assert want <= files
+
+
 def test_port_never_imports_jax_or_the_jax_package():
     bad = []
     for path in _port_files():
@@ -208,13 +218,14 @@ def test_importing_the_port_loads_neither():
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("entry", ["pool", "recovery", "ici"])
+@pytest.mark.parametrize("entry", ["pool", "recovery", "ici", "stream"])
 def test_worker_entries_load_neither(tmp_path, entry):
     """The processes this package starts by itself, run as they are
     started: a pool worker (``python -m spark_tpu_torch.serving.pool
     --worker``, here told to retire at once), a one-process recovery
-    worker, and one with the device tier armed (its arena, sidecar and
-    pull modules loaded).  None may load jax or the JAX package."""
+    worker, one with the device tier armed (its arena, sidecar and pull
+    modules loaded), and a stream worker (the streaming engine over an
+    empty source).  None may load jax or the JAX package."""
     import json as _json
     root = tmp_path / "root"
     os.makedirs(root / "reap")
@@ -224,6 +235,10 @@ def test_worker_entries_load_neither(tmp_path, entry):
         (root / "reap" / "0").write_text("reap")
         mod, argv = "spark_tpu_torch.serving.pool", [
             "--worker", str(root), "0"]
+    elif entry == "stream":
+        mod, argv = "spark_tpu_torch.testing", [
+            "stream-worker", str(root), "wagg", str(root / "ckpt"),
+            str(root / "out"), "cpu"]
     else:
         mode = "norecover" if entry == "recovery" else "ici-unavail"
         mod, argv = "spark_tpu_torch.testing", [
