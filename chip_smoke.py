@@ -88,7 +88,13 @@ without printing a result:
    bit-exact, at every exchange the three mesh queries made, at n = 2, 4
    and 8 with bool planes and int32 run tables whose blocks are not
    multiples of 16 bytes, at cap = 1, in the gather form and with 50
-   planes (a wide pointer table); then K2's time at the largest recorded
+   planes (a wide pointer table); K2's cross-process pull
+   (``pull_kernel``) against ``pull_plain`` at ``_pull_cases`` (1 to 4
+   senders; bool, int32, int64 and float64 planes; rows of 0, 1, 15, 17
+   and an odd count above one ring stage; sources off 16-byte alignment;
+   a zero-byte plane between two others; below one stage, one stage and
+   many), from slices of a local ``cuda_a2a.Arena``, the bytes past each
+   row's block untouched; then K2's time at the largest recorded
    all-to-all (CUDA events, warm-up, median of 25; 25 launches back to
    back, which hides the wrapper's host work; and the kernel alone under
    ``torch.profiler``) beside its byte bound,
@@ -267,9 +273,12 @@ without printing a result:
     pull (CUDA events) and unpack with the bytes pulled beside their
     bound; then K2's pull with the peer process IDLE (``testing
     arena-peer`` holds an arena and runs nothing) at the battery's
-    largest pull and at 64 MiB, beside the library call that computes
-    the same pull (``torch.Tensor.copy_`` per plane from a tensor over
-    the IPC-mapped arena), both equal to the peer's bytes; then process 1
+    largest pull and at 64 MiB from one sender, and from three slots of
+    the arena (``ICI_THREE_ROWS`` int64 rows each), beside the library
+    call that computes the same pull (``torch.Tensor.copy_`` per block
+    from a tensor over the IPC-mapped arena) and its plain version, all
+    equal to the peer's bytes: per call, back to back, alone
+    (``torch.profiler``) and the wrapper's host time; then process 1
     of a recovery pair dies at the copy point and process 0 recovers in
     an epoch, its ledger at 0 B;
 18. recovery — four scenarios, each two worker processes on the card
@@ -356,7 +365,11 @@ without printing a result:
    stage graph carried (``cuda_agg.REPLAYED_LAUNCHES``), K2's (0: no
    exchange on one card); K2's
    ``ici_pull_idle_ms`` / ``ici_pull_library_ms`` (the idle-peer pull
-   and its ``copy_`` yardstick at the battery's largest bytes); each
+   and its ``copy_`` yardstick at the battery's largest bytes), with
+   ``ici_pull_alone_ms``, ``ici_pull_b2b_ms``, ``ici_pull_host_ms`` and
+   ``ici_pull_three_senders_ms``; the pull kernel's own entry
+   (``pull``), its launches K2's ``ici_launches`` and its times the
+   idle-peer pull's; each
    counted from 0 just
    before that run; K1's ``captured_launches``: those of its launches made while a
    graph was captured, and ``replayed_launches``: its launches the
@@ -1483,10 +1496,95 @@ def _random_planes(n, specs, seed, gather=False):
     return planes
 
 
+def _pull_cases(stage_rows):
+    """The pull's edge cases: (name, senders, [(dtype, row width, slot
+    stride in rows, source offset in bytes, unpadded output rows)]);
+    ``stage_rows`` int64 rows fill one ring stage."""
+    odd = 6 * stage_rows + 1
+    return (
+        [(f"{n} sender(s): bool 17, int32 15, int64 1, float64 0 (a "
+          f"zero-byte plane between two others), int64 {odd:,} (odd, 7 "
+          f"stages)", n,
+          [("bool", 17, 32, 0, False), ("int32", 15, 16, 0, False),
+           ("int64", 1, 2, 0, False), ("float64", 0, 4, 0, False),
+           ("int64", odd, 8 * stage_rows, 0, False)]) for n in (1, 2, 3, 4)]
+        + [("3 senders, sources off 16-byte alignment (int64 +8, bool +3, "
+            "int32 +4)", 3,
+            [("int64", 4_099, 4_099, 8, False),
+             ("bool", 1_001, 1_001, 3, False), ("int32", 37, 37, 4, False)]),
+           ("3 senders, unpadded rows at the slots' stride (heads and tails "
+            "peeled)", 3,
+            [("int32", 4_099, 4_099, 4, True),
+             ("bool", 1_001, 1_001, 5, True)]),
+           ("2 senders, int32 100 (below one stage)", 2,
+            [("int32", 100, 128, 0, False)]),
+           (f"1 sender, int64 {stage_rows:,} (exactly one stage)", 1,
+            [("int64", stage_rows, stage_rows, 0, False)]),
+           ("4 senders, int64 and float64 2^20 + 3 (many stages)", 4,
+            [("int64", (1 << 20) + 3, 1 << 21, 0, False),
+             ("float64", (1 << 20) + 3, 1 << 21, 0, False)])])
+
+
+def _k2_pull_check():
+    """K2's cross-process pull (``pull_kernel``) against ``pull_plain``,
+    bit-exact, at ``_pull_cases``: sources are slices of a local
+    ``cudaMalloc`` arena (``cuda_a2a.Arena``) of random bytes; outputs
+    start as a sentinel, and the bytes past each row's block must keep
+    it.  Returns the cases checked."""
+    import numpy as np
+    import torch
+    from spark_tpu_torch import cuda_a2a
+    from spark_tpu_torch.parallel.ici import _padded_rows
+    dev = torch.device("cuda")
+    nbytes = 128 << 20
+    arena = cuda_a2a.Arena(dev, nbytes)
+    try:
+        raw = torch.as_tensor(_DevicePointer(arena.ptr, nbytes), device=dev)
+        g = torch.Generator(device="cuda").manual_seed(60)
+        raw.copy_(torch.randint(0, 256, (nbytes,), generator=g, device=dev,
+                                dtype=torch.uint8))
+        cases = _pull_cases(cuda_a2a.PULL_STAGE_BYTES // 8)
+        for name, n, planes in cases:
+            sources, outs, lens, blocks, rows, at = [], [], [], [], [], 0
+            for dtype, width, slot, off, unpadded in planes:
+                dt = getattr(torch, dtype)
+                isz = torch.empty(0, dtype=dt).element_size()
+                base = at + off
+                srcs = [base + s * slot * isz for s in range(n)]
+                at = -(-(base + n * slot * isz) // 256) * 256
+                row = width if unpadded else _padded_rows(width, isz)
+                if dtype == "bool":       # a bool plane holds 0 and 1
+                    raw[base:base + n * slot].bitwise_and_(1)
+                sources.append([arena.ptr + a for a in srcs])
+                outs.append(torch.full((n * row * isz,), 0xA5, device=dev,
+                                       dtype=torch.uint8).view(dt)
+                            .view(n, row))
+                lens.append(width * isz)
+                blocks.append([raw[a:a + width * isz].clone().view(dt)
+                               for a in srcs])
+                rows.append(row)
+            check(at <= nbytes, f"K2 pull case {name}: {at} B of sources")
+            cuda_a2a.pull(sources, outs, lens)
+            want = cuda_a2a.pull_plain(blocks, rows)
+            torch.cuda.synchronize()
+            for k, (got, w, nb) in enumerate(zip(outs, want, lens)):
+                gb, wb = got.view(torch.uint8), w.view(torch.uint8)
+                check(torch.equal(gb[:, :nb], wb[:, :nb]), f"K2's pull "
+                      f"differs from its plain version at {name}, plane {k}")
+                check(bool((gb[:, nb:] == 0xA5).all()), f"K2's pull wrote "
+                      f"past a row's block at {name}, plane {k}")
+            print(f"[k2] pull {name}: bit-exact, padding untouched",
+                  flush=True)
+        return len(cases)
+    finally:
+        arena.free()
+
+
 def phase_k2_check(captured, launches):
     """K2 against its plain version, bit-exact, at every recorded mesh
-    exchange and at edge shapes; timings at the largest recorded
-    all-to-all.  Returns the kernel's entry for the kernels line."""
+    exchange and at edge shapes, and its cross-process pull at its edge
+    cases; timings at the largest recorded all-to-all.  Returns the
+    kernel's entry for the kernels line."""
     import torch
     from spark_tpu_torch import cuda_a2a
 
@@ -1521,6 +1619,10 @@ def phase_k2_check(captured, launches):
             check(torch.equal(g, w), f"K2 differs from its plain version "
                   f"at {name}")
         print(f"[k2] {name}: bit-exact", flush=True)
+    t_pull = time.perf_counter()
+    pull_cases = _k2_pull_check()
+    print(f"[k2] pull: {pull_cases} cases in "
+          f"{time.perf_counter() - t_pull:.2f} s", flush=True)
 
     query, planes, gather = max((c for c in captured if not c[2]),
                                 key=lambda c: _a2a_bytes(c[1], c[2]))
@@ -3827,10 +3929,15 @@ def _start_ici_workers(root, n):
     return procs
 
 
-#: [ici]'s idle-peer pull: the planes of one pull, and a second, large
-#: size beside the battery's largest pull
+#: [ici]'s idle-peer pull: the planes of one pull, a second, large size
+#: beside the battery's largest pull, and the three-sender case: three
+#: slots of the peer's arena at a power-of-two capacity, each holding an
+#: odd row count, as ``device_pull`` reads a domain of four processes
 ICI_IDLE_PLANES = 6
 ICI_IDLE_BIG_BYTES = 64 << 20
+ICI_THREE_SENDERS = 3
+ICI_THREE_ROWS = 1_000_003
+ICI_THREE_CAP = 1 << 20
 
 
 class _DevicePointer:
@@ -3844,19 +3951,57 @@ class _DevicePointer:
             "version": 3}
 
 
+def _pull_times(pull, library, plain, want, outs, rows, what):
+    """One pull checked against the peer's bytes (``want[k]`` per plane,
+    ``rows`` of each output row read), then timed: per call (two rounds),
+    back to back, the kernel alone, the wrapper's host time, the plain
+    version and the library call per call."""
+    import torch
+
+    def check_equal(route):
+        torch.cuda.synchronize()
+        for k, (o, w) in enumerate(zip(outs, want)):
+            check(torch.equal(o[:, :rows].cpu(), w), f"[ici] {route} "
+                  f"of {what} differs from the peer's bytes (plane {k})")
+        for o in outs:
+            o.fill_(-1)
+
+    pull()
+    check_equal("the pull")
+    library()
+    check_equal("copy_")
+    t = {"ms": min(cuda_ms(pull), cuda_ms(pull)),
+         "b2b_ms": cuda_ms_back_to_back(pull),
+         "alone_ms": kernel_device_ms(pull, "pull_kernel", reps=20),
+         "host_ms": host_ms(pull), "library_ms": cuda_ms(library),
+         "plain_ms": cuda_ms(plain)}
+    pull()
+    check_equal("the timed pull")
+    return t
+
+
 def _ici_idle_pull(k2_entry, sizes):
     """K2's cross-process pull with the peer process IDLE (it holds its
     arena and runs nothing: ``testing arena-peer``), beside the library
     call that computes the same pull, one ``torch.Tensor.copy_`` per
-    plane from a tensor over the peer's IPC-mapped arena into the
-    receiver's buffer; both on the same bytes, timed by CUDA events per
-    call, both equal to the peer's bytes."""
+    (plane, sender) block from a tensor over the peer's IPC-mapped arena
+    into the receiver's buffer; both equal to the peer's bytes.  At
+    ``sizes`` with one sender, then with three senders of
+    ``ICI_THREE_ROWS`` int64 rows each (no byte loop: rows padded to 16
+    bytes, slots at a power-of-two capacity).  Each timed by
+    ``_pull_times``.  Fills the pull fields of ``k2_entry`` and returns
+    the pull kernel's entry for the kernels line."""
     import numpy as np
     import torch
     from spark_tpu_torch import cuda_a2a
+    from spark_tpu_torch.parallel.ici import _padded_rows
+    from spark_tpu_torch.testing import arena_pattern
     dev = torch.device("cuda")
     align = 8 * ICI_IDLE_PLANES
     sizes = [max(align, -(-n // align) * align) for n in sizes]
+    three_slot = ICI_THREE_CAP * 8
+    arena_bytes = max(max(sizes),
+                      ICI_IDLE_PLANES * ICI_THREE_SENDERS * three_slot)
     root = tempfile.mkdtemp(prefix="chip_smoke_arena_")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__)) \
@@ -3864,9 +4009,10 @@ def _ici_idle_pull(k2_entry, sizes):
     log = open(os.path.join(root, "peer.txt"), "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "spark_tpu_torch.testing", "arena-peer",
-         root, str(max(sizes))], env=env, stdout=log,
+         root, str(arena_bytes)], env=env, stdout=log,
         stderr=subprocess.STDOUT)
     base = None
+    t0 = time.perf_counter()
     try:
         _wait_for(lambda: os.path.exists(os.path.join(root, "arena.json"))
                   or proc.poll() is not None, "[ici] the arena peer", 120)
@@ -3874,62 +4020,78 @@ def _ici_idle_pull(k2_entry, sizes):
               + open(os.path.join(root, "peer.txt")).read()[-2000:])
         with open(os.path.join(root, "arena.json")) as f:
             base = cuda_a2a.open_handle(dev, json.load(f)["handle"])
-        full = (np.arange(max(sizes), dtype=np.int64) * 2654435761
-                % 251).astype(np.uint8)
+        full = arena_pattern(arena_bytes)
         rows = []
-        for nbytes in sizes:
-            width = nbytes // ICI_IDLE_PLANES // 8
-            sources = [[base + k * width * 8]
-                       for k in range(ICI_IDLE_PLANES)]
-            outs = [torch.empty((1, width), dtype=torch.int64, device=dev)
+        for nbytes in sizes + [None]:
+            n_src = 1 if nbytes else ICI_THREE_SENDERS
+            width = nbytes // ICI_IDLE_PLANES // 8 if nbytes \
+                else ICI_THREE_ROWS
+            slot = width * 8 if nbytes else three_slot
+            offs = [[(k * n_src + s) * slot for s in range(n_src)]
+                    for k in range(ICI_IDLE_PLANES)]
+            sources = [[base + o for o in per] for per in offs]
+            outs = [torch.empty((n_src, _padded_rows(width, 8)),
+                                dtype=torch.int64, device=dev)
                     for _ in range(ICI_IDLE_PLANES)]
-            views = [torch.as_tensor(_DevicePointer(p[0], width * 8),
-                                     device=dev).view(torch.int64)
-                     for p in sources]
-            want = torch.from_numpy(full[:ICI_IDLE_PLANES * width * 8]
-                                    .view(np.int64).copy())
-
-            def pulled():
-                return torch.cat([o[0].cpu() for o in outs])
+            views = [[torch.as_tensor(_DevicePointer(a, width * 8),
+                                      device=dev).view(torch.int64)
+                      for a in per] for per in sources]
+            want = [torch.from_numpy(np.stack(
+                [full[o:o + width * 8].view(np.int64) for o in per]))
+                for per in offs]
 
             def pull():
-                cuda_a2a.pull(sources, outs)
+                cuda_a2a.pull(sources, outs, [width * 8] * ICI_IDLE_PLANES)
 
             def library():
-                for o, v in zip(outs, views):
-                    o[0].copy_(v)
+                for o, vs in zip(outs, views):
+                    for s, v in enumerate(vs):
+                        o[s, :width].copy_(v)
 
-            pull()
-            torch.cuda.synchronize()
-            check(torch.equal(pulled(), want),
-                  f"[ici] the idle-peer pull of {nbytes} B differs from the "
-                  f"peer's bytes")
-            for o in outs:
-                o.zero_()
-            library()
-            torch.cuda.synchronize()
-            check(torch.equal(pulled(), want),
-                  f"[ici] the copy_ pull of {nbytes} B differs")
-            pull_ms, lib_ms = cuda_ms(pull), cuda_ms(library)
-            pull2_ms = cuda_ms(pull)
-            bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
-            rows.append((nbytes, min(pull_ms, pull2_ms), lib_ms, bound))
-            print(f"[ici] idle-peer pull of {nbytes:,} B ({ICI_IDLE_PLANES} "
-                  f"planes, 1 sender): cuda_a2a.pull {pull_ms:.4f} / "
-                  f"{pull2_ms:.4f} ms (two rounds, CUDA events per call), "
-                  f"the library call (torch.Tensor.copy_ per plane from "
-                  f"the IPC-mapped arena) {lib_ms:.4f} ms, byte bound "
-                  f"{bound:.4f} ms; both equal to the peer's bytes",
-                  flush=True)
-        n0, p0, l0, b0 = rows[0]
-        k2_entry["ici_pull_idle_ms"] = p0
-        k2_entry["ici_pull_idle_bytes"] = n0
-        k2_entry["ici_pull_library_ms"] = l0
+            def plain():
+                cuda_a2a.pull_plain(views)
+
+            moved = ICI_IDLE_PLANES * n_src * width * 8
+            what = f"{moved:,} B from {n_src} sender(s)"
+            t = _pull_times(pull, library, plain, want, outs, width, what)
+            t.update(bytes=moved, senders=n_src,
+                     bound_ms=2 * moved / HBM_BYTES_PER_S * 1e3)
+            rows.append(t)
+            print(f"[ici] idle-peer pull of {what} ({ICI_IDLE_PLANES} "
+                  f"int64 planes of {width:,} rows, output rows padded to "
+                  f"16 B): cuda_a2a.pull {t['ms']:.4f} ms per call (CUDA "
+                  f"events, the better of two rounds), {t['b2b_ms']:.4f} "
+                  f"back to back, {t['alone_ms']:.4f} alone (profiler), "
+                  f"wrapper host {t['host_ms']:.4f} ms; the library call "
+                  f"(torch.Tensor.copy_ per block from the IPC-mapped "
+                  f"arena) {t['library_ms']:.4f} ms; plain version "
+                  f"{t['plain_ms']:.4f} ms; byte bound {t['bound_ms']:.4f} "
+                  f"ms ({100 * t['bound_ms'] / t['alone_ms']:.1f}% of it "
+                  f"alone); all equal to the peer's bytes", flush=True)
+        one, three = rows[0], rows[-1]
+        k2_entry["ici_pull_idle_ms"] = one["ms"]
+        k2_entry["ici_pull_idle_bytes"] = one["bytes"]
+        k2_entry["ici_pull_library_ms"] = one["library_ms"]
         k2_entry["ici_pull_library_call"] = \
             "torch.Tensor.copy_ per plane from the IPC-mapped arena"
-        k2_entry["ici_pull_idle_large"] = {
-            "bytes": rows[-1][0], "ms": rows[-1][1],
-            "library_ms": rows[-1][2], "bound_ms": rows[-1][3]}
+        k2_entry["ici_pull_alone_ms"] = one["alone_ms"]
+        k2_entry["ici_pull_b2b_ms"] = one["b2b_ms"]
+        k2_entry["ici_pull_host_ms"] = one["host_ms"]
+        k2_entry["ici_pull_idle_large"] = rows[-2]
+        k2_entry["ici_pull_three_senders_ms"] = three["ms"]
+        k2_entry["ici_pull_three_senders"] = three
+        print(f"[ici] idle-peer pulls in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        return {"name": "pull", "route": "cuda",
+                "source": "spark_tpu_torch/csrc/all_to_all.cu",
+                "replaces": "spark_tpu/parallel/ici.py:352",
+                "max_abs_err": 0, "ms": one["ms"],
+                "ms_back_to_back": one["b2b_ms"],
+                "kernel_alone_ms": one["alone_ms"],
+                "host_ms": one["host_ms"], "plain_ms": one["plain_ms"],
+                "bound_ms": one["bound_ms"], "bound_by": "bytes",
+                "library_ms": one["library_ms"], "bytes": one["bytes"],
+                "large": rows[-2], "three_senders": three}
     finally:
         if base is not None:
             cuda_a2a.close_handle(dev, base)
@@ -4012,7 +4174,8 @@ def phase_ici(session, k2_entry):
     against its plain version), q3's string sides stay on the host tier,
     run codes fire on the host tier, a one-sided ``ici_unavailable``
     folds back in worker 1 only, and a death at the copy point is
-    recovered."""
+    recovered.  Returns the pull kernel's entry for the kernels line
+    (``_ici_idle_pull``), its launches those of the workers' batteries."""
     import torch
     from spark_tpu_torch import types as T
     from spark_tpu_torch.testing import (CARD_TEXTS, ICI_CARD_KEYS,
@@ -4022,6 +4185,7 @@ def phase_ici(session, k2_entry):
 
     t_phase = time.perf_counter()
     n = ICI_WORKERS
+    pull_entry = None
     root = tempfile.mkdtemp(prefix="chip_smoke_ici_")
     procs = []
     texts = {k: (what, sql, lane) for k, what, sql, lane, _c in CARD_TEXTS
@@ -4206,7 +4370,10 @@ def phase_ici(session, k2_entry):
             k2_entry["ici_pull_ms"] = pulls_ms[i]
             k2_entry["ici_pull_bound_ms"] = \
                 2 * pulls_bytes[i] / HBM_BYTES_PER_S * 1e3
-            _ici_idle_pull(k2_entry, [pulls_bytes[i], ICI_IDLE_BIG_BYTES])
+            pull_entry = _ici_idle_pull(
+                k2_entry, [pulls_bytes[i], ICI_IDLE_BIG_BYTES])
+            pull_entry["launches"] = launches
+            pull_entry["max_abs_err"] = max_err
         _ici_recovery(session, spec, want["c_hash"])
     finally:
         for p, log in procs:
@@ -4215,7 +4382,9 @@ def phase_ici(session, k2_entry):
                 p.wait()
             log.close()
         shutil.rmtree(root, ignore_errors=True)
+    check(pull_entry is not None, "[ici] no device-tier pull to time")
     print(f"[ici] phase {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return pull_entry
 
 
 #: [recovery]: the exchange timeout of the workers, and the heartbeat a
@@ -5131,13 +5300,13 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     phase_crossproc(session, k1_entries, k2_entry)
-    phase_ici(session, k2_entry)
+    pull_entry = phase_ici(session, k2_entry)
     phase_recovery(session, k1_entries, k2_entry)
     phase_pool(session, hash_table, tables, k1_entries, k2_entry)
     phase_stream(session, k1_entries, k2_entry)
     session.stop()
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": k1_entries + [k2_entry]}))
+    print(json.dumps({"kernels": k1_entries + [k2_entry, pull_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

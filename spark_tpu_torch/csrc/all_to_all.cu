@@ -38,9 +38,10 @@
 // spark_tpu/parallel/ici.py `device_exchange`): each sender packs its
 // planes into an arena allocated here with cudaMalloc and exported with
 // cudaIpcGetMemHandle; each receiver maps its peers' arenas
-// (cudaIpcOpenMemHandle) and PULLS its own blocks with one launch of the
-// same kernel, with n_dst = 1: the table's source pointers point at the
-// receiver's slot inside each sender's arena, and dst[k][0][s] is what
+// (cudaIpcOpenMemHandle) and PULLS its own blocks with one launch of
+// pull_kernel (below; until it had its own kernel, this kernel with
+// n_dst = 1): the table's source pointers point at the receiver's slot
+// inside each sender's arena, and row s of plane k's output is what
 // sender s packed for it.  Two processes on one card are time-sliced
 // contexts and stream order does not cross them, so the order is kept
 // on the host: a sender synchronizes its stream after packing and
@@ -50,7 +51,7 @@
 // device-side barrier: it would spin through context switches and hang
 // on a dead peer.
 //
-// Table layout (int64), P planes, n participants (n_src senders):
+// all_to_all_kernel's table layout (int64), P planes, n participants:
 //   [0, P*n)           source pointer of (plane k, sender s) at k*n + s
 //   [P*n, P*n+P)       destination pointer of plane k
 //   next P             block bytes of plane k
@@ -73,8 +74,8 @@ struct Table {
   long long v[kMaxEntries];
 };
 
-// n senders and n_dst receivers: the local exchange has n_dst = n, a
-// cross-process pull n_dst = 1
+// n senders and n_dst receivers: the local exchange has n_dst = n (the
+// cross-process pull launched it with n_dst = 1 before pull_kernel)
 __global__ void __launch_bounds__(kThreads)
 all_to_all_kernel(const __grid_constant__ Table table, int P, int n,
                   int n_dst) {
@@ -144,23 +145,369 @@ extern "C" int spark_all_to_all(const long long* host_table, int entries,
   return (int)cudaGetLastError();
 }
 
-// The cross-process pull: the same table with n = n_src senders and
-// first[] counting n_src * ceil(block bytes / kChunk) items per plane;
-// dst[k] is (1, n_src, block) and source pointers may point into arenas
-// mapped from other processes.
+// ---- the cross-process pull (pull_kernel) ---------------------------------
+//
+// Replaces, in the device tier, the n_dst = 1 use of all_to_all_kernel
+// above, and through it the role of spark_tpu/parallel/ici.py:352
+// `_pallas_a2a` in the JAX package's `device_exchange`: per plane k and
+// sender s, `len[k]` bytes from the sender's arena slot (a CUDA IPC
+// mapping of another process's allocation) to row s of the receiver's
+// output, whose rows are `stride[k]` bytes apart.
+//
+// Bound: bytes.  Each byte is read once and written once: 2 * bytes over
+// 3.35 TB/s; there is no arithmetic.  What the design does about it:
+//  * persistent blocks: blocks_per_sm blocks on each SM (the SM count read
+//    once per device) walk the flat list of work items with a stride of
+//    gridDim.x, so there is no ragged second wave, and the segment of an
+//    item comes from a binary search over its table of first items;
+//  * the bytes move through the Tensor Memory Accelerator: one thread of
+//    each block keeps a ring of `stages` shared-memory stages of
+//    `stage_bytes` in flight (cp.async.bulk global -> shared on an
+//    mbarrier, then shared -> global in a bulk group, the stage refilled
+//    once its store has read it), so no register carries a byte and the
+//    loads of several stages overlap the stores of others;
+//  * alignment: a bulk copy takes 16-byte aligned addresses and sizes.  A
+//    segment whose source and destination agree mod 16 has its head (up to
+//    the destination's next 16-byte boundary) and its tail (<= 15 B each)
+//    copied by plain threads and its body through the ring.  A segment
+//    whose ends disagree mod 16 (a run table whose slot stride is
+//    max_runs * 4 B) is copied by plain threads with 16-byte stores, its
+//    source read as aligned words and shifted into place: no byte loop
+//    over a whole item;
+//  * a table sized to the launch: up to kSmallEntries entries (2 KiB) go
+//    in a small __grid_constant__ struct, larger ones in the 32 KB one.
+//
+// The division of work is `cuda_a2a.pull_plan`, which the CPU tests hold
+// to its rules; this kernel follows the same rule.
+//
+// Table layout (int64), P planes, n senders, segment g = k * n + s:
+//   [0, P*n)          source address of segment g
+//   [P*n, P*n+P)      destination base of plane k
+//   next P            bytes per sender of plane k (len)
+//   next P            destination row stride of plane k, bytes
+//   next P*n + 1      first work item of segment g (exclusive prefix of
+//                     its item counts); entry P*n is the total
+// A segment of len 0 has no item.  Otherwise, with src and dst its ends:
+// if (src ^ dst) & 15 == 0, head = min(len, -dst & 15), body = (len - head)
+// & ~15, tail = the rest, and it has max(1, ceil(body / stage_bytes))
+// items: item j moves body bytes [j, j + 1) * stage_bytes through the
+// ring, and item 0 also copies the head and the tail; otherwise it has
+// ceil(len / stage_bytes) items, item j copying bytes [j, j + 1) *
+// stage_bytes by plain threads.
+
+namespace {
+
+constexpr int kPullThreads = 256;          // warp 0: the ring; 1..7: plain
+constexpr int kPlainThreads = kPullThreads - 32;
+constexpr int kSmallEntries = 256;
+constexpr int kMaxStages = 16;
+
+template <int kMax>
+struct PullTable {
+  long long v[kMax];
+};
+
+struct Segment {
+  const char* src;
+  char* dst;
+  long long len, head, body, j;       // j: the item's index in its segment
+  bool matched;
+};
+
+__device__ __forceinline__ Segment segment_of(const long long* v, int P,
+                                              int n, long long item) {
+  const int segs = P * n;
+  const long long* dst_base = v + segs;
+  const long long* len = dst_base + P;
+  const long long* stride = len + P;
+  const long long* first = stride + P;
+  int lo = 0, hi = segs;               // first[lo] <= item < first[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (first[mid] <= item) lo = mid; else hi = mid;
+  }
+  const int k = lo / n, s = lo - k * n;
+  Segment g;
+  g.src = reinterpret_cast<const char*>(v[lo]);
+  g.dst = reinterpret_cast<char*>(dst_base[k]) + s * stride[k];
+  g.len = len[k];
+  g.j = item - first[lo];
+  g.matched = ((reinterpret_cast<uintptr_t>(g.src) ^
+                reinterpret_cast<uintptr_t>(g.dst)) & 15) == 0;
+  g.head = (16 - (reinterpret_cast<uintptr_t>(g.dst) & 15)) & 15;
+  if (g.head > g.len) g.head = g.len;
+  g.body = (g.len - g.head) & ~15LL;
+  return g;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bulk_load(void* smem, const void* gmem,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+      :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(smem)), "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// waits for the phase of `bar` with this parity to complete; a copy that
+// never lands (which would hang the card) traps after ~10 s instead
+__device__ __forceinline__ void wait_parity(uint64_t* bar, uint32_t parity) {
+  const long long t0 = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+    if (!done && clock64() - t0 > 20000000000LL) __trap();
+  } while (!done);
+}
+
+__device__ __forceinline__ void bulk_store(void* gmem, const void* smem,
+                                           uint32_t bytes) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      :: "l"(gmem), "r"(smem_addr(smem)), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// the next body chunk at or after item `it` of this block's items (it
+// advances by `step`); false when the block has no more
+__device__ __forceinline__ bool next_chunk(const long long* v, int P, int n,
+                                           long long total, long long step,
+                                           long long stage_bytes,
+                                           long long& it, const char*& src,
+                                           char*& dst, uint32_t& bytes) {
+  for (; it < total; it += step) {
+    const Segment g = segment_of(v, P, n, it);
+    if (!g.matched || g.body == 0) continue;
+    const long long off = g.head + g.j * stage_bytes;
+    const long long rest = g.body - g.j * stage_bytes;
+    src = g.src + off;
+    dst = g.dst + off;
+    bytes = static_cast<uint32_t>(rest < stage_bytes ? rest : stage_bytes);
+    it += step;
+    return true;
+  }
+  return false;
+}
+
+// d4[i] = load(i) for i < nvec by `nt` threads (t = 0..nt-1), four loads
+// in flight per thread before their stores: a copy has no arithmetic to
+// hide memory latency behind
+template <typename Load>
+__device__ __forceinline__ void store_vecs(uint4* d4, long long nvec, int t,
+                                           int nt, Load load) {
+  long long i = t;
+  for (; i + 3LL * nt < nvec; i += 4LL * nt) {
+    const uint4 v0 = load(i), v1 = load(i + nt), v2 = load(i + 2LL * nt),
+                v3 = load(i + 3LL * nt);
+    d4[i] = v0;
+    d4[i + nt] = v1;
+    d4[i + 2LL * nt] = v2;
+    d4[i + 3LL * nt] = v3;
+  }
+  for (; i < nvec; i += nt) d4[i] = load(i);
+}
+
+// bytes [0, len) from src to dst by `nt` threads (t = 0..nt-1), whatever
+// their alignment: bytes up to dst's next 16-byte boundary, then 16-byte
+// stores whose source is read as aligned 8- or 4-byte words (shifted
+// into place when src is not 4-byte aligned), then the last < 16 bytes
+__device__ void plain_copy(const char* src, char* dst, long long len, int t,
+                           int nt) {
+  long long head = (16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15;
+  if (head > len) head = len;
+  for (long long i = t; i < head; i += nt) dst[i] = src[i];
+  src += head;
+  dst += head;
+  len -= head;
+  const long long nvec = len >> 4;
+  uint4* d4 = reinterpret_cast<uint4*>(dst);
+  const uintptr_t sa = reinterpret_cast<uintptr_t>(src);
+  if ((sa & 15) == 0) {
+    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+    store_vecs(d4, nvec, t, nt, [=](long long i) { return s4[i]; });
+  } else if ((sa & 7) == 0) {
+    const uint2* s2 = reinterpret_cast<const uint2*>(src);
+    store_vecs(d4, nvec, t, nt, [=](long long i) {
+      const uint2 a = s2[2 * i], b = s2[2 * i + 1];
+      return make_uint4(a.x, a.y, b.x, b.y);
+    });
+  } else if ((sa & 3) == 0) {
+    const uint32_t* s1 = reinterpret_cast<const uint32_t*>(src);
+    store_vecs(d4, nvec, t, nt, [=](long long i) {
+      const uint32_t* w = s1 + 4 * i;
+      return make_uint4(w[0], w[1], w[2], w[3]);
+    });
+  } else {
+    // every aligned word read holds at least one byte of the source
+    const uint32_t shift = 8 * static_cast<uint32_t>(sa & 3);
+    const uint32_t* s1 = reinterpret_cast<const uint32_t*>(sa & ~uintptr_t(3));
+    store_vecs(d4, nvec, t, nt, [=](long long i) {
+      const uint32_t* w = s1 + 4 * i;
+      const uint32_t w0 = w[0], w1 = w[1], w2 = w[2], w3 = w[3], w4 = w[4];
+      return make_uint4(__funnelshift_r(w0, w1, shift),
+                        __funnelshift_r(w1, w2, shift),
+                        __funnelshift_r(w2, w3, shift),
+                        __funnelshift_r(w3, w4, shift));
+    });
+  }
+  for (long long i = (nvec << 4) + t; i < len; i += nt) dst[i] = src[i];
+}
+
+template <int kMax>
+__global__ void __launch_bounds__(kPullThreads)
+pull_kernel(const __grid_constant__ PullTable<kMax> table, int P, int n,
+            long long total, int stages, int stage_bytes) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const long long* v = table.v;
+  const long long step = gridDim.x;
+  if (threadIdx.x >= 32) {
+    // plain threads: the heads and tails of aligned segments, and whole
+    // items of segments whose ends disagree mod 16
+    const int t = threadIdx.x - 32;
+    for (long long it = blockIdx.x; it < total; it += step) {
+      const Segment g = segment_of(v, P, n, it);
+      if (g.matched) {
+        if (g.j != 0) continue;
+        const long long tail = g.head + g.body;
+        for (long long i = t; i < g.head; i += kPlainThreads)
+          g.dst[i] = g.src[i];
+        for (long long i = tail + t; i < g.len; i += kPlainThreads)
+          g.dst[i] = g.src[i];
+      } else {
+        const long long off = g.j * stage_bytes;
+        const long long rest = g.len - off;
+        plain_copy(g.src + off, g.dst + off,
+                   rest < stage_bytes ? rest : stage_bytes, t,
+                   kPlainThreads);
+      }
+    }
+    return;
+  }
+  if (threadIdx.x != 0) return;
+  // one thread keeps the ring: stage i's bytes, its mbarrier, and the
+  // destination and size of the chunk it holds
+  uint64_t* bar = reinterpret_cast<uint64_t*>(
+      smem + static_cast<size_t>(stages) * stage_bytes);
+  char** st_dst = reinterpret_cast<char**>(bar + stages);
+  uint32_t* st_len = reinterpret_cast<uint32_t*>(st_dst + stages);
+  for (int i = 0; i < stages; ++i)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                 :: "r"(smem_addr(bar + i)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  const long long sb = stage_bytes;
+  long long it = blockIdx.x;
+  long long loaded = 0;
+  const char* src;
+  char* dst;
+  uint32_t bytes;
+  while (loaded < stages && next_chunk(v, P, n, total, step, sb, it, src,
+                                       dst, bytes)) {
+    const int i = static_cast<int>(loaded);
+    bulk_load(smem + i * sb, src, bytes, bar + i);
+    st_dst[i] = dst;
+    st_len[i] = bytes;
+    ++loaded;
+  }
+  for (long long c = 0; c < loaded; ++c) {
+    const int i = static_cast<int>(c % stages);
+    wait_parity(bar + i, static_cast<uint32_t>((c / stages) & 1));
+    bulk_store(st_dst[i], smem + i * sb, st_len[i]);
+    // refill the stage of chunk c - 1 once its store has read it; the
+    // store of chunk c stays in flight
+    if (c >= 1 && loaded == c - 1 + stages &&
+        next_chunk(v, P, n, total, step, sb, it, src, dst, bytes)) {
+      const int r = static_cast<int>((c - 1) % stages);
+      asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+      bulk_load(smem + r * sb, src, bytes, bar + r);
+      st_dst[r] = dst;
+      st_len[r] = bytes;
+      ++loaded;
+    }
+  }
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+size_t pull_smem_bytes(int stages, int stage_bytes) {
+  return static_cast<size_t>(stages) * stage_bytes
+         + stages * (sizeof(uint64_t) + sizeof(char*) + sizeof(uint32_t));
+}
+
+int g_sm_count[64];                 // per device, read once
+
+template <int kMax>
+int launch_pull(const long long* host_table, int entries, int P, int n,
+                long long total, int stages, int stage_bytes, int grid,
+                cudaStream_t stream) {
+  static size_t smem_set = 0;       // the attribute set for this kernel
+  const size_t smem = pull_smem_bytes(stages, stage_bytes);
+  if (smem > smem_set) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        pull_kernel<kMax>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    smem_set = smem;
+  }
+  PullTable<kMax> table;
+  memcpy(table.v, host_table, sizeof(long long) * entries);
+  pull_kernel<kMax><<<grid, kPullThreads, smem, stream>>>(
+      table, P, n, total, stages, stage_bytes);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The cross-process pull.  host_table: the `entries` int64 entries above
+// in host memory; total: its last entry (the number of work items);
+// stages / stage_bytes: the ring (stage_bytes a multiple of 16);
+// blocks_per_sm: the persistent blocks each SM runs; device: the card the
+// outputs are on.  Returns the CUDA error of the launch (0 on success).
 extern "C" int spark_a2a_pull(const long long* host_table, int entries,
-                              int P, int n_src, long long total,
+                              int P, int n_src, long long total, int stages,
+                              int stage_bytes, int blocks_per_sm, int device,
                               void* stream) {
   if (P <= 0 || n_src <= 0 || total <= 0) return 0;
-  if (entries != P * n_src + 4 * P + 1 || entries > kMaxEntries ||
-      total > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  Table table;
-  memcpy(table.v, host_table, sizeof(long long) * entries);
-  all_to_all_kernel<<<(unsigned)total, kThreads, 0,
-                      reinterpret_cast<cudaStream_t>(stream)>>>(table, P,
-                                                                n_src, 1);
-  return (int)cudaGetLastError();
+  if (entries != 2 * P * n_src + 3 * P + 1 || entries > kMaxEntries ||
+      total > 0x7fffffffLL || stages < 2 || stages > kMaxStages ||
+      stage_bytes < 16 || stage_bytes % 16 != 0 || blocks_per_sm < 1 ||
+      device < 0 || device >= 64 ||
+      pull_smem_bytes(stages, stage_bytes) > 232448)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int current = -1;
+  cudaGetDevice(&current);
+  if (current != device) {
+    const cudaError_t rc = cudaSetDevice(device);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  if (g_sm_count[device] == 0) {
+    int sms = 0;
+    const cudaError_t rc = cudaDeviceGetAttribute(
+        &sms, cudaDevAttrMultiProcessorCount, device);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    g_sm_count[device] = sms;
+  }
+  const long long most = static_cast<long long>(blocks_per_sm)
+                         * g_sm_count[device];
+  const int grid = static_cast<int>(total < most ? total : most);
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int rc = entries <= kSmallEntries
+      ? launch_pull<kSmallEntries>(host_table, entries, P, n_src, total,
+                                   stages, stage_bytes, grid, st)
+      : launch_pull<kMaxEntries>(host_table, entries, P, n_src, total,
+                                 stages, stage_bytes, grid, st);
+  if (current >= 0 && current != device) cudaSetDevice(current);
+  return rc;
 }
 
 // ---- the arena and its IPC handle -----------------------------------------

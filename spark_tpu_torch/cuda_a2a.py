@@ -12,14 +12,20 @@ With ``gather=True`` each ``planes[k][s]`` is one ``(cap, ...)`` buffer
 sent whole to every participant: ``out[k][d][s] = planes[k][s]`` (the
 tiled ``all_gather``).
 
-Across processes (the device tier, ``parallel/ici.py``) the same kernel
-PULLS: ``pull(sources, outs)`` copies, per plane ``k``, block ``s`` from
-device address ``sources[k][s]`` (a slot of sender ``s``'s arena, mapped
-from another process by CUDA IPC) into ``outs[k][s]``: one launch for
-every plane and sender.  Its plain version, ``pull_plain``, stacks CPU
-tensors (the arena of a CPU session is a shared-memory file).  The arena
-itself (``Arena``) is one ``cudaMalloc`` allocation of the kernel's
-library, exported and mapped by the library's IPC entry points.
+Across processes (the device tier, ``parallel/ici.py``) a receiver
+PULLS with a kernel of its own, ``pull_kernel`` in the same source:
+``pull(sources, outs, nbytes)`` copies, per plane ``k``, ``nbytes[k]``
+bytes from device address ``sources[k][s]`` (a slot of sender ``s``'s
+arena, mapped from another process by CUDA IPC) into row ``s`` of
+``outs[k]``: one launch for every plane and sender.  Persistent blocks
+move the bytes through a ring of shared-memory stages with the Tensor
+Memory Accelerator; ``pull_plan`` is its division of work (segments,
+their 16-byte aligned bodies and the heads and tails peeled off them,
+items per block), which the kernel follows.  Its plain version,
+``pull_plain``, stacks CPU tensors (the arena of a CPU session is a
+shared-memory file).  The arena itself (``Arena``) is one ``cudaMalloc``
+allocation of the kernel's library, exported and mapped by the library's
+IPC entry points.
 
 Within one process all participants live on one device.  On CUDA tensors
 the wrapper
@@ -34,7 +40,8 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import List, Sequence
+from array import array
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +63,14 @@ LAUNCHES = 0
 #: in-process exchanges of ``LAUNCHES``
 PULL_LAUNCHES = 0
 
+#: the pull kernel's launch (``tools/k2_pull_sweep.py`` chose them on an
+#: H100): shared-memory ring stages of PULL_STAGE_BYTES (a multiple of
+#: 16; one work item of a segment's body each), and the persistent
+#: blocks on each SM
+PULL_STAGES = 2
+PULL_STAGE_BYTES = 16 * 1024
+PULL_BLOCKS_PER_SM = 4
+
 SOURCE = os.path.join(cuda_build.CSRC, "all_to_all.cu")
 
 
@@ -63,7 +78,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     sigs = {
         "spark_all_to_all": [vp, i, i, i, ll, vp],
-        "spark_a2a_pull": [vp, i, i, i, ll, vp],
+        "spark_a2a_pull": [vp, i, i, i, ll, i, i, i, i, vp],
         "spark_ipc_handle_bytes": [],
         "spark_ipc_alloc": [i, ll, ctypes.POINTER(vp)],
         "spark_ipc_free": [i, vp],
@@ -175,58 +190,152 @@ def all_to_all(planes: Sequence[Sequence[torch.Tensor]],
 # across processes: the pull and the arena
 # ---------------------------------------------------------------------------
 
-def pull_plain(blocks: Sequence[Sequence[torch.Tensor]]
-               ) -> List[torch.Tensor]:
+def pull_plain(blocks: Sequence[Sequence[torch.Tensor]],
+               rows: Optional[Sequence[int]] = None) -> List[torch.Tensor]:
     """Plain version of ``pull``: per plane, the senders' blocks stacked
-    (``out[k][s] = blocks[k][s]``)."""
-    return [torch.stack(list(b)) for b in blocks]
+    (``out[k][s] = blocks[k][s]``); with ``rows``, plane ``k``'s output
+    rows are ``rows[k]`` elements long and zero past the block."""
+    outs = [torch.stack(list(b)) for b in blocks]
+    if rows is None:
+        return outs
+    padded = []
+    for out, r in zip(outs, rows):
+        full = out.new_zeros((out.shape[0], int(r)) + tuple(out.shape[2:]))
+        full[:, :out.shape[1]] = out
+        padded.append(full)
+    return padded
 
 
-def pull(sources: Sequence[Sequence[int]],
-         outs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """Copy block ``s`` of plane ``k`` from device address
-    ``sources[k][s]`` into ``outs[k][s]`` for every plane and sender in
-    ONE launch of the kernel (``n_dst = 1``); ``outs[k]`` is a contiguous
-    ``(n_src, ...)`` CUDA tensor whose row size is the block size.  Raises
-    on anything else; the caller synchronizes."""
+def pull_plan(sources: Sequence[Sequence[int]], dst: Sequence[int],
+              nbytes: Sequence[int], stride: Sequence[int],
+              stage_bytes: int) -> Tuple[array, int]:
+    """The pull's division of work, which ``pull_kernel`` follows: the
+    kernel's table (int64, as laid out in ``csrc/all_to_all.cu``) and its
+    number of work items.
+
+    Segment ``g = k * n + s`` copies ``nbytes[k]`` bytes from
+    ``sources[k][s]`` to ``dst[k] + s * stride[k]``.  When both ends agree
+    mod 16, its head (up to the destination's next 16-byte boundary) and
+    tail (each at most 15 bytes) go to plain threads and its body, 16-byte
+    aligned at both ends, through the ring: ``max(1, ceil(body /
+    stage_bytes))`` items, the first of which also copies the head and the
+    tail.  Otherwise plain threads copy it, ``ceil(nbytes / stage_bytes)``
+    items.  A segment of 0 bytes has no item.  (At a few segments, plain
+    Python ints build the table faster than numpy's per-call overhead.)"""
+    segs, first, total = [], [0], 0
+    for ptrs, d, nb, st in zip(sources, dst, nbytes, stride):
+        for a in ptrs:
+            if nb:
+                if (a ^ d) & 15:
+                    total += -(-nb // stage_bytes)
+                else:
+                    head = min(nb, -d & 15)
+                    body = (nb - head) & -16
+                    total += -(-body // stage_bytes) if body else 1
+            first.append(total)
+            segs.append(a)
+            d += st
+    segs += dst
+    segs += nbytes
+    segs += stride
+    segs += first
+    return array("q", segs), total
+
+
+def pull_grid(total: int, sms: int, blocks_per_sm: int) -> int:
+    """Blocks of a pull launch on a card of ``sms`` SMs (the kernel sizes
+    it so): ``blocks_per_sm`` per SM, never more than the work items;
+    block ``b`` takes items ``b``, ``b + grid``, ``b + 2 * grid``, ..."""
+    return min(total, blocks_per_sm * sms)
+
+
+def pull_item_copies(table: Sequence[int], P: int, n: int,
+                     stage_bytes: int, item: int) -> List[tuple]:
+    """The copies work item ``item`` makes, as ``pull_kernel`` decodes it:
+    ``(segment, route, offset in the segment, bytes)``, route ``ring`` (a
+    bulk copy through a shared-memory stage), ``peel`` (a head or tail,
+    by plain threads) or ``plain`` (plain threads, ends that disagree mod
+    16)."""
+    segs = P * n
+    first = table[segs + 3 * P:]
+    lo, hi = 0, segs
+    while hi - lo > 1:
+        mid = (lo + hi) >> 1
+        if first[mid] <= item:
+            lo = mid
+        else:
+            hi = mid
+    k, s = divmod(lo, n)
+    src = table[lo]
+    dst = table[segs + k] + s * table[segs + 2 * P + k]
+    nb = table[segs + P + k]
+    j = item - first[lo]
+    if (src ^ dst) & 15:
+        off = j * stage_bytes
+        return [(lo, "plain", off, min(stage_bytes, nb - off))]
+    head = min(nb, (16 - (dst & 15)) & 15)
+    body = (nb - head) & -16
+    out = []
+    if body:
+        off = head + j * stage_bytes
+        out.append((lo, "ring", off, min(stage_bytes, body - j * stage_bytes)))
+    if j == 0:
+        if head:
+            out.append((lo, "peel", 0, head))
+        if nb - head - body:
+            out.append((lo, "peel", head + body, nb - head - body))
+    return out
+
+
+def pull(sources: Sequence[Sequence[int]], outs: Sequence[torch.Tensor],
+         nbytes: Optional[Sequence[int]] = None) -> List[torch.Tensor]:
+    """Copy ``nbytes[k]`` bytes (default: a whole row) from device
+    address ``sources[k][s]`` into row ``s`` of ``outs[k]`` for every
+    plane and sender in ONE launch of ``pull_kernel``; ``outs[k]`` is a
+    contiguous ``(n_src, ...)`` CUDA tensor, the bytes past ``nbytes[k]``
+    in each row left as they were.  Raises on anything else; the caller
+    synchronizes."""
     global PULL_LAUNCHES
-    if not outs or len(sources) != len(outs):
-        raise ValueError(f"pull: {len(sources)} source planes for "
-                         f"{len(outs)} outputs")
+    P = len(outs)
+    if not P or len(sources) != P or (nbytes is not None
+                                      and len(nbytes) != P):
+        raise ValueError(f"pull: {len(sources)} source planes for {P} "
+                         "outputs")
     n_src = len(sources[0])
     device = outs[0].device
     if device.type != "cuda":
         raise ValueError(f"pull: outputs on {device}; the plain version "
                          "is pull_plain")
-    src, dst, nbytes, stride, first = [], [], [], [], [0]
-    for k, (ptrs, out) in enumerate(zip(sources, outs)):
-        if len(ptrs) != n_src or out.shape[0] != n_src \
+    dst, lens, strides = [], [], []
+    for k in range(P):
+        out = outs[k]
+        if len(sources[k]) != n_src or out.shape[0] != n_src \
                 or not out.is_contiguous() or out.device != device:
-            raise ValueError(f"pull: plane {k} has {len(ptrs)} sources and "
-                             f"output {tuple(out.shape)} on {out.device}")
-        bb = out[0].numel() * out.element_size() if n_src else 0
-        src += [int(p) for p in ptrs]
+            raise ValueError(f"pull: plane {k} has {len(sources[k])} "
+                             f"sources and output {tuple(out.shape)} on "
+                             f"{out.device}")
+        row = out.numel() * out.element_size() // n_src if n_src else 0
+        nb = row if nbytes is None else int(nbytes[k])
+        if not 0 <= nb <= row:
+            raise ValueError(f"pull: plane {k} copies {nb} B into rows of "
+                             f"{row} B")
         dst.append(out.data_ptr())
-        nbytes.append(bb)
-        stride.append(0)
-        first.append(first[-1] + n_src * (-(-bb // CHUNK_BYTES)))
-    total = first[-1]
+        lens.append(nb)
+        strides.append(row)
+    table, total = pull_plan(sources, dst, lens, strides, PULL_STAGE_BYTES)
     if total == 0:
         return list(outs)
-    entries = src + dst + nbytes + stride + first
-    if len(entries) > MAX_TABLE_ENTRIES:
-        raise ValueError(f"pull: {len(outs)} planes of {n_src} senders "
-                         f"need {len(entries)} table entries; one launch "
-                         f"takes {MAX_TABLE_ENTRIES}")
-    table = (ctypes.c_longlong * len(entries))(*entries)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _lib().spark_a2a_pull(table, len(entries), len(outs), n_src,
-                                total, stream)
+    if len(table) > MAX_TABLE_ENTRIES:
+        raise ValueError(f"pull: {P} planes of {n_src} senders need "
+                         f"{len(table)} table entries; one launch takes "
+                         f"{MAX_TABLE_ENTRIES}")
+    rc = _lib().spark_a2a_pull(
+        table.buffer_info()[0], len(table), P, n_src, total, PULL_STAGES,
+        PULL_STAGE_BYTES, PULL_BLOCKS_PER_SM, device.index or 0,
+        torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"pull kernel failed: CUDA error {rc} "
-                           f"(planes={len(outs)}, senders={n_src}, "
-                           f"items={total})")
+                           f"(planes={P}, senders={n_src}, items={total})")
     PULL_LAUNCHES += 1
     return list(outs)
 

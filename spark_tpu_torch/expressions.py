@@ -987,9 +987,11 @@ class Cast(Expression):
             codes = v.data.long().clamp(min=0)
             return ExprValue(table[codes], and_valid(v.valid, ok[codes]))
         if to.is_string:
+            # refused as the JAX package refuses it
             raise AnalysisException(
-                "cast to string needs host materialization; it comes with "
-                "the SQL front-end slice")
+                "cast to string is not supported: a string result needs a "
+                "dictionary of its values built on the host, and no "
+                "operator builds one")
         tdt = to.torch_dtype
         if isinstance(src, T.DecimalType):
             f = v.data.to(torch.float64) / (10 ** src.scale)

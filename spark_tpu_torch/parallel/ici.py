@@ -700,6 +700,9 @@ def device_pull(svc, session, plan: Optional[SidePlan], exchange: str,
     widths = [max(n for _s, _sd, n in senders)] * (n_planes - 1) \
         + [max_runs]
     dtypes = [np.dtype(lay["dtype"]) for lay in layout]
+    # each output row rounded up to 16 bytes, so every sender's block
+    # starts 16-byte aligned: the pull's bulk copies need both ends so
+    rows = [_padded_rows(w, dt.itemsize) for w, dt in zip(widths, dtypes)]
     dev = session.device
     pulled_bytes = sum(w * dt.itemsize * len(senders)
                        for w, dt in zip(widths, dtypes))
@@ -713,13 +716,14 @@ def device_pull(svc, session, plan: Optional[SidePlan], exchange: str,
                 isz = np.dtype(lay["dtype"]).itemsize
                 stride = (max_runs if k == n_planes - 1 else cap) * isz
                 sources[k].append(base + lay["off"] + my_slot * stride)
-        outs = [torch.empty((len(senders), w),
+        outs = [torch.empty((len(senders), r),
                             dtype=torch.from_numpy(np.zeros(0, dt)).dtype,
-                            device=dev) for w, dt in zip(widths, dtypes)]
+                            device=dev) for r, dt in zip(rows, dtypes)]
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        cuda_a2a.pull(sources, outs)
+        cuda_a2a.pull(sources, outs, [w * dt.itemsize
+                                      for w, dt in zip(widths, dtypes)])
         end.record()
         end.synchronize()
         pull_ms = start.elapsed_time(end)
@@ -739,15 +743,13 @@ def device_pull(svc, session, plan: Optional[SidePlan], exchange: str,
                 blocks[k].append(torch.from_numpy(np.array(
                     raw[at:at + widths[k] * dt.itemsize]).view(dt)))
             del raw
-        got = [t.numpy() for t in cuda_a2a.pull_plain(blocks)]
+        got = [t.numpy() for t in cuda_a2a.pull_plain(blocks, rows)]
     t1 = time.perf_counter()
     if os.environ.get(CHECK_ENV) == "1":
         _check_pull(svc, exchange, senders, got, n_planes)
-    n_cols = (n_planes - 2) // 2
     names = senders[0][1]["names"]
     for i, (s, _side, _n) in enumerate(senders):
-        runs = _runs_of(template, names, got[:n_cols], got[n_cols:2 * n_cols],
-                        got[2 * n_cols], got[2 * n_cols + 1], i)
+        runs = _pulled_runs(template, names, got, widths, i)
         if runs:
             sink.add(s, runs)
     STATS["pull_ms"] += pull_ms if dev.type == "cuda" \
@@ -759,6 +761,24 @@ def device_pull(svc, session, plan: Optional[SidePlan], exchange: str,
     with svc._lock:
         svc.counters["ici_pulls"] += 1
         svc.counters["ici_bytes_pulled"] += int(pulled_bytes)
+
+
+def _padded_rows(width: int, itemsize: int) -> int:
+    """``width`` elements of ``itemsize`` bytes rounded up to a multiple
+    of 16 bytes: a pulled output's row length."""
+    return -(-width * itemsize // 16) * 16 // itemsize
+
+
+def _pulled_runs(template: ColumnBatch, names, planes, widths, slot
+                 ) -> List[ColumnBatch]:
+    """Sender ``slot``'s runs from a pull's planes (columns, masks, the
+    row-validity plane, the run table), whose rows may be padded past
+    ``widths``: only each row's first ``widths[k]`` elements are read."""
+    planes = [p[:, :w] for p, w in zip(planes, widths)]
+    n_cols = (len(planes) - 2) // 2
+    return _runs_of(template, names, planes[:n_cols],
+                    planes[n_cols:2 * n_cols], planes[2 * n_cols],
+                    planes[2 * n_cols + 1], slot)
 
 
 def _check_pull(svc, exchange: str, senders, got, n_planes: int) -> None:

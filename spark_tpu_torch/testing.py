@@ -1128,8 +1128,20 @@ def sorted_run_mismatch(tables, ticket, item, ext_c):
 
 # ---------------------------------------------------------------------------
 # the cross-process worker (``python -m spark_tpu_torch.testing
-# crossproc-worker <pid> <n> <root> <mode> [timeout_s] [device]``)
+# crossproc-worker <pid> <n> <root> <mode> <timeout_s> <device>``)
 # ---------------------------------------------------------------------------
+
+def _worker_argv(what: str, argv: Sequence[str]):
+    """``<pid> <n> <root> <mode> <timeout_s> <device>`` of a worker; the
+    device is required (``cuda`` or ``cpu``): a worker never picks the
+    CPU by default."""
+    if len(argv) < 6 or argv[5] not in ("cuda", "cpu"):
+        raise ValueError(f"{what}: argv is <pid> <n> <root> <mode> "
+                         f"<timeout_s> <device>, the device cuda or cpu; "
+                         f"got {list(argv)}")
+    return (int(argv[0]), int(argv[1]), argv[2], argv[3], float(argv[4]),
+            argv[5])
+
 
 #: (name, SQL text, the execution-shape counter each join mode bumps) —
 #: the JAX package's ``tests/shuffled_join_worker.py`` battery: inner /
@@ -1313,7 +1325,7 @@ def _crossproc_battery(xs, svc, mode: str) -> dict:
 def crossproc_worker(argv: Sequence[str]) -> int:
     """One process of a cross-process run over ``crossproc_tables``.
 
-    argv: ``<pid> <n> <root> <mode> [timeout_s] [device]``.  Modes:
+    argv: ``<pid> <n> <root> <mode> <timeout_s> <device>``.  Modes:
     ``parity`` (the battery in every join mode), ``spill`` (the same
     with a 1 KiB spill threshold and a 32 MiB host budget), ``ici`` (the
     battery with the device tier armed, every pid in one domain, then
@@ -1332,9 +1344,8 @@ def crossproc_worker(argv: Sequence[str]) -> int:
     from .parallel.hostshuffle import ExchangeFetchFailed
     from .sql.session import SparkSession
 
-    pid, n, root, mode = int(argv[0]), int(argv[1]), argv[2], argv[3]
-    timeout_s = float(argv[4]) if len(argv) > 4 else 60.0
-    device = argv[5] if len(argv) > 5 else "cpu"
+    pid, n, root, mode, timeout_s, device = _worker_argv(
+        "crossproc worker", argv)
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("crossproc worker: no CUDA device")
     if device == "cpu":
@@ -1940,7 +1951,7 @@ def _card_recovery_views(session, T, spec: dict, mode: str, root: str,
 def recovery_worker(argv: Sequence[str]) -> int:
     """One process of a recovery scenario.
 
-    argv: ``<pid> <n> <root> <mode> [timeout_s] [device]``, modes as in
+    argv: ``<pid> <n> <root> <mode> <timeout_s> <device>``, modes as in
     ``RECOVERY_MODES``.  Each process writes its share of the tables to
     parquet under ``<root>/leaves`` and reads it back, so every leaf is a
     file whose recipe the digest round publishes.  A ``FaultInjector``
@@ -1964,9 +1975,8 @@ def recovery_worker(argv: Sequence[str]) -> int:
     from .sql.session import SparkSession
     from .sql.stagecompile import stage_cache
 
-    pid, n, root, mode = int(argv[0]), int(argv[1]), argv[2], argv[3]
-    timeout_s = float(argv[4]) if len(argv) > 4 else 20.0
-    device = argv[5] if len(argv) > 5 else "cpu"
+    pid, n, root, mode, timeout_s, device = _worker_argv(
+        "recovery worker", argv)
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("recovery worker: no CUDA device")
     if device == "cpu":
@@ -2396,11 +2406,10 @@ def _pool_spawn_fail(pid: int, root: str, timeout_s: float,
 
 
 def pool_worker(argv: Sequence[str]) -> int:
-    """argv: ``<pid> <n> <root> <mode> [timeout_s] [device]``; modes
+    """argv: ``<pid> <n> <root> <mode> <timeout_s> <device>``; modes
     ``reap`` (2 processes), ``spawn-fail`` and ``scaleup`` (1)."""
-    pid, n, root, mode = int(argv[0]), int(argv[1]), argv[2], argv[3]
-    timeout_s = float(argv[4]) if len(argv) > 4 else 20.0
-    device = argv[5] if len(argv) > 5 else "cpu"
+    pid, n, root, mode, timeout_s, device = _worker_argv("pool worker",
+                                                         argv)
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("pool worker: no CUDA device")
     if device == "cpu":
@@ -2526,12 +2535,15 @@ def chaos_scenario(name: str) -> dict:
     raise KeyError(name)
 
 
-def run_scenario(sc: dict, root: str, device: str = "cpu",
+def run_scenario(sc: dict, root: str, device: str,
                  deadline_s: Optional[float] = None):
-    """Start the scenario's processes on ``root`` (output to files: an
-    unread pipe blocks a worker at its next barrier), wait for them, kill
-    any left over, and return ``({pid: (exit code, output)}, elapsed
-    s)``."""
+    """Start the scenario's processes on ``root`` on ``device`` (``cuda``
+    or ``cpu``, required; output to files: an unread pipe blocks a
+    worker at its next barrier), wait for them, kill any left over, and
+    return ``({pid: (exit code, output)}, elapsed s)``."""
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f"run_scenario: device is cuda or cpu; got "
+                         f"{device!r}")
     import subprocess
     from .parallel.faults import FAULT_PLAN_ENV
     os.makedirs(root, exist_ok=True)
@@ -3255,18 +3267,24 @@ def stream_worker(argv: Sequence[str]) -> int:
     return 0
 
 
+def arena_pattern(nbytes: int) -> np.ndarray:
+    """The bytes an idle peer's arena holds: byte ``i`` is ``i *
+    2654435761 mod 251``, which repeats every 251 bytes."""
+    period = (np.arange(251, dtype=np.int64) * 2654435761 % 251) \
+        .astype(np.uint8)
+    return np.resize(period, int(nbytes))
+
+
 def arena_peer(argv: Sequence[str]) -> int:
     """argv: ``<root> <nbytes>``.  A process that allocates one arena of
-    ``nbytes`` on the card (``cuda_a2a.Arena``), fills it with a byte
-    pattern, publishes its IPC handle as ``<root>/arena.json`` and then
-    stays idle (no kernel of its own) until ``<root>/done`` appears: the
-    peer of an idle-peer pull measurement."""
+    ``nbytes`` on the card (``cuda_a2a.Arena``), fills it with
+    ``arena_pattern``, publishes its IPC handle as ``<root>/arena.json``
+    and then stays idle (no kernel of its own) until ``<root>/done``
+    appears: the peer of an idle-peer pull measurement."""
     from . import cuda_a2a
     root, nbytes = argv[0], int(argv[1])
     arena = cuda_a2a.Arena(torch.device("cuda"), nbytes)
-    pattern = (np.arange(nbytes, dtype=np.int64) * 2654435761 % 251) \
-        .astype(np.uint8)
-    arena.write(0, pattern)
+    arena.write(0, arena_pattern(nbytes))
     torch.cuda.synchronize()
     tmp = os.path.join(root, "arena.json.tmp")
     with open(tmp, "w") as f:
@@ -3290,7 +3308,7 @@ def _main(argv: Sequence[str]) -> int:
         return workers[argv[0]](argv[1:])
     print("usage: python -m spark_tpu_torch.testing "
           "{crossproc-worker|recovery-worker|pool-worker} "
-          "<pid> <n> <root> <mode> [timeout_s] [device]\n"
+          "<pid> <n> <root> <mode> <timeout_s> {cpu|cuda}\n"
           "       python -m spark_tpu_torch.testing stream-worker "
           "<root> <shape> <ckpt> <out> <device> [restart]\n"
           "       python -m spark_tpu_torch.testing arena-peer "

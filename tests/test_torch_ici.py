@@ -543,3 +543,188 @@ def test_repartition_and_coalesce_answer_like_reference(spark):
         assert answers[0] == answers[1]
     finally:
         ts.stop()
+
+
+# ---------------------------------------------------------------------------
+# the cross-process pull's division of work (cuda_a2a.pull_plan), which
+# pull_kernel follows, and device_pull's padded rows
+# ---------------------------------------------------------------------------
+
+from hypothesis import given, settings, strategies as st  # noqa: E402
+
+
+def _plan_copies(table, total, P, n, stage_bytes, sms, blocks_per_sm):
+    """Every copy of the launch, block by block as the kernel walks its
+    items: ``{segment: [(route, offset, bytes), ...]}``, and the items
+    each block took."""
+    grid = cuda_a2a.pull_grid(total, sms, blocks_per_sm)
+    copies, taken = {}, []
+    for b in range(grid):
+        for item in range(b, total, grid):
+            taken.append(item)
+            for seg, route, off, nb in cuda_a2a.pull_item_copies(
+                    table, P, n, stage_bytes, item):
+                copies.setdefault(seg, []).append((route, off, nb))
+    return copies, sorted(taken)
+
+
+@st.composite
+def _pull_launch(draw):
+    """Planes of 1, 4 or 8-byte elements, rows of 0 to 4,099 elements,
+    output rows padded to 16 bytes or not, sources whose ends agree with
+    their destination's mod 16 or not, senders' slots at the row's
+    stride or wider, and ring stages of 16 B to 32 KiB."""
+    P = draw(st.integers(1, 5))
+    n = draw(st.integers(1, 4))
+    stage = 16 * draw(st.sampled_from([1, 3, 4, 64, 2048]))
+    sources, dst, nbytes, stride = [], [], [], []
+    for _k in range(P):
+        isz = draw(st.sampled_from([1, 4, 8]))
+        width = draw(st.sampled_from([0, 1, 15, 17, 100, 1001, 4099]))
+        row = (tici._padded_rows(width, isz) if draw(st.booleans())
+               else width + draw(st.integers(0, 3))) * isz
+        d = (1 << 41) + 256 * draw(st.integers(0, 4)) \
+            + draw(st.integers(0, 15))
+        src = (1 << 40) + 4096 * draw(st.integers(0, 4)) + (
+            d % 16 if draw(st.booleans()) else draw(st.integers(0, 15)))
+        slot = row if draw(st.booleans()) \
+            else row + draw(st.integers(1, 40))
+        sources.append([src + s * slot for s in range(n)])
+        dst.append(d)
+        nbytes.append(width * isz)
+        stride.append(row)
+    return P, n, stage, sources, dst, nbytes, stride
+
+
+@settings(max_examples=300, deadline=None)
+@given(_pull_launch(), st.sampled_from([(3, 1), (2, 2), (132, 1)]))
+def test_pull_plan_covers_every_byte_once(launch, grid):
+    P, n, stage, sources, dst, nbytes, stride = launch
+    table, total = cuda_a2a.pull_plan(sources, dst, nbytes, stride, stage)
+    assert len(table) == 2 * P * n + 3 * P + 1
+    assert table[-1] == total
+    copies, taken = _plan_copies(table, total, P, n, stage, *grid)
+    assert taken == list(range(total))          # each item in one block
+    for k in range(P):
+        for s in range(n):
+            g = k * n + s
+            src, d = sources[k][s], dst[k] + s * stride[k]
+            spans = sorted((off, nb, route) for route, off, nb
+                           in copies.get(g, []))
+            at = 0
+            for off, nb, route in spans:
+                assert off == at and nb > 0, (g, spans)
+                at += nb
+                if route == "ring":
+                    assert (src + off) % 16 == 0 and (d + off) % 16 == 0
+                    assert nb % 16 == 0 and nb <= stage
+                elif route == "peel":
+                    assert nb <= 15 and (src - d) % 16 == 0
+                else:
+                    assert (src - d) % 16 and nb <= stage
+            assert at == nbytes[k], (g, spans, nbytes[k])
+
+
+def test_pull_plan_of_padded_rows_has_no_plain_copy():
+    """device_pull's layout: senders' slots at a power-of-two capacity,
+    output rows rounded up to 16 bytes.  Three senders of 1,000,003 int64
+    rows and a bool plane move every byte but heads and tails through the
+    ring; only a run table whose slot stride is max_runs * 4 B may need
+    plain threads."""
+    n, rows, cap, max_runs = 3, 1_000_003, 1 << 20, 3
+    planes = [(8, rows, cap), (1, rows, cap), (4, max_runs, max_runs)]
+    base, at, sources, dst, nbytes, stride = 1 << 40, 0, [], [], [], []
+    for isz, width, slot in planes:
+        sources.append([base + at + s * slot * isz for s in range(n)])
+        at += -(-n * slot * isz // 256) * 256
+        padded = tici._padded_rows(width, isz) * isz
+        dst.append((1 << 41) + len(dst) * (1 << 26))
+        nbytes.append(width * isz)
+        stride.append(padded)
+        assert padded % 16 == 0 and padded - width * isz < 16
+    stage = cuda_a2a.PULL_STAGE_BYTES
+    table, total = cuda_a2a.pull_plan(sources, dst, nbytes, stride, stage)
+    copies, _ = _plan_copies(table, total, len(planes), n, stage, 132, 1)
+    for g, cs in copies.items():
+        routes = {r for r, _o, _b in cs}
+        if g < 2 * n:
+            assert routes <= {"ring", "peel"}, (g, routes)
+            assert sum(b for r, _o, b in cs if r == "peel") <= 15
+        assert sum(b for _r, _o, b in cs) == nbytes[g // n]
+
+
+def test_padded_pull_rows_unpack_to_the_same_runs():
+    """A pull's output rows rounded up to 16 bytes (garbage past each
+    block) unpack to the same runs as the unpadded planes, and as the JAX
+    package's ``_unpack_inbox`` on the same input."""
+    rng = np.random.default_rng(16)
+    members = [0, 1, 2, 3]
+    rtpl, ttpl = _both_batches([0])
+    cap, max_runs = 8, 3
+    rpacks, tpacks = [], []
+    for s in members:
+        rob, tob = {}, {}
+        if s:
+            runs = [_both_batches(rng.integers(-99, 99, m),
+                                  (rng.random(m) < 0.6) if m % 2 else None,
+                                  (rng.random(m) < 0.8) if m == 3 else None)
+                    for m in rng.integers(1, 4, int(rng.integers(1, 3)))]
+            rob[0], tob[0] = [r for r, _t in runs], [t for _r, t in runs]
+        rpacks.append(rici._pack_outbox(rob, members, rtpl, cap, max_runs))
+        tpacks.append(tici._pack_outbox(tob, members, ttpl, cap, max_runs))
+    senders = [1, 2, 3]
+    width = max(int(tpacks[s][4][0].sum()) for s in senders)
+
+    def received(packs):
+        """Per plane, each sender's slot for receiver 0, ``width`` rows
+        (the run table ``max_runs``): what a pull copies."""
+        per_sender = [packs[s][1] + packs[s][2] + [packs[s][3], packs[s][4]]
+                      for s in senders]
+        n_planes = len(per_sender[0])
+        return [np.stack([planes[k][0][:max_runs if k == n_planes - 1
+                                       else width]
+                          for planes in per_sender])
+                for k in range(n_planes)]
+
+    tplanes, rplanes = received(tpacks), received(rpacks)
+    widths = [p.shape[1] for p in tplanes]
+    padded = []
+    for p in tplanes:
+        full = np.frombuffer(rng.bytes(p.shape[0] * tici._padded_rows(
+            p.shape[1], p.itemsize) * p.itemsize), p.dtype).reshape(
+            p.shape[0], -1).copy()
+        full[:, :p.shape[1]] = p
+        assert full.shape[1] * p.itemsize % 16 == 0
+        padded.append(full)
+    names = tpacks[0][0]
+    want = rici._unpack_inbox(rpacks[0][0], rtpl, rplanes[:1], rplanes[1:2],
+                              rplanes[2], rplanes[3], senders, self_pid=0)
+    for i, s in enumerate(senders):
+        got = tici._pulled_runs(ttpl, names, padded, widths, i)
+        plain = tici._runs_of(ttpl, names, tplanes[:1], tplanes[1:2],
+                              tplanes[2], tplanes[3], i)
+        _assert_runs_equal(want[s], got)
+        assert len(plain) == len(got)
+        for a, b in zip(plain, got):
+            assert a.capacity == b.capacity
+            assert torch.equal(a.vectors[0].data, b.vectors[0].data)
+            assert (a.vectors[0].valid is None) == (b.vectors[0].valid is None)
+            assert (a.row_valid is None) == (b.row_valid is None)
+
+
+def test_pull_plain_pads_rows_with_zeros():
+    blocks = [[torch.arange(3, dtype=torch.int64),
+               torch.arange(3, 6, dtype=torch.int64)],
+              [torch.tensor([True]), torch.tensor([False])]]
+    a, b = cuda_a2a.pull_plain(blocks, [4, 16])
+    assert a.tolist() == [[0, 1, 2, 0], [3, 4, 5, 0]]
+    assert b.shape == (2, 16) and b[:, 0].tolist() == [True, False] \
+        and not b[:, 1:].any()
+    assert [t.shape for t in cuda_a2a.pull_plain(blocks)] == [(2, 3), (2, 1)]
+
+
+def test_pull_refuses_cpu_outputs_and_short_rows():
+    with pytest.raises(ValueError, match="pull_plain"):
+        cuda_a2a.pull([[0]], [torch.zeros((1, 4))])
+    with pytest.raises(ValueError, match="source planes"):
+        cuda_a2a.pull([[0], [0]], [torch.zeros((1, 4))])

@@ -188,7 +188,7 @@ def _jax_recovery_answer(spark):
 def test_ici_fault_scenario(spark, tmp_path, name):
     sc = [s for s in ici_scenarios() if s["name"] == name][0]
     root = str(tmp_path / "run")
-    results, elapsed = run_scenario(sc, root)
+    results, elapsed = run_scenario(sc, root, "cpu")
     bad = check_scenario(sc, results, elapsed)
     assert not bad, (bad, {p: out[-1500:] for p, (_rc, out)
                            in results.items()})

@@ -333,7 +333,7 @@ def test_pool_chaos_scenario(tmp_path, name):
     heir.  ``scaleup``: the pool grows under a standing windowed
     aggregate and the stream's sink stays byte-identical."""
     sc = chaos_scenario(name)
-    results, elapsed = run_scenario(sc, str(tmp_path / "run"))
+    results, elapsed = run_scenario(sc, str(tmp_path / "run"), "cpu")
     bad = check_scenario(sc, results, elapsed)
     assert not bad, (bad, {p: out[-1500:] for p, (_rc, out)
                            in results.items()})

@@ -49,7 +49,7 @@ def _line(out, pid):
 def test_recovery_scenario(spark, tmp_path, name):
     sc = chaos_scenario(name)
     root = str(tmp_path / "run")
-    results, elapsed = run_scenario(sc, root)
+    results, elapsed = run_scenario(sc, root, "cpu")
     bad = check_scenario(sc, results, elapsed)
     assert not bad, (bad, {p: out[-1500:] for p, (_rc, out)
                            in results.items()})
@@ -84,3 +84,28 @@ def test_recovery_scenario(spark, tmp_path, name):
         assert "retries=0" in line and "fallback=0" not in line, out0
         assert "dying after manifest in 'xq000001-gather'" \
             in results[1][1]
+
+
+@pytest.mark.parametrize("worker", ["crossproc_worker", "recovery_worker",
+                                    "pool_worker"])
+@pytest.mark.parametrize("argv", [["0", "2", "ROOT", "recover", "5"],
+                                  ["0", "2", "ROOT", "recover", "5", "tpu"]])
+def test_worker_requires_a_device(tmp_path, worker, argv):
+    """A worker never runs on the CPU by default: without ``cuda`` or
+    ``cpu`` it raises, naming its argv, before it starts a session."""
+    import spark_tpu_torch.testing as TT
+    argv = [str(tmp_path) if a == "ROOT" else a for a in argv]
+    with pytest.raises(ValueError, match=r"<device>.*got \["):
+        getattr(TT, worker)(argv)
+    assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.parametrize("device", [None, "gpu"])
+def test_run_scenario_requires_a_device(tmp_path, device):
+    sc = chaos_scenario(NAMES[0])
+    with pytest.raises((TypeError, ValueError)):
+        if device is None:
+            run_scenario(sc, str(tmp_path / "run"))
+        else:
+            run_scenario(sc, str(tmp_path / "run"), device)
+    assert not os.path.exists(tmp_path / "run")

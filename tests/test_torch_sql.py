@@ -611,3 +611,15 @@ def test_decimal_arithmetic_rescales(spark, tspark):
     finally:
         spark.catalog.dropTempView("decar")
         tspark.catalog.dropTempView("decar")
+
+
+def test_cast_to_string_is_refused_by_both_packages(spark, tspark):
+    """Neither package builds the host dictionary a string result needs,
+    so both refuse ``CAST(... AS STRING)``; the port's message names that
+    limit."""
+    text = "SELECT CAST(id AS STRING) FROM range(3)"
+    with pytest.raises(RAnalysisException, match="cast to string"):
+        spark.sql(text).collect()
+    with pytest.raises(AnalysisException,
+                       match="dictionary of its values built on the host"):
+        tspark.sql(text).collect()

@@ -664,3 +664,40 @@ def test_state_capacity_grows_with_every_trigger_in_both_packages(pkgs):
     ref, port = (_capacity_growth(p) for p in pkgs)
     assert ref == [(1, 8, 136), (1, 16, 272), (1, 24, 408), (1, 32, 544)]
     assert port == [(1, 8, 136)] * 4
+
+
+def _null_only_string_keys(p, op, triggers):
+    src = p.memory_stream(*KV)
+    df = src.toDF(p.session)
+    if op == "dedup":
+        q = _memory(df.dropDuplicates(["k"]), "s_nullkey")
+    else:
+        q = _memory(df.groupBy("k").agg(p.F.sum("v").alias("s")),
+                    "s_nullkey", "update")
+    out = []
+    try:
+        for rows in triggers:
+            src.addData(rows)
+            q.processAllAvailable()
+            out.append(p.rows("s_nullkey"))
+    finally:
+        q.stop()
+    return out
+
+
+@pytest.mark.parametrize("op", ["dedup", "update"])
+@pytest.mark.parametrize("triggers", [
+    [[(None, 1)]], [[("a", 1)], [(None, 2)]]], ids=["null", "a-then-null"])
+def test_null_only_string_key_decode_reference_fault(pkgs, op, triggers):
+    """Named for a fault of the JAX package (ROADMAP §3): a micro-batch
+    whose string key is NULL on every row has an empty dictionary, and
+    the reference's host decode of the key (``_decode_host_col``) indexes
+    it at -1.  The port keys its state on the card and answers."""
+    ref, port = pkgs
+    with pytest.raises(IndexError):
+        _null_only_string_keys(ref, op, triggers)
+    got = _null_only_string_keys(port, op, triggers)
+    if len(triggers) == 1:
+        assert got == [[(None, 1)]]
+    else:
+        assert got == [[("a", 1)], [("a", 1), (None, 2)]]
