@@ -338,7 +338,29 @@ without printing a result:
     launch bit-exact.  (h) ``POST /stream`` of (a) as a spec (watermark
     + SQL), ``GET /stream/<id>`` per trigger against the oracle, a second
     POST over ``maxStandingQueries`` refused, ``DELETE``;
-21. a ``{"kernels": [...]}`` line (each kernel's ``sql_launches``: its
+21. analysis — the analysis package, the jdbc source and the command
+    line (``spark_tpu_torch/analysis/``, ``jdbc.py``, ``cli.py``): (a)
+    the SQL phase's hash-agg and q3 texts on a session with
+    ``spark.tpu.analysis.verifyPlans=on``, each stage built anew (the
+    logical and physical plans and the stage contract verified), equal to
+    the SQL phase's answers, ``plans_verified`` > 0, K1's launches
+    counted and its eager one bit-exact; each warm wall with the verifier
+    on in turns with the root session's (off) and ``plan_verify_ms`` per
+    run beside it; (b) two ``cuda`` workers (``python -m
+    spark_tpu_torch.testing analysis-worker <pid> 2 <dir> card``) run
+    q93's join on the hash lane over the device tier with the runtime
+    checks on, cold (every K2 pull held bit-exact against its plain
+    version) and warm: equal to the single-process answer, the
+    decision-trace checks and divergences (0) printed; (c) the same join
+    once more with ``skew_decision`` armed in worker 1: both workers end
+    in ``PlanInvariantError`` naming the diverged component, the time to
+    that error printed; (d) q3 with date_dim and item read through jdbc
+    from a sqlite file the port's writer wrote, equal to the in-memory
+    q3; (e) ``python -m spark_tpu_torch.cli sql -e`` with a hash-agg text
+    over a parquet copy of hash_t in a process of its own on the card,
+    its table equal to this process's ``show``.  The phase prints its
+    seconds;
+22. a ``{"kernels": [...]}`` line (each kernel's ``sql_launches``: its
    launches in the SQL phase's counted run; ``breadth_launches``: K1's in
    the breadth phase's graph-lane run, K2's in its window text at 4
    shards; ``complex_launches``: K1's in the complex phase's graph-lane
@@ -369,7 +391,9 @@ without printing a result:
    ``ici_pull_alone_ms``, ``ici_pull_b2b_ms``, ``ici_pull_host_ms`` and
    ``ici_pull_three_senders_ms``; the pull kernel's own entry
    (``pull``), its launches K2's ``ici_launches`` and its times the
-   idle-peer pull's; each
+   idle-peer pull's; ``analysis_launches``: K1's in [analysis] (a), the
+   pull's in (b)'s two clean runs of both workers, K2's all-to-all's
+   there (0); each
    counted from 0 just
    before that run; K1's ``captured_launches``: those of its launches made while a
    graph was captured, and ``replayed_launches``: its launches the
@@ -5241,6 +5265,288 @@ def phase_stream(session, k1_entries, k2_entry):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# [analysis]: the plan verifier, the cross-process runtime checks and the
+# decision-trace backstop on the card; the jdbc source and the CLI
+# ---------------------------------------------------------------------------
+
+ANALYSIS_WORKERS = 2
+ANALYSIS_TIMEOUT_S = 60.0
+ANALYSIS_WORKER_DEVICE = "cuda"
+#: the q93 join's tables at [ooc]'s SF1 counts; the battery's other
+#: tables, which the join does not read, at a token size
+ANALYSIS_SPEC = {"hash_rows": 4096, "hash_groups": 64,
+                 "q3": {"store_sales": 4096, "item": 400, "date_dim": 4000},
+                 "ooc_seed": 19}
+VERIFY_ON = {"spark.tpu.analysis.verifyPlans": "on"}
+
+
+def _analysis_queries(s, hash_table, tables, k1_entries):
+    """(a): hash-agg and q3 from SQL text on the graph lane of a session
+    with ``verifyPlans=on``, each built anew (the stage contract verified
+    at its build), every eager K1 launch held against its plain
+    version; then the warm walls with the verifier on, in turns with the
+    root session's (verifier off: ``auto`` outside pytest)."""
+    from spark_tpu_torch import cuda_agg
+    from spark_tpu_torch.testing import (HASH_AGG_SQL, Q3_SQL, _K1Compare,
+                                         hash_agg_oracle, q3_oracle)
+    queries = [("hash-agg", HASH_AGG_SQL, hash_agg_oracle(hash_table),
+                False), ("q3", Q3_SQL, q3_oracle(tables), True)]
+    clear_stage_cache()
+    zero_counts()
+    with _K1Compare() as k1:
+        for name, sql, want, ordered in queries:
+            st0 = dict(s._analysis_stats)
+            t0 = time.perf_counter()
+            got = [tuple(r) for r in s.sql(sql).collect()]
+            first_ms = (time.perf_counter() - t0) * 1e3
+            n = s._analysis_stats["plans_verified"] - st0["plans_verified"]
+            ms = s._analysis_stats["plan_verify_ms"] - st0["plan_verify_ms"]
+            check((got if ordered else sorted(got))
+                  == (want if ordered else sorted(want)),
+                  f"[analysis] {name} with the verifier on differs from "
+                  f"the SQL phase's answer (first rows {got[:2]})")
+            check(n > 0, f"[analysis] {name}: no plan verified")
+            print(f"[analysis] (a) {name}: {len(got)} rows equal to the SQL "
+                  f"phase's answer; first run (stage built, graph "
+                  f"captured) {first_ms:.2f} ms with {n} verifications "
+                  f"(logical, physical, stage contract) taking "
+                  f"{ms:.3f} ms", flush=True)
+    launches = dict(cuda_agg.ENTRY_LAUNCHES)
+    check(launches["grouped_accumulate_columns"] >= 2 and k1.checked >= 1
+          and k1.equal, f"[analysis] (a) K1 launches {launches}, "
+          f"{k1.checked} eager launch(es) checked, equal {k1.equal}")
+    for entry in k1_entries:
+        entry["analysis_launches"] = launches[entry["name"]]
+    print(f"[analysis] (a) K1 wrapper launches {launches} "
+          f"(cuda_agg.ENTRY_LAUNCHES from 0 before (a)); {k1.checked} eager "
+          f"launch(es) held against the plain version: bit-exact (max abs "
+          f"err {k1.max_abs_err})", flush=True)
+    from spark_tpu_torch import types as T
+    from spark_tpu_torch.testing import register_sql_tables
+    root = s.newSession()
+    for k in VERIFY_ON:
+        root.conf.set(k, "auto")
+    register_sql_tables(root, hash_table, tables, T)
+    for name, sql, _w, _o in queries:
+        on, off = s.sql(sql), root.sql(sql)
+        st0 = dict(s._analysis_stats)
+        walls = [wall_ms(on.collect), wall_ms(off.collect),
+                 wall_ms(off.collect), wall_ms(on.collect)]
+        runs = 2 * 6                      # two wall_ms calls: 1 + 5 runs
+        n = s._analysis_stats["plans_verified"] - st0["plans_verified"]
+        ms = s._analysis_stats["plan_verify_ms"] - st0["plan_verify_ms"]
+        print(f"[analysis] (a) {name}: warm wall, median of 5, in turns "
+              f"verifier on, off, off, on: "
+              f"{', '.join(f'{w:.2f}' for w in walls)} ms; plan_verify_ms "
+              f"per run {ms / runs:.3f} ms ({n / runs:.1f} verifications "
+              f"per run)", flush=True)
+    root.stop()
+
+
+def _analysis_workers(root, n):
+    from spark_tpu_torch.parallel.faults import FAULT_PLAN_ENV, FaultPlan
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for pid in range(n):
+        env = dict(os.environ)
+        env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+        env.pop(FAULT_PLAN_ENV, None)
+        if pid == 1:
+            env[FAULT_PLAN_ENV] = FaultPlan().skew_decision().to_env()
+        log = open(os.path.join(root, f"log-p{pid}.txt"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "spark_tpu_torch.testing",
+             "analysis-worker", str(pid), str(n), root, "card",
+             str(ANALYSIS_TIMEOUT_S), ANALYSIS_WORKER_DEVICE],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=here), log))
+    return procs
+
+
+def _analysis_crossproc(k2_entry, pull_entry):
+    """(b) and (c): two ``cuda`` workers run q93's join on the hash lane
+    over the device tier with the runtime checks on — cold (every K2
+    pull held against its plain version), warm — then once more with
+    ``skew_decision`` armed in worker 1, which must end BOTH workers in a
+    ``PlanInvariantError`` naming the diverged component."""
+    import torch
+    from spark_tpu_torch.testing import OOC_SF1
+    n = ANALYSIS_WORKERS
+    root = tempfile.mkdtemp(prefix="chip_smoke_analysis_")
+    procs = []
+    try:
+        free, _total = torch.cuda.mem_get_info()
+        spec = dict(ANALYSIS_SPEC, ooc=OOC_SF1, conf={
+            "spark.tpu.memory.hbmBudget": str(int(free * 0.8) // n)})
+        with open(os.path.join(root, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        t0 = time.perf_counter()
+        procs = _analysis_workers(root, n)
+        deadline = time.monotonic() + 600
+        for p, _log in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        workers_s = time.perf_counter() - t0
+        results = []
+        for pid, (p, log) in enumerate(procs):
+            log.close()
+            with open(os.path.join(root, f"log-p{pid}.txt")) as f:
+                text = f.read()
+            check(p.returncode == 0, f"[analysis] worker {pid} exited "
+                  f"{p.returncode}:\n{text[-4000:]}")
+            with open(os.path.join(root, f"result-p{pid}.json")) as f:
+                results.append(json.load(f))
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        shutil.rmtree(root, ignore_errors=True)
+    pulls = a2a = 0
+    for pid, r in enumerate(results):
+        runs = r["runs"]
+        check(len(runs) == 3, f"[analysis] worker {pid}: {len(runs)} runs")
+        for i, run in enumerate(runs[:2]):
+            check(run["outcome"] == "ok" and run["rows"] == r["want"][0],
+                  f"[analysis] (b) worker {pid} run {i}: {run['outcome']} "
+                  f"({run.get('message', run.get('error', ''))[:400]}); "
+                  f"rows equal {run.get('rows') == r['want'][0]}")
+            check(run["pull_launches"] >= 1, f"[analysis] (b) worker {pid} "
+                  f"run {i}: the join sides took no K2 pull")
+        chk = r["check"]
+        check(chk.get("checked", 0) >= 1 and chk.get("equal"),
+              f"[analysis] (b) worker {pid}: pulls held against the plain "
+              f"version {chk}")
+        div = r["analysis"].get("decision_trace_divergence", 0)
+        checks = runs[1]["checks"]
+        check(checks > 0 and runs[1]["div"] == 0,
+              f"[analysis] (b) worker {pid}: {checks} decision-trace "
+              f"checks, {runs[1]['div']} divergences in the clean runs")
+        pulls += runs[0]["pull_launches"] + runs[1]["pull_launches"]
+        a2a += runs[0]["a2a_launches"] + runs[1]["a2a_launches"]
+        print(f"[analysis] (b) worker {pid}: q93's join on the hash lane "
+              f"over the device tier equal to the single-process answer "
+              f"({len(runs[0]['rows'])} rows), cold {runs[0]['wall_ms']:.2f}"
+              f" ms, warm {runs[1]['wall_ms']:.2f} ms; decision-trace "
+              f"checks {checks} over both runs, divergences "
+              f"{runs[1]['div']}; K2 pulls "
+              f"{runs[0]['pull_launches']} + {runs[1]['pull_launches']}, "
+              f"{chk['checked']} held against the plain version: bit-exact "
+              f"(max abs err {chk.get('max_abs_err', 0)})", flush=True)
+        bad = runs[2]
+        check(bad["outcome"] == "diverged"
+              and bad["property"] == "decision-trace-agreement"
+              and "component(s) ['decision']" in bad["message"],
+              f"[analysis] (c) worker {pid}: {bad['outcome']} "
+              f"{bad.get('property')} {bad.get('message', bad.get('error'))}")
+        print(f"[analysis] (c) skew_decision armed in worker 1: worker "
+              f"{pid} ended in PlanInvariantError "
+              f"({bad['property']}, at {bad['node']}) "
+              f"{bad['elapsed_s']:.3f} s into the statement, naming "
+              f"component(s) ['decision']; divergences counted {div}",
+              flush=True)
+    check(a2a == 0, f"[analysis] (b) K2's all-to-all launched {a2a} times "
+          f"in the clean runs (the device tier pulls across processes)")
+    pull_entry["analysis_launches"] = pulls
+    k2_entry["analysis_launches"] = a2a
+    print(f"[analysis] (b, c) {n} workers done in {workers_s:.2f} s",
+          flush=True)
+
+
+def _analysis_jdbc(s, tables, root):
+    """(d): q3 with date_dim and item read through jdbc from a sqlite
+    file the port's writer wrote, store_sales in memory."""
+    from spark_tpu_torch import types as T
+    from spark_tpu_torch.testing import Q3_SCHEMAS, Q3_SQL, q3_oracle
+    url = f"jdbc:sqlite:{os.path.join(root, 'q3.db')}"
+    j = s.newSession()
+    t0 = time.perf_counter()
+    for name in ("date_dim", "item", "store_sales"):
+        st = T.StructType([T.StructField(c, T.type_for_name(t))
+                           for c, t in Q3_SCHEMAS[name]])
+        df = j.createDataFrame(tables[name], schema=st)
+        if name == "store_sales":
+            df.createOrReplaceTempView(name)
+        else:
+            df.write.jdbc(url, name, mode="overwrite")
+    write_s = time.perf_counter() - t0
+    for name in ("date_dim", "item"):
+        j.read.jdbc(url, name).createOrReplaceTempView(name)
+    t0 = time.perf_counter()
+    got = [tuple(r) for r in j.sql(Q3_SQL).collect()]
+    first_ms = (time.perf_counter() - t0) * 1e3
+    check(got == q3_oracle(tables), f"[analysis] (d) q3 over jdbc differs "
+          f"from the in-memory q3 (first rows {got[:2]})")
+    warm = wall_ms(j.sql(Q3_SQL).collect, warmup=0, reps=3)
+    print(f"[analysis] (d) q3 with date_dim "
+          f"({len(tables['date_dim']['d_date_sk'])} rows) and item "
+          f"({len(tables['item']['i_item_sk'])} rows) read through jdbc "
+          f"from sqlite (written by the port in {write_s:.2f} s): "
+          f"{len(got)} rows equal to the in-memory q3; first run "
+          f"{first_ms:.2f} ms, warm wall (median of 3, each re-reading the "
+          f"database) {warm:.2f} ms", flush=True)
+    j.stop()
+
+
+def _analysis_cli(s, hash_table, root):
+    """(e): ``python -m spark_tpu_torch.cli sql -e`` with a hash-agg text
+    over a parquet copy of hash_t, in a process of its own on the card:
+    its table equals this process's ``show`` of the same text."""
+    path = os.path.join(root, "hash_t")
+    s.createDataFrame(hash_table).write.parquet(path)
+    text = (f"SELECT k, SUM(v) AS s, COUNT(*) AS c FROM parquet.`{path}` "
+            f"GROUP BY k ORDER BY k")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        s.sql(text).show(100)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "spark_tpu_torch.cli", "sql",
+                        "-e", text], capture_output=True, text=True,
+                       env=env, cwd=here, timeout=300)
+    cli_s = time.perf_counter() - t0
+
+    def table(out):
+        return [ln for ln in out.splitlines() if ln.startswith(("+", "|"))]
+    check(r.returncode == 0, f"[analysis] (e) the CLI exited "
+          f"{r.returncode}: {r.stderr[-3000:]}")
+    check(table(r.stdout) and table(r.stdout) == table(buf.getvalue()),
+          f"[analysis] (e) the CLI's table differs from the in-process "
+          f"one:\n{r.stdout[-1500:]}")
+    print(f"[analysis] (e) python -m spark_tpu_torch.cli sql -e "
+          f"'<hash-agg over parquet>' on the card (its default device): "
+          f"{len(table(r.stdout)) - 4} rows shown, equal to the in-process "
+          f"show(); the process took {cli_s:.2f} s", flush=True)
+
+
+def phase_analysis(session, hash_table, tables, k1_entries, k2_entry,
+                   pull_entry):
+    """The analysis slice on the card (see the module's docstring, 21):
+    (a) the verifier on the main path's queries, (b) the runtime checks
+    and the decision trace across two processes on the device tier, (c)
+    ``skew_decision``, (d) q3 through jdbc, (e) the CLI."""
+    t_phase = time.perf_counter()
+    s = session.newSession()
+    for k, v in VERIFY_ON.items():
+        s.conf.set(k, v)
+    root = tempfile.mkdtemp(prefix="chip_smoke_analysis_files_")
+    try:
+        from spark_tpu_torch import types as T
+        from spark_tpu_torch.testing import register_sql_tables
+        register_sql_tables(s, hash_table, tables, T)
+        _analysis_queries(s, hash_table, tables, k1_entries)
+        _analysis_crossproc(k2_entry, pull_entry)
+        _analysis_jdbc(s, tables, root)
+        _analysis_cli(s, hash_table, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        s.stop()
+    print(f"[analysis] phase {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5304,6 +5610,8 @@ def main() -> int:
     phase_recovery(session, k1_entries, k2_entry)
     phase_pool(session, hash_table, tables, k1_entries, k2_entry)
     phase_stream(session, k1_entries, k2_entry)
+    phase_analysis(session, hash_table, tables, k1_entries, k2_entry,
+                   pull_entry)
     session.stop()
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": k1_entries + [k2_entry, pull_entry]}))

@@ -205,6 +205,13 @@ EXCHANGE_SPREAD_FRAC = conf("spark.tpu.exchange.spreadThreshold").doc(
     "spread round-robin and its build rows replicate to every shard."
 ).float(0.5)
 
+ANALYSIS_VERIFY_PLANS = conf("spark.tpu.analysis.verifyPlans").doc(
+    "Plan-invariant verification (analysis.verify_plan) plus the "
+    "cross-process exchange runtime checks. auto = on under pytest (the "
+    "port's tests and the worker processes they start), off otherwise; "
+    "on/off = explicit."
+).string("auto")
+
 CODEGEN_ENABLED = conf("spark.sql.codegen.wholeStage").doc(
     "Run each planned single-device query as one compiled program "
     "(WholeStageCodegen analog): on a card, one CUDA graph captured once "

@@ -38,7 +38,9 @@ global string dictionaries (``scan_string_dictionaries``), padded to
 one capacity and decoded ``prefetch_iter``'s depth ahead of the step on
 a background thread; on a ``cuda`` session it lands in a ring of pinned
 host batches (``PinnedRing``) that is reused, never in the relation
-cache.  The jdbc source comes with the serving slice's jdbc module.
+cache.  A jdbc relation (``jdbc.py``: DB-API over ``sqlite3``) is read
+the same way, at the call sites the JAX package reads it from, but never
+cached: every query re-reads the database.
 """
 
 from __future__ import annotations
@@ -64,10 +66,6 @@ __all__ = ["DataFrameReader", "DataFrameWriter", "read_file_relation",
            "file_row_count", "SCAN_STATS", "scan_file_batches",
            "prefetch_iter", "scan_prefetch_depth",
            "scan_string_dictionaries", "reencode_strings", "PinnedRing"]
-
-#: where the jdbc source comes from
-JDBC_NOT_PORTED = ("the jdbc source is not ported yet: it comes with "
-                   "ROADMAP item 11 (serving and observability, jdbc.py)")
 
 
 def _pyarrow():
@@ -561,8 +559,6 @@ def _load_batch(fmt: str, raw_paths, options: Dict[str, str],
                 columns: Optional[List[str]] = None,
                 pushed: Optional[List[tuple]] = None,
                 pin: bool = False) -> ColumnBatch:
-    if fmt == "jdbc":
-        raise NotImplementedError(JDBC_NOT_PORTED)
     files = _resolve_paths(raw_paths)
     key = (fmt, _stat_token(files), tuple(sorted(options.items())),
            None if columns is None else tuple(columns),
@@ -582,6 +578,35 @@ def _load_batch(fmt: str, raw_paths, options: Dict[str, str],
         _relation_cache[key] = batch
         while len(_relation_cache) > RELATION_CACHE_MAX:
             _relation_cache.popitem(last=False)
+    return batch
+
+
+def _load_jdbc(raw_paths, options: Dict[str, str], columns, pushed,
+               pin: bool, engine_schema: Optional[T.StructType]
+               ) -> ColumnBatch:
+    """A database relation's host batch: no filesystem paths, and NEVER
+    cached (a mutable store has no stat-like invalidation token).  The
+    relation's resolved engine schema (declared or sample-inferred) is
+    the scan's cast target.  The batch's ``source`` names the relation,
+    its pruned columns and pushed filters — stable across re-reads, so
+    its stage entry replays on the next read's rows."""
+    from . import jdbc as _jdbc
+    pa = _pyarrow()
+    urls = [raw_paths] if isinstance(raw_paths, str) else list(raw_paths)
+    target = None
+    if engine_schema is not None:
+        target = pa.schema([pa.field(f.name, _engine_to_arrow(f.dataType))
+                            for f in engine_schema.fields])
+    t0 = time.perf_counter()
+    batch = _table_to_batch(_jdbc.read_table(urls, options, columns=columns,
+                                             pushed=pushed, target=target))
+    key = ("jdbc", tuple(urls), tuple(sorted(options.items())),
+           None if columns is None else tuple(columns),
+           None if pushed is None else tuple(pushed))
+    batch.source = hashlib.sha1(repr(key).encode()).hexdigest()[:16]
+    if pin:
+        batch = batch.pinned()
+    SCAN_STATS["decode_ms"] += (time.perf_counter() - t0) * 1e3
     return batch
 
 
@@ -631,6 +656,9 @@ def _decode_files(fmt: str, files: List[str], raw_paths,
 def read_file_relation(rel: L.FileRelation, session) -> ColumnBatch:
     """The relation's host batch: pinned on a ``cuda`` session."""
     pin = session is not None and session.device.type == "cuda"
+    if rel.fmt == "jdbc":
+        return _load_jdbc(rel.paths, rel.options, rel.columns,
+                          rel.pushed_filters, pin, rel._schema)
     return _load_batch(rel.fmt, rel.paths, rel.options,
                        columns=rel.columns, pushed=rel.pushed_filters,
                        pin=pin)
@@ -644,7 +672,8 @@ def file_row_count(rel: L.FileRelation) -> Optional[int]:
     footers; ANALYZE TABLE results); other formats load (host-cached) and
     count.  Memoized per resolved file list + stat."""
     if rel.fmt == "jdbc":
-        raise NotImplementedError(JDBC_NOT_PORTED)
+        from . import jdbc as _jdbc
+        return _jdbc.count_rows(rel.paths[0], rel.options)  # never cached
     try:
         files = _resolve_paths(rel.paths)
     except AnalysisException:
@@ -680,10 +709,21 @@ def scan_file_batches(rel: L.FileRelation, batch_rows: int):
     formats slice one host table, decoded once and never kept in the
     relation cache.  Partition-directory columns are appended per
     file."""
-    if rel.fmt == "jdbc":
-        raise NotImplementedError(JDBC_NOT_PORTED)
     columns = rel.columns
     pushed = rel.pushed_filters
+    if rel.fmt == "jdbc":
+        # one partitioned read (WHERE pushdown and column pruning in the
+        # SQL), sliced on the host like csv/json; ``_load_jdbc`` adds its
+        # read to decode_ms
+        whole = _load_jdbc(rel.paths, rel.options, columns, pushed, False,
+                           rel._schema)
+        n = int(whole.num_rows())
+        for start in range(0, max(n, 1), batch_rows):
+            stop = min(start + batch_rows, n)
+            SCAN_STATS["batches"] += 1
+            SCAN_STATS["rows_streamed"] += stop - start
+            yield slice_rows(whole, start, stop)
+        return
     files = _resolve_paths(rel.paths)
     base = _base_dir(rel.paths)
     if rel.fmt == "parquet":
@@ -816,7 +856,7 @@ def scan_string_dictionaries(rel: L.FileRelation,
     if not str_cols:
         return {}
     uniques: Dict[str, set] = {c: set() for c in str_cols}
-    files = _resolve_paths(rel.paths)
+    files = [] if rel.fmt == "jdbc" else _resolve_paths(rel.paths)
     if rel.fmt == "parquet":
         import pyarrow.compute as pc
         import pyarrow.parquet as pq
@@ -830,6 +870,15 @@ def scan_string_dictionaries(rel: L.FileRelation,
                     col = rb.column(rb.schema.get_field_index(c))
                     uniques[c].update(v for v in pc.unique(col).to_pylist()
                                       if v is not None)
+    elif rel.fmt == "jdbc":
+        # the (uncached) SELECT pruned to the string columns only
+        whole = _load_jdbc(rel.paths, rel.options, str_cols, None, False,
+                           rel._schema)
+        for c in str_cols:
+            if c in whole.names:
+                vec = whole.column(c)
+                if vec.dictionary:
+                    uniques[c].update(vec.dictionary)
     else:
         whole = _decode_files(rel.fmt, files, rel.paths, rel.options)
         for c in str_cols:
@@ -961,8 +1010,13 @@ _ANALYZED_STATS: Dict[Any, dict] = {}
 
 
 def _rel_stats_key(rel: L.FileRelation):
+    """Identity of a relation for statistics: format, read options and
+    files with their stat; a jdbc relation: url and table/query."""
     opts = tuple(sorted((str(k), str(v))
                         for k, v in (rel.options or {}).items()))
+    if rel.fmt == "jdbc":
+        return ("jdbc", rel.paths[0], rel.options.get("dbtable"),
+                rel.options.get("query"))
     try:
         files = _resolve_paths(rel.paths)
     except AnalysisException:
@@ -1179,8 +1233,6 @@ class DataFrameReader:
         from .sql.dataframe import DataFrame
         if path is None:
             raise AnalysisException("load() requires a path")
-        if self._fmt == "jdbc":
-            raise NotImplementedError(JDBC_NOT_PORTED)
         paths = [path] if isinstance(path, str) else list(path)
         if self._schema is not None:
             schema = self._schema
@@ -1190,6 +1242,9 @@ class DataFrameReader:
             schema = _parquet_schema(paths)
         elif self._fmt == "orc":
             schema = _orc_schema(paths)
+        elif self._fmt == "jdbc":
+            from . import jdbc as _jdbc
+            schema = _jdbc.table_schema(paths[0], self._options)
         else:
             schema = _load_batch(self._fmt, paths, self._options).schema
         rel = L.FileRelation(self._fmt, paths, schema, self._options)
@@ -1221,8 +1276,33 @@ class DataFrameReader:
     def text(self, path):
         return self.format("text").load(path)
 
-    def jdbc(self, *args, **kwargs):
-        raise NotImplementedError(JDBC_NOT_PORTED)
+    def jdbc(self, url: str, table: str = None, column: str = None,
+             lowerBound=None, upperBound=None, numPartitions=None,
+             predicates=None, properties=None):
+        """Relational source over DB-API connections
+        (``DataFrameReader.jdbc``, ``JDBCRelation.columnPartition``
+        stride partitioning).  ``predicates`` is a list of SQL strings,
+        one read partition each; or (``column``, ``lowerBound``,
+        ``upperBound``, ``numPartitions``) stride-partitions a numeric
+        column."""
+        self.format("jdbc").option("url", url)
+        if table is not None:
+            self.option("dbtable", table)
+        if column is not None:
+            if lowerBound is None or upperBound is None \
+                    or numPartitions is None:
+                raise AnalysisException(
+                    "jdbc partitioning requires column, lowerBound, "
+                    "upperBound and numPartitions together")
+            self.option("partitioncolumn", column)
+            self.option("lowerbound", int(lowerBound))
+            self.option("upperbound", int(upperBound))
+            self.option("numpartitions", int(numPartitions))
+        if predicates:
+            self.option("predicates", "\x1f".join(predicates))
+        for k, v in (properties or {}).items():
+            self.option(k, v)
+        return self.load(url)
 
     def table(self, name: str):
         return self._session.table(name)
@@ -1378,8 +1458,20 @@ class DataFrameWriter:
     def text(self, path: str) -> None:
         self.format("text").save(path)
 
-    def jdbc(self, *args, **kwargs) -> None:
-        raise NotImplementedError(JDBC_NOT_PORTED)
+    def jdbc(self, url: str, table: str, mode: str = None,
+             properties=None) -> None:
+        """Write into a relational table over a DB-API connection
+        (``DataFrameWriter.jdbc`` / ``JdbcUtils.saveTable``): DDL derived
+        from the schema, rows in one batched-INSERT transaction.  The
+        query runs before the database is touched."""
+        from . import jdbc as _jdbc
+        if mode is not None:
+            self.mode(mode)
+        opts = dict(self._options)
+        for k, v in (properties or {}).items():
+            opts[str(k).lower()] = str(v)
+        _jdbc.write_table(batch_to_arrow(self._df._execute()), url, table,
+                          self._mode, opts)
 
     def saveAsTable(self, name: str) -> None:
         """Persist as a catalog table under the warehouse directory

@@ -47,8 +47,8 @@ class MetricsSystem:
 
 def default_sources(session) -> List[Source]:
     """The built-in process gauges the port has: device memory, cached
-    relations, queries executed, the process stage cache and the
-    session's standing queries."""
+    relations, queries executed, the analysis checks, the process stage
+    cache and the session's standing queries."""
     mem, cache = session._memory, session._cache
     from .sql.stagecompile import metrics_source as _stage_gauges
     return [
@@ -65,6 +65,18 @@ def default_sources(session) -> List[Source]:
         }),
         Source("queries", {
             "executed": lambda: session._query_count,
+        }),
+        # the plan verifier's accounting (analysis.maybe_verify_*) and
+        # the decision-trace backstop (analysis.runtime.
+        # verify_decision_trace): a divergence means a process's decision
+        # pipeline split from its peers and its exchange aborted
+        Source("analysis", {
+            name: (lambda name=name, zero=zero:
+                   session._analysis_stats.get(name, zero))
+            for name, zero in (("plans_verified", 0),
+                               ("plan_verify_ms", 0.0),
+                               ("decision_trace_checks", 0),
+                               ("decision_trace_divergence", 0))
         }),
         # whole-stage capture: the process stage cache (build cost, hit
         # ratio, fusion width — CodegenMetrics analog)

@@ -510,12 +510,22 @@ class BlockStore:
             return 0
 
     def _bump_reclaimed(self, n: int) -> None:
-        with self._lock:
+        """Add ``n`` to the store's counter file.  The read-modify-write
+        holds an exclusive ``flock`` on the store directory — one bump at
+        a time across threads AND the processes sharing the root (the
+        in-process lock serialized threads only), and no file I/O under
+        ``self._lock``; the layout is unchanged."""
+        import fcntl
+        fd = os.open(self.dir, os.O_RDONLY)
+        try:
+            fcntl.flock(fd, fcntl.LOCK_EX)
             total = self.reclaimed_total() + int(n)
             tmp = f"{self._counter_path()}.tmp.{os.getpid()}"
             with open(tmp, "w") as f:
                 f.write(str(total))
             os.replace(tmp, self._counter_path())
+        finally:
+            os.close(fd)                # closing releases the flock
 
     # -- observability ---------------------------------------------------
     def stats(self) -> Dict[str, int]:

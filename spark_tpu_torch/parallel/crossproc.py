@@ -919,19 +919,38 @@ def _shuffled_join_shards(session, join, key_pairs,
 
         # ONE coordination round covers both sides (the assignment must be
         # shared, or matching keys would land on different processes);
-        # its manifests carry each side's observed totals
+        # its manifests carry each side's observed totals and the
+        # decision trace of this process's replicated inputs
+        from ..analysis import runtime as _az
+        checks = _az.runtime_checks_enabled(session)
+        dt_in = decision_inputs(svc, "hash", tier=tier)
         svc.publish_sizes(f"{xid}-plan", sizes,
                           extra={"sides": side_obs,
-                                 "dtrace": {"c": decision_inputs(
-                                     svc, "hash", tier=tier)}})
+                                 "dtrace": {"h": _az.decision_trace(dt_in),
+                                            "c": dt_in}})
         totals, mans = svc.gather_sizes_ex(f"{xid}-plan", n_fine)
         decision = _adaptive_redecide(join, svc, xid, adaptive, "hash",
                                       mans)
+        n_live = len(svc.live_pids())
+        bt = adaptive.broadcast_threshold if adaptive is not None else 0
+        # the trace check runs BEFORE the demote branch: a DIVERGENT
+        # demotion must abort structured here, not deadlock its peers at
+        # the one-sided ``-bcast`` gather
+        if checks:
+            _trace_check(session, join, svc, f"{xid}-plan", mans, dt_in,
+                         {"frozen": "hash", "how": join.how,
+                          "adaptive": adaptive is not None,
+                          "broadcast_threshold": bt, "n_live": n_live,
+                          "decision": decision})
         if decision != "hash":
             left, right = _demote_locals_to_broadcast(
                 svc, xid, decision, [_host(p[0]) for p in pending])
             return left, right, decision
-        width = _elastic_width(svc, mans, target)
+        width = _elastic_width(svc, session, join, mans, target)
+        if checks:
+            _trace_check(session, join, svc, f"{xid}-plan", mans, dt_in,
+                         {"frozen": "hash", "n_live": n_live,
+                          "width": width, "target": target})
         bounds = svc.plan_reducers(totals, target, n_max=width)
         # device-tier activation per side, from the AGREED manifest totals
         # only; max_runs covers a spilled side, whose receiver range
@@ -1043,6 +1062,11 @@ def _shuffled_join_shards(session, join, key_pairs,
         finally:
             for s in sinks:
                 s.close()
+        if checks:
+            _az.verify_hash_copartition(join, key_pairs, bounds, n_fine,
+                                        svc.live_pids().index(svc.pid),
+                                        shards[0], shards[1])
+            _az.verify_unified_dictionaries(join, shards)
         return shards[0], shards[1], None
     finally:
         shutil.rmtree(sdir, ignore_errors=True)
@@ -1204,10 +1228,11 @@ def elastic_reducer_width(observed_bytes: Optional[int],
                       -(-int(observed_bytes) // int(target_bytes))))
 
 
-def _elastic_width(svc: HostShuffleService, mans: Dict[int, dict],
-                   target: int) -> int:
+def _elastic_width(svc: HostShuffleService, session, join,
+                   mans: Dict[int, dict], target: int) -> int:
     """The elastic reducer width of one exchange from its plan round's
-    side totals, accounted."""
+    side totals, accounted (and, with the runtime checks on, held to the
+    width the shared manifests imply)."""
     n_live = len(svc.live_pids())
     obs = observed_side_stats(mans, n_live)
     width = elastic_reducer_width(
@@ -1217,7 +1242,29 @@ def _elastic_width(svc: HostShuffleService, mans: Dict[int, dict],
     svc.bump("reducers_observed", width)
     if width != n_live:
         svc.bump("reducers_elastic")
+    from ..analysis import runtime as _az
+    if _az.runtime_checks_enabled(session):
+        _az.verify_elastic_reducer_plan(join, width, mans, n_live, target)
     return width
+
+
+def _trace_check(session, join, svc: HostShuffleService, exchange: str,
+                 mans: Dict[int, dict], dt_in: Dict[str, object],
+                 local: Dict[str, object]) -> None:
+    """``verify_decision_trace`` at a lane's plan round.  A divergence
+    is published for the statement's peers before it raises
+    (``HostShuffleService.publish_divergence``), so a peer waiting at
+    this exchange's next barrier ends in the same structured error
+    instead of its barrier deadline."""
+    from ..analysis import PlanInvariantError
+    from ..analysis import runtime as _az
+    svc.note_round(exchange, mans)
+    try:
+        _az.verify_decision_trace(session, join, svc, exchange, mans,
+                                  dt_in, local=local)
+    except PlanInvariantError as e:
+        svc.publish_divergence(exchange, e.property, e.detail)
+        raise
 
 
 def decision_inputs(svc: HostShuffleService, frozen: str, cuts=None,
@@ -1263,19 +1310,21 @@ def adaptive_join_decision(frozen: str, how: str, broadcast_threshold: int,
 class _AdaptiveCtx:
     """Per-query adaptive context threaded into the exchange lanes: the
     plan-time broadcast threshold (the demotion bar), the session's
-    ``StatsFeedback`` and both side signatures, and the equi-key
-    pairs."""
+    ``StatsFeedback`` and both side signatures, the equi-key pairs (for
+    the runtime decision check), and whether the analysis runtime checks
+    are on."""
 
     __slots__ = ("broadcast_threshold", "feedback", "left_sig",
-                 "right_sig", "key_pairs")
+                 "right_sig", "key_pairs", "checks")
 
     def __init__(self, broadcast_threshold, feedback, left_sig, right_sig,
-                 key_pairs):
+                 key_pairs, checks):
         self.broadcast_threshold = broadcast_threshold
         self.feedback = feedback
         self.left_sig = left_sig
         self.right_sig = right_sig
         self.key_pairs = key_pairs
+        self.checks = checks
 
 
 def _adaptive_redecide(join, svc: HostShuffleService, xid: str,
@@ -1289,6 +1338,15 @@ def _adaptive_redecide(join, svc: HostShuffleService, xid: str,
     n_live = len(svc.live_pids())
     observed = observed_side_stats(mans, n_live)
     if observed is None:
+        # lost stats round: the frozen strategy stands, and its legality
+        # is still held against a recompute from the same inputs
+        if adaptive.checks:
+            from ..analysis import runtime as _az
+            _az.verify_join_strategy(
+                join, frozen, frozen == "range", adaptive.key_pairs,
+                frozen=frozen, observed=None,
+                broadcast_threshold=adaptive.broadcast_threshold,
+                n_procs=n_live)
         return frozen
     svc.bump("adaptive_replans")
     if adaptive.feedback is not None:
@@ -1300,6 +1358,13 @@ def _adaptive_redecide(join, svc: HostShuffleService, xid: str,
                                      observed[3], xid)
     decision = adaptive_join_decision(
         frozen, join.how, adaptive.broadcast_threshold, n_live, observed)
+    if adaptive.checks:
+        from ..analysis import runtime as _az
+        _az.verify_join_strategy(
+            join, decision, frozen == "range", adaptive.key_pairs,
+            frozen=frozen, observed=observed,
+            broadcast_threshold=adaptive.broadcast_threshold,
+            n_procs=n_live)
     if decision != frozen:
         svc.bump("strategy_demotions")
     return decision
@@ -1500,18 +1565,25 @@ def _grace_join_bucket(session, join, svc: HostShuffleService, xid: str,
                                depth + 1, sb, outputs)
         return
     try:
+        from ..analysis import runtime as _az
         assembled: List[ColumnBatch] = []
         for i, meta in enumerate((lmeta, rmeta)):
-            _source, _exprs, finisher, dead = grace_sides[i]
+            _source, _exprs, _finisher, dead = grace_sides[i]
             if meta is None or not meta[2]:
                 side_b = _one_dead_row(dead)
             else:
                 side_b = _timed_merge(lambda m=meta: _concat(
                     svc.unify_code_space(_read_run_file(
                         m[0], keep_runs=svc.run_codes))))
-            if finisher is not None:
-                side_b = finisher(side_b)
             assembled.append(side_b)
+        if _az.runtime_checks_enabled(session):
+            _az.verify_grace_bucket_partition(
+                join, grace_sides[0][1], grace_sides[1][1], n_buckets,
+                depth, bucket, assembled[0], assembled[1])
+        for i in range(2):
+            finisher = grace_sides[i][2]
+            if finisher is not None:
+                assembled[i] = finisher(assembled[i])
         joined = _run_local(session, L.Join(
             _leaf_relation(session, assembled[0]),
             _leaf_relation(session, assembled[1]),
@@ -1711,6 +1783,10 @@ def _range_merge_join_shards(session, join, spec,
     svc.last_range_cutpoints = [str(c) for c in cuts] if is_str \
         else [int(c) for c in cuts]
     n_spans = len(cuts) + 1
+    from ..analysis import runtime as _az
+    checks = _az.runtime_checks_enabled(session)
+    if checks:
+        _az.verify_range_cutpoints(join, list(cuts), is_str)
 
     # 3. span bucketing on the card with the (null_flag, key) tie sort;
     # a string side maps the shared cut WORDS into its local code space
@@ -1756,15 +1832,31 @@ def _range_merge_join_shards(session, join, spec,
                                 cuts=svc.last_range_cutpoints,
                                 est_splits=est_split, tier=tier)
         svc.publish_sizes(f"{xid}-plan", sizes,
-                          extra={"sides": side_obs, "dtrace": {"c": dt_in}})
+                          extra={"sides": side_obs,
+                                 "dtrace": {"h": _az.decision_trace(dt_in),
+                                            "c": dt_in}})
         totals, mans = svc.gather_sizes_ex(f"{xid}-plan", 2 * n_spans)
         decision = _adaptive_redecide(join, svc, xid, adaptive, "range",
                                       mans)
+        n_live = len(svc.live_pids())
+        bt = adaptive.broadcast_threshold if adaptive is not None else 0
+        # trace check BEFORE the demote branch: a divergent demotion
+        # aborts structured instead of deadlocking the ``-bcast`` gather
+        if checks:
+            _trace_check(session, join, svc, f"{xid}-plan", mans, dt_in,
+                         {"frozen": "range", "how": join.how,
+                          "adaptive": adaptive is not None,
+                          "broadcast_threshold": bt, "n_live": n_live,
+                          "decision": decision})
         if decision != "range":
             left, right = _demote_to_broadcast(
                 svc, xid, decision, staged_sides, ("rL", "rR"))
             return left, right, decision
-        width = _elastic_width(svc, mans, target)
+        width = _elastic_width(svc, session, join, mans, target)
+        if checks:
+            _trace_check(session, join, svc, f"{xid}-plan", mans, dt_in,
+                         {"frozen": "range", "n_live": n_live,
+                          "width": width, "target": target})
         owners = svc.plan_range_reducers(totals[:n_spans],
                                          totals[n_spans:], target,
                                          n_max=width)
@@ -1773,6 +1865,9 @@ def _range_merge_join_shards(session, join, spec,
             svc.bump("post_sample_skew_splits", sum(
                 1 for p in range(n_spans)
                 if len(owners[p]) > 1 and p not in est_split))
+        if checks:
+            _az.verify_span_owners(join, owners, n_spans, svc.n)
+            _az.verify_skew_split(join, owners)
         # device-tier activation per side (agreed inputs only); every span
         # is a presorted run and ships as one, so a receiver gets at most
         # one run per span
@@ -1907,6 +2002,11 @@ def _range_merge_join_shards(session, join, spec,
                 if build_runs else _one_dead_row(staged_sides[1].dead)
             return probe, build
         probe_shard, build_shard = _timed_merge(merge)
+        if checks:
+            _az.verify_presorted_build(join, build_shard, r_expr,
+                                       r_as_float)
+            _az.verify_unified_dictionaries(join, (probe_shard,
+                                                   build_shard))
         return probe_shard, build_shard, None
     finally:
         shutil.rmtree(sdir, ignore_errors=True)
@@ -1962,12 +2062,12 @@ reset_recovery_stats()
 
 
 def _recover_epoch(svc: HostShuffleService, xid: str, epoch: int,
-                   err: ExchangeFetchFailed) -> None:
+                   err: ExchangeFetchFailed, checks: bool = False) -> None:
     """One agreed recovery step after a lost exchange: map the failure's
     lost hosts (and locally blacklisted peers) to pids, run the
-    ``{xid}-recover`` agreement round, and drop every host reservation
-    the dead epoch staged so the re-execution starts from a clean
-    ledger."""
+    ``{xid}-recover`` agreement round, verify the agreement (with the
+    runtime checks on), and drop every host reservation the dead epoch
+    staged so the re-execution starts from a clean ledger."""
     lost_now = set()
     world = {svc.host_name(p) for p in range(svc.n)}
     for p in range(svc.n):
@@ -1985,9 +2085,14 @@ def _recover_epoch(svc: HostShuffleService, xid: str, epoch: int,
             svc._foreign_seen |= fresh
             svc.counters["foreign_hosts_ignored"] += len(fresh)
     svc.recover_round(xid, epoch, lost_now)
+    from ..analysis import runtime as _az
+    if checks:
+        _az.verify_recovery_agreement(svc, xid, epoch)
     # the aborted epoch's reservations (map staging, fetch sinks) must
     # not shrink the re-execution's budget: released now, not at exit
     svc.ledger.release_prefix(f"shuffle:{xid}")
+    if checks:
+        _az.verify_epoch_released(svc.ledger, xid)
     # survivors never delete a dead peer's registered blocks: they expire
     # its LEASE (safe after agreement) and the reaper's clock runs
     if svc.blockclient is not None:
@@ -2073,16 +2178,24 @@ def crossproc_execute(session, optimized, svc: HostShuffleService
     seq = getattr(session, "_crossproc_seq", 0) + 1
     session._crossproc_seq = seq
     xid = f"xq{seq:06d}"
-    svc.begin_statement()
+    from ..analysis import runtime as _az
+    checks = _az.runtime_checks_enabled(session)
+    svc.begin_statement(xid if checks else None)
     budget = svc.max_stage_retries
     plan = optimized
     epoch = 0
     try:
         while True:
             run_xid = xid if epoch == 0 else f"{xid}e{epoch}"
+            pre_owners = set(svc.ledger.owners()) if checks else set()
             t0 = time.perf_counter()
             try:
                 out = _crossproc_execute(session, plan, svc, run_xid)
+                if checks:
+                    # on success only (the finally below releases either
+                    # way): every reservation the exchanges staged sits
+                    # under the shuffle:<xid> scope
+                    _az.verify_ledger_scope(svc.ledger, pre_owners, xid)
                 if epoch:
                     RECOVERY_STATS["rerun_ms"] += \
                         (time.perf_counter() - t0) * 1e3
@@ -2096,7 +2209,7 @@ def crossproc_execute(session, optimized, svc: HostShuffleService
                 epoch += 1
                 # agreement and adoption raise non-recoverable errors of
                 # their own: recovery never retries itself
-                _recover_epoch(svc, xid, epoch, err)
+                _recover_epoch(svc, xid, epoch, err, checks)
                 t2 = time.perf_counter()
                 plan = _adopt_lost_leaves(session, optimized, svc)
                 RECOVERY_STATS["round_ms"] += (t2 - t1) * 1e3
@@ -2267,11 +2380,16 @@ def _crossproc_execute(session, optimized, svc: HostShuffleService,
             feedback=feedback, left_sig=l_sig, right_sig=r_sig)
         if adaptive_on:
             svc.bump("stats_feedback_hits", feedback.hits - hits0)
+        from ..analysis import runtime as _az
+        checks = _az.runtime_checks_enabled(session)
+        if checks:
+            _az.verify_join_strategy(join, strategy,
+                                     range_spec is not None, key_pairs)
         if strategy == "gather":
             strategy = None
         if adaptive_on and strategy in ("hash", "range"):
             actx = _AdaptiveCtx(bcast_threshold, feedback, l_sig, r_sig,
-                                key_pairs)
+                                key_pairs, checks)
 
     if fast:
         svc.bump("fast_path_aggs")

@@ -49,10 +49,17 @@ side; rules fire when a matching block or marker is published:
                 entry read as uncommitted and the batch replays.
 - ``die_after_state_commit``  the PROCESS exits hard between a
                 micro-batch's state commit and its sink write.
+- ``skew_decision``  THIS process's gathered view of a stats round
+                (``gather_sizes_ex``) has one side's observed totals
+                replaced by ``[1, 1]`` per sender; the manifests on disk
+                stay byte-identical for every peer, so the armed process
+                alone re-derives its adaptive decision from divergent
+                inputs (the replica-determinism fault the decision-trace
+                check of ``analysis.runtime`` exists for).
 
-The JAX package's other kinds fire on modules the port does not have
-yet; a plan naming one raises, naming the slice that brings it, rather
-than silently arming nothing (``WAITING_KINDS``).
+Every kind of the JAX package is ported: ``WAITING_KINDS`` (kinds whose
+fault point is in a module still to port, which raise when a plan names
+them rather than silently arming nothing) is empty.
 
 Rules are matched by (exchange, receiver) for this service's own writes;
 healing runs on daemon timers.  ``FaultPlan`` carries rules across a
@@ -75,13 +82,11 @@ _KINDS = ("drop", "truncate", "corrupt", "delay", "skip_commit",
           "die_after_put", "die_after_manifest", "disk_full",
           "die_during_register", "blockserver_unavailable",
           "spawn_exec_error", "ici_unavailable", "die_mid_device_copy",
-          "torn_checkpoint", "die_after_state_commit")
+          "torn_checkpoint", "die_after_state_commit", "skew_decision")
 
 #: the JAX package's kinds whose fault points are in modules still to
-#: port, by the ROADMAP item that brings them
-WAITING_KINDS = {
-    "skew_decision": "item 11's runtime verifiers (analysis/)",
-}
+#: port, by the ROADMAP item that brings them (none are left)
+WAITING_KINDS: Dict[str, str] = {}
 
 _BLOCK_KINDS = ("drop", "truncate", "corrupt", "delay")
 
@@ -105,7 +110,8 @@ class _Rule:
         self.heal_after_s = heal_after_s
         self.keep_bytes = keep_bytes
         self.after_bytes = after_bytes    # disk_full: bytes before ENOSPC
-        self.side = side                  # die_during_register: pre/post
+        # die_during_register: pre/post; skew_decision: the side "l"/"r"
+        self.side = side
         self.fired = 0
 
     def matches(self, exchange: str, receiver: Optional[int]) -> bool:
@@ -235,6 +241,14 @@ class FaultPlan:
         return self._add("die_after_state_commit", None, None, once=True,
                          after_bytes=after_entries)
 
+    def skew_decision(self, exchange: Optional[str] = None,
+                      side: str = "r", once: bool = True) -> "FaultPlan":
+        """Perturb one side's observed totals in THIS process's gathered
+        stats round — an in-memory, asymmetric fault: the manifests on
+        disk stay byte-identical for every peer, so the armed process
+        alone re-derives its adaptive decision from divergent inputs."""
+        return self._add("skew_decision", exchange, None, once, side=side)
+
     def spawn_exec_error(self, after_spawns: int = 0,
                          once: bool = False) -> "FaultPlan":
         """The pool supervisor's exec seam fails with ``OSError`` once
@@ -316,6 +330,7 @@ class FaultInjector:
         orig_put, orig_commit = svc.put, svc.commit
         orig_publish = getattr(svc, "publish_manifest", None)
         orig_spill = getattr(svc, "spill_write", None)
+        orig_gather_ex = getattr(svc, "gather_sizes_ex", None)
         rules = self.plan.rules
         spilled_total = [0]
 
@@ -379,9 +394,28 @@ class FaultInjector:
             for rule in rules:
                 if rule.kind in _BLOCK_KINDS and rule.exchange is not None \
                         and rule.matches(exchange, None):
-                    self._apply(rule, path, f"{exchange}/s{svc.pid}.done")
+                    self._apply(rule, path,
+                                f"{exchange}/{os.path.basename(path)}")
             die_after_manifest(exchange)
             return n
+
+        def gather_sizes_ex(exchange, n_partitions):
+            totals, mans = orig_gather_ex(exchange, n_partitions)
+            # the RETURNED view only: the round's files are untouched, so
+            # every peer (and any re-read of the disk bytes) still sees
+            # the true totals
+            for rule in rules:
+                if rule.kind == "skew_decision" \
+                        and rule.matches(exchange, None):
+                    rule.fired += 1
+                    self.injected.append(
+                        f"skew_decision:{exchange}:{rule.side}")
+                    for man in mans.values():
+                        sides = man.get("sides") \
+                            if isinstance(man, dict) else None
+                        if isinstance(sides, dict) and rule.side in sides:
+                            sides[rule.side] = [1, 1]
+            return totals, mans
 
         def ici_fault(exchange, point):
             # consulted by ici.device_publish at its fault points:
@@ -409,6 +443,8 @@ class FaultInjector:
             svc.publish_manifest = publish_manifest
         if orig_spill is not None:
             svc.spill_write = spill_write
+        if orig_gather_ex is not None:
+            svc.gather_sizes_ex = gather_sizes_ex
 
         # -- block-service faults (blockserver.py) ----------------------
         client = getattr(svc, "blockclient", None)

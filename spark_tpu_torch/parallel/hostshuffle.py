@@ -224,40 +224,66 @@ class FetchSink:
                 pass
 
     def add(self, sender: int, batches: Sequence[ColumnBatch]) -> None:
+        """Deliver ``sender``'s batches: each one reserved in RAM, or —
+        over the spill threshold or without ledger room — framed onto the
+        sender's run file.  A failed add (a spill write that fails) keeps
+        nothing: the reservations it made and its run file go with it."""
         from ..memory import HostMemoryError
         ledger = self.svc.ledger
-        with self._lock:
-            self._evict_sender(sender)
-            entries: list = []
-            path: Optional[str] = None
-            end = 0
-            for b in batches:
-                nb = wire.raw_nbytes([b])
-                force = 0 < self.spill_threshold <= nb
-                if not force and ledger.try_reserve(self.owner, nb):
-                    entries.append(("mem", b, nb))
-                    continue
-                # over the threshold or no ledger room: a run-file frame
-                # (inline dictionaries: fetched batches resolved theirs)
-                buf = wire.encode_batches(
-                    [b], codec=self.svc.wire_codec,
-                    compress_threshold=self.svc.wire_threshold,
-                    run_codes=self.svc.run_codes
-                    and self.exchange not in self.svc._raw_exchanges)
-                if path is None:
-                    path = self._run_path(sender)
+        stale: Optional[str] = None      # a failed add's run file
+        try:
+            with self._lock:
+                self._evict_sender(sender)
+                entries: list = []
+                path: Optional[str] = None
+                end = 0
+                done = False
                 try:
-                    self.svc.spill_write(path, buf, append=end > 0,
-                                         exchange=self.exchange)
-                except OSError as e:
-                    raise HostMemoryError(
-                        self.owner, nb, ledger.budget,
-                        holders={self.owner: ledger.held(self.owner)},
-                        exchange=self.exchange,
-                        detail=f"spill failed: {e}")
-                entries.append(("disk", end, len(buf), nb))
-                end += len(buf)
-            self._senders[sender] = (entries, path, end)
+                    for b in batches:
+                        nb = wire.raw_nbytes([b])
+                        force = 0 < self.spill_threshold <= nb
+                        if not force and ledger.try_reserve(self.owner, nb):
+                            entries.append(("mem", b, nb))
+                            continue
+                        # over the threshold or no ledger room: a
+                        # run-file frame (inline dictionaries: fetched
+                        # batches resolved theirs)
+                        buf = wire.encode_batches(
+                            [b], codec=self.svc.wire_codec,
+                            compress_threshold=self.svc.wire_threshold,
+                            run_codes=self.svc.run_codes
+                            and self.exchange not in self.svc._raw_exchanges)
+                        if path is None:
+                            path = self._run_path(sender)
+                        try:
+                            self.svc.spill_write(path, buf, append=end > 0,
+                                                 exchange=self.exchange)
+                        except OSError as e:
+                            raise HostMemoryError(
+                                self.owner, nb, ledger.budget,
+                                holders={self.owner:
+                                         ledger.held(self.owner)},
+                                exchange=self.exchange,
+                                detail=f"spill failed: {e}")
+                        entries.append(("disk", end, len(buf), nb))
+                        end += len(buf)
+                    done = True
+                finally:
+                    if done:
+                        self._senders[sender] = (entries, path, end)
+                    else:
+                        # a failed add keeps nothing: its reservations go
+                        # now, its part-written run file below
+                        held = sum(e[2] for e in entries if e[0] == "mem")
+                        if held:
+                            ledger.release(self.owner, held)
+                        stale = path
+        finally:
+            if stale is not None:
+                try:
+                    os.remove(stale)
+                except OSError:
+                    pass
 
     @staticmethod
     def _read_span(path: str, start: int, length: int) -> bytes:
@@ -280,30 +306,37 @@ class FetchSink:
             return []
         out: List[ColumnBatch] = []
         drained = 0                  # hard bytes reserved by THIS drain
+        done = False
         with self._lock:
-            for sender in sorted(self._senders):
-                entries, path, _end = self._senders[sender]
-                for entry in entries:
-                    if entry[0] == "mem":
-                        out.append(entry[1])
-                        continue
-                    _kind, start, length, raw = entry
-                    try:
-                        self.svc.ledger.reserve(self.owner, raw,
-                                                exchange=self.exchange)
-                    except HostMemoryError as e:
-                        if drained:
-                            self.svc.ledger.release(self.owner, drained)
-                        raise HostMemoryPressure(
-                            self.owner, int(raw), self.svc.ledger.budget,
-                            holders=e.holders, exchange=self.exchange,
-                            detail="drained shard exceeds the host "
-                                   "budget; sink entries intact for a "
-                                   "grace pass")
-                    drained += int(raw)
-                    out.extend(wire.decode_frames(
-                        self._read_span(path, start, length),
-                        keep_runs=self.svc.run_codes))
+            try:
+                for sender in sorted(self._senders):
+                    entries, path, _end = self._senders[sender]
+                    for entry in entries:
+                        if entry[0] == "mem":
+                            out.append(entry[1])
+                            continue
+                        _kind, start, length, raw = entry
+                        try:
+                            self.svc.ledger.reserve(self.owner, raw,
+                                                    exchange=self.exchange)
+                        except HostMemoryError as e:
+                            raise HostMemoryPressure(
+                                self.owner, int(raw),
+                                self.svc.ledger.budget, holders=e.holders,
+                                exchange=self.exchange,
+                                detail="drained shard exceeds the host "
+                                       "budget; sink entries intact for "
+                                       "a grace pass")
+                        drained += int(raw)
+                        out.extend(wire.decode_frames(
+                            self._read_span(path, start, length),
+                            keep_runs=self.svc.run_codes))
+                done = True
+            finally:
+                if not done and drained:
+                    # a failed drain (over budget, a short read, a bad
+                    # frame) gives back what it reserved, entries intact
+                    self.svc.ledger.release(self.owner, drained)
         return out
 
     def pop_entries(self):
@@ -590,6 +623,17 @@ class HostShuffleService:
         #: lost pid → adopting live pid, derived from ``recovered_pids``
         #: after each agreed round
         self.recovery_adopt: Dict[int, int] = {}
+        #: the running statement's exchange-id root (``begin_statement``,
+        #: set only with the runtime checks on): a peer's divergence
+        #: notice for it ends this process's barrier waits
+        #: (``publish_divergence``)
+        self.statement_xid: Optional[str] = None
+        #: (plan-round exchange, sender) → the ``ts`` stamp of the marker
+        #: this process gathered from that sender in the running
+        #: statement (``note_round``): a notice counts only when its stamp
+        #: is one of these, so a notice an earlier run left under reused
+        #: ids is ignored
+        self._round_stamps: Dict[Tuple[str, int], object] = {}
         self._lock = threading.Lock()
         if ledger is None:
             from ..memory import HostMemoryLedger
@@ -1217,6 +1261,7 @@ class HostShuffleService:
                         if self.host_name(s) in dead:
                             self._blacklist_peer(
                                 s, f"heartbeat-dead during {exchange!r}")
+                self._raise_if_diverged(exchange, waiting)
                 if self._clock() >= deadline:
                     raise TimeoutError(
                         f"host shuffle {exchange!r}: senders {waiting} "
@@ -1224,8 +1269,13 @@ class HostShuffleService:
                         "aborting step")
                 self._sleep(self.poll_s)
         finally:
-            with self._lock:
-                self.timers["barrier_s"] += time.perf_counter() - t0
+            self._time_since("barrier_s", t0)
+
+    def _time_since(self, timer: str, t0: float) -> None:
+        """Add the seconds since ``t0`` to ``timers[timer]`` (a timer
+        only: no decision reads it)."""
+        with self._lock:
+            self.timers[timer] += time.perf_counter() - t0
 
     def _blacklist_peer(self, pid: int, reason: str) -> None:
         with self._lock:
@@ -1235,13 +1285,81 @@ class HostShuffleService:
             self.counters["peers_blacklisted"] += 1
 
     # -- lineage recovery ------------------------------------------------
-    def begin_statement(self) -> None:
-        """Reset the per-statement recovery state.  ``recovered_pids`` and
-        ``epoch`` survive: an agreed-dead peer stays dead for every later
-        statement of the session."""
+    def begin_statement(self, xid: Optional[str] = None) -> None:
+        """Reset the per-statement recovery state and name the
+        statement's exchange-id root.  ``recovered_pids`` and ``epoch``
+        survive: an agreed-dead peer stays dead for every later statement
+        of the session.  ``xid`` (given only with the runtime checks on)
+        arms the divergence notices; this process's own notice from an
+        earlier run under the same id is removed."""
         self.leaf_recipes = {}
         self.last_leaf_flags = None
         self.recovery_adopt = {}
+        self.statement_xid = xid
+        self._round_stamps = {}
+        if xid is not None:
+            try:
+                os.remove(self._divergence_path(xid, self.pid))
+            except FileNotFoundError:
+                pass
+
+    # -- divergence notices ----------------------------------------------
+    def _divergence_path(self, xid: str, pid: int) -> str:
+        return os.path.join(self.root, "_diverged", f"{xid}-p{pid}.json")
+
+    def note_round(self, exchange: str, mans: Dict[int, dict]) -> None:
+        """Keep the marker stamps of a plan round this process gathered
+        in the running statement: what ``_raise_if_diverged`` holds a
+        peer's notice against."""
+        with self._lock:
+            for s, man in mans.items():
+                self._round_stamps[(exchange, s)] = man.get("ts")
+
+    def publish_divergence(self, exchange: str, prop: str,
+                           detail: str) -> None:
+        """Tell the statement's peers that THIS process's replicated
+        decisions diverged at the plan round ``exchange`` (the
+        decision-trace check raised): a peer waiting at one of the
+        statement's later barriers for this process's commit raises the
+        same structured error instead of timing out.  The notice carries
+        the stamp of this process's own marker of that round, which every
+        peer past the round gathered.  Written atomically; no-op outside
+        a checked statement."""
+        if self.statement_xid is None:
+            return
+        path = self._divergence_path(self.statement_xid, self.pid)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump({"pid": self.pid, "exchange": exchange,
+                       "stamp": self._round_stamps.get((exchange, self.pid)),
+                       "property": prop, "detail": detail}, f)
+        os.replace(tmp, path)
+
+    def _raise_if_diverged(self, exchange: str,
+                           waiting: Sequence[int]) -> None:
+        """Raise the structured error a waited-for peer published for
+        this statement (``publish_divergence``)."""
+        if self.statement_xid is None:
+            return
+        for s in waiting:
+            path = self._divergence_path(self.statement_xid, s)
+            if not os.path.exists(path):
+                continue
+            try:
+                with open(path) as f:
+                    note = json.load(f)
+            except (OSError, ValueError):
+                continue            # mid-replace: the next poll reads it
+            stamp = note.get("stamp")
+            if stamp is None or self._round_stamps.get(
+                    (note.get("exchange"), s)) != stamp:
+                continue            # an earlier run's notice
+            from ..analysis import PlanInvariantError
+            raise PlanInvariantError(
+                exchange, note.get("property", "decision-trace-agreement"),
+                f"process {s} aborted at {note.get('exchange')!r}, so "
+                f"{exchange!r} cannot complete: {note.get('detail', '')}")
 
     def live_pids(self) -> List[int]:
         """The process ids every planning decision runs over: all but the

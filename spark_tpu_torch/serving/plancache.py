@@ -73,7 +73,8 @@ from .. import config as C
 from .. import expressions as E
 from .. import types as T
 
-__all__ = ["PLANNING_CONF_ENTRIES", "PLANNING_CONF_KEYS", "PlanCache",
+__all__ = ["PLANNING_CONF_ENTRIES", "EXCHANGE_CONF_ENTRIES",
+           "PLANNING_CONF_KEYS", "PlanCache",
            "PlanFingerprint", "fingerprint"]
 
 
@@ -114,7 +115,29 @@ PLANNING_CONF_ENTRIES = (
     C.STAGE_FUSION,
 )
 
-PLANNING_CONF_KEYS = frozenset(e.key for e in PLANNING_CONF_ENTRIES)
+#: the cross-process exchange's shaping confs: fine-partition count,
+#: reducer coalescing target and range-sample density move work between
+#: processes; dedupReplicated changes the gather plan; adaptive replanning
+#: and the broadcast bar change which lane a join takes; the device tier's
+#: switch, byte floor and domain override, and run codes on the wire,
+#: change how blocks travel.  They are planning confs (a SET evicts plans
+#: built under the old value, as in the reference) but shape no single
+#: process's stage, so the stage key leaves them out
+#: (``stagecompile._conf_component``): toggling the tier between runs
+#: replays the same graphs.
+EXCHANGE_CONF_ENTRIES = (
+    C.CROSSPROC_AUTO_BROADCAST, C.CROSSPROC_SHUFFLED_JOIN,
+    C.CROSSPROC_SORT_MERGE_JOIN, C.SHUFFLE_FINE_PARTITIONS,
+    C.SHUFFLE_TARGET_PARTITION_BYTES, C.SHUFFLE_RANGE_SAMPLE_SIZE,
+    C.CROSSPROC_DEDUP_REPLICATED, C.CROSSPROC_ADAPTIVE_REPLAN,
+    C.SHUFFLE_ICI_ENABLED, C.SHUFFLE_ICI_MIN_BYTES,
+    C.SHUFFLE_ICI_TIER_OVERRIDE, C.SHUFFLE_WIRE_RUN_CODES,
+)
+
+#: everything a plan fingerprint signs and an entry's snapshot records
+FINGERPRINT_CONF_ENTRIES = PLANNING_CONF_ENTRIES + EXCHANGE_CONF_ENTRIES
+
+PLANNING_CONF_KEYS = frozenset(e.key for e in FINGERPRINT_CONF_ENTRIES)
 
 # identity of callables in plan fields (UDF bodies): a never-reused
 # number per function object, so address recycling cannot alias two
@@ -228,7 +251,7 @@ def fingerprint(session, plan) -> Optional[PlanFingerprint]:
     except (_Unfingerprintable, RecursionError):
         return None
     conf = ";".join(f"{e.key}={session.conf.get(e)!r}"
-                    for e in PLANNING_CONF_ENTRIES)
+                    for e in FINGERPRINT_CONF_ENTRIES)
     return PlanFingerprint(f"{body}|{conf};device={session.device}", slots)
 
 
@@ -557,7 +580,7 @@ class PlanCache:
         paths = [os.path.abspath(p) for rel in _file_relations(qe.optimized)
                  for p in rel.paths]
         conf_snapshot = {e.key: session.conf.get(e)
-                         for e in PLANNING_CONF_ENTRIES}
+                         for e in FINGERPRINT_CONF_ENTRIES}
         planning_ms = round(max(sc.stats()["compile_ms"] - ms0, 0.0), 1)
         entry = _StageEntry(key, kind, paths, conf_snapshot, planning_ms)
         max_entries = int(self._conf.get(C.SERVER_PLAN_CACHE_MAX_ENTRIES))
@@ -631,7 +654,7 @@ class PlanCache:
                 self.uncacheable += 1
             return None
         conf_snapshot = {e.key: qe.session.conf.get(e)
-                         for e in PLANNING_CONF_ENTRIES}
+                         for e in FINGERPRINT_CONF_ENTRIES}
         return _Entry(fp.key, pq, body, pslots, skey,
                       stage_maker(pq, pslots, qe.session.device, skey),
                       count_ops(pq.physical), param_src,

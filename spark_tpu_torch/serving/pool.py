@@ -539,7 +539,8 @@ class WorkerPoolSupervisor:
                 rec = _read_json(result_path)
                 if rec is not None:
                     if rec.get("ok"):
-                        self.counters["pool_statements_served"] += 1
+                        with self._lock:
+                            self.counters["pool_statements_served"] += 1
                         return rec["result"]
                     self._fallback(f"worker error: {rec.get('error')}")
                     return None
@@ -566,8 +567,9 @@ class WorkerPoolSupervisor:
     def _fallback(self, why: str) -> None:
         """Count a statement the pool hands back to the server, and keep
         why (``stats()["lastFallback"]``)."""
-        self.counters["offload_fallbacks"] += 1
-        self.last_fallback = why[:2000]
+        with self._lock:
+            self.counters["offload_fallbacks"] += 1
+            self.last_fallback = why[:2000]
 
     def stats(self) -> Dict[str, Any]:
         self._collect_ready()

@@ -835,13 +835,14 @@ _FLIP = {"==": "==", "<": ">", "<=": ">=", ">": "<", ">=": "<="}
 
 
 def push_scan_filters(node: LogicalPlan) -> LogicalPlan:
-    """A Filter directly over a parquet FileRelation: its ``col op
+    """A Filter directly over a parquet or jdbc FileRelation: its ``col op
     literal`` conjuncts on integer and string columns become ADVISORY
-    row-group skip predicates (``ParquetFilters.scala`` role).  The exact
-    Filter stays in the plan, so pushdown only drops rows that provably
-    cannot match."""
+    predicates — row-group skipping by footer statistics for parquet
+    (``ParquetFilters.scala`` role), WHERE conjuncts for jdbc
+    (``JDBCRDD.compileFilter`` role).  The exact Filter stays in the
+    plan, so pushdown only drops rows that provably cannot match."""
     if not (isinstance(node, Filter) and isinstance(node.child, FileRelation)
-            and node.child.fmt == "parquet"
+            and node.child.fmt in ("parquet", "jdbc")
             and node.child.pushed_filters is None):
         return node
     rel = node.child

@@ -644,17 +644,20 @@ class QueryExecution:
             return None
 
     def _execute_inner(self) -> ColumnBatch:
-        # Left out here, each with the slice that brings it:
-        # * the plan-analysis verifiers (maybe_verify_*): the analysis
-        #   slice;
-        # * the mesh lane under graphs: the mesh lane below stays eager.
-        # The cross-process exchange (``crossproc_execute``) runs the host
-        # shuffle's lanes, recovering a lost peer in epochs up to
-        # spark.tpu.recovery.maxStageRetries; exchanges stay on the host
-        # tier or, with spark.tpu.shuffle.ici.enabled, between processes on
-        # one card through the device tier.
+        # The optimized plan is verified first (analysis.maybe_verify_plan,
+        # on under pytest or with spark.tpu.analysis.verifyPlans=on), its
+        # physical plan per attempt (_run_planned) and each stage's cut
+        # contract where the stage cache builds it.  The mesh lane below
+        # stays eager (no graphs).  The cross-process exchange
+        # (``crossproc_execute``) runs the host shuffle's lanes, recovering
+        # a lost peer in epochs up to spark.tpu.recovery.maxStageRetries;
+        # exchanges stay on the host tier or, with
+        # spark.tpu.shuffle.ici.enabled, between processes on one card
+        # through the device tier.
         session = self.session
         session.raise_if_cancelled()      # checkpoint: before planning
+        from ..analysis import maybe_verify_plan
+        maybe_verify_plan(session, self.optimized)
         svc = session._crossproc_svc
         if svc is not None:
             # a registered host shuffle makes the exchange a planner
@@ -768,7 +771,10 @@ class QueryExecution:
         ``HBMOutOfMemoryError`` naming itself instead of dying inside the
         allocator.  The reservation counts the TRUE static output buffers
         of capacity-growing operators (join/cross/union buffers) on top
-        of the leaf working set."""
+        of the leaf working set.  The physical plan is verified first
+        (``analysis.maybe_verify_physical``)."""
+        from ..analysis import maybe_verify_physical
+        maybe_verify_physical(self.session, pq)
         mem = self.session._memory
         owner = f"query:{id(self)}"
         mem.acquire_execution(owner, _plan_reserve_bytes(pq))

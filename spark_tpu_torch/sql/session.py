@@ -302,6 +302,15 @@ class Builder:
     def getOrCreate(self) -> "SparkSession":
         opts = dict(self._options)
         if SparkSession._active is None:
+            # --conf pairs handed down by ``cli launch`` ride the
+            # environment (the launcher builds no session itself); they
+            # SEED the session only — re-applying them on later
+            # getOrCreate() calls would revert runtime conf.set overrides
+            launch_conf = os.environ.get("SPARK_TPU_LAUNCH_CONF")
+            if launch_conf:
+                for pair in launch_conf.split("\x1f"):
+                    k, _, v = pair.partition("=")
+                    opts.setdefault(k, v)
             SparkSession._active = SparkSession(C.Conf(opts))
         else:
             for k, v in opts.items():
@@ -343,6 +352,10 @@ class SparkSession:
                                      (stage_cache(), self._cache)))
         self._query_count = 0
         self._cancel_requested = False
+        # plan verifications and decision-trace checks (analysis/), the
+        # ``analysis`` metrics source
+        self._analysis_stats: Dict[str, Any] = {
+            "plans_verified": 0, "plan_verify_ms": 0.0}
         # the serving plan cache (serving/plancache.py), attached by the
         # SQL server to every session it serves; None elsewhere
         self._plan_cache = None

@@ -194,7 +194,9 @@ def stage_fingerprint(physical) -> Tuple[str, List]:
 def _conf_component(session) -> str:
     """Planning-conf values, and the device with the grouped-aggregate
     form it selects: sessions that differ in them must not share an
-    entry."""
+    entry.  The cross-process exchange's confs
+    (``plancache.EXCHANGE_CONF_ENTRIES``) shape no stage and are left
+    out."""
     if session is None:
         return ""
     from ..kernels import _mxu_agg_on
@@ -533,7 +535,10 @@ class StageCache:
     def get_or_build(self, key: str, make_fn: Callable[[], Tuple],
                      n_ops: int = 1, session=None) -> _CachedStage:
         """``make_fn`` returns ``(step, aux)`` — the stage step and any
-        entry-owned metadata; built once per key."""
+        entry-owned metadata; built once per key.  An ``aux`` that is the
+        stage's ``Stage`` record has its cut contract verified for
+        ``session`` before the entry exists
+        (``analysis.maybe_verify_stage_contract``)."""
         if session is not None:
             self.max_entries = int(
                 session.conf.get(C.STAGE_CACHE_MAX_ENTRIES))
@@ -556,6 +561,9 @@ class StageCache:
                     entry.last_used = tick()
                     return entry
             fn, aux = make_fn()
+            if session is not None and isinstance(aux, Stage):
+                from ..analysis import maybe_verify_stage_contract
+                maybe_verify_stage_contract(session, aux)
             entry = _CachedStage(key, fn, aux, n_ops)
             with self._lock:
                 self.misses += 1
@@ -807,6 +815,7 @@ def plan_leaves(session, leaves, device=None):
                             unmaterialized_runs)
     on = session is not None and session.conf.get(C.STAGE_RUN_PLANES)
     dev = torch.device(device) if device is not None else torch.device("cpu")
+    checks = None  # resolved lazily, only if a plane candidate shows up
     out, any_planes = [], False
     for b in leaves:
         vecs = None
@@ -820,6 +829,12 @@ def plan_leaves(session, leaves, device=None):
                     and rv.capacity == b.capacity:
                 plane_cap = pad_capacity(len(rv.run_values))
                 if plane_cap * 2 <= b.capacity:
+                    if checks is None:
+                        from ..analysis import runtime_checks_enabled
+                        checks = runtime_checks_enabled(session)
+                    if checks:
+                        from ..analysis.runtime import verify_run_plane
+                        verify_run_plane(rv, b.capacity)
                     vecs[i] = PlaneColumnVector.from_runs(rv, plane_cap)
                     bump_plane_rows(b.capacity)
                     any_planes = True

@@ -694,7 +694,8 @@ class AggregationState:
         buf = pickle.dumps(_host_payload(self.state),
                            protocol=pickle.HIGHEST_PROTOCOL)
         crc = zlib.adler32(buf) & 0xFFFFFFFF
-        dest = os.path.join(path, f"{batch_id}.snapshot")
+        from .state import snapshot_file
+        dest = snapshot_file(path, batch_id)
         tmp = f"{dest}.{os.getpid()}.tmp"
         with open(tmp, "wb") as f:
             f.write(buf)
@@ -706,7 +707,8 @@ class AggregationState:
 
     def restore(self, path: str, batch_id: int,
                 expected_crc: Optional[int] = None) -> bool:
-        p = os.path.join(path, f"{batch_id}.snapshot")
+        from .state import snapshot_file
+        p = snapshot_file(path, batch_id)
         if not os.path.exists(p):
             return False
         with open(p, "rb") as f:

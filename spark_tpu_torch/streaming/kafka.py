@@ -68,14 +68,16 @@ def set_client_factory(factory: Optional[Callable]) -> None:
 
 
 def _default_factory(options: Dict[str, str]) -> KafkaClient:
+    """The kafka-python adapter; without the client installed (an
+    optional dependency) the source raises naming the two ways out."""
     try:
-        import kafka  # noqa: F401  (kafka-python, optional)
+        from kafka import KafkaConsumer
     except ImportError:
         raise AnalysisException(
             "kafka source: no client installed and no client factory "
             "registered; install kafka-python or call "
             "spark_tpu_torch.streaming.kafka.set_client_factory(...)")
-    return KafkaPythonClient(options)
+    return KafkaPythonClient(options, KafkaConsumer)
 
 
 class KafkaPythonClient(KafkaClient):
@@ -89,8 +91,9 @@ class KafkaPythonClient(KafkaClient):
     replay after restart.  The adapter is tested against a mocked module,
     and against a live broker when SPARK_TPU_KAFKA_BOOTSTRAP names one."""
 
-    def __init__(self, options: Dict[str, str]):
-        from kafka import KafkaConsumer
+    def __init__(self, options: Dict[str, str], consumer_cls=None):
+        if consumer_cls is None:
+            from kafka import KafkaConsumer as consumer_cls
         servers = options.get("kafka.bootstrap.servers") \
             or options.get("bootstrap.servers")
         if not servers:
@@ -99,7 +102,7 @@ class KafkaPythonClient(KafkaClient):
         # auto_offset_reset="none": the default ("latest") silently
         # RESETS position past a retention-expired range — the WAL
         # already committed to [start, end), so truncation must raise
-        self._consumer = KafkaConsumer(
+        self._consumer = consumer_cls(
             bootstrap_servers=servers.split(","),
             enable_auto_commit=False,
             auto_offset_reset="none")

@@ -36,6 +36,13 @@ STATE_RETAIN = C.conf("spark.tpu.streaming.stateMinVersionsToRetain").doc(
 ).int(2)
 
 
+def snapshot_file(directory: str, version: int) -> str:
+    """The path of a full state snapshot of ``version`` under
+    ``directory``: the one spelling of the ``.snapshot`` block name,
+    for the versioned store here and ``core.AggregationState``."""
+    return os.path.join(directory, f"{version}.snapshot")
+
+
 class StateStore:
     """One loaded version of a partition's state, staged for one commit.
 

@@ -2529,7 +2529,7 @@ def ici_scenarios() -> List[dict]:
 
 
 def chaos_scenario(name: str) -> dict:
-    for sc in chaos_scenarios() + ici_scenarios():
+    for sc in chaos_scenarios() + ici_scenarios() + analysis_scenarios():
         if sc["name"] == name:
             return sc
     raise KeyError(name)
@@ -3298,16 +3298,230 @@ def arena_peer(argv: Sequence[str]) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# the decision-trace battery: the JAX package's ``tests/adaptive_worker.py``
+# "trace" and "skew-decision" modes, and the card runs of ``chip_smoke.py``'s
+# [analysis] phase
+# ---------------------------------------------------------------------------
+
+#: the hash-lane join of the battery: no filter, so both observed sides
+#: stay far above the broadcast threshold and the adaptive re-decision
+#: keeps the frozen hash lane — the only way a process can diverge is an
+#: injected perturbation of its gathered stats view (``skew_decision``)
+TRACE_HASH_SQL = ("SELECT sk, price, bonus FROM fact JOIN fact2 ON sk = k2 "
+                  "ORDER BY sk, price, bonus")
+#: the range lane's join (its trace carries the cut points and the
+#: sample-estimated skew splits)
+TRACE_RANGE_SQL = ("SELECT sk, count(*) AS c, sum(bonus) AS sb FROM fact "
+                   "JOIN fact2 ON sk = k2 GROUP BY sk ORDER BY sk")
+
+#: [analysis]'s card join: q93's join on the hash lane, adaptive with a
+#: broadcast bar far below either real side (no demotion) but above the
+#: ``[1, 1]`` per sender a ``skew_decision`` leaves of a side
+ANALYSIS_CARD_CONF = {"spark.tpu.crossproc.sortMergeJoin": "false",
+                      "spark.tpu.crossproc.autoBroadcastThreshold": "1024",
+                      "spark.tpu.crossproc.adaptiveReplan": "true",
+                      "spark.tpu.analysis.verifyPlans": "on",
+                      "spark.tpu.shuffle.ici.enabled": "true"}
+
+
+def _analysis_outcome(xs, fn) -> dict:
+    """Run ``fn`` and classify the ending as the JAX package's adaptive
+    worker does: ``ok`` with the rows, ``diverged`` (a
+    ``PlanInvariantError``: its property and message), or ``failed`` (a
+    bounded ``ExchangeFetchFailed`` / ``TimeoutError``); with the
+    seconds to that ending and the session's trace counts."""
+    from .analysis import PlanInvariantError
+    from .parallel.hostshuffle import ExchangeFetchFailed
+    t0 = time.monotonic()
+    out: Dict[str, Any] = {}
+    try:
+        out.update(outcome="ok", rows=fn())
+    except PlanInvariantError as e:
+        out.update(outcome="diverged", property=e.property,
+                   node=e.node_name, message=str(e))
+    except (ExchangeFetchFailed, TimeoutError) as e:
+        out.update(outcome="failed", error=f"{type(e).__name__}: {e}",
+                   lost=sorted(getattr(e, "lost_hosts", []) or []))
+    out["elapsed_s"] = time.monotonic() - t0
+    st = xs._analysis_stats
+    out["checks"] = st.get("decision_trace_checks", 0)
+    out["div"] = st.get("decision_trace_divergence", 0)
+    return out
+
+
+def analysis_worker(argv: Sequence[str]) -> int:
+    """One process of a decision-trace run.
+
+    argv: ``<pid> <n> <root> <mode> <timeout_s> <device>``.  Modes:
+    ``trace`` / ``trace-ici`` (the battery's hash join, then its range
+    join, with the runtime checks on, on the host tier or with the
+    device tier armed: every process must match the single-process
+    answer with checks > 0 and no divergence), ``skew-decision`` /
+    ``skew-ici`` (the hash join with a ``FaultInjector`` armed from
+    ``SPARK_TPU_FAULT_PLAN``: the armed process's gathered view of
+    ``xq000001-plan`` is perturbed, and EVERY process must end in a
+    ``PlanInvariantError`` naming the diverged component — the armed one
+    at its trace check, its peers at their next barrier through its
+    divergence notice) and ``card`` ([analysis] of ``chip_smoke.py``:
+    q93's join over ``<root>/spec.json``'s tables on the device tier,
+    ``ANALYSIS_CARD_CONF``: cold with every pull held against its plain
+    version, warm, then once more with the plan of
+    ``SPARK_TPU_FAULT_PLAN`` armed).
+
+    Prints ``[p<pid>] TRACE-OK rows=.. checks=.. div=..``,
+    ``[p<pid>] FAILED-DIVERGED <s> prop=.. div=.. detail=..``,
+    ``[p<pid>] FAILED <s> <lost>`` or ``[p<pid>] PARTIAL`` (exit 1);
+    writes ``<root>/result-p<pid>.json``."""
+    from . import config as C
+    from . import types as T
+    from .parallel.faults import FaultInjector
+    from .sql.session import SparkSession
+
+    pid, n, root, mode, timeout_s, device = _worker_argv(
+        "analysis worker", argv)
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("analysis worker: no CUDA device")
+    if device == "cpu":
+        torch.set_num_threads(1)    # the workers share the host's cores
+    base = SparkSession.builder.config("spark.torch.device", device) \
+        .getOrCreate()
+    base.conf.set(C.MESH_SHARDS.key, "1")
+    one = base.newSession()
+    xs = base.newSession()
+    card = mode.startswith("card")
+    result: Dict[str, Any] = {"pid": pid, "mode": mode}
+    if card:
+        with open(os.path.join(root, "spec.json")) as f:
+            spec = json.load(f)
+        register_card_tables(one, T, spec)
+        register_card_tables(xs, T, spec, pid, n)
+        for k, v in spec.get("conf", {}).items():
+            xs.conf.set(k, v)
+        confs = dict(ANALYSIS_CARD_CONF)
+        sqls = [Q93_JOIN_SQL]
+    else:
+        for name, cols in crossproc_tables(None).items():
+            one.createDataFrame(cols).createOrReplaceTempView(name)
+        for name, cols in crossproc_tables(pid, n).items():
+            xs.createDataFrame(cols).createOrReplaceTempView(name)
+        confs = {C.SHUFFLE_TARGET_PARTITION_BYTES.key: "2048",
+                 C.SHUFFLE_FINE_PARTITIONS.key: "32",
+                 C.CROSSPROC_AUTO_BROADCAST.key: "2048",
+                 C.CROSSPROC_SHUFFLED_JOIN.key: "true",
+                 C.CROSSPROC_SORT_MERGE_JOIN.key: "false",
+                 C.CROSSPROC_ADAPTIVE_REPLAN.key: "true",
+                 C.ANALYSIS_VERIFY_PLANS.key: "on"}
+        if mode.endswith("ici"):
+            confs.update(ici_confs(n))
+        sqls = [TRACE_HASH_SQL] + (
+            [TRACE_RANGE_SQL] if mode.startswith("trace") else [])
+    for k, v in confs.items():
+        xs.conf.set(k, v)
+    svc = xs.enableHostShuffle(os.path.join(root, "shuffle"), pid, n,
+                               timeout_s=timeout_s)
+    svc.poll_s = 0.005          # one host: poll the markers often
+    want = [jsonable_rows(tuple(r) for r in one.sql(q).collect())
+            for q in sqls]
+
+    def collect(sql):
+        return jsonable_rows(tuple(r) for r in xs.sql(sql).collect())
+
+    runs: List[dict] = []
+    if mode == "card":
+        from . import cuda_a2a
+        from .parallel import ici
+        cuda_a2a.PULL_LAUNCHES = 0
+        cuda_a2a.LAUNCHES = 0
+        for i in range(3):
+            if i == 0:
+                os.environ[ici.CHECK_ENV] = "1"
+            elif i == 2:
+                # the plan from SPARK_TPU_FAULT_PLAN: a rule naming no
+                # exchange fires at this run's stats round
+                FaultInjector().attach(svc)
+            try:
+                pulls0 = cuda_a2a.PULL_LAUNCHES
+                a2a0 = cuda_a2a.LAUNCHES
+                t0 = time.perf_counter()
+                r = _analysis_outcome(xs, lambda: collect(sqls[0]))
+                r["wall_ms"] = (time.perf_counter() - t0) * 1e3
+                r["pull_launches"] = cuda_a2a.PULL_LAUNCHES - pulls0
+                r["a2a_launches"] = cuda_a2a.LAUNCHES - a2a0
+            finally:
+                os.environ.pop(ici.CHECK_ENV, None)
+            runs.append(r)
+            if r["outcome"] != "ok":
+                break
+        result["check"] = dict(ici.CHECK)
+    else:
+        if mode.startswith("skew"):
+            FaultInjector().attach(svc)   # plan from SPARK_TPU_FAULT_PLAN
+        for sql in sqls:
+            r = _analysis_outcome(xs, lambda sql=sql: collect(sql))
+            runs.append(r)
+            if r["outcome"] != "ok":
+                break
+    result["runs"] = runs
+    result["want"] = want
+    result["counters"] = dict(svc.counters)
+    result["analysis"] = dict(xs._analysis_stats)
+    _write_result(root, pid, result)
+    last = runs[-1]
+    st = xs._analysis_stats
+    if last["outcome"] == "diverged":
+        print(f"[p{pid}] FAILED-DIVERGED {last['elapsed_s']:.2f} "
+              f"prop={last['property']} "
+              f"div={st.get('decision_trace_divergence', 0)} "
+              f"detail={last['message']}", flush=True)
+        return 0
+    if last["outcome"] == "failed":
+        print(f"[p{pid}] FAILED {last['elapsed_s']:.2f} {last['lost']}",
+              flush=True)
+        return 0
+    pairs = [(r, want[0]) for r in runs if r["outcome"] == "ok"] if card \
+        else zip(runs, want)
+    for r, w in pairs:
+        if not _rows_equal(r["rows"], w):
+            print(f"[p{pid}] PARTIAL got={len(r['rows'])} exp={len(w)}",
+                  flush=True)
+            return 1
+    print(f"[p{pid}] TRACE-OK rows={len(runs[0]['rows'])} "
+          f"checks={st.get('decision_trace_checks', 0)} "
+          f"div={st.get('decision_trace_divergence', 0)}", flush=True)
+    return 0
+
+
+def analysis_scenarios() -> List[dict]:
+    """The decision-trace scenarios (two processes; ``analysis-worker``):
+    a clean run on each tier, and ``skew_decision`` armed in process 1
+    on each tier, which must end BOTH processes in
+    ``FAILED-DIVERGED``."""
+    from .parallel.faults import FaultPlan as P
+    skew = {1: lambda: P().skew_decision("xq000001-plan")}
+    return [
+        _scenario("trace-parity", "analysis-worker", "trace", 2, 20.0, {},
+                  {0: "TRACE-OK", 1: "TRACE-OK"}),
+        _scenario("trace-parity-ici", "analysis-worker", "trace-ici", 2,
+                  20.0, {}, {0: "TRACE-OK", 1: "TRACE-OK"}),
+        _scenario("skew-decision", "analysis-worker", "skew-decision", 2,
+                  20.0, skew, {0: "FAILED-DIVERGED", 1: "FAILED-DIVERGED"}),
+        _scenario("skew-decision-ici", "analysis-worker", "skew-ici", 2,
+                  20.0, skew, {0: "FAILED-DIVERGED", 1: "FAILED-DIVERGED"}),
+    ]
+
+
 def _main(argv: Sequence[str]) -> int:
     workers = {"crossproc-worker": crossproc_worker,
                "recovery-worker": recovery_worker,
+               "analysis-worker": analysis_worker,
                "pool-worker": pool_worker,
                "stream-worker": stream_worker,
                "arena-peer": arena_peer}
     if argv and argv[0] in workers:
         return workers[argv[0]](argv[1:])
     print("usage: python -m spark_tpu_torch.testing "
-          "{crossproc-worker|recovery-worker|pool-worker} "
+          "{crossproc-worker|recovery-worker|analysis-worker|pool-worker} "
           "<pid> <n> <root> <mode> <timeout_s> {cpu|cuda}\n"
           "       python -m spark_tpu_torch.testing stream-worker "
           "<root> <shape> <ckpt> <out> <device> [restart]\n"

@@ -311,7 +311,8 @@ def _ported_plan(F):
             .disk_full(after_bytes=4096, exchange="e")
             .die_during_register("xq000001-jR", after_seal=True)
             .blockserver_unavailable(heal_after_s=1.5)
-            .spawn_exec_error(after_spawns=1))
+            .spawn_exec_error(after_spawns=1)
+            .skew_decision("xq000001-plan", side="l"))
 
 
 @pytest.mark.parametrize("writer,reader", [(RF, TF), (TF, RF), (TF, TF)])
@@ -327,16 +328,20 @@ def test_fault_plan_env_roundtrip_both_packages(writer, reader):
     assert reader.FaultPlan.from_env({}).rules == []
 
 
-@pytest.mark.parametrize("kind", sorted(TF.WAITING_KINDS))
+@pytest.mark.parametrize("kind", ["skew_decision"])
 def test_waiting_kinds_raise_naming_their_slice(kind):
-    """A rule of a kind whose fault point is in a module still to port
-    (the JAX package writes them) raises when the port parses it."""
+    """The last kind that waited for its module (``skew_decision``, whose
+    fault point came with the analysis package) now parses rule for rule
+    from the JAX package's plan, and no kind waits any more: the port's
+    kinds are the JAX package's."""
     rplan = RF.FaultPlan()
-    rplan.rules.append(RF._Rule(kind))
-    with pytest.raises(NotImplementedError, match="not ported") as ei:
-        TF.FaultPlan.from_env({TF.FAULT_PLAN_ENV: rplan.to_env()})
-    assert TF.WAITING_KINDS[kind] in str(ei.value)
-    assert set(TF._KINDS) | set(TF.WAITING_KINDS) == set(RF._KINDS)
+    rplan.rules.append(RF._Rule(kind, "xq000001-plan", side="l"))
+    back = TF.FaultPlan.from_env({TF.FAULT_PLAN_ENV: rplan.to_env()})
+    assert [r.to_dict() for r in back.rules] \
+        == [r.to_dict() for r in rplan.rules]
+    assert kind in TF._KINDS
+    assert TF.WAITING_KINDS == {}
+    assert set(TF._KINDS) == set(RF._KINDS)
 
 
 def test_counters_visible_via_session_metrics(tmp_path):

@@ -189,6 +189,17 @@ def test_the_guard_walks_the_streaming_package():
     assert want <= files
 
 
+def test_the_guard_walks_the_analysis_package():
+    """The analysis package, the jdbc source and the command line are
+    part of what the guard reads."""
+    files = {os.path.relpath(p, REPO) for p in _port_files()}
+    want = {f"spark_tpu_torch/analysis/{m}.py" for m in (
+        "__init__", "confcheck", "determinism", "errors", "lint",
+        "protocol", "runtime", "verifier", "waivers")}
+    want |= {"spark_tpu_torch/jdbc.py", "spark_tpu_torch/cli.py"}
+    assert want <= files
+
+
 def test_port_never_imports_jax_or_the_jax_package():
     bad = []
     for path in _port_files():
@@ -218,7 +229,8 @@ def test_importing_the_port_loads_neither():
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("entry", ["pool", "recovery", "ici", "stream"])
+@pytest.mark.parametrize("entry", ["pool", "recovery", "ici", "stream",
+                                   "analysis"])
 def test_worker_entries_load_neither(tmp_path, entry):
     """The processes this package starts by itself, run as they are
     started: a pool worker (``python -m spark_tpu_torch.serving.pool
@@ -239,6 +251,9 @@ def test_worker_entries_load_neither(tmp_path, entry):
         mod, argv = "spark_tpu_torch.testing", [
             "stream-worker", str(root), "wagg", str(root / "ckpt"),
             str(root / "out"), "cpu"]
+    elif entry == "analysis":
+        mod, argv = "spark_tpu_torch.testing", [
+            "analysis-worker", "0", "1", str(root), "trace", "20", "cpu"]
     else:
         mode = "norecover" if entry == "recovery" else "ici-unavail"
         mod, argv = "spark_tpu_torch.testing", [

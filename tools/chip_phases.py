@@ -7,9 +7,9 @@ entries of the kernels line from its kernel check.
 
     python3 tools/chip_phases.py pool pool pool pool stream
 
-Phases: ``pool``, ``stream``.  The last line is a JSON list of the runs
-(phase, ok, seconds, the failure); the exit code is 1 if any run
-failed, 2 without a card or with an unknown phase."""
+Phases: ``pool``, ``stream``, ``analysis``.  The last line is a JSON
+list of the runs (phase, ok, seconds, the failure); the exit code is 1
+if any run failed, 2 without a card or with an unknown phase."""
 
 import json
 import os
@@ -26,6 +26,9 @@ PHASES = {
     "pool": lambda c: CS.phase_pool(c["session"], c["hash_table"],
                                     c["tables"], c["k1"], c["k2"]),
     "stream": lambda c: CS.phase_stream(c["session"], c["k1"], c["k2"]),
+    "analysis": lambda c: CS.phase_analysis(
+        c["session"], c["hash_table"], c["tables"], c["k1"], c["k2"],
+        c["pull"]),
 }
 
 
@@ -52,7 +55,7 @@ def main(names) -> int:
                                CS.Q3_ROWS["date_dim"]),
            "k1": CS.phase_kernel_check(
                session, hash_agg_query(session, F, hash_table)),
-           "k2": {"name": "all_to_all"}}
+           "k2": {"name": "all_to_all"}, "pull": {"name": "pull"}}
     runs = []
     for name in names:
         t0 = time.perf_counter()
