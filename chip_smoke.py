@@ -360,7 +360,31 @@ without printing a result:
     over a parquet copy of hash_t in a process of its own on the card,
     its table equal to this process's ``show``.  The phase prints its
     seconds;
-22. a ``{"kernels": [...]}`` line (each kernel's ``sql_launches``: its
+22. ml — RDD, ML and GraphX (``spark_tpu_torch/rdd/``, ``ml/``,
+    ``graphx/``) with the listener bus, the event log, the history page
+    (``ui.py``) and the CSV metric sink, on a session whose
+    ``spark.eventLog.dir`` and ``spark.tpu.metrics.csv.dir`` are set
+    before its first query: (a) an RDD word count of 2^20 records of 8
+    words (vocabulary 2^16, 8 partitions) equal to a Counter oracle, then
+    ``toDF`` of 2^20 (k, v) rows and hash-agg's ``groupBy(k).agg(sum,
+    count)`` (1,024 keys): K1 twice through the columns entry (warm-up,
+    capture), the eager launch bit-exact; (b) VectorAssembler over 28
+    float64 columns of 2^22 rows in the UCI HIGGS shape → StandardScaler →
+    binomial IRLS (25 steps) → areaUnderROC, against numpy's IRLS
+    (coefficients within 1e-8 absolute, AUC within 1e-9); (c) KMeans,
+    k = 10, 20 steps over 2^22 × 20 points around 10 Gaussian centres
+    (HiBench's k-means shape), against numpy's Lloyd steps from the same
+    starts (centres within rtol 1e-9, assignments equal but near-ties);
+    (d) a Graph500 R-MAT graph of scale 22, edge factor 16, made on the
+    card: ``page_rank`` (20 iterations) against scipy within rtol 1e-9,
+    ``connected_components`` equal to scipy's per-component minimum
+    vertex id; (e) one SQLExecutionStart / SQLExecutionEnd pair per
+    execution of (a)–(d) in the log and on a listener, none failed, the
+    history page listing them, one CSV per metrics source.  Each part
+    prints its wall (median of 3 after a warm-up; the word count once),
+    one profiled run's device ms per op and the bytes held on the card,
+    and its oracle's ms; the phase prints its seconds;
+23. a ``{"kernels": [...]}`` line (each kernel's ``sql_launches``: its
    launches in the SQL phase's counted run; ``breadth_launches``: K1's in
    the breadth phase's graph-lane run, K2's in its window text at 4
    shards; ``complex_launches``: K1's in the complex phase's graph-lane
@@ -393,7 +417,8 @@ without printing a result:
    (``pull``), its launches K2's ``ici_launches`` and its times the
    idle-peer pull's; ``analysis_launches``: K1's in [analysis] (a), the
    pull's in (b)'s two clean runs of both workers, K2's all-to-all's
-   there (0); each
+   there (0); ``ml_launches``: K1's in [ml] (a) (2 through the columns
+   entry), K2's and the pull's in the whole [ml] phase (0); each
    counted from 0 just
    before that run; K1's ``captured_launches``: those of its launches made while a
    graph was captured, and ``replayed_launches``: its launches the
@@ -5547,6 +5572,427 @@ def phase_analysis(session, hash_table, tables, k1_entries, k2_entry,
           flush=True)
 
 
+ML_SEED = 18
+ML_RECORDS, ML_RECORD_WORDS, ML_VOCAB, ML_PARTS = 1 << 20, 8, 1 << 16, 8
+ML_AGG_ROWS, ML_AGG_KEYS = 1 << 20, 1024
+ML_LR_ROWS, ML_LR_COLS, ML_LR_ITERS = 1 << 22, 28, 25
+ML_KM_ROWS, ML_KM_DIM, ML_KM_K, ML_KM_ITERS = 1 << 22, 20, 10, 20
+ML_RMAT_SCALE, ML_RMAT_EDGE_FACTOR, ML_PR_ITERS = 22, 16, 20
+#: Graph500's R-MAT quadrant probabilities A, B, C (D = 1 - A - B - C)
+ML_RMAT_ABC = (0.57, 0.19, 0.19)
+#: stated tolerances of [ml]: coefficients absolute, AUC absolute, KMeans
+#: centres and PageRank relative; a KMeans point whose two nearest
+#: squared distances differ by less than ML_TIE_RTOL (relative) may take
+#: either centre
+ML_COEF_ATOL, ML_AUC_ATOL, ML_CENTRE_RTOL, ML_PR_RTOL = 1e-8, 1e-9, 1e-9, 1e-9
+ML_TIE_RTOL = 1e-9
+
+
+def _ml_wall(fn, reps=3):
+    """(median wall ms of ``reps`` synchronized runs after one warm-up,
+    the last run's result)."""
+    last = {}
+
+    def run():
+        last["out"] = fn()
+    return wall_ms(run, reps=reps), last["out"]
+
+
+def _ml_card(tag, fn, top=5):
+    """One run of ``fn`` under ``torch.profiler`` (the card's activity):
+    the device ms per op of its largest ops and the bytes it held (peak
+    allocated, from 0 peak before it).  Returns ``fn``'s result."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+            if us > 0:
+                rows.append((us, e.count, e.key))
+    rows.sort(reverse=True)
+    total = sum(us for us, _c, _k in rows) / 1e3
+    tops = "; ".join(f"{k[:48]} x{c} {us / 1e3:.3f} ms"
+                     for us, c, k in rows[:top])
+    print(f"[ml] {tag}: one profiled run: device {total:.3f} ms over "
+          f"{sum(c for _u, c, _k in rows)} kernels and copies; top: {tops}; "
+          f"held on the card {base / 2**20:.1f} MiB before, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+    return out
+
+
+def _ml_session(session, root):
+    """A session on the root session's device whose event log and CSV
+    sink are set before its first query, with a listener counting the
+    events it posts."""
+    from spark_tpu_torch.sql.session import SparkSession
+    conf = session.conf_obj.clone()
+    conf.set("spark.eventLog.dir", os.path.join(root, "events"))
+    conf.set("spark.tpu.metrics.csv.dir", os.path.join(root, "metrics"))
+    s = SparkSession(conf)
+    SparkSession._active = session          # the root stays the active one
+    events = []
+    s.listenerManager.register(events.append)
+    return s, events
+
+
+def _ml_k1_check(k1, k1_entries):
+    """(a)'s K1 launches: 2 through the columns entry (the stage's eager
+    warm-up and its capture), the eager one bit-exact."""
+    from spark_tpu_torch import cuda_agg
+    launches = dict(cuda_agg.ENTRY_LAUNCHES)
+    check(launches["grouped_accumulate_columns"] == 2
+          and launches["grouped_accumulate"] == 0 and k1.checked >= 1
+          and k1.equal, f"[ml] (a) K1 launches {launches}, {k1.checked} "
+          f"eager launch(es) checked, equal {k1.equal}")
+    for entry in k1_entries:
+        entry["ml_launches"] = launches[entry["name"]]
+    print(f"[ml] (a) K1 wrapper launches {launches} (from 0 before the "
+          f"first run); {k1.checked} eager launch held against the plain "
+          f"version: bit-exact (max abs err {k1.max_abs_err})", flush=True)
+
+
+def _ml_rdd(s, k1_entries):
+    """(a): the word count through the RDD layer against a Counter
+    oracle, then ``toDF`` onto the DataFrame path and hash-agg's shape,
+    whose stage runs K1."""
+    import operator
+    import numpy as np
+    from spark_tpu_torch.sql import functions as F
+    from spark_tpu_torch.testing import _K1Compare
+    rng = np.random.default_rng(ML_SEED)
+    vocab = np.array([f"{v:08x}" for v in rng.choice(1 << 31, ML_VOCAB,
+                                                     replace=False)])
+    ids = rng.integers(0, ML_VOCAB, (ML_RECORDS, ML_RECORD_WORDS))
+    lines = [" ".join(r) for r in vocab[ids].tolist()]
+    sc = s.sparkContext
+    t0 = time.perf_counter()
+    counts = np.bincount(ids.ravel(), minlength=ML_VOCAB)
+    want = {vocab[i]: int(c) for i, c in enumerate(counts.tolist()) if c}
+    oracle_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    got = dict(sc.parallelize(lines, ML_PARTS)
+               .flatMap(lambda line: line.split(" "))
+               .map(lambda w: (w, 1))
+               .reduceByKey(operator.add).collect())
+    wc_ms = (time.perf_counter() - t0) * 1e3
+    check(got == want, f"[ml] (a) word count differs from the Counter "
+          f"oracle ({len(got)} vs {len(want)} words)")
+    print(f"[ml] (a) word count: {ML_RECORDS:,} records of "
+          f"{ML_RECORD_WORDS} words, vocabulary {ML_VOCAB:,}, {ML_PARTS} "
+          f"partitions, flatMap → map → reduceByKey → collect: {len(got):,} "
+          f"words equal to the Counter oracle exactly; one run {wc_ms:.1f} "
+          f"ms (host Python, as in the JAX package), oracle "
+          f"{oracle_ms:.1f} ms", flush=True)
+    keys = rng.integers(0, ML_AGG_KEYS, ML_AGG_ROWS).astype(np.int64)
+    vals = rng.integers(0, 100, ML_AGG_ROWS).astype(np.int64)
+    t0 = time.perf_counter()
+    df = sc.parallelize(list(zip(keys.tolist(), vals.tolist())),
+                        ML_PARTS).toDF(["k", "v"])
+    todf_ms = (time.perf_counter() - t0) * 1e3
+    q = df.groupBy("k").agg(F.sum("v").alias("s"), F.count("*").alias("c"))
+    want_agg = _grouped_oracle({"k": keys, "v": vals})
+    clear_stage_cache()
+    zero_counts()
+    with _K1Compare() as k1:
+        t0 = time.perf_counter()
+        first = sorted(tuple(r) for r in q.collect())
+        first_ms = (time.perf_counter() - t0) * 1e3
+    check(first == want_agg, f"[ml] (a) toDF hash-agg differs from its "
+          f"oracle (first rows {first[:2]})")
+    warm_ms, rows = _ml_wall(q.collect)
+    check(sorted(tuple(r) for r in rows) == want_agg,
+          "[ml] (a) toDF hash-agg's warm run differs from its oracle")
+    _ml_k1_check(k1, k1_entries)
+    _ml_card("(a) toDF hash-agg warm run", q.collect)
+    print(f"[ml] (a) toDF of {ML_AGG_ROWS:,} (k, v) rows ({ML_AGG_KEYS} keys) "
+          f"{todf_ms:.1f} ms → groupBy(k).agg(sum, count): {len(first)} "
+          f"groups equal to the numpy oracle; first run (stage built, "
+          f"graph captured) {first_ms:.2f} ms, warm median of 3 "
+          f"{warm_ms:.2f} ms", flush=True)
+
+
+def _np_irls(X, y, iters):
+    """numpy float64 IRLS, LogisticRegression's steps (intercept last)."""
+    import numpy as np
+    Xb = np.hstack([X, np.ones((len(X), 1))])
+    w = np.zeros(Xb.shape[1])
+    for _ in range(iters):
+        p = 1.0 / (1.0 + np.exp(-(Xb @ w)))
+        wgt = np.maximum(p * (1 - p), 1e-10)
+        w = w - np.linalg.solve((Xb * wgt[:, None]).T @ Xb, Xb.T @ (p - y))
+    return w
+
+
+def _np_auc(y, s):
+    """areaUnderROC with ties given their mean rank (numpy)."""
+    import numpy as np
+    order = np.argsort(s, kind="stable")
+    ranks = np.empty(len(s))
+    ranks[order] = np.arange(1, len(s) + 1)
+    sv = s[order]
+    starts = np.flatnonzero(np.r_[True, sv[1:] != sv[:-1]])
+    ends = np.r_[starts[1:], len(s)]
+    for a, b in zip(starts.tolist(), ends.tolist()):
+        if b - a > 1:
+            ranks[order[a:b]] = (a + 1 + b) / 2.0
+    pos = y > 0
+    npos, nneg = int(pos.sum()), int((~pos).sum())
+    return (ranks[pos].sum() - npos * (npos + 1) / 2) / (npos * nneg)
+
+
+def _ml_logistic(s):
+    """(b): VectorAssembler over HIGGS-shaped columns → StandardScaler →
+    binomial IRLS → transform → areaUnderROC, against numpy."""
+    import numpy as np
+    from spark_tpu_torch.ml.base import Pipeline
+    from spark_tpu_torch.ml.classification import LogisticRegression
+    from spark_tpu_torch.ml.evaluation import BinaryClassificationEvaluator
+    from spark_tpu_torch.ml.feature import StandardScaler, VectorAssembler
+    rng = np.random.default_rng(ML_SEED + 1)
+    n, d = ML_LR_ROWS, ML_LR_COLS
+    X = rng.normal(0, 1, (n, d)) * rng.uniform(0.5, 2.0, d) \
+        + rng.uniform(-1.0, 2.0, d)
+    beta = rng.normal(0, 0.6, d)
+    z = ((X - X.mean(0)) / X.std(0)) @ beta - 0.2
+    y = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-z))).astype(np.float64)
+    names = [f"f{j}" for j in range(d)]
+    table = {nm: X[:, j].copy() for j, nm in enumerate(names)}
+    table["label"] = y
+    df = s.createDataFrame(table)
+    pipe = Pipeline(stages=[
+        VectorAssembler(inputCols=names, outputCol="raw"),
+        StandardScaler(inputCol="raw", outputCol="features", withMean=True),
+        LogisticRegression(family="binomial", maxIter=ML_LR_ITERS)])
+    fit_ms, model = _ml_wall(lambda: pipe.fit(df))
+    lr = model.getOrDefault("stages")[-1]
+    coef = lr.getOrDefault("coefficients").cpu().numpy()
+    icpt = lr.getOrDefault("intercept")
+    scored = model.transform(df).selectExpr("label",
+                                            "probability[1] AS score")
+    ev = BinaryClassificationEvaluator(rawPredictionCol="score")
+    t0 = time.perf_counter()
+    auc = ev.evaluate(scored)
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    _ml_card("(b) pipeline fit", lambda: pipe.fit(df))
+    t0 = time.perf_counter()
+    Z = (X - X.mean(0)) / X.std(0, ddof=1)
+    w = _np_irls(Z, y, ML_LR_ITERS)
+    p = 1.0 / (1.0 + np.exp(-(np.hstack([Z, np.ones((n, 1))]) @ w)))
+    want_auc = _np_auc(y, p)
+    oracle_ms = (time.perf_counter() - t0) * 1e3
+    err = max(float(np.abs(coef - w[:-1]).max()), abs(icpt - w[-1]))
+    check(err <= ML_COEF_ATOL, f"[ml] (b) IRLS coefficients differ from "
+          f"numpy's by {err:.3g} (> {ML_COEF_ATOL})")
+    check(abs(auc - want_auc) <= ML_AUC_ATOL, f"[ml] (b) AUC {auc!r} vs "
+          f"numpy {want_auc!r}")
+    print(f"[ml] (b) logistic regression: {n:,} rows × {d} float64 "
+          f"columns (HIGGS shape) → VectorAssembler → StandardScaler → "
+          f"binomial IRLS ({ML_LR_ITERS} steps): pipeline fit median of 3 "
+          f"{fit_ms:.1f} ms; transform + areaUnderROC {eval_ms:.1f} ms; "
+          f"coefficients max abs err vs numpy IRLS {err:.3g} (tol "
+          f"{ML_COEF_ATOL}); AUC {auc:.12f} vs {want_auc:.12f} (|diff| "
+          f"{abs(auc - want_auc):.3g}, tol {ML_AUC_ATOL}); numpy oracle "
+          f"{oracle_ms:.1f} ms", flush=True)
+
+
+def _np_lloyd(X, C, iters):
+    """numpy Lloyd steps: nearest centre (the first on a tie), then each
+    centre to its rows' mean (a one-hot matmul), an empty one kept."""
+    import numpy as np
+    xx = (X * X).sum(1)
+    k = len(C)
+    for _ in range(iters):
+        a = (xx[:, None] - 2.0 * (X @ C.T) + (C * C).sum(1)[None]).argmin(1)
+        onehot = np.zeros((len(X), k))
+        onehot[np.arange(len(X)), a] = 1.0
+        counts = np.bincount(a, minlength=k)
+        C = np.where(counts[:, None] > 0,
+                     (onehot.T @ X) / np.maximum(counts, 1)[:, None], C)
+    return C
+
+
+def _ml_kmeans(s):
+    """(c): KMeans over Gaussian blobs against numpy Lloyd steps from the
+    same ``default_rng`` starts."""
+    import numpy as np
+    from spark_tpu_torch.ml.clustering import KMeans
+    rng = np.random.default_rng(ML_SEED + 2)
+    centres = rng.normal(0, 10, (ML_KM_K, ML_KM_DIM))
+    X = centres[rng.integers(0, ML_KM_K, ML_KM_ROWS)] \
+        + rng.normal(0, 1, (ML_KM_ROWS, ML_KM_DIM))
+    df = s.createDataFrame({"features": X})
+    km = KMeans(k=ML_KM_K, maxIter=ML_KM_ITERS, seed=ML_SEED)
+    fit_ms, model = _ml_wall(lambda: km.fit(df))
+    got_c = model.getOrDefault("clusterCenters").cpu().numpy()
+    assign = np.array([r[0] for r in model.transform(df)
+                       .select("prediction").collect()], np.int64)
+    _ml_card("(c) KMeans fit", lambda: km.fit(df))
+    t0 = time.perf_counter()
+    start = X[np.random.default_rng(ML_SEED).choice(ML_KM_ROWS, ML_KM_K,
+                                                   replace=False)]
+    want_c = _np_lloyd(X, start, ML_KM_ITERS)
+    d2 = (X * X).sum(1)[:, None] - 2.0 * (X @ want_c.T) \
+        + (want_c * want_c).sum(1)[None]
+    want_a = d2.argmin(1)
+    two = np.partition(d2, 1, axis=1)[:, :2]
+    ties = np.abs(two[:, 1] - two[:, 0]) < ML_TIE_RTOL * np.abs(two[:, 1])
+    oracle_ms = (time.perf_counter() - t0) * 1e3
+    rel = float(np.abs(got_c - want_c).max() / np.abs(want_c).max())
+    check(np.allclose(got_c, want_c, rtol=ML_CENTRE_RTOL, atol=0),
+          f"[ml] (c) centres differ from numpy's Lloyd by {rel:.3g}")
+    differ = int((assign != want_a)[~ties].sum())
+    check(differ == 0, f"[ml] (c) {differ} assignments differ outside "
+          f"near-ties")
+    print(f"[ml] (c) KMeans: {ML_KM_ROWS:,} × {ML_KM_DIM} float64 points, "
+          f"k = {ML_KM_K}, {ML_KM_ITERS} Lloyd steps: fit median of 3 "
+          f"{fit_ms:.1f} ms; centres within rtol {ML_CENTRE_RTOL} of numpy's "
+          f"(max rel err {rel:.3g}); assignments equal but "
+          f"{int((assign != want_a).sum())} of {int(ties.sum())} near-ties "
+          f"(two nearest squared distances within {ML_TIE_RTOL} relative); "
+          f"numpy oracle {oracle_ms:.1f} ms", flush=True)
+
+
+def rmat_edges(scale, edge_factor, seed, device):
+    """A Graph500 R-MAT edge list on ``device``: ``edge_factor << scale``
+    (src, dst) pairs, each of ``scale`` bits chosen by quadrant with
+    probabilities A, B, C, D from a seeded ``torch.Generator``, then the
+    vertex labels permuted; self-loops and repeats kept (int32)."""
+    import torch
+    a, b, c = ML_RMAT_ABC
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    m = edge_factor << scale
+    src = torch.zeros(m, dtype=torch.int64, device=device)
+    dst = torch.zeros_like(src)
+    for bit in range(scale):
+        r = torch.rand(m, generator=gen, device=device)
+        src |= (r >= a + b).to(torch.int64) << bit
+        dst |= (((r >= a) & (r < a + b)) | (r >= a + b + c)) \
+            .to(torch.int64) << bit
+    perm = torch.randperm(1 << scale, generator=gen, device=device)
+    return perm[src].to(torch.int32), perm[dst].to(torch.int32)
+
+
+def _ml_graphx(s):
+    """(d): PageRank and connected components over a Graph500 R-MAT
+    graph made on the card, against numpy/scipy."""
+    import numpy as np
+    import torch
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components as scc
+    from spark_tpu_torch.graphx import Graph, connected_components, page_rank
+    n = 1 << ML_RMAT_SCALE
+    t0 = time.perf_counter()
+    src, dst = rmat_edges(ML_RMAT_SCALE, ML_RMAT_EDGE_FACTOR, ML_SEED,
+                          s.device)
+    g = Graph(torch.arange(n, device=s.device), {}, src, dst)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    pr_ms, ranks = _ml_wall(lambda: page_rank(g, ML_PR_ITERS))
+    cc_ms, labels = _ml_wall(lambda: connected_components(g))
+    _ml_card("(d) page_rank", lambda: page_rank(g, ML_PR_ITERS))
+    _ml_card("(d) connected_components",
+             lambda: connected_components(g))
+    ranks, labels = ranks.cpu().numpy(), labels.cpu().numpy()
+    hs, hd = src.cpu().numpy(), dst.cpu().numpy()        # the one copy
+    t0 = time.perf_counter()
+    out_deg = np.maximum(np.bincount(hs, minlength=n), 1).astype(np.float64)
+    A = csr_matrix((np.ones(len(hs)), (hd, hs)), shape=(n, n))
+    want = np.ones(n)
+    for _ in range(ML_PR_ITERS):
+        want = 0.15 + 0.85 * (A @ (want / out_deg))
+    k, lab = scc(A, directed=True, connection="weak")
+    mins = np.full(k, n, np.int64)
+    np.minimum.at(mins, lab, np.arange(n, dtype=np.int64))
+    oracle_ms = (time.perf_counter() - t0) * 1e3
+    rel = float(np.max(np.abs(ranks - want) / np.abs(want)))
+    check(rel <= ML_PR_RTOL, f"[ml] (d) PageRank differs from the scipy "
+          f"oracle by {rel:.3g} relative")
+    check(np.array_equal(labels, mins[lab]), "[ml] (d) component labels "
+          "differ from scipy's per-component minimum vertex id")
+    isolated = int((np.bincount(hs, minlength=n)
+                    + np.bincount(hd, minlength=n) == 0).sum())
+    print(f"[ml] (d) GraphX on a Graph500 R-MAT graph, scale "
+          f"{ML_RMAT_SCALE} ({n:,} vertices, {isolated:,} isolated, kept), "
+          f"edge factor {ML_RMAT_EDGE_FACTOR} ({len(hs):,} edges), made on "
+          f"the card in {gen_ms:.1f} ms: page_rank ({ML_PR_ITERS} "
+          f"iterations) median of 3 {pr_ms:.2f} ms, max rel err vs scipy "
+          f"{rel:.3g} (tol {ML_PR_RTOL}); connected_components median of 3 "
+          f"{cc_ms:.2f} ms, {k:,} components, labels equal to scipy's "
+          f"per-component minimum vertex id exactly; oracles "
+          f"{oracle_ms:.1f} ms", flush=True)
+
+
+def _ml_events(s, root, events):
+    """(e): one Start / End pair per execution in the event log and on
+    the listener, none failed; the history page lists them; the CSV sink
+    holds one file per source."""
+    from spark_tpu_torch import ui
+    log_dir = os.path.join(root, "events")
+    logged = ui.load_events(log_dir)
+    pairs = ui._pair_queries(logged)
+    starts = sum(e["event"] == "SQLExecutionStart" for e in events)
+    ends = [e for e in events if e["event"] == "SQLExecutionEnd"]
+    check(starts == len(ends) == len(pairs) > 0
+          and [e["event"] for e in logged] == [e["event"] for e in events]
+          and all(q["end"] is not None for q in pairs)
+          and not any("error" in e for e in ends),
+          f"[ml] (e) listener saw {starts} starts and {len(ends)} ends, "
+          f"the log {len(pairs)} pairs")
+    page = ui.write_history(log_dir)
+    text = open(page, encoding="utf-8").read()
+    check(f"{len(pairs)} queries ({len(pairs)} finished, 0 failed)"
+          in text, "[ml] (e) the history page does not list every query")
+    snaps = s.metricsSystem.report()
+    csvs = sorted(os.listdir(os.path.join(root, "metrics")))
+    check(csvs == sorted(f"{name}.csv" for name in snaps),
+          f"[ml] (e) CSV sink files {csvs} vs sources {sorted(snaps)}")
+    print(f"[ml] (e) event log: {len(pairs)} SQLExecutionStart / "
+          f"SQLExecutionEnd pairs, one per execution of (a)–(d), equal to "
+          f"the listener's, none failed; history page "
+          f"{os.path.getsize(page):,} bytes lists them; CSV sink: "
+          f"{len(csvs)} files, one per source ({', '.join(sorted(snaps))})",
+          flush=True)
+
+
+def phase_ml(session, k1_entries, k2_entry, pull_entry):
+    """RDD, ML and GraphX on the card (see the module's docstring, 22):
+    (a) an RDD word count, then ``toDF`` onto hash-agg's shape (K1),
+    (b) a HIGGS-shaped logistic-regression pipeline, (c) KMeans, (d)
+    PageRank and connected components on an R-MAT graph, (e) the event
+    log, the history page and the CSV sink."""
+    from spark_tpu_torch import cuda_a2a
+    from spark_tpu_torch.sql.session import SparkSession
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_ml_")
+    cuda_a2a.LAUNCHES = cuda_a2a.PULL_LAUNCHES = 0
+    s, events = _ml_session(session, root)
+    try:
+        _ml_rdd(s, k1_entries)
+        _ml_logistic(s)
+        _ml_kmeans(s)
+        _ml_graphx(s)
+        _ml_events(s, root, events)
+    finally:
+        s.stop()
+        SparkSession._active = session
+        shutil.rmtree(root, ignore_errors=True)
+    check(cuda_a2a.LAUNCHES == cuda_a2a.PULL_LAUNCHES == 0,
+          f"[ml] K2 launched {cuda_a2a.LAUNCHES} / {cuda_a2a.PULL_LAUNCHES} "
+          "times on one card")
+    k2_entry["ml_launches"] = cuda_a2a.LAUNCHES
+    pull_entry["ml_launches"] = cuda_a2a.PULL_LAUNCHES
+    print(f"[ml] phase {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5612,6 +6058,7 @@ def main() -> int:
     phase_stream(session, k1_entries, k2_entry)
     phase_analysis(session, hash_table, tables, k1_entries, k2_entry,
                    pull_entry)
+    phase_ml(session, k1_entries, k2_entry, pull_entry)
     session.stop()
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": k1_entries + [k2_entry, pull_entry]}))

@@ -262,15 +262,12 @@ def cmd_sql(args) -> int:
 
 
 def cmd_shell(args) -> int:
-    """pyspark-style Python REPL with `spark` bound (and `sc` where the
-    session has a SparkContext: the RDD layer is not ported yet)."""
+    """pyspark-style Python REPL with `spark` and its SparkContext `sc`
+    bound."""
     spark = _session(args.conf)
-    ns = {"spark": spark}
-    banner = "spark_tpu_torch shell\nSparkSession available as 'spark'."
-    sc = getattr(spark, "sparkContext", None)
-    if sc is not None:
-        ns["sc"] = sc
-        banner += " SparkContext as 'sc'."
+    ns = {"spark": spark, "sc": spark.sparkContext}
+    banner = ("spark_tpu_torch shell\nSparkSession available as 'spark'. "
+              "SparkContext as 'sc'.")
     code.interact(banner=banner, local=ns)
     return 0
 

@@ -63,6 +63,19 @@ _RUN_PLANE_OVERFLOWS = 0
 _RUN_PLANE_EXPANSIONS = 0
 
 
+#: dictionary codes decoded back into Python words (``decode_column``):
+#: the "late materialization" boundary.  Codes that stay codes through
+#: exchange, join and group never show up here; only collect()-style
+#: output does
+_LATE_MATERIALIZED_ROWS = 0
+
+
+def late_materialized_rows() -> int:
+    """Dictionary-encoded values decoded to Python objects so far
+    (process-wide; gauge consumers diff against a base)."""
+    return _LATE_MATERIALIZED_ROWS
+
+
 def runs_materialized() -> int:
     return _RUNS_MATERIALIZED
 
@@ -223,6 +236,9 @@ def decode_column(data: np.ndarray, valid: Optional[np.ndarray],
     if row_valid is not None:
         data = data[row_valid]
         valid = None if valid is None else valid[row_valid]
+    if dictionary is not None and len(data):
+        global _LATE_MATERIALIZED_ROWS
+        _LATE_MATERIALIZED_ROWS += len(data)
     if isinstance(dt, T.ArrayType):
         out = _decode_arrays(data, dt, dictionary)
     else:
@@ -327,6 +343,13 @@ def _host_tensor(x, dtype=None) -> torch.Tensor:
     t = x if isinstance(x, torch.Tensor) \
         else torch.from_numpy(np.array(x, copy=True))
     return t if dtype is None else t.to(dtype)
+
+
+def device_tensor(x, device, dtype=None) -> torch.Tensor:
+    """``x`` — a tensor, a numpy array or a list — as a tensor on
+    ``device``; a host value takes numpy's dtype (a Python float is
+    float64, an int int64)."""
+    return _host_tensor(x, dtype).to(device)
 
 
 class RunColumnVector(ColumnVector):

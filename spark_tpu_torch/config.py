@@ -252,6 +252,11 @@ METRICS_ENABLED = conf("spark.sql.metrics.enabled").doc(
     "fetched scalar per operator to every query; off by default."
 ).boolean(False)
 
+EVENT_LOG_DIR = conf("spark.eventLog.dir").doc(
+    "Directory for JSON-lines query event logs (EventLoggingListener "
+    "analog); empty = disabled."
+).string("")
+
 
 # ---------------------------------------------------------------------------
 # The SQL server (server.py, serving/): the JAX package's entries and

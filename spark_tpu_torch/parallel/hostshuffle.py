@@ -592,6 +592,9 @@ class HostShuffleService:
         #: the process-wide run counters at the service's birth: its run
         #: gauges report its own lifetime
         self._run_base = _col.run_counters()
+        #: the process-wide late-materialization count at the service's
+        #: birth, so its gauge reports the service's lifetime only
+        self._latemat_base = _col.late_materialized_rows()
         #: reduce-partition byte sizes of the last reducer plan
         self.last_partition_bytes: Optional[List[int]] = None
         #: cut points of the last range exchange (int64 images or words)
@@ -1835,6 +1838,10 @@ class HostShuffleService:
         gauges["range_cutpoints"] = lambda: (
             len(self.last_range_cutpoints)
             if self.last_range_cutpoints is not None else 0)
+        # encoded execution: dictionary codes decoded to words — only the
+        # output boundary (collect) should pay this
+        gauges["late_materialized_rows"] = lambda: (
+            _col.late_materialized_rows() - self._latemat_base)
         # run-coded execution and run planes at the stage boundary over
         # the service's lifetime (the process-wide counters, diffed)
         for name in self._run_base:

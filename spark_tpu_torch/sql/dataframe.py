@@ -498,6 +498,11 @@ class DataFrame:
 
     createTempView = createOrReplaceTempView
 
+    @property
+    def rdd(self):
+        """The rows as an RDD of the session's ``sparkContext``."""
+        return self.session.sparkContext.parallelize(self.collect())
+
     def __repr__(self):
         cols = ", ".join(f"{f.name}: {f.dataType.simpleString()}"
                          for f in self.schema.fields)

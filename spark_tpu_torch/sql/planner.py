@@ -604,7 +604,28 @@ class QueryExecution:
         overflow, instead of erroring."""
         self.session._last_qe = self      # metrics/explain introspection
         self.session._query_count += 1
-        return self._execute_inner()
+        session = self.session
+        if not session._events_wanted():
+            return self._execute_inner()
+        # the listener bus: one SQLExecutionStart / SQLExecutionEnd pair
+        # per execution, the end with the operator metrics or the error
+        t0 = time.time()
+        session._post_event({"event": "SQLExecutionStart", "time": t0,
+                             "plan": repr(self.optimized)[:500]})
+        try:
+            result = self._execute_inner()
+        except BaseException as e:
+            session._post_event({
+                "event": "SQLExecutionEnd", "time": time.time(),
+                "durationMs": (time.time() - t0) * 1000,
+                "error": f"{type(e).__name__}: {e}"[:300]})
+            raise
+        session._post_event({
+            "event": "SQLExecutionEnd", "time": time.time(),
+            "durationMs": (time.time() - t0) * 1000,
+            "metrics": {f"{oid}:{lbl}": v
+                        for (oid, lbl), v in self.metrics.items()}})
+        return result
 
     def _staged(self, kind: str, thunk):
         """Route one mesh-lane (``dist``) or out-of-core (``multibatch``,

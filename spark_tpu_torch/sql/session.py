@@ -29,6 +29,23 @@ from . import logical as L
 from .dataframe import DataFrame
 
 
+class _ListenerManager:
+    """Query-event fan-out (``LiveListenerBus`` in miniature): listeners
+    are callables receiving event dicts; their failures are swallowed."""
+
+    def __init__(self):
+        self._listeners: List[Any] = []
+
+    def register(self, fn) -> None:
+        self._listeners.append(fn)
+
+    def unregister(self, fn) -> None:
+        try:
+            self._listeners.remove(fn)
+        except ValueError:
+            pass
+
+
 class QueryCancelled(Exception):
     """Raised at a cancellation checkpoint after
     ``session.cancelAllQueries()`` — the cooperative analog of the
@@ -364,6 +381,10 @@ class SparkSession:
         # memory ledger, kept across re-enables
         self._crossproc_svc = None
         self._host_ledger = None
+        # the listener bus and the RDD entry point (sparkContext), made
+        # at first use
+        self._listener_manager = _ListenerManager()
+        self._sc = None
         from ..metrics import MetricsSystem, default_sources
         self._metrics_system = MetricsSystem(self.conf_obj)
         for src in default_sources(self):
@@ -387,6 +408,41 @@ class SparkSession:
         """Process-gauge sources (``metrics/MetricsSystem.scala``
         analog); ``snapshots()`` reads them on demand."""
         return self._metrics_system
+
+    # -- observability (LiveListenerBus + EventLoggingListener analogs) ---
+    @property
+    def listenerManager(self):
+        return self._listener_manager
+
+    def _events_wanted(self) -> bool:
+        """Whether a posted event reaches anyone: a listener, or the
+        event log (``spark.eventLog.dir``)."""
+        return bool(self._listener_manager._listeners
+                    or self.conf.get(C.EVENT_LOG_DIR))
+
+    def _post_event(self, event: Dict[str, Any]) -> None:
+        """Every listener gets the event (a failing one never fails the
+        query); with ``spark.eventLog.dir`` set it is appended to
+        ``<dir>/eventlog.jsonl``."""
+        for fn in list(self._listener_manager._listeners):
+            try:
+                fn(event)
+            except Exception:  # noqa: BLE001 — listeners never fail a query
+                pass
+        log_dir = self.conf.get(C.EVENT_LOG_DIR)
+        if log_dir:
+            os.makedirs(log_dir, exist_ok=True)
+            with open(os.path.join(log_dir, "eventlog.jsonl"), "a") as f:
+                f.write(json.dumps(event, default=str) + "\n")
+
+    @property
+    def sparkContext(self):
+        """The RDD entry point bound to this session (made at first
+        use)."""
+        if self._sc is None:
+            from ..rdd.context import SparkContext
+            self._sc = SparkContext(conf=self.conf_obj, session=self)
+        return self._sc
 
     # -- cooperative statement cancellation (cancelJobGroup analog) ------
     #
@@ -496,6 +552,7 @@ class SparkSession:
     def stop(self) -> None:
         if SparkSession._active is self:
             SparkSession._active = None
+        self._metrics_system.stop()
         self._adapted_factors.clear()
         self._cache.clear()           # releases the entries' device charges
 

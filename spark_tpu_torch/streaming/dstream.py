@@ -32,11 +32,18 @@ class StreamingContext:
     """`StreamingContext(sc, batchDuration)` analog; wraps a session."""
 
     def __init__(self, sparkContext=None, batchDuration: float = 1.0):
+        from ..rdd.context import SparkContext
         from ..sql.session import SparkSession
-        self._session = (sparkContext._session
-                         if sparkContext is not None and
-                         hasattr(sparkContext, "_session")
-                         else SparkSession.builder.getOrCreate())
+        # a SparkContext's ``_session`` is a method: call it (the JAX
+        # package takes the bound method itself as the session); any
+        # other holder's ``_session`` attribute is the session itself
+        if isinstance(sparkContext, SparkContext):
+            self._session = sparkContext._session()
+        elif sparkContext is not None and hasattr(sparkContext,
+                                                  "_session"):
+            self._session = sparkContext._session
+        else:
+            self._session = SparkSession.builder.getOrCreate()
         self.batchDuration = batchDuration
         self._sinks: List = []
         self._queries: List = []

@@ -3511,6 +3511,65 @@ def analysis_scenarios() -> List[dict]:
     ]
 
 
+# ---------------------------------------------------------------------------
+# state carried over from a fitted model or a graph of another engine
+# ---------------------------------------------------------------------------
+
+def _carried(value):
+    """A parameter value of another engine's model as plain Python and
+    numpy: arrays (numpy or any ``__array__``) as numpy, nested models
+    carried over, lists, tuples and dicts element by element."""
+    if isinstance(value, (str, bytes, bool, int, float)) or value is None:
+        return value
+    if isinstance(value, dict):
+        return {k: _carried(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_carried(v) for v in value)
+    if hasattr(value, "_values") and hasattr(value, "_params"):
+        return ml_model_from_reference(value)
+    if hasattr(value, "__array__"):
+        return np.asarray(value)
+    return value
+
+
+def ml_model_from_reference(model):
+    """A fitted ML model (or any params holder) of an engine laid out as
+    this package — ``<pkg>.ml.<module>.<Class>`` with a ``_values`` map
+    of params — as this package's model of the same module and class,
+    every param carried over as numpy (coefficients, centres, tree dicts,
+    factor matrices, layer weights; nested stages and encoders too).  The
+    model's ``transform`` then runs here on the same state."""
+    import importlib
+    mod = type(model).__module__
+    parts = mod.split(".")
+    if "ml" not in parts:
+        raise ValueError(f"{type(model).__name__} ({mod}) is not an ML "
+                         "params holder")
+    ours = importlib.import_module(
+        ".".join([__package__] + parts[parts.index("ml"):]))
+    cls = getattr(ours, type(model).__name__)
+    out = cls()
+    for name, value in model._values.items():
+        out.set(name, _carried(value))
+    return out
+
+
+def graph_from_reference(graph, device=None):
+    """A graph of an engine laid out as this package's ``graphx.Graph``
+    (``vertex_ids``, ``vertex_attrs``, ``src``, ``dst``, ``edge_attrs``
+    arrays) as this package's ``Graph`` on ``device`` (default: the
+    active session's)."""
+    from .graphx.graph import Graph, default_device
+    dev = torch.device(device) if device is not None else default_device()
+
+    def t(x):
+        return torch.from_numpy(np.array(x)).to(dev)
+    return Graph(t(graph.vertex_ids),
+                 {k: t(v) for k, v in graph.vertex_attrs.items()},
+                 t(graph.src), t(graph.dst),
+                 {k: t(v) for k, v in graph.edge_attrs.items()})
+
+
 def _main(argv: Sequence[str]) -> int:
     workers = {"crossproc-worker": crossproc_worker,
                "recovery-worker": recovery_worker,

@@ -131,3 +131,29 @@ def test_statement_splitters_match_reference(text):
     assert TC.split_sql_statements(text) == RC.split_sql_statements(text)
     assert TC.statements_if_complete(text) \
         == RC.statements_if_complete(text)
+
+
+def test_shell_binds_spark_and_its_spark_context(monkeypatch):
+    """``shell`` hands the REPL ``spark`` and ``sc`` (the session's
+    SparkContext, which the JAX package's shell binds too)."""
+    import argparse
+    import code
+    from spark_tpu_torch.rdd import SparkContext
+    from spark_tpu_torch.sql.session import SparkSession
+    seen = {}
+    monkeypatch.setattr(code, "interact",
+                        lambda banner, local: seen.update(local, b=banner))
+    active = SparkSession._active
+    SparkSession._active = None
+    try:
+        assert TC.cmd_shell(argparse.Namespace(
+            conf=["spark.torch.device=cpu"])) == 0
+        spark = seen["spark"]
+        assert isinstance(seen["sc"], SparkContext)
+        assert seen["sc"] is spark.sparkContext
+        assert seen["sc"]._session() is spark
+        assert "'sc'" in seen["b"]
+        assert seen["sc"].parallelize([1, 2, 3]).toDF(["x"]).count() == 3
+        spark.stop()
+    finally:
+        SparkSession._active = active

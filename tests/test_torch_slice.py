@@ -276,3 +276,34 @@ def test_worker_entries_load_neither(tmp_path, entry):
     assert line, (proc.stdout[-2000:], proc.stderr[-2000:])
     got = _json.loads(line[-1].split(" ", 1)[1])
     assert got == {"rc": 0, "bad": []}, (got, proc.stdout[-2000:])
+
+
+def test_the_guard_walks_the_rdd_ml_graphx_packages():
+    """RDD, ML, MLlib, GraphX and the history page are part of what the
+    guard reads."""
+    files = {os.path.relpath(p, REPO) for p in _port_files()}
+    want = {f"spark_tpu_torch/ml/{m}.py" for m in (
+        "__init__", "ann", "base", "classification", "clustering",
+        "evaluation", "feature", "fpm", "recommendation", "regression",
+        "stat", "tree", "tuning")}
+    want |= {f"spark_tpu_torch/rdd/{m}.py" for m in ("__init__", "context",
+                                                     "rdd")}
+    want |= {f"spark_tpu_torch/graphx/{m}.py" for m in ("__init__", "graph",
+                                                        "lib")}
+    want |= {"spark_tpu_torch/mllib/__init__.py", "spark_tpu_torch/ui.py"}
+    assert want <= files
+
+
+def test_every_module_of_the_jax_package_has_a_counterpart():
+    """A tree diff of module paths: every ``spark_tpu/**.py`` has a
+    ``spark_tpu_torch/**.py`` of the same path, but the Pallas kernel's
+    module, whose Hopper counterpart is ``cuda_agg.py``."""
+    def modules(pkg):
+        base = os.path.join(REPO, pkg)
+        return {os.path.relpath(os.path.join(root, f), base)
+                for root, _dirs, files in os.walk(base)
+                for f in files if f.endswith(".py")}
+    missing = modules("spark_tpu") - modules("spark_tpu_torch")
+    assert missing == {"pallas_agg.py"}
+    assert os.path.exists(os.path.join(REPO, "spark_tpu_torch",
+                                       "cuda_agg.py"))

@@ -701,3 +701,34 @@ def test_null_only_string_key_decode_reference_fault(pkgs, op, triggers):
         assert got == [[(None, 1)]]
     else:
         assert got == [[("a", 1)], [("a", 1), (None, 2)]]
+
+
+def test_streaming_context_from_spark_context_reference_fault(
+        spark, tspark, tmp_path):
+    """Named for a fault of the JAX package (ROADMAP §3): its
+    ``StreamingContext.__init__`` takes ``sparkContext._session`` — a
+    method of ``SparkContext`` — as the session, so a DStream made from
+    ``spark.sparkContext`` fails at ``textFileStream``.  The port calls
+    the method and its DStream's batches arrive."""
+    from spark_tpu.streaming.dstream import StreamingContext as RSC
+    from spark_tpu_torch.streaming.dstream import DStream
+    from spark_tpu_torch.streaming.dstream import StreamingContext as TSC
+    d = tmp_path / "in"
+    d.mkdir()
+    (d / "part-0.txt").write_text("alpha\nbeta\ngamma\n")
+    with pytest.raises(AttributeError, match="readStream"):
+        RSC(spark.sparkContext, 0.2).textFileStream(str(d))
+    ssc = TSC(tspark.sparkContext, 0.2)
+    assert ssc._session is tspark
+    stream = ssc.textFileStream(str(d))
+    assert isinstance(stream, DStream)
+    seen = []
+    stream.foreachRDD(lambda df: seen.extend(r[0] for r in df.collect()))
+    ssc.start()
+    try:
+        deadline = time.time() + 30
+        while time.time() < deadline and len(seen) < 3:
+            time.sleep(0.05)
+    finally:
+        ssc.stop()
+    assert sorted(seen) == ["alpha", "beta", "gamma"]

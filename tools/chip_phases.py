@@ -7,7 +7,7 @@ entries of the kernels line from its kernel check.
 
     python3 tools/chip_phases.py pool pool pool pool stream
 
-Phases: ``pool``, ``stream``, ``analysis``.  The last line is a JSON
+Phases: ``pool``, ``stream``, ``analysis``, ``ml``.  The last line is a JSON
 list of the runs (phase, ok, seconds, the failure); the exit code is 1
 if any run failed, 2 without a card or with an unknown phase."""
 
@@ -29,6 +29,7 @@ PHASES = {
     "analysis": lambda c: CS.phase_analysis(
         c["session"], c["hash_table"], c["tables"], c["k1"], c["k2"],
         c["pull"]),
+    "ml": lambda c: CS.phase_ml(c["session"], c["k1"], c["k2"], c["pull"]),
 }
 
 
