@@ -8,9 +8,9 @@ without printing a result:
 
 1. device — requires ``torch.cuda.is_available()``; prints the card's
    name and power limit as ``nvidia-smi`` reports them;
-2. build — compiles the grouped-accumulate kernel (K1) and the
-   all-to-all kernel (K2) from ``spark_tpu_torch/csrc/`` with ``nvcc`` for
-   ``sm_90a``, one ``nvcc`` per source, started together; prints
+2. build — compiles the grouped-accumulate kernel (K1), the all-to-all
+   kernel (K2) and ``lpt_assign`` from ``spark_tpu_torch/csrc/`` with
+   ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, started together; prints
    ``-Xptxas -v`` (registers, spills) and the atomics in K1's SASS;
 3. kernel check — K1's two entries against their plain PyTorch versions
    on the card, bit-exact: the columns entry (the main path's) at the
@@ -80,10 +80,22 @@ without printing a result:
 8. mesh slice — the same session with ``spark.tpu.mesh.shards = 4`` (all
    four shards on the card) runs the hash-agg lane, q3 with its
    broadcast joins and q3 with ``spark.sql.autoBroadcastJoinThreshold =
-   0`` (both joins shuffled through the skew join), recording every K2
-   call's inputs; each result is held against the same numpy oracle;
-   K2's launch count must rise during each query; warm wall time (median
-   of 5) and a profile line for each;
+   0`` (both joins shuffled through the skew join), each one stage-cache
+   entry: its first run (the stage cache emptied before) an eager
+   warm-up that records every K2 call's inputs and every
+   ``lpt_assign`` call's counts, then the capture of one CUDA graph
+   (K2's and ``lpt_assign``'s launches captured, build ms, the graph
+   pool beside the mesh reserve ``_plan_reserve_bytes(pq, 4)``, which
+   must cover it); each result held against the same numpy oracle; a
+   warm run must be a replay (dispatches + 1, no build, no K2 wrapper
+   call, K2's replayed launches counted on the host) whose rows equal
+   the eager mesh lane's (``spark.sql.codegen.wholeStage=false``) bit for
+   bit; warm walls (median of 5) in turns graph, eager, eager, graph; a
+   profile of each lane (host launch calls, device-busy share); then a
+   second seeded data set of the same shapes (hash-agg's table, q3's
+   store_sales) through the same entries, each equal to its oracle,
+   hash-agg's a replay of the same variant.  The phase prints its
+   seconds;
 9. K2 check — K2 against its plain PyTorch version on the card,
    bit-exact, at every exchange the three mesh queries made, at n = 2, 4
    and 8 with bool planes and int32 run tables whose blocks are not
@@ -101,6 +113,12 @@ without printing a result:
    its plain version's time and the one-call
    ``transpose(0, 1).contiguous()`` yardstick on the same bytes
    pre-stacked (which the port never calls), per call and back to back;
+   then ``lpt_assign`` against its plain version, bit-exact, at every
+   call of the mesh queries' warm-ups and at random, tied and two-valued
+   counts at 2, 4 and 8 shards, at 70 shards (more than one warp's
+   lanes) and with no bucket, and its time at the main path's 128
+   buckets (per call with its sort, back to back, alone) beside its
+   bound and its plain version's;
 10. complex — arrays, maps and structs at SF1 row counts
    (``testing.basket_tables``: store_sales as ~240,000 tickets of 8-16
    line items, 18,000 items; ``spark.tpu.collect.maxArrayLen`` = 16, the
@@ -423,11 +441,20 @@ without printing a result:
    before that run; K1's ``captured_launches``: those of its launches made while a
    graph was captured, and ``replayed_launches``: its launches the
    profiler saw in one replay of each hash-agg query),
+   K2's ``mesh``: per mesh query its first-run, build and captured and
+   eager warm walls, graph pool and reserve bytes, launches eager,
+   captured and replayed, host launch calls and busy shares, and
+   ``replayed_launches``: its launches in one replay of each; the
+   ``lpt_assign`` entry, its ``launches`` the wrapper's in the mesh
+   queries' first runs (warm-up and capture) and its replayed launches
+   per query),
    the card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Every profile line gives, beside the largest kernels, each hand-written
 kernel's own device time, its launches and its share of the run's
-device time.
+device time.  Since the mesh lane is captured, K2's count in a phase
+is its runs on the card counted on the host (``k2_runs``): the wrapper's
+launches outside a capture plus those the replayed graphs carried.
 
 Query data are made with numpy from fixed seeds, the kernels' extra
 check inputs with seeded torch generators.  The script imports neither
@@ -509,12 +536,15 @@ def host_ms(fn, warmup=3, reps=25):
 
 def zero_counts():
     """Every kernel's launch count to 0, just before a main-path run."""
-    from spark_tpu_torch import cuda_a2a, cuda_agg
+    from spark_tpu_torch import cuda_a2a, cuda_agg, cuda_lpt
     cuda_agg.LAUNCHES = 0
     for entry in cuda_agg.ENTRY_LAUNCHES:
         cuda_agg.ENTRY_LAUNCHES[entry] = 0
         cuda_agg.CAPTURED_LAUNCHES[entry] = 0
     cuda_a2a.LAUNCHES = 0
+    cuda_a2a.CAPTURED_LAUNCHES = cuda_a2a.REPLAYED_LAUNCHES = 0
+    cuda_lpt.LAUNCHES = 0
+    cuda_lpt.CAPTURED_LAUNCHES = cuda_lpt.REPLAYED_LAUNCHES = 0
 
 
 def clear_stage_cache():
@@ -556,10 +586,10 @@ def phase_device():
 
 
 def phase_build():
-    from spark_tpu_torch import cuda_a2a, cuda_agg, cuda_build
+    from spark_tpu_torch import cuda_a2a, cuda_agg, cuda_build, cuda_lpt
     t0 = time.perf_counter()
-    paths = cuda_build.build_all([cuda_agg.SOURCE, cuda_a2a.SOURCE],
-                                 verbose=True)
+    paths = cuda_build.build_all([cuda_agg.SOURCE, cuda_a2a.SOURCE,
+                                  cuda_lpt.SOURCE], verbose=True)
     print(f"[build] {', '.join(os.path.relpath(p) for p in paths)} in "
           f"{time.perf_counter() - t0:.2f} s (in parallel)", flush=True)
     cuobjdump = os.path.join(os.path.dirname(cuda_build._nvcc()),
@@ -670,7 +700,10 @@ def kernel_device_ms(fn, name, reps=20, attempts=3):
     the markers take those places.  One profile must see all ``reps``
     launches; a profile that saw fewer is printed with its device
     records in order and taken again, at most ``attempts`` times in
-    all."""
+    all, each time with four times the idle pad: a skew of the device
+    records' times against the host's clock drops the records at the
+    window's start (``KKKKm`` for five launches: the first marker and
+    the first launch gone) from every profile whose pad is shorter.""" 
     import torch
     from torch.profiler import ProfilerActivity, profile
     marker = torch.zeros(1, device="cuda")
@@ -678,14 +711,15 @@ def kernel_device_ms(fn, name, reps=20, attempts=3):
     marker.fill_(1.0)
     torch.cuda.synchronize()
     for attempt in range(1, attempts + 1):
+        pad = PROFILE_PAD_S * 4 ** (attempt - 1)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            time.sleep(PROFILE_PAD_S)
+            time.sleep(pad)
             marker.fill_(1.0)
             for _ in range(reps):
                 fn()
             marker.fill_(1.0)
             torch.cuda.synchronize()
-            time.sleep(PROFILE_PAD_S)
+            time.sleep(pad)
         hits = [(getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0)), e.count)
                 for e in prof.key_averages()
@@ -698,7 +732,8 @@ def kernel_device_ms(fn, name, reps=20, attempts=3):
                          if e.device_type == torch.autograd.DeviceType.CUDA)
         seq = "".join("K" if name in n else "m" if "FillFunctor" in n
                       else "?" for _t, n in records)
-        print(f"[profile] attempt {attempt}: the profiler saw {count} "
+        print(f"[profile] attempt {attempt} (idle pad {pad:.2f} s): the "
+              f"profiler saw {count} "
               f"launches of {name}, expected {reps}; device records in "
               f"order (K the kernel, m a marker): {seq}; others "
               f"{sorted({n[:80] for _t, n in records if name not in n and 'FillFunctor' not in n})}",
@@ -992,7 +1027,7 @@ def stacked_shapes(fn):
 
 #: the hand-written kernels by the name of their ``__global__`` function
 OWN_KERNELS = (("K1", "grouped_accumulate_kernel"),
-               ("K2", "all_to_all_kernel"))
+               ("K2", "all_to_all_kernel"), ("lpt", "lpt_assign_kernel"))
 
 
 #: CUDA runtime/driver calls that put work on a stream: a profile's host
@@ -1149,7 +1184,7 @@ def phase_sql(session, hash_df, hash_table, q3_df, tables, k1_entries):
     try:
         zero_counts()
         rows = session.sql(Q3_SQL).collect()
-        k2 = cuda_a2a.LAUNCHES
+        k2 = k2_runs()
         check(k2 > 0, "K2 was not launched during SQL q3 on the mesh lane")
         got = [tuple(r) for r in rows]
         check(got == q3_oracle(tables), f"mesh SQL q3 differs from the "
@@ -1480,7 +1515,7 @@ def phase_breadth(session, hash_table, tables, k1_entries):
     try:
         zero_counts()
         rows = [tuple(r) for r in session.sql(sql).collect()]
-        k2 = cuda_a2a.LAUNCHES
+        k2 = k2_runs()
         check(k2 > 0, "[breadth] K2 was not launched during the window text "
               "on the mesh lane")
         check(rows == results["window"], "[breadth] the window text at "
@@ -1713,67 +1748,337 @@ def phase_k2_check(captured, launches):
             "library_ms_back_to_back": library_b2b_ms}
 
 
-def phase_mesh(session, hash_df, hash_table, q3_df, tables):
-    """The mesh lane's three queries at 4 shards on the card.  Returns
-    every K2 call's inputs from their counted run, as (query, planes,
-    gather), and K2's launch count over that run."""
+def k2_runs():
+    """K2's runs on the card, counted on the host: the wrapper's launches
+    outside a capture and those the replays of captured graphs carried
+    (a launch made while a graph is captured records the kernel into the
+    graph; it runs only when the graph is replayed)."""
     from spark_tpu_torch import cuda_a2a
-    from spark_tpu_torch.testing import hash_agg_oracle, q3_oracle
+    return cuda_a2a.LAUNCHES - cuda_a2a.CAPTURED_LAUNCHES \
+        + cuda_a2a.REPLAYED_LAUNCHES
 
+
+def _k2_counts():
+    from spark_tpu_torch import cuda_a2a, cuda_lpt
+    return {"wrapper": cuda_a2a.LAUNCHES,
+            "captured": cuda_a2a.CAPTURED_LAUNCHES,
+            "replayed": cuda_a2a.REPLAYED_LAUNCHES,
+            "lpt": cuda_lpt.LAUNCHES,
+            "lpt_captured": cuda_lpt.CAPTURED_LAUNCHES,
+            "lpt_replayed": cuda_lpt.REPLAYED_LAUNCHES}
+
+
+def _delta(after, before):
+    return {k: after[k] - before[k] for k in after}
+
+
+def _mesh_entry(cache, keys_before):
+    """The mesh entry (``dist4|…``) a query used last: one built since
+    ``keys_before`` or the most recently used."""
+    mesh = [e for e in cache.entries() if e.key.startswith(
+        f"dist{MESH_SHARDS}|")]
+    new = [e for e in mesh if e.key not in keys_before]
+    return max(new or mesh, key=lambda e: e.last_used)
+
+
+#: seed of the mesh phase's second data set (the main tables' seeds are
+#: the generators' defaults)
+MESH_SECOND_SEED = 29
+
+
+def phase_mesh(session, hash_df, hash_table, q3_df, tables):
+    """The mesh lane's three queries at 4 shards on the card, each one
+    stage-cache entry captured as a CUDA graph.  Returns every K2 call's
+    inputs from the warm-up runs (the capture's calls run nothing), as
+    (query, planes, gather), K2's wrapper launches over the counted first
+    runs, the mesh numbers for the kernels line, every ``lpt_assign``
+    call's counts from those runs and its wrapper launches over them."""
+    import torch
+    from spark_tpu_torch import cuda_a2a, cuda_lpt
+    from spark_tpu_torch import types as T
+    from spark_tpu_torch.sql import functions as F
+    from spark_tpu_torch.sql.stagecompile import stage_cache
+    from spark_tpu_torch.testing import (hash_agg_oracle, hash_agg_query,
+                                         hash_agg_table, q3_oracle,
+                                         q3_query, q3_tables)
+
+    t_phase = time.perf_counter()
     want_hash = hash_agg_oracle(hash_table)
     want_q3 = q3_oracle(tables)
     runs = [("hash-agg", hash_df, None),
             ("q3 broadcast joins", q3_df, None),
             ("q3 shuffled joins", q3_df, 0)]
 
+    def rows_of(df):
+        if df is hash_df:
+            return sorted((r["k"], r["s"], r["c"]) for r in df.collect())
+        return [tuple(r) for r in df.collect()]
+
+    # every mesh query's first run below builds its entry: the earlier
+    # phases' graphs go, so none of these is a replay of theirs
+    clear_stage_cache()
+    cache = stage_cache()
+    mem = session._memory
+    reserves = []
+    acquire = mem.acquire_execution
+
+    def spy_reserve(owner, nbytes):
+        if owner.startswith("mesh:"):
+            reserves.append(nbytes)
+        return acquire(owner, nbytes)
+
     # record every K2 call's inputs for the kernel check (the spy only
-    # passes the call on: the count rises inside the wrapper it calls)
-    captured = []
-    launch = cuda_a2a.all_to_all
+    # passes the call on: the count rises inside the wrapper it calls),
+    # and every lpt_assign call's counts, outside the capture
+    captured, lpt_inputs = [], []
+    launch, assign = cuda_a2a.all_to_all, cuda_lpt.lpt_assign
     query = [None]
 
     def spy(planes, gather=False):
-        captured.append((query[0], [list(p) for p in planes], gather))
+        if not torch.cuda.is_current_stream_capturing():
+            captured.append((query[0], [list(p) for p in planes], gather))
         return launch(planes, gather)
 
+    def spy_lpt(counts, n_shards):
+        if not torch.cuda.is_current_stream_capturing():
+            lpt_inputs.append((counts.clone(), n_shards))
+        return assign(counts, n_shards)
+
     # the mesh lane's run: counts zeroed just before, read just after
-    counts = []
-    cuda_a2a.all_to_all = spy
+    first = {}
+    cuda_a2a.all_to_all, cuda_lpt.lpt_assign = spy, spy_lpt
+    mem.acquire_execution = spy_reserve
     try:
         zero_counts()
         for name, df, threshold in runs:
             _mesh(session, MESH_SHARDS, threshold)
             query[0] = name
-            before = cuda_a2a.LAUNCHES
-            rows = df.collect()
-            counts.append((name, df, rows, cuda_a2a.LAUNCHES - before))
-        launches = cuda_a2a.LAUNCHES
+            keys = {e.key for e in cache.entries()}
+            s0, c0, r0 = cache.stats(), _k2_counts(), len(reserves)
+            t0 = time.perf_counter()
+            got = rows_of(df)
+            ms = (time.perf_counter() - t0) * 1e3
+            s1, c1 = cache.stats(), _k2_counts()
+            entry = _mesh_entry(cache, keys)
+            first[name] = {"rows": got, "ms": ms, "k2": _delta(c1, c0),
+                           "builds": s1["builds"] - s0["builds"],
+                           "variants": s1["variants"] - s0["variants"],
+                           "build_ms": s1["compile_ms"] - s0["compile_ms"],
+                           "entry": entry, "reserve": max(reserves[r0:])}
+        launches, lpt_launches = cuda_a2a.LAUNCHES, cuda_lpt.LAUNCHES
     finally:
-        cuda_a2a.all_to_all = launch
-    for name, df, rows, count in counts:
-        check(count > 0, f"K2 was not launched during {name}")
-        if df is hash_df:
-            got = sorted((r["k"], r["s"], r["c"]) for r in rows)
-            check(got == want_hash, f"mesh {name} differs from the oracle")
-        else:
-            got = [tuple(r) for r in rows]
-            check(got == want_q3, f"mesh {name} differs from the oracle "
-                  f"(first rows {got[:2]} vs {want_q3[:2]})")
-        print(f"[mesh] {name} x{MESH_SHARDS} shards: {len(got)} rows equal "
-              f"to the oracle; K2 launches during the query: {count}",
-              flush=True)
+        cuda_a2a.all_to_all, cuda_lpt.lpt_assign = launch, assign
+        mem.acquire_execution = acquire
+    mesh_numbers = {}
+    for name, df, threshold in runs:
+        f = first[name]
+        k2 = f["k2"]
+        check(k2["captured"] > 0 and k2["wrapper"] > k2["captured"],
+              f"[mesh] {name}: K2 was not launched in the warm-up and "
+              f"captured ({k2})")
+        check(f["variants"] >= 1 and f["entry"].variants
+              and f["entry"].variants[-1].graph is not None,
+              f"[mesh] {name}: its first run captured no graph")
+        check(f["rows"] == (want_hash if df is hash_df else want_q3),
+              f"[mesh] {name} differs from the oracle")
+        v = f["entry"].variants[-1]
+        # the shards' allocations went to the graph's pool, and the
+        # memory pre-flight covered it
+        check(v.pool_bytes <= f["reserve"], f"[mesh] {name}: graph pool "
+              f"{v.pool_bytes} B above the reserve {f['reserve']} B")
+        print(f"[mesh] {name} x{MESH_SHARDS} shards, first run (eager "
+              f"warm-up, then the capture): {len(f['rows'])} rows equal to "
+              f"the oracle; {f['ms']:.2f} ms; stage builds {f['builds']}, "
+              f"variants {f['variants']}, build {f['build_ms']:.2f} ms; K2 "
+              f"launches {k2['wrapper'] - k2['captured']} eager + "
+              f"{k2['captured']} captured, lpt_assign "
+              f"{k2['lpt'] - k2['lpt_captured']} eager + "
+              f"{k2['lpt_captured']} captured; graph pool "
+              f"{v.pool_bytes} B + static {v.static_bytes} B beside the "
+              f"reserve {f['reserve']} B", flush=True)
     for query_name, planes, gather in captured:
         print(f"[k2]   {query_name}: {_a2a_desc(planes, gather)}: "
               f"{_a2a_bytes(planes, gather)} B", flush=True)
 
     for name, df, threshold in runs:
         _mesh(session, MESH_SHARDS, threshold)
-        ms = wall_ms(df.collect)
-        print(f"[mesh] {name} x{MESH_SHARDS}: warm wall time, median of 5: "
-              f"{ms:.2f} ms", flush=True)
-        profile_query(f"mesh {name}", df.collect)
+        f = first[name]
+        # a warm run is one replay: dispatches + 1, no build, no eager
+        # rerun (K2's wrapper not called), K2 counted from the graph
+        s0, c0 = cache.stats(), _k2_counts()
+        got = rows_of(df)
+        s1, k2 = cache.stats(), _delta(_k2_counts(), c0)
+        check(got == f["rows"], f"[mesh] {name}: the replay differs from "
+              "the first run")
+        check(s1["dispatches"] == s0["dispatches"] + 1
+              and s1["variants"] == s0["variants"]
+              and s1["guard_misses"] == s0["guard_misses"]
+              and k2["wrapper"] == 0 and k2["replayed"] > 0,
+              f"[mesh] {name}: the warm run was no replay (stage cache "
+              f"{s0} -> {s1}, K2 {k2})")
+        _lane(session, "eager")
+        try:
+            e0 = _k2_counts()
+            eager = rows_of(df)
+            k2_eager = _delta(_k2_counts(), e0)
+        finally:
+            _lane(session, "graph")
+        check(eager == got, f"[mesh] {name}: the captured lane's rows "
+              "differ from the eager mesh lane's")
+        # walls in turns: graph, eager, eager, graph
+        walls = []
+        for lane in ("graph", "eager", "eager", "graph"):
+            _lane(session, lane)
+            walls.append(wall_ms(df.collect))
+        _lane(session, "graph")
+        prof = profile_query(f"mesh {name} x{MESH_SHARDS} captured",
+                             df.collect)
+        _lane(session, "eager")
+        prof_eager = profile_query(f"mesh {name} x{MESH_SHARDS} eager",
+                                   df.collect)
+        _lane(session, "graph")
+        v = f["entry"].variants[-1]
+        mesh_numbers[name] = {
+            "first_ms": f["ms"], "build_ms": f["build_ms"],
+            "graph_walls_ms": [walls[0], walls[3]],
+            "eager_walls_ms": [walls[1], walls[2]],
+            "pool_bytes": v.pool_bytes, "static_bytes": v.static_bytes,
+            "reserve_bytes": f["reserve"],
+            "k2_eager": k2_eager["wrapper"], "k2_captured":
+                f["k2"]["captured"], "k2_replayed": k2["replayed"],
+            "lpt_replayed": k2["lpt_replayed"],
+            "host_launch_calls": prof["host_launch_calls"],
+            "host_launch_calls_eager": prof_eager["host_launch_calls"],
+            "busy": prof["busy"], "busy_eager": prof_eager["busy"],
+            "device_ms": prof["device_ms"]}
+        print(f"[mesh] {name} x{MESH_SHARDS}: warm run a replay (dispatches "
+              f"+1, no build, K2 {k2['replayed']} replayed launch(es) and "
+              f"no wrapper call, lpt_assign {k2['lpt_replayed']} replayed); "
+              f"rows equal to the eager mesh lane bit for bit (eager K2 "
+              f"launches {k2_eager['wrapper']}); warm wall, median of 5, in "
+              f"turns graph, eager, eager, graph: "
+              f"{', '.join(f'{w:.2f}' for w in walls)} ms; host launch "
+              f"calls {prof['host_launch_calls']} captured vs "
+              f"{prof_eager['host_launch_calls']} eager; device busy "
+              f"{prof['busy']:.1%} captured vs {prof_eager['busy']:.1%} "
+              f"eager", flush=True)
+
+    # a second seeded data set of the same shapes through the same
+    # entries: hash-agg's table anew, q3's store_sales anew (item and
+    # date_dim, whose dictionaries the variant depends on, kept)
+    hash2 = hash_agg_table(MAIN_N, MAIN_GROUPS, seed=MESH_SECOND_SEED)
+    sales2 = q3_tables(Q3_ROWS["store_sales"], Q3_ROWS["item"],
+                       Q3_ROWS["date_dim"],
+                       seed=MESH_SECOND_SEED)["store_sales"]
+    tables2 = dict(tables, store_sales=sales2)
+    second = [("hash-agg", hash_agg_query(session, F, hash2), None,
+               hash_agg_oracle(hash2)),
+              ("q3 broadcast joins", q3_query(session, F, T, tables2), None,
+               q3_oracle(tables2)),
+              ("q3 shuffled joins", q3_query(session, F, T, tables2), 0,
+               q3_oracle(tables2))]
+    for name, df, threshold, want in second:
+        _mesh(session, MESH_SHARDS, threshold)
+        s0, c0 = cache.stats(), _k2_counts()
+        if name == "hash-agg":
+            got = sorted((r["k"], r["s"], r["c"]) for r in df.collect())
+        else:
+            got = [tuple(r) for r in df.collect()]
+        s1, k2 = cache.stats(), _delta(_k2_counts(), c0)
+        check(got == want, f"[mesh] {name} on the second data set differs "
+              f"from its oracle")
+        replay = s1["builds"] == s0["builds"] \
+            and s1["variants"] == s0["variants"]
+        if name == "hash-agg":
+            check(replay and k2["replayed"] > 0, f"[mesh] {name} on the "
+                  f"second data set was no replay ({s0} -> {s1})")
+        mesh_numbers[name]["second_replay"] = replay
+        print(f"[mesh] {name} x{MESH_SHARDS}, second data set (seed "
+              f"{MESH_SECOND_SEED}): {len(got)} rows equal to its oracle; "
+              f"{'a replay of the same variant' if replay else 'built'} "
+              f"(builds +{s1['builds'] - s0['builds']}, variants "
+              f"+{s1['variants'] - s0['variants']}, guard misses "
+              f"+{s1['guard_misses'] - s0['guard_misses']}); K2 "
+              f"{k2['replayed']} replayed, {k2['wrapper']} wrapper "
+              "launches", flush=True)
     _mesh(session, 1)
-    return captured, launches
+    print(f"[mesh] stage cache {cache.stats()}", flush=True)
+    clear_stage_cache()
+    print(f"[mesh] phase {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return captured, launches, mesh_numbers, lpt_inputs, lpt_launches
+
+
+def _lpt_cases(recorded):
+    """``lpt_assign``'s check inputs: the main path's counts, then random
+    and tied counts at 2, 4 and 8 shards, more shards than one warp's
+    lanes, and no bucket at all."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(70)
+    cases = [(f"[mesh] call {i} (n_fine {c.shape[0]}, {n} shards)", c, n)
+             for i, (c, n) in enumerate(recorded)]
+    for n in (2, 4, 8):
+        cases.append((f"random counts, {n} shards", torch.randint(
+            0, 10**6, (32 * n,), generator=g, device="cuda"), n))
+        cases.append((f"every count tied, {n} shards", torch.full(
+            (32 * n,), 3, dtype=torch.int64, device="cuda"), n))
+        few = torch.full((32 * n,), 5, dtype=torch.int64, device="cuda")
+        few[torch.randint(0, 32 * n, (4,), generator=g, device="cuda")] = 9
+        cases.append((f"two values, {n} shards", few, n))
+    cases.append(("70 shards (three lanes' worth), 4,480 buckets",
+                  torch.randint(0, 1000, (70 * 64,), generator=g,
+                                device="cuda"), 70))
+    cases.append(("no bucket", torch.zeros(0, dtype=torch.int64,
+                                           device="cuda"), 4))
+    return cases
+
+
+def phase_lpt_check(recorded, launches, replayed):
+    """``lpt_assign`` against its plain version on the card, bit-exact,
+    at every call the mesh queries made and at edge inputs; its time at
+    the main path's shape.  Returns its entry for the kernels line."""
+    import torch
+    from spark_tpu_torch import cuda_lpt
+    check(recorded, "[lpt] the mesh queries made no lpt_assign call")
+    for name, counts, n in _lpt_cases(recorded):
+        got = cuda_lpt.lpt_assign(counts, n)
+        want = cuda_lpt.lpt_assign_plain(counts, n)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            check(g.dtype == w.dtype and torch.equal(g, w),
+                  f"[lpt] lpt_assign differs from its plain version at "
+                  f"{name}")
+        print(f"[lpt] {name}: bit-exact", flush=True)
+    counts, n = recorded[0]
+    n_fine = counts.shape[0]
+    ms = cuda_ms(lambda: cuda_lpt.lpt_assign(counts, n))
+    b2b = cuda_ms_back_to_back(lambda: cuda_lpt.lpt_assign(counts, n))
+    alone = kernel_device_ms(lambda: cuda_lpt.lpt_assign(counts, n),
+                             "lpt_assign_kernel", reps=5)
+    plain_ms = cuda_ms(lambda: cuda_lpt.lpt_assign_plain(counts, n),
+                       warmup=1, reps=5)
+    # the counts and the order read once, the assignment and loads
+    # written once; n_fine * n comparisons at the card's 32-bit
+    # non-tensor rate (67 TFLOP/s)
+    nbytes = n_fine * (8 + 8 + 4) + n * 8
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_fine * n / 67e12 * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    print(f"[lpt] lpt_assign at the main path's shape ({n_fine} buckets, "
+          f"{n} shards): {ms:.4f} ms per call with its sort (CUDA events), "
+          f"{b2b:.4f} ms back to back, kernel alone {alone:.4f} ms "
+          f"(profiler); plain {plain_ms:.4f} ms; bound {bound_ms:.7f} ms "
+          f"by {'bytes' if bytes_ms >= ops_ms else 'operations'} ({nbytes} "
+          f"B at 3.35 TB/s); no PyTorch call computes the greedy packing",
+          flush=True)
+    return {"name": "lpt_assign", "route": "cuda",
+            "source": "spark_tpu_torch/csrc/lpt_assign.cu",
+            "replaces": "spark_tpu/parallel/collective.py:106",
+            "launches": launches, "replayed_launches": replayed,
+            "max_abs_err": 0, "ms": ms, "ms_back_to_back": b2b,
+            "kernel_alone_ms": alone, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -1944,7 +2249,7 @@ def phase_complex(session, k1_entries, k2_entry):
         parts_df = ss.select(F.spark_partition_id().alias("p")) \
             .groupBy("p").count()
         pid = sorted(tuple(r) for r in parts_df.collect())
-        k2 = cuda_a2a.LAUNCHES
+        k2 = k2_runs()
         k2_entry["complex_launches"] = k2
         check(k2 > 0, "[complex] K2 was not launched on the mesh lane")
         why = complex_mismatch(four, want["baskets"])
@@ -2368,13 +2673,14 @@ def phase_server(session, hash_table, tables, k1_entries, k2_entry, card):
                                  "session": sid})
     mesh = []
     # the mesh statements' run: counts zeroed just before, read just after
+    mesh_variants = stage_cache().stats()["variants"]
     zero_counts()
     for _ in range(2):
-        before = cuda_a2a.LAUNCHES
+        before = k2_runs()
         status, body, ms = _http(port, "/sql", "POST",
                                  {"query": Q3_SQL, "session": sid})
-        mesh.append((status, body, cuda_a2a.LAUNCHES - before, ms))
-    k2_entry["server_launches"] = cuda_a2a.LAUNCHES
+        mesh.append((status, body, k2_runs() - before, ms))
+    k2_entry["server_launches"] = k2_runs()
     _http(port, "/sql", "POST", {"query": f"SET {SHARDS_KEY}=1",
                                  "session": sid})
     for status, body, k2, _ms in mesh:
@@ -2383,10 +2689,13 @@ def phase_server(session, hash_table, tables, k1_entries, k2_entry, card):
               f"{str(body)[:200]}")
     check(mesh[1][1]["cacheHit"] is True, "[server] the mesh repeat was "
           "not a hit")
-    print(f"[server] mesh q3 x{MESH_SHARDS}: K2 launches {mesh[0][2]} then "
-          f"{mesh[1][2]}; HTTP wall {mesh[0][3]:.2f} then {mesh[1][3]:.2f} ms;"
-          f" the repeat a plan-cache hit through run_staged; rows equal the "
-          "oracle", flush=True)
+    print(f"[server] mesh q3 x{MESH_SHARDS}: K2 runs {mesh[0][2]} then "
+          f"{mesh[1][2]} (captured {cuda_a2a.CAPTURED_LAUNCHES}, replayed "
+          f"{cuda_a2a.REPLAYED_LAUNCHES}; graph builds "
+          f"{stage_cache().stats()['variants'] - mesh_variants}); HTTP wall "
+          f"{mesh[0][3]:.2f} then {mesh[1][3]:.2f} ms; the repeat a "
+          "plan-cache hit through run_staged; rows equal the oracle",
+          flush=True)
 
     # an evicted graph's pool goes back to the card
     torch.cuda.synchronize()
@@ -2853,7 +3162,7 @@ def phase_scan(session, hash_table, tables, k1_entries, k2_entry, tpcds):
         try:
             zero_counts()
             rows = sorted(tuple(r) for r in scan.sql(HASH_AGG_SQL).collect())
-            k2 = cuda_a2a.LAUNCHES
+            k2 = k2_runs()
         finally:
             _mesh(scan, 1)
         check(k2 == 1 and rows == mem["a"],
@@ -3315,16 +3624,19 @@ def phase_ooc(session, k1_entries, k2_entry, root):
     _mesh(mesh, MESH_SHARDS)
     want_q93 = q93_oracle(t1, rows1)
 
-    # record every K2 call of the two runs, its output included (the
-    # spy only passes the call on: the count rises inside the wrapper)
+    # record every K2 call of the two runs that runs at once, its output
+    # included (the spy only passes the call on: the count rises inside
+    # the wrapper); a call made while a graph is captured runs nothing
+    # then, and its replays never reach the wrapper
     captured = []
     launch = cuda_a2a.all_to_all
 
     def spy(planes, gather=False):
         out = launch(planes, gather)
-        captured.append((key, [list(p) for p in planes], gather, out))
+        if not torch.cuda.is_current_stream_capturing():
+            captured.append((key, [list(p) for p in planes], gather, out))
         return out
-    k2 = {}
+    k2, eager = {}, {}
     cuda_a2a.all_to_all = spy
     try:
         for key, sql, rows, ok in (
@@ -3334,20 +3646,24 @@ def phase_ooc(session, k1_entries, k2_entry, root):
                 ("c", Q93_SQL, rows_c, lambda g: ok_q93(g, want_q93))):
             zero_counts()
             got, m = _ooc_run(mesh, lambda: rows(mesh.sql(sql)))
-            k2[key] = cuda_a2a.LAUNCHES
+            k2[key] = k2_runs()
+            eager[key] = cuda_a2a.LAUNCHES - cuda_a2a.CAPTURED_LAUNCHES
             check(ok(got) and m["batches"] > 0, f"[ooc] ({key}) at "
                   f"{MESH_SHARDS} shards differs from its oracle")
             print(f"[ooc] ({key}) at {MESH_SHARDS} shards, SF1 row "
                   f"counts, {OOC_MESH_BATCH}-row batches: equal to its "
                   f"oracle; wall {m['wall_ms']:.2f} ms, {m['batches']} "
                   f"batches, grace joins {m['grace_joins']}, K2 launches "
-                  f"{k2[key]}", flush=True)
+                  f"{k2[key]} (captured {cuda_a2a.CAPTURED_LAUNCHES}, "
+                  f"replayed {cuda_a2a.REPLAYED_LAUNCHES}), graph builds "
+                  f"{m['builds']}", flush=True)
     finally:
         cuda_a2a.all_to_all = launch
     check(k2["c"] >= 1, f"[ooc] (c) at {MESH_SHARDS} shards launched K2 "
           f"{k2['c']} times")
-    check(len(captured) == k2["a"] + k2["c"], f"[ooc] the spy saw "
-          f"{len(captured)} K2 calls, the counts {k2}")
+    check(len(captured) == eager["a"] + eager["c"], f"[ooc] the spy saw "
+          f"{len(captured)} K2 calls, the counts {eager} outside a capture "
+          f"({k2} with the replays)")
     for i, (key, planes, gather, out) in enumerate(captured):
         plain = cuda_a2a.all_to_all_plain(planes, gather)
         check(len(out) == len(plain) and all(
@@ -3356,8 +3672,9 @@ def phase_ooc(session, k1_entries, k2_entry, root):
             f"[ooc] ({key}) at {MESH_SHARDS} shards: K2 call {i} "
             f"differs from its plain version ({_a2a_desc(planes, gather)})")
     print(f"[ooc] K2 at {MESH_SHARDS} shards: all {len(captured)} calls "
-          f"of (a) and (c) bit-exact against all_to_all_plain on their "
-          f"own planes", flush=True)
+          f"of (a) and (c) outside a capture bit-exact against "
+          f"all_to_all_plain on their own planes; K2 runs with the "
+          f"replays {k2}", flush=True)
     del captured
     k2_entry["ooc_launches"] = k2["c"]
     k2_entry["ooc_launches_hash_agg"] = k2["a"]
@@ -3548,7 +3865,8 @@ def phase_cache(session, hash_table, tables, k1_entries, k2_entry, ooc,
 
     def spy_a2a(planes, gather=False):
         out = a2a(planes, gather)
-        captured.append(([list(p) for p in planes], gather, out))
+        if not torch.cuda.is_current_stream_capturing():
+            captured.append(([list(p) for p in planes], gather, out))
         return out
     _mesh(c, MESH_SHARDS)
     zero_counts()
@@ -3558,12 +3876,14 @@ def phase_cache(session, hash_table, tables, k1_entries, k2_entry, ooc,
     finally:
         cuda_a2a.all_to_all = a2a
         _mesh(c, 1)
-    k2_cache = cuda_a2a.LAUNCHES
+    k2_cache = k2_runs()
+    k2_eager = cuda_a2a.LAUNCHES - cuda_a2a.CAPTURED_LAUNCHES
     check(got == want["hash-agg"] and k2_cache >= 1,
           f"[cache] (a) hash-agg over the cache at {MESH_SHARDS} shards: "
           f"K2 launches {k2_cache}, equal {got == want['hash-agg']}")
-    check(len(captured) == k2_cache, f"[cache] the spy saw "
-          f"{len(captured)} K2 calls, the count {k2_cache}")
+    check(len(captured) == k2_eager, f"[cache] the spy saw "
+          f"{len(captured)} K2 calls, the count outside a capture "
+          f"{k2_eager}")
     for i, (planes, gather, out) in enumerate(captured):
         plain = cuda_a2a.all_to_all_plain(planes, gather)
         check(all(g.dtype == w.dtype and torch.equal(g, w)
@@ -6029,11 +6349,18 @@ def main() -> int:
             else {}
     k2_breadth_launches = phase_breadth(session, hash_table, tables,
                                         k1_entries)
-    captured, k2_launches = phase_mesh(session, hash_df, hash_table, q3_df,
-                                       tables)
+    captured, k2_launches, mesh_numbers, lpt_inputs, lpt_launches = \
+        phase_mesh(session, hash_df, hash_table, q3_df, tables)
     k2_entry = phase_k2_check(captured, k2_launches)
     k2_entry["sql_launches"] = k2_sql_launches
     k2_entry["breadth_launches"] = k2_breadth_launches
+    k2_entry["mesh"] = mesh_numbers
+    k2_entry["replayed_launches"] = {
+        name: m["k2_replayed"] for name, m in mesh_numbers.items()}
+    lpt_entry = phase_lpt_check(
+        lpt_inputs, lpt_launches,
+        {name: m["lpt_replayed"] for name, m in mesh_numbers.items()})
+    del captured, lpt_inputs
     basket_tables, baskets_want = phase_complex(session, k1_entries,
                                                 k2_entry)
     srv = phase_server(session, hash_table, tables, k1_entries, k2_entry,
@@ -6061,7 +6388,8 @@ def main() -> int:
     phase_ml(session, k1_entries, k2_entry, pull_entry)
     session.stop()
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": k1_entries + [k2_entry, pull_entry]}))
+    print(json.dumps({"kernels": k1_entries + [k2_entry, pull_entry,
+                                                lpt_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,14 @@ Replay serves decisions and constants by position: the stage entry keys
 each record by everything the sequence depends on (the plan, the leaf
 shapes and dictionaries, the recorded decisions), so a replay that asks
 for something else than the record holds is a fault and raises.
+
+A mesh entry's run spans threads: ``spmd.run_shards`` runs each shard in
+a thread of its own.  ``shard_scope(parent, shard)`` gives shard
+``shard``'s thread a run of its own over the parent record's
+``shard(shard)`` record, in the parent's mode; the shards take turns in
+a fixed order, so each shard record is deterministic.  At the end of the
+shard's program its record must be used whole, and its guard flags go
+to the parent run (``add_shard_guards``, in shard order).
 """
 
 from __future__ import annotations
@@ -42,13 +50,22 @@ class StageDivergence(RuntimeError):
 
 
 class StageRecord:
-    """What one record run decided and built, in order."""
+    """What one record run decided and built, in order; on the mesh lane
+    also each shard's own record (``shard``)."""
 
-    __slots__ = ("decisions", "constants")
+    __slots__ = ("decisions", "constants", "shards")
 
     def __init__(self):
         self.decisions: List[bool] = []
         self.constants: List[torch.Tensor] = []
+        self.shards: List["StageRecord"] = []
+
+    def shard(self, index: int) -> "StageRecord":
+        """Shard ``index``'s record (made on first use, by a record run:
+        the threads ask in turn, so the list grows in shard order)."""
+        while len(self.shards) <= index:
+            self.shards.append(StageRecord())
+        return self.shards[index]
 
 
 class StageRun:
@@ -111,6 +128,40 @@ class _Active(threading.local):
 
 
 _active = _Active()
+
+
+def active_run() -> Optional[StageRun]:
+    """This thread's active stage run, or None."""
+    return _active.run
+
+
+@contextlib.contextmanager
+def shard_scope(parent: Optional[StageRun], shard: int,
+                guards: List[List[torch.Tensor]]) -> Iterator[None]:
+    """Inside a shard thread of a run over ``parent`` (None: no stage run,
+    the eager lane): this shard's run over ``parent.record.shard(shard)``,
+    in the parent's mode.  When the shard's program ends its record must
+    be used whole; its guard flags are put in ``guards[shard]``.  A replay
+    of a record that holds no such shard diverges."""
+    if parent is None:
+        yield
+        return
+    if parent.replay and shard >= len(parent.record.shards):
+        raise StageDivergence(
+            f"replay asked for shard {shard}, the record holds "
+            f"{len(parent.record.shards)}")
+    with stage_run(parent.record.shard(shard), parent.replay) as run:
+        yield
+        run.check_consumed()
+    guards[shard] = run.guards
+
+
+def add_shard_guards(parent: Optional[StageRun],
+                     guards: List[List[torch.Tensor]]) -> None:
+    """Every shard's guard flags, in shard order, onto the parent run's."""
+    if parent is not None:
+        for g in guards:
+            parent.guards.extend(g)
 
 
 @contextlib.contextmanager

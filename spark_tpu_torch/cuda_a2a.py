@@ -34,6 +34,14 @@ table passed as a kernel parameter — built with ``nvcc`` at first use
 into ``build/kernels/`` and bound with ctypes — or raises; on CPU tensors
 it runs the plain PyTorch version (one ``torch.stack`` per plane).  There
 is no fallback from one to the other.
+
+A mesh query's stage-cache entry captures its exchanges into a CUDA
+graph, which freezes each launch's pointer table.  That is right only
+because every pointer in it is to memory whose address a replay finds
+unchanged — the entry's static buffers, its record's constants, its
+graph pool — and the wrapper raises under a capture on any other
+(``CAPTURE_SOURCES``).  A replay launches the kernel without calling the
+wrapper: the stage cache counts those launches (``REPLAYED_LAUNCHES``).
 """
 
 from __future__ import annotations
@@ -56,8 +64,22 @@ CHUNK_BYTES = 64 * 1024
 MAX_TABLE_ENTRIES = 4088
 
 #: kernel launches so far (a plain count: ``chip_smoke.py`` zeroes it and
-#: reads it around the main path to show the path went through the kernel)
+#: reads it around the main path to show the path went through the
+#: kernel).  A launch made while a CUDA graph is captured (a mesh query's
+#: stage-cache entry) counts here and in ``CAPTURED_LAUNCHES``; the
+#: graph's replays launch the kernel without the wrapper, and the stage
+#: cache adds each replayed graph's captured launches to
+#: ``REPLAYED_LAUNCHES``
 LAUNCHES = 0
+CAPTURED_LAUNCHES = 0
+REPLAYED_LAUNCHES = 0
+
+#: set by the stage cache while it captures a mesh entry: ``fn(ptr)`` is
+#: True for an address a replay finds unchanged (the entry's static
+#: buffers, its record's constants, its graph pool).  A capture freezes
+#: the pointer table into the graph, so a capture without it, or one that
+#: meets another address, raises
+CAPTURE_SOURCES = None
 
 #: cross-process pull launches so far (``pull``), counted apart from the
 #: in-process exchanges of ``LAUNCHES``
@@ -145,7 +167,7 @@ def all_to_all(planes: Sequence[Sequence[torch.Tensor]],
     """Exchange every plane among the n participants in one launch; see
     the module docstring.  CPU tensors take the plain version; CUDA tensors
     launch the kernel or raise."""
-    global LAUNCHES
+    global LAUNCHES, CAPTURED_LAUNCHES
     n = _check(planes, gather)
     device = planes[0][0].device
     if device.type == "cpu":
@@ -173,6 +195,9 @@ def all_to_all(planes: Sequence[Sequence[torch.Tensor]],
         raise ValueError(f"all_to_all: {len(planes)} planes of {n} "
                          f"participants need {len(entries)} table entries; "
                          f"one launch takes {MAX_TABLE_ENTRIES}")
+    capturing = torch.cuda.is_current_stream_capturing()
+    if capturing:
+        _check_captured_pointers(src + dst)
     table = (ctypes.c_longlong * len(entries))(*entries)
     lib = cuda_build.load(SOURCE, _bind)
     with torch.cuda.device(device):      # the launch uses the current card
@@ -183,7 +208,27 @@ def all_to_all(planes: Sequence[Sequence[torch.Tensor]],
         raise RuntimeError(f"all_to_all kernel failed: CUDA error {rc} "
                            f"(planes={len(planes)}, n={n}, items={total})")
     LAUNCHES += 1
+    if capturing:
+        CAPTURED_LAUNCHES += 1
     return outs
+
+
+def _check_captured_pointers(pointers: Sequence[int]) -> None:
+    """Under a capture the launch's pointer table is frozen into the
+    graph: every pointer in it must be to memory whose address a replay
+    finds unchanged (``CAPTURE_SOURCES``), or the capture raises."""
+    ok = CAPTURE_SOURCES
+    if ok is None:
+        raise RuntimeError(
+            "all_to_all: captured outside a mesh stage-cache entry; its "
+            "pointer table would freeze addresses nothing keeps")
+    bad = [p for p in pointers if not ok(p)]
+    if bad:
+        raise RuntimeError(
+            f"all_to_all: a captured launch reads or writes "
+            f"{len(bad)} address(es) outside the entry's static buffers, "
+            f"constants and graph pool (first 0x{bad[0]:x}); a replay "
+            f"would follow them after they are freed")
 
 
 # ---------------------------------------------------------------------------

@@ -21,9 +21,9 @@ from __future__ import annotations
 
 from typing import List, Tuple
 
-import numpy as np
 import torch
 
+from .. import cuda_lpt
 from ..columnar import ColumnBatch, ColumnVector, pad_capacity
 from ..kernels import multi_key_argsort, searchsorted, take_batch
 
@@ -57,7 +57,7 @@ def hash_exchange(ctx, batch: ColumnBatch, bucket: torch.Tensor,
     dev = batch.device
     live = batch.row_valid_or_true()
     b = torch.where(live, bucket.to(torch.int32),
-                    torch.tensor(n_shards, dtype=torch.int32, device=dev))
+                    torch.full((), n_shards, dtype=torch.int32, device=dev))
 
     perm = multi_key_argsort([b], C)
     bs = b[perm]
@@ -112,21 +112,12 @@ def balanced_assignment(counts: torch.Tensor, n_shards: int
     """Greedy LPT packing of fine buckets onto shards: heaviest bucket
     first (a STABLE order, so equal counts keep bucket order), always onto
     the least-loaded shard (the first one on a tie).  A pure function of
-    the psum'd counts, so every shard gets the same assignment; it has
-    only n_fine steps and runs on the host after one transfer — callers
-    run it once per collective (``Communicator.once``).  Returns
-    (assignment (B,) int32, per-shard loads (n_shards,)) on the counts'
-    device."""
-    c = counts.cpu().numpy()
-    order = np.argsort(-c, kind="stable")
-    loads = np.zeros(n_shards, c.dtype)
-    assign = np.zeros(c.shape[0], np.int32)
-    for j in order:
-        s = int(np.argmin(loads))
-        loads[s] += c[j]
-        assign[j] = s
-    dev = counts.device
-    return torch.from_numpy(assign).to(dev), torch.from_numpy(loads).to(dev)
+    the psum'd counts, so every shard gets the same assignment; callers
+    run it once per collective (``Communicator.once``).  On the card it is
+    one launch of the ``lpt_assign`` kernel (``cuda_lpt``), with no host
+    read, so a captured mesh query holds it.  Returns (assignment (B,)
+    int32, per-shard loads (n_shards,)) on the counts' device."""
+    return cuda_lpt.lpt_assign(counts, n_shards)
 
 
 def replicate_selected(ctx, batch: ColumnBatch, mask: torch.Tensor,
@@ -196,7 +187,7 @@ def sampled_splitters_multi(ctx, keys: List[torch.Tensor],
     dev = keys[0].device
     stride = max(C // samples_per_shard, 1)
     idx = torch.arange(samples_per_shard, device=dev) * stride % C
-    big = torch.tensor(_I64_MAX, dtype=torch.int64, device=dev)
+    big = torch.full((), _I64_MAX, dtype=torch.int64, device=dev)
     samples = [torch.where(live[idx], k[idx], big) for k in keys]
     cols = [g.reshape(-1) for g in ctx.comm.all_gather(ctx.shard, samples)]
     order = multi_key_argsort(cols, cols[0].shape[0])

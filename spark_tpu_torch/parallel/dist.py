@@ -330,8 +330,8 @@ class DSkewJoin(PJoin):
         # per-shard even share of GLOBAL probe rows (float32, as the JAX
         # package computes it, so the hot set agrees at the edge)
         total = pcounts.sum()
-        threshold = total.to(torch.float32) * torch.tensor(
-            self.spread_frac / n, dtype=torch.float32, device=ctx.device)
+        threshold = total.to(torch.float32) * torch.full(
+            (), self.spread_frac / n, dtype=torch.float32, device=ctx.device)
         hot = pcounts.to(torch.float32) > threshold
 
         # balanced assignment over the NON-hot load of both sides
@@ -463,8 +463,8 @@ def _first_last_reduce(rank_s, dead_rank, value_s, validplane_s, seg_ids,
     win = (rank_s == r_mine) & (rank_s != dead_rank)
     if value_s.dtype == torch.bool:
         value_s = value_s.to(torch.int8)
-    ident = torch.tensor(identity("max", value_s.dtype), dtype=value_s.dtype,
-                         device=value_s.device)
+    ident = torch.full((), identity("max", value_s.dtype),
+                       dtype=value_s.dtype, device=value_s.device)
     v_red = red(torch.where(win, value_s, ident), "max")
     masked_valid = torch.where(win, validplane_s.to(torch.int8), 0) \
         .to(torch.int8)
@@ -625,8 +625,8 @@ class DFinalAggregate(DNode):
             bufs = []
             for j, kind in enumerate(self._buffer_kinds(func)):
                 col = batch.column(bnames[j])
-                ident = torch.tensor(identity(kind, col.data.dtype),
-                                     dtype=col.data.dtype, device=dev)
+                ident = torch.full((), identity(kind, col.data.dtype),
+                                   dtype=col.data.dtype, device=dev)
                 masked = torch.where(live, col.data, ident)
                 bufs.append(_reduce_buf(masked, perm, seg_ids, capacity,
                                         kind))
@@ -723,8 +723,8 @@ class DMergePartial(DNode):
                 continue
             for j, kind in enumerate(DFinalAggregate._buffer_kinds(func)):
                 col = batch.column(bnames[j])
-                ident = torch.tensor(identity(kind, col.data.dtype),
-                                     dtype=col.data.dtype, device=dev)
+                ident = torch.full((), identity(kind, col.data.dtype),
+                                   dtype=col.data.dtype, device=dev)
                 masked = torch.where(live, col.data, ident)
                 names.append(bnames[j])
                 vectors.append(ColumnVector(

@@ -6,6 +6,17 @@ one SPMD program (``spmd.run_shards``, the ``shard_map`` counterpart)
 whose collectives are the stage boundaries.  The result is every shard's
 compacted output joined in shard order, then compacted — the order that
 makes a range-partitioned ORDER BY come out globally sorted.
+
+With ``spark.sql.codegen.wholeStage`` on (the default) that program is
+ONE entry of the process-local stage cache (``sql/stagecompile.py``),
+keyed ``dist{n}|{stage fingerprint}|{leaf signature}|{conf}`` — the
+counterpart of the reference's ``jax.jit(shard_map(...))`` cached under
+``dist{n}:``: on a card one captured CUDA graph holds every shard's
+operators, every K2 all-to-all and all-gather, the ``lpt_assign``
+launches, the psum/pmax reductions and the flags, and a warm query is
+one replay.  Off, the same program runs eagerly.  The entry's leaves are
+the query's whole leaf batches (its static buffers); the shards' slices
+are cut inside the program (``shard_leaf``).
 """
 
 from __future__ import annotations
@@ -15,7 +26,10 @@ from typing import List, Optional, Tuple
 
 import torch
 
+import numpy as np
+
 from .. import config as C
+from .. import expressions as E
 from ..aggregates import First
 from ..columnar import ColumnBatch, ColumnVector, pad_capacity
 from ..expressions import Col
@@ -26,8 +40,8 @@ from ..sql.logical import (Aggregate, Distinct, FileRelation, Filter, Join,
                            Limit, LocalRelation, LogicalPlan, Project,
                            RangeRelation, Sample, Sort, SubqueryAlias)
 from ..sql.window import WindowNode
-from ..sql.planner import (ADAPT_MAX_RETRIES, Planner, _slice_to_host,
-                           check_planned_join_capacities,
+from ..sql.planner import (ADAPT_MAX_RETRIES, Planner, _plan_reserve_bytes,
+                           _slice_to_host, check_planned_join_capacities,
                            grow_capacity_factor)
 from . import dist as D
 from .mesh import Mesh, mesh_shards
@@ -294,45 +308,115 @@ class DistributedExecution:
             # execution; cached factors already proved they fit
             check_planned_join_capacities(pq, self.session,
                                           "distributed join")
-        physical = pq.physical
+        # the program's device working set — every shard's intermediates,
+        # which a captured entry's pool holds for its lifetime — is
+        # reserved before dispatch, as on the single-device lane
+        mem = self.session._memory
+        owner = f"mesh:{id(self)}"
+        mem.acquire_execution(owner, _plan_reserve_bytes(pq, self.n))
+        try:
+            return self._dispatch(optimized, pq)
+        finally:
+            mem.release_execution(owner)
+
+    def _dispatch(self, optimized: LogicalPlan, pq
+                  ) -> Tuple[Optional[ColumnBatch], float, float, int]:
+        """One run of ``pq``'s SPMD program: through its stage-cache entry
+        (``dist{n}|…``), or eagerly with ``wholeStage`` off or a row-lane
+        UDF in the plan (its host copies are a stage break)."""
+        from ..sql import stagecompile as SC
+        from ..sql.udf import plan_has_slow_udf
+        session = self.session
         device = self.mesh.device
-        leaves = [shard_leaf(self.mesh, b) for b in pq.leaves]
+        # the shards cut leaves by rows, which a run plane cannot follow
+        leaves = SC.entry_leaves(pq.leaves, device)
+
+        def finish(out, host, meta):
+            caps, kinds = meta
+            ex_ratio, join_ratio, shrink_need = _overflow(host[1:], caps,
+                                                          kinds)
+            if ex_ratio > 0.0 or join_ratio > 0.0 or shrink_need > 0:
+                return None, ex_ratio, join_ratio, shrink_need
+            return _slice_to_host(out, host[0]), 0.0, 0.0, 0
+
+        if not session.conf.get(C.CODEGEN_ENABLED) \
+                or plan_has_slow_udf(optimized):
+            step = query_step(self.mesh, pq.physical, [], device)
+            out, scalars, meta = step(leaves, [])
+            return finish(out, SC._read_back(scalars), meta)
+        body, slots = SC.stage_fingerprint(pq.physical)
+        skey = (f"dist{self.n}|{body}|{SC.leaf_signature(leaves)}"
+                f"|{SC._conf_component(session)}")
+        physical = pq.physical
+
+        def make():
+            return query_step(self.mesh, physical, slots, device), \
+                SC.Stage(physical, [b.schema for b in pq.leaves],
+                         physical.schema(), skey)
+
+        cache = SC.stage_cache(session)
+        entry = cache.get_or_build(skey, make, n_ops=SC.count_ops(physical),
+                                   session=session)
+        session.raise_if_cancelled()      # checkpoint: before the replay
+        return cache.dispatch(entry, leaves, SC.param_values(slots), finish,
+                              device, memory=session._memory)
+
+
+def query_step(mesh: Mesh, physical: P.PhysicalPlan, slots, device):
+    """The SPMD program of one mesh query as a stage step:
+    ``step(leaves, params) -> (compacted result, [row count, overflow
+    flag, ...], (flag caps, flag kinds))``.  Each shard runs the plan on
+    its slice of every leaf; the row count is psum'd and each flag pmax'd
+    over the shards, so the scalars read back are the program's own."""
+    n = mesh.n_shards
+
+    def step(leaves, params):
+        shards = [shard_leaf(mesh, b) for b in leaves]
 
         def shard_fn(shard, comm):
-            ctx = ShardContext(device, [leaf[shard] for leaf in leaves],
-                               shard, comm)
-            out = compact(physical.run(ctx))
-            n_rows = comm.psum(shard, out.num_rows())
-            # per-kind worst overflow RATIO (lost rows / capacity), pmax'd
-            # over shards — sizes the adaptive retry; the agg shrink needs
-            # an absolute capacity (lost + bound), 0 when nothing overflowed
-            ex_r = torch.zeros((), dtype=torch.float32, device=device)
-            join_r = torch.zeros((), dtype=torch.float32, device=device)
-            shr_need = torch.zeros((), dtype=torch.int64, device=device)
-            for f, kind, cap in zip(ctx.flags, ctx.flag_kinds,
-                                    ctx.flag_caps):
-                if kind == "shrink":
-                    lost = f.to(torch.int64)
-                    shr_need = torch.maximum(
-                        shr_need, torch.where(lost > 0, lost + cap, 0))
-                    continue
-                r = f.to(torch.float32) / float(max(cap, 1))
-                if kind == "exchange":
-                    ex_r = torch.maximum(ex_r, r)
-                else:
-                    join_r = torch.maximum(join_r, r)
-            return (out, n_rows, comm.pmax(shard, ex_r),
-                    comm.pmax(shard, join_r), comm.pmax(shard, shr_need))
+            # the slotted literals' binding is thread-local: each shard
+            # thread binds the entry's parameter scalars itself
+            E._slot_bindings.map = {id(l): p for l, p in zip(slots, params)}
+            try:
+                ctx = ShardContext(device, [s[shard] for s in shards],
+                                   shard, comm)
+                out = compact(physical.run(ctx))
+                n_rows = comm.psum(shard, out.num_rows())
+                flags = []
+                if ctx.flags:
+                    flags = list(comm.pmax(shard, torch.stack(
+                        [f.reshape(()).to(torch.int64) for f in ctx.flags]
+                    )).unbind())
+                return out, [n_rows] + flags, (list(ctx.flag_caps),
+                                               list(ctx.flag_kinds))
+            finally:
+                E._slot_bindings.map = None
 
-        results = run_shards(self.n, device, shard_fn)
-        # ONE device → host transfer for the row count and the ratios
-        n_rows, ex_ratio, join_ratio, shrink_need = torch.stack(
-            [x.reshape(()).to(torch.float64) for x in results[0][1:]]
-        ).cpu().tolist()
-        if ex_ratio > 0.0 or join_ratio > 0.0 or shrink_need > 0:
-            return None, ex_ratio, join_ratio, int(shrink_need)
-        joined = compact(_join_shards([r[0] for r in results]))
-        return _slice_to_host(joined, int(n_rows)), 0.0, 0.0, 0
+        results = run_shards(n, device, shard_fn)
+        out = compact(_join_shards([r[0] for r in results]))
+        return out, results[0][1], results[0][2]
+
+    return step
+
+
+def _overflow(flags, caps, kinds) -> Tuple[float, float, int]:
+    """(worst exchange overflow ratio, worst join overflow ratio, agg
+    capacity needed or 0) of the program's pmax'd flags: a ratio is lost
+    rows over capacity in float32; the agg shrink needs lost rows +
+    capacity."""
+    ex_r = join_r = 0.0
+    shr_need = 0
+    for f, kind, cap in zip(flags, kinds, caps):
+        if kind == "shrink":
+            if f > 0:
+                shr_need = max(shr_need, f + cap)
+            continue
+        r = float(np.float32(f) / np.float32(max(cap, 1)))
+        if kind == "exchange":
+            ex_r = max(ex_r, r)
+        else:
+            join_r = max(join_r, r)
+    return ex_r, join_r, shr_need
 
 
 def _join_shards(outs: List[ColumnBatch]) -> ColumnBatch:

@@ -23,7 +23,14 @@ shared ``Communicator``; its collectives — ``all_to_all``, ``all_gather``,
   such an abort.
 
 On the card all shards enqueue onto the caller's stream, so stream order
-fences every collective after the ops that produced its operands.
+fences every collective after the ops that produced its operands.  Under
+a CUDA graph capture that stream is the capture stream: every shard's
+work goes into the one graph, and the caching allocator sends each
+shard thread's allocations to the graph's private pool (it routes by the
+stream an allocation is made on).  While the caller has a stage run
+(``capture.py``: a stage-cache entry recording or replaying), each shard
+thread gets a run of its own over its shard's record, and the shards'
+guard flags join the caller's run.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 
-from .. import cuda_a2a
+from .. import capture, cuda_a2a
 from ..sql import physical as P
 
 
@@ -166,6 +173,8 @@ def run_shards(n: int, device, fn: Callable[[int, Communicator], Any]
     errors: List[Optional[BaseException]] = [None] * n
     stream = torch.cuda.current_stream(device) \
         if device.type == "cuda" else None
+    parent = capture.active_run()
+    guards: List[List[torch.Tensor]] = [[] for _ in range(n)]
 
     def body(shard: int) -> None:
         try:
@@ -175,7 +184,8 @@ def run_shards(n: int, device, fn: Callable[[int, Communicator], Any]
                     scope.enter_context(torch.cuda.device(device))
                     scope.enter_context(torch.cuda.stream(stream))
                 comm.enter(shard)
-                results[shard] = fn(shard, comm)
+                with capture.shard_scope(parent, shard, guards):
+                    results[shard] = fn(shard, comm)
                 comm.leave(shard)
         except BaseException as e:       # noqa: BLE001 — re-raised below
             errors[shard] = e
@@ -194,4 +204,5 @@ def run_shards(n: int, device, fn: Callable[[int, Communicator], Any]
     for e in errors:
         if e is not None:
             raise e
+    capture.add_shard_guards(parent, guards)
     return results

@@ -630,18 +630,21 @@ def step_maker(phys: P.PhysicalPlan, slots, device, skey: str,
 class StreamedStep:
     """One stage-cache entry run per streamed batch.
 
-    On the single-device lane the entry is dispatched (a captured graph
-    on a card): a pinned leaf goes to the card by ``non_blocking``
-    copies into the graph's static buffers, and the step's live rows and
-    flags come back in one packed copy.  ``ship_rows`` — the rows that
-    copy brings — starts at the step's capacity and then follows twice
-    the most rows a batch has given, so a partial aggregate of a few
-    groups ships a few rows, not the batch's capacity.
+    The entry is dispatched (a captured graph on a card): a pinned leaf
+    goes to the card by ``non_blocking`` copies into the graph's static
+    buffers, the slotted literals ride in the entry's parameter scalars,
+    and the step's live rows and flags come back in one packed copy.
+    ``ship_rows`` — the rows that copy brings — starts at the step's
+    capacity and then follows twice the most rows a batch has given, so
+    a partial aggregate of a few groups ships a few rows, not the batch's
+    capacity.
 
-    Under the mesh the entry's step runs eagerly once per shard
-    (``spmd.run_shards``): the stream leaf split over the shards, the
-    other leaves replicated, and each shard's compacted output one run
-    (the mesh lane is not captured)."""
+    Under the mesh the entry's step is one SPMD program over the shards
+    (``spmd.run_shards``): the stream leaf split over the shards inside
+    the program, the other leaves replicated, each shard's output one
+    run.  The program is the entry's graph, like the single-device
+    step's, and its one packed copy brings every shard's first
+    ``ship_rows`` rows, row count and flags."""
 
     def __init__(self, session, phys: P.PhysicalPlan, leaves, key_prefix: str,
                  skip_compact: bool, mesh=None):
@@ -661,16 +664,21 @@ class StreamedStep:
         self.key = (f"{key_prefix}|{skey}|{SC.leaf_signature(leaves)}"
                     f"|{SC._conf_component(session)}")
         self.cache = SC.stage_cache(session)
+        make = step_maker(phys, slots, self.device, self.key,
+                          [b.schema for b in leaves], skip_compact)
+        if mesh is not None:
+            make = mesh_step_maker(make, mesh, self.device)
         self.entry = self.cache.get_or_build(
-            self.key, step_maker(phys, slots, self.device, self.key,
-                                 [b.schema for b in leaves], skip_compact),
-            n_ops=SC.count_ops(phys), session=session)
+            self.key, make, n_ops=SC.count_ops(phys), session=session,
+            segments=1 if mesh is None else mesh.n_shards)
         self.params = SC.param_values(slots)
         self.capacity = leaves[0].capacity
         self.extra = [b.to_device(self.device) for b in leaves[1:]]
         self.ship_rows = self.capacity
         self._most_rows = 0
-        self.reserve = _plan_reserve_bytes(PlannedQuery(phys, list(leaves)))
+        self.reserve = _plan_reserve_bytes(
+            PlannedQuery(phys, list(leaves)),
+            1 if mesh is None else mesh.n_shards)
 
     def run(self, leaf: ColumnBatch
             ) -> Tuple[List[ColumnBatch], List[int], List[int], List[str]]:
@@ -681,9 +689,7 @@ class StreamedStep:
             from ..memory import batch_nbytes
             STREAM_STATS["bytes_to_device"] += batch_nbytes(leaf)
         try:
-            if self.mesh is not None:
-                return self._run_mesh(leaf)
-            return self._run_local(leaf)
+            return self._run(leaf)
         finally:
             readback = SC.READBACK_MS - rb0
             STREAM_STATS["readback_ms"] += readback
@@ -691,7 +697,7 @@ class StreamedStep:
                 (time.perf_counter() - t0) * 1e3 - readback
             STREAM_STATS["batches"] += 1
 
-    def _run_local(self, leaf: ColumnBatch):
+    def _run(self, leaf: ColumnBatch):
         def finish(host, ints, meta):
             return host, ints, meta
 
@@ -699,43 +705,70 @@ class StreamedStep:
             self.entry, [leaf] + self.extra, self.params, finish,
             self.device, memory=self.session._memory,
             ship_rows=self.ship_rows)
-        n = ints[0]
-        self._most_rows = max(self._most_rows, n)
+        most = ints[0]
+        self._most_rows = max(self._most_rows, most)
         self.ship_rows = min(self.capacity,
                              pad_capacity(2 * max(self._most_rows, 1)))
-        runs = [_head(host, n)] if n else []
-        return runs, ints[1:1 + len(caps)], caps, kinds
-
-    def _run_mesh(self, leaf: ColumnBatch):
-        from ..parallel.executor import shard_leaf
-        from ..parallel.spmd import ShardContext, run_shards
-        shards = shard_leaf(self.mesh, leaf)
-        params = [torch.as_tensor(p, device=self.device)
-                  for p in self.params]
-        fn = self.entry.fn
-
-        def shard_fn(shard, comm):
-            leaves = [shards[shard]] + self.extra
-            ctx = ShardContext(self.device, leaves, shard, comm)
-            return fn(leaves, params, ctx)
-
-        from . import stagecompile as SC
-        results = run_shards(self.mesh.n_shards, self.device, shard_fn)
-        t0 = time.perf_counter()
-        caps, kinds = results[0][2]
-        # ONE device → host transfer for every shard's row count and flags
-        host = torch.stack([torch.stack([s.reshape(()).to(torch.int64)
-                                         for s in r[1]])
-                            for r in results]).cpu().tolist()
-        flags = [max(h[1 + i] for h in host) for i in range(len(caps))]
+        flags = ints[1:1 + len(caps)]
+        if self.mesh is None:
+            return ([_head(host, most)] if most else []), flags, caps, kinds
+        # one run per shard: shard s's rows are the s-th of the packed
+        # copy's equal segments
         runs = []
         if not any(f > 0 for f in flags):
-            for (out, _s, _m), h in zip(results, host):
-                if h[0]:
-                    runs.append(_head(out.packed_host(
-                        min(pad_capacity(h[0]), out.capacity)), h[0]))
-        SC.READBACK_MS += (time.perf_counter() - t0) * 1e3
+            n = self.mesh.n_shards
+            seg = host.capacity // n
+            for s, rows in enumerate(ints[1 + len(caps):1 + len(caps) + n]):
+                if rows:
+                    runs.append(_head(_segment(host, s * seg, seg), rows))
         return runs, flags, caps, kinds
+
+
+def mesh_step_maker(make, mesh, device):
+    """A streamed step's entry builder under the mesh: ``make``'s step run
+    once per shard as one SPMD program.  The program's scalars are the
+    most live rows of a shard, each overflow flag's worst shard and every
+    shard's row count; its result is the shards' outputs one after
+    another (``segments`` of the entry)."""
+    from ..parallel.executor import _join_shards, shard_leaf
+    from ..parallel.spmd import ShardContext, run_shards
+    n = mesh.n_shards
+
+    def mesh_make():
+        fn, stage = make()
+
+        def step(leaves, params):
+            shards = shard_leaf(mesh, leaves[0])
+            extra = list(leaves[1:])
+
+            def shard_fn(shard, comm):
+                ls = [shards[shard]] + extra
+                return fn(ls, params, ShardContext(device, ls, shard, comm))
+
+            results = run_shards(n, device, shard_fn)
+            outs = [r[0] for r in results]
+            rows = [r[1][0] for r in results]
+            n_flags = len(results[0][1]) - 1
+            flags = [torch.stack([r[1][1 + i].reshape(()).to(torch.int64)
+                                  for r in results]).amax()
+                     for i in range(n_flags)]
+            most = torch.stack([x.reshape(()).to(torch.int64)
+                                for x in rows]).amax()
+            return _join_shards(outs), [most] + flags + rows, results[0][2]
+
+        return step, stage
+
+    return mesh_make
+
+
+def _segment(host: ColumnBatch, start: int, rows: int) -> ColumnBatch:
+    """Rows ``[start, start + rows)`` of a host batch."""
+    sl = slice(start, start + rows)
+    vectors = [ColumnVector(v.data[sl], v.dtype,
+                            None if v.valid is None else v.valid[sl],
+                            v.dictionary) for v in host.vectors]
+    rv = None if host.row_valid is None else host.row_valid[sl]
+    return ColumnBatch(host.names, vectors, rv, rows)
 
 
 def _head(host: ColumnBatch, n: int) -> ColumnBatch:

@@ -23,7 +23,7 @@ import numpy as np
 
 from .. import config as C
 from .. import types as T
-from ..columnar import ColumnBatch, ColumnVector, dense_runs, pad_capacity
+from ..columnar import ColumnBatch, ColumnVector, pad_capacity
 from ..expressions import AnalysisException
 from ..kernels import compact
 from .logical import (
@@ -163,7 +163,7 @@ def _array_width_bound(pq: "PlannedQuery") -> int:
     return width
 
 
-def _walk_plan_caps(pq: "PlannedQuery"):
+def _walk_plan_caps(pq: "PlannedQuery", n_shards: int = 1):
     """(root_cap, extra_bytes, join_caps) over the physical plan's STATIC
     output capacities — exact arithmetic, not a heuristic: join output
     capacity is ``pad_capacity(probe × factor)`` by construction
@@ -171,10 +171,19 @@ def _walk_plan_caps(pq: "PlannedQuery"):
     for every join with an adaptive (factor-sized) output buffer.  Array
     planes count ``_array_width_bound`` elements a row: an explode's
     output holds its child's capacity times that many rows, and a
-    collect aggregate scatters into a plane that wide."""
+    collect aggregate scatters into a plane that wide.
+
+    With ``n_shards`` > 1 (a mesh program) the walk is of ONE shard: a
+    leaf holds its per-shard slice, and each exchange adds its send and
+    receive buffers (``_mesh_cap``).  Its extra bytes are then the whole
+    program's: ``n_shards`` times one shard's buffers, plus the largest
+    aggregate work of one shard — the shards take turns between
+    collectives, so one shard's grouping scratch is freed before the
+    next shard's is made."""
     from .joins import PJoin
 
     extra = 0
+    work = 0
     join_caps: List[tuple] = []
     widths: List[int] = []
 
@@ -190,12 +199,25 @@ def _walk_plan_caps(pq: "PlannedQuery"):
         return _row_nbytes(schema)
 
     def cap(node: P.PhysicalPlan) -> int:
-        nonlocal extra
+        nonlocal extra, work
         if isinstance(node, P.PScan):
-            return pq.leaves[node.index].capacity
+            leaf = pq.leaves[node.index].capacity
+            return leaf if n_shards == 1 \
+                else pad_capacity(max(-(-leaf // n_shards), 1))
         if isinstance(node, P.PRange):
             return node.capacity
         ch = [cap(c) for c in node.children]
+        if n_shards > 1:
+            got = _mesh_cap(node, ch, n_shards, row_nbytes)
+            if got is not None:
+                out, more, scratch = got
+                extra += more
+                work = max(work, scratch)
+                if isinstance(node, PJoin) and node.key_pairs \
+                        and node.how not in ("cross", "left_semi",
+                                             "left_anti"):
+                    join_caps.append((node, ch[0], out))
+                return out
         if isinstance(node, P.PExplode):
             out = (ch[0] if ch else 1) * width()
             extra += out * row_nbytes(node.schema())
@@ -233,7 +255,54 @@ def _walk_plan_caps(pq: "PlannedQuery"):
 
     root_cap = cap(pq.physical)
     extra += root_cap * row_nbytes(pq.physical.schema())
+    if n_shards > 1:
+        extra = n_shards * extra + work
     return root_cap, extra, join_caps
+
+
+def _mesh_cap(node, ch: List[int], n: int, row_nbytes):
+    """(one shard's output capacity, its buffers' bytes, its scratch
+    bytes) of a mesh operator, or None for an operator the single-device
+    walk sizes.  An exchange
+    holds its (n, cap_out) send buffers, the rows it receives and an
+    int64 row index per sent slot; a broadcast or gather receives every
+    shard's rows; the skew join exchanges both sides, replicates the hot
+    build rows and joins into a factor-sized buffer.  The mesh lane's
+    aggregates group by sorting; their scratch, output included, is per
+    input row the sort's keys, permutation and scratch and the segment
+    ids (40 B), and a sorted copy and a reduced column of every buffer
+    (twice the wider of the input and output rows)."""
+    from ..parallel import dist as D
+    if isinstance(node, (D.DPartialAggregate, D.DFinalAggregate,
+                         D.DMergePartial)):
+        wide = max(row_nbytes(node.children[0].schema()),
+                   row_nbytes(node.schema()))
+        return ch[0], 0, ch[0] * (40 + 2 * wide)
+    if isinstance(node, D.DExchangeHash):
+        out = n * D.exchange_cap(ch[0], n, node.skew_factor)
+        return out, out * (2 * row_nbytes(node.schema()) + 8), 0
+    if isinstance(node, D.DExchangeRange):
+        rr = n * pad_capacity(-(-ch[0] // n))      # the round robin first
+        out = n * D.exchange_cap(rr, n, node.skew_factor)
+        return out, (rr + out) * (2 * row_nbytes(node.schema()) + 8), 0
+    if isinstance(node, (D.DBroadcast, D.DGatherOne)):
+        out = n * ch[0]
+        return out, out * row_nbytes(node.schema()), 0
+    if isinstance(node, D.DGlobalAggregate):
+        return 8, 8 * row_nbytes(node.schema()), 0
+    if isinstance(node, D.DSkewJoin):
+        p_row = row_nbytes(node.children[0].schema())
+        b_row = row_nbytes(node.children[1].schema())
+        p_ex = n * D.exchange_cap(ch[0], n, node.skew_factor)
+        b_cap = D.exchange_cap(ch[1], n, node.skew_factor)
+        b_ex = n * b_cap + (n * min(b_cap, ch[1])
+                            if node.allow_spread else 0)
+        out = pad_capacity(int(p_ex * max(node.factor, 0.1)))
+        if node.how == "full":
+            out += b_ex
+        return out, (p_ex * (2 * p_row + 8) + b_ex * (2 * b_row + 8)
+                     + out * row_nbytes(node.schema())), 0
+    return None
 
 
 def check_planned_join_capacities(pq: "PlannedQuery", session,
@@ -246,16 +315,24 @@ def check_planned_join_capacities(pq: "PlannedQuery", session,
             raise _fanout_error(where, out, node.factor, probe, cap)
 
 
-def _plan_reserve_bytes(pq: "PlannedQuery") -> int:
+def _plan_reserve_bytes(pq: "PlannedQuery", n_shards: int = 1) -> int:
     """Upper-bound device bytes for one execution attempt: the leaf
     working set (input + one fused intermediate), the device copy of
     every host leaf (a file batch or a cached relation held on the host:
     not resident before the query as an in-memory leaf is), plus the
     STATIC output buffers of every capacity-growing operator
     (``_walk_plan_caps``).  A cached relation on the card counts its
-    intermediate only: its input is charged as storage already."""
+    intermediate only: its input is charged as storage already.
+
+    A mesh program (``n_shards`` > 1) holds every shard's buffers at
+    once — a captured one in its graph pool, for the entry's lifetime —
+    and the shards' results joined and compacted: the walk's bytes of
+    the whole program plus twice the joined result."""
     from ..memory import batch_nbytes
-    _root, extra, _joins = _walk_plan_caps(pq)
+    root, extra, _joins = _walk_plan_caps(pq, n_shards)
+    if n_shards > 1:
+        extra += 2 * n_shards * root * _row_nbytes(
+            pq.physical.schema(), _array_width_bound(pq))
     kinds = [k for k, _n in pq.leaf_recipes] if pq.leaf_recipes \
         else [None] * len(pq.leaves)
     total = extra
@@ -669,7 +746,8 @@ class QueryExecution:
         # on under pytest or with spark.tpu.analysis.verifyPlans=on), its
         # physical plan per attempt (_run_planned) and each stage's cut
         # contract where the stage cache builds it.  The mesh lane below
-        # stays eager (no graphs).  The cross-process exchange
+        # is one stage-cache entry per query too (``dist{n}|``, a captured
+        # graph on a card).  The cross-process exchange
         # (``crossproc_execute``) runs the host shuffle's lanes, recovering
         # a lost peer in epochs up to spark.tpu.recovery.maxStageRetries;
         # exchanges stay on the host tier or, with
@@ -856,12 +934,8 @@ class QueryExecution:
         device = session.device
         cache = SC.stage_cache(session)
         entry = cache.get_or_build(skey, make, n_ops=n_ops, session=session)
-        # a pinned host leaf (a file batch) goes to the card by the
-        # entry's own copies into its static buffers; a run vector that
-        # did not become a plane enters dense (the key signs it so)
-        leaves = [b if device.type == "cuda" and b.device.type == "cpu"
-                  and b.is_pinned() else dense_runs(b, device)
-                  for b in (pq.leaves if leaves is None else leaves)]
+        leaves = SC.entry_leaves(pq.leaves if leaves is None else leaves,
+                                 device)
 
         def finish(out, host, meta):
             caps, kinds, metric_keys = meta

@@ -37,6 +37,15 @@ which leaves carry validity masks (in the JAX package they sit in the
 pytree aux, so jit retraces when one changes): each entry keeps its
 variants keyed by that ``leaf_aux`` and by the recorded decisions.
 
+A mesh entry (``dist{n}|…`` for a query, ``mbdist{n}|…`` and
+``stream|mesh{n}|…`` for a streamed step) is the same: its step is one
+SPMD program (``spmd.run_shards``), whose shard threads enqueue onto the
+capture stream and record and replay a shard record each
+(``capture.shard_scope``); the capture holds ``_capture_turn`` for the
+whole program, and K2's frozen pointer tables are checked against the
+entry's stable memory (``_StableMemory``).  A streamed mesh step's
+result is its shards' outputs one after another (``segments``).
+
 On the CPU a dispatch runs the same record and replay code eagerly,
 without a capture, so the CPU tests exercise the decisions, the
 constant pool and the guards.  A capture or replay that fails raises:
@@ -67,14 +76,14 @@ import numpy as np
 import torch
 
 from .. import config as C
-from .. import cuda_agg
+from .. import cuda_a2a, cuda_agg, cuda_lpt
 from ..capture import StageRecord, stage_run
 from ..memory import evict_lru, tick
 
 __all__ = [
     "Stage", "StageCache", "stage_cache", "stage_fingerprint",
     "leaf_signature", "leaf_aux", "count_ops", "metrics_source",
-    "run_per_op", "plan_leaves",
+    "run_per_op", "plan_leaves", "entry_leaves",
 ]
 
 _log = logging.getLogger("spark_tpu_torch.stagecompile")
@@ -259,46 +268,77 @@ class _StreamStep(threading.local):
 STREAM_STEP = _StreamStep()
 
 
-def _read_result(out, vec: torch.Tensor, ship_rows: Optional[int]):
+def _read_result(out, vec: torch.Tensor, ship_rows: Optional[int],
+                 segments: int = 1):
     """(result batch, host ints) of one run: ``out`` with the scalars read
     back in one transfer (``ship_rows`` None: the caller reads ``out``
     itself), or — a streamed step — the scalars and the first
     ``ship_rows`` rows of every column of ``out`` in ONE packed copy
     (``columnar.pack_to_host``).  When more rows are live than shipped,
-    a second copy brings the rest (``PACKED_REREADS``)."""
+    a second copy brings the rest (``PACKED_REREADS``).
+
+    A mesh step's ``out`` is ``segments`` shard outputs one after another,
+    each with its live rows first and its most live rows in the first
+    scalar: the copy ships the first rows of every segment, and the
+    batch it returns holds them one segment after another."""
     global PACKED_READS, PACKED_REREADS, READBACK_MS
     if ship_rows is None:
         return out, vec.cpu().tolist()
-    from ..columnar import ColumnBatch, ColumnVector, pack_to_host, \
-        pad_capacity
+    from ..columnar import pad_capacity
     STREAM_STEP.reading = True
     t0 = time.perf_counter()
     try:
-        rows = min(ship_rows, out.capacity)
-        parts = [vec]
-        for v in out.vectors:
-            parts.append(v.data[:rows])
-            if v.valid is not None:
-                parts.append(v.valid[:rows])
-        if out.row_valid is not None:
-            parts.append(out.row_valid[:rows])
-        host = pack_to_host(parts)
+        seg_cap = out.capacity // segments
+        rows = min(ship_rows, seg_cap)
+        host = _pack_rows(out, rows, segments, vec)
         PACKED_READS += 1
         ints = host[0].tolist()
         if ints[0] > rows:
             PACKED_REREADS += 1
-            rows = min(pad_capacity(ints[0]), out.capacity)
-            full = out.packed_host(rows)
-            return full, ints
-        it = iter(host[1:])
-        vectors = [ColumnVector(next(it), v.dtype,
-                                None if v.valid is None else next(it),
-                                v.dictionary) for v in out.vectors]
-        rv = None if out.row_valid is None else next(it)
-        return ColumnBatch(out.names, vectors, rv, rows), ints
+            rows = min(pad_capacity(ints[0]), seg_cap)
+            if segments == 1:
+                return out.packed_host(rows), ints
+            host = [None] + _pack_rows(out, rows, segments)
+        return _rows_batch(out, host[1:], rows * segments), ints
     finally:
         STREAM_STEP.reading = False
         READBACK_MS += (time.perf_counter() - t0) * 1e3
+
+
+def _pack_rows(out, rows: int, segments: int,
+               vec: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+    """``vec`` (when given) and the first ``rows`` rows of each of the
+    ``segments`` equal segments of every column of ``out``, on the host
+    in one packed copy."""
+    from ..columnar import pack_to_host
+    seg_cap = out.capacity // segments
+
+    def head(t: torch.Tensor) -> torch.Tensor:
+        if segments == 1:
+            return t[:rows]
+        rest = tuple(t.shape[1:])
+        return t.reshape((segments, seg_cap) + rest)[:, :rows] \
+            .reshape((segments * rows,) + rest)
+
+    parts = [] if vec is None else [vec]
+    for v in out.vectors:
+        parts.append(head(v.data))
+        if v.valid is not None:
+            parts.append(head(v.valid))
+    if out.row_valid is not None:
+        parts.append(head(out.row_valid))
+    return pack_to_host(parts)
+
+
+def _rows_batch(out, host: List[torch.Tensor], capacity: int):
+    """A batch of ``out``'s schema over its packed host columns."""
+    from ..columnar import ColumnBatch, ColumnVector
+    it = iter(host)
+    vectors = [ColumnVector(next(it), v.dtype,
+                            None if v.valid is None else next(it),
+                            v.dictionary) for v in out.vectors]
+    rv = None if out.row_valid is None else next(it)
+    return ColumnBatch(out.names, vectors, rv, capacity)
 
 
 class _Variant:
@@ -308,7 +348,8 @@ class _Variant:
 
     __slots__ = ("aux", "record", "meta", "graph", "static", "params",
                  "pinned", "out", "scalars", "n_guards", "pool_bytes",
-                 "static_bytes", "k1_launches")
+                 "static_bytes", "k1_launches", "k2_launches",
+                 "lpt_launches")
 
     def __init__(self, aux, record: StageRecord, meta):
         self.aux = aux
@@ -323,9 +364,11 @@ class _Variant:
         self.n_guards = 0
         self.pool_bytes = 0
         self.static_bytes = 0
-        #: K1 launches captured into ``graph``, by entry: each replay
-        #: runs them again
+        #: K1 launches captured into ``graph``, by entry, and K2's and
+        #: lpt_assign's (a mesh entry): each replay runs them again
         self.k1_launches: Dict[str, int] = {}
+        self.k2_launches = 0
+        self.lpt_launches = 0
 
     @property
     def nbytes(self) -> int:
@@ -340,15 +383,17 @@ class _CachedStage:
     ``fn(leaves, params) -> (compacted batch, [device scalars], meta)``
     runs the plan once; its scalars start with the row count."""
 
-    __slots__ = ("key", "fn", "aux", "n_ops", "compile_ms", "hits",
-                 "variants", "guard_misses", "in_use", "charged_to",
+    __slots__ = ("key", "fn", "aux", "n_ops", "segments", "compile_ms",
+                 "hits", "variants", "guard_misses", "in_use", "charged_to",
                  "last_used", "_lock")
 
-    def __init__(self, key: str, fn, aux, n_ops: int):
+    def __init__(self, key: str, fn, aux, n_ops: int, segments: int = 1):
         self.key = key
         self.fn = fn
         self.aux = aux
         self.n_ops = n_ops
+        #: a mesh step's shard outputs in its result (``_read_result``)
+        self.segments = segments
         self.compile_ms = 0.0
         self.hits = 0
         self.variants: List[_Variant] = []
@@ -393,14 +438,16 @@ class _CachedStage:
         if v is not None:
             out, scalars, meta, ng = self._run(leaves, ptensors, v.record,
                                                True)
-            res, host = _read_result(out, _stack(scalars), ship_rows)
+            res, host = _read_result(out, _stack(scalars), ship_rows,
+                                     self.segments)
             if all(host[len(host) - ng:]):
                 return finish(res, host[:len(host) - ng], meta), None
             self.guard_misses += 1
         t0 = time.perf_counter()
         record = StageRecord()
         out, scalars, meta, _ng = self._run(leaves, ptensors, record, False)
-        res, host = _read_result(out, _stack(scalars), ship_rows)
+        res, host = _read_result(out, _stack(scalars), ship_rows,
+                                 self.segments)
         self._add(_Variant(aux, record, meta))
         result = finish(res, host, meta)
         return result, (time.perf_counter() - t0) * 1e3
@@ -419,9 +466,9 @@ class _CachedStage:
                 dst.copy_(src, non_blocking=True)
             self._set_params(v, params)
             v.graph.replay()
-            for entry, n in v.k1_launches.items():
-                cuda_agg.REPLAYED_LAUNCHES[entry] += n
-            res, host = _read_result(v.out, v.scalars, ship_rows)
+            _count_replay(v)
+            res, host = _read_result(v.out, v.scalars, ship_rows,
+                                     self.segments)
             n = len(host) - v.n_guards
             if all(host[n:]):
                 return finish(res, host[:n], v.meta), None
@@ -453,7 +500,8 @@ class _CachedStage:
         # 1. the eager warm-up: records decisions and constants, loads
         #    the kernels and makes their first-call settings
         out, scalars, meta, _ng = self._run(leaves, v.params, record, False)
-        res, host = _read_result(out, _stack(scalars), ship_rows)
+        res, host = _read_result(out, _stack(scalars), ship_rows,
+                                 self.segments)
         result = finish(res, host, meta)
         del out, scalars, res
         # 2. the capture, over the entry's own copies of the leaves
@@ -464,14 +512,27 @@ class _CachedStage:
         pool = torch.cuda.graph_pool_handle()
         with _capture_turn():
             k1_before = dict(cuda_agg.CAPTURED_LAUNCHES)
-            with torch.cuda.graph(graph, pool=pool,
-                                  capture_error_mode="thread_local"):
-                out, scalars, meta, ng = self._run(static_leaves, v.params,
-                                                   record, True)
-                vec = _stack(scalars)
+            k2_before = cuda_a2a.CAPTURED_LAUNCHES
+            lpt_before = cuda_lpt.CAPTURED_LAUNCHES
+            # K2's pointer table is frozen into the graph: it may point
+            # only at the static buffers, the record's constants and the
+            # pool (a mesh entry's shards allocate there too: the
+            # allocator routes by the capture stream they run on)
+            cuda_a2a.CAPTURE_SOURCES = _StableMemory(
+                device, pool, v.static + v.params, record)
+            try:
+                with torch.cuda.graph(graph, pool=pool,
+                                      capture_error_mode="thread_local"):
+                    out, scalars, meta, ng = self._run(
+                        static_leaves, v.params, record, True)
+                    vec = _stack(scalars)
+            finally:
+                cuda_a2a.CAPTURE_SOURCES = None
             v.k1_launches = {e: n - k1_before[e] for e, n in
                              cuda_agg.CAPTURED_LAUNCHES.items()
                              if n > k1_before[e]}
+            v.k2_launches = cuda_a2a.CAPTURED_LAUNCHES - k2_before
+            v.lpt_launches = cuda_lpt.CAPTURED_LAUNCHES - lpt_before
         v.pool_bytes = _pool_bytes(device, pool)
         v.graph, v.out, v.scalars, v.n_guards, v.meta = \
             graph, out, vec, ng, meta
@@ -482,18 +543,79 @@ class _CachedStage:
         del self.variants[:-MAX_VARIANTS]
 
 
+def _count_replay(v: _Variant) -> None:
+    """A replay launches the variant's captured kernels again: count them
+    on the host (the wrappers are not called)."""
+    for entry, n in v.k1_launches.items():
+        cuda_agg.REPLAYED_LAUNCHES[entry] += n
+    cuda_a2a.REPLAYED_LAUNCHES += v.k2_launches
+    cuda_lpt.REPLAYED_LAUNCHES += v.lpt_launches
+
+
+class _StableMemory:
+    """Whether an address lies in memory a replay of the variant being
+    captured finds unchanged: its static tensors, its record's constants
+    (every shard's too) or its graph pool.  The pool's segments are read
+    from the allocator's snapshot again when an address is in none of the
+    known ranges (the pool grows during the capture)."""
+
+    def __init__(self, device, pool, static: Sequence[torch.Tensor],
+                 record: StageRecord):
+        self.device, self.pool = device, pool
+        tensors = list(static)
+        todo = [record]
+        while todo:
+            r = todo.pop()
+            tensors += r.constants
+            todo += r.shards
+        self.fixed = [(t.data_ptr(), t.data_ptr() + t.numel()
+                       * t.element_size()) for t in tensors]
+        self.segments: List[Tuple[int, int]] = []
+
+    def _inside(self, ptr: int, ranges) -> bool:
+        return any(lo <= ptr < hi for lo, hi in ranges)
+
+    def __call__(self, ptr: int) -> bool:
+        if self._inside(ptr, self.fixed) or self._inside(ptr, self.segments):
+            return True
+        self.segments = _pool_segments(self.device, self.pool)
+        return self._inside(ptr, self.segments)
+
+
+def _pool_segments(device, pool) -> List[Tuple[int, int]]:
+    """(start, end) of each segment the caching allocator holds in graph
+    pool ``pool`` on ``device``."""
+    return [(seg["address"], seg["address"] + seg["total_size"])
+            for seg in _pool_snapshot(device, pool)]
+
+
+def _pool_snapshot(device, pool) -> List[dict]:
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    want = tuple(pool)
+    return [seg for seg in torch.cuda.memory_snapshot()
+            if seg["device"] == index
+            and tuple(seg.get("segment_pool_id", ())) == want]
+
+
 def _pool_bytes(device, pool) -> int:
     """Bytes the caching allocator holds in graph pool ``pool`` on
     ``device``: its segments, read from the allocator's snapshot (the
     change of ``memory_reserved`` across a capture would also count what
     other threads allocate meanwhile)."""
-    index = torch.device(device).index
-    if index is None:
-        index = torch.cuda.current_device()
-    want = tuple(pool)
-    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-               if seg["device"] == index
-               and tuple(seg.get("segment_pool_id", ())) == want)
+    return sum(seg["total_size"] for seg in _pool_snapshot(device, pool))
+
+
+def entry_leaves(leaves, device) -> list:
+    """A stage entry's leaves: a pinned host batch (a file leaf on a card)
+    as it is — the entry copies it into its static buffers — and every
+    other batch on ``device``, a run vector that did not become a plane
+    dense (its key signs it so)."""
+    from ..columnar import dense_runs
+    device = torch.device(device)
+    return [b if device.type == "cuda" and b.device.type == "cpu"
+            and b.is_pinned() else dense_runs(b, device) for b in leaves]
 
 
 def _clone_batch(b):
@@ -533,12 +655,14 @@ class StageCache:
 
     # -- lookup / build ------------------------------------------------
     def get_or_build(self, key: str, make_fn: Callable[[], Tuple],
-                     n_ops: int = 1, session=None) -> _CachedStage:
+                     n_ops: int = 1, session=None,
+                     segments: int = 1) -> _CachedStage:
         """``make_fn`` returns ``(step, aux)`` — the stage step and any
         entry-owned metadata; built once per key.  An ``aux`` that is the
         stage's ``Stage`` record has its cut contract verified for
         ``session`` before the entry exists
-        (``analysis.maybe_verify_stage_contract``)."""
+        (``analysis.maybe_verify_stage_contract``).  ``segments``: the
+        shard outputs a mesh step's result holds (``_read_result``)."""
         if session is not None:
             self.max_entries = int(
                 session.conf.get(C.STAGE_CACHE_MAX_ENTRIES))
@@ -564,7 +688,7 @@ class StageCache:
             if session is not None and isinstance(aux, Stage):
                 from ..analysis import maybe_verify_stage_contract
                 maybe_verify_stage_contract(session, aux)
-            entry = _CachedStage(key, fn, aux, n_ops)
+            entry = _CachedStage(key, fn, aux, n_ops, segments)
             with self._lock:
                 self.misses += 1
                 self.builds += 1

@@ -223,7 +223,8 @@ class _MappedStream(BatchStream):
     build sides entering as extra device leaves.  A join's output
     overflow grows that join's factor (``check_factor_cap`` bounds each
     growth), rebuilds the step and re-runs THIS batch.  Under a mesh the
-    step runs once per shard, the batch split over the shards and the
+    step is one SPMD program over the shards (one stage-cache entry,
+    ``stream|mesh{n}|…``), the batch split over the shards and the
     broadcast sides replicated."""
 
     def __init__(self, session, child: BatchStream, ops: List,

@@ -293,16 +293,23 @@ def test_umod_is_the_unsigned_modulo_of_the_hash(n):
     assert np.array_equal(tcol.umod(torch.from_numpy(h), n).numpy(), want)
 
 
-@pytest.mark.parametrize("n_shards", [2, 4, 8])
-def test_balanced_assignment_matches_reference(n_shards):
+@pytest.mark.parametrize("n_shards,counts_kind", [
+    pytest.param(n, kind, id=str(n) if kind == "small" else f"{n}-{kind}")
+    for n in (2, 4, 8) for kind in ("small", "random", "tied")])
+def test_balanced_assignment_matches_reference(n_shards, counts_kind):
     """Equal fine-bucket counts are common; the stable heavy-first order
-    and the first least-loaded shard decide where each bucket goes."""
+    and the first least-loaded shard decide where each bucket goes.  On
+    the CPU the port's assignment is ``lpt_assign``'s plain version."""
     import jax.numpy as jnp
     import torch
     from spark_tpu.parallel import collective as rcol
     rng = np.random.default_rng(n_shards)
     counts = rng.integers(0, 4, 32 * n_shards).astype(np.int64)
     counts[rng.integers(0, counts.size, 3)] = 40        # a few hot buckets
+    if counts_kind == "random":
+        counts = rng.integers(0, 10**6, 32 * n_shards).astype(np.int64)
+    elif counts_kind == "tied":
+        counts = np.full(32 * n_shards, 3, np.int64)     # every bucket tied
     ra, rl = rcol.balanced_assignment(jnp.asarray(counts), n_shards)
     ta, tl = tcol.balanced_assignment(torch.from_numpy(counts), n_shards)
     assert np.array_equal(np.asarray(ra), ta.numpy())

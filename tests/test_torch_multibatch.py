@@ -526,6 +526,35 @@ def test_sharded_multibatch_parity(spark, tspark, bigfile, name):
     assert_rows_equal(local, got, rtol=1e-12)
 
 
+@pytest.mark.parametrize("name", ["groupby_agg", "sort_topk",
+                                  "filtered_avg"])
+def test_sharded_step_replays_without_host_reads(spark, tspark, bigfile,
+                                                 monkeypatch, name):
+    """The 2-shard step is one stage-cache entry (``mbdist2|…``): a second
+    run replays it for every batch, each shard thread over its own shard
+    record, and every host read but the one packed read-back of each
+    batch raises — in the shard threads too."""
+    build = DIST_CASES[name]
+    with _batch_conf(spark, tspark, spark_tpu_mesh_shards=2):
+        q = build(tspark.read.parquet(bigfile["plain"]), TF)
+        want = q.collect()
+        TMB.reset_stream_stats()
+        reads = TSC.PACKED_READS
+        before = TSC.stage_cache().stats()
+        _trap_host_reads(monkeypatch)
+        got = q.collect()
+        monkeypatch.undo()
+        after = TSC.stage_cache().stats()
+    assert_rows_equal(want, got)
+    assert TSC.PACKED_READS - reads == TMB.STREAM_STATS["batches"] > 1
+    assert after["dispatches"] - before["dispatches"] \
+        == TMB.STREAM_STATS["batches"]
+    assert (after["variants"], after["guard_misses"]) == \
+        (before["variants"], before["guard_misses"])
+    assert any(e.key.startswith("mbdist2|")
+               for e in TSC.stage_cache().entries())
+
+
 def test_sharded_limit(spark, tspark, bigfile):
     with _batch_conf(spark, tspark, spark_tpu_mesh_shards=2):
         got = tspark.read.parquet(bigfile["plain"]).limit(37).collect()

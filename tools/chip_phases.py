@@ -7,7 +7,9 @@ entries of the kernels line from its kernel check.
 
     python3 tools/chip_phases.py pool pool pool pool stream
 
-Phases: ``pool``, ``stream``, ``analysis``, ``ml``.  The last line is a JSON
+Phases: ``mesh`` (the mesh lane's three queries at 4 shards, captured,
+then ``lpt_assign``'s check), ``pool``, ``stream``, ``analysis``,
+``ml``.  The last line is a JSON
 list of the runs (phase, ok, seconds, the failure); the exit code is 1
 if any run failed, 2 without a card or with an unknown phase."""
 
@@ -22,7 +24,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 import chip_smoke as CS  # noqa: E402
 
+def _mesh(c):
+    _captured, _k2, numbers, lpt_inputs, lpt_launches = CS.phase_mesh(
+        c["session"], c["hash_df"], c["hash_table"], c["q3_df"], c["tables"])
+    CS.phase_lpt_check(lpt_inputs, lpt_launches,
+                       {n: m["lpt_replayed"] for n, m in numbers.items()})
+
+
 PHASES = {
+    "mesh": _mesh,
     "pool": lambda c: CS.phase_pool(c["session"], c["hash_table"],
                                     c["tables"], c["k1"], c["k2"]),
     "stream": lambda c: CS.phase_stream(c["session"], c["k1"], c["k2"]),
@@ -42,20 +52,22 @@ def main(names) -> int:
     if not torch.cuda.is_available():
         print("chip_phases: no CUDA device", file=sys.stderr)
         return 2
+    from spark_tpu_torch import types as T
     from spark_tpu_torch.sql import functions as F
     from spark_tpu_torch.sql.session import SparkSession
     from spark_tpu_torch.testing import (hash_agg_query, hash_agg_table,
-                                         q3_tables)
+                                         q3_query, q3_tables)
 
     print(CS.phase_device(), flush=True)
     CS.phase_build()
     session = SparkSession.builder.appName("chip_phases").getOrCreate()
     hash_table = hash_agg_table(CS.MAIN_N, CS.MAIN_GROUPS)
-    ctx = {"session": session, "hash_table": hash_table,
-           "tables": q3_tables(CS.Q3_ROWS["store_sales"], CS.Q3_ROWS["item"],
-                               CS.Q3_ROWS["date_dim"]),
-           "k1": CS.phase_kernel_check(
-               session, hash_agg_query(session, F, hash_table)),
+    tables = q3_tables(CS.Q3_ROWS["store_sales"], CS.Q3_ROWS["item"],
+                       CS.Q3_ROWS["date_dim"])
+    hash_df = hash_agg_query(session, F, hash_table)
+    ctx = {"session": session, "hash_table": hash_table, "tables": tables,
+           "hash_df": hash_df, "q3_df": q3_query(session, F, T, tables),
+           "k1": CS.phase_kernel_check(session, hash_df),
            "k2": {"name": "all_to_all"}, "pull": {"name": "pull"}}
     runs = []
     for name in names:
