@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (``spark_tpu_torch``) on one GPU.
+"""Smoke run of the PyTorch/CUDA port (``spark_tpu_torch``) on one GPU, and
+on several cards of one host where more than one is visible.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--cards N]
+
+``--cards N`` makes fewer than N visible cards a failure; phase 23 runs
+when at least two are visible (``python3 tools/chip_phases.py cards`` runs
+it alone, on a host with four cards).
 
 Phases, in order; any failure raises and the script exits non-zero
 without printing a result:
@@ -402,7 +407,31 @@ without printing a result:
     prints its wall (median of 3 after a warm-up; the word count once),
     one profiled run's device ms per op and the bytes held on the card,
     and its oracle's ms; the phase prints its seconds;
-23. a ``{"kernels": [...]}`` line (each kernel's ``sql_launches``: its
+23. cards — with two or more cards visible (on one it prints ``[cards]
+    not run: 1 card visible``): (1) each card's name and power limit and
+    the peer-access matrix (a pair without it fails); the barrier kernel
+    alone, 200 back to back on every card, each card's epoch and flag
+    slots read back (advanced by 200), its time, and one barrier
+    launched on card 0 alone at a 50 ms limit, which must time out and
+    raise; (2) the three mesh queries of phase 8 at 4 shards, one per
+    card: each equal to its oracle and bit for bit to the one-card mesh
+    lane's rows (a child process under ``CUDA_VISIBLE_DEVICES=0``), one
+    stage-cache entry of 4 graphs whose graph bytes per card sit under
+    its per-card reserve, a warm run a replay (K2's copies and barriers
+    per card counted on the host), equal to the eager lane, warm walls
+    in turns graph, eager, eager, graph, a profile's device-busy share
+    per card, and a second data set through the same graphs; (3) q3's
+    SQL text with ``spark.tpu.mesh.shards = 0`` runs as 4 shards on the
+    4 cards; (4) [ooc]'s (a) streamed at 4 shards across the cards; (5)
+    every K2 call of (2)'s warm-ups bit-exact against its plain version,
+    the largest shuffled-q3 exchange timed (per call, the copy alone
+    per card, ``copy_`` per peer block, the bound, the one-card K2 at the
+    same bytes), and a shard that raises before its second collective
+    ending every shard in an error, no card left waiting; (6) two
+    ``crossproc`` workers on ``cuda:0`` and ``cuda:1`` run q93's hash lane
+    on the device tier in one domain, every pull bit-exact, then the pull
+    alone over NVLink from an idle card, its sentinel bytes kept;
+24. a ``{"kernels": [...]}`` line (each kernel's ``sql_launches``: its
    launches in the SQL phase's counted run; ``breadth_launches``: K1's in
    the breadth phase's graph-lane run, K2's in its window text at 4
    shards; ``complex_launches``: K1's in the complex phase's graph-lane
@@ -447,7 +476,8 @@ without printing a result:
    ``replayed_launches``: its launches in one replay of each; the
    ``lpt_assign`` entry, its ``launches`` the wrapper's in the mesh
    queries' first runs (warm-up and capture) and its replayed launches
-   per query),
+   per query; on several cards also ``k2_cards``, ``barrier`` and
+   ``pull_cards`` from phase 23),
    the card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Every profile line gives, beside the largest kernels, each hand-written
@@ -543,6 +573,11 @@ def zero_counts():
         cuda_agg.CAPTURED_LAUNCHES[entry] = 0
     cuda_a2a.LAUNCHES = 0
     cuda_a2a.CAPTURED_LAUNCHES = cuda_a2a.REPLAYED_LAUNCHES = 0
+    for counts in (cuda_a2a.CARD_LAUNCHES, cuda_a2a.CARD_CAPTURED,
+                   cuda_a2a.CARD_REPLAYED, cuda_a2a.CARD_BARRIERS,
+                   cuda_a2a.CARD_CAPTURED_BARRIERS,
+                   cuda_a2a.CARD_REPLAYED_BARRIERS):
+        counts.clear()
     cuda_lpt.LAUNCHES = 0
     cuda_lpt.CAPTURED_LAUNCHES = cuda_lpt.REPLAYED_LAUNCHES = 0
 
@@ -690,6 +725,13 @@ def _stacked(planes, n):
 #: ends just before the window closes can go missing
 PROFILE_PAD_S = 0.05
 
+#: marker kernels launched at the start of each profiler window, then
+#: waited for, before the timed launches: a profile has lost its first
+#: two device records whatever the idle pad (the first marker and the
+#: first launch, ``KKKKm`` for five launches, in every profile of a run),
+#: and these markers take those places
+PROFILE_LEAD_MARKERS = 8
+
 
 def kernel_device_ms(fn, name, reps=20, attempts=3):
     """Mean device time of the kernel named ``name`` over ``reps`` calls,
@@ -700,10 +742,10 @@ def kernel_device_ms(fn, name, reps=20, attempts=3):
     the markers take those places.  One profile must see all ``reps``
     launches; a profile that saw fewer is printed with its device
     records in order and taken again, at most ``attempts`` times in
-    all, each time with four times the idle pad: a skew of the device
-    records' times against the host's clock drops the records at the
-    window's start (``KKKKm`` for five launches: the first marker and
-    the first launch gone) from every profile whose pad is shorter.""" 
+    all, each time with four times the idle pad.  The window opens with
+    ``PROFILE_LEAD_MARKERS`` markers, waited for and followed by the
+    pad, so that the records a profile drops at its start are
+    markers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     marker = torch.zeros(1, device="cuda")
@@ -714,7 +756,10 @@ def kernel_device_ms(fn, name, reps=20, attempts=3):
         pad = PROFILE_PAD_S * 4 ** (attempt - 1)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             time.sleep(pad)
-            marker.fill_(1.0)
+            for _ in range(PROFILE_LEAD_MARKERS):
+                marker.fill_(1.0)
+            torch.cuda.synchronize()
+            time.sleep(pad)
             for _ in range(reps):
                 fn()
             marker.fill_(1.0)
@@ -1039,7 +1084,7 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                      "cudaMemset")
 
 
-def profile_query(name, fn, top=6, cpu=True):
+def profile_query(name, fn, top=6, cpu=True, own_kernels=OWN_KERNELS):
     """Where one warm run's time goes: device time summed over the kernels
     ``torch.profiler`` saw, against the run's wall time under the
     profiler (which adds host overhead), the host's launch calls, each
@@ -1076,7 +1121,7 @@ def profile_query(name, fn, top=6, cpu=True):
     h2d_ms = sum(us for us, _c, k in rows if k.startswith("Memcpy HtoD")) / 1e3
     rows.sort(reverse=True)
     own, own_txt = {}, []
-    for kid, fn_name in OWN_KERNELS:
+    for kid, fn_name in own_kernels:
         hits = [(us, c) for us, c, k in rows if fn_name in k]
         ms = sum(us for us, _c in hits) / 1e3
         count = sum(c for _u, c in hits)
@@ -6313,12 +6358,971 @@ def phase_ml(session, k1_entries, k2_entry, pull_entry):
     print(f"[ml] phase {time.perf_counter() - t_phase:.2f} s", flush=True)
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# [cards]: shards on several cards
+# ---------------------------------------------------------------------------
+
+#: NVLink's rate to the other cards of the host, each way (H100 SXM)
+NVLINK_BYTES_PER_S = 450e9
+#: [cards]: the mesh's shards (one per card on four cards)
+CARDS_SHARDS = 4
+#: the barriers timed back to back, and the limit of the one made to fail
+CARDS_BARRIERS = 200
+CARDS_TIMEOUT_TEST_S = 0.05
+#: a shard that raises must end every shard in an error within this
+CARDS_ABORT_LIMIT_S = 30.0
+#: [cards] (6): the idle pull over NVLink, at [ici]'s largest pull
+CARDS_PULL_BYTES = 85_467_840
+
+
+def sync_cards():
+    import torch
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _cards_wall_ms(fn, warmup=1, reps=5):
+    """Median host wall of a call, every card synchronized around it."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        sync_cards()
+        t0 = time.perf_counter()
+        fn()
+        sync_cards()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _kernel_ms_by_card(fn, name, reps=10, attempts=3):
+    """Mean device time per launch of the kernel ``name`` on each card
+    (``torch.profiler``, the kernel alone), over ``reps`` calls that launch
+    it once on each card that runs it: {device index: ms}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    # marker kernels on every card at both ends of the timed launches:
+    # the profiler drops records at a window's edges (kernel_device_ms)
+    markers = [torch.zeros(1, device=f"cuda:{d}")
+               for d in range(torch.cuda.device_count())]
+
+    def mark():
+        for m in markers:
+            m.fill_(1.0)
+
+    fn()
+    mark()
+    sync_cards()
+    for attempt in range(1, attempts + 1):
+        pad = PROFILE_PAD_S * 4 ** (attempt - 1)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            for _ in range(PROFILE_LEAD_MARKERS):
+                mark()
+            sync_cards()
+            time.sleep(pad)
+            for _ in range(reps):
+                fn()
+            mark()
+            sync_cards()
+            time.sleep(pad)
+        per = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA \
+                    and name in e.name:
+                us, n = per.get(e.device_index, (0.0, 0))
+                per[e.device_index] = (us + e.time_range.elapsed_us(),
+                                       n + 1)
+        if per and all(n == reps for _us, n in per.values()):
+            return {d: us / n / 1e3 for d, (us, n) in sorted(per.items())}
+        print(f"[profile] attempt {attempt}: launches of {name} by card "
+              f"{ {d: n for d, (_u, n) in per.items()} }, expected {reps} "
+              "each", flush=True)
+    check(False, f"the profiler never saw {reps} launches of {name} on "
+          "each card")
+
+
+def _cards_rows(df, hash_df):
+    if df is hash_df:
+        return sorted((r["k"], r["s"], r["c"]) for r in df.collect())
+    return [tuple(r) for r in df.collect()]
+
+
+def one_card_rows_main(path):
+    """``chip_smoke.py --one-card-rows PATH``: the mesh lane's three queries
+    at 4 shards on ONE card (the caller sets ``CUDA_VISIBLE_DEVICES``),
+    their rows written to PATH as ``repr`` strings (bit for bit)."""
+    import torch
+    from spark_tpu_torch import types as T
+    from spark_tpu_torch.sql import functions as F
+    from spark_tpu_torch.sql.session import SparkSession
+    from spark_tpu_torch.testing import (hash_agg_query, hash_agg_table,
+                                         q3_query, q3_tables)
+    check(torch.cuda.device_count() == 1, "one-card rows need one card")
+    session = SparkSession.builder.appName("one_card").getOrCreate()
+    hash_table = hash_agg_table(MAIN_N, MAIN_GROUPS)
+    tables = q3_tables(Q3_ROWS["store_sales"], Q3_ROWS["item"],
+                       Q3_ROWS["date_dim"])
+    hash_df = hash_agg_query(session, F, hash_table)
+    q3_df = q3_query(session, F, T, tables)
+    out = {}
+    for name, df, threshold in (("hash-agg", hash_df, None),
+                                ("q3 broadcast joins", q3_df, None),
+                                ("q3 shuffled joins", q3_df, 0)):
+        _mesh(session, CARDS_SHARDS, threshold)
+        out[name] = repr(_cards_rows(df, hash_df))
+    session.stop()
+    with open(path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _cards_one_card_child(root):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="0")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    path = os.path.join(root, "one_card.json")
+    log = open(os.path.join(root, "one_card.txt"), "w")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--one-card-rows", path], env=env, cwd=here,
+                            stdout=log, stderr=subprocess.STDOUT)
+    return proc, log, path
+
+
+def _cards_barrier(cards):
+    """The barrier kernel alone on every card: R barriers back to back, then
+    every card's epoch and flag slots read back against the plain count
+    (each advanced by R), the time per barrier (CUDA events on each card,
+    the slowest), the plain version's (stream waits on events), and one
+    barrier launched on card 0 alone with a short limit, which must time
+    out and raise."""
+    import torch
+    from spark_tpu_torch import cuda_a2a
+    n = len(cards)
+    b = cuda_a2a.BarrierSet([c.index for c in cards])
+    streams = [torch.cuda.current_stream(c) for c in cards]
+
+    def run(times):
+        for _ in range(times):
+            for rank, (c, st) in enumerate(zip(cards, streams)):
+                with torch.cuda.device(c):
+                    b.launch(rank, st, cuda_a2a.BARRIER_TIMEOUT_S)
+
+    def timed(fn, sts):
+        starts = [torch.cuda.Event(enable_timing=True) for _ in cards]
+        ends = [torch.cuda.Event(enable_timing=True) for _ in cards]
+        for c, st, e in zip(cards, sts, starts):
+            with torch.cuda.device(c):
+                e.record(st)
+        fn()
+        for c, st, e in zip(cards, sts, ends):
+            with torch.cuda.device(c):
+                e.record(st)
+        sync_cards()
+        return max(s.elapsed_time(e) for s, e in zip(starts, ends)) \
+            / CARDS_BARRIERS
+
+    run(10)
+    sync_cards()
+    base = [b.read(r) for r in range(n)]
+    # back to back from the host: four launches a barrier, each with its
+    # card made current (the host's launch rate bounds this)
+    host_ms = timed(lambda: run(CARDS_BARRIERS), streams)
+    # the kernel alone: R barriers captured in one graph per card, the
+    # graphs replayed together
+    graphs = [torch.cuda.CUDAGraph(keep_graph=True) for _ in cards]
+    cap = [torch.cuda.Stream(device=c) for c in cards]
+    for c, g, st in zip(cards, graphs, cap):
+        with torch.cuda.device(c), torch.cuda.stream(st):
+            g.capture_begin(capture_error_mode="relaxed")
+    for rank, (c, st) in enumerate(zip(cards, cap)):
+        with torch.cuda.device(c):
+            for _ in range(CARDS_BARRIERS):
+                b.launch(rank, st, cuda_a2a.BARRIER_TIMEOUT_S)
+    for c, g, st in zip(cards, graphs, cap):
+        with torch.cuda.device(c), torch.cuda.stream(st):
+            g.capture_end()
+        with torch.cuda.device(c):
+            g.instantiate()
+
+    def replay():
+        for c, g, st in zip(cards, graphs, cap):
+            with torch.cuda.device(c), torch.cuda.stream(st):
+                g.replay()
+
+    replay()
+    sync_cards()
+    ms = min(timed(replay, cap) for _ in range(3))
+    after = [b.read(r) for r in range(n)]
+    err = 0
+    for (e0, _f0), (e1, f1) in zip(base, after):
+        want = e0 + 5 * CARDS_BARRIERS
+        err = max([err, abs(e1 - want)] + [abs(f - want) for f in f1])
+    del graphs
+    check(err == 0 and not b.failed(), f"[cards] barrier states after "
+          f"{CARDS_BARRIERS} barriers: {after} from {base}")
+    # the plain version: the same cross-card order in PyTorch alone, each
+    # card's stream waiting on an event recorded on every card's stream,
+    # launched back to back from the host and timed as host_ms is
+    def plain(times):
+        for _ in range(times):
+            events = []
+            for c, st in zip(cards, streams):
+                with torch.cuda.device(c):
+                    e = torch.cuda.Event()
+                    e.record(st)
+                    events.append(e)
+            for c, st in zip(cards, streams):
+                with torch.cuda.device(c):
+                    for e in events:
+                        st.wait_event(e)
+
+    plain(10)
+    sync_cards()
+    plain_ms = timed(lambda: plain(CARDS_BARRIERS), streams)
+    # one card alone at a short limit: it times out, the wrapper raises
+    with torch.cuda.device(cards[0]):
+        b.launch(0, streams[0], CARDS_TIMEOUT_TEST_S)
+    torch.cuda.synchronize(cards[0])
+    failed = b.failed()
+    check(failed == [(0, 1)], f"[cards] a lone barrier did not time out "
+          f"({failed})")
+    try:
+        b.check()
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    check(raised is not None and "timed out" in raised, "[cards] a timed-"
+          "out barrier did not raise")
+    check(not b.failed() and b.read(0)[0] == 0, "[cards] the timed-out "
+          "set was not reset")
+    moved = 2 * 8 * n * n
+    bound = moved / NVLINK_BYTES_PER_S * 1e3
+    print(f"[cards] barrier_kernel on {n} cards: {ms:.5f} ms per barrier "
+          f"alone ({CARDS_BARRIERS} in one graph per card, the graphs "
+          f"replayed together; CUDA events, the slowest card, the best of "
+          f"3), {host_ms:.5f} ms launched back to back from the host; every "
+          f"epoch and flag slot advanced by {5 * CARDS_BARRIERS} (max abs "
+          f"err {err}); the plain version (each card's stream waiting on "
+          f"an event of every card's, launched back to back from the host) "
+          f"{plain_ms:.5f} ms per barrier; bound {bound:.7f} ms ({moved} B of "
+          f"flags over NVLink); a lone barrier at a {CARDS_TIMEOUT_TEST_S} s "
+          f"limit timed out and raised: {raised[:120]}...", flush=True)
+    return {"name": "barrier", "route": "cuda",
+            "source": "spark_tpu_torch/csrc/all_to_all.cu",
+            "replaces": "spark_tpu/parallel/ici.py:368 (the barrier "
+                        "semaphore of _pallas_a2a)",
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "host_launched_ms": host_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
+
+
+def _cards_bytes(planes, card_of, gather):
+    """(bytes that leave each card, bytes that stay on it, bytes that
+    arrive at it) of one exchange, per card."""
+    n = len(card_of)
+    leave = [0] * (max(card_of) + 1)
+    stay = [0] * (max(card_of) + 1)
+    arrive = [0] * (max(card_of) + 1)
+    for shards in planes:
+        bb = shards[0].numel() * shards[0].element_size() \
+            // (1 if gather else n)
+        for s in range(n):
+            for d in range(n):
+                if card_of[s] == card_of[d]:
+                    stay[card_of[s]] += bb
+                else:
+                    leave[card_of[s]] += bb
+                    arrive[card_of[d]] += bb
+    return leave, stay, arrive
+
+
+def cards_exchange_bound_ms(leave, stay, arrive):
+    """The least time of one exchange across cards: on each card the
+    larger of its NVLink time (the bytes leaving it, or those arriving,
+    each way at 450 GB/s) and its memory time (the bytes staying, read
+    and written, the bytes leaving, read, and those arriving, written, at
+    the card's memory rate), and of the cards the slowest.  The two run
+    in parallel, so the bound is their larger, not their sum."""
+    return max(max(max(lv, ar) / NVLINK_BYTES_PER_S,
+                   (2 * sy + lv + ar) / HBM_BYTES_PER_S) * 1e3
+               for lv, sy, ar in zip(leave, stay, arrive))
+
+
+def _cards_k2_alone(call, cards):
+    """K2 across cards alone at the largest recorded all-to-all: per call
+    (the exchange, barriers included, CUDA events on every card, the
+    slowest), the copy kernel alone per card (profiler), the library call
+    (``copy_`` per peer block into the same outputs), the bound, and the
+    one-card K2 at the same bytes."""
+    import ctypes
+
+    import torch
+    from spark_tpu_torch import cuda_a2a
+    _q, planes, card_of, devices, gather, receivers, _outs = call
+    streams = [torch.cuda.current_stream(d) for d in devices]
+
+    def kernel():
+        return cuda_a2a.all_to_all_cards(planes, card_of, devices, streams,
+                                         gather, receivers)
+
+    outs = kernel()
+
+    def library():
+        for c, per in enumerate(outs):
+            d0, n_dst = cuda_a2a.card_receivers(card_of, c, receivers)
+            for k, o in enumerate(per or []):
+                for r in range(n_dst):
+                    for s, x in enumerate(planes[k]):
+                        o[r, s].copy_(x if gather else x[d0 + r])
+
+    def per_call(fn, reps=10):
+        fn()
+        times = []
+        for _ in range(reps):
+            starts = [torch.cuda.Event(enable_timing=True) for _ in devices]
+            ends = [torch.cuda.Event(enable_timing=True) for _ in devices]
+            for d, st, e in zip(devices, streams, starts):
+                with torch.cuda.device(d):
+                    e.record(st)
+            fn()
+            for d, st, e in zip(devices, streams, ends):
+                with torch.cuda.device(d):
+                    e.record(st)
+            sync_cards()
+            times.append(max(s.elapsed_time(e)
+                             for s, e in zip(starts, ends)))
+        return statistics.median(times)
+
+    # the copy alone, its senders in each card's rotated order (the
+    # wrapper's) and in one order on every card, in turns, each exchange
+    # between barriers as the wrapper makes it (so the cards start it
+    # together); the profiler times the copy kernel alone
+    lib = cuda_a2a._lib()
+    n = len(card_of)
+    nbytes = [sh[0].numel() * sh[0].element_size() // (1 if gather else n)
+              for sh in planes]
+    plan = cuda_a2a.a2a_card_plan(
+        [[x.data_ptr() for x in sh] for sh in planes],
+        [[o.data_ptr() for o in per] if per is not None else None
+         for per in outs], nbytes, [0 if gather else nb for nb in nbytes],
+        card_of, receivers)
+    tables = [(ctypes.c_longlong * len(t))(*t) for _d, _n, t, _t in plan]
+
+    def copies(rotate):
+        def run():
+            cuda_a2a.barrier(devices, streams)
+            for (d0, n_dst, _t, total), buf, dev, st in zip(
+                    plan, tables, devices, streams):
+                if total:
+                    with torch.cuda.device(dev):
+                        rc = lib.spark_all_to_all_part(
+                            buf, len(buf), len(planes), n, d0, n_dst,
+                            cuda_a2a.first_sender(n, d0, n_dst)
+                            if rotate else 0, total, st.cuda_stream)
+                    check(rc == 0, f"[cards] copy launch: CUDA error {rc}")
+            cuda_a2a.barrier(devices, streams)
+        return run
+
+    order = {}
+    for rotate in (True, False, False, True):
+        got = _kernel_ms_by_card(copies(rotate), "all_to_all_kernel")
+        order.setdefault(rotate, []).append(max(got.values()))
+    k_ms = per_call(kernel)
+    lib_ms = per_call(library)
+    k_wall = _cards_wall_ms(kernel, reps=10)
+    lib_wall = _cards_wall_ms(library, reps=10)
+    alone = _kernel_ms_by_card(kernel, "all_to_all_kernel")
+    got = kernel()
+    sync_cards()
+    want = cuda_a2a.all_to_all_plain(planes, gather, card_of, devices,
+                                     receivers)
+    check(all(torch.equal(g, w) for gs, ws in zip(got, want)
+              for g, w in zip(gs or [], ws or [])),
+          "[cards] the timed exchange differs from its plain version")
+    plain_ms = _cards_wall_ms(lambda: cuda_a2a.all_to_all_plain(
+        planes, gather, card_of, devices, receivers), reps=3)
+    del got, want
+    leave, stay, arrive = _cards_bytes(planes, card_of, gather)
+    bound = cards_exchange_bound_ms(leave, stay, arrive)
+    total = sum(leave) + sum(stay)
+    # the one-card K2 at the same bytes: every sender's buffers on card 0
+    one = [[x.to(devices[0]) for x in shards] for shards in planes]
+    one_ms = cuda_ms(lambda: cuda_a2a.all_to_all(one, gather))
+    one_alone = kernel_device_ms(lambda: cuda_a2a.all_to_all(one, gather),
+                                 "all_to_all_kernel", reps=10)
+    one_bound = 2 * total / HBM_BYTES_PER_S * 1e3
+    del one
+    print(f"[cards] the copy alone, the slowest card, in turns rotated, one "
+          f"order, one order, rotated: {order[True][0]:.4f}, "
+          f"{order[False][0]:.4f}, {order[False][1]:.4f}, "
+          f"{order[True][1]:.4f} ms (each card starting from the sender "
+          f"after its own receivers, against every card from sender 0)",
+          flush=True)
+    print(f"[cards] K2 across {len(devices)} cards at the largest recorded "
+          f"exchange ({_a2a_desc(planes, gather)}, {total:,} B, leaving "
+          f"each card {leave} B, staying {stay} B): {k_ms:.4f} ms per call "
+          f"(barrier, copy, barrier; CUDA events, the slowest card; wall "
+          f"{k_wall:.4f}); the copy kernel alone per card "
+          f"{ {d: round(v, 4) for d, v in alone.items()} } ms; bound "
+          f"{bound:.4f} ms (on the slowest card the larger of its NVLink "
+          f"time, the bytes leaving or arriving at 450 GB/s, and its memory "
+          f"time, every byte it reads or writes at 3.35 TB/s); the library "
+          f"call "
+          f"(copy_ per peer block) {lib_ms:.4f} ms (wall {lib_wall:.4f}); "
+          f"plain version {plain_ms:.2f} ms; the one-card K2 at the same "
+          f"bytes {one_ms:.4f} ms per call, {one_alone:.4f} alone (bound "
+          f"{one_bound:.4f})", flush=True)
+    return {"ms": k_ms, "wall_ms": k_wall, "alone_by_card_ms": alone,
+            "alone_ms": max(alone.values()), "library_ms": lib_ms,
+            "library_wall_ms": lib_wall, "plain_ms": plain_ms,
+            "alone_rotated_ms": order[True], "alone_one_order_ms": order[False],
+            "bound_ms": bound, "bytes": total, "leave": leave, "stay": stay,
+            "arrive": arrive,
+            "one_card_ms": one_ms, "one_card_alone_ms": one_alone,
+            "one_card_bound_ms": one_bound}
+
+
+def _cards_abort(session, df):
+    """A spy raises in shard 2 before its second collective: every shard
+    must end in an error, the query must raise within
+    ``CARDS_ABORT_LIMIT_S``, and the next run must answer."""
+    import threading
+    from collections import Counter
+    from spark_tpu_torch.parallel import spmd
+    meet = spmd.Communicator._meet
+    calls = Counter()
+
+    def failing(self, shard, value, fn):
+        calls[shard] += 1
+        if shard == 2 and calls[shard] == 2:
+            raise RuntimeError("spy: shard 2 fails before its second "
+                               "collective")
+        return meet(self, shard, value, fn)
+
+    out = {}
+
+    def go():
+        try:
+            _cards_rows(df, None)
+            out["error"] = None
+        except Exception as e:  # noqa: BLE001 — the expected failure
+            out["error"] = e
+
+    spmd.Communicator._meet = failing
+    _lane(session, "eager")
+    t0 = time.perf_counter()
+    try:
+        t = threading.Thread(target=go, daemon=True)
+        t.start()
+        t.join(CARDS_ABORT_LIMIT_S * 4)
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        spmd.Communicator._meet = meet
+        _lane(session, "graph")
+    check(not t.is_alive(), "[cards] a failing shard left the program "
+          "hanging")
+    err = out.get("error")
+    check(err is not None and "spy" in str(err), f"[cards] the failing "
+          f"shard's error did not surface ({err!r})")
+    check(ms < CARDS_ABORT_LIMIT_S * 1e3, f"[cards] the failing program "
+          f"took {ms:.0f} ms to end")
+    sync_cards()
+    print(f"[cards] a shard raising before its second collective: every "
+          f"shard ended, the query raised {type(err).__name__} "
+          f"({str(err)[:60]}) after {ms:.1f} ms, no card left waiting",
+          flush=True)
+    return ms
+
+
+def _cards_mesh(session, hash_df, hash_table, q3_df, tables, one_card):
+    """[cards] (2): the mesh lane's three queries at 4 shards, one per
+    card.  Returns the recorded K2 calls, the kernels line's numbers and
+    K2's and the barrier's runs on the cards."""
+    import torch
+    from spark_tpu_torch import cuda_a2a
+    from spark_tpu_torch import types as T
+    from spark_tpu_torch.parallel import executor as EX
+    from spark_tpu_torch.sql import functions as F
+    from spark_tpu_torch.sql.stagecompile import stage_cache
+    from spark_tpu_torch.testing import (hash_agg_oracle, hash_agg_query,
+                                         hash_agg_table, q3_oracle,
+                                         q3_query, q3_tables)
+    want_hash = hash_agg_oracle(hash_table)
+    want_q3 = q3_oracle(tables)
+    runs = [("hash-agg", hash_df, None),
+            ("q3 broadcast joins", q3_df, None),
+            ("q3 shuffled joins", q3_df, 0)]
+    clear_stage_cache()
+    cache = stage_cache()
+    reserves = []
+    reserve_fn = EX.DistributedExecution._reserves
+
+    def spy_reserves(self, pq):
+        got = reserve_fn(self, pq)
+        reserves.append([nb for _m, nb in got])
+        return got
+
+    calls, query = [], [None]
+    launch = cuda_a2a.all_to_all_cards
+
+    def spy(planes, card_of, devices, streams=None, gather=False,
+            receivers=None):
+        out = launch(planes, card_of, devices, streams, gather, receivers)
+        if not torch.cuda.is_current_stream_capturing():
+            calls.append((query[0], [list(p) for p in planes],
+                          list(card_of), list(devices), gather, receivers,
+                          out))
+        return out
+
+    first = {}
+    zero_counts()
+    cuda_a2a.all_to_all_cards = spy
+    EX.DistributedExecution._reserves = spy_reserves
+    try:
+        for name, df, threshold in runs:
+            _mesh(session, CARDS_SHARDS, threshold)
+            query[0] = name
+            keys = {e.key for e in cache.entries()}
+            s0, r0 = cache.stats(), len(reserves)
+            t0 = time.perf_counter()
+            got = _cards_rows(df, hash_df)
+            ms = (time.perf_counter() - t0) * 1e3
+            s1 = cache.stats()
+            first[name] = {"rows": got, "ms": ms,
+                           "entry": _mesh_entry(cache, keys),
+                           "builds": s1["builds"] - s0["builds"],
+                           "build_ms": s1["compile_ms"] - s0["compile_ms"],
+                           "reserve": reserves[-1] if len(reserves) > r0
+                           else None}
+    finally:
+        cuda_a2a.all_to_all_cards = launch
+        EX.DistributedExecution._reserves = reserve_fn
+    numbers = {}
+    for name, df, threshold in runs:
+        _mesh(session, CARDS_SHARDS, threshold)
+        f = first[name]
+        e = f["entry"]
+        v = e.variants[-1]
+        check(f["rows"] == (want_hash if df is hash_df else want_q3),
+              f"[cards] {name} differs from the oracle")
+        check(repr(f["rows"]) == one_card[name], f"[cards] {name}: the rows "
+              "differ from the one-card mesh lane's bit for bit")
+        check(e.key.endswith(f"|cards{CARDS_SHARDS}")
+              and len(e.cards or ()) == CARDS_SHARDS
+              and len(v.graphs) == CARDS_SHARDS,
+              f"[cards] {name}: its entry is not one of {CARDS_SHARDS} "
+              f"graphs ({e.key[:40]}…, cards {e.cards}, "
+              f"{len(v.graphs)} graphs)")
+        check(f["reserve"] is not None and len(f["reserve"]) == CARDS_SHARDS
+              and all(b <= r for b, r in zip(v.card_bytes, f["reserve"])),
+              f"[cards] {name}: graph bytes per card {v.card_bytes} beside "
+              f"the reserves {f['reserve']}")
+        s0 = cache.stats()
+        l0 = cuda_a2a.LAUNCHES
+        c0, b0 = dict(cuda_a2a.CARD_REPLAYED), \
+            dict(cuda_a2a.CARD_REPLAYED_BARRIERS)
+        got = _cards_rows(df, hash_df)
+        s1 = cache.stats()
+        copies = {d: n - c0.get(d, 0)
+                  for d, n in cuda_a2a.CARD_REPLAYED.items()}
+        barriers = {d: n - b0.get(d, 0)
+                    for d, n in cuda_a2a.CARD_REPLAYED_BARRIERS.items()}
+        check(got == f["rows"], f"[cards] {name}: the replay differs")
+        check(s1["dispatches"] == s0["dispatches"] + 1
+              and s1["variants"] == s0["variants"]
+              and s1["guard_misses"] == s0["guard_misses"]
+              and cuda_a2a.LAUNCHES == l0
+              and len([d for d, n in copies.items() if n > 0]) >= 1
+              and len([d for d, n in barriers.items() if n > 0])
+              == CARDS_SHARDS,
+              f"[cards] {name}: the warm run was no replay of every card's "
+              f"graph (stage cache {s0} -> {s1}, copies {copies}, barriers "
+              f"{barriers})")
+        _lane(session, "eager")
+        try:
+            eager = _cards_rows(df, hash_df)
+        finally:
+            _lane(session, "graph")
+        check(eager == got, f"[cards] {name}: the eager lane's rows differ")
+        walls = []
+        for lane in ("graph", "eager", "eager", "graph"):
+            _lane(session, lane)
+            walls.append(_cards_wall_ms(df.collect))
+        _lane(session, "graph")
+        prof = profile_query(f"cards {name} x{CARDS_SHARDS} captured",
+                             lambda: (df.collect(), sync_cards()),
+                             own_kernels=OWN_KERNELS + (
+                                 ("barrier", "barrier_kernel"),))
+        # a barrier's spin is device time spent waiting: left out
+        busy = (prof["device_ms"] - prof["own"]["barrier"][1]) \
+            / prof["wall_ms"] / CARDS_SHARDS
+        numbers[name] = {
+            "first_ms": f["ms"], "build_ms": f["build_ms"],
+            "graph_walls_ms": [walls[0], walls[3]],
+            "eager_walls_ms": [walls[1], walls[2]],
+            "card_bytes": v.card_bytes, "reserve_bytes": f["reserve"],
+            "copies_per_card": copies, "barriers_per_card": barriers,
+            "busy_per_card": busy, "barrier_ms": prof["own"]["barrier"][1],
+            "device_ms": prof["device_ms"]}
+        print(f"[cards] {name} x{CARDS_SHARDS} shards on {CARDS_SHARDS} "
+              f"cards: equal to the oracle and to the one-card mesh lane bit "
+              f"for bit; one entry of {len(v.graphs)} graphs (first run "
+              f"{f['ms']:.2f} ms, build {f['build_ms']:.2f} ms); a warm run "
+              f"is a replay (K2 copies per card {copies}, barriers per card "
+              f"{barriers}, no wrapper call); the eager lane equal; warm "
+              f"wall, median of 5, in turns graph, eager, eager, graph: "
+              f"{', '.join(f'{w:.2f}' for w in walls)} ms; graph bytes per "
+              f"card {v.card_bytes} beside the reserves {f['reserve']}; "
+              f"device busy {busy:.1%} per card (the barriers' "
+              f"{prof['own']['barrier'][1]:.3f} ms of spin left out)",
+              flush=True)
+    # a second data set through the same entries
+    hash2 = hash_agg_table(MAIN_N, MAIN_GROUPS, seed=MESH_SECOND_SEED)
+    sales2 = q3_tables(Q3_ROWS["store_sales"], Q3_ROWS["item"],
+                       Q3_ROWS["date_dim"],
+                       seed=MESH_SECOND_SEED)["store_sales"]
+    tables2 = dict(tables, store_sales=sales2)
+    df2 = hash_agg_query(session, F, hash2)
+    second = [("hash-agg", df2, None, hash_agg_oracle(hash2)),
+              ("q3 broadcast joins", q3_query(session, F, T, tables2), None,
+               q3_oracle(tables2)),
+              ("q3 shuffled joins", q3_query(session, F, T, tables2), 0,
+               q3_oracle(tables2))]
+    for name, df, threshold, want in second:
+        _mesh(session, CARDS_SHARDS, threshold)
+        s0 = cache.stats()
+        got = _cards_rows(df, df2)
+        s1 = cache.stats()
+        check(got == want, f"[cards] {name} on the second data set differs "
+              "from its oracle")
+        replay = s1["builds"] == s0["builds"] \
+            and s1["variants"] == s0["variants"]
+        if name == "hash-agg":
+            check(replay, f"[cards] {name} on the second data set was no "
+                  f"replay ({s0} -> {s1})")
+        numbers[name]["second_replay"] = replay
+        print(f"[cards] {name}, second data set (seed {MESH_SECOND_SEED}): "
+              f"equal to its oracle; "
+              f"{'a replay of the same graphs' if replay else 'built'}",
+              flush=True)
+    return calls, numbers
+
+
+def _cards_streamed(session, root):
+    """[cards] (4): [ooc]'s (a), hash-agg over an SF1-sized file at 4
+    shards, one per card, in ``OOC_MESH_BATCH``-row batches."""
+    from spark_tpu_torch import cuda_a2a
+    from spark_tpu_torch.sql.stagecompile import stage_cache
+    from spark_tpu_torch.testing import (HASH_AGG_SQL, hash_agg_oracle,
+                                         hash_agg_table)
+    hash1 = hash_agg_table(MAIN_N, MAIN_GROUPS)
+    s = session.newSession()
+    path = os.path.join(root, "hash_t")
+    s.createDataFrame(hash1).write.parquet(path)
+    s.read.parquet(path).createOrReplaceTempView("hash_t")
+    s.conf.set(SCAN_LIMIT_KEY, str(OOC_MESH_BATCH))
+    _mesh(s, CARDS_SHARDS)
+    c0 = dict(cuda_a2a.CARD_REPLAYED)
+    got, m = _ooc_run(s, lambda: sorted(tuple(r) for r in
+                                        s.sql(HASH_AGG_SQL).collect()))
+    copies = {d: n - c0.get(d, 0) for d, n in cuda_a2a.CARD_REPLAYED.items()}
+    check(got == [tuple(x) for x in hash_agg_oracle(hash1)],
+          "[cards] the streamed mesh step differs from its oracle")
+    steps = [e for e in stage_cache().entries()
+             if e.key.startswith(f"mbdist{CARDS_SHARDS}|")
+             or e.key.startswith(f"stream|mesh{CARDS_SHARDS}|")]
+    check(m["batches"] > 1 and any(len(e.cards or ()) == CARDS_SHARDS
+                                   for e in steps),
+          f"[cards] the streamed step did not span the cards ({m['batches']}"
+          f" batches, entries {[e.key[:30] for e in steps]})")
+    s.stop()
+    print(f"[cards] streamed mesh step: hash-agg over a {MAIN_N}-row file "
+          f"at {CARDS_SHARDS} shards on {CARDS_SHARDS} cards, "
+          f"{OOC_MESH_BATCH}-row batches: equal to its oracle; "
+          f"{m['batches']} batches, wall {m['wall_ms']:.2f} ms, graph "
+          f"builds {m['builds']}, K2 copies replayed per card {copies}",
+          flush=True)
+
+
+def _cards_tier(session, cards):
+    """[cards] (6): two workers, on ``cuda:0`` and ``cuda:1``, run q93's
+    hash lane on the device tier (``ici-cards``); the probe puts them in
+    one domain and every pull is held bit-exact.  Then the pull alone over
+    NVLink with the peer idle, in this process: a buffer on card 1 pulled
+    into rows on card 0, its sentinel bytes past each block kept."""
+    import numpy as np
+    import torch
+    from spark_tpu_torch import cuda_a2a
+    from spark_tpu_torch import types as T
+    from spark_tpu_torch.parallel.ici import _padded_rows
+    from spark_tpu_torch.testing import (CARD_TEXTS, OOC_SF1, jsonable_rows,
+                                         register_card_tables)
+    root = tempfile.mkdtemp(prefix="chip_smoke_cards_tier_")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    procs = []
+    try:
+        free, _total = torch.cuda.mem_get_info(cards[1])
+        spec = {"hash_rows": MAIN_N, "hash_groups": MAIN_GROUPS,
+                "q3": Q3_ROWS, "ooc": OOC_SF1, "ooc_seed": 19,
+                "conf": {"spark.tpu.memory.hbmBudget":
+                         str(int(free * 0.8))}}
+        with open(os.path.join(root, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        t0 = time.perf_counter()
+        for pid in range(2):
+            log = open(os.path.join(root, f"log-p{pid}.txt"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m", "spark_tpu_torch.testing",
+                 "crossproc-worker", str(pid), "2", root, "ici-cards",
+                 str(ICI_TIMEOUT_S), f"cuda:{cards[pid].index}"],
+                stdout=log, stderr=subprocess.STDOUT, env=env, cwd=here),
+                log))
+        sql = [t for t in CARD_TEXTS if t[0] == "c_hash"][0][2]
+        one = session.newSession()
+        register_card_tables(one, T, spec)
+        want = jsonable_rows(tuple(r) for r in one.sql(sql).collect())
+        one.stop()
+        for p, _log in procs:
+            p.wait(timeout=600)
+        results = []
+        for pid, (p, log) in enumerate(procs):
+            log.close()
+            text = open(os.path.join(root, f"log-p{pid}.txt")).read()
+            check(p.returncode == 0, f"[cards] tier worker {pid} exited "
+                  f"{p.returncode}:\n{text[-4000:]}")
+            with open(os.path.join(root, f"result-p{pid}.json")) as f:
+                results.append(json.load(f))
+        workers_s = time.perf_counter() - t0
+        walls, pulls = [], []
+        for pid, r in enumerate(results):
+            check(r["counters"]["tier_split_peers"] == 1, f"[cards] tier "
+                  f"worker {pid} on cuda:{pid}: its domain has "
+                  f"{r['counters']['tier_split_peers']} peers, not 1")
+            q = r["queries"]["c_hash"]
+            for i, run in enumerate([q["cold"]] + q["warm"]):
+                check(_rows_match(run["rows"], want), f"[cards] tier worker "
+                      f"{pid} run {i} differs from the single-process answer")
+                if run["tier"]:
+                    check(run["delta"].get("ici_exchanges", 0) >= 2
+                          and run["pull_launches"] >= 1, f"[cards] tier "
+                          f"worker {pid} run {i}: no device tier "
+                          f"({run['delta']})")
+                    pulls.append(run["split"]["pull_ms"])
+            walls.append([w["wall_ms"] for w in q["warm"]])
+        chk = [r["queries"]["_check"] for r in results]
+        launches = sum(r["queries"]["_pull_launches"] for r in results)
+        check(all(c["equal"] for c in chk) and sum(c["checked"] for c in chk)
+              > 0 and not any(c.get("missing") for c in chk),
+              f"[cards] cross-card pulls differ from their plain version "
+              f"({chk})")
+        print(f"[cards] device tier: workers on cuda:0 and cuda:1 in one "
+              f"domain (tier_split_peers 1 each), q93's hash lane equal to "
+              f"the single-process answer in every run; {launches} pulls, "
+              f"{sum(c['checked'] for c in chk)} held bit-exact; warm walls "
+              f"(device, host, host, device) by worker {walls} ms; workers "
+              f"done in {workers_s:.2f} s", flush=True)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        shutil.rmtree(root, ignore_errors=True)
+    # the pull alone over NVLink, the peer idle: 6 int64 planes on card 1
+    planes = ICI_IDLE_PLANES
+    width = CARDS_PULL_BYTES // planes // 8
+    g = torch.Generator(device=cards[1]).manual_seed(20)
+    src = [torch.randint(-2**62, 2**62, (width,), generator=g,
+                         device=cards[1], dtype=torch.int64)
+           for _ in range(planes)]
+    rows = _padded_rows(width, 8) + 2           # room past each block
+    outs = [torch.full((1, rows), -1, dtype=torch.int64, device=cards[0])
+            for _ in range(planes)]
+    sources = [[x.data_ptr()] for x in src]
+    nbytes = [width * 8] * planes
+
+    def pull():
+        with torch.cuda.device(cards[0]):
+            cuda_a2a.pull(sources, outs, nbytes)
+
+    def library():
+        for o, x in zip(outs, src):
+            o[0, :width].copy_(x)
+
+    pull()
+    sync_cards()
+    for o, x in zip(outs, src):
+        check(torch.equal(o[0, :width].cpu(), x.cpu())
+              and bool((o[0, width:] == -1).all()),
+              "[cards] the cross-card pull differs or overwrote the "
+              "sentinel bytes past its block")
+    with torch.cuda.device(cards[0]):
+        ms = cuda_ms(pull)
+        # back to back, the card never waits for the host: the kernel's
+        # own time (the profiler drops this launch's first records)
+        alone = cuda_ms_back_to_back(pull)
+        lib_ms = cuda_ms(library)
+        plain_ms = cuda_ms(lambda: cuda_a2a.pull_plain(
+            [[x.to(cards[0])] for x in src]))
+    moved = planes * width * 8
+    bound = max(moved / NVLINK_BYTES_PER_S,
+                moved / HBM_BYTES_PER_S) * 1e3
+    print(f"[cards] the pull alone over NVLink ({moved:,} B, {planes} int64 "
+          f"planes of {width:,} rows from cuda:1 into cuda:0, the peer "
+          f"idle): {ms:.4f} ms per call (CUDA events), {alone:.4f} back to "
+          f"back; the library call (copy_ per plane) {lib_ms:.4f} ms; "
+          f"plain version {plain_ms:.4f} ms; bound {bound:.4f} ms (the bytes "
+          f"at 450 GB/s); bit-exact, the sentinel past each block kept; "
+          f"pull_ms in the workers' device runs {pulls}", flush=True)
+    return {"name": "pull_cards", "route": "cuda",
+            "source": "spark_tpu_torch/csrc/all_to_all.cu",
+            "replaces": "spark_tpu/parallel/ici.py:352",
+            "launches": launches, "max_abs_err": 0, "ms": ms,
+            "ms_back_to_back": alone, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms,
+            "bytes": moved, "statement_walls_ms": walls}
+
+
+def phase_cards(session, hash_df, hash_table, q3_df, tables):
+    """[cards]: shards on several cards (see the module docstring).  Returns
+    the kernels line's ``k2_cards``, ``barrier`` and ``pull_cards``."""
+    import torch
+    from spark_tpu_torch import cuda_a2a
+    from spark_tpu_torch import types as T
+    from spark_tpu_torch.parallel import mesh as M
+    from spark_tpu_torch.testing import Q3_SQL, q3_oracle, \
+        register_sql_tables
+    t_phase = time.perf_counter()
+    n = torch.cuda.device_count()
+    cards = [torch.device("cuda", i) for i in range(n)]
+    root = tempfile.mkdtemp(prefix="chip_smoke_cards_")
+    try:
+        child, child_log, child_path = _cards_one_card_child(root)
+        # 1. the cards and their peer access
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip().splitlines()
+        for i, line in enumerate(smi):
+            print(f"[cards] cuda:{i} {line}", flush=True)
+        matrix = [[a == b or torch.cuda.can_device_access_peer(a, b)
+                   for b in range(n)] for a in range(n)]
+        missing = [(a, b) for a in range(n) for b in range(n)
+                   if not matrix[a][b]]
+        print(f"[cards] peer access (row: from, column: to): "
+              f"{[''.join('1' if x else '0' for x in row) for row in matrix]}"
+              f"; {n * (n - 1) - len(missing)} of {n * (n - 1)} ordered "
+              f"pairs", flush=True)
+        check(not missing, f"[cards] pairs without peer access: {missing}")
+        cuda_a2a.enable_peer_access(cards)
+        barrier_entry = _cards_barrier(cards[:CARDS_SHARDS])
+        # 2. the mesh queries, one shard per card
+        proc_rc = child.wait(timeout=900)
+        child_log.close()
+        check(proc_rc == 0, "[cards] the one-card mesh lane's child failed:"
+              f"\n{open(os.path.join(root, 'one_card.txt')).read()[-3000:]}")
+        with open(child_path) as f:
+            one_card = json.load(f)
+        zero_counts()
+        calls, numbers = _cards_mesh(session, hash_df, hash_table, q3_df,
+                                     tables, one_card)
+        copies = cuda_a2a.LAUNCHES - cuda_a2a.CAPTURED_LAUNCHES \
+            + cuda_a2a.REPLAYED_LAUNCHES
+        barriers = sum(cuda_a2a.CARD_BARRIERS.values()) \
+            - sum(cuda_a2a.CARD_CAPTURED_BARRIERS.values()) \
+            + sum(cuda_a2a.CARD_REPLAYED_BARRIERS.values())
+        check(copies > 0 and barriers > 0, f"[cards] K2 ran {copies} copies "
+              f"and {barriers} barriers on the cards")
+        by_card = {d: cuda_a2a.CARD_LAUNCHES[d] - cuda_a2a.CARD_CAPTURED[d]
+                   + cuda_a2a.CARD_REPLAYED[d] for d in cuda_a2a.CARD_LAUNCHES}
+        print(f"[cards] K2 runs on the cards over the mesh queries (counted "
+              f"on the host: wrapper launches outside a capture plus "
+              f"replayed): copies {copies} {by_card}, barriers {barriers}",
+              flush=True)
+        # 3. shards = 0 is every visible card
+        _mesh(session, 0)
+        register_sql_tables(session, hash_table, tables, T)
+        got = [tuple(r) for r in session.sql(Q3_SQL).collect()]
+        mesh = M._current
+        check(got == q3_oracle(tables) and mesh is not None
+              and mesh.n_shards == n and mesh.n_cards == n,
+              f"[cards] shards = 0: {mesh}, rows equal "
+              f"{got == q3_oracle(tables)}")
+        print(f"[cards] spark.tpu.mesh.shards = 0: q3's SQL text ran as "
+              f"{mesh}, equal to the oracle", flush=True)
+        _mesh(session, 1)
+        # 4. one streamed mesh step across the cards
+        _cards_streamed(session, root)
+        # 5. K2 across cards alone
+        t0 = time.perf_counter()
+        for i, (qn, planes, card_of, devices, gather, receivers, out) in \
+                enumerate(calls):
+            want = cuda_a2a.all_to_all_plain(planes, gather, card_of,
+                                             devices, receivers)
+            check(all(g is None and w is None or all(
+                a.dtype == b.dtype and torch.equal(a, b)
+                for a, b in zip(g, w)) for g, w in zip(out, want)),
+                f"[cards] {qn}: K2 call {i} differs from its plain version "
+                f"({_a2a_desc(planes, gather)})")
+        print(f"[cards] all {len(calls)} cross-card K2 calls of the mesh "
+              f"queries' warm-ups bit-exact against all_to_all_plain "
+              f"({time.perf_counter() - t0:.2f} s)", flush=True)
+        big = max((c for c in calls if c[0] == "q3 shuffled joins"
+                   and not c[4]), key=lambda c: _a2a_bytes(c[1], c[4]))
+        del calls
+        t = _cards_k2_alone(big, cards[:CARDS_SHARDS])
+        del big
+        _mesh(session, CARDS_SHARDS, 0)
+        abort_ms = _cards_abort(session, session.sql(Q3_SQL))
+        got = [tuple(r) for r in session.sql(Q3_SQL).collect()]
+        check(got == q3_oracle(tables), "[cards] the query after the "
+              "failing shard differs")
+        _mesh(session, 1)
+        # 6. the device tier across cards
+        pull_entry = _cards_tier(session, cards)
+        barrier_entry["launches"] = barriers
+        k2_entry = {"name": "k2_cards", "route": "cuda",
+                    "source": "spark_tpu_torch/csrc/all_to_all.cu",
+                    "replaces": "spark_tpu/parallel/ici.py:352",
+                    "launches": copies, "launches_by_card": by_card,
+                    "max_abs_err": 0, "ms": t["ms"],
+                    "kernel_alone_by_card_ms": t["alone_by_card_ms"],
+                    "alone_rotated_ms": t["alone_rotated_ms"],
+                    "alone_one_order_ms": t["alone_one_order_ms"],
+                    "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                    "bound_by": "bytes", "library_ms": t["library_ms"],
+                    "bytes": t["bytes"], "one_card_ms": t["one_card_ms"],
+                    "one_card_alone_ms": t["one_card_alone_ms"],
+                    "abort_ms": abort_ms, "mesh": numbers}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[cards] phase {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return [k2_entry, barrier_entry, pull_entry]
+
+
+def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    want_cards = 0
+    if argv[:1] == ["--one-card-rows"] and len(argv) == 2:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return one_card_rows_main(argv[1])
+    if argv[:1] == ["--cards"] and len(argv) == 2 and argv[1].isdigit():
+        want_cards = int(argv[1])
+    elif argv:
+        print("usage: python3 chip_smoke.py [--cards N]", file=sys.stderr)
+        return 2
+    if torch.cuda.device_count() < want_cards:
+        print(f"chip_smoke: --cards {want_cards}, but "
+              f"{torch.cuda.device_count()} card(s) are visible",
+              file=sys.stderr)
+        return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         import spark_tpu_torch  # noqa: F401
@@ -6386,10 +7390,18 @@ def main() -> int:
     phase_analysis(session, hash_table, tables, k1_entries, k2_entry,
                    pull_entry)
     phase_ml(session, k1_entries, k2_entry, pull_entry)
+    cards_entries = []
+    if torch.cuda.device_count() >= 2:
+        cards_entries = phase_cards(session, hash_df, hash_table, q3_df,
+                                    tables)
+    else:
+        print(f"[cards] not run: {torch.cuda.device_count()} card visible",
+              flush=True)
     session.stop()
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": k1_entries + [k2_entry, pull_entry,
-                                                lpt_entry]}))
+                                                lpt_entry]
+                      + cards_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6398,4 +7410,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -167,12 +167,16 @@ JOIN_OUTPUT_MAX_ROWS = conf("spark.sql.join.maxOutputRows").doc(
 
 MESH_SHARDS = conf("spark.tpu.mesh.shards").doc(
     "Number of mesh shards for distributed execution.  n > 1 runs every "
-    "query as n shards of one SPMD program (parallel/executor.py), every "
-    "exchange between shards one launch of the all-to-all kernel; all n "
-    "shards live on the session's device (spark.torch.device).  1 = the "
-    "single-device lane.  0 = all local devices, which is 1 here: the "
-    "engine spans one device, so the single-device lane stays the "
-    "default unless shards are asked for."
+    "query as n shards of one SPMD program (parallel/executor.py), placed "
+    "on the visible cards from the session's (spark.torch.device) as the "
+    "reference places them on devs[:n]: shard s on card s * C // n, C = "
+    "min(n, cards).  On one card every shard shares it and an exchange is "
+    "one all-to-all kernel launch; on several, one launch on each "
+    "receiving card between device-side barriers, reading peers over "
+    "NVLink.  A CPU session keeps every shard on the CPU.  1 = the "
+    "single-device lane.  0 = all visible cards (the reference's "
+    "len(jax.devices())): 1 on one card or on the CPU, so there the "
+    "single-device lane stays the default unless shards are asked for."
 ).int(0)
 
 AUTO_BROADCAST_JOIN_THRESHOLD = conf("spark.sql.autoBroadcastJoinThreshold").doc(

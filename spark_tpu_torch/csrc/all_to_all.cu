@@ -2,62 +2,86 @@
 //
 // Replaces spark_tpu/parallel/ici.py `_pallas_a2a`, the Pallas direct
 // all-to-all: `out_d[s] = in_s[d]` for every sender s and receiver d.
-// Here every participant (mesh shard) lives on one card, so an exchange
-// is a reordering copy in device memory:
+// The mesh's participants (shards) live on one card or on several cards
+// of one host; an exchange is a reordering copy that each receiver's card
+// makes, reading its senders' buffers where they are:
 //
 //   plane k, sender s:    src[k][s] is (n, cap, ...) contiguous; row d is
 //                         the block bound for receiver d
-//   plane k, all:         dst[k] is (n, n, cap, ...) contiguous; dst[k][d][s]
-//                         is the block receiver d got from sender s
+//   plane k, card c:      dst[k] is (n_dst, n, cap, ...) contiguous, the
+//                         card's receivers d0 .. d0 + n_dst - 1;
+//                         dst[k][d - d0][s] is the block receiver d got
+//                         from sender s
 //
-// ONE launch moves every plane of one exchange (each column, each
-// validity mask, the row-validity plane, a run table): the planes are
-// separate allocations, so the launch carries a table of their pointers
-// as a kernel parameter (__grid_constant__: read in place, never copied
-// per thread).  A parameter needs no device allocation and no host-to-
-// device copy, and the launch copies it whole.  The table holds up to
-// kMaxEntries entries: 32,704 bytes, inside the 32,764 bytes of kernel
-// parameters that CUDA 12.1 and later take.  With `gather` the
-// sender's whole buffer (cap, ...) goes to every receiver (the source
-// stride over d is 0): the all-gather of broadcast joins rides the same
-// kernel.
+// ONE launch per receiving card moves every plane of one exchange (each
+// column, each validity mask, the row-validity plane, a run table): the
+// planes are separate allocations, so the launch carries a table of their
+// pointers as a kernel parameter (__grid_constant__: read in place, never
+// copied per thread).  A parameter needs no device allocation and no
+// host-to-device copy, and the launch copies it whole.  The table holds up
+// to kMaxEntries entries: 32,704 bytes, inside the 32,764 bytes of kernel
+// parameters that CUDA 12.1 and later take.  With `gather` the sender's
+// whole buffer (cap, ...) goes to every receiver (the source stride over d
+// is 0): the all-gather of broadcast joins rides the same kernel.  On one
+// card the launch has n_dst = n, d0 = 0: every receiver.
 //
 // Bound: bytes.  Each block is read once and written once; there is no
 // arithmetic.  Each CUDA block copies one chunk (at most 64 KiB) of one
 // (plane, s, d) block with 16-byte loads and stores when both ends are
 // 16-byte aligned, and byte by byte otherwise (bool planes and int32 run
-// tables whose block sizes are not multiples of 16).
+// tables whose block sizes are not multiples of 16).  A block whose sender
+// lives on another card is read over NVLink (450 GB/s each way, against
+// the card's 3.35 TB/s): with peer access on (spark_enable_peer_access),
+// a peer card's address is loadable in a kernel under unified addressing,
+// the counterpart of `make_async_remote_copy`.
 //
-// Why there is no barrier: the TPU kernel fenced its buffers against the
-// neighbouring invocations with a barrier semaphore, because remote DMAs
-// from other chips could land at any time.  On one card the launch is
-// ordered on the caller's stream after every op that produced the send
-// buffers and before every op that reads the outputs, which is that fence.
+// The barrier.  On one card no barrier is needed: the launch is ordered on
+// the caller's stream after every op that produced the send buffers and
+// before every op that reads the outputs, which is the fence the TPU
+// kernel's barrier semaphore made.  Across cards stream order does not
+// cross devices, so one exchange on card c is barrier -> copy -> barrier on
+// card c's stream, barrier_kernel being the counterpart of
+// `pltpu.get_barrier_semaphore` / `semaphore_signal` / `semaphore_wait`:
+//  * the first barrier returns once every card of the set has reached it,
+//    so every sender's buffers are written before any card reads them;
+//  * the second returns once every card has finished its copy, so no
+//    sender frees or reuses a send buffer a peer still reads (the caching
+//    allocator hands it to the sender's next op).
+// Each card of a set has one state allocation (cudaMalloc, outside every
+// graph pool): a flag slot per card of the set and its epoch.  A barrier
+// advances its card's epoch in device memory itself (so a CUDA-graph
+// replay advances it too), signals slot `rank` of every card's flags with
+// a system-scope release store and spins on its own slots with acquire
+// loads until each holds the epoch.  The spin has a time limit read from
+// %globaltimer: at the limit it writes the peer it waited for into the
+// card's error word (mapped host memory, read by the wrapper without a
+// synchronization) and returns, so a dead peer never hangs the card.
 //
 // Across processes (the device tier of the cross-process exchange,
 // spark_tpu/parallel/ici.py `device_exchange`): each sender packs its
 // planes into an arena allocated here with cudaMalloc and exported with
 // cudaIpcGetMemHandle; each receiver maps its peers' arenas
-// (cudaIpcOpenMemHandle) and PULLS its own blocks with one launch of
-// pull_kernel (below; until it had its own kernel, this kernel with
-// n_dst = 1): the table's source pointers point at the receiver's slot
-// inside each sender's arena, and row s of plane k's output is what
-// sender s packed for it.  Two processes on one card are time-sliced
-// contexts and stream order does not cross them, so the order is kept
-// on the host: a sender synchronizes its stream after packing and
-// publishes its sidecar before its commit marker; a receiver launches
-// only after the commit barrier and synchronizes before it commits the
-// next exchange (the arenas are double-buffered by exchange).  No
-// device-side barrier: it would spin through context switches and hang
-// on a dead peer.
+// (cudaIpcOpenMemHandle, with peer access when the sender is on another
+// card) and PULLS its own blocks with one launch of pull_kernel (below)
+// on its own card: row s of plane k's output is what sender s packed for
+// it.  Processes share no stream order, on one card (time-sliced
+// contexts) or on several, so the order is kept on the host: a sender
+// synchronizes its stream after packing and publishes its sidecar before
+// its commit marker; a receiver launches only after the commit barrier
+// and synchronizes before it commits the next exchange (the arenas are
+// double-buffered by exchange).  No device-side barrier there: it would
+// spin through context switches, and the host order already holds.
 //
-// all_to_all_kernel's table layout (int64), P planes, n participants:
+// all_to_all_kernel's table layout (int64), P planes, n senders, one
+// receiving card with receivers d0 .. d0 + n_dst - 1 (cuda_a2a.a2a_card_plan
+// cuts it per card):
 //   [0, P*n)           source pointer of (plane k, sender s) at k*n + s
-//   [P*n, P*n+P)       destination pointer of plane k
+//   [P*n, P*n+P)       destination pointer of plane k on this card
 //   next P             block bytes of plane k
 //   next P             source stride over d, bytes (block bytes, or 0)
 //   next P+1           first work item of plane k (exclusive prefix of
-//                      n*n*ceil(block bytes / kChunk)); entry P is the total
+//                      n*n_dst*ceil(block bytes / kChunk)); entry P is the
+//                      total
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,11 +98,15 @@ struct Table {
   long long v[kMaxEntries];
 };
 
-// n senders and n_dst receivers: the local exchange has n_dst = n (the
-// cross-process pull launched it with n_dst = 1 before pull_kernel)
+// n senders and the n_dst receivers d0 .. d0 + n_dst - 1 of one card: on
+// one card n_dst = n and d0 = 0.  The senders are taken from `rot` on
+// (s = (rot + i) mod n for the i-th): on several cards each card starts
+// with the sender after its own receivers, so at any moment the cards read
+// from different senders, where the same order everywhere would make
+// every card read one sender's NVLink egress at once
 __global__ void __launch_bounds__(kThreads)
 all_to_all_kernel(const __grid_constant__ Table table, int P, int n,
-                  int n_dst) {
+                  int d0, int n_dst, int rot) {
   const long long* src_ptr = table.v;
   const long long* dst_ptr = src_ptr + (long long)P * n;
   const long long* block_bytes = dst_ptr + P;
@@ -94,14 +122,16 @@ all_to_all_kernel(const __grid_constant__ Table table, int P, int n,
   const long long local = item - first[k];
   const long long blk = local / per;
   const long long c = local - blk * per;
-  const long long s = blk / n_dst;
-  const long long d = blk - s * n_dst;
+  const long long i = blk / n_dst;
+  const long long r = blk - i * n_dst;        // the receiver's row here
+  const long long s = (i + rot) % n;
+  const long long d = d0 + r;
   const long long off = c * kChunk;
   const long long len = bb - off < kChunk ? bb - off : kChunk;
 
   const char* src = reinterpret_cast<const char*>(src_ptr[k * n + s])
                     + d * src_stride[k] + off;
-  char* dst = reinterpret_cast<char*>(dst_ptr[k]) + (d * n + s) * bb + off;
+  char* dst = reinterpret_cast<char*>(dst_ptr[k]) + (r * n + s) * bb + off;
 
   long long done = 0;
   if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst))
@@ -129,19 +159,188 @@ all_to_all_kernel(const __grid_constant__ Table table, int P, int n,
 }  // namespace
 
 // host_table: the `entries` int64 entries described above, in host memory;
-// total: its entry first[P] (the number of work items, one CUDA block
-// each).  Returns the CUDA error of the launch (0 on success).
-extern "C" int spark_all_to_all(const long long* host_table, int entries,
-                                int P, int n, long long total, void* stream) {
-  if (P <= 0 || n <= 0 || total <= 0) return 0;
+// d0 / n_dst: the card's receivers; rot: the first sender; total: its entry
+// first[P] (the number of work items, one CUDA block each).  Launches on
+// `stream`, whose card must be current.  Returns the CUDA error of the
+// launch (0 on success).
+extern "C" int spark_all_to_all_part(const long long* host_table,
+                                     int entries, int P, int n, int d0,
+                                     int n_dst, int rot, long long total,
+                                     void* stream) {
+  if (P <= 0 || n <= 0 || n_dst <= 0 || total <= 0) return 0;
   if (entries != P * n + 4 * P + 1 || entries > kMaxEntries ||
-      total > 0x7fffffffLL)
+      total > 0x7fffffffLL || d0 < 0 || d0 + n_dst > n || rot < 0 ||
+      rot >= n)
     return (int)cudaErrorInvalidValue;
   Table table;
   memcpy(table.v, host_table, sizeof(long long) * entries);
   all_to_all_kernel<<<(unsigned)total, kThreads, 0,
-                      reinterpret_cast<cudaStream_t>(stream)>>>(table, P, n,
-                                                                n);
+                      reinterpret_cast<cudaStream_t>(stream)>>>(
+      table, P, n, d0, n_dst, rot);
+  return (int)cudaGetLastError();
+}
+
+// every receiver on the caller's one card, senders in order
+extern "C" int spark_all_to_all(const long long* host_table, int entries,
+                                int P, int n, long long total, void* stream) {
+  return spark_all_to_all_part(host_table, entries, P, n, 0, n, 0, total,
+                               stream);
+}
+
+// ---- peer access and the cross-card barrier (barrier_kernel) ------------
+
+// Peer access from `device` to `peer` (cudaDeviceEnablePeerAccess, made
+// with `device` current); one already enabled is success.
+extern "C" int spark_enable_peer_access(int device, int peer) {
+  int current = -1;
+  cudaGetDevice(&current);
+  int rc = (int)cudaSetDevice(device);
+  if (rc == 0) {
+    rc = (int)cudaDeviceEnablePeerAccess(peer, 0);
+    if (rc == (int)cudaErrorPeerAccessAlreadyEnabled) {
+      cudaGetLastError();              // clear the error it left
+      rc = 0;
+    }
+  }
+  if (current >= 0) cudaSetDevice(current);
+  return rc;
+}
+
+namespace {
+
+constexpr int kMaxCards = 32;
+
+// a card's barrier state (device memory): the flag slot card p signals,
+// at flags[p], and the card's epoch
+struct BarrierState {
+  unsigned long long flags[kMaxCards];
+  unsigned long long epoch;
+};
+
+struct BarrierArgs {
+  BarrierState* state[kMaxCards];      // card p's state, on card p
+  unsigned int* error;                 // this card's word, mapped host memory
+  long long timeout_ns;
+  int rank, n;
+};
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// one block of kMaxCards threads; thread p signals card p and waits for it
+__global__ void __launch_bounds__(kMaxCards)
+barrier_kernel(const __grid_constant__ BarrierArgs a) {
+  __shared__ unsigned long long epoch;
+  BarrierState* self = a.state[a.rank];
+  if (threadIdx.x == 0) {
+    epoch = self->epoch + 1;
+    self->epoch = epoch;
+    // the writes of every op before this barrier on the card's stream
+    // reach the whole system before any peer is signalled
+    __threadfence_system();
+  }
+  __syncthreads();
+  const int p = threadIdx.x;
+  if (p >= a.n) return;
+  const unsigned long long e = epoch;
+  unsigned long long* slot = &a.state[p]->flags[a.rank];
+  asm volatile("st.release.sys.global.u64 [%0], %1;"
+               :: "l"(slot), "l"(e) : "memory");
+  const unsigned long long* mine = &self->flags[p];
+  const unsigned long long t0 = global_ns();
+  while (true) {
+    unsigned long long v;
+    asm volatile("ld.acquire.sys.global.u64 %0, [%1];"
+                 : "=l"(v) : "l"(mine) : "memory");
+    if (v >= e) break;
+    if ((long long)(global_ns() - t0) > a.timeout_ns) {
+      *reinterpret_cast<volatile unsigned int*>(a.error) = p + 1;
+      __threadfence_system();
+      break;
+    }
+    __nanosleep(200);
+  }
+}
+
+// makes `device` current for a call and the caller's card current again
+// after it (the caller's thread keeps the card it had)
+struct DeviceScope {
+  int prev = -1;
+  int rc;
+  explicit DeviceScope(int device) {
+    cudaGetDevice(&prev);
+    rc = (int)cudaSetDevice(device);
+  }
+  ~DeviceScope() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
+
+}  // namespace
+
+extern "C" int spark_barrier_max_cards() { return kMaxCards; }
+
+// a zeroed barrier state on `device` (cudaMalloc: outside every graph
+// pool, so a captured barrier's pointers stay good); *ptr gets its address
+extern "C" int spark_barrier_alloc(int device, void** ptr) {
+  DeviceScope scope(device);
+  if (scope.rc != 0) return scope.rc;
+  int rc = (int)cudaMalloc(ptr, sizeof(BarrierState));
+  if (rc != 0) return rc;
+  rc = (int)cudaMemset(*ptr, 0, sizeof(BarrierState));
+  if (rc == 0) rc = (int)cudaDeviceSynchronize();
+  return rc;
+}
+
+// zero a state again (after a timed-out barrier left the epochs apart);
+// the caller has synchronized every card of the set
+extern "C" int spark_barrier_reset(int device, void* ptr) {
+  DeviceScope scope(device);
+  if (scope.rc != 0) return scope.rc;
+  int rc = (int)cudaMemset(ptr, 0, sizeof(BarrierState));
+  if (rc == 0) rc = (int)cudaDeviceSynchronize();
+  return rc;
+}
+
+// the state's bytes (the flags, then the epoch) into `host`
+extern "C" int spark_barrier_read(int device, const void* ptr, void* host) {
+  DeviceScope scope(device);
+  if (scope.rc != 0) return scope.rc;
+  return (int)cudaMemcpy(host, ptr, sizeof(BarrierState),
+                         cudaMemcpyDeviceToHost);
+}
+
+// `words` zeroed unsigned ints of mapped, portable pinned host memory: the
+// barriers' error words, which every card writes and the host reads
+extern "C" int spark_barrier_error_words(int words, void** ptr) {
+  int rc = (int)cudaHostAlloc(ptr, sizeof(unsigned int) * words,
+                              cudaHostAllocMapped | cudaHostAllocPortable);
+  if (rc == 0) memset(*ptr, 0, sizeof(unsigned int) * words);
+  return rc;
+}
+
+// One barrier on card `rank` of a set of `n` cards: `states` holds the n
+// states' addresses (card p's at p), `error` this card's error word.
+// Launches on `stream`, whose card must be current; returns the CUDA error
+// of the launch.
+extern "C" int spark_barrier(const long long* states, int n, int rank,
+                             void* error, long long timeout_ns,
+                             void* stream) {
+  if (n < 1 || n > kMaxCards || rank < 0 || rank >= n || timeout_ns <= 0)
+    return (int)cudaErrorInvalidValue;
+  BarrierArgs a;
+  memset(&a, 0, sizeof(a));
+  for (int p = 0; p < n; ++p)
+    a.state[p] = reinterpret_cast<BarrierState*>(states[p]);
+  a.error = reinterpret_cast<unsigned int*>(error);
+  a.timeout_ns = timeout_ns;
+  a.rank = rank;
+  a.n = n;
+  barrier_kernel<<<1, kMaxCards, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      a);
   return (int)cudaGetLastError();
 }
 

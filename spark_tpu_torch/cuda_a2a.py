@@ -27,13 +27,22 @@ shared-memory file).  The arena itself (``Arena``) is one ``cudaMalloc``
 allocation of the kernel's library, exported and mapped by the library's
 IPC entry points.
 
-Within one process all participants live on one device.  On CUDA tensors
-the wrapper
-launches ``csrc/all_to_all.cu`` once for all planes, their pointers in a
-table passed as a kernel parameter — built with ``nvcc`` at first use
-into ``build/kernels/`` and bound with ctypes — or raises; on CPU tensors
-it runs the plain PyTorch version (one ``torch.stack`` per plane).  There
-is no fallback from one to the other.
+Within one process the participants live on one card or on several
+cards of one host.  On one card ``all_to_all`` launches
+``csrc/all_to_all.cu`` once for all planes, their pointers in a table
+passed as a kernel parameter — built with ``nvcc`` at first use into
+``build/kernels/`` and bound with ctypes — or raises; on CPU tensors it
+runs the plain PyTorch version (one ``torch.stack`` per plane).  On
+several cards ``all_to_all_cards`` makes one exchange as barrier → copy →
+barrier on every card's stream: the copy is the same kernel launched once
+on each receiving card, with the table ``a2a_card_plan`` cuts for it (its
+receivers only; its senders' buffers read where they are, over NVLink),
+and the barrier is ``barrier_kernel`` (``barrier``), the counterpart of
+the Pallas kernel's barrier semaphore.  Peer access between every pair
+of the cards is enabled first (``enable_peer_access``), or the call
+raises naming the pair; a barrier that times out raises at the next
+exchange or ``check_barriers``.  There is no fallback from one to the
+other: no host-staged copy, no CPU.
 
 A mesh query's stage-cache entry captures its exchanges into a CUDA
 graph, which freezes each launch's pointer table.  That is right only
@@ -48,8 +57,10 @@ from __future__ import annotations
 
 import ctypes
 import os
+import threading
 from array import array
-from typing import List, Optional, Sequence, Tuple
+from collections import Counter
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +84,20 @@ MAX_TABLE_ENTRIES = 4088
 LAUNCHES = 0
 CAPTURED_LAUNCHES = 0
 REPLAYED_LAUNCHES = 0
+
+#: the same counts per card (keyed by the card's device index), copies
+#: only; ``*_BARRIERS`` count the barrier launches of a cross-card
+#: exchange (two per card each) the same way
+CARD_LAUNCHES: Counter = Counter()
+CARD_CAPTURED: Counter = Counter()
+CARD_REPLAYED: Counter = Counter()
+CARD_BARRIERS: Counter = Counter()
+CARD_CAPTURED_BARRIERS: Counter = Counter()
+CARD_REPLAYED_BARRIERS: Counter = Counter()
+
+#: a barrier that waited this long for a peer gives up and sets its
+#: card's error word (the wrapper raises on it)
+BARRIER_TIMEOUT_S = 20.0
 
 #: set by the stage cache while it captures a mesh entry: ``fn(ptr)`` is
 #: True for an address a replay finds unchanged (the entry's static
@@ -100,6 +125,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     sigs = {
         "spark_all_to_all": [vp, i, i, i, ll, vp],
+        "spark_all_to_all_part": [vp, i, i, i, i, i, i, ll, vp],
+        "spark_enable_peer_access": [i, i],
+        "spark_barrier_max_cards": [],
+        "spark_barrier_alloc": [i, ctypes.POINTER(vp)],
+        "spark_barrier_reset": [i, vp],
+        "spark_barrier_read": [i, vp, vp],
+        "spark_barrier_error_words": [i, ctypes.POINTER(vp)],
+        "spark_barrier": [vp, i, i, vp, ll, vp],
         "spark_a2a_pull": [vp, i, i, i, ll, i, i, i, i, vp],
         "spark_ipc_handle_bytes": [],
         "spark_ipc_alloc": [i, ll, ctypes.POINTER(vp)],
@@ -115,8 +148,11 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn.restype = ctypes.c_int
 
 
-def _check(planes: Sequence[Sequence[torch.Tensor]], gather: bool) -> int:
-    """Validate the plane table; returns the participant count n."""
+def _check(planes: Sequence[Sequence[torch.Tensor]], gather: bool,
+           one_device: bool = True) -> int:
+    """Validate the plane table; returns the participant count n.  With
+    ``one_device`` False participant s may be on its own device (every
+    plane's participant s on the same one)."""
     if not planes:
         raise ValueError("all_to_all: no planes")
     n = len(planes[0])
@@ -132,9 +168,10 @@ def _check(planes: Sequence[Sequence[torch.Tensor]], gather: bool) -> int:
             if not isinstance(x, torch.Tensor):
                 raise TypeError(f"all_to_all: plane {k} participant {s} is "
                                 f"not a tensor")
-            if x.device != device:
+            want = device if one_device else planes[0][s].device
+            if x.device != want:
                 raise ValueError(f"all_to_all: plane {k} participant {s} is "
-                                 f"on {x.device}, plane 0 on {device}")
+                                 f"on {x.device}, plane 0's on {want}")
             if x.dtype != head.dtype or x.shape != head.shape:
                 raise ValueError(
                     f"all_to_all: plane {k} participant {s} is "
@@ -151,9 +188,37 @@ def _check(planes: Sequence[Sequence[torch.Tensor]], gather: bool) -> int:
 
 
 def all_to_all_plain(planes: Sequence[Sequence[torch.Tensor]],
-                     gather: bool = False) -> List[torch.Tensor]:
+                     gather: bool = False,
+                     card_of: Optional[Sequence[int]] = None,
+                     devices: Optional[Sequence[torch.device]] = None,
+                     receivers: Optional[range] = None):
     """Plain PyTorch version: ``stack`` over senders puts block ``[d][s]``
-    where the exchange puts it."""
+    where the exchange puts it.
+
+    The cross-device form (``card_of``: participant s's card, ``devices``:
+    each card's device; ``receivers``: the receiving participants, all by
+    default) returns per card, per plane, what ``all_to_all_cards``
+    returns: the ``(n_dst, n, ...)`` blocks of the card's receivers, each
+    block ``.to()`` its receiver's device, or None for a card with no
+    receiver."""
+    if card_of is not None:
+        n = len(planes[0])
+        out = []
+        for c, dev in enumerate(devices):
+            d0, n_dst = card_receivers(card_of, c, receivers)
+            if not n_dst:
+                out.append(None)
+                continue
+            if gather:
+                out.append([torch.stack([x.to(dev) for x in shards])
+                            .unsqueeze(0)
+                            .expand((n_dst, n) + tuple(shards[0].shape))
+                            .contiguous() for shards in planes])
+            else:
+                out.append([torch.stack([x[d0:d0 + n_dst].to(dev)
+                                         for x in shards], dim=1)
+                            for shards in planes])
+        return out
     if gather:
         n = len(planes[0])
         return [torch.stack(list(shards)).unsqueeze(0)
@@ -210,6 +275,335 @@ def all_to_all(planes: Sequence[Sequence[torch.Tensor]],
     LAUNCHES += 1
     if capturing:
         CAPTURED_LAUNCHES += 1
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# across cards: the per-card plan, peer access, the barrier
+# ---------------------------------------------------------------------------
+
+def card_receivers(card_of: Sequence[int], card: int,
+                   receivers: Optional[range] = None) -> Tuple[int, int]:
+    """(d0, n_dst): the receivers on ``card`` — a contiguous range of
+    participants, as the mesh places them — within ``receivers``."""
+    mine = [d for d, c in enumerate(card_of) if c == card
+            and (receivers is None or d in receivers)]
+    if not mine:
+        return 0, 0
+    if mine != list(range(mine[0], mine[-1] + 1)):
+        raise ValueError(f"all_to_all: card {card}'s participants {mine} "
+                         "are not contiguous")
+    return mine[0], len(mine)
+
+
+def first_sender(n: int, d0: int, n_dst: int) -> int:
+    """The sender a card's launch starts from: the one after its own
+    receivers, so that the cards read from different senders at once (see
+    ``all_to_all_kernel``)."""
+    return (d0 + n_dst) % n
+
+
+def a2a_card_plan(src: Sequence[Sequence[int]],
+                  dst: Sequence[Sequence[Optional[int]]],
+                  nbytes: Sequence[int], stride: Sequence[int],
+                  card_of: Sequence[int],
+                  receivers: Optional[range] = None
+                  ) -> List[Tuple[int, int, List[int], int]]:
+    """Each card's launch of ``all_to_all_kernel``: per card ``c``,
+    ``(d0, n_dst, table, total)`` — its receivers ``d0 .. d0 + n_dst -
+    1``, its int64 table (laid out as in ``csrc/all_to_all.cu``) and its
+    number of work items (0: the card launches no copy); the launch takes
+    its senders from ``first_sender(n, d0, n_dst)`` on.
+
+    ``src[k][s]`` is sender s's buffer of plane k (any card), ``dst[c][k]``
+    card c's output of plane k (``(n_dst, n, ...)`` on card c),
+    ``nbytes[k]`` one block's bytes and ``stride[k]`` the source stride
+    over receivers (``nbytes[k]``, or 0 in the gather form).  Block
+    ``(k, s, d)`` goes to card ``card_of[d]`` alone."""
+    n = len(card_of)
+    P = len(nbytes)
+    out = []
+    for c in range(max(card_of) + 1):
+        d0, n_dst = card_receivers(card_of, c, receivers)
+        first = [0]
+        for bb in nbytes:
+            first.append(first[-1] + n * n_dst * (-(-bb // CHUNK_BYTES)))
+        table = [p for plane in src for p in plane]
+        table += [dst[c][k] if n_dst else 0 for k in range(P)]
+        table += list(nbytes) + list(stride) + first
+        if len(table) > MAX_TABLE_ENTRIES:
+            raise ValueError(f"all_to_all: {P} planes of {n} participants "
+                             f"need {len(table)} table entries; one launch "
+                             f"takes {MAX_TABLE_ENTRIES}")
+        out.append((d0, n_dst, table, first[-1] if n_dst else 0))
+    return out
+
+
+def a2a_table_blocks(table: Sequence[int], P: int, n: int, d0: int,
+                     n_dst: int, rot: int = 0) -> List[tuple]:
+    """What one card's launch copies, decoded as ``all_to_all_kernel``
+    decodes its table, its senders taken from ``rot`` on: per work item
+    ``(plane, sender, receiver, source address, destination address,
+    bytes)``."""
+    src_ptr = table[:P * n]
+    dst_ptr = table[P * n:P * n + P]
+    bbs = table[P * n + P:P * n + 2 * P]
+    stride = table[P * n + 2 * P:P * n + 3 * P]
+    first = table[P * n + 3 * P:]
+    out = []
+    for item in range(first[P]):
+        k = 0
+        while k + 1 < P and first[k + 1] <= item:
+            k += 1
+        bb = bbs[k]
+        per = -(-bb // CHUNK_BYTES)
+        local = item - first[k]
+        blk, ch = divmod(local, per)
+        i, r = divmod(blk, n_dst)
+        s = (i + rot) % n
+        off = ch * CHUNK_BYTES
+        out.append((k, s, d0 + r,
+                    src_ptr[k * n + s] + (d0 + r) * stride[k] + off,
+                    dst_ptr[k] + (r * n + s) * bb + off,
+                    min(CHUNK_BYTES, bb - off)))
+    return out
+
+
+def _index(device: torch.device) -> int:
+    device = torch.device(device)
+    return device.index if device.index is not None \
+        else torch.cuda.current_device()
+
+
+def same_card(a, b) -> bool:
+    """Whether two devices name one card (``cuda`` is the current one)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    return a.type != "cuda" or _index(a) == _index(b)
+
+
+_PEERS_ENABLED: set = set()
+_BARRIER_LOCK = threading.Lock()
+
+
+def enable_peer_access(devices: Sequence[torch.device]) -> None:
+    """Enable peer access between every ordered pair of distinct cards in
+    ``devices``; raises naming a pair that
+    ``torch.cuda.can_device_access_peer`` refuses.  No host-staged
+    fallback exists."""
+    idx = sorted({_index(d) for d in devices})
+    lib = None
+    for a in idx:
+        for b in idx:
+            if a == b or (a, b) in _PEERS_ENABLED:
+                continue
+            if not torch.cuda.can_device_access_peer(a, b):
+                raise RuntimeError(
+                    f"all_to_all: card cuda:{a} has no peer access to "
+                    f"cuda:{b}; shards on several cards need every pair "
+                    f"(there is no host-staged exchange)")
+            lib = lib or _lib()
+            _check_rc(lib.spark_enable_peer_access(a, b),
+                      f"peer access cuda:{a} -> cuda:{b}")
+            _PEERS_ENABLED.add((a, b))
+
+
+class BarrierSet:
+    """The barrier state of one set of distinct cards (their device
+    indices in rank order): one zeroed state allocation per card and an
+    error word per card in mapped host memory, allocated once, outside
+    every graph pool, and kept for the process's life (graphs hold their
+    addresses)."""
+
+    def __init__(self, indices: Sequence[int]):
+        self.indices = tuple(indices)
+        if len(set(self.indices)) != len(self.indices):
+            raise ValueError(f"barrier: cards {list(self.indices)} repeat a "
+                             f"card; each card of a barrier is a distinct "
+                             f"device")
+        lib = _lib()
+        if len(self.indices) > lib.spark_barrier_max_cards():
+            raise ValueError(f"barrier: {len(self.indices)} cards; it takes "
+                             f"{lib.spark_barrier_max_cards()}")
+        self.states = []
+        for d in self.indices:
+            ptr = ctypes.c_void_p()
+            _check_rc(lib.spark_barrier_alloc(d, ctypes.byref(ptr)),
+                      f"barrier state on cuda:{d}")
+            self.states.append(int(ptr.value))
+        self.table = (ctypes.c_longlong * len(self.states))(*self.states)
+        words = ctypes.c_void_p()
+        _check_rc(lib.spark_barrier_error_words(len(self.indices),
+                                                ctypes.byref(words)),
+                  "barrier error words")
+        self.errors = ctypes.cast(words, ctypes.POINTER(ctypes.c_uint))
+        self.error_base = int(words.value)
+
+    def failed(self) -> List[Tuple[int, int]]:
+        """(rank, the peer rank it waited for) of each timed-out card."""
+        return [(r, self.errors[r] - 1) for r in range(len(self.indices))
+                if self.errors[r]]
+
+    def check(self) -> None:
+        """Raise if a barrier of this set timed out; then synchronize
+        every card and zero the states, so the next barrier starts from
+        equal epochs."""
+        bad = self.failed()
+        if not bad:
+            return
+        lib = _lib()
+        for d in self.indices:
+            torch.cuda.synchronize(d)
+        for r, (d, ptr) in enumerate(zip(self.indices, self.states)):
+            _check_rc(lib.spark_barrier_reset(d, ptr), "barrier reset")
+            self.errors[r] = 0
+        what = ", ".join(f"cuda:{self.indices[r]} (rank {r}) waited for "
+                         f"rank {p}" for r, p in bad)
+        raise RuntimeError(f"all_to_all: a cross-card barrier timed out "
+                           f"after {BARRIER_TIMEOUT_S} s: {what}; the "
+                           f"exchange's outputs are not valid")
+
+    def read(self, rank: int) -> Tuple[int, List[int]]:
+        """(epoch, the flag slot of each card) of card ``rank``'s state,
+        copied to the host (a synchronizing read, for checks)."""
+        words = _lib().spark_barrier_max_cards() + 1
+        host = (ctypes.c_ulonglong * words)()
+        _check_rc(_lib().spark_barrier_read(self.indices[rank],
+                                            self.states[rank], host),
+                  "barrier state read")
+        return int(host[words - 1]), [int(host[p]) for p in
+                                      range(len(self.indices))]
+
+    def launch(self, rank: int, stream, timeout_s: float) -> None:
+        rc = _lib().spark_barrier(
+            self.table, len(self.states), rank,
+            self.error_base + 4 * rank, int(timeout_s * 1e9),
+            stream.cuda_stream)
+        _check_rc(rc, f"barrier launch on cuda:{self.indices[rank]}")
+
+
+_BARRIERS: Dict[tuple, BarrierSet] = {}
+
+
+def barrier_set(devices: Sequence[torch.device]) -> BarrierSet:
+    """The process's ``BarrierSet`` of these cards, made at first use."""
+    key = tuple(_index(d) for d in devices)
+    with _BARRIER_LOCK:
+        b = _BARRIERS.get(key)
+        if b is None:
+            b = _BARRIERS[key] = BarrierSet(key)
+        return b
+
+
+def check_barriers() -> None:
+    """Raise if any cross-card barrier of this process timed out (read
+    from the mapped error words: no synchronization)."""
+    for b in list(_BARRIERS.values()):
+        b.check()
+
+
+def barrier(devices: Sequence[torch.device], streams: Sequence) -> None:
+    """One barrier over every card of ``devices``: ``barrier_kernel``
+    launched on each card's stream (``streams[c]``, that card current), all
+    before this returns.  Every card of the set must launch its barrier
+    the same number of times, in the same order of exchanges."""
+    b = barrier_set(devices)
+    for rank, (dev, st) in enumerate(zip(devices, streams)):
+        with torch.cuda.device(dev):
+            b.launch(rank, st, BARRIER_TIMEOUT_S)
+        capturing = _capturing(st)
+        CARD_BARRIERS[_index(dev)] += 1
+        if capturing:
+            CARD_CAPTURED_BARRIERS[_index(dev)] += 1
+
+
+def _capturing(stream) -> bool:
+    with torch.cuda.stream(stream):
+        return torch.cuda.is_current_stream_capturing()
+
+
+def all_to_all_cards(planes: Sequence[Sequence[torch.Tensor]],
+                     card_of: Sequence[int],
+                     devices: Sequence[torch.device],
+                     streams: Optional[Sequence] = None,
+                     gather: bool = False,
+                     receivers: Optional[range] = None):
+    """The exchange among participants on several cards: participant s's
+    buffers are on card ``card_of[s]`` (``devices[c]``); returns per card,
+    per plane, the ``(n_dst, n, ...)`` blocks of its receivers
+    (``card_receivers``), or None for a card without one — what
+    ``all_to_all_plain`` returns in its cross-device form, which CPU
+    tensors take.  On the cards: barrier, one copy launch per receiving
+    card on its stream (``streams[c]``, by default each card's current
+    stream), barrier; all enqueued before this returns."""
+    global LAUNCHES, CAPTURED_LAUNCHES
+    n = _check(planes, gather, one_device=False)
+    if len(card_of) != n:
+        raise ValueError(f"all_to_all: {len(card_of)} card indices for "
+                         f"{n} participants")
+    for s, c in enumerate(card_of):
+        if not same_card(planes[0][s].device, devices[c]):
+            raise ValueError(f"all_to_all: participant {s} is on "
+                             f"{planes[0][s].device}, its card is "
+                             f"{devices[c]}")
+    kinds = {torch.device(d).type for d in devices}
+    if kinds == {"cpu"}:
+        return all_to_all_plain(planes, gather, card_of, devices, receivers)
+    if kinds != {"cuda"}:
+        raise ValueError(f"all_to_all: cards {list(devices)} mix devices")
+    if streams is None:
+        streams = [torch.cuda.current_stream(d) for d in devices]
+    enable_peer_access(devices)
+    barrier_set(devices).check()
+    outs: List[Optional[List[torch.Tensor]]] = []
+    ranges = [card_receivers(card_of, c, receivers)
+              for c in range(len(devices))]
+    nbytes, stride = [], []
+    for shards in planes:
+        head = shards[0]
+        bb = head.numel() * head.element_size() // (1 if gather else n)
+        nbytes.append(bb)
+        stride.append(0 if gather else bb)
+    for (d0, n_dst), dev, st in zip(ranges, devices, streams):
+        if not n_dst:
+            outs.append(None)
+            continue
+        with torch.cuda.device(dev), torch.cuda.stream(st):
+            outs.append([torch.empty((n_dst, n) + tuple(
+                shards[0].shape[0 if gather else 1:]),
+                dtype=shards[0].dtype, device=dev) for shards in planes])
+    src = [[x.data_ptr() for x in shards] for shards in planes]
+    dst = [[o.data_ptr() for o in out] if out is not None else None
+           for out in outs]
+    plan = a2a_card_plan(src, dst, nbytes, stride, card_of, receivers)
+    capturing = _capturing(streams[0])
+    if capturing:
+        _check_captured_pointers(
+            [p for plane in src for p in plane]
+            + [p for out in dst if out is not None for p in out])
+    lib = _lib()
+    barrier(devices, streams)
+    for (d0, n_dst, table, total), dev, st in zip(plan, devices, streams):
+        if not total:
+            continue
+        buf = (ctypes.c_longlong * len(table))(*table)
+        with torch.cuda.device(dev):
+            rc = lib.spark_all_to_all_part(buf, len(table), len(planes), n,
+                                           d0, n_dst,
+                                           first_sender(n, d0, n_dst), total,
+                                           st.cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"all_to_all kernel failed on {dev}: CUDA "
+                               f"error {rc} (planes={len(planes)}, n={n}, "
+                               f"receivers {d0}..{d0 + n_dst - 1}, "
+                               f"items={total})")
+        LAUNCHES += 1
+        CARD_LAUNCHES[_index(dev)] += 1
+        if capturing:
+            CAPTURED_LAUNCHES += 1
+            CARD_CAPTURED[_index(dev)] += 1
+    barrier(devices, streams)
     return outs
 
 

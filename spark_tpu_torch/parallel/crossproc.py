@@ -643,8 +643,8 @@ def _ici_tier(session, svc: HostShuffleService):
         return None, 0
     override = session.conf.get(C.SHUFFLE_ICI_TIER_OVERRIDE)
     live = svc.live_pids()
-    uuids = None if override else ici.card_uuids(svc, live)
-    tier = ici.probe_topology(override, svc.pid, svc.n, live, uuids)
+    facts = None if override else ici.card_facts(svc, live)
+    tier = ici.probe_topology(override, svc.pid, svc.n, live, facts)
     with svc._lock:
         svc.counters["tier_split_peers"] = len(tier.peers())
     return (tier if tier.peers() else None), \

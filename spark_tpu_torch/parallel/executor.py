@@ -29,6 +29,7 @@ import torch
 import numpy as np
 
 from .. import config as C
+from .. import cuda_a2a
 from .. import expressions as E
 from ..aggregates import First
 from ..columnar import ColumnBatch, ColumnVector, pad_capacity
@@ -311,13 +312,28 @@ class DistributedExecution:
         # the program's device working set — every shard's intermediates,
         # which a captured entry's pool holds for its lifetime — is
         # reserved before dispatch, as on the single-device lane
-        mem = self.session._memory
         owner = f"mesh:{id(self)}"
-        mem.acquire_execution(owner, _plan_reserve_bytes(pq, self.n))
+        held = []
         try:
+            for mem, nbytes in self._reserves(pq):
+                mem.acquire_execution(owner, nbytes)
+                held.append(mem)
             return self._dispatch(optimized, pq)
         finally:
-            mem.release_execution(owner)
+            for mem in held:
+                mem.release_execution(owner)
+
+    def _reserves(self, pq):
+        """(memory manager, bytes) to reserve: the whole program on the
+        session's card, or on several cards each card's shards against
+        that card's manager."""
+        mesh = self.mesh
+        if mesh.n_cards == 1:
+            return [(self.session._memory, _plan_reserve_bytes(pq, self.n))]
+        return [(self.session.card_memory(dev),
+                 _plan_reserve_bytes(pq, self.n, len(mesh.shards_on(c)),
+                                     root=c == 0))
+                for c, dev in enumerate(mesh.cards)]
 
     def _dispatch(self, optimized: LogicalPlan, pq
                   ) -> Tuple[Optional[ColumnBatch], float, float, int]:
@@ -327,11 +343,17 @@ class DistributedExecution:
         from ..sql import stagecompile as SC
         from ..sql.udf import plan_has_slow_udf
         session = self.session
-        device = self.mesh.device
+        mesh = self.mesh
+        device = mesh.device
+        multi = mesh.n_cards > 1
         # the shards cut leaves by rows, which a run plane cannot follow
         leaves = SC.entry_leaves(pq.leaves, device)
+        # on several cards each card's rows go to it first
+        run_leaves = place_leaves(mesh, leaves) if multi else leaves
 
         def finish(out, host, meta):
+            if multi:
+                cuda_a2a.check_barriers()
             caps, kinds = meta
             ex_ratio, join_ratio, shrink_need = _overflow(host[1:], caps,
                                                           kinds)
@@ -341,12 +363,15 @@ class DistributedExecution:
 
         if not session.conf.get(C.CODEGEN_ENABLED) \
                 or plan_has_slow_udf(optimized):
-            step = query_step(self.mesh, pq.physical, [], device)
-            out, scalars, meta = step(leaves, [])
+            step = query_step(mesh, pq.physical, [], device)
+            out, scalars, meta = step(
+                run_leaves, [[]] * mesh.n_cards if multi else [])
             return finish(out, SC._read_back(scalars), meta)
         body, slots = SC.stage_fingerprint(pq.physical)
+        # shards on several cards are another program (one graph per card)
         skey = (f"dist{self.n}|{body}|{SC.leaf_signature(leaves)}"
-                f"|{SC._conf_component(session)}")
+                f"|{SC._conf_component(session)}"
+                + (f"|cards{mesh.n_cards}" if multi else ""))
         physical = pq.physical
 
         def make():
@@ -358,8 +383,9 @@ class DistributedExecution:
         entry = cache.get_or_build(skey, make, n_ops=SC.count_ops(physical),
                                    session=session)
         session.raise_if_cancelled()      # checkpoint: before the replay
-        return cache.dispatch(entry, leaves, SC.param_values(slots), finish,
-                              device, memory=session._memory)
+        return cache.dispatch(entry, run_leaves, SC.param_values(slots),
+                              finish, device, memory=session._memory,
+                              card_memory=session.card_memory)
 
 
 def query_step(mesh: Mesh, physical: P.PhysicalPlan, slots, device):
@@ -367,19 +393,28 @@ def query_step(mesh: Mesh, physical: P.PhysicalPlan, slots, device):
     ``step(leaves, params) -> (compacted result, [row count, overflow
     flag, ...], (flag caps, flag kinds))``.  Each shard runs the plan on
     its slice of every leaf; the row count is psum'd and each flag pmax'd
-    over the shards, so the scalars read back are the program's own."""
+    over the shards, so the scalars read back are the program's own.
+
+    On several cards the leaves are ``place_leaves``'s (each card's rows
+    on its card), ``params`` holds one list of parameter scalars per card,
+    and the shards' outputs meet on shard 0's card through K2
+    (``gather_batch``)."""
     n = mesh.n_shards
+    multi = mesh.n_cards > 1
 
     def step(leaves, params):
-        shards = [shard_leaf(mesh, b) for b in leaves]
+        shards = placed_shards(mesh, leaves) if multi \
+            else [shard_leaf(mesh, b) for b in leaves]
 
         def shard_fn(shard, comm):
             # the slotted literals' binding is thread-local: each shard
-            # thread binds the entry's parameter scalars itself
-            E._slot_bindings.map = {id(l): p for l, p in zip(slots, params)}
+            # thread binds the entry's parameter scalars itself (those on
+            # its card)
+            mine = params[mesh.card_of[shard]] if multi else params
+            E._slot_bindings.map = {id(l): p for l, p in zip(slots, mine)}
             try:
-                ctx = ShardContext(device, [s[shard] for s in shards],
-                                   shard, comm)
+                ctx = ShardContext(mesh.devices[shard],
+                                   [s[shard] for s in shards], shard, comm)
                 out = compact(physical.run(ctx))
                 n_rows = comm.psum(shard, out.num_rows())
                 flags = []
@@ -387,15 +422,19 @@ def query_step(mesh: Mesh, physical: P.PhysicalPlan, slots, device):
                     flags = list(comm.pmax(shard, torch.stack(
                         [f.reshape(()).to(torch.int64) for f in ctx.flags]
                     )).unbind())
+                joined = gather_batch(comm, shard, out) if multi else None
                 return out, [n_rows] + flags, (list(ctx.flag_caps),
-                                               list(ctx.flag_kinds))
+                                               list(ctx.flag_kinds)), joined
             finally:
                 E._slot_bindings.map = None
 
-        results = run_shards(n, device, shard_fn)
-        out = compact(_join_shards([r[0] for r in results]))
-        return out, results[0][1], results[0][2]
+        results = run_shards(n, device, shard_fn, mesh)
+        joined = results[0][3] if multi \
+            else _join_shards([r[0] for r in results])
+        return compact(joined), results[0][1], results[0][2]
 
+    if multi:
+        step.cards = list(mesh.cards)
     return step
 
 
@@ -437,11 +476,53 @@ def _join_shards(outs: List[ColumnBatch]) -> ColumnBatch:
     return ColumnBatch(first.names, vectors, rv, sum(o.capacity for o in outs))
 
 
+def gather_batch(comm, shard: int, out: ColumnBatch
+                 ) -> Optional[ColumnBatch]:
+    """The shards' outputs one after another, in shard order, on shard 0's
+    card (None on every other shard): ``_join_shards`` for shards on
+    several cards, one K2 gather to shard 0.  Every vector's data, its
+    validity and the row validity travel, each expanded to the shard's
+    capacity (the shards run one plan, so every shard sends the same
+    planes)."""
+    planes = []
+    for v in out.vectors:
+        planes.append(v.data.expand(out.capacity, *v.data.shape[1:]))
+        planes.append(v.valid_or_true().expand(out.capacity))
+    planes.append(out.row_valid_or_true())
+    got = comm.gather_root(shard, planes)
+    if got is None:
+        return None
+    n = comm.n
+    flat = [g.reshape((n * out.capacity,) + tuple(g.shape[2:])) for g in got]
+    vectors = [ColumnVector(flat[2 * j], v.dtype, flat[2 * j + 1],
+                            v.dictionary) for j, v in enumerate(out.vectors)]
+    return ColumnBatch(out.names, vectors, flat[-1], n * out.capacity)
+
+
+def _leaf_rows(mesh: Mesh, batch: ColumnBatch) -> int:
+    """Rows of each shard's slice of a leaf: the leaf padded so rows split
+    evenly over the shards."""
+    return pad_capacity(max(-(-batch.capacity // mesh.n_shards), 1))
+
+
+def _padded_rows(x: torch.Tensor, lo: int, hi: int, fill, device
+                 ) -> torch.Tensor:
+    """Rows ``[lo, hi)`` of ``x`` on ``device``, rows past its end
+    ``fill``."""
+    part = x[lo:min(hi, x.shape[0])].to(device)
+    if part.shape[0] < hi - lo:
+        pad = torch.full((hi - lo - part.shape[0],) + tuple(x.shape[1:]),
+                         fill, dtype=x.dtype, device=device)
+        part = torch.cat([part, pad])
+    return part
+
+
 def shard_leaf(mesh: Mesh, batch: ColumnBatch) -> List[ColumnBatch]:
     """Pad a batch so rows split evenly over the shards, then cut it into
-    one contiguous slice per shard, on the mesh's device."""
+    one contiguous slice per shard, on the mesh's device (every shard on
+    one card)."""
     n = mesh.n_shards
-    per = pad_capacity(max(-(-batch.capacity // n), 1))
+    per = _leaf_rows(mesh, batch)
     total = per * n
 
     def padded(x: torch.Tensor, fill) -> torch.Tensor:
@@ -463,4 +544,51 @@ def shard_leaf(mesh: Mesh, batch: ColumnBatch) -> List[ColumnBatch]:
                                 None if m is None else m[sl], v.dictionary)
                    for d, m, v in cols]
         out.append(ColumnBatch(batch.names, vectors, rv[sl], per))
+    return out
+
+
+def place_leaves(mesh: Mesh, leaves: List[ColumnBatch]) -> List[ColumnBatch]:
+    """Shards on several cards: each leaf cut, as ``shard_leaf`` cuts it,
+    into one batch per card holding the slices of that card's shards, on
+    that card — leaf i's part on card c at ``i * n_cards + c``.  A stage
+    entry copies each part into its card's static buffers."""
+    out = []
+    for b in leaves:
+        per = _leaf_rows(mesh, b)
+        rv = b.row_valid_or_true()
+        for c, dev in enumerate(mesh.cards):
+            shards = mesh.shards_on(c)
+            lo, hi = shards.start * per, shards.stop * per
+            vectors = [ColumnVector(
+                _padded_rows(v.data, lo, hi, 0, dev), v.dtype,
+                None if v.valid is None
+                else _padded_rows(v.valid, lo, hi, False, dev),
+                v.dictionary) for v in b.vectors]
+            out.append(ColumnBatch(b.names, vectors,
+                                   _padded_rows(rv, lo, hi, False, dev),
+                                   hi - lo))
+    return out
+
+
+def placed_shards(mesh: Mesh, placed: List[ColumnBatch]
+                  ) -> List[List[ColumnBatch]]:
+    """Per leaf, each shard's slice of ``place_leaves``'s parts (views on
+    the shard's card)."""
+    C = mesh.n_cards
+    out = []
+    for i in range(len(placed) // C):
+        slices = []
+        for s in range(mesh.n_shards):
+            c = mesh.card_of[s]
+            part = placed[i * C + c]
+            per = part.capacity // len(mesh.shards_on(c))
+            lo = (s - mesh.shards_on(c).start) * per
+            sl = slice(lo, lo + per)
+            slices.append(ColumnBatch(
+                part.names,
+                [ColumnVector(v.data[sl], v.dtype,
+                              None if v.valid is None else v.valid[sl],
+                              v.dictionary) for v in part.vectors],
+                part.row_valid[sl], per))
+        out.append(slices)
     return out

@@ -6,9 +6,12 @@ The port of ``spark_tpu/parallel/ici.py``:
 * ``probe_topology`` — the replica-deterministic tier split: which
   process ids share a device domain.  A pure function of the conf
   override string, the process count, the live set and, on the auto
-  path, the card UUID every process published at ``enableHostShuffle``
-  (``publish_device`` / ``card_uuids``): processes on one card form one
-  domain, every CPU process is its own;
+  path, the card every process published at ``enableHostShuffle``
+  (``publish_device`` / ``card_facts``: its UUID, its host and the cards
+  it reaches by peer access): the processes on the cards of one host
+  that all reach each other form one domain (the reference's slice and
+  ICI domain), those on a host whose cards do not all reach each other
+  one domain per card, and every CPU process is its own;
 * ``plan_side`` — per-exchange activation from AGREED inputs only (the
   gathered plan-round manifests' side totals), so every replica derives
   the same verdict;
@@ -27,7 +30,8 @@ The port of ``spark_tpu/parallel/ici.py``:
   or file, plane layout, rows per receiver, generation) before its
   commit marker.  After the host exchange's commit barrier each receiver
   maps its peers' arenas and pulls its slots with ONE launch of K2
-  (``cuda_a2a.pull``; its plain version on the CPU), then unpacks them
+  (``cuda_a2a.pull``, on its own card, reading a peer card's arena over
+  NVLink; its plain version on the CPU), then unpacks them
   into the exchange's ``FetchSink`` by sender.  The TPU kernel is a
   symmetric collective; here each sender's choice rides its own sidecar
   and commit, so a one-sided fold-back (an injected fault, a pack
@@ -40,6 +44,7 @@ from __future__ import annotations
 
 import json
 import os
+import socket
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -52,7 +57,8 @@ from ..columnar import ColumnBatch, ColumnVector
 
 __all__ = ["IciUnavailable", "TierSplit", "probe_topology", "plan_side",
            "schema_eligible", "local_device_exchange", "device_publish",
-           "device_pull", "publish_device", "card_uuids", "ICI_AXIS",
+           "device_pull", "publish_device", "card_uuids", "card_facts",
+           "ICI_AXIS",
            "STATS", "CHECK", "CHECK_ENV"]
 
 #: name of the exchange axis (one participant per exchange peer),
@@ -100,26 +106,47 @@ class TierSplit:
         return [",".join(str(p) for p in d) for d in self.domains]
 
 
-def _card_domains(live: Sequence[int], uuids: Optional[Dict[int, str]]
+def _facts(f) -> Optional[dict]:
+    """One pid's published card facts as a dict (a bare UUID string: a
+    card on an unnamed host that reaches no other card)."""
+    if f is None or isinstance(f, dict):
+        return f
+    return {"uuid": str(f), "machine": "", "peers": []}
+
+
+def _card_domains(live: Sequence[int], facts: Optional[Dict[int, Any]]
                   ) -> Tuple[Tuple[int, ...], ...]:
-    """Live pids grouped by the card they run on (the counterpart of the
-    JAX package's ``_world_slice_domains``, which groups by TPU slice):
-    pids that published one card UUID share a domain; a pid on the CPU
-    or with no published card is its own domain."""
-    by_card: Dict[str, List[int]] = {}
+    """Live pids grouped into device domains from their published card
+    facts (``card_facts``), the counterpart of the JAX package's
+    ``_world_slice_domains``, which groups the chips of a slice: the pids
+    on the cards of one machine form one domain when every card among them
+    reaches every other by peer access, else the pids of each card form
+    one; a pid on the CPU or with no published card is its own domain.
+    Every process derives the same domains from the same facts."""
+    hosts: Dict[str, Dict[str, List[int]]] = {}
+    reach: Dict[str, set] = {}
     domains: List[Tuple[int, ...]] = []
     for p in sorted(int(p) for p in live):
-        u = (uuids or {}).get(p)
+        f = _facts((facts or {}).get(p))
+        u = f.get("uuid") if f else None
         if not u or u.startswith("cpu"):
             domains.append((p,))
+            continue
+        hosts.setdefault(str(f.get("machine", "")), {}).setdefault(
+            u, []).append(p)
+        reach.setdefault(u, set()).update(f.get("peers") or ())
+    for cards in hosts.values():
+        uuids = sorted(cards)
+        if all(b in reach[a] for a in uuids for b in uuids if a != b):
+            domains.append(tuple(sorted(p for u in uuids
+                                        for p in cards[u])))
         else:
-            by_card.setdefault(u, []).append(p)
-    domains += [tuple(ps) for ps in by_card.values()]
+            domains += [tuple(cards[u]) for u in uuids]
     return tuple(sorted(domains))
 
 
 def probe_topology(override: str, pid: int, n: int, live: Sequence[int],
-                   uuids: Optional[Dict[int, str]] = None) -> TierSplit:
+                   uuids: Optional[Dict[int, Any]] = None) -> TierSplit:
     """The tier-split decision: partition the LIVE pids into device
     domains.
 
@@ -127,9 +154,10 @@ def probe_topology(override: str, pid: int, n: int, live: Sequence[int],
     Pids outside [0, n) or not live are dropped; a pid named twice keeps
     its first group; unmentioned live pids become singleton (host-tier-
     only) domains.  A malformed override falls back to singleton domains.
-    Without an override the domains are the cards: ``uuids`` maps each
-    pid to the card UUID it published (``card_uuids``), the same facts in
-    every process; without them every pid is a singleton."""
+    Without an override the domains come from the cards: ``uuids`` maps
+    each pid to the card facts it published (``card_facts``; or a bare
+    card UUID), the same facts in every process (``_card_domains``);
+    without them every pid is a singleton."""
     live_sorted = sorted(int(p) for p in live)
     live_set = frozenset(live_sorted)
     if not override:
@@ -408,31 +436,45 @@ def _publish_json(path: str, doc: dict) -> int:
 
 
 def publish_device(svc, device) -> None:
-    """Publish the card this process runs on (its UUID; ``cpu:<pid>`` on a
-    CPU session) where every process reads the same facts: the auto
-    probe's input, written at ``enableHostShuffle``, before any query."""
+    """Publish the card this process runs on where every process reads the
+    same facts: its UUID (``cpu:<pid>`` on a CPU session), its machine (the
+    OS host name: the processes' logical ``host-<pid>`` names say nothing
+    of which share one) and the UUIDs of the visible cards it reaches by
+    peer access — the auto probe's input, written at
+    ``enableHostShuffle``, before any query."""
     device = torch.device(device)
+    peers: List[str] = []
     if device.type == "cuda":
-        props = torch.cuda.get_device_properties(device)
-        uuid = f"cuda:{getattr(props, 'uuid', props.name)}"
+        uuid = _card_uuid(device)
+        me = cuda_a2a._index(device)
+        peers = [_card_uuid(torch.device("cuda", j))
+                 for j in range(torch.cuda.device_count())
+                 if j != me and torch.cuda.can_device_access_peer(me, j)]
     else:
         uuid = f"cpu:{svc.pid}"
     os.makedirs(_tier_dir(svc), exist_ok=True)
     _publish_json(os.path.join(_tier_dir(svc), f"p{svc.pid:04d}.device"),
                   {"pid": svc.pid, "uuid": uuid,
-                   "host": svc.host_name(svc.pid)})
+                   "host": svc.host_name(svc.pid),
+                   "machine": socket.gethostname(), "peers": peers})
 
 
-def card_uuids(svc, live: Sequence[int],
-               wait_s: Optional[float] = None) -> Dict[int, str]:
-    """Every live pid's published card UUID.  Each process published its
-    own at ``enableHostShuffle``, before its first statement, and every
+def _card_uuid(device: torch.device) -> str:
+    props = torch.cuda.get_device_properties(device)
+    return f"cuda:{getattr(props, 'uuid', props.name)}"
+
+
+def card_facts(svc, live: Sequence[int],
+               wait_s: Optional[float] = None) -> Dict[int, dict]:
+    """Every live pid's published card facts (``publish_device``: uuid,
+    machine, peers).  Each process published its own at
+    ``enableHostShuffle``, before its first statement, and every
     statement starts with a round all of them pass, so the files are
     there; a missing one is waited for up to ``wait_s`` (the exchange
     timeout), then that pid counts as its own domain."""
     deadline = time.monotonic() + (svc.timeout_s if wait_s is None
                                    else wait_s)
-    out: Dict[int, str] = {}
+    out: Dict[int, dict] = {}
     pending = sorted(int(p) for p in live)
     while pending:
         still = []
@@ -440,7 +482,10 @@ def card_uuids(svc, live: Sequence[int],
             try:
                 with open(os.path.join(_tier_dir(svc),
                                        f"p{p:04d}.device")) as f:
-                    out[p] = str(json.load(f)["uuid"])
+                    got = json.load(f)
+                out[p] = {"uuid": str(got["uuid"]),
+                          "machine": str(got.get("machine", "")),
+                          "peers": [str(u) for u in got.get("peers", ())]}
             except (OSError, ValueError, KeyError):
                 still.append(p)
         if not still or time.monotonic() >= deadline:
@@ -448,6 +493,12 @@ def card_uuids(svc, live: Sequence[int],
         time.sleep(svc.poll_s)
         pending = still
     return out
+
+
+def card_uuids(svc, live: Sequence[int],
+               wait_s: Optional[float] = None) -> Dict[int, str]:
+    """Every live pid's published card UUID (``card_facts``'s uuids)."""
+    return {p: f["uuid"] for p, f in card_facts(svc, live, wait_s).items()}
 
 
 class _Arena:

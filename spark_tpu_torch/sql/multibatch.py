@@ -662,7 +662,9 @@ class StreamedStep:
             leaves = [dense_runs(b, "cpu") for b in leaves]
         skey, slots = SC.stage_fingerprint(phys)
         self.key = (f"{key_prefix}|{skey}|{SC.leaf_signature(leaves)}"
-                    f"|{SC._conf_component(session)}")
+                    f"|{SC._conf_component(session)}"
+                    + (f"|cards{mesh.n_cards}" if mesh is not None
+                       and mesh.n_cards > 1 else ""))
         self.cache = SC.stage_cache(session)
         make = step_maker(phys, slots, self.device, self.key,
                           [b.schema for b in leaves], skip_compact)
@@ -673,7 +675,12 @@ class StreamedStep:
             segments=1 if mesh is None else mesh.n_shards)
         self.params = SC.param_values(slots)
         self.capacity = leaves[0].capacity
-        self.extra = [b.to_device(self.device) for b in leaves[1:]]
+        if mesh is not None and mesh.n_cards > 1:
+            # each card holds its own copy of every replicated leaf
+            self.extra = [b.to_device(dev) for b in leaves[1:]
+                          for dev in mesh.cards]
+        else:
+            self.extra = [b.to_device(self.device) for b in leaves[1:]]
         self.ship_rows = self.capacity
         self._most_rows = 0
         self.reserve = _plan_reserve_bytes(
@@ -701,10 +708,20 @@ class StreamedStep:
         def finish(host, ints, meta):
             return host, ints, meta
 
+        multi = self.mesh is not None and self.mesh.n_cards > 1
+        if multi:
+            # each card's rows of the batch go to it
+            from ..parallel.executor import place_leaves
+            leaves = place_leaves(self.mesh, [leaf]) + self.extra
+        else:
+            leaves = [leaf] + self.extra
         host, ints, (caps, kinds) = self.cache.dispatch(
-            self.entry, [leaf] + self.extra, self.params, finish,
+            self.entry, leaves, self.params, finish,
             self.device, memory=self.session._memory,
-            ship_rows=self.ship_rows)
+            ship_rows=self.ship_rows, card_memory=self.session.card_memory)
+        if multi:
+            from .. import cuda_a2a
+            cuda_a2a.check_barriers()
         most = ints[0]
         self._most_rows = max(self._most_rows, most)
         self.ship_rows = min(self.capacity,
@@ -729,23 +746,53 @@ def mesh_step_maker(make, mesh, device):
     once per shard as one SPMD program.  The program's scalars are the
     most live rows of a shard, each overflow flag's worst shard and every
     shard's row count; its result is the shards' outputs one after
-    another (``segments`` of the entry)."""
-    from ..parallel.executor import _join_shards, shard_leaf
+    another (``segments`` of the entry).
+
+    On several cards the step's leaves are the stream batch's parts per
+    card (``executor.place_leaves``) and each replicated leaf once per
+    card; its parameters one list per card; and the scalars and outputs
+    meet on shard 0's card through the collectives (pmax, all-gather, K2's
+    gather to shard 0)."""
+    from ..parallel.executor import (_join_shards, gather_batch,
+                                     placed_shards, shard_leaf)
     from ..parallel.spmd import ShardContext, run_shards
     n = mesh.n_shards
+    C = mesh.n_cards
 
     def mesh_make():
         fn, stage = make()
 
         def step(leaves, params):
-            shards = shard_leaf(mesh, leaves[0])
-            extra = list(leaves[1:])
+            if C == 1:
+                shards = shard_leaf(mesh, leaves[0])
+                extra = list(leaves[1:])
+            else:
+                shards = placed_shards(mesh, leaves[:C])[0]
+                rest = leaves[C:]
 
             def shard_fn(shard, comm):
-                ls = [shards[shard]] + extra
-                return fn(ls, params, ShardContext(device, ls, shard, comm))
+                if C == 1:
+                    ls = [shards[shard]] + extra
+                    return fn(ls, params, ShardContext(device, ls, shard,
+                                                       comm))
+                c = mesh.card_of[shard]
+                ls = [shards[shard]] + list(rest[c::C])
+                out, scal, meta = fn(ls, params[c], ShardContext(
+                    mesh.devices[shard], ls, shard, comm))
+                rows = scal[0].reshape(()).to(torch.int64)
+                most = comm.pmax(shard, rows)
+                flags = []
+                if len(scal) > 1:
+                    flags = list(comm.pmax(shard, torch.stack(
+                        [f.reshape(()).to(torch.int64) for f in scal[1:]]
+                    )).unbind())
+                every = comm.all_gather(shard, [rows])[0]
+                joined = gather_batch(comm, shard, out)
+                return joined, [most] + flags + list(every.unbind()), meta
 
-            results = run_shards(n, device, shard_fn)
+            results = run_shards(n, device, shard_fn, mesh)
+            if C > 1:
+                return results[0]
             outs = [r[0] for r in results]
             rows = [r[1][0] for r in results]
             n_flags = len(results[0][1]) - 1
@@ -756,6 +803,8 @@ def mesh_step_maker(make, mesh, device):
                                 for x in rows]).amax()
             return _join_shards(outs), [most] + flags + rows, results[0][2]
 
+        if C > 1:
+            step.cards = list(mesh.cards)
         return step, stage
 
     return mesh_make

@@ -163,7 +163,8 @@ def _array_width_bound(pq: "PlannedQuery") -> int:
     return width
 
 
-def _walk_plan_caps(pq: "PlannedQuery", n_shards: int = 1):
+def _walk_plan_caps(pq: "PlannedQuery", n_shards: int = 1,
+                    on_card: Optional[int] = None):
     """(root_cap, extra_bytes, join_caps) over the physical plan's STATIC
     output capacities — exact arithmetic, not a heuristic: join output
     capacity is ``pad_capacity(probe × factor)`` by construction
@@ -179,7 +180,8 @@ def _walk_plan_caps(pq: "PlannedQuery", n_shards: int = 1):
     program's: ``n_shards`` times one shard's buffers, plus the largest
     aggregate work of one shard — the shards take turns between
     collectives, so one shard's grouping scratch is freed before the
-    next shard's is made."""
+    next shard's is made.  With ``on_card`` (shards on several cards) they
+    are the bytes of the ``on_card`` shards of one card."""
     from .joins import PJoin
 
     extra = 0
@@ -256,7 +258,7 @@ def _walk_plan_caps(pq: "PlannedQuery", n_shards: int = 1):
     root_cap = cap(pq.physical)
     extra += root_cap * row_nbytes(pq.physical.schema())
     if n_shards > 1:
-        extra = n_shards * extra + work
+        extra = (n_shards if on_card is None else on_card) * extra + work
     return root_cap, extra, join_caps
 
 
@@ -315,7 +317,9 @@ def check_planned_join_capacities(pq: "PlannedQuery", session,
             raise _fanout_error(where, out, node.factor, probe, cap)
 
 
-def _plan_reserve_bytes(pq: "PlannedQuery", n_shards: int = 1) -> int:
+def _plan_reserve_bytes(pq: "PlannedQuery", n_shards: int = 1,
+                        on_card: Optional[int] = None,
+                        root: bool = True) -> int:
     """Upper-bound device bytes for one execution attempt: the leaf
     working set (input + one fused intermediate), the device copy of
     every host leaf (a file batch or a cached relation held on the host:
@@ -327,11 +331,16 @@ def _plan_reserve_bytes(pq: "PlannedQuery", n_shards: int = 1) -> int:
     A mesh program (``n_shards`` > 1) holds every shard's buffers at
     once — a captured one in its graph pool, for the entry's lifetime —
     and the shards' results joined and compacted: the walk's bytes of
-    the whole program plus twice the joined result."""
+    the whole program plus twice the joined result.
+
+    Shards on several cards reserve per card: ``on_card`` is the number of
+    shards on the card, whose walk and share of the leaves it holds;
+    ``root`` says whether it is shard 0's card, which also holds the
+    joined result."""
     from ..memory import batch_nbytes
-    root, extra, _joins = _walk_plan_caps(pq, n_shards)
-    if n_shards > 1:
-        extra += 2 * n_shards * root * _row_nbytes(
+    root_cap, extra, _joins = _walk_plan_caps(pq, n_shards, on_card)
+    if n_shards > 1 and root:
+        extra += 2 * n_shards * root_cap * _row_nbytes(
             pq.physical.schema(), _array_width_bound(pq))
     kinds = [k for k, _n in pq.leaf_recipes] if pq.leaf_recipes \
         else [None] * len(pq.leaves)
@@ -343,8 +352,24 @@ def _plan_reserve_bytes(pq: "PlannedQuery", n_shards: int = 1) -> int:
             copies = 3
         else:
             copies = 2
-        total += copies * batch_nbytes(b)
+        nb = copies * batch_nbytes(b)
+        if on_card is not None:
+            # the whole leaf stays on shard 0's card; each card holds its
+            # shards' part of it (``place_leaves``) and the entry's copy
+            nb = (nb if root else 0) \
+                + 2 * -(-batch_nbytes(b) * on_card // n_shards)
+        total += nb
     return total
+
+
+def resolve_shards(shards: int, device) -> int:
+    """``spark.tpu.mesh.shards`` as a shard count: 0 is every visible card
+    of the session's device (the reference's ``len(jax.devices())``), 1 on
+    a CPU session."""
+    if shards != 0:
+        return shards
+    from ..parallel.mesh import visible_cards
+    return len(visible_cards(device))
 
 
 def _reads_files(plan: LogicalPlan) -> bool:
@@ -766,15 +791,14 @@ class QueryExecution:
             return self._staged(
                 "crossproc",
                 lambda: crossproc_execute(session, self.optimized, svc))
-        n_shards = session.conf.get(C.MESH_SHARDS)
-        if n_shards == 0:
-            n_shards = 1          # "all local devices": the engine spans one
+        n_shards = resolve_shards(session.conf.get(C.MESH_SHARDS),
+                                  session.device)
         if n_shards > 1 and _needs_local_fallback(self.optimized):
             _log.info("array plan: falling back to single-shard")
             n_shards = 1
         if n_shards > 1:
-            # the mesh lane: n shards of one SPMD program on the session's
-            # device, every exchange one all-to-all kernel launch
+            # the mesh lane: n shards of one SPMD program placed on the
+            # visible cards, every exchange K2
             from ..parallel.executor import DistributedExecution
             from ..parallel.mesh import get_mesh
             mesh = get_mesh(n_shards, session.device)

@@ -398,6 +398,25 @@ class SparkSession:
         analog)."""
         return self._memory
 
+    def card_memory(self, device):
+        """The memory manager of ``device``: the session's own for its
+        card, and one per other card a mesh places shards on (made at
+        first use, its storage evicted from the stage cache the same
+        way)."""
+        from ..cuda_a2a import same_card
+        if same_card(device, self.device):
+            return self._memory
+        from ..memory import MemoryManager, evict_lru
+        from .stagecompile import stage_cache
+        key = str(torch.device(device))
+        managers = self.__dict__.setdefault("_card_memories", {})
+        m = managers.get(key)
+        if m is None:
+            m = managers[key] = MemoryManager(self.conf_obj, device)
+            m.set_eviction_callback(
+                lambda nbytes: evict_lru(m, nbytes, (stage_cache(),)))
+        return m
+
     @property
     def cacheManager(self):
         """Cached relations of ``df.cache()`` (CacheManager analog)."""

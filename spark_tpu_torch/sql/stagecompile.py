@@ -44,7 +44,17 @@ capture stream and record and replay a shard record each
 (``capture.shard_scope``); the capture holds ``_capture_turn`` for the
 whole program, and K2's frozen pointer tables are checked against the
 entry's stable memory (``_StableMemory``).  A streamed mesh step's
-result is its shards' outputs one after another (``segments``).
+result is its shards' outputs one after another (``segments``).  A mesh
+whose shards span several cards (its step's ``cards``) captures one graph
+per card, each into that card's private pool, all begun and ended
+together under ``_capture_turn``: every shard thread enqueues onto its
+card's capture stream, K2's launches on a card go into that card's
+graph, and the pointer check accepts the static buffers, constants and
+pools of every card of the entry.  Its leaves are already cut per card
+(``executor.place_leaves``), its parameter scalars are one set per card,
+and a replay copies each card's leaves into that card's static buffers
+and launches every card's graph before the one read-back from shard 0's
+card.
 
 On the CPU a dispatch runs the same record and replay code eagerly,
 without a capture, so the CPU tests exercise the decisions, the
@@ -67,6 +77,8 @@ false``): one eager step per operator, its flags read back after each.
 from __future__ import annotations
 
 import collections
+import contextlib
+import gc
 import logging
 import threading
 import time
@@ -349,7 +361,8 @@ class _Variant:
     __slots__ = ("aux", "record", "meta", "graph", "static", "params",
                  "pinned", "out", "scalars", "n_guards", "pool_bytes",
                  "static_bytes", "k1_launches", "k2_launches",
-                 "lpt_launches")
+                 "lpt_launches", "graphs", "card_params", "card_bytes",
+                 "k2_cards", "barrier_cards", "static_cards")
 
     def __init__(self, aux, record: StageRecord, meta):
         self.aux = aux
@@ -369,6 +382,16 @@ class _Variant:
         self.k1_launches: Dict[str, int] = {}
         self.k2_launches = 0
         self.lpt_launches = 0
+        #: shards on several cards: one graph per card (``graph`` is card
+        #: 0's), one list of parameter scalars per card, each card's pool
+        #: and static bytes, and K2's copy and barrier launches captured on
+        #: each card (by device index)
+        self.graphs: List[Any] = []
+        self.static_cards: List[int] = []
+        self.card_params: Optional[List[List[torch.Tensor]]] = None
+        self.card_bytes: List[int] = []
+        self.k2_cards: Dict[int, int] = {}
+        self.barrier_cards: Dict[int, int] = {}
 
     @property
     def nbytes(self) -> int:
@@ -385,7 +408,7 @@ class _CachedStage:
 
     __slots__ = ("key", "fn", "aux", "n_ops", "segments", "compile_ms",
                  "hits", "variants", "guard_misses", "in_use", "charged_to",
-                 "last_used", "_lock")
+                 "last_used", "_lock", "cards", "charged_cards")
 
     def __init__(self, key: str, fn, aux, n_ops: int, segments: int = 1):
         self.key = key
@@ -404,6 +427,11 @@ class _CachedStage:
         #: the storage clock's tick of the last use (``memory.tick``)
         self.last_used = tick()
         self._lock = threading.Lock()
+        #: a mesh step whose shards span several cards: the cards (its
+        #: step's ``cards``); None on one card
+        self.cards = getattr(fn, "cards", None)
+        #: the other cards' managers their graph bytes are charged to
+        self.charged_cards: List[Any] = []
 
     @property
     def storage_key(self) -> str:
@@ -412,6 +440,17 @@ class _CachedStage:
     @property
     def nbytes(self) -> int:
         return sum(v.nbytes for v in self.variants)
+
+    def card_nbytes(self) -> List[int]:
+        """Shards on several cards: the variants' bytes on each card, in
+        ``cards`` order (empty on one card)."""
+        if not self.cards:
+            return []
+        out = [0] * len(self.cards)
+        for v in self.variants:
+            for c, nb in enumerate(v.card_bytes):
+                out[c] += nb
+        return out
 
     def variant_for(self, aux) -> Optional[_Variant]:
         """The newest variant recorded for leaves of this ``aux``."""
@@ -433,7 +472,11 @@ class _CachedStage:
                        ship_rows=None):
         """(result, build ms or None when an existing variant served)."""
         aux = leaf_aux(leaves)
-        ptensors = [torch.as_tensor(p, device=device) for p in params]
+        if self.cards:
+            ptensors = [[torch.as_tensor(p, device=c) for p in params]
+                        for c in self.cards]
+        else:
+            ptensors = [torch.as_tensor(p, device=device) for p in params]
         v = self.variant_for(aux)
         if v is not None:
             out, scalars, meta, ng = self._run(leaves, ptensors, v.record,
@@ -462,10 +505,13 @@ class _CachedStage:
         aux = leaf_aux(leaves)
         v = self.variant_for(aux)
         if v is not None:
-            for dst, src in zip(v.static, _leaf_tensors(leaves)):
-                dst.copy_(src, non_blocking=True)
-            self._set_params(v, params)
-            v.graph.replay()
+            if self.cards:
+                self._replay_cards(v, leaves, params)
+            else:
+                for dst, src in zip(v.static, _leaf_tensors(leaves)):
+                    dst.copy_(src, non_blocking=True)
+                self._set_params(v, params)
+                v.graph.replay()
             _count_replay(v)
             res, host = _read_result(v.out, v.scalars, ship_rows,
                                      self.segments)
@@ -474,17 +520,44 @@ class _CachedStage:
                 return finish(res, host[:n], v.meta), None
             self.guard_misses += 1
         t0 = time.perf_counter()
-        leaves = [b.to_device(device, non_blocking=True) for b in leaves]
-        v, result = self._build_variant(aux, leaves, params, finish, device,
-                                        ship_rows)
+        if self.cards:
+            # each card's part is on its card already
+            v, result = self._build_variant_cards(aux, leaves, params,
+                                                  finish, ship_rows)
+        else:
+            leaves = [b.to_device(device, non_blocking=True)
+                      for b in leaves]
+            v, result = self._build_variant(aux, leaves, params, finish,
+                                            device, ship_rows)
         self._add(v)
         return result, (time.perf_counter() - t0) * 1e3
 
     @staticmethod
-    def _set_params(v: _Variant, params) -> None:
-        for dev, pin, p in zip(v.params, v.pinned, params):
-            pin.fill_(p.item())
-            dev.copy_(pin, non_blocking=True)
+    def _set_params(v: _Variant, params, streams=None) -> None:
+        """The parameter scalars from pinned host tensors; on several cards
+        ``v.params`` holds one set per card, set on that card's stream of
+        ``streams`` (or the current one)."""
+        n = len(params)
+        for i, (dev, pin) in enumerate(zip(v.params, v.pinned)):
+            pin.fill_(params[i % n].item())
+            with torch.cuda.stream(streams[i // n]) if streams \
+                    else contextlib.nullcontext():
+                dev.copy_(pin, non_blocking=True)
+
+    def _replay_cards(self, v: _Variant, leaves, params) -> None:
+        """One replay of a variant whose shards span several cards: each
+        card's leaves into its static buffers and its parameter scalars
+        set, on its stream, then every card's graph launched, all before
+        the caller reads anything back."""
+        streams = [torch.cuda.current_stream(d) for d in self.cards]
+        for dst, src, c in zip(v.static, _leaf_tensors(leaves),
+                               v.static_cards):
+            with torch.cuda.stream(streams[c]):
+                dst.copy_(src, non_blocking=True)
+        self._set_params(v, params, streams)
+        for g, st in zip(v.graphs, streams):
+            with torch.cuda.stream(st):
+                g.replay()
 
     def _build_variant(self, aux, leaves, params, finish, device,
                        ship_rows=None):
@@ -538,6 +611,125 @@ class _CachedStage:
             graph, out, vec, ng, meta
         return v, result
 
+    def _build_variant_cards(self, aux, leaves, params, finish,
+                             ship_rows=None):
+        """Warm-up and capture of a variant whose shards span several
+        cards: one graph per card, each in its own private pool, begun
+        together, captured while every shard thread enqueues onto its
+        card's capture stream, and ended together."""
+        from ..parallel.spmd import card_streams
+        cards = self.cards
+        record = StageRecord()
+        v = _Variant(aux, record, None)
+        v.card_params = []
+        for dev in cards:
+            mine = []
+            for p in params:
+                dt = torch.from_numpy(np.asarray(p)).dtype
+                v.pinned.append(torch.empty((), dtype=dt).pin_memory())
+                mine.append(torch.empty((), dtype=dt, device=dev))
+            v.card_params.append(mine)
+            v.params += mine
+        self._set_params(v, params)
+        # 1. the eager warm-up on each card's current stream
+        out, scalars, meta, _ng = self._run(leaves, v.card_params, record,
+                                            False)
+        res, host = _read_result(out, _stack(scalars), ship_rows,
+                                 self.segments)
+        result = finish(res, host, meta)
+        del out, scalars, res
+        # 2. the capture: one graph per card over the entry's own copies
+        #    of each card's leaves
+        static_leaves = [_clone_batch(b) for b in leaves]
+        v.static = _leaf_tensors(static_leaves)
+        # leaf i is card i % C's (``place_leaves``' parts, then each
+        # replicated leaf once per card)
+        v.static_cards = [i % len(cards) for i, b in
+                          enumerate(static_leaves)
+                          for _t in _leaf_tensors([b])]
+        # each graph is instantiated once every capture has ended: the
+        # capturing thread may instantiate nothing while a capture of its
+        # is open
+        graphs = [torch.cuda.CUDAGraph(keep_graph=True) for _ in cards]
+        pools = [torch.cuda.graph_pool_handle() for _ in cards]
+        streams = [torch.cuda.Stream(device=d) for d in cards]
+        # as ``torch.cuda.graph`` does before a capture: the warm-up's freed
+        # blocks go back to each card, so the pools can have them
+        gc.collect()
+        for d in sorted({cuda_a2a._index(d) for d in cards}):
+            torch.cuda.synchronize(d)
+            with torch.cuda.device(d):
+                torch.cuda.empty_cache()
+        with _capture_turn():
+            k1_before = dict(cuda_agg.CAPTURED_LAUNCHES)
+            k2_before = cuda_a2a.CAPTURED_LAUNCHES
+            k2c_before = dict(cuda_a2a.CARD_CAPTURED)
+            bar_before = dict(cuda_a2a.CARD_CAPTURED_BARRIERS)
+            lpt_before = cuda_lpt.CAPTURED_LAUNCHES
+            cuda_a2a.CAPTURE_SOURCES = _StableMemory(
+                cards, pools, v.static + v.params, record)
+            began, failed = [], None
+            try:
+                # "relaxed": this thread opens one capture per card, and
+                # torch's capture_begin on a card makes that card's graph
+                # generator state with an allocation, which the
+                # thread-local mode forbids to a thread with a capture
+                # open (a sync on a capturing stream still fails)
+                for dev, g, pool, st in zip(cards, graphs, pools, streams):
+                    with torch.cuda.device(dev), torch.cuda.stream(st):
+                        g.capture_begin(pool=pool,
+                                        capture_error_mode="relaxed")
+                    began.append((dev, g, st))
+                with contextlib.ExitStack() as scope:
+                    scope.enter_context(torch.cuda.device(cards[0]))
+                    scope.enter_context(torch.cuda.stream(streams[0]))
+                    scope.enter_context(card_streams(streams))
+                    out, scalars, meta, ng = self._run(
+                        static_leaves, v.card_params, record, True)
+                    vec = _stack(scalars)
+            except BaseException as e:
+                failed = e
+                raise
+            finally:
+                ends = []
+                for dev, g, st in reversed(began):
+                    try:
+                        with torch.cuda.device(dev), torch.cuda.stream(st):
+                            g.capture_end()
+                    except Exception as e:       # noqa: BLE001 — raised below
+                        ends.append(e)
+                cuda_a2a.CAPTURE_SOURCES = None
+                if ends and failed is None:
+                    raise RuntimeError(
+                        f"the capture of {self.key[:60]}… on "
+                        f"{len(cards)} cards failed: {ends[0]}") from ends[0]
+            for dev, g in zip(cards, graphs):
+                with torch.cuda.device(dev):
+                    g.instantiate()
+            v.k1_launches = {e: n - k1_before[e] for e, n in
+                             cuda_agg.CAPTURED_LAUNCHES.items()
+                             if n > k1_before[e]}
+            v.k2_launches = cuda_a2a.CAPTURED_LAUNCHES - k2_before
+            v.k2_cards = {d: n - k2c_before.get(d, 0) for d, n in
+                          cuda_a2a.CARD_CAPTURED.items()
+                          if n > k2c_before.get(d, 0)}
+            v.barrier_cards = {d: n - bar_before.get(d, 0) for d, n in
+                               cuda_a2a.CARD_CAPTURED_BARRIERS.items()
+                               if n > bar_before.get(d, 0)}
+            v.lpt_launches = cuda_lpt.CAPTURED_LAUNCHES - lpt_before
+        v.card_bytes = []
+        for dev, pool in zip(cards, pools):
+            mine = [t for t in v.static + v.params
+                    if cuda_a2a.same_card(t.device, dev)]
+            v.card_bytes.append(_pool_bytes(dev, pool) + sum(
+                t.numel() * t.element_size() for t in mine))
+        v.pool_bytes = sum(_pool_bytes(d, p) for d, p in zip(cards, pools))
+        v.static_bytes = sum(t.numel() * t.element_size() for t in v.static)
+        v.graphs = graphs
+        v.graph, v.out, v.scalars, v.n_guards, v.meta = \
+            graphs[0], out, vec, ng, meta
+        return v, result
+
     def _add(self, v: _Variant) -> None:
         self.variants.append(v)
         del self.variants[:-MAX_VARIANTS]
@@ -549,19 +741,25 @@ def _count_replay(v: _Variant) -> None:
     for entry, n in v.k1_launches.items():
         cuda_agg.REPLAYED_LAUNCHES[entry] += n
     cuda_a2a.REPLAYED_LAUNCHES += v.k2_launches
+    cuda_a2a.CARD_REPLAYED.update(v.k2_cards)
+    cuda_a2a.CARD_REPLAYED_BARRIERS.update(v.barrier_cards)
     cuda_lpt.REPLAYED_LAUNCHES += v.lpt_launches
 
 
 class _StableMemory:
     """Whether an address lies in memory a replay of the variant being
     captured finds unchanged: its static tensors, its record's constants
-    (every shard's too) or its graph pool.  The pool's segments are read
-    from the allocator's snapshot again when an address is in none of the
-    known ranges (the pool grows during the capture)."""
+    (every shard's too) or its graph pool — every card's pool, when the
+    variant spans several cards (``device`` and ``pool`` then lists).  The
+    pools' segments are read from the allocator's snapshot again when an
+    address is in none of the known ranges (a pool grows during the
+    capture)."""
 
     def __init__(self, device, pool, static: Sequence[torch.Tensor],
                  record: StageRecord):
-        self.device, self.pool = device, pool
+        if not isinstance(device, (list, tuple)):
+            device, pool = [device], [pool]
+        self.device, self.pool = list(device), list(pool)
         tensors = list(static)
         todo = [record]
         while todo:
@@ -578,7 +776,8 @@ class _StableMemory:
     def __call__(self, ptr: int) -> bool:
         if self._inside(ptr, self.fixed) or self._inside(ptr, self.segments):
             return True
-        self.segments = _pool_segments(self.device, self.pool)
+        self.segments = [seg for d, p in zip(self.device, self.pool)
+                         for seg in _pool_segments(d, p)]
         return self._inside(ptr, self.segments)
 
 
@@ -703,7 +902,7 @@ class StageCache:
 
     def dispatch(self, entry: _CachedStage, leaves, params,
                  finish: Callable, device, memory=None,
-                 ship_rows: Optional[int] = None):
+                 ship_rows: Optional[int] = None, card_memory=None):
         """Run one entry on ``leaves`` (batches on ``device``)
         with the slotted literal values ``params``; ``finish(batch,
         host_ints, meta)`` turns the device result into the caller's
@@ -714,7 +913,11 @@ class StageCache:
         With ``ship_rows`` (a streamed step of the out-of-core runners)
         ``finish`` gets the HOST batch instead: the result's first
         ``ship_rows`` rows, read back with the flags in one packed copy
-        (``_read_result``)."""
+        (``_read_result``).
+
+        An entry whose shards span several cards charges each card's
+        graph bytes to that card's manager (``card_memory(device)``; the
+        session's own, ``memory``, for its card)."""
         with self._lock:
             self.dispatches += 1
             entry.in_use += 1
@@ -733,6 +936,7 @@ class StageCache:
                     STREAM_STEP.active = False
                 built = ms is not None
                 nbytes = entry.nbytes
+                by_card = entry.card_nbytes()
             with self._lock:
                 self.guard_misses += entry.guard_misses - misses
                 if built:
@@ -740,7 +944,10 @@ class StageCache:
                     entry.compile_ms += ms
                     self.compile_ms += ms
             if built and on_card and memory is not None:
-                self._charge(entry, memory, nbytes)
+                if by_card and card_memory is not None:
+                    self._charge_cards(entry, memory, card_memory, by_card)
+                else:
+                    self._charge(entry, memory, nbytes)
             return result
         finally:
             with self._lock:
@@ -762,6 +969,25 @@ class StageCache:
         if not kept:                     # evicted meanwhile
             memory.release_storage(entry.storage_key)
             entry.charged_to = None
+
+    def _charge_cards(self, entry: _CachedStage, memory, card_memory,
+                      by_card: List[int]) -> None:
+        """``_charge`` per card: card 0's bytes to ``memory`` (the entry's
+        ``charged_to``, which evicts it), every other card's to its own
+        manager; an entry one card cannot hold is dropped."""
+        for m in entry.charged_cards:
+            m.release_storage(entry.storage_key)
+        entry.charged_cards = []
+        for dev, nbytes in zip(entry.cards[1:], by_card[1:]):
+            m = card_memory(dev)
+            if not m.try_acquire_storage(entry.storage_key, nbytes):
+                _log.warning("stage entry's %d B on %s do not fit its "
+                             "device memory budget: dropped after this "
+                             "run", nbytes, dev)
+                self._drop(entry)
+                return
+            entry.charged_cards.append(m)
+        self._charge(entry, memory, by_card[0])
 
     def _drop(self, entry: _CachedStage) -> None:
         with self._lock:
@@ -808,6 +1034,8 @@ class StageCache:
                 "variants": self.variants,
                 "guard_misses": self.guard_misses,
                 "graph_bytes": sum(e.nbytes for e in self._entries.values()),
+                "graph_bytes_by_card": _bytes_by_card(
+                    self._entries.values()),
                 "capture_waits": CAPTURE_WAITS,
             }
 
@@ -843,6 +1071,19 @@ _CAPTURE_LOCK = threading.Lock()
 CAPTURE_WAITS = 0
 
 
+def _bytes_by_card(entries) -> Dict[str, int]:
+    """The graph bytes of the entries whose shards span several cards, per
+    card."""
+    out: Dict[str, int] = {}
+    for e in entries:
+        for dev, nb in zip(e.cards or (), e.card_nbytes()):
+            if not nb:
+                continue
+            key = f"cuda:{cuda_a2a._index(dev)}"
+            out[key] = out.get(key, 0) + nb
+    return out
+
+
 class _capture_turn:
     """Hold ``_CAPTURE_LOCK``, counting a wait in ``CAPTURE_WAITS``."""
 
@@ -863,17 +1104,25 @@ def _release(entries) -> None:
     back to the card (``torch.cuda.empty_cache``) so a long-running
     server gets the bytes back.  A replay in flight finishes first (the
     entry's lock)."""
-    freed = False
+    freed, cards = False, set()
     for entry in entries:
         mem, entry.charged_to = entry.charged_to, None
         if mem is not None:
             mem.release_storage(entry.storage_key)
+        for m in entry.charged_cards:
+            m.release_storage(entry.storage_key)
+        entry.charged_cards = []
         with entry._lock:
             freed |= any(v.graph is not None for v in entry.variants)
+            if entry.cards and freed:
+                cards |= {cuda_a2a._index(d) for d in entry.cards}
             entry.variants = []
     if freed:
         with _capture_turn():
             torch.cuda.empty_cache()
+            for d in sorted(cards):
+                with torch.cuda.device(d):
+                    torch.cuda.empty_cache()
 
 
 #: THE process-local cache

@@ -1131,14 +1131,40 @@ def sorted_run_mismatch(tables, ticket, item, ext_c):
 # crossproc-worker <pid> <n> <root> <mode> <timeout_s> <device>``)
 # ---------------------------------------------------------------------------
 
+def worker_device(name: str) -> bool:
+    """Whether ``name`` is a worker's device argument: ``cuda``,
+    ``cuda:N`` (card N, so that each process can take its own) or
+    ``cpu``."""
+    if name in ("cuda", "cpu"):
+        return True
+    head, _, index = name.partition(":")
+    return head == "cuda" and index.isdigit()
+
+
+def check_worker_card(device: str, what: str) -> None:
+    """A worker given ``cuda`` without a card, or ``cuda:N`` for a card it
+    cannot see, raises; given ``cuda:N`` it makes card N this process's
+    current card (one card per process)."""
+    d = torch.device(device)
+    if d.type != "cuda":
+        return
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{what}: no CUDA device")
+    if d.index is not None:
+        if d.index >= torch.cuda.device_count():
+            raise RuntimeError(f"{what}: device {device}, but this process "
+                               f"sees {torch.cuda.device_count()} card(s)")
+        torch.cuda.set_device(d.index)
+
+
 def _worker_argv(what: str, argv: Sequence[str]):
     """``<pid> <n> <root> <mode> <timeout_s> <device>`` of a worker; the
-    device is required (``cuda`` or ``cpu``): a worker never picks the
-    CPU by default."""
-    if len(argv) < 6 or argv[5] not in ("cuda", "cpu"):
+    device is required (``cuda``, ``cuda:N`` or ``cpu``): a worker never
+    picks the CPU by default."""
+    if len(argv) < 6 or not worker_device(argv[5]):
         raise ValueError(f"{what}: argv is <pid> <n> <root> <mode> "
-                         f"<timeout_s> <device>, the device cuda or cpu; "
-                         f"got {list(argv)}")
+                         f"<timeout_s> <device>, the device cuda or cpu (or "
+                         f"cuda:N, card N); got {list(argv)}")
     return (int(argv[0]), int(argv[1]), argv[2], argv[3], float(argv[4]),
             argv[5])
 
@@ -1334,8 +1360,10 @@ def crossproc_worker(argv: Sequence[str]) -> int:
     (one hash join; process 1 stops before committing its first join
     exchange and waits to be killed, the others must fail structured)
     ``card`` (``CARD_TEXTS`` over the tables of ``<root>/spec.json``,
-    with K1 held against its plain version) and ``ici-card`` (the device
-    tier's texts over the same tables, ``_ici_card_battery``).
+    with K1 held against its plain version), ``ici-card`` (the device
+    tier's texts over the same tables, ``_ici_card_battery``) and
+    ``ici-cards`` (q93's hash lane alone on the device tier, a worker per
+    card: ``<device>`` ``cuda:<pid>``).
     The answers, counters and gauges go to ``<root>/result-p<pid>.json``;
     the worker prints one line."""
     from . import config as C
@@ -1346,8 +1374,7 @@ def crossproc_worker(argv: Sequence[str]) -> int:
 
     pid, n, root, mode, timeout_s, device = _worker_argv(
         "crossproc worker", argv)
-    if device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("crossproc worker: no CUDA device")
+    check_worker_card(device, "crossproc worker")
     if device == "cpu":
         # several workers share the host's cores: one intra-op thread each
         torch.set_num_threads(1)
@@ -1355,7 +1382,7 @@ def crossproc_worker(argv: Sequence[str]) -> int:
         .getOrCreate()
     xs.conf.set(C.MESH_SHARDS.key, "1")
     spec = None
-    if mode in ("card", "ici-card"):
+    if mode in ("card", "ici-card", "ici-cards"):
         with open(os.path.join(root, "spec.json")) as f:
             spec = json.load(f)
         for k, v in spec.get("conf", {}).items():
@@ -1382,13 +1409,18 @@ def crossproc_worker(argv: Sequence[str]) -> int:
                                timeout_s=timeout_s, heartbeat=heartbeat)
     svc.poll_s = 0.005          # one host: poll the markers often
     result: Dict[str, Any] = {"pid": pid, "mode": mode}
-    if mode in ("card", "ici-card"):
+    if mode in ("card", "ici-card", "ici-cards"):
         from . import types as T
         t0 = time.perf_counter()
         register_card_tables(xs, T, spec, pid, n)
         result["setup_ms"] = (time.perf_counter() - t0) * 1e3
-        result["queries"] = _card_battery(xs, svc) if mode == "card" \
-            else _ici_card_battery(xs, svc, pid)
+        if mode == "card":
+            result["queries"] = _card_battery(xs, svc)
+        elif mode == "ici-card":
+            result["queries"] = _ici_card_battery(xs, svc, pid)
+        else:
+            result["queries"] = _ici_card_battery(xs, svc, pid,
+                                                  ("c_hash",), False)
         return _finish_worker(result, svc, root, pid, mode, heartbeat)
     # a small advisory target keeps every process reducing on these tiny
     # tables; the broadcast threshold off pins each join mode's lane; 32
@@ -1736,14 +1768,18 @@ ICI_RUN_COUNTERS = ("run_plane_stages", "run_plane_rows",
                     "run_plane_expansions")
 
 
-def _ici_card_battery(xs, svc, pid: int) -> dict:
-    """[ici]'s runs in one worker (see ``chip_smoke.py``): each text cold
-    on the device tier with every pull held against its plain version
-    (``ici.CHECK_ENV``), then warm in turns (device, host, host, device);
-    c_hash once with ``tierOverride`` 0,1; c_hash and c_range on the host
-    tier with run codes; last, in process 1 only, ``ici_unavailable`` on
-    c_hash's first device attempt.  K2's pull launches count from 0 just
-    before the battery (``cuda_a2a.PULL_LAUNCHES``)."""
+def _ici_card_battery(xs, svc, pid: int, keys=ICI_CARD_KEYS,
+                      whole: bool = True) -> dict:
+    """[ici]'s runs in one worker (see ``chip_smoke.py``): each text of
+    ``keys`` cold on the device tier with every pull held against its
+    plain version (``ici.CHECK_ENV``), then warm in turns (device, host,
+    host, device); with ``whole``, c_hash once with ``tierOverride`` 0,1;
+    c_hash and c_range on the host tier with run codes; last, in process
+    1 only, ``ici_unavailable`` on c_hash's first device attempt.  K2's
+    pull launches count from 0 just before the battery
+    (``cuda_a2a.PULL_LAUNCHES``).  ``[cards]`` runs q93's hash lane alone
+    (``ici-cards``: ``keys`` ("c_hash",), not ``whole``), one worker on
+    each of two cards."""
     from . import columnar as _col
     from . import cuda_a2a
     from .parallel import ici
@@ -1785,10 +1821,14 @@ def _ici_card_battery(xs, svc, pid: int) -> dict:
     cuda_a2a.PULL_LAUNCHES = 0
     ici.reset_stats()
     out: Dict[str, Any] = {}
-    for key in ICI_CARD_KEYS:
+    for key in keys:
         out[key] = {"cold": run(key, True, check=True)}
-    for key in ICI_CARD_KEYS:
+    for key in keys:
         out[key]["warm"] = [run(key, t) for t in (True, False, False, True)]
+    if not whole:
+        out["_check"] = dict(ici.CHECK)
+        out["_pull_launches"] = cuda_a2a.PULL_LAUNCHES
+        return out
     out["override"] = run("c_hash", True, extra={
         "spark.tpu.shuffle.ici.tierOverride": "0,1"})
     out["runcodes"] = {key: run(key, False, extra={
@@ -1977,8 +2017,7 @@ def recovery_worker(argv: Sequence[str]) -> int:
 
     pid, n, root, mode, timeout_s, device = _worker_argv(
         "recovery worker", argv)
-    if device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("recovery worker: no CUDA device")
+    check_worker_card(device, "recovery worker")
     if device == "cpu":
         torch.set_num_threads(1)    # the workers share the host's cores
     card = mode.startswith("card-")
@@ -2410,8 +2449,7 @@ def pool_worker(argv: Sequence[str]) -> int:
     ``reap`` (2 processes), ``spawn-fail`` and ``scaleup`` (1)."""
     pid, n, root, mode, timeout_s, device = _worker_argv("pool worker",
                                                          argv)
-    if device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("pool worker: no CUDA device")
+    check_worker_card(device, "pool worker")
     if device == "cpu":
         torch.set_num_threads(1)
     if mode == "reap":
@@ -2537,13 +2575,13 @@ def chaos_scenario(name: str) -> dict:
 
 def run_scenario(sc: dict, root: str, device: str,
                  deadline_s: Optional[float] = None):
-    """Start the scenario's processes on ``root`` on ``device`` (``cuda``
-    or ``cpu``, required; output to files: an unread pipe blocks a
+    """Start the scenario's processes on ``root`` on ``device`` (``cuda``,
+    ``cuda:N`` or ``cpu``, required; output to files: an unread pipe blocks a
     worker at its next barrier), wait for them, kill any left over, and
     return ``({pid: (exit code, output)}, elapsed s)``."""
-    if device not in ("cuda", "cpu"):
-        raise ValueError(f"run_scenario: device is cuda or cpu; got "
-                         f"{device!r}")
+    if not worker_device(device):
+        raise ValueError(f"run_scenario: device is cuda or cpu (or cuda:N, "
+                         f"card N); got {device!r}")
     import subprocess
     from .parallel.faults import FAULT_PLAN_ENV
     os.makedirs(root, exist_ok=True)
@@ -3232,14 +3270,13 @@ def stream_worker(argv: Sequence[str]) -> int:
     ``<out>.result.json``: each lifetime's progress, metrics, replayed
     batches and the wall-clock time of its first commit."""
     t_start = time.time()
-    if len(argv) < 5 or argv[4] not in ("cuda", "cpu"):
+    if len(argv) < 5 or not worker_device(argv[4]):
         raise ValueError("stream worker: argv is <root> <shape> <ckpt> "
-                         "<out> <device> [restart], the device cuda or "
-                         f"cpu; got {list(argv)}")
+                         "<out> <device> [restart], the device cuda or cpu "
+                         f"(or cuda:N, card N); got {list(argv)}")
     root, shape, ckpt, out, device = argv[:5]
     restart = len(argv) > 5 and argv[5] == "restart"
-    if device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("stream worker: no CUDA device")
+    check_worker_card(device, "stream worker")
     if device == "cpu":
         torch.set_num_threads(1)
     from .parallel.faults import FaultInjector
@@ -3380,8 +3417,7 @@ def analysis_worker(argv: Sequence[str]) -> int:
 
     pid, n, root, mode, timeout_s, device = _worker_argv(
         "analysis worker", argv)
-    if device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("analysis worker: no CUDA device")
+    check_worker_card(device, "analysis worker")
     if device == "cpu":
         torch.set_num_threads(1)    # the workers share the host's cores
     base = SparkSession.builder.config("spark.torch.device", device) \

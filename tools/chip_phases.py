@@ -9,7 +9,10 @@ entries of the kernels line from its kernel check.
 
 Phases: ``mesh`` (the mesh lane's three queries at 4 shards, captured,
 then ``lpt_assign``'s check), ``pool``, ``stream``, ``analysis``,
-``ml``.  The last line is a JSON
+``ml``, ``cards`` (shards on several cards, phase 23, which needs two
+cards or more, run on a host with four; it prints its kernels line).  K1's kernel
+check runs first unless ``cards`` alone is named.  The last line is a
+JSON
 list of the runs (phase, ok, seconds, the failure); the exit code is 1
 if any run failed, 2 without a card or with an unknown phase."""
 
@@ -31,7 +34,17 @@ def _mesh(c):
                        {n: m["lpt_replayed"] for n, m in numbers.items()})
 
 
+def _cards(c):
+    import torch
+    CS.check(torch.cuda.device_count() >= 2, "[cards] needs two cards or "
+             f"more; {torch.cuda.device_count()} visible")
+    entries = CS.phase_cards(c["session"], c["hash_df"], c["hash_table"],
+                             c["q3_df"], c["tables"])
+    print(json.dumps({"kernels": entries}), flush=True)
+
+
 PHASES = {
+    "cards": _cards,
     "mesh": _mesh,
     "pool": lambda c: CS.phase_pool(c["session"], c["hash_table"],
                                     c["tables"], c["k1"], c["k2"]),
@@ -67,7 +80,8 @@ def main(names) -> int:
     hash_df = hash_agg_query(session, F, hash_table)
     ctx = {"session": session, "hash_table": hash_table, "tables": tables,
            "hash_df": hash_df, "q3_df": q3_query(session, F, T, tables),
-           "k1": CS.phase_kernel_check(session, hash_df),
+           "k1": None if set(names) == {"cards"}
+           else CS.phase_kernel_check(session, hash_df),
            "k2": {"name": "all_to_all"}, "pull": {"name": "pull"}}
     runs = []
     for name in names:
