@@ -117,13 +117,19 @@ without printing a result:
    ``torch.profiler``) beside its byte bound,
    its plain version's time and the one-call
    ``transpose(0, 1).contiguous()`` yardstick on the same bytes
-   pre-stacked (which the port never calls), per call and back to back;
+   pre-stacked (which the port never calls), per call and back to back,
+   and alone in turns with the kernel alone (K2, transpose, transpose,
+   K2);
    then ``lpt_assign`` against its plain version, bit-exact, at every
-   call of the mesh queries' warm-ups and at random, tied and two-valued
-   counts at 2, 4 and 8 shards, at 70 shards (more than one warp's
-   lanes) and with no bucket, and its time at the main path's 128
-   buckets (per call with its sort, back to back, alone) beside its
-   bound and its plain version's;
+   call of the mesh queries' warm-ups (each ranked in the kernel: no
+   sort in the mesh entries) and at random, tied, two-valued and small
+   counts at 1, 2, 3, 4, 8, 9, 16, 32 and 33 shards (one thread's
+   registers, a warp's lanes, shared memory; ranked in the kernel up to
+   512 buckets, sorted past it), at 70 shards and with no bucket, and
+   its time at the main path's 128 buckets (per call, back to back,
+   alone in turns with the parent commit's kernel where
+   ``build/lpt_old/lpt_assign.cu`` holds its source) beside its latency
+   floor (the kernel at no bucket), its bound and its plain version's;
 10. complex — arrays, maps and structs at SF1 row counts
    (``testing.basket_tables``: store_sales as ~240,000 tickets of 8-16
    line items, 18,000 items; ``spark.tpu.collect.maxArrayLen`` = 16, the
@@ -409,24 +415,33 @@ without printing a result:
     and its oracle's ms; the phase prints its seconds;
 23. cards — with two or more cards visible (on one it prints ``[cards]
     not run: 1 card visible``): (1) each card's name and power limit and
-    the peer-access matrix (a pair without it fails); the barrier kernel
-    alone, 200 back to back on every card, each card's epoch and flag
-    slots read back (advanced by 200), its time, and one barrier
-    launched on card 0 alone at a 50 ms limit, which must time out and
-    raise; (2) the three mesh queries of phase 8 at 4 shards, one per
+    the peer-access matrix (a pair without it fails); the fused
+    exchange's arrive-and-wait alone (the guards' gather to card 0, 200
+    back to back on every card, each card's epoch, arrival and done slots
+    read back, advanced by 200; its time from the host, in one graph per
+    card and alone per card), half a flag round trip between two cards
+    (the latency floor), the old order's barrier_kernel (200 back to
+    back and in graphs, its slots read back) and its plain version, and
+    the exchange launched on card 0 alone at a 50 ms limit, which must
+    time out naming a peer and raise; (2) the three mesh queries of
+    phase 8 at 4 shards, one per
     card: each equal to its oracle and bit for bit to the one-card mesh
     lane's rows (a child process under ``CUDA_VISIBLE_DEVICES=0``), one
     stage-cache entry of 4 graphs whose graph bytes per card sit under
-    its per-card reserve, a warm run a replay (K2's copies and barriers
-    per card counted on the host), equal to the eager lane, warm walls
+    its per-card reserve, a warm run a replay (K2's copy launches and
+    arrive-and-wait launches per card counted on the host: only cards
+    1-3 arrive and wait, in the gathers to card 0), equal to the eager
+    lane, warm walls
     in turns graph, eager, eager, graph, a profile's device-busy share
     per card, and a second data set through the same graphs; (3) q3's
     SQL text with ``spark.tpu.mesh.shards = 0`` runs as 4 shards on the
     4 cards; (4) [ooc]'s (a) streamed at 4 shards across the cards; (5)
     every K2 call of (2)'s warm-ups bit-exact against its plain version,
-    the largest shuffled-q3 exchange timed (per call, the copy alone
-    per card, ``copy_`` per peer block, the bound, the one-card K2 at the
-    same bytes), and a shard that raises before its second collective
+    the largest shuffled-q3 exchange timed (per call, through the
+    wrapper and launched directly, and alone per card, the fused launch
+    in turns with the old order of barrier, copy, barrier; ``copy_`` per
+    peer block, the bound, the one-card K2 at the same bytes), and a
+    shard that raises before its second collective
     ending every shard in an error, no card left waiting; (6) two
     ``crossproc`` workers on ``cuda:0`` and ``cuda:1`` run q93's hash lane
     on the device tier in one domain, every pull bit-exact, then the pull
@@ -733,7 +748,7 @@ PROFILE_PAD_S = 0.05
 PROFILE_LEAD_MARKERS = 8
 
 
-def kernel_device_ms(fn, name, reps=20, attempts=3):
+def kernel_device_ms(fn, name, reps=20, attempts=3, multiple=False):
     """Mean device time of the kernel named ``name`` over ``reps`` calls,
     from ``torch.profiler`` (the kernel alone: no wrapper, no fill).  In
     each profile the timed launches sit between two marker kernels (a
@@ -745,7 +760,9 @@ def kernel_device_ms(fn, name, reps=20, attempts=3):
     all, each time with four times the idle pad.  The window opens with
     ``PROFILE_LEAD_MARKERS`` markers, waited for and followed by the
     pad, so that the records a profile drops at its start are
-    markers."""
+    markers.  With ``multiple`` a call may launch the kernel several
+    times (a library call split into pieces): the count must be a
+    positive multiple of ``reps``, and the time is per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     marker = torch.zeros(1, device="cuda")
@@ -771,8 +788,8 @@ def kernel_device_ms(fn, name, reps=20, attempts=3):
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and name in e.key]
         us, count = sum(h[0] for h in hits), sum(h[1] for h in hits)
-        if count == reps:
-            return us / count / 1e3
+        if count == reps or (multiple and count and count % reps == 0):
+            return us / reps / 1e3
         records = sorted((e.time_range.start, e.name) for e in prof.events()
                          if e.device_type == torch.autograd.DeviceType.CUDA)
         seq = "".join("K" if name in n else "m" if "FillFunctor" in n
@@ -1759,8 +1776,6 @@ def phase_k2_check(captured, launches):
     kernel_ms = cuda_ms(lambda: cuda_a2a.all_to_all(planes, gather))
     plain_ms = cuda_ms(lambda: cuda_a2a.all_to_all_plain(planes, gather))
     b2b_ms = cuda_ms_back_to_back(lambda: cuda_a2a.all_to_all(planes, gather))
-    alone_ms = kernel_device_ms(lambda: cuda_a2a.all_to_all(planes, gather),
-                                "all_to_all_kernel", reps=5)
     # yardstick: the same bytes pre-stacked as one (n, n, bytes) tensor,
     # moved by one library call
     per_plane = [torch.stack(list(p)).view(torch.uint8).reshape(n, n, -1)
@@ -1770,9 +1785,24 @@ def phase_k2_check(captured, launches):
                       cuda_a2a.all_to_all_plain(planes, gather)], dim=2)
     check(torch.equal(stacked.transpose(0, 1).contiguous(), want),
           "transpose yardstick disagrees with the plain version")
+    del want
     library_ms = cuda_ms(lambda: stacked.transpose(0, 1).contiguous())
     library_b2b_ms = cuda_ms_back_to_back(
         lambda: stacked.transpose(0, 1).contiguous())
+    # the kernel and the library call alone, in turns: kernel, library,
+    # library, kernel
+    alone, library_alone = [], []
+    for turn in ("k2", "library", "library", "k2"):
+        if turn == "k2":
+            alone.append(kernel_device_ms(
+                lambda: cuda_a2a.all_to_all(planes, gather),
+                "all_to_all_kernel", reps=5))
+        else:
+            library_alone.append(_library_alone_ms(
+                lambda: stacked.transpose(0, 1).contiguous(), "copy",
+                reps=5))
+    alone_ms = min(alone)
+    del stacked
     nbytes = 2 * _a2a_bytes(planes, gather)       # read once, write once
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     print(f"[k2] all_to_all at the largest exchange ({query}), "
@@ -1781,7 +1811,9 @@ def phase_k2_check(captured, launches):
           f"B at 3.35 TB/s); plain {plain_ms:.4f} ms; transpose "
           f"{library_ms:.4f} ms; back to back {b2b_ms:.4f} ms per call, "
           f"transpose back to back {library_b2b_ms:.4f} ms per call; "
-          f"kernel alone {alone_ms:.4f} ms (profiler)", flush=True)
+          f"alone (profiler) in turns K2, transpose, transpose, K2: "
+          f"{alone[0]:.4f}, {_fmt_ms(library_alone[0])}, "
+          f"{_fmt_ms(library_alone[1])}, {alone[1]:.4f} ms", flush=True)
     return {"name": "all_to_all", "route": "cuda",
             "source": "spark_tpu_torch/csrc/all_to_all.cu",
             "replaces": "spark_tpu/parallel/ici.py:352",
@@ -1790,7 +1822,25 @@ def phase_k2_check(captured, launches):
             "ms_back_to_back": b2b_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": library_ms,
-            "library_ms_back_to_back": library_b2b_ms}
+            "library_ms_back_to_back": library_b2b_ms,
+            "alone_turns_ms": alone, "library_alone_turns_ms": library_alone}
+
+
+def _fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def _library_alone_ms(fn, name, reps=5):
+    """A library call's kernels alone, per call (``kernel_device_ms`` over
+    the kernels whose names hold ``name``, however many a call
+    launches), or None where no profile saw a whole number per call: a
+    yardstick, so it never stops the script."""
+    try:
+        return kernel_device_ms(fn, name, reps=reps, multiple=True)
+    except RuntimeError as e:
+        print(f"[profile] the library call's kernel alone not measured: "
+              f"{e}", flush=True)
+        return None
 
 
 def k2_runs():
@@ -2053,15 +2103,22 @@ def phase_mesh(session, hash_df, hash_table, q3_df, tables):
     return captured, launches, mesh_numbers, lpt_inputs, lpt_launches
 
 
+#: [lpt]: the kernel of the parent commit, when a run put its source here
+#: (``git show HEAD:spark_tpu_torch/csrc/lpt_assign.cu``), is timed in
+#: turns with this one; without it the old time is PERF.md's row
+LPT_OLD_SOURCE = os.path.join("build", "lpt_old", "lpt_assign.cu")
+
+
 def _lpt_cases(recorded):
     """``lpt_assign``'s check inputs: the main path's counts, then random
-    and tied counts at 2, 4 and 8 shards, more shards than one warp's
-    lanes, and no bucket at all."""
+    and tied counts at 1 to 33 shards (one thread's registers, a warp's
+    lanes, shared memory; ranked in the kernel up to ``RANK_MAX`` buckets,
+    sorted past it), many more shards, and no bucket at all."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(70)
     cases = [(f"[mesh] call {i} (n_fine {c.shape[0]}, {n} shards)", c, n)
              for i, (c, n) in enumerate(recorded)]
-    for n in (2, 4, 8):
+    for n in (1, 2, 3, 4, 8, 9, 16, 32, 33):
         cases.append((f"random counts, {n} shards", torch.randint(
             0, 10**6, (32 * n,), generator=g, device="cuda"), n))
         cases.append((f"every count tied, {n} shards", torch.full(
@@ -2069,6 +2126,8 @@ def _lpt_cases(recorded):
         few = torch.full((32 * n,), 5, dtype=torch.int64, device="cuda")
         few[torch.randint(0, 32 * n, (4,), generator=g, device="cuda")] = 9
         cases.append((f"two values, {n} shards", few, n))
+        cases.append((f"small counts with ties, {n} shards", torch.randint(
+            0, 4, (32 * n,), generator=g, device="cuda"), n))
     cases.append(("70 shards (three lanes' worth), 4,480 buckets",
                   torch.randint(0, 1000, (70 * 64,), generator=g,
                                 device="cuda"), 70))
@@ -2077,13 +2136,52 @@ def _lpt_cases(recorded):
     return cases
 
 
+def _lpt_old():
+    """The parent commit's ``lpt_assign`` (its source at
+    ``LPT_OLD_SOURCE``), built beside this one: a function of (counts,
+    n_shards), or None without the source."""
+    import ctypes
+
+    import torch
+    from spark_tpu_torch import cuda_build
+    if not os.path.exists(LPT_OLD_SOURCE):
+        return None
+
+    def bind(lib):
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.spark_lpt_assign.argtypes = [vp, vp, i, i, vp, vp, vp]
+        lib.spark_lpt_assign.restype = i
+
+    lib = cuda_build.load(os.path.abspath(LPT_OLD_SOURCE), bind)
+
+    def run(counts, n):
+        order = torch.sort(-counts, stable=True).indices
+        assign = torch.empty(counts.shape[0], dtype=torch.int32,
+                             device=counts.device)
+        loads = torch.empty(n, dtype=torch.int64, device=counts.device)
+        rc = lib.spark_lpt_assign(counts.data_ptr(), order.data_ptr(),
+                                  counts.shape[0], n, assign.data_ptr(),
+                                  loads.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"[lpt] the parent's kernel: CUDA error {rc}")
+        return assign, loads
+    return run
+
+
 def phase_lpt_check(recorded, launches, replayed):
     """``lpt_assign`` against its plain version on the card, bit-exact,
     at every call the mesh queries made and at edge inputs; its time at
-    the main path's shape.  Returns its entry for the kernels line."""
+    the main path's shape (per call, back to back, alone), beside its
+    latency floor (the kernel at no bucket) and, in turns, the parent
+    commit's kernel.  Returns its entry for the kernels line."""
     import torch
     from spark_tpu_torch import cuda_lpt
     check(recorded, "[lpt] the mesh queries made no lpt_assign call")
+    # the mesh entries' calls are ranked in the kernel: no sort node
+    sorted_calls = [c.shape[0] for c, _n in recorded
+                    if c.shape[0] > cuda_lpt.RANK_MAX]
+    check(not sorted_calls, f"[lpt] mesh calls past the kernel's ranking "
+          f"({sorted_calls} buckets): their graphs hold a sort")
     for name, counts, n in _lpt_cases(recorded):
         got = cuda_lpt.lpt_assign(counts, n)
         want = cuda_lpt.lpt_assign_plain(counts, n)
@@ -2097,31 +2195,54 @@ def phase_lpt_check(recorded, launches, replayed):
     n_fine = counts.shape[0]
     ms = cuda_ms(lambda: cuda_lpt.lpt_assign(counts, n))
     b2b = cuda_ms_back_to_back(lambda: cuda_lpt.lpt_assign(counts, n))
-    alone = kernel_device_ms(lambda: cuda_lpt.lpt_assign(counts, n),
+    none = torch.zeros(0, dtype=torch.int64, device="cuda")
+    old = _lpt_old()
+    alone, old_alone = [], []
+    for turn in ("new", "old", "old", "new") if old else ("new", "new"):
+        if turn == "new":
+            alone.append(kernel_device_ms(
+                lambda: cuda_lpt.lpt_assign(counts, n), "lpt_assign_kernel",
+                reps=5))
+        else:
+            got = old(counts, n)
+            want = cuda_lpt.lpt_assign_plain(counts, n)
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  "[lpt] the parent's kernel differs from the plain version")
+            old_alone.append(kernel_device_ms(
+                lambda: old(counts, n), "lpt_assign_kernel", reps=5))
+    floor = kernel_device_ms(lambda: cuda_lpt.lpt_assign(none, n),
                              "lpt_assign_kernel", reps=5)
     plain_ms = cuda_ms(lambda: cuda_lpt.lpt_assign_plain(counts, n),
                        warmup=1, reps=5)
-    # the counts and the order read once, the assignment and loads
-    # written once; n_fine * n comparisons at the card's 32-bit
-    # non-tensor rate (67 TFLOP/s)
-    nbytes = n_fine * (8 + 8 + 4) + n * 8
+    # the counts read once, the assignment and loads written once; the
+    # ranking's n_fine^2 and the packing's n_fine * n comparisons at the
+    # card's 32-bit non-tensor rate (67 TFLOP/s)
+    nbytes = n_fine * (8 + 4) + n * 8
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_fine * n / 67e12 * 1e3
+    ops_ms = (n_fine * n_fine + n_fine * n) / 67e12 * 1e3
     bound_ms = max(bytes_ms, ops_ms)
+    old_txt = (f"the parent's kernel alone {', '.join(f'{x:.4f}' for x in old_alone)} ms "
+               f"(in turns new, old, old, new: {alone[0]:.4f}, "
+               f"{old_alone[0]:.4f}, {old_alone[1]:.4f}, {alone[1]:.4f})"
+               if old else "the parent's kernel not built (no "
+               f"{LPT_OLD_SOURCE}; PERF.md's row has its time)")
     print(f"[lpt] lpt_assign at the main path's shape ({n_fine} buckets, "
-          f"{n} shards): {ms:.4f} ms per call with its sort (CUDA events), "
-          f"{b2b:.4f} ms back to back, kernel alone {alone:.4f} ms "
-          f"(profiler); plain {plain_ms:.4f} ms; bound {bound_ms:.7f} ms "
-          f"by {'bytes' if bytes_ms >= ops_ms else 'operations'} ({nbytes} "
-          f"B at 3.35 TB/s); no PyTorch call computes the greedy packing",
+          f"{n} shards, ranked in the kernel): {ms:.4f} ms per call (CUDA "
+          f"events), {b2b:.4f} ms back to back, kernel alone "
+          f"{', '.join(f'{x:.4f}' for x in alone)} ms (profiler); {old_txt}; "
+          f"latency floor (the kernel at no bucket, alone) {floor:.4f} ms; "
+          f"plain {plain_ms:.4f} ms; bound {bound_ms:.7f} ms by "
+          f"{'bytes' if bytes_ms >= ops_ms else 'operations'} ({nbytes} B "
+          f"at 3.35 TB/s); no PyTorch call computes the greedy packing",
           flush=True)
     return {"name": "lpt_assign", "route": "cuda",
             "source": "spark_tpu_torch/csrc/lpt_assign.cu",
             "replaces": "spark_tpu/parallel/collective.py:106",
             "launches": launches, "replayed_launches": replayed,
             "max_abs_err": 0, "ms": ms, "ms_back_to_back": b2b,
-            "kernel_alone_ms": alone, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
+            "kernel_alone_ms": min(alone), "alone_turns_ms": alone,
+            "old_alone_turns_ms": old_alone, "latency_floor_ms": floor,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None}
 
@@ -6489,56 +6610,41 @@ def _cards_one_card_child(root):
     return proc, log, path
 
 
-def _cards_barrier(cards):
-    """The barrier kernel alone on every card: R barriers back to back, then
-    every card's epoch and flag slots read back against the plain count
-    (each advanced by R), the time per barrier (CUDA events on each card,
-    the slowest), the plain version's (stream waits on events), and one
-    barrier launched on card 0 alone with a short limit, which must time
-    out and raise."""
+#: [cards]: the flag ping-pong's round trips and the limit of its wait
+CARDS_PINGPONG_ROUNDS = 2000
+CARDS_PINGPONG_TIMEOUT_S = 1.0
+
+
+def _cards_timed(cards, streams, fn, per):
+    """Device time per unit of ``fn``'s work on the cards: CUDA events
+    recorded on every card's stream around it, the slowest card, over
+    ``per`` units."""
     import torch
-    from spark_tpu_torch import cuda_a2a
-    n = len(cards)
-    b = cuda_a2a.BarrierSet([c.index for c in cards])
-    streams = [torch.cuda.current_stream(c) for c in cards]
-
-    def run(times):
-        for _ in range(times):
-            for rank, (c, st) in enumerate(zip(cards, streams)):
-                with torch.cuda.device(c):
-                    b.launch(rank, st, cuda_a2a.BARRIER_TIMEOUT_S)
-
-    def timed(fn, sts):
-        starts = [torch.cuda.Event(enable_timing=True) for _ in cards]
-        ends = [torch.cuda.Event(enable_timing=True) for _ in cards]
-        for c, st, e in zip(cards, sts, starts):
-            with torch.cuda.device(c):
-                e.record(st)
-        fn()
-        for c, st, e in zip(cards, sts, ends):
-            with torch.cuda.device(c):
-                e.record(st)
-        sync_cards()
-        return max(s.elapsed_time(e) for s, e in zip(starts, ends)) \
-            / CARDS_BARRIERS
-
-    run(10)
+    starts = [torch.cuda.Event(enable_timing=True) for _ in cards]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in cards]
+    for c, st, e in zip(cards, streams, starts):
+        with torch.cuda.device(c):
+            e.record(st)
+    fn()
+    for c, st, e in zip(cards, streams, ends):
+        with torch.cuda.device(c):
+            e.record(st)
     sync_cards()
-    base = [b.read(r) for r in range(n)]
-    # back to back from the host: four launches a barrier, each with its
-    # card made current (the host's launch rate bounds this)
-    host_ms = timed(lambda: run(CARDS_BARRIERS), streams)
-    # the kernel alone: R barriers captured in one graph per card, the
-    # graphs replayed together
+    return max(s.elapsed_time(e) for s, e in zip(starts, ends)) / per
+
+
+def _cards_graphs(cards, body):
+    """One graph per card, captured together from this thread (relaxed,
+    instantiated after every capture ends, as the stage cache captures a
+    multi-card entry): ``body(capture_streams)`` enqueues the work.
+    Returns (graphs, their streams, replay)."""
+    import torch
     graphs = [torch.cuda.CUDAGraph(keep_graph=True) for _ in cards]
     cap = [torch.cuda.Stream(device=c) for c in cards]
     for c, g, st in zip(cards, graphs, cap):
         with torch.cuda.device(c), torch.cuda.stream(st):
             g.capture_begin(capture_error_mode="relaxed")
-    for rank, (c, st) in enumerate(zip(cards, cap)):
-        with torch.cuda.device(c):
-            for _ in range(CARDS_BARRIERS):
-                b.launch(rank, st, cuda_a2a.BARRIER_TIMEOUT_S)
+    body(cap)
     for c, g, st in zip(cards, graphs, cap):
         with torch.cuda.device(c), torch.cuda.stream(st):
             g.capture_end()
@@ -6549,21 +6655,146 @@ def _cards_barrier(cards):
         for c, g, st in zip(cards, graphs, cap):
             with torch.cuda.device(c), torch.cuda.stream(st):
                 g.replay()
+    return graphs, cap, replay
 
+
+def _cards_pingpong(cards):
+    """Half a flag round trip between cards 0 and 1 over NVLink: the
+    latency floor of any order across cards (ms; the best of 3)."""
+    import ctypes
+
+    import torch
+    from spark_tpu_torch import cuda_a2a
+    lib = cuda_a2a._lib()
+    a, b = cards[0], cards[1]
+    words = [torch.zeros(1, dtype=torch.int64, device=a),
+             torch.zeros(1, dtype=torch.int64, device=b)]
+    ns = torch.zeros(1, dtype=torch.int64, device=a)
+    devs = (ctypes.c_int * 2)(a.index, b.index)
+    mine = (ctypes.c_void_p * 2)(words[0].data_ptr(), words[1].data_ptr())
+    peer = (ctypes.c_void_p * 2)(words[1].data_ptr(), words[0].data_ptr())
+    streams = (ctypes.c_void_p * 2)(
+        torch.cuda.current_stream(a).cuda_stream,
+        torch.cuda.current_stream(b).cuda_stream)
+    best = None
+    for _ in range(3):
+        for w in words:
+            w.zero_()
+        sync_cards()
+        rc = lib.spark_flag_pingpong(
+            devs, mine, peer, streams, CARDS_PINGPONG_ROUNDS,
+            int(CARDS_PINGPONG_TIMEOUT_S * 1e9),
+            ctypes.c_void_p(ns.data_ptr()))
+        check(rc == 0, f"[cards] flag ping-pong launch: CUDA error {rc}")
+        sync_cards()
+        got = int(ns.item())
+        check(got > 0, f"[cards] the flag ping-pong timed out ({got})")
+        ms = got / (2 * CARDS_PINGPONG_ROUNDS) / 1e6
+        best = ms if best is None else min(best, ms)
+    return best
+
+
+def _cards_barrier(cards):
+    """The order across cards alone.  (a) The fused exchange's
+    arrive-and-wait as the path makes it, the guards' gather of one bool
+    per card to card 0 (card 0 copies, the others arrive and wait): R
+    back to back from the host, then every card's state read back (the
+    epoch, each arrival slot and card 0's done slot advanced by R, no
+    failure), its time per exchange from the host and in one graph per
+    card replayed together (CUDA events, the slowest card), and each
+    card's launch alone (profiler).  (b) The latency floor: half a flag
+    round trip between cards 0 and 1.  (c) The separate barrier_kernel
+    that the old order took twice per exchange: R back to back and R in
+    one graph per card, its slots read back.  (d) The plain version: each
+    card's stream waiting on an event recorded on every card's.  (e) A
+    lone card: the fused launch on card 0 alone at a 50 ms limit times
+    out naming a peer, and the next check raises and resets the set."""
+    import ctypes
+
+    import torch
+    from spark_tpu_torch import cuda_a2a
+    n = len(cards)
+    streams = [torch.cuda.current_stream(c) for c in cards]
+    card_of = list(range(n))
+    guards = [[torch.ones((), dtype=torch.bool, device=c) for c in cards]]
+    order = cuda_a2a.barrier_set(cards)
+
+    def gather(sts=streams):
+        return cuda_a2a.all_to_all_cards(guards, card_of, cards, sts, True,
+                                         range(1))
+
+    # (a) the arrive-and-wait, back to back from the host
+    for _ in range(10):
+        gather()
+    sync_cards()
+    base = [order.read_state(r) for r in range(n)]
+    host_ms = _cards_timed(cards, streams,
+                           lambda: [gather() for _ in range(CARDS_BARRIERS)],
+                           CARDS_BARRIERS)
+    after = [order.read_state(r) for r in range(n)]
+    err = 0
+    for r, (b0, b1) in enumerate(zip(base, after)):
+        want = b0["epoch"] + CARDS_BARRIERS
+        err = max([err, abs(b1["epoch"] - want), abs(b1["done"][0] - want),
+                   b1["failed"], b1["blocks"], abs(b1["arrived"] - want)]
+                  + [abs(f - want) for f in b1["flags"]]
+                  + [abs(d - d0) for d, d0 in zip(b1["done"][1:],
+                                                  b0["done"][1:])])
+    check(err == 0 and not order.failed(), f"[cards] the fused exchange's "
+          f"states after {CARDS_BARRIERS} gathers: {after} from {base}")
+    got = gather()
+    sync_cards()
+    check(got[0] is not None and bool(got[0][0].all())
+          and all(g is None for g in got[1:]), "[cards] the guards' "
+          "gather differs from its plain version")
+    # in one graph per card, replayed together
+    prev = cuda_a2a.CAPTURE_SOURCES
+    cuda_a2a.CAPTURE_SOURCES = lambda p: True     # every buffer stays alive
+    try:
+        graphs, cap, replay = _cards_graphs(
+            cards, lambda sts: [gather(sts) for _ in range(CARDS_BARRIERS)])
+    finally:
+        cuda_a2a.CAPTURE_SOURCES = prev
     replay()
     sync_cards()
-    ms = min(timed(replay, cap) for _ in range(3))
-    after = [b.read(r) for r in range(n)]
-    err = 0
-    for (e0, _f0), (e1, f1) in zip(base, after):
-        want = e0 + 5 * CARDS_BARRIERS
-        err = max([err, abs(e1 - want)] + [abs(f - want) for f in f1])
+    graph_ms = min(_cards_timed(cards, cap, replay, CARDS_BARRIERS)
+                   for _ in range(3))
     del graphs
-    check(err == 0 and not b.failed(), f"[cards] barrier states after "
-          f"{CARDS_BARRIERS} barriers: {after} from {base}")
-    # the plain version: the same cross-card order in PyTorch alone, each
-    # card's stream waiting on an event recorded on every card's stream,
-    # launched back to back from the host and timed as host_ms is
+    alone = _kernel_ms_by_card(gather, "exchange_kernel")
+    # (b) the latency floor
+    floor_ms = _cards_pingpong(cards)
+    # (c) the old order's separate barrier
+    b = cuda_a2a.BarrierSet([c.index for c in cards])
+
+    def run(times, sts=streams):
+        for _ in range(times):
+            for rank, (c, st) in enumerate(zip(cards, sts)):
+                with torch.cuda.device(c):
+                    b.launch(rank, st, cuda_a2a.BARRIER_TIMEOUT_S)
+
+    run(10)
+    sync_cards()
+    old_base = [b.read(r) for r in range(n)]
+    old_host_ms = _cards_timed(cards, streams,
+                               lambda: run(CARDS_BARRIERS), CARDS_BARRIERS)
+    graphs, cap, replay = _cards_graphs(
+        cards, lambda sts: run(CARDS_BARRIERS, sts))
+    replay()
+    sync_cards()
+    old_ms = min(_cards_timed(cards, cap, replay, CARDS_BARRIERS)
+                 for _ in range(3))
+    old_after = [b.read(r) for r in range(n)]
+    old_err = 0
+    for (e0, _f0), (e1, f1) in zip(old_base, old_after):
+        want = e0 + 5 * CARDS_BARRIERS
+        old_err = max([old_err, abs(e1 - want)] + [abs(f - want) for f in f1])
+    del graphs
+    check(old_err == 0 and not b.failed(), f"[cards] barrier_kernel states "
+          f"after {CARDS_BARRIERS} barriers: {old_after} from {old_base}")
+
+    # (d) the plain version: the same cross-card order in PyTorch alone,
+    # each card's stream waiting on an event recorded on every card's
+    # stream, launched back to back from the host
     def plain(times):
         for _ in range(times):
             events = []
@@ -6579,42 +6810,75 @@ def _cards_barrier(cards):
 
     plain(10)
     sync_cards()
-    plain_ms = timed(lambda: plain(CARDS_BARRIERS), streams)
-    # one card alone at a short limit: it times out, the wrapper raises
+    plain_ms = _cards_timed(cards, streams, lambda: plain(CARDS_BARRIERS),
+                            CARDS_BARRIERS)
+    # (e) card 0 alone at a short limit: it times out, the wrapper raises
+    outs = [torch.empty((1, n), dtype=torch.bool, device=cards[0])]
+    plan = cuda_a2a.a2a_card_plan(
+        [[x.data_ptr() for x in guards[0]]], [[outs[0].data_ptr()]]
+        + [None] * (n - 1), [1], [0], card_of, range(1),
+        cross=order.cross(CARDS_TIMEOUT_TEST_S))
+    d0, n_dst, table, total = plan[0]
+    buf = (ctypes.c_longlong * len(table))(*table)
     with torch.cuda.device(cards[0]):
-        b.launch(0, streams[0], CARDS_TIMEOUT_TEST_S)
+        rc = cuda_a2a._lib().spark_exchange_part(
+            buf, len(table), 1, n, d0, n_dst,
+            cuda_a2a.first_sender(n, d0, n_dst), total,
+            streams[0].cuda_stream)
+    check(rc == 0, f"[cards] the lone launch: CUDA error {rc}")
+    t0 = time.perf_counter()
     torch.cuda.synchronize(cards[0])
-    failed = b.failed()
-    check(failed == [(0, 1)], f"[cards] a lone barrier did not time out "
-          f"({failed})")
+    lone_s = time.perf_counter() - t0
+    failed = order.failed()
+    check(len(failed) == 1 and failed[0][0] == 0
+          and 0 < failed[0][1] < n, f"[cards] a lone card's exchange did "
+          f"not time out naming a peer ({failed})")
     try:
-        b.check()
+        order.check()
         raised = None
     except RuntimeError as e:
         raised = str(e)
     check(raised is not None and "timed out" in raised, "[cards] a timed-"
-          "out barrier did not raise")
-    check(not b.failed() and b.read(0)[0] == 0, "[cards] the timed-out "
-          "set was not reset")
+          "out exchange did not raise")
+    check(not order.failed() and order.read(0)[0] == 0, "[cards] the "
+          "timed-out set was not reset")
     moved = 2 * 8 * n * n
     bound = moved / NVLINK_BYTES_PER_S * 1e3
-    print(f"[cards] barrier_kernel on {n} cards: {ms:.5f} ms per barrier "
-          f"alone ({CARDS_BARRIERS} in one graph per card, the graphs "
-          f"replayed together; CUDA events, the slowest card, the best of "
-          f"3), {host_ms:.5f} ms launched back to back from the host; every "
-          f"epoch and flag slot advanced by {5 * CARDS_BARRIERS} (max abs "
-          f"err {err}); the plain version (each card's stream waiting on "
-          f"an event of every card's, launched back to back from the host) "
-          f"{plain_ms:.5f} ms per barrier; bound {bound:.7f} ms ({moved} B of "
-          f"flags over NVLink); a lone barrier at a {CARDS_TIMEOUT_TEST_S} s "
-          f"limit timed out and raised: {raised[:120]}...", flush=True)
+    print(f"[cards] the fused exchange's arrive-and-wait on {n} cards (the "
+          f"guards' gather to card 0: card 0 copies {n} B, the others "
+          f"arrive and wait): {graph_ms:.5f} ms per exchange in one graph "
+          f"per card replayed together ({CARDS_BARRIERS} per graph; CUDA "
+          f"events, the slowest card, the best of 3), {host_ms:.5f} ms "
+          f"launched back to back from the host; each card's launch alone "
+          f"{ {d: round(v, 5) for d, v in alone.items()} } ms; every epoch, "
+          f"arrival slot and card 0's done slot advanced by "
+          f"{CARDS_BARRIERS} (max abs err {err}); latency floor (half a "
+          f"flag round trip, cuda:{cards[0].index} <-> "
+          f"cuda:{cards[1].index}, {CARDS_PINGPONG_ROUNDS} round trips, "
+          f"the best of 3) {floor_ms:.5f} ms; bound {bound:.7f} ms ({moved} "
+          f"B of flags over NVLink)", flush=True)
+    print(f"[cards] the old order's barrier_kernel: {old_ms:.5f} ms per "
+          f"barrier in one graph per card, {old_host_ms:.5f} ms back to "
+          f"back from the host (two per exchange); its epochs and slots "
+          f"advanced by {5 * CARDS_BARRIERS} (max abs err {old_err}); the "
+          f"plain version (each card's stream waiting on an event of every "
+          f"card's, back to back from the host) {plain_ms:.5f} ms per "
+          f"barrier; card 0's exchange alone at a {CARDS_TIMEOUT_TEST_S} s "
+          f"limit ended after {lone_s * 1e3:.1f} ms of host wait, naming "
+          f"rank {failed[0][1]}, and raised: {raised[:120]}...",
+          flush=True)
     return {"name": "barrier", "route": "cuda",
             "source": "spark_tpu_torch/csrc/all_to_all.cu",
             "replaces": "spark_tpu/parallel/ici.py:368 (the barrier "
-                        "semaphore of _pallas_a2a)",
-            "launches": 0, "max_abs_err": err, "ms": ms,
-            "host_launched_ms": host_ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
+                        "semaphore of _pallas_a2a): exchange_kernel's "
+                        "arrive-and-wait",
+            "launches": 0, "max_abs_err": err, "ms": graph_ms,
+            "host_launched_ms": host_ms, "alone_by_card_ms": alone,
+            "latency_floor_ms": floor_ms,
+            "old_barrier_kernel_ms": old_ms,
+            "old_barrier_kernel_host_ms": old_host_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": None, "lone_timeout_ms": lone_s * 1e3}
 
 
 def _cards_bytes(planes, card_of, gather):
@@ -6650,11 +6914,15 @@ def cards_exchange_bound_ms(leave, stay, arrive):
 
 
 def _cards_k2_alone(call, cards):
-    """K2 across cards alone at the largest recorded all-to-all: per call
-    (the exchange, barriers included, CUDA events on every card, the
-    slowest), the copy kernel alone per card (profiler), the library call
-    (``copy_`` per peer block into the same outputs), the bound, and the
-    one-card K2 at the same bytes."""
+    """K2 across cards at the largest recorded all-to-all: per call (CUDA
+    events on every card, the slowest) the fused exchange through the
+    wrapper and launched directly (its tables built once), in turns with
+    the old order (barrier, one copy launch per receiving card, each from
+    the sender after its own receivers, barrier; the same copy kernel as
+    before, ``all_to_all_kernel``), each alone
+    per card (profiler: ``exchange_kernel``, and the old order's copy),
+    the library call (``copy_`` per peer block into the same outputs), the
+    bound, and the one-card K2 at the same bytes."""
     import ctypes
 
     import torch
@@ -6676,28 +6944,7 @@ def _cards_k2_alone(call, cards):
                     for s, x in enumerate(planes[k]):
                         o[r, s].copy_(x if gather else x[d0 + r])
 
-    def per_call(fn, reps=10):
-        fn()
-        times = []
-        for _ in range(reps):
-            starts = [torch.cuda.Event(enable_timing=True) for _ in devices]
-            ends = [torch.cuda.Event(enable_timing=True) for _ in devices]
-            for d, st, e in zip(devices, streams, starts):
-                with torch.cuda.device(d):
-                    e.record(st)
-            fn()
-            for d, st, e in zip(devices, streams, ends):
-                with torch.cuda.device(d):
-                    e.record(st)
-            sync_cards()
-            times.append(max(s.elapsed_time(e)
-                             for s, e in zip(starts, ends)))
-        return statistics.median(times)
-
-    # the copy alone, its senders in each card's rotated order (the
-    # wrapper's) and in one order on every card, in turns, each exchange
-    # between barriers as the wrapper makes it (so the cards start it
-    # together); the profiler times the copy kernel alone
+    # the old order into the same outputs
     lib = cuda_a2a._lib()
     n = len(card_of)
     nbytes = [sh[0].numel() * sh[0].element_size() // (1 if gather else n)
@@ -6708,41 +6955,82 @@ def _cards_k2_alone(call, cards):
          for per in outs], nbytes, [0 if gather else nb for nb in nbytes],
         card_of, receivers)
     tables = [(ctypes.c_longlong * len(t))(*t) for _d, _n, t, _t in plan]
+    fused_tables = [
+        (d0, n_dst, (ctypes.c_longlong * len(t))(*t), total)
+        for d0, n_dst, t, total in cuda_a2a.a2a_card_plan(
+            [[x.data_ptr() for x in sh] for sh in planes],
+            [[o.data_ptr() for o in per] if per is not None else None
+             for per in outs], nbytes,
+            [0 if gather else nb for nb in nbytes], card_of, receivers,
+            cross=cuda_a2a.barrier_set(devices).cross(
+                cuda_a2a.BARRIER_TIMEOUT_S))]
 
-    def copies(rotate):
-        def run():
-            cuda_a2a.barrier(devices, streams)
-            for (d0, n_dst, _t, total), buf, dev, st in zip(
-                    plan, tables, devices, streams):
-                if total:
-                    with torch.cuda.device(dev):
-                        rc = lib.spark_all_to_all_part(
-                            buf, len(buf), len(planes), n, d0, n_dst,
-                            cuda_a2a.first_sender(n, d0, n_dst)
-                            if rotate else 0, total, st.cuda_stream)
-                    check(rc == 0, f"[cards] copy launch: CUDA error {rc}")
-            cuda_a2a.barrier(devices, streams)
-        return run
+    def direct():
+        # the fused launches of the wrapper, into the same outputs, their
+        # tables built once: the device's part of a call
+        for (d0, n_dst, buf, total), dev, st in zip(fused_tables, devices,
+                                                    streams):
+            with torch.cuda.device(dev):
+                rc = lib.spark_exchange_part(
+                    buf, len(buf), len(planes), n, d0, n_dst,
+                    cuda_a2a.first_sender(n, d0, n_dst) if n_dst else 0,
+                    total, st.cuda_stream)
+            check(rc == 0, f"[cards] exchange launch: CUDA error {rc}")
 
-    order = {}
-    for rotate in (True, False, False, True):
-        got = _kernel_ms_by_card(copies(rotate), "all_to_all_kernel")
-        order.setdefault(rotate, []).append(max(got.values()))
-    k_ms = per_call(kernel)
-    lib_ms = per_call(library)
-    k_wall = _cards_wall_ms(kernel, reps=10)
-    lib_wall = _cards_wall_ms(library, reps=10)
-    alone = _kernel_ms_by_card(kernel, "all_to_all_kernel")
-    got = kernel()
-    sync_cards()
+    def old_order():
+        # each card from the sender after its own receivers, as before
+        cuda_a2a.barrier(devices, streams)
+        for (d0, n_dst, _t, total), buf, dev, st in zip(
+                plan, tables, devices, streams):
+            if total:
+                with torch.cuda.device(dev):
+                    rc = lib.spark_all_to_all_part(
+                        buf, len(buf), len(planes), n, d0, n_dst,
+                        (d0 + n_dst) % n, total, st.cuda_stream)
+                check(rc == 0, f"[cards] copy launch: CUDA error {rc}")
+        cuda_a2a.barrier(devices, streams)
+
+    def per_call(fn, reps=10):
+        fn()
+        sync_cards()
+        return statistics.median(_cards_timed(devices, streams, fn, 1)
+                                 for _ in range(reps))
+
+    turns = {"fused": [], "direct": [], "old": []}
+    calls = {"fused": kernel, "direct": direct, "old": old_order}
+    for turn in ("fused", "direct", "old", "old", "direct", "fused"):
+        turns[turn].append(per_call(calls[turn]))
+    alone_turns = {"fused": [], "old": []}
+    for turn in ("fused", "old", "old", "fused"):
+        if turn == "fused":
+            alone_turns[turn].append(_kernel_ms_by_card(kernel,
+                                                        "exchange_kernel"))
+        else:
+            alone_turns[turn].append(_kernel_ms_by_card(
+                old_order, "all_to_all_kernel"))
     want = cuda_a2a.all_to_all_plain(planes, gather, card_of, devices,
                                      receivers)
+    for fn, what in ((old_order, "the old order's"),
+                     (direct, "the direct launches'")):
+        for per in outs:
+            for o in per or []:
+                o.zero_()
+        fn()
+        sync_cards()
+        check(all(torch.equal(g, w) for gs, ws in zip(outs, want)
+                  for g, w in zip(gs or [], ws or [])),
+              f"[cards] {what} exchange differs from its plain version")
+    got = kernel()
+    sync_cards()
     check(all(torch.equal(g, w) for gs, ws in zip(got, want)
               for g, w in zip(gs or [], ws or [])),
           "[cards] the timed exchange differs from its plain version")
+    del got, want
+    lib_ms = per_call(library)
+    k_wall = _cards_wall_ms(kernel, reps=10)
+    lib_wall = _cards_wall_ms(library, reps=10)
     plain_ms = _cards_wall_ms(lambda: cuda_a2a.all_to_all_plain(
         planes, gather, card_of, devices, receivers), reps=3)
-    del got, want
     leave, stay, arrive = _cards_bytes(planes, card_of, gather)
     bound = cards_exchange_bound_ms(leave, stay, arrive)
     total = sum(leave) + sum(stay)
@@ -6753,32 +7041,47 @@ def _cards_k2_alone(call, cards):
                                  "all_to_all_kernel", reps=10)
     one_bound = 2 * total / HBM_BYTES_PER_S * 1e3
     del one
-    print(f"[cards] the copy alone, the slowest card, in turns rotated, one "
-          f"order, one order, rotated: {order[True][0]:.4f}, "
-          f"{order[False][0]:.4f}, {order[False][1]:.4f}, "
-          f"{order[True][1]:.4f} ms (each card starting from the sender "
-          f"after its own receivers, against every card from sender 0)",
-          flush=True)
+    k_ms = statistics.median(turns["fused"])
+    alone = {d: min(t[d] for t in alone_turns["fused"])
+             for d in alone_turns["fused"][0]}
+
+    def slowest(t):
+        return ", ".join(f"{max(x.values()):.4f}" for x in t)
+
     print(f"[cards] K2 across {len(devices)} cards at the largest recorded "
           f"exchange ({_a2a_desc(planes, gather)}, {total:,} B, leaving "
-          f"each card {leave} B, staying {stay} B): {k_ms:.4f} ms per call "
-          f"(barrier, copy, barrier; CUDA events, the slowest card; wall "
-          f"{k_wall:.4f}); the copy kernel alone per card "
-          f"{ {d: round(v, 4) for d, v in alone.items()} } ms; bound "
-          f"{bound:.4f} ms (on the slowest card the larger of its NVLink "
-          f"time, the bytes leaving or arriving at 450 GB/s, and its memory "
-          f"time, every byte it reads or writes at 3.35 TB/s); the library "
-          f"call "
-          f"(copy_ per peer block) {lib_ms:.4f} ms (wall {lib_wall:.4f}); "
-          f"plain version {plain_ms:.2f} ms; the one-card K2 at the same "
-          f"bytes {one_ms:.4f} ms per call, {one_alone:.4f} alone (bound "
-          f"{one_bound:.4f})", flush=True)
-    return {"ms": k_ms, "wall_ms": k_wall, "alone_by_card_ms": alone,
-            "alone_ms": max(alone.values()), "library_ms": lib_ms,
-            "library_wall_ms": lib_wall, "plain_ms": plain_ms,
-            "alone_rotated_ms": order[True], "alone_one_order_ms": order[False],
-            "bound_ms": bound, "bytes": total, "leave": leave, "stay": stay,
-            "arrive": arrive,
+          f"each card {leave} B, staying {stay} B): per call in turns "
+          f"fused through the wrapper, fused launched directly, old, old, "
+          f"direct, wrapper: {turns['fused'][0]:.4f}, "
+          f"{turns['direct'][0]:.4f}, {turns['old'][0]:.4f}, "
+          f"{turns['old'][1]:.4f}, {turns['direct'][1]:.4f}, "
+          f"{turns['fused'][1]:.4f} ms (the old order: barrier, copy, "
+          f"barrier, launched directly; CUDA events, the slowest card; "
+          f"fused wall {k_wall:.4f}); alone, the slowest card, in turns "
+          f"fused "
+          f"(exchange_kernel), old (its copy alone), old, fused: "
+          f"{slowest(alone_turns['fused'][:1])}, "
+          f"{slowest(alone_turns['old'])}, "
+          f"{slowest(alone_turns['fused'][1:])} ms; the fused launch alone "
+          f"per card {  {d: round(v, 4) for d, v in alone.items()} } ms; "
+          f"bound {bound:.4f} ms (on the slowest card the larger of its "
+          f"NVLink time, the bytes leaving or arriving at 450 GB/s, and its "
+          f"memory time, every byte it reads or writes at 3.35 TB/s); the "
+          f"library call (copy_ per peer block) {lib_ms:.4f} ms (wall "
+          f"{lib_wall:.4f}); plain version {plain_ms:.2f} ms; the one-card "
+          f"K2 at the same bytes {one_ms:.4f} ms per call, {one_alone:.4f} "
+          f"alone (bound {one_bound:.4f})", flush=True)
+    return {"ms": k_ms, "ms_turns": turns["fused"],
+            "direct_ms_turns": turns["direct"],
+            "old_order_ms_turns": turns["old"], "wall_ms": k_wall,
+            "alone_by_card_ms": alone, "alone_ms": max(alone.values()),
+            "alone_turns_ms": [max(x.values())
+                               for x in alone_turns["fused"]],
+            "old_copy_alone_turns_ms": [max(x.values())
+                                        for x in alone_turns["old"]],
+            "library_ms": lib_ms, "library_wall_ms": lib_wall,
+            "plain_ms": plain_ms, "bound_ms": bound, "bytes": total,
+            "leave": leave, "stay": stay, "arrive": arrive,
             "one_card_ms": one_ms, "one_card_alone_ms": one_alone,
             "one_card_bound_ms": one_bound}
 
@@ -6929,13 +7232,14 @@ def _cards_mesh(session, hash_df, hash_table, q3_df, tables, one_card):
         barriers = {d: n - b0.get(d, 0)
                     for d, n in cuda_a2a.CARD_REPLAYED_BARRIERS.items()}
         check(got == f["rows"], f"[cards] {name}: the replay differs")
+        # the gathers to card 0: the other cards arrive and wait
+        waiting = sorted(d for d, n in barriers.items() if n > 0)
         check(s1["dispatches"] == s0["dispatches"] + 1
               and s1["variants"] == s0["variants"]
               and s1["guard_misses"] == s0["guard_misses"]
               and cuda_a2a.LAUNCHES == l0
               and len([d for d, n in copies.items() if n > 0]) >= 1
-              and len([d for d, n in barriers.items() if n > 0])
-              == CARDS_SHARDS,
+              and waiting == list(range(1, CARDS_SHARDS)),
               f"[cards] {name}: the warm run was no replay of every card's "
               f"graph (stage cache {s0} -> {s1}, copies {copies}, barriers "
               f"{barriers})")
@@ -6953,29 +7257,32 @@ def _cards_mesh(session, hash_df, hash_table, q3_df, tables, one_card):
         prof = profile_query(f"cards {name} x{CARDS_SHARDS} captured",
                              lambda: (df.collect(), sync_cards()),
                              own_kernels=OWN_KERNELS + (
-                                 ("barrier", "barrier_kernel"),))
-        # a barrier's spin is device time spent waiting: left out
-        busy = (prof["device_ms"] - prof["own"]["barrier"][1]) \
-            / prof["wall_ms"] / CARDS_SHARDS
+                                 ("exchange", "exchange_kernel"),))
+        # the exchanges' waits are device time inside exchange_kernel:
+        # the busy share counts them, and the exchanges' time is printed
+        busy = prof["device_ms"] / prof["wall_ms"] / CARDS_SHARDS
         numbers[name] = {
             "first_ms": f["ms"], "build_ms": f["build_ms"],
             "graph_walls_ms": [walls[0], walls[3]],
             "eager_walls_ms": [walls[1], walls[2]],
             "card_bytes": v.card_bytes, "reserve_bytes": f["reserve"],
             "copies_per_card": copies, "barriers_per_card": barriers,
-            "busy_per_card": busy, "barrier_ms": prof["own"]["barrier"][1],
+            "busy_per_card": busy,
+            "exchange_ms": prof["own"]["exchange"][1],
             "device_ms": prof["device_ms"]}
         print(f"[cards] {name} x{CARDS_SHARDS} shards on {CARDS_SHARDS} "
               f"cards: equal to the oracle and to the one-card mesh lane bit "
               f"for bit; one entry of {len(v.graphs)} graphs (first run "
               f"{f['ms']:.2f} ms, build {f['build_ms']:.2f} ms); a warm run "
-              f"is a replay (K2 copies per card {copies}, barriers per card "
-              f"{barriers}, no wrapper call); the eager lane equal; warm "
+              f"is a replay (K2 copy launches per card {copies}, "
+              f"arrive-and-wait launches per card {barriers}, no wrapper "
+              f"call); the eager lane equal; warm "
               f"wall, median of 5, in turns graph, eager, eager, graph: "
               f"{', '.join(f'{w:.2f}' for w in walls)} ms; graph bytes per "
               f"card {v.card_bytes} beside the reserves {f['reserve']}; "
-              f"device busy {busy:.1%} per card (the barriers' "
-              f"{prof['own']['barrier'][1]:.3f} ms of spin left out)",
+              f"device busy {busy:.1%} per card (the exchanges' waits "
+              f"included: exchange_kernel "
+              f"{prof['own']['exchange'][1]:.3f} ms over the cards)",
               flush=True)
     # a second data set through the same entries
     hash2 = hash_agg_table(MAIN_N, MAIN_GROUPS, seed=MESH_SECOND_SEED)
@@ -7234,14 +7541,20 @@ def phase_cards(session, hash_df, hash_table, q3_df, tables):
         barriers = sum(cuda_a2a.CARD_BARRIERS.values()) \
             - sum(cuda_a2a.CARD_CAPTURED_BARRIERS.values()) \
             + sum(cuda_a2a.CARD_REPLAYED_BARRIERS.values())
-        check(copies > 0 and barriers > 0, f"[cards] K2 ran {copies} copies "
-              f"and {barriers} barriers on the cards")
+        check(copies > 0 and barriers > 0, f"[cards] K2 ran {copies} copy "
+              f"launches and {barriers} arrive-and-wait launches on the "
+              "cards")
         by_card = {d: cuda_a2a.CARD_LAUNCHES[d] - cuda_a2a.CARD_CAPTURED[d]
                    + cuda_a2a.CARD_REPLAYED[d] for d in cuda_a2a.CARD_LAUNCHES}
+        waits_by_card = {
+            d: cuda_a2a.CARD_BARRIERS[d] - cuda_a2a.CARD_CAPTURED_BARRIERS[d]
+            + cuda_a2a.CARD_REPLAYED_BARRIERS[d]
+            for d in cuda_a2a.CARD_BARRIERS}
         print(f"[cards] K2 runs on the cards over the mesh queries (counted "
               f"on the host: wrapper launches outside a capture plus "
-              f"replayed): copies {copies} {by_card}, barriers {barriers}",
-              flush=True)
+              f"replayed): exchange_kernel with copies {copies} {by_card}, "
+              f"arrive-and-wait {barriers} {waits_by_card}; barrier_kernel "
+              f"0 (off the path)", flush=True)
         # 3. shards = 0 is every visible card
         _mesh(session, 0)
         register_sql_tables(session, hash_table, tables, T)
@@ -7284,14 +7597,18 @@ def phase_cards(session, hash_df, hash_table, q3_df, tables):
         # 6. the device tier across cards
         pull_entry = _cards_tier(session, cards)
         barrier_entry["launches"] = barriers
+        barrier_entry["launches_by_card"] = waits_by_card
         k2_entry = {"name": "k2_cards", "route": "cuda",
                     "source": "spark_tpu_torch/csrc/all_to_all.cu",
                     "replaces": "spark_tpu/parallel/ici.py:352",
                     "launches": copies, "launches_by_card": by_card,
                     "max_abs_err": 0, "ms": t["ms"],
+                    "ms_turns": t["ms_turns"],
+                    "direct_ms_turns": t["direct_ms_turns"],
+                    "old_order_ms_turns": t["old_order_ms_turns"],
                     "kernel_alone_by_card_ms": t["alone_by_card_ms"],
-                    "alone_rotated_ms": t["alone_rotated_ms"],
-                    "alone_one_order_ms": t["alone_one_order_ms"],
+                    "alone_turns_ms": t["alone_turns_ms"],
+                    "old_copy_alone_turns_ms": t["old_copy_alone_turns_ms"],
                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                     "bound_by": "bytes", "library_ms": t["library_ms"],
                     "bytes": t["bytes"], "one_card_ms": t["one_card_ms"],

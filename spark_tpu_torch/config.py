@@ -138,6 +138,38 @@ class Conf:
 
 APP_NAME = conf("spark.app.name").doc("Application name.").string("spark-tpu")
 
+MASTER = conf("spark.master").doc(
+    "Execution target, as the reference names it: local[*] or tpu.  The "
+    "port reads no value of it: the card a session runs on is "
+    "spark.torch.device, and the mesh's cards come from "
+    "spark.tpu.mesh.shards.  Its default is the reference's, so one conf "
+    "dict answers the same in both packages."
+).string("tpu")
+
+DEFAULT_PARALLELISM = conf("spark.default.parallelism").doc(
+    "Default number of partitions for RDDs and shuffles."
+).int(8)
+
+SHUFFLE_PARTITIONS = conf("spark.sql.shuffle.partitions").doc(
+    "Number of logical shuffle buckets for exchanges (SQLConf analog)."
+).int(8)
+
+BATCH_CAPACITY = conf("spark.sql.execution.batch.capacity").doc(
+    "Default device batch row capacity (padded, static shape)."
+).int(1 << 16)
+
+SESSION_TIME_ZONE = conf("spark.sql.session.timeZone").string("UTC")
+
+SPECULATION = conf("spark.speculation").boolean(False)
+
+MAX_RESULT_ROWS = conf("spark.driver.maxResultRows").doc(
+    "Safety cap on collect() row counts (maxResultSize analog)."
+).int(1 << 26)
+
+EAGER_EVAL = conf("spark.sql.repl.eagerEval.enabled").boolean(False)
+
+CROSS_JOIN_ENABLED = conf("spark.sql.crossJoin.enabled").boolean(True)
+
 TORCH_DEVICE = conf("spark.torch.device").doc(
     "torch device every batch of the session lives on and every kernel "
     "runs on: 'cuda' (the default; a session refuses to start when no "

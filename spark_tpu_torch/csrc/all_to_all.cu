@@ -35,27 +35,38 @@
 // a peer card's address is loadable in a kernel under unified addressing,
 // the counterpart of `make_async_remote_copy`.
 //
-// The barrier.  On one card no barrier is needed: the launch is ordered on
-// the caller's stream after every op that produced the send buffers and
-// before every op that reads the outputs, which is the fence the TPU
-// kernel's barrier semaphore made.  Across cards stream order does not
-// cross devices, so one exchange on card c is barrier -> copy -> barrier on
-// card c's stream, barrier_kernel being the counterpart of
-// `pltpu.get_barrier_semaphore` / `semaphore_signal` / `semaphore_wait`:
-//  * the first barrier returns once every card of the set has reached it,
-//    so every sender's buffers are written before any card reads them;
-//  * the second returns once every card has finished its copy, so no
-//    sender frees or reuses a send buffer a peer still reads (the caching
-//    allocator hands it to the sender's next op).
-// Each card of a set has one state allocation (cudaMalloc, outside every
-// graph pool): a flag slot per card of the set and its epoch.  A barrier
-// advances its card's epoch in device memory itself (so a CUDA-graph
-// replay advances it too), signals slot `rank` of every card's flags with
-// a system-scope release store and spins on its own slots with acquire
-// loads until each holds the epoch.  The spin has a time limit read from
-// %globaltimer: at the limit it writes the peer it waited for into the
-// card's error word (mapped host memory, read by the wrapper without a
-// synchronization) and returns, so a dead peer never hangs the card.
+// The order across cards.  On one card no barrier is needed: the launch
+// is ordered on the caller's stream after every op that produced the send
+// buffers and before every op that reads the outputs, which is the fence
+// the TPU kernel's barrier semaphore made.  Across cards stream order does
+// not cross devices, so each card's ONE launch of exchange_kernel carries
+// the order itself, as `_pallas_a2a` keeps its barrier and copy
+// semaphores inside its one kernel:
+//  * arrive: the first block of the launch to run (an atomic ticket, so
+//    never a block that may be left unscheduled) fences and stores the
+//    launch's epoch into this card's arrival slot on every card, with a
+//    system-scope release store;
+//  * per-sender waits: each work item polls, with an acquire load, the
+//    arrival slot of its own sender's card only, then copies: the bytes of
+//    senders that arrived early move while a late card is still busy;
+//  * completion: each block bumps a per-card counter after its copy; the
+//    block that completes the count stores "done reading" into every
+//    card's slot for this card (when this card read anything), waits until
+//    every card that reads this card's sources has stored its own (so no
+//    sender frees or reuses a send buffer a peer still reads: the caching
+//    allocator hands it to the sender's next op), and advances the epoch.
+// A card with no receivers in an exchange (the gathers to card 0) still
+// launches, with no copy items: it arrives and waits.  Each card of a set
+// has one state allocation (cudaMalloc, outside every graph pool): the
+// arrival and done slots of every card, the epoch, the arrival ticket,
+// the failure mark and the block counter.  The epoch lives in device
+// memory, so a CUDA-graph replay advances it too.  Every wait has a time
+// limit read from %globaltimer: the first block that reaches it writes the
+// peer it waited for into the card's error word (mapped host memory, read
+// by the wrapper without a synchronization) and marks the launch failed,
+// and every block then skips its copy and wait, so a dead peer never hangs
+// the card.  barrier_kernel, the separate barrier that an exchange once
+// took before and after its copy, stays for timing that order.
 //
 // Across processes (the device tier of the cross-process exchange,
 // spark_tpu/parallel/ici.py `device_exchange`): each sender packs its
@@ -82,6 +93,14 @@
 //   next P+1           first work item of plane k (exclusive prefix of
 //                      n*n_dst*ceil(block bytes / kChunk)); entry P is the
 //                      total
+// (exchange_kernel orders the items of a plane chunk by chunk: item_of)
+// exchange_kernel's table adds the order across cards (cuda_a2a.a2a_card_plan
+// with `cross`), C cards:
+//   next 5             C, this card's rank, its error word's address, the
+//                      readers (bit c: card c receives in this exchange),
+//                      the time limit of a wait in ns
+//   next n             the card of sender s
+//   next C             the BarrierState address of card p
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -98,41 +117,77 @@ struct Table {
   long long v[kMaxEntries];
 };
 
+// one work item of a table: a chunk of the block (plane k, sender s,
+// receiver d0 + r)
+struct Item {
+  const char* src;
+  char* dst;
+  long long len;
+  int s;
+};
+
 // n senders and the n_dst receivers d0 .. d0 + n_dst - 1 of one card: on
 // one card n_dst = n and d0 = 0.  The senders are taken from `rot` on
 // (s = (rot + i) mod n for the i-th): on several cards each card starts
-// with the sender after its own receivers, so at any moment the cards read
-// from different senders, where the same order everywhere would make
-// every card read one sender's NVLink egress at once
-__global__ void __launch_bounds__(kThreads)
-all_to_all_kernel(const __grid_constant__ Table table, int P, int n,
-                  int d0, int n_dst, int rot) {
-  const long long* src_ptr = table.v;
+// with its own senders (rot = d0), then the next card's, so at any moment
+// the cards read from different senders, where the same order everywhere
+// would make every card read one sender's NVLink egress at once; and in
+// exchange_kernel a card's first items, its own, wait for no arrival
+//
+// The items of a plane go block by block (all_to_all_kernel): sender slot,
+// then receiver row, then the block's chunks.  With `interleave`
+// (exchange_kernel) they go chunk by chunk, and within a chunk receiver by
+// receiver, sender by sender: every moment of a launch then reads every
+// sender, so cards that did not start together, or wait, never pile onto
+// one sender's NVLink egress (in the block-by-block order the cards stay
+// on distinct senders only while they run in step, which the old order's
+// barrier before every copy gave)
+__device__ __forceinline__ Item item_of(const long long* v, int P, int n,
+                                        int d0, int n_dst, int rot,
+                                        long long item,
+                                        bool interleave = false) {
+  const long long* src_ptr = v;
   const long long* dst_ptr = src_ptr + (long long)P * n;
   const long long* block_bytes = dst_ptr + P;
   const long long* src_stride = block_bytes + P;
   const long long* first = src_stride + P;
-  const long long item = blockIdx.x;
-
   // the plane of this work item; planes without bytes own no items
   int k = 0;
   while (k + 1 < P && first[k + 1] <= item) ++k;
   const long long bb = block_bytes[k];
   const long long per = (bb + kChunk - 1) / kChunk;
   const long long local = item - first[k];
-  const long long blk = local / per;
-  const long long c = local - blk * per;
-  const long long i = blk / n_dst;
-  const long long r = blk - i * n_dst;        // the receiver's row here
+  long long c, i, r;                          // chunk, sender slot, row
+  if (interleave) {
+    const long long round = (long long)n * n_dst;
+    c = local / round;
+    const long long rest = local - c * round;
+    r = rest / n;
+    i = rest - r * n;
+  } else {
+    const long long blk = local / per;
+    c = local - blk * per;
+    i = blk / n_dst;
+    r = blk - i * n_dst;
+  }
   const long long s = (i + rot) % n;
   const long long d = d0 + r;
   const long long off = c * kChunk;
-  const long long len = bb - off < kChunk ? bb - off : kChunk;
+  Item it;
+  it.len = bb - off < kChunk ? bb - off : kChunk;
+  it.src = reinterpret_cast<const char*>(src_ptr[k * n + s])
+           + d * src_stride[k] + off;
+  it.dst = reinterpret_cast<char*>(dst_ptr[k]) + (r * n + s) * bb + off;
+  it.s = (int)s;
+  return it;
+}
 
-  const char* src = reinterpret_cast<const char*>(src_ptr[k * n + s])
-                    + d * src_stride[k] + off;
-  char* dst = reinterpret_cast<char*>(dst_ptr[k]) + (r * n + s) * bb + off;
-
+// one block copies one item: 16-byte loads and stores where both ends are
+// 16-byte aligned, bytes otherwise
+__device__ __forceinline__ void copy_item(const Item& it) {
+  const char* src = it.src;
+  char* dst = it.dst;
+  const long long len = it.len;
   long long done = 0;
   if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst))
        & 15) == 0) {
@@ -154,6 +209,12 @@ all_to_all_kernel(const __grid_constant__ Table table, int P, int n,
   }
   for (long long i = done + threadIdx.x; i < len; i += kThreads)
     dst[i] = src[i];
+}
+
+__global__ void __launch_bounds__(kThreads)
+all_to_all_kernel(const __grid_constant__ Table table, int P, int n,
+                  int d0, int n_dst, int rot) {
+  copy_item(item_of(table.v, P, n, d0, n_dst, rot, blockIdx.x));
 }
 
 }  // namespace
@@ -209,12 +270,25 @@ extern "C" int spark_enable_peer_access(int device, int peer) {
 namespace {
 
 constexpr int kMaxCards = 32;
+constexpr int kCrossHead = 5;
+// the first polls of a wait spin without sleeping, for this many ns
+constexpr int kSpinNs = 4000;
+// exchange_kernel's blocks an SM, as all_to_all_kernel's registers allow
+constexpr int kExchangeMinBlocks = 5;
 
-// a card's barrier state (device memory): the flag slot card p signals,
-// at flags[p], and the card's epoch
+// a card's state (device memory).  flags[p]: the epoch card p last arrived
+// at; epoch: this card's last finished exchange or barrier; done[p]: the
+// epoch at which card p last finished reading this card's sources;
+// arrived: the last epoch a block of this card arrived at (the arrival
+// ticket); failed: the last epoch at which a wait of this card gave up;
+// blocks: the finished blocks of the running launch
 struct BarrierState {
   unsigned long long flags[kMaxCards];
   unsigned long long epoch;
+  unsigned long long done[kMaxCards];
+  unsigned long long arrived;
+  unsigned long long failed;
+  unsigned int blocks;
 };
 
 struct BarrierArgs {
@@ -228,6 +302,25 @@ __device__ __forceinline__ unsigned long long global_ns() {
   unsigned long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
+}
+
+__device__ __forceinline__ void store_release(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.release.sys.global.u64 [%0], %1;" :: "l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long load_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.sys.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long load_volatile(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
 }
 
 // one block of kMaxCards threads; thread p signals card p and waits for it
@@ -246,16 +339,11 @@ barrier_kernel(const __grid_constant__ BarrierArgs a) {
   const int p = threadIdx.x;
   if (p >= a.n) return;
   const unsigned long long e = epoch;
-  unsigned long long* slot = &a.state[p]->flags[a.rank];
-  asm volatile("st.release.sys.global.u64 [%0], %1;"
-               :: "l"(slot), "l"(e) : "memory");
+  store_release(&a.state[p]->flags[a.rank], e);
   const unsigned long long* mine = &self->flags[p];
   const unsigned long long t0 = global_ns();
   while (true) {
-    unsigned long long v;
-    asm volatile("ld.acquire.sys.global.u64 %0, [%1];"
-                 : "=l"(v) : "l"(mine) : "memory");
-    if (v >= e) break;
+    if (load_acquire(mine) >= e) break;
     if ((long long)(global_ns() - t0) > a.timeout_ns) {
       *reinterpret_cast<volatile unsigned int*>(a.error) = p + 1;
       __threadfence_system();
@@ -263,6 +351,124 @@ barrier_kernel(const __grid_constant__ BarrierArgs a) {
     }
     __nanosleep(200);
   }
+}
+
+// waits until *slot reaches epoch e: false if the launch failed, or if
+// the wait reached its limit (then, for the first to give up, the card's
+// error word names `peer`)
+__device__ bool wait_slot(const unsigned long long* slot,
+                          unsigned long long e, BarrierState* self,
+                          unsigned int* error, int peer,
+                          long long timeout_ns) {
+  const unsigned long long t0 = global_ns();
+  while (true) {
+    if (load_acquire(slot) >= e) return true;
+    if (load_volatile(&self->failed) >= e) return false;
+    const long long waited = (long long)(global_ns() - t0);
+    if (waited > timeout_ns) {
+      if (atomicMax(&self->failed, e) < e) {
+        *reinterpret_cast<volatile unsigned int*>(error) = peer + 1;
+        __threadfence_system();
+      }
+      return false;
+    }
+    if (waited > kSpinNs) __nanosleep(128);
+  }
+}
+
+// the order across cards in an exchange_kernel table (after the copy part)
+__device__ __forceinline__ const long long* cross_of(const Table& t, int P,
+                                                    int n) {
+  return t.v + (long long)P * n + 4 * P + 1;
+}
+
+__device__ __forceinline__ BarrierState* state_of(const long long* x, int n,
+                                                  int card) {
+  return reinterpret_cast<BarrierState*>(x[kCrossHead + n + card]);
+}
+
+// One exchange on one card of a set: arrive, copy each item once its
+// sender's card has arrived, then finish (see the header).  Launched with
+// max(items, 1) blocks.  The copy is all_to_all_kernel's, and so is its
+// register budget (kExchangeMinBlocks blocks an SM): what the order across
+// cards needs lives in the table (a kernel parameter, re-read where
+// needed) and in shared memory, not in registers across the copy.  The
+// stores that signal other cards are made by one thread per card at
+// once, after one system fence.
+__global__ void __launch_bounds__(kThreads, kExchangeMinBlocks)
+exchange_kernel(const __grid_constant__ Table table, int P, int n, int d0,
+                int n_dst, int rot) {
+  __shared__ unsigned long long s_epoch;
+  __shared__ int s_flag;
+  const int t = threadIdx.x;
+  {
+    const long long* x = cross_of(table, P, n);
+    if (t == 0) {
+      BarrierState* self = state_of(x, n, (int)x[1]);
+      // the previous launch on this card's stream advanced the epoch
+      const unsigned long long e = load_volatile(&self->epoch) + 1;
+      s_epoch = e;
+      // the arrival ticket: whichever block runs first signals (a block
+      // that sees it taken skips the atomic)
+      const bool first = load_volatile(&self->arrived) < e &&
+                         atomicMax(&self->arrived, e) < e;
+      // the writes of every op before this launch on the card's stream
+      // reach the system before any card is signalled
+      if (first) __threadfence_system();
+      s_flag = first;
+    }
+    __syncthreads();
+    if (s_flag && t < (int)x[0])
+      store_release(&state_of(x, n, t)->flags[x[1]], s_epoch);
+  }
+  const long long total = table.v[(long long)P * n + 4 * P];
+  if ((long long)blockIdx.x < total) {
+    const Item it = item_of(table.v, P, n, d0, n_dst, rot, blockIdx.x,
+                            true);
+    __syncthreads();                        // s_flag is read above
+    if (t == 0) {
+      const long long* x = cross_of(table, P, n);
+      const int rank = (int)x[1];
+      const int from = (int)x[kCrossHead + it.s];
+      BarrierState* self = state_of(x, n, rank);
+      // this card's own senders are ordered by its stream already
+      s_flag = from == rank
+                   ? load_volatile(&self->failed) < s_epoch
+                   : wait_slot(&self->flags[from], s_epoch, self,
+                               reinterpret_cast<unsigned int*>(x[2]), from,
+                               x[4]);
+    }
+    __syncthreads();
+    if (s_flag) copy_item(it);
+  }
+  __syncthreads();
+  const long long* x = cross_of(table, P, n);
+  BarrierState* self = state_of(x, n, (int)x[1]);
+  if (t == 0) {
+    // this block's loads were consumed by its stores before the count;
+    // its stores are for this card's later ops, which its stream orders
+    const bool last = atomicAdd(&self->blocks, 1u) + 1 == gridDim.x;
+    if (last) {
+      self->blocks = 0;
+      __threadfence_system();
+    }
+    s_flag = last;
+  }
+  __syncthreads();
+  if (!s_flag) return;
+  // the last block of the launch: every item of this card is read
+  const unsigned long long e = s_epoch;
+  const int C = (int)x[0];
+  if (t < C) {
+    if (n_dst > 0) store_release(&state_of(x, n, t)->done[x[1]], e);
+    // thread c waits for card c if it reads this card's sources
+    if ((((unsigned long long)x[3]) >> t) & 1)
+      wait_slot(&self->done[t], e, self,
+                reinterpret_cast<unsigned int*>(x[2]), t, x[4]);
+  }
+  __syncthreads();
+  if (t == 0)
+    *reinterpret_cast<volatile unsigned long long*>(&self->epoch) = e;
 }
 
 // makes `device` current for a call and the caller's card current again
@@ -279,12 +485,37 @@ struct DeviceScope {
   }
 };
 
+// the latency floor of a flag across two cards: rank 0 stores i into the
+// peer's word and waits for i in its own, rank 1 answers each; rank 0
+// writes the round trips' nanoseconds to *ns (-1 at the time limit)
+__global__ void flag_pingpong_kernel(unsigned long long* mine,
+                                     unsigned long long* peer, int rank,
+                                     int rounds, long long timeout_ns,
+                                     long long* ns) {
+  const unsigned long long t0 = global_ns();
+  for (int i = 1; i <= rounds; ++i) {
+    if (rank == 0) store_release(peer, (unsigned long long)i);
+    while (load_acquire(mine) < (unsigned long long)i) {
+      if ((long long)(global_ns() - t0) > timeout_ns) {
+        if (rank == 0) *ns = -1;
+        return;
+      }
+    }
+    if (rank == 1) store_release(peer, (unsigned long long)i);
+  }
+  if (rank == 0) *ns = (long long)(global_ns() - t0);
+}
+
 }  // namespace
 
 extern "C" int spark_barrier_max_cards() { return kMaxCards; }
 
+extern "C" int spark_barrier_state_bytes() {
+  return (int)sizeof(BarrierState);
+}
+
 // a zeroed barrier state on `device` (cudaMalloc: outside every graph
-// pool, so a captured barrier's pointers stay good); *ptr gets its address
+// pool, so a captured launch's pointers stay good); *ptr gets its address
 extern "C" int spark_barrier_alloc(int device, void** ptr) {
   DeviceScope scope(device);
   if (scope.rc != 0) return scope.rc;
@@ -295,8 +526,8 @@ extern "C" int spark_barrier_alloc(int device, void** ptr) {
   return rc;
 }
 
-// zero a state again (after a timed-out barrier left the epochs apart);
-// the caller has synchronized every card of the set
+// zero a state again (after a timed-out wait left the epochs apart); the
+// caller has synchronized every card of the set
 extern "C" int spark_barrier_reset(int device, void* ptr) {
   DeviceScope scope(device);
   if (scope.rc != 0) return scope.rc;
@@ -305,7 +536,7 @@ extern "C" int spark_barrier_reset(int device, void* ptr) {
   return rc;
 }
 
-// the state's bytes (the flags, then the epoch) into `host`
+// the state's bytes (spark_barrier_state_bytes of them) into `host`
 extern "C" int spark_barrier_read(int device, const void* ptr, void* host) {
   DeviceScope scope(device);
   if (scope.rc != 0) return scope.rc;
@@ -314,7 +545,7 @@ extern "C" int spark_barrier_read(int device, const void* ptr, void* host) {
 }
 
 // `words` zeroed unsigned ints of mapped, portable pinned host memory: the
-// barriers' error words, which every card writes and the host reads
+// error words, which every card writes and the host reads
 extern "C" int spark_barrier_error_words(int words, void** ptr) {
   int rc = (int)cudaHostAlloc(ptr, sizeof(unsigned int) * words,
                               cudaHostAllocMapped | cudaHostAllocPortable);
@@ -322,8 +553,8 @@ extern "C" int spark_barrier_error_words(int words, void** ptr) {
   return rc;
 }
 
-// One barrier on card `rank` of a set of `n` cards: `states` holds the n
-// states' addresses (card p's at p), `error` this card's error word.
+// One barrier_kernel on card `rank` of a set of `n` cards: `states` holds
+// the n states' addresses (card p's at p), `error` this card's error word.
 // Launches on `stream`, whose card must be current; returns the CUDA error
 // of the launch.
 extern "C" int spark_barrier(const long long* states, int n, int rank,
@@ -342,6 +573,59 @@ extern "C" int spark_barrier(const long long* states, int n, int rank,
   barrier_kernel<<<1, kMaxCards, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       a);
   return (int)cudaGetLastError();
+}
+
+// One exchange on one card of a set: host_table is the `entries` int64
+// entries of exchange_kernel's layout (the copy part, then the order
+// across cards); d0 / n_dst: the card's receivers (n_dst 0: an
+// arrive-and-wait launch); rot: the first sender; total: the copy part's
+// work items.  Launches on `stream`, whose card must be current; returns
+// the CUDA error of the launch.
+extern "C" int spark_exchange_part(const long long* host_table, int entries,
+                                   int P, int n, int d0, int n_dst, int rot,
+                                   long long total, void* stream) {
+  if (P <= 0 || n <= 0 || n_dst < 0 || total < 0 || entries > kMaxEntries ||
+      entries < P * n + 4 * P + 1 + kCrossHead)
+    return (int)cudaErrorInvalidValue;
+  const long long* x = host_table + P * n + 4 * P + 1;
+  const long long C = x[0];
+  if (C < 1 || C > kMaxCards || x[1] < 0 || x[1] >= C || x[4] <= 0 ||
+      entries != P * n + 4 * P + 1 + kCrossHead + n + C ||
+      host_table[P * n + 4 * P] != total || total > 0x7fffffffLL ||
+      (n_dst == 0 && total != 0) || d0 < 0 || d0 + n_dst > n || rot < 0 ||
+      rot >= n)
+    return (int)cudaErrorInvalidValue;
+  Table table;
+  memcpy(table.v, host_table, sizeof(long long) * entries);
+  const unsigned blocks = total > 0 ? (unsigned)total : 1u;
+  exchange_kernel<<<blocks, kThreads, 0,
+                    reinterpret_cast<cudaStream_t>(stream)>>>(
+      table, P, n, d0, n_dst, rot);
+  return (int)cudaGetLastError();
+}
+
+// The flag ping-pong between two cards (`rounds` round trips): mine[r] /
+// peer[r] are each rank's word and the other rank's word, on rank r's card
+// `devices[r]`, launched on `streams[r]`; *ns (device memory on rank 0's
+// card) gets the round trips' time.  Returns the CUDA error of the
+// launches.
+extern "C" int spark_flag_pingpong(const int* devices, void* const* mine,
+                                   void* const* peer, void* const* streams,
+                                   int rounds, long long timeout_ns,
+                                   long long* ns) {
+  if (rounds <= 0 || timeout_ns <= 0) return (int)cudaErrorInvalidValue;
+  for (int r = 1; r >= 0; --r) {               // the answering rank first
+    DeviceScope scope(devices[r]);
+    if (scope.rc != 0) return scope.rc;
+    flag_pingpong_kernel<<<1, 1, 0,
+                           reinterpret_cast<cudaStream_t>(streams[r])>>>(
+        reinterpret_cast<unsigned long long*>(mine[r]),
+        reinterpret_cast<unsigned long long*>(peer[r]), r, rounds,
+        timeout_ns, ns);
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+  }
+  return 0;
 }
 
 // ---- the cross-process pull (pull_kernel) ---------------------------------

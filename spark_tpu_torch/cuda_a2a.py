@@ -33,15 +33,20 @@ cards of one host.  On one card ``all_to_all`` launches
 passed as a kernel parameter — built with ``nvcc`` at first use into
 ``build/kernels/`` and bound with ctypes — or raises; on CPU tensors it
 runs the plain PyTorch version (one ``torch.stack`` per plane).  On
-several cards ``all_to_all_cards`` makes one exchange as barrier → copy →
-barrier on every card's stream: the copy is the same kernel launched once
-on each receiving card, with the table ``a2a_card_plan`` cuts for it (its
-receivers only; its senders' buffers read where they are, over NVLink),
-and the barrier is ``barrier_kernel`` (``barrier``), the counterpart of
-the Pallas kernel's barrier semaphore.  Peer access between every pair
-of the cards is enabled first (``enable_peer_access``), or the call
-raises naming the pair; a barrier that times out raises at the next
-exchange or ``check_barriers``.  There is no fallback from one to the
+several cards ``all_to_all_cards`` makes one exchange as ONE launch of
+``exchange_kernel`` on every card's stream, with the table
+``a2a_card_plan`` cuts for that card: its receivers' copy items (its
+senders' buffers read where they are, over NVLink) and the order across
+cards that the Pallas kernel's barrier semaphore gave — the card arrives,
+each item waits for its own sender's card only, and the launch ends once
+every card reading this card's sources is done.  A card with no
+receivers (the gathers to card 0) launches with no copy items: it
+arrives and waits.  Peer access between every pair of the cards is
+enabled first (``enable_peer_access``), or the call raises naming the
+pair; a wait that times out raises at the next exchange or
+``check_barriers``.  ``barrier`` (``barrier_kernel``) is the separate
+barrier an exchange once took before and after its copy, kept to time
+that order against this one.  There is no fallback from one to the
 other: no host-staged copy, no CPU.
 
 A mesh query's stage-cache entry captures its exchanges into a CUDA
@@ -85,9 +90,9 @@ LAUNCHES = 0
 CAPTURED_LAUNCHES = 0
 REPLAYED_LAUNCHES = 0
 
-#: the same counts per card (keyed by the card's device index), copies
-#: only; ``*_BARRIERS`` count the barrier launches of a cross-card
-#: exchange (two per card each) the same way
+#: the same counts per card (keyed by the card's device index), launches
+#: with copy items only; ``*_BARRIERS`` count the cross-card exchanges'
+#: arrive-and-wait launches (a card with no receivers) the same way
 CARD_LAUNCHES: Counter = Counter()
 CARD_CAPTURED: Counter = Counter()
 CARD_REPLAYED: Counter = Counter()
@@ -95,9 +100,14 @@ CARD_BARRIERS: Counter = Counter()
 CARD_CAPTURED_BARRIERS: Counter = Counter()
 CARD_REPLAYED_BARRIERS: Counter = Counter()
 
-#: a barrier that waited this long for a peer gives up and sets its
-#: card's error word (the wrapper raises on it)
+#: a wait for a peer card (an arrival, a peer done reading, a barrier)
+#: that took this long gives up and sets its card's error word (the
+#: wrapper raises on it)
 BARRIER_TIMEOUT_S = 20.0
+
+#: int64 entries of the order across cards before its per-sender and
+#: per-card ones (the kernel's kCrossHead)
+CROSS_HEAD = 5
 
 #: set by the stage cache while it captures a mesh entry: ``fn(ptr)`` is
 #: True for an address a replay finds unchanged (the entry's static
@@ -133,6 +143,9 @@ def _bind(lib: ctypes.CDLL) -> None:
         "spark_barrier_read": [i, vp, vp],
         "spark_barrier_error_words": [i, ctypes.POINTER(vp)],
         "spark_barrier": [vp, i, i, vp, ll, vp],
+        "spark_barrier_state_bytes": [],
+        "spark_exchange_part": [vp, i, i, i, i, i, i, ll, vp],
+        "spark_flag_pingpong": [vp, vp, vp, vp, i, ll, vp],
         "spark_a2a_pull": [vp, i, i, i, ll, i, i, i, i, vp],
         "spark_ipc_handle_bytes": [],
         "spark_ipc_alloc": [i, ll, ctypes.POINTER(vp)],
@@ -297,40 +310,59 @@ def card_receivers(card_of: Sequence[int], card: int,
 
 
 def first_sender(n: int, d0: int, n_dst: int) -> int:
-    """The sender a card's launch starts from: the one after its own
-    receivers, so that the cards read from different senders at once (see
-    ``all_to_all_kernel``)."""
-    return (d0 + n_dst) % n
+    """The sender a card's launch starts from: its own first (a card's
+    senders are its receivers, ``d0 ..``), then the next card's, and so
+    on, so that at any moment the cards read from different senders (see
+    ``all_to_all_kernel``), and a card's first items wait for no other
+    card's arrival (``exchange_kernel``)."""
+    return d0 % n
 
 
 def a2a_card_plan(src: Sequence[Sequence[int]],
                   dst: Sequence[Sequence[Optional[int]]],
                   nbytes: Sequence[int], stride: Sequence[int],
                   card_of: Sequence[int],
-                  receivers: Optional[range] = None
-                  ) -> List[Tuple[int, int, List[int], int]]:
-    """Each card's launch of ``all_to_all_kernel``: per card ``c``,
-    ``(d0, n_dst, table, total)`` — its receivers ``d0 .. d0 + n_dst -
-    1``, its int64 table (laid out as in ``csrc/all_to_all.cu``) and its
-    number of work items (0: the card launches no copy); the launch takes
-    its senders from ``first_sender(n, d0, n_dst)`` on.
+                  receivers: Optional[range] = None,
+                  cross: Optional[Tuple[Sequence[int], Sequence[int], int]]
+                  = None) -> List[Tuple[int, int, List[int], int]]:
+    """Each card's launch: per card ``c``, ``(d0, n_dst, table, total)`` —
+    its receivers ``d0 .. d0 + n_dst - 1``, its int64 table (laid out as
+    in ``csrc/all_to_all.cu``) and its number of work items (0: the card
+    copies nothing); the launch takes its senders from
+    ``first_sender(n, d0, n_dst)`` on.
 
     ``src[k][s]`` is sender s's buffer of plane k (any card), ``dst[c][k]``
     card c's output of plane k (``(n_dst, n, ...)`` on card c),
     ``nbytes[k]`` one block's bytes and ``stride[k]`` the source stride
     over receivers (``nbytes[k]``, or 0 in the gather form).  Block
-    ``(k, s, d)`` goes to card ``card_of[d]`` alone."""
+    ``(k, s, d)`` goes to card ``card_of[d]`` alone.
+
+    Without ``cross`` the table is ``all_to_all_kernel``'s copy part.
+    With ``cross = (states, errors, timeout_ns)`` — each card's
+    ``BarrierState`` address and error word address, by card, and the
+    time limit of a wait — it is ``exchange_kernel``'s: the copy part,
+    then the order across cards: the number of cards, this card's rank,
+    its error word, the readers (bit c set when card c has receivers),
+    the limit, each sender's card and every card's state.  Every card
+    keeps its table then, a card without receivers one with no copy
+    items (an arrive-and-wait launch)."""
     n = len(card_of)
     P = len(nbytes)
+    n_cards = max(card_of) + 1
+    ranges = [card_receivers(card_of, c, receivers) for c in range(n_cards)]
+    readers = sum(1 << c for c, (_d0, n_dst) in enumerate(ranges) if n_dst)
     out = []
-    for c in range(max(card_of) + 1):
-        d0, n_dst = card_receivers(card_of, c, receivers)
+    for c, (d0, n_dst) in enumerate(ranges):
         first = [0]
         for bb in nbytes:
             first.append(first[-1] + n * n_dst * (-(-bb // CHUNK_BYTES)))
         table = [p for plane in src for p in plane]
         table += [dst[c][k] if n_dst else 0 for k in range(P)]
         table += list(nbytes) + list(stride) + first
+        if cross is not None:
+            states, errors, timeout_ns = cross
+            table += [n_cards, c, errors[c], readers, timeout_ns]
+            table += list(card_of) + list(states)
         if len(table) > MAX_TABLE_ENTRIES:
             raise ValueError(f"all_to_all: {P} planes of {n} participants "
                              f"need {len(table)} table entries; one launch "
@@ -340,16 +372,19 @@ def a2a_card_plan(src: Sequence[Sequence[int]],
 
 
 def a2a_table_blocks(table: Sequence[int], P: int, n: int, d0: int,
-                     n_dst: int, rot: int = 0) -> List[tuple]:
-    """What one card's launch copies, decoded as ``all_to_all_kernel``
-    decodes its table, its senders taken from ``rot`` on: per work item
-    ``(plane, sender, receiver, source address, destination address,
-    bytes)``."""
+                     n_dst: int, rot: int = 0,
+                     interleave: bool = False) -> List[tuple]:
+    """What one card's launch copies, in its order of work items, decoded
+    as ``all_to_all_kernel`` decodes its table (or, with ``interleave``,
+    ``exchange_kernel``: a plane's items chunk by chunk, each chunk's
+    receiver by receiver and sender by sender), its senders taken from
+    ``rot`` on: per work item ``(plane, sender, receiver, source address,
+    destination address, bytes)``."""
     src_ptr = table[:P * n]
     dst_ptr = table[P * n:P * n + P]
     bbs = table[P * n + P:P * n + 2 * P]
     stride = table[P * n + 2 * P:P * n + 3 * P]
-    first = table[P * n + 3 * P:]
+    first = table[P * n + 3 * P:P * n + 4 * P + 1]
     out = []
     for item in range(first[P]):
         k = 0
@@ -358,8 +393,12 @@ def a2a_table_blocks(table: Sequence[int], P: int, n: int, d0: int,
         bb = bbs[k]
         per = -(-bb // CHUNK_BYTES)
         local = item - first[k]
-        blk, ch = divmod(local, per)
-        i, r = divmod(blk, n_dst)
+        if interleave:
+            ch, rest = divmod(local, n * n_dst)
+            r, i = divmod(rest, n)
+        else:
+            blk, ch = divmod(local, per)
+            i, r = divmod(blk, n_dst)
         s = (i + rot) % n
         off = ch * CHUNK_BYTES
         out.append((k, s, d0 + r,
@@ -409,12 +448,18 @@ def enable_peer_access(devices: Sequence[torch.device]) -> None:
             _PEERS_ENABLED.add((a, b))
 
 
+#: addresses of allocations kept for the process's life (the barrier
+#: sets' states and error words): a captured launch may hold them
+_PROCESS_LIFETIME: set = set()
+
+
 class BarrierSet:
-    """The barrier state of one set of distinct cards (their device
-    indices in rank order): one zeroed state allocation per card and an
-    error word per card in mapped host memory, allocated once, outside
-    every graph pool, and kept for the process's life (graphs hold their
-    addresses)."""
+    """The order state of one set of distinct cards (their device indices
+    in rank order): one zeroed state allocation per card and an error word
+    per card in mapped host memory, allocated once, outside every graph
+    pool, and kept for the process's life (graphs hold their addresses).
+    The exchanges across these cards (``exchange_kernel``) and the
+    separate ``barrier_kernel`` share it."""
 
     def __init__(self, indices: Sequence[int]):
         self.indices = tuple(indices)
@@ -439,6 +484,19 @@ class BarrierSet:
                   "barrier error words")
         self.errors = ctypes.cast(words, ctypes.POINTER(ctypes.c_uint))
         self.error_base = int(words.value)
+        _PROCESS_LIFETIME.update(self.pointers())
+
+    def pointers(self) -> List[int]:
+        """Every card's state and error word address."""
+        return self.states + [self.error_base + 4 * r
+                              for r in range(len(self.indices))]
+
+    def cross(self, timeout_s: float) -> Tuple[List[int], List[int], int]:
+        """``a2a_card_plan``'s ``cross`` for this set: the states, the
+        error words and the time limit of a wait in ns."""
+        return (list(self.states),
+                [self.error_base + 4 * r for r in range(len(self.indices))],
+                int(timeout_s * 1e9))
 
     def failed(self) -> List[Tuple[int, int]]:
         """(rank, the peer rank it waited for) of each timed-out card."""
@@ -464,16 +522,31 @@ class BarrierSet:
                            f"after {BARRIER_TIMEOUT_S} s: {what}; the "
                            f"exchange's outputs are not valid")
 
-    def read(self, rank: int) -> Tuple[int, List[int]]:
-        """(epoch, the flag slot of each card) of card ``rank``'s state,
-        copied to the host (a synchronizing read, for checks)."""
-        words = _lib().spark_barrier_max_cards() + 1
-        host = (ctypes.c_ulonglong * words)()
-        _check_rc(_lib().spark_barrier_read(self.indices[rank],
-                                            self.states[rank], host),
+    def read_state(self, rank: int) -> Dict[str, object]:
+        """Card ``rank``'s state copied to the host (a synchronizing read,
+        for checks): its epoch, arrival ticket and failure mark, the
+        arrival and done slot of each card of the set, and the block
+        counter."""
+        lib = _lib()
+        m = lib.spark_barrier_max_cards()
+        host = (ctypes.c_ulonglong * -(-lib.spark_barrier_state_bytes()
+                                       // 8))()
+        _check_rc(lib.spark_barrier_read(self.indices[rank],
+                                         self.states[rank], host),
                   "barrier state read")
-        return int(host[words - 1]), [int(host[p]) for p in
-                                      range(len(self.indices))]
+        n = len(self.indices)
+        return {"epoch": int(host[m]),
+                "flags": [int(host[p]) for p in range(n)],
+                "done": [int(host[m + 1 + p]) for p in range(n)],
+                "arrived": int(host[2 * m + 1]),
+                "failed": int(host[2 * m + 2]),
+                "blocks": int(host[2 * m + 3]) & 0xffffffff}
+
+    def read(self, rank: int) -> Tuple[int, List[int]]:
+        """(epoch, the arrival slot of each card) of card ``rank``'s
+        state."""
+        st = self.read_state(rank)
+        return st["epoch"], st["flags"]
 
     def launch(self, rank: int, stream, timeout_s: float) -> None:
         rc = _lib().spark_barrier(
@@ -504,18 +577,16 @@ def check_barriers() -> None:
 
 
 def barrier(devices: Sequence[torch.device], streams: Sequence) -> None:
-    """One barrier over every card of ``devices``: ``barrier_kernel``
-    launched on each card's stream (``streams[c]``, that card current), all
-    before this returns.  Every card of the set must launch its barrier
-    the same number of times, in the same order of exchanges."""
+    """One separate barrier over every card of ``devices``:
+    ``barrier_kernel`` launched on each card's stream (``streams[c]``,
+    that card current), all before this returns.  Every card of the set
+    must launch it the same number of times, in the same order of
+    exchanges.  No exchange takes it: it times the order an exchange once
+    had (barrier, copy, barrier) against ``exchange_kernel``'s."""
     b = barrier_set(devices)
     for rank, (dev, st) in enumerate(zip(devices, streams)):
         with torch.cuda.device(dev):
             b.launch(rank, st, BARRIER_TIMEOUT_S)
-        capturing = _capturing(st)
-        CARD_BARRIERS[_index(dev)] += 1
-        if capturing:
-            CARD_CAPTURED_BARRIERS[_index(dev)] += 1
 
 
 def _capturing(stream) -> bool:
@@ -534,9 +605,11 @@ def all_to_all_cards(planes: Sequence[Sequence[torch.Tensor]],
     per plane, the ``(n_dst, n, ...)`` blocks of its receivers
     (``card_receivers``), or None for a card without one — what
     ``all_to_all_plain`` returns in its cross-device form, which CPU
-    tensors take.  On the cards: barrier, one copy launch per receiving
-    card on its stream (``streams[c]``, by default each card's current
-    stream), barrier; all enqueued before this returns."""
+    tensors take.  On the cards: one ``exchange_kernel`` launch per card
+    on its stream (``streams[c]``, by default each card's current
+    stream) — its copy items and the order across cards in one launch, an
+    arrive-and-wait launch where the card receives nothing — all enqueued
+    before this returns."""
     global LAUNCHES, CAPTURED_LAUNCHES
     n = _check(planes, gather, one_device=False)
     if len(card_of) != n:
@@ -555,7 +628,8 @@ def all_to_all_cards(planes: Sequence[Sequence[torch.Tensor]],
     if streams is None:
         streams = [torch.cuda.current_stream(d) for d in devices]
     enable_peer_access(devices)
-    barrier_set(devices).check()
+    order = barrier_set(devices)
+    order.check()
     outs: List[Optional[List[torch.Tensor]]] = []
     ranges = [card_receivers(card_of, c, receivers)
               for c in range(len(devices))]
@@ -576,47 +650,54 @@ def all_to_all_cards(planes: Sequence[Sequence[torch.Tensor]],
     src = [[x.data_ptr() for x in shards] for shards in planes]
     dst = [[o.data_ptr() for o in out] if out is not None else None
            for out in outs]
-    plan = a2a_card_plan(src, dst, nbytes, stride, card_of, receivers)
+    plan = a2a_card_plan(src, dst, nbytes, stride, card_of, receivers,
+                         cross=order.cross(BARRIER_TIMEOUT_S))
     capturing = _capturing(streams[0])
     if capturing:
         _check_captured_pointers(
             [p for plane in src for p in plane]
-            + [p for out in dst if out is not None for p in out])
+            + [p for out in dst if out is not None for p in out]
+            + order.pointers())
     lib = _lib()
-    barrier(devices, streams)
     for (d0, n_dst, table, total), dev, st in zip(plan, devices, streams):
-        if not total:
-            continue
         buf = (ctypes.c_longlong * len(table))(*table)
         with torch.cuda.device(dev):
-            rc = lib.spark_all_to_all_part(buf, len(table), len(planes), n,
-                                           d0, n_dst,
-                                           first_sender(n, d0, n_dst), total,
-                                           st.cuda_stream)
+            rc = lib.spark_exchange_part(buf, len(table), len(planes), n,
+                                         d0, n_dst,
+                                         first_sender(n, d0, n_dst)
+                                         if n_dst else 0, total,
+                                         st.cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"all_to_all kernel failed on {dev}: CUDA "
+            raise RuntimeError(f"exchange kernel failed on {dev}: CUDA "
                                f"error {rc} (planes={len(planes)}, n={n}, "
                                f"receivers {d0}..{d0 + n_dst - 1}, "
                                f"items={total})")
+        card = _index(dev)
+        if not total:
+            CARD_BARRIERS[card] += 1
+            if capturing:
+                CARD_CAPTURED_BARRIERS[card] += 1
+            continue
         LAUNCHES += 1
-        CARD_LAUNCHES[_index(dev)] += 1
+        CARD_LAUNCHES[card] += 1
         if capturing:
             CAPTURED_LAUNCHES += 1
-            CARD_CAPTURED[_index(dev)] += 1
-    barrier(devices, streams)
+            CARD_CAPTURED[card] += 1
     return outs
 
 
 def _check_captured_pointers(pointers: Sequence[int]) -> None:
     """Under a capture the launch's pointer table is frozen into the
     graph: every pointer in it must be to memory whose address a replay
-    finds unchanged (``CAPTURE_SOURCES``), or the capture raises."""
+    finds unchanged — the entry's (``CAPTURE_SOURCES``), or an
+    allocation kept for the process's life (a barrier set's states and
+    error words) — or the capture raises."""
     ok = CAPTURE_SOURCES
     if ok is None:
         raise RuntimeError(
             "all_to_all: captured outside a mesh stage-cache entry; its "
             "pointer table would freeze addresses nothing keeps")
-    bad = [p for p in pointers if not ok(p)]
+    bad = [p for p in pointers if p not in _PROCESS_LIFETIME and not ok(p)]
     if bad:
         raise RuntimeError(
             f"all_to_all: a captured launch reads or writes "

@@ -249,6 +249,19 @@ class DistributedExecution:
 
     MAX_ADAPT = ADAPT_MAX_RETRIES
 
+    def live_view(self):
+        """The process set this executor would serve after a failure:
+        ``cluster.live_view`` over the session's heartbeat verdicts and
+        the host shuffle's agreed-lost set (``recovered_pids``).  Only
+        observational: a mesh program cannot drop a shard mid-collective;
+        the cross-process lanes (``crossproc``) re-plan over this set."""
+        from .cluster import live_view as _lv
+        svc = getattr(self.session, "_crossproc_svc", None)
+        hb = getattr(svc, "heartbeat", None) if svc is not None else None
+        dead = hb.dead_hosts() if hb is not None else ()
+        gone = sorted(svc.recovered_pids) if svc is not None else ()
+        return _lv(self.n, dead, gone)
+
     def execute(self, optimized: LogicalPlan) -> ColumnBatch:
         """Run with adaptive capacity retry: when an exchange bucket or a
         join output overflows its static capacity, replan with factors

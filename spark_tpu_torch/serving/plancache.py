@@ -105,14 +105,19 @@ _SLOT_DTYPES = (T.BooleanType, T.ByteType, T.ShortType, T.IntegerType,
 #: evicts plan-cache entries built under the old value.  The reference's
 #: list, restricted to the entries this package has.
 PLANNING_CONF_ENTRIES = (
-    C.CODEGEN_ENABLED, C.MESH_SHARDS, C.AUTO_BROADCAST_JOIN_THRESHOLD,
-    C.JOIN_OUTPUT_FACTOR, C.AGG_OUTPUT_ROWS, C.JOIN_OUTPUT_MAX_ROWS,
-    C.CASE_SENSITIVE, C.ADAPTIVE_ENABLED, C.METRICS_ENABLED,
-    C.EXCHANGE_SKEW_FACTOR, C.COLLECT_MAX_LEN,
+    C.CODEGEN_ENABLED, C.MESH_SHARDS, C.BATCH_CAPACITY,
+    C.AUTO_BROADCAST_JOIN_THRESHOLD, C.JOIN_OUTPUT_FACTOR,
+    C.AGG_OUTPUT_ROWS, C.JOIN_OUTPUT_MAX_ROWS, C.SHUFFLE_PARTITIONS,
+    C.CASE_SENSITIVE, C.SESSION_TIME_ZONE, C.ADAPTIVE_ENABLED,
+    C.METRICS_ENABLED, C.EXCHANGE_SKEW_FACTOR, C.COLLECT_MAX_LEN,
+    C.CROSS_JOIN_ENABLED, C.AGG_FOLD_ROWS,
     # the out-of-core boundary, and where catalog tables resolve to
     C.SCAN_MAX_BATCH_ROWS, C.MULTIBATCH_ENABLED, C.WAREHOUSE_DIR,
     # whole-stage fusion toggles the fused-vs-per-op execution shape
     C.STAGE_FUSION,
+    # run planes flip the stage-boundary leaf form (compressed plane vs
+    # dense materialization) and with it the stage's shapes
+    C.STAGE_RUN_PLANES,
 )
 
 #: the cross-process exchange's shaping confs: fine-partition count,

@@ -707,6 +707,18 @@ class QueryExecution:
         self.session._last_qe = self      # metrics/explain introspection
         self.session._query_count += 1
         session = self.session
+        # the executing session is this thread's active one for the
+        # query's duration (SparkSession.getActiveSession), restored after
+        cls = type(session)
+        prev_active = getattr(cls._tls, "active", None)
+        cls._set_thread_active(session)
+        try:
+            return self._execute_with_events()
+        finally:
+            cls._set_thread_active(prev_active)
+
+    def _execute_with_events(self) -> ColumnBatch:
+        session = self.session
         if not session._events_wanted():
             return self._execute_inner()
         # the listener bus: one SQLExecutionStart / SQLExecutionEnd pair

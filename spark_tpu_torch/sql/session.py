@@ -17,6 +17,7 @@ import glob as _glob
 import json
 import os
 import shutil
+import threading
 from typing import Any, Dict, List, Optional, Union
 
 import torch
@@ -316,6 +317,11 @@ class Builder:
         self._options[key] = value
         return self
 
+    def enableHiveSupport(self) -> "Builder":
+        """Accepted and ignored, as in the reference: the catalog's
+        persistent half is always on."""
+        return self
+
     def getOrCreate(self) -> "SparkSession":
         opts = dict(self._options)
         if SparkSession._active is None:
@@ -337,6 +343,7 @@ class Builder:
 
 class SparkSession:
     _active: Optional["SparkSession"] = None
+    _tls = threading.local()         # per-thread executing session
 
     class _BuilderAccessor:
         def __get__(self, obj, objtype=None) -> Builder:
@@ -391,6 +398,17 @@ class SparkSession:
             self._metrics_system.register_source(src)
         # pyspark semantics: constructing a session makes it the active one
         SparkSession._active = self
+
+    @classmethod
+    def getActiveSession(cls) -> Optional["SparkSession"]:
+        """The session executing a query on this thread (set per query by
+        ``QueryExecution.execute``), else the last session built."""
+        tls = getattr(cls._tls, "active", None)
+        return tls if tls is not None else cls._active
+
+    @classmethod
+    def _set_thread_active(cls, session) -> None:
+        cls._tls.active = session
 
     @property
     def memoryManager(self):

@@ -1069,11 +1069,14 @@ def test_planning_conf_coverage_complete():
 @pytest.mark.parametrize("key,val", [
     ("spark.tpu.shuffle.finePartitionsPerProc", "9"),
     ("spark.tpu.crossproc.dedupReplicated", "false"),
+    ("spark.sql.shuffle.partitions", "16"),
+    ("spark.sql.session.timeZone", "Asia/Tokyo"),
 ])
 def test_set_planning_conf_invalidates_plan_cache(key, val, tmp_path):
-    """A SET of a cross-process planning conf evicts the port's plan
-    cache entries built under the old value (they were not in its
-    fingerprint before), and the answer is unchanged."""
+    """A SET of a planning conf (cross-process ones, and the reference's
+    shuffle partitions and time zone) evicts the port's plan cache
+    entries built under the old value (they were not in its fingerprint
+    before), and the answer is unchanged."""
     from spark_tpu_torch import config as TC
     from spark_tpu_torch.serving.plancache import PlanCache
     from spark_tpu_torch.sql.session import SparkSession

@@ -93,47 +93,64 @@ def test_cpu_session_keeps_every_shard_on_the_cpu():
 # (b) K2's per-card plan
 # ---------------------------------------------------------------------------
 
-def _plan_blocks(plan, P, n):
+def _plan_blocks(plan, P, n, interleave=False):
     """Every (plane, sender, receiver) block the per-card tables copy,
-    with the card that copies it and the bytes it covers."""
+    with the card that copies it and the bytes it covers (``interleave``:
+    the fused launch's order of items)."""
     got = {}
     for c, (d0, n_dst, table, total) in enumerate(plan):
         assert len(table) * 8 <= 32764 - 8     # the kernel's parameter room
         blocks = cuda_a2a.a2a_table_blocks(
-            table, P, n, d0, n_dst, cuda_a2a.first_sender(n, d0, n_dst)) \
-            if total else []
+            table, P, n, d0, n_dst, cuda_a2a.first_sender(n, d0, n_dst),
+            interleave) if total else []
         assert len(blocks) == total
         for k, s, d, src, dst, nb in blocks:
             got.setdefault((k, s, d), []).append((c, src, dst, nb))
     return got
 
 
+@pytest.mark.parametrize("interleave", [False, True])
 @pytest.mark.parametrize("n,cards", [(4, 4), (8, 4), (4, 2)])
-def test_cards_start_from_different_senders(n, cards):
+def test_cards_start_from_different_senders(n, cards, interleave):
     """Each card's first blocks come from a sender no other card starts
-    with, and from another card than its own."""
+    with, and from its own card: the fused launch's first items wait for
+    no other card's arrival.  Block by block (``all_to_all_kernel``) a
+    card takes its senders one after another from there; chunk by chunk
+    (``exchange_kernel``, ``interleave``) every round of n items holds
+    every sender once, in that order."""
     card_of = tmesh.shard_cards(n, cards)
     C = max(card_of) + 1
     src = [[s << 40 for s in range(n)]]
-    plan = cuda_a2a.a2a_card_plan(src, [[1 << 60]] * C, [64], [64], card_of)
+    big = 3 * cuda_a2a.CHUNK_BYTES
+    plan = cuda_a2a.a2a_card_plan(src, [[1 << 60]] * C, [big], [big],
+                                  card_of)
     firsts = []
     for d0, n_dst, table, total in plan:
         rot = cuda_a2a.first_sender(n, d0, n_dst)
-        blocks = cuda_a2a.a2a_table_blocks(table, 1, n, d0, n_dst, rot)
+        blocks = cuda_a2a.a2a_table_blocks(table, 1, n, d0, n_dst, rot,
+                                           interleave)
         firsts.append(blocks[0][1])
-        assert [b[1] for b in blocks[::n_dst]] == \
-            [(rot + i) % n for i in range(n)]
+        want = [(rot + i) % n for i in range(n)]
+        if interleave:
+            rounds = [blocks[j:j + n] for j in range(0, len(blocks), n)]
+            assert all([b[1] for b in rnd] == want for rnd in rounds)
+        else:
+            per = -(-big // cuda_a2a.CHUNK_BYTES)
+            assert [b[1] for b in blocks[::n_dst * per]] == want
     assert len(set(firsts)) == C
-    assert all(card_of[f] != c for c, f in enumerate(firsts))
+    assert all(card_of[f] == c for c, f in enumerate(firsts))
 
 
 @settings(max_examples=60, deadline=None)
 @given(n=st.integers(1, 8), cards=st.integers(1, 8),
        sizes=st.lists(st.integers(0, 3 * cuda_a2a.CHUNK_BYTES + 17),
                       min_size=1, max_size=6),
-       gather=st.booleans(), root=st.booleans())
+       gather=st.booleans(), root=st.booleans(), cross=st.booleans())
 def test_card_plan_covers_every_block_once_on_its_receivers_card(
-        n, cards, sizes, gather, root):
+        n, cards, sizes, gather, root, cross):
+    """With the order across cards in the tables (``cross``, the fused
+    launch's) or without, every block is copied once, on its receiver's
+    card."""
     card_of = tmesh.shard_cards(n, cards)
     C = max(card_of) + 1
     P = len(sizes)
@@ -145,8 +162,9 @@ def test_card_plan_covers_every_block_once_on_its_receivers_card(
     stride = [0 if gather else nb for nb in sizes]
     receivers = range(1) if root else None
     plan = cuda_a2a.a2a_card_plan(src, dst, sizes, stride, card_of,
-                                  receivers)
-    got = _plan_blocks(plan, P, n)
+                                  receivers,
+                                  _fake_cross(C) if cross else None)
+    got = _plan_blocks(plan, P, n, interleave=cross)
     want_d = list(receivers) if root else list(range(n))
     for k, nb in enumerate(sizes):
         for s in range(n):
@@ -167,13 +185,99 @@ def test_card_plan_covers_every_block_once_on_its_receivers_card(
                     assert b == dst[c][k] + ((d - d0) * n + s) * nb + off
 
 
-def test_card_plan_holds_the_table_limit():
-    n, P = 8, 400
+def _fake_cross(C, timeout_ns=7_000_000):
+    """A barrier set's ``cross`` with distinct fake addresses: card c's
+    state at (3 << 56) + (c << 20), its error word at (5 << 56) + 4c."""
+    return ([(3 << 56) + (c << 20) for c in range(C)],
+            [(5 << 56) + 4 * c for c in range(C)], timeout_ns)
+
+
+@pytest.mark.parametrize("P,cross,fits", [(400, False, False),
+                                          (400, True, False),
+                                          (340, False, True),
+                                          (340, True, False)])
+def test_card_plan_holds_the_table_limit(P, cross, fits):
+    """One launch's table holds 4,088 entries, the order across cards
+    included: 340 planes of 8 senders fit alone (4,081) and not with it
+    (4,098)."""
+    n = 8
     card_of = tmesh.shard_cards(n, 4)
     src = [[0] * n for _ in range(P)]
-    with pytest.raises(ValueError, match="table entries"):
-        cuda_a2a.a2a_card_plan(src, [[0] * P] * 4, [16] * P, [16] * P,
-                               card_of)
+
+    def plan():
+        return cuda_a2a.a2a_card_plan(src, [[0] * P] * 4, [16] * P,
+                                      [16] * P, card_of,
+                                      cross=_fake_cross(4) if cross
+                                      else None)
+    if fits:
+        assert all(len(t) <= cuda_a2a.MAX_TABLE_ENTRIES
+                   for _d0, _n, t, _tot in plan())
+    else:
+        with pytest.raises(ValueError, match="table entries"):
+            plan()
+
+
+@pytest.mark.parametrize("n,cards,root", [(4, 4, True), (4, 4, False),
+                                          (8, 4, True), (4, 2, True),
+                                          (2, 2, False), (3, 3, True)])
+def test_card_plan_order_entries_per_card(n, cards, root):
+    """The fused launch's table on every card, a card with no receivers
+    included (its copy part holds no item): after the copy part, the
+    number of cards, the card's rank, its error word, the readers (the
+    cards with receivers), the time limit, each sender's card and every
+    card's state — the flag slots and epoch the kernel signals and
+    waits on."""
+    card_of = tmesh.shard_cards(n, cards)
+    C = max(card_of) + 1
+    P = 2
+    src = [[((k * n + s) << 40) for s in range(n)] for k in range(P)]
+    dst = [[(1 << 60) + ((c * P + k) << 40) for k in range(P)]
+           for c in range(C)]
+    sizes = [96, 70_001]
+    receivers = range(1) if root else None
+    cross = _fake_cross(C)
+    states, errors, timeout_ns = cross
+    plain = cuda_a2a.a2a_card_plan(src, dst, sizes, sizes, card_of,
+                                   receivers)
+    fused = cuda_a2a.a2a_card_plan(src, dst, sizes, sizes, card_of,
+                                   receivers, cross)
+    assert len(fused) == C
+    readers = [c for c in range(C)
+               if cuda_a2a.card_receivers(card_of, c, receivers)[1]]
+    assert readers == ([0] if root else list(range(C)))
+    mask = sum(1 << c for c in readers)
+    head = P * n + 4 * P + 1
+    for c, ((d0, n_dst, table, total), (pd0, pn, ptable, ptotal)) in \
+            enumerate(zip(fused, plain)):
+        assert (d0, n_dst, total) == (pd0, pn, ptotal)
+        assert table[:head] == ptable
+        assert table[head - 1] == total
+        assert (total == 0) == (c not in readers)
+        assert table[head:head + cuda_a2a.CROSS_HEAD] == \
+            [C, c, errors[c], mask, timeout_ns]
+        rest = table[head + cuda_a2a.CROSS_HEAD:]
+        assert rest == list(card_of) + states
+        assert len(table) == head + cuda_a2a.CROSS_HEAD + n + C
+
+
+@pytest.mark.parametrize("lifetime,entry,ok", [
+    (True, False, True), (False, True, True), (False, False, False)])
+def test_captured_table_pointers_must_outlive_the_graph(monkeypatch,
+                                                        lifetime, entry,
+                                                        ok):
+    """A captured launch's table freezes its pointers, the flag states
+    and error words of the order across cards included: each must be the
+    entry's memory or an allocation kept for the process's life (a
+    barrier set's), or the capture raises."""
+    addr = 0x7f00_0000_1000
+    monkeypatch.setattr(cuda_a2a, "_PROCESS_LIFETIME",
+                        {addr} if lifetime else set())
+    monkeypatch.setattr(cuda_a2a, "CAPTURE_SOURCES", lambda p: entry)
+    if ok:
+        cuda_a2a._check_captured_pointers([addr])
+    else:
+        with pytest.raises(RuntimeError, match="outside the entry"):
+            cuda_a2a._check_captured_pointers([addr])
 
 
 # ---------------------------------------------------------------------------

@@ -165,7 +165,7 @@ def test_diverged_mesh_replay_raises(tspark):
 
 
 @pytest.mark.parametrize("ties", [False, True])
-@pytest.mark.parametrize("n_shards", [2, 4, 8])
+@pytest.mark.parametrize("n_shards", [1, 2, 3, 4, 5, 8, 9, 16, 32, 33])
 def test_lpt_assign_plain_matches_reference(n_shards, ties):
     """``lpt_assign``'s plain version against the reference's
     ``balanced_assignment`` (its ``lax.fori_loop``), inside a replay run
@@ -188,6 +188,27 @@ def test_lpt_assign_plain_matches_reference(n_shards, ties):
     assert ta.dtype == torch.int32
     assert np.array_equal(np.asarray(ra), ta.numpy())
     assert np.array_equal(np.asarray(rl), tl.numpy())
+
+
+@pytest.mark.parametrize("ties", ["none", "some", "all"])
+@pytest.mark.parametrize("n_fine", [1, 7, 128, 512, 513])
+def test_lpt_rank_plain_matches_reference_argsort(n_fine, ties):
+    """The kernel's in-block ranking (each bucket counts the buckets
+    heavier than it, or as heavy with a lower index), in its plain
+    PyTorch twin, is the reference's ``jnp.argsort(-counts)``: the stable
+    heaviest-first order."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(n_fine + {"none": 0, "some": 1, "all": 2}[ties])
+    if ties == "all":
+        counts = np.full(n_fine, 3, np.int64)
+    elif ties == "some":
+        counts = rng.integers(0, 4, n_fine).astype(np.int64)
+    else:
+        counts = rng.permutation(n_fine).astype(np.int64) * 7
+    want = np.asarray(jnp.argsort(-jnp.asarray(counts)))
+    got = cuda_lpt.lpt_rank_plain(torch.from_numpy(counts))
+    assert got.dtype == torch.int64
+    assert np.array_equal(got.numpy(), want)
 
 
 def test_shard_records_replay_per_shard_under_thread_switch_stress():

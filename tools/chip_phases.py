@@ -8,7 +8,7 @@ entries of the kernels line from its kernel check.
     python3 tools/chip_phases.py pool pool pool pool stream
 
 Phases: ``mesh`` (the mesh lane's three queries at 4 shards, captured,
-then ``lpt_assign``'s check), ``pool``, ``stream``, ``analysis``,
+then K2's and ``lpt_assign``'s checks), ``pool``, ``stream``, ``analysis``,
 ``ml``, ``cards`` (shards on several cards, phase 23, which needs two
 cards or more, run on a host with four; it prints its kernels line).  K1's kernel
 check runs first unless ``cards`` alone is named.  The last line is a
@@ -28,8 +28,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import chip_smoke as CS  # noqa: E402
 
 def _mesh(c):
-    _captured, _k2, numbers, lpt_inputs, lpt_launches = CS.phase_mesh(
+    captured, k2, numbers, lpt_inputs, lpt_launches = CS.phase_mesh(
         c["session"], c["hash_df"], c["hash_table"], c["q3_df"], c["tables"])
+    CS.phase_k2_check(captured, k2)
+    del captured
     CS.phase_lpt_check(lpt_inputs, lpt_launches,
                        {n: m["lpt_replayed"] for n, m in numbers.items()})
 
