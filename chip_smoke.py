@@ -4,7 +4,7 @@ on several cards of one host where more than one is visible.
 
     python3 chip_smoke.py [--cards N]
 
-``--cards N`` makes fewer than N visible cards a failure; phase 23 runs
+``--cards N`` makes fewer than N visible cards a failure; phase 24 runs
 when at least two are visible (``python3 tools/chip_phases.py cards`` runs
 it alone, on a host with four cards).
 
@@ -389,7 +389,34 @@ without printing a result:
     over a parquet copy of hash_t in a process of its own on the card,
     its table equal to this process's ``show``.  The phase prints its
     seconds;
-22. ml — RDD, ML and GraphX (``spark_tpu_torch/rdd/``, ``ml/``,
+22. adaptive — adaptive execution across processes
+    (``parallel/crossproc.py``'s stats round, re-decision, feedback and
+    demoted gather): (a) two ``cuda`` workers (``python -m
+    spark_tpu_torch.testing adaptive-worker <pid> 2 <dir> card``) over
+    q3's SF1 tables, every one partitioned, and the skew battery's shape
+    at 2^20 probe rows (16 keys, key 3's strings 280 characters) and 256
+    build rows, under the default cross-process conf
+    (``autoBroadcastThreshold`` 1 MiB, ``adaptiveReplan`` true) with the
+    hash lane pinned, run the JAX package's adaptive battery: a hash join
+    whose ``d_moy = 11`` side of date_dim demotes to a broadcast at the
+    stats barrier, the same text again decided at plan time from the
+    recorded feedback, the range lane's demotion (``d_moy = 12``), the
+    frozen control (``adaptiveReplan`` false), the post-sample skew
+    re-split and partial-aggregate pushdown below a shuffled join (and
+    its unpushed gather); every answer equal bit for bit to this
+    process's single-process answer and every counter delta what the JAX
+    package's worker asserts; each text's warm walls adaptive and frozen
+    in turns (the skew text once each), their time split and the stats
+    round's ms printed; (b) the frozen and
+    pushdown texts again with the device tier on: cold with every K2
+    pull held bit-exact against ``pull_plain``, then warm (no pull
+    fails the phase); every K1 launch outside a capture bit-exact against
+    its plain version; (c) the matrix rows ``mid-demotion-kill``,
+    ``spill-disk-full``, ``ici-unavailable-fallback`` and
+    ``ici-die-mid-device-copy-noretry`` on the card, all at once, each
+    verdict and its seconds printed.  The phase prints its seconds
+    (``python3 tools/chip_phases.py adaptive`` runs it alone);
+23. ml — RDD, ML and GraphX (``spark_tpu_torch/rdd/``, ``ml/``,
     ``graphx/``) with the listener bus, the event log, the history page
     (``ui.py``) and the CSV metric sink, on a session whose
     ``spark.eventLog.dir`` and ``spark.tpu.metrics.csv.dir`` are set
@@ -413,7 +440,7 @@ without printing a result:
     prints its wall (median of 3 after a warm-up; the word count once),
     one profiled run's device ms per op and the bytes held on the card,
     and its oracle's ms; the phase prints its seconds;
-23. cards — with two or more cards visible (on one it prints ``[cards]
+24. cards — with two or more cards visible (on one it prints ``[cards]
     not run: 1 card visible``): (1) each card's name and power limit and
     the peer-access matrix (a pair without it fails); the fused
     exchange's arrive-and-wait alone (the guards' gather to card 0, 200
@@ -446,7 +473,7 @@ without printing a result:
     ``crossproc`` workers on ``cuda:0`` and ``cuda:1`` run q93's hash lane
     on the device tier in one domain, every pull bit-exact, then the pull
     alone over NVLink from an idle card, its sentinel bytes kept;
-24. a ``{"kernels": [...]}`` line (each kernel's ``sql_launches``: its
+25. a ``{"kernels": [...]}`` line (each kernel's ``sql_launches``: its
    launches in the SQL phase's counted run; ``breadth_launches``: K1's in
    the breadth phase's graph-lane run, K2's in its window text at 4
    shards; ``complex_launches``: K1's in the complex phase's graph-lane
@@ -479,8 +506,10 @@ without printing a result:
    (``pull``), its launches K2's ``ici_launches`` and its times the
    idle-peer pull's; ``analysis_launches``: K1's in [analysis] (a), the
    pull's in (b)'s two clean runs of both workers, K2's all-to-all's
-   there (0); ``ml_launches``: K1's in [ml] (a) (2 through the columns
-   entry), K2's and the pull's in the whole [ml] phase (0); each
+   there (0); ``adaptive_launches``: K1's in the [adaptive] workers, the
+   pull's in (b) of both workers; ``ml_launches``: K1's in [ml] (a) (2
+   through the columns entry), K2's and the pull's in the whole [ml]
+   phase (0); each
    counted from 0 just
    before that run; K1's ``captured_launches``: those of its launches made while a
    graph was captured, and ``replayed_launches``: its launches the
@@ -492,7 +521,7 @@ without printing a result:
    ``lpt_assign`` entry, its ``launches`` the wrapper's in the mesh
    queries' first runs (warm-up and capture) and its replayed launches
    per query; on several cards also ``k2_cards``, ``barrier`` and
-   ``pull_cards`` from phase 23),
+   ``pull_cards`` from phase 24),
    the card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Every profile line gives, beside the largest kernels, each hand-written
@@ -4655,8 +4684,8 @@ def _ici_recovery(session, spec, want_q93):
     try:
         with open(os.path.join(root, "spec.json"), "w") as f:
             json.dump(dict(spec, heartbeat=ICI_HEARTBEAT), f)
-        sc = _scenario("ici-die", "recovery-worker", "card-ici", 2,
-                       ICI_TIMEOUT_S,
+        sc = _scenario("ici-die", "mid-device-copy", "recovery-worker",
+                       "card-ici", 2, ICI_TIMEOUT_S,
                        {1: lambda: P().die_mid_device_copy("xq000003-jL")},
                        {0: "OK", 1: "DIED"})
         box = {}
@@ -4990,7 +5019,8 @@ def phase_recovery(session, k1_entries, k2_entry):
         try:
             with open(os.path.join(root, "spec.json"), "w") as f:
                 json.dump(spec, f)
-            sc = _scenario(key, "recovery-worker", mode, 2,
+            sc = _scenario(key, "post-register" if key == "c"
+                           else "mid-fetch", "recovery-worker", mode, 2,
                            RECOVERY_TIMEOUT_S, {1: plan},
                            {0: verdict, 1: "DIED"})
             box = {}
@@ -6058,6 +6088,242 @@ def phase_analysis(session, hash_table, tables, k1_entries, k2_entry,
           flush=True)
 
 
+#: [adaptive]: two workers over q3's SF1 tables, their exchange timeout,
+#: the skew shape at card size (the build side cut to 16 rows a key: at
+#: the probe's 2^20 rows over 16 keys, 2^18 build rows would make 2^34
+#: joined rows) and the matrix rows whose code reaches the card
+ADAPTIVE_WORKERS = 2
+ADAPTIVE_TIMEOUT_S = 60.0
+ADAPTIVE_WORKER_DEVICE = "cuda"
+ADAPTIVE_SKEW = {"probe": 1 << 20, "build": 1 << 8, "keys": 16,
+                 "fat_key": 3}
+ADAPTIVE_CHAOS = ("mid-demotion-kill", "spill-disk-full",
+                  "ici-unavailable-fallback",
+                  "ici-die-mid-device-copy-noretry")
+
+
+def _adaptive_workers(root, n):
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    procs = []
+    for pid in range(n):
+        log = open(os.path.join(root, f"log-p{pid}.txt"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "spark_tpu_torch.testing",
+             "adaptive-worker", str(pid), str(n), root, "card",
+             str(ADAPTIVE_TIMEOUT_S), ADAPTIVE_WORKER_DEVICE],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=here), log))
+    return procs
+
+
+def _adaptive_chaos():
+    """(c): the matrix rows of ``ADAPTIVE_CHAOS`` on the card, all at
+    once (each its own pair of ``cuda`` workers and root), each held to
+    its verdicts within ``3 x timeout + 30`` s."""
+    import concurrent.futures
+    from spark_tpu_torch.testing import (chaos_scenario, check_scenario,
+                                         run_scenario)
+    parent = tempfile.mkdtemp(prefix="chip_smoke_chaos_")
+
+    def one(name):
+        sc = chaos_scenario(name)
+        results, elapsed = run_scenario(sc, os.path.join(parent, name),
+                                        ADAPTIVE_WORKER_DEVICE)
+        return sc, results, elapsed, check_scenario(sc, results, elapsed)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(ADAPTIVE_CHAOS)) \
+                as pool:
+            runs = list(pool.map(one, ADAPTIVE_CHAOS))
+    finally:
+        shutil.rmtree(parent, ignore_errors=True)
+    for sc, results, elapsed, bad in runs:
+        tails = {pid: out.strip().splitlines()[-1:]
+                 for pid, (_rc, out) in results.items()}
+        check(not bad, f"[adaptive] (c) {sc['name']}: {bad}; {tails}")
+        verdicts = ", ".join(f"p{pid} {want}" for pid, want
+                             in sc["expect"].items())
+        print(f"[adaptive] (c) {sc['name']} (phase {sc['phase']}, "
+              f"timeout {sc['timeout_s']:.0f} s): {verdicts} in "
+              f"{elapsed:.1f} s (bound {3 * sc['timeout_s'] + 30:.0f} s): "
+              f"PASS; last lines {tails}", flush=True)
+
+
+def phase_adaptive(session, k1_entries, pull_entry):
+    """Adaptive execution across processes on the card (see the module's
+    docstring, 22): (a) the six scenarios of the JAX package's adaptive
+    battery in two ``cuda`` workers over q3's SF1 tables and the skew
+    shape, each equal to this process's single-process answer with the
+    JAX package worker's counter deltas, and each text's warm walls
+    adaptive and frozen in turns; (b) the frozen and pushdown texts on
+    the device tier, every cold K2 pull and K1 launch bit-exact; (c)
+    four matrix rows on the card."""
+    import torch
+    from spark_tpu_torch import types as T
+    from spark_tpu_torch.testing import (ADAPTIVE_CARD_TEXTS,
+                                         ADAPTIVE_SCENARIOS,
+                                         adaptive_counter_problems,
+                                         jsonable_rows,
+                                         register_adaptive_card_tables)
+
+    t_phase = time.perf_counter()
+    n = ADAPTIVE_WORKERS
+    root = tempfile.mkdtemp(prefix="chip_smoke_adaptive_")
+    procs = []
+    try:
+        free, _total = torch.cuda.mem_get_info()
+        budget = int(free * 0.8) // n
+        spec = {"q3": Q3_ROWS, "skew": ADAPTIVE_SKEW,
+                "conf": {"spark.tpu.memory.hbmBudget": str(budget)}}
+        with open(os.path.join(root, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        t0 = time.perf_counter()
+        procs = _adaptive_workers(root, n)
+        # the single-process answers on this process's card session,
+        # while the workers start and register their shares
+        one = session.newSession()
+        register_adaptive_card_tables(one, T, spec)
+        want = {k: jsonable_rows(tuple(r) for r in one.sql(sql).collect())
+                for k, sql in ADAPTIVE_CARD_TEXTS.items()}
+        one.stop()
+        with open(os.path.join(root, "want.json.tmp"), "w") as f:
+            json.dump(want, f)
+        os.replace(os.path.join(root, "want.json.tmp"),
+                   os.path.join(root, "want.json"))
+        answers_s = time.perf_counter() - t0
+        deadline = time.monotonic() + 600
+        for p, _log in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        workers_s = time.perf_counter() - t0
+        results = []
+        for pid, (p, log) in enumerate(procs):
+            log.close()
+            with open(os.path.join(root, f"log-p{pid}.txt")) as f:
+                text = f.read()
+            check(p.returncode == 0, f"[adaptive] worker {pid} exited "
+                  f"{p.returncode}:\n{text[-4000:]}")
+            with open(os.path.join(root, f"result-p{pid}.json")) as f:
+                results.append(json.load(f))
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        shutil.rmtree(root, ignore_errors=True)
+    setup = ", ".join(f"{r['setup_ms']:.0f}" for r in results)
+    print(f"[adaptive] {n} worker processes on the card (device memory "
+          f"budget {budget} B each), default cross-process conf "
+          f"(autoBroadcastThreshold 1 MiB, adaptiveReplan true) with the "
+          f"hash lane pinned (sortMergeJoin false): workers done in "
+          f"{workers_s:.2f} s (table setup {setup} ms); the "
+          f"single-process answers took {answers_s:.2f} s beside them "
+          f"({', '.join(f'{k} {len(v)} rows' for k, v in want.items())})",
+          flush=True)
+    for name, text, _asserts in ADAPTIVE_SCENARIOS:
+        runs = [r["scenarios"][name] for r in results]
+        for pid, run in enumerate(runs):
+            check(run["rows"] == want[text], f"[adaptive] (a) "
+                  f"{name} worker {pid}: {len(run['rows'])} rows differ "
+                  f"from the single-process answer")
+            bad = adaptive_counter_problems(name, run["delta"])
+            check(not bad, f"[adaptive] (a) {name} worker {pid}: {bad}")
+        shown = ("adaptive_replans", "strategy_demotions",
+                 "stats_feedback_hits", "broadcast_joins", "shuffled_joins",
+                 "range_merge_joins", "spans_split",
+                 "post_sample_skew_splits")
+        deltas = "; ".join(
+            f"worker {pid} " + " ".join(
+                f"{k}={run['delta'][k]}" for k in shown if k in run["delta"])
+            for pid, run in enumerate(runs))
+        stats = ", ".join("-" if run["stats_ms"] is None
+                          else f"{run['stats_ms']:.2f}" for run in runs)
+        print(f"[adaptive] (a) {name}: {len(runs[0]['rows'])} rows, equal "
+              f"in every worker and to the single-process answer; counter "
+              f"deltas as the JAX package's worker asserts ({deltas}); "
+              f"cold wall {max(r['wall_ms'] for r in runs):.2f} ms, stats "
+              f"round {stats} ms by worker", flush=True)
+    for text, sql_name in (("demote", "DEMOTE's text"),
+                           ("demote_r", "RANGE-DEMOTE's text (range lane)"),
+                           ("skew", "SKEW's text"),
+                           ("agg", "AGGPUSH's text")):
+        per = [r["turns"][text] for r in results]
+        for pid, runs in enumerate(per):
+            for run in runs:
+                check(run["rows"] == want[text], f"[adaptive] (a) {text} "
+                      f"warm run in worker {pid} differs")
+        # the slower worker's wall of each turn: the statement's wall
+        turns = range(len(per[0]))
+        frozen = [per[0][i]["frozen"] for i in turns]
+        walls = [max(runs[i]["wall_ms"] for runs in per) for i in turns]
+        stats = [max(runs[i]["stats_ms"] for runs in per) for i in turns]
+        on = statistics.mean(w for w, f in zip(walls, frozen) if not f)
+        off = statistics.mean(w for w, f in zip(walls, frozen) if f)
+        order = ", ".join("frozen" if f else "adaptive" for f in frozen)
+        print(f"[adaptive] (a) {sql_name} warm, in turns {order}: "
+              f"{', '.join(f'{w:.2f}' for w in walls)} ms"
+              f" (stats round {', '.join(f'{s:.2f}' for s in stats)} ms): "
+              f"adaptive {on:.2f} ms against frozen {off:.2f} ms "
+              f"({off / on:.2f}x)", flush=True)
+        for how, f in (("adaptive", False), ("frozen", True)):
+            # the split of the slower worker's last such run
+            i = max(i for i in turns if frozen[i] == f)
+            run = max((runs[i] for runs in per), key=lambda r: r["wall_ms"])
+            print(f"[adaptive]   {how} {run['wall_ms']:.2f} ms = "
+                  + ", ".join(f"{k[:-3]} {v:.2f}" for k, v
+                              in sorted(run["split"].items()) if v)
+                  + " (ms; the writes on the writer thread)", flush=True)
+    pulls = 0
+    for pid, r in enumerate(results):
+        for text, runs in r["ici"].items():
+            for leg in ("cold", "warm"):
+                check(runs[leg]["rows"] == want[text], f"[adaptive] (b) "
+                      f"{text} {leg} on the device tier in worker {pid} "
+                      f"differs")
+            pulls += runs["cold"]["pull_launches"] + \
+                runs["warm"]["pull_launches"]
+        chk = r["ici_check"]
+        check(chk.get("checked", 0) >= 1 and chk.get("equal"),
+              f"[adaptive] (b) worker {pid}: pulls held against the plain "
+              f"version {chk}")
+        print(f"[adaptive] (b) worker {pid}: the frozen and pushdown texts "
+              f"on the device tier, equal to the single-process answers; "
+              + "; ".join(
+                  f"{text} cold {runs['cold']['wall_ms']:.2f} ms "
+                  f"({runs['cold']['pull_launches']} pulls), warm "
+                  f"{runs['warm']['wall_ms']:.2f} ms "
+                  f"({runs['warm']['pull_launches']} pulls)"
+                  for text, runs in r["ici"].items())
+              + f"; {chk['checked']} pulls held against pull_plain: "
+              f"bit-exact (max abs err {chk.get('max_abs_err', 0)})",
+              flush=True)
+    check(pulls >= 1, "[adaptive] (b) no K2 pull launched in the workers")
+    k1 = [r["k1"] for r in results]
+    k1_launches = {e: sum(x["launches"][e] for x in k1)
+                   for e in k1[0]["launches"]}
+    check(all(x["equal"] for x in k1), f"[adaptive] K1 differs from its "
+          f"plain version in a worker ({k1})")
+    print(f"[adaptive] K1 in the workers (from 0 before each battery): "
+          f"{k1_launches} ({sum(sum(x['captured'].values()) for x in k1)} "
+          f"while a graph was captured), {sum(x['checked'] for x in k1)} "
+          f"held against the plain version on their own inputs: bit-exact "
+          f"(max abs err {max(x['max_abs_err'] for x in k1)}; the lanes' "
+          f"aggregates over a join are DPartialAggregate's sort-based "
+          f"partials); K2's pull: "
+          f"{sum(r['pull_launches'] for r in results)} launches",
+          flush=True)
+    for entry in k1_entries:
+        entry["adaptive_launches"] = k1_launches[entry["name"]]
+    pull_entry["adaptive_launches"] = sum(r["pull_launches"]
+                                          for r in results)
+    t_c = time.perf_counter()
+    _adaptive_chaos()
+    print(f"[adaptive] (c) {len(ADAPTIVE_CHAOS)} rows at once in "
+          f"{time.perf_counter() - t_c:.2f} s", flush=True)
+    print(f"[adaptive] phase {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+
+
 ML_SEED = 18
 ML_RECORDS, ML_RECORD_WORDS, ML_VOCAB, ML_PARTS = 1 << 20, 8, 1 << 16, 8
 ML_AGG_ROWS, ML_AGG_KEYS = 1 << 20, 1024
@@ -6450,7 +6716,7 @@ def _ml_events(s, root, events):
 
 
 def phase_ml(session, k1_entries, k2_entry, pull_entry):
-    """RDD, ML and GraphX on the card (see the module's docstring, 22):
+    """RDD, ML and GraphX on the card (see the module's docstring, 23):
     (a) an RDD word count, then ``toDF`` onto hash-agg's shape (K1),
     (b) a HIGGS-shaped logistic-regression pipeline, (c) KMeans, (d)
     PageRank and connected components on an R-MAT graph, (e) the event
@@ -7706,6 +7972,7 @@ def main(argv) -> int:
     phase_stream(session, k1_entries, k2_entry)
     phase_analysis(session, hash_table, tables, k1_entries, k2_entry,
                    pull_entry)
+    phase_adaptive(session, k1_entries, pull_entry)
     phase_ml(session, k1_entries, k2_entry, pull_entry)
     cards_entries = []
     if torch.cuda.device_count() >= 2:

@@ -1363,7 +1363,8 @@ def crossproc_worker(argv: Sequence[str]) -> int:
     with K1 held against its plain version), ``ici-card`` (the device
     tier's texts over the same tables, ``_ici_card_battery``) and
     ``ici-cards`` (q93's hash lane alone on the device tier, a worker per
-    card: ``<device>`` ``cuda:<pid>``).
+    card: ``<device>`` ``cuda:<pid>``), and the fault modes
+    ``CROSSPROC_FAULT_MODES`` (``_crossproc_fault``).
     The answers, counters and gauges go to ``<root>/result-p<pid>.json``;
     the worker prints one line."""
     from . import config as C
@@ -1387,13 +1388,13 @@ def crossproc_worker(argv: Sequence[str]) -> int:
             spec = json.load(f)
         for k, v in spec.get("conf", {}).items():
             xs.conf.set(k, v)
-    if mode == "spill":
+    if mode in ("spill", "spill-fault"):
         xs.conf.set(C.SHUFFLE_SPILL_THRESHOLD.key, "1024")
         xs.conf.set(HOST_BUDGET.key, str(32 << 20))
-    elif mode == "ici":
+    elif mode in ("ici", "ici-fault"):
         for k, v in ici_confs(n).items():
             xs.conf.set(k, v)
-    elif mode == "grace":
+    elif mode in ("grace", "grace-fault"):
         xs.conf.set(C.SHUFFLE_SPILL_THRESHOLD.key, "1024")
         xs.conf.set(HOST_BUDGET.key, str(7 << 10))
     heartbeat = None
@@ -1430,6 +1431,11 @@ def crossproc_worker(argv: Sequence[str]) -> int:
     xs.conf.set(C.SHUFFLE_FINE_PARTITIONS.key, "32")
     for name, cols in crossproc_tables(pid, n).items():
         xs.createDataFrame(cols).createOrReplaceTempView(name)
+    if mode in CROSSPROC_FAULT_MODES:
+        one = xs.newSession()           # the single-process answer
+        for name, cols in crossproc_tables(None).items():
+            one.createDataFrame(cols).createOrReplaceTempView(name)
+        return _crossproc_fault(xs, one, svc, root, pid, mode)
     if mode == "kill":
         xs.conf.set(C.CROSSPROC_SORT_MERGE_JOIN.key, "false")
         if pid == 1:
@@ -1453,6 +1459,72 @@ def crossproc_worker(argv: Sequence[str]) -> int:
     else:
         result["queries"] = _crossproc_battery(xs, svc, mode)
     return _finish_worker(result, svc, root, pid, mode, heartbeat)
+
+
+#: the JAX package worker's fault modes: ``fault`` (the hash lane),
+#: ``fault-sample`` (the range lane, whose sample round a plan can
+#: address), ``spill-fault`` (the ``spill`` conf), ``grace-fault`` (the
+#: ``grace`` conf, the grace text) and ``ici-fault`` (the device tier
+#: armed, a dictionary-free text)
+CROSSPROC_FAULT_MODES = ("fault", "fault-sample", "spill-fault",
+                         "grace-fault", "ici-fault")
+
+
+def _crossproc_fault(xs, one, svc, root: str, pid: int, mode: str) -> int:
+    """ONE join with a ``FaultInjector`` armed from
+    ``SPARK_TPU_FAULT_PLAN``; prints ``[p<pid>] OK <rows>`` (equal to
+    ``one``'s single-process answer), ``[p<pid>] FAILED <s> <lost>`` (a
+    structured, bounded failure), ``[p<pid>] FAILED-HOSTMEM <s> <owner>``
+    (in the spill modes, a ``HostMemoryError`` naming its owner and the
+    failed spill) or ``[p<pid>] PARTIAL`` (exit 1)."""
+    from . import config as C
+    from .memory import HostMemoryError
+    from .parallel.faults import FaultInjector
+    from .parallel.hostshuffle import ExchangeFetchFailed
+    FaultInjector().attach(svc)
+    lane = "range" if mode == "fault-sample" else "hash"
+    for name, smj, sh in CROSSPROC_MODES:
+        if name == lane:
+            xs.conf.set(C.CROSSPROC_SORT_MERGE_JOIN.key, smj)
+            xs.conf.set(C.CROSSPROC_SHUFFLED_JOIN.key, sh)
+    sql = {"ici-fault": ICI_QUERIES[0][1],
+           "grace-fault": CROSSPROC_GRACE_QUERIES[0][1]}.get(
+               mode, CROSSPROC_QUERIES[0][1])
+    spill = {"spill-fault": "spill failed",
+             "grace-fault": "grace spill failed"}.get(mode)
+    exp = _json_rows(tuple(r) for r in one.sql(sql).collect())
+    result: Dict[str, Any] = {"pid": pid, "mode": mode, "expected": exp}
+    t0 = time.time()
+    try:
+        got = _json_rows(tuple(r) for r in xs.sql(sql).collect())
+    except HostMemoryError as e:
+        if spill is None or not e.owner or spill not in str(e):
+            raise
+        result.update(outcome="HostMemoryError", owner=e.owner,
+                      error=str(e), counters=dict(svc.counters))
+        _write_result(root, pid, result)
+        print(f"[p{pid}] FAILED-HOSTMEM {time.time() - t0:.2f} {e.owner}",
+              flush=True)
+        return 0
+    except (ExchangeFetchFailed, TimeoutError) as e:
+        lost = sorted(getattr(e, "lost_hosts", []) or [])
+        result.update(outcome=type(e).__name__, lost_hosts=lost,
+                      elapsed_s=time.time() - t0, error=str(e),
+                      counters=dict(svc.counters))
+        _write_result(root, pid, result)
+        print(f"[p{pid}] FAILED {time.time() - t0:.2f} {lost}", flush=True)
+        return 0
+    result.update(outcome="ok", rows=got, counters=dict(svc.counters))
+    _write_result(root, pid, result)
+    counter = "range_merge_joins" if lane == "range" else "shuffled_joins"
+    if spill is None and not svc.counters[counter]:
+        raise AssertionError(f"expected the {counter} path: "
+                             f"{dict(svc.counters)}")
+    if spill is not None or got != exp:
+        print(f"[p{pid}] PARTIAL got={len(got)} exp={len(exp)}", flush=True)
+        return 1
+    print(f"[p{pid}] OK {len(got)}", flush=True)
+    return 0
 
 
 def _finish_worker(result, svc, root: str, pid: int, mode: str,
@@ -2317,6 +2389,13 @@ def write_stream_feed(session, in_dir: str, i: int) -> None:
     }).write.parquet(os.path.join(in_dir, f"f{i}"))
 
 
+def _sink_files(out: str) -> Dict[str, bytes]:
+    """A file sink's part files by name, as bytes."""
+    import glob
+    return {os.path.basename(p): open(p, "rb").read()
+            for p in sorted(glob.glob(os.path.join(out, "part-*")))}
+
+
 def _pool_scaleup(pid: int, root: str, timeout_s: float,
                   device: str) -> int:
     """Mode ``scaleup``: the pool grows while a windowed aggregate
@@ -2325,7 +2404,6 @@ def _pool_scaleup(pid: int, root: str, timeout_s: float,
     proves itself by serving a statement; two more micro-batches; the
     sink must equal an uninterrupted no-pool lifetime's byte for byte,
     and idle demand then reaps the worker."""
-    import glob
     from .serving.admission import DemandSignal
     from .sql.session import SparkSession
 
@@ -2339,10 +2417,6 @@ def _pool_scaleup(pid: int, root: str, timeout_s: float,
         .write.saveAsTable("pool_t")
     in_dir = os.path.join(root, "in")
     os.makedirs(in_dir, exist_ok=True)
-
-    def sink(out):
-        return {os.path.basename(p): open(p, "rb").read()
-                for p in sorted(glob.glob(os.path.join(out, "part-*")))}
 
     ckpt, out = os.path.join(root, "ckpt"), os.path.join(root, "out")
     write_stream_feed(session, in_dir, 0)
@@ -2364,11 +2438,11 @@ def _pool_scaleup(pid: int, root: str, timeout_s: float,
         write_stream_feed(session, in_dir, 2)
         write_stream_feed(session, in_dir, 3)
         ex = stream_lifetime(session, "wagg", in_dir, ckpt, out)
-        got = sink(out)
+        got = _sink_files(out)
         stream_lifetime(session, "wagg", in_dir,
                         os.path.join(root, "oracle_ckpt"),
                         os.path.join(root, "oracle_out"))
-        exp = sink(os.path.join(root, "oracle_out"))
+        exp = _sink_files(os.path.join(root, "oracle_out"))
         if got != exp or not exp:
             print(f"[p{pid}] PARTIAL got={sorted(got)} exp={sorted(exp)}",
                   flush=True)
@@ -2462,112 +2536,220 @@ def pool_worker(argv: Sequence[str]) -> int:
 
 
 # ---------------------------------------------------------------------------
-# the chaos scenarios (the JAX package's ``tests/chaos_matrix.py`` rows
-# that reach ported modules)
+# the chaos matrix (the JAX package's ``tests/chaos_matrix.py``): every
+# fault scenario against real processes, with the exchange phase it lands
+# in, its tier and its verdict per process
 # ---------------------------------------------------------------------------
 
-def _scenario(name, worker, mode, n, timeout_s, plans, expect):
-    return {"name": name, "worker": worker, "mode": mode, "n": n,
-            "timeout_s": timeout_s, "plans": plans, "expect": expect}
+#: the exchange phases the matrix covers
+CHAOS_PHASES = ("map-staging", "post-publish-sizes", "mid-fetch",
+                "mid-demotion", "during-recovery", "during-grace",
+                "post-register", "mid-device-copy")
+#: the streaming commit phases its ``--streaming`` group kills at
+STREAM_PHASES = ("post-state-commit", "mid-commit")
+
+
+def _scenario(name, phase, worker, mode, n, timeout_s, plans, expect,
+              tier="slow"):
+    return {"name": name, "phase": phase, "worker": worker, "mode": mode,
+            "n": n, "timeout_s": timeout_s, "plans": plans,
+            "expect": expect, "tier": tier}
 
 
 def chaos_scenarios() -> List[dict]:
-    """name, worker entry, mode, process count, exchange timeout, victim
-    pid → FaultPlan builder, and the verdict per pid: ``OK`` (the
-    single-process answer), ``FAILED`` (structured and bounded) or
-    ``DIED`` (exit 43, the planned kill)."""
+    """name, exchange phase, worker entry, mode, process count, exchange
+    timeout, victim pid → FaultPlan builder, the verdict per pid and the
+    tier (``tier1`` or ``slow``).  Verdicts: ``OK`` (the single-process
+    answer), ``FAILED`` (structured and bounded), ``HOSTMEM`` (the
+    structured spill abort, ``FAILED-HOSTMEM``) or ``DIED`` (exit 43, the
+    planned kill)."""
     from .parallel.faults import FaultPlan as P
     return [
-        _scenario("mid-fetch-kill", "recovery-worker", "recover", 2, 20.0,
+        _scenario("mid-fetch-kill", "mid-fetch", "recovery-worker",
+                  "recover", 2, 20.0,
                   {1: lambda: P().die_after_put("xq000001-jL")},
-                  {0: "OK", 1: "DIED"}),
-        _scenario("mid-fetch-kill-noretry", "recovery-worker", "norecover",
-                  2, 8.0, {1: lambda: P().die_after_put("xq000001-jL")},
-                  {0: "FAILED", 1: "DIED"}),
-        _scenario("grace-kill", "recovery-worker", "grace-recover", 2, 20.0,
+                  {0: "OK", 1: "DIED"}, tier="tier1"),
+        _scenario("mid-fetch-kill-noretry", "mid-fetch", "recovery-worker",
+                  "norecover", 2, 8.0,
+                  {1: lambda: P().die_after_put("xq000001-jL")},
+                  {0: "FAILED", 1: "DIED"}, tier="tier1"),
+        _scenario("grace-kill", "during-grace", "recovery-worker",
+                  "grace-recover", 2, 20.0,
                   {1: lambda: P().die_after_manifest("xq000001-jR")},
-                  {0: "OK", 1: "DIED"}),
-        _scenario("blockserver-adopt-zero-rerun", "recovery-worker",
-                  "bs-zero", 2, 20.0,
+                  {0: "OK", 1: "DIED"}, tier="tier1"),
+        _scenario("blockserver-adopt-zero-rerun", "post-register",
+                  "recovery-worker", "bs-zero", 2, 20.0,
                   {1: lambda: P().drop(exchange="xq000001-jR", receiver=0)
                    .die_after_manifest("xq000001-gather")},
-                  {0: "OK", 1: "DIED"}),
-        _scenario("grace-kill-3proc", "recovery-worker", "grace-recover", 3,
-                  20.0, {2: lambda: P().die_after_manifest("xq000001-jR")},
+                  {0: "OK", 1: "DIED"}, tier="tier1"),
+        _scenario("grace-kill-3proc", "during-grace", "recovery-worker",
+                  "grace-recover", 3, 20.0,
+                  {2: lambda: P().die_after_manifest("xq000001-jR")},
                   {0: "OK", 1: "OK", 2: "DIED"}),
         # p2 dies mid-fetch, p1 publishes its recovery manifest and dies:
         # the round agrees, but epoch 1 loses p1 past the budget
-        _scenario("recovery-round-kill", "recovery-worker", "recover", 3,
-                  12.0,
+        _scenario("recovery-round-kill", "during-recovery",
+                  "recovery-worker", "recover", 3, 12.0,
                   {2: lambda: P().die_after_put("xq000001-jL"),
                    1: lambda: P().die_after_manifest("xq000001-recover1")},
                   {0: "FAILED", 1: "DIED", 2: "DIED"}),
-        _scenario("map-staging-kill", "recovery-worker", "recover", 2, 12.0,
+        _scenario("map-staging-kill", "map-staging", "recovery-worker",
+                  "recover", 2, 12.0,
                   {1: lambda: P().die_after_manifest("xq000001-digest")},
                   {0: "OK", 1: "DIED"}),
-        _scenario("post-publish-sizes-kill", "recovery-worker", "recover",
-                  2, 12.0,
+        _scenario("post-publish-sizes-kill", "post-publish-sizes",
+                  "recovery-worker", "recover", 2, 12.0,
                   {1: lambda: P().die_after_manifest("xq000001-plan")},
                   {0: "OK", 1: "DIED"}),
-        _scenario("block-dropped-alive-peer", "recovery-worker", "recover",
-                  2, 6.0,
+        # the adaptive broadcast gather loses its peer; in-memory leaves
+        # mean no lineage: a structured abort
+        _scenario("mid-demotion-kill", "mid-demotion", "adaptive-worker",
+                  "fault-adapt", 2, 6.0,
+                  {1: lambda: P().die_after_put("xq000001-bcast")},
+                  {0: "FAILED", 1: "DIED"}),
+        # live but faulty peers: declared lost, the survivor recovers
+        # from their file lineage while they abort bounded
+        _scenario("block-dropped-alive-peer", "mid-fetch",
+                  "recovery-worker", "recover", 2, 6.0,
                   {1: lambda: P().drop(exchange="xq000001-jL", receiver=0)},
                   {0: "OK", 1: "FAILED"}),
-        _scenario("slow-peer-heals", "recovery-worker", "norecover", 2, 8.0,
+        _scenario("block-corrupted-alive-peer", "mid-fetch",
+                  "recovery-worker", "recover", 2, 6.0,
+                  {1: lambda: P().corrupt(exchange="xq000001-jL",
+                                          receiver=0)},
+                  {0: "OK", 1: "FAILED"}),
+        _scenario("block-truncated-noretry", "mid-fetch", "recovery-worker",
+                  "norecover", 2, 6.0,
+                  {1: lambda: P().truncate(exchange="xq000001-jL",
+                                           keep_bytes=3)},
+                  {0: "FAILED", 1: "FAILED"}),
+        _scenario("slow-peer-heals", "mid-fetch", "recovery-worker",
+                  "norecover", 2, 8.0,
                   {1: lambda: P().delay(0.3, exchange="xq000001-jL")},
                   {0: "OK", 1: "OK"}),
-        _scenario("commit-skipped", "recovery-worker", "norecover", 2, 5.0,
+        _scenario("commit-skipped", "map-staging", "recovery-worker",
+                  "norecover", 2, 5.0,
                   {1: lambda: P().skip_commit(exchange="xq000001-jL")},
                   {0: "FAILED", 1: "FAILED"}),
-        _scenario("blockserver-adopt-sealed-manifest", "recovery-worker",
-                  "bs-adopt", 2, 20.0,
+        # disk pressure: the forced spill hits an injected ENOSPC
+        _scenario("spill-disk-full", "map-staging", "crossproc-worker",
+                  "spill-fault", 2, 8.0,
+                  {1: lambda: P().disk_full(after_bytes=0)},
+                  {0: "FAILED", 1: "HOSTMEM"}),
+        # ENOSPC during the grace pass itself: the one unspillable shape
+        _scenario("grace-disk-full", "during-grace", "crossproc-worker",
+                  "grace-fault", 2, 8.0,
+                  {1: lambda: P().disk_full(after_bytes=0,
+                                            exchange="xq000001-grace")},
+                  {0: "FAILED", 1: "HOSTMEM"}),
+        _scenario("blockserver-adopt-sealed-manifest", "post-register",
+                  "recovery-worker", "bs-adopt", 2, 20.0,
                   {1: lambda: P().die_during_register("xq000001-jR",
                                                       after_seal=True)},
                   {0: "OK", 1: "DIED"}),
-        _scenario("blockserver-die-mid-register", "recovery-worker",
-                  "bs-recover", 2, 20.0,
+        _scenario("blockserver-die-mid-register", "post-register",
+                  "recovery-worker", "bs-recover", 2, 20.0,
                   {1: lambda: P().die_during_register("xq000001-jR")},
                   {0: "OK", 1: "DIED"}),
-        _scenario("blockserver-unavailable-fallback", "recovery-worker",
-                  "bs-unavail", 2, 20.0,
+        _scenario("blockserver-unavailable-fallback", "mid-fetch",
+                  "recovery-worker", "bs-unavail", 2, 20.0,
                   {0: lambda: P().blockserver_unavailable(),
                    1: lambda: P().drop(exchange="xq000001-jR", receiver=0)
                    .die_after_manifest("xq000001-jR")},
                   {0: "OK", 1: "DIED"}),
-        _scenario("pool-reap-mid-fetch", "pool-worker", "reap", 2, 20.0,
+        # the device tier refused in process 0 at every exchange: its
+        # spans fold back onto the host tier, both processes answer
+        _scenario("ici-unavailable-fallback", "mid-device-copy",
+                  "crossproc-worker", "ici-fault", 2, 8.0,
+                  {0: lambda: P().ici_unavailable()},
+                  {0: "OK", 1: "OK"}),
+        # process 0 exits at the copy point; in-memory leaves give no
+        # lineage, so process 1 fails bounded at the host commit barrier
+        _scenario("ici-die-mid-device-copy-noretry", "mid-device-copy",
+                  "crossproc-worker", "ici-fault", 2, 8.0,
+                  {0: lambda: P().die_mid_device_copy()},
+                  {0: "DIED", 1: "FAILED"}),
+        _scenario("pool-reap-mid-fetch", "post-register", "pool-worker",
+                  "reap", 2, 20.0,
                   {1: lambda: P().drop(exchange="xq000001-jR",
                                        receiver=0)},
-                  {0: "OK", 1: "OK"}),
-        _scenario("pool-spawn-exec-error", "pool-worker", "spawn-fail", 1,
-                  20.0, {0: lambda: P().spawn_exec_error(after_spawns=1)},
+                  {0: "OK", 1: "OK"}, tier="tier1"),
+        _scenario("pool-spawn-exec-error", "worker-spawn", "pool-worker",
+                  "spawn-fail", 1, 20.0,
+                  {0: lambda: P().spawn_exec_error(after_spawns=1)},
                   {0: "OK"}),
         # the pool grows while a windowed aggregate stands; the stream's
         # sink stays byte-identical to a no-pool lifetime's
-        _scenario("pool-scaleup-midstream", "pool-worker", "scaleup", 1,
-                  60.0, {}, {0: "OK"}),
+        _scenario("pool-scaleup-midstream", "mid-standing-query",
+                  "pool-worker", "scaleup", 1, 60.0, {}, {0: "OK"}),
     ]
 
 
 def ici_scenarios() -> List[dict]:
-    """The device tier's fault scenarios (two processes, one domain by
+    """The device tier's recovery scenarios (two processes, one domain by
     override): process 1 refused the tier on its first join exchange
     (its spans fold back onto the host tier, both answer), and process 1
     dying at the device tier's copy point (recovered in an epoch)."""
     from .parallel.faults import FaultPlan as P
     return [
-        _scenario("ici-unavailable-one-sided", "recovery-worker",
-                  "ici-unavail", 2, 20.0,
+        _scenario("ici-unavailable-one-sided", "mid-device-copy",
+                  "recovery-worker", "ici-unavail", 2, 20.0,
                   {1: lambda: P().ici_unavailable("xq000001-jL")},
                   {0: "OK", 1: "OK"}),
-        _scenario("ici-die-mid-device-copy", "recovery-worker",
-                  "ici-recover", 2, 20.0,
+        _scenario("ici-die-mid-device-copy", "mid-device-copy",
+                  "recovery-worker", "ici-recover", 2, 20.0,
                   {1: lambda: P().die_mid_device_copy("xq000001-jL")},
                   {0: "OK", 1: "DIED"}),
     ]
 
 
+def stream_scenarios() -> List[dict]:
+    """Kill-at-phase against a real standing query (``stream-chaos``
+    worker): process 1 runs the stream and dies at the planned commit
+    phase; process 0 restarts it over the same checkpoint and holds the
+    sink byte for byte against an uninterrupted lifetime's."""
+    from .parallel.faults import FaultPlan as P
+    torn = {1: lambda: P().torn_checkpoint(keep_bytes=11, after_entries=1,
+                                           die=True)}
+    after = {1: lambda: P().die_after_state_commit(after_entries=1)}
+    return [
+        _scenario("stream-die-post-state-commit", "post-state-commit",
+                  "stream-chaos", "wagg", 2, 60.0, after,
+                  {0: "OK", 1: "DIED"}),
+        _scenario("stream-die-post-state-commit-dedup", "post-state-commit",
+                  "stream-chaos", "dedup", 2, 60.0, after,
+                  {0: "OK", 1: "DIED"}),
+        _scenario("stream-torn-commit-kill", "mid-commit", "stream-chaos",
+                  "wagg", 2, 60.0, torn, {0: "OK", 1: "DIED"}),
+        _scenario("stream-torn-commit-kill-dedup", "mid-commit",
+                  "stream-chaos", "dedup", 2, 60.0, torn,
+                  {0: "OK", 1: "DIED"}),
+    ]
+
+
+def matrix_scenarios() -> List[dict]:
+    """The whole exchange matrix: ``chaos_scenarios``, ``ici_scenarios``
+    and ``analysis_scenarios``, in that order."""
+    return chaos_scenarios() + ici_scenarios() + analysis_scenarios()
+
+
+def kinds_covered() -> set:
+    """Every fault kind some scenario of any list injects."""
+    kinds = set()
+    for sc in matrix_scenarios() + stream_scenarios():
+        for build in sc["plans"].values():
+            kinds.update(r.kind for r in build().rules)
+    return kinds
+
+
+def all_kinds() -> set:
+    """Every fault kind ``parallel.faults`` can inject."""
+    from .parallel.faults import _KINDS
+    return set(_KINDS)
+
+
 def chaos_scenario(name: str) -> dict:
-    for sc in chaos_scenarios() + ici_scenarios() + analysis_scenarios():
+    for sc in matrix_scenarios() + stream_scenarios():
         if sc["name"] == name:
             return sc
     raise KeyError(name)
@@ -2628,7 +2810,9 @@ def check_scenario(sc: dict, results, elapsed: float) -> List[str]:
     """The verdict: what broke the scenario's contract (empty = pass).
     Every faulted run recovers to the single-process answer or aborts
     structured within ``3 x timeout + slack``; ``PARTIAL`` never
-    appears."""
+    appears.  ``DIED`` wants exit 43; every other verdict exit 0 and
+    ``[p<i>] <verdict>`` in the process's last line, ``HOSTMEM`` as
+    ``[p<i>] FAILED-HOSTMEM``."""
     bad = []
     bound = 3 * sc["timeout_s"] + 30
     if elapsed >= bound:
@@ -2637,6 +2821,8 @@ def check_scenario(sc: dict, results, elapsed: float) -> List[str]:
         rc, out = results[pid]
         lines = [ln for ln in out.splitlines() if f"[p{pid}]" in ln]
         last = lines[-1] if lines else ""
+        token = f"[p{pid}] " + ("FAILED-HOSTMEM" if want == "HOSTMEM"
+                                else want)
         if "PARTIAL" in out:
             bad.append(f"p{pid}: PARTIAL result surfaced")
         if want == "DIED":
@@ -2644,7 +2830,7 @@ def check_scenario(sc: dict, results, elapsed: float) -> List[str]:
                 bad.append(f"p{pid}: rc {rc} != 43 (planned kill)")
         elif rc != 0:
             bad.append(f"p{pid}: rc {rc} != 0 ({last!r})")
-        elif f"[p{pid}] {want}" not in last:
+        elif token not in last:
             bad.append(f"p{pid}: expected {want}, got {last!r}")
     return bad
 
@@ -3206,20 +3392,23 @@ def stream_sessions(session, feeds, step=None) -> List[dict]:
 
 
 def stream_shape(session, shape: str, in_dir: str):
-    """(plan, output mode) of a worker's standing query: ``wagg`` the
-    JAX package's chaos battery shape (a windowed sum under a 5 s
-    watermark over (ts, k, v) parquet files), ``yahoo`` scenario (a)
-    over ``in_dir`` with the ad table at ``in_dir``/../ads."""
+    """(plan, output mode) of a worker's standing query: ``wagg`` and
+    ``dedup`` the JAX package's chaos battery shapes (a windowed sum, or
+    ``dropDuplicates`` over (k, ts), under a 5 s watermark over (ts, k,
+    v) parquet files), ``yahoo`` scenario (a) over ``in_dir`` with the ad
+    table at ``in_dir``/../ads."""
     from . import types as T
     from .sql import functions as F
-    if shape == "wagg":
+    if shape in ("wagg", "dedup"):
         schema = T.StructType([T.StructField("ts", T.timestamp),
                                T.StructField("k", T.string),
                                T.StructField("v", T.int64)])
         df = (session.readStream.format("parquet").schema(schema)
-              .option("maxFilesPerTrigger", 1).load(in_dir))
-        df = (df.withWatermark("ts", "5 seconds")
-              .groupBy(F.window("ts", "10 seconds").alias("w"))
+              .option("maxFilesPerTrigger", 1).load(in_dir)
+              .withWatermark("ts", "5 seconds"))
+        if shape == "dedup":
+            return df.dropDuplicates(["k", "ts"])._plan, "append"
+        df = (df.groupBy(F.window("ts", "10 seconds").alias("w"))
               .agg(F.sum("v").alias("s")))
         return df._plan, "append"
     if shape == "yahoo":
@@ -3301,6 +3490,78 @@ def stream_worker(argv: Sequence[str]) -> int:
     os.replace(out + ".result.json.tmp", out + ".result.json")
     print(f"[stream] OK {shape} lifetimes={len(lives)} "
           f"injected={injector.injected}", flush=True)
+    return 0
+
+
+def stream_chaos_worker(argv: Sequence[str]) -> int:
+    """One process of a ``stream_scenarios`` row (the JAX package's
+    ``tests/streaming_worker.py``): ``<pid> <n> <root> <mode> <timeout_s>
+    <device>``, mode a ``stream_shape`` (``wagg``, ``dedup``).  Process 1
+    runs the standing query over ``<root>/in`` with the plan of
+    ``SPARK_TPU_FAULT_PLAN`` armed and dies at its commit phase (exit 43,
+    ``<root>/died-p1`` first); process 0 writes ``STREAM_FEEDS``, waits
+    for that death, runs an uninterrupted lifetime on its own checkpoint,
+    then a recovering one over process 1's, and prints ``[p0] OK <files>
+    replayed=<n>`` if the two sinks are the same bytes and a batch was
+    replayed (``[p0] PARTIAL``, exit 1, if they differ)."""
+    from .parallel.faults import FaultInjector
+    from .sql.session import SparkSession
+    pid, _n, root, mode, timeout_s, device = _worker_argv("stream chaos",
+                                                          argv)
+    if mode not in ("wagg", "dedup"):
+        raise ValueError(f"stream chaos mode {mode!r}")
+    check_worker_card(device, "stream chaos")
+    if device == "cpu":
+        torch.set_num_threads(1)
+    session = SparkSession.builder.config("spark.torch.device", device) \
+        .config("spark.sql.warehouse.dir", os.path.join(root, f"wh{pid}")) \
+        .getOrCreate()
+    in_dir, ready = os.path.join(root, "in"), os.path.join(root, "ready")
+    died = os.path.join(root, "died-p1")
+    deadline = time.monotonic() + timeout_s
+    if pid == 1:
+        while not os.path.exists(ready):
+            if time.monotonic() > deadline:
+                print("[p1] FAILED inputs never appeared", flush=True)
+                return 1
+            time.sleep(0.05)
+        injector = FaultInjector()
+
+        def die(code):
+            with open(died, "w") as f:
+                f.write(repr(time.time()))
+            os._exit(code)
+        injector.die = die
+        stream_lifetime(session, mode, in_dir, os.path.join(root, "ckpt"),
+                        os.path.join(root, "out"),
+                        arm=injector.attach_stream)
+        print("[p1] FAILED the planned kill never fired", flush=True)
+        return 1
+    os.makedirs(in_dir, exist_ok=True)
+    for i in range(len(STREAM_FEEDS)):
+        write_stream_feed(session, in_dir, i)
+    open(ready, "w").close()
+    while not os.path.exists(died):
+        if time.monotonic() > deadline:
+            print("[p0] FAILED the victim never died", flush=True)
+            return 1
+        time.sleep(0.05)
+
+    stream_lifetime(session, mode, in_dir, os.path.join(root, "oracle_ckpt"),
+                    os.path.join(root, "oracle_out"))
+    ex = stream_lifetime(session, mode, in_dir, os.path.join(root, "ckpt"),
+                         os.path.join(root, "out"))
+    got = _sink_files(os.path.join(root, "out"))
+    exp = _sink_files(os.path.join(root, "oracle_out"))
+    if got != exp or not exp:
+        print(f"[p0] PARTIAL got={sorted(got)} exp={sorted(exp)}",
+              flush=True)
+        return 1
+    if ex.metrics["replayed_batches"] < 1:
+        print(f"[p0] FAILED nothing replayed: {ex.metrics}", flush=True)
+        return 1
+    print(f"[p0] OK {len(got)} replayed={ex.metrics['replayed_batches']}",
+          flush=True)
     return 0
 
 
@@ -3536,15 +3797,510 @@ def analysis_scenarios() -> List[dict]:
     from .parallel.faults import FaultPlan as P
     skew = {1: lambda: P().skew_decision("xq000001-plan")}
     return [
-        _scenario("trace-parity", "analysis-worker", "trace", 2, 20.0, {},
+        _scenario("trace-parity", "post-publish-sizes", "analysis-worker",
+                  "trace", 2, 20.0, {}, {0: "TRACE-OK", 1: "TRACE-OK"}),
+        _scenario("trace-parity-ici", "post-publish-sizes",
+                  "analysis-worker", "trace-ici", 2, 20.0, {},
                   {0: "TRACE-OK", 1: "TRACE-OK"}),
-        _scenario("trace-parity-ici", "analysis-worker", "trace-ici", 2,
-                  20.0, {}, {0: "TRACE-OK", 1: "TRACE-OK"}),
-        _scenario("skew-decision", "analysis-worker", "skew-decision", 2,
-                  20.0, skew, {0: "FAILED-DIVERGED", 1: "FAILED-DIVERGED"}),
-        _scenario("skew-decision-ici", "analysis-worker", "skew-ici", 2,
-                  20.0, skew, {0: "FAILED-DIVERGED", 1: "FAILED-DIVERGED"}),
+        _scenario("skew-decision", "post-publish-sizes", "analysis-worker",
+                  "skew-decision", 2, 20.0, skew,
+                  {0: "FAILED-DIVERGED", 1: "FAILED-DIVERGED"}),
+        _scenario("skew-decision-ici", "post-publish-sizes",
+                  "analysis-worker", "skew-ici", 2, 20.0, skew,
+                  {0: "FAILED-DIVERGED", 1: "FAILED-DIVERGED"}),
     ]
+
+
+# ---------------------------------------------------------------------------
+# adaptive execution across processes: the JAX package's
+# ``tests/adaptive_worker.py`` "adaptive" and "fault-adapt" modes, and the
+# card runs of ``chip_smoke.py``'s [adaptive] phase
+# ---------------------------------------------------------------------------
+
+#: a misestimated right side: the optimizer pushes the bonus filter below
+#: the join, so its observed map output is tiny while the plan-time leaf
+#: probe sees all of fact2
+ADAPTIVE_DEMOTE_SQL = ("SELECT sk, price, bonus FROM fact JOIN fact2 "
+                       "ON sk = k2 WHERE bonus < 2 "
+                       "ORDER BY sk, price, bonus")
+#: another constant, another plan signature: no feedback shortcut, so the
+#: range lane freezes from the probe and demotes at the stats barrier
+ADAPTIVE_DEMOTE_R_SQL = ADAPTIVE_DEMOTE_SQL.replace("bonus < 2",
+                                                    "bonus < 3")
+#: rows uniform per key, bytes concentrated in key 3's fat strings: only
+#: the post-sample size round can see the skew
+ADAPTIVE_SKEW_SQL = ("SELECT rk, count(*) AS c, min(t) AS tlo, "
+                     "sum(w2) AS sw FROM skl JOIN skr ON rk = rk2 "
+                     "GROUP BY rk ORDER BY rk")
+#: a keyed aggregate below the join: partial state rides the exchange
+ADAPTIVE_AGG_SQL = ("SELECT sk, price, sb FROM fact JOIN "
+                    "(SELECT k2, sum(bonus) AS sb FROM fact2 GROUP BY k2) a "
+                    "ON sk = k2 ORDER BY sk, price, sb")
+
+#: the battery's scenarios in order: name, the text it runs (a key of
+#: ``ADAPTIVE_TEXTS``) and its counter deltas as the JAX package's worker
+#: asserts them, (counter, "==" or ">=", value)
+ADAPTIVE_SCENARIOS = (
+    ("DEMOTE", "demote", (("adaptive_replans", "==", 1),
+                          ("strategy_demotions", "==", 1),
+                          ("broadcast_joins", "==", 1),
+                          ("shuffled_joins", "==", 0))),
+    ("FEEDBACK", "demote", (("stats_feedback_hits", ">=", 1),
+                            ("broadcast_joins", "==", 1),
+                            ("shuffled_joins", "==", 0),
+                            ("adaptive_replans", "==", 0))),
+    ("RANGE-DEMOTE", "demote_r", (("adaptive_replans", "==", 1),
+                                  ("strategy_demotions", "==", 1),
+                                  ("broadcast_joins", "==", 1),
+                                  ("range_merge_joins", "==", 0))),
+    ("FROZEN", "demote", (("shuffled_joins", "==", 1),
+                          ("broadcast_joins", "==", 0),
+                          ("adaptive_replans", "==", 0),
+                          ("strategy_demotions", "==", 0))),
+    ("SKEW", "skew", (("range_merge_joins", "==", 1),
+                      ("spans_split", ">=", 1),
+                      ("post_sample_skew_splits", ">=", 1))),
+    ("AGGPUSH", "agg", (("shuffled_joins", "==", 1),
+                        ("strategy_demotions", "==", 0))),
+)
+
+#: the counters of the battery's last line (``ADAPT-OK``), by its names
+ADAPTIVE_TOTALS = (("replans", "adaptive_replans"),
+                   ("demotions", "strategy_demotions"),
+                   ("fbhits", "stats_feedback_hits"),
+                   ("postskew", "post_sample_skew_splits"),
+                   ("bcast", "broadcast_joins"),
+                   ("shuffled", "shuffled_joins"),
+                   ("range", "range_merge_joins"))
+
+
+def adaptive_counter_problems(scenario: str, delta: dict) -> List[str]:
+    """What ``delta`` (a run's counter deltas) breaks of ``scenario``'s
+    row of ``ADAPTIVE_SCENARIOS``."""
+    want = {name: asserts for name, _text, asserts
+            in ADAPTIVE_SCENARIOS}[scenario]
+    bad = []
+    for counter, op, value in want:
+        got = delta.get(counter, 0)
+        if not (got == value if op == "==" else got >= value):
+            bad.append(f"{counter} {got} (want {op} {value})")
+    return bad
+
+
+def adaptive_tables(pid: Optional[int] = None, n: int = 1) -> dict:
+    """The battery's tables (the JAX package worker's, rng 11): ``fact``
+    1,200 and ``fact2`` 900 rows over 48 keys; ``skl`` 600 rows, 16 keys
+    in turn, key 3's strings 280 characters; ``skr`` 150 rows.  Process
+    ``pid`` of ``n`` keeps a strided 1/n slice; ``pid`` None: whole."""
+    rng = np.random.default_rng(11)
+    NF, NB = 1200, 900
+    f_sk = rng.integers(0, 48, NF).astype(np.int64)
+    f_price = rng.integers(1, 500, NF).astype(np.int64)
+    k2 = rng.integers(0, 48, NB).astype(np.int64)
+    bonus = rng.integers(0, 100, NB).astype(np.int64)
+    NS, NR = 600, 150
+    s_rk = (np.arange(NS) % 16).astype(np.int64)
+    s_t = np.array([(f"r{i:04d}" * 56) if s_rk[i] == 3 else f"s{i:04d}"
+                    for i in range(NS)], dtype=object)
+    r_rk2 = (np.arange(NR) % 16).astype(np.int64)
+    r_w2 = rng.integers(1, 50, NR).astype(np.int64)
+    mine = slice(None) if pid is None else slice(pid, None, n)
+    return {"fact": {"sk": f_sk[mine], "price": f_price[mine]},
+            "fact2": {"k2": k2[mine], "bonus": bonus[mine]},
+            "skl": {"rk": s_rk[mine], "t": s_t[mine]},
+            "skr": {"rk2": r_rk2[mine], "w2": r_w2[mine]}}
+
+
+def _adaptive_confs(adaptive: bool) -> Dict[str, str]:
+    """The battery's session confs (the JAX package worker's)."""
+    from . import config as C
+    return {C.SHUFFLE_TARGET_PARTITION_BYTES.key: "2048",
+            C.SHUFFLE_FINE_PARTITIONS.key: "32",
+            C.CROSSPROC_AUTO_BROADCAST.key: "2048",
+            C.CROSSPROC_SHUFFLED_JOIN.key: "true",
+            C.CROSSPROC_SORT_MERGE_JOIN.key: "false",
+            C.CROSSPROC_ADAPTIVE_REPLAN.key:
+                "true" if adaptive else "false"}
+
+
+class _StatsRound:
+    """A spy on a service's stats round (``<xid>-plan``): the ms from its
+    ``publish_sizes`` to the end of its ``gather_sizes_ex``, summed."""
+
+    def __init__(self, svc):
+        self.ms = 0.0
+        self.rounds = 0
+        self._t0: Dict[str, float] = {}
+        publish, gather = svc.publish_sizes, svc.gather_sizes_ex
+
+        def publish_sizes(exchange, *a, **kw):
+            if exchange.endswith("-plan"):
+                self._t0[exchange] = time.perf_counter()
+            return publish(exchange, *a, **kw)
+
+        def gather_sizes_ex(exchange, *a, **kw):
+            out = gather(exchange, *a, **kw)
+            t0 = self._t0.pop(exchange, None)
+            if t0 is not None:
+                self.ms += (time.perf_counter() - t0) * 1e3
+                self.rounds += 1
+            return out
+        svc.publish_sizes, svc.gather_sizes_ex = publish_sizes, \
+            gather_sizes_ex
+
+
+def adaptive_skew_pins() -> Dict[str, str]:
+    """The skew scenario's confs: the range lane pinned (no broadcast),
+    and the battery's advisory target and fine partitions, with which
+    the row-weighted sample round sees uniform spans."""
+    from . import config as C
+    return {C.CROSSPROC_AUTO_BROADCAST.key: "0",
+            C.CROSSPROC_SORT_MERGE_JOIN.key: "true",
+            C.SHUFFLE_TARGET_PARTITION_BYTES.key: "2048",
+            C.SHUFFLE_FINE_PARTITIONS.key: "32"}
+
+
+def _adaptive_run(xs, svc, spy: Optional[_StatsRound], sql: str,
+                  confs: Optional[Dict[str, str]] = None) -> dict:
+    """One run of ``sql`` under ``confs`` (the session's own values back
+    after): rows, counter deltas, wall ms, the stats round's ms and the
+    wall's split (``crossproc.STATS`` and the service's timers, ms)."""
+    from .parallel import crossproc as X
+    confs = confs or {}
+    own = dict(xs.conf_obj.items())
+    for k, v in confs.items():
+        xs.conf.set(k, v)
+    try:
+        before = dict(svc.counters)
+        stats0, timers0 = dict(X.STATS), dict(svc.timers)
+        ms0 = spy.ms if spy is not None else 0.0
+        t0 = time.perf_counter()
+        rows = jsonable_rows(tuple(r) for r in xs.sql(sql).collect())
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for k in confs:
+            if k in own:
+                xs.conf.set(k, own[k])
+            else:
+                xs.conf.unset(k)
+    split = {k: X.STATS[k] - stats0[k] for k in X.STATS
+             if k.endswith("_ms")}
+    split.update({k[:-2] + "_ms": (svc.timers[k] - timers0[k]) * 1e3
+                  for k in svc.timers})
+    return {"rows": rows, "wall_ms": wall, "split": split,
+            "stats_ms": spy.ms - ms0 if spy is not None else None,
+            "delta": {k: svc.counters[k] - before[k] for k in svc.counters
+                      if svc.counters[k] != before[k]}}
+
+
+def _adaptive_battery(xs, svc, frozen, fsvc, frozen_confs,
+                      want: Dict[str, list], pid: int,
+                      texts: Dict[str, str],
+                      spy: Optional[_StatsRound] = None) -> dict:
+    """The six scenarios in order on ``xs`` (adaptive) and, for the
+    control, ``frozen`` under ``frozen_confs`` (``adaptiveReplan``
+    false): each one's rows must equal ``want`` and its counter deltas
+    ``ADAPTIVE_SCENARIOS``; prints ``[p<pid>] <SCENARIO>-OK (<rows>
+    rows)`` for each, raises ``AssertionError`` on the first that breaks.
+    ``texts`` maps demote, demote_r, skew and agg to their SQL."""
+    from . import config as C
+    smj = C.CROSSPROC_SORT_MERGE_JOIN.key
+    # each scenario's session, service and confs
+    plan = {"DEMOTE": (xs, svc, None), "FEEDBACK": (xs, svc, None),
+            "RANGE-DEMOTE": (xs, svc, {smj: "true"}),
+            "FROZEN": (frozen, fsvc, frozen_confs),
+            "SKEW": (xs, svc, adaptive_skew_pins()),
+            "AGGPUSH": (xs, svc, None)}
+    out: Dict[str, Any] = {}
+    for name, text, _asserts in ADAPTIVE_SCENARIOS:
+        sess, service, confs = plan[name]
+        run = _adaptive_run(sess, service, spy if sess is xs else None,
+                            texts[text], confs)
+        bad = adaptive_counter_problems(name, run["delta"])
+        if run["rows"] != want[text]:
+            bad.append(f"{len(run['rows'])} rows differ from the "
+                       f"single-process answer ({len(want[text])})")
+        if name == "DEMOTE" and len(xs.statsFeedback) < 2:
+            bad.append(f"statsFeedback {xs.statsFeedback.snapshot()}")
+        if name == "AGGPUSH":
+            # the generic gather, same session: the same rows
+            run["unpushed"] = _adaptive_run(
+                xs, svc, None, texts[text],
+                {C.CROSSPROC_SHUFFLED_JOIN.key: "false"})
+            if run["unpushed"]["rows"] != want[text]:
+                bad.append("the unpushed gather's rows differ")
+        out[name] = run
+        if bad:
+            raise AssertionError(f"[p{pid}] {name}: {'; '.join(bad)}: "
+                                 f"{run['delta']}")
+        print(f"[p{pid}] {name}-OK ({len(run['rows'])} rows)", flush=True)
+    return out
+
+
+def _adaptive_totals_line(pid: int, c: dict) -> str:
+    return f"[p{pid}] ADAPT-OK " + " ".join(
+        f"{name}={c[key]}" for name, key in ADAPTIVE_TOTALS)
+
+
+#: the [adaptive] card texts over q3's SF1 tables with date_dim
+#: partitioned: date_dim's plan-time leaf (73,049 rows of 16 B) is above
+#: the default 1 MiB bar, its ``d_moy = 11`` rows far below it
+ADAPTIVE_CARD_DEMOTE_SQL = (
+    "SELECT d_year, count(*) AS n, sum(ss_item_sk) AS s FROM store_sales "
+    "JOIN date_dim ON ss_sold_date_sk = d_date_sk WHERE d_moy = 11 "
+    "GROUP BY d_year ORDER BY d_year")
+ADAPTIVE_CARD_DEMOTE_R_SQL = ADAPTIVE_CARD_DEMOTE_SQL.replace(
+    "d_moy = 11", "d_moy = 12")
+#: a keyed aggregate of store_sales below its join with item (partitioned)
+ADAPTIVE_CARD_AGG_SQL = (
+    "SELECT i_item_sk, i_brand_id, n FROM item JOIN "
+    "(SELECT ss_item_sk, count(*) AS n FROM store_sales "
+    "GROUP BY ss_item_sk) a ON i_item_sk = ss_item_sk ORDER BY i_item_sk")
+ADAPTIVE_CARD_TEXTS = {"demote": ADAPTIVE_CARD_DEMOTE_SQL,
+                       "demote_r": ADAPTIVE_CARD_DEMOTE_R_SQL,
+                       "skew": ADAPTIVE_SKEW_SQL,
+                       "agg": ADAPTIVE_CARD_AGG_SQL}
+#: [adaptive]'s one pin, the battery's: the hash lane where a join is
+#: range-eligible (the broadcast bar and ``adaptiveReplan`` stay at their
+#: defaults, 1 MiB and true)
+ADAPTIVE_CARD_CONF = {"spark.tpu.crossproc.sortMergeJoin": "false"}
+ADAPTIVE_TEXTS = {"demote": ADAPTIVE_DEMOTE_SQL,
+                  "demote_r": ADAPTIVE_DEMOTE_R_SQL,
+                  "skew": ADAPTIVE_SKEW_SQL, "agg": ADAPTIVE_AGG_SQL}
+
+
+def adaptive_skew_tables(probe: int, build: int, keys: int = 16,
+                         fat_key: int = 3, seed: int = 11) -> dict:
+    """The battery's skew shape at card size: ``probe`` rows of ``skl``
+    over ``keys`` keys in turn, key ``fat_key``'s strings 280 characters
+    and unique, the others 8; ``build`` rows of ``skr`` over the same
+    keys in turn."""
+    rng = np.random.default_rng(seed)
+    rk = (np.arange(probe) % keys).astype(np.int64)
+    t = np.array([f"s{i:07d}" for i in range(probe)], dtype=object)
+    fat = np.flatnonzero(rk == fat_key)
+    t[fat] = [f"r{i:07d}" * 35 for i in fat]
+    return {"skl": {"rk": rk, "t": t},
+            "skr": {"rk2": (np.arange(build) % keys).astype(np.int64),
+                    "w2": rng.integers(1, 50, build).astype(np.int64)}}
+
+
+def register_adaptive_card_tables(session, T, spec: dict,
+                                  pid: Optional[int] = None,
+                                  n: int = 1) -> None:
+    """[adaptive]'s views: q3's tables at ``spec["q3"]``'s row counts,
+    every one partitioned (process ``pid`` of ``n`` holds its contiguous
+    share), and the skew tables at ``spec["skew"]``'s; ``pid`` None
+    registers every table whole."""
+    q3 = q3_tables(spec["q3"]["store_sales"], spec["q3"]["item"],
+                   spec["q3"]["date_dim"])
+    skew = adaptive_skew_tables(**spec["skew"])
+
+    def share(cols):
+        if pid is None:
+            return cols
+        rows = len(next(iter(cols.values())))
+        lo, hi = pid * rows // n, (pid + 1) * rows // n
+        return {k: v[lo:hi] for k, v in cols.items()}
+
+    for name, cols in q3.items():
+        st = T.StructType([T.StructField(c, T.type_for_name(t))
+                           for c, t in Q3_SCHEMAS[name]])
+        session.createDataFrame(share(cols), schema=st) \
+            .createOrReplaceTempView(name)
+    for name, cols in skew.items():
+        session.createDataFrame(share(cols)).createOrReplaceTempView(name)
+
+
+#: the warm runs of a card text, frozen or not, in turns; the skew text
+#: (seconds a run, its broadcast pinned off either way) runs once each
+ADAPTIVE_TURNS = {"skew": (False, True)}
+
+
+def _adaptive_card(xs, svc, pid: int, want: Dict[str, list]) -> dict:
+    """[adaptive]'s runs in one worker (see ``chip_smoke.py``): the six
+    scenarios under the default cross-process conf but
+    ``ADAPTIVE_CARD_CONF`` (the frozen control
+    with ``adaptiveReplan`` false on the same session), each text's warm
+    walls adaptive and frozen in turns (on, off, off, on), then the
+    frozen and pushdown texts with the device tier on, cold with every
+    pull held against its plain version, then warm.  K1's launches and
+    K2's pulls count from 0 just before; every K1 launch outside a
+    capture is held against its plain version."""
+    from . import config as C
+    from . import cuda_a2a, cuda_agg
+    from .parallel import ici
+    frozen_conf = {C.CROSSPROC_ADAPTIVE_REPLAN.key: "false"}
+    spy = _StatsRound(svc)
+    for entry in cuda_agg.ENTRY_LAUNCHES:
+        cuda_agg.ENTRY_LAUNCHES[entry] = 0
+        cuda_agg.CAPTURED_LAUNCHES[entry] = 0
+    cuda_a2a.PULL_LAUNCHES = 0
+    ici.reset_stats()
+    out: Dict[str, Any] = {}
+    with _K1Compare() as k1:
+        out["scenarios"] = _adaptive_battery(
+            xs, svc, xs, svc, frozen_conf, want, pid, ADAPTIVE_CARD_TEXTS,
+            spy)
+        pins = {"demote": {}, "demote_r": {C.CROSSPROC_SORT_MERGE_JOIN.key:
+                                           "true"},
+                "skew": adaptive_skew_pins(), "agg": {}}
+        turns = {}
+        for text, sql in ADAPTIVE_CARD_TEXTS.items():
+            turns[text] = [
+                dict(_adaptive_run(xs, svc, spy, sql,
+                                   dict(pins[text], **(frozen_conf if off
+                                                       else {}))),
+                     frozen=off)
+                for off in ADAPTIVE_TURNS.get(text, (False, True, True,
+                                                     False))]
+        out["turns"] = turns
+        tier = {"spark.tpu.shuffle.ici.enabled": "true"}
+        ici_runs = {}
+        for text in ("demote", "agg"):
+            confs = dict(tier, **frozen_conf)
+            os.environ[ici.CHECK_ENV] = "1"
+            try:
+                pulls0 = cuda_a2a.PULL_LAUNCHES
+                cold = _adaptive_run(xs, svc, spy, ADAPTIVE_CARD_TEXTS[text],
+                                     confs)
+                cold["pull_launches"] = cuda_a2a.PULL_LAUNCHES - pulls0
+            finally:
+                os.environ.pop(ici.CHECK_ENV, None)
+            pulls0 = cuda_a2a.PULL_LAUNCHES
+            warm = _adaptive_run(xs, svc, spy, ADAPTIVE_CARD_TEXTS[text],
+                                 confs)
+            warm["pull_launches"] = cuda_a2a.PULL_LAUNCHES - pulls0
+            ici_runs[text] = {"cold": cold, "warm": warm}
+        out["ici"] = ici_runs
+    out["ici_check"] = dict(ici.CHECK)
+    out["pull_launches"] = cuda_a2a.PULL_LAUNCHES
+    out["k1"] = {"launches": dict(cuda_agg.ENTRY_LAUNCHES),
+                 "captured": dict(cuda_agg.CAPTURED_LAUNCHES),
+                 "checked": k1.checked, "equal": k1.equal,
+                 "max_abs_err": k1.max_abs_err}
+    out["stats_rounds"] = spy.rounds
+    return out
+
+
+def adaptive_worker(argv: Sequence[str]) -> int:
+    """One process of the adaptive battery.
+
+    argv: ``<pid> <n> <root> <mode> <timeout_s> <device>``.  Modes:
+    ``adaptive`` (the six scenarios over ``adaptive_tables``, the frozen
+    control on a second session under ``<root>/shuffle-frozen``; last
+    line ``[p<pid>] ADAPT-OK replans=.. demotions=.. fbhits=..
+    postskew=.. bcast=.. shuffled=.. range=..``), ``fault-adapt`` (the
+    demotion text once with a ``FaultInjector`` armed from
+    ``SPARK_TPU_FAULT_PLAN``: its stats round is ``xq000001-plan``, its
+    demotion gather ``xq000001-bcast``; prints ``[p<pid>] OK rows=..
+    replans=.. demotions=.. bcast=.. shuffled=..``, ``[p<pid>] FAILED <s>
+    <lost>`` or ``[p<pid>] PARTIAL`` (exit 1)) and ``card`` ([adaptive]
+    of ``chip_smoke.py``: ``register_adaptive_card_tables`` over
+    ``<root>/spec.json``, the single-process answers from
+    ``<root>/want.json``, ``_adaptive_card``).  Writes
+    ``<root>/result-p<pid>.json``."""
+    from . import config as C
+    from . import types as T
+    from .parallel.faults import FaultInjector
+    from .parallel.hostshuffle import ExchangeFetchFailed
+    from .sql.session import SparkSession
+
+    pid, n, root, mode, timeout_s, device = _worker_argv(
+        "adaptive worker", argv)
+    if mode not in ("adaptive", "fault-adapt", "card"):
+        raise ValueError(f"adaptive worker mode {mode!r}")
+    check_worker_card(device, "adaptive worker")
+    if device == "cpu":
+        torch.set_num_threads(1)    # the workers share the host's cores
+    base = SparkSession.builder.config("spark.torch.device", device) \
+        .getOrCreate()
+    base.conf.set(C.MESH_SHARDS.key, "1")
+    result: Dict[str, Any] = {"pid": pid, "mode": mode}
+
+    def session(sub: str, confs: Dict[str, str]):
+        xs = base.newSession()
+        for k, v in confs.items():
+            xs.conf.set(k, v)
+        svc = xs.enableHostShuffle(os.path.join(root, sub), pid, n,
+                                   timeout_s=timeout_s)
+        svc.poll_s = 0.005          # one host: poll the markers often
+        return xs, svc
+
+    if mode == "card":
+        with open(os.path.join(root, "spec.json")) as f:
+            spec = json.load(f)
+        xs, svc = session("shuffle", dict(ADAPTIVE_CARD_CONF,
+                                          **spec.get("conf", {})))
+        t0 = time.perf_counter()
+        register_adaptive_card_tables(xs, T, spec, pid, n)
+        result["setup_ms"] = (time.perf_counter() - t0) * 1e3
+        # the single-process answers, written by the parent beside us
+        want_path = os.path.join(root, "want.json")
+        deadline = time.monotonic() + 10 * timeout_s
+        while not os.path.exists(want_path):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{want_path} never appeared")
+            time.sleep(0.05)
+        with open(want_path) as f:
+            want = json.load(f)
+        result.update(_adaptive_card(xs, svc, pid, want))
+        result["counters"] = dict(svc.counters)
+        _write_result(root, pid, result)
+        print(_adaptive_totals_line(pid, svc.counters), flush=True)
+        return 0
+
+    one = base.newSession()
+    for name, cols in adaptive_tables().items():
+        one.createDataFrame(cols).createOrReplaceTempView(name)
+
+    def views(xs):
+        for name, cols in adaptive_tables(pid, n).items():
+            xs.createDataFrame(cols).createOrReplaceTempView(name)
+
+    xs, svc = session("shuffle", _adaptive_confs(True))
+    views(xs)
+    if mode == "fault-adapt":
+        FaultInjector().attach(svc)      # the plan: SPARK_TPU_FAULT_PLAN
+        exp = jsonable_rows(tuple(r) for r in
+                            one.sql(ADAPTIVE_DEMOTE_SQL).collect())
+        t0 = time.time()
+        try:
+            got = jsonable_rows(tuple(r) for r in
+                                xs.sql(ADAPTIVE_DEMOTE_SQL).collect())
+        except (ExchangeFetchFailed, TimeoutError) as e:
+            lost = sorted(getattr(e, "lost_hosts", []) or [])
+            result.update(outcome=type(e).__name__, lost_hosts=lost,
+                          elapsed_s=time.time() - t0,
+                          counters=dict(svc.counters))
+            _write_result(root, pid, result)
+            print(f"[p{pid}] FAILED {time.time() - t0:.2f} {lost}",
+                  flush=True)
+            return 0
+        c = svc.counters
+        result.update(outcome="ok", rows=got, expected=exp,
+                      counters=dict(c))
+        _write_result(root, pid, result)
+        if got != exp:
+            print(f"[p{pid}] PARTIAL got={len(got)} exp={len(exp)}",
+                  flush=True)
+            return 1
+        print(f"[p{pid}] OK rows={len(got)} "
+              f"replans={c['adaptive_replans']} "
+              f"demotions={c['strategy_demotions']} "
+              f"bcast={c['broadcast_joins']} "
+              f"shuffled={c['shuffled_joins']}", flush=True)
+        return 0
+    frozen, fsvc = session("shuffle-frozen", _adaptive_confs(False))
+    views(frozen)
+    want = {k: jsonable_rows(tuple(r) for r in one.sql(sql).collect())
+            for k, sql in ADAPTIVE_TEXTS.items()}
+    result["scenarios"] = _adaptive_battery(xs, svc, frozen, fsvc, None,
+                                            want, pid, ADAPTIVE_TEXTS)
+    result["counters"] = dict(svc.counters)
+    _write_result(root, pid, result)
+    print(_adaptive_totals_line(pid, svc.counters), flush=True)
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -3606,18 +4362,134 @@ def graph_from_reference(graph, device=None):
                  {k: t(v) for k, v in graph.edge_attrs.items()})
 
 
+def chaos_todo(table: List[dict], tier: str = "all",
+               only: Sequence[str] = (), blockserver: bool = False,
+               pool: bool = False, seed: int = 0) -> List[dict]:
+    """The runner's scenarios: those of ``table`` in ``tier`` (``tier1``,
+    ``slow`` or ``all``) whose name holds one of ``only`` (all when
+    empty), only the ``blockserver-`` or ``pool-`` rows if asked, in
+    table order for seed 0, else shuffled by ``random.Random(seed)``."""
+    import random
+    todo = [sc for sc in table if tier in ("all", sc["tier"])
+            and (not only or any(pat in sc["name"] for pat in only))]
+    if blockserver:
+        todo = [sc for sc in todo if sc["name"].startswith("blockserver-")]
+    if pool:
+        todo = [sc for sc in todo if sc["name"].startswith("pool-")]
+    if seed:
+        random.Random(seed).shuffle(todo)
+    return todo
+
+
+def chaos_main(argv: Sequence[str]) -> int:
+    """``python -m spark_tpu_torch.testing chaos``: run the matrix
+    (``matrix_scenarios``, or ``stream_scenarios`` with ``--streaming``)
+    or a filtered part of it on ``--device`` (``cuda`` by default: without
+    a card it exits 2 and never falls back to the CPU), in a seeded
+    order, and print a verdict table.  Exit 0 only if every scenario
+    passes."""
+    import argparse
+    import shutil
+    import tempfile
+
+    ap = argparse.ArgumentParser(
+        prog="python -m spark_tpu_torch.testing chaos",
+        description="kill-at-phase fault-injection matrix over real "
+        "multi-process exchanges")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="schedule seed: shuffles the scenario order "
+                    "deterministically (default 0 = table order)")
+    ap.add_argument("--only", action="append", default=[],
+                    help="run only scenarios whose name contains this "
+                    "substring (repeatable)")
+    ap.add_argument("--tier", choices=("tier1", "slow", "all"),
+                    default="all", help="restrict to one tier")
+    ap.add_argument("--root", default=None,
+                    help="parent directory of the scenarios' roots "
+                    "(default: a fresh temporary directory per scenario, "
+                    "removed when it passes)")
+    ap.add_argument("--streaming", action="store_true",
+                    help="run the standing-query kill/restart group "
+                    "instead of the exchange matrix")
+    ap.add_argument("--blockserver", action="store_true",
+                    help="run only the block-service rows")
+    ap.add_argument("--pool", action="store_true",
+                    help="run only the worker-pool rows")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="the workers' device (default cuda)")
+    args = ap.parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("chaos: --device cuda, but no CUDA card is visible "
+              "(torch.cuda.is_available() is False); the matrix does not "
+              "fall back to the CPU: pass --device cpu to run it there",
+              file=sys.stderr)
+        return 2
+
+    todo = chaos_todo(
+        stream_scenarios() if args.streaming else matrix_scenarios(),
+        args.tier, args.only, args.blockserver, args.pool, args.seed)
+    if not todo:
+        print("no scenarios matched")
+        return 2
+
+    rows, failed = [], 0
+    for i, sc in enumerate(todo):
+        parent = args.root or tempfile.mkdtemp(prefix="chaos-")
+        root = os.path.join(parent, f"{i:02d}-{sc['name']}")
+        print(f"[chaos] {i + 1}/{len(todo)} {sc['name']} (phase "
+              f"{sc['phase']}, n={sc['n']}, {args.device}) ...", flush=True)
+        try:
+            results, elapsed = run_scenario(sc, root, args.device)
+            bad = check_scenario(sc, results, elapsed)
+        except Exception as e:               # runner plumbing, not verdict
+            results, elapsed, bad = {}, 0.0, [f"runner error: {e!r}"]
+        rows.append((sc, elapsed, bad))
+        failed += bool(bad)
+        for b in bad:
+            print(f"  !! {b}", flush=True)
+        if bad:
+            for pid, (rc, out) in results.items():
+                print(f"  -- p{pid} rc={rc} tail: {out.splitlines()[-3:]}",
+                      flush=True)
+        elif args.root is None:
+            shutil.rmtree(parent, ignore_errors=True)
+
+    name_w = max(len(sc["name"]) for sc, _e, _b in rows)
+    phase_w = max(len(sc["phase"]) for sc, _e, _b in rows)
+    print(f"\n{'scenario':<{name_w}}  {'phase':<{phase_w}}  "
+          f"{'tier':<5}  {'s':>6}  verdict")
+    for sc, elapsed, bad in rows:
+        verdict = "PASS" if not bad else f"FAIL ({'; '.join(bad)})"
+        print(f"{sc['name']:<{name_w}}  {sc['phase']:<{phase_w}}  "
+              f"{sc['tier']:<5}  {elapsed:>6.1f}  {verdict}")
+    print(f"\n{len(rows) - failed}/{len(rows)} scenarios passed "
+          f"(seed {args.seed})", flush=True)
+    return 1 if failed else 0
+
+
+#: the entries of ``python -m spark_tpu_torch.testing <entry> ...``
+WORKERS = {"crossproc-worker": crossproc_worker,
+           "recovery-worker": recovery_worker,
+           "analysis-worker": analysis_worker,
+           "adaptive-worker": adaptive_worker,
+           "stream-chaos": stream_chaos_worker,
+           "pool-worker": pool_worker,
+           "stream-worker": stream_worker,
+           "arena-peer": arena_peer}
+
+
 def _main(argv: Sequence[str]) -> int:
-    workers = {"crossproc-worker": crossproc_worker,
-               "recovery-worker": recovery_worker,
-               "analysis-worker": analysis_worker,
-               "pool-worker": pool_worker,
-               "stream-worker": stream_worker,
-               "arena-peer": arena_peer}
-    if argv and argv[0] in workers:
-        return workers[argv[0]](argv[1:])
+    if argv and argv[0] in WORKERS:
+        return WORKERS[argv[0]](argv[1:])
+    if argv and argv[0] == "chaos":
+        return chaos_main(argv[1:])
     print("usage: python -m spark_tpu_torch.testing "
-          "{crossproc-worker|recovery-worker|analysis-worker|pool-worker} "
+          "{crossproc-worker|recovery-worker|analysis-worker|"
+          "adaptive-worker|pool-worker|stream-chaos} "
           "<pid> <n> <root> <mode> <timeout_s> {cpu|cuda}\n"
+          "       python -m spark_tpu_torch.testing chaos [--seed S] "
+          "[--only NAME]... [--tier {tier1,slow,all}] [--root DIR] "
+          "[--streaming] [--blockserver] [--pool] [--device {cuda,cpu}]\n"
           "       python -m spark_tpu_torch.testing stream-worker "
           "<root> <shape> <ckpt> <out> <device> [restart]\n"
           "       python -m spark_tpu_torch.testing arena-peer "

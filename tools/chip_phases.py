@@ -9,8 +9,9 @@ entries of the kernels line from its kernel check.
 
 Phases: ``mesh`` (the mesh lane's three queries at 4 shards, captured,
 then K2's and ``lpt_assign``'s checks), ``pool``, ``stream``, ``analysis``,
-``ml``, ``cards`` (shards on several cards, phase 23, which needs two
-cards or more, run on a host with four; it prints its kernels line).  K1's kernel
+``adaptive``, ``ml``, ``cards`` (shards on several cards, phase 24, which
+needs two cards or more, run on a host with four; it prints its kernels
+line).  K1's kernel
 check runs first unless ``cards`` alone is named.  The last line is a
 JSON
 list of the runs (phase, ok, seconds, the failure); the exit code is 1
@@ -54,6 +55,8 @@ PHASES = {
     "analysis": lambda c: CS.phase_analysis(
         c["session"], c["hash_table"], c["tables"], c["k1"], c["k2"],
         c["pull"]),
+    "adaptive": lambda c: CS.phase_adaptive(c["session"], c["k1"],
+                                            c["pull"]),
     "ml": lambda c: CS.phase_ml(c["session"], c["k1"], c["k2"], c["pull"]),
 }
 
